@@ -1,0 +1,418 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+Run from the repository root: ``python3 chip_smoke.py``.  It needs one
+CUDA card and the CUDA toolkit (``nvcc``); it builds the port's kernels
+from ``src/repro_torch/csrc`` into ``build/`` and exits non-zero, with no
+result line, when there is no card or no port beside it.
+
+Phases, in order (any failure raises and exits non-zero):
+
+1. the card's ``name, power.limit`` (nvidia-smi), the torch version, and
+   the kernels' build time;
+2. every kernel against its plain PyTorch version on the card, bit for bit
+   (``torch.equal`` on integer views): dtypes float32/bfloat16/int32/int8,
+   FIELD 2/3/4/8, widths 256 and 6144 with a ragged row count, in both plan
+   modes (the cost model's pick and the fused Benes plan, forced);
+3. timings at the main path's shapes: kernel, plain version, one PyTorch
+   library call computing the same function (timed here only, never used
+   by the port), and the bound (bytes moved / 3.35 TB/s);
+   Each timed call is first held bit for bit against its plain version;
+4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
+   random weights) served through the port's ``Scheduler``: 4 requests of
+   40-100 prompt tokens, 16 greedy tokens each, under the policies
+   ``kernel``, ``ref``, ``ref``, ``kernel`` in that order.  The token
+   streams must be equal, both kernels must have launched on the main path,
+   and the fused KV split must launch exactly once per decode step.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
+torch.profiler-traced serve run per policy and the operators whose host
+and device times differ most between them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+SOURCE = "src/repro_torch/csrc/segment.cu"
+REPLACES = {"deinterleave": "src/repro/kernels/segment.py:85",
+            "interleave": "src/repro/kernels/segment.py:156"}
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def int_view(t):
+    import torch
+    return t.contiguous().view({1: torch.int8, 2: torch.int16,
+                                4: torch.int32,
+                                8: torch.int64}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        torch.equal(int_view(a), int_view(b))
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(dev) -> int:
+    import torch
+    from repro_torch.core import shiftplan
+    from repro_torch.kernels import segment
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+
+    def rand(shape, dtype):
+        if dtype in (torch.int32, torch.int8):
+            return torch.randint(-100, 100, shape, generator=g, device=dev,
+                                 dtype=dtype)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int8):
+        for fields in (2, 3, 4, 8):
+            for rows, width in ((7, 6144), (1001, 256)):
+                m = width // fields          # fields=3 at 256 lanes: 255
+                n = fields * m
+                for mode in ("picked", "fused"):
+                    dp = ip = None
+                    if mode == "fused":
+                        dp = ("fused", (shiftplan.deinterleave_plan(n,
+                                                                    fields),))
+                        ip = ("fused", (shiftplan.interleave_plan(n,
+                                                                  fields),))
+                    aos = rand((rows, n), dtype)
+                    got = segment.deinterleave(aos, fields, plans=dp)
+                    want = segment.deinterleave_plain(aos, fields, plans=dp)
+                    torch.cuda.synchronize()
+                    soa = [rand((rows, m), dtype) for _ in range(fields)]
+                    got_i = segment.interleave(soa, plans=ip)
+                    want_i = segment.interleave_plain(soa, plans=ip)
+                    torch.cuda.synchronize()
+                    where = f"{dtype} fields={fields} n={n} rows={rows} {mode}"
+                    if not all(same_bits(a, b) for a, b in zip(got, want)):
+                        raise AssertionError(f"B1 deinterleave != plain: "
+                                             f"{where}")
+                    if not same_bits(got_i, want_i):
+                        raise AssertionError(f"B2 interleave != plain: "
+                                             f"{where}")
+                    cases += 1
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: timings at the main path's shapes
+# ---------------------------------------------------------------------------
+
+def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
+    import torch
+    from repro_torch.kernels import segment
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 1)
+    K, hd = full_cfg.n_kv_heads, full_cfg.hd
+    out = {}
+
+    def record(name, run, plain, library, x_bytes, shape):
+        got, want = run(), plain()
+        got = got if isinstance(got, list) else [got]
+        want = want if isinstance(want, list) else [want]
+        torch.cuda.synchronize()
+        if len(got) != len(want):
+            raise AssertionError(f"{name} {shape}: {len(got)} outputs, plain "
+                                 f"version has {len(want)}")
+        for f, (a, b) in enumerate(zip(got, want)):
+            if not same_bits(a, b):
+                raise AssertionError(f"{name} {shape}: output {f} differs "
+                                     f"from the plain version")
+        err = 0.0                   # bit-equal outputs: no error at all
+        iters = 20
+        ms, plain_ms, lib_ms = (time_ms(f, iters)
+                                for f in (run, plain, library))
+        bound = 2 * x_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"time {name} {shape}: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms (bytes), max_abs_err {err}")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                "bound_ms": bound, "max_abs_err": err, "shape": shape}
+
+    # B1 main path: the fused FIELD=2 KV split of one decode step, every
+    # layer's gathered pages at once: (NS, slots, max_len, K, 2*hd) bf16
+    kv = torch.randn((full_cfg.n_superblocks, slots, max_len, K, 2 * hd),
+                     generator=g, device=dev).to(torch.bfloat16)
+    R = kv.numel() // (2 * hd)
+    out["deinterleave"] = record(
+        "deinterleave", lambda: segment.deinterleave(kv, 2),
+        lambda: segment.deinterleave_plain(kv, 2),
+        lambda: kv.view(R, hd, 2).permute(2, 0, 1).contiguous(),
+        kv.numel() * kv.element_size(), list(kv.shape))
+    # B1 on the prefill GLU split (16 tokens x 2*d_ff), printed only
+    gu = torch.randn((1, 16, 2 * full_cfg.d_ff), generator=g,
+                     device=dev).to(torch.bfloat16)
+    record("deinterleave[glu]", lambda: segment.deinterleave(gu, 2),
+           lambda: segment.deinterleave_plain(gu, 2),
+           lambda: gu.view(16, full_cfg.d_ff, 2).permute(2, 0, 1)
+           .contiguous(), gu.numel() * gu.element_size(), list(gu.shape))
+    # B2 main path: the post-RoPE K/V beat re-pack of a 16-token prefill
+    # chunk, (1, 16, K, hd) x 2 -> (1, 16, K, 2*hd) bf16
+    k = torch.randn((1, 16, K, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn((1, 16, K, hd), generator=g,
+                    device=dev).to(torch.bfloat16)
+    out["interleave"] = record(
+        "interleave", lambda: segment.interleave([k, v]),
+        lambda: segment.interleave_plain([k, v]),
+        lambda: torch.stack([k, v], dim=-1).flatten(-2),
+        2 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
+    # B2 at a decode-step-sized stack (printed only; the main path keeps
+    # single-token beats below the launch threshold)
+    kb = kv[..., :hd].contiguous()
+    vb = kv[..., hd:].contiguous()
+    record("interleave[stack]", lambda: segment.interleave([kb, vb]),
+           lambda: segment.interleave_plain([kb, vb]),
+           lambda: torch.stack([kb, vb], dim=-1).flatten(-2),
+           2 * kb.numel() * kb.element_size(), list(kb.shape) + ["x2"])
+    del kv, kb, vb
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve qwen3-0.6b at full width through the port
+# ---------------------------------------------------------------------------
+
+def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
+          max_len: int, page_size: int, profiled: bool = False) -> dict:
+    """One serve run under policy ``impl``; with ``profiled`` the run is
+    traced by torch.profiler (host and device) and the trace returned."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import segment
+    from repro_torch.serve.scheduler import Scheduler
+    sched = Scheduler(dataclasses.replace(cfg, kernel_impl=impl), params,
+                      slots=slots, max_len=max_len, page_size=page_size,
+                      cache_dtype=torch.bfloat16, device=dev)
+    step_launches, step_ms, step_tokens = [], [], []
+    plain_step = sched.step
+
+    def counted_step():
+        torch.cuda.synchronize()
+        d0 = segment.deinterleave.launches
+        t0 = time.perf_counter()
+        out = plain_step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_launches.append(segment.deinterleave.launches - d0)
+        step_tokens.append(sum(1 for t in out if t >= 0))
+        return out
+
+    sched.step = counted_step
+    reqs = [sched.submit(p, max_new_tokens=gen) for p in prompts]
+    torch.cuda.synchronize()
+    tracer = (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext())
+    segment.reset_counts()                  # counts from here: main path
+    with tracer as prof:
+        t0 = time.perf_counter()
+        for _ in range(10 * (gen + max_len)):
+            sched.tick()
+            if sched.drained():
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {"deinterleave": segment.deinterleave.launches,
+                "interleave": segment.interleave.launches}
+    if not sched.drained():
+        raise AssertionError(f"{impl}: the scheduler never drained")
+    logits = sched.last_logits
+    if logits is None or tuple(logits.shape) != (slots, cfg.vocab) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"{impl}: last logits not finite of shape "
+                             f"({slots}, {cfg.vocab})")
+    streams = [r.tokens for r in reqs]
+    for r in reqs:
+        if r.state.value != "finished" or r.generated != gen or \
+                not all(0 <= t < cfg.vocab for t in r.tokens):
+            raise AssertionError(f"{impl}: request {r.rid} ended "
+                                 f"{r.state.value} with {r.generated} tokens")
+    stats = sched.stats()
+    del sched
+    torch.cuda.empty_cache()
+    return {"streams": streams, "launches": launches,
+            "step_launches": step_launches, "step_ms": step_ms,
+            "step_tokens": step_tokens,
+            "wall_s": wall, "tokens": gen * len(prompts),
+            "prefill_chunks": stats["prefill_chunks"],
+            "decode_steps": stats["decode_steps"], "prof": prof}
+
+
+def profile_policies(runs: dict) -> None:
+    """``--profile``: where each policy's serve run spends its time, from
+    torch.profiler traces of one whole run (prefill and decode) per policy.
+    Prints each run's host wall time, device busy time (device events only:
+    an operator's row repeats its kernels' time), host time inside
+    operators, and kernel launches; then the operators whose host and
+    device times differ most between the ``kernel`` and ``ref`` runs."""
+    from torch.autograd import DeviceType
+    host, device = {}, {}
+    for impl, r in runs.items():
+        ka = r["prof"].key_averages()
+        device[impl] = {e.key: e.self_device_time_total / 1e3 for e in ka
+                        if e.device_type == DeviceType.CUDA}
+        host[impl] = {e.key: e.self_cpu_time_total / 1e3 for e in ka
+                      if e.device_type == DeviceType.CPU}
+        wall_ms = r["wall_s"] * 1e3
+        dev_ms = sum(device[impl].values())
+        op_ms = sum(host[impl].values())
+        launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+        print(f"profile[{impl}]: {r['prefill_chunks']} prefill chunks + "
+              f"{r['decode_steps']} decode steps in {wall_ms:.3f} ms (host "
+              f"clock, traced); device busy {dev_ms:.3f} ms = "
+              f"{dev_ms / wall_ms:.4f} of the run; host self time in "
+              f"operators {op_ms:.3f} ms, outside them {wall_ms - op_ms:.3f} "
+              f"ms; {launches} cudaLaunchKernel")
+    for kind, table in (("host", host), ("device", device)):
+        k, rf = table["kernel"], table["ref"]
+        keys = sorted(set(k) | set(rf),
+                      key=lambda x: -abs(k.get(x, 0.0) - rf.get(x, 0.0)))
+        for key in keys[:12]:
+            a, b = k.get(key, 0.0), rf.get(key, 0.0)
+            print(f"  {kind} {key[:72]}: kernel {a:.3f} ms, ref {b:.3f} ms,"
+                  f" kernel-ref {a - b:+.3f} ms")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+
+    from repro_torch.configs.qwen3_0_6b import config
+    from repro_torch.kernels import _common
+    from repro_torch.models.transformer import init_params
+
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _common.library("segment")
+    print(f"build: segment.cu in {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    cases = check_kernels(dev)
+    print(f"kernels == plain: {cases} cases x 2 kernels bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    cfg = config()
+    slots, max_len, page_size, gen = 4, 512, 16, 16
+    timing = time_kernels(dev, cfg, slots, max_len)
+
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(40, 101, slots)]
+    params = init_params(cfg, SEED, device=dev)
+    # kernel, ref, ref, kernel: the host clock drifts within a call, and
+    # this order puts both policies at the same mean position
+    order = ("kernel", "ref", "ref", "kernel")
+    runs = [(impl, serve(dev, cfg, params, impl, prompts, gen, slots,
+                         max_len, page_size)) for impl in order]
+    for impl, r in runs:
+        decode_s = sum(r["step_ms"]) / 1e3
+        print(f"serve[{impl}] {cfg.name} on {card}: generated tokens/s over "
+              f"the whole run (prefill included) "
+              f"{r['tokens'] / r['wall_s']:.2f} ({r['tokens']} tokens in "
+              f"{r['wall_s']:.3f} s); decode-step tokens/s "
+              f"{sum(r['step_tokens']) / decode_s:.2f} "
+              f"({sum(r['step_tokens'])} tokens in {decode_s:.3f} s of "
+              f"decode steps); median decode step "
+              f"{statistics.median(r['step_ms']):.3f} ms over "
+              f"{r['decode_steps']} steps; {r['prefill_chunks']} prefill "
+              f"chunks; launches {r['launches']}")
+    kr = runs[0][1]
+    for impl, r in runs[1:]:
+        if r["streams"] != kr["streams"]:
+            raise AssertionError(f"{impl} gave other token streams than the "
+                                 f"first kernel run")
+    for impl, r in runs:
+        if impl == "kernel":
+            if min(r["launches"].values()) <= 0:
+                raise AssertionError(f"a kernel never launched on the main "
+                                     f"path: {r['launches']}")
+            if any(n != 1 for n in r["step_launches"]):
+                raise AssertionError(f"fused split launches per decode step: "
+                                     f"{r['step_launches']}")
+            if r["launches"] != kr["launches"]:
+                raise AssertionError(f"kernel runs launched differently: "
+                                     f"{r['launches']} vs {kr['launches']}")
+        elif max(r["launches"].values()) != 0:
+            raise AssertionError(f"ref policy launched kernels: "
+                                 f"{r['launches']}")
+    print(f"streams equal under kernel and ref; one fused split launch in "
+          f"each of {len(kr['step_launches'])} decode steps")
+    if "--profile" in sys.argv[1:]:
+        profile_policies({impl: serve(dev, cfg, params, impl, prompts, gen,
+                                      slots, max_len, page_size,
+                                      profiled=True)
+                          for impl in ("kernel", "ref")})
+
+    kernels = []
+    for name in ("deinterleave", "interleave"):
+        t = timing[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name],
+            "launches": kr["launches"][name],
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": t["library_ms"]})
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""repro_torch — the PyTorch/CUDA port of the ``repro`` package.
+
+The port mirrors ``repro``'s module layout and names; ``repro`` stays the
+reference.  It imports ``torch`` and ``numpy`` only — never ``jax`` and
+never anything under ``repro``.
+
+Device rule: entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; with no GPU and no explicit device they raise
+(:func:`repro_torch.device.resolve`).  Kernel wrappers launch their CUDA
+kernel for CUDA tensors and take their plain PyTorch version only for CPU
+tensors.
+
+This slice ports the paged, decoder-only serving path: kernels/segment
+(CUDA kernels B1 and B2), the plan compiler, the vx layer for Segment and
+Paged specs, step fusion, the dense decoder model, paged decode, and the
+plain greedy scheduler.  ROADMAP.md lists what waits.
+"""

@@ -1,0 +1,342 @@
+// Segment (AoS <-> SoA) kernels for Hopper (sm_90a): B1 deinterleave and
+// B2 interleave, routed through compiled shift plans.
+//
+// Replaces: src/repro/kernels/segment.py, `_deint_plan_kernel` (B1, launched
+// by `deinterleave(fused=True)`) and `_int_plan_kernel` (B2, launched by
+// `interleave(fused=True)`).  Each kernel computes what the Pallas body
+// computes: the plan's layers of one static lane shift plus a select under
+// a constant take-mask (two shifts and a three-way select for an exchange
+// layer), applied to a row tile.  The plans come from
+// core/shiftplan.segment_{de,}interleave_plans: one `fused` Benes/butterfly
+// permutation over all fields, or `per_field` pruned gather (B1) / scatter
+// (B2) plans, all run in ONE launch on the same resident tile.
+//
+// Bound: pure data movement.  The least time is (bytes read + bytes
+// written) / 3.35 TB/s; the selects cost a few integer operations per lane
+// per layer and no floating point.
+//
+// What this first design does about it: each block loads its row tile from
+// device memory once (zero-padding lanes >= n up to the plan width), keeps
+// it in shared memory through every layer (ping-pong between two buffers,
+// one __syncthreads() per layer), and writes each field slice straight to
+// its output, so device memory sees each input byte read once and each
+// output byte written once.  The plan's take-masks are packed to bits by
+// the wrapper and loaded into shared memory once per block.  Threads map
+// to lanes and walk down the tile's rows: a lane's source for a layer is
+// resolved once and then copied row after row, so the inner loop is one
+// shared load and one store.  The wrapper keeps tiles small (24 KB of
+// shared memory, so eight blocks share an SM) and, for a small call, short
+// enough that the grid covers the card.  Elements move as raw bits
+// (templated on the element width: 1, 2, 4 or 8 bytes), so the permutation
+// is bit-exact for every dtype, NaN payloads included.
+//
+// Not yet done (later performance work, measured against this one): vector
+// loads of 16 bytes per thread, warp shuffles for plans narrower than a
+// warp, composing the plan into a direct index gather.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_FIELDS 16
+#define THREADS 256
+
+struct Ptrs {
+  void* p[MAX_FIELDS];
+};
+
+__device__ __forceinline__ bool lane_bit(const uint32_t* row, int lane) {
+  return (row[lane >> 5] >> (lane & 31)) & 1u;
+}
+
+// Thread layout of a row tile: `lanes` threads per row group, each group
+// taking every `groups`-th row, so a beat narrower than the block still
+// keeps every thread busy.  A thread owns the same lanes of the same rows
+// in every loop of a kernel, so its loads, layers and stores of one (row,
+// lane) need no barrier between them beyond the per-layer one.
+struct TileMap {
+  int lanes, groups, g, t;
+  __device__ TileMap(int Wn) {
+    lanes = min(Wn, (int)blockDim.x);
+    groups = blockDim.x / lanes;
+    g = threadIdx.x / lanes;         // == groups for threads left over
+    t = threadIdx.x - g * lanes;
+  }
+};
+
+// Run layers [l0, l1) of the layer table on the tile in `bin`, ping-ponging
+// between `ba` and `bb`.  A layer record is (shifts, s0, s1, mask_row):
+//   dst[c] = m1[c] ? src[c + s1] : m0[c] ? src[c + s0] : src[c]
+// with out-of-tile reads giving 0 (the non-circular static shift).  The
+// source lane of lane c is fixed for the layer, so each thread resolves it
+// once per lane and then copies it down the rows.
+// Returns the buffer that holds the routed tile (`bin` for an empty plan).
+template <typename T>
+__device__ T* route_plan(T* bin, T* ba, T* bb, int nr, int Wn, int words,
+                         const uint32_t* smask, const int* __restrict__ layers,
+                         int l0, int l1, const TileMap& tm) {
+  T* src = bin;
+  for (int l = l0; l < l1; ++l) {
+    const int ns = layers[4 * l];
+    const int s0 = layers[4 * l + 1];
+    const int s1 = layers[4 * l + 2];
+    const uint32_t* m0 = smask + (size_t)layers[4 * l + 3] * words;
+    const uint32_t* m1 = m0 + words;
+    T* dst = (src == ba) ? bb : ba;
+    if (tm.g < tm.groups) {
+      for (int c = tm.t; c < Wn; c += tm.lanes) {
+        int j = c;
+        if (ns == 2 && lane_bit(m1, c)) j = c + s1;
+        else if (lane_bit(m0, c)) j = c + s0;
+        if (j >= 0 && j < Wn) {
+          for (int r = tm.g; r < nr; r += tm.groups)
+            dst[(size_t)r * Wn + c] = src[(size_t)r * Wn + j];
+        } else {
+          for (int r = tm.g; r < nr; r += tm.groups)
+            dst[(size_t)r * Wn + c] = T(0);
+        }
+      }
+    }
+    __syncthreads();
+    src = dst;
+  }
+  return src;
+}
+
+// B1: (R, n) AoS rows -> `fields` outputs of (R, m).
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+deint_kernel(const T* __restrict__ x, Ptrs outs, long long R, int n, int m,
+             int Wn, int fused, int fields, const uint32_t* __restrict__ masks,
+             int S, int words, const int* __restrict__ layers,
+             const int* __restrict__ plan_lo, int nplans, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
+  const size_t mbytes = ((size_t)S * words * 4 + 15) & ~(size_t)15;
+  T* bin = reinterpret_cast<T*>(smem + mbytes);
+  T* ba = bin + (size_t)rows * Wn;
+  T* bb = ba + (size_t)rows * Wn;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const int nr = (int)min((long long)rows, R - r0);
+  const TileMap tm(Wn);
+  const bool live = tm.g < tm.groups;
+
+  for (int i = threadIdx.x; i < S * words; i += blockDim.x) smask[i] = masks[i];
+  const T* xs = x + r0 * n;
+  if (live) {
+    for (int c = tm.t; c < Wn; c += tm.lanes)
+      for (int r = tm.g; r < nr; r += tm.groups)
+        bin[(size_t)r * Wn + c] = c < n ? xs[(size_t)r * n + c] : T(0);
+  }
+  __syncthreads();
+
+  for (int p = 0; p < nplans; ++p) {
+    const T* res = route_plan<T>(bin, ba, bb, nr, Wn, words, smask, layers,
+                                 plan_lo[p], plan_lo[p + 1], tm);
+    if (live && fused) {
+      // field f is lanes [f*m, (f+1)*m) of the routed beat
+      for (int c = tm.t; c < n; c += tm.lanes) {
+        const int f = c / m;
+        const int j = c - f * m;
+        T* o = static_cast<T*>(outs.p[f]) + r0 * m + j;
+        for (int r = tm.g; r < nr; r += tm.groups)
+          o[(size_t)r * m] = res[(size_t)r * Wn + c];
+      }
+    } else if (live) {
+      // per-field plan p gathers field p into lanes [0, m)
+      T* o = static_cast<T*>(outs.p[p]) + r0 * m;
+      for (int c = tm.t; c < m; c += tm.lanes)
+        for (int r = tm.g; r < nr; r += tm.groups)
+          o[(size_t)r * m + c] = res[(size_t)r * Wn + c];
+    }
+    __syncthreads();
+  }
+}
+
+// B2: `fields` inputs of (R, m) -> (R, n) AoS rows.  `valid` holds one
+// packed occupancy row per per-field plan; a per-field pass writes only
+// the lanes its plan fills, and lanes no plan fills are written as 0.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+int_kernel(Ptrs ins, T* __restrict__ out, long long R, int n, int m, int Wn,
+           int fused, int fields, const uint32_t* __restrict__ masks, int S,
+           int words, const int* __restrict__ layers,
+           const int* __restrict__ plan_lo, int nplans,
+           const uint32_t* __restrict__ valid, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
+  const int vrows = fused ? 0 : nplans;
+  uint32_t* svalid = smask + (size_t)S * words;
+  const size_t mbytes = ((size_t)(S + vrows) * words * 4 + 15) & ~(size_t)15;
+  T* bin = reinterpret_cast<T*>(smem + mbytes);
+  T* ba = bin + (size_t)rows * Wn;
+  T* bb = ba + (size_t)rows * Wn;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const int nr = (int)min((long long)rows, R - r0);
+  T* os = out + r0 * n;
+  const TileMap tm(Wn);
+  const bool live = tm.g < tm.groups;
+
+  for (int i = threadIdx.x; i < S * words; i += blockDim.x) smask[i] = masks[i];
+  for (int i = threadIdx.x; i < vrows * words; i += blockDim.x) svalid[i] = valid[i];
+
+  if (fused) {
+    // concatenated SoA fields, zero-padded to the plan width
+    if (live) {
+      for (int c = tm.t; c < Wn; c += tm.lanes) {
+        if (c < n) {
+          const int f = c / m;
+          const T* xin = static_cast<const T*>(ins.p[f]) + r0 * m + (c - f * m);
+          for (int r = tm.g; r < nr; r += tm.groups)
+            bin[(size_t)r * Wn + c] = xin[(size_t)r * m];
+        } else {
+          for (int r = tm.g; r < nr; r += tm.groups)
+            bin[(size_t)r * Wn + c] = T(0);
+        }
+      }
+    }
+    __syncthreads();
+    const T* res = route_plan<T>(bin, ba, bb, nr, Wn, words, smask, layers,
+                                 plan_lo[0], plan_lo[1], tm);
+    if (live) {
+      for (int c = tm.t; c < n; c += tm.lanes)
+        for (int r = tm.g; r < nr; r += tm.groups)
+          os[(size_t)r * n + c] = res[(size_t)r * Wn + c];
+    }
+    return;
+  }
+
+  __syncthreads();
+  if (live) {
+    for (int c = tm.t; c < n; c += tm.lanes) {
+      bool any = false;
+      for (int p = 0; p < nplans; ++p) any |= lane_bit(svalid + (size_t)p * words, c);
+      if (!any)
+        for (int r = tm.g; r < nr; r += tm.groups) os[(size_t)r * n + c] = T(0);
+    }
+  }
+  for (int p = 0; p < nplans; ++p) {
+    const T* xin = static_cast<const T*>(ins.p[p]) + r0 * m;
+    if (live) {
+      for (int c = tm.t; c < Wn; c += tm.lanes)
+        for (int r = tm.g; r < nr; r += tm.groups)
+          bin[(size_t)r * Wn + c] = c < m ? xin[(size_t)r * m + c] : T(0);
+    }
+    __syncthreads();
+    const T* res = route_plan<T>(bin, ba, bb, nr, Wn, words, smask, layers,
+                                 plan_lo[p], plan_lo[p + 1], tm);
+    const uint32_t* vp = svalid + (size_t)p * words;
+    if (live) {
+      for (int c = tm.t; c < n; c += tm.lanes)
+        if (lane_bit(vp, c))
+          for (int r = tm.g; r < nr; r += tm.groups)
+            os[(size_t)r * n + c] = res[(size_t)r * Wn + c];
+    }
+    __syncthreads();
+  }
+}
+
+#define MAX_DEVICES 64
+
+// Raise a kernel's dynamic shared-memory limit when a tile needs more than
+// the default 48 KB.  `granted` (one per kernel instantiation) remembers the
+// limit already set on each device, so a steady launch sets nothing.
+template <typename K>
+static cudaError_t set_smem(K kernel, size_t smem, size_t* granted) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < MAX_DEVICES && smem <= granted[dev]) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e == cudaSuccess && dev < MAX_DEVICES) granted[dev] = smem;
+  return e;
+}
+
+template <typename T>
+static cudaError_t launch_deint(const void* x, const Ptrs& outs, long long R,
+                                int n, int m, int Wn, int fused, int fields,
+                                const void* masks, int S, int words,
+                                const void* layers, const void* plan_lo,
+                                int nplans, int rows, cudaStream_t stream) {
+  const size_t mbytes = ((size_t)S * words * 4 + 15) & ~(size_t)15;
+  const size_t smem = mbytes + 3 * (size_t)rows * Wn * sizeof(T);
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t e = set_smem(deint_kernel<T>, smem, granted);
+  if (e != cudaSuccess) return e;
+  const long long grid = (R + rows - 1) / rows;
+  deint_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), outs, R, n, m, Wn, fused, fields,
+      static_cast<const uint32_t*>(masks), S, words,
+      static_cast<const int*>(layers), static_cast<const int*>(plan_lo),
+      nplans, rows);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_int(const Ptrs& ins, void* out, long long R, int n,
+                              int m, int Wn, int fused, int fields,
+                              const void* masks, int S, int words,
+                              const void* layers, const void* plan_lo,
+                              int nplans, const void* valid, int rows,
+                              cudaStream_t stream) {
+  const int vrows = fused ? 0 : nplans;
+  const size_t mbytes = ((size_t)(S + vrows) * words * 4 + 15) & ~(size_t)15;
+  const size_t smem = mbytes + 3 * (size_t)rows * Wn * sizeof(T);
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t e = set_smem(int_kernel<T>, smem, granted);
+  if (e != cudaSuccess) return e;
+  const long long grid = (R + rows - 1) / rows;
+  int_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
+      ins, static_cast<T*>(out), R, n, m, Wn, fused, fields,
+      static_cast<const uint32_t*>(masks), S, words,
+      static_cast<const int*>(layers), static_cast<const int*>(plan_lo),
+      nplans, static_cast<const uint32_t*>(valid), rows);
+  return cudaGetLastError();
+}
+
+extern "C" {
+
+// Plain C entry points (bound with ctypes).  Each returns the cudaError_t
+// of the launch; the Python wrapper raises when it is not 0.
+int segment_deinterleave(int elem_bytes, const void* x, void* const* outs,
+                         int fields, long long R, int n, int m, int Wn,
+                         int fused, const void* masks, int S, int words,
+                         const void* layers, const void* plan_lo, int nplans,
+                         int rows, void* stream) {
+  if (fields < 1 || fields > MAX_FIELDS || rows < 1) return cudaErrorInvalidValue;
+  Ptrs p;
+  for (int i = 0; i < MAX_FIELDS; ++i) p.p[i] = i < fields ? outs[i] : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 1: return launch_deint<uint8_t>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
+    case 2: return launch_deint<uint16_t>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
+    case 4: return launch_deint<uint32_t>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
+    case 8: return launch_deint<unsigned long long>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int segment_interleave(int elem_bytes, void* const* ins, void* out, int fields,
+                       long long R, int n, int m, int Wn, int fused,
+                       const void* masks, int S, int words, const void* layers,
+                       const void* plan_lo, int nplans, const void* valid,
+                       int rows, void* stream) {
+  if (fields < 1 || fields > MAX_FIELDS || rows < 1) return cudaErrorInvalidValue;
+  Ptrs p;
+  for (int i = 0; i < MAX_FIELDS; ++i) p.p[i] = i < fields ? ins[i] : nullptr;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem_bytes) {
+    case 1: return launch_int<uint8_t>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
+    case 2: return launch_int<uint16_t>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
+    case 4: return launch_int<uint32_t>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
+    case 8: return launch_int<unsigned long long>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+const char* segment_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

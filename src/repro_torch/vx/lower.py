@@ -1,0 +1,150 @@
+"""Lowering — stage transitions of the vx pipeline, and program execution.
+
+Port of ``repro``'s ``vx/lower.py`` for the replicated builders of this
+slice: ``seg.deint`` / ``seg.int`` (plain torch oracles under ``ref``,
+CUDA kernels B1/B2 under ``kernel``) and ``paged.gather`` /
+``paged.scatter`` over float pools (plain torch ops: the reference has no
+Pallas kernel for them either).  ``lower()`` builds a validated
+:class:`~repro_torch.vx.program.Program`; ``executor()`` compiles it into
+the callable that runs it, memoized in ``vx.PLANS`` under
+``Program.key()`` (dtype and impl included).
+
+Waiting for later slices: the strided, bank, indexed and compaction
+builders, the quantized paged arm (``core/quant.py``) and every sharded
+builder.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.vx import program as prg
+from repro_torch.vx.cache import PLANS
+from repro_torch.vx.spec import AccessSpec
+
+
+def lower(op: str, specs, impl: str) -> prg.Program:
+    """Build and validate the program for one access (width = len(specs))."""
+    if isinstance(specs, AccessSpec):
+        specs = (specs,)
+    return prg.single(op, tuple(specs), impl)
+
+
+def executor(program: prg.Program, specs):
+    """The compiled callable for ``program`` (one entry per program key);
+    ``specs`` are the live AccessSpec objects in transaction order."""
+    if isinstance(specs, AccessSpec):
+        specs = (specs,)
+    txn = program.txn
+    specs = tuple(specs)
+    return PLANS.get(program.key(), lambda: _BUILDERS[txn.op](txn, specs))
+
+
+def run(op: str, spec: AccessSpec, impl: str, *operands):
+    """lower + compile + execute in one call (the verb tail)."""
+    return executor(lower(op, spec, impl), spec)(*operands)
+
+
+# ---------------------------------------------------------------------------
+# Builders
+# ---------------------------------------------------------------------------
+
+def _seg_deint(txn: prg.Txn, specs: tuple):
+    fields, impl = specs[0].fields, txn.impl
+    if impl == "ref":
+        from repro_torch.kernels import ref
+        return lambda a: ref.deinterleave(a, fields)
+    from repro_torch.kernels import segment
+    return lambda a: segment.deinterleave(a, fields, fused=impl == "kernel")
+
+
+def _seg_int(txn: prg.Txn, specs: tuple):
+    impl = txn.impl
+    if impl == "ref":
+        from repro_torch.kernels import ref
+        return lambda parts: ref.interleave(parts)
+    from repro_torch.kernels import segment
+    return lambda parts: segment.interleave(parts, fused=impl == "kernel")
+
+
+def _paged_gather(txn: prg.Txn, specs: tuple):
+    """Page-table gather: ``out[.., j, ..] = pool[.., t[j//ps], j%ps, ..]``,
+    entries ``< 0`` read as zeros.  Width-N fused transactions run on a
+    stacked pool with ONE shared table — still a single gather (the page
+    axis is found from the end)."""
+    spec = specs[0]
+    ps, pages, trail = spec.page_size, spec.pages, spec.trail
+
+    def fn(pool, table):
+        pa = spec.pool_axis(pool.ndim)
+        if pool.shape[pa + 1] != ps:
+            raise ValueError(
+                f"pool axis {pa + 1} has {pool.shape[pa + 1]} lanes, "
+                f"spec.page_size is {ps}")
+        if table.shape[-1] != pages:
+            raise ValueError(
+                f"table has {table.shape[-1]} pages, spec.pages is {pages}")
+        idx = table.clamp(min=0).reshape(-1).to(torch.int64)
+        out = pool.index_select(pa, idx)
+        out = out.reshape(pool.shape[:pa] + table.shape
+                          + pool.shape[pa + 1:])
+        # (*lead, *batch, pages, ps, *trail): zero unallocated pages
+        vshape = (1,) * pa + tuple(table.shape) + (1,) + (1,) * trail
+        out.masked_fill_((table < 0).reshape(vshape), 0)
+        shape = (out.shape[:pa + table.ndim - 1] + (pages * ps,)
+                 + out.shape[pa + table.ndim + 1:])
+        return out.reshape(shape)
+
+    return fn
+
+
+def _paged_scatter(txn: prg.Txn, specs: tuple):
+    """Decode append: one beat per table row, written through the page
+    table at per-row position ``pos``.  Rows with ``pos < 0`` or an
+    unallocated table entry are dropped.
+
+    Updates the pool IN PLACE and returns it (the reference donates the
+    cache to its jit'd step).  The reference drops rows with an
+    out-of-bounds scatter; torch has no dropping scatter, so a dropped row
+    rewrites the first kept row's (location, value) — or, when no row is
+    kept, the value already at its own location — which leaves the pool
+    exactly as the reference's and needs no host sync."""
+    spec = specs[0]
+    ps, trail = spec.page_size, spec.trail
+
+    def fn(pool, values, table, pos):
+        pa = spec.pool_axis(pool.ndim)
+        P = pool.shape[pa]
+        pos = pos.reshape(-1).to(torch.int64)
+        nb = pos.shape[0]
+        tab = table.reshape(nb, table.shape[-1]).to(torch.int64)
+        vals = values.reshape((nb,) + tuple(values.shape[-trail:]
+                                            if trail else ())).to(pool.dtype)
+        oob = (pos < 0) | (pos >= spec.pages * ps)
+        page = torch.where(oob, torch.zeros_like(pos), pos // ps)
+        phys = torch.gather(tab, 1, page[:, None])[:, 0]
+        keep = ~(oob | (phys < 0))
+        ph = phys.clamp(0, P - 1)
+        off = torch.where(keep, pos % ps, torch.zeros_like(pos))
+        # index with a 1-element tensor, never a 0-dim one (that would
+        # read the index back to the host)
+        first = torch.argmax(keep.to(torch.int32)).reshape(1)
+        any_keep = keep.any()
+        tph = torch.where(keep, ph, torch.where(any_keep, ph[first], ph))
+        toff = torch.where(keep, off, torch.where(any_keep, off[first], off))
+        lead = (slice(None),) * pa
+        current = pool[lead + (tph, toff)]          # (*lead, nb, *trail)
+        kshape = (nb,) + (1,) * trail
+        alt = torch.where(any_keep, vals[first].expand_as(vals), current)
+        pool[lead + (tph, toff)] = torch.where(keep.reshape(kshape), vals,
+                                               alt)
+        return pool
+
+    return fn
+
+
+_BUILDERS = {
+    "seg.deint": _seg_deint,
+    "seg.int": _seg_int,
+    "paged.gather": _paged_gather,
+    "paged.scatter": _paged_scatter,
+}

@@ -1,0 +1,89 @@
+"""AccessSpec — frozen, hashable descriptions of a vector access.
+
+Port of ``repro``'s ``vx/spec.py`` for the two specs the serving path
+uses: :class:`Segment` (AoS <-> SoA transposition) and :class:`Paged`
+(page-table gather/append over a shared pool, float pools only).
+``Strided``, ``Indexed``, ``Compact``, the runtime-stride ``BANK`` and
+the quantized ``Paged.scale_dtype`` wait for a later slice.
+
+``dtype`` participates in ``key()``, so plan-cache entries never collide
+across element types.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def _dtype_str(dtype: Any) -> str | None:
+    if dtype is None:
+        return None
+    if isinstance(dtype, str):
+        return dtype
+    if isinstance(dtype, torch.dtype):
+        return str(dtype).removeprefix("torch.")
+    return str(np.dtype(dtype))
+
+
+class AccessSpec:
+    """Mixin shared by the spec dataclasses (not instantiable)."""
+
+    def key(self) -> tuple:
+        """Hashable cache key: class name + every field."""
+        return (type(self).__name__,
+                *(getattr(self, f.name)
+                  for f in dataclasses.fields(self)))  # type: ignore[arg-type]
+
+    def bind(self, dtype: Any) -> "AccessSpec":
+        """Spec with the element dtype filled in (no-op if already set)."""
+        if getattr(self, "dtype", None) is not None:
+            return self
+        return dataclasses.replace(self, dtype=_dtype_str(dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment(AccessSpec):
+    """AoS beat of ``n`` lanes <-> ``fields`` SoA fields of ``n/fields``."""
+
+    n: int
+    fields: int
+    dtype: str | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", _dtype_str(self.dtype))
+        if self.fields < 1 or self.n % self.fields:
+            raise ValueError(
+                f"segment needs n divisible by fields, got {self}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Paged(AccessSpec):
+    """Page-table-indexed access over a shared pool (paged KV cache).
+
+    The pool holds ``(*lead, P, page_size, *trail)``; the page table is a
+    runtime int32 operand ``(*batch, pages)`` with ``-1`` marking
+    unallocated entries (gather returns zeros there; scatter drops
+    writes).  Only the page geometry is spec data, so one cached program
+    serves every request and every step."""
+
+    page_size: int
+    pages: int
+    trail: int = 0
+    dtype: str | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", _dtype_str(self.dtype))
+        if self.page_size < 1 or self.pages < 1 or self.trail < 0:
+            raise ValueError(f"bad paged geometry: {self}")
+
+    def pool_axis(self, ndim: int) -> int:
+        """Index of the pool's page axis for a rank-``ndim`` operand."""
+        ax = ndim - 2 - self.trail
+        if ax < 0:
+            raise ValueError(
+                f"rank-{ndim} pool cannot carry (P, page_size) plus "
+                f"{self.trail} trailing dims: {self}")
+        return ax
