@@ -3,29 +3,49 @@
 
 Run from the repository root: ``python3 chip_smoke.py``.  It needs one
 CUDA card and the CUDA toolkit (``nvcc``); it builds the port's kernels
-from ``src/repro_torch/csrc`` into ``build/`` and exits non-zero, with no
-result line, when there is no card or no port beside it.
+from ``src/repro_torch/csrc`` into ``build/`` (one nvcc per source, all
+started together) and exits non-zero, with no result line, when there is
+no card or no port beside it.
 
 Phases, in order (any failure raises and exits non-zero):
 
 1. the card's ``name, power.limit`` (nvidia-smi), the torch version, and
    the kernels' build time;
 2. every kernel against its plain PyTorch version on the card, bit for bit
-   (``torch.equal`` on integer views): dtypes float32/bfloat16/int32/int8,
-   FIELD 2/3/4/8, widths 256 and 6144 with a ragged row count, in both plan
-   modes (the cost model's pick and the fused Benes plan, forced);
+   (``torch.equal`` on integer views), dtypes float32/bfloat16/int32/int8:
+   segment B1/B2 at FIELD 2/3/4/8, widths 256 and 6144, ragged row counts,
+   both plan modes (the cost model's pick and the fused Benes plan,
+   forced); strided B3/B5 at (stride, offset) (1,0) (2,0) (2,1) (3,1)
+   (4,2) (7,5) (16,3) (64,0), windows of 96, 256 and 4096 lanes with the
+   largest vl that fits, 7 and 1001 rows, and B4 with 2, 4 and 8 accesses
+   of different (stride, offset);
 3. timings at the main path's shapes: kernel, plain version, one PyTorch
    library call computing the same function (timed here only, never used
-   by the port), and the bound (bytes moved / 3.35 TB/s);
-   Each timed call is first held bit for bit against its plain version;
+   by the port), and the bound (bytes that must move / 3.35 TB/s).  Each
+   timed call is first held bit for bit against its plain version.  The
+   strided kernels run on qwen3-0.6b's full-width decode KV stack
+   ``(28, 4, 512, 8, 256)`` bf16 (B4's ``(2,0), (2,1)`` split must equal
+   B1's FIELD=2 split bit for bit), then over the Fig. 12 sweep of
+   benchmarks/bench_strided.py at card size (MLEN 128, vl 64, offset 0,
+   stride 2..64, n = 64*stride, 256 MiB windows);
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
    ``kernel``, ``ref``, ``ref``, ``kernel`` in that order.  The token
-   streams must be equal, both kernels must have launched on the main path,
-   and the fused KV split must launch exactly once per decode step.
+   streams must be equal, both segment kernels must have launched on the
+   main path, and the fused KV split must launch exactly once per decode
+   step;
+5. the strided path through the port's entry points, under ``kernel`` and
+   then ``ref`` with every output equal: ``vx.gather`` / ``vx.scatter``
+   with a ``Strided`` spec on the KV stack, ``vx.gather_many`` with 4
+   heterogeneous specs, a ``StepScheduler`` group of 4 ``gather_strided``
+   requests (exactly one B4 launch), the runtime-stride bank at strides 3,
+   -2 and 11 (outside the bank: the dynamic network), and
+   ``lsdo.load_strided_many`` over a 256 MiB buffer.  ``ref`` launches no
+   strided kernel; ``kernel`` launches each of B3, B4 and B5.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (launches: the serve
+run's for B1/B2, the strided path's for B3/B4/B5); the last line is
 ``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
 torch.profiler-traced serve run per policy and the operators whose host
 and device times differ most between them.
@@ -43,9 +63,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
-SOURCE = "src/repro_torch/csrc/segment.cu"
+SOURCES = {"deinterleave": "src/repro_torch/csrc/segment.cu",
+           "interleave": "src/repro_torch/csrc/segment.cu",
+           "gather_strided": "src/repro_torch/csrc/strided.cu",
+           "gather_strided_fused": "src/repro_torch/csrc/strided.cu",
+           "scatter_strided": "src/repro_torch/csrc/strided.cu"}
 REPLACES = {"deinterleave": "src/repro/kernels/segment.py:85",
-            "interleave": "src/repro/kernels/segment.py:156"}
+            "interleave": "src/repro/kernels/segment.py:156",
+            "gather_strided": "src/repro/kernels/strided.py:27",
+            "gather_strided_fused": "src/repro/kernels/strided.py:73",
+            "scatter_strided": "src/repro/kernels/strided.py:132"}
+STRIDED_SO = ((1, 0), (2, 0), (2, 1), (3, 1), (4, 2), (7, 5), (16, 3),
+              (64, 0))
+HETERO = ((2, 0), (3, 1), (7, 5), (4, 2))
+WINDOW_BYTES = 1 << 28      # a Fig. 12 window, and the LSDO buffer: 256 MiB
 
 
 def card_line() -> str:
@@ -134,9 +165,94 @@ def check_kernels(dev) -> int:
     return cases
 
 
+def check_strided(dev) -> int:
+    """B3, B4 and B5 against their plain versions over the strided grid."""
+    import torch
+    from repro_torch.kernels import strided
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 2)
+
+    def rand(shape, dtype):
+        if dtype in (torch.int32, torch.int8):
+            return torch.randint(-100, 100, shape, generator=g, device=dev,
+                                 dtype=dtype)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int8):
+        for n in (96, 256, 4096):
+            for rows in (7, 1001):
+                where = f"{dtype} n={n} rows={rows}"
+                win = rand((rows, n), dtype)
+                for s, o in STRIDED_SO:
+                    vl = (n - 1 - o) // s + 1       # the largest that fits
+                    vals = rand((rows, vl), dtype)
+                    got = strided.gather_strided(win, s, o, vl)
+                    want = strided.gather_strided_plain(win, s, o, vl)
+                    got_s = strided.scatter_strided(win, vals, s, o)
+                    want_s = strided.scatter_strided_plain(win, vals, s, o)
+                    torch.cuda.synchronize()
+                    if not same_bits(got, want):
+                        raise AssertionError(f"B3 gather_strided != plain: "
+                                             f"{where} ({s}, {o}) vl={vl}")
+                    if not same_bits(got_s, want_s):
+                        raise AssertionError(f"B5 scatter_strided != plain: "
+                                             f"{where} ({s}, {o}) vl={vl}")
+                    cases += 1
+                for A in (2, 4, 8):
+                    pairs = [STRIDED_SO[(a * 3 + A) % len(STRIDED_SO)]
+                             for a in range(A)]
+                    vl = min((n - 1 - o) // s + 1 for s, o in pairs)
+                    wins = rand((A, rows, n), dtype)
+                    got = strided.gather_strided_fused(wins, pairs, vl)
+                    want = strided.gather_strided_fused_plain(wins, pairs, vl)
+                    torch.cuda.synchronize()
+                    if not same_bits(got, want):
+                        raise AssertionError(f"B4 gather_strided_fused != "
+                                             f"plain: {where} {pairs}")
+                    cases += 1
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: timings at the main path's shapes
 # ---------------------------------------------------------------------------
+
+def record(name, run, plain, library, bound_bytes, shape) -> dict:
+    """Hold ``run()`` bit for bit against ``plain()``, then time the
+    kernel, the plain version and the library call (CUDA events); the
+    bound is ``bound_bytes`` over the card's memory rate."""
+    import torch
+    got, want = run(), plain()
+    got = got if isinstance(got, list) else [got]
+    want = want if isinstance(want, list) else [want]
+    torch.cuda.synchronize()
+    if len(got) != len(want):
+        raise AssertionError(f"{name} {shape}: {len(got)} outputs, plain "
+                             f"version has {len(want)}")
+    for f, (a, b) in enumerate(zip(got, want)):
+        if not same_bits(a, b):
+            raise AssertionError(f"{name} {shape}: output {f} differs "
+                                 f"from the plain version")
+    del got, want
+    err = 0.0                       # bit-equal outputs: no error at all
+    iters = 20
+    ms, plain_ms, lib_ms = (time_ms(f, iters) for f in (run, plain, library))
+    bound = bound_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"time {name} {shape}: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+          f"{bound:.4f} ms (bytes), max_abs_err {err}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "max_abs_err": err, "shape": shape}
+
+
+def gather_bytes(R: int, n: int, vl: int, stride: int, e: int) -> int:
+    """Least bytes of a strided gather: the 32-byte sectors its reads must
+    touch (the whole window while stride * e <= 32, else one sector per
+    element) plus the output written once."""
+    read = R * n * e if stride * e <= 32 else R * vl * 32
+    return read + R * vl * e
+
 
 def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
     import torch
@@ -145,29 +261,6 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
     g.manual_seed(SEED + 1)
     K, hd = full_cfg.n_kv_heads, full_cfg.hd
     out = {}
-
-    def record(name, run, plain, library, x_bytes, shape):
-        got, want = run(), plain()
-        got = got if isinstance(got, list) else [got]
-        want = want if isinstance(want, list) else [want]
-        torch.cuda.synchronize()
-        if len(got) != len(want):
-            raise AssertionError(f"{name} {shape}: {len(got)} outputs, plain "
-                                 f"version has {len(want)}")
-        for f, (a, b) in enumerate(zip(got, want)):
-            if not same_bits(a, b):
-                raise AssertionError(f"{name} {shape}: output {f} differs "
-                                     f"from the plain version")
-        err = 0.0                   # bit-equal outputs: no error at all
-        iters = 20
-        ms, plain_ms, lib_ms = (time_ms(f, iters)
-                                for f in (run, plain, library))
-        bound = 2 * x_bytes / HBM_BYTES_PER_S * 1e3
-        print(f"time {name} {shape}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-              f"{bound:.4f} ms (bytes), max_abs_err {err}")
-        return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                "bound_ms": bound, "max_abs_err": err, "shape": shape}
 
     # B1 main path: the fused FIELD=2 KV split of one decode step, every
     # layer's gathered pages at once: (NS, slots, max_len, K, 2*hd) bf16
@@ -178,14 +271,15 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
         "deinterleave", lambda: segment.deinterleave(kv, 2),
         lambda: segment.deinterleave_plain(kv, 2),
         lambda: kv.view(R, hd, 2).permute(2, 0, 1).contiguous(),
-        kv.numel() * kv.element_size(), list(kv.shape))
+        2 * kv.numel() * kv.element_size(), list(kv.shape))
     # B1 on the prefill GLU split (16 tokens x 2*d_ff), printed only
     gu = torch.randn((1, 16, 2 * full_cfg.d_ff), generator=g,
                      device=dev).to(torch.bfloat16)
     record("deinterleave[glu]", lambda: segment.deinterleave(gu, 2),
            lambda: segment.deinterleave_plain(gu, 2),
            lambda: gu.view(16, full_cfg.d_ff, 2).permute(2, 0, 1)
-           .contiguous(), gu.numel() * gu.element_size(), list(gu.shape))
+           .contiguous(), 2 * gu.numel() * gu.element_size(),
+           list(gu.shape))
     # B2 main path: the post-RoPE K/V beat re-pack of a 16-token prefill
     # chunk, (1, 16, K, hd) x 2 -> (1, 16, K, 2*hd) bf16
     k = torch.randn((1, 16, K, hd), generator=g,
@@ -196,7 +290,7 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
         "interleave", lambda: segment.interleave([k, v]),
         lambda: segment.interleave_plain([k, v]),
         lambda: torch.stack([k, v], dim=-1).flatten(-2),
-        2 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
+        4 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
     # B2 at a decode-step-sized stack (printed only; the main path keeps
     # single-token beats below the launch threshold)
     kb = kv[..., :hd].contiguous()
@@ -204,10 +298,101 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
     record("interleave[stack]", lambda: segment.interleave([kb, vb]),
            lambda: segment.interleave_plain([kb, vb]),
            lambda: torch.stack([kb, vb], dim=-1).flatten(-2),
-           2 * kb.numel() * kb.element_size(), list(kb.shape) + ["x2"])
-    del kv, kb, vb
+           4 * kb.numel() * kb.element_size(), list(kb.shape) + ["x2"])
+    del kb, vb
+    out.update(time_strided(dev, kv, segment.deinterleave(kv, 2)))
+    del kv
     torch.cuda.empty_cache()
+    time_fig12(dev)
     return out
+
+
+def time_strided(dev, kv, split) -> dict:
+    """B3, B4 and B5 on the decode KV stack, bf16, each beat ``2*hd``
+    lanes.  B4 runs the FIELD=2 split as two strided accesses through
+    ``vx.gather_many``; it must equal B1's ``split`` bit for bit."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.kernels import strided
+    n, e = kv.shape[-1], kv.element_size()
+    R = kv.numel() // n
+    vl = n // 2
+    pairs = ((2, 0), (2, 1))
+    both = vx.gather_many([vx.Strided(n=n, stride=s, offset=o, vl=vl)
+                           for s, o in pairs], [kv, kv], policy="kernel")
+    torch.cuda.synchronize()
+    if not all(same_bits(both[f], split[f]) for f in range(2)):
+        raise AssertionError("B4 (2,0),(2,1) split != B1 deinterleave")
+    print(f"B4 (2,0),(2,1) on {list(kv.shape)} == B1 FIELD=2 split, bit "
+          f"for bit")
+    del both, split
+    out = {}
+    wins = torch.stack([kv, kv])
+    out["gather_strided_fused"] = record(
+        "gather_strided_fused",
+        lambda: strided.gather_strided_fused(wins, pairs, vl),
+        lambda: strided.gather_strided_fused_plain(wins, pairs, vl),
+        lambda: torch.stack([kv[..., o:o + (vl - 1) * s + 1:s]
+                             for s, o in pairs]),
+        sum(gather_bytes(R, n, vl, s, e) for s, o in pairs),
+        ["x2"] + list(kv.shape) + [str(pairs)])
+    del wins
+    s, o = 2, 1
+    out["gather_strided"] = record(
+        "gather_strided", lambda: strided.gather_strided(kv, s, o, vl),
+        lambda: strided.gather_strided_plain(kv, s, o, vl),
+        lambda: kv[..., o:o + (vl - 1) * s + 1:s].contiguous(),
+        gather_bytes(R, n, vl, s, e), list(kv.shape) + [str((s, o))])
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 3)
+    vals = torch.randn(kv.shape[:-1] + (vl,), generator=g,
+                       device=dev).to(kv.dtype)
+
+    def library():
+        w = kv.clone()
+        w[..., o:o + (vl - 1) * s + 1:s] = vals
+        return w
+
+    out["scatter_strided"] = record(
+        "scatter_strided", lambda: strided.scatter_strided(kv, vals, s, o),
+        lambda: strided.scatter_strided_plain(kv, vals, s, o), library,
+        R * (2 * n + vl) * e, list(kv.shape) + [str((s, o)), "v" + str(vl)])
+    return out
+
+
+def time_fig12(dev) -> None:
+    """The Fig. 12 sweep of benchmarks/bench_strided.py at card size: MLEN
+    128, vl = 64, offset 0, n = 64 * stride, bf16, R = 2**27 / n rows so
+    that every window is 256 MiB (:data:`WINDOW_BYTES`).  B3 and B5 at
+    each stride (printed)."""
+    import torch
+    from repro_torch.kernels import strided
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 4)
+    vl, e = 64, 2
+    for s in (2, 4, 8, 16, 32, 64):
+        n = vl * s
+        R = WINDOW_BYTES // (n * e)
+        win = torch.randn((R, n), generator=g, device=dev).to(torch.bfloat16)
+        vals = torch.randn((R, vl), generator=g,
+                           device=dev).to(torch.bfloat16)
+
+        def library():
+            w = win.clone()
+            w[:, 0:(vl - 1) * s + 1:s] = vals
+            return w
+
+        record(f"fig12 gather_strided s={s}",
+               lambda: strided.gather_strided(win, s, 0, vl),
+               lambda: strided.gather_strided_plain(win, s, 0, vl),
+               lambda: win[:, 0:(vl - 1) * s + 1:s].contiguous(),
+               gather_bytes(R, n, vl, s, e), [R, n])
+        record(f"fig12 scatter_strided s={s}",
+               lambda: strided.scatter_strided(win, vals, s, 0),
+               lambda: strided.scatter_strided_plain(win, vals, s, 0),
+               library, R * (2 * n + vl) * e, [R, n])
+        del win, vals
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +466,77 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             "decode_steps": stats["decode_steps"], "prof": prof}
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: the strided path through the port's entry points
+# ---------------------------------------------------------------------------
+
+def strided_path(dev, kv_shape, impl: str) -> dict:
+    """One run of the strided path under policy ``impl``: the strided
+    kernels' counts are set to 0 just before it and read just after.
+    Returns every output, the launches, and the StepScheduler group's B4
+    launches."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.core import accessfuse, lsdo
+    from repro_torch.kernels import strided
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 5)
+    kv = torch.randn(kv_shape, generator=g, device=dev).to(torch.bfloat16)
+    n = kv.shape[-1]
+    vals = torch.randn(kv.shape[:-1] + (n // 2,), generator=g,
+                       device=dev).to(torch.bfloat16)
+    N = WINDOW_BYTES // 2
+    buf = torch.randn((N,), generator=g, device=dev).to(torch.bfloat16)
+    plans = [lsdo.plan_strided(0, 2, 4096, 128),
+             lsdo.plan_strided(N // 11, 3, 4096, 128),
+             lsdo.plan_strided(N // 2, 4, 2048, 128),
+             lsdo.plan_strided(N - 1, -5, 2048, 128)]
+    vl4 = min((n - 1 - o) // s + 1 for s, o in HETERO)
+    bank = vx.Strided(n=n, stride=vx.BANK, vl=12, offset=128)
+    torch.cuda.synchronize()
+    strided.reset_counts()                  # counts from here: the path
+    outs = {}
+    with vx.use(impl):
+        spec = vx.Strided(n=n, stride=2, offset=1, vl=n // 2)
+        outs["gather"] = vx.gather(spec, kv)
+        outs["scatter"] = vx.scatter(spec, kv, vals)
+        outs["gather_many"] = vx.gather_many(
+            [vx.Strided(n=n, stride=s, offset=o, vl=vl4) for s, o in HETERO],
+            [kv] * len(HETERO))
+        sched = accessfuse.StepScheduler()
+        f0 = strided.gather_strided_fused.launches
+        hs = [sched.gather_strided(kv[a], s, o, vl4)
+              for a, (s, o) in enumerate(HETERO)]
+        sched.flush()
+        group = strided.gather_strided_fused.launches - f0
+        outs["step_group"] = torch.stack([h.value for h in hs])
+        for st in (3, -2, 11):
+            outs[f"bank[{st}]"] = vx.gather(
+                bank, kv, stride=torch.tensor(st, device=dev))
+        for i, o in enumerate(lsdo.load_strided_many(buf, plans)):
+            outs[f"lsdo[{i}]"] = o
+    torch.cuda.synchronize()
+    launches = {f.__name__: f.launches for f in strided.KERNELS}
+    # the same function by plain indexing, as a yardstick for both runs
+    want = {"gather": kv[..., 1::2],
+            "gather_many": torch.stack([kv[..., o:o + (vl4 - 1) * s + 1:s]
+                                        for s, o in HETERO]),
+            "step_group": torch.stack([kv[a][..., o:o + (vl4 - 1) * s + 1:s]
+                                       for a, (s, o) in enumerate(HETERO)])}
+    want["scatter"] = kv.clone()
+    want["scatter"][..., 1::2] = vals
+    for st in (3, -2, 11):
+        want[f"bank[{st}]"] = kv[..., 128 + st * torch.arange(12, device=dev)]
+    for i, p in enumerate(plans):
+        idx = p.base + p.stride * torch.arange(p.vl, device=dev)
+        want[f"lsdo[{i}]"] = buf[idx]
+    for k, w in want.items():
+        if not same_bits(outs[k], w.contiguous()):
+            raise AssertionError(f"strided path [{impl}] {k}: differs from "
+                                 f"plain indexing")
+    return {"outs": outs, "launches": launches, "group": group}
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -337,13 +593,18 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    _common.library("segment")
-    print(f"build: segment.cu in {time.perf_counter() - t0:.2f} s")
+    _common.build_all(["segment", "strided"])
+    print(f"build: segment.cu and strided.cu in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     cases = check_kernels(dev)
-    print(f"kernels == plain: {cases} cases x 2 kernels bit-exact "
+    print(f"kernels == plain: {cases} cases x 2 segment kernels bit-exact "
           f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = check_strided(dev)
+    print(f"kernels == plain: {cases} strided cases (B3 and B5 together, "
+          f"B4 alone) bit-exact ({time.perf_counter() - t0:.1f} s)")
 
     cfg = config()
     slots, max_len, page_size, gen = 4, 512, 16, 16
@@ -396,14 +657,41 @@ def main() -> int:
                                       slots, max_len, page_size,
                                       profiled=True)
                           for impl in ("kernel", "ref")})
+    del params
+    torch.cuda.empty_cache()
 
+    kv_shape = (cfg.n_superblocks, slots, max_len, cfg.n_kv_heads,
+                2 * cfg.hd)
+    t0 = time.perf_counter()
+    path = {impl: strided_path(dev, kv_shape, impl)
+            for impl in ("kernel", "ref")}
+    for key, out in path["kernel"]["outs"].items():
+        if not same_bits(out, path["ref"]["outs"][key]):
+            raise AssertionError(f"strided path: {key} differs between "
+                                 f"kernel and ref")
+    pk, pr = path["kernel"], path["ref"]
+    if max(pr["launches"].values()) != 0 or pr["group"] != 0:
+        raise AssertionError(f"ref policy launched strided kernels: "
+                             f"{pr['launches']}")
+    if min(pk["launches"].values()) <= 0:
+        raise AssertionError(f"a strided kernel never launched on the "
+                             f"strided path: {pk['launches']}")
+    if pk["group"] != 1:
+        raise AssertionError(f"StepScheduler strided group made "
+                             f"{pk['group']} B4 launches, want 1")
+    print(f"strided path: {len(pk['outs'])} outputs equal under kernel and "
+          f"ref and to plain indexing; launches kernel {pk['launches']}, "
+          f"ref {pr['launches']}; one B4 launch for the 4-request "
+          f"StepScheduler group ({time.perf_counter() - t0:.1f} s)")
+
+    launches = dict(kr["launches"], **pk["launches"])
     kernels = []
-    for name in ("deinterleave", "interleave"):
+    for name in REPLACES:
         t = timing[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": kr["launches"][name],
+            "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": t["library_ms"]})

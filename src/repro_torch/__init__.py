@@ -10,8 +10,11 @@ Device rule: entry points run on ``cuda`` unless the caller passes
 kernel for CUDA tensors and take their plain PyTorch version only for CPU
 tensors.
 
-This slice ports the paged, decoder-only serving path: kernels/segment
-(CUDA kernels B1 and B2), the plan compiler, the vx layer for Segment and
-Paged specs, step fusion, the dense decoder model, paged decode, and the
-plain greedy scheduler.  ROADMAP.md lists what waits.
+Ported so far: the paged, decoder-only serving path (kernels/segment,
+CUDA kernels B1 and B2; the plan compiler; the vx layer for Segment and
+Paged specs; step fusion; the dense decoder model; paged decode; the plain
+greedy scheduler) and EARTH's strided arm (kernels/strided, CUDA kernels
+B3, B4 and B5; core/scg and the dynamic shift networks; vx Strided specs
+and the runtime-stride plan bank; the strided step-fusion group;
+core/lsdo).  ROADMAP.md lists what waits.
 """

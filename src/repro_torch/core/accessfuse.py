@@ -1,11 +1,21 @@
-"""Whole-step access fusion — the step-level memory scheduler.
+"""Whole-step access fusion — the step-level memory scheduler — and the
+runtime-stride plan bank.
 
-Port of ``repro``'s ``core/accessfuse.py`` for the segment groups:
-:class:`StepScheduler` collects a step's deinterleave and interleave
-accesses, merges same-shape ones into ONE wide transaction through
-``vx.program.fuse`` (one kernel launch for the group), and executes it
-through ``vx.lower.executor``.  ``fuse_split_kv`` is the one fused KV split
-per decode step.
+Port of ``repro``'s ``core/accessfuse.py``:
+
+* :class:`StepScheduler` collects a step's deinterleave, interleave and
+  strided-gather accesses, merges same-shape ones into ONE wide
+  transaction through ``vx.program.fuse`` (one kernel launch for the
+  group), and executes it through ``vx.lower.executor``.
+  ``fuse_split_kv`` is the one fused KV split per decode step; a group of
+  ``gather_strided`` requests with different ``(stride, offset)`` is one
+  launch of the fused strided gather (kernel B4).
+* The runtime-stride plan bank (:func:`bank_gather_strided`,
+  :func:`bank_scatter_strided`): compiled plans for strides +-1..8 (the
+  §3.2.2 Reverser for the negative half), the dynamic-count network for
+  any other stride.  The reference picks a branch with ``lax.switch``
+  on a traced stride; eager torch has none, so a tensor stride is read on
+  the host once (a sync) and only the branch it selects runs.
 
 Lowering policy:
 
@@ -19,9 +29,10 @@ Lowering policy:
   can count the kernel calls the card would launch.
 
 Launch accounting counts calls at the kernel entry points
-(``kernels.segment.deinterleave.calls`` / ``.launches``) in place of the
-reference's ``jaxpr_access_counts``.  The strided group, the runtime-stride
-plan bank and ``compact_indices`` wait for a later slice.
+(``kernels.segment.deinterleave.calls`` / ``.launches``,
+``kernels.strided.gather_strided_fused.calls`` ...) in place of the
+reference's ``jaxpr_access_counts``.  ``compact_indices`` waits for the
+MoE slice.
 """
 from __future__ import annotations
 
@@ -31,8 +42,12 @@ from typing import Any, Sequence
 
 import torch
 
-from repro_torch.core import shiftplan
+from repro_torch.core import scg, shiftnet, shiftplan
+from repro_torch.vx import cache as vxcache
 from repro_torch.vx import policy as vxpolicy
+
+BANK_STRIDES = vxpolicy.BANK_STRIDES
+BANK_FIELDS = vxpolicy.BANK_FIELDS
 
 
 def pick_impl(total_elems: int, impl: str,
@@ -88,7 +103,7 @@ class _Req:
 
 
 class StepScheduler:
-    """Collects a step's segment accesses and executes them merged.
+    """Collects a step's shift-routed accesses and executes them merged.
 
     Each registered access lowers to a single-transaction program;
     same-key programs merge through ``vx.program.fuse`` into ONE wide
@@ -125,6 +140,14 @@ class StepScheduler:
         key = ("int", len(parts), tuple(parts[0].shape),
                str(parts[0].dtype), str(parts[0].device))
         self._reqs.append(_Req(key, parts, h))
+        return h
+
+    def gather_strided(self, window: torch.Tensor, stride: int, offset: int,
+                       vl: int) -> Handle:
+        h = Handle()
+        key = ("gather", tuple(window.shape), str(window.dtype), vl,
+               str(window.device))
+        self._reqs.append(_Req(key, (window, int(stride), int(offset)), h))
         return h
 
     def flush(self) -> None:
@@ -170,6 +193,17 @@ class StepScheduler:
             out = self._fused("seg.int", [spec] * len(reqs), impl)(parts)
             for a, r in enumerate(reqs):
                 r.handle.value = out if len(reqs) == 1 else out[a]
+        elif kind == "gather":
+            vl = key[3]
+            n = key[1][-1]
+            stack = (reqs[0].payload[0] if len(reqs) == 1
+                     else torch.stack([r.payload[0] for r in reqs]))
+            specs = [vx.Strided(n=n, stride=r.payload[1], offset=r.payload[2],
+                                vl=vl).bind(stack.dtype) for r in reqs]
+            impl = self._impl_for(stack.numel(), stack.device)
+            out = self._fused("gather.plan", specs, impl)(stack)
+            for a, r in enumerate(reqs):
+                r.handle.value = out if len(reqs) == 1 else out[a]
         else:  # pragma: no cover
             raise ValueError(kind)
 
@@ -207,8 +241,163 @@ def fuse_interleave(groups: Sequence[Sequence[torch.Tensor]], *,
     return [h.value for h in hs]
 
 
-def warm(n: int, *, fields: tuple = (2,)) -> None:
-    """Precompile the segment plans for a beat width."""
+# ---------------------------------------------------------------------------
+# Runtime-stride plan bank
+# ---------------------------------------------------------------------------
+
+def _flip(x: torch.Tensor) -> torch.Tensor:
+    return torch.flip(x, dims=(-1,))
+
+
+def _bank_slots(make, n: int, offset: int, vl: int) -> tuple:
+    """16 bank slots: strides 1..8, then -1..-8 (Reverser: plan on the
+    reversed element order — a positive-stride plan from the window's low
+    end, output reversed).  None marks a (stride, offset, vl) that does not
+    fit the window; its slot dispatches to the dynamic fallback."""
+    slots = []
+    for s in BANK_STRIDES:
+        ok = 0 <= offset and offset + (vl - 1) * s < n
+        slots.append(make(n, s, offset, vl) if ok else None)
+    for s in BANK_STRIDES:
+        base = offset - (vl - 1) * s
+        ok = base >= 0 and offset < n
+        slots.append(make(n, s, base, vl) if ok else None)
+    return tuple(slots)
+
+
+@vxcache.memoize("bank.gather")
+def _gather_bank(n: int, offset: int, vl: int):
+    return _bank_slots(shiftplan.gather_plan, n, offset, vl)
+
+
+@vxcache.memoize("bank.scatter")
+def _scatter_bank(n: int, offset: int, vl: int):
+    return _bank_slots(shiftplan.scatter_plan, n, offset, vl)
+
+
+def _bank_index(stride: int, slots) -> int:
+    """stride -> bank slot, or 16 = the dynamic fallback (a stride outside
+    the bank, or a banked stride whose plan does not fit the window)."""
+    top = BANK_STRIDES[-1]
+    if 1 <= stride <= top:
+        raw = stride - 1
+    elif -top <= stride <= -1:
+        raw = 7 - stride
+    else:
+        raw = 16
+    return raw if raw < 16 and slots[raw] is not None else 16
+
+
+def _host_stride(stride) -> int:
+    """The runtime stride as a Python int: a tensor is read on the host
+    (one device sync)."""
+    if isinstance(stride, torch.Tensor):
+        if stride.numel() != 1:
+            raise ValueError(f"runtime stride must be a scalar, got shape "
+                             f"{tuple(stride.shape)}")
+        return int(stride.item())
+    return int(stride)
+
+
+def _dynamic_gather(window: torch.Tensor, stride: int, offset: int,
+                    vl: int) -> torch.Tensor:
+    """Fully dynamic fallback: a runtime stride of either sign (Reverser by
+    output flip), the oracle the bank must match bit-exactly."""
+    n = window.shape[-1]
+    s_abs = max(abs(stride), 1)
+    base = offset + (vl - 1) * stride if stride < 0 else offset
+    shift, valid = scg.gather_counts(n, s_abs, base, vl,
+                                     device=window.device)
+    res = shiftnet.gather_network(window, shift, valid, axis=-1)
+    dense = res.payload[..., :vl]
+    return _flip(dense) if stride < 0 else dense
+
+
+def _plan_gather(window, plan, vl: int, rev: bool) -> torch.Tensor:
+    out = shiftnet.apply_plan(window, plan, axis=-1)[..., :vl]
+    return _flip(out) if rev else out
+
+
+def bank_gather_strided(window: torch.Tensor, stride, offset: int,
+                        vl: int) -> torch.Tensor:
+    """out[..., i] = window[..., offset + i*stride], stride of either sign.
+
+    A Python int stride compiles its own plan (the reference's static
+    path).  A tensor stride is the runtime form: it is read on the host
+    once (a device sync), and the ONE branch it selects runs — its banked
+    compiled plan, or the dynamic-count network for a stride outside the
+    bank or a banked plan that does not fit the window."""
+    n = window.shape[-1]
+    if not isinstance(stride, torch.Tensor):
+        stride = int(stride)
+        if stride == 0:
+            raise ValueError("stride 0 is a broadcast, not a strided access")
+        s, rev = abs(stride), stride < 0
+        base = offset + (vl - 1) * stride if rev else offset
+        return _plan_gather(window, shiftplan.gather_plan(n, s, base, vl),
+                            vl, rev)
+    stride = _host_stride(stride)
+    slots = _gather_bank(n, offset, vl)
+    i = _bank_index(stride, slots)
+    if i == 16:
+        return _dynamic_gather(window, stride, offset, vl)
+    return _plan_gather(window, slots[i], vl, i >= len(BANK_STRIDES))
+
+
+def _dynamic_scatter(window: torch.Tensor, values: torch.Tensor, stride: int,
+                     offset: int) -> torch.Tensor:
+    n = window.shape[-1]
+    vl = values.shape[-1]
+    s_abs = max(abs(stride), 1)
+    base = offset + (vl - 1) * stride if stride < 0 else offset
+    vals = _flip(values) if stride < 0 else values
+    shift, valid = scg.scatter_counts(n, s_abs, base, vl,
+                                      device=window.device)
+    res = shiftnet.scatter_network(
+        torch.nn.functional.pad(vals, (0, n - vl)), shift, valid, axis=-1)
+    return torch.where(res.valid, res.payload, window)
+
+
+def _plan_scatter(window, values, plan, rev: bool) -> torch.Tensor:
+    n, vl = window.shape[-1], values.shape[-1]
+    vals = _flip(values) if rev else values
+    routed = shiftnet.apply_plan(torch.nn.functional.pad(vals, (0, n - vl)),
+                                 plan, axis=-1)
+    return torch.where(shiftnet._broadcast_const(plan.valid, routed, -1),
+                       routed, window)
+
+
+def bank_scatter_strided(window: torch.Tensor, values: torch.Tensor, stride,
+                         offset: int) -> torch.Tensor:
+    """window[..., offset + i*stride] = values[..., i] (out of place); the
+    stride is taken as in :func:`bank_gather_strided`."""
+    n = window.shape[-1]
+    vl = values.shape[-1]
+    if not isinstance(stride, torch.Tensor):
+        stride = int(stride)
+        if stride == 0:
+            raise ValueError("stride 0 is a broadcast, not a strided access")
+        s, rev = abs(stride), stride < 0
+        base = offset + (vl - 1) * stride if rev else offset
+        return _plan_scatter(window, values,
+                             shiftplan.scatter_plan(n, s, base, vl), rev)
+    stride = _host_stride(stride)
+    slots = _scatter_bank(n, offset, vl)
+    i = _bank_index(stride, slots)
+    if i == 16:
+        return _dynamic_scatter(window, values, stride, offset)
+    return _plan_scatter(window, values, slots[i], i >= len(BANK_STRIDES))
+
+
+def warm(n: int, *, offset: int = 0, vl: int | None = None,
+         strided: bool = True, fields: tuple = BANK_FIELDS) -> None:
+    """Precompile bank plans for a window width (one-time host cost, so the
+    first step never pays plan compilation).  ``strided=False`` skips the
+    +-stride slots: serving consults only the segment plans."""
+    if strided:
+        vl = vl if vl is not None else n // BANK_STRIDES[-1]
+        _gather_bank(n, offset, vl)
+        _scatter_bank(n, offset, vl)
     for f in fields:
         if n % f == 0:
             shiftplan.segment_deinterleave_plans(n, f)

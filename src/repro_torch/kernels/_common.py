@@ -8,12 +8,16 @@ tiling and interpret-mode switch (``interpret_mode``, ``tile_rows``,
 New here: :func:`library` builds ``csrc/*.cu`` with ``nvcc`` for
 ``sm_90a`` into ``build/`` at the repository root on first use and loads
 the shared library with ``ctypes`` (a plain C interface; no PyTorch
-headers, so the build takes seconds).  A missing ``nvcc`` or a failed
-build raises; nothing falls back to a plain version.
+headers, so the build takes seconds); :func:`build_all` builds several
+sources in parallel.  A missing ``nvcc`` or a failed build raises; nothing
+falls back to a plain version.  The CUDA launch helpers shared by the
+kernel wrappers (:func:`rows_per_block`, :func:`check_cuda`,
+:func:`layer_table`) live here too.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -105,24 +109,48 @@ def nvcc() -> str:
     return path
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` into ``build/lib<name>-<hash>.so`` (the
-    hash of the source, so an edited source never loads a stale library).
-    Returns the library path; raises with nvcc's output on failure."""
+def _digest(src: Path) -> str:
+    """Hash of the source and every shared header in ``csrc/``, so an
+    edited source or header never loads a stale library."""
+    h = hashlib.sha256(src.read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    return h.hexdigest()[:12]
+
+
+def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    out = BUILD / f"lib{name}-{digest}.so"
-    if out.exists():
-        return out
+    return src, BUILD / f"lib{name}-{_digest(src)}.so"
+
+
+def build_all(names) -> list[Path]:
+    """Compile ``csrc/<name>.cu`` for each of ``names`` into
+    ``build/lib<name>-<hash>.so``: one nvcc process per source not built
+    yet, all started together, then waited for.  Returns the library
+    paths; raises with nvcc's output if any build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}) for {src}:\n"
-                           f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
-    return out
+    jobs = []
+    for name in names:
+        src, out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, tmp, out, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    done = [(src, tmp, out, proc, *proc.communicate())
+            for src, tmp, out, proc in jobs]          # wait for every job
+    for src, tmp, out, proc, stdout, stderr in done:
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:"
+                               f"\n{stdout}\n{stderr}")
+        os.replace(tmp, out)
+    return [_target(name)[1] for name in names]
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (see :func:`build_all`)."""
+    return build_all([name])[0]
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -134,3 +162,68 @@ def library(name: str) -> ctypes.CDLL:
             lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
         return lib
 
+
+# ---------------------------------------------------------------------------
+# Launch helpers shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+#: Shared-memory budget a block aims for (the card allows 227 KB per block
+#: and 228 KB per SM): 24 KB lets eight 256-thread blocks share an SM.
+SMEM_BUDGET = 24 * 1024
+SMEM_LIMIT = 232448
+
+
+def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
+                   min_blocks: int = 1, buffers: int = 3) -> int:
+    """Row-tile height: ``buffers`` (rows, width) shared buffers plus the
+    packed masks within :data:`SMEM_BUDGET` (one row at least, if it fits
+    the card's 227 KB at all; raises beyond that), and low enough that
+    the grid has ``min_blocks`` blocks when ``R`` allows it."""
+    mb = -(-mask_bytes // 16) * 16
+    per_row = buffers * width * elem
+    if mb + per_row > SMEM_LIMIT:
+        raise ValueError(
+            f"tile of width {width} x {elem} B x {buffers} buffers does not "
+            f"fit shared memory ({mb + per_row} B > {SMEM_LIMIT} B)")
+    return max(1, min(R, (SMEM_BUDGET - mb) // per_row,
+                      -(-R // max(1, min_blocks))))
+
+
+@functools.lru_cache(maxsize=None)
+def min_blocks(device: torch.device) -> int:
+    """Two blocks per SM: a small call still spreads over the whole card."""
+    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_cuda(t: torch.Tensor, what: str) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of 1/2/4/8-byte
+    elements (what the kernels take)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: tensor on {t.device}, want cuda or cpu")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: the kernel takes contiguous tensors")
+    if t.element_size() not in (1, 2, 4, 8):
+        raise ValueError(f"{what}: element size {t.element_size()} "
+                         f"not in (1, 2, 4, 8)")
+
+
+def layer_table(plans, spans, *, relative: bool) -> tuple[list, list]:
+    """The kernels' layer records ``(shifts, s0, s1, mask_row)`` for
+    ``plans`` in order, and each plan's first record (``plan_lo``, one
+    entry more than plans).  ``mask_row`` indexes the stacked mask rows of
+    :func:`stack_plan_masks`, or with ``relative`` the plan's own rows."""
+    layers, plan_lo = [], [0]
+    for p, plan in enumerate(plans):
+        row = 0 if relative else spans[p][0]
+        for layer in plan.layers:
+            ns = len(layer.shifts)
+            if ns not in (1, 2):
+                raise NotImplementedError(
+                    f"plan kernels take 1- or 2-shift layers, got {ns}")
+            s1 = layer.shifts[1] if ns == 2 else 0
+            layers.append((ns, layer.shifts[0], s1, row))
+            row += ns
+        plan_lo.append(len(layers))
+    if not layers:
+        layers.append((1, 0, 0, 0))            # never read: empty plans
+    return layers, plan_lo

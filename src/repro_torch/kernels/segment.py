@@ -20,7 +20,6 @@ Each wrapper counts ``calls`` (every entry, any device) and ``launches``
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import numpy as np
 import torch
@@ -29,11 +28,10 @@ from repro_torch.core import shiftnet, shiftplan
 from repro_torch.kernels import _common
 from repro_torch.vx.cache import PLANS
 
-#: Shared-memory budget a block aims for (the card allows 227 KB per block
-#: and 228 KB per SM): 24 KB lets eight 256-thread blocks share an SM.
-SMEM_BUDGET = 24 * 1024
-SMEM_LIMIT = 232448
 MAX_FIELDS = 16
+# the tile sizing shared with the strided kernels (kernels/_common.py)
+SMEM_BUDGET = _common.SMEM_BUDGET
+rows_per_block = _common.rows_per_block
 
 
 # ---------------------------------------------------------------------------
@@ -129,20 +127,7 @@ def _build_operands(mode: str, plans, device: torch.device) -> dict:
            "valid": torch.from_numpy(valid).to(device)}
     if device.type != "cuda":
         return ops
-    layers, plan_lo = [], [0]
-    for p, plan in enumerate(plans):
-        row = spans[p][0]
-        for layer in plan.layers:
-            ns = len(layer.shifts)
-            if ns not in (1, 2):
-                raise NotImplementedError(
-                    f"segment kernel takes 1- or 2-shift layers, got {ns}")
-            s1 = layer.shifts[1] if ns == 2 else 0
-            layers.append((ns, layer.shifts[0], s1, row))
-            row += ns
-        plan_lo.append(len(layers))
-    if not layers:
-        layers.append((1, 0, 0, 0))            # never read: empty plans
+    layers, plan_lo = _common.layer_table(plans, spans, relative=False)
     packed = _common.pack_bits(masks)
     ops.update(
         width=plans[0].n, S=packed.shape[0], words=packed.shape[1],
@@ -178,38 +163,6 @@ def _check(lib, status: int, what: str) -> None:
                            f"({msg})")
 
 
-def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
-                   min_blocks: int = 1) -> int:
-    """Row-tile height: three (rows, width) shared buffers plus the packed
-    masks within :data:`SMEM_BUDGET` (one row at least, if it fits the
-    card's 227 KB at all), and low enough that the grid has ``min_blocks``
-    blocks when ``R`` allows it."""
-    mb = -(-mask_bytes // 16) * 16
-    per_row = 3 * width * elem
-    if mb + per_row > SMEM_LIMIT:
-        raise ValueError(
-            f"segment tile of width {width} x {elem} B does not fit shared "
-            f"memory ({mb + per_row} B > {SMEM_LIMIT} B)")
-    return max(1, min(R, (SMEM_BUDGET - mb) // per_row,
-                      -(-R // max(1, min_blocks))))
-
-
-@functools.lru_cache(maxsize=None)
-def _min_blocks(device: torch.device) -> int:
-    """Two blocks per SM: a small call still spreads over the whole card."""
-    return 2 * torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def _check_cuda(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cuda":
-        raise ValueError(f"{what}: tensor on {t.device}, want cuda or cpu")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: the kernel takes contiguous tensors")
-    if t.element_size() not in (1, 2, 4, 8):
-        raise ValueError(f"{what}: element size {t.element_size()} "
-                         f"not in (1, 2, 4, 8)")
-
-
 # ---------------------------------------------------------------------------
 # Deinterleave (segment load) — kernel B1
 # ---------------------------------------------------------------------------
@@ -232,7 +185,7 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
     m = n // fields
     if aos.device.type == "cpu":
         return deinterleave_plain(aos, fields, plans=plans)
-    _check_cuda(aos, "deinterleave")
+    _common.check_cuda(aos, "deinterleave")
     mode, pl = plans if plans is not None else \
         shiftplan.segment_deinterleave_plans(n, fields)
     flat, lead = _common.flatten_rows(aos)
@@ -247,7 +200,7 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
         elem = aos.element_size()
         rows = rows_per_block(R, ops["width"], elem,
                               ops["S"] * ops["words"] * 4,
-                              _min_blocks(aos.device))
+                              _common.min_blocks(aos.device))
         ptrs = (ctypes.c_void_p * fields)(*[o.data_ptr() for o in outs])
         status = lib.segment_deinterleave(
             elem, flat.data_ptr(), ptrs, fields, R, n, m, ops["width"],
@@ -297,7 +250,7 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
     if x0.device.type == "cpu":
         return interleave_plain(soa, plans=plans)
     for t in soa:
-        _check_cuda(t, "interleave")
+        _common.check_cuda(t, "interleave")
     mode, pl = plans if plans is not None else \
         shiftplan.segment_interleave_plans(n, fields)
     lead = tuple(x0.shape[:-1])
@@ -313,7 +266,7 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
         vrows = 0 if mode == "fused" else ops["nplans"]
         rows = rows_per_block(R, ops["width"], elem,
                               (ops["S"] + vrows) * ops["words"] * 4,
-                              _min_blocks(x0.device))
+                              _common.min_blocks(x0.device))
         ptrs = (ctypes.c_void_p * fields)(*[f.data_ptr() for f in flats])
         status = lib.segment_interleave(
             elem, ptrs, out.data_ptr(), fields, R, n, m, ops["width"],

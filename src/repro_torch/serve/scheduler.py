@@ -105,7 +105,8 @@ class Scheduler:
                                 debug_invariants=debug_invariants)
         self.temperature, self.top_k = float(temperature), top_k
         self.fuse_step = fuse_step
-        vx.warm(2 * cfg.hd, fields=(2,), policy=cfg.vx_policy)
+        vx.warm(2 * cfg.hd, strided=False, fields=(2,),
+                policy=cfg.vx_policy)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self.chunk_pages = int(chunk_pages)

@@ -7,6 +7,13 @@ One spec type per access, a few verbs, one policy::
     k, v = vx.transpose(vx.Segment(n=2 * d, fields=2), kv_beat)
     beat = vx.transpose(vx.Segment(n=2 * d, fields=2), [k, v])
 
+    spec = vx.Strided(n=64, stride=4, offset=2, vl=8)
+    dense = vx.gather(spec, window)                        # strided load
+    win2  = vx.scatter(spec, window, dense)                # strided store
+    outs  = vx.gather_many([spec_a, spec_b], windows)      # ONE launch
+    out   = vx.gather(vx.Strided(n=64, stride=vx.BANK, vl=8), window,
+                      stride=torch.tensor(s))              # plan bank
+
     pg   = vx.Paged(page_size=16, pages=8, trail=2)
     seqs = vx.gather(pg, pool, table=tables)               # paged read
     pool = vx.scatter(pg, pool, beats, table=tables, pos=pos)  # append
@@ -15,22 +22,24 @@ One spec type per access, a few verbs, one policy::
     with vx.use("kernel"):       # CUDA kernels for CUDA tensors
         ...
 
-This slice covers ``Segment`` and float ``Paged`` specs; the rest of the
-reference's vx layer waits for later slices (ROADMAP.md, queue A).
+The port covers ``Strided`` (static and runtime ``BANK`` strides),
+``Segment`` and float ``Paged`` specs; the rest of the reference's vx
+layer waits for later slices (ROADMAP.md, queue A).
 """
 from repro_torch.vx import lower, program
 from repro_torch.vx._dispatch import (gather, gather_many, scatter,
                                       transpose, warm)
 from repro_torch.vx.cache import PLANS, PlanCache
-from repro_torch.vx.policy import (IMPLS, MIN_FUSED_ELEMS, Policy, current,
-                                   resolve, use)
+from repro_torch.vx.policy import (BANK_FIELDS, BANK_STRIDES, IMPLS,
+                                   MIN_FUSED_ELEMS, Policy, current, resolve,
+                                   use)
 from repro_torch.vx.program import Program, Txn
-from repro_torch.vx.spec import AccessSpec, Paged, Segment
+from repro_torch.vx.spec import BANK, AccessSpec, Paged, Segment, Strided
 
 __all__ = [
-    "AccessSpec", "Segment", "Paged",
+    "AccessSpec", "Strided", "Segment", "Paged", "BANK",
     "gather", "scatter", "transpose", "gather_many", "warm",
     "Policy", "use", "current", "resolve",
     "PLANS", "PlanCache", "Program", "Txn", "program", "lower",
-    "MIN_FUSED_ELEMS", "IMPLS",
+    "MIN_FUSED_ELEMS", "BANK_STRIDES", "BANK_FIELDS", "IMPLS",
 ]

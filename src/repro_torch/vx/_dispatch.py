@@ -2,27 +2,62 @@
 pipeline (port of ``repro``'s ``vx/_dispatch.py``).
 
 This slice ports ``transpose`` (Segment), ``gather`` / ``scatter``
-(Paged, float pools), ``gather_many`` (Paged and Segment) and ``warm``.
-``compact``, ``scatter_many``, the Strided/Indexed forms, quantized
-``scales=`` and ``shard=`` wait for later slices.
+(Strided, and Paged over float pools), ``gather_many`` (Strided, Paged and
+Segment) and ``warm``.  ``compact``, ``scatter_many``, the Indexed forms,
+quantized ``scales=`` and ``shard=`` wait for later slices.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from repro_torch.vx import lower as _lower
 from repro_torch.vx import program as _program
 from repro_torch.vx.policy import Policy, resolve
-from repro_torch.vx.spec import AccessSpec, Paged, Segment
+from repro_torch.vx.spec import AccessSpec, Paged, Segment, Strided
 
 
-def gather(spec: AccessSpec, buf: torch.Tensor, *, table=None,
+def _static_strided(spec: Strided, stride) -> Strided | None:
+    """The spec with a Python-int stride folded in, or None when the
+    stride is runtime (a tensor: it goes through the plan bank)."""
+    if not spec.runtime:
+        if stride is not None:
+            raise ValueError(
+                f"stride= was passed but {spec} already pins stride="
+                f"{spec.stride}; use stride=vx.BANK in the spec for "
+                f"call-time strides")
+        return spec
+    if stride is None:
+        raise ValueError(
+            "spec has stride=vx.BANK: pass the runtime stride as stride=")
+    if isinstance(stride, torch.Tensor):
+        return None
+    return dataclasses.replace(spec, stride=int(stride))
+
+
+def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, table=None,
            policy: Policy | str | None = None) -> torch.Tensor:
-    """Page-table gather over a ``(*lead, P, ps, *trail)`` pool:
-    ``table=`` is the runtime ``(*batch, pages)`` int32 page table
-    (entries ``< 0`` read as zeros); returns ``(*lead, *batch, pages*ps,
-    *trail)``."""
+    """Dense read through the access described by ``spec``.
+
+    * :class:`Strided` — ``(..., n) -> (..., vl)``.  A ``stride=vx.BANK``
+      spec takes the stride as ``stride=``: a Python int folds into the
+      spec (the compiled path, as a static stride); a 0-dim tensor is the
+      runtime form, read on the host once (a sync) and dispatched over
+      the plan bank (compiled plans for +-1..8, the dynamic-count network
+      otherwise; either sign engages the Reverser).
+    * :class:`Paged` — page-table gather over a ``(*lead, P, ps, *trail)``
+      pool: ``table=`` is the runtime ``(*batch, pages)`` int32 page table
+      (entries ``< 0`` read as zeros); returns ``(*lead, *batch,
+      pages*ps, *trail)``.
+    """
     pol = resolve(policy)
+    if isinstance(spec, Strided):
+        spec = spec.bind(buf.dtype)
+        static = _static_strided(spec, stride)
+        if static is not None:
+            return _lower.run("gather.plan", static, pol.impl, buf)
+        return _lower.run("bank.gather", spec, pol.impl, buf, stride)
     if not isinstance(spec, Paged):
         raise TypeError(f"gather does not accept {type(spec).__name__} "
                         f"specs in this slice")
@@ -33,12 +68,26 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, table=None,
 
 
 def scatter(spec: AccessSpec, buf: torch.Tensor, values: torch.Tensor, *,
-            table=None, pos=None, policy: Policy | str | None = None):
-    """The decode append: one ``(*batch, *trail)`` beat per table row into
-    pool ``buf`` at per-row position ``pos=`` through ``table=`` (rows
-    with ``pos < 0`` or an unallocated page are dropped).  Updates the
-    pool in place and returns it."""
+            stride=None, table=None, pos=None,
+            policy: Policy | str | None = None):
+    """Write/merge through the access described by ``spec``.
+
+    * :class:`Strided` — merge dense ``values`` into the strided lanes of
+      ``buf`` (read-modify-write, out of place); returns the new window.
+      ``stride=`` as for :func:`gather`.
+    * :class:`Paged` — the decode append: one ``(*batch, *trail)`` beat
+      per table row into pool ``buf`` at per-row position ``pos=`` through
+      ``table=`` (rows with ``pos < 0`` or an unallocated page are
+      dropped).  Updates the pool in place and returns it.
+    """
     pol = resolve(policy)
+    if isinstance(spec, Strided):
+        spec = spec.bind(buf.dtype)
+        static = _static_strided(spec, stride)
+        if static is not None:
+            return _lower.run("scatter.plan", static, pol.impl, buf, values)
+        return _lower.run("bank.scatter", spec, pol.impl, buf, values,
+                          stride)
     if not isinstance(spec, Paged):
         raise TypeError(f"scatter does not accept {type(spec).__name__} "
                         f"specs in this slice")
@@ -73,6 +122,11 @@ def gather_many(specs, bufs, *, table=None,
                 policy: Policy | str | None = None):
     """Whole-step batched gather — ONE program for the whole group.
 
+    * ``specs`` a sequence of :class:`Strided` sharing ``(n, vl)`` with
+      per-access ``(stride, offset)``, ``bufs`` the matching windows (a
+      sequence, or an already-stacked ``(A, ..., n)`` tensor): one launch
+      of the fused gather (one shared plan when the specs are equal).
+      Returns the stacked ``(A, ..., vl)``.
     * ``specs`` a single :class:`Paged`, ``bufs`` same-shape pools sharing
       one ``table=``: all pools stack and gather in one program.  Returns
       one gathered array per pool.
@@ -81,6 +135,8 @@ def gather_many(specs, bufs, *, table=None,
       list per input array.
     """
     pol = resolve(policy)
+    if not isinstance(specs, (Paged, Segment)):
+        return _gather_many_strided(list(specs), bufs, pol)
     bufs = list(bufs)
     if isinstance(specs, Paged):
         if table is None:
@@ -91,26 +147,42 @@ def gather_many(specs, bufs, *, table=None,
         stacked = bufs[0] if len(bufs) == 1 else torch.stack(bufs)
         out = _lower.executor(prog, (spec,) * len(bufs))(stacked, table)
         return [out] if len(bufs) == 1 else list(out.unbind(0))
-    if isinstance(specs, Segment):
-        spec = specs.bind(bufs[0].dtype)
-        prog = _program.fuse([_lower.lower("seg.deint", spec,
-                                           pol.impl)] * len(bufs))
-        stacked = bufs[0] if len(bufs) == 1 else torch.stack(bufs)
-        outs = _lower.executor(prog, (spec,) * len(bufs))(stacked)
-        if len(bufs) == 1:
-            return [list(outs)]
-        return [[o[a] for o in outs] for a in range(len(bufs))]
-    raise TypeError("gather_many needs one Paged or one Segment spec in "
-                    "this slice")
+    spec = specs.bind(bufs[0].dtype)
+    prog = _program.fuse([_lower.lower("seg.deint", spec,
+                                       pol.impl)] * len(bufs))
+    stacked = bufs[0] if len(bufs) == 1 else torch.stack(bufs)
+    outs = _lower.executor(prog, (spec,) * len(bufs))(stacked)
+    if len(bufs) == 1:
+        return [list(outs)]
+    return [[o[a] for o in outs] for a in range(len(bufs))]
 
 
-def warm(n: int, *, fields: tuple = (2,),
+def _gather_many_strided(specs: list, bufs, pol: Policy) -> torch.Tensor:
+    if not specs or not all(isinstance(s, Strided) for s in specs):
+        raise TypeError("gather_many needs Strided specs, one Paged or one "
+                        "Segment spec")
+    if len({s.vl for s in specs}) != 1 or len({s.n for s in specs}) != 1:
+        raise ValueError("fused gather needs one shared (n, vl)")
+    windows = bufs if isinstance(bufs, torch.Tensor) else \
+        torch.stack(list(bufs))
+    specs = tuple(s.bind(windows.dtype) for s in specs)
+    prog = _program.fuse([_lower.lower("gather.plan", s, pol.impl)
+                          for s in specs])
+    return _lower.executor(prog, specs)(windows)
+
+
+def warm(n: int, *, offset: int = 0, vl: int | None = None,
+         strided: bool = True, fields: tuple | None = None,
          policy: Policy | str | None = None) -> None:
-    """Precompile the segment plans for a beat width (one-time host cost,
-    so the first step never pays plan compilation).  Skipped under
-    ``impl="ref"``, which never consults them.  The runtime-stride bank
-    slots of the reference's ``warm`` wait with the bank itself."""
+    """Precompile runtime-stride bank plans and segment plans for a window
+    width (one-time host cost, so the first step never pays plan
+    compilation).  ``strided=False`` skips the +-stride slots; segment
+    plans are skipped under ``impl="ref"``, which never consults them.
+    (The bank runs under every policy, so its slots are warmed under
+    every policy too.)"""
     from repro_torch.core import accessfuse
+    from repro_torch.vx.policy import BANK_FIELDS
+    fields = BANK_FIELDS if fields is None else fields
     if resolve(policy).impl == "ref":
-        return
-    accessfuse.warm(n, fields=fields)
+        fields = ()
+    accessfuse.warm(n, offset=offset, vl=vl, strided=strided, fields=fields)

@@ -1,17 +1,20 @@
 """Lowering — stage transitions of the vx pipeline, and program execution.
 
-Port of ``repro``'s ``vx/lower.py`` for the replicated builders of this
-slice: ``seg.deint`` / ``seg.int`` (plain torch oracles under ``ref``,
-CUDA kernels B1/B2 under ``kernel``) and ``paged.gather`` /
-``paged.scatter`` over float pools (plain torch ops: the reference has no
-Pallas kernel for them either).  ``lower()`` builds a validated
+Port of ``repro``'s ``vx/lower.py`` for the replicated builders of the
+slices so far: ``gather.plan`` / ``scatter.plan`` (plain torch oracles
+under ``ref``, CUDA kernels B3/B4/B5 under ``kernel``; a negative static
+stride goes to the plan bank), ``bank.gather`` / ``bank.scatter`` (the
+runtime-stride plan bank, torch ops under every policy, as in the
+reference), ``seg.deint`` / ``seg.int`` (oracles under ``ref``, kernels
+B1/B2 under ``kernel``) and ``paged.gather`` / ``paged.scatter`` over
+float pools (plain torch ops: the reference has no Pallas kernel for them
+either).  ``lower()`` builds a validated
 :class:`~repro_torch.vx.program.Program`; ``executor()`` compiles it into
 the callable that runs it, memoized in ``vx.PLANS`` under
 ``Program.key()`` (dtype and impl included).
 
-Waiting for later slices: the strided, bank, indexed and compaction
-builders, the quantized paged arm (``core/quant.py``) and every sharded
-builder.
+Waiting for later slices: the indexed and compaction builders, the
+quantized paged arm (``core/quant.py``) and every sharded builder.
 """
 from __future__ import annotations
 
@@ -47,6 +50,74 @@ def run(op: str, spec: AccessSpec, impl: str, *operands):
 # ---------------------------------------------------------------------------
 # Builders
 # ---------------------------------------------------------------------------
+
+def _gather_plan(txn: prg.Txn, specs: tuple):
+    if txn.width > 1:
+        return _gather_fused(txn, specs)
+    spec, impl = specs[0], txn.impl
+    s, o, vl = spec.stride, spec.offset, spec.vl
+    if s < 0:
+        from repro_torch.core import accessfuse
+        return lambda w: accessfuse.bank_gather_strided(w, s, o, vl)
+    if impl == "ref":
+        from repro_torch.kernels import ref
+        return lambda w: ref.gather_strided(w, s, o, vl)
+    from repro_torch.kernels import strided
+    return lambda w: strided.gather_strided(w, s, o, vl,
+                                            compiled=impl == "kernel")
+
+
+def _gather_fused(txn: prg.Txn, specs: tuple):
+    """Width-N strided super-transaction over a stacked (N, ..., n) window:
+    one shared plan when homogeneous, the fused kernel (B4) when
+    heterogeneous, a stacked loop of oracles under ref.  The specs share
+    (n, vl): ``vx.gather_many`` checks it, and the step scheduler groups
+    by window shape and vl."""
+    vl = specs[0].vl
+    pairs = tuple((s.stride, s.offset) for s in specs)
+    if txn.homogeneous:
+        return _gather_plan(prg.Txn("gather.plan", txn.specs[:1], txn.impl),
+                            specs[:1])
+    if txn.impl == "ref":
+        from repro_torch.kernels import ref
+
+        def ref_many(windows):
+            return torch.stack([ref.gather_strided(windows[a], s, o, vl)
+                                for a, (s, o) in enumerate(pairs)])
+
+        return ref_many
+    from repro_torch.kernels import strided
+    return lambda windows: strided.gather_strided_fused(
+        windows, pairs, vl, compiled=txn.impl == "kernel")
+
+
+def _scatter_plan(txn: prg.Txn, specs: tuple):
+    spec, impl = specs[0], txn.impl
+    s, o = spec.stride, spec.offset
+    if s < 0:
+        from repro_torch.core import accessfuse
+        return lambda w, v: accessfuse.bank_scatter_strided(w, v, s, o)
+    if impl == "ref":
+        from repro_torch.kernels import ref
+        return lambda w, v: ref.scatter_strided(w, v, s, o)
+    from repro_torch.kernels import strided
+    return lambda w, v: strided.scatter_strided(w, v, s, o,
+                                                compiled=impl == "kernel")
+
+
+def _bank_gather(txn: prg.Txn, specs: tuple):
+    spec = specs[0]
+    from repro_torch.core import accessfuse
+    return lambda w, stride: accessfuse.bank_gather_strided(
+        w, stride, spec.offset, spec.vl)
+
+
+def _bank_scatter(txn: prg.Txn, specs: tuple):
+    spec = specs[0]
+    from repro_torch.core import accessfuse
+    return lambda w, v, stride: accessfuse.bank_scatter_strided(
+        w, v, stride, spec.offset)
+
 
 def _seg_deint(txn: prg.Txn, specs: tuple):
     fields, impl = specs[0].fields, txn.impl
@@ -143,6 +214,10 @@ def _paged_scatter(txn: prg.Txn, specs: tuple):
 
 
 _BUILDERS = {
+    "gather.plan": _gather_plan,
+    "scatter.plan": _scatter_plan,
+    "bank.gather": _bank_gather,
+    "bank.scatter": _bank_scatter,
     "seg.deint": _seg_deint,
     "seg.int": _seg_int,
     "paged.gather": _paged_gather,

@@ -25,6 +25,11 @@ import threading
 #: of paying a kernel launch (decode-time single-token beats).
 MIN_FUSED_ELEMS = 1 << 15
 
+#: What the runtime-stride plan bank precompiles: strides +-1..8 (the
+#: negative half via the Reverser) and the segment field counts.
+BANK_STRIDES = tuple(range(1, 9))
+BANK_FIELDS = (2, 4)
+
 IMPLS = ("ref", "kernel", "kernel_dynamic")
 
 ENV_VAR = "REPRO_TORCH_VX_IMPL"

@@ -14,8 +14,10 @@ from typing import Sequence
 
 from repro_torch.vx.spec import AccessSpec
 
-#: Ops a Txn may name in this slice.
-OPS = ("seg.deint", "seg.int", "paged.gather", "paged.scatter")
+#: Ops a Txn may name in this slice.  ``*.plan`` ops run compiled shift
+#: plans; ``bank.*`` dispatch a runtime stride over the plan bank.
+OPS = ("gather.plan", "scatter.plan", "bank.gather", "bank.scatter",
+       "seg.deint", "seg.int", "paged.gather", "paged.scatter")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +32,15 @@ class Txn:
         if self.op not in OPS:
             raise ValueError(f"unknown txn op {self.op!r}")
         object.__setattr__(self, "specs", tuple(self.specs))
+
+    @property
+    def width(self) -> int:
+        """Fused arity: how many accesses this transaction serves."""
+        return len(self.specs)
+
+    @property
+    def homogeneous(self) -> bool:
+        return len(set(self.specs)) == 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +73,9 @@ def single(op: str, specs: Sequence[AccessSpec] | AccessSpec,
 
 def fuse(programs: Sequence[Program]) -> Program:
     """Merge single-transaction programs into ONE wide transaction (one
-    kernel launch for the whole group)."""
+    kernel launch for the whole group).  Spec compatibility (one shared
+    (n, vl) for strided, identical specs for segment) is the executor's
+    contract, checked in ``vx/lower.py``."""
     txns = [p.txn for p in programs]
     heads = {(t.op, t.impl) for t in txns}
     if len(heads) != 1:

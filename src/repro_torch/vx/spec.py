@@ -1,10 +1,11 @@
 """AccessSpec — frozen, hashable descriptions of a vector access.
 
-Port of ``repro``'s ``vx/spec.py`` for the two specs the serving path
-uses: :class:`Segment` (AoS <-> SoA transposition) and :class:`Paged`
-(page-table gather/append over a shared pool, float pools only).
-``Strided``, ``Indexed``, ``Compact``, the runtime-stride ``BANK`` and
-the quantized ``Paged.scale_dtype`` wait for a later slice.
+Port of ``repro``'s ``vx/spec.py`` for three specs: :class:`Strided`
+(``out[i] = window[offset + i*stride]``, a static stride or the runtime
+:data:`BANK`), :class:`Segment` (AoS <-> SoA transposition) and
+:class:`Paged` (page-table gather/append over a shared pool, float pools
+only).  ``Indexed``, ``Compact`` and the quantized ``Paged.scale_dtype``
+wait for later slices.
 
 ``dtype`` participates in ``key()``, so plan-cache entries never collide
 across element types.
@@ -28,20 +29,80 @@ def _dtype_str(dtype: Any) -> str | None:
     return str(np.dtype(dtype))
 
 
+class _Bank:
+    """Singleton marker: the stride is a runtime value."""
+
+    _instance: "_Bank | None" = None
+
+    def __new__(cls) -> "_Bank":
+        if cls._instance is None:
+            cls._instance = super().__new__(cls)
+        return cls._instance
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return "vx.BANK"
+
+
+#: Pass as ``Strided.stride`` to defer the stride to call time: an in-bank
+#: stride runs its compiled plan, anything else the dynamic-count network.
+BANK = _Bank()
+
+
 class AccessSpec:
     """Mixin shared by the spec dataclasses (not instantiable)."""
 
     def key(self) -> tuple:
-        """Hashable cache key: class name + every field."""
-        return (type(self).__name__,
-                *(getattr(self, f.name)
-                  for f in dataclasses.fields(self)))  # type: ignore[arg-type]
+        """Hashable cache key: class name + every field, BANK normalized."""
+        vals = []
+        for f in dataclasses.fields(self):  # type: ignore[arg-type]
+            v = getattr(self, f.name)
+            vals.append("bank" if v is BANK else v)
+        return (type(self).__name__, *vals)
 
     def bind(self, dtype: Any) -> "AccessSpec":
         """Spec with the element dtype filled in (no-op if already set)."""
         if getattr(self, "dtype", None) is not None:
             return self
         return dataclasses.replace(self, dtype=_dtype_str(dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class Strided(AccessSpec):
+    """``out[..., i] = window[..., offset + i*stride]`` for i < vl.
+
+    ``stride`` is a static Python int (either sign; negative engages the
+    §3.2.2 Reverser) or :data:`BANK` (runtime stride, supplied to the verb
+    as ``stride=``)."""
+
+    n: int
+    stride: Any                 # int | BANK
+    vl: int
+    offset: int = 0
+    dtype: str | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", _dtype_str(self.dtype))
+        if self.vl < 0:
+            raise ValueError(f"vl must be >= 0, got {self.vl}")
+        s = self.stride
+        if s is BANK:
+            return
+        s = int(s)
+        object.__setattr__(self, "stride", s)
+        if s == 0:
+            raise ValueError("stride 0 is a broadcast, not a strided access")
+        if self.vl == 0:
+            return
+        last = self.offset + (self.vl - 1) * s
+        lo, hi = (last, self.offset) if s < 0 else (self.offset, last)
+        if lo < 0 or hi >= self.n:
+            raise ValueError(
+                f"strided access [{lo}, {hi}] leaves the {self.n}-lane "
+                f"window: {self}")
+
+    @property
+    def runtime(self) -> bool:
+        return self.stride is BANK
 
 
 @dataclasses.dataclass(frozen=True)
