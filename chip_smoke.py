@@ -18,37 +18,53 @@ Phases, in order (any failure raises and exits non-zero):
    forced); strided B3/B5 at (stride, offset) (1,0) (2,0) (2,1) (3,1)
    (4,2) (7,5) (16,3) (64,0), windows of 96, 256 and 4096 lanes with the
    largest vl that fits, 7 and 1001 rows, and B4 with 2, 4 and 8 accesses
-   of different (stride, offset);
+   of different (stride, offset); then the dynamic-count kernels on the
+   same grids (bfloat16 with -0.0 and NaN lanes), each against its plain
+   version AND its plan twin: B6/B7 (also at 96 lanes) against B1/B2,
+   B8/B9 against B3/B5, the dynamic fused gather (one B8 per access)
+   against B4; and the device derivation of the dynamic network against
+   ``shiftnet.layer_masks``;
 3. timings at the main path's shapes: kernel, plain version, one PyTorch
    library call computing the same function (timed here only, never used
    by the port), and the bound (bytes that must move / 3.35 TB/s).  Each
-   timed call is first held bit for bit against its plain version.  The
-   strided kernels run on qwen3-0.6b's full-width decode KV stack
-   ``(28, 4, 512, 8, 256)`` bf16 (B4's ``(2,0), (2,1)`` split must equal
-   B1's FIELD=2 split bit for bit), then over the Fig. 12 sweep of
-   benchmarks/bench_strided.py at card size (MLEN 128, vl 64, offset 0,
-   stride 2..64, n = 64*stride, 256 MiB windows);
+   timed call is first held bit for bit against its plain version.  B1 and
+   B6 run the fused FIELD=2 KV split of qwen3-0.6b's full-width decode KV
+   stack ``(28, 4, 512, 8, 256)`` bf16, B2 and B7 a 16-token prefill
+   chunk's K/V beat re-pack ``(1, 16, 8, 128)`` x2 bf16.  The strided
+   kernels run on that KV stack (B4's ``(2,0), (2,1)`` split must equal
+   B1's FIELD=2 split bit for bit; B3, B5, B8 and B9 at (2,1), vl 128),
+   then over the Fig. 12 sweep of benchmarks/bench_strided.py at card size
+   (MLEN 128, vl 64, offset 0, stride 2..64, n = 64*stride, 256 MiB
+   windows): B3, B5, B8, B9 and the dynamic network's derivation alone at
+   B8's block count;
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
-   ``kernel``, ``ref``, ``ref``, ``kernel`` in that order.  The token
-   streams must be equal, both segment kernels must have launched on the
-   main path, and the fused KV split must launch exactly once per decode
-   step;
-5. the strided path through the port's entry points, under ``kernel`` and
-   then ``ref`` with every output equal: ``vx.gather`` / ``vx.scatter``
-   with a ``Strided`` spec on the KV stack, ``vx.gather_many`` with 4
-   heterogeneous specs, a ``StepScheduler`` group of 4 ``gather_strided``
-   requests (exactly one B4 launch), the runtime-stride bank at strides 3,
-   -2 and 11 (outside the bank: the dynamic network), and
-   ``lsdo.load_strided_many`` over a 256 MiB buffer.  ``ref`` launches no
-   strided kernel; ``kernel`` launches each of B3, B4 and B5.
+   ``kernel``, ``ref``, ``kernel_dynamic``, ``kernel_dynamic``, ``ref``,
+   ``kernel`` in that order.  The token streams must be equal; ``kernel``
+   must launch B1 and B2 and no dynamic kernel, ``kernel_dynamic`` B6 and
+   B7 and no plan kernel, ``ref`` none; the fused KV split must launch
+   exactly once per decode step (B1 under ``kernel``, B6 under
+   ``kernel_dynamic``);
+5. the strided path through the port's entry points, under ``kernel``,
+   ``ref`` and ``kernel_dynamic`` with every output equal: ``vx.gather`` /
+   ``vx.scatter`` with a ``Strided`` spec on the KV stack, ``vx.gather_many``
+   with 4 heterogeneous specs, a ``StepScheduler`` group of 4
+   ``gather_strided`` requests (exactly one B4 launch under ``kernel``,
+   four B8 launches under ``kernel_dynamic``), the runtime-stride bank at
+   strides 3, -2 and 11 (outside the bank: the dynamic network; torch ops
+   under every policy), and ``lsdo.load_strided_many`` over a 256 MiB
+   buffer.  ``ref`` launches no strided kernel; ``kernel`` launches each of
+   B3, B4 and B5 and no dynamic kernel; ``kernel_dynamic`` B8 and B9 and no
+   plan kernel.
 
-The line before the last is the kernels' JSON record (launches: the serve
-run's for B1/B2, the strided path's for B3/B4/B5); the last line is
-``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
+The line before the last is the kernels' JSON record, nine kernels
+(launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
+``kernel_dynamic``, the strided path's for B3/B4/B5 under ``kernel`` and
+B8/B9 under ``kernel_dynamic``); the last line is ``{"ok": true,
+"device": {...}}``.  ``--profile`` adds, after phase 4, one
 torch.profiler-traced serve run per policy and the operators whose host
-and device times differ most between them.
+and device times differ most between the ``kernel`` and ``ref`` runs.
 """
 from __future__ import annotations
 
@@ -67,12 +83,20 @@ SOURCES = {"deinterleave": "src/repro_torch/csrc/segment.cu",
            "interleave": "src/repro_torch/csrc/segment.cu",
            "gather_strided": "src/repro_torch/csrc/strided.cu",
            "gather_strided_fused": "src/repro_torch/csrc/strided.cu",
-           "scatter_strided": "src/repro_torch/csrc/strided.cu"}
+           "scatter_strided": "src/repro_torch/csrc/strided.cu",
+           "deinterleave_dynamic": "src/repro_torch/csrc/segment.cu",
+           "interleave_dynamic": "src/repro_torch/csrc/segment.cu",
+           "gather_strided_dynamic": "src/repro_torch/csrc/strided.cu",
+           "scatter_strided_dynamic": "src/repro_torch/csrc/strided.cu"}
 REPLACES = {"deinterleave": "src/repro/kernels/segment.py:85",
             "interleave": "src/repro/kernels/segment.py:156",
             "gather_strided": "src/repro/kernels/strided.py:27",
             "gather_strided_fused": "src/repro/kernels/strided.py:73",
-            "scatter_strided": "src/repro/kernels/strided.py:132"}
+            "scatter_strided": "src/repro/kernels/strided.py:132",
+            "deinterleave_dynamic": "src/repro/kernels/segment.py:93",
+            "interleave_dynamic": "src/repro/kernels/segment.py:164",
+            "gather_strided_dynamic": "src/repro/kernels/strided.py:33",
+            "scatter_strided_dynamic": "src/repro/kernels/strided.py:143"}
 STRIDED_SO = ((1, 0), (2, 0), (2, 1), (3, 1), (4, 2), (7, 5), (16, 3),
               (64, 0))
 HETERO = ((2, 0), (3, 1), (7, 5), (4, 2))
@@ -214,6 +238,101 @@ def check_strided(dev) -> int:
     return cases
 
 
+def check_dynamic(dev) -> int:
+    """B6-B9 against their plain versions and their plan twins (B1/B2,
+    B3/B5, B4 for the dynamic fused gather), bit for bit, and the device
+    derivation against ``shiftnet.layer_masks``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import scg, shiftnet
+    from repro_torch.kernels import _common, segment, strided
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 6)
+
+    def rand(shape, dtype):
+        if dtype in (torch.int32, torch.int8):
+            return torch.randint(-100, 100, shape, generator=g, device=dev,
+                                 dtype=dtype)
+        x = torch.randn(shape, generator=g, device=dev)
+        x.view(-1)[::7] = -0.0
+        x.view(-1)[3::11] = float("nan")
+        return x.to(dtype)
+
+    def held(got, plain, twin, what):
+        torch.cuda.synchronize()
+        for name, want in (("plain", plain), ("plan twin", twin)):
+            want = want if isinstance(want, list) else [want]
+            got_l = got if isinstance(got, list) else [got]
+            if len(got_l) != len(want) or not all(
+                    same_bits(a, b) for a, b in zip(got_l, want)):
+                raise AssertionError(f"{what} != {name}")
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32, torch.int8):
+        for fields in (2, 3, 4, 8):
+            for rows, width in ((7, 6144), (1001, 256), (5, 96)):
+                m = width // fields
+                n = fields * m
+                where = f"{dtype} fields={fields} n={n} rows={rows}"
+                aos = rand((rows, n), dtype)
+                held(segment.deinterleave(aos, fields, fused=False),
+                     segment.deinterleave_dynamic_plain(aos, fields),
+                     segment.deinterleave(aos, fields), f"B6 {where}")
+                soa = [rand((rows, m), dtype) for _ in range(fields)]
+                held(segment.interleave(soa, fused=False),
+                     segment.interleave_dynamic_plain(soa),
+                     segment.interleave(soa), f"B7 {where}")
+                cases += 1
+        for n in (96, 256, 4096):
+            for rows in (7, 1001):
+                win = rand((rows, n), dtype)
+                for s, o in STRIDED_SO:
+                    vl = (n - 1 - o) // s + 1
+                    where = f"{dtype} n={n} rows={rows} ({s}, {o}) vl={vl}"
+                    held(strided.gather_strided(win, s, o, vl,
+                                                compiled=False),
+                         strided.gather_strided_dynamic_plain(win, s, o, vl),
+                         strided.gather_strided(win, s, o, vl),
+                         f"B8 {where}")
+                    vals = rand((rows, vl), dtype)
+                    held(strided.scatter_strided(win, vals, s, o,
+                                                 compiled=False),
+                         strided.scatter_strided_dynamic_plain(win, vals, s,
+                                                               o),
+                         strided.scatter_strided(win, vals, s, o),
+                         f"B9 {where}")
+                    cases += 1
+                pairs = HETERO
+                vl = min((n - 1 - o) // s + 1 for s, o in pairs)
+                wins = rand((len(pairs), rows, n), dtype)
+                got = strided.gather_strided_fused(wins, pairs, vl,
+                                                   compiled=False)
+                held(got, torch.stack([strided.gather_strided_dynamic_plain(
+                    wins[a], s, o, vl) for a, (s, o) in enumerate(pairs)]),
+                    strided.gather_strided_fused(wins, pairs, vl),
+                    f"B8 x{len(pairs)} {dtype} n={n} rows={rows}")
+                cases += 1
+    for n, s, o in ((96, 3, 1), (256, 2, 1), (4096, 64, 0), (1, 1, 0)):
+        vl = (n - 1 - o) // s + 1
+        for gather in (True, False):
+            masks, occ = strided.dynamic_masks(n, s, o, vl, gather=gather,
+                                               blocks=3, device=dev)
+            counts = scg.gather_counts if gather else scg.scatter_counts
+            shift, valid = counts(n, s, o, vl)
+            want, want_occ = shiftnet.layer_masks(
+                shift, valid, toward_zero=gather, lsb_first=gather)
+            packed = (_common.pack_bits(want.numpy()).view(np.int32)
+                      if want.shape[0] else
+                      np.zeros((0, -(-n // 32)), np.int32))
+            if not (np.array_equal(masks.cpu().numpy(), packed)
+                    and np.array_equal(occ.cpu().numpy(), _common.pack_bits(
+                        want_occ.numpy()[None]).view(np.int32)[0])):
+                raise AssertionError(f"device derivation != layer_masks: "
+                                     f"n={n} ({s}, {o}) gather={gather}")
+            cases += 1
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: timings at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -272,6 +391,14 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
         lambda: segment.deinterleave_plain(kv, 2),
         lambda: kv.view(R, hd, 2).permute(2, 0, 1).contiguous(),
         2 * kv.numel() * kv.element_size(), list(kv.shape))
+    # B6: the same split through the dynamic-count networks (the fused KV
+    # split under kernel_dynamic); bound and library call are B1's
+    out["deinterleave_dynamic"] = record(
+        "deinterleave_dynamic",
+        lambda: segment.deinterleave(kv, 2, fused=False),
+        lambda: segment.deinterleave_dynamic_plain(kv, 2),
+        lambda: kv.view(R, hd, 2).permute(2, 0, 1).contiguous(),
+        2 * kv.numel() * kv.element_size(), list(kv.shape))
     # B1 on the prefill GLU split (16 tokens x 2*d_ff), printed only
     gu = torch.randn((1, 16, 2 * full_cfg.d_ff), generator=g,
                      device=dev).to(torch.bfloat16)
@@ -289,6 +416,11 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
     out["interleave"] = record(
         "interleave", lambda: segment.interleave([k, v]),
         lambda: segment.interleave_plain([k, v]),
+        lambda: torch.stack([k, v], dim=-1).flatten(-2),
+        4 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
+    out["interleave_dynamic"] = record(
+        "interleave_dynamic", lambda: segment.interleave([k, v], fused=False),
+        lambda: segment.interleave_dynamic_plain([k, v]),
         lambda: torch.stack([k, v], dim=-1).flatten(-2),
         4 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
     # B2 at a decode-step-sized stack (printed only; the main path keeps
@@ -357,16 +489,30 @@ def time_strided(dev, kv, split) -> dict:
         "scatter_strided", lambda: strided.scatter_strided(kv, vals, s, o),
         lambda: strided.scatter_strided_plain(kv, vals, s, o), library,
         R * (2 * n + vl) * e, list(kv.shape) + [str((s, o)), "v" + str(vl)])
+    # B8 / B9: the same two functions through the dynamic-count networks
+    out["gather_strided_dynamic"] = record(
+        "gather_strided_dynamic",
+        lambda: strided.gather_strided(kv, s, o, vl, compiled=False),
+        lambda: strided.gather_strided_dynamic_plain(kv, s, o, vl),
+        lambda: kv[..., o:o + (vl - 1) * s + 1:s].contiguous(),
+        gather_bytes(R, n, vl, s, e), list(kv.shape) + [str((s, o))])
+    out["scatter_strided_dynamic"] = record(
+        "scatter_strided_dynamic",
+        lambda: strided.scatter_strided(kv, vals, s, o, compiled=False),
+        lambda: strided.scatter_strided_dynamic_plain(kv, vals, s, o),
+        library, R * (2 * n + vl) * e,
+        list(kv.shape) + [str((s, o)), "v" + str(vl)])
     return out
 
 
 def time_fig12(dev) -> None:
     """The Fig. 12 sweep of benchmarks/bench_strided.py at card size: MLEN
     128, vl = 64, offset 0, n = 64 * stride, bf16, R = 2**27 / n rows so
-    that every window is 256 MiB (:data:`WINDOW_BYTES`).  B3 and B5 at
-    each stride (printed)."""
+    that every window is 256 MiB (:data:`WINDOW_BYTES`).  B3, B5, B8 and
+    B9 at each stride, and the dynamic network's derivation alone over as
+    many blocks as B8 launches (printed)."""
     import torch
-    from repro_torch.kernels import strided
+    from repro_torch.kernels import _common, strided
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 4)
     vl, e = 64, 2
@@ -391,6 +537,27 @@ def time_fig12(dev) -> None:
                lambda: strided.scatter_strided(win, vals, s, 0),
                lambda: strided.scatter_strided_plain(win, vals, s, 0),
                library, R * (2 * n + vl) * e, [R, n])
+        dyn = record(f"fig12 gather_strided_dynamic s={s}",
+                     lambda: strided.gather_strided(win, s, 0, vl,
+                                                    compiled=False),
+                     lambda: strided.gather_strided_dynamic_plain(win, s, 0,
+                                                                  vl),
+                     lambda: win[:, 0:(vl - 1) * s + 1:s].contiguous(),
+                     gather_bytes(R, n, vl, s, e), [R, n])
+        record(f"fig12 scatter_strided_dynamic s={s}",
+               lambda: strided.scatter_strided(win, vals, s, 0,
+                                               compiled=False),
+               lambda: strided.scatter_strided_dynamic_plain(win, vals, s, 0),
+               library, R * (2 * n + vl) * e, [R, n])
+        rows = _common.rows_per_block(R, n, e, _common.dyn_net_bytes(n),
+                                      _common.min_blocks(win.device),
+                                      buffers=2)
+        blocks = -(-R // rows)
+        derive = time_ms(lambda: strided.dynamic_masks(
+            n, s, 0, vl, blocks=blocks, device=dev), 20)
+        print(f"time fig12 derive s={s} [{R}, {n}]: {derive:.4f} ms for "
+              f"the GSN derivation alone over {blocks} blocks ({rows} rows "
+              f"each in B8), {derive / dyn['ms']:.4f} of B8's time")
         del win, vals
         torch.cuda.empty_cache()
 
@@ -416,12 +583,15 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
 
     def counted_step():
         torch.cuda.synchronize()
-        d0 = segment.deinterleave.launches
+        d0 = (segment.deinterleave.launches,
+              segment.deinterleave_dynamic.launches)
         t0 = time.perf_counter()
         out = plain_step()
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        step_launches.append(segment.deinterleave.launches - d0)
+        step_launches.append(
+            (segment.deinterleave.launches - d0[0],
+             segment.deinterleave_dynamic.launches - d0[1]))
         step_tokens.append(sum(1 for t in out if t >= 0))
         return out
 
@@ -440,8 +610,8 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
                 break
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {"deinterleave": segment.deinterleave.launches,
-                "interleave": segment.interleave.launches}
+    launches = {f.__name__: f.launches
+                for f in segment.KERNELS + segment.DYNAMIC}
     if not sched.drained():
         raise AssertionError(f"{impl}: the scheduler never drained")
     logits = sched.last_logits
@@ -473,8 +643,8 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
 def strided_path(dev, kv_shape, impl: str) -> dict:
     """One run of the strided path under policy ``impl``: the strided
     kernels' counts are set to 0 just before it and read just after.
-    Returns every output, the launches, and the StepScheduler group's B4
-    launches."""
+    Returns every output, the launches, and the StepScheduler group's
+    launches (B4's and B8's)."""
     import torch
     from repro_torch import vx
     from repro_torch.core import accessfuse, lsdo
@@ -504,11 +674,15 @@ def strided_path(dev, kv_shape, impl: str) -> dict:
             [vx.Strided(n=n, stride=s, offset=o, vl=vl4) for s, o in HETERO],
             [kv] * len(HETERO))
         sched = accessfuse.StepScheduler()
-        f0 = strided.gather_strided_fused.launches
+        f0 = (strided.gather_strided_fused.launches,
+              strided.gather_strided_dynamic.launches)
         hs = [sched.gather_strided(kv[a], s, o, vl4)
               for a, (s, o) in enumerate(HETERO)]
         sched.flush()
-        group = strided.gather_strided_fused.launches - f0
+        group = {"gather_strided_fused":
+                 strided.gather_strided_fused.launches - f0[0],
+                 "gather_strided_dynamic":
+                 strided.gather_strided_dynamic.launches - f0[1]}
         outs["step_group"] = torch.stack([h.value for h in hs])
         for st in (3, -2, 11):
             outs[f"bank[{st}]"] = vx.gather(
@@ -516,7 +690,8 @@ def strided_path(dev, kv_shape, impl: str) -> dict:
         for i, o in enumerate(lsdo.load_strided_many(buf, plans)):
             outs[f"lsdo[{i}]"] = o
     torch.cuda.synchronize()
-    launches = {f.__name__: f.launches for f in strided.KERNELS}
+    launches = {f.__name__: f.launches
+                for f in strided.KERNELS + strided.DYNAMIC}
     # the same function by plain indexing, as a yardstick for both runs
     want = {"gather": kv[..., 1::2],
             "gather_many": torch.stack([kv[..., o:o + (vl4 - 1) * s + 1:s]
@@ -585,7 +760,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.qwen3_0_6b import config
-    from repro_torch.kernels import _common
+    from repro_torch.kernels import _common, strided
     from repro_torch.models.transformer import init_params
 
     dev = torch.device("cuda")
@@ -594,8 +769,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     _common.build_all(["segment", "strided"])
-    print(f"build: segment.cu and strided.cu in parallel in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"build: segment.cu and strided.cu (with route_plan.cuh and "
+          f"route_dyn.cuh) in parallel in {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     cases = check_kernels(dev)
@@ -605,6 +780,12 @@ def main() -> int:
     cases = check_strided(dev)
     print(f"kernels == plain: {cases} strided cases (B3 and B5 together, "
           f"B4 alone) bit-exact ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = check_dynamic(dev)
+    print(f"dynamic kernels == plain == plan twin: {cases} cases (B6 and B7 "
+          f"together, B8 and B9 together, B8 x4 against B4, the derivation "
+          f"against layer_masks) bit-exact ({time.perf_counter() - t0:.1f} "
+          f"s)")
 
     cfg = config()
     slots, max_len, page_size, gen = 4, 512, 16, 16
@@ -614,9 +795,10 @@ def main() -> int:
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(40, 101, slots)]
     params = init_params(cfg, SEED, device=dev)
-    # kernel, ref, ref, kernel: the host clock drifts within a call, and
-    # this order puts both policies at the same mean position
-    order = ("kernel", "ref", "ref", "kernel")
+    # the host clock drifts within a call, and this order puts every
+    # policy at the same mean position
+    order = ("kernel", "ref", "kernel_dynamic", "kernel_dynamic", "ref",
+             "kernel")
     runs = [(impl, serve(dev, cfg, params, impl, prompts, gen, slots,
                          max_len, page_size)) for impl in order]
     for impl, r in runs:
@@ -632,26 +814,33 @@ def main() -> int:
               f"{r['decode_steps']} steps; {r['prefill_chunks']} prefill "
               f"chunks; launches {r['launches']}")
     kr = runs[0][1]
+    dr = runs[2][1]
     for impl, r in runs[1:]:
         if r["streams"] != kr["streams"]:
             raise AssertionError(f"{impl} gave other token streams than the "
                                  f"first kernel run")
+    plan = ("deinterleave", "interleave")
+    dynamic = ("deinterleave_dynamic", "interleave_dynamic")
     for impl, r in runs:
-        if impl == "kernel":
-            if min(r["launches"].values()) <= 0:
-                raise AssertionError(f"a kernel never launched on the main "
-                                     f"path: {r['launches']}")
-            if any(n != 1 for n in r["step_launches"]):
-                raise AssertionError(f"fused split launches per decode step: "
-                                     f"{r['step_launches']}")
-            if r["launches"] != kr["launches"]:
-                raise AssertionError(f"kernel runs launched differently: "
-                                     f"{r['launches']} vs {kr['launches']}")
-        elif max(r["launches"].values()) != 0:
-            raise AssertionError(f"ref policy launched kernels: "
-                                 f"{r['launches']}")
-    print(f"streams equal under kernel and ref; one fused split launch in "
-          f"each of {len(kr['step_launches'])} decode steps")
+        mine, other, split = {"kernel": (plan, dynamic, (1, 0)),
+                              "kernel_dynamic": (dynamic, plan, (0, 1)),
+                              "ref": ((), plan + dynamic, None)}[impl]
+        if any(r["launches"][k] <= 0 for k in mine):
+            raise AssertionError(f"{impl}: a kernel never launched on the "
+                                 f"main path: {r['launches']}")
+        if any(r["launches"][k] != 0 for k in other):
+            raise AssertionError(f"{impl} launched another policy's "
+                                 f"kernels: {r['launches']}")
+        if split and any(n != split for n in r["step_launches"]):
+            raise AssertionError(f"{impl}: fused split launches (B1, B6) per "
+                                 f"decode step: {r['step_launches']}")
+        first = kr if impl == "kernel" else dr
+        if impl != "ref" and r["launches"] != first["launches"]:
+            raise AssertionError(f"{impl} runs launched differently: "
+                                 f"{r['launches']} vs {first['launches']}")
+    print(f"streams equal under kernel, ref and kernel_dynamic; one fused "
+          f"split launch in each of {len(kr['step_launches'])} decode steps "
+          f"(B1 under kernel, B6 under kernel_dynamic)")
     if "--profile" in sys.argv[1:]:
         profile_policies({impl: serve(dev, cfg, params, impl, prompts, gen,
                                       slots, max_len, page_size,
@@ -664,27 +853,46 @@ def main() -> int:
                 2 * cfg.hd)
     t0 = time.perf_counter()
     path = {impl: strided_path(dev, kv_shape, impl)
-            for impl in ("kernel", "ref")}
-    for key, out in path["kernel"]["outs"].items():
-        if not same_bits(out, path["ref"]["outs"][key]):
-            raise AssertionError(f"strided path: {key} differs between "
-                                 f"kernel and ref")
-    pk, pr = path["kernel"], path["ref"]
-    if max(pr["launches"].values()) != 0 or pr["group"] != 0:
+            for impl in ("kernel", "ref", "kernel_dynamic")}
+    for impl in ("kernel", "kernel_dynamic"):
+        for key, out in path[impl]["outs"].items():
+            if not same_bits(out, path["ref"]["outs"][key]):
+                raise AssertionError(f"strided path: {key} differs between "
+                                     f"{impl} and ref")
+    pk, pr, pd = path["kernel"], path["ref"], path["kernel_dynamic"]
+    splan = tuple(f.__name__ for f in strided.KERNELS)
+    sdyn = tuple(f.__name__ for f in strided.DYNAMIC)
+    if max(pr["launches"].values()) != 0 or max(pr["group"].values()) != 0:
         raise AssertionError(f"ref policy launched strided kernels: "
                              f"{pr['launches']}")
-    if min(pk["launches"].values()) <= 0:
-        raise AssertionError(f"a strided kernel never launched on the "
-                             f"strided path: {pk['launches']}")
-    if pk["group"] != 1:
-        raise AssertionError(f"StepScheduler strided group made "
-                             f"{pk['group']} B4 launches, want 1")
-    print(f"strided path: {len(pk['outs'])} outputs equal under kernel and "
-          f"ref and to plain indexing; launches kernel {pk['launches']}, "
-          f"ref {pr['launches']}; one B4 launch for the 4-request "
-          f"StepScheduler group ({time.perf_counter() - t0:.1f} s)")
+    for impl, p, mine, other in (("kernel", pk, splan, sdyn),
+                                 ("kernel_dynamic", pd, sdyn, splan)):
+        if any(p["launches"][k] <= 0 for k in mine):
+            raise AssertionError(f"{impl}: a strided kernel never launched "
+                                 f"on the strided path: {p['launches']}")
+        if any(p["launches"][k] != 0 for k in other):
+            raise AssertionError(f"{impl} launched another policy's strided "
+                                 f"kernels: {p['launches']}")
+    if pk["group"] != {"gather_strided_fused": 1,
+                       "gather_strided_dynamic": 0}:
+        raise AssertionError(f"StepScheduler strided group under kernel: "
+                             f"{pk['group']}, want one B4 launch")
+    if pd["group"] != {"gather_strided_fused": 0,
+                       "gather_strided_dynamic": len(HETERO)}:
+        raise AssertionError(f"StepScheduler strided group under "
+                             f"kernel_dynamic: {pd['group']}, want "
+                             f"{len(HETERO)} B8 launches")
+    print(f"strided path: {len(pk['outs'])} outputs equal under kernel, ref "
+          f"and kernel_dynamic and to plain indexing; launches kernel "
+          f"{pk['launches']}, kernel_dynamic {pd['launches']}, ref "
+          f"{pr['launches']}; the 4-request StepScheduler group made one B4 "
+          f"launch under kernel and {len(HETERO)} B8 launches under "
+          f"kernel_dynamic ({time.perf_counter() - t0:.1f} s)")
 
-    launches = dict(kr["launches"], **pk["launches"])
+    launches = {k: kr["launches"][k] for k in plan}
+    launches.update({k: dr["launches"][k] for k in dynamic})
+    launches.update({k: pk["launches"][k] for k in splan})
+    launches.update({k: pd["launches"][k] for k in sdyn})
     kernels = []
     for name in REPLACES:
         t = timing[name]

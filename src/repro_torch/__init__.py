@@ -13,8 +13,11 @@ tensors.
 Ported so far: the paged, decoder-only serving path (kernels/segment,
 CUDA kernels B1 and B2; the plan compiler; the vx layer for Segment and
 Paged specs; step fusion; the dense decoder model; paged decode; the plain
-greedy scheduler) and EARTH's strided arm (kernels/strided, CUDA kernels
+greedy scheduler), EARTH's strided arm (kernels/strided, CUDA kernels
 B3, B4 and B5; core/scg and the dynamic shift networks; vx Strided specs
 and the runtime-stride plan bank; the strided step-fusion group;
-core/lsdo).  ROADMAP.md lists what waits.
+core/lsdo), and the ``kernel_dynamic`` policy through both (CUDA kernels
+B6 and B7 in kernels/segment, B8 and B9 in kernels/strided: the
+dynamic-count networks, derived on the card by ``csrc/route_dyn.cuh``).
+ROADMAP.md lists what waits.
 """

@@ -7,9 +7,11 @@ Port of ``repro``'s ``core/accessfuse.py``:
   strided-gather accesses, merges same-shape ones into ONE wide
   transaction through ``vx.program.fuse`` (one kernel launch for the
   group), and executes it through ``vx.lower.executor``.
-  ``fuse_split_kv`` is the one fused KV split per decode step; a group of
-  ``gather_strided`` requests with different ``(stride, offset)`` is one
-  launch of the fused strided gather (kernel B4).
+  ``fuse_split_kv`` is the one fused KV split per decode step (kernel B1,
+  or B6 under ``kernel_dynamic``); a group of ``gather_strided`` requests
+  with different ``(stride, offset)`` is one launch of the fused strided
+  gather (kernel B4), or under ``kernel_dynamic`` one dynamic gather (B8)
+  per request, as the reference's ``pallas_dynamic`` loops.
 * The runtime-stride plan bank (:func:`bank_gather_strided`,
   :func:`bank_scatter_strided`): compiled plans for strides +-1..8 (the
   §3.2.2 Reverser for the negative half), the dynamic-count network for
@@ -21,12 +23,14 @@ Lowering policy:
 
 * :func:`pick_impl` — groups below the policy's fusion threshold ride the
   plain path (the reference's own threshold).
-* :func:`platform_impl` — the reference demotes every merged group to
-  ``ref`` off-TPU, because interpret-mode Pallas is no dispatch win.  The
-  port demotes only groups whose tensors lie on the CPU: on the card a
-  merged group is one CUDA launch.  :func:`pinned_kernel_lowering` (or
-  ``Policy(platform_lowering=False)``) turns the demotion off, so a CPU run
-  can count the kernel calls the card would launch.
+* :func:`platform_impl` — the reference demotes merged ``pallas`` groups
+  to ``ref`` off-TPU, because interpret-mode Pallas is no dispatch win
+  (``pallas_dynamic`` groups it never demotes).  The port demotes only
+  groups whose tensors lie on the CPU, under either kernel impl: on the
+  card a merged group reaches its CUDA kernels.
+  :func:`pinned_kernel_lowering` (or ``Policy(platform_lowering=False)``)
+  turns the demotion off, so a CPU run can count the kernel calls the card
+  would launch.
 
 Launch accounting counts calls at the kernel entry points
 (``kernels.segment.deinterleave.calls`` / ``.launches``,

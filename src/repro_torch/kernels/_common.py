@@ -11,8 +11,9 @@ the shared library with ``ctypes`` (a plain C interface; no PyTorch
 headers, so the build takes seconds); :func:`build_all` builds several
 sources in parallel.  A missing ``nvcc`` or a failed build raises; nothing
 falls back to a plain version.  The CUDA launch helpers shared by the
-kernel wrappers (:func:`rows_per_block`, :func:`check_cuda`,
-:func:`layer_table`) live here too.
+kernel wrappers (:func:`rows_per_block`, :func:`dyn_net_bytes`,
+:func:`check_cuda`, :func:`cuda_stream`, :func:`layer_table`) live here
+too.
 """
 from __future__ import annotations
 
@@ -189,6 +190,18 @@ def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
                       -(-R // max(1, min_blocks))))
 
 
+def dyn_net_bytes(n: int) -> int:
+    """Shared memory of one dynamic-count network over ``n`` lanes, as
+    ``dyn_bytes`` in ``csrc/route_dyn.cuh`` carves it: the derived
+    take-masks (one packed row per layer), the final occupancy, the layer
+    records, and the count and validity scratch (two of each), rounded up
+    to 16 bytes.  At n = 4096 that is 40640 bytes, most of it counts."""
+    words = -(-n // 32)
+    layers = shiftnet._num_layers(n)
+    b = 4 * (layers * words + words + 4 * layers + 2 * n + 2 * words)
+    return -(-b // 16) * 16
+
+
 @functools.lru_cache(maxsize=None)
 def min_blocks(device: torch.device) -> int:
     """Two blocks per SM: a small call still spreads over the whole card."""
@@ -205,6 +218,12 @@ def check_cuda(t: torch.Tensor, what: str) -> None:
     if t.element_size() not in (1, 2, 4, 8):
         raise ValueError(f"{what}: element size {t.element_size()} "
                          f"not in (1, 2, 4, 8)")
+
+
+def cuda_stream(t: torch.Tensor) -> int:
+    """The handle of PyTorch's current stream on ``t``'s card (the kernels
+    launch on it)."""
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def layer_table(plans, spans, *, relative: bool) -> tuple[list, list]:

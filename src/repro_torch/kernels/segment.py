@@ -1,18 +1,24 @@
-"""Segment (AoS <-> SoA) access: wrappers for CUDA kernels B1 and B2.
+"""Segment (AoS <-> SoA) access: wrappers for CUDA kernels B1, B2, B6
+and B7.
 
-Port of ``repro``'s ``kernels/segment.py``, plan mode.  A segment access
-with FIELDS=f over an n-lane beat is ONE lane permutation, routed through
+Port of ``repro``'s ``kernels/segment.py``.  A segment access with
+FIELDS=f over an n-lane beat is ONE lane permutation, routed through
 compiled shift plans (core/shiftplan.py) either as one ``fused``
-Benes/butterfly pass or as f ``per_field`` pruned passes.
+Benes/butterfly pass or as f ``per_field`` pruned passes; or, with
+``fused=False`` (policy ``kernel_dynamic``), through f dynamic-count
+networks whose counts come from ``core/scg.py``.
 
 * :func:`deinterleave` (B1) and :func:`interleave` (B2) launch the
-  hand-written kernels in ``csrc/segment.cu`` for CUDA tensors: one launch
-  per call, whatever the field count or mode.  For CPU tensors they run
-  the plain version, :func:`route_deinterleave` / :func:`route_interleave`
-  (``shiftnet.apply_plan_operand``), which also serves as the kernels'
-  yardstick on the card.
-* ``fused=False`` is the dynamic-count network (``kernel_dynamic``); its
-  kernel bodies wait for a later slice and raise ``NotImplementedError``.
+  hand-written plan kernels in ``csrc/segment.cu`` for CUDA tensors: one
+  launch per call, whatever the field count or mode.  For CPU tensors they
+  run the plain version, :func:`route_deinterleave` /
+  :func:`route_interleave` (``shiftnet.apply_plan_operand``), which also
+  serves as the kernels' yardstick on the card.
+* ``fused=False`` hands the call to :func:`deinterleave_dynamic` (B6) and
+  :func:`interleave_dynamic` (B7): one launch of the dynamic kernel for a
+  CUDA tensor, or for a CPU tensor the plain version
+  (:func:`deinterleave_dynamic_plain` / :func:`interleave_dynamic_plain`,
+  the GSN / SSN of ``core/shiftnet.py`` per field).
 
 Each wrapper counts ``calls`` (every entry, any device) and ``launches``
 (kernel launches only, counted where the kernel launched).
@@ -24,7 +30,7 @@ import ctypes
 import numpy as np
 import torch
 
-from repro_torch.core import shiftnet, shiftplan
+from repro_torch.core import scg, shiftnet, shiftplan
 from repro_torch.kernels import _common
 from repro_torch.vx.cache import PLANS
 
@@ -109,6 +115,39 @@ def interleave_plain(soa: list[torch.Tensor], *,
     return out.reshape(lead + (n,))
 
 
+def deinterleave_dynamic_plain(aos: torch.Tensor,
+                               fields: int) -> list[torch.Tensor]:
+    """The plain version of kernel B6 on ``aos``'s own device: per field
+    f, the GSN over ``scg.gather_counts(n, fields, f, m)``, lanes
+    [0, m) of the routed beat (the reference's ``_deint_dyn_kernel``)."""
+    n = aos.shape[-1]
+    m = n // fields
+    outs = []
+    for f in range(fields):
+        shift, valid = scg.gather_counts(n, fields, f, m, device=aos.device)
+        res = shiftnet.gather_network(aos, shift, valid, axis=-1)
+        outs.append(res.payload[..., :m].contiguous())
+    return outs
+
+
+def interleave_dynamic_plain(soa: list[torch.Tensor]) -> torch.Tensor:
+    """The plain version of kernel B7 on the fields' own device: per field
+    f, the zero-padded field through the SSN over ``scg.scatter_counts(n,
+    fields, f, m)``, merged under the network's final occupancy into an
+    accumulator that starts at 0 (the reference's ``_int_dyn_kernel``)."""
+    fields = len(soa)
+    m = soa[0].shape[-1]
+    n = m * fields
+    acc = soa[0].new_zeros(tuple(soa[0].shape[:-1]) + (n,))
+    for f, part in enumerate(soa):
+        padded = torch.nn.functional.pad(part, (0, n - m))
+        shift, valid = scg.scatter_counts(n, fields, f, m,
+                                          device=part.device)
+        res = shiftnet.scatter_network(padded, shift, valid, axis=-1)
+        acc = torch.where(res.valid, res.payload, acc)
+    return acc
+
+
 # ---------------------------------------------------------------------------
 # Plan operands, uploaded once per (direction, mode, n, fields, device)
 # ---------------------------------------------------------------------------
@@ -150,6 +189,10 @@ def _lib():
         lib.segment_interleave.argtypes = [
             I, P, P, I, LL, I, I, I, I, P, I, I, P, P, I, P, I, P]
         lib.segment_interleave.restype = I
+        lib.segment_deinterleave_dyn.argtypes = [I, P, P, I, LL, I, I, I, P]
+        lib.segment_deinterleave_dyn.restype = I
+        lib.segment_interleave_dyn.argtypes = [I, P, P, I, LL, I, I, I, P]
+        lib.segment_interleave_dyn.restype = I
         lib.segment_error_string.argtypes = [I]
         lib.segment_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -176,9 +219,7 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
     penalty 6)."""
     deinterleave.calls += 1
     if not fused:
-        raise NotImplementedError(
-            "kernel_dynamic (the dynamic-count segment networks) waits for "
-            "a later slice")
+        return deinterleave_dynamic(aos, fields)
     n = aos.shape[-1]
     if fields < 1 or n % fields:
         raise ValueError(f"{n} lanes do not split into {fields} fields")
@@ -207,7 +248,7 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
             int(mode == "fused"), ops["masks_bits"].data_ptr(), ops["S"],
             ops["words"], ops["layers"].data_ptr(),
             ops["plan_lo"].data_ptr(), ops["nplans"], rows,
-            torch.cuda.current_stream(aos.device).cuda_stream)
+            _common.cuda_stream(aos))
         _check(lib, status, "deinterleave")
         deinterleave.launches += 1
     return [o.reshape(lead + (m,)) for o in outs]
@@ -215,6 +256,43 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
 
 deinterleave.calls = 0
 deinterleave.launches = 0
+
+
+def deinterleave_dynamic(aos: torch.Tensor,
+                         fields: int) -> list[torch.Tensor]:
+    """(..., fields*m) -> fields x (..., m) through the dynamic-count
+    networks (kernel B6, ``deinterleave(fused=False)``): one launch per
+    call, each block deriving every field's network from its counts."""
+    deinterleave_dynamic.calls += 1
+    n = aos.shape[-1]
+    if fields < 1 or n % fields:
+        raise ValueError(f"{n} lanes do not split into {fields} fields")
+    m = n // fields
+    if aos.device.type == "cpu":
+        return deinterleave_dynamic_plain(aos, fields)
+    _common.check_cuda(aos, "deinterleave_dynamic")
+    if fields > MAX_FIELDS:
+        raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
+    flat, lead = _common.flatten_rows(aos)
+    R = flat.shape[0]
+    outs = [torch.empty((R, m), dtype=aos.dtype, device=aos.device)
+            for _ in range(fields)]
+    if R:
+        lib = _lib()
+        elem = aos.element_size()
+        rows = rows_per_block(R, n, elem, _common.dyn_net_bytes(n),
+                              _common.min_blocks(aos.device))
+        ptrs = (ctypes.c_void_p * fields)(*[o.data_ptr() for o in outs])
+        status = lib.segment_deinterleave_dyn(
+            elem, flat.data_ptr(), ptrs, fields, R, n, m, rows,
+            _common.cuda_stream(aos))
+        _check(lib, status, "deinterleave_dynamic")
+        deinterleave_dynamic.launches += 1
+    return [o.reshape(lead + (m,)) for o in outs]
+
+
+deinterleave_dynamic.calls = 0
+deinterleave_dynamic.launches = 0
 
 
 def deinterleave_many(aos_list: list[torch.Tensor], fields: int, *,
@@ -234,17 +312,10 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
     """fields x (..., m) -> (..., fields*m)   (segment store)."""
     interleave.calls += 1
     if not fused:
-        raise NotImplementedError(
-            "kernel_dynamic (the dynamic-count segment networks) waits for "
-            "a later slice")
+        return interleave_dynamic(soa)
     soa = list(soa)
     fields = len(soa)
-    x0 = soa[0]
-    for t in soa[1:]:
-        if t.shape != x0.shape or t.dtype != x0.dtype \
-                or t.device != x0.device:
-            raise ValueError("interleave fields must share shape, dtype "
-                             "and device")
+    x0 = _check_fields(soa)
     m = x0.shape[-1]
     n = m * fields
     if x0.device.type == "cpu":
@@ -273,8 +344,7 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
             int(mode == "fused"), ops["masks_bits"].data_ptr(), ops["S"],
             ops["words"], ops["layers"].data_ptr(),
             ops["plan_lo"].data_ptr(), ops["nplans"],
-            ops["valid_bits"].data_ptr(), rows,
-            torch.cuda.current_stream(x0.device).cuda_stream)
+            ops["valid_bits"].data_ptr(), rows, _common.cuda_stream(x0))
         _check(lib, status, "interleave")
         interleave.launches += 1
     return out.reshape(lead + (n,))
@@ -284,8 +354,63 @@ interleave.calls = 0
 interleave.launches = 0
 
 
+def _check_fields(soa: list[torch.Tensor]) -> torch.Tensor:
+    """The first field, once every field shares its shape, dtype and
+    device (raises otherwise)."""
+    x0 = soa[0]
+    for t in soa[1:]:
+        if t.shape != x0.shape or t.dtype != x0.dtype \
+                or t.device != x0.device:
+            raise ValueError("interleave fields must share shape, dtype "
+                             "and device")
+    return x0
+
+
+def interleave_dynamic(soa: list[torch.Tensor]) -> torch.Tensor:
+    """fields x (..., m) -> (..., fields*m) through the dynamic-count
+    networks (kernel B7, ``interleave(fused=False)``): one launch per
+    call."""
+    interleave_dynamic.calls += 1
+    soa = list(soa)
+    fields = len(soa)
+    x0 = _check_fields(soa)
+    m = x0.shape[-1]
+    n = m * fields
+    if x0.device.type == "cpu":
+        return interleave_dynamic_plain(soa)
+    for t in soa:
+        _common.check_cuda(t, "interleave_dynamic")
+    if fields > MAX_FIELDS:
+        raise ValueError(f"interleave kernel takes <= {MAX_FIELDS} fields")
+    lead = tuple(x0.shape[:-1])
+    flats = [t.reshape(-1, m) for t in soa]
+    R = flats[0].shape[0]
+    out = torch.empty((R, n), dtype=x0.dtype, device=x0.device)
+    if R:
+        lib = _lib()
+        elem = x0.element_size()
+        # the dynamic network plus one packed row: the fields' occupancy
+        fixed = _common.dyn_net_bytes(n) + -(-n // 128) * 16
+        rows = rows_per_block(R, n, elem, fixed,
+                              _common.min_blocks(x0.device), buffers=2)
+        ptrs = (ctypes.c_void_p * fields)(*[f.data_ptr() for f in flats])
+        status = lib.segment_interleave_dyn(
+            elem, ptrs, out.data_ptr(), fields, R, n, m, rows,
+            _common.cuda_stream(x0))
+        _check(lib, status, "interleave_dynamic")
+        interleave_dynamic.launches += 1
+    return out.reshape(lead + (n,))
+
+
+interleave_dynamic.calls = 0
+interleave_dynamic.launches = 0
+
+KERNELS = (deinterleave, interleave)
+DYNAMIC = (deinterleave_dynamic, interleave_dynamic)
+
+
 def reset_counts() -> None:
-    """Zero both wrappers' ``calls`` and ``launches``."""
-    for fn in (deinterleave, interleave):
+    """Zero every wrapper's ``calls`` and ``launches``."""
+    for fn in KERNELS + DYNAMIC:
         fn.calls = 0
         fn.launches = 0

@@ -178,8 +178,11 @@ def warm(n: int, *, offset: int = 0, vl: int | None = None,
     width (one-time host cost, so the first step never pays plan
     compilation).  ``strided=False`` skips the +-stride slots; segment
     plans are skipped under ``impl="ref"``, which never consults them.
-    (The bank runs under every policy, so its slots are warmed under
-    every policy too.)"""
+    The bank runs under every policy, so its slots are warmed under every
+    policy too.  ``kernel_dynamic`` warms what ``kernel`` warms, as the
+    reference's ``pallas_dynamic`` does: its own kernels build their
+    networks on the card and need no plan, but a group below the launch
+    threshold and the bank still take the plan path."""
     from repro_torch.core import accessfuse
     from repro_torch.vx.policy import BANK_FIELDS
     fields = BANK_FIELDS if fields is None else fields

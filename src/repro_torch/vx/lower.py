@@ -2,11 +2,12 @@
 
 Port of ``repro``'s ``vx/lower.py`` for the replicated builders of the
 slices so far: ``gather.plan`` / ``scatter.plan`` (plain torch oracles
-under ``ref``, CUDA kernels B3/B4/B5 under ``kernel``; a negative static
-stride goes to the plan bank), ``bank.gather`` / ``bank.scatter`` (the
-runtime-stride plan bank, torch ops under every policy, as in the
-reference), ``seg.deint`` / ``seg.int`` (oracles under ``ref``, kernels
-B1/B2 under ``kernel``) and ``paged.gather`` / ``paged.scatter`` over
+under ``ref``, CUDA kernels B3/B4/B5 under ``kernel``, B8/B9 under
+``kernel_dynamic``; a negative static stride goes to the plan bank),
+``bank.gather`` / ``bank.scatter`` (the runtime-stride plan bank, torch
+ops under every policy, as in the reference), ``seg.deint`` / ``seg.int``
+(oracles under ``ref``, kernels B1/B2 under ``kernel``, B6/B7 under
+``kernel_dynamic``) and ``paged.gather`` / ``paged.scatter`` over
 float pools (plain torch ops: the reference has no Pallas kernel for them
 either).  ``lower()`` builds a validated
 :class:`~repro_torch.vx.program.Program`; ``executor()`` compiles it into

@@ -2,9 +2,11 @@
 
 Port of ``repro``'s ``vx/policy.py``.  Impls map one to one onto the
 reference's: ``ref`` (plain torch ops), ``kernel`` (the hand-written CUDA
-kernels; the reference's ``pallas``) and ``kernel_dynamic`` (the
-dynamic-count bodies; the reference's ``pallas_dynamic``, which raises
-``NotImplementedError`` until those bodies are ported).
+plan kernels; the reference's ``pallas``) and ``kernel_dynamic`` (the
+hand-written CUDA dynamic-count kernels B6-B9, whose shift networks are
+derived on the card from runtime counts; the reference's
+``pallas_dynamic``).  Both kernel impls take their kernels' plain
+versions for CPU tensors.
 
 Resolution order: an explicit ``policy=`` argument, else the innermost
 ``with vx.use(...)`` scope, else :meth:`Policy.default` — the

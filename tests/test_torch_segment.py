@@ -6,9 +6,11 @@ plans as torch ops); they must be bit-exact against repro.kernels.segment
 run as its own tests run it (Pallas interpret mode) and against the
 reference oracles, in both plan modes (the cost model's pick, and the
 fused Benes plan forced).  The ``cuda`` cases hold the CUDA kernels
-against the plain version on the card; they skip without one.  JAX is
-imported inside the tests that need it, so the card cases run where only
-torch is installed:
+against the plain version on the card; they skip without one.  The
+dynamic arm (``fused=False``, kernels B6/B7) is held against the
+reference's dynamic bodies here, and on the card in
+tests/test_torch_dynamic.py.  JAX is imported inside the tests that need
+it, so the card cases run where only torch is installed:
 ``python -m pytest -m cuda tests/test_torch_segment.py``.
 """
 import numpy as np
@@ -94,11 +96,60 @@ def test_counts_and_cpu_route():
     assert segment.deinterleave.launches == segment.interleave.launches == 0
 
 
-def test_dynamic_bodies_wait():
-    with pytest.raises(NotImplementedError):
-        segment.deinterleave(rand(0, (2, 8), "float32"), 2, fused=False)
-    with pytest.raises(NotImplementedError):
-        segment.interleave([rand(0, (2, 4), "float32")] * 2, fused=False)
+def numbered(shape, start=1):
+    """int32 payload ``start + flat index``: routed by the reference, it
+    records which input element each output lane holds."""
+    size = int(np.prod(shape))
+    return np.arange(start, start + size, dtype=np.int32).reshape(shape)
+
+
+def take(sources, x):
+    """``x``'s elements (flattened) at the reference's element numbers;
+    number 0 is a lane the network fills with 0."""
+    idx = torch.from_numpy(np.asarray(sources, np.int64))
+    flat = torch.cat([torch.zeros(1, dtype=x.dtype), x.reshape(-1)])
+    return flat[idx.reshape(-1)].reshape(idx.shape)
+
+
+DYNAMIC_GRID = ([("deint", f, lead, m) for f in (2, 3, 4, 5, 8)
+                 for lead, m in (((), 64), ((4,), 32), ((2, 2), 128))]
+                + [("int", f, lead, m) for f in (2, 3, 4, 8)
+                   for lead, m in (((), 64), ((4,), 32), ((2, 2), 128))])
+
+
+@pytest.mark.parametrize("direction,fields,lead,m", DYNAMIC_GRID)
+def test_dynamic_bodies_wait(direction, fields, lead, m):
+    """The dynamic arm (``fused=False``, kernels B6/B7; their plain
+    versions on the CPU) against the reference's dynamic Pallas bodies
+    (interpret mode) on the segment grid of tests/test_kernels_vs_ref.py.
+    The reference routes numbered int32 payloads once per geometry (a
+    Pallas interpret compile costs about half a second per field); each
+    dtype's output must equal its input taken through that map, bit for
+    bit.  The dynamic arm also equals the plan arm."""
+    import jax.numpy as jnp
+    from repro.kernels import segment as jseg
+    n = fields * m
+    if direction == "deint":
+        srcs = jseg.deinterleave(jnp.asarray(numbered(lead + (n,))), fields,
+                                 fused=False)
+        for dtype in DTYPES:
+            aos = rand(5, lead + (n,), dtype)
+            got = segment.deinterleave(aos, fields, fused=False)
+            assert len(got) == fields
+            for g, src, p in zip(got, srcs, segment.deinterleave(aos,
+                                                                 fields)):
+                assert_bits_equal(g, take(src, aos))
+                assert_bits_equal(g, p)
+        return
+    size = int(np.prod(lead + (m,)))
+    src = jseg.interleave([jnp.asarray(numbered(lead + (m,), 1 + f * size))
+                           for f in range(fields)], fused=False)
+    for dtype in DTYPES:
+        soa = [rand(40 + f, lead + (m,), dtype) for f in range(fields)]
+        got = segment.interleave(soa, fused=False)
+        assert_bits_equal(got, take(src, torch.cat([s.reshape(-1)
+                                                    for s in soa])))
+        assert_bits_equal(got, segment.interleave(soa))
 
 
 def test_shared_memory_sizing():

@@ -208,7 +208,8 @@ def test_plain_vs_pallas_interpret(dtype, n, stride, offset):
 
 def test_wrapper_contract():
     """Calls counted, no launch on the CPU; a window the access does not
-    fit raises ValueError; the dynamic bodies wait; tiles raise beyond
+    fit raises ValueError; the dynamic arm (``compiled=False``, policy
+    ``kernel_dynamic``) runs and equals the plan arm; tiles raise beyond
     the card's shared memory and otherwise keep at least one row."""
     strided.reset_counts()
     win = rand(0, (4, 96), "float32")
@@ -223,11 +224,11 @@ def test_wrapper_contract():
             strided.gather_strided(win, *bad)
     with pytest.raises(ValueError):
         strided.scatter_strided(win, rand(1, (4, 33), "float32"), 3, 1)
-    with pytest.raises(NotImplementedError):
-        strided.gather_strided(win, 3, 1, 32, compiled=False)
-    with pytest.raises(NotImplementedError):
-        vx.gather(vx.Strided(n=96, stride=3, offset=1, vl=32), win,
-                  policy="kernel_dynamic")
+    assert_bits_equal(strided.gather_strided(win, 3, 1, 32, compiled=False),
+                      strided.gather_strided(win, 3, 1, 32))
+    assert_bits_equal(vx.gather(vx.Strided(n=96, stride=3, offset=1, vl=32),
+                                win, policy="kernel_dynamic"),
+                      strided.gather_strided(win, 3, 1, 32))
     from repro_torch.kernels import _common
     # stride 64 at float32: a 4096-lane window is 32 KB per buffer
     assert _common.rows_per_block(32768, 4096, 4, 6144, buffers=2) == 1
@@ -243,7 +244,7 @@ HETERO = [(2, 0), (3, 1), (7, 5), (4, 2)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("impl", ["ref", "kernel"])
+@pytest.mark.parametrize("impl", ["ref", "kernel", "kernel_dynamic"])
 def test_vx_strided_verbs(dtype, impl):
     """gather / scatter (positive and negative static strides) and
     gather_many, homogeneous and heterogeneous, against ``repro.vx``."""
