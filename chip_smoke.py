@@ -56,13 +56,38 @@ Phases, in order (any failure raises and exits non-zero):
    under every policy), and ``lsdo.load_strided_many`` over a 256 MiB
    buffer.  ``ref`` launches no strided kernel; ``kernel`` launches each of
    B3, B4 and B5 and no dynamic kernel; ``kernel_dynamic`` B8 and B9 and no
-   plan kernel.
+   plan kernel;
+6. the Indexed / Compact path (kernels B10-B14, ``csrc/indexed.cu``):
+   B10 (row routing) against its plain version over n 1, 2, 96, 4096 and
+   16384 rows, densities 0 / 0.25 / 1, 1/2/4/8-byte rows, both directions
+   (n = 1: no layer, no launch); B11-B14 against their plain versions over
+   the counts of ``scg.gather_counts`` / ``scatter_counts`` at (96, 3, 1),
+   (256, 2, 1), (100, 7, 5), (4095, 64, 0) and (1, 1, 0) and of
+   ``compaction_counts`` / ``expansion_counts`` of random masks, and B12
+   / B14 against their plan twins B11 / B13; on the KV stack of phase 5
+   with the counts of ``gather_counts(256, 2, 1, 128)`` /
+   ``scatter_counts``, B12 and B11 must equal B3 on lanes [0, 128) and 0
+   beyond, and ``where(occ, payload, window)`` of B14 and B13 must equal
+   B5, and each is timed (library call: ``torch.gather`` with the plan's
+   source index plus a ``where``); at qwen3-moe-30b-a3b's width (d_model
+   2048, 128 experts, top-8; 2048- and 512-token chunks, n = 16384 and
+   4096 units, one shard of 4-way expert parallelism set) ``vx.compact``
+   then ``vx.scatter(Compact)`` must give ``where(mask, rows, 0)`` and the
+   compact ids ``nonzero(mask)[:cap]``, and B10 is timed (library call: a
+   stable sort of ``~mask``, an index and a ``where``); then the path
+   through ``vx`` under ``kernel``, ``ref`` and ``kernel_dynamic`` (line
+   ``indexed path: ...``): outputs equal, and per call one B12 for the
+   tensor-count Indexed gather, none for the numpy-count one (plan
+   stage), one B14 / B13 for the tensor- / numpy-count Indexed scatter,
+   one B10 each for ``compact`` and ``scatter(Compact)``, none for the
+   compact ids, plus one B11 for the direct ``kernels.shift_gather`` call
+   with numpy counts; ``ref`` launches none.
 
-The line before the last is the kernels' JSON record, nine kernels
+The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, the strided path's for B3/B4/B5 under ``kernel`` and
-B8/B9 under ``kernel_dynamic``); the last line is ``{"ok": true,
-"device": {...}}``.  ``--profile`` adds, after phase 4, one
+B8/B9 under ``kernel_dynamic``, the indexed path's under ``kernel`` for
+B10-B14); the last line is ``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
 torch.profiler-traced serve run per policy and the operators whose host
 and device times differ most between the ``kernel`` and ``ref`` runs.
 """
@@ -87,7 +112,12 @@ SOURCES = {"deinterleave": "src/repro_torch/csrc/segment.cu",
            "deinterleave_dynamic": "src/repro_torch/csrc/segment.cu",
            "interleave_dynamic": "src/repro_torch/csrc/segment.cu",
            "gather_strided_dynamic": "src/repro_torch/csrc/strided.cu",
-           "scatter_strided_dynamic": "src/repro_torch/csrc/strided.cu"}
+           "scatter_strided_dynamic": "src/repro_torch/csrc/strided.cu",
+           "route_rows": "src/repro_torch/csrc/indexed.cu",
+           "shift_gather_static": "src/repro_torch/csrc/indexed.cu",
+           "shift_gather": "src/repro_torch/csrc/indexed.cu",
+           "shift_scatter_static": "src/repro_torch/csrc/indexed.cu",
+           "shift_scatter": "src/repro_torch/csrc/indexed.cu"}
 REPLACES = {"deinterleave": "src/repro/kernels/segment.py:85",
             "interleave": "src/repro/kernels/segment.py:156",
             "gather_strided": "src/repro/kernels/strided.py:27",
@@ -96,11 +126,23 @@ REPLACES = {"deinterleave": "src/repro/kernels/segment.py:85",
             "deinterleave_dynamic": "src/repro/kernels/segment.py:93",
             "interleave_dynamic": "src/repro/kernels/segment.py:164",
             "gather_strided_dynamic": "src/repro/kernels/strided.py:33",
-            "scatter_strided_dynamic": "src/repro/kernels/strided.py:143"}
+            "scatter_strided_dynamic": "src/repro/kernels/strided.py:143",
+            "route_rows": "src/repro/kernels/moe_compact.py:32",
+            "shift_gather_static": "src/repro/kernels/shift_gather.py:30",
+            "shift_gather": "src/repro/kernels/shift_gather.py:22",
+            "shift_scatter_static": "src/repro/kernels/shift_scatter.py:20",
+            "shift_scatter": "src/repro/kernels/shift_scatter.py:51"}
 STRIDED_SO = ((1, 0), (2, 0), (2, 1), (3, 1), (4, 2), (7, 5), (16, 3),
               (64, 0))
 HETERO = ((2, 0), (3, 1), (7, 5), (4, 2))
 WINDOW_BYTES = 1 << 28      # a Fig. 12 window, and the LSDO buffer: 256 MiB
+# (n, stride, offset) of the B11-B14 grid: widths that are not powers of
+# two, a 4095-lane network of 12 layers, and one lane (no layer)
+INDEXED_GEOM = ((96, 3, 1), (256, 2, 1), (100, 7, 5), (4095, 64, 0),
+                (1, 1, 0))
+# qwen3-moe-30b-a3b (src/repro/configs/qwen3_moe_30b.py): d_model 2048,
+# 128 experts, top-8; one shard of 4-way expert parallelism
+MOE_D, MOE_EXPERTS, MOE_TOP_K, MOE_SHARDS = 2048, 128, 8, 4
 
 
 def card_line() -> str:
@@ -371,6 +413,14 @@ def gather_bytes(R: int, n: int, vl: int, stride: int, e: int) -> int:
     element) plus the output written once."""
     read = R * n * e if stride * e <= 32 else R * vl * 32
     return read + R * vl * e
+
+
+def lane_bytes(R: int, lanes, e: int) -> int:
+    """Least bytes that reading ``lanes`` of each of R rows of ``e``-byte
+    elements moves: the distinct 32-byte sectors those lanes touch (each
+    row starting on a sector)."""
+    import numpy as np
+    return R * 32 * len(np.unique(np.asarray(lanes).reshape(-1) * e // 32))
 
 
 def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
@@ -712,6 +762,490 @@ def strided_path(dev, kv_shape, impl: str) -> dict:
     return {"outs": outs, "launches": launches, "group": group}
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the Indexed / Compact path (kernels B10-B14)
+# ---------------------------------------------------------------------------
+
+def moe_mask(tokens: int, seed: int):
+    """The units one shard of 4-way expert parallelism keeps, as
+    ``moe_ffn_local``'s ``mine`` (token-major, TOP_K units a token): each
+    token picks TOP_K distinct experts of MOE_EXPERTS (numpy-seeded), and a
+    unit is set when its expert is one of the shard's first
+    MOE_EXPERTS / MOE_SHARDS.  Density about 0.25."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    experts = np.argsort(rng.random((tokens, MOE_EXPERTS)),
+                         axis=1)[:, :MOE_TOP_K]
+    return (experts < MOE_EXPERTS // MOE_SHARDS).reshape(-1)
+
+
+def moe_capacity(tokens: int) -> int:
+    """``models/moe._capacity`` of the reference at slack 2.0."""
+    import math
+    cap = int(math.ceil(tokens * MOE_TOP_K / MOE_SHARDS * 2.0))
+    cap = min(max(cap, 8), tokens * MOE_TOP_K)
+    return ((cap + 7) // 8) * 8 if cap % 8 else cap
+
+
+def check_indexed(dev) -> int:
+    """B10 against its plain version over n in (1, 2, 96, 4096, 16384),
+    densities 0 / 0.25 / 1 and 1/2/4/8-byte rows, both directions (n = 1:
+    no layer, no launch); B11-B14 against their plain versions over the
+    counts of ``scg.gather_counts`` / ``scatter_counts`` at several (n,
+    stride, offset, vl) and of ``compaction_counts`` / ``expansion_counts``
+    of random masks, and B12 / B14 against their plan twins B11 / B13."""
+    import torch
+    from repro_torch.core import scg, shiftnet
+    from repro_torch.kernels import moe_compact, shift_gather, shift_scatter
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+
+    def rand(shape, dtype):
+        if not dtype.is_floating_point:
+            return torch.randint(-100, 100, shape, generator=g, device=dev,
+                                 dtype=dtype)
+        x = torch.randn(shape, generator=g, device=dev)
+        x.view(-1)[::7] = -0.0
+        x.view(-1)[3::11] = float("nan")
+        return x.to(dtype)
+
+    cases = 0
+    dtypes = (torch.int8, torch.bfloat16, torch.float32, torch.int64)
+    for dtype in dtypes:
+        for n in (1, 2, 96, 4096, 16384):
+            for density in (0.0, 0.25, 1.0):
+                mask = torch.rand(n, generator=g, device=dev) < density
+                for d in (3, 40):
+                    rows = rand((n, d), dtype)
+                    for counts, tz, keep in (
+                            (scg.compaction_counts, True,
+                             torch.arange(n, device=dev) < mask.sum()),
+                            (scg.expansion_counts, False, mask)):
+                        where = f"B10 {dtype} n={n} d={d} density={density}"
+                        s, v = counts(mask)
+                        masks, _ = shiftnet.layer_masks(
+                            s, v, toward_zero=tz, lsb_first=tz)
+                        before = moe_compact.route_rows.launches
+                        if masks.shape[0]:
+                            got = moe_compact.route_rows(
+                                rows, masks, keep, toward_zero=tz,
+                                lsb_first=tz)
+                            want = moe_compact.route_rows_plain(
+                                rows, masks, keep, toward_zero=tz,
+                                lsb_first=tz)
+                            launched = 1
+                        else:
+                            got = moe_compact._route_rows(
+                                rows, s, v, keep, toward_zero=tz,
+                                lsb_first=tz)
+                            want = torch.where(keep[:, None], rows,
+                                               torch.zeros_like(rows))
+                            launched = 0
+                        torch.cuda.synchronize()
+                        if moe_compact.route_rows.launches - before != \
+                                launched:
+                            raise AssertionError(f"{where}: launches")
+                        if not same_bits(got, want):
+                            raise AssertionError(f"{where} != plain")
+                    cases += 1
+    for dtype in dtypes:
+        for n, st, off in INDEXED_GEOM:
+            vl = (n - 1 - off) // st + 1
+            for rows in (7, 1001):
+                x = rand((rows, n), dtype)
+                mask = torch.rand(n, generator=g, device=dev) < 0.4
+                gathers = (("gather", scg.gather_counts(n, st, off, vl,
+                                                        device=dev)),
+                           ("compact", scg.compaction_counts(mask)))
+                scatters = (("scatter", scg.scatter_counts(n, st, off, vl,
+                                                           device=dev)),
+                            ("expand", scg.expansion_counts(mask)))
+                for kind, (sh, va) in gathers:
+                    where = f"{dtype} n={n} ({st}, {off}) rows={rows} {kind}"
+                    hs, hv = sh.cpu().numpy(), va.cpu().numpy()
+                    plan = shift_gather.host_plan(hs, hv, gather=True)
+                    dyn = shift_gather.shift_gather(x, sh, va)
+                    twin = shift_gather.shift_gather(x, hs, hv)
+                    torch.cuda.synchronize()
+                    if not same_bits(dyn, shift_gather.shift_gather_plain(
+                            x, sh, va)):
+                        raise AssertionError(f"B12 != plain: {where}")
+                    if not same_bits(twin,
+                                     shift_gather.shift_gather_static_plain(
+                                         x, plan)):
+                        raise AssertionError(f"B11 != plain: {where}")
+                    if not same_bits(dyn, twin):
+                        raise AssertionError(f"B12 != B11: {where}")
+                    cases += 1
+                for kind, (sh, va) in scatters:
+                    where = f"{dtype} n={n} ({st}, {off}) rows={rows} {kind}"
+                    hs, hv = sh.cpu().numpy(), va.cpu().numpy()
+                    plan = shift_gather.host_plan(hs, hv, gather=False)
+                    dp, do = shift_scatter.shift_scatter(x, sh, va)
+                    tp, to = shift_scatter.shift_scatter(x, hs, hv)
+                    torch.cuda.synchronize()
+                    wp, wo = shift_scatter.shift_scatter_plain(x, sh, va)
+                    if not (same_bits(dp, wp) and torch.equal(do, wo)):
+                        raise AssertionError(f"B14 != plain: {where}")
+                    wp, wo = shift_scatter.shift_scatter_static_plain(x, plan)
+                    if not (same_bits(tp, wp) and torch.equal(to, wo)):
+                        raise AssertionError(f"B13 != plain: {where}")
+                    if not (same_bits(dp, tp) and torch.equal(do, to)):
+                        raise AssertionError(f"B14 != B13: {where}")
+                    cases += 1
+    return cases
+
+
+def kv_indexed_operands(dev, kv_shape, seed: int) -> dict:
+    """The KV stack (bf16, seeded) and the Indexed operands of the (2,1)
+    access over its 256-lane beats: the counts of ``scg.gather_counts(n,
+    2, 1, n/2)`` / ``scatter_counts`` as tensors on the card and as numpy
+    arrays, the n/2 values of the store and the same values zero-padded to
+    n lanes (the raw scatter's input)."""
+    import torch
+    from repro_torch.core import scg
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    kv = torch.randn(kv_shape, generator=g, device=dev).to(torch.bfloat16)
+    n = kv.shape[-1]
+    st, off, vl = 2, 1, n // 2
+    gs, gv = scg.gather_counts(n, st, off, vl, device=dev)
+    ss, sv = scg.scatter_counts(n, st, off, vl, device=dev)
+    vals = torch.randn(kv.shape[:-1] + (vl,), generator=g,
+                       device=dev).to(torch.bfloat16)
+    return {"kv": kv, "n": n, "st": st, "off": off, "vl": vl,
+            "gs": gs, "gv": gv, "ss": ss, "sv": sv,
+            "hgs": gs.cpu().numpy(), "hgv": gv.cpu().numpy(),
+            "hss": ss.cpu().numpy(), "hsv": sv.cpu().numpy(), "vals": vals,
+            "padded": torch.nn.functional.pad(vals, (0, n - vl))}
+
+
+def time_indexed(dev, kv_shape) -> dict:
+    """B11-B14 on the decode KV stack (bf16, 256-lane beats) with the
+    counts of ``scg.gather_counts(256, 2, 1, 128)`` /
+    ``scatter_counts(256, 2, 1, 128)``, cross-checked against the strided
+    kernels: B12's and B11's lanes [0, 128) equal B3's output and the rest
+    are 0; ``where(occ, payload, window)`` of B14 and B13 on the values
+    zero-padded to 256 lanes equals B5's output.  Then each is timed
+    (``record``); the library call is ``torch.gather`` along the lanes with
+    the plan's precomputed source index, plus a ``where``."""
+    import torch
+    from repro_torch.kernels import shift_gather, shift_scatter, strided
+    ops = kv_indexed_operands(dev, kv_shape, SEED + 8)
+    kv, n, st, off, vl = (ops[k] for k in ("kv", "n", "st", "off", "vl"))
+    e = kv.element_size()
+    R = kv.numel() // n
+    gs, gv, ss, sv, vals, padded = (
+        ops[k] for k in ("gs", "gv", "ss", "sv", "vals", "padded"))
+    hgs, hgv, hss, hsv = (ops[k] for k in ("hgs", "hgv", "hss", "hsv"))
+    b3 = strided.gather_strided(kv, st, off, vl)
+    for name, out in (("B12", shift_gather.shift_gather(kv, gs, gv)),
+                      ("B11", shift_gather.shift_gather(kv, hgs, hgv))):
+        torch.cuda.synchronize()
+        if not (same_bits(out[..., :vl].contiguous(), b3)
+                and not bool(out[..., vl:].view(torch.int16).any())):
+            raise AssertionError(f"{name} on the KV stack != B3 (lanes "
+                                 f"[0, {vl})) and 0 (the rest)")
+    del b3
+    b5 = strided.scatter_strided(kv, vals, st, off)
+    for name, (p, occ) in (
+            ("B14", shift_scatter.shift_scatter(padded, ss, sv)),
+            ("B13", shift_scatter.shift_scatter(padded, hss, hsv))):
+        torch.cuda.synchronize()
+        if not same_bits(torch.where(occ, p, kv), b5):
+            raise AssertionError(f"where(occ, {name}, window) on the KV "
+                                 f"stack != B5")
+        del p, occ
+    del b5
+    print(f"indexed on the KV stack {list(kv.shape)}: B12 and B11 lanes "
+          f"[0, {vl}) == B3 at ({st}, {off}) and the rest 0; where(occ, "
+          f"B14 / B13 payload, window) == B5, bit for bit")
+    gplan = shift_gather.host_plan(hgs, hgv, gather=True)
+    splan = shift_gather.host_plan(hss, hsv, gather=False)
+
+    def library(x, plan):
+        src = torch.from_numpy(plan.source).to(dev).clamp(min=0).expand(
+            x.shape)
+        keep = torch.from_numpy(plan.valid).to(dev)
+        return lambda: torch.where(keep, torch.gather(x, -1, src), 0)
+
+    # least bytes: the input lanes that can reach the output, read once
+    # (the gather's valid lanes' sources, the scatter's valid lanes; in
+    # 32-byte sectors), the payload written once, and for the scatter one
+    # occupancy byte per element; the count operands' few KiB left out
+    gather_move = lane_bytes(R, gplan.source.reshape(-1)[
+        gplan.valid.reshape(-1).astype(bool)], e) + R * n * e
+    scatter_move = lane_bytes(R, hsv.reshape(-1).nonzero()[0], e) \
+        + R * n * e + R * n
+    shape = list(kv.shape)
+    out = {}
+    out["shift_gather_static"] = record(
+        "shift_gather_static",
+        lambda: shift_gather.shift_gather_static(kv, gplan),
+        lambda: shift_gather.shift_gather_static_plain(kv, gplan),
+        library(kv, gplan), gather_move,
+        shape + ["host counts (2,1) vl 128"])
+    out["shift_gather"] = record(
+        "shift_gather", lambda: shift_gather.shift_gather(kv, gs, gv),
+        lambda: shift_gather.shift_gather_plain(kv, gs, gv),
+        library(kv, gplan), gather_move,
+        shape + ["tensor counts (2,1) vl 128"])
+    out["shift_scatter_static"] = record(
+        "shift_scatter_static",
+        lambda: list(shift_scatter.shift_scatter_static(padded, splan)),
+        lambda: list(shift_scatter.shift_scatter_static_plain(padded,
+                                                              splan)),
+        library(padded, splan), scatter_move,
+        shape + ["host counts (2,1) vl 128"])
+    out["shift_scatter"] = record(
+        "shift_scatter",
+        lambda: list(shift_scatter.shift_scatter(padded, ss, sv)),
+        lambda: list(shift_scatter.shift_scatter_plain(padded, ss, sv)),
+        library(padded, splan), scatter_move,
+        shape + ["tensor counts (2,1) vl 128"])
+    return out
+
+
+def moe_compact_phase(dev) -> dict:
+    """Compact at qwen3-moe-30b-a3b's width (d_model 2048, 128 experts,
+    top-8): a 2048-token and a 512-token prefill chunk (n = 16384 and
+    4096 routed units of 2048 bf16), the units of one shard of 4-way
+    expert parallelism set (:func:`moe_mask`).  ``vx.compact`` then
+    ``vx.scatter(Compact)`` must give ``where(mask, rows, 0)``, and the ids
+    of ``vx.compact(Compact(n, cap), mask)`` must be
+    ``torch.nonzero(mask)[:cap]`` on the set units.  Then B10 is timed at
+    n = 16384 in the compact direction (the JSON record) and the expand
+    direction (printed); the library call is ``index_select`` of each
+    output row's source row (walked through the precomputed masks once)
+    plus a ``where``, the kernel's own function.  The entry points
+    ``compact_rows`` / ``expand_rows`` (counts, masks and one B10) are also
+    timed beside ``kernels/ref.py``'s stable sort, index and ``where``."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.core import scg, shiftnet
+    from repro_torch.kernels import moe_compact, ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 10)
+    out = {}
+    for tokens in (2048, 512):
+        n = tokens * MOE_TOP_K
+        rows = torch.randn((n, MOE_D), generator=g,
+                           device=dev).to(torch.bfloat16)
+        mask = torch.from_numpy(moe_mask(tokens, SEED + tokens)).to(dev)
+        spec = vx.Compact(n=n)
+        packed, pv = vx.compact(spec, mask, rows, policy="kernel")
+        back = vx.scatter(spec, mask, packed, policy="kernel")
+        cap = moe_capacity(tokens)
+        ids = vx.compact(vx.Compact(n=n, cap=cap), mask, policy="kernel")
+        nz = torch.nonzero(mask)[:cap, 0]
+        torch.cuda.synchronize()
+        if not same_bits(back, torch.where(mask[:, None], rows,
+                                           torch.zeros_like(rows))):
+            raise AssertionError(f"MoE n={n}: compact then expand != "
+                                 f"where(mask, rows, 0)")
+        if ids.shape != (cap,) or not torch.equal(ids[:nz.numel()].long(),
+                                                  nz):
+            raise AssertionError(f"MoE n={n}: compact ids != nonzero(mask)")
+        count = int(mask.sum())
+        print(f"moe compact n={n} ({tokens} tokens x top-{MOE_TOP_K}, "
+              f"d {MOE_D} bf16): {count} units set (density "
+              f"{count / n:.4f}); compact -> expand == where(mask, rows, 0) "
+              f"and ids == nonzero(mask)[:{cap}], bit for bit")
+        row_bytes = MOE_D * rows.element_size()
+        for direction, counts, tz, keep in (
+                ("compact", scg.compaction_counts, True, pv),
+                ("expand", scg.expansion_counts, False, mask)):
+            s, v = counts(mask)
+            masks, _ = shiftnet.layer_masks(s, v, toward_zero=tz,
+                                            lsb_first=tz)
+            x = rows if direction == "compact" else packed
+            # the library call of the same function, the masks precomputed:
+            # each output row's source row (walked through the masks once,
+            # here) by index_select, then a where
+            ids = moe_compact.route_rows_plain(
+                torch.arange(1, n + 1, device=dev)[:, None], masks,
+                torch.ones(n, dtype=torch.bool, device=dev),
+                toward_zero=tz, lsb_first=tz)[:, 0] - 1
+            src, take = ids.clamp(min=0), (keep & (ids >= 0))[:, None]
+            lib = (lambda: torch.where(take, x.index_select(0, src), 0))
+            if not same_bits(lib(), moe_compact.route_rows_plain(
+                    x, masks, keep, toward_zero=tz, lsb_first=tz)):
+                raise AssertionError(f"B10 library call n={n} {direction} "
+                                     f"!= the plain version")
+            # least bytes: the rows that land in a valid slot read once,
+            # every output row written once, the masks and out_valid read
+            bound = (count + n) * row_bytes + masks.numel() + n
+            r = record(
+                f"route_rows[{direction}] n={n}",
+                lambda: moe_compact.route_rows(x, masks, keep,
+                                               toward_zero=tz, lsb_first=tz),
+                lambda: moe_compact.route_rows_plain(
+                    x, masks, keep, toward_zero=tz, lsb_first=tz),
+                lib, bound, [n, MOE_D, f"density {count / n:.4f}"])
+            if tokens == 2048 and direction == "compact":
+                out["route_rows"] = r
+            # the whole entry point, counts and masks included, beside the
+            # library sequence of kernels/ref.py (stable sort, index, where)
+            port, lib_e2e = ((lambda: moe_compact.compact_rows(rows, mask),
+                              lambda: ref.compact_rows(rows, mask))
+                             if direction == "compact" else
+                             (lambda: moe_compact.expand_rows(packed, mask),
+                              lambda: ref.expand_rows(packed, mask)))
+            print(f"time {direction}_rows end to end n={n}: port "
+                  f"{time_ms(port, 20):.4f} ms (counts, masks, one B10), "
+                  f"library {time_ms(lib_e2e, 20):.4f} ms (kernels/ref.py)")
+        del rows, packed, back
+        torch.cuda.empty_cache()
+    return out
+
+
+def indexed_path(dev, kv_shape, impl: str) -> dict:
+    """One run of the Indexed / Compact path under policy ``impl``: the
+    counts of B10-B14 are set to 0 just before it and read just after.
+    Through ``vx``: the Indexed gather with tensor counts (B12 under either
+    kernel policy) and with numpy counts (the plan stage, no kernel), the
+    Indexed scatter with tensor counts (B14) and numpy counts (B13) on the
+    KV stack; ``vx.compact`` with rows and ``vx.scatter(Compact)`` (one B10
+    each) and the compact ids (no kernel) at the MoE width.  Under a kernel
+    policy the run also calls ``kernels.shift_gather.shift_gather`` with
+    numpy counts, the entry point that reaches B11 (the reference reaches
+    that body only by a direct call).  Returns the outputs, the launches
+    of the whole run and of each call."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.kernels import moe_compact, shift_gather, shift_scatter
+    ops = kv_indexed_operands(dev, kv_shape, SEED + 9)
+    kv, n, st, off, vl = (ops[k] for k in ("kv", "n", "st", "off", "vl"))
+    gs, gv, ss, sv, vals, padded = (
+        ops[k] for k in ("gs", "gv", "ss", "sv", "vals", "padded"))
+    hgs, hgv, hss, hsv = (ops[k] for k in ("hgs", "hgv", "hss", "hsv"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    tokens = 2048
+    N = tokens * MOE_TOP_K
+    rows = torch.randn((N, MOE_D), generator=g, device=dev).to(torch.bfloat16)
+    mask = torch.from_numpy(moe_mask(tokens, SEED + 11)).to(dev)
+    cap = moe_capacity(tokens)
+    wrappers = (moe_compact.KERNELS + shift_gather.KERNELS
+                + shift_scatter.KERNELS)
+
+    def launches():
+        return {f.__name__: f.launches for f in wrappers}
+
+    outs, per_call = {}, {}
+
+    def step(name, fn):
+        before = launches()
+        outs[name] = fn()
+        after = launches()
+        per_call[name] = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+
+    torch.cuda.synchronize()
+    for mod in (moe_compact, shift_gather, shift_scatter):
+        mod.reset_counts()                  # counts from here: the path
+    with vx.use(impl):
+        ix = vx.Indexed(n=n)
+        step("gather[tensor]", lambda: vx.gather(ix, kv, shift=gs, valid=gv))
+        step("gather[numpy]", lambda: vx.gather(ix, kv, shift=hgs,
+                                                valid=hgv))
+        step("scatter[tensor]", lambda: vx.scatter(ix, None, padded,
+                                                   shift=ss, valid=sv))
+        step("scatter[numpy]", lambda: vx.scatter(ix, None, padded,
+                                                  shift=hss, valid=hsv))
+        step("compact", lambda: vx.compact(vx.Compact(n=N), mask, rows))
+        step("expand", lambda: vx.scatter(vx.Compact(n=N), mask,
+                                          outs["compact"][0]))
+        step("ids", lambda: vx.compact(vx.Compact(n=N, cap=cap), mask))
+        if impl != "ref":
+            step("shift_gather[numpy]",
+                 lambda: shift_gather.shift_gather(kv, hgs, hgv))
+    torch.cuda.synchronize()
+    total = launches()
+    # the same functions by plain indexing, as a yardstick for every run
+    gather_want = torch.zeros_like(kv)
+    gather_want[..., :vl] = kv[..., off::st]
+    scatter_want = kv.clone()
+    scatter_want[..., off::st] = vals
+    checks = {"gather[tensor]": outs["gather[tensor]"],
+              "gather[numpy]": outs["gather[numpy]"]}
+    if "shift_gather[numpy]" in outs:
+        checks["shift_gather[numpy]"] = outs["shift_gather[numpy]"]
+    for k, got in checks.items():
+        if not same_bits(got, gather_want):
+            raise AssertionError(f"indexed path [{impl}] {k} differs from "
+                                 f"plain indexing")
+    for k in ("scatter[tensor]", "scatter[numpy]"):
+        p, occ = outs[k]
+        if not same_bits(torch.where(occ, p, kv), scatter_want):
+            raise AssertionError(f"indexed path [{impl}] {k} differs from "
+                                 f"plain indexing")
+    if not same_bits(outs["expand"], torch.where(mask[:, None], rows,
+                                                 torch.zeros_like(rows))):
+        raise AssertionError(f"indexed path [{impl}] compact -> expand != "
+                             f"where(mask, rows, 0)")
+    nz = torch.nonzero(mask)[:cap, 0]
+    if not torch.equal(outs["ids"][:nz.numel()].long(), nz):
+        raise AssertionError(f"indexed path [{impl}] ids != nonzero(mask)")
+    return {"outs": outs, "launches": total, "per_call": per_call}
+
+
+def indexed_phase(dev, kv_shape, timing: dict) -> dict:
+    """Phase 6: B10-B14 against their plain versions (and plan twins),
+    the KV-stack cross-checks and times of B11-B14, the MoE-width compact
+    round trip and B10's times (``timing`` gains the five records), then
+    the Indexed / Compact path under ``kernel``, ``ref`` and
+    ``kernel_dynamic``: outputs equal bit for bit, the launches of each
+    call as stated in :func:`indexed_path`.  Returns the ``kernel`` run's
+    launches."""
+    import torch
+    t0 = time.perf_counter()
+    cases = check_indexed(dev)
+    print(f"indexed kernels == plain: {cases} cases (B10 both directions; "
+          f"B12 == B11 and B14 == B13 on the same counts) bit-exact "
+          f"({time.perf_counter() - t0:.1f} s)")
+    timing.update(time_indexed(dev, kv_shape))
+    torch.cuda.empty_cache()
+    timing.update(moe_compact_phase(dev))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    path = {}
+    for impl in ("kernel", "ref", "kernel_dynamic"):
+        path[impl] = indexed_path(dev, kv_shape, impl)
+        torch.cuda.empty_cache()
+    ref = path["ref"]
+    for impl in ("kernel", "kernel_dynamic"):
+        for key, out in path[impl]["outs"].items():
+            want = ref["outs"].get(key, path["kernel"]["outs"][key])
+            out = out if isinstance(out, tuple) else (out,)
+            want = want if isinstance(want, tuple) else (want,)
+            if not all(same_bits(a, b) for a, b in zip(out, want)):
+                raise AssertionError(f"indexed path: {key} differs between "
+                                     f"{impl} and ref")
+    if any(ref["launches"].values()):
+        raise AssertionError(f"ref policy launched indexed kernels: "
+                             f"{ref['launches']}")
+    want_calls = {"gather[tensor]": {"shift_gather": 1},
+                  "gather[numpy]": {},
+                  "scatter[tensor]": {"shift_scatter": 1},
+                  "scatter[numpy]": {"shift_scatter_static": 1},
+                  "compact": {"route_rows": 1},
+                  "expand": {"route_rows": 1},
+                  "ids": {},
+                  "shift_gather[numpy]": {"shift_gather_static": 1}}
+    for impl in ("kernel", "kernel_dynamic"):
+        if path[impl]["per_call"] != want_calls:
+            raise AssertionError(f"indexed path [{impl}] launches per call: "
+                                 f"{path[impl]['per_call']}")
+    print(f"indexed path: outputs equal under kernel, ref and kernel_dynamic "
+          f"and to plain indexing; launches per call under kernel and "
+          f"kernel_dynamic {path['kernel']['per_call']}; whole run kernel "
+          f"{path['kernel']['launches']}, kernel_dynamic "
+          f"{path['kernel_dynamic']['launches']}, ref {ref['launches']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return path["kernel"]["launches"]
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -768,9 +1302,10 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    _common.build_all(["segment", "strided"])
-    print(f"build: segment.cu and strided.cu (with route_plan.cuh and "
-          f"route_dyn.cuh) in parallel in {time.perf_counter() - t0:.2f} s")
+    _common.build_all(_common.SOURCES)
+    print(f"build: {', '.join(f'{s}.cu' for s in _common.SOURCES)} (with "
+          f"route_plan.cuh and route_dyn.cuh) in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     cases = check_kernels(dev)
@@ -889,10 +1424,13 @@ def main() -> int:
           f"launch under kernel and {len(HETERO)} B8 launches under "
           f"kernel_dynamic ({time.perf_counter() - t0:.1f} s)")
 
+    ipk = indexed_phase(dev, kv_shape, timing)
+
     launches = {k: kr["launches"][k] for k in plan}
     launches.update({k: dr["launches"][k] for k in dynamic})
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})
+    launches.update(ipk)
     kernels = []
     for name in REPLACES:
         t = timing[name]

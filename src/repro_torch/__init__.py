@@ -18,6 +18,9 @@ B3, B4 and B5; core/scg and the dynamic shift networks; vx Strided specs
 and the runtime-stride plan bank; the strided step-fusion group;
 core/lsdo), and the ``kernel_dynamic`` policy through both (CUDA kernels
 B6 and B7 in kernels/segment, B8 and B9 in kernels/strided: the
-dynamic-count networks, derived on the card by ``csrc/route_dyn.cuh``).
+dynamic-count networks, derived on the card by ``csrc/route_dyn.cuh``),
+and the vx Indexed / Compact accesses (kernels/moe_compact, B10 row
+routing; kernels/shift_gather, B11 and B12; kernels/shift_scatter, B13
+and B14; the compaction counts, row routing and compact_indices).
 ROADMAP.md lists what waits.
 """

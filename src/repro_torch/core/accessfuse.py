@@ -35,8 +35,10 @@ Lowering policy:
 Launch accounting counts calls at the kernel entry points
 (``kernels.segment.deinterleave.calls`` / ``.launches``,
 ``kernels.strided.gather_strided_fused.calls`` ...) in place of the
-reference's ``jaxpr_access_counts``.  ``compact_indices`` waits for the
-MoE slice.
+reference's ``jaxpr_access_counts``.
+
+:func:`compact_indices` is the bank's runtime-count member, the MoE
+dispatch primitive: torch ops under every policy, as in the reference.
 """
 from __future__ import annotations
 
@@ -406,3 +408,24 @@ def warm(n: int, *, offset: int = 0, vl: int | None = None,
         if n % f == 0:
             shiftplan.segment_deinterleave_plans(n, f)
             shiftplan.segment_interleave_plans(n, f)
+
+
+# ---------------------------------------------------------------------------
+# Runtime-count member of the bank: MoE compaction
+# ---------------------------------------------------------------------------
+
+def compact_indices(mask: torch.Tensor, cap: int) -> torch.Tensor:
+    """Pack the indices of the set bits of ``mask`` (n,) to the front,
+    first ``cap`` kept.  The routing is derived once from the prefix-sum
+    counts (``shiftnet.layer_masks``); the int32 id payload then pays one
+    static shift + one select per layer (compaction is GSN-safe by
+    construction, so no conflict reductions)."""
+    n = mask.shape[0]
+    ids = torch.arange(n, dtype=torch.int32, device=mask.device)
+    shift, valid = scg.compaction_counts(mask)
+    masks, _ = shiftnet.layer_masks(shift, valid, toward_zero=True,
+                                    lsb_first=True)
+    if masks.shape[0]:
+        ids = shiftnet.apply_layer_masks(ids, masks, axis=0,
+                                         toward_zero=True, lsb_first=True)
+    return ids[:min(cap, n)]

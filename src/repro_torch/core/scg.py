@@ -12,7 +12,11 @@ strided access over a coalesced window of ``n`` elements has two views:
 ``stride`` and ``offset`` may be Python ints or 0-dim integer tensors
 (int32 arithmetic, floor division as in the reference); ``n`` and ``vl``
 are Python ints.  The counts come back as int32 shift and bool valid
-tensors on ``device``.  The compaction counts wait for the MoE slice.
+tensors on ``device``.
+
+The compaction counts (:func:`compaction_counts`,
+:func:`expansion_counts`) are the routing of MoE dispatch: computed on
+the mask's device with int32 torch ops, no host sync.
 """
 from __future__ import annotations
 
@@ -56,3 +60,44 @@ def segment_gather_counts(n: int, fields, field, vl, *, device=None):
 
 def segment_scatter_counts(n: int, fields, field, vl, *, device=None):
     return scatter_counts(n, fields, field, vl, device=device)
+
+
+def column_access_counts(n: int, emul_elen_elems, vl, *, device=None):
+    """RCVRF column access (EARTH §4.5.2): after the block rotate,
+    collecting element j of registers V0..V7 is a constant-stride gather
+    with stride = EMUL*ELEN expressed in elements."""
+    return gather_counts(n, emul_elen_elems, 0, vl, device=device)
+
+
+def compaction_counts(mask: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SCG for mask compaction (the routing of MoE dispatch): selected
+    position ``p`` moves to ``rank(p) = #selected before p``, an
+    order-preserving, separation-non-increasing map, hence GSN-safe."""
+    mask = mask.to(torch.bool)
+    rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    pos = torch.arange(mask.shape[0], dtype=torch.int32, device=mask.device)
+    shift = torch.where(mask, pos - rank, torch.zeros_like(pos))
+    return shift, mask
+
+
+def expansion_counts(mask: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """SCG for the inverse: packed element k lands at the k-th set
+    position of ``mask``; its SSN count is ``target(k) - k``
+    (order-preserving, separation-non-decreasing, hence SSN-safe).
+
+    ``target`` places each set position p at slot rank(p) of an ``n + 1``
+    buffer whose last slot takes every unset position and is dropped (the
+    reference's drop-mode scatter)."""
+    mask = mask.to(torch.bool)
+    n = mask.shape[0]
+    total = mask.to(torch.int32).sum()
+    pos = torch.arange(n, dtype=torch.int32, device=mask.device)
+    rank = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot = torch.where(mask, rank, torch.full_like(rank, n)).to(torch.int64)
+    targets = torch.zeros((n + 1,), dtype=torch.int32, device=mask.device)
+    targets.scatter_(0, slot, torch.where(mask, pos, torch.zeros_like(pos)))
+    valid = pos < total
+    shift = torch.where(valid, targets[:n] - pos, torch.zeros_like(pos))
+    return shift, valid

@@ -15,7 +15,7 @@ Port of ``repro``'s ``core/shiftnet.py``.  A network routes lanes through
 Conventions as in the reference: the GSN moves lanes toward LOWER indices
 consuming count bits LSB first; the SSN moves them toward HIGHER indices,
 MSB first; shifts never wrap.  Row routing (``gather_rows`` /
-``scatter_rows``) waits for the MoE slice.
+``scatter_rows``) moves whole rows along axis 0 (MoE token compaction).
 """
 from __future__ import annotations
 
@@ -216,3 +216,30 @@ def scatter_network(payload, shiftcnt, valid, *, axis: int = -1
     slots; bits are consumed MSB first (LSB first would collide)."""
     return _route(payload, shiftcnt, valid, axis=axis, toward_zero=False,
                   lsb_first=False)
+
+
+# ---------------------------------------------------------------------------
+# Row routing: (n, d...) rows move as units along axis 0 (MoE tokens)
+# ---------------------------------------------------------------------------
+
+def _route_rows(rows: torch.Tensor, shiftcnt: torch.Tensor,
+                valid: torch.Tensor, *, toward_zero: bool) -> RouteResult:
+    tail = (1,) * (rows.ndim - 1)
+    sc = shiftcnt.reshape(tuple(shiftcnt.shape) + tail).expand(rows.shape)
+    vd = valid.reshape(tuple(valid.shape) + tail).expand(rows.shape)
+    out = _route(rows, sc, vd, axis=0, toward_zero=toward_zero,
+                 lsb_first=toward_zero)
+    v = out.valid[..., 0] if out.valid.ndim > 1 else out.valid
+    return RouteResult(out.payload, v, out.conflict)
+
+
+def gather_rows(rows: torch.Tensor, shiftcnt: torch.Tensor,
+                valid: torch.Tensor) -> RouteResult:
+    """Route (n, d) rows toward index 0; shiftcnt/valid are (n,)."""
+    return _route_rows(rows, shiftcnt, valid, toward_zero=True)
+
+
+def scatter_rows(rows: torch.Tensor, shiftcnt: torch.Tensor,
+                 valid: torch.Tensor) -> RouteResult:
+    """Route (n, d) rows toward higher indices; shiftcnt/valid are (n,)."""
+    return _route_rows(rows, shiftcnt, valid, toward_zero=False)

@@ -200,6 +200,14 @@ def scatter_plan(n: int, stride: int, offset: int, vl: int) -> ShiftPlan:
                           lsb_first=False)
 
 
+def host_counts(shift, valid) -> bool:
+    """True when both counts are host data (numpy arrays, tuples, lists),
+    which compile to a :func:`counts_plan`; tensors take the dynamic
+    network."""
+    host = (np.ndarray, tuple, list)
+    return isinstance(shift, host) and isinstance(valid, host)
+
+
 @_memoize("plan.counts")
 def counts_plan(shift: tuple, valid: tuple, *, gather: bool) -> ShiftPlan:
     """Compiled network for arbitrary *static* per-lane counts (the

@@ -9,8 +9,8 @@ New here: :func:`library` builds ``csrc/*.cu`` with ``nvcc`` for
 ``sm_90a`` into ``build/`` at the repository root on first use and loads
 the shared library with ``ctypes`` (a plain C interface; no PyTorch
 headers, so the build takes seconds); :func:`build_all` builds several
-sources in parallel.  A missing ``nvcc`` or a failed build raises; nothing
-falls back to a plain version.  The CUDA launch helpers shared by the
+sources in parallel (:data:`SOURCES` lists them all).  A missing ``nvcc``
+or a failed build raises; nothing falls back to a plain version.  The CUDA launch helpers shared by the
 kernel wrappers (:func:`rows_per_block`, :func:`dyn_net_bytes`,
 :func:`check_cuda`, :func:`cuda_stream`, :func:`layer_table`) live here
 too.
@@ -35,6 +35,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[3] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: Every kernel source in ``csrc/``: ``build_all(SOURCES)`` builds them
+#: all, one nvcc each, in parallel.
+SOURCES = ("segment", "strided", "indexed")
 
 
 def flatten_rows(x: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:

@@ -1,21 +1,43 @@
 """vx verbs — argument normalization over the spec -> plan -> program
 pipeline (port of ``repro``'s ``vx/_dispatch.py``).
 
-This slice ports ``transpose`` (Segment), ``gather`` / ``scatter``
-(Strided, and Paged over float pools), ``gather_many`` (Strided, Paged and
-Segment) and ``warm``.  ``compact``, ``scatter_many``, the Indexed forms,
-quantized ``scales=`` and ``shard=`` wait for later slices.
+The port has ``transpose`` (Segment), ``gather`` / ``scatter`` (Strided,
+Indexed, Paged over float pools, and the Compact expansion), ``compact``
+(Compact), ``gather_many`` (Strided, Paged and Segment) and ``warm``.
+``scatter_many``, quantized ``scales=`` and ``shard=`` wait for later
+slices.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.core import shiftplan
 from repro_torch.vx import lower as _lower
 from repro_torch.vx import program as _program
 from repro_torch.vx.policy import Policy, resolve
-from repro_torch.vx.spec import AccessSpec, Paged, Segment, Strided
+from repro_torch.vx.spec import (AccessSpec, Compact, Indexed, Paged,
+                                 Segment, Strided)
+
+
+def _fold_routing(spec: Indexed, shift, valid) -> Indexed | None:
+    """Promote a host-known (shift, valid) routing (numpy arrays, lists,
+    tuples) into the spec, so the access compiles through the plan stage
+    (constant take-masks memoized under the spec key).  Tensor operands
+    return None (the dynamic network)."""
+    if spec.routing is not None:
+        if shift is not None or valid is not None:
+            raise ValueError(
+                f"{spec} already folds a static routing; do not also pass "
+                f"shift=/valid=")
+        return spec
+    if shiftplan.host_counts(shift, valid):
+        return dataclasses.replace(
+            spec, routing=(tuple(np.asarray(shift, np.int64).tolist()),
+                           tuple(np.asarray(valid, bool).tolist())))
+    return None
 
 
 def _static_strided(spec: Strided, stride) -> Strided | None:
@@ -36,7 +58,8 @@ def _static_strided(spec: Strided, stride) -> Strided | None:
     return dataclasses.replace(spec, stride=int(stride))
 
 
-def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, table=None,
+def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
+           valid=None, table=None,
            policy: Policy | str | None = None) -> torch.Tensor:
     """Dense read through the access described by ``spec``.
 
@@ -46,6 +69,12 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, table=None,
       runtime form, read on the host once (a sync) and dispatched over
       the plan bank (compiled plans for +-1..8, the dynamic-count network
       otherwise; either sign engages the Reverser).
+    * :class:`Indexed` — DROM gather with per-lane ``shift`` and ``valid``
+      operands, ``(..., n) -> (..., n)``.  Host-known routings
+      (numpy/list/tuple, or a spec with ``routing=``) fold into the spec
+      and run the plan stage (torch ops under every policy, as in the
+      reference); tensor operands take the dynamic-count network (kernel
+      B12 under either kernel policy).
     * :class:`Paged` — page-table gather over a ``(*lead, P, ps, *trail)``
       pool: ``table=`` is the runtime ``(*batch, pages)`` int32 page table
       (entries ``< 0`` read as zeros); returns ``(*lead, *batch,
@@ -58,6 +87,15 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, table=None,
         if static is not None:
             return _lower.run("gather.plan", static, pol.impl, buf)
         return _lower.run("bank.gather", spec, pol.impl, buf, stride)
+    if isinstance(spec, Indexed):
+        spec = spec.bind(buf.dtype)
+        static = _fold_routing(spec, shift, valid)
+        if static is not None:
+            return _lower.run("idx.gather", static, pol.impl, buf)
+        if shift is None or valid is None:
+            raise ValueError("Indexed gather needs shift= and valid= "
+                             "(or a spec with routing=)")
+        return _lower.run("idx.gather", spec, pol.impl, buf, shift, valid)
     if not isinstance(spec, Paged):
         raise TypeError(f"gather does not accept {type(spec).__name__} "
                         f"specs in this slice")
@@ -67,9 +105,9 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, table=None,
                       table)
 
 
-def scatter(spec: AccessSpec, buf: torch.Tensor, values: torch.Tensor, *,
-            stride=None, table=None, pos=None,
-            policy: Policy | str | None = None):
+def scatter(spec: AccessSpec, buf: torch.Tensor | None,
+            values: torch.Tensor, *, stride=None, shift=None, valid=None,
+            table=None, pos=None, policy: Policy | str | None = None):
     """Write/merge through the access described by ``spec``.
 
     * :class:`Strided` — merge dense ``values`` into the strided lanes of
@@ -79,6 +117,13 @@ def scatter(spec: AccessSpec, buf: torch.Tensor, values: torch.Tensor, *,
       per table row into pool ``buf`` at per-row position ``pos=`` through
       ``table=`` (rows with ``pos < 0`` or an unallocated page are
       dropped).  Updates the pool in place and returns it.
+    * :class:`Indexed` — raw DROM scatter of ``values`` (``buf`` is
+      unused; pass None); returns ``(payload, occupancy)``.  Host counts
+      run the compiled plan (kernel B13), tensor counts the dynamic-count
+      network (kernel B14), under either kernel policy.
+    * :class:`Compact` — expansion (the compaction inverse): ``buf`` is
+      the boolean mask, ``values`` the packed rows; returns the rows
+      scattered back to the mask positions, zeros elsewhere (kernel B10).
     """
     pol = resolve(policy)
     if isinstance(spec, Strided):
@@ -88,6 +133,14 @@ def scatter(spec: AccessSpec, buf: torch.Tensor, values: torch.Tensor, *,
             return _lower.run("scatter.plan", static, pol.impl, buf, values)
         return _lower.run("bank.scatter", spec, pol.impl, buf, values,
                           stride)
+    if isinstance(spec, Indexed):
+        if shift is None or valid is None:
+            raise ValueError("Indexed scatter needs shift= and valid=")
+        return _lower.run("idx.scatter", spec.bind(values.dtype), pol.impl,
+                          values, shift, valid)
+    if isinstance(spec, Compact):
+        return _lower.run("compact.expand", spec.bind(values.dtype),
+                          pol.impl, values, buf)
     if not isinstance(spec, Paged):
         raise TypeError(f"scatter does not accept {type(spec).__name__} "
                         f"specs in this slice")
@@ -116,6 +169,27 @@ def transpose(spec: Segment, x, *, policy: Policy | str | None = None):
         raise ValueError(f"AoS beat has {x.shape[-1]} lanes, spec.n is "
                          f"{spec.n}")
     return _lower.run("seg.deint", spec.bind(x.dtype), pol.impl, x)
+
+
+def compact(spec: Compact, mask: torch.Tensor,
+            rows: torch.Tensor | None = None, *,
+            policy: Policy | str | None = None):
+    """Order-preserving masked compaction.
+
+    With ``rows`` — pack the masked rows to the front; returns
+    ``(packed_rows, packed_valid)``, truncated to ``spec.capacity`` rows
+    when ``cap`` is set (kernel B10 under either kernel policy).  Without
+    ``rows`` — the packed *indices* of the set mask bits (the first
+    ``spec.capacity``), the MoE dispatch primitive: torch ops under every
+    policy, as in the reference."""
+    if not isinstance(spec, Compact):
+        raise TypeError(f"compact needs a Compact spec, got "
+                        f"{type(spec).__name__}")
+    pol = resolve(policy)  # validate even on the impl-independent path
+    if rows is None:
+        return _lower.run("compact.ids", spec, pol.impl, mask)
+    return _lower.run("compact.rows", spec.bind(rows.dtype), pol.impl,
+                      rows, mask)
 
 
 def gather_many(specs, bufs, *, table=None,

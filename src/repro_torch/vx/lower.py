@@ -7,15 +7,21 @@ under ``ref``, CUDA kernels B3/B4/B5 under ``kernel``, B8/B9 under
 ``bank.gather`` / ``bank.scatter`` (the runtime-stride plan bank, torch
 ops under every policy, as in the reference), ``seg.deint`` / ``seg.int``
 (oracles under ``ref``, kernels B1/B2 under ``kernel``, B6/B7 under
-``kernel_dynamic``) and ``paged.gather`` / ``paged.scatter`` over
-float pools (plain torch ops: the reference has no Pallas kernel for them
-either).  ``lower()`` builds a validated
+``kernel_dynamic``), ``idx.gather`` (a static routing: the plan stage,
+torch ops under every policy; runtime counts: the GSN under ``ref``,
+kernel B12 under both kernel policies), ``idx.scatter`` (the SSN under
+``ref``; B13 for host counts and B14 for tensor counts under both kernel
+policies), ``compact.rows`` / ``compact.expand`` (the oracles under
+``ref``, kernel B10 otherwise), ``compact.ids``
+(``accessfuse.compact_indices``, torch ops under every policy) and
+``paged.gather`` / ``paged.scatter`` over float pools (plain torch ops:
+the reference has no Pallas kernel for them either).  ``lower()`` builds a validated
 :class:`~repro_torch.vx.program.Program`; ``executor()`` compiles it into
 the callable that runs it, memoized in ``vx.PLANS`` under
 ``Program.key()`` (dtype and impl included).
 
-Waiting for later slices: the indexed and compaction builders, the
-quantized paged arm (``core/quant.py``) and every sharded builder.
+Waiting for later slices: the quantized paged arm (``core/quant.py``)
+and every sharded lowering.
 """
 from __future__ import annotations
 
@@ -138,6 +144,66 @@ def _seg_int(txn: prg.Txn, specs: tuple):
     return lambda parts: segment.interleave(parts, fused=impl == "kernel")
 
 
+def _idx_gather(txn: prg.Txn, specs: tuple):
+    from repro_torch.kernels import shift_gather
+    spec = specs[0]
+    if spec.routing is not None:
+        # Static routing: the plan stage.  The counts plan and its take-masks
+        # are built ONCE here and the executor is memoized in vx.PLANS under
+        # the spec key (routing included), so the payload pays one static
+        # shift + one select per active layer, on every impl, as in the
+        # reference (torch ops, no kernel: the masks are already constants).
+        plan = shift_gather.host_plan(*spec.routing, gather=True)
+        return lambda buf: shift_gather.shift_gather_static_plain(buf, plan)
+    if txn.impl == "ref":
+        # the GSN as torch ops on any device: the kernels' plain version
+        return lambda buf, shift, valid: shift_gather.shift_gather_plain(
+            buf, *shift_gather.device_counts(shift, valid, buf.shape[-1],
+                                             buf.device))
+    return shift_gather.shift_gather
+
+
+def _idx_scatter(txn: prg.Txn, specs: tuple):
+    from repro_torch.kernels import shift_scatter
+    if txn.impl == "ref":
+        # the SSN as torch ops on any device: the kernels' plain version
+        from repro_torch.kernels.shift_gather import device_counts
+        return lambda values, shift, valid: shift_scatter.shift_scatter_plain(
+            values, *device_counts(shift, valid, values.shape[-1],
+                                   values.device))
+    return shift_scatter.shift_scatter
+
+
+def _compact_rows(txn: prg.Txn, specs: tuple):
+    cap = specs[0].capacity
+    if txn.impl == "ref":
+        from repro_torch.kernels import ref
+        pack = ref.compact_rows
+    else:
+        from repro_torch.kernels import moe_compact
+        pack = moe_compact.compact_rows
+
+    def fn(rows, mask):
+        packed, valid = pack(rows, mask)
+        return packed[:cap], valid[:cap]
+
+    return fn
+
+
+def _compact_ids(txn: prg.Txn, specs: tuple):
+    cap = specs[0].capacity
+    from repro_torch.core import accessfuse
+    return lambda mask: accessfuse.compact_indices(mask, cap)
+
+
+def _compact_expand(txn: prg.Txn, specs: tuple):
+    if txn.impl == "ref":
+        from repro_torch.kernels import ref
+        return ref.expand_rows
+    from repro_torch.kernels import moe_compact
+    return moe_compact.expand_rows
+
+
 def _paged_gather(txn: prg.Txn, specs: tuple):
     """Page-table gather: ``out[.., j, ..] = pool[.., t[j//ps], j%ps, ..]``,
     entries ``< 0`` read as zeros.  Width-N fused transactions run on a
@@ -221,6 +287,11 @@ _BUILDERS = {
     "bank.scatter": _bank_scatter,
     "seg.deint": _seg_deint,
     "seg.int": _seg_int,
+    "idx.gather": _idx_gather,
+    "idx.scatter": _idx_scatter,
+    "compact.rows": _compact_rows,
+    "compact.ids": _compact_ids,
+    "compact.expand": _compact_expand,
     "paged.gather": _paged_gather,
     "paged.scatter": _paged_scatter,
 }

@@ -14,10 +14,12 @@ from typing import Sequence
 
 from repro_torch.vx.spec import AccessSpec
 
-#: Ops a Txn may name in this slice.  ``*.plan`` ops run compiled shift
-#: plans; ``bank.*`` dispatch a runtime stride over the plan bank.
+#: Ops a Txn may name.  ``*.plan`` ops run compiled shift plans;
+#: ``bank.*`` dispatch a runtime stride over the plan bank; ``idx.*`` and
+#: ``compact.*`` are the Indexed and Compact accesses.
 OPS = ("gather.plan", "scatter.plan", "bank.gather", "bank.scatter",
-       "seg.deint", "seg.int", "paged.gather", "paged.scatter")
+       "seg.deint", "seg.int", "idx.gather", "idx.scatter", "compact.rows",
+       "compact.ids", "compact.expand", "paged.gather", "paged.scatter")
 
 
 @dataclasses.dataclass(frozen=True)

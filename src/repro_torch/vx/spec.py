@@ -1,11 +1,13 @@
 """AccessSpec — frozen, hashable descriptions of a vector access.
 
-Port of ``repro``'s ``vx/spec.py`` for three specs: :class:`Strided`
-(``out[i] = window[offset + i*stride]``, a static stride or the runtime
-:data:`BANK`), :class:`Segment` (AoS <-> SoA transposition) and
+Port of ``repro``'s ``vx/spec.py``: :class:`Strided` (``out[i] =
+window[offset + i*stride]``, a static stride or the runtime :data:`BANK`),
+:class:`Segment` (AoS <-> SoA transposition), :class:`Indexed` (the raw
+shift-network access on per-lane ``(shift, valid)`` routing, runtime or
+folded into the spec as ``routing=``), :class:`Compact` (order-preserving
+masked compaction, the MoE dispatch primitive, and its expansion) and
 :class:`Paged` (page-table gather/append over a shared pool, float pools
-only).  ``Indexed``, ``Compact`` and the quantized ``Paged.scale_dtype``
-wait for later slices.
+only).  The quantized ``Paged.scale_dtype`` waits for a later slice.
 
 ``dtype`` participates in ``key()``, so plan-cache entries never collide
 across element types.
@@ -118,6 +120,62 @@ class Segment(AccessSpec):
         if self.fields < 1 or self.n % self.fields:
             raise ValueError(
                 f"segment needs n divisible by fields, got {self}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Indexed(AccessSpec):
+    """DROM access over ``n`` lanes routed by per-lane (shift, valid).
+
+    Two forms:
+
+    * dynamic — ``shift``/``valid`` are call-time tensors and the access
+      pays the dynamic-count network;
+    * static — a host-known routing folded into the spec as
+      ``routing=(shifts, valids)`` (hashable tuples) PROMOTES the access
+      into the plan stage: the layer take-masks are computed once when the
+      executor is built and memoized in ``vx.PLANS`` under this spec's key
+      (the verbs apply the same promotion to numpy/list/tuple operands).
+
+    The routing must be GSN-safe (order-preserving, separation
+    non-increasing toward lane 0), as for the dynamic network."""
+
+    n: int
+    dtype: str | None = None
+    routing: tuple | None = None   # ((shift,)*n, (valid,)*n) host constants
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", _dtype_str(self.dtype))
+        if self.routing is not None:
+            shifts, valids = self.routing
+            shifts = tuple(int(s) for s in shifts)
+            valids = tuple(bool(v) for v in valids)
+            if len(shifts) != self.n or len(valids) != self.n:
+                raise ValueError(
+                    f"routing must carry {self.n} per-lane entries, got "
+                    f"{len(shifts)}/{len(valids)}")
+            object.__setattr__(self, "routing", (shifts, valids))
+
+    @property
+    def static(self) -> bool:
+        return self.routing is not None
+
+
+@dataclasses.dataclass(frozen=True)
+class Compact(AccessSpec):
+    """Order-preserving masked compaction over ``n`` rows (MoE dispatch).
+
+    ``cap`` bounds the packed output length (defaults to ``n``)."""
+
+    n: int
+    cap: int | None = None
+    dtype: str | None = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "dtype", _dtype_str(self.dtype))
+
+    @property
+    def capacity(self) -> int:
+        return self.n if self.cap is None else min(self.cap, self.n)
 
 
 @dataclasses.dataclass(frozen=True)
