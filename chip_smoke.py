@@ -22,8 +22,11 @@ Phases, in order (any failure raises and exits non-zero):
    same grids (bfloat16 with -0.0 and NaN lanes), each against its plain
    version AND its plan twin: B6/B7 (also at 96 lanes) against B1/B2,
    B8/B9 against B3/B5, the dynamic fused gather (one B8 per access)
-   against B4; and the device derivation of the dynamic network against
-   ``shiftnet.layer_masks``;
+   against B4; the device derivation of the dynamic network against
+   ``shiftnet.layer_masks``; and the source tables that B6 and B8 derive
+   once per launch (``strided.dynamic_sources``, with the SSN's, and
+   ``segment.deinterleave_sources``) against their torch-ops twin
+   ``_common.dyn_sources_plain``;
 3. timings at the main path's shapes: kernel, plain version, one PyTorch
    library call computing the same function (timed here only, never used
    by the port), and the bound (bytes that must move / 3.35 TB/s).  Each
@@ -35,8 +38,8 @@ Phases, in order (any failure raises and exits non-zero):
    B1's FIELD=2 split bit for bit; B3, B5, B8 and B9 at (2,1), vl 128),
    then over the Fig. 12 sweep of benchmarks/bench_strided.py at card size
    (MLEN 128, vl 64, offset 0, stride 2..64, n = 64*stride, 256 MiB
-   windows): B3, B5, B8, B9 and the dynamic network's derivation alone at
-   B8's block count;
+   windows): B3, B5, B8, B9 and B8's derive kernel alone (one derivation
+   per launch) with its share of B8's time;
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
@@ -182,6 +185,28 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls captured in one CUDA
+    graph, so that a call shorter than its host dispatch is timed on the
+    device and not at the host's launch rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -282,8 +307,9 @@ def check_strided(dev) -> int:
 
 def check_dynamic(dev) -> int:
     """B6-B9 against their plain versions and their plan twins (B1/B2,
-    B3/B5, B4 for the dynamic fused gather), bit for bit, and the device
-    derivation against ``shiftnet.layer_masks``."""
+    B3/B5, B4 for the dynamic fused gather), bit for bit, the device
+    derivation against ``shiftnet.layer_masks``, and the device source
+    tables of B6 and B8 against ``_common.dyn_sources_plain``."""
     import numpy as np
     import torch
     from repro_torch.core import scg, shiftnet
@@ -371,6 +397,34 @@ def check_dynamic(dev) -> int:
                         want_occ.numpy()[None]).view(np.int32)[0])):
                 raise AssertionError(f"device derivation != layer_masks: "
                                      f"n={n} ({s}, {o}) gather={gather}")
+            cases += 1
+    # the source tables B6 and B8 derive once per launch
+    for n in (1, 96, 256, 4096):
+        for s, o in STRIDED_SO:
+            if o >= n:
+                continue
+            vl = (n - 1 - o) // s + 1
+            for gather in (True, False):
+                counts = scg.gather_counts if gather else scg.scatter_counts
+                want = _common.dyn_sources_plain(*counts(n, s, o, vl),
+                                                 gsn=gather)
+                got = strided.dynamic_sources(n, s, o, vl, gather=gather,
+                                              device=dev)
+                if not torch.equal(got.cpu(), want[:vl] if gather else want):
+                    raise AssertionError(f"device source table != twin: "
+                                         f"n={n} ({s}, {o}) gather={gather}")
+                cases += 1
+    for width in (6144, 256, 96):
+        for fields in (2, 3, 4, 8):
+            m = width // fields
+            n = fields * m
+            want = torch.stack([_common.dyn_sources_plain(
+                *scg.gather_counts(n, fields, f, m), gsn=True)[:m]
+                for f in range(fields)])
+            if not torch.equal(segment.deinterleave_sources(
+                    n, fields, device=dev).cpu(), want):
+                raise AssertionError(f"B6 source tables != twin: n={n} "
+                                     f"fields={fields}")
             cases += 1
     return cases
 
@@ -559,10 +613,10 @@ def time_fig12(dev) -> None:
     """The Fig. 12 sweep of benchmarks/bench_strided.py at card size: MLEN
     128, vl = 64, offset 0, n = 64 * stride, bf16, R = 2**27 / n rows so
     that every window is 256 MiB (:data:`WINDOW_BYTES`).  B3, B5, B8 and
-    B9 at each stride, and the dynamic network's derivation alone over as
-    many blocks as B8 launches (printed)."""
+    B9 at each stride, and B8's derive kernel alone, the one derivation
+    per launch, beside B8's time (printed)."""
     import torch
-    from repro_torch.kernels import _common, strided
+    from repro_torch.kernels import strided
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 4)
     vl, e = 64, 2
@@ -599,15 +653,12 @@ def time_fig12(dev) -> None:
                                                compiled=False),
                lambda: strided.scatter_strided_dynamic_plain(win, vals, s, 0),
                library, R * (2 * n + vl) * e, [R, n])
-        rows = _common.rows_per_block(R, n, e, _common.dyn_net_bytes(n),
-                                      _common.min_blocks(win.device),
-                                      buffers=2)
-        blocks = -(-R // rows)
-        derive = time_ms(lambda: strided.dynamic_masks(
-            n, s, 0, vl, blocks=blocks, device=dev), 20)
+        derive = graph_ms(lambda: strided.dynamic_sources(
+            n, s, 0, vl, device=dev), 20)
         print(f"time fig12 derive s={s} [{R}, {n}]: {derive:.4f} ms for "
-              f"the GSN derivation alone over {blocks} blocks ({rows} rows "
-              f"each in B8), {derive / dyn['ms']:.4f} of B8's time")
+              f"B8's derive kernel alone (one block: the GSN derivation "
+              f"and its {vl}-entry source table, once per launch; device "
+              f"time, CUDA graph), {derive / dyn['ms']:.4f} of B8's time")
         del win, vals
         torch.cuda.empty_cache()
 
@@ -1304,7 +1355,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _common.build_all(_common.SOURCES)
     print(f"build: {', '.join(f'{s}.cu' for s in _common.SOURCES)} (with "
-          f"route_plan.cuh and route_dyn.cuh) in parallel in "
+          f"route_plan.cuh, route_dyn.cuh and perm_copy.cuh) in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
@@ -1319,7 +1370,8 @@ def main() -> int:
     cases = check_dynamic(dev)
     print(f"dynamic kernels == plain == plan twin: {cases} cases (B6 and B7 "
           f"together, B8 and B9 together, B8 x4 against B4, the derivation "
-          f"against layer_masks) bit-exact ({time.perf_counter() - t0:.1f} "
+          f"against layer_masks, B6's and B8's device source tables against "
+          f"dyn_sources_plain) bit-exact ({time.perf_counter() - t0:.1f} "
           f"s)")
 
     cfg = config()

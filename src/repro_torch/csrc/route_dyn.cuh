@@ -1,5 +1,6 @@
 // The dynamic-count shift network as device code, shared by the port's
-// dynamic kernels (B6/B7 in segment.cu, B8/B9 in strided.cu).
+// dynamic kernels (B6/B7 in segment.cu, B8/B9 in strided.cu, B12/B14 in
+// indexed.cu).
 //
 // What it computes is the reference's `shiftnet._route`
 // (src/repro/core/shiftnet.py), the body of every `*_dyn_kernel`:
@@ -11,12 +12,21 @@
 // old payload, count and validity (`valid = cand_valid | stay`).
 //
 // The counts are the same for every row (the Pallas bodies carry them as
-// (1, n)), so a block derives the per-layer take-masks ONCE from the
-// counts in shared memory and then routes every row of its tile through
-// route_plan's lane-major layer loop: one shift record and one select
-// under the derived mask row per layer, exactly the reference's
-// `layer_masks` + `apply_layer_masks`.  The routing is computed on the
-// device at run time from the counts: no host plan, no pruned layers.
+// (1, n)), so the per-layer take-masks are derived from the counts in
+// shared memory (`dyn_derive`, one barrier per layer), exactly the
+// reference's `layer_masks`.  Two ways to use them:
+//   * B7, B9, B12 and B14 derive them in every block and route the block's
+//     row tile through route_plan's lane-major layer loop (`route_dyn`):
+//     one shift record and one select under the derived mask row per
+//     layer, `apply_layer_masks`.
+//   * B6 and B8 derive them once per launch (`dyn_sources_kernel`) and
+//     compose them into a source table (`dyn_sources`): a lane takes its
+//     candidate regardless of the payload, so every output lane holds one
+//     input lane's raw bits, found by walking the layers backwards.  The
+//     table goes to device memory and a permuted copy (perm_copy.cuh)
+//     moves the rows through it.
+// The routing is computed on the device at run time from the counts: no
+// host plan, no pruned layers.
 //
 // Shared-memory state of one network (`DynNet`, carved by `dyn_carve`):
 //   masks  L x words   packed take-masks, route_plan's bit format (lane_bit)
@@ -183,4 +193,61 @@ __device__ inline T* route_dyn(const DynNet& net, T* bin, T* ba, T* bb,
                                int nr, const TileMap& tm) {
   return route_plan<T>(bin, ba, bb, nr, net.n, net.words, net.masks,
                        net.layers, 0, net.L, tm);
+}
+
+// Compose the derived network into a source table for output lanes
+// [0, count): src[j] is the input lane whose raw bits the network leaves
+// in lane j, or -1 where the final occupancy is clear (the lane is
+// written as 0).  Walking backwards from the last layer, lane c's value
+// came from c + d_i wherever layer i's take bit of c is set (d_i the
+// layer's signed shift, `layers[4*i + 1]`); a take never reads outside
+// [0, n), so the walk stays in range.  No layer (n <= 1): src[j] = j.
+// Call after `dyn_derive` (which ends with a barrier); no barrier inside.
+__device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
+                                   int count) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    int c = j;
+    if (!lane_bit(net.occ, j)) {
+      c = -1;
+    } else {
+      for (int i = net.L - 1; i >= 0; --i)
+        if (lane_bit(net.masks + (size_t)i * net.words, c))
+          c += net.layers[4 * i + 1];
+    }
+    src[j] = c;
+  }
+}
+
+// One derivation per launch: block b fills the counts of
+// `scg.gather_counts(n, stride, offset + b, vl)` (`gsn`, then the GSN) or
+// `scg.scatter_counts(...)` (the SSN), derives the network and writes the
+// source table of lanes [0, count) to table[b * count, (b+1) * count).
+// B6 launches one block per field (stride = fields, offset + b = field,
+// vl = count = m), B8 one block (count = vl).  It lets the permuted copy
+// that follows start at once (Programmatic Dependent Launch), so the
+// copy's first tile load overlaps the derivation.
+__global__ void __launch_bounds__(THREADS)
+dyn_sources_kernel(int gsn, int n, int stride, int offset, int vl, int count,
+                   int* __restrict__ table) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  pdl_launch_dependents();
+  DynNet net = dyn_carve(smem, n);
+  if (gsn) gather_counts(net, stride, offset + (int)blockIdx.x, vl);
+  else scatter_counts(net, stride, offset + (int)blockIdx.x, vl);
+  dyn_derive(net, gsn != 0);
+  dyn_sources(net, table + (size_t)blockIdx.x * count, count);
+}
+
+inline cudaError_t launch_dyn_sources(int gsn, int n, int stride, int offset,
+                                      int vl, int count, int blocks,
+                                      int* table, cudaStream_t stream) {
+  if (n < 1 || count < 0 || count > n || blocks < 1)
+    return cudaErrorInvalidValue;
+  const size_t smem = dyn_bytes(n);
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t e = set_smem(dyn_sources_kernel, smem, granted);
+  if (e != cudaSuccess) return e;
+  dyn_sources_kernel<<<blocks, THREADS, smem, stream>>>(
+      gsn, n, stride, offset, vl, count, table);
+  return cudaGetLastError();
 }

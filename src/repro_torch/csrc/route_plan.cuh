@@ -1,7 +1,8 @@
 // Shared pieces of the port's plan-routing kernels (segment.cu,
-// strided.cu): the lane bit of a packed take-mask, the thread layout of a
-// row tile, the plan layer loop over a shared-memory tile, and the
-// dynamic shared-memory limit.
+// strided.cu, indexed.cu): the lane bit of a packed take-mask, the thread
+// layout of a row tile, the plan layer loop over a shared-memory tile, the
+// Programmatic Dependent Launch controls and the dynamic shared-memory
+// limit.
 //
 // The layer loop runs what every Pallas plan body in src/repro/kernels
 // runs through `shiftnet.apply_plan_operand`: per layer, one static lane
@@ -69,6 +70,19 @@ __device__ T* route_plan(T* bin, T* ba, T* bb, int nr, int Wn, int words,
     src = dst;
   }
   return src;
+}
+
+// Programmatic Dependent Launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start while the
+// kernel before it in the stream still runs.  `pdl_launch_dependents` lets
+// the dependent grid start now; `pdl_wait` blocks until the grid before
+// has finished and its writes are visible (a no-op without the attribute).
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
 #define MAX_DEVICES 64

@@ -14,48 +14,59 @@
 // pruned gather (B1) / scatter (B2) plans, all run in ONE launch on the
 // same resident tile.  B6 and B7 compute what the dynamic bodies compute:
 // per field f, the counts `scg.gather_counts(n, f_count, f, m)` (B6, GSN)
-// or `scg.scatter_counts(...)` (B7, SSN) computed in the kernel, the
-// network's take-masks derived from them on the device (route_dyn.cuh),
-// every layer run unpruned.  B6 writes lanes [0, m) of field f's routed
-// beat to output f; B7 merges field f's routed, zero-padded beat under its
-// final occupancy into an output that starts at 0.
+// or `scg.scatter_counts(...)` (B7, SSN) computed on the device, the
+// network's take-masks derived from them (route_dyn.cuh), every layer
+// unpruned.  B6 writes lanes [0, m) of field f's routed beat to output f;
+// B7 merges field f's routed, zero-padded beat under its final occupancy
+// into an output that starts at 0.
 //
 // Bound: pure data movement.  The least time is (bytes read + bytes
 // written) / 3.35 TB/s; the selects cost a few integer operations per lane
 // per layer and no floating point.
 //
-// What this first design does about it: each block loads its row tile from
-// device memory once (zero-padding lanes >= n up to the plan width), keeps
-// it in shared memory through every layer (ping-pong between two buffers,
-// one __syncthreads() per layer), and writes each field slice straight to
-// its output, so device memory sees each input byte read once and each
-// output byte written once.  The plan's take-masks are packed to bits by
-// the wrapper and loaded into shared memory once per block; a dynamic
-// kernel derives its masks per block and field instead (one barrier per
-// layer over n lanes of counts, paid once for the whole row tile).
-// Threads map to lanes and walk down the tile's rows: a lane's source for a
-// layer is resolved once and then copied row after row, so the inner loop
-// is one shared load and one store.  The wrapper keeps tiles small (24 KB
-// of shared memory, so eight blocks share an SM) and, for a small call,
-// short enough that the grid covers the card.  Elements move as raw bits
-// (templated on the element width: 1, 2, 4 or 8 bytes), so the permutation
-// is bit-exact for every dtype, NaN payloads included.
+// B1, B2 and B7: each block loads its row tile from device memory once
+// (zero-padding lanes >= n up to the plan width), keeps it in shared
+// memory through every layer (ping-pong between two buffers, one
+// __syncthreads() per layer), and writes each field slice straight to its
+// output, so device memory sees each input byte read once and each output
+// byte written once.  The plan's take-masks are packed to bits by the
+// wrapper and loaded into shared memory once per block; B7 derives its
+// masks per block and field instead (one barrier per layer over n lanes of
+// counts, paid once for the whole row tile).  Threads map to lanes and walk
+// down the tile's rows: a lane's source for a layer is resolved once and
+// then copied row after row, so the inner loop is one shared load and one
+// store.  The wrapper keeps tiles small (24 KB of shared memory, so eight
+// blocks share an SM) and, for a small call, short enough that the grid
+// covers the card.
 //
-// Not yet done (later performance work, measured against this one): vector
-// loads of 16 bytes per thread, warp shuffles for plans narrower than a
-// warp, composing the plan into a direct index gather.
+// B6, two kernels per call: the network does not depend on the payload, so
+// it is derived once per launch, not per block.  `dyn_sources_kernel`
+// (route_dyn.cuh, one block per field) derives field f's network and
+// composes it into the source lane of each of its m output lanes, in a
+// small device workspace; `perm_copy_kernel` (perm_copy.cuh) then moves
+// every row through that table in one pipelined pass: 16-byte cp.async
+// staging, double-buffered, a bank-conflict-free permute in shared memory
+// and 16-byte vector stores of each field's contiguous (rows, m) block,
+// two barriers a tile and none per layer.  The copy starts under
+// Programmatic Dependent Launch, so its first tile load overlaps the
+// derivation.
+//
+// Elements move as raw bits (templated on the element width: 1, 2, 4 or 8
+// bytes), so every permutation is bit-exact for every dtype, NaN payloads
+// included.
+//
+// Not yet done (later performance work, measured against this one): the
+// same source-table copy for B1 and B2, with the table composed from the
+// host plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "perm_copy.cuh"
 #include "route_dyn.cuh"
 #include "route_plan.cuh"
 
-#define MAX_FIELDS 16
-
-struct Ptrs {
-  void* p[MAX_FIELDS];
-};
+#define MAX_FIELDS MAX_PARTS
 
 // B1: (R, n) AoS rows -> `fields` outputs of (R, m).
 template <typename T>
@@ -232,42 +243,6 @@ static cudaError_t launch_int(const Ptrs& ins, void* out, long long R, int n,
   return cudaGetLastError();
 }
 
-// B6: (R, n) AoS rows -> `fields` outputs of (R, m) through the GSN, one
-// derived network per field.  The input tile stays resident in `bin`.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-deint_dyn_kernel(const T* __restrict__ x, Ptrs outs, long long R, int n,
-                 int m, int fields, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  DynNet net = dyn_carve(smem, n);
-  T* bin = reinterpret_cast<T*>(smem + dyn_bytes(n));
-  T* ba = bin + (size_t)rows * n;
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-  const bool live = tm.g < tm.groups;
-
-  const T* xs = x + r0 * n;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        bin[(size_t)r * n + c] = xs[(size_t)r * n + c];
-  }
-  for (int f = 0; f < fields; ++f) {
-    gather_counts(net, fields, f, m);
-    dyn_derive(net, true);
-    const T* res = route_dyn<T>(net, bin, ba, bb, nr, tm);
-    T* o = static_cast<T*>(outs.p[f]) + r0 * m;
-    if (live) {
-      for (int c = tm.t; c < m; c += tm.lanes)
-        for (int r = tm.g; r < nr; r += tm.groups)
-          o[(size_t)r * m + c] = res[(size_t)r * n + c];
-    }
-    __syncthreads();
-  }
-}
-
 // B7: `fields` inputs of (R, m) -> (R, n) AoS rows through the SSN.  Field
 // f's routed lanes are written where its final occupancy is set (the
 // reference's `acc = where(valid, payload, acc)`, later fields winning);
@@ -315,21 +290,6 @@ int_dyn_kernel(Ptrs ins, T* __restrict__ out, long long R, int n, int m,
       if (!lane_bit(uni, c))
         for (int r = tm.g; r < nr; r += tm.groups) os[(size_t)r * n + c] = T(0);
   }
-}
-
-template <typename T>
-static cudaError_t launch_deint_dyn(const void* x, const Ptrs& outs,
-                                    long long R, int n, int m, int fields,
-                                    int rows, cudaStream_t stream) {
-  const size_t smem = dyn_bytes(n) + 3 * (size_t)rows * n * sizeof(T);
-  const long long grid = (R + rows - 1) / rows;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(deint_dyn_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  deint_dyn_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), outs, R, n, m, fields, rows);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -388,25 +348,44 @@ int segment_interleave(int elem_bytes, void* const* ins, void* out, int fields,
   }
 }
 
-// B6 / B7: the dynamic-count segment networks (no plan operands).
+// B6: the dynamic-count segment deinterleave, two kernels on `stream`:
+// the derivation of the `fields` source tables into `table` (fields x m
+// int32, the caller's workspace), then the permuted copy of the R rows in
+// `rows`-row tiles over at most `blocks` blocks, staged and stored in
+// `unit`-byte units.
 int segment_deinterleave_dyn(int elem_bytes, const void* x, void* const* outs,
-                             int fields, long long R, int n, int m, int rows,
+                             int fields, long long R, int n, int m,
+                             void* table, int rows, int blocks, int unit,
                              void* stream) {
-  if (fields < 1 || fields > MAX_FIELDS || rows < 1 || m < 1 ||
+  if (fields < 1 || fields > MAX_FIELDS || m < 1 ||
       (long long)fields * m != n)
     return cudaErrorInvalidValue;
   Ptrs p;
   for (int i = 0; i < MAX_FIELDS; ++i) p.p[i] = i < fields ? outs[i] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* tab = static_cast<int*>(table);
+  cudaError_t e = launch_dyn_sources(1, n, fields, 0, m, m, fields, tab, s);
+  if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_deint_dyn<uint8_t>(x, p, R, n, m, fields, rows, s);
-    case 2: return launch_deint_dyn<uint16_t>(x, p, R, n, m, fields, rows, s);
-    case 4: return launch_deint_dyn<uint32_t>(x, p, R, n, m, fields, rows, s);
-    case 8: return launch_deint_dyn<unsigned long long>(x, p, R, n, m, fields, rows, s);
+    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
+    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
+    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
+    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// B6's derivation alone: the `fields` source tables (fields x m int32).
+int segment_deinterleave_sources(int n, int m, int fields, void* table,
+                                 void* stream) {
+  if (fields < 1 || m < 1 || (long long)fields * m != n)
+    return cudaErrorInvalidValue;
+  return launch_dyn_sources(1, n, fields, 0, m, m, fields,
+                            static_cast<int*>(table),
+                            static_cast<cudaStream_t>(stream));
+}
+
+// B7: the dynamic-count segment interleave (no plan operands).
 int segment_interleave_dyn(int elem_bytes, void* const* ins, void* out,
                            int fields, long long R, int n, int m, int rows,
                            void* stream) {

@@ -30,16 +30,30 @@
 // stride * element size <= 32 bytes, one 32-byte sector per element past
 // that.  For the scatter: window read, values read, output written.
 //
-// What this first design does: the layer loop is the one B1 and B2 run
+// B3, B4, B5 and B9: the layer loop is the one B1 and B2 run
 // (route_plan.cuh).  Each block loads a row tile of its window into shared
 // memory once (lane-major, so a warp reads neighbouring lanes), runs the
 // plan's layers ping-ponging between two buffers, and writes only the vl
 // output lanes (gather) or merges the routed tile with the window read
 // straight from device memory (scatter).  Plans are exactly n lanes wide
 // (no power-of-two padding); masks are packed to bits by the wrapper, and
-// a B4 block loads only its own plan's mask rows.  A B8/B9 block derives
-// its masks itself, once for its whole row tile.  Elements move as raw
-// bits (templated on 1/2/4/8-byte widths), so every dtype is bit-exact.
+// a B4 block loads only its own plan's mask rows.  A B9 block derives its
+// masks itself, once for its whole row tile.
+//
+// B8, two kernels per call: the network depends only on (n, stride,
+// offset, vl), so it is derived once per launch.  `dyn_sources_kernel`
+// (route_dyn.cuh, one block) derives it and composes it into the source
+// lane of each of the vl output lanes, in a small device workspace;
+// `perm_copy_kernel` (perm_copy.cuh) then stages each tile of whole n-lane
+// window rows with 16-byte cp.async copies, double-buffered, permutes the
+// vl output lanes in shared memory and writes them with 16-byte vector
+// stores: two barriers a tile, none per layer.  The tile height comes from
+// the copy's own shared-memory budget (a few rows at n = 4096), and the
+// copy starts under Programmatic Dependent Launch, so its first tile load
+// overlaps the derivation.
+//
+// Elements move as raw bits (templated on 1/2/4/8-byte widths), so every
+// dtype is bit-exact.
 //
 // Known limit, not addressed here: the tile is the whole coalesced
 // window, so past stride * element size = 32 bytes the gather reads
@@ -49,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "perm_copy.cuh"
 #include "route_dyn.cuh"
 #include "route_plan.cuh"
 
@@ -218,37 +233,6 @@ static cudaError_t launch_scatter(const void* vals, const void* win, void* out,
   return cudaGetLastError();
 }
 
-// B8: (R, n) windows -> (R, vl) through the GSN on gather counts.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gather_dyn_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
-                  int n, int vl, int stride, int offset, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  DynNet net = dyn_carve(smem, n);
-  T* ba = reinterpret_cast<T*>(smem + dyn_bytes(n));
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-  const bool live = tm.g < tm.groups;
-
-  const T* xs = x + r0 * n;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        ba[(size_t)r * n + c] = xs[(size_t)r * n + c];
-  }
-  gather_counts(net, stride, offset, vl);
-  dyn_derive(net, true);
-  const T* res = route_dyn<T>(net, ba, ba, bb, nr, tm);
-  T* os = out + r0 * vl;
-  if (live) {
-    for (int c = tm.t; c < vl; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        os[(size_t)r * vl + c] = res[(size_t)r * n + c];
-  }
-}
-
 // B9: (R, vl) values merged into (R, n) windows through the SSN on scatter
 // counts; lanes outside the final occupancy keep the window.
 template <typename T>
@@ -307,22 +291,6 @@ dyn_masks_kernel(int gsn, int n, int stride, int offset, int vl,
 }
 
 template <typename T>
-static cudaError_t launch_gather_dyn(const void* x, void* out, long long R,
-                                     int n, int vl, int stride, int offset,
-                                     int rows, cudaStream_t stream) {
-  const size_t smem = dyn_bytes(n) + 2 * (size_t)rows * n * sizeof(T);
-  const long long tiles = (R + rows - 1) / rows;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(gather_dyn_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  gather_dyn_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), R, n, vl, stride,
-      offset, rows);
-  return cudaGetLastError();
-}
-
-template <typename T>
 static cudaError_t launch_scatter_dyn(const void* vals, const void* win,
                                       void* out, long long R, int n, int vl,
                                       int stride, int offset, int rows,
@@ -374,21 +342,31 @@ int strided_scatter(int elem_bytes, const void* vals, const void* win,
   }
 }
 
-// B8 / B9: the dynamic-count strided networks (no plan operands).
+// B8: the dynamic-count strided gather, two kernels on `stream`: the
+// derivation of the vl-entry source table into `table` (the caller's int32
+// workspace), then the permuted copy of the R window rows in `rows`-row
+// tiles over at most `blocks` blocks, staged and stored in `unit`-byte
+// units.
 int strided_gather_dyn(int elem_bytes, const void* x, void* out, long long R,
-                       int n, int vl, int stride, int offset, int rows,
-                       void* stream) {
-  if (rows < 1 || vl < 1 || vl > n) return cudaErrorInvalidValue;
+                       int n, int vl, int stride, int offset, void* table,
+                       int rows, int blocks, int unit, void* stream) {
+  if (vl < 1 || vl > n) return cudaErrorInvalidValue;
+  Ptrs p;
+  for (int i = 0; i < MAX_PARTS; ++i) p.p[i] = i == 0 ? out : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* tab = static_cast<int*>(table);
+  cudaError_t e = launch_dyn_sources(1, n, stride, offset, vl, vl, 1, tab, s);
+  if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_gather_dyn<uint8_t>(x, out, R, n, vl, stride, offset, rows, s);
-    case 2: return launch_gather_dyn<uint16_t>(x, out, R, n, vl, stride, offset, rows, s);
-    case 4: return launch_gather_dyn<uint32_t>(x, out, R, n, vl, stride, offset, rows, s);
-    case 8: return launch_gather_dyn<unsigned long long>(x, out, R, n, vl, stride, offset, rows, s);
+    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
+    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
+    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
+    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+// B9: the dynamic-count strided scatter (no plan operands).
 int strided_scatter_dyn(int elem_bytes, const void* vals, const void* win,
                         void* out, long long R, int n, int vl, int stride,
                         int offset, int rows, void* stream) {
@@ -416,6 +394,15 @@ int route_dyn_masks(int gsn, int n, int stride, int offset, int vl,
       gsn, n, stride, offset, vl, static_cast<uint32_t*>(masks),
       static_cast<uint32_t*>(occ));
   return cudaGetLastError();
+}
+
+// One derivation alone into `table` (`gsn` 1: gather counts and the GSN,
+// vl entries, B8's table; 0: scatter counts and the SSN, n entries).
+int route_dyn_sources(int gsn, int n, int stride, int offset, int vl,
+                      void* table, void* stream) {
+  return launch_dyn_sources(gsn, n, stride, offset, vl, gsn ? vl : n, 1,
+                            static_cast<int*>(table),
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* strided_error_string(int err) {

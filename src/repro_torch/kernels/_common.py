@@ -12,8 +12,10 @@ headers, so the build takes seconds); :func:`build_all` builds several
 sources in parallel (:data:`SOURCES` lists them all).  A missing ``nvcc``
 or a failed build raises; nothing falls back to a plain version.  The CUDA launch helpers shared by the
 kernel wrappers (:func:`rows_per_block`, :func:`dyn_net_bytes`,
-:func:`check_cuda`, :func:`cuda_stream`, :func:`layer_table`) live here
-too.
+:func:`copy_tile_rows`, :func:`copy_unit`, :func:`check_cuda`,
+:func:`cuda_stream`, :func:`layer_table`) live here too, and
+:func:`dyn_sources_plain`, the torch-ops twin of the source table that B6
+and B8 derive on the card.
 """
 from __future__ import annotations
 
@@ -203,6 +205,58 @@ def dyn_net_bytes(n: int) -> int:
     layers = shiftnet._num_layers(n)
     b = 4 * (layers * words + words + 4 * layers + 2 * n + 2 * words)
     return -(-b // 16) * 16
+
+
+#: Shared memory of one block of the permuted copy (``csrc/perm_copy.cuh``,
+#: the copy half of B6 and B8): two blocks share an SM, each with two
+#: staged input tiles of about 32 KB at the main shape.
+COPY_SMEM = 96 * 1024
+
+
+def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
+                   blocks: int) -> int:
+    """Row-tile height of the permuted copy: the source table (``nout``
+    int32), two staged (rows, n) input tiles and the ``parts`` blocks of
+    the (rows, nout) output tile, each rounded up to 16 bytes, within
+    :data:`COPY_SMEM` (one row at least, if that fits the card's 227 KB at
+    all; raises beyond that), and low enough that ``blocks`` blocks share
+    the ``R`` rows when ``R`` allows it."""
+    fixed = -(-nout * 4 // 16) * 16 + 16 * (2 + parts)
+    per_row = (2 * n + nout) * elem
+    if fixed + per_row > SMEM_LIMIT:
+        raise ValueError(
+            f"permuted copy of {n} lanes x {elem} B does not fit shared "
+            f"memory ({fixed + per_row} B > {SMEM_LIMIT} B)")
+    return max(1, min(R, (COPY_SMEM - fixed) // per_row,
+                      -(-R // max(1, blocks))))
+
+
+def copy_unit(nbytes: int, *ptrs: int) -> int:
+    """The widest copy unit (16, 8, 4, 2 or 1 bytes) that divides a row of
+    ``nbytes`` and every pointer."""
+    for u in (16, 8, 4, 2):
+        if nbytes % u == 0 and all(p % u == 0 for p in ptrs):
+            return u
+    return 1
+
+
+def dyn_sources_plain(shift: torch.Tensor, valid: torch.Tensor, *,
+                      gsn: bool) -> torch.Tensor:
+    """The source table of the dynamic network on these counts, as torch
+    ops (the twin of ``dyn_sources`` in ``csrc/route_dyn.cuh``): ``(n,)``
+    int32, lane c's input lane through the GSN (``gsn``) or the SSN, or -1
+    where the final occupancy is clear.  Walks the take-masks of
+    ``shiftnet.layer_masks`` backwards: lane c's value after layer i came
+    from c + d_i where layer i's mask is set at c."""
+    masks, occ = shiftnet.layer_masks(shift, valid, toward_zero=gsn,
+                                      lsb_first=gsn)
+    n = shift.shape[-1]
+    L = masks.shape[0]
+    src = torch.arange(n, device=shift.device)
+    for i in range(L - 1, -1, -1):
+        d = 1 << i if gsn else -(1 << (L - 1 - i))
+        src = torch.where(masks[i][src], src + d, src)
+    return torch.where(occ, src, -1).to(torch.int32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -48,15 +48,6 @@ def route_rows_plain(rows: torch.Tensor, masks: torch.Tensor,
                        torch.zeros_like(routed))
 
 
-def _unit(nbytes: int, *ptrs: int) -> int:
-    """The widest copy unit (16, 8, 4, 2 or 1 bytes) that divides a row of
-    ``nbytes`` and every pointer."""
-    for u in (16, 8, 4, 2):
-        if nbytes % u == 0 and all(p % u == 0 for p in ptrs):
-            return u
-    return 1
-
-
 def route_rows(rows: torch.Tensor, masks: torch.Tensor,
                out_valid: torch.Tensor, *, toward_zero: bool,
                lsb_first: bool) -> torch.Tensor:
@@ -78,7 +69,7 @@ def route_rows(rows: torch.Tensor, masks: torch.Tensor,
         return out
     m = masks.to(rows.device, torch.bool).contiguous()
     keep = out_valid.to(rows.device, torch.bool).contiguous()
-    unit = _unit(row_bytes, rows.data_ptr(), out.data_ptr())
+    unit = _common.copy_unit(row_bytes, rows.data_ptr(), out.data_ptr())
     per_block = max(1, min(MAX_ROWS_PER_BLOCK,
                            -(-n // (4 * _common.min_blocks(rows.device)))))
     lib = _indexed.lib()

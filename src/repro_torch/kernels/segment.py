@@ -18,7 +18,9 @@ networks whose counts come from ``core/scg.py``.
   :func:`interleave_dynamic` (B7): one launch of the dynamic kernel for a
   CUDA tensor, or for a CPU tensor the plain version
   (:func:`deinterleave_dynamic_plain` / :func:`interleave_dynamic_plain`,
-  the GSN / SSN of ``core/shiftnet.py`` per field).
+  the GSN / SSN of ``core/shiftnet.py`` per field).  B6's launch is two
+  CUDA kernels (one derivation of the fields' source tables, then one
+  permuted copy of the rows) and counts as one.
 
 Each wrapper counts ``calls`` (every entry, any device) and ``launches``
 (kernel launches only, counted where the kernel launched).
@@ -189,8 +191,11 @@ def _lib():
         lib.segment_interleave.argtypes = [
             I, P, P, I, LL, I, I, I, I, P, I, I, P, P, I, P, I, P]
         lib.segment_interleave.restype = I
-        lib.segment_deinterleave_dyn.argtypes = [I, P, P, I, LL, I, I, I, P]
+        lib.segment_deinterleave_dyn.argtypes = [
+            I, P, P, I, LL, I, I, P, I, I, I, P]
         lib.segment_deinterleave_dyn.restype = I
+        lib.segment_deinterleave_sources.argtypes = [I, I, I, P, P]
+        lib.segment_deinterleave_sources.restype = I
         lib.segment_interleave_dyn.argtypes = [I, P, P, I, LL, I, I, I, P]
         lib.segment_interleave_dyn.restype = I
         lib.segment_error_string.argtypes = [I]
@@ -261,8 +266,11 @@ deinterleave.launches = 0
 def deinterleave_dynamic(aos: torch.Tensor,
                          fields: int) -> list[torch.Tensor]:
     """(..., fields*m) -> fields x (..., m) through the dynamic-count
-    networks (kernel B6, ``deinterleave(fused=False)``): one launch per
-    call, each block deriving every field's network from its counts."""
+    networks (kernel B6, ``deinterleave(fused=False)``).  One launch per
+    call, made of two CUDA kernels on the call's stream: one block per
+    field derives that field's network from its counts and writes the
+    source lane of each of its m output lanes into a small int32
+    workspace; then a permuted copy moves every row through that table."""
     deinterleave_dynamic.calls += 1
     n = aos.shape[-1]
     if fields < 1 or n % fields:
@@ -277,15 +285,19 @@ def deinterleave_dynamic(aos: torch.Tensor,
     R = flat.shape[0]
     outs = [torch.empty((R, m), dtype=aos.dtype, device=aos.device)
             for _ in range(fields)]
-    if R:
+    if R and m:
         lib = _lib()
         elem = aos.element_size()
-        rows = rows_per_block(R, n, elem, _common.dyn_net_bytes(n),
-                              _common.min_blocks(aos.device))
+        blocks = _common.min_blocks(aos.device)
+        rows = _common.copy_tile_rows(R, n, n, fields, elem, blocks)
+        unit = _common.copy_unit(m * elem, flat.data_ptr(),
+                                 *[o.data_ptr() for o in outs])
+        table = torch.empty((fields, m), dtype=torch.int32,
+                            device=aos.device)
         ptrs = (ctypes.c_void_p * fields)(*[o.data_ptr() for o in outs])
         status = lib.segment_deinterleave_dyn(
-            elem, flat.data_ptr(), ptrs, fields, R, n, m, rows,
-            _common.cuda_stream(aos))
+            elem, flat.data_ptr(), ptrs, fields, R, n, m, table.data_ptr(),
+            rows, blocks, unit, _common.cuda_stream(aos))
         _check(lib, status, "deinterleave_dynamic")
         deinterleave_dynamic.launches += 1
     return [o.reshape(lead + (m,)) for o in outs]
@@ -293,6 +305,27 @@ def deinterleave_dynamic(aos: torch.Tensor,
 
 deinterleave_dynamic.calls = 0
 deinterleave_dynamic.launches = 0
+
+
+def deinterleave_sources(n: int, fields: int, *,
+                         device=None) -> torch.Tensor:
+    """B6's derivation alone: the ``(fields, m)`` int32 source tables the
+    derive kernel writes for an ``n``-lane beat (row f: the input lane of
+    each of field f's m output lanes, -1 for a lane written as 0).  For
+    checking the tables against ``_common.dyn_sources_plain``; not on any
+    access path."""
+    if fields < 1 or n % fields or not n:
+        raise ValueError(f"{n} lanes do not split into {fields} fields")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    table = torch.empty((fields, n // fields), dtype=torch.int32,
+                        device=dev)
+    _common.check_cuda(table, "deinterleave_sources")
+    lib = _lib()
+    status = lib.segment_deinterleave_sources(n, n // fields, fields,
+                                              table.data_ptr(),
+                                              _common.cuda_stream(table))
+    _check(lib, status, "deinterleave_sources")
+    return table
 
 
 def deinterleave_many(aos_list: list[torch.Tensor], fields: int, *,

@@ -17,7 +17,9 @@ static shift + one select per layer), or, with ``compiled=False`` (policy
   (B8) and :func:`scatter_strided_dynamic` (B9): one launch of the dynamic
   kernel per access (A launches for a fused gather of A windows, as the
   reference loops), or for CPU tensors their plain versions on the GSN /
-  SSN of ``core/shiftnet.py``.
+  SSN of ``core/shiftnet.py``.  B8's launch is two CUDA kernels (one
+  derivation of the source table, then one permuted copy of the rows) and
+  counts as one.
 
 A window the access does not fit (``offset + (vl-1)*stride >= n``, a
 negative offset or a stride below 1) raises ``ValueError``.  Each wrapper
@@ -27,6 +29,7 @@ launches only, counted where the kernel launched).
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -92,12 +95,15 @@ def _lib():
         lib.strided_scatter.argtypes = [
             I, P, P, P, LL, I, I, P, I, I, P, I, P, I, P]
         lib.strided_scatter.restype = I
-        lib.strided_gather_dyn.argtypes = [I, P, P, LL, I, I, I, I, I, P]
+        lib.strided_gather_dyn.argtypes = [
+            I, P, P, LL, I, I, I, I, P, I, I, I, P]
         lib.strided_gather_dyn.restype = I
         lib.strided_scatter_dyn.argtypes = [I, P, P, P, LL, I, I, I, I, I, P]
         lib.strided_scatter_dyn.restype = I
         lib.route_dyn_masks.argtypes = [I, I, I, I, I, P, P, I, P]
         lib.route_dyn_masks.restype = I
+        lib.route_dyn_sources.argtypes = [I, I, I, I, I, P, P]
+        lib.route_dyn_sources.restype = I
         lib.strided_error_string.argtypes = [I]
         lib.strided_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -311,8 +317,11 @@ def _check_values(window: torch.Tensor, values: torch.Tensor) -> None:
 def gather_strided_dynamic(window: torch.Tensor, stride: int, offset: int,
                            vl: int) -> torch.Tensor:
     """(..., n) -> (..., vl) through the dynamic-count GSN (kernel B8,
-    ``gather_strided(compiled=False)``): one launch per call, each block
-    deriving the network from the counts of (n, stride, offset, vl)."""
+    ``gather_strided(compiled=False)``).  One launch per call, made of two
+    CUDA kernels on the call's stream: one block derives the network from
+    the counts of (n, stride, offset, vl) and writes the source lane of
+    each of the vl output lanes into a small int32 workspace; then a
+    permuted copy moves every window row through that table."""
     gather_strided_dynamic.calls += 1
     n = window.shape[-1]
     check_fits(n, stride, offset, vl)
@@ -326,12 +335,14 @@ def gather_strided_dynamic(window: torch.Tensor, stride: int, offset: int,
     out = torch.empty((R, vl), dtype=window.dtype, device=window.device)
     lib = _lib()
     elem = flat.element_size()
-    rows = _common.rows_per_block(R, n, elem, _common.dyn_net_bytes(n),
-                                  _common.min_blocks(window.device),
-                                  buffers=2)
+    blocks = _common.min_blocks(window.device)
+    rows = _common.copy_tile_rows(R, n, vl, 1, elem, blocks)
+    unit = _common.copy_unit(math.gcd(n, vl) * elem, flat.data_ptr(),
+                             out.data_ptr())
+    table = torch.empty((vl,), dtype=torch.int32, device=window.device)
     status = lib.strided_gather_dyn(
         elem, flat.data_ptr(), out.data_ptr(), R, n, vl, stride, offset,
-        rows, _common.cuda_stream(window))
+        table.data_ptr(), rows, blocks, unit, _common.cuda_stream(window))
     _check(lib, status, "gather_strided_dynamic")
     gather_strided_dynamic.launches += 1
     return out.reshape(lead + (vl,))
@@ -398,6 +409,28 @@ def dynamic_masks(n: int, stride: int, offset: int, vl: int, *,
                                  _common.cuda_stream(masks))
     _check(lib, status, "dynamic_masks")
     return masks[:layers], occ
+
+
+def dynamic_sources(n: int, stride: int, offset: int, vl: int, *,
+                    gather: bool = True, device=None) -> torch.Tensor:
+    """One derivation per launch, alone: the int32 source table the derive
+    kernel writes for (n, stride, offset, vl).  ``gather``: B8's table,
+    ``(vl,)``, on ``scg.gather_counts`` through the GSN; else ``(n,)`` on
+    ``scg.scatter_counts`` through the SSN.  Entry j is the input lane
+    whose bits the network leaves in lane j, -1 where the final occupancy
+    is clear.  For checking the table against
+    ``_common.dyn_sources_plain`` and timing the derivation; not on any
+    access path."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    table = torch.empty((vl if gather else n,), dtype=torch.int32,
+                        device=dev)
+    _common.check_cuda(table, "dynamic_sources")
+    lib = _lib()
+    status = lib.route_dyn_sources(int(gather), n, stride, offset, vl,
+                                   table.data_ptr(),
+                                   _common.cuda_stream(table))
+    _check(lib, status, "dynamic_sources")
+    return table
 
 
 KERNELS = (gather_strided, gather_strided_fused, scatter_strided)

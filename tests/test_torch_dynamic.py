@@ -23,11 +23,18 @@ step and the logits within rtol/atol 1e-5 (XLA and torch sum the float32
 matmuls in different orders); one dynamic split call per decode step when
 the kernel lowering is pinned.
 
+Source tables: B6 and B8 derive their network once per launch and compose
+it into one source lane per output lane.  Its torch-ops twin,
+``_common.dyn_sources_plain``, is held equal to the reference's own table
+(the numbered payload routed by the reference's dynamic bodies, minus
+one), and the table applied to the data equals the plain versions.
+
 The ``cuda`` cases hold B6-B9 against their plain versions and their plan
-twins on the card, and the device derivation against
-``shiftnet.layer_masks``; they skip without one (JAX is imported inside
-the tests that need it: ``python -m pytest -m cuda
-tests/test_torch_dynamic.py``).
+twins on the card, the device derivation against
+``shiftnet.layer_masks``, the device source tables against the twin, and
+B6 / B8 on ragged tiles, odd widths and offset views; they skip without
+one (JAX is imported inside the tests that need it: ``python -m pytest -m
+cuda tests/test_torch_dynamic.py``).
 """
 import dataclasses
 import functools
@@ -225,6 +232,150 @@ def test_dynamic_wrappers_count_and_contract():
     assert _common.dyn_net_bytes(4096) == 40640
     assert _common.rows_per_block(32768, 4096, 2, 40640, buffers=2) == 1
     assert _common.dyn_net_bytes(1) == 32
+
+
+# ---------------------------------------------------------------------------
+# Source tables (B6 and B8 derive one per launch)
+# ---------------------------------------------------------------------------
+
+SEGMENT_FIELDS = [2, 3, 4, 8]
+SEGMENT_WIDTHS = [96, 256, 6144]
+
+
+def apply_sources(x, src):
+    """``x`` (..., n) through a source table: lane j takes ``x[..., src[j]]``,
+    0 where ``src[j]`` is -1 (what the permuted copy computes)."""
+    src = src.to(torch.int64)
+    got = x[..., src.clamp(min=0)]
+    return torch.where(src >= 0, got, torch.zeros((), dtype=x.dtype))
+
+
+@pytest.mark.parametrize("n", sorted({n for _, n in GATHER_GRID}))
+def test_gather_source_table_vs_reference(n):
+    """The GSN twin on ``gather_counts(n, stride, offset, vl)``, lanes
+    [0, vl), equals the reference's own table: a numbered payload routed by
+    its dynamic gather body, minus one; every (stride, offset) of the
+    gather grid."""
+    import jax.numpy as jnp
+    from repro.kernels import strided as jstrided
+    ids = jnp.asarray(numbered((n,)))
+    for stride, offset in GATHER_SO:
+        vl = vl_of(n, stride, offset)
+        want = np.asarray(jstrided.gather_strided(ids, stride, offset, vl,
+                                                  compiled=False)) - 1
+        shift, valid = scg.gather_counts(n, stride, offset, vl)
+        got = _common.dyn_sources_plain(shift, valid, gsn=True)
+        assert got.dtype == torch.int32 and got.shape == (n,)
+        np.testing.assert_array_equal(got[:vl].numpy(), want,
+                                      err_msg=f"({stride}, {offset})")
+
+
+@pytest.mark.parametrize("n", sorted({n for _, n in SCATTER_GRID}))
+def test_scatter_source_table_vs_reference(n):
+    """The SSN twin on ``scatter_counts`` equals the reference's scatter
+    of numbered values into a zero window, minus one (-1: a lane the
+    network leaves unoccupied, where the window stays)."""
+    import jax.numpy as jnp
+    from repro.kernels import strided as jstrided
+    for stride, offset in SCATTER_SO:
+        vl = vl_of(n, stride, offset)
+        want = np.asarray(jstrided.scatter_strided(
+            jnp.zeros((n,), jnp.int32), jnp.asarray(numbered((vl,))),
+            stride, offset, compiled=False)) - 1
+        shift, valid = scg.scatter_counts(n, stride, offset, vl)
+        np.testing.assert_array_equal(
+            _common.dyn_sources_plain(shift, valid, gsn=False).numpy(),
+            want, err_msg=f"({stride}, {offset})")
+
+
+@pytest.mark.parametrize("width", SEGMENT_WIDTHS)
+@pytest.mark.parametrize("fields", SEGMENT_FIELDS)
+def test_segment_source_tables_vs_reference(fields, width):
+    """B6's per-field tables: the twin on ``gather_counts(n, fields, f,
+    m)``, lanes [0, m), equals field f of the reference's dynamic
+    deinterleave of a numbered beat, minus one."""
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels import segment as jseg
+    m = width // fields
+    n = fields * m
+    want = jax.jit(lambda x: jseg.deinterleave(x, fields, fused=False))(
+        jnp.asarray(numbered((n,))))
+    for f in range(fields):
+        shift, valid = scg.gather_counts(n, fields, f, m)
+        got = _common.dyn_sources_plain(shift, valid, gsn=True)
+        np.testing.assert_array_equal(got[:m].numpy(),
+                                      np.asarray(want[f]) - 1,
+                                      err_msg=f"field {f}")
+
+
+def test_source_table_one_lane():
+    """n = 1: no layer, the table is the identity, as the reference's
+    one-lane gather and deinterleave route it."""
+    import jax.numpy as jnp
+    from repro.kernels import segment as jseg
+    from repro.kernels import strided as jstrided
+    ids = jnp.asarray(numbered((1,)))
+    shift, valid = scg.gather_counts(1, 1, 0, 1)
+    got = _common.dyn_sources_plain(shift, valid, gsn=True)
+    assert got.tolist() == [0]
+    assert np.asarray(jstrided.gather_strided(ids, 1, 0, 1,
+                                              compiled=False)).tolist() == [1]
+    assert np.asarray(jseg.deinterleave(ids, 1, fused=False)[0]).tolist() \
+        == [1]
+    shift, valid = scg.scatter_counts(1, 1, 0, 1)
+    assert _common.dyn_sources_plain(shift, valid, gsn=False).tolist() == [0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_source_tables_applied_equal_plain(dtype):
+    """The composition the card runs: each row taken through the twin's
+    table equals the plain versions of B8 (every (stride, offset) of the
+    gather grid, n = 96 and 256) and B6 (fields 2/3/4/8 at widths 96 and
+    256), bit for bit."""
+    for n in (96, 256):
+        win = rand(9, (3, 5, n), dtype)
+        for stride, offset in GATHER_SO:
+            vl = vl_of(n, stride, offset)
+            src = _common.dyn_sources_plain(
+                *scg.gather_counts(n, stride, offset, vl), gsn=True)[:vl]
+            assert_bits_equal(apply_sources(win, src),
+                              strided.gather_strided_dynamic_plain(
+                                  win, stride, offset, vl))
+    for width in (96, 256):
+        for fields in SEGMENT_FIELDS:
+            m = width // fields
+            n = fields * m
+            aos = rand(10, (4, n), dtype)
+            plain = segment.deinterleave_dynamic_plain(aos, fields)
+            for f in range(fields):
+                src = _common.dyn_sources_plain(
+                    *scg.gather_counts(n, fields, f, m), gsn=True)[:m]
+                assert_bits_equal(apply_sources(aos, src), plain[f])
+
+
+def test_copy_tile_rows_and_unit():
+    """The permuted copy's launch sizing: tiles within its shared-memory
+    budget, spread over the blocks for a small call, one row for a wide
+    window, a raise where one row does not fit; the copy unit narrows for
+    an odd width and an offset pointer."""
+    budget = _common.COPY_SMEM
+    # the main B6 split: (28*4*512*8, 256) bf16, table 1 KB, 63-row tiles
+    rows = _common.copy_tile_rows(458752, 256, 256, 2, 2, 264)
+    assert rows == 63
+    assert 1024 + 2 * rows * 512 + 2 * rows * 256 <= budget
+    assert _common.copy_tile_rows(458752, 256, 128, 1, 2, 264) == 76
+    # a small call spreads one row per block; a 4096-lane window
+    assert _common.copy_tile_rows(7, 256, 256, 2, 2, 264) == 1
+    assert _common.copy_tile_rows(100, 96, 32, 1, 4, 8) == 13
+    assert _common.copy_tile_rows(32768, 4096, 64, 1, 2, 264) == 5
+    assert _common.copy_tile_rows(3, 8192, 8192, 2, 4, 264) == 1
+    with pytest.raises(ValueError):
+        _common.copy_tile_rows(1, 32768, 32768, 2, 4, 264)
+    assert _common.copy_unit(256, 0, 512) == 16
+    assert _common.copy_unit(66, 0, 512) == 2          # m = 33 of bf16
+    assert _common.copy_unit(33, 0, 512) == 1          # m = 33 of int8
+    assert _common.copy_unit(512, 2, 512) == 2         # offset view
 
 
 # ---------------------------------------------------------------------------
@@ -439,3 +590,68 @@ def test_device_derivation_matches_layer_masks(cuda_device, n, stride,
         np.testing.assert_array_equal(
             occ.cpu().numpy(),
             _common.pack_bits(want_occ.numpy()[None]).view(np.int32)[0])
+
+
+@pytest.mark.cuda
+def test_device_source_tables_match_twin(cuda_device):
+    """One derivation per launch: the device tables (B8's and the SSN's
+    through ``strided.dynamic_sources``, B6's per-field tables through
+    ``segment.deinterleave_sources``) equal ``_common.dyn_sources_plain``."""
+    for n in (1, 96, 256, 4096):
+        for stride, offset in CARD_SO:
+            if offset >= n:
+                continue
+            vl = vl_of(n, stride, offset)
+            for gather in (True, False):
+                counts = scg.gather_counts if gather else scg.scatter_counts
+                want = _common.dyn_sources_plain(
+                    *counts(n, stride, offset, vl), gsn=gather)
+                got = strided.dynamic_sources(n, stride, offset, vl,
+                                              gather=gather,
+                                              device=cuda_device)
+                np.testing.assert_array_equal(
+                    got.cpu().numpy(), want[:vl].numpy() if gather else
+                    want.numpy(), err_msg=f"n={n} ({stride}, {offset}) "
+                    f"gather={gather}")
+    for width in SEGMENT_WIDTHS:
+        for fields in SEGMENT_FIELDS:
+            m = width // fields
+            n = fields * m
+            got = segment.deinterleave_sources(n, fields, device=cuda_device)
+            want = torch.stack([_common.dyn_sources_plain(
+                *scg.gather_counts(n, fields, f, m), gsn=True)[:m]
+                for f in range(fields)])
+            np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", CARD_DTYPES)
+def test_b6_b8_ragged_odd_and_offset_views(cuda_device, dtype):
+    """B6 and B8 bit-exact against their plain versions where the copy's
+    launch choices change: a row count that is no multiple of the tile and
+    gives each block several tiles (the double-buffered loop), odd widths
+    (a 2- or 1-byte copy unit), and a view whose data_ptr is offset by one
+    element (the unit falls to the element size)."""
+    def both(aos, fields, win, stride, offset):
+        n = win.shape[-1]
+        vl = vl_of(n, stride, offset)
+        got = segment.deinterleave(aos, fields, fused=False)
+        got8 = strided.gather_strided(win, stride, offset, vl,
+                                      compiled=False)
+        torch.cuda.synchronize()
+        for g, w in zip(got, segment.deinterleave_dynamic_plain(aos,
+                                                                fields)):
+            assert_bits_equal(g, w)
+        assert_bits_equal(got8, strided.gather_strided_dynamic_plain(
+            win, stride, offset, vl))
+
+    big = card_rand(4, (20011, 256), dtype, cuda_device)
+    both(big, 2, big, 2, 1)
+    odd = card_rand(5, (1003, 99), dtype, cuda_device)
+    both(odd, 3, odd, 3, 1)
+    both(odd, 9, odd, 7, 5)
+    flat = card_rand(6, (1 + 517 * 256,), dtype, cuda_device)
+    view = flat[1:].view(517, 256)
+    assert view.data_ptr() % 16 != 0
+    both(view, 2, view, 2, 0)
+    both(view, 4, view, 16, 3)
