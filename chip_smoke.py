@@ -38,8 +38,12 @@ Phases, in order (any failure raises and exits non-zero):
    B1's FIELD=2 split bit for bit; B3, B5, B8 and B9 at (2,1), vl 128),
    then over the Fig. 12 sweep of benchmarks/bench_strided.py at card size
    (MLEN 128, vl 64, offset 0, stride 2..64, n = 64*stride, 256 MiB
-   windows): B3, B5, B8, B9 and B8's derive kernel alone (one derivation
-   per launch) with its share of B8's time;
+   windows): B3 (with the bytes of a row it stages, only the 16-byte units
+   that hold an output lane, over the row's bytes), B5, B8, B9 and B8's
+   derive kernel alone (one derivation per launch) with its share of B8's
+   time, and a line ``fig12 s=...`` with B3 beside B8 and its bound.  B3
+   and B4 are one staged copy each through tables composed from the host
+   plan; B6 and B8 a derive kernel and a permuted copy;
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
@@ -433,10 +437,11 @@ def check_dynamic(dev) -> int:
 # Phase 3: timings at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def record(name, run, plain, library, bound_bytes, shape) -> dict:
+def record(name, run, plain, library, bound_bytes, shape, note="") -> dict:
     """Hold ``run()`` bit for bit against ``plain()``, then time the
     kernel, the plain version and the library call (CUDA events); the
-    bound is ``bound_bytes`` over the card's memory rate."""
+    bound is ``bound_bytes`` over the card's memory rate.  ``note`` ends
+    the printed line."""
     import torch
     got, want = run(), plain()
     got = got if isinstance(got, list) else [got]
@@ -456,7 +461,7 @@ def record(name, run, plain, library, bound_bytes, shape) -> dict:
     bound = bound_bytes / HBM_BYTES_PER_S * 1e3
     print(f"time {name} {shape}: kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-          f"{bound:.4f} ms (bytes), max_abs_err {err}")
+          f"{bound:.4f} ms (bytes), max_abs_err {err}{note}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": bound, "max_abs_err": err, "shape": shape}
 
@@ -467,6 +472,18 @@ def gather_bytes(R: int, n: int, vl: int, stride: int, e: int) -> int:
     element) plus the output written once."""
     read = R * n * e if stride * e <= 32 else R * vl * 32
     return read + R * vl * e
+
+
+def staged_row_bytes(n: int, stride: int, offset: int, vl: int,
+                     e: int) -> int:
+    """Bytes of a row that B3 stages: the 16-byte units that hold an
+    output lane, or the whole row where those touch every sector
+    (``strided.staged_operands``, the unit a 16-byte-aligned window row of
+    ``n * e`` bytes takes)."""
+    import numpy as np
+    from repro_torch.kernels import strided
+    src = offset + stride * np.arange(vl)
+    return strided.staged_operands(src[None], n, 16 // e, e)["kmax"] * 16
 
 
 def lane_bytes(R: int, lanes, e: int) -> int:
@@ -632,11 +649,14 @@ def time_fig12(dev) -> None:
             w[:, 0:(vl - 1) * s + 1:s] = vals
             return w
 
-        record(f"fig12 gather_strided s={s}",
-               lambda: strided.gather_strided(win, s, 0, vl),
-               lambda: strided.gather_strided_plain(win, s, 0, vl),
-               lambda: win[:, 0:(vl - 1) * s + 1:s].contiguous(),
-               gather_bytes(R, n, vl, s, e), [R, n])
+        staged = staged_row_bytes(n, s, 0, vl, e)
+        b3 = record(f"fig12 gather_strided s={s}",
+                    lambda: strided.gather_strided(win, s, 0, vl),
+                    lambda: strided.gather_strided_plain(win, s, 0, vl),
+                    lambda: win[:, 0:(vl - 1) * s + 1:s].contiguous(),
+                    gather_bytes(R, n, vl, s, e), [R, n],
+                    f"; staged {staged} of {n * e} bytes a row "
+                    f"({staged / (n * e):.4f})")
         record(f"fig12 scatter_strided s={s}",
                lambda: strided.scatter_strided(win, vals, s, 0),
                lambda: strided.scatter_strided_plain(win, vals, s, 0),
@@ -659,6 +679,9 @@ def time_fig12(dev) -> None:
               f"B8's derive kernel alone (one block: the GSN derivation "
               f"and its {vl}-entry source table, once per launch; device "
               f"time, CUDA graph), {derive / dyn['ms']:.4f} of B8's time")
+        print(f"fig12 s={s}: B3 {b3['ms']:.4f} ms, B8 {dyn['ms']:.4f} ms, "
+              f"B3/B8 {b3['ms'] / dyn['ms']:.4f}; B3 over its bound "
+              f"{b3['ms'] / b3['bound_ms']:.4f}")
         del win, vals
         torch.cuda.empty_cache()
 

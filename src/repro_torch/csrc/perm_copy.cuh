@@ -1,5 +1,6 @@
-// Table-driven permuted copy of row tiles: the copy half of B6
-// (segment.cu) and B8 (strided.cu).
+// Table-driven permuted copies of row tiles: `perm_copy_kernel`, the copy
+// half of B6 (segment.cu) and B8 (strided.cu), and `staged_copy_kernel`,
+// the whole of B3 and B4 (strided.cu), at the end of this file.
 //
 // For every row r of the (R, n) input, part p < parts and lane j < w:
 //   out_p[r][j] = tab[p*w + j] < 0 ? 0 : x[r][tab[p*w + j]]
@@ -223,5 +224,168 @@ static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
   err = cudaLaunchKernelEx(&cfg, perm_copy_kernel<T>, static_cast<const T*>(x),
                            outs, R, n, parts, w, table, rows, unit);
   if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The staged copy: B3 and B4 (strided.cu)
+// ---------------------------------------------------------------------------
+//
+// For access a < A (blockIdx.y), every row r of its (R, n) window and lane
+// j < vl:
+//   out_a[r][j] = staged_a[r][pos[a*vl + j]]
+// where staged_a[r] is row r compacted to its listed units: units[a*kmax +
+// k] (k < nunits[a]) of `sunit` bytes each, in order.  The host composes
+// both from a gather plan's table (`ShiftPlan.source`, which is static), so
+// there is no derive kernel and nothing to wait for: the wrapper uploads
+// the list and the remapped table once per plan and copy unit.
+//
+// Bound: the sectors that hold an output lane are read once (the whole
+// window while stride x element size <= 32 bytes), the output is written
+// once.  What the design does about it, beyond perm_copy_kernel's
+// persistent, double-buffered tiles and 16-byte stores:
+//   * a row stages only the units that hold an output lane.  Where those
+//     touch every 32-byte sector of the row (stride x element size <= 32
+//     bytes, the main path among them), the host lists the whole row, and
+//     a tile is one contiguous chunk, staged as in perm_copy_kernel: the
+//     same sectors move, faster.  Past it each listed unit is its own
+//     cp.async, and only the sectors that hold an output lane are read.  A
+//     staged row then takes less shared memory, so more rows fit a tile;
+//   * a block works on one access only, so it holds just that access's
+//     table and list in shared memory (at n = 4096 a table is up to 16 KB,
+//     too much for A of them beside the tiles), loaded once; no tile
+//     crosses an access's rows;
+//   * staging and storing use separate units: the widest that divides the
+//     row's bytes and the pointer, each on its own side.
+__host__ __device__ inline size_t staged_copy_smem(int vl, int kmax, int rows,
+                                                   int sunit, size_t elem) {
+  return pad16((size_t)vl * 4) + pad16((size_t)kmax * 4) +
+         2 * pad16((size_t)rows * kmax * sunit) + pad16((size_t)rows * vl * elem);
+}
+
+template <int U>
+__device__ __forceinline__ void stage_listed_units(unsigned char* dst,
+                                                   const unsigned char* src,
+                                                   int nr, size_t in_row,
+                                                   const int* ulist, int K) {
+  const int total = nr * K;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) {
+    const int r = i / K;
+    const unsigned char* s = src + r * in_row + (size_t)ulist[i - r * K] * U;
+    unsigned char* d = dst + (size_t)i * U;
+    if constexpr (U >= 4)
+      cp_async_unit<U>(d, s);
+    else if constexpr (U == 2)
+      *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(s);
+    else
+      *d = *s;
+  }
+}
+
+// Start staging rows [0, nr) of `src` (rows of `in_row` bytes): only the
+// K listed units of each, compacted, or the whole chunk when the list is
+// the whole row.
+__device__ inline void stage_rows(unsigned char* dst, const unsigned char* src,
+                                  int nr, size_t in_row, const int* ulist,
+                                  int K, int unit) {
+  if ((size_t)K * unit == in_row) {
+    stage(dst, src, (size_t)nr * in_row, unit);
+    return;
+  }
+  switch (unit) {
+    case 16: stage_listed_units<16>(dst, src, nr, in_row, ulist, K); break;
+    case 8: stage_listed_units<8>(dst, src, nr, in_row, ulist, K); break;
+    case 4: stage_listed_units<4>(dst, src, nr, in_row, ulist, K); break;
+    case 2: stage_listed_units<2>(dst, src, nr, in_row, ulist, K); break;
+    default: stage_listed_units<1>(dst, src, nr, in_row, ulist, K); break;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
+                   int n, int vl, const int* __restrict__ pos,
+                   const int* __restrict__ units,
+                   const int* __restrict__ nunits, int kmax, int rows,
+                   int sunit, int ounit) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int a = blockIdx.y;
+  const int K = nunits[a];
+  const size_t in_row = (size_t)n * sizeof(T);
+  const size_t out_row = (size_t)vl * sizeof(T);
+  const size_t in_b = pad16((size_t)rows * kmax * sunit);
+  int* tab = reinterpret_cast<int*>(smem);
+  int* ulist = reinterpret_cast<int*>(smem + pad16((size_t)vl * 4));
+  unsigned char* ibuf = smem + pad16((size_t)vl * 4) + pad16((size_t)kmax * 4);
+  unsigned char* obuf = ibuf + 2 * in_b;
+  const unsigned char* xa =
+      reinterpret_cast<const unsigned char*>(x) + (size_t)a * R * in_row;
+  unsigned char* oa = reinterpret_cast<unsigned char*>(out) + (size_t)a * R * out_row;
+  const int kel = (int)((size_t)K * sunit / sizeof(T));  // lanes of a staged row
+  const long long tiles = (R + rows - 1) / rows;
+  long long tile = blockIdx.x;            // the grid is at most `tiles` wide
+
+  for (int c = threadIdx.x; c < vl; c += blockDim.x) tab[c] = pos[(size_t)a * vl + c];
+  for (int c = threadIdx.x; c < K; c += blockDim.x)
+    ulist[c] = units[(size_t)a * kmax + c];
+  __syncthreads();                        // the list, before staging reads it
+  stage_rows(ibuf, xa + tile * rows * in_row,
+             (int)min((long long)rows, R - tile * rows), in_row, ulist, K, sunit);
+  cp_async_commit();
+
+  const TileMap tm(vl);
+  for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
+    const long long next = tile + gridDim.x;
+    // buffer (k+1)&1 was last read by tile k-1's permute, which ended
+    // with a barrier every thread has passed
+    if (next < tiles)
+      stage_rows(ibuf + ((k + 1) & 1) * in_b, xa + next * rows * in_row,
+                 (int)min((long long)rows, R - next * rows), in_row, ulist, K,
+                 sunit);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();      // tile k staged; the output tile's last stores are done
+    const T* in = reinterpret_cast<const T*>(ibuf + (k & 1) * in_b);
+    const int nr = (int)min((long long)rows, R - tile * rows);
+    if (tm.g < tm.groups) {
+      T* o = reinterpret_cast<T*>(obuf);
+      for (int c = tm.t; c < vl; c += tm.lanes) {
+        const int s = tab[c];
+        for (int r = tm.g; r < nr; r += tm.groups)
+          o[(size_t)r * vl + c] = in[(size_t)r * kel + s];
+      }
+    }
+    __syncthreads();      // output tile complete
+    store(oa + tile * rows * out_row, obuf, (size_t)nr * out_row, ounit);
+  }
+}
+
+static inline bool bad_unit(int unit, size_t elem) {
+  return unit < (int)elem || unit > 16 || (unit & (unit - 1));
+}
+
+// One launch of the staged copy over A accesses: a persistent grid of at
+// most `blocks` blocks per access.
+template <typename T>
+static cudaError_t launch_staged_copy(const void* x, void* out, int A,
+                                      long long R, int n, int vl,
+                                      const int* pos, const int* units,
+                                      const int* nunits, int kmax, int rows,
+                                      int blocks, int sunit, int ounit,
+                                      cudaStream_t stream) {
+  const size_t e = sizeof(T);
+  if (A < 1 || A > 65535 || n < 1 || vl < 1 || R < 1 || rows < 1 ||
+      blocks < 1 || kmax < 1 || bad_unit(sunit, e) || bad_unit(ounit, e) ||
+      (n * e) % sunit || (vl * e) % ounit || (size_t)kmax * sunit > n * e)
+    return cudaErrorInvalidValue;
+  const size_t smem = staged_copy_smem(vl, kmax, rows, sunit, e);
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t err = set_smem(staged_copy_kernel<T>, smem, granted);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (R + rows - 1) / rows;
+  const dim3 grid((unsigned)(tiles < blocks ? tiles : blocks), (unsigned)A);
+  staged_copy_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), R, n, vl, pos, units,
+      nunits, kmax, rows, sunit, ounit);
   return cudaGetLastError();
 }

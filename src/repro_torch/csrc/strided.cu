@@ -1,6 +1,6 @@
 // Strided (LSDO) kernels for Hopper (sm_90a): B3 gather, B4 fused gather
-// and B5 scatter, routed through compiled shift plans, and B8 gather / B9
-// scatter, the same functions routed through the dynamic-count networks.
+// and B5 scatter, on compiled shift plans, and B8 gather / B9 scatter, the
+// same functions routed through the dynamic-count networks.
 //
 // Replaces, in src/repro/kernels/strided.py:
 //   B3 `_gather_plan_kernel`   (launched by `gather_strided`),
@@ -14,15 +14,14 @@
 // coalesced n-lane window goes through `shiftplan.gather_plan(n, stride,
 // offset, vl)` and lanes [0, vl) are the output, so out[r, i] =
 // window[r, offset + i*stride].  B4: A stacked windows, each with its own
-// (stride, offset) plan, in one launch; the plans' masks are concatenated
-// into one operand.  B5: the vl values, zero-padded to n lanes, go through
-// `shiftplan.scatter_plan`; the output keeps every window lane that the
-// plan's occupancy does not mark (read-modify-write, out of place).  B8 and
-// B9 compute the same two functions as the reference's dynamic bodies do:
-// `scg.gather_counts` / `scg.scatter_counts` computed in the kernel from
-// (n, stride, offset, vl), the GSN / SSN take-masks derived from them on
-// the device (route_dyn.cuh), every layer run unpruned, and B9's merge
-// under the network's final occupancy.
+// (stride, offset) plan, in one launch.  B5: the vl values, zero-padded to
+// n lanes, go through `shiftplan.scatter_plan`; the output keeps every
+// window lane that the plan's occupancy does not mark (read-modify-write,
+// out of place).  B8 and B9 compute the same two functions as the
+// reference's dynamic bodies do: `scg.gather_counts` / `scg.scatter_counts`
+// computed in the kernel from (n, stride, offset, vl), the GSN / SSN
+// take-masks derived from them on the device (route_dyn.cuh), every layer
+// run unpruned, and B9's merge under the network's final occupancy.
 //
 // Bound: pure data movement, no floating point.  The least time is the
 // bytes that must move over 3.35 TB/s.  For a gather that is the sectors
@@ -30,15 +29,31 @@
 // stride * element size <= 32 bytes, one 32-byte sector per element past
 // that.  For the scatter: window read, values read, output written.
 //
-// B3, B4, B5 and B9: the layer loop is the one B1 and B2 run
-// (route_plan.cuh).  Each block loads a row tile of its window into shared
-// memory once (lane-major, so a warp reads neighbouring lanes), runs the
-// plan's layers ping-ponging between two buffers, and writes only the vl
-// output lanes (gather) or merges the routed tile with the window read
-// straight from device memory (scatter).  Plans are exactly n lanes wide
-// (no power-of-two padding); masks are packed to bits by the wrapper, and
-// a B4 block loads only its own plan's mask rows.  A B9 block derives its
-// masks itself, once for its whole row tile.
+// B3 and B4, one kernel per call: a gather plan is static, and its composed
+// table (`ShiftPlan.source`: lane j of the output takes input lane
+// offset + j*stride) is known on the host.  So no layer runs on the card:
+// `staged_copy_kernel` (perm_copy.cuh) moves the rows through the table.
+// The wrapper uploads, once per plan and copy unit, each access's
+// staged-unit list (the units of a row that hold an output lane) and the
+// table remapped into the row compacted to those units.  A persistent grid
+// stages row tiles with cp.async, double-buffered: the whole row as one
+// contiguous chunk while the units that hold an output lane touch every
+// 32-byte sector (stride * element size <= 32 bytes, the main path among
+// them), else only the listed units (sector-only loads: at stride 64 in
+// bf16, one 16-byte unit in eight), so wide strides read only the sectors
+// they need and fit more rows a tile.  The permute reads
+// through the remapped table into a (rows, vl) output tile, consecutive
+// threads on consecutive output lanes, which leaves in 16-byte vector
+// stores: two barriers a tile.  A B4 block works on one access, holding
+// only that access's table and list.
+//
+// B5 and B9: the layer loop that B1 and B2 run (route_plan.cuh).  Each
+// block loads a row tile of the zero-padded values into shared memory once
+// (lane-major, so a warp reads neighbouring lanes), runs the plan's layers
+// ping-ponging between two buffers, and merges the routed tile with the
+// window read straight from device memory.  Plans are exactly n lanes wide
+// (no power-of-two padding); masks are packed to bits by the wrapper.  A
+// B9 block derives its masks itself, once for its whole row tile.
 //
 // B8, two kernels per call: the network depends only on (n, stride,
 // offset, vl), so it is derived once per launch.  `dyn_sources_kernel`
@@ -55,10 +70,10 @@
 // Elements move as raw bits (templated on 1/2/4/8-byte widths), so every
 // dtype is bit-exact.
 //
-// Known limit, not addressed here: the tile is the whole coalesced
-// window, so past stride * element size = 32 bytes the gather reads
-// sectors that hold no output element (at stride 64 in bf16, 4x the
-// sectors the strided elements need).
+// Known limit, not addressed here: B8 still stages the whole window, so
+// past stride * element size = 32 bytes it reads sectors that hold no
+// output element (at stride 64 in bf16, 4x the sectors the strided
+// elements need); B3 and B4 read only the units they need.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -66,72 +81,6 @@
 #include "perm_copy.cuh"
 #include "route_dyn.cuh"
 #include "route_plan.cuh"
-
-// One gather access: rows [r0, r0 + nr) of window `a` through plan `a`
-// (layer records [plan_lo[a], plan_lo[a+1]), mask rows [mask_lo[a],
-// mask_lo[a+1]) of the stacked operand, referenced relative to mask_lo[a]).
-template <typename T>
-__device__ void gather_tile(const T* __restrict__ x, T* __restrict__ out,
-                            long long R, int n, int vl,
-                            const uint32_t* __restrict__ masks, int words,
-                            const int* __restrict__ layers,
-                            const int* __restrict__ plan_lo,
-                            const int* __restrict__ mask_lo, int mask_rows,
-                            int rows, int a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
-  const size_t mbytes = ((size_t)mask_rows * words * 4 + 15) & ~(size_t)15;
-  T* ba = reinterpret_cast<T*>(smem + mbytes);
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-  const bool live = tm.g < tm.groups;
-
-  const int mlo = mask_lo[a];
-  const int mwords = (mask_lo[a + 1] - mlo) * words;
-  for (int i = threadIdx.x; i < mwords; i += blockDim.x)
-    smask[i] = masks[(size_t)mlo * words + i];
-  const T* xs = x + ((long long)a * R + r0) * n;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        ba[(size_t)r * n + c] = xs[(size_t)r * n + c];
-  }
-  __syncthreads();
-  const T* res = route_plan<T>(ba, ba, bb, nr, n, words, smask, layers,
-                               plan_lo[a], plan_lo[a + 1], tm);
-  T* os = out + ((long long)a * R + r0) * vl;
-  if (live) {
-    for (int c = tm.t; c < vl; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        os[(size_t)r * vl + c] = res[(size_t)r * n + c];
-  }
-}
-
-// B3: one window, one plan.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gather_plan_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
-                   int n, int vl, const uint32_t* __restrict__ masks,
-                   int words, const int* __restrict__ layers,
-                   const int* __restrict__ plan_lo,
-                   const int* __restrict__ mask_lo, int mask_rows, int rows) {
-  gather_tile<T>(x, out, R, n, vl, masks, words, layers, plan_lo, mask_lo,
-                 mask_rows, rows, 0);
-}
-
-// B4: A stacked windows (A, R, n), access a = blockIdx.y with its own plan.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-gather_fused_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
-                    int n, int vl, const uint32_t* __restrict__ masks,
-                    int words, const int* __restrict__ layers,
-                    const int* __restrict__ plan_lo,
-                    const int* __restrict__ mask_lo, int mask_rows, int rows) {
-  gather_tile<T>(x, out, R, n, vl, masks, words, layers, plan_lo, mask_lo,
-                 mask_rows, rows, blockIdx.y);
-}
 
 // B5: (R, vl) values merged into (R, n) windows -> (R, n) output.
 template <typename T>
@@ -176,40 +125,6 @@ scatter_kernel(const T* __restrict__ vals, const T* __restrict__ win,
       }
     }
   }
-}
-
-template <typename T>
-static cudaError_t launch_gather(const void* x, void* out, int A, long long R,
-                                 int n, int vl, const void* masks, int words,
-                                 const void* layers, const void* plan_lo,
-                                 const void* mask_lo, int mask_rows, int rows,
-                                 cudaStream_t stream) {
-  const size_t mbytes = ((size_t)mask_rows * words * 4 + 15) & ~(size_t)15;
-  const size_t smem = mbytes + 2 * (size_t)rows * n * sizeof(T);
-  const long long tiles = (R + rows - 1) / rows;
-  if (tiles > 0x7fffffffLL || A > 65535) return cudaErrorInvalidConfiguration;
-  const dim3 grid((unsigned)tiles, (unsigned)A);
-  cudaError_t e;
-  if (A == 1) {
-    static size_t granted[MAX_DEVICES] = {0};
-    e = set_smem(gather_plan_kernel<T>, smem, granted);
-    if (e != cudaSuccess) return e;
-    gather_plan_kernel<T><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), R, n, vl,
-        static_cast<const uint32_t*>(masks), words,
-        static_cast<const int*>(layers), static_cast<const int*>(plan_lo),
-        static_cast<const int*>(mask_lo), mask_rows, rows);
-  } else {
-    static size_t granted[MAX_DEVICES] = {0};
-    e = set_smem(gather_fused_kernel<T>, smem, granted);
-    if (e != cudaSuccess) return e;
-    gather_fused_kernel<T><<<grid, THREADS, smem, stream>>>(
-        static_cast<const T*>(x), static_cast<T*>(out), R, n, vl,
-        static_cast<const uint32_t*>(masks), words,
-        static_cast<const int*>(layers), static_cast<const int*>(plan_lo),
-        static_cast<const int*>(mask_lo), mask_rows, rows);
-  }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -310,19 +225,27 @@ static cudaError_t launch_scatter_dyn(const void* vals, const void* win,
 extern "C" {
 
 // Plain C entry points (bound with ctypes).  Each returns the cudaError_t
-// of the launch; the Python wrapper raises when it is not 0.  A == 1 runs
-// B3, A > 1 runs B4.
+// of the launch; the Python wrapper raises when it is not 0.
+
+// B3 (A == 1) and B4 (A > 1): one staged copy of the A stacked (R, n)
+// windows into (A, R, vl), through each access's remapped table `pos` (A,
+// vl) and staged-unit list `units` (A, kmax; nunits[a] of them used), in
+// `rows`-row tiles over at most `blocks` blocks per access, staged in
+// `sunit`-byte and stored in `ounit`-byte units.
 int strided_gather(int elem_bytes, const void* x, void* out, int A,
-                   long long R, int n, int vl, const void* masks, int words,
-                   const void* layers, const void* plan_lo,
-                   const void* mask_lo, int mask_rows, int rows, void* stream) {
-  if (A < 1 || rows < 1 || vl < 1 || vl > n) return cudaErrorInvalidValue;
+                   long long R, int n, int vl, const void* pos,
+                   const void* units, const void* nunits, int kmax, int rows,
+                   int blocks, int sunit, int ounit, void* stream) {
+  if (vl > n) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* p = static_cast<const int*>(pos);
+  const int* u = static_cast<const int*>(units);
+  const int* k = static_cast<const int*>(nunits);
   switch (elem_bytes) {
-    case 1: return launch_gather<uint8_t>(x, out, A, R, n, vl, masks, words, layers, plan_lo, mask_lo, mask_rows, rows, s);
-    case 2: return launch_gather<uint16_t>(x, out, A, R, n, vl, masks, words, layers, plan_lo, mask_lo, mask_rows, rows, s);
-    case 4: return launch_gather<uint32_t>(x, out, A, R, n, vl, masks, words, layers, plan_lo, mask_lo, mask_rows, rows, s);
-    case 8: return launch_gather<unsigned long long>(x, out, A, R, n, vl, masks, words, layers, plan_lo, mask_lo, mask_rows, rows, s);
+    case 1: return launch_staged_copy<uint8_t>(x, out, A, R, n, vl, p, u, k, kmax, rows, blocks, sunit, ounit, s);
+    case 2: return launch_staged_copy<uint16_t>(x, out, A, R, n, vl, p, u, k, kmax, rows, blocks, sunit, ounit, s);
+    case 4: return launch_staged_copy<uint32_t>(x, out, A, R, n, vl, p, u, k, kmax, rows, blocks, sunit, ounit, s);
+    case 8: return launch_staged_copy<unsigned long long>(x, out, A, R, n, vl, p, u, k, kmax, rows, blocks, sunit, ounit, s);
     default: return cudaErrorInvalidValue;
   }
 }

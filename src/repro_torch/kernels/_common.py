@@ -13,9 +13,11 @@ sources in parallel (:data:`SOURCES` lists them all).  A missing ``nvcc``
 or a failed build raises; nothing falls back to a plain version.  The CUDA launch helpers shared by the
 kernel wrappers (:func:`rows_per_block`, :func:`dyn_net_bytes`,
 :func:`copy_tile_rows`, :func:`copy_unit`, :func:`check_cuda`,
-:func:`cuda_stream`, :func:`layer_table`) live here too, and
+:func:`cuda_stream`, :func:`layer_table`) live here too, with
 :func:`dyn_sources_plain`, the torch-ops twin of the source table that B6
-and B8 derive on the card.
+and B8 derive on the card, and :func:`staged_units` /
+:func:`staged_copy_plain`, the staged-unit list and remapped table that
+B3 and B4 take from the host plan, and their composition as torch ops.
 """
 from __future__ import annotations
 
@@ -208,20 +210,25 @@ def dyn_net_bytes(n: int) -> int:
 
 
 #: Shared memory of one block of the permuted copy (``csrc/perm_copy.cuh``,
-#: the copy half of B6 and B8): two blocks share an SM, each with two
-#: staged input tiles of about 32 KB at the main shape.
+#: the copy half of B6 and B8, and the staged copy of B3 and B4): two
+#: blocks share an SM, each with two staged input tiles of about 32 KB at
+#: the main shape.
 COPY_SMEM = 96 * 1024
 
 
 def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
-                   blocks: int) -> int:
+                   blocks: int, *, units: int = 0) -> int:
     """Row-tile height of the permuted copy: the source table (``nout``
     int32), two staged (rows, n) input tiles and the ``parts`` blocks of
     the (rows, nout) output tile, each rounded up to 16 bytes, within
     :data:`COPY_SMEM` (one row at least, if that fits the card's 227 KB at
     all; raises beyond that), and low enough that ``blocks`` blocks share
-    the ``R`` rows when ``R`` allows it."""
-    fixed = -(-nout * 4 // 16) * 16 + 16 * (2 + parts)
+    the ``R`` rows when ``R`` allows it.  ``n`` is the lanes staged per
+    row: the whole row for B6 / B8; for B3 / B4 (the staged copy) the lanes
+    of the listed units only, whose list of ``units`` int32 entries then
+    sits beside the table."""
+    fixed = (-(-nout * 4 // 16) * 16 + -(-units * 4 // 16) * 16
+             + 16 * (2 + parts))
     per_row = (2 * n + nout) * elem
     if fixed + per_row > SMEM_LIMIT:
         raise ValueError(
@@ -238,6 +245,47 @@ def copy_unit(nbytes: int, *ptrs: int) -> int:
         if nbytes % u == 0 and all(p % u == 0 for p in ptrs):
             return u
     return 1
+
+
+def staged_units(source, n: int, per_unit: int,
+                 elem: int) -> tuple[np.ndarray, np.ndarray]:
+    """What the staged copy (B3 / B4) loads of an ``n``-lane row of
+    ``elem``-byte lanes, from a static source table: ``source`` gives each
+    output lane's input lane (all >= 0), and a copy unit holds
+    ``per_unit`` lanes.  Returns ``units``, the staged-unit list, and
+    ``pos``, each output lane's position in the row compacted to those
+    units (the remapped table), both int32.  The list is the sorted
+    distinct units that hold a source lane, or every unit of the row when
+    those units touch every 32-byte sector of it (counted from the row's
+    start): the same sectors move either way, and a whole row stages as
+    one contiguous chunk."""
+    src = np.asarray(source, np.int64)
+    if src.size and src.min() < 0:
+        raise ValueError("staged copy: every output lane needs a source lane")
+    sector = 32 // elem                               # lanes of a sector
+    if len(np.unique(src // sector)) == -(-n // sector):
+        return (np.arange(n // per_unit, dtype=np.int32),
+                src.astype(np.int32))
+    unit = src // per_unit
+    units = np.unique(unit)
+    pos = np.searchsorted(units, unit) * per_unit + src % per_unit
+    return units.astype(np.int32), pos.astype(np.int32)
+
+
+def staged_copy_plain(x: torch.Tensor, units, pos,
+                      per_unit: int) -> torch.Tensor:
+    """The staged copy as torch ops (the twin of ``staged_copy_kernel`` in
+    ``csrc/perm_copy.cuh``): each row of the ``(R, n)`` tensor ``x`` is
+    compacted to its listed units of ``per_unit`` lanes, then read through
+    the remapped table, ``out[r, j] = staged[r, pos[j]]``.  The CPU check
+    of the composition; no wrapper takes it on the card."""
+    R, n = x.shape
+    units = torch.as_tensor(np.asarray(units), dtype=torch.int64,
+                            device=x.device)
+    pos = torch.as_tensor(np.asarray(pos), dtype=torch.int64,
+                          device=x.device)
+    staged = x.reshape(R, n // per_unit, per_unit)[:, units].reshape(R, -1)
+    return staged[:, pos]
 
 
 def dyn_sources_plain(shift: torch.Tensor, valid: torch.Tensor, *,

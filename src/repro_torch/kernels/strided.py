@@ -13,6 +13,16 @@ static shift + one select per layer), or, with ``compiled=False`` (policy
   tensors they run the plain version (``*_plain``: the plan as torch ops
   through ``shiftnet.apply_plan_operand``, plus a slice, or a pad and a
   select), which is also the kernels' yardstick on the card.
+* B3 and B4 do not run the plan's layers on the card: a gather plan's
+  composed table (``ShiftPlan.source``, the input lane of each output
+  lane) is known on the host, so each call is one staged copy of the rows
+  through it (``staged_copy_kernel``, ``csrc/perm_copy.cuh``).  For the
+  copy unit the call's row width and pointer allow, the wrapper keeps per
+  access the staged-unit list (the units of a row that hold a source
+  lane, or the whole row where those touch every 32-byte sector) and the
+  table remapped into the row compacted to those units
+  (:func:`staged_operands`), uploaded once per plan-cache entry; the
+  kernel stages only those units.  B5 keeps the plan's layer loop.
 * ``compiled=False`` hands the call to :func:`gather_strided_dynamic`
   (B8) and :func:`scatter_strided_dynamic` (B9): one launch of the dynamic
   kernel per access (A launches for a fused gather of A windows, as the
@@ -69,20 +79,53 @@ def _build_operands(kind: str, n: int, pairs: tuple, vl: int,
            "valid": torch.from_numpy(plans[0].valid).to(device)}
     if device.type != "cuda":
         return ops
+    if kind == "gather":
+        # B3 / B4 copy each row through the plans' composed tables; the
+        # staged-unit lists depend on the copy unit and the element size,
+        # so _staged adds them to this entry at the first such call
+        source = np.stack([p.source[:vl] for p in plans]).astype(np.int32)
+        ops.update(source_np=source, staged={},
+                   source=torch.from_numpy(source).to(device))
+        return ops
     layers, plan_lo = _common.layer_table(plans, spans, relative=True)
     packed = _common.pack_bits(masks)
-    mask_lo = [lo for lo, _ in spans] + [spans[-1][1]]
     ops.update(
-        words=packed.shape[1], S=packed.shape[0],
-        mask_rows=max(1, max(hi - lo for lo, hi in spans)),
-        nlayers=plan_lo[-1],
+        words=packed.shape[1], S=packed.shape[0], nlayers=plan_lo[-1],
         masks_bits=torch.from_numpy(packed.view(np.int32)).to(device),
         valid_bits=torch.from_numpy(_common.pack_bits(
             plans[0].valid.reshape(1, n)).view(np.int32)).to(device),
-        layers=torch.tensor(layers, dtype=torch.int32, device=device),
-        plan_lo=torch.tensor(plan_lo, dtype=torch.int32, device=device),
-        mask_lo=torch.tensor(mask_lo, dtype=torch.int32, device=device))
+        layers=torch.tensor(layers, dtype=torch.int32, device=device))
     return ops
+
+
+def staged_operands(source, n: int, per_unit: int, elem: int) -> dict:
+    """The staged copy's host operands for ``n``-lane rows of
+    ``elem``-byte lanes and copy units of ``per_unit`` lanes, from the
+    ``(A, vl)`` source table (one row per access): the staged-unit lists
+    ``units`` ``(A, kmax)``, padded with 0 past each access's ``nunits``,
+    and the tables remapped into the compacted rows, ``pos`` ``(A, vl)``;
+    all int32 (``_common.staged_units`` per access)."""
+    lists = [_common.staged_units(src, n, per_unit, elem) for src in source]
+    kmax = max(len(u) for u, _ in lists)
+    units = np.zeros((len(lists), kmax), np.int32)
+    for a, (u, _) in enumerate(lists):
+        units[a, :len(u)] = u
+    return {"kmax": kmax, "units": units,
+            "nunits": np.array([len(u) for u, _ in lists], np.int32),
+            "pos": np.stack([p for _, p in lists])}
+
+
+def _staged(ops: dict, n: int, per_unit: int, elem: int,
+            device: torch.device) -> dict:
+    """:func:`staged_operands` on the card, uploaded once per plan-cache
+    entry, copy unit and element size."""
+    st = ops["staged"].get((per_unit, elem))
+    if st is None:
+        host = staged_operands(ops["source_np"], n, per_unit, elem)
+        st = ops["staged"][per_unit, elem] = {"kmax": host["kmax"], **{
+            k: torch.from_numpy(host[k]).to(device)
+            for k in ("units", "nunits", "pos")}}
+    return st
 
 
 def _lib():
@@ -90,7 +133,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.strided_gather.argtypes = [
-            I, P, P, I, LL, I, I, P, I, P, P, P, I, I, P]
+            I, P, P, I, LL, I, I, P, P, P, I, I, I, I, I, P]
         lib.strided_gather.restype = I
         lib.strided_scatter.argtypes = [
             I, P, P, P, LL, I, I, P, I, I, P, I, P, I, P]
@@ -119,19 +162,22 @@ def _check(lib, status: int, what: str) -> None:
 
 def _launch_gather(flat: torch.Tensor, A: int, R: int, n: int, vl: int,
                    ops: dict) -> torch.Tensor:
-    """(A*R, n) windows -> (A*R, vl) through ``strided_gather`` (B3 for
-    A == 1, B4 otherwise)."""
+    """(A*R, n) windows -> (A*R, vl) through ``strided_gather``: one
+    staged copy (B3 for A == 1, B4 otherwise)."""
     out = torch.empty((A * R, vl), dtype=flat.dtype, device=flat.device)
     lib = _lib()
     elem = flat.element_size()
-    rows = _common.rows_per_block(
-        R, n, elem, ops["mask_rows"] * ops["words"] * 4,
-        -(-_common.min_blocks(flat.device) // A), buffers=2)
+    sunit = _common.copy_unit(n * elem, flat.data_ptr())
+    ounit = _common.copy_unit(vl * elem, out.data_ptr())
+    st = _staged(ops, n, sunit // elem, elem, flat.device)
+    blocks = -(-_common.min_blocks(flat.device) // A)
+    rows = _common.copy_tile_rows(R, st["kmax"] * sunit // elem, vl, 1, elem,
+                                  blocks, units=st["kmax"])
     status = lib.strided_gather(
         elem, flat.data_ptr(), out.data_ptr(), A, R, n, vl,
-        ops["masks_bits"].data_ptr(), ops["words"], ops["layers"].data_ptr(),
-        ops["plan_lo"].data_ptr(), ops["mask_lo"].data_ptr(),
-        ops["mask_rows"], rows, _common.cuda_stream(flat))
+        st["pos"].data_ptr(), st["units"].data_ptr(),
+        st["nunits"].data_ptr(), st["kmax"], rows, blocks, sunit, ounit,
+        _common.cuda_stream(flat))
     _check(lib, status, "gather_strided" if A == 1 else
            "gather_strided_fused")
     return out
@@ -210,7 +256,7 @@ def scatter_strided_dynamic_plain(window: torch.Tensor, values: torch.Tensor,
 def gather_strided(window: torch.Tensor, stride: int, offset: int, vl: int,
                    *, compiled: bool = True) -> torch.Tensor:
     """(..., n) -> (..., vl): out[..., i] = window[..., offset + i*stride]
-    (kernel B3)."""
+    (kernel B3: one staged copy of the rows through the plan's table)."""
     gather_strided.calls += 1
     if not compiled:
         return gather_strided_dynamic(window, stride, offset, vl)
@@ -236,9 +282,9 @@ gather_strided.launches = 0
 def gather_strided_fused(windows: torch.Tensor, specs, vl: int, *,
                          compiled: bool = True) -> torch.Tensor:
     """Whole-step fused gather (kernel B4): A same-shape windows, each with
-    its own ``(stride, offset)``, in ONE launch whose mask operand
-    concatenates every access's plan.  ``windows`` is ``(A, ..., n)``;
-    returns ``(A, ..., vl)``."""
+    its own ``(stride, offset)``, in ONE launch of the staged copy, each
+    block on one access with that access's table and staged-unit list.
+    ``windows`` is ``(A, ..., n)``; returns ``(A, ..., vl)``."""
     gather_strided_fused.calls += 1
     pairs = tuple((int(s), int(o)) for s, o in specs)
     A, n = windows.shape[0], windows.shape[-1]
