@@ -23,10 +23,11 @@ Phases, in order (any failure raises and exits non-zero):
    version AND its plan twin: B6/B7 (also at 96 lanes) against B1/B2,
    B8/B9 against B3/B5, the dynamic fused gather (one B8 per access)
    against B4; the device derivation of the dynamic network against
-   ``shiftnet.layer_masks``; and the source tables that B6 and B8 derive
+   ``shiftnet.layer_masks``; the source tables that B6, B8 and B9 derive
    once per launch (``strided.dynamic_sources``, with the SSN's, and
    ``segment.deinterleave_sources``) against their torch-ops twin
-   ``_common.dyn_sources_plain``;
+   ``_common.dyn_sources_plain``, and B9's list of occupied lanes
+   (``strided.dynamic_merge_list``) against ``_common.merge_pairs``;
 3. timings at the main path's shapes: kernel, plain version, one PyTorch
    library call computing the same function (timed here only, never used
    by the port), and the bound (bytes that must move / 3.35 TB/s).  Each
@@ -39,11 +40,14 @@ Phases, in order (any failure raises and exits non-zero):
    then over the Fig. 12 sweep of benchmarks/bench_strided.py at card size
    (MLEN 128, vl 64, offset 0, stride 2..64, n = 64*stride, 256 MiB
    windows): B3 (with the bytes of a row it stages, only the 16-byte units
-   that hold an output lane, over the row's bytes), B5, B8, B9 and B8's
-   derive kernel alone (one derivation per launch) with its share of B8's
-   time, and a line ``fig12 s=...`` with B3 beside B8 and its bound.  B3
-   and B4 are one staged copy each through tables composed from the host
-   plan; B6 and B8 a derive kernel and a permuted copy;
+   that hold an output lane, over the row's bytes), B5, B8, B9 (with its
+   SSN derivation's own time), and B8's derive kernel alone (one
+   derivation per launch) with its share of B8's time, and a line
+   ``fig12 s=...`` with B3 beside B8 and its bound.  B1 is one permuted
+   copy through the table composed from the host plan, B3 and B4 one
+   staged copy each through tables composed from the host plan; B6 and B8
+   a derive kernel and a permuted copy, B9 a derive kernel and a merge
+   copy;
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
@@ -402,7 +406,8 @@ def check_dynamic(dev) -> int:
                 raise AssertionError(f"device derivation != layer_masks: "
                                      f"n={n} ({s}, {o}) gather={gather}")
             cases += 1
-    # the source tables B6 and B8 derive once per launch
+    # the source tables B6, B8 and B9 derive once per launch, and B9's list
+    # of occupied lanes
     for n in (1, 96, 256, 4096):
         for s, o in STRIDED_SO:
             if o >= n:
@@ -418,6 +423,15 @@ def check_dynamic(dev) -> int:
                     raise AssertionError(f"device source table != twin: "
                                          f"n={n} ({s}, {o}) gather={gather}")
                 cases += 1
+            table, raw = strided.dynamic_merge_list(n, s, o, vl, device=dev)
+            raw = raw.cpu()
+            k = int(raw[0])
+            if not (torch.equal(table.cpu(), want) and k == vl and
+                    torch.equal(raw[1:1 + 2 * k].view(k, 2),
+                                _common.merge_pairs(want))):
+                raise AssertionError(f"B9 device list != merge_pairs: n={n} "
+                                     f"({s}, {o}) vl={vl}")
+            cases += 1
     for width in (6144, 256, 96):
         for fields in (2, 3, 4, 8):
             m = width // fields
@@ -617,12 +631,15 @@ def time_strided(dev, kv, split) -> dict:
         lambda: strided.gather_strided_dynamic_plain(kv, s, o, vl),
         lambda: kv[..., o:o + (vl - 1) * s + 1:s].contiguous(),
         gather_bytes(R, n, vl, s, e), list(kv.shape) + [str((s, o))])
+    derive = graph_ms(lambda: strided.dynamic_merge_list(n, s, o, vl,
+                                                         device=dev), 20)
     out["scatter_strided_dynamic"] = record(
         "scatter_strided_dynamic",
         lambda: strided.scatter_strided(kv, vals, s, o, compiled=False),
         lambda: strided.scatter_strided_dynamic_plain(kv, vals, s, o),
         library, R * (2 * n + vl) * e,
-        list(kv.shape) + [str((s, o)), "v" + str(vl)])
+        list(kv.shape) + [str((s, o)), "v" + str(vl)],
+        f"; SSN derivation alone {derive:.4f} ms")
     return out
 
 
@@ -630,8 +647,10 @@ def time_fig12(dev) -> None:
     """The Fig. 12 sweep of benchmarks/bench_strided.py at card size: MLEN
     128, vl = 64, offset 0, n = 64 * stride, bf16, R = 2**27 / n rows so
     that every window is 256 MiB (:data:`WINDOW_BYTES`).  B3, B5, B8 and
-    B9 at each stride, and B8's derive kernel alone, the one derivation
-    per launch, beside B8's time (printed)."""
+    B9 at each stride (B9's line with its SSN derivation alone: the table
+    and the list of occupied lanes, device time in a CUDA graph), and B8's
+    derive kernel alone, the one derivation per launch, beside B8's time
+    (printed)."""
     import torch
     from repro_torch.kernels import strided
     g = torch.Generator(device=dev)
@@ -668,11 +687,17 @@ def time_fig12(dev) -> None:
                                                                   vl),
                      lambda: win[:, 0:(vl - 1) * s + 1:s].contiguous(),
                      gather_bytes(R, n, vl, s, e), [R, n])
-        record(f"fig12 scatter_strided_dynamic s={s}",
-               lambda: strided.scatter_strided(win, vals, s, 0,
-                                               compiled=False),
-               lambda: strided.scatter_strided_dynamic_plain(win, vals, s, 0),
-               library, R * (2 * n + vl) * e, [R, n])
+        derive9 = graph_ms(lambda: strided.dynamic_merge_list(
+            n, s, 0, vl, device=dev), 20)
+        b9 = record(f"fig12 scatter_strided_dynamic s={s}",
+                    lambda: strided.scatter_strided(win, vals, s, 0,
+                                                    compiled=False),
+                    lambda: strided.scatter_strided_dynamic_plain(win, vals,
+                                                                  s, 0),
+                    library, R * (2 * n + vl) * e, [R, n],
+                    f"; SSN derivation alone {derive9:.4f} ms (one block: "
+                    f"the {n}-entry table and the list of {vl} occupied "
+                    f"lanes; device time, CUDA graph)")
         derive = graph_ms(lambda: strided.dynamic_sources(
             n, s, 0, vl, device=dev), 20)
         print(f"time fig12 derive s={s} [{R}, {n}]: {derive:.4f} ms for "
@@ -681,7 +706,9 @@ def time_fig12(dev) -> None:
               f"time, CUDA graph), {derive / dyn['ms']:.4f} of B8's time")
         print(f"fig12 s={s}: B3 {b3['ms']:.4f} ms, B8 {dyn['ms']:.4f} ms, "
               f"B3/B8 {b3['ms'] / dyn['ms']:.4f}; B3 over its bound "
-              f"{b3['ms'] / b3['bound_ms']:.4f}")
+              f"{b3['ms'] / b3['bound_ms']:.4f}; B9 {b9['ms']:.4f} ms, over "
+              f"its bound {b9['ms'] / b9['bound_ms']:.4f}, over its library "
+              f"call {b9['ms'] / b9['library_ms']:.4f}")
         del win, vals
         torch.cuda.empty_cache()
 
@@ -1393,9 +1420,9 @@ def main() -> int:
     cases = check_dynamic(dev)
     print(f"dynamic kernels == plain == plan twin: {cases} cases (B6 and B7 "
           f"together, B8 and B9 together, B8 x4 against B4, the derivation "
-          f"against layer_masks, B6's and B8's device source tables against "
-          f"dyn_sources_plain) bit-exact ({time.perf_counter() - t0:.1f} "
-          f"s)")
+          f"against layer_masks, B6's, B8's and B9's device source tables "
+          f"against dyn_sources_plain, B9's device list against "
+          f"merge_pairs) bit-exact ({time.perf_counter() - t0:.1f} s)")
 
     cfg = config()
     slots, max_len, page_size, gen = 4, 512, 16, 16

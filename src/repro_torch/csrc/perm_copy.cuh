@@ -1,14 +1,20 @@
-// Table-driven permuted copies of row tiles: `perm_copy_kernel`, the copy
-// half of B6 (segment.cu) and B8 (strided.cu), and `staged_copy_kernel`,
-// the whole of B3 and B4 (strided.cu), at the end of this file.
+// Table-driven copies of row tiles, the copy half of every redesigned
+// permutation kernel:
+//   * `perm_copy_kernel`: B1 and B6 (segment.cu), the copy half of B8
+//     (strided.cu);
+//   * `staged_copy_kernel`: the whole of B3 and B4 (strided.cu);
+//   * `merge_copy_kernel`: the copy half of B9 (strided.cu), at the end of
+//     this file.
 //
-// For every row r of the (R, n) input, part p < parts and lane j < w:
+// The permuted copy.  For every row r of the (R, n) input, part p < parts
+// and lane j < w:
 //   out_p[r][j] = tab[p*w + j] < 0 ? 0 : x[r][tab[p*w + j]]
-// `tab` is a network composed into one source lane per output lane
-// (route_dyn.cuh's `dyn_sources`), written to device memory by the derive
-// kernel launched just before this one.  Elements move as raw bits
-// (templated on 1, 2, 4 or 8 bytes), so every dtype is bit-exact, -0.0 and
-// NaN payloads included.
+// `tab` is a network composed into one source lane per output lane: for B6
+// and B8 written to device memory by the derive kernel launched just
+// before this one (route_dyn.cuh's `dyn_sources`); for B1 composed on the
+// host from the static plan (`ShiftPlan.source`) and uploaded once per
+// plan.  Elements move as raw bits (templated on 1, 2, 4 or 8 bytes), so
+// every dtype is bit-exact, -0.0 and NaN payloads included.
 //
 // Bound: pure data movement, each input byte read once and each output
 // byte written once, over 3.35 TB/s.  What the design does about it:
@@ -26,9 +32,12 @@
 //     in `unit`-byte vector stores;
 //   * two barriers a tile (staged tile visible; output tile complete) and
 //     none per layer;
-//   * the first tile's load is issued before the kernel waits on the
-//     derive kernel (Programmatic Dependent Launch), so it overlaps the
-//     derivation.
+//   * behind a derive kernel (B6, B8) the copy is launched under
+//     Programmatic Dependent Launch and its first tile's load is issued
+//     before it waits on that kernel, so the load overlaps the derivation.
+//     B1 has no derive kernel: its copy is launched plainly, stream-ordered
+//     after whatever kernel wrote `x`, so the early load cannot read `x`
+//     before it is complete.
 // `unit` is the widest of 16, 8, 4, 2 or 1 bytes that divides both row
 // widths in bytes and every pointer (the wrapper picks it); units of 1 or
 // 2 bytes are staged with plain loads, since cp.async moves 4, 8 or 16.
@@ -72,6 +81,11 @@ __device__ __forceinline__ void cp_async_commit() {
 // Wait until at most one committed group of this thread is in flight.
 __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until every committed group of this thread has landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 template <int U>
@@ -152,7 +166,7 @@ perm_copy_kernel(const T* __restrict__ x, Ptrs outs, long long R, int n,
   long long tile = blockIdx.x;            // the grid is at most `tiles`
 
   // The input does not depend on the table: stage the first tile, then
-  // wait for the derive kernel before reading its table.
+  // wait for the derive kernel, if any, before reading its table.
   stage(ibuf, xb + tile * rows * in_row,
         (size_t)min((long long)rows, R - tile * rows) * in_row, unit);
   cp_async_commit();
@@ -194,13 +208,37 @@ perm_copy_kernel(const T* __restrict__ x, Ptrs outs, long long R, int n,
   }
 }
 
-// Launch the copy after the derive kernel on the same stream, allowed to
-// start before that kernel ends (it waits on it before reading `table`).
+// Launch `kernel` (THREADS threads a block) on `stream`.  With `pdl`, under
+// Programmatic Dependent Launch: it may start before the kernel before it
+// on the stream ends, and waits for that kernel (`pdl_wait`) before it
+// reads what that kernel writes.  Without, it is plainly stream-ordered.
+template <typename... Params, typename... Args>
+static cudaError_t launch_chained(void (*kernel)(Params...), unsigned grid,
+                                  size_t smem, bool pdl, cudaStream_t stream,
+                                  Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launch the permuted copy: with `pdl` after a derive kernel on the same
+// stream, allowed to start before that kernel ends (it waits on it before
+// reading `table`); without, after whatever wrote `x` and `table`.
 template <typename T>
 static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
                                     long long R, int n, int parts, int w,
                                     const int* table, int rows, int blocks,
-                                    int unit, cudaStream_t stream) {
+                                    int unit, bool pdl, cudaStream_t stream) {
   const size_t e = sizeof(T);
   if (parts < 1 || parts > MAX_PARTS || w < 1 || n < 1 || rows < 1 ||
       blocks < 1 || R < 1 || unit < (int)e || unit > 16 ||
@@ -211,20 +249,10 @@ static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
   cudaError_t err = set_smem(perm_copy_kernel<T>, smem, granted);
   if (err != cudaSuccess) return err;
   const long long tiles = (R + rows - 1) / rows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(tiles < blocks ? tiles : blocks));
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, perm_copy_kernel<T>, static_cast<const T*>(x),
-                           outs, R, n, parts, w, table, rows, unit);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return launch_chained(perm_copy_kernel<T>,
+                        (unsigned)(tiles < blocks ? tiles : blocks), smem, pdl,
+                        stream, static_cast<const T*>(x), outs, R, n, parts,
+                        w, table, rows, unit);
 }
 
 // ---------------------------------------------------------------------------
@@ -388,4 +416,133 @@ static cudaError_t launch_staged_copy(const void* x, void* out, int A,
       static_cast<const T*>(x), static_cast<T*>(out), R, n, vl, pos, units,
       nunits, kmax, rows, sunit, ounit);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The merge copy: B9 (strided.cu)
+// ---------------------------------------------------------------------------
+//
+// For every row r of the (R, n) window and the (R, vl) values:
+//   out[r] = win[r], except out[r][lane_k] = vals[r][src_k] for k < K
+// where list = {K, lane_0, src_0, lane_1, src_1, ...} names the lanes a
+// scatter occupies, in lane order, and the values lane each one takes (at
+// most `kmax` pairs; lanes left out keep the window).  B9's derive kernel
+// writes the list (route_dyn.cuh, `dyn_sources` on the SSN) just before
+// this kernel, which starts under Programmatic Dependent Launch.  A
+// scatter plan's static table (`ShiftPlan.source` of
+// `shiftplan.scatter_plan`, B5) gives the same list on the host; a caller
+// that uploads it has no derive kernel and must launch the copy plainly
+// (`launch_chained` with `pdl` off), as B1 does its permuted copy.
+//
+// Bound: the window and the values read once and the output written once,
+// over 3.35 TB/s.  What the design does about it:
+//   * a persistent grid walks the row tiles, so the list is loaded into
+//     shared memory once per block;
+//   * a tile's window rows and its value rows are two contiguous chunks,
+//     staged with cp.async (16 bytes on the main path), double-buffered;
+//   * the occupied lanes are merged in place into the staged window tile.
+//     Threads walk the list, not the n lanes: a wide window with few
+//     values (n = 4096, vl = 64) merges 64 lanes a row, spread over every
+//     thread, and never scans the 4032 lanes that keep the window;
+//   * the merged tile leaves whole and contiguous in vector stores;
+//   * two barriers a tile: tile k staged and every thread past tile k-1's
+//     stores (so tile k+1's load may then reuse that buffer), and the merge
+//     done.  Tile k+1's load overlaps tile k's merge and stores;
+//   * the first tile's loads are issued before the kernel waits for the
+//     derive kernel: only the list read waits.
+// `wunit` divides the window row's bytes and both the window and output
+// pointers; `vunit` the value row's bytes and the values pointer.
+__host__ __device__ inline size_t merge_copy_smem(int n, int vl, int kmax,
+                                                  int rows, size_t elem) {
+  return pad16((size_t)kmax * 8) + 2 * pad16((size_t)rows * n * elem) +
+         2 * pad16((size_t)rows * vl * elem);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+merge_copy_kernel(const T* __restrict__ win, const T* __restrict__ vals,
+                  T* __restrict__ out, long long R, int n, int vl,
+                  const int* __restrict__ list, int kmax, int rows, int wunit,
+                  int vunit) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t w_row = (size_t)n * sizeof(T);
+  const size_t v_row = (size_t)vl * sizeof(T);
+  const size_t w_b = pad16((size_t)rows * w_row);
+  const size_t v_b = pad16((size_t)rows * v_row);
+  int* pairs = reinterpret_cast<int*>(smem);
+  unsigned char* wbuf = smem + pad16((size_t)kmax * 8);
+  unsigned char* vbuf = wbuf + 2 * w_b;
+  const unsigned char* wb = reinterpret_cast<const unsigned char*>(win);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(vals);
+  unsigned char* ob = reinterpret_cast<unsigned char*>(out);
+  const long long tiles = (R + rows - 1) / rows;
+  long long tile = blockIdx.x;            // the grid is at most `tiles` wide
+
+  // The rows do not depend on the list: stage the first tile, then wait
+  // for the derive kernel, if any, before reading its list.
+  {
+    const size_t nr = (size_t)min((long long)rows, R - tile * rows);
+    stage(wbuf, wb + tile * rows * w_row, nr * w_row, wunit);
+    stage(vbuf, vb + tile * rows * v_row, nr * v_row, vunit);
+  }
+  cp_async_commit();
+  pdl_wait();
+  const int K = max(0, min(list[0], kmax));
+  for (int c = threadIdx.x; c < 2 * K; c += blockDim.x) pairs[c] = list[1 + c];
+
+  const TileMap tm(max(K, 1));
+  for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
+    cp_async_wait_all();
+    __syncthreads();      // tile k staged (and the list loaded); every
+                          // thread is past tile k-1's stores
+    const long long next = tile + gridDim.x;
+    if (next < tiles) {
+      const size_t nr = (size_t)min((long long)rows, R - next * rows);
+      stage(wbuf + ((k + 1) & 1) * w_b, wb + next * rows * w_row, nr * w_row,
+            wunit);
+      stage(vbuf + ((k + 1) & 1) * v_b, vb + next * rows * v_row, nr * v_row,
+            vunit);
+    }
+    cp_async_commit();
+    T* w = reinterpret_cast<T*>(wbuf + (k & 1) * w_b);
+    const T* v = reinterpret_cast<const T*>(vbuf + (k & 1) * v_b);
+    const int nr = (int)min((long long)rows, R - tile * rows);
+    if (tm.g < tm.groups) {
+      for (int i = tm.t; i < K; i += tm.lanes) {
+        const int c = pairs[2 * i];
+        const int s = pairs[2 * i + 1];
+        for (int r = tm.g; r < nr; r += tm.groups)
+          w[(size_t)r * n + c] = v[(size_t)r * vl + s];
+      }
+    }
+    __syncthreads();      // tile k merged
+    store(ob + tile * rows * w_row, wbuf + (k & 1) * w_b, (size_t)nr * w_row,
+          wunit);
+  }
+}
+
+// Launch the merge copy over at most `blocks` blocks, after the derive
+// kernel that writes `list` on the same stream (under Programmatic
+// Dependent Launch: it waits on that kernel before reading `list`).
+template <typename T>
+static cudaError_t launch_merge_copy(const void* win, const void* vals,
+                                     void* out, long long R, int n, int vl,
+                                     const int* list, int kmax, int rows,
+                                     int blocks, int wunit, int vunit,
+                                     cudaStream_t stream) {
+  const size_t e = sizeof(T);
+  if (n < 1 || vl < 1 || vl > n || kmax < 1 || R < 1 || rows < 1 ||
+      blocks < 1 || bad_unit(wunit, e) || bad_unit(vunit, e) ||
+      (n * e) % wunit || (vl * e) % vunit)
+    return cudaErrorInvalidValue;
+  const size_t smem = merge_copy_smem(n, vl, kmax, rows, e);
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t err = set_smem(merge_copy_kernel<T>, smem, granted);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (R + rows - 1) / rows;
+  return launch_chained(merge_copy_kernel<T>,
+                        (unsigned)(tiles < blocks ? tiles : blocks), smem, true,
+                        stream, static_cast<const T*>(win),
+                        static_cast<const T*>(vals), static_cast<T*>(out), R,
+                        n, vl, list, kmax, rows, wunit, vunit);
 }

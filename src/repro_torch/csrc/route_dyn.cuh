@@ -15,16 +15,18 @@
 // (1, n)), so the per-layer take-masks are derived from the counts in
 // shared memory (`dyn_derive`, one barrier per layer), exactly the
 // reference's `layer_masks`.  Two ways to use them:
-//   * B7, B9, B12 and B14 derive them in every block and route the block's
+//   * B7, B12 and B14 derive them in every block and route the block's
 //     row tile through route_plan's lane-major layer loop (`route_dyn`):
 //     one shift record and one select under the derived mask row per
 //     layer, `apply_layer_masks`.
-//   * B6 and B8 derive them once per launch (`dyn_sources_kernel`) and
+//   * B6, B8 and B9 derive them once per launch (`dyn_sources_kernel`) and
 //     compose them into a source table (`dyn_sources`): a lane takes its
 //     candidate regardless of the payload, so every output lane holds one
 //     input lane's raw bits, found by walking the layers backwards.  The
-//     table goes to device memory and a permuted copy (perm_copy.cuh)
-//     moves the rows through it.
+//     table goes to device memory and a copy (perm_copy.cuh) moves the
+//     rows through it: the permuted copy for B6 and B8; for B9 the merge
+//     copy, through the list of the occupied lanes and their sources that
+//     the same kernel compacts from the table (vl pairs, not n lanes).
 // The routing is computed on the device at run time from the counts: no
 // host plan, no pruned layers.
 //
@@ -195,6 +197,38 @@ __device__ inline T* route_dyn(const DynNet& net, T* bin, T* ba, T* bb,
                        net.layers, 0, net.L, tm);
 }
 
+// The occupied lanes below each word of the final occupancy, over lanes
+// [0, count): pre[w] for w < ceil(count/32), and pre[words] in all.  Warp 0
+// scans (a popcount a word, one shuffle scan); it ends with a barrier.
+// `pre` is caller scratch of words + 1 ints.
+__device__ inline void occ_prefix(const DynNet& net, int count, int* pre) {
+  const int words = (count + 31) / 32;
+  if (threadIdx.x < 32) {
+    const int per = (words + 31) / 32;
+    const int w0 = min((int)threadIdx.x * per, words);
+    const int w1 = min(w0 + per, words);
+    auto bits = [&](int w) {
+      const int tail = count - 32 * w;     // lanes of word w below count
+      const uint32_t keep = tail >= 32 ? 0xffffffffu : (1u << tail) - 1u;
+      return __popc(net.occ[w] & keep);
+    };
+    int own = 0;
+    for (int w = w0; w < w1; ++w) own += bits(w);
+    int incl = own;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, d);
+      if ((int)threadIdx.x >= d) incl += y;
+    }
+    int run = incl - own;
+    for (int w = w0; w < w1; ++w) {
+      pre[w] = run;
+      run += bits(w);
+    }
+    if (threadIdx.x == 31) pre[words] = incl;
+  }
+  __syncthreads();
+}
+
 // Compose the derived network into a source table for output lanes
 // [0, count): src[j] is the input lane whose raw bits the network leaves
 // in lane j, or -1 where the final occupancy is clear (the lane is
@@ -202,9 +236,16 @@ __device__ inline T* route_dyn(const DynNet& net, T* bin, T* ba, T* bb,
 // came from c + d_i wherever layer i's take bit of c is set (d_i the
 // layer's signed shift, `layers[4*i + 1]`); a take never reads outside
 // [0, n), so the walk stays in range.  No layer (n <= 1): src[j] = j.
-// Call after `dyn_derive` (which ends with a barrier); no barrier inside.
+// With `list`, also the occupied lanes compacted in lane order:
+//   list = {K, lane_0, src_0, lane_1, src_1, ...}
+// at most `cap` pairs (K = min(occupied lanes, cap)), the merge copy's
+// operand (perm_copy.cuh); `pre` is scratch of count/32 + 1 ints.
+// Call after `dyn_derive` (which ends with a barrier); without `list` no
+// barrier inside.
 __device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
-                                   int count) {
+                                   int count, int* __restrict__ list = nullptr,
+                                   int cap = 0, int* pre = nullptr) {
+  if (list) occ_prefix(net, count, pre);
   for (int j = threadIdx.x; j < count; j += blockDim.x) {
     int c = j;
     if (!lane_bit(net.occ, j)) {
@@ -215,7 +256,16 @@ __device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
           c += net.layers[4 * i + 1];
     }
     src[j] = c;
+    if (list && c >= 0) {
+      const int w = j >> 5;
+      const int k = pre[w] + __popc(net.occ[w] & ((1u << (j & 31)) - 1u));
+      if (k < cap) {
+        list[1 + 2 * k] = j;
+        list[2 + 2 * k] = c;
+      }
+    }
   }
+  if (list && threadIdx.x == 0) list[0] = min(pre[(count + 31) / 32], cap);
 }
 
 // One derivation per launch: block b fills the counts of
@@ -223,31 +273,38 @@ __device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
 // `scg.scatter_counts(...)` (the SSN), derives the network and writes the
 // source table of lanes [0, count) to table[b * count, (b+1) * count).
 // B6 launches one block per field (stride = fields, offset + b = field,
-// vl = count = m), B8 one block (count = vl).  It lets the permuted copy
-// that follows start at once (Programmatic Dependent Launch), so the
+// vl = count = m), B8 one block (count = vl), B9 one block (the SSN, count
+// = n) that also writes the merge copy's list of at most vl pairs (a
+// scatter occupies at most its vl values' lanes) to `list`.  It lets the
+// copy that follows start at once (Programmatic Dependent Launch), so the
 // copy's first tile load overlaps the derivation.
 __global__ void __launch_bounds__(THREADS)
 dyn_sources_kernel(int gsn, int n, int stride, int offset, int vl, int count,
-                   int* __restrict__ table) {
+                   int* __restrict__ table, int* __restrict__ list) {
   extern __shared__ __align__(16) unsigned char smem[];
   pdl_launch_dependents();
   DynNet net = dyn_carve(smem, n);
   if (gsn) gather_counts(net, stride, offset + (int)blockIdx.x, vl);
   else scatter_counts(net, stride, offset + (int)blockIdx.x, vl);
   dyn_derive(net, gsn != 0);
-  dyn_sources(net, table + (size_t)blockIdx.x * count, count);
+  // the counts are spent: their 2n ints hold the occupancy prefix
+  dyn_sources(net, table + (size_t)blockIdx.x * count, count, list, vl,
+              net.sc);
 }
 
+// With `list` (B9) the launch is one block.
 inline cudaError_t launch_dyn_sources(int gsn, int n, int stride, int offset,
                                       int vl, int count, int blocks,
-                                      int* table, cudaStream_t stream) {
-  if (n < 1 || count < 0 || count > n || blocks < 1)
+                                      int* table, cudaStream_t stream,
+                                      int* list = nullptr) {
+  if (n < 1 || count < 0 || count > n || blocks < 1 ||
+      (list && (blocks != 1 || vl < 1)))
     return cudaErrorInvalidValue;
   const size_t smem = dyn_bytes(n);
   static size_t granted[MAX_DEVICES] = {0};
   cudaError_t e = set_smem(dyn_sources_kernel, smem, granted);
   if (e != cudaSuccess) return e;
   dyn_sources_kernel<<<blocks, THREADS, smem, stream>>>(
-      gsn, n, stride, offset, vl, count, table);
+      gsn, n, stride, offset, vl, count, table, list);
   return cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 // Segment (AoS <-> SoA) kernels for Hopper (sm_90a): B1 deinterleave and
-// B2 interleave, routed through compiled shift plans, and B6 / B7, the same
-// two functions routed through the dynamic-count networks.
+// B2 interleave on compiled shift plans, and B6 / B7, the same two
+// functions routed through the dynamic-count networks.
 //
 // Replaces: src/repro/kernels/segment.py, `_deint_plan_kernel` (B1, launched
 // by `deinterleave(fused=True)`), `_int_plan_kernel` (B2, launched by
@@ -11,25 +11,44 @@
 // shifts and a three-way select for an exchange layer), applied to a row
 // tile.  The plans come from core/shiftplan.segment_{de,}interleave_plans:
 // one `fused` Benes/butterfly permutation over all fields, or `per_field`
-// pruned gather (B1) / scatter (B2) plans, all run in ONE launch on the
-// same resident tile.  B6 and B7 compute what the dynamic bodies compute:
-// per field f, the counts `scg.gather_counts(n, f_count, f, m)` (B6, GSN)
-// or `scg.scatter_counts(...)` (B7, SSN) computed on the device, the
-// network's take-masks derived from them (route_dyn.cuh), every layer
-// unpruned.  B6 writes lanes [0, m) of field f's routed beat to output f;
-// B7 merges field f's routed, zero-padded beat under its final occupancy
-// into an output that starts at 0.
+// pruned gather (B1) / scatter (B2) plans.  B6 and B7 compute what the
+// dynamic bodies compute: per field f, the counts `scg.gather_counts(n,
+// f_count, f, m)` (B6, GSN) or `scg.scatter_counts(...)` (B7, SSN) computed
+// on the device, the network's take-masks derived from them
+// (route_dyn.cuh), every layer unpruned.  B6 writes lanes [0, m) of field
+// f's routed beat to output f; B7 merges field f's routed, zero-padded beat
+// under its final occupancy into an output that starts at 0.
 //
 // Bound: pure data movement.  The least time is (bytes read + bytes
 // written) / 3.35 TB/s; the selects cost a few integer operations per lane
 // per layer and no floating point.
 //
-// B1, B2 and B7: each block loads its row tile from device memory once
+// B1, one kernel per call: a deinterleave plan is static, and its composed
+// table (`ShiftPlan.source`) is known on the host: field f's lane j takes
+// input lane f + j*fields under either mode (`plans[0].source[f*m + j]`
+// for the fused plan, `plans[f].source[j]` per field).  So no layer runs
+// on the card: the wrapper uploads the (fields, m) table once per plan,
+// and `perm_copy_kernel` (perm_copy.cuh) moves every row through it in one
+// pipelined pass: 16-byte cp.async staging, double-buffered, a
+// bank-conflict-free permute in shared memory and 16-byte vector stores of
+// each field's contiguous (rows, m) block, two barriers a tile.  It is
+// launched without Programmatic Dependent Launch: nothing derives its
+// table, and the kernel before it on the stream is whatever wrote `x`.
+//
+// B6, two kernels per call: the network does not depend on the payload, so
+// it is derived once per launch, not per block.  `dyn_sources_kernel`
+// (route_dyn.cuh, one block per field) derives field f's network and
+// composes it into the source lane of each of its m output lanes, in a
+// small device workspace; the same permuted copy then moves the rows
+// through that table, started under Programmatic Dependent Launch, so its
+// first tile load overlaps the derivation.
+//
+// B2 and B7: each block loads its row tile from device memory once
 // (zero-padding lanes >= n up to the plan width), keeps it in shared
 // memory through every layer (ping-pong between two buffers, one
-// __syncthreads() per layer), and writes each field slice straight to its
-// output, so device memory sees each input byte read once and each output
-// byte written once.  The plan's take-masks are packed to bits by the
+// __syncthreads() per layer; route_plan.cuh), and writes it straight to
+// the output, so device memory sees each input byte read once and each
+// output byte written once.  B2's take-masks are packed to bits by the
 // wrapper and loaded into shared memory once per block; B7 derives its
 // masks per block and field instead (one barrier per layer over n lanes of
 // counts, paid once for the whole row tile).  Threads map to lanes and walk
@@ -39,25 +58,9 @@
 // blocks share an SM) and, for a small call, short enough that the grid
 // covers the card.
 //
-// B6, two kernels per call: the network does not depend on the payload, so
-// it is derived once per launch, not per block.  `dyn_sources_kernel`
-// (route_dyn.cuh, one block per field) derives field f's network and
-// composes it into the source lane of each of its m output lanes, in a
-// small device workspace; `perm_copy_kernel` (perm_copy.cuh) then moves
-// every row through that table in one pipelined pass: 16-byte cp.async
-// staging, double-buffered, a bank-conflict-free permute in shared memory
-// and 16-byte vector stores of each field's contiguous (rows, m) block,
-// two barriers a tile and none per layer.  The copy starts under
-// Programmatic Dependent Launch, so its first tile load overlaps the
-// derivation.
-//
 // Elements move as raw bits (templated on the element width: 1, 2, 4 or 8
 // bytes), so every permutation is bit-exact for every dtype, NaN payloads
 // included.
-//
-// Not yet done (later performance work, measured against this one): the
-// same source-table copy for B1 and B2, with the table composed from the
-// host plan.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,56 +70,6 @@
 #include "route_plan.cuh"
 
 #define MAX_FIELDS MAX_PARTS
-
-// B1: (R, n) AoS rows -> `fields` outputs of (R, m).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-deint_kernel(const T* __restrict__ x, Ptrs outs, long long R, int n, int m,
-             int Wn, int fused, int fields, const uint32_t* __restrict__ masks,
-             int S, int words, const int* __restrict__ layers,
-             const int* __restrict__ plan_lo, int nplans, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
-  const size_t mbytes = ((size_t)S * words * 4 + 15) & ~(size_t)15;
-  T* bin = reinterpret_cast<T*>(smem + mbytes);
-  T* ba = bin + (size_t)rows * Wn;
-  T* bb = ba + (size_t)rows * Wn;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(Wn);
-  const bool live = tm.g < tm.groups;
-
-  for (int i = threadIdx.x; i < S * words; i += blockDim.x) smask[i] = masks[i];
-  const T* xs = x + r0 * n;
-  if (live) {
-    for (int c = tm.t; c < Wn; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        bin[(size_t)r * Wn + c] = c < n ? xs[(size_t)r * n + c] : T(0);
-  }
-  __syncthreads();
-
-  for (int p = 0; p < nplans; ++p) {
-    const T* res = route_plan<T>(bin, ba, bb, nr, Wn, words, smask, layers,
-                                 plan_lo[p], plan_lo[p + 1], tm);
-    if (live && fused) {
-      // field f is lanes [f*m, (f+1)*m) of the routed beat
-      for (int c = tm.t; c < n; c += tm.lanes) {
-        const int f = c / m;
-        const int j = c - f * m;
-        T* o = static_cast<T*>(outs.p[f]) + r0 * m + j;
-        for (int r = tm.g; r < nr; r += tm.groups)
-          o[(size_t)r * m] = res[(size_t)r * Wn + c];
-      }
-    } else if (live) {
-      // per-field plan p gathers field p into lanes [0, m)
-      T* o = static_cast<T*>(outs.p[p]) + r0 * m;
-      for (int c = tm.t; c < m; c += tm.lanes)
-        for (int r = tm.g; r < nr; r += tm.groups)
-          o[(size_t)r * m + c] = res[(size_t)r * Wn + c];
-    }
-    __syncthreads();
-  }
-}
 
 // B2: `fields` inputs of (R, m) -> (R, n) AoS rows.  `valid` holds one
 // packed occupancy row per per-field plan; a per-field pass writes only
@@ -199,26 +152,6 @@ int_kernel(Ptrs ins, T* __restrict__ out, long long R, int n, int m, int Wn,
     }
     __syncthreads();
   }
-}
-
-template <typename T>
-static cudaError_t launch_deint(const void* x, const Ptrs& outs, long long R,
-                                int n, int m, int Wn, int fused, int fields,
-                                const void* masks, int S, int words,
-                                const void* layers, const void* plan_lo,
-                                int nplans, int rows, cudaStream_t stream) {
-  const size_t mbytes = ((size_t)S * words * 4 + 15) & ~(size_t)15;
-  const size_t smem = mbytes + 3 * (size_t)rows * Wn * sizeof(T);
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(deint_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  const long long grid = (R + rows - 1) / rows;
-  deint_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), outs, R, n, m, Wn, fused, fields,
-      static_cast<const uint32_t*>(masks), S, words,
-      static_cast<const int*>(layers), static_cast<const int*>(plan_lo),
-      nplans, rows);
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -312,20 +245,26 @@ extern "C" {
 
 // Plain C entry points (bound with ctypes).  Each returns the cudaError_t
 // of the launch; the Python wrapper raises when it is not 0.
+// B1: one permuted copy of the R rows into the `fields` outputs through
+// `table` (fields x m int32, the host plan's composed sources, uploaded by
+// the wrapper), in `rows`-row tiles over at most `blocks` blocks, staged
+// and stored in `unit`-byte units; stream-ordered (no PDL).
 int segment_deinterleave(int elem_bytes, const void* x, void* const* outs,
-                         int fields, long long R, int n, int m, int Wn,
-                         int fused, const void* masks, int S, int words,
-                         const void* layers, const void* plan_lo, int nplans,
-                         int rows, void* stream) {
-  if (fields < 1 || fields > MAX_FIELDS || rows < 1) return cudaErrorInvalidValue;
+                         int fields, long long R, int n, int m,
+                         const void* table, int rows, int blocks, int unit,
+                         void* stream) {
+  if (fields < 1 || fields > MAX_FIELDS || m < 1 ||
+      (long long)fields * m != n)
+    return cudaErrorInvalidValue;
   Ptrs p;
   for (int i = 0; i < MAX_FIELDS; ++i) p.p[i] = i < fields ? outs[i] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tab = static_cast<const int*>(table);
   switch (elem_bytes) {
-    case 1: return launch_deint<uint8_t>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
-    case 2: return launch_deint<uint16_t>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
-    case 4: return launch_deint<uint32_t>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
-    case 8: return launch_deint<unsigned long long>(x, p, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, rows, s);
+    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, false, s);
+    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, false, s);
+    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, false, s);
+    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, fields, m, tab, rows, blocks, unit, false, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -367,10 +306,10 @@ int segment_deinterleave_dyn(int elem_bytes, const void* x, void* const* outs,
   cudaError_t e = launch_dyn_sources(1, n, fields, 0, m, m, fields, tab, s);
   if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
-    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
-    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
-    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, fields, m, tab, rows, blocks, unit, s);
+    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, true, s);
+    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, true, s);
+    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, fields, m, tab, rows, blocks, unit, true, s);
+    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, fields, m, tab, rows, blocks, unit, true, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -19,9 +19,9 @@
 // window lane that the plan's occupancy does not mark (read-modify-write,
 // out of place).  B8 and B9 compute the same two functions as the
 // reference's dynamic bodies do: `scg.gather_counts` / `scg.scatter_counts`
-// computed in the kernel from (n, stride, offset, vl), the GSN / SSN
-// take-masks derived from them on the device (route_dyn.cuh), every layer
-// run unpruned, and B9's merge under the network's final occupancy.
+// computed on the device from (n, stride, offset, vl), the GSN / SSN
+// take-masks derived from them (route_dyn.cuh), every layer unpruned, and
+// B9's merge under the network's final occupancy.
 //
 // Bound: pure data movement, no floating point.  The least time is the
 // bytes that must move over 3.35 TB/s.  For a gather that is the sectors
@@ -47,13 +47,12 @@
 // stores: two barriers a tile.  A B4 block works on one access, holding
 // only that access's table and list.
 //
-// B5 and B9: the layer loop that B1 and B2 run (route_plan.cuh).  Each
-// block loads a row tile of the zero-padded values into shared memory once
-// (lane-major, so a warp reads neighbouring lanes), runs the plan's layers
-// ping-ponging between two buffers, and merges the routed tile with the
-// window read straight from device memory.  Plans are exactly n lanes wide
-// (no power-of-two padding); masks are packed to bits by the wrapper.  A
-// B9 block derives its masks itself, once for its whole row tile.
+// B5: the layer loop that B2 runs (route_plan.cuh).  Each block loads a
+// row tile of the zero-padded values into shared memory once (lane-major,
+// so a warp reads neighbouring lanes), runs the plan's layers ping-ponging
+// between two buffers, and merges the routed tile with the window read
+// straight from device memory.  Plans are exactly n lanes wide (no
+// power-of-two padding); masks are packed to bits by the wrapper.
 //
 // B8, two kernels per call: the network depends only on (n, stride,
 // offset, vl), so it is derived once per launch.  `dyn_sources_kernel`
@@ -66,6 +65,18 @@
 // the copy's own shared-memory budget (a few rows at n = 4096), and the
 // copy starts under Programmatic Dependent Launch, so its first tile load
 // overlaps the derivation.
+//
+// B9, two kernels per call, the same way: `dyn_sources_kernel` (one block)
+// derives the SSN once per launch, composes it into the source of each of
+// the n window lanes and compacts the occupied ones into a list of (lane,
+// values lane) pairs, vl of them for an access that fits; then
+// `merge_copy_kernel` (perm_copy.cuh) stages each tile of window rows and
+// its value rows with 16-byte cp.async copies, double-buffered, writes the
+// listed lanes in place in shared memory (threads walk the vl pairs, not
+// the n lanes) and sends the whole tile out in 16-byte vector stores: two
+// barriers a tile, none per layer.  It starts under Programmatic Dependent
+// Launch: its first tile's loads overlap the derivation, only the list
+// read waits.
 //
 // Elements move as raw bits (templated on 1/2/4/8-byte widths), so every
 // dtype is bit-exact.
@@ -148,46 +159,6 @@ static cudaError_t launch_scatter(const void* vals, const void* win, void* out,
   return cudaGetLastError();
 }
 
-// B9: (R, vl) values merged into (R, n) windows through the SSN on scatter
-// counts; lanes outside the final occupancy keep the window.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-scatter_dyn_kernel(const T* __restrict__ vals, const T* __restrict__ win,
-                   T* __restrict__ out, long long R, int n, int vl,
-                   int stride, int offset, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  DynNet net = dyn_carve(smem, n);
-  T* ba = reinterpret_cast<T*>(smem + dyn_bytes(n));
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-  const bool live = tm.g < tm.groups;
-
-  const T* vs = vals + r0 * vl;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        ba[(size_t)r * n + c] = c < vl ? vs[(size_t)r * vl + c] : T(0);
-  }
-  scatter_counts(net, stride, offset, vl);
-  dyn_derive(net, false);
-  const T* res = route_dyn<T>(net, ba, ba, bb, nr, tm);
-  const T* ws = win + r0 * n;
-  T* os = out + r0 * n;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes) {
-      if (lane_bit(net.occ, c)) {
-        for (int r = tm.g; r < nr; r += tm.groups)
-          os[(size_t)r * n + c] = res[(size_t)r * n + c];
-      } else {
-        for (int r = tm.g; r < nr; r += tm.groups)
-          os[(size_t)r * n + c] = ws[(size_t)r * n + c];
-      }
-    }
-  }
-}
-
 // The derivation alone, for checking and timing it: every block derives
 // the network of (kind, n, stride, offset, vl); block 0 writes the packed
 // take-masks (L x words) and the final occupancy (words) out.
@@ -203,23 +174,6 @@ dyn_masks_kernel(int gsn, int n, int stride, int offset, int vl,
   for (int i = threadIdx.x; i < net.L * net.words; i += blockDim.x)
     masks[i] = net.masks[i];
   for (int i = threadIdx.x; i < net.words; i += blockDim.x) occ[i] = net.occ[i];
-}
-
-template <typename T>
-static cudaError_t launch_scatter_dyn(const void* vals, const void* win,
-                                      void* out, long long R, int n, int vl,
-                                      int stride, int offset, int rows,
-                                      cudaStream_t stream) {
-  const size_t smem = dyn_bytes(n) + 2 * (size_t)rows * n * sizeof(T);
-  const long long tiles = (R + rows - 1) / rows;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(scatter_dyn_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  scatter_dyn_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const T*>(win),
-      static_cast<T*>(out), R, n, vl, stride, offset, rows);
-  return cudaGetLastError();
 }
 
 extern "C" {
@@ -281,25 +235,36 @@ int strided_gather_dyn(int elem_bytes, const void* x, void* out, long long R,
   cudaError_t e = launch_dyn_sources(1, n, stride, offset, vl, vl, 1, tab, s);
   if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
-    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
-    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
-    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, 1, vl, tab, rows, blocks, unit, s);
+    case 1: return launch_perm_copy<uint8_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, true, s);
+    case 2: return launch_perm_copy<uint16_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, true, s);
+    case 4: return launch_perm_copy<uint32_t>(x, p, R, n, 1, vl, tab, rows, blocks, unit, true, s);
+    case 8: return launch_perm_copy<unsigned long long>(x, p, R, n, 1, vl, tab, rows, blocks, unit, true, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// B9: the dynamic-count strided scatter (no plan operands).
+// B9: the dynamic-count strided scatter, two kernels on `stream`: the
+// derivation of the SSN's n-entry source table and its list of occupied
+// lanes into `work` (the caller's int32 workspace of n + 1 + 2*vl: the
+// table, then {K, lane, source, ...}), then the merge copy of the R window
+// and value rows in `rows`-row tiles over at most `blocks` blocks, the
+// window staged and stored in `wunit`-byte units, the values in `vunit`.
 int strided_scatter_dyn(int elem_bytes, const void* vals, const void* win,
                         void* out, long long R, int n, int vl, int stride,
-                        int offset, int rows, void* stream) {
-  if (rows < 1 || vl < 1 || vl > n) return cudaErrorInvalidValue;
+                        int offset, void* work, int rows, int blocks,
+                        int wunit, int vunit, void* stream) {
+  if (vl < 1 || vl > n) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* tab = static_cast<int*>(work);
+  int* list = tab + n;
+  cudaError_t e = launch_dyn_sources(0, n, stride, offset, vl, n, 1, tab, s,
+                                     list);
+  if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_scatter_dyn<uint8_t>(vals, win, out, R, n, vl, stride, offset, rows, s);
-    case 2: return launch_scatter_dyn<uint16_t>(vals, win, out, R, n, vl, stride, offset, rows, s);
-    case 4: return launch_scatter_dyn<uint32_t>(vals, win, out, R, n, vl, stride, offset, rows, s);
-    case 8: return launch_scatter_dyn<unsigned long long>(vals, win, out, R, n, vl, stride, offset, rows, s);
+    case 1: return launch_merge_copy<uint8_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
+    case 2: return launch_merge_copy<uint16_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
+    case 4: return launch_merge_copy<uint32_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
+    case 8: return launch_merge_copy<unsigned long long>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -320,12 +285,15 @@ int route_dyn_masks(int gsn, int n, int stride, int offset, int vl,
 }
 
 // One derivation alone into `table` (`gsn` 1: gather counts and the GSN,
-// vl entries, B8's table; 0: scatter counts and the SSN, n entries).
+// vl entries, B8's table; 0: scatter counts and the SSN, n entries, B9's,
+// and with `list` not null B9's list of at most vl pairs, 1 + 2*vl ints).
 int route_dyn_sources(int gsn, int n, int stride, int offset, int vl,
-                      void* table, void* stream) {
+                      void* table, void* list, void* stream) {
+  if (gsn && list) return cudaErrorInvalidValue;
   return launch_dyn_sources(gsn, n, stride, offset, vl, gsn ? vl : n, 1,
                             static_cast<int*>(table),
-                            static_cast<cudaStream_t>(stream));
+                            static_cast<cudaStream_t>(stream),
+                            static_cast<int*>(list));
 }
 
 const char* strided_error_string(int err) {

@@ -10,12 +10,15 @@ New here: :func:`library` builds ``csrc/*.cu`` with ``nvcc`` for
 the shared library with ``ctypes`` (a plain C interface; no PyTorch
 headers, so the build takes seconds); :func:`build_all` builds several
 sources in parallel (:data:`SOURCES` lists them all).  A missing ``nvcc``
-or a failed build raises; nothing falls back to a plain version.  The CUDA launch helpers shared by the
-kernel wrappers (:func:`rows_per_block`, :func:`dyn_net_bytes`,
-:func:`copy_tile_rows`, :func:`copy_unit`, :func:`check_cuda`,
+or a failed build raises; nothing falls back to a plain version.  The
+CUDA launch helpers shared by the kernel wrappers
+(:func:`rows_per_block`, :func:`dyn_net_bytes`, :func:`copy_tile_rows`,
+:func:`merge_tile_rows`, :func:`copy_unit`, :func:`check_cuda`,
 :func:`cuda_stream`, :func:`layer_table`) live here too, with
-:func:`dyn_sources_plain`, the torch-ops twin of the source table that B6
-and B8 derive on the card, and :func:`staged_units` /
+:func:`dyn_sources_plain`, the torch-ops twin of the source table that
+B6, B8 and B9 derive on the card; :func:`merge_pairs` /
+:func:`merge_copy_plain`, the list of occupied lanes B9's merge copy walks
+and that copy as torch ops; and :func:`staged_units` /
 :func:`staged_copy_plain`, the staged-unit list and remapped table that
 B3 and B4 take from the host plan, and their composition as torch ops.
 """
@@ -209,10 +212,10 @@ def dyn_net_bytes(n: int) -> int:
     return -(-b // 16) * 16
 
 
-#: Shared memory of one block of the permuted copy (``csrc/perm_copy.cuh``,
-#: the copy half of B6 and B8, and the staged copy of B3 and B4): two
-#: blocks share an SM, each with two staged input tiles of about 32 KB at
-#: the main shape.
+#: Shared memory of one block of the copies in ``csrc/perm_copy.cuh`` (the
+#: permuted copy of B1 and of B6 / B8, the staged copy of B3 and B4, the
+#: merge copy of B9): two blocks share an SM, each with two staged input
+#: tiles of about 32 KB at the main shape.
 COPY_SMEM = 96 * 1024
 
 
@@ -233,6 +236,26 @@ def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
     if fixed + per_row > SMEM_LIMIT:
         raise ValueError(
             f"permuted copy of {n} lanes x {elem} B does not fit shared "
+            f"memory ({fixed + per_row} B > {SMEM_LIMIT} B)")
+    return max(1, min(R, (COPY_SMEM - fixed) // per_row,
+                      -(-R // max(1, blocks))))
+
+
+def merge_tile_rows(R: int, n: int, vl: int, kmax: int, elem: int,
+                    blocks: int) -> int:
+    """Row-tile height of the merge copy (B9): the list of ``kmax`` (lane,
+    source) pairs, two staged (rows, n) window tiles and two (rows, vl)
+    value tiles, each rounded up to 16 bytes, within :data:`COPY_SMEM`
+    (one row at least, if that fits the card's 227 KB at all; raises
+    beyond that), and low enough that ``blocks`` blocks share the ``R``
+    rows when ``R`` allows it.  The window tile is merged in place, so
+    there is no output tile: at n = 4096, vl = 64 in bf16 a tile holds 5
+    rows."""
+    fixed = -(-kmax * 8 // 16) * 16 + 16 * 4
+    per_row = 2 * (n + vl) * elem
+    if fixed + per_row > SMEM_LIMIT:
+        raise ValueError(
+            f"merge copy of {n} + {vl} lanes x {elem} B does not fit shared "
             f"memory ({fixed + per_row} B > {SMEM_LIMIT} B)")
     return max(1, min(R, (COPY_SMEM - fixed) // per_row,
                       -(-R // max(1, blocks))))
@@ -305,6 +328,29 @@ def dyn_sources_plain(shift: torch.Tensor, valid: torch.Tensor, *,
         d = 1 << i if gsn else -(1 << (L - 1 - i))
         src = torch.where(masks[i][src], src + d, src)
     return torch.where(occ, src, -1).to(torch.int32)
+
+
+def merge_pairs(table: torch.Tensor) -> torch.Tensor:
+    """The list B9's merge copy walks, from an ``(n,)`` scatter source
+    table (``dyn_sources_plain(..., gsn=False)``): ``(K, 2)`` int32, the
+    occupied lanes in lane order beside the values lane each takes (the
+    list the derive kernel compacts on the card, without its leading
+    count)."""
+    lanes = torch.nonzero(table >= 0)[:, 0]
+    return torch.stack([lanes, table[lanes].long()], dim=1).to(torch.int32)
+
+
+def merge_copy_plain(window: torch.Tensor, values: torch.Tensor,
+                     pairs: torch.Tensor) -> torch.Tensor:
+    """The merge copy as torch ops (the twin of ``merge_copy_kernel`` in
+    ``csrc/perm_copy.cuh``): the ``(..., n)`` window with lane ``pairs[k,
+    0]`` of every row replaced by lane ``pairs[k, 1]`` of the ``(...,
+    vl)`` values.  The CPU check of the composition; no wrapper takes it
+    on the card."""
+    pairs = pairs.to(device=window.device, dtype=torch.int64)
+    out = window.clone()
+    out[..., pairs[:, 0]] = values[..., pairs[:, 1]]
+    return out
 
 
 @functools.lru_cache(maxsize=None)

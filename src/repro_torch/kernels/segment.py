@@ -9,18 +9,24 @@ Benes/butterfly pass or as f ``per_field`` pruned passes; or, with
 networks whose counts come from ``core/scg.py``.
 
 * :func:`deinterleave` (B1) and :func:`interleave` (B2) launch the
-  hand-written plan kernels in ``csrc/segment.cu`` for CUDA tensors: one
+  hand-written kernels in ``csrc/segment.cu`` for CUDA tensors: one
   launch per call, whatever the field count or mode.  For CPU tensors they
   run the plain version, :func:`route_deinterleave` /
   :func:`route_interleave` (``shiftnet.apply_plan_operand``), which also
   serves as the kernels' yardstick on the card.
+* B1 runs no plan layer on the card: a deinterleave plan's composed table
+  (``ShiftPlan.source``: field f's lane j takes input lane f + j*fields)
+  is known on the host, so each call is one permuted copy of the rows
+  through it (``perm_copy_kernel``, ``csrc/perm_copy.cuh``).  The wrapper
+  keeps the ``(fields, m)`` table (:func:`deinterleave_table`) in the plan
+  cache, uploaded once per plan.  B2 keeps the plan's layer loop.
 * ``fused=False`` hands the call to :func:`deinterleave_dynamic` (B6) and
   :func:`interleave_dynamic` (B7): one launch of the dynamic kernel for a
   CUDA tensor, or for a CPU tensor the plain version
   (:func:`deinterleave_dynamic_plain` / :func:`interleave_dynamic_plain`,
   the GSN / SSN of ``core/shiftnet.py`` per field).  B6's launch is two
-  CUDA kernels (one derivation of the fields' source tables, then one
-  permuted copy of the rows) and counts as one.
+  CUDA kernels (one derivation of the fields' source tables, then B1's
+  permuted copy of the rows through them) and counts as one.
 
 Each wrapper counts ``calls`` (every entry, any device) and ``launches``
 (kernel launches only, counted where the kernel launched).
@@ -157,16 +163,40 @@ def interleave_dynamic_plain(soa: list[torch.Tensor]) -> torch.Tensor:
 def _operands(direction: str, mode: str, plans, n: int, fields: int,
               device: torch.device) -> dict:
     key = ("seg.operands", direction, mode, n, fields, str(device))
-    return PLANS.get(key, lambda: _build_operands(mode, plans, device))
+    return PLANS.get(key, lambda: _build_operands(direction, mode, plans, n,
+                                                  fields, device))
 
 
-def _build_operands(mode: str, plans, device: torch.device) -> dict:
+def deinterleave_table(mode: str, plans, n: int, fields: int) -> np.ndarray:
+    """B1's table, composed from the host plans: ``(fields, m)`` int32,
+    row f the input lane of each of field f's m output lanes
+    (``plans[0].source[f*m + j]`` for the ``fused`` plan,
+    ``plans[f].source[j]`` per field; ``f + j*fields`` for every
+    deinterleave plan), -1 where a plan leaves the lane unoccupied or fills
+    it from its zero padding (the copy writes 0 there)."""
+    m = n // fields
+    if mode == "fused":
+        src = plans[0].source[:n].reshape(fields, m)
+        valid = plans[0].valid[:n].reshape(fields, m)
+    else:
+        src = np.stack([p.source[:m] for p in plans])
+        valid = np.stack([p.valid[:m] for p in plans])
+    return np.where(valid & (src >= 0) & (src < n), src, -1).astype(np.int32)
+
+
+def _build_operands(direction: str, mode: str, plans, n: int, fields: int,
+                    device: torch.device) -> dict:
     masks, spans = _common.stack_plan_masks(plans)
     valid = np.stack([p.valid for p in plans])
     ops = {"spans": spans,
            "masks": torch.from_numpy(masks != 0).to(device),
            "valid": torch.from_numpy(valid).to(device)}
     if device.type != "cuda":
+        return ops
+    if direction == "deint":
+        # B1 copies each row through the plans' composed table
+        ops["table"] = torch.from_numpy(
+            deinterleave_table(mode, plans, n, fields)).to(device)
         return ops
     layers, plan_lo = _common.layer_table(plans, spans, relative=False)
     packed = _common.pack_bits(masks)
@@ -186,7 +216,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.segment_deinterleave.argtypes = [
-            I, P, P, I, LL, I, I, I, I, P, I, I, P, P, I, I, P]
+            I, P, P, I, LL, I, I, P, I, I, I, P]
         lib.segment_deinterleave.restype = I
         lib.segment_interleave.argtypes = [
             I, P, P, I, LL, I, I, I, I, P, I, I, P, P, I, P, I, P]
@@ -211,6 +241,28 @@ def _check(lib, status: int, what: str) -> None:
                            f"({msg})")
 
 
+def _copy_rows(entry: str, what: str, flat: torch.Tensor, outs: list,
+               n: int, m: int, table: torch.Tensor) -> None:
+    """One launch of ``entry`` for the wrapper ``what``: the permuted copy
+    of the ``(R, n)`` rows of ``flat`` into the ``(R, m)`` ``outs`` through
+    the ``(fields, m)`` int32 ``table``, B1's upload of the host plan
+    (``segment_deinterleave``) or B6's workspace, which its derive kernel
+    fills first (``segment_deinterleave_dyn``).  Tile height and copy unit
+    as the copy's shared memory and the pointers allow."""
+    lib = _lib()
+    R, fields = flat.shape[0], len(outs)
+    elem = flat.element_size()
+    blocks = _common.min_blocks(flat.device)
+    rows = _common.copy_tile_rows(R, n, n, fields, elem, blocks)
+    unit = _common.copy_unit(m * elem, flat.data_ptr(),
+                             *[o.data_ptr() for o in outs])
+    ptrs = (ctypes.c_void_p * fields)(*[o.data_ptr() for o in outs])
+    status = getattr(lib, entry)(
+        elem, flat.data_ptr(), ptrs, fields, R, n, m, table.data_ptr(), rows,
+        blocks, unit, _common.cuda_stream(flat))
+    _check(lib, status, what)
+
+
 # ---------------------------------------------------------------------------
 # Deinterleave (segment load) — kernel B1
 # ---------------------------------------------------------------------------
@@ -219,9 +271,10 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
                  plans: tuple | None = None) -> list[torch.Tensor]:
     """(..., fields*m) -> fields x (..., m)   (segment load).
 
-    ``plans`` overrides the cost model's ``(mode, plans)`` pick (the card
-    check forces the fused Benes plan, which the model never picks at
-    penalty 6)."""
+    Kernel B1: one permuted copy of the rows through the plans' composed
+    table.  ``plans`` overrides the cost model's ``(mode, plans)`` pick
+    (the card check forces the fused Benes plan, which the model never
+    picks at penalty 6)."""
     deinterleave.calls += 1
     if not fused:
         return deinterleave_dynamic(aos, fields)
@@ -232,29 +285,18 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
     if aos.device.type == "cpu":
         return deinterleave_plain(aos, fields, plans=plans)
     _common.check_cuda(aos, "deinterleave")
+    if fields > MAX_FIELDS:
+        raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
     mode, pl = plans if plans is not None else \
         shiftplan.segment_deinterleave_plans(n, fields)
     flat, lead = _common.flatten_rows(aos)
     ops = _operands("deint", mode, pl, n, fields, aos.device)
-    if fields > MAX_FIELDS:
-        raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
     R = flat.shape[0]
     outs = [torch.empty((R, m), dtype=aos.dtype, device=aos.device)
             for _ in range(fields)]
-    if R:
-        lib = _lib()
-        elem = aos.element_size()
-        rows = rows_per_block(R, ops["width"], elem,
-                              ops["S"] * ops["words"] * 4,
-                              _common.min_blocks(aos.device))
-        ptrs = (ctypes.c_void_p * fields)(*[o.data_ptr() for o in outs])
-        status = lib.segment_deinterleave(
-            elem, flat.data_ptr(), ptrs, fields, R, n, m, ops["width"],
-            int(mode == "fused"), ops["masks_bits"].data_ptr(), ops["S"],
-            ops["words"], ops["layers"].data_ptr(),
-            ops["plan_lo"].data_ptr(), ops["nplans"], rows,
-            _common.cuda_stream(aos))
-        _check(lib, status, "deinterleave")
+    if R and m:
+        _copy_rows("segment_deinterleave", "deinterleave", flat, outs, n, m,
+                   ops["table"])
         deinterleave.launches += 1
     return [o.reshape(lead + (m,)) for o in outs]
 
@@ -286,19 +328,10 @@ def deinterleave_dynamic(aos: torch.Tensor,
     outs = [torch.empty((R, m), dtype=aos.dtype, device=aos.device)
             for _ in range(fields)]
     if R and m:
-        lib = _lib()
-        elem = aos.element_size()
-        blocks = _common.min_blocks(aos.device)
-        rows = _common.copy_tile_rows(R, n, n, fields, elem, blocks)
-        unit = _common.copy_unit(m * elem, flat.data_ptr(),
-                                 *[o.data_ptr() for o in outs])
         table = torch.empty((fields, m), dtype=torch.int32,
                             device=aos.device)
-        ptrs = (ctypes.c_void_p * fields)(*[o.data_ptr() for o in outs])
-        status = lib.segment_deinterleave_dyn(
-            elem, flat.data_ptr(), ptrs, fields, R, n, m, table.data_ptr(),
-            rows, blocks, unit, _common.cuda_stream(aos))
-        _check(lib, status, "deinterleave_dynamic")
+        _copy_rows("segment_deinterleave_dyn", "deinterleave_dynamic", flat,
+                   outs, n, m, table)
         deinterleave_dynamic.launches += 1
     return [o.reshape(lead + (m,)) for o in outs]
 

@@ -27,9 +27,12 @@ static shift + one select per layer), or, with ``compiled=False`` (policy
   (B8) and :func:`scatter_strided_dynamic` (B9): one launch of the dynamic
   kernel per access (A launches for a fused gather of A windows, as the
   reference loops), or for CPU tensors their plain versions on the GSN /
-  SSN of ``core/shiftnet.py``.  B8's launch is two CUDA kernels (one
-  derivation of the source table, then one permuted copy of the rows) and
-  counts as one.
+  SSN of ``core/shiftnet.py``.  Each launch is two CUDA kernels and counts
+  as one: one derivation of the network into a source table, then a copy
+  of the rows through it.  B8's copy permutes the window's rows into the
+  vl output lanes; B9's merges the values into a copy of the window, its
+  derive kernel compacting the table into the list of occupied lanes and
+  their values lanes (vl pairs, :func:`dynamic_merge_list`).
 
 A window the access does not fit (``offset + (vl-1)*stride >= n``, a
 negative offset or a stride below 1) raises ``ValueError``.  Each wrapper
@@ -141,11 +144,12 @@ def _lib():
         lib.strided_gather_dyn.argtypes = [
             I, P, P, LL, I, I, I, I, P, I, I, I, P]
         lib.strided_gather_dyn.restype = I
-        lib.strided_scatter_dyn.argtypes = [I, P, P, P, LL, I, I, I, I, I, P]
+        lib.strided_scatter_dyn.argtypes = [
+            I, P, P, P, LL, I, I, I, I, P, I, I, I, I, P]
         lib.strided_scatter_dyn.restype = I
         lib.route_dyn_masks.argtypes = [I, I, I, I, I, P, P, I, P]
         lib.route_dyn_masks.restype = I
-        lib.route_dyn_sources.argtypes = [I, I, I, I, I, P, P]
+        lib.route_dyn_sources.argtypes = [I, I, I, I, I, P, P, P]
         lib.route_dyn_sources.restype = I
         lib.strided_error_string.argtypes = [I]
         lib.strided_error_string.restype = ctypes.c_char_p
@@ -402,7 +406,13 @@ def scatter_strided_dynamic(window: torch.Tensor, values: torch.Tensor,
                             stride: int, offset: int) -> torch.Tensor:
     """Merge dense ``values`` into the strided lanes of ``window`` through
     the dynamic-count SSN, out of place (kernel B9,
-    ``scatter_strided(compiled=False)``)."""
+    ``scatter_strided(compiled=False)``).  One launch per call, made of two
+    CUDA kernels on the call's stream: one block derives the SSN from the
+    counts of (n, stride, offset, vl), composes it into the values lane of
+    each window lane and compacts the occupied lanes into a list of (lane,
+    values lane) pairs, in a small int32 workspace; then a merge copy
+    stages every window row and its values, writes the listed lanes and
+    stores the whole row."""
     scatter_strided_dynamic.calls += 1
     n, vl = window.shape[-1], values.shape[-1]
     check_fits(n, stride, offset, vl)
@@ -418,12 +428,17 @@ def scatter_strided_dynamic(window: torch.Tensor, values: torch.Tensor,
     out = torch.empty_like(fw)
     lib = _lib()
     elem = fw.element_size()
-    rows = _common.rows_per_block(R, n, elem, _common.dyn_net_bytes(n),
-                                  _common.min_blocks(window.device),
-                                  buffers=2)
+    blocks = _common.min_blocks(window.device)
+    rows = _common.merge_tile_rows(R, n, vl, vl, elem, blocks)
+    wunit = _common.copy_unit(n * elem, fw.data_ptr(), out.data_ptr())
+    vunit = _common.copy_unit(vl * elem, values.data_ptr())
+    # the n-entry table, then {K, lane, values lane, ...}: K <= vl pairs
+    work = torch.empty((n + 1 + 2 * vl,), dtype=torch.int32,
+                       device=window.device)
     status = lib.strided_scatter_dyn(
         elem, values.data_ptr(), fw.data_ptr(), out.data_ptr(), R, n, vl,
-        stride, offset, rows, _common.cuda_stream(window))
+        stride, offset, work.data_ptr(), rows, blocks, wunit, vunit,
+        _common.cuda_stream(window))
     _check(lib, status, "scatter_strided_dynamic")
     scatter_strided_dynamic.launches += 1
     return out.reshape(lead + (n,))
@@ -473,10 +488,31 @@ def dynamic_sources(n: int, stride: int, offset: int, vl: int, *,
     _common.check_cuda(table, "dynamic_sources")
     lib = _lib()
     status = lib.route_dyn_sources(int(gather), n, stride, offset, vl,
-                                   table.data_ptr(),
+                                   table.data_ptr(), None,
                                    _common.cuda_stream(table))
     _check(lib, status, "dynamic_sources")
     return table
+
+
+def dynamic_merge_list(n: int, stride: int, offset: int, vl: int, *,
+                       device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """B9's derivation alone, as its derive kernel runs it: the SSN's
+    ``(n,)`` int32 source table on ``scg.scatter_counts(n, stride, offset,
+    vl)`` (as :func:`dynamic_sources` with ``gather=False``) and the merge
+    copy's list, ``(1 + 2*vl,)`` int32: the count K, then K (lane, values
+    lane) pairs in lane order, the rest unwritten.  For checking the list
+    against ``_common.merge_pairs`` and timing the derivation; not on any
+    access path."""
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    table = torch.empty((n,), dtype=torch.int32, device=dev)
+    pairs = torch.empty((1 + 2 * vl,), dtype=torch.int32, device=dev)
+    _common.check_cuda(table, "dynamic_merge_list")
+    lib = _lib()
+    status = lib.route_dyn_sources(0, n, stride, offset, vl,
+                                   table.data_ptr(), pairs.data_ptr(),
+                                   _common.cuda_stream(table))
+    _check(lib, status, "dynamic_merge_list")
+    return table, pairs
 
 
 KERNELS = (gather_strided, gather_strided_fused, scatter_strided)
