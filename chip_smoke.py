@@ -27,27 +27,34 @@ Phases, in order (any failure raises and exits non-zero):
    once per launch (``strided.dynamic_sources``, with the SSN's, and
    ``segment.deinterleave_sources``) against their torch-ops twin
    ``_common.dyn_sources_plain``, and B9's list of occupied lanes
-   (``strided.dynamic_merge_list``) against ``_common.merge_pairs``;
+   (``strided.dynamic_merge_list``) against ``_common.merge_pairs``; and
+   every kernel wrapper (B1-B14) and the ``vx`` Strided and Segment verbs
+   on a transposed view and on a last-dim slice of a wider tensor, against
+   the plain version (or the ``ref`` policy) on contiguous copies;
 3. timings at the main path's shapes: kernel, plain version, one PyTorch
    library call computing the same function (timed here only, never used
    by the port), and the bound (bytes that must move / 3.35 TB/s).  Each
    timed call is first held bit for bit against its plain version.  B1 and
    B6 run the fused FIELD=2 KV split of qwen3-0.6b's full-width decode KV
    stack ``(28, 4, 512, 8, 256)`` bf16, B2 and B7 a 16-token prefill
-   chunk's K/V beat re-pack ``(1, 16, 8, 128)`` x2 bf16.  The strided
-   kernels run on that KV stack (B4's ``(2,0), (2,1)`` split must equal
-   B1's FIELD=2 split bit for bit; B3, B5, B8 and B9 at (2,1), vl 128),
-   then over the Fig. 12 sweep of benchmarks/bench_strided.py at card size
-   (MLEN 128, vl 64, offset 0, stride 2..64, n = 64*stride, 256 MiB
-   windows): B3 (with the bytes of a row it stages, only the 16-byte units
-   that hold an output lane, over the row's bytes), B5, B8, B9 (with its
-   SSN derivation's own time), and B8's derive kernel alone (one
-   derivation per launch) with its share of B8's time, and a line
-   ``fig12 s=...`` with B3 beside B8 and its bound.  B1 is one permuted
-   copy through the table composed from the host plan, B3 and B4 one
-   staged copy each through tables composed from the host plan; B6 and B8
-   a derive kernel and a permuted copy, B9 a derive kernel and a merge
-   copy;
+   chunk's K/V beat re-pack ``(1, 16, 8, 128)`` x2 bf16 (B2 also its
+   device time alone, in a CUDA graph, beside the library call's, and at
+   the stack's bytes beside B1; B2 of B1's split must give the stack back
+   bit for bit).  The strided kernels run on that KV stack (B4's ``(2,0),
+   (2,1)`` split must equal B1's FIELD=2 split bit for bit; B3, B5, B8 and
+   B9 at (2,1), vl 128), then over the Fig. 12 sweep of
+   benchmarks/bench_strided.py at card size (MLEN 128, vl 64, offset 0,
+   stride 2..64, n = 64*stride, 256 MiB windows): B3 (with the bytes of a
+   row it stages, only the 16-byte units that hold an output lane, over
+   the row's bytes), B5, B8, B9 (with its SSN derivation's own time), and
+   B8's derive kernel alone (one derivation per launch) with its share of
+   B8's time, and a line ``fig12 s=...`` with B3 beside B8 and its bound,
+   B9 and B5 over their bounds and library calls, and B5 / B9. B1 is one
+   permuted copy through the table composed from the host plan, B2 one
+   interleave copy through the table composed from the host plan, B3 and B4
+   one staged copy each through tables composed from the host plan, B5 one
+   merge copy through the list composed from the host plan; B6 and B8 a
+   derive kernel and a permuted copy, B9 a derive kernel and a merge copy;
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
@@ -447,6 +454,111 @@ def check_dynamic(dev) -> int:
     return cases
 
 
+def check_views(dev) -> int:
+    """Every kernel wrapper (B1-B14) and the ``vx`` Strided and Segment
+    verbs on non-contiguous CUDA operands (a transposed view, and the
+    first lanes of a tensor 24 lanes wider), held bit for bit against the
+    plain version (or the ``ref`` policy) on ``.contiguous()`` copies."""
+    import numpy as np
+    import torch
+    from repro_torch import vx
+    from repro_torch.core import scg, shiftnet
+    from repro_torch.kernels import (moe_compact, segment, shift_gather,
+                                     shift_scatter, strided)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 7)
+    dt, R, n = torch.bfloat16, 300, 256
+    vl = n // 2
+
+    def view(kind, shape):
+        if kind == "transposed":
+            return torch.randn(shape[:-2] + (shape[-1], shape[-2]),
+                               generator=g, device=dev).to(dt) \
+                .transpose(-1, -2)
+        return torch.randn(shape[:-1] + (shape[-1] + 24,), generator=g,
+                           device=dev).to(dt)[..., :shape[-1]]
+
+    gs, gv = scg.gather_counts(n, 2, 1, vl)
+    ss, sv = scg.scatter_counts(n, 2, 1, vl)
+    gplan = shift_gather.host_plan(gs.numpy(), gv.numpy(), gather=True)
+    splan = shift_gather.host_plan(ss.numpy(), sv.numpy(), gather=False)
+    gs, gv, ss, sv = (t.to(dev) for t in (gs, gv, ss, sv))
+    mask = torch.from_numpy(np.random.default_rng(SEED).random(96) < 0.4)
+    masks, _ = shiftnet.layer_masks(*scg.compaction_counts(mask),
+                                    toward_zero=True, lsb_first=True)
+    masks = masks.to(dev)
+    keep = (torch.arange(96) < int(mask.sum())).to(dev)
+    spec = vx.Strided(n=n, stride=2, offset=1, vl=vl)
+    seg = vx.Segment(n=n, fields=2)
+    cases = 0
+    for kind in ("transposed", "sliced"):
+        x, vals, rows = view(kind, (R, n)), view(kind, (R, vl)), \
+            view(kind, (96, 64))
+        half = [view(kind, (R, vl)) for _ in range(2)]
+        wins = view(kind, (2, R, n))
+        for t in (x, vals, rows, wins, *half):
+            if t.is_contiguous():
+                raise AssertionError(f"{kind} view is contiguous")
+        xc, valsc, halfc = x.contiguous(), vals.contiguous(), \
+            [h.contiguous() for h in half]
+        pairs = ((2, 0), (2, 1))
+        b13, p13 = shift_scatter.shift_scatter_static(x, splan), \
+            shift_scatter.shift_scatter_static_plain(xc, splan)
+        b14, p14 = shift_scatter.shift_scatter(x, ss, sv), \
+            shift_scatter.shift_scatter_plain(xc, ss, sv)
+        checks = [
+            ("B1", segment.deinterleave(x, 2),
+             segment.deinterleave_plain(xc, 2)),
+            ("B6", segment.deinterleave(x, 2, fused=False),
+             segment.deinterleave_dynamic_plain(xc, 2)),
+            ("B2", segment.interleave(half), segment.interleave_plain(halfc)),
+            ("B7", segment.interleave(half, fused=False),
+             segment.interleave_dynamic_plain(halfc)),
+            ("B3", strided.gather_strided(x, 2, 1, vl),
+             strided.gather_strided_plain(xc, 2, 1, vl)),
+            ("B4", strided.gather_strided_fused(wins, pairs, vl),
+             strided.gather_strided_fused_plain(wins.contiguous(), pairs,
+                                                vl)),
+            ("B5", strided.scatter_strided(x, vals, 2, 1),
+             strided.scatter_strided_plain(xc, valsc, 2, 1)),
+            ("B8", strided.gather_strided(x, 2, 1, vl, compiled=False),
+             strided.gather_strided_dynamic_plain(xc, 2, 1, vl)),
+            ("B9", strided.scatter_strided(x, vals, 2, 1, compiled=False),
+             strided.scatter_strided_dynamic_plain(xc, valsc, 2, 1)),
+            ("B10", moe_compact.route_rows(rows, masks, keep,
+                                           toward_zero=True, lsb_first=True),
+             moe_compact.route_rows_plain(rows.contiguous(), masks, keep,
+                                          toward_zero=True, lsb_first=True)),
+            ("B11", shift_gather.shift_gather_static(x, gplan),
+             shift_gather.shift_gather_static_plain(xc, gplan)),
+            ("B12", shift_gather.shift_gather(x, gs, gv),
+             shift_gather.shift_gather_plain(xc, gs, gv)),
+            ("B13", list(b13), list(p13)),
+            ("B14", list(b14), list(p14)),
+            ("vx.gather(Strided)", vx.gather(spec, x, policy="kernel"),
+             vx.gather(spec, xc, policy="ref")),
+            ("vx.scatter(Strided)", vx.scatter(spec, x, vals,
+                                               policy="kernel"),
+             vx.scatter(spec, xc, valsc, policy="ref")),
+            ("vx.transpose(Segment) deinterleave",
+             vx.transpose(seg, x, policy="kernel"),
+             vx.transpose(seg, xc, policy="ref")),
+            ("vx.transpose(Segment) interleave",
+             vx.transpose(seg, half, policy="kernel"),
+             vx.transpose(seg, halfc, policy="ref")),
+        ]
+        torch.cuda.synchronize()
+        for name, got, want in checks:
+            got = list(got) if isinstance(got, (list, tuple)) else [got]
+            want = list(want) if isinstance(want, (list, tuple)) else [want]
+            if len(got) != len(want) or not all(
+                    same_bits(a, b) for a, b in zip(got, want)):
+                raise AssertionError(f"{name} on a {kind} view != plain on "
+                                     f"a contiguous copy")
+            cases += 1
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: timings at the main path's shapes
 # ---------------------------------------------------------------------------
@@ -553,6 +665,16 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
         lambda: segment.interleave_plain([k, v]),
         lambda: torch.stack([k, v], dim=-1).flatten(-2),
         4 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
+    # B2's device time alone at that shape, apart from its host path: the
+    # calls captured in one CUDA graph
+    dev_ms = graph_ms(lambda: segment.interleave([k, v]), 20)
+    lib_dev = graph_ms(lambda: torch.stack([k, v], dim=-1).flatten(-2), 20)
+    print(f"time interleave device-only {list(k.shape) + ['x2']}: kernel "
+          f"{dev_ms:.4f} ms, library {lib_dev:.4f} ms (CUDA graph of 20 "
+          f"calls); at the host's launch rate kernel "
+          f"{out['interleave']['ms']:.4f} ms, library "
+          f"{out['interleave']['library_ms']:.4f} ms")
+    host_path(k, v)
     out["interleave_dynamic"] = record(
         "interleave_dynamic", lambda: segment.interleave([k, v], fused=False),
         lambda: segment.interleave_dynamic_plain([k, v]),
@@ -562,16 +684,66 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
     # single-token beats below the launch threshold)
     kb = kv[..., :hd].contiguous()
     vb = kv[..., hd:].contiguous()
-    record("interleave[stack]", lambda: segment.interleave([kb, vb]),
-           lambda: segment.interleave_plain([kb, vb]),
-           lambda: torch.stack([kb, vb], dim=-1).flatten(-2),
-           4 * kb.numel() * kb.element_size(), list(kb.shape) + ["x2"])
+    b1 = out["deinterleave"]["ms"]
+    stack = record("interleave[stack]", lambda: segment.interleave([kb, vb]),
+                   lambda: segment.interleave_plain([kb, vb]),
+                   lambda: torch.stack([kb, vb], dim=-1).flatten(-2),
+                   4 * kb.numel() * kb.element_size(),
+                   list(kb.shape) + ["x2"],
+                   f"; B1 on the same bytes {b1:.4f} ms")
+    print(f"interleave[stack] / deinterleave (B2 / B1, the same bytes): "
+          f"{stack['ms'] / b1:.4f}")
     del kb, vb
-    out.update(time_strided(dev, kv, segment.deinterleave(kv, 2)))
+    split = segment.deinterleave(kv, 2)
+    if not same_bits(segment.interleave(split), kv):
+        raise AssertionError("B2 does not invert B1 on the KV stack")
+    print(f"B2(B1(kv)) == kv on {list(kv.shape)}, bit for bit")
+    out.update(time_strided(dev, kv, split))
     del kv
     torch.cuda.empty_cache()
     time_fig12(dev)
     return out
+
+
+def host_path(k, v) -> None:
+    """Where B2's time at a launch-sized shape goes on the host: the
+    wrapper's host-clock time per call over 2000 back-to-back calls,
+    beside its parts run alone the same way (the output's allocation, and
+    the ctypes call of the entry point with the entry's arguments, which
+    holds the CUDA launch), and the library call's (printed)."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _common, segment
+
+    def per_call(fn, iters=2000):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / iters * 1e3
+
+    m = k.shape[-1]
+    R = k.numel() // m
+    out = segment.interleave([k, v])
+    ent = segment._interleave_launch(2 * m, 2, None, k.device)
+    args = (k.element_size(), (ctypes.c_void_p * 2)(k.data_ptr(),
+                                                     v.data_ptr()),
+            out.data_ptr(), 2, R, m, ent["table_ptr"],
+            ent["rows"][R, k.element_size()], ent["blocks"],
+            _common.cuda_stream(k))
+    wrapper = per_call(lambda: segment.interleave([k, v]))
+    launch = per_call(lambda: ent["fn"](*args))
+    alloc = per_call(lambda: k.new_empty(k.shape[:-1] + (2 * m,)))
+    library = per_call(lambda: torch.stack([k, v], dim=-1).flatten(-2))
+    print(f"host path interleave {list(k.shape) + ['x2']}: wrapper "
+          f"{wrapper:.4f} ms a call (host clock, 2000 calls), of which the "
+          f"ctypes call with its CUDA launch {launch:.4f}, the output's "
+          f"allocation {alloc:.4f}, the rest (Python: checks, plan-cache "
+          f"lookup, pointers, stream) {wrapper - launch - alloc:.4f}; "
+          f"library call {library:.4f} ms a call")
 
 
 def time_strided(dev, kv, split) -> dict:
@@ -676,10 +848,10 @@ def time_fig12(dev) -> None:
                     gather_bytes(R, n, vl, s, e), [R, n],
                     f"; staged {staged} of {n * e} bytes a row "
                     f"({staged / (n * e):.4f})")
-        record(f"fig12 scatter_strided s={s}",
-               lambda: strided.scatter_strided(win, vals, s, 0),
-               lambda: strided.scatter_strided_plain(win, vals, s, 0),
-               library, R * (2 * n + vl) * e, [R, n])
+        b5 = record(f"fig12 scatter_strided s={s}",
+                    lambda: strided.scatter_strided(win, vals, s, 0),
+                    lambda: strided.scatter_strided_plain(win, vals, s, 0),
+                    library, R * (2 * n + vl) * e, [R, n])
         dyn = record(f"fig12 gather_strided_dynamic s={s}",
                      lambda: strided.gather_strided(win, s, 0, vl,
                                                     compiled=False),
@@ -708,7 +880,10 @@ def time_fig12(dev) -> None:
               f"B3/B8 {b3['ms'] / dyn['ms']:.4f}; B3 over its bound "
               f"{b3['ms'] / b3['bound_ms']:.4f}; B9 {b9['ms']:.4f} ms, over "
               f"its bound {b9['ms'] / b9['bound_ms']:.4f}, over its library "
-              f"call {b9['ms'] / b9['library_ms']:.4f}")
+              f"call {b9['ms'] / b9['library_ms']:.4f}; B5 {b5['ms']:.4f} "
+              f"ms, over its bound {b5['ms'] / b5['bound_ms']:.4f}, over its "
+              f"library call {b5['ms'] / b5['library_ms']:.4f}, B5/B9 "
+              f"{b5['ms'] / b9['ms']:.4f}")
         del win, vals
         torch.cuda.empty_cache()
 
@@ -1416,6 +1591,12 @@ def main() -> int:
     cases = check_strided(dev)
     print(f"kernels == plain: {cases} strided cases (B3 and B5 together, "
           f"B4 alone) bit-exact ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    cases = check_views(dev)
+    print(f"kernels on views == plain: {cases} cases (B1-B14 and the vx "
+          f"Strided / Segment verbs, each on a transposed view and on a "
+          f"last-dim slice of a wider tensor, against contiguous copies) "
+          f"bit-exact ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     cases = check_dynamic(dev)
     print(f"dynamic kernels == plain == plan twin: {cases} cases (B6 and B7 "

@@ -3,7 +3,9 @@
 //   * `perm_copy_kernel`: B1 and B6 (segment.cu), the copy half of B8
 //     (strided.cu);
 //   * `staged_copy_kernel`: the whole of B3 and B4 (strided.cu);
-//   * `merge_copy_kernel`: the copy half of B9 (strided.cu), at the end of
+//   * `merge_copy_kernel`: the whole of B5 and the copy half of B9
+//     (strided.cu);
+//   * `interleave_copy_kernel`: the whole of B2 (segment.cu), at the end of
 //     this file.
 //
 // The permuted copy.  For every row r of the (R, n) input, part p < parts
@@ -419,7 +421,7 @@ static cudaError_t launch_staged_copy(const void* x, void* out, int A,
 }
 
 // ---------------------------------------------------------------------------
-// The merge copy: B9 (strided.cu)
+// The merge copy: B5 and B9 (strided.cu)
 // ---------------------------------------------------------------------------
 //
 // For every row r of the (R, n) window and the (R, vl) values:
@@ -428,11 +430,13 @@ static cudaError_t launch_staged_copy(const void* x, void* out, int A,
 // scatter occupies, in lane order, and the values lane each one takes (at
 // most `kmax` pairs; lanes left out keep the window).  B9's derive kernel
 // writes the list (route_dyn.cuh, `dyn_sources` on the SSN) just before
-// this kernel, which starts under Programmatic Dependent Launch.  A
-// scatter plan's static table (`ShiftPlan.source` of
-// `shiftplan.scatter_plan`, B5) gives the same list on the host; a caller
-// that uploads it has no derive kernel and must launch the copy plainly
-// (`launch_chained` with `pdl` off), as B1 does its permuted copy.
+// this kernel, which then starts under Programmatic Dependent Launch.  B5
+// takes the same list from the host: a scatter plan's table
+// (`ShiftPlan.source` under `.valid` of `shiftplan.scatter_plan`) is
+// static, so the wrapper composes and uploads it once per plan.  Then
+// there is no derive kernel, the kernel before the copy on the stream is
+// whatever wrote the window or the values, and the copy is launched
+// plainly (`pdl` off), as B1 launches its permuted copy.
 //
 // Bound: the window and the values read once and the output written once,
 // over 3.35 TB/s.  What the design does about it:
@@ -448,8 +452,10 @@ static cudaError_t launch_staged_copy(const void* x, void* out, int A,
 //   * two barriers a tile: tile k staged and every thread past tile k-1's
 //     stores (so tile k+1's load may then reuse that buffer), and the merge
 //     done.  Tile k+1's load overlaps tile k's merge and stores;
-//   * the first tile's loads are issued before the kernel waits for the
-//     derive kernel: only the list read waits.
+//   * B9's first tile loads are issued before the kernel waits for the
+//     derive kernel: only the list read waits.  Without PDL (B5) the wait
+//     is a no-op and the stream has already ordered the loads after the
+//     window's and the values' writers.
 // `wunit` divides the window row's bytes and both the window and output
 // pointers; `vunit` the value row's bytes and the values pointer.
 __host__ __device__ inline size_t merge_copy_smem(int n, int vl, int kmax,
@@ -521,15 +527,17 @@ merge_copy_kernel(const T* __restrict__ win, const T* __restrict__ vals,
   }
 }
 
-// Launch the merge copy over at most `blocks` blocks, after the derive
-// kernel that writes `list` on the same stream (under Programmatic
-// Dependent Launch: it waits on that kernel before reading `list`).
+// Launch the merge copy over at most `blocks` blocks.  With `pdl` (B9)
+// after the derive kernel that writes `list` on the same stream, allowed
+// to start before that kernel ends (it waits on it before reading
+// `list`); without (B5, the list uploaded from the host), stream-ordered
+// after whatever wrote `win` and `vals`.
 template <typename T>
 static cudaError_t launch_merge_copy(const void* win, const void* vals,
                                      void* out, long long R, int n, int vl,
                                      const int* list, int kmax, int rows,
                                      int blocks, int wunit, int vunit,
-                                     cudaStream_t stream) {
+                                     bool pdl, cudaStream_t stream) {
   const size_t e = sizeof(T);
   if (n < 1 || vl < 1 || vl > n || kmax < 1 || R < 1 || rows < 1 ||
       blocks < 1 || bad_unit(wunit, e) || bad_unit(vunit, e) ||
@@ -541,8 +549,180 @@ static cudaError_t launch_merge_copy(const void* win, const void* vals,
   if (err != cudaSuccess) return err;
   const long long tiles = (R + rows - 1) / rows;
   return launch_chained(merge_copy_kernel<T>,
-                        (unsigned)(tiles < blocks ? tiles : blocks), smem, true,
+                        (unsigned)(tiles < blocks ? tiles : blocks), smem, pdl,
                         stream, static_cast<const T*>(win),
                         static_cast<const T*>(vals), static_cast<T*>(out), R,
                         n, vl, list, kmax, rows, wunit, vunit);
+}
+
+// ---------------------------------------------------------------------------
+// The interleave copy: B2 (segment.cu)
+// ---------------------------------------------------------------------------
+//
+// The inverse form of the permuted copy: `fields` (R, m) inputs, one (R, n)
+// output, n = fields*m.  For every row r and output lane c < n:
+//   out[r][c] = tab[c] < 0 ? 0 : in_f[r][j]   where tab[c] = f*m + j,
+// the lane of the concatenated fields that lane c takes.  The host composes
+// `tab` from the interleave plans (`ShiftPlan.source` under `.valid`; f*m + j
+// at lane f + j*fields for every plan of either mode) and uploads it once
+// per plan, so there is no derive kernel and nothing to wait for: the copy
+// is launched plainly, stream-ordered after whatever wrote the inputs.
+//
+// Bound: each input byte read once, each output byte written once, over
+// 3.35 TB/s.  What the design does about it:
+//   * a persistent grid (two blocks per SM) walks the row tiles, so the
+//     table is loaded into shared memory once per block, as uint16 (n <
+//     65535; 0xFFFF where no plan fills the lane), which leaves room for
+//     two rows a tile at n = 6144 in bf16;
+//   * a tile's rows of one field are one contiguous (rows, m) chunk of that
+//     input.  The `fields` chunks are staged with cp.async (16 bytes on the
+//     main path), double-buffered: tile k+1's loads are in flight while tile
+//     k is permuted and stored;
+//   * consecutive threads take consecutive output lanes and walk down the
+//     rows, so the output tile is written without bank conflicts.  Lanes c
+//     and c+1 come from different fields at the same j, so the field tiles
+//     are placed `interleave_skew` bytes apart round the 32 banks (each
+//     tile padded to 128 bytes, then skewed): a warp's reads of one row
+//     take 32*elem bytes spread over the fields, and with the skew the
+//     fields' spans fall in distinct banks (FIELD=2 in bf16: 32 bytes each,
+//     8 banks apart);
+//   * the (rows, n) output tile is one contiguous chunk of the output and
+//     leaves in `unit`-byte vector stores (16 bytes on the main path);
+//   * two barriers a tile (tile k staged and every thread past tile k-1's
+//     stores; output tile complete).
+// `unit` is the widest of 16, 8, 4, 2 or 1 bytes that divides the input
+// row's bytes and every pointer, picked in the entry point; it then divides
+// the output row's bytes too.
+__host__ __device__ inline size_t pad128(size_t b) {
+  return (b + 127) & ~(size_t)127;
+}
+
+__host__ __device__ inline size_t interleave_skew(int fields, size_t elem) {
+  const size_t wave = 32 * elem < 128 ? 32 * elem : 128;
+  return pad16((wave + fields - 1) / fields);
+}
+
+// Bytes of one field tile of `rows` rows: padded to 128, then skewed.
+__host__ __device__ inline size_t interleave_field_bytes(int m, int fields,
+                                                         int rows,
+                                                         size_t elem) {
+  return pad128((size_t)rows * m * elem) + interleave_skew(fields, elem);
+}
+
+// Shared memory: the uint16 table, two staged input tiles of `fields` field
+// tiles each, the (rows, n) output tile.
+__host__ __device__ inline size_t interleave_copy_smem(int n, int fields,
+                                                       int rows, size_t elem) {
+  return pad16((size_t)n * 2) +
+         2 * (size_t)fields *
+             interleave_field_bytes(n / fields, fields, rows, elem) +
+         pad16((size_t)rows * n * elem);
+}
+
+// Start staging rows [tile*rows, tile*rows + nr) of every field.
+__device__ inline void stage_fields(unsigned char* dst, const Ptrs& ins,
+                                    int fields, size_t fb, long long tile,
+                                    int rows, long long R, size_t in_row,
+                                    int unit) {
+  const size_t nr = (size_t)min((long long)rows, R - tile * rows);
+  for (int f = 0; f < fields; ++f)
+    stage(dst + f * fb,
+          static_cast<const unsigned char*>(ins.p[f]) + tile * rows * in_row,
+          nr * in_row, unit);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+interleave_copy_kernel(Ptrs ins, T* __restrict__ out, long long R, int m,
+                       int fields, const int* __restrict__ table, int rows,
+                       int unit) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n = fields * m;
+  const size_t in_row = (size_t)m * sizeof(T);
+  const size_t out_row = (size_t)n * sizeof(T);
+  const size_t fb = interleave_field_bytes(m, fields, rows, sizeof(T));
+  const size_t in_b = (size_t)fields * fb;
+  uint16_t* tab = reinterpret_cast<uint16_t*>(smem);
+  unsigned char* ibuf = smem + pad16((size_t)n * 2);
+  unsigned char* obuf = ibuf + 2 * in_b;
+  unsigned char* ob = reinterpret_cast<unsigned char*>(out);
+  const long long tiles = (R + rows - 1) / rows;
+  long long tile = blockIdx.x;            // the grid is at most `tiles` wide
+
+  for (int c = threadIdx.x; c < n; c += blockDim.x)
+    tab[c] = (uint16_t)table[c];          // -1 becomes 0xFFFF
+  stage_fields(ibuf, ins, fields, fb, tile, rows, R, in_row, unit);
+  cp_async_commit();
+
+  const TileMap tm(n);
+  for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
+    const long long next = tile + gridDim.x;
+    // buffer (k+1)&1 was last read by tile k-1's permute, which ended
+    // with a barrier every thread has passed
+    if (next < tiles)
+      stage_fields(ibuf + ((k + 1) & 1) * in_b, ins, fields, fb, next, rows,
+                   R, in_row, unit);
+    cp_async_commit();
+    cp_async_wait_one();
+    __syncthreads();      // tile k staged (and the table loaded); the
+                          // output tile's last stores are done
+    const unsigned char* in = ibuf + (k & 1) * in_b;
+    const int nr = (int)min((long long)rows, R - tile * rows);
+    if (tm.g < tm.groups) {
+      T* o = reinterpret_cast<T*>(obuf);
+      for (int c = tm.t; c < n; c += tm.lanes) {
+        const int s = tab[c];
+        if (s != 0xFFFF) {
+          const int f = s / m;
+          const T* src = reinterpret_cast<const T*>(in + f * fb) + (s - f * m);
+          for (int r = tm.g; r < nr; r += tm.groups)
+            o[(size_t)r * n + c] = src[(size_t)r * m];
+        } else {
+          for (int r = tm.g; r < nr; r += tm.groups) o[(size_t)r * n + c] = T(0);
+        }
+      }
+    }
+    __syncthreads();      // output tile complete
+    store(ob + tile * rows * out_row, obuf, (size_t)nr * out_row, unit);
+  }
+}
+
+// The widest copy unit (16, 8, 4, 2 or 1 bytes, at least `elem`) that
+// divides `row_bytes` and every pointer.
+static inline int copy_unit(size_t row_bytes, size_t elem,
+                            const void* const* ptrs, int np) {
+  int u = 16;
+  for (; u > (int)elem; u >>= 1) {
+    bool ok = row_bytes % u == 0;
+    for (int i = 0; ok && i < np; ++i) ok = (uintptr_t)ptrs[i] % u == 0;
+    if (ok) break;
+  }
+  return u;
+}
+
+// One launch of the interleave copy over at most `blocks` blocks, plainly
+// stream-ordered (no PDL).
+template <typename T>
+static cudaError_t launch_interleave_copy(const Ptrs& ins, void* out,
+                                          long long R, int m, int fields,
+                                          const int* table, int rows,
+                                          int blocks, cudaStream_t stream) {
+  const size_t e = sizeof(T);
+  const long long n = (long long)fields * m;
+  if (fields < 1 || fields > MAX_PARTS || m < 1 || n >= 0xFFFF || R < 1 ||
+      rows < 1 || blocks < 1)
+    return cudaErrorInvalidValue;
+  const void* ptrs[MAX_PARTS + 1];
+  for (int f = 0; f < fields; ++f) ptrs[f] = ins.p[f];
+  ptrs[fields] = out;
+  const int unit = copy_unit((size_t)m * e, e, ptrs, fields + 1);
+  const size_t smem = interleave_copy_smem((int)n, fields, rows, e);
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t err = set_smem(interleave_copy_kernel<T>, smem, granted);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (R + rows - 1) / rows;
+  interleave_copy_kernel<T><<<(unsigned)(tiles < blocks ? tiles : blocks),
+                              THREADS, smem, stream>>>(
+      ins, static_cast<T*>(out), R, m, fields, table, rows, unit);
+  return cudaGetLastError();
 }

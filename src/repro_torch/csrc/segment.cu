@@ -23,17 +23,27 @@
 // written) / 3.35 TB/s; the selects cost a few integer operations per lane
 // per layer and no floating point.
 //
-// B1, one kernel per call: a deinterleave plan is static, and its composed
-// table (`ShiftPlan.source`) is known on the host: field f's lane j takes
-// input lane f + j*fields under either mode (`plans[0].source[f*m + j]`
-// for the fused plan, `plans[f].source[j]` per field).  So no layer runs
-// on the card: the wrapper uploads the (fields, m) table once per plan,
-// and `perm_copy_kernel` (perm_copy.cuh) moves every row through it in one
-// pipelined pass: 16-byte cp.async staging, double-buffered, a
-// bank-conflict-free permute in shared memory and 16-byte vector stores of
-// each field's contiguous (rows, m) block, two barriers a tile.  It is
-// launched without Programmatic Dependent Launch: nothing derives its
-// table, and the kernel before it on the stream is whatever wrote `x`.
+// B1 and B2, one kernel per call each: a segment plan is static, and its
+// composed table (`ShiftPlan.source`) is known on the host.  So no layer
+// runs on the card; the wrapper uploads the table once per plan.
+//   * B1: field f's lane j takes input lane f + j*fields under either mode
+//     (`plans[0].source[f*m + j]` for the fused plan, `plans[f].source[j]`
+//     per field).  `perm_copy_kernel` (perm_copy.cuh) moves every row
+//     through the (fields, m) table in one pipelined pass: 16-byte cp.async
+//     staging, double-buffered, a bank-conflict-free permute in shared
+//     memory and 16-byte vector stores of each field's contiguous (rows, m)
+//     block, two barriers a tile.
+//   * B2: output lane f + j*fields takes lane j of field f under either
+//     mode (the n-entry table holds f*m + j; for per-field plans a later
+//     field wins, as the reference's merge does).  `interleave_copy_kernel`
+//     (perm_copy.cuh), the inverse form, stages the fields' contiguous
+//     (rows, m) chunks with 16-byte cp.async, double-buffered and skewed
+//     round the banks, reads them through the table into a (rows, n)
+//     output tile and stores it in 16-byte vector stores, two barriers a
+//     tile.
+// Both are launched without Programmatic Dependent Launch: nothing derives
+// their tables, and the kernel before them on the stream is whatever wrote
+// their input.
 //
 // B6, two kernels per call: the network does not depend on the payload, so
 // it is derived once per launch, not per block.  `dyn_sources_kernel`
@@ -43,20 +53,16 @@
 // through that table, started under Programmatic Dependent Launch, so its
 // first tile load overlaps the derivation.
 //
-// B2 and B7: each block loads its row tile from device memory once
-// (zero-padding lanes >= n up to the plan width), keeps it in shared
-// memory through every layer (ping-pong between two buffers, one
-// __syncthreads() per layer; route_plan.cuh), and writes it straight to
-// the output, so device memory sees each input byte read once and each
-// output byte written once.  B2's take-masks are packed to bits by the
-// wrapper and loaded into shared memory once per block; B7 derives its
-// masks per block and field instead (one barrier per layer over n lanes of
+// B7: each block loads its row tile from device memory once, per field,
+// keeps it in shared memory through every layer (ping-pong between two
+// buffers, one __syncthreads() per layer; route_dyn.cuh), and writes the
+// lanes the field occupies straight to the output, so device memory sees
+// each input byte read once and each output byte written once.  It derives
+// its masks per block and field (one barrier per layer over n lanes of
 // counts, paid once for the whole row tile).  Threads map to lanes and walk
-// down the tile's rows: a lane's source for a layer is resolved once and
-// then copied row after row, so the inner loop is one shared load and one
-// store.  The wrapper keeps tiles small (24 KB of shared memory, so eight
-// blocks share an SM) and, for a small call, short enough that the grid
-// covers the card.
+// down the tile's rows.  The wrapper keeps tiles small (24 KB of shared
+// memory, so eight blocks share an SM) and, for a small call, short enough
+// that the grid covers the card.
 //
 // Elements move as raw bits (templated on the element width: 1, 2, 4 or 8
 // bytes), so every permutation is bit-exact for every dtype, NaN payloads
@@ -70,111 +76,6 @@
 #include "route_plan.cuh"
 
 #define MAX_FIELDS MAX_PARTS
-
-// B2: `fields` inputs of (R, m) -> (R, n) AoS rows.  `valid` holds one
-// packed occupancy row per per-field plan; a per-field pass writes only
-// the lanes its plan fills, and lanes no plan fills are written as 0.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-int_kernel(Ptrs ins, T* __restrict__ out, long long R, int n, int m, int Wn,
-           int fused, int fields, const uint32_t* __restrict__ masks, int S,
-           int words, const int* __restrict__ layers,
-           const int* __restrict__ plan_lo, int nplans,
-           const uint32_t* __restrict__ valid, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
-  const int vrows = fused ? 0 : nplans;
-  uint32_t* svalid = smask + (size_t)S * words;
-  const size_t mbytes = ((size_t)(S + vrows) * words * 4 + 15) & ~(size_t)15;
-  T* bin = reinterpret_cast<T*>(smem + mbytes);
-  T* ba = bin + (size_t)rows * Wn;
-  T* bb = ba + (size_t)rows * Wn;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  T* os = out + r0 * n;
-  const TileMap tm(Wn);
-  const bool live = tm.g < tm.groups;
-
-  for (int i = threadIdx.x; i < S * words; i += blockDim.x) smask[i] = masks[i];
-  for (int i = threadIdx.x; i < vrows * words; i += blockDim.x) svalid[i] = valid[i];
-
-  if (fused) {
-    // concatenated SoA fields, zero-padded to the plan width
-    if (live) {
-      for (int c = tm.t; c < Wn; c += tm.lanes) {
-        if (c < n) {
-          const int f = c / m;
-          const T* xin = static_cast<const T*>(ins.p[f]) + r0 * m + (c - f * m);
-          for (int r = tm.g; r < nr; r += tm.groups)
-            bin[(size_t)r * Wn + c] = xin[(size_t)r * m];
-        } else {
-          for (int r = tm.g; r < nr; r += tm.groups)
-            bin[(size_t)r * Wn + c] = T(0);
-        }
-      }
-    }
-    __syncthreads();
-    const T* res = route_plan<T>(bin, ba, bb, nr, Wn, words, smask, layers,
-                                 plan_lo[0], plan_lo[1], tm);
-    if (live) {
-      for (int c = tm.t; c < n; c += tm.lanes)
-        for (int r = tm.g; r < nr; r += tm.groups)
-          os[(size_t)r * n + c] = res[(size_t)r * Wn + c];
-    }
-    return;
-  }
-
-  __syncthreads();
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes) {
-      bool any = false;
-      for (int p = 0; p < nplans; ++p) any |= lane_bit(svalid + (size_t)p * words, c);
-      if (!any)
-        for (int r = tm.g; r < nr; r += tm.groups) os[(size_t)r * n + c] = T(0);
-    }
-  }
-  for (int p = 0; p < nplans; ++p) {
-    const T* xin = static_cast<const T*>(ins.p[p]) + r0 * m;
-    if (live) {
-      for (int c = tm.t; c < Wn; c += tm.lanes)
-        for (int r = tm.g; r < nr; r += tm.groups)
-          bin[(size_t)r * Wn + c] = c < m ? xin[(size_t)r * m + c] : T(0);
-    }
-    __syncthreads();
-    const T* res = route_plan<T>(bin, ba, bb, nr, Wn, words, smask, layers,
-                                 plan_lo[p], plan_lo[p + 1], tm);
-    const uint32_t* vp = svalid + (size_t)p * words;
-    if (live) {
-      for (int c = tm.t; c < n; c += tm.lanes)
-        if (lane_bit(vp, c))
-          for (int r = tm.g; r < nr; r += tm.groups)
-            os[(size_t)r * n + c] = res[(size_t)r * Wn + c];
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T>
-static cudaError_t launch_int(const Ptrs& ins, void* out, long long R, int n,
-                              int m, int Wn, int fused, int fields,
-                              const void* masks, int S, int words,
-                              const void* layers, const void* plan_lo,
-                              int nplans, const void* valid, int rows,
-                              cudaStream_t stream) {
-  const int vrows = fused ? 0 : nplans;
-  const size_t mbytes = ((size_t)(S + vrows) * words * 4 + 15) & ~(size_t)15;
-  const size_t smem = mbytes + 3 * (size_t)rows * Wn * sizeof(T);
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(int_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  const long long grid = (R + rows - 1) / rows;
-  int_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      ins, static_cast<T*>(out), R, n, m, Wn, fused, fields,
-      static_cast<const uint32_t*>(masks), S, words,
-      static_cast<const int*>(layers), static_cast<const int*>(plan_lo),
-      nplans, static_cast<const uint32_t*>(valid), rows);
-  return cudaGetLastError();
-}
 
 // B7: `fields` inputs of (R, m) -> (R, n) AoS rows through the SSN.  Field
 // f's routed lanes are written where its final occupancy is set (the
@@ -269,20 +170,24 @@ int segment_deinterleave(int elem_bytes, const void* x, void* const* outs,
   }
 }
 
+// B2: one interleave copy of the `fields` (R, m) inputs into the (R, n)
+// output through `table` (n int32, the host plans' composed sources,
+// uploaded by the wrapper), in `rows`-row tiles over at most `blocks`
+// blocks; the copy unit is picked here from the row's bytes and the
+// pointers; stream-ordered (no PDL).
 int segment_interleave(int elem_bytes, void* const* ins, void* out, int fields,
-                       long long R, int n, int m, int Wn, int fused,
-                       const void* masks, int S, int words, const void* layers,
-                       const void* plan_lo, int nplans, const void* valid,
-                       int rows, void* stream) {
-  if (fields < 1 || fields > MAX_FIELDS || rows < 1) return cudaErrorInvalidValue;
+                       long long R, int m, const void* table, int rows,
+                       int blocks, void* stream) {
+  if (fields < 1 || fields > MAX_FIELDS) return cudaErrorInvalidValue;
   Ptrs p;
   for (int i = 0; i < MAX_FIELDS; ++i) p.p[i] = i < fields ? ins[i] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* tab = static_cast<const int*>(table);
   switch (elem_bytes) {
-    case 1: return launch_int<uint8_t>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
-    case 2: return launch_int<uint16_t>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
-    case 4: return launch_int<uint32_t>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
-    case 8: return launch_int<unsigned long long>(p, out, R, n, m, Wn, fused, fields, masks, S, words, layers, plan_lo, nplans, valid, rows, s);
+    case 1: return launch_interleave_copy<uint8_t>(p, out, R, m, fields, tab, rows, blocks, s);
+    case 2: return launch_interleave_copy<uint16_t>(p, out, R, m, fields, tab, rows, blocks, s);
+    case 4: return launch_interleave_copy<uint32_t>(p, out, R, m, fields, tab, rows, blocks, s);
+    case 8: return launch_interleave_copy<unsigned long long>(p, out, R, m, fields, tab, rows, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -47,12 +47,18 @@
 // stores: two barriers a tile.  A B4 block works on one access, holding
 // only that access's table and list.
 //
-// B5: the layer loop that B2 runs (route_plan.cuh).  Each block loads a
-// row tile of the zero-padded values into shared memory once (lane-major,
-// so a warp reads neighbouring lanes), runs the plan's layers ping-ponging
-// between two buffers, and merges the routed tile with the window read
-// straight from device memory.  Plans are exactly n lanes wide (no
-// power-of-two padding); masks are packed to bits by the wrapper.
+// B5, one kernel per call: a scatter plan is static too, and its table
+// (`ShiftPlan.source` under `.valid`: window lane offset + i*stride takes
+// values lane i) gives, on the host, the list that B9's derive kernel
+// compacts on the card: the occupied lanes in lane order beside the values
+// lane each takes.  The wrapper uploads it once per plan, and
+// `merge_copy_kernel` (perm_copy.cuh), B9's copy, runs alone, launched
+// without Programmatic Dependent Launch (no derive kernel before it; the
+// kernel before it wrote the window or the values): a persistent grid
+// stages each tile of window rows and its value rows with 16-byte cp.async
+// copies, double-buffered, writes the listed lanes in place in shared
+// memory (threads walk the vl pairs, not the n lanes) and sends the whole
+// tile out in 16-byte vector stores, two barriers a tile.
 //
 // B8, two kernels per call: the network depends only on (n, stride,
 // offset, vl), so it is derived once per launch.  `dyn_sources_kernel`
@@ -69,14 +75,10 @@
 // B9, two kernels per call, the same way: `dyn_sources_kernel` (one block)
 // derives the SSN once per launch, composes it into the source of each of
 // the n window lanes and compacts the occupied ones into a list of (lane,
-// values lane) pairs, vl of them for an access that fits; then
-// `merge_copy_kernel` (perm_copy.cuh) stages each tile of window rows and
-// its value rows with 16-byte cp.async copies, double-buffered, writes the
-// listed lanes in place in shared memory (threads walk the vl pairs, not
-// the n lanes) and sends the whole tile out in 16-byte vector stores: two
-// barriers a tile, none per layer.  It starts under Programmatic Dependent
-// Launch: its first tile's loads overlap the derivation, only the list
-// read waits.
+// values lane) pairs, vl of them for an access that fits; then B5's
+// `merge_copy_kernel` moves the rows through that list.  It starts under
+// Programmatic Dependent Launch: its first tile's loads overlap the
+// derivation, only the list read waits.
 //
 // Elements move as raw bits (templated on 1/2/4/8-byte widths), so every
 // dtype is bit-exact.
@@ -92,72 +94,6 @@
 #include "perm_copy.cuh"
 #include "route_dyn.cuh"
 #include "route_plan.cuh"
-
-// B5: (R, vl) values merged into (R, n) windows -> (R, n) output.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-scatter_kernel(const T* __restrict__ vals, const T* __restrict__ win,
-               T* __restrict__ out, long long R, int n, int vl,
-               const uint32_t* __restrict__ masks, int S, int words,
-               const int* __restrict__ layers, int nlayers,
-               const uint32_t* __restrict__ valid, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* svalid = smask + (size_t)S * words;
-  const size_t mbytes = ((size_t)(S + 1) * words * 4 + 15) & ~(size_t)15;
-  T* ba = reinterpret_cast<T*>(smem + mbytes);
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-  const bool live = tm.g < tm.groups;
-
-  for (int i = threadIdx.x; i < S * words; i += blockDim.x) smask[i] = masks[i];
-  for (int i = threadIdx.x; i < words; i += blockDim.x) svalid[i] = valid[i];
-  const T* vs = vals + r0 * vl;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        ba[(size_t)r * n + c] = c < vl ? vs[(size_t)r * vl + c] : T(0);
-  }
-  __syncthreads();
-  const T* res = route_plan<T>(ba, ba, bb, nr, n, words, smask, layers, 0,
-                               nlayers, tm);
-  const T* ws = win + r0 * n;
-  T* os = out + r0 * n;
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes) {
-      if (lane_bit(svalid, c)) {
-        for (int r = tm.g; r < nr; r += tm.groups)
-          os[(size_t)r * n + c] = res[(size_t)r * n + c];
-      } else {
-        for (int r = tm.g; r < nr; r += tm.groups)
-          os[(size_t)r * n + c] = ws[(size_t)r * n + c];
-      }
-    }
-  }
-}
-
-template <typename T>
-static cudaError_t launch_scatter(const void* vals, const void* win, void* out,
-                                  long long R, int n, int vl, const void* masks,
-                                  int S, int words, const void* layers,
-                                  int nlayers, const void* valid, int rows,
-                                  cudaStream_t stream) {
-  const size_t mbytes = ((size_t)(S + 1) * words * 4 + 15) & ~(size_t)15;
-  const size_t smem = mbytes + 2 * (size_t)rows * n * sizeof(T);
-  const long long tiles = (R + rows - 1) / rows;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(scatter_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  scatter_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(vals), static_cast<const T*>(win),
-      static_cast<T*>(out), R, n, vl, static_cast<const uint32_t*>(masks), S,
-      words, static_cast<const int*>(layers), nlayers,
-      static_cast<const uint32_t*>(valid), rows);
-  return cudaGetLastError();
-}
 
 // The derivation alone, for checking and timing it: every block derives
 // the network of (kind, n, stride, offset, vl); block 0 writes the packed
@@ -204,17 +140,23 @@ int strided_gather(int elem_bytes, const void* x, void* out, int A,
   }
 }
 
+// B5: one merge copy of the R window and value rows through `list` ({K,
+// lane, values lane, ...}, K pairs, the host plan's occupied lanes,
+// uploaded by the wrapper), in `rows`-row tiles over at most `blocks`
+// blocks, the window staged and stored in `wunit`-byte units, the values in
+// `vunit`; stream-ordered (no PDL).
 int strided_scatter(int elem_bytes, const void* vals, const void* win,
-                    void* out, long long R, int n, int vl, const void* masks,
-                    int S, int words, const void* layers, int nlayers,
-                    const void* valid, int rows, void* stream) {
-  if (rows < 1 || vl < 1 || vl > n) return cudaErrorInvalidValue;
+                    void* out, long long R, int n, int vl, const void* list,
+                    int K, int rows, int blocks, int wunit, int vunit,
+                    void* stream) {
+  if (vl < 1 || vl > n) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int* l = static_cast<const int*>(list);
   switch (elem_bytes) {
-    case 1: return launch_scatter<uint8_t>(vals, win, out, R, n, vl, masks, S, words, layers, nlayers, valid, rows, s);
-    case 2: return launch_scatter<uint16_t>(vals, win, out, R, n, vl, masks, S, words, layers, nlayers, valid, rows, s);
-    case 4: return launch_scatter<uint32_t>(vals, win, out, R, n, vl, masks, S, words, layers, nlayers, valid, rows, s);
-    case 8: return launch_scatter<unsigned long long>(vals, win, out, R, n, vl, masks, S, words, layers, nlayers, valid, rows, s);
+    case 1: return launch_merge_copy<uint8_t>(win, vals, out, R, n, vl, l, K, rows, blocks, wunit, vunit, false, s);
+    case 2: return launch_merge_copy<uint16_t>(win, vals, out, R, n, vl, l, K, rows, blocks, wunit, vunit, false, s);
+    case 4: return launch_merge_copy<uint32_t>(win, vals, out, R, n, vl, l, K, rows, blocks, wunit, vunit, false, s);
+    case 8: return launch_merge_copy<unsigned long long>(win, vals, out, R, n, vl, l, K, rows, blocks, wunit, vunit, false, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -261,10 +203,10 @@ int strided_scatter_dyn(int elem_bytes, const void* vals, const void* win,
                                      list);
   if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_merge_copy<uint8_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
-    case 2: return launch_merge_copy<uint16_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
-    case 4: return launch_merge_copy<uint32_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
-    case 8: return launch_merge_copy<unsigned long long>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, s);
+    case 1: return launch_merge_copy<uint8_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, true, s);
+    case 2: return launch_merge_copy<uint16_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, true, s);
+    case 4: return launch_merge_copy<uint32_t>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, true, s);
+    case 8: return launch_merge_copy<unsigned long long>(win, vals, out, R, n, vl, list, vl, rows, blocks, wunit, vunit, true, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -13,12 +13,14 @@ sources in parallel (:data:`SOURCES` lists them all).  A missing ``nvcc``
 or a failed build raises; nothing falls back to a plain version.  The
 CUDA launch helpers shared by the kernel wrappers
 (:func:`rows_per_block`, :func:`dyn_net_bytes`, :func:`copy_tile_rows`,
-:func:`merge_tile_rows`, :func:`copy_unit`, :func:`check_cuda`,
+:func:`merge_tile_rows`, :func:`interleave_tile_rows`,
+:func:`copy_unit`, :func:`check_cuda`,
 :func:`cuda_stream`, :func:`layer_table`) live here too, with
 :func:`dyn_sources_plain`, the torch-ops twin of the source table that
 B6, B8 and B9 derive on the card; :func:`merge_pairs` /
-:func:`merge_copy_plain`, the list of occupied lanes B9's merge copy walks
-and that copy as torch ops; and :func:`staged_units` /
+:func:`merge_copy_plain`, the list of occupied lanes the merge copy walks
+(derived on the card for B9, from the host plan for B5) and that copy as
+torch ops; and :func:`staged_units` /
 :func:`staged_copy_plain`, the staged-unit list and remapped table that
 B3 and B4 take from the host plan, and their composition as torch ops.
 """
@@ -214,8 +216,8 @@ def dyn_net_bytes(n: int) -> int:
 
 #: Shared memory of one block of the copies in ``csrc/perm_copy.cuh`` (the
 #: permuted copy of B1 and of B6 / B8, the staged copy of B3 and B4, the
-#: merge copy of B9): two blocks share an SM, each with two staged input
-#: tiles of about 32 KB at the main shape.
+#: merge copy of B5 and B9, the interleave copy of B2): two blocks share an
+#: SM, each with two staged input tiles of about 32 KB at the main shape.
 COPY_SMEM = 96 * 1024
 
 
@@ -259,6 +261,51 @@ def merge_tile_rows(R: int, n: int, vl: int, kmax: int, elem: int,
             f"memory ({fixed + per_row} B > {SMEM_LIMIT} B)")
     return max(1, min(R, (COPY_SMEM - fixed) // per_row,
                       -(-R // max(1, blocks))))
+
+
+def _pad(b: int, to: int) -> int:
+    return -(-b // to) * to
+
+
+def interleave_skew(fields: int, elem: int) -> int:
+    """Bytes between the banks of consecutive field tiles in the
+    interleave copy (``interleave_skew`` in ``csrc/perm_copy.cuh``): a
+    warp's loads of one row take about ``1/fields`` of one 128-byte
+    wavefront from each field, so field f's tile starts ``f`` times this
+    many bytes further round the banks (16-byte aligned, for cp.async)."""
+    return _pad(-(-min(32 * elem, 128) // fields), 16)
+
+
+def interleave_smem(n: int, fields: int, rows: int, elem: int) -> int:
+    """Shared memory of one block of the interleave copy (B2), as
+    ``interleave_copy_smem`` in ``csrc/perm_copy.cuh`` carves it: the
+    table (``n`` uint16), two staged input tiles of ``fields`` field tiles
+    each (``(rows, m)``, padded to 128 bytes plus the bank skew) and the
+    ``(rows, n)`` output tile."""
+    m = n // fields
+    return (_pad(2 * n, 16) + 2 * fields * (
+        _pad(rows * m * elem, 128) + interleave_skew(fields, elem))
+        + _pad(rows * n * elem, 16))
+
+
+def interleave_tile_rows(R: int, n: int, fields: int, elem: int,
+                         blocks: int) -> int:
+    """Row-tile height of the interleave copy (B2): the most rows whose
+    :func:`interleave_smem` fits :data:`COPY_SMEM` (one row at least, if
+    that fits the card's 227 KB at all; raises beyond that), and low
+    enough that ``blocks`` blocks share the ``R`` rows when ``R`` allows
+    it.  The table is uint16, so at n = 6144 in bf16 a tile holds 2
+    rows."""
+    if interleave_smem(n, fields, 1, elem) > SMEM_LIMIT:
+        raise ValueError(
+            f"interleave copy of {n} lanes x {elem} B does not fit shared "
+            f"memory ({interleave_smem(n, fields, 1, elem)} B > "
+            f"{SMEM_LIMIT} B)")
+    rows = max(1, (COPY_SMEM - interleave_smem(n, fields, 0, elem))
+               // (3 * n * elem))
+    while rows > 1 and interleave_smem(n, fields, rows, elem) > COPY_SMEM:
+        rows -= 1
+    return max(1, min(R, rows, -(-R // max(1, blocks))))
 
 
 def copy_unit(nbytes: int, *ptrs: int) -> int:
@@ -331,11 +378,12 @@ def dyn_sources_plain(shift: torch.Tensor, valid: torch.Tensor, *,
 
 
 def merge_pairs(table: torch.Tensor) -> torch.Tensor:
-    """The list B9's merge copy walks, from an ``(n,)`` scatter source
-    table (``dyn_sources_plain(..., gsn=False)``): ``(K, 2)`` int32, the
+    """The list the merge copy walks, from an ``(n,)`` scatter source
+    table (B9's ``dyn_sources_plain(..., gsn=False)``, or B5's host plan
+    table, ``ShiftPlan.source`` under ``.valid``): ``(K, 2)`` int32, the
     occupied lanes in lane order beside the values lane each takes (the
-    list the derive kernel compacts on the card, without its leading
-    count)."""
+    list B9's derive kernel compacts on the card and B5's wrapper uploads,
+    without its leading count)."""
     lanes = torch.nonzero(table >= 0)[:, 0]
     return torch.stack([lanes, table[lanes].long()], dim=1).to(torch.int32)
 
@@ -359,22 +407,24 @@ def min_blocks(device: torch.device) -> int:
     return 2 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def check_cuda(t: torch.Tensor, what: str) -> None:
-    """Raise unless ``t`` is a contiguous CUDA tensor of 1/2/4/8-byte
-    elements (what the kernels take)."""
+def check_cuda(t: torch.Tensor, what: str) -> torch.Tensor:
+    """``t`` as the kernels read it: raise unless it is a CUDA tensor of
+    1/2/4/8-byte elements, and return it contiguous.  The kernels read
+    ``data_ptr()`` as dense rows; a view the reference takes (a transpose,
+    a last-dim slice of a wider tensor) comes back as a contiguous copy,
+    and a contiguous tensor as itself."""
     if t.device.type != "cuda":
         raise ValueError(f"{what}: tensor on {t.device}, want cuda or cpu")
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: the kernel takes contiguous tensors")
     if t.element_size() not in (1, 2, 4, 8):
         raise ValueError(f"{what}: element size {t.element_size()} "
                          f"not in (1, 2, 4, 8)")
+    return t.contiguous()
 
 
 def cuda_stream(t: torch.Tensor) -> int:
     """The handle of PyTorch's current stream on ``t``'s card (the kernels
-    launch on it)."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    launch on it), read without building a ``torch.cuda.Stream``."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def layer_table(plans, spans, *, relative: bool) -> tuple[list, list]:

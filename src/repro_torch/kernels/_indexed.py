@@ -66,13 +66,12 @@ def _build_plan_operands(plan, device: torch.device) -> dict:
 
 
 def _launch(x: torch.Tensor, wrapper, occupancy: bool, call):
-    """Flatten CUDA ``x`` to (R, n) rows, allocate the payload (and with
-    ``occupancy`` a bool occupancy of the same shape), launch through
-    ``call(lib, flat, out, occ_ptr, R, n)`` and count it on ``wrapper``;
-    no launch for an empty ``x``."""
+    """Flatten CUDA ``x`` (contiguous, ``_common.check_cuda``) to (R, n)
+    rows, allocate the payload (and with ``occupancy`` a bool occupancy
+    of the same shape), launch through ``call(lib, flat, out, occ_ptr, R,
+    n)`` and count it on ``wrapper``; no launch for an empty ``x``."""
     what = wrapper.__name__
-    _common.check_cuda(x, what)
-    flat, _ = _common.flatten_rows(x)
+    flat, _ = _common.flatten_rows(_common.check_cuda(x, what))
     R, n = flat.shape
     out = torch.empty_like(flat)
     occ = torch.empty(flat.shape, dtype=torch.bool, device=x.device) \

@@ -62,7 +62,7 @@ def route_rows(rows: torch.Tensor, masks: torch.Tensor,
     if rows.device.type == "cpu":
         return route_rows_plain(rows, masks, out_valid,
                                 toward_zero=toward_zero, lsb_first=lsb_first)
-    _common.check_cuda(rows, "route_rows")
+    rows = _common.check_cuda(rows, "route_rows")
     out = torch.empty_like(rows)
     row_bytes = rows[0].numel() * rows.element_size() if n else 0
     if not row_bytes:

@@ -19,7 +19,16 @@ networks whose counts come from ``core/scg.py``.
   is known on the host, so each call is one permuted copy of the rows
   through it (``perm_copy_kernel``, ``csrc/perm_copy.cuh``).  The wrapper
   keeps the ``(fields, m)`` table (:func:`deinterleave_table`) in the plan
-  cache, uploaded once per plan.  B2 keeps the plan's layer loop.
+  cache, uploaded once per plan.
+* B2 runs no plan layer either: an interleave plan's composed table
+  (output lane f + j*fields takes lane j of field f) is known on the host,
+  so each call is one interleave copy of the fields' rows through the
+  ``(n,)`` table (:func:`interleave_table`; ``interleave_copy_kernel``,
+  ``csrc/perm_copy.cuh``).  One plan-cache entry per ``(n, fields, plans,
+  device)`` holds the uploaded table and what the launch needs, so a call
+  pays one lookup and one short ctypes call.  B1 and B2 are launched
+  without Programmatic Dependent Launch: the kernel before them wrote
+  their input.
 * ``fused=False`` hands the call to :func:`deinterleave_dynamic` (B6) and
   :func:`interleave_dynamic` (B7): one launch of the dynamic kernel for a
   CUDA tensor, or for a CPU tensor the plain version
@@ -28,8 +37,10 @@ networks whose counts come from ``core/scg.py``.
   CUDA kernels (one derivation of the fields' source tables, then B1's
   permuted copy of the rows through them) and counts as one.
 
-Each wrapper counts ``calls`` (every entry, any device) and ``launches``
-(kernel launches only, counted where the kernel launched).
+CUDA operands may be views: each wrapper reads a contiguous copy of a
+non-contiguous one (``_common.check_cuda``).  Each wrapper counts
+``calls`` (every entry, any device) and ``launches`` (kernel launches
+only, counted where the kernel launched).
 """
 from __future__ import annotations
 
@@ -184,6 +195,30 @@ def deinterleave_table(mode: str, plans, n: int, fields: int) -> np.ndarray:
     return np.where(valid & (src >= 0) & (src < n), src, -1).astype(np.int32)
 
 
+def interleave_table(mode: str, plans, n: int, fields: int) -> np.ndarray:
+    """B2's table, composed from the host plans: ``(n,)`` int32, entry c
+    the lane of the concatenated fields, ``f*m + j``, that output lane c
+    takes (``f*m + j`` at lane ``f + j*fields`` for every interleave
+    plan).  For the ``fused`` plan, ``plans[0].source[:n]`` under
+    ``.valid`` (the plan may be wider than n; a source in its zero
+    padding, ``>= n``, is -1); per field, ``plans[f].source`` under
+    ``.valid`` in field order, a later field winning, as
+    :func:`route_interleave` merges (a source in field f's zero padding,
+    ``>= m``, is -1).  -1 where no plan fills the lane (the copy writes 0
+    there)."""
+    m = n // fields
+    if mode == "fused":
+        src, valid = plans[0].source[:n], plans[0].valid[:n]
+        return np.where(valid & (src >= 0) & (src < n), src,
+                        -1).astype(np.int32)
+    table = np.full(n, -1, np.int64)
+    for f, p in enumerate(plans):
+        src, valid = p.source[:n], p.valid[:n]
+        table[valid] = np.where((src >= 0) & (src < m), f * m + src,
+                                -1)[valid]
+    return table.astype(np.int32)
+
+
 def _build_operands(direction: str, mode: str, plans, n: int, fields: int,
                     device: torch.device) -> dict:
     masks, spans = _common.stack_plan_masks(plans)
@@ -197,18 +232,31 @@ def _build_operands(direction: str, mode: str, plans, n: int, fields: int,
         # B1 copies each row through the plans' composed table
         ops["table"] = torch.from_numpy(
             deinterleave_table(mode, plans, n, fields)).to(device)
-        return ops
-    layers, plan_lo = _common.layer_table(plans, spans, relative=False)
-    packed = _common.pack_bits(masks)
-    ops.update(
-        width=plans[0].n, S=packed.shape[0], words=packed.shape[1],
-        nplans=len(plans),
-        masks_bits=torch.from_numpy(packed.view(np.int32)).to(device),
-        valid_bits=torch.from_numpy(
-            _common.pack_bits(valid).view(np.int32)).to(device),
-        layers=torch.tensor(layers, dtype=torch.int32, device=device),
-        plan_lo=torch.tensor(plan_lo, dtype=torch.int32, device=device))
     return ops
+
+
+def _interleave_launch(n: int, fields: int, plans,
+                       device: torch.device) -> dict:
+    """What B2's launch needs, one plan-cache entry per ``(n, fields,
+    plans, device)`` (``plans`` None: the cost model's pick): the library
+    and its bound entry point, the :func:`interleave_table` uploaded, the
+    grid's block count and, filled as calls come, the tile height per
+    (rows, element size).  The copy unit depends on the call's pointers,
+    so the entry point picks it."""
+    key = ("seg.interleave", n, fields, plans, device)
+    return PLANS.get(key, lambda: _build_interleave_launch(n, fields, plans,
+                                                           device))
+
+
+def _build_interleave_launch(n: int, fields: int, plans,
+                             device: torch.device) -> dict:
+    mode, pl = plans if plans is not None else \
+        shiftplan.segment_interleave_plans(n, fields)
+    table = torch.from_numpy(interleave_table(mode, pl, n, fields)).to(device)
+    lib = _lib()
+    return {"lib": lib, "fn": lib.segment_interleave, "table": table,
+            "table_ptr": table.data_ptr(),
+            "blocks": _common.min_blocks(device), "rows": {}}
 
 
 def _lib():
@@ -218,8 +266,7 @@ def _lib():
         lib.segment_deinterleave.argtypes = [
             I, P, P, I, LL, I, I, P, I, I, I, P]
         lib.segment_deinterleave.restype = I
-        lib.segment_interleave.argtypes = [
-            I, P, P, I, LL, I, I, I, I, P, I, I, P, P, I, P, I, P]
+        lib.segment_interleave.argtypes = [I, P, P, I, LL, I, P, I, I, P]
         lib.segment_interleave.restype = I
         lib.segment_deinterleave_dyn.argtypes = [
             I, P, P, I, LL, I, I, P, I, I, I, P]
@@ -284,7 +331,7 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
     m = n // fields
     if aos.device.type == "cpu":
         return deinterleave_plain(aos, fields, plans=plans)
-    _common.check_cuda(aos, "deinterleave")
+    aos = _common.check_cuda(aos, "deinterleave")
     if fields > MAX_FIELDS:
         raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
     mode, pl = plans if plans is not None else \
@@ -320,7 +367,7 @@ def deinterleave_dynamic(aos: torch.Tensor,
     m = n // fields
     if aos.device.type == "cpu":
         return deinterleave_dynamic_plain(aos, fields)
-    _common.check_cuda(aos, "deinterleave_dynamic")
+    aos = _common.check_cuda(aos, "deinterleave_dynamic")
     if fields > MAX_FIELDS:
         raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
     flat, lead = _common.flatten_rows(aos)
@@ -375,7 +422,11 @@ def deinterleave_many(aos_list: list[torch.Tensor], fields: int, *,
 
 def interleave(soa: list[torch.Tensor], *, fused: bool = True,
                plans: tuple | None = None) -> torch.Tensor:
-    """fields x (..., m) -> (..., fields*m)   (segment store)."""
+    """fields x (..., m) -> (..., fields*m)   (segment store).
+
+    Kernel B2: one interleave copy of the rows through the plans' composed
+    table.  ``plans`` overrides the cost model's ``(mode, plans)`` pick
+    (the card check forces the fused Benes plan)."""
     interleave.calls += 1
     if not fused:
         return interleave_dynamic(soa)
@@ -384,36 +435,29 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
     x0 = _check_fields(soa)
     m = x0.shape[-1]
     n = m * fields
-    if x0.device.type == "cpu":
+    dev = x0.device
+    if dev.type == "cpu":
         return interleave_plain(soa, plans=plans)
-    for t in soa:
-        _common.check_cuda(t, "interleave")
-    mode, pl = plans if plans is not None else \
-        shiftplan.segment_interleave_plans(n, fields)
-    lead = tuple(x0.shape[:-1])
-    flats = [t.reshape(-1, m) for t in soa]
-    ops = _operands("int", mode, pl, n, fields, x0.device)
+    _common.check_cuda(x0, "interleave")
     if fields > MAX_FIELDS:
         raise ValueError(f"interleave kernel takes <= {MAX_FIELDS} fields")
-    R = flats[0].shape[0]
-    out = torch.empty((R, n), dtype=x0.dtype, device=x0.device)
+    out = x0.new_empty(x0.shape[:-1] + (n,))
+    R = x0.numel() // m if m else 0
     if R:
-        lib = _lib()
+        ent = _interleave_launch(n, fields, plans, dev)
         elem = x0.element_size()
-        vrows = 0 if mode == "fused" else ops["nplans"]
-        rows = rows_per_block(R, ops["width"], elem,
-                              (ops["S"] + vrows) * ops["words"] * 4,
-                              _common.min_blocks(x0.device))
-        ptrs = (ctypes.c_void_p * fields)(*[f.data_ptr() for f in flats])
-        status = lib.segment_interleave(
-            elem, ptrs, out.data_ptr(), fields, R, n, m, ops["width"],
-            int(mode == "fused"), ops["masks_bits"].data_ptr(), ops["S"],
-            ops["words"], ops["layers"].data_ptr(),
-            ops["plan_lo"].data_ptr(), ops["nplans"],
-            ops["valid_bits"].data_ptr(), rows, _common.cuda_stream(x0))
-        _check(lib, status, "interleave")
+        rows = ent["rows"].get((R, elem))
+        if rows is None:
+            rows = ent["rows"][R, elem] = _common.interleave_tile_rows(
+                R, n, fields, elem, ent["blocks"])
+        dense = [t.contiguous() for t in soa]
+        status = ent["fn"](
+            elem, (ctypes.c_void_p * fields)(*[t.data_ptr() for t in dense]),
+            out.data_ptr(), fields, R, m, ent["table_ptr"], rows,
+            ent["blocks"], _common.cuda_stream(x0))
+        _check(ent["lib"], status, "interleave")
         interleave.launches += 1
-    return out.reshape(lead + (n,))
+    return out
 
 
 interleave.calls = 0
@@ -444,8 +488,7 @@ def interleave_dynamic(soa: list[torch.Tensor]) -> torch.Tensor:
     n = m * fields
     if x0.device.type == "cpu":
         return interleave_dynamic_plain(soa)
-    for t in soa:
-        _common.check_cuda(t, "interleave_dynamic")
+    soa = [_common.check_cuda(t, "interleave_dynamic") for t in soa]
     if fields > MAX_FIELDS:
         raise ValueError(f"interleave kernel takes <= {MAX_FIELDS} fields")
     lead = tuple(x0.shape[:-1])

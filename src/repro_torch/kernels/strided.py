@@ -22,7 +22,14 @@ static shift + one select per layer), or, with ``compiled=False`` (policy
   lane, or the whole row where those touch every 32-byte sector) and the
   table remapped into the row compacted to those units
   (:func:`staged_operands`), uploaded once per plan-cache entry; the
-  kernel stages only those units.  B5 keeps the plan's layer loop.
+  kernel stages only those units.
+* B5 runs no plan layer either: a scatter plan's table gives, on the host,
+  the list of the lanes it occupies beside the values lane each takes
+  (:func:`scatter_pairs`, ``_common.merge_pairs`` on the plan's table),
+  uploaded once per plan-cache entry in B9's list format.  Each call is
+  one merge copy (``merge_copy_kernel``, ``csrc/perm_copy.cuh``), B9's
+  copy without its derive kernel, launched without Programmatic Dependent
+  Launch: the kernel before it wrote the window or the values.
 * ``compiled=False`` hands the call to :func:`gather_strided_dynamic`
   (B8) and :func:`scatter_strided_dynamic` (B9): one launch of the dynamic
   kernel per access (A launches for a fused gather of A windows, as the
@@ -30,11 +37,13 @@ static shift + one select per layer), or, with ``compiled=False`` (policy
   SSN of ``core/shiftnet.py``.  Each launch is two CUDA kernels and counts
   as one: one derivation of the network into a source table, then a copy
   of the rows through it.  B8's copy permutes the window's rows into the
-  vl output lanes; B9's merges the values into a copy of the window, its
-  derive kernel compacting the table into the list of occupied lanes and
-  their values lanes (vl pairs, :func:`dynamic_merge_list`).
+  vl output lanes; B9's is B5's merge copy, its derive kernel compacting
+  the table into the list of occupied lanes and their values lanes (vl
+  pairs, :func:`dynamic_merge_list`).
 
-A window the access does not fit (``offset + (vl-1)*stride >= n``, a
+CUDA operands may be views: each wrapper reads a contiguous copy of a
+non-contiguous one (``_common.check_cuda``).  A window the access does not
+fit (``offset + (vl-1)*stride >= n``, a
 negative offset or a stride below 1) raises ``ValueError``.  Each wrapper
 counts ``calls`` (every entry, any device) and ``launches`` (kernel
 launches only, counted where the kernel launched).
@@ -90,15 +99,29 @@ def _build_operands(kind: str, n: int, pairs: tuple, vl: int,
         ops.update(source_np=source, staged={},
                    source=torch.from_numpy(source).to(device))
         return ops
-    layers, plan_lo = _common.layer_table(plans, spans, relative=True)
-    packed = _common.pack_bits(masks)
-    ops.update(
-        words=packed.shape[1], S=packed.shape[0], nlayers=plan_lo[-1],
-        masks_bits=torch.from_numpy(packed.view(np.int32)).to(device),
-        valid_bits=torch.from_numpy(_common.pack_bits(
-            plans[0].valid.reshape(1, n)).view(np.int32)).to(device),
-        layers=torch.tensor(layers, dtype=torch.int32, device=device))
+    # B5 merges the values through the list of the plan's occupied lanes,
+    # in B9's format {K, lane_0, src_0, ...}
+    pairs = scatter_pairs(plans[0], vl)
+    ops.update(kmax=pairs.shape[0], list=torch.cat([
+        torch.tensor([pairs.shape[0]], dtype=torch.int32),
+        pairs.reshape(-1)]).to(device))
     return ops
+
+
+def scatter_pairs(plan, vl: int) -> torch.Tensor:
+    """B5's list, composed from the host scatter plan: ``(K, 2)`` int32,
+    the lanes the plan occupies in lane order beside the values lane each
+    takes (``_common.merge_pairs`` on ``ShiftPlan.source`` under
+    ``.valid``; for an access that fits, K = vl).  Raises if a listed
+    source lies outside ``[0, vl)``: the merge copy reads only the vl
+    values, never their zero padding."""
+    pairs = _common.merge_pairs(torch.from_numpy(
+        np.where(plan.valid, plan.source, -1)))
+    src = pairs[:, 1]
+    if src.numel() and not (int(src.min()) >= 0 and int(src.max()) < vl):
+        raise ValueError(f"scatter plan sources {src.tolist()} outside "
+                         f"[0, {vl})")
+    return pairs
 
 
 def staged_operands(source, n: int, per_unit: int, elem: int) -> dict:
@@ -139,7 +162,7 @@ def _lib():
             I, P, P, I, LL, I, I, P, P, P, I, I, I, I, I, P]
         lib.strided_gather.restype = I
         lib.strided_scatter.argtypes = [
-            I, P, P, P, LL, I, I, P, I, I, P, I, P, I, P]
+            I, P, P, P, LL, I, I, P, I, I, I, I, I, P]
         lib.strided_scatter.restype = I
         lib.strided_gather_dyn.argtypes = [
             I, P, P, LL, I, I, I, I, P, I, I, I, P]
@@ -268,7 +291,7 @@ def gather_strided(window: torch.Tensor, stride: int, offset: int, vl: int,
     check_fits(n, stride, offset, vl)
     if window.device.type == "cpu":
         return gather_strided_plain(window, stride, offset, vl)
-    _common.check_cuda(window, "gather_strided")
+    window = _common.check_cuda(window, "gather_strided")
     flat, lead = _common.flatten_rows(window)
     R = flat.shape[0]
     if not (R and vl):
@@ -302,7 +325,7 @@ def gather_strided_fused(windows: torch.Tensor, specs, vl: int, *,
                             for a, (s, o) in enumerate(pairs)])
     if windows.device.type == "cpu":
         return gather_strided_fused_plain(windows, pairs, vl)
-    _common.check_cuda(windows, "gather_strided_fused")
+    windows = _common.check_cuda(windows, "gather_strided_fused")
     lead = tuple(windows.shape[1:-1])
     R = windows[0].numel() // n if n else 0
     if not (R and vl):
@@ -321,7 +344,8 @@ def scatter_strided(window: torch.Tensor, values: torch.Tensor, stride: int,
                     offset: int, *, compiled: bool = True) -> torch.Tensor:
     """Merge dense ``values`` (..., vl) into the strided lanes of
     ``window`` (..., n), out of place (kernel B5, the read-modify-write
-    store)."""
+    store: one merge copy of the rows through the list of the plan's
+    occupied lanes)."""
     scatter_strided.calls += 1
     if not compiled:
         return scatter_strided_dynamic(window, values, stride, offset)
@@ -330,8 +354,8 @@ def scatter_strided(window: torch.Tensor, values: torch.Tensor, stride: int,
     _check_values(window, values)
     if window.device.type == "cpu":
         return scatter_strided_plain(window, values, stride, offset)
-    _common.check_cuda(window, "scatter_strided")
-    _common.check_cuda(values, "scatter_strided")
+    window = _common.check_cuda(window, "scatter_strided")
+    values = _common.check_cuda(values, "scatter_strided")
     fw, lead = _common.flatten_rows(window)
     R = fw.shape[0]
     if not (R and vl):
@@ -340,14 +364,14 @@ def scatter_strided(window: torch.Tensor, values: torch.Tensor, stride: int,
     out = torch.empty_like(fw)
     lib = _lib()
     elem = fw.element_size()
-    rows = _common.rows_per_block(
-        R, n, elem, (ops["S"] + 1) * ops["words"] * 4,
-        _common.min_blocks(window.device), buffers=2)
+    blocks = _common.min_blocks(window.device)
+    rows = _common.merge_tile_rows(R, n, vl, ops["kmax"], elem, blocks)
+    wunit = _common.copy_unit(n * elem, fw.data_ptr(), out.data_ptr())
+    vunit = _common.copy_unit(vl * elem, values.data_ptr())
     status = lib.strided_scatter(
         elem, values.data_ptr(), fw.data_ptr(), out.data_ptr(), R, n, vl,
-        ops["masks_bits"].data_ptr(), ops["S"], ops["words"],
-        ops["layers"].data_ptr(), ops["nlayers"],
-        ops["valid_bits"].data_ptr(), rows, _common.cuda_stream(window))
+        ops["list"].data_ptr(), ops["kmax"], rows, blocks, wunit, vunit,
+        _common.cuda_stream(window))
     _check(lib, status, "scatter_strided")
     scatter_strided.launches += 1
     return out.reshape(lead + (n,))
@@ -377,7 +401,7 @@ def gather_strided_dynamic(window: torch.Tensor, stride: int, offset: int,
     check_fits(n, stride, offset, vl)
     if window.device.type == "cpu":
         return gather_strided_dynamic_plain(window, stride, offset, vl)
-    _common.check_cuda(window, "gather_strided_dynamic")
+    window = _common.check_cuda(window, "gather_strided_dynamic")
     flat, lead = _common.flatten_rows(window)
     R = flat.shape[0]
     if not (R and vl):
@@ -419,8 +443,8 @@ def scatter_strided_dynamic(window: torch.Tensor, values: torch.Tensor,
     _check_values(window, values)
     if window.device.type == "cpu":
         return scatter_strided_dynamic_plain(window, values, stride, offset)
-    _common.check_cuda(window, "scatter_strided_dynamic")
-    _common.check_cuda(values, "scatter_strided_dynamic")
+    window = _common.check_cuda(window, "scatter_strided_dynamic")
+    values = _common.check_cuda(values, "scatter_strided_dynamic")
     fw, lead = _common.flatten_rows(window)
     R = fw.shape[0]
     if not (R and vl):
