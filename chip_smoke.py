@@ -23,10 +23,12 @@ Phases, in order (any failure raises and exits non-zero):
    version AND its plan twin: B6/B7 (also at 96 lanes) against B1/B2,
    B8/B9 against B3/B5, the dynamic fused gather (one B8 per access)
    against B4; the device derivation of the dynamic network against
-   ``shiftnet.layer_masks``; the source tables that B6, B8 and B9 derive
-   once per launch (``strided.dynamic_sources``, with the SSN's, and
-   ``segment.deinterleave_sources``) against their torch-ops twin
-   ``_common.dyn_sources_plain``, and B9's list of occupied lanes
+   ``shiftnet.layer_masks``; the source tables that B6, B7, B8 and B9
+   derive once per launch (``strided.dynamic_sources``, with the SSN's,
+   ``segment.deinterleave_sources`` and ``segment.interleave_sources``)
+   against their torch-ops twin ``_common.dyn_sources_plain``, B7's merged
+   table (read off B7 on numbered fields) against
+   ``segment.interleave_dynamic_table``, and B9's list of occupied lanes
    (``strided.dynamic_merge_list``) against ``_common.merge_pairs``; and
    every kernel wrapper (B1-B14) and the ``vx`` Strided and Segment verbs
    on a transposed view and on a last-dim slice of a wider tensor, against
@@ -37,10 +39,11 @@ Phases, in order (any failure raises and exits non-zero):
    timed call is first held bit for bit against its plain version.  B1 and
    B6 run the fused FIELD=2 KV split of qwen3-0.6b's full-width decode KV
    stack ``(28, 4, 512, 8, 256)`` bf16, B2 and B7 a 16-token prefill
-   chunk's K/V beat re-pack ``(1, 16, 8, 128)`` x2 bf16 (B2 also its
-   device time alone, in a CUDA graph, beside the library call's, and at
-   the stack's bytes beside B1; B2 of B1's split must give the stack back
-   bit for bit).  The strided kernels run on that KV stack (B4's ``(2,0),
+   chunk's K/V beat re-pack ``(1, 16, 8, 128)`` x2 bf16 (each also its
+   device time alone, in a CUDA graph, beside the library call's, its host
+   path split into the ctypes call, the allocations and Python, and its
+   time at the stack's bytes, B2 beside B1 and B7 beside B2; B2 and B7 of
+   B1's split must give the stack back bit for bit).  The strided kernels run on that KV stack (B4's ``(2,0),
    (2,1)`` split must equal B1's FIELD=2 split bit for bit; B3, B5, B8 and
    B9 at (2,1), vl 128), then over the Fig. 12 sweep of
    benchmarks/bench_strided.py at card size (MLEN 128, vl 64, offset 0,
@@ -54,7 +57,8 @@ Phases, in order (any failure raises and exits non-zero):
    interleave copy through the table composed from the host plan, B3 and B4
    one staged copy each through tables composed from the host plan, B5 one
    merge copy through the list composed from the host plan; B6 and B8 a
-   derive kernel and a permuted copy, B9 a derive kernel and a merge copy;
+   derive kernel and a permuted copy, B7 a derive kernel and B2's
+   interleave copy, B9 a derive kernel and a merge copy;
 4. qwen3-0.6b at full width (28 layers, d_model 1024, vocab 151936, seeded
    random weights) served through the port's ``Scheduler``: 4 requests of
    40-100 prompt tokens, 16 greedy tokens each, under the policies
@@ -82,12 +86,18 @@ Phases, in order (any failure raises and exits non-zero):
    the counts of ``scg.gather_counts`` / ``scatter_counts`` at (96, 3, 1),
    (256, 2, 1), (100, 7, 5), (4095, 64, 0) and (1, 1, 0) and of
    ``compaction_counts`` / ``expansion_counts`` of random masks, and B12
-   / B14 against their plan twins B11 / B13; on the KV stack of phase 5
+   / B14 against their plan twins B11 / B13, B14 also on random operand
+   counts, and B14's device source table and unit lists (its derive kernel
+   alone) against ``_common.dyn_sources_plain`` and
+   ``_indexed.staged_units_plain``; on the KV stack of phase 5
    with the counts of ``gather_counts(256, 2, 1, 128)`` /
    ``scatter_counts``, B12 and B11 must equal B3 on lanes [0, 128) and 0
    beyond, and ``where(occ, payload, window)`` of B14 and B13 must equal
    B5, and each is timed (library call: ``torch.gather`` with the plan's
-   source index plus a ``where``); at qwen3-moe-30b-a3b's width (d_model
+   source index plus a ``where``; B14 beside its derivation alone at n =
+   256 and 4095, a derive kernel that also lists the input units holding a
+   source lane and a staged copy that reads only those and also writes the
+   occupancy); at qwen3-moe-30b-a3b's width (d_model
    2048, 128 experts, top-8; 2048- and 512-token chunks, n = 16384 and
    4096 units, one shard of 4-way expert parallelism set) ``vx.compact``
    then ``vx.scatter(Compact)`` must give ``where(mask, rows, 0)`` and the
@@ -450,7 +460,22 @@ def check_dynamic(dev) -> int:
                     n, fields, device=dev).cpu(), want):
                 raise AssertionError(f"B6 source tables != twin: n={n} "
                                      f"fields={fields}")
-            cases += 1
+            # B7: the fields' SSN tables, and the merged table its copy
+            # composes, read off B7 on fields numbered 1 + f*m + j
+            want = torch.stack([_common.dyn_sources_plain(
+                *scg.scatter_counts(n, fields, f, m), gsn=False)
+                for f in range(fields)])
+            ids = [torch.arange(1 + f * m, 1 + (f + 1) * m, device=dev,
+                                dtype=torch.int32).expand(3, m).contiguous()
+                   for f in range(fields)]
+            merged = segment.interleave(ids, fused=False).cpu() - 1
+            if not (torch.equal(segment.interleave_sources(
+                    n, fields, device=dev).cpu(), want) and torch.equal(
+                    merged, torch.from_numpy(segment.interleave_dynamic_table(
+                        n, fields)).expand(3, n))):
+                raise AssertionError(f"B7 source tables != twin: n={n} "
+                                     f"fields={fields}")
+            cases += 2
     return cases
 
 
@@ -674,12 +699,21 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
           f"calls); at the host's launch rate kernel "
           f"{out['interleave']['ms']:.4f} ms, library "
           f"{out['interleave']['library_ms']:.4f} ms")
-    host_path(k, v)
+    host_path(k, v, dynamic=False)
     out["interleave_dynamic"] = record(
         "interleave_dynamic", lambda: segment.interleave([k, v], fused=False),
         lambda: segment.interleave_dynamic_plain([k, v]),
         lambda: torch.stack([k, v], dim=-1).flatten(-2),
         4 * k.numel() * k.element_size(), list(k.shape) + ["x2"])
+    # B7's device time alone (derive kernel + interleave copy under PDL)
+    dev7 = graph_ms(lambda: segment.interleave([k, v], fused=False), 20)
+    print(f"time interleave_dynamic device-only {list(k.shape) + ['x2']}: "
+          f"kernel {dev7:.4f} ms (derive kernel + interleave copy), B2 "
+          f"{dev_ms:.4f} ms, library {lib_dev:.4f} ms (CUDA graph of 20 "
+          f"calls); at the host's launch rate kernel "
+          f"{out['interleave_dynamic']['ms']:.4f} ms, library "
+          f"{out['interleave_dynamic']['library_ms']:.4f} ms")
+    host_path(k, v, dynamic=True)
     # B2 at a decode-step-sized stack (printed only; the main path keeps
     # single-token beats below the launch threshold)
     kb = kv[..., :hd].contiguous()
@@ -693,11 +727,23 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
                    f"; B1 on the same bytes {b1:.4f} ms")
     print(f"interleave[stack] / deinterleave (B2 / B1, the same bytes): "
           f"{stack['ms'] / b1:.4f}")
+    # B7 on the same bytes: the derivation at n = 256 under the copy's
+    # first tile loads
+    stack7 = record("interleave_dynamic[stack]",
+                    lambda: segment.interleave([kb, vb], fused=False),
+                    lambda: segment.interleave_dynamic_plain([kb, vb]),
+                    lambda: torch.stack([kb, vb], dim=-1).flatten(-2),
+                    4 * kb.numel() * kb.element_size(),
+                    list(kb.shape) + ["x2"],
+                    f"; B2 on the same bytes {stack['ms']:.4f} ms")
+    print(f"interleave_dynamic[stack] / interleave[stack] (B7 / B2, the same "
+          f"bytes): {stack7['ms'] / stack['ms']:.4f}")
     del kb, vb
     split = segment.deinterleave(kv, 2)
-    if not same_bits(segment.interleave(split), kv):
-        raise AssertionError("B2 does not invert B1 on the KV stack")
-    print(f"B2(B1(kv)) == kv on {list(kv.shape)}, bit for bit")
+    if not (same_bits(segment.interleave(split), kv) and
+            same_bits(segment.interleave(split, fused=False), kv)):
+        raise AssertionError("B2 or B7 does not invert B1 on the KV stack")
+    print(f"B2(B1(kv)) == B7(B1(kv)) == kv on {list(kv.shape)}, bit for bit")
     out.update(time_strided(dev, kv, split))
     del kv
     torch.cuda.empty_cache()
@@ -705,12 +751,13 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
     return out
 
 
-def host_path(k, v) -> None:
-    """Where B2's time at a launch-sized shape goes on the host: the
-    wrapper's host-clock time per call over 2000 back-to-back calls,
-    beside its parts run alone the same way (the output's allocation, and
-    the ctypes call of the entry point with the entry's arguments, which
-    holds the CUDA launch), and the library call's (printed)."""
+def host_path(k, v, *, dynamic: bool) -> None:
+    """Where B2's (or with ``dynamic`` B7's) time at a launch-sized shape
+    goes on the host: the wrapper's host-clock time per call over 2000
+    back-to-back calls, beside its parts run alone the same way (the
+    allocations: the output, and for B7 its tables' workspace; the ctypes
+    call of the entry point with the entry's arguments, which holds the
+    CUDA launches), and the library call's (printed)."""
     import ctypes
     import torch
     from repro_torch.kernels import _common, segment
@@ -727,23 +774,42 @@ def host_path(k, v) -> None:
 
     m = k.shape[-1]
     R = k.numel() // m
-    out = segment.interleave([k, v])
-    ent = segment._interleave_launch(2 * m, 2, None, k.device)
+    call = (lambda: segment.interleave([k, v], fused=not dynamic))
+    out = call()
+    if dynamic:
+        ent = segment._interleave_dyn_launch(2 * m, 2, k.device)
+        table = torch.empty((2, 2 * m), dtype=torch.int32, device=k.device)
+        table_ptr = table.data_ptr()
+
+        def allocate():
+            k.new_empty(k.shape[:-1] + (2 * m,))
+            torch.empty((2, 2 * m), dtype=torch.int32, device=k.device)
+    else:
+        ent = segment._interleave_launch(2 * m, 2, None, k.device)
+        table_ptr = ent["table_ptr"]
+
+        def allocate():
+            k.new_empty(k.shape[:-1] + (2 * m,))
     args = (k.element_size(), (ctypes.c_void_p * 2)(k.data_ptr(),
                                                      v.data_ptr()),
-            out.data_ptr(), 2, R, m, ent["table_ptr"],
+            out.data_ptr(), 2, R, m, table_ptr,
             ent["rows"][R, k.element_size()], ent["blocks"],
             _common.cuda_stream(k))
-    wrapper = per_call(lambda: segment.interleave([k, v]))
+    wrapper = per_call(call)
     launch = per_call(lambda: ent["fn"](*args))
-    alloc = per_call(lambda: k.new_empty(k.shape[:-1] + (2 * m,)))
+    alloc = per_call(allocate)
     library = per_call(lambda: torch.stack([k, v], dim=-1).flatten(-2))
-    print(f"host path interleave {list(k.shape) + ['x2']}: wrapper "
-          f"{wrapper:.4f} ms a call (host clock, 2000 calls), of which the "
-          f"ctypes call with its CUDA launch {launch:.4f}, the output's "
-          f"allocation {alloc:.4f}, the rest (Python: checks, plan-cache "
-          f"lookup, pointers, stream) {wrapper - launch - alloc:.4f}; "
-          f"library call {library:.4f} ms a call")
+    name = "interleave_dynamic" if dynamic else "interleave"
+    what = ("the ctypes call with its two CUDA launches (derive kernel, "
+            "copy)" if dynamic else "the ctypes call with its CUDA launch")
+    allocs = ("the output's and the tables' allocations" if dynamic else
+              "the output's allocation")
+    print(f"host path {name} {list(k.shape) + ['x2']}: wrapper "
+          f"{wrapper:.4f} ms a call (host clock, 2000 calls), of which "
+          f"{what} {launch:.4f}, {allocs} {alloc:.4f}, the rest (Python: "
+          f"checks, launch-entry lookup, pointers, stream) "
+          f"{wrapper - launch - alloc:.4f}; library call {library:.4f} ms a "
+          f"call")
 
 
 def time_strided(dev, kv, split) -> dict:
@@ -1069,10 +1135,15 @@ def check_indexed(dev) -> int:
     no layer, no launch); B11-B14 against their plain versions over the
     counts of ``scg.gather_counts`` / ``scatter_counts`` at several (n,
     stride, offset, vl) and of ``compaction_counts`` / ``expansion_counts``
-    of random masks, and B12 / B14 against their plan twins B11 / B13."""
+    of random masks, and B12 / B14 against their plan twins B11 / B13; B14
+    also on random operand counts, with its derive kernel's source table
+    against ``_common.dyn_sources_plain`` and the staged copy's operands it
+    composes against ``_indexed.staged_units_plain``."""
+    import numpy as np
     import torch
     from repro_torch.core import scg, shiftnet
-    from repro_torch.kernels import moe_compact, shift_gather, shift_scatter
+    from repro_torch.kernels import (_common, _indexed, moe_compact,
+                                     shift_gather, shift_scatter)
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 7)
 
@@ -1169,6 +1240,42 @@ def check_indexed(dev) -> int:
                     if not (same_bits(dp, tp) and torch.equal(do, to)):
                         raise AssertionError(f"B14 != B13: {where}")
                     cases += 1
+    # B14 on random operand counts (uniform, short, negative and
+    # out-of-range shifts), and its derive kernel's table against the twin
+    rng = np.random.default_rng(SEED + 7)
+    for n, _, _ in INDEXED_GEOM:
+        for lo, hi, density in ((0, n, 0.5), (0, 8, 0.8), (-n, 2 * n + 1,
+                                                            0.6)):
+            sh = torch.from_numpy(rng.integers(lo, max(hi, lo + 1), n)
+                                  .astype(np.int32))
+            va = torch.from_numpy((rng.random(n) < density).astype(np.int32))
+            want = _common.dyn_sources_plain(sh, va, gsn=False)
+            sh, va = sh.to(dev), va.to(dev)
+            # the table and the staged copy's operands, 1/2/4/8-byte lanes
+            for elem in (1, 2, 4, 8):
+                unit = _common.copy_unit(n * elem, 0)
+                table, pos, units = _indexed.dyn_sources(
+                    sh, va, gsn=False, elem=elem, unit=unit)
+                units = units.cpu().numpy()
+                wu, wp = _indexed.staged_units_plain(want.numpy(), n,
+                                                     unit // elem, elem)
+                if not (torch.equal(table.cpu(), want) and np.array_equal(
+                        pos.cpu().numpy(), wp) and np.array_equal(
+                        units[1:1 + units[0]], wu)):
+                    raise AssertionError(f"B14 staged units != twin: n={n} "
+                                         f"elem {elem} shifts in [{lo}, {hi})")
+            hs, hv = sh.cpu().numpy(), va.cpu().numpy()
+            for dtype in dtypes:
+                x = rand((1001, n), dtype)
+                dp, do = shift_scatter.shift_scatter(x, sh, va)
+                tp, to = shift_scatter.shift_scatter(x, hs, hv)
+                wp, wo = shift_scatter.shift_scatter_plain(x, sh, va)
+                torch.cuda.synchronize()
+                if not (same_bits(dp, wp) and torch.equal(do, wo)
+                        and same_bits(dp, tp) and torch.equal(do, to)):
+                    raise AssertionError(f"B14 != plain / B13: {dtype} n={n} "
+                                         f"shifts in [{lo}, {hi})")
+            cases += 1
     return cases
 
 
@@ -1206,7 +1313,9 @@ def time_indexed(dev, kv_shape) -> dict:
     (``record``); the library call is ``torch.gather`` along the lanes with
     the plan's precomputed source index, plus a ``where``."""
     import torch
-    from repro_torch.kernels import shift_gather, shift_scatter, strided
+    from repro_torch.core import scg
+    from repro_torch.kernels import (_common, _indexed, shift_gather,
+                                     shift_scatter, strided)
     ops = kv_indexed_operands(dev, kv_shape, SEED + 8)
     kv, n, st, off, vl = (ops[k] for k in ("kv", "n", "st", "off", "vl"))
     e = kv.element_size()
@@ -1273,12 +1382,32 @@ def time_indexed(dev, kv_shape) -> dict:
                                                               splan)),
         library(padded, splan), scatter_move,
         shape + ["host counts (2,1) vl 128"])
+    # B14's derive kernel alone (one block, the SSN on the operand counts,
+    # the table and the staged copy's unit list for bf16 rows) at the
+    # stack's n = 256 and on the 12-layer network at n = 4095
+    derive = {}
+    for dn, (dss, dsv) in ((n, (ss, sv)),
+                           (4095, scg.scatter_counts(4095, 64, 0, 64,
+                                                     device=dev))):
+        dss, dsv = dss.to(torch.int32), dsv.to(torch.int32)
+        unit = _common.copy_unit(dn * e, 0)
+        derive[dn] = graph_ms(lambda: _indexed.dyn_sources(
+            dss, dsv, gsn=False, elem=e, unit=unit), 20)
+        listed = int(_indexed.dyn_sources(dss, dsv, gsn=False, elem=e,
+                                          unit=unit)[2][0])
+        print(f"time shift_scatter derive n={dn}: {derive[dn]:.4f} ms for "
+              f"B14's derive kernel alone (one block: the SSN on the "
+              f"operand counts, the {dn}-entry table and the unit list, "
+              f"{listed} of {dn * e // unit} {unit}-byte units of a row; "
+              f"device time, CUDA graph)")
     out["shift_scatter"] = record(
         "shift_scatter",
         lambda: list(shift_scatter.shift_scatter(padded, ss, sv)),
         lambda: list(shift_scatter.shift_scatter_plain(padded, ss, sv)),
         library(padded, splan), scatter_move,
-        shape + ["tensor counts (2,1) vl 128"])
+        shape + ["tensor counts (2,1) vl 128"],
+        f"; SSN derivation alone {derive[n]:.4f} ms (n = {n}), "
+        f"{derive[4095]:.4f} ms (n = 4095)")
     return out
 
 
@@ -1478,8 +1607,10 @@ def indexed_phase(dev, kv_shape, timing: dict) -> dict:
     t0 = time.perf_counter()
     cases = check_indexed(dev)
     print(f"indexed kernels == plain: {cases} cases (B10 both directions; "
-          f"B12 == B11 and B14 == B13 on the same counts) bit-exact "
-          f"({time.perf_counter() - t0:.1f} s)")
+          f"B12 == B11 and B14 == B13 on the same counts, B14 also on random "
+          f"operand counts with its device source table == "
+          f"dyn_sources_plain and its unit lists == staged_units_plain) "
+          f"bit-exact ({time.perf_counter() - t0:.1f} s)")
     timing.update(time_indexed(dev, kv_shape))
     torch.cuda.empty_cache()
     timing.update(moe_compact_phase(dev))
@@ -1601,8 +1732,9 @@ def main() -> int:
     cases = check_dynamic(dev)
     print(f"dynamic kernels == plain == plan twin: {cases} cases (B6 and B7 "
           f"together, B8 and B9 together, B8 x4 against B4, the derivation "
-          f"against layer_masks, B6's, B8's and B9's device source tables "
-          f"against dyn_sources_plain, B9's device list against "
+          f"against layer_masks, B6's, B7's, B8's and B9's device source "
+          f"tables against dyn_sources_plain, B7's merged table against "
+          f"interleave_dynamic_table, B9's device list against "
           f"merge_pairs) bit-exact ({time.perf_counter() - t0:.1f} s)")
 
     cfg = config()

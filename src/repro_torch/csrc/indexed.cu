@@ -27,7 +27,7 @@
 //   B12 / B14: the same through the dynamic-count network (route_dyn.cuh)
 //        whose counts are the (n,) `shift` / `valid` operands shared by all
 //        rows; zero where the routed validity is clear; B14 also writes the
-//        routed validity.
+//        routed validity for every (row, lane).
 //
 // Bound: pure data movement, no floating point.  The least time is the
 // bytes that must move over 3.35 TB/s: B11-B14 read the 32-byte sectors
@@ -48,18 +48,33 @@
 //   widest unit (16, 8, 4, 2 or 1 bytes) that divides the row and both
 //   pointers; a row outside out_valid is written as zeros without reading
 //   its source.  One launch per call, no shared-memory staging of rows.
-//   B11 / B13: B3's tile loop (strided.cu) at vl = n, with the occupancy
-//   row beside the masks.  B12 / B14: B8's tile loop with the counts
-//   loaded from device memory into the network's count scratch instead of
-//   computed from (stride, offset); the wrapper casts them to int32 on the
-//   card and sizes the row tile with `dyn_net_bytes`, as B8 does, so one
-//   derivation serves the whole tile.  Elements move as raw bits (1, 2, 4
-//   or 8 bytes), so every dtype is bit-exact, -0.0 and NaN payloads
-//   included.
+//   B11 / B13: a row tile through route_plan's lane-major layer loop, with
+//   the occupancy row beside the masks.  B12: the same loop on the
+//   network each block derives from the counts, loaded from device memory
+//   into the network's count scratch (`operand_counts`, route_dyn.cuh);
+//   the wrapper casts them to int32 on the card and sizes the row tile
+//   with `dyn_net_bytes`, so one derivation serves the whole tile.
+//   B14 (two kernels a call): one derive kernel (`shift_sources_kernel`,
+//   one block) derives the SSN on the operand counts once, composes it into
+//   an (n,) source table (-1 where the routed validity is clear) and from
+//   that the staged copy's operands (`dyn_staged_units`, route_dyn.cuh):
+//   the list of the units of an input row (16 bytes where the row and the
+//   pointer allow) that hold a source lane, or every unit where those
+//   touch every 32-byte sector, and the table
+//   remapped into the row compacted to them.  Then B3's staged copy
+//   (perm_copy.cuh), started under Programmatic Dependent Launch, stages
+//   only the listed units of each row (on the KV stack's (2,1) scatter,
+//   the first half of each row: the values' lanes), moves the rows through
+//   the remapped table and, in the same pass, writes the occupancy (entry
+//   >= 0) for every row from the table it holds in shared memory.  No
+//   per-block derivation and no pass per layer.  Elements move as raw bits
+//   (1, 2, 4 or 8 bytes), so every dtype is bit-exact, -0.0 and NaN
+//   payloads included.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "perm_copy.cuh"
 #include "route_dyn.cuh"
 #include "route_plan.cuh"
 
@@ -235,36 +250,77 @@ static cudaError_t launch_shift_plan(const void* x, void* out, void* occ,
 }
 
 // ---------------------------------------------------------------------------
-// B12 / B14: the raw network on runtime counts
+// B14's derivation: once per launch, on the operand counts
 // ---------------------------------------------------------------------------
 
-// Fill the network's counts from the (n,) int32 operands: sc[c] =
-// shift[c], validity bit c = valid[c] != 0.  Lanes are walked in whole
-// warps (words * 32), so each validity word is one ballot.
-__device__ inline void operand_counts(DynNet& net,
-                                      const int* __restrict__ shift,
-                                      const int* __restrict__ valid) {
-  for (int c0 = 0; c0 < net.words * 32; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    bool v = false;
-    if (c < net.n) {
-      net.sc[c] = shift[c];
-      v = valid[c] != 0;
-    }
-    const uint32_t w = __ballot_sync(0xffffffffu, v);
-    if ((threadIdx.x & 31) == 0 && (c >> 5) < net.words) net.val[c >> 5] = w;
-  }
+// Shared memory of the derive kernel: the network, the n-entry source
+// table, and a bit row of the `nu` units of an input row with its prefix.
+static inline size_t shift_sources_smem(int n, int nu) {
+  const int uw = (nu + 31) / 32;
+  return dyn_bytes(n) + pad16((size_t)n * 4) + pad16((size_t)uw * 4) +
+         pad16((size_t)(uw + 1) * 4);
 }
 
-// (R, n) -> (R, n) through the GSN (`gsn`, B12) or the SSN (B14) on the
-// operand counts, zero where the routed validity is clear; with `occ`
-// (B14) also the routed validity for every element.
+// One block derives the GSN (`gsn`) or the SSN (B14) on the (n,) operand
+// counts, composes it into the source table (`dyn_sources`: n int32, -1
+// where the routed validity is clear) and writes it to `table`, and from it
+// the staged copy's operands for rows of `elem`-byte lanes staged in
+// `sunit`-byte units (`dyn_staged_units`): the remapped table `pos` (n),
+// the unit count `nunits` (1) and the unit list `units` (at most
+// n*elem/sunit).  It lets the copy that follows start at once
+// (Programmatic Dependent Launch); that copy waits for it before it reads
+// the list, since what it stages depends on it.
+__global__ void __launch_bounds__(THREADS)
+shift_sources_kernel(int gsn, int n, const int* __restrict__ shift,
+                     const int* __restrict__ valid, int elem, int sunit,
+                     int* __restrict__ table, int* __restrict__ pos,
+                     int* __restrict__ nunits, int* __restrict__ units) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  pdl_launch_dependents();
+  DynNet net = dyn_carve(smem, n);
+  int* src = reinterpret_cast<int*>(smem + dyn_bytes(n));
+  operand_counts(net, shift, valid);
+  dyn_derive(net, gsn != 0);
+  dyn_sources(net, src, n);
+  __syncthreads();                        // the table, before others read it
+  for (int j = threadIdx.x; j < n; j += blockDim.x) table[j] = src[j];
+  const int uw = (n / (sunit / elem) + 31) / 32;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(
+      reinterpret_cast<unsigned char*>(src) + pad16((size_t)n * 4));
+  int* pre = reinterpret_cast<int*>(
+      reinterpret_cast<unsigned char*>(bits) + pad16((size_t)uw * 4));
+  dyn_staged_units(src, n, elem, sunit, bits, pre, pos, nunits, units);
+}
+
+// `elem` and `sunit` as `dyn_staged_units` takes them.
+static cudaError_t launch_shift_sources(int gsn, int n, const int* shift,
+                                        const int* valid, int elem, int sunit,
+                                        int* table, int* pos, int* nunits,
+                                        int* units, cudaStream_t stream) {
+  if (n < 1 || elem < 1 || sunit < elem || sunit % elem || 32 % sunit ||
+      ((long long)n * elem) % sunit)
+    return cudaErrorInvalidValue;
+  const size_t smem = shift_sources_smem(n, (int)((long long)n * elem / sunit));
+  static size_t granted[MAX_DEVICES] = {0};
+  cudaError_t e = set_smem(shift_sources_kernel, smem, granted);
+  if (e != cudaSuccess) return e;
+  shift_sources_kernel<<<1, THREADS, smem, stream>>>(
+      gsn, n, shift, valid, elem, sunit, table, pos, nunits, units);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// B12: the raw GSN on runtime counts, derived per block
+// ---------------------------------------------------------------------------
+
+// (R, n) -> (R, n) through the GSN on the operand counts, zero where the
+// routed validity is clear.  Serves B12 alone (B14 is a derive kernel and
+// a staged copy, above and below).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shift_dyn_kernel(const T* __restrict__ x, T* __restrict__ out,
-                 uint8_t* __restrict__ occ, long long R, int n,
-                 const int* __restrict__ shift, const int* __restrict__ valid,
-                 int gsn, int rows) {
+shift_dyn_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
+                 int n, const int* __restrict__ shift,
+                 const int* __restrict__ valid, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   DynNet net = dyn_carve(smem, n);
   T* ba = reinterpret_cast<T*>(smem + dyn_bytes(n));
@@ -275,16 +331,15 @@ shift_dyn_kernel(const T* __restrict__ x, T* __restrict__ out,
 
   load_tile(x + r0 * n, ba, nr, n, tm);
   operand_counts(net, shift, valid);
-  dyn_derive(net, gsn != 0);
+  dyn_derive(net, true);
   const T* res = route_dyn<T>(net, ba, ba, bb, nr, tm);
-  store_masked(res, out + r0 * n, occ ? occ + r0 * n : nullptr, net.occ, nr,
-               n, tm);
+  store_masked(res, out + r0 * n, nullptr, net.occ, nr, n, tm);
 }
 
 template <typename T>
-static cudaError_t launch_shift_dyn(const void* x, void* out, void* occ,
-                                    long long R, int n, const void* shift,
-                                    const void* valid, int gsn, int rows,
+static cudaError_t launch_shift_dyn(const void* x, void* out, long long R,
+                                    int n, const void* shift,
+                                    const void* valid, int rows,
                                     cudaStream_t stream) {
   const size_t smem = dyn_bytes(n) + 2 * (size_t)rows * n * sizeof(T);
   const long long tiles = (R + rows - 1) / rows;
@@ -293,9 +348,8 @@ static cudaError_t launch_shift_dyn(const void* x, void* out, void* occ,
   cudaError_t e = set_smem(shift_dyn_kernel<T>, smem, granted);
   if (e != cudaSuccess) return e;
   shift_dyn_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<uint8_t*>(occ), R, n, static_cast<const int*>(shift),
-      static_cast<const int*>(valid), gsn, rows);
+      static_cast<const T*>(x), static_cast<T*>(out), R, n,
+      static_cast<const int*>(shift), static_cast<const int*>(valid), rows);
   return cudaGetLastError();
 }
 
@@ -337,19 +391,69 @@ int shift_plan(int elem_bytes, const void* x, void* out, void* occ,
   }
 }
 
-// B12 (gsn = 1, occ == NULL) and B14 (gsn = 0, occ != NULL).
-int shift_dyn(int elem_bytes, const void* x, void* out, void* occ,
-              long long R, int n, const void* shift, const void* valid,
-              int gsn, int rows, void* stream) {
+// B12: the GSN on the (n,) int32 operand counts, derived per block.
+int shift_gather_dyn(int elem_bytes, const void* x, void* out, long long R,
+                     int n, const void* shift, const void* valid, int rows,
+                     void* stream) {
   if (n < 1 || rows < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_bytes) {
-    case 1: return launch_shift_dyn<uint8_t>(x, out, occ, R, n, shift, valid, gsn, rows, s);
-    case 2: return launch_shift_dyn<uint16_t>(x, out, occ, R, n, shift, valid, gsn, rows, s);
-    case 4: return launch_shift_dyn<uint32_t>(x, out, occ, R, n, shift, valid, gsn, rows, s);
-    case 8: return launch_shift_dyn<unsigned long long>(x, out, occ, R, n, shift, valid, gsn, rows, s);
+    case 1: return launch_shift_dyn<uint8_t>(x, out, R, n, shift, valid, rows, s);
+    case 2: return launch_shift_dyn<uint16_t>(x, out, R, n, shift, valid, rows, s);
+    case 4: return launch_shift_dyn<uint32_t>(x, out, R, n, shift, valid, rows, s);
+    case 8: return launch_shift_dyn<unsigned long long>(x, out, R, n, shift, valid, rows, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// B14: the SSN on the (n,) int32 operand counts, two kernels on `stream`:
+// the derivation of the source table and the staged copy's operands into
+// `work` (the caller's int32 workspace of 3n + 1 entries: the table, the
+// remapped table, the unit count, the unit list), then the staged copy of
+// the R rows, which also writes the (R, n) occupancy bytes `occ`, in
+// `rows`-row tiles over at most `blocks` blocks.  The staging and store
+// units are picked here from the row's bytes and the pointers.
+int shift_scatter_dyn(int elem_bytes, const void* x, void* out, void* occ,
+                      long long R, int n, const void* shift,
+                      const void* valid, void* work, int rows, int blocks,
+                      void* stream) {
+  if (n < 1 || rows < 1 || !occ || elem_bytes < 1 || elem_bytes > 8)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t row = (size_t)n * elem_bytes;
+  const void* xp[1] = {x};
+  const void* op[1] = {out};
+  const int sunit = copy_unit(row, elem_bytes, xp, 1);
+  const int ounit = copy_unit(row, elem_bytes, op, 1);
+  const int kmax = (int)(row / sunit);
+  int* tab = static_cast<int*>(work);
+  int* pos = tab + n;
+  int* nunits = pos + n;
+  int* units = nunits + 1;
+  cudaError_t e = launch_shift_sources(
+      0, n, static_cast<const int*>(shift), static_cast<const int*>(valid),
+      elem_bytes, sunit, tab, pos, nunits, units, s);
+  if (e != cudaSuccess) return e;
+  switch (elem_bytes) {
+    case 1: return launch_staged_copy<uint8_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
+    case 2: return launch_staged_copy<uint16_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
+    case 4: return launch_staged_copy<uint32_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
+    case 8: return launch_staged_copy<unsigned long long>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The derive kernel alone on the operand counts: the (n,) source table of
+// the GSN (`gsn`) or the SSN (B14's) and the staged copy's operands for
+// rows of `elem`-byte lanes in `sunit`-byte units, into `work` laid out as
+// B14's workspace (3n + 1 int32).
+int shift_sources(int gsn, int n, const void* shift, const void* valid,
+                  int elem, int sunit, void* work, void* stream) {
+  int* tab = static_cast<int*>(work);
+  return launch_shift_sources(gsn, n, static_cast<const int*>(shift),
+                              static_cast<const int*>(valid), elem, sunit,
+                              tab, tab + n, tab + 2 * n, tab + 2 * n + 1,
+                              static_cast<cudaStream_t>(stream));
 }
 
 const char* indexed_error_string(int err) {

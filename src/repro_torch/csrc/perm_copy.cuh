@@ -2,11 +2,12 @@
 // permutation kernel:
 //   * `perm_copy_kernel`: B1 and B6 (segment.cu), the copy half of B8
 //     (strided.cu);
-//   * `staged_copy_kernel`: the whole of B3 and B4 (strided.cu);
+//   * `staged_copy_kernel`: the whole of B3 and B4 (strided.cu), the copy
+//     half of B14 (indexed.cu, which also writes the occupancy);
 //   * `merge_copy_kernel`: the whole of B5 and the copy half of B9
 //     (strided.cu);
-//   * `interleave_copy_kernel`: the whole of B2 (segment.cu), at the end of
-//     this file.
+//   * `interleave_copy_kernel`: the whole of B2 and the copy half of B7
+//     (segment.cu), at the end of this file.
 //
 // The permuted copy.  For every row r of the (R, n) input, part p < parts
 // and lane j < w:
@@ -215,11 +216,11 @@ perm_copy_kernel(const T* __restrict__ x, Ptrs outs, long long R, int n,
 // on the stream ends, and waits for that kernel (`pdl_wait`) before it
 // reads what that kernel writes.  Without, it is plainly stream-ordered.
 template <typename... Params, typename... Args>
-static cudaError_t launch_chained(void (*kernel)(Params...), unsigned grid,
+static cudaError_t launch_chained(void (*kernel)(Params...), dim3 grid,
                                   size_t smem, bool pdl, cudaStream_t stream,
                                   Args... args) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
+  cfg.gridDim = grid;
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -263,12 +264,23 @@ static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
 //
 // For access a < A (blockIdx.y), every row r of its (R, n) window and lane
 // j < vl:
-//   out_a[r][j] = staged_a[r][pos[a*vl + j]]
+//   out_a[r][j] = pos[a*vl + j] < 0 ? 0 : staged_a[r][pos[a*vl + j]]
 // where staged_a[r] is row r compacted to its listed units: units[a*kmax +
-// k] (k < nunits[a]) of `sunit` bytes each, in order.  The host composes
-// both from a gather plan's table (`ShiftPlan.source`, which is static), so
-// there is no derive kernel and nothing to wait for: the wrapper uploads
-// the list and the remapped table once per plan and copy unit.
+// k] (k < nunits[a]) of `sunit` bytes each, in order.  For B3 and B4 the
+// host composes both from a gather plan's table (`ShiftPlan.source`, which
+// is static; every entry >= 0), so there is no derive kernel and nothing to
+// wait for: the wrapper uploads the list and the remapped table once per
+// plan and copy unit, and the copy is launched plainly.  For B14 (one
+// access, vl = n) the derive kernel launched just before this one composes
+// them on the card from the SSN's source table (route_dyn.cuh,
+// `dyn_staged_units`; -1 where a lane is unoccupied), and the copy starts
+// under Programmatic Dependent Launch: it waits for that kernel before it
+// reads the list, since what it stages depends on it.  With `occ` (B14) it
+// also writes
+//   occ[r][j] = pos[j] >= 0
+// as one byte (0 / 1) for every row, built once per block in shared memory
+// and stored beside each output tile in `occ_unit`-byte vector stores, in
+// the same pass.
 //
 // Bound: the sectors that hold an output lane are read once (the whole
 // window while stride x element size <= 32 bytes), the output is written
@@ -287,10 +299,14 @@ static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
 //     crosses an access's rows;
 //   * staging and storing use separate units: the widest that divides the
 //     row's bytes and the pointer, each on its own side.
+// Shared memory: the table, the list, two staged tiles of kmax units a
+// row, the output tile and with `occ` the (rows, vl) occupancy bytes.
 __host__ __device__ inline size_t staged_copy_smem(int vl, int kmax, int rows,
-                                                   int sunit, size_t elem) {
+                                                   int sunit, size_t elem,
+                                                   bool occ = false) {
   return pad16((size_t)vl * 4) + pad16((size_t)kmax * 4) +
-         2 * pad16((size_t)rows * kmax * sunit) + pad16((size_t)rows * vl * elem);
+         2 * pad16((size_t)rows * kmax * sunit) +
+         pad16((size_t)rows * vl * elem) + (occ ? pad16((size_t)rows * vl) : 0);
 }
 
 template <int U>
@@ -337,9 +353,11 @@ staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
                    int n, int vl, const int* __restrict__ pos,
                    const int* __restrict__ units,
                    const int* __restrict__ nunits, int kmax, int rows,
-                   int sunit, int ounit) {
+                   int sunit, int ounit, uint8_t* __restrict__ occ,
+                   int occ_unit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int a = blockIdx.y;
+  pdl_wait();                             // B14: the derive kernel's list
   const int K = nunits[a];
   const size_t in_row = (size_t)n * sizeof(T);
   const size_t out_row = (size_t)vl * sizeof(T);
@@ -348,6 +366,7 @@ staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
   int* ulist = reinterpret_cast<int*>(smem + pad16((size_t)vl * 4));
   unsigned char* ibuf = smem + pad16((size_t)vl * 4) + pad16((size_t)kmax * 4);
   unsigned char* obuf = ibuf + 2 * in_b;
+  uint8_t* otile = obuf + pad16((size_t)rows * vl * sizeof(T));
   const unsigned char* xa =
       reinterpret_cast<const unsigned char*>(x) + (size_t)a * R * in_row;
   unsigned char* oa = reinterpret_cast<unsigned char*>(out) + (size_t)a * R * out_row;
@@ -362,6 +381,9 @@ staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
   stage_rows(ibuf, xa + tile * rows * in_row,
              (int)min((long long)rows, R - tile * rows), in_row, ulist, K, sunit);
   cp_async_commit();
+  if (occ)                                // the table is loaded: one row of
+    for (int i = threadIdx.x; i < rows * vl; i += blockDim.x)  // bytes a row
+      otile[i] = tab[i % vl] >= 0;
 
   const TileMap tm(vl);
   for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
@@ -381,13 +403,32 @@ staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
       T* o = reinterpret_cast<T*>(obuf);
       for (int c = tm.t; c < vl; c += tm.lanes) {
         const int s = tab[c];
-        for (int r = tm.g; r < nr; r += tm.groups)
-          o[(size_t)r * vl + c] = in[(size_t)r * kel + s];
+        if (s >= 0) {
+          for (int r = tm.g; r < nr; r += tm.groups)
+            o[(size_t)r * vl + c] = in[(size_t)r * kel + s];
+        } else {
+          for (int r = tm.g; r < nr; r += tm.groups) o[(size_t)r * vl + c] = T(0);
+        }
       }
     }
     __syncthreads();      // output tile complete
     store(oa + tile * rows * out_row, obuf, (size_t)nr * out_row, ounit);
+    if (occ)
+      store(occ + tile * rows * vl, otile, (size_t)nr * vl, occ_unit);
   }
+}
+
+// The widest copy unit (16, 8, 4, 2 or 1 bytes, at least `elem`) that
+// divides `row_bytes` and every pointer.
+static inline int copy_unit(size_t row_bytes, size_t elem,
+                            const void* const* ptrs, int np) {
+  int u = 16;
+  for (; u > (int)elem; u >>= 1) {
+    bool ok = row_bytes % u == 0;
+    for (int i = 0; ok && i < np; ++i) ok = (uintptr_t)ptrs[i] % u == 0;
+    if (ok) break;
+  }
+  return u;
 }
 
 static inline bool bad_unit(int unit, size_t elem) {
@@ -395,29 +436,41 @@ static inline bool bad_unit(int unit, size_t elem) {
 }
 
 // One launch of the staged copy over A accesses: a persistent grid of at
-// most `blocks` blocks per access.
+// most `blocks` blocks per access.  With `pdl` (B14) after the derive
+// kernel that writes the list and the table on the same stream, allowed to
+// start before that kernel ends; without (B3, B4: host operands),
+// stream-ordered after whatever wrote `x`.  With `occ` (one access only)
+// it also writes the (R, vl) occupancy bytes, in the widest unit that
+// divides vl and the pointer.
 template <typename T>
 static cudaError_t launch_staged_copy(const void* x, void* out, int A,
                                       long long R, int n, int vl,
                                       const int* pos, const int* units,
                                       const int* nunits, int kmax, int rows,
                                       int blocks, int sunit, int ounit,
-                                      cudaStream_t stream) {
+                                      cudaStream_t stream, bool pdl = false,
+                                      void* occ = nullptr) {
   const size_t e = sizeof(T);
   if (A < 1 || A > 65535 || n < 1 || vl < 1 || R < 1 || rows < 1 ||
       blocks < 1 || kmax < 1 || bad_unit(sunit, e) || bad_unit(ounit, e) ||
-      (n * e) % sunit || (vl * e) % ounit || (size_t)kmax * sunit > n * e)
+      (n * e) % sunit || (vl * e) % ounit || (size_t)kmax * sunit > n * e ||
+      (occ && A != 1))
     return cudaErrorInvalidValue;
-  const size_t smem = staged_copy_smem(vl, kmax, rows, sunit, e);
+  const void* optr[1] = {occ};
+  const int occ_unit = occ ? copy_unit((size_t)vl, 1, optr, 1) : 1;
+  const size_t smem = staged_copy_smem(vl, kmax, rows, sunit, e,
+                                       occ != nullptr);
   static size_t granted[MAX_DEVICES] = {0};
   cudaError_t err = set_smem(staged_copy_kernel<T>, smem, granted);
   if (err != cudaSuccess) return err;
   const long long tiles = (R + rows - 1) / rows;
-  const dim3 grid((unsigned)(tiles < blocks ? tiles : blocks), (unsigned)A);
-  staged_copy_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), R, n, vl, pos, units,
-      nunits, kmax, rows, sunit, ounit);
-  return cudaGetLastError();
+  return launch_chained(staged_copy_kernel<T>,
+                        dim3((unsigned)(tiles < blocks ? tiles : blocks),
+                             (unsigned)A),
+                        smem, pdl, stream, static_cast<const T*>(x),
+                        static_cast<T*>(out), R, n, vl, pos, units, nunits,
+                        kmax, rows, sunit, ounit, static_cast<uint8_t*>(occ),
+                        occ_unit);
 }
 
 // ---------------------------------------------------------------------------
@@ -556,17 +609,30 @@ static cudaError_t launch_merge_copy(const void* win, const void* vals,
 }
 
 // ---------------------------------------------------------------------------
-// The interleave copy: B2 (segment.cu)
+// The interleave copy: B2 and B7 (segment.cu)
 // ---------------------------------------------------------------------------
 //
 // The inverse form of the permuted copy: `fields` (R, m) inputs, one (R, n)
 // output, n = fields*m.  For every row r and output lane c < n:
 //   out[r][c] = tab[c] < 0 ? 0 : in_f[r][j]   where tab[c] = f*m + j,
-// the lane of the concatenated fields that lane c takes.  The host composes
-// `tab` from the interleave plans (`ShiftPlan.source` under `.valid`; f*m + j
-// at lane f + j*fields for every plan of either mode) and uploads it once
-// per plan, so there is no derive kernel and nothing to wait for: the copy
-// is launched plainly, stream-ordered after whatever wrote the inputs.
+// the lane of the concatenated fields that lane c takes.  The kernel
+// composes `tab` as it loads it, from `tfields` rows of n int32 entries:
+// row g's entry s >= 0 at lane c names lane g*span + s of the concatenated
+// fields (span = n / tfields), and a later row wins.
+//   * B2: one row (span n), composed on the host from the interleave plans
+//     (`ShiftPlan.source` under `.valid`; f*m + j at lane f + j*fields for
+//     every plan of either mode) and uploaded once per plan.  There is no
+//     derive kernel and nothing to wait for: the copy is launched plainly,
+//     stream-ordered after whatever wrote the inputs.
+//   * B7: `fields` rows (span m), field f's SSN source table on
+//     `scg.scatter_counts(n, fields, f, m)`, which the derive kernel
+//     (route_dyn.cuh, one block per field) writes just before this copy.
+//     A later field winning is the reference's merge, `acc = where(valid,
+//     payload, acc)` in field order; a lane no field occupies is 0.  Every
+//     block composes the whole table itself, so no two blocks write one
+//     entry and no barrier between blocks is needed.  The copy starts
+//     under Programmatic Dependent Launch: it stages its first tile, then
+//     waits for the derive kernel before it reads the tables.
 //
 // Bound: each input byte read once, each output byte written once, over
 // 3.35 TB/s.  What the design does about it:
@@ -589,7 +655,9 @@ static cudaError_t launch_merge_copy(const void* win, const void* vals,
 //   * the (rows, n) output tile is one contiguous chunk of the output and
 //     leaves in `unit`-byte vector stores (16 bytes on the main path);
 //   * two barriers a tile (tile k staged and every thread past tile k-1's
-//     stores; output tile complete).
+//     stores; output tile complete).  The first tile's loads are issued
+//     before the table is read: behind B7's derive kernel they overlap the
+//     derivation, and without PDL (B2) the wait is a no-op.
 // `unit` is the widest of 16, 8, 4, 2 or 1 bytes that divides the input
 // row's bytes and every pointer, picked in the entry point; it then divides
 // the output row's bytes too.
@@ -634,8 +702,8 @@ __device__ inline void stage_fields(unsigned char* dst, const Ptrs& ins,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 interleave_copy_kernel(Ptrs ins, T* __restrict__ out, long long R, int m,
-                       int fields, const int* __restrict__ table, int rows,
-                       int unit) {
+                       int fields, const int* __restrict__ table, int tfields,
+                       int rows, int unit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = fields * m;
   const size_t in_row = (size_t)m * sizeof(T);
@@ -649,10 +717,20 @@ interleave_copy_kernel(Ptrs ins, T* __restrict__ out, long long R, int m,
   const long long tiles = (R + rows - 1) / rows;
   long long tile = blockIdx.x;            // the grid is at most `tiles` wide
 
-  for (int c = threadIdx.x; c < n; c += blockDim.x)
-    tab[c] = (uint16_t)table[c];          // -1 becomes 0xFFFF
+  // The fields do not depend on the table: stage the first tile, then
+  // wait for the derive kernel, if any, before reading its tables.
   stage_fields(ibuf, ins, fields, fb, tile, rows, R, in_row, unit);
   cp_async_commit();
+  pdl_wait();
+  const int span = n / tfields;
+  for (int c = threadIdx.x; c < n; c += blockDim.x) {
+    int t = -1;
+    for (int g = 0; g < tfields; ++g) {
+      const int s = table[(size_t)g * n + c];
+      if (s >= 0 && s < span) t = g * span + s;
+    }
+    tab[c] = (uint16_t)t;                 // -1 becomes 0xFFFF
+  }
 
   const TileMap tm(n);
   for (int k = 0; tile < tiles; ++k, tile += gridDim.x) {
@@ -687,30 +765,21 @@ interleave_copy_kernel(Ptrs ins, T* __restrict__ out, long long R, int m,
   }
 }
 
-// The widest copy unit (16, 8, 4, 2 or 1 bytes, at least `elem`) that
-// divides `row_bytes` and every pointer.
-static inline int copy_unit(size_t row_bytes, size_t elem,
-                            const void* const* ptrs, int np) {
-  int u = 16;
-  for (; u > (int)elem; u >>= 1) {
-    bool ok = row_bytes % u == 0;
-    for (int i = 0; ok && i < np; ++i) ok = (uintptr_t)ptrs[i] % u == 0;
-    if (ok) break;
-  }
-  return u;
-}
-
-// One launch of the interleave copy over at most `blocks` blocks, plainly
-// stream-ordered (no PDL).
+// One launch of the interleave copy over at most `blocks` blocks, through
+// `tfields` rows of tables (1 for B2, `fields` for B7).  With `pdl` (B7)
+// after the derive kernel that writes `table` on the same stream, allowed
+// to start before that kernel ends; without (B2, the table uploaded from
+// the host), stream-ordered after whatever wrote the inputs.
 template <typename T>
 static cudaError_t launch_interleave_copy(const Ptrs& ins, void* out,
                                           long long R, int m, int fields,
-                                          const int* table, int rows,
-                                          int blocks, cudaStream_t stream) {
+                                          const int* table, int tfields,
+                                          int rows, int blocks, bool pdl,
+                                          cudaStream_t stream) {
   const size_t e = sizeof(T);
   const long long n = (long long)fields * m;
   if (fields < 1 || fields > MAX_PARTS || m < 1 || n >= 0xFFFF || R < 1 ||
-      rows < 1 || blocks < 1)
+      rows < 1 || blocks < 1 || tfields < 1 || n % tfields)
     return cudaErrorInvalidValue;
   const void* ptrs[MAX_PARTS + 1];
   for (int f = 0; f < fields; ++f) ptrs[f] = ins.p[f];
@@ -721,8 +790,8 @@ static cudaError_t launch_interleave_copy(const Ptrs& ins, void* out,
   cudaError_t err = set_smem(interleave_copy_kernel<T>, smem, granted);
   if (err != cudaSuccess) return err;
   const long long tiles = (R + rows - 1) / rows;
-  interleave_copy_kernel<T><<<(unsigned)(tiles < blocks ? tiles : blocks),
-                              THREADS, smem, stream>>>(
-      ins, static_cast<T*>(out), R, m, fields, table, rows, unit);
-  return cudaGetLastError();
+  return launch_chained(interleave_copy_kernel<T>,
+                        (unsigned)(tiles < blocks ? tiles : blocks), smem, pdl,
+                        stream, ins, static_cast<T*>(out), R, m, fields, table,
+                        tfields, rows, unit);
 }

@@ -15,18 +15,25 @@
 // (1, n)), so the per-layer take-masks are derived from the counts in
 // shared memory (`dyn_derive`, one barrier per layer), exactly the
 // reference's `layer_masks`.  Two ways to use them:
-//   * B7, B12 and B14 derive them in every block and route the block's
-//     row tile through route_plan's lane-major layer loop (`route_dyn`):
-//     one shift record and one select under the derived mask row per
-//     layer, `apply_layer_masks`.
-//   * B6, B8 and B9 derive them once per launch (`dyn_sources_kernel`) and
-//     compose them into a source table (`dyn_sources`): a lane takes its
-//     candidate regardless of the payload, so every output lane holds one
-//     input lane's raw bits, found by walking the layers backwards.  The
-//     table goes to device memory and a copy (perm_copy.cuh) moves the
-//     rows through it: the permuted copy for B6 and B8; for B9 the merge
-//     copy, through the list of the occupied lanes and their sources that
-//     the same kernel compacts from the table (vl pairs, not n lanes).
+//   * B12 derives them in every block and routes the block's row tile
+//     through route_plan's lane-major layer loop (`route_dyn`): one shift
+//     record and one select under the derived mask row per layer,
+//     `apply_layer_masks`.
+//   * B6, B7, B8, B9 and B14 derive them once per launch and compose them
+//     into a source table (`dyn_sources`): a lane takes its candidate
+//     regardless of the payload, so every output lane holds one input
+//     lane's raw bits, found by walking the layers backwards.  The table
+//     goes to device memory and a copy (perm_copy.cuh) moves the rows
+//     through it: the permuted copy for B6 and B8; B2's interleave copy
+//     for B7, which merges the fields' tables as it loads them; for B9 the
+//     merge copy, through the list of the occupied lanes and their sources
+//     that the same kernel compacts from the table (vl pairs, not n
+//     lanes); for B14 the staged copy, through the list of the input units
+//     that hold a source lane and the table remapped into the row
+//     compacted to them (`dyn_staged_units`), so that only those units are
+//     read.  B6-B9 derive in `dyn_sources_kernel` below, on counts from
+//     (stride, offset); B14 in indexed.cu's `shift_sources_kernel`, on the
+//     (n,) `shift` / `valid` operands (`operand_counts`).
 // The routing is computed on the device at run time from the counts: no
 // host plan, no pruned layers.
 //
@@ -134,6 +141,25 @@ __device__ inline void scatter_counts(DynNet& net, int stride, int offset,
   }
 }
 
+// Fill sc/val from the (n,) int32 operands: sc[c] = shift[c], validity
+// bit c = valid[c] != 0 (the raw networks' runtime counts, B12 / B14).
+// Lanes are walked in whole warps (words * 32), so each validity word is
+// one ballot.
+__device__ inline void operand_counts(DynNet& net,
+                                      const int* __restrict__ shift,
+                                      const int* __restrict__ valid) {
+  for (int c0 = 0; c0 < net.words * 32; c0 += blockDim.x) {
+    const int c = c0 + threadIdx.x;
+    bool v = false;
+    if (c < net.n) {
+      net.sc[c] = shift[c];
+      v = valid[c] != 0;
+    }
+    const uint32_t w = __ballot_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0 && (c >> 5) < net.words) net.val[c >> 5] = w;
+  }
+}
+
 // Derive the take-mask of every layer and the final occupancy from the
 // counts in sc[0, n) / val[0, words).  `gsn`: toward lower lanes, LSB
 // first; else the SSN.  Every thread of the block calls it (one barrier
@@ -197,23 +223,24 @@ __device__ inline T* route_dyn(const DynNet& net, T* bin, T* ba, T* bb,
                        net.layers, 0, net.L, tm);
 }
 
-// The occupied lanes below each word of the final occupancy, over lanes
-// [0, count): pre[w] for w < ceil(count/32), and pre[words] in all.  Warp 0
-// scans (a popcount a word, one shuffle scan); it ends with a barrier.
-// `pre` is caller scratch of words + 1 ints.
-__device__ inline void occ_prefix(const DynNet& net, int count, int* pre) {
+// The set bits below each word of the packed bit row `bits`, over bits
+// [0, count): pre[w] for w < ceil(count/32), and pre[words] in all (the
+// final occupancy's occupied lanes, or the staged units).  Warp 0 scans (a
+// popcount a word, one shuffle scan); it ends with a barrier.  `pre` is
+// caller scratch of words + 1 ints.
+__device__ inline void bit_prefix(const uint32_t* bits, int count, int* pre) {
   const int words = (count + 31) / 32;
   if (threadIdx.x < 32) {
     const int per = (words + 31) / 32;
     const int w0 = min((int)threadIdx.x * per, words);
     const int w1 = min(w0 + per, words);
-    auto bits = [&](int w) {
-      const int tail = count - 32 * w;     // lanes of word w below count
+    auto ones = [&](int w) {
+      const int tail = count - 32 * w;     // bits of word w below count
       const uint32_t keep = tail >= 32 ? 0xffffffffu : (1u << tail) - 1u;
-      return __popc(net.occ[w] & keep);
+      return __popc(bits[w] & keep);
     };
     int own = 0;
-    for (int w = w0; w < w1; ++w) own += bits(w);
+    for (int w = w0; w < w1; ++w) own += ones(w);
     int incl = own;
     for (int d = 1; d < 32; d <<= 1) {
       const int y = __shfl_up_sync(0xffffffffu, incl, d);
@@ -222,7 +249,7 @@ __device__ inline void occ_prefix(const DynNet& net, int count, int* pre) {
     int run = incl - own;
     for (int w = w0; w < w1; ++w) {
       pre[w] = run;
-      run += bits(w);
+      run += ones(w);
     }
     if (threadIdx.x == 31) pre[words] = incl;
   }
@@ -245,7 +272,7 @@ __device__ inline void occ_prefix(const DynNet& net, int count, int* pre) {
 __device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
                                    int count, int* __restrict__ list = nullptr,
                                    int cap = 0, int* pre = nullptr) {
-  if (list) occ_prefix(net, count, pre);
+  if (list) bit_prefix(net.occ, count, pre);
   for (int j = threadIdx.x; j < count; j += blockDim.x) {
     int c = j;
     if (!lane_bit(net.occ, j)) {
@@ -268,16 +295,76 @@ __device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
   if (list && threadIdx.x == 0) list[0] = min(pre[(count + 31) / 32], cap);
 }
 
+// The staged copy's operands from a source table, composed on the device
+// (the twin of the host's `_common.staged_units`, which B3 / B4 take from
+// the plan): `src` holds the input lane of each of n output lanes of
+// `elem` bytes, -1 where the lane is unoccupied, written before a barrier.
+// A row is cut into `sunit`-byte units of per = sunit / elem lanes (sunit
+// divides the row's bytes and 32).  Where the units that hold a source lane
+// touch every 32-byte sector of the row, the list is every unit and pos[j]
+// = src[j]: the same sectors move either way, and a whole row stages as one
+// chunk.  Else the list is those units in order and pos[j] = rank * per +
+// src[j] % per, the lane's place in the row compacted to them.  pos[j] = -1
+// where src[j] is.  Writes nunits[0] = K and units[0, K).  `bits` is
+// scratch of ceil(nu/32) words and `pre` of ceil(nu/32) + 1 ints (nu = n /
+// per).  Every thread calls it; no barrier at its end.
+__device__ inline void dyn_staged_units(const int* src, int n, int elem,
+                                        int sunit, uint32_t* bits, int* pre,
+                                        int* __restrict__ pos,
+                                        int* __restrict__ nunits,
+                                        int* __restrict__ units) {
+  const int per = sunit / elem;
+  const int nu = n / per;
+  const int uw = (nu + 31) / 32;
+  for (int w = threadIdx.x; w < uw; w += blockDim.x) bits[w] = 0u;
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int s = src[j];
+    if (s >= 0) atomicOr(&bits[(s / per) >> 5], 1u << ((s / per) & 31));
+  }
+  __syncthreads();
+  // does every 32-byte sector (ups units) hold a listed unit?
+  const int ups = 32 / sunit;
+  bool all = true;
+  for (int sec = threadIdx.x; sec * ups < nu; sec += blockDim.x) {
+    bool hit = false;
+    for (int u = sec * ups; u < min((sec + 1) * ups, nu); ++u)
+      hit = hit || lane_bit(bits, u);
+    all = all && hit;
+  }
+  if (__syncthreads_and(all)) {
+    for (int u = threadIdx.x; u < nu; u += blockDim.x) units[u] = u;
+    for (int j = threadIdx.x; j < n; j += blockDim.x) pos[j] = src[j];
+    if (threadIdx.x == 0) nunits[0] = nu;
+    return;
+  }
+  bit_prefix(bits, nu, pre);
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    const int s = src[j];
+    int p = -1;
+    if (s >= 0) {
+      const int u = s / per;
+      const int k = pre[u >> 5] + __popc(bits[u >> 5] & ((1u << (u & 31)) - 1u));
+      units[k] = u;                       // every lane of unit u writes k
+      p = k * per + s % per;
+    }
+    pos[j] = p;
+  }
+  if (threadIdx.x == 0) nunits[0] = pre[uw];
+}
+
 // One derivation per launch: block b fills the counts of
 // `scg.gather_counts(n, stride, offset + b, vl)` (`gsn`, then the GSN) or
 // `scg.scatter_counts(...)` (the SSN), derives the network and writes the
 // source table of lanes [0, count) to table[b * count, (b+1) * count).
 // B6 launches one block per field (stride = fields, offset + b = field,
-// vl = count = m), B8 one block (count = vl), B9 one block (the SSN, count
-// = n) that also writes the merge copy's list of at most vl pairs (a
-// scatter occupies at most its vl values' lanes) to `list`.  It lets the
-// copy that follows start at once (Programmatic Dependent Launch), so the
-// copy's first tile load overlaps the derivation.
+// vl = count = m), B7 one block per field on the SSN (vl = m, count = n:
+// every output lane of field b's beat), B8 one block (count = vl), B9 one
+// block (the SSN, count = n) that also writes the merge copy's list of at
+// most vl pairs (a scatter occupies at most its vl values' lanes) to
+// `list`.  It lets the copy that follows start at once (Programmatic
+// Dependent Launch), so the copy's first tile load overlaps the
+// derivation.
 __global__ void __launch_bounds__(THREADS)
 dyn_sources_kernel(int gsn, int n, int stride, int offset, int vl, int count,
                    int* __restrict__ table, int* __restrict__ list) {

@@ -17,7 +17,9 @@
 // on the device, the network's take-masks derived from them
 // (route_dyn.cuh), every layer unpruned.  B6 writes lanes [0, m) of field
 // f's routed beat to output f; B7 merges field f's routed, zero-padded beat
-// under its final occupancy into an output that starts at 0.
+// under its final occupancy into an output that starts at 0.  Both compose
+// the derived networks into source tables once per launch, so each is a
+// derive kernel plus a table-driven copy (below).
 //
 // Bound: pure data movement.  The least time is (bytes read + bytes
 // written) / 3.35 TB/s; the selects cost a few integer operations per lane
@@ -43,7 +45,8 @@
 //     tile.
 // Both are launched without Programmatic Dependent Launch: nothing derives
 // their tables, and the kernel before them on the stream is whatever wrote
-// their input.
+// their input.  (B2's copy takes one table row; B7's below takes one per
+// field.)
 //
 // B6, two kernels per call: the network does not depend on the payload, so
 // it is derived once per launch, not per block.  `dyn_sources_kernel`
@@ -53,16 +56,15 @@
 // through that table, started under Programmatic Dependent Launch, so its
 // first tile load overlaps the derivation.
 //
-// B7: each block loads its row tile from device memory once, per field,
-// keeps it in shared memory through every layer (ping-pong between two
-// buffers, one __syncthreads() per layer; route_dyn.cuh), and writes the
-// lanes the field occupies straight to the output, so device memory sees
-// each input byte read once and each output byte written once.  It derives
-// its masks per block and field (one barrier per layer over n lanes of
-// counts, paid once for the whole row tile).  Threads map to lanes and walk
-// down the tile's rows.  The wrapper keeps tiles small (24 KB of shared
-// memory, so eight blocks share an SM) and, for a small call, short enough
-// that the grid covers the card.
+// B7, two kernels per call, the same way: `dyn_sources_kernel` (one block
+// per field, on the SSN) writes field f's source lane for each of the n
+// output lanes of its routed beat into a (fields, n) device workspace;
+// then B2's interleave copy, started under Programmatic Dependent Launch,
+// merges the fields' tables as each block loads them (lane c takes lane
+// f*m + src_f[c] of the concatenated fields from the last field f that
+// occupies it, else 0: the reference's `acc = where(valid, payload, acc)`)
+// and moves the rows through the merged table.  Neither kernel derives a
+// network per block or runs a pass over the tile per layer.
 //
 // Elements move as raw bits (templated on the element width: 1, 2, 4 or 8
 // bytes), so every permutation is bit-exact for every dtype, NaN payloads
@@ -76,71 +78,6 @@
 #include "route_plan.cuh"
 
 #define MAX_FIELDS MAX_PARTS
-
-// B7: `fields` inputs of (R, m) -> (R, n) AoS rows through the SSN.  Field
-// f's routed lanes are written where its final occupancy is set (the
-// reference's `acc = where(valid, payload, acc)`, later fields winning);
-// lanes no field occupies are written as 0 at the end.  A thread owns the
-// same (row, lane) pairs in every pass, so the writes keep field order.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-int_dyn_kernel(Ptrs ins, T* __restrict__ out, long long R, int n, int m,
-               int fields, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  DynNet net = dyn_carve(smem, n);
-  const int words = net.words;
-  uint32_t* uni = reinterpret_cast<uint32_t*>(smem + dyn_bytes(n));
-  T* ba = reinterpret_cast<T*>(
-      smem + dyn_bytes(n) + (((size_t)words * 4 + 15) & ~(size_t)15));
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  T* os = out + r0 * n;
-  const TileMap tm(n);
-  const bool live = tm.g < tm.groups;
-
-  for (int w = threadIdx.x; w < words; w += blockDim.x) uni[w] = 0u;
-  for (int f = 0; f < fields; ++f) {
-    const T* xin = static_cast<const T*>(ins.p[f]) + r0 * m;
-    if (live) {
-      for (int c = tm.t; c < n; c += tm.lanes)
-        for (int r = tm.g; r < nr; r += tm.groups)
-          ba[(size_t)r * n + c] = c < m ? xin[(size_t)r * m + c] : T(0);
-    }
-    scatter_counts(net, fields, f, m);
-    dyn_derive(net, false);
-    const T* res = route_dyn<T>(net, ba, ba, bb, nr, tm);
-    for (int w = threadIdx.x; w < words; w += blockDim.x) uni[w] |= net.occ[w];
-    if (live) {
-      for (int c = tm.t; c < n; c += tm.lanes)
-        if (lane_bit(net.occ, c))
-          for (int r = tm.g; r < nr; r += tm.groups)
-            os[(size_t)r * n + c] = res[(size_t)r * n + c];
-    }
-    __syncthreads();
-  }
-  if (live) {
-    for (int c = tm.t; c < n; c += tm.lanes)
-      if (!lane_bit(uni, c))
-        for (int r = tm.g; r < nr; r += tm.groups) os[(size_t)r * n + c] = T(0);
-  }
-}
-
-template <typename T>
-static cudaError_t launch_int_dyn(const Ptrs& ins, void* out, long long R,
-                                  int n, int m, int fields, int rows,
-                                  cudaStream_t stream) {
-  const size_t ubytes = ((size_t)((n + 31) / 32) * 4 + 15) & ~(size_t)15;
-  const size_t smem = dyn_bytes(n) + ubytes + 2 * (size_t)rows * n * sizeof(T);
-  const long long grid = (R + rows - 1) / rows;
-  if (grid > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(int_dyn_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  int_dyn_kernel<T><<<(unsigned)grid, THREADS, smem, stream>>>(
-      ins, static_cast<T*>(out), R, n, m, fields, rows);
-  return cudaGetLastError();
-}
 
 extern "C" {
 
@@ -184,10 +121,10 @@ int segment_interleave(int elem_bytes, void* const* ins, void* out, int fields,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* tab = static_cast<const int*>(table);
   switch (elem_bytes) {
-    case 1: return launch_interleave_copy<uint8_t>(p, out, R, m, fields, tab, rows, blocks, s);
-    case 2: return launch_interleave_copy<uint16_t>(p, out, R, m, fields, tab, rows, blocks, s);
-    case 4: return launch_interleave_copy<uint32_t>(p, out, R, m, fields, tab, rows, blocks, s);
-    case 8: return launch_interleave_copy<unsigned long long>(p, out, R, m, fields, tab, rows, blocks, s);
+    case 1: return launch_interleave_copy<uint8_t>(p, out, R, m, fields, tab, 1, rows, blocks, false, s);
+    case 2: return launch_interleave_copy<uint16_t>(p, out, R, m, fields, tab, 1, rows, blocks, false, s);
+    case 4: return launch_interleave_copy<uint32_t>(p, out, R, m, fields, tab, 1, rows, blocks, false, s);
+    case 8: return launch_interleave_copy<unsigned long long>(p, out, R, m, fields, tab, 1, rows, blocks, false, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -229,23 +166,39 @@ int segment_deinterleave_sources(int n, int m, int fields, void* table,
                             static_cast<cudaStream_t>(stream));
 }
 
-// B7: the dynamic-count segment interleave (no plan operands).
+// B7: the dynamic-count segment interleave, two kernels on `stream`: the
+// derivation of the `fields` SSN source tables into `table` (fields x n
+// int32, the caller's workspace), then the interleave copy of the R rows
+// through them, merged as it loads them, in `rows`-row tiles over at most
+// `blocks` blocks; the copy unit is picked here, as for B2.
 int segment_interleave_dyn(int elem_bytes, void* const* ins, void* out,
-                           int fields, long long R, int n, int m, int rows,
-                           void* stream) {
-  if (fields < 1 || fields > MAX_FIELDS || rows < 1 || m < 1 ||
-      (long long)fields * m != n)
-    return cudaErrorInvalidValue;
+                           int fields, long long R, int m, void* table,
+                           int rows, int blocks, void* stream) {
+  if (fields < 1 || fields > MAX_FIELDS || m < 1) return cudaErrorInvalidValue;
+  const int n = fields * m;
   Ptrs p;
   for (int i = 0; i < MAX_FIELDS; ++i) p.p[i] = i < fields ? ins[i] : nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* tab = static_cast<int*>(table);
+  cudaError_t e = launch_dyn_sources(0, n, fields, 0, m, n, fields, tab, s);
+  if (e != cudaSuccess) return e;
   switch (elem_bytes) {
-    case 1: return launch_int_dyn<uint8_t>(p, out, R, n, m, fields, rows, s);
-    case 2: return launch_int_dyn<uint16_t>(p, out, R, n, m, fields, rows, s);
-    case 4: return launch_int_dyn<uint32_t>(p, out, R, n, m, fields, rows, s);
-    case 8: return launch_int_dyn<unsigned long long>(p, out, R, n, m, fields, rows, s);
+    case 1: return launch_interleave_copy<uint8_t>(p, out, R, m, fields, tab, fields, rows, blocks, true, s);
+    case 2: return launch_interleave_copy<uint16_t>(p, out, R, m, fields, tab, fields, rows, blocks, true, s);
+    case 4: return launch_interleave_copy<uint32_t>(p, out, R, m, fields, tab, fields, rows, blocks, true, s);
+    case 8: return launch_interleave_copy<unsigned long long>(p, out, R, m, fields, tab, fields, rows, blocks, true, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// B7's derivation alone: the `fields` SSN source tables (fields x n int32).
+int segment_interleave_sources(int n, int m, int fields, void* table,
+                               void* stream) {
+  if (fields < 1 || m < 1 || (long long)fields * m != n)
+    return cudaErrorInvalidValue;
+  return launch_dyn_sources(0, n, fields, 0, m, n, fields,
+                            static_cast<int*>(table),
+                            static_cast<cudaStream_t>(stream));
 }
 
 const char* segment_error_string(int err) {

@@ -17,7 +17,7 @@ CUDA launch helpers shared by the kernel wrappers
 :func:`copy_unit`, :func:`check_cuda`,
 :func:`cuda_stream`, :func:`layer_table`) live here too, with
 :func:`dyn_sources_plain`, the torch-ops twin of the source table that
-B6, B8 and B9 derive on the card; :func:`merge_pairs` /
+B6, B7, B8, B9 and B14 derive on the card; :func:`merge_pairs` /
 :func:`merge_copy_plain`, the list of occupied lanes the merge copy walks
 (derived on the card for B9, from the host plan for B5) and that copy as
 torch ops; and :func:`staged_units` /
@@ -215,26 +215,29 @@ def dyn_net_bytes(n: int) -> int:
 
 
 #: Shared memory of one block of the copies in ``csrc/perm_copy.cuh`` (the
-#: permuted copy of B1 and of B6 / B8, the staged copy of B3 and B4, the
-#: merge copy of B5 and B9, the interleave copy of B2): two blocks share an
-#: SM, each with two staged input tiles of about 32 KB at the main shape.
+#: permuted copy of B1 and of B6 / B8 / B14, the staged copy of B3 and B4,
+#: the merge copy of B5 and B9, the interleave copy of B2 and B7): two
+#: blocks share an SM, each with two staged input tiles of about 32 KB at
+#: the main shape.
 COPY_SMEM = 96 * 1024
 
 
 def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
-                   blocks: int, *, units: int = 0) -> int:
+                   blocks: int, *, units: int = 0,
+                   occupancy: bool = False) -> int:
     """Row-tile height of the permuted copy: the source table (``nout``
     int32), two staged (rows, n) input tiles and the ``parts`` blocks of
     the (rows, nout) output tile, each rounded up to 16 bytes, within
     :data:`COPY_SMEM` (one row at least, if that fits the card's 227 KB at
     all; raises beyond that), and low enough that ``blocks`` blocks share
     the ``R`` rows when ``R`` allows it.  ``n`` is the lanes staged per
-    row: the whole row for B6 / B8; for B3 / B4 (the staged copy) the lanes
-    of the listed units only, whose list of ``units`` int32 entries then
-    sits beside the table."""
+    row: the whole row for B6 / B8 / B14; for B3 / B4 (the staged copy)
+    the lanes of the listed units only, whose list of ``units`` int32
+    entries then sits beside the table.  With ``occupancy`` (B14) the
+    (rows, nout) tile of occupancy bytes sits beside the output tile."""
     fixed = (-(-nout * 4 // 16) * 16 + -(-units * 4 // 16) * 16
-             + 16 * (2 + parts))
-    per_row = (2 * n + nout) * elem
+             + 16 * (2 + parts + occupancy))
+    per_row = (2 * n + nout) * elem + (nout if occupancy else 0)
     if fixed + per_row > SMEM_LIMIT:
         raise ValueError(
             f"permuted copy of {n} lanes x {elem} B does not fit shared "
@@ -277,7 +280,7 @@ def interleave_skew(fields: int, elem: int) -> int:
 
 
 def interleave_smem(n: int, fields: int, rows: int, elem: int) -> int:
-    """Shared memory of one block of the interleave copy (B2), as
+    """Shared memory of one block of the interleave copy (B2, B7), as
     ``interleave_copy_smem`` in ``csrc/perm_copy.cuh`` carves it: the
     table (``n`` uint16), two staged input tiles of ``fields`` field tiles
     each (``(rows, m)``, padded to 128 bytes plus the bank skew) and the
@@ -290,7 +293,7 @@ def interleave_smem(n: int, fields: int, rows: int, elem: int) -> int:
 
 def interleave_tile_rows(R: int, n: int, fields: int, elem: int,
                          blocks: int) -> int:
-    """Row-tile height of the interleave copy (B2): the most rows whose
+    """Row-tile height of the interleave copy (B2, B7): the most rows whose
     :func:`interleave_smem` fits :data:`COPY_SMEM` (one row at least, if
     that fits the card's 227 KB at all; raises beyond that), and low
     enough that ``blocks`` blocks share the ``R`` rows when ``R`` allows

@@ -3,7 +3,12 @@ kernels/shift_scatter.py: the ctypes binding of ``csrc/indexed.cu``
 (kernels B10-B14), built on first use (``_common.library``; a failed
 build or a launch that returns a CUDA error raises), the device operands
 of a compiled counts plan, and the launches of the raw networks:
-:func:`launch_plan` (B11 / B13) and :func:`launch_dyn` (B12 / B14)."""
+:func:`launch_plan` (B11 / B13), :func:`launch_gather_dyn` (B12, which
+derives its network in every block) and :func:`launch_scatter_dyn` (B14:
+one derive kernel into a per-call workspace, then a staged copy that reads
+only the input units holding a source lane and also writes the
+occupancy); :func:`dyn_sources` runs the derive kernel alone, and
+:func:`staged_units_plain` is the twin of the unit list it composes."""
 from __future__ import annotations
 
 import ctypes
@@ -23,8 +28,13 @@ def lib() -> ctypes.CDLL:
         lib.route_rows.restype = I
         lib.shift_plan.argtypes = [I, P, P, P, LL, I, P, I, I, P, I, P, I, P]
         lib.shift_plan.restype = I
-        lib.shift_dyn.argtypes = [I, P, P, P, LL, I, P, P, I, I, P]
-        lib.shift_dyn.restype = I
+        lib.shift_gather_dyn.argtypes = [I, P, P, LL, I, P, P, I, P]
+        lib.shift_gather_dyn.restype = I
+        lib.shift_scatter_dyn.argtypes = [I, P, P, P, LL, I, P, P, P, I, I,
+                                          P]
+        lib.shift_scatter_dyn.restype = I
+        lib.shift_sources.argtypes = [I, I, P, P, I, I, P, P]
+        lib.shift_sources.restype = I
         lib.indexed_error_string.argtypes = [I]
         lib.indexed_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -105,19 +115,88 @@ def launch_plan(x: torch.Tensor, plan, wrapper, *, occupancy: bool):
     return _launch(x, wrapper, occupancy, call)
 
 
-def launch_dyn(x: torch.Tensor, shift: torch.Tensor, valid: torch.Tensor,
-               wrapper, *, gsn: bool, occupancy: bool):
-    """``x`` through the dynamic-count network on the (n,) int32 count
-    operands on the card: the GSN (``gsn``, B12) or the SSN (B14, with
-    ``occupancy``)."""
+def launch_gather_dyn(x: torch.Tensor, shift: torch.Tensor,
+                      valid: torch.Tensor, wrapper):
+    """``x`` through the GSN on the (n,) int32 count operands on the card
+    (B12): every block derives the network and routes its row tile."""
 
     def call(lib_, flat, out, occ, R, n):
         elem = flat.element_size()
         rows = _common.rows_per_block(R, n, elem, _common.dyn_net_bytes(n),
                                       _common.min_blocks(x.device),
                                       buffers=2)
-        return lib_.shift_dyn(elem, flat.data_ptr(), out.data_ptr(), occ,
-                              R, n, shift.data_ptr(), valid.data_ptr(),
-                              int(gsn), rows, _common.cuda_stream(x))
+        return lib_.shift_gather_dyn(elem, flat.data_ptr(), out.data_ptr(),
+                                     R, n, shift.data_ptr(),
+                                     valid.data_ptr(), rows,
+                                     _common.cuda_stream(x))
 
-    return _launch(x, wrapper, occupancy, call)
+    return _launch(x, wrapper, False, call)
+
+
+def launch_scatter_dyn(x: torch.Tensor, shift: torch.Tensor,
+                       valid: torch.Tensor, wrapper):
+    """``x`` through the SSN on the (n,) int32 count operands on the card
+    (B14), with the occupancy: one derive kernel writes the ``(n,)`` source
+    table (``_common.dyn_sources_plain``'s twin) and the staged copy's
+    operands (:func:`staged_units_plain`'s twin) into a workspace from the
+    caching allocator, then a staged copy reads only the listed units of
+    every row, moves the rows through the remapped table and writes the
+    occupancy in the same pass.  The tile is sized for the whole row: the
+    list is known only on the card."""
+
+    def call(lib_, flat, out, occ, R, n):
+        elem = flat.element_size()
+        blocks = _common.min_blocks(x.device)
+        rows = _common.copy_tile_rows(R, n, n, 1, elem, blocks, units=n,
+                                      occupancy=True)
+        work = torch.empty((3 * n + 1,), dtype=torch.int32, device=x.device)
+        return lib_.shift_scatter_dyn(
+            elem, flat.data_ptr(), out.data_ptr(), occ, R, n,
+            shift.data_ptr(), valid.data_ptr(), work.data_ptr(), rows,
+            blocks, _common.cuda_stream(x))
+
+    return _launch(x, wrapper, True, call)
+
+
+def staged_units_plain(table, n: int, per_unit: int,
+                       elem: int) -> tuple[np.ndarray, np.ndarray]:
+    """The staged copy's operands for an ``(n,)`` source table with -1 in
+    unoccupied lanes, as B14's derive kernel composes them on the card
+    (``dyn_staged_units`` in ``csrc/route_dyn.cuh``): ``_common.staged_units``
+    of the occupied lanes' sources (every unit of the row when those touch
+    every 32-byte sector), and the remapped table with -1 where ``table``
+    has it.  Both int32; no unit and all -1 where no lane is occupied."""
+    src = np.asarray(table, np.int64)
+    keep = src >= 0
+    pos = np.full(n, -1, np.int32)
+    if not keep.any():
+        return np.zeros(0, np.int32), pos
+    units, pos[keep] = _common.staged_units(src[keep], n, per_unit, elem)
+    return units, pos
+
+
+def dyn_sources(shift: torch.Tensor, valid: torch.Tensor, *, gsn: bool,
+                elem: int, unit: int):
+    """The derive kernel alone on the (n,) int32 count operands on the
+    card, ``(table, pos, units)``: the ``(n,)`` int32 source table of the
+    GSN (``gsn``) or the SSN (B14's), -1 where the routed validity is
+    clear, and as B14's copy takes them for rows of ``elem``-byte lanes
+    staged in ``unit``-byte units, the remapped table ``(n,)`` and the unit
+    list ``(1 + n*elem/unit,)``: the count K, then K units, the rest
+    unwritten.  Nothing is read back, so a CUDA graph can capture it.  For
+    checking them against ``_common.dyn_sources_plain`` /
+    :func:`staged_units_plain` and timing the derivation; not on any access
+    path."""
+    for t, what in ((shift, "shift"), (valid, "valid")):
+        if t.dtype != torch.int32 or t.dim() != 1 or t.device.type != "cuda":
+            raise ValueError(f"dyn_sources: {what} must be (n,) int32 on a "
+                             f"card")
+    n = shift.shape[0]
+    work = torch.empty((3 * n + 1,), dtype=torch.int32, device=shift.device)
+    lib_ = lib()
+    check(lib_, lib_.shift_sources(int(gsn), n, shift.contiguous().data_ptr(),
+                                   valid.contiguous().data_ptr(), elem, unit,
+                                   work.data_ptr(),
+                                   _common.cuda_stream(work)),
+          "dyn_sources")
+    return work[:n], work[n:2 * n], work[2 * n:2 * n + 1 + n * elem // unit]

@@ -33,9 +33,14 @@ networks whose counts come from ``core/scg.py``.
   :func:`interleave_dynamic` (B7): one launch of the dynamic kernel for a
   CUDA tensor, or for a CPU tensor the plain version
   (:func:`deinterleave_dynamic_plain` / :func:`interleave_dynamic_plain`,
-  the GSN / SSN of ``core/shiftnet.py`` per field).  B6's launch is two
-  CUDA kernels (one derivation of the fields' source tables, then B1's
-  permuted copy of the rows through them) and counts as one.
+  the GSN / SSN of ``core/shiftnet.py`` per field).  Each launch is two
+  CUDA kernels and counts as one: one derivation of the fields' source
+  tables into a per-call workspace, then a table-driven copy under
+  Programmatic Dependent Launch.  B6 takes B1's permuted copy; B7 takes
+  B2's interleave copy, which merges the fields' ``(fields, n)`` tables as
+  it loads them (a later field winning; the twin is
+  :func:`interleave_dynamic_table`), with B2's host path: one cache entry
+  per ``(n, fields, device)`` and one short ctypes call.
 
 CUDA operands may be views: each wrapper reads a contiguous copy of a
 non-contiguous one (``_common.check_cuda``).  Each wrapper counts
@@ -54,9 +59,6 @@ from repro_torch.kernels import _common
 from repro_torch.vx.cache import PLANS
 
 MAX_FIELDS = 16
-# the tile sizing shared with the strided kernels (kernels/_common.py)
-SMEM_BUDGET = _common.SMEM_BUDGET
-rows_per_block = _common.rows_per_block
 
 
 # ---------------------------------------------------------------------------
@@ -219,6 +221,22 @@ def interleave_table(mode: str, plans, n: int, fields: int) -> np.ndarray:
     return table.astype(np.int32)
 
 
+def interleave_dynamic_table(n: int, fields: int) -> np.ndarray:
+    """B7's merged table, the twin of what its interleave copy composes
+    from the derive kernel's ``(fields, n)`` tables: ``(n,)`` int32, lane
+    c taking lane ``f*m + src_f[c]`` of the concatenated fields from the
+    last field f whose SSN source table on ``scg.scatter_counts(n, fields,
+    f, m)`` (``_common.dyn_sources_plain``) occupies it, as
+    :func:`interleave_dynamic_plain` merges; -1 where no field does."""
+    m = n // fields
+    table = np.full(n, -1, np.int64)
+    for f in range(fields):
+        src = _common.dyn_sources_plain(*scg.scatter_counts(n, fields, f, m),
+                                        gsn=False).numpy()
+        table = np.where((src >= 0) & (src < m), f * m + src, table)
+    return table.astype(np.int32)
+
+
 def _build_operands(direction: str, mode: str, plans, n: int, fields: int,
                     device: torch.device) -> dict:
     masks, spans = _common.stack_plan_masks(plans)
@@ -259,6 +277,49 @@ def _build_interleave_launch(n: int, fields: int, plans,
             "blocks": _common.min_blocks(device), "rows": {}}
 
 
+def _interleave_dyn_launch(n: int, fields: int,
+                           device: torch.device) -> dict:
+    """What B7's launch needs, one plan-cache entry per ``(n, fields,
+    device)``: the library and its bound entry point, the grid's block
+    count and, filled as calls come, the tile height per (rows, element
+    size).  The fields' tables are derived per call into a workspace from
+    the caching allocator (a cached one would be shared across streams)."""
+    key = ("seg.interleave_dyn", n, fields, device)
+    return PLANS.get(key, lambda: _build_interleave_dyn_launch(device))
+
+
+def _build_interleave_dyn_launch(device: torch.device) -> dict:
+    lib = _lib()
+    return {"lib": lib, "fn": lib.segment_interleave_dyn,
+            "blocks": _common.min_blocks(device), "rows": {}}
+
+
+def _tile_rows(ent: dict, R: int, n: int, fields: int, elem: int) -> int:
+    """The interleave copy's tile height for ``R`` rows of ``elem``-byte
+    lanes, kept in the launch entry ``ent`` (B2's or B7's) once sized."""
+    rows = ent["rows"].get((R, elem))
+    if rows is None:
+        rows = ent["rows"][R, elem] = _common.interleave_tile_rows(
+            R, n, fields, elem, ent["blocks"])
+    return rows
+
+
+def _launch_interleave(ent: dict, what: str, soa: list, out: torch.Tensor,
+                       R: int, m: int, table_ptr: int) -> None:
+    """One ctypes call of ``ent``'s entry point (B2's or B7's): the fields'
+    ``R`` rows of ``m`` lanes into ``out`` through the table at
+    ``table_ptr`` (B2's upload, B7's workspace)."""
+    fields = len(soa)
+    elem = out.element_size()
+    dense = [t.contiguous() for t in soa]
+    status = ent["fn"](
+        elem, (ctypes.c_void_p * fields)(*[t.data_ptr() for t in dense]),
+        out.data_ptr(), fields, R, m, table_ptr,
+        _tile_rows(ent, R, m * fields, fields, elem), ent["blocks"],
+        _common.cuda_stream(out))
+    _check(ent["lib"], status, what)
+
+
 def _lib():
     lib = _common.library("segment")
     if not getattr(lib, "_typed", False):
@@ -273,8 +334,10 @@ def _lib():
         lib.segment_deinterleave_dyn.restype = I
         lib.segment_deinterleave_sources.argtypes = [I, I, I, P, P]
         lib.segment_deinterleave_sources.restype = I
-        lib.segment_interleave_dyn.argtypes = [I, P, P, I, LL, I, I, I, P]
+        lib.segment_interleave_dyn.argtypes = [I, P, P, I, LL, I, P, I, I, P]
         lib.segment_interleave_dyn.restype = I
+        lib.segment_interleave_sources.argtypes = [I, I, I, P, P]
+        lib.segment_interleave_sources.restype = I
         lib.segment_error_string.argtypes = [I]
         lib.segment_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -445,17 +508,8 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
     R = x0.numel() // m if m else 0
     if R:
         ent = _interleave_launch(n, fields, plans, dev)
-        elem = x0.element_size()
-        rows = ent["rows"].get((R, elem))
-        if rows is None:
-            rows = ent["rows"][R, elem] = _common.interleave_tile_rows(
-                R, n, fields, elem, ent["blocks"])
-        dense = [t.contiguous() for t in soa]
-        status = ent["fn"](
-            elem, (ctypes.c_void_p * fields)(*[t.data_ptr() for t in dense]),
-            out.data_ptr(), fields, R, m, ent["table_ptr"], rows,
-            ent["blocks"], _common.cuda_stream(x0))
-        _check(ent["lib"], status, "interleave")
+        _launch_interleave(ent, "interleave", soa, out, R, m,
+                           ent["table_ptr"])
         interleave.launches += 1
     return out
 
@@ -478,41 +532,57 @@ def _check_fields(soa: list[torch.Tensor]) -> torch.Tensor:
 
 def interleave_dynamic(soa: list[torch.Tensor]) -> torch.Tensor:
     """fields x (..., m) -> (..., fields*m) through the dynamic-count
-    networks (kernel B7, ``interleave(fused=False)``): one launch per
-    call."""
+    networks (kernel B7, ``interleave(fused=False)``).  One launch per
+    call, made of two CUDA kernels on the call's stream: one block per
+    field derives that field's SSN and writes the source lane of each of
+    the n output lanes of its routed beat into a small int32 workspace;
+    then B2's interleave copy merges those tables (a later field winning)
+    and moves every row through them."""
     interleave_dynamic.calls += 1
     soa = list(soa)
     fields = len(soa)
     x0 = _check_fields(soa)
     m = x0.shape[-1]
     n = m * fields
-    if x0.device.type == "cpu":
+    dev = x0.device
+    if dev.type == "cpu":
         return interleave_dynamic_plain(soa)
-    soa = [_common.check_cuda(t, "interleave_dynamic") for t in soa]
+    _common.check_cuda(x0, "interleave_dynamic")
     if fields > MAX_FIELDS:
         raise ValueError(f"interleave kernel takes <= {MAX_FIELDS} fields")
-    lead = tuple(x0.shape[:-1])
-    flats = [t.reshape(-1, m) for t in soa]
-    R = flats[0].shape[0]
-    out = torch.empty((R, n), dtype=x0.dtype, device=x0.device)
+    out = x0.new_empty(x0.shape[:-1] + (n,))
+    R = x0.numel() // m if m else 0
     if R:
-        lib = _lib()
-        elem = x0.element_size()
-        # the dynamic network plus one packed row: the fields' occupancy
-        fixed = _common.dyn_net_bytes(n) + -(-n // 128) * 16
-        rows = rows_per_block(R, n, elem, fixed,
-                              _common.min_blocks(x0.device), buffers=2)
-        ptrs = (ctypes.c_void_p * fields)(*[f.data_ptr() for f in flats])
-        status = lib.segment_interleave_dyn(
-            elem, ptrs, out.data_ptr(), fields, R, n, m, rows,
-            _common.cuda_stream(x0))
-        _check(lib, status, "interleave_dynamic")
+        ent = _interleave_dyn_launch(n, fields, dev)
+        table = torch.empty((fields, n), dtype=torch.int32, device=dev)
+        _launch_interleave(ent, "interleave_dynamic", soa, out, R, m,
+                           table.data_ptr())
         interleave_dynamic.launches += 1
-    return out.reshape(lead + (n,))
+    return out
 
 
 interleave_dynamic.calls = 0
 interleave_dynamic.launches = 0
+
+def interleave_sources(n: int, fields: int, *, device=None) -> torch.Tensor:
+    """B7's derivation alone: the ``(fields, n)`` int32 SSN source tables
+    the derive kernel writes for an ``n``-lane beat (row f: the lane of
+    field f's zero-padded beat that each output lane holds after its
+    network, -1 where field f does not occupy the lane).  For checking the
+    tables against ``_common.dyn_sources_plain`` and timing the
+    derivation; not on any access path."""
+    if fields < 1 or n % fields or not n:
+        raise ValueError(f"{n} lanes do not split into {fields} fields")
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    table = torch.empty((fields, n), dtype=torch.int32, device=dev)
+    _common.check_cuda(table, "interleave_sources")
+    lib = _lib()
+    status = lib.segment_interleave_sources(n, n // fields, fields,
+                                            table.data_ptr(),
+                                            _common.cuda_stream(table))
+    _check(lib, status, "interleave_sources")
+    return table
+
 
 KERNELS = (deinterleave, interleave)
 DYNAMIC = (deinterleave_dynamic, interleave_dynamic)

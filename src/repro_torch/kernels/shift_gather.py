@@ -97,8 +97,7 @@ def shift_gather(x: torch.Tensor, shift, valid) -> torch.Tensor:
     shift, valid = device_counts(shift, valid, n, x.device)
     if x.device.type == "cpu":
         return shift_gather_plain(x, shift, valid)
-    return _indexed.launch_dyn(x, shift, valid, shift_gather, gsn=True,
-                               occupancy=False)
+    return _indexed.launch_gather_dyn(x, shift, valid, shift_gather)
 
 
 shift_gather.calls = 0

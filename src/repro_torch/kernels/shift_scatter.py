@@ -11,7 +11,13 @@ buffer (the store path of LSDO).
   :func:`shift_scatter` with HOST counts compiles them to a
   ``shiftplan.counts_plan`` plan and takes the same kernel.
 * :func:`shift_scatter` with tensor counts (B14) runs the dynamic-count
-  network on int32 count operands cast on the card.
+  network on int32 count operands cast on the card: one derive kernel
+  composes the SSN into an ``(n,)`` source table (its twin is
+  ``_common.dyn_sources_plain(shift, valid, gsn=False)``) and lists the
+  input units that hold a source lane (``_indexed.staged_units_plain``),
+  then one staged copy reads only those units of each row, moves the rows
+  through the table and writes the occupancy in the same pass; the two
+  count as one launch.
 
 For CUDA tensors each wrapper launches its kernel in ``csrc/indexed.cu``
 (one launch writes payload and occupancy); for CPU tensors it runs the
@@ -87,8 +93,7 @@ def shift_scatter(x: torch.Tensor, shift, valid
     shift, valid = device_counts(shift, valid, n, x.device)
     if x.device.type == "cpu":
         return shift_scatter_plain(x, shift, valid)
-    return _indexed.launch_dyn(x, shift, valid, shift_scatter, gsn=False,
-                               occupancy=True)
+    return _indexed.launch_scatter_dyn(x, shift, valid, shift_scatter)
 
 
 shift_scatter.calls = 0

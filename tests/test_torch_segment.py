@@ -20,7 +20,7 @@ import torch
 from _torch_bridge import (assert_bits_equal, cuda_device,  # noqa: F401
                            to_torch)
 from repro_torch.core import shiftplan
-from repro_torch.kernels import segment
+from repro_torch.kernels import _common, segment
 
 DTYPES = ["float32", "bfloat16", "int32"]
 
@@ -153,16 +153,16 @@ def test_dynamic_bodies_wait(direction, fields, lead, m):
 
 
 def test_shared_memory_sizing():
-    assert segment.rows_per_block(1 << 20, 256, 2, 64) == \
-        (segment.SMEM_BUDGET - 64) // (3 * 256 * 2)
-    assert segment.rows_per_block(3, 256, 4, 64) == 3
+    assert _common.rows_per_block(1 << 20, 256, 2, 64) == \
+        (_common.SMEM_BUDGET - 64) // (3 * 256 * 2)
+    assert _common.rows_per_block(3, 256, 4, 64) == 3
     with pytest.raises(ValueError):
-        segment.rows_per_block(4, 1 << 16, 8, 64)
+        _common.rows_per_block(4, 1 << 16, 8, 64)
     # a small call spreads over min_blocks blocks; a large one keeps the cap
-    assert segment.rows_per_block(128, 256, 2, 64, min_blocks=264) == 1
-    assert segment.rows_per_block(1000, 256, 2, 64, min_blocks=100) == 10
-    assert segment.rows_per_block(1 << 20, 256, 2, 64, min_blocks=264) == \
-        (segment.SMEM_BUDGET - 64) // (3 * 256 * 2)
+    assert _common.rows_per_block(128, 256, 2, 64, min_blocks=264) == 1
+    assert _common.rows_per_block(1000, 256, 2, 64, min_blocks=100) == 10
+    assert _common.rows_per_block(1 << 20, 256, 2, 64, min_blocks=264) == \
+        (_common.SMEM_BUDGET - 64) // (3 * 256 * 2)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Time kernels B7 and B14 of one checkout of the port on one card, so
+that two commits can be compared in one call (parent, change, change,
+parent).
+
+    python3 tools/kernel_ab.py [--root DIR] [--label NAME]
+
+Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), builds
+its kernels there, holds each timed output bit for bit against the plain
+version, and prints one line per measurement, each with the card's
+``nvidia-smi`` name and power limit on the first line:
+
+* B7, ``segment.interleave(fused=False)``, at the 16-token prefill re-pack
+  ``(1, 16, 8, 128)`` x2 bf16: CUDA-event time at the host's launch rate
+  (``chip_smoke.time_ms``) and device time alone (a CUDA graph of 20
+  calls, ``chip_smoke.graph_ms``), beside ``torch.stack(..., -1)
+  .flatten(-2)``;
+* B7 at the decode stack ``(28, 4, 512, 8, 128)`` x2 bf16;
+* B14, ``shift_scatter.shift_scatter`` with tensor counts, on the KV
+  stack ``(28, 4, 512, 8, 256)`` bf16 with ``scg.scatter_counts(256, 2,
+  1, 128)``, beside ``torch.gather`` by the plan's source index plus a
+  ``where``.
+
+Exits non-zero without a card.  Seeded; nothing is written.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=str(HERE),
+                    help="checkout whose src/repro_torch is timed")
+    ap.add_argument("--label", default="", help="name printed on each line")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(HERE))
+    from chip_smoke import card_line, graph_ms, same_bits, time_ms
+    sys.path.insert(0, str(Path(args.root).resolve() / "src"))
+    from repro_torch.core import scg
+    from repro_torch.kernels import _common, segment, shift_gather, \
+        shift_scatter
+    _common.build_all(_common.SOURCES)
+    tag = f"ab[{args.label or args.root}]"
+    print(f"{tag} card: {card_line()}")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def bf16(shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def held(run, plain, what):
+        got, want = run(), plain()
+        got = got if isinstance(got, (list, tuple)) else [got]
+        want = want if isinstance(want, (list, tuple)) else [want]
+        torch.cuda.synchronize()
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{what} differs from its plain version")
+
+    k, v = bf16((1, 16, 8, 128)), bf16((1, 16, 8, 128))
+    b7 = (lambda: segment.interleave([k, v], fused=False))
+    lib = (lambda: torch.stack([k, v], dim=-1).flatten(-2))
+    held(b7, lambda: segment.interleave_dynamic_plain([k, v]), "B7")
+    print(f"{tag} B7 [1, 16, 8, 128, 'x2']: host rate {time_ms(b7, 20):.4f} "
+          f"ms, device alone {graph_ms(b7, 20):.4f} ms; library host rate "
+          f"{time_ms(lib, 20):.4f} ms, device alone {graph_ms(lib, 20):.4f} "
+          f"ms")
+    kb, vb = bf16((28, 4, 512, 8, 128)), bf16((28, 4, 512, 8, 128))
+    b7s = (lambda: segment.interleave([kb, vb], fused=False))
+    held(b7s, lambda: segment.interleave([kb, vb]), "B7 at the stack")
+    print(f"{tag} B7 [28, 4, 512, 8, 128, 'x2']: {time_ms(b7s, 20):.4f} ms; "
+          f"B2 {time_ms(lambda: segment.interleave([kb, vb]), 20):.4f} ms")
+    del kb, vb
+    n, vl = 256, 128
+    x = torch.nn.functional.pad(bf16((28, 4, 512, 8, vl)), (0, n - vl))
+    ss, sv = scg.scatter_counts(n, 2, 1, vl, device=dev)
+    b14 = (lambda: list(shift_scatter.shift_scatter(x, ss, sv)))
+    held(b14, lambda: list(shift_scatter.shift_scatter_plain(x, ss, sv)),
+         "B14")
+    plan = shift_gather.host_plan(ss.cpu().numpy(), sv.cpu().numpy(),
+                                  gather=False)
+    src = torch.from_numpy(plan.source).to(dev).clamp(min=0).expand(x.shape)
+    keep = torch.from_numpy(plan.valid).to(dev)
+    print(f"{tag} B14 [28, 4, 512, 8, 256, 'tensor counts (2,1) vl 128']: "
+          f"{time_ms(b14, 20):.4f} ms; library "
+          f"{time_ms(lambda: torch.where(keep, torch.gather(x, -1, src), 0), 20):.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
