@@ -86,18 +86,20 @@ Phases, in order (any failure raises and exits non-zero):
    the counts of ``scg.gather_counts`` / ``scatter_counts`` at (96, 3, 1),
    (256, 2, 1), (100, 7, 5), (4095, 64, 0) and (1, 1, 0) and of
    ``compaction_counts`` / ``expansion_counts`` of random masks, and B12
-   / B14 against their plan twins B11 / B13, B14 also on random operand
-   counts, and B14's device source table and unit lists (its derive kernel
-   alone) against ``_common.dyn_sources_plain`` and
-   ``_indexed.staged_units_plain``; on the KV stack of phase 5
-   with the counts of ``gather_counts(256, 2, 1, 128)`` /
-   ``scatter_counts``, B12 and B11 must equal B3 on lanes [0, 128) and 0
-   beyond, and ``where(occ, payload, window)`` of B14 and B13 must equal
-   B5, and each is timed (library call: ``torch.gather`` with the plan's
-   source index plus a ``where``; B14 beside its derivation alone at n =
-   256 and 4095, a derive kernel that also lists the input units holding a
-   source lane and a staged copy that reads only those and also writes the
-   occupancy); at qwen3-moe-30b-a3b's width (d_model
+   / B14 against their plan twins B11 / B13, also on random operand
+   counts, and B12's and B14's device source tables and unit lists (the
+   derive kernel alone, on the GSN and the SSN) against
+   ``_common.dyn_sources_plain`` and ``_indexed.staged_units_plain``; on
+   the KV stack of phase 5 with the counts of ``gather_counts(256, 2, 1,
+   128)`` / ``scatter_counts``, B12 and B11 must equal B3 on lanes [0,
+   128) and 0 beyond, and ``where(occ, payload, window)`` of B14 and B13
+   must equal B5, and each is timed (library call: ``torch.gather`` with
+   the plan's source index plus a ``where``; B12 and B14 beside their
+   derivation alone at n = 256 and 4095, a derive kernel that also lists
+   the input units holding a source lane, before a staged copy that reads
+   only those (B14: and also writes the occupancy); B13 beside the units
+   its host operands list, one staged copy with the occupancy); at
+   qwen3-moe-30b-a3b's width (d_model
    2048, 128 experts, top-8; 2048- and 512-token chunks, n = 16384 and
    4096 units, one shard of 4-way expert parallelism set) ``vx.compact``
    then ``vx.scatter(Compact)`` must give ``where(mask, rows, 0)`` and the
@@ -1135,10 +1137,11 @@ def check_indexed(dev) -> int:
     no layer, no launch); B11-B14 against their plain versions over the
     counts of ``scg.gather_counts`` / ``scatter_counts`` at several (n,
     stride, offset, vl) and of ``compaction_counts`` / ``expansion_counts``
-    of random masks, and B12 / B14 against their plan twins B11 / B13; B14
-    also on random operand counts, with its derive kernel's source table
-    against ``_common.dyn_sources_plain`` and the staged copy's operands it
-    composes against ``_indexed.staged_units_plain``."""
+    of random masks, and B12 / B14 against their plan twins B11 / B13; B12
+    and B14 also on random operand counts, with the derive kernel's source
+    tables (the GSN's and the SSN's) against ``_common.dyn_sources_plain``
+    and the staged copy's operands it composes against
+    ``_indexed.staged_units_plain``."""
     import numpy as np
     import torch
     from repro_torch.core import scg, shiftnet
@@ -1240,8 +1243,9 @@ def check_indexed(dev) -> int:
                     if not (same_bits(dp, tp) and torch.equal(do, to)):
                         raise AssertionError(f"B14 != B13: {where}")
                     cases += 1
-    # B14 on random operand counts (uniform, short, negative and
-    # out-of-range shifts), and its derive kernel's table against the twin
+    # B12 and B14 on random operand counts (uniform, short, negative and
+    # out-of-range shifts; B13 routes their collisions as B14 does), and
+    # the derive kernel's tables against their twins
     rng = np.random.default_rng(SEED + 7)
     for n, _, _ in INDEXED_GEOM:
         for lo, hi, density in ((0, n, 0.5), (0, 8, 0.8), (-n, 2 * n + 1,
@@ -1249,31 +1253,41 @@ def check_indexed(dev) -> int:
             sh = torch.from_numpy(rng.integers(lo, max(hi, lo + 1), n)
                                   .astype(np.int32))
             va = torch.from_numpy((rng.random(n) < density).astype(np.int32))
-            want = _common.dyn_sources_plain(sh, va, gsn=False)
+            # the derive kernel's table and the staged copy's operands on
+            # B12's GSN and B14's SSN, 1/2/4/8-byte lanes
+            for gsn, what in ((True, "B12"), (False, "B14")):
+                want = _common.dyn_sources_plain(sh, va, gsn=gsn)
+                for elem in (1, 2, 4, 8):
+                    unit = _common.copy_unit(n * elem, 0)
+                    table, pos, units = _indexed.dyn_sources(
+                        sh.to(dev), va.to(dev), gsn=gsn, elem=elem,
+                        unit=unit)
+                    units = units.cpu().numpy()
+                    wu, wp = _indexed.staged_units_plain(want.numpy(), n,
+                                                         unit // elem, elem)
+                    if not (torch.equal(table.cpu(), want) and np.array_equal(
+                            pos.cpu().numpy(), wp) and np.array_equal(
+                            units[1:1 + units[0]], wu)):
+                        raise AssertionError(
+                            f"{what} staged units != twin: n={n} elem "
+                            f"{elem} shifts in [{lo}, {hi})")
+            hs, hv = sh.numpy(), va.numpy()
             sh, va = sh.to(dev), va.to(dev)
-            # the table and the staged copy's operands, 1/2/4/8-byte lanes
-            for elem in (1, 2, 4, 8):
-                unit = _common.copy_unit(n * elem, 0)
-                table, pos, units = _indexed.dyn_sources(
-                    sh, va, gsn=False, elem=elem, unit=unit)
-                units = units.cpu().numpy()
-                wu, wp = _indexed.staged_units_plain(want.numpy(), n,
-                                                     unit // elem, elem)
-                if not (torch.equal(table.cpu(), want) and np.array_equal(
-                        pos.cpu().numpy(), wp) and np.array_equal(
-                        units[1:1 + units[0]], wu)):
-                    raise AssertionError(f"B14 staged units != twin: n={n} "
-                                         f"elem {elem} shifts in [{lo}, {hi})")
-            hs, hv = sh.cpu().numpy(), va.cpu().numpy()
             for dtype in dtypes:
                 x = rand((1001, n), dtype)
                 dp, do = shift_scatter.shift_scatter(x, sh, va)
                 tp, to = shift_scatter.shift_scatter(x, hs, hv)
                 wp, wo = shift_scatter.shift_scatter_plain(x, sh, va)
+                gd = shift_gather.shift_gather(x, sh, va)
+                gt = shift_gather.shift_gather(x, hs, hv)
+                gw = shift_gather.shift_gather_plain(x, sh, va)
                 torch.cuda.synchronize()
                 if not (same_bits(dp, wp) and torch.equal(do, wo)
                         and same_bits(dp, tp) and torch.equal(do, to)):
                     raise AssertionError(f"B14 != plain / B13: {dtype} n={n} "
+                                         f"shifts in [{lo}, {hi})")
+                if not (same_bits(gd, gw) and same_bits(gd, gt)):
+                    raise AssertionError(f"B12 != plain / B11: {dtype} n={n} "
                                          f"shifts in [{lo}, {hi})")
             cases += 1
     return cases
@@ -1311,7 +1325,10 @@ def time_indexed(dev, kv_shape) -> dict:
     are 0; ``where(occ, payload, window)`` of B14 and B13 on the values
     zero-padded to 256 lanes equals B5's output.  Then each is timed
     (``record``); the library call is ``torch.gather`` along the lanes with
-    the plan's precomputed source index, plus a ``where``."""
+    the plan's precomputed source index, plus a ``where``.  Beside them:
+    the units of a row B13's host operands list, and the derive kernel
+    alone (CUDA graph) on B12's GSN and B14's SSN at n = 256 and 4095,
+    with the units it lists."""
     import torch
     from repro_torch.core import scg
     from repro_torch.kernels import (_common, _indexed, shift_gather,
@@ -1370,11 +1387,13 @@ def time_indexed(dev, kv_shape) -> dict:
         lambda: shift_gather.shift_gather_static_plain(kv, gplan),
         library(kv, gplan), gather_move,
         shape + ["host counts (2,1) vl 128"])
-    out["shift_gather"] = record(
-        "shift_gather", lambda: shift_gather.shift_gather(kv, gs, gv),
-        lambda: shift_gather.shift_gather_plain(kv, gs, gv),
-        library(kv, gplan), gather_move,
-        shape + ["tensor counts (2,1) vl 128"])
+    # B13's staged copy lists the units its host plan's table reads
+    sunit = _common.copy_unit(n * e, padded.data_ptr())
+    st = _indexed.scatter_plan_staged(splan, sunit // e, e)
+    print(f"shift_scatter_static units: {int(st['nunits'][0])} of "
+          f"{n * e // sunit} {sunit}-byte units of a row listed by the host "
+          f"plan's table (one staged copy with the occupancy, no derive "
+          f"kernel)")
     out["shift_scatter_static"] = record(
         "shift_scatter_static",
         lambda: list(shift_scatter.shift_scatter_static(padded, splan)),
@@ -1382,32 +1401,45 @@ def time_indexed(dev, kv_shape) -> dict:
                                                               splan)),
         library(padded, splan), scatter_move,
         shape + ["host counts (2,1) vl 128"])
-    # B14's derive kernel alone (one block, the SSN on the operand counts,
-    # the table and the staged copy's unit list for bf16 rows) at the
-    # stack's n = 256 and on the 12-layer network at n = 4095
+    # the derive kernel alone (one block: the GSN for B12, the SSN for B14,
+    # on the operand counts; the table and the staged copy's unit list for
+    # bf16 rows) at the stack's n = 256 and on the 12-layer network at
+    # n = 4095
     derive = {}
-    for dn, (dss, dsv) in ((n, (ss, sv)),
-                           (4095, scg.scatter_counts(4095, 64, 0, 64,
-                                                     device=dev))):
-        dss, dsv = dss.to(torch.int32), dsv.to(torch.int32)
-        unit = _common.copy_unit(dn * e, 0)
-        derive[dn] = graph_ms(lambda: _indexed.dyn_sources(
-            dss, dsv, gsn=False, elem=e, unit=unit), 20)
-        listed = int(_indexed.dyn_sources(dss, dsv, gsn=False, elem=e,
-                                          unit=unit)[2][0])
-        print(f"time shift_scatter derive n={dn}: {derive[dn]:.4f} ms for "
-              f"B14's derive kernel alone (one block: the SSN on the "
-              f"operand counts, the {dn}-entry table and the unit list, "
-              f"{listed} of {dn * e // unit} {unit}-byte units of a row; "
-              f"device time, CUDA graph)")
+    for gsn, name, what, counts in (
+            (True, "shift_gather", "B12", scg.gather_counts),
+            (False, "shift_scatter", "B14", scg.scatter_counts)):
+        dsn = (gs, gv) if gsn else (ss, sv)
+        for dn, (dss, dsv) in ((n, dsn), (4095, counts(4095, 64, 0, 64,
+                                                       device=dev))):
+            dss, dsv = dss.to(torch.int32), dsv.to(torch.int32)
+            unit = _common.copy_unit(dn * e, 0)
+            derive[what, dn] = graph_ms(lambda: _indexed.dyn_sources(
+                dss, dsv, gsn=gsn, elem=e, unit=unit), 20)
+            listed = int(_indexed.dyn_sources(dss, dsv, gsn=gsn, elem=e,
+                                              unit=unit)[2][0])
+            print(f"time {name} derive n={dn}: {derive[what, dn]:.4f} ms for "
+                  f"{what}'s derive kernel alone (one block: the "
+                  f"{'GSN' if gsn else 'SSN'} on the operand counts, the "
+                  f"{dn}-entry table and the unit list, {listed} of "
+                  f"{dn * e // unit} {unit}-byte units of a row; device "
+                  f"time, CUDA graph)")
+
+    def note(what, net):
+        return (f"; {net} derivation alone {derive[what, n]:.4f} ms (n = "
+                f"{n}), {derive[what, 4095]:.4f} ms (n = 4095)")
+
+    out["shift_gather"] = record(
+        "shift_gather", lambda: shift_gather.shift_gather(kv, gs, gv),
+        lambda: shift_gather.shift_gather_plain(kv, gs, gv),
+        library(kv, gplan), gather_move,
+        shape + ["tensor counts (2,1) vl 128"], note("B12", "GSN"))
     out["shift_scatter"] = record(
         "shift_scatter",
         lambda: list(shift_scatter.shift_scatter(padded, ss, sv)),
         lambda: list(shift_scatter.shift_scatter_plain(padded, ss, sv)),
         library(padded, splan), scatter_move,
-        shape + ["tensor counts (2,1) vl 128"],
-        f"; SSN derivation alone {derive[n]:.4f} ms (n = {n}), "
-        f"{derive[4095]:.4f} ms (n = 4095)")
+        shape + ["tensor counts (2,1) vl 128"], note("B14", "SSN"))
     return out
 
 
@@ -1607,9 +1639,9 @@ def indexed_phase(dev, kv_shape, timing: dict) -> dict:
     t0 = time.perf_counter()
     cases = check_indexed(dev)
     print(f"indexed kernels == plain: {cases} cases (B10 both directions; "
-          f"B12 == B11 and B14 == B13 on the same counts, B14 also on random "
-          f"operand counts with its device source table == "
-          f"dyn_sources_plain and its unit lists == staged_units_plain) "
+          f"B12 == B11 and B14 == B13 on the same counts, also on random "
+          f"operand counts, with B12's and B14's device source tables == "
+          f"dyn_sources_plain and their unit lists == staged_units_plain) "
           f"bit-exact ({time.perf_counter() - t0:.1f} s)")
     timing.update(time_indexed(dev, kv_shape))
     torch.cuda.empty_cache()

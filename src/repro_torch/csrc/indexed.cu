@@ -21,13 +21,16 @@
 //        (d_i = +2^l for the GSN, which consumes bits LSB first, -2^l for
 //        the SSN, MSB first; a read outside [0, n) gives 0).  The (L, n)
 //        take-masks come precomputed (`shiftnet.layer_masks`).
-//   B11 / B13: a row tile through a `shiftplan.counts_plan` plan
-//        (route_plan.cuh), then zero where the plan's occupancy is clear;
-//        B13 also writes that occupancy for every (row, lane).
-//   B12 / B14: the same through the dynamic-count network (route_dyn.cuh)
-//        whose counts are the (n,) `shift` / `valid` operands shared by all
-//        rows; zero where the routed validity is clear; B14 also writes the
-//        routed validity for every (row, lane).
+//   B11 / B13: a row tile through a `shiftplan.counts_plan` plan, then
+//        zero where the plan's occupancy is clear; B13 also writes that
+//        occupancy for every (row, lane).
+//   B12 / B14: the same through the dynamic-count network whose counts are
+//        the (n,) `shift` / `valid` operands shared by all rows; zero where
+//        the routed validity is clear; B14 also writes the routed validity
+//        for every (row, lane).
+// A lane takes its candidate regardless of the payload, so each of B11-B14
+// is one source lane per output lane: out[r][j] = src[j] < 0 ? 0 :
+// x[r][src[j]], with the occupancy src[j] >= 0.
 //
 // Bound: pure data movement, no floating point.  The least time is the
 // bytes that must move over 3.35 TB/s: B11-B14 read the 32-byte sectors
@@ -48,28 +51,33 @@
 //   widest unit (16, 8, 4, 2 or 1 bytes) that divides the row and both
 //   pointers; a row outside out_valid is written as zeros without reading
 //   its source.  One launch per call, no shared-memory staging of rows.
-//   B11 / B13: a row tile through route_plan's lane-major layer loop, with
-//   the occupancy row beside the masks.  B12: the same loop on the
-//   network each block derives from the counts, loaded from device memory
-//   into the network's count scratch (`operand_counts`, route_dyn.cuh);
-//   the wrapper casts them to int32 on the card and sizes the row tile
-//   with `dyn_net_bytes`, so one derivation serves the whole tile.
-//   B14 (two kernels a call): one derive kernel (`shift_sources_kernel`,
-//   one block) derives the SSN on the operand counts once, composes it into
-//   an (n,) source table (-1 where the routed validity is clear) and from
-//   that the staged copy's operands (`dyn_staged_units`, route_dyn.cuh):
-//   the list of the units of an input row (16 bytes where the row and the
-//   pointer allow) that hold a source lane, or every unit where those
-//   touch every 32-byte sector, and the table
-//   remapped into the row compacted to them.  Then B3's staged copy
-//   (perm_copy.cuh), started under Programmatic Dependent Launch, stages
-//   only the listed units of each row (on the KV stack's (2,1) scatter,
-//   the first half of each row: the values' lanes), moves the rows through
-//   the remapped table and, in the same pass, writes the occupancy (entry
-//   >= 0) for every row from the table it holds in shared memory.  No
-//   per-block derivation and no pass per layer.  Elements move as raw bits
-//   (1, 2, 4 or 8 bytes), so every dtype is bit-exact, -0.0 and NaN
-//   payloads included.
+//   B11: a row tile through route_plan's lane-major layer loop, zero
+//   where the plan's occupancy bit is clear (`shift_plan_kernel`).
+//   B12 and B14 (two kernels a call, one launcher): one derive kernel
+//   (`shift_sources_kernel`, one block) derives the GSN (B12) or the SSN
+//   (B14) on the operand counts once, composes it into an (n,) source
+//   table (-1 where the routed validity is clear) and from that the staged
+//   copy's operands (`dyn_staged_units`, route_dyn.cuh): the list of the
+//   units of an input row (16 bytes where the row and the pointer allow)
+//   that hold a source lane, or every unit where those touch every
+//   32-byte sector, and the table remapped into the row compacted to
+//   them.  Then B3's staged copy (perm_copy.cuh), started under
+//   Programmatic Dependent Launch, waits for the list, stages only the
+//   listed units of each row, moves the rows through the remapped table
+//   (0 where it holds -1) and, for B14, in the same pass writes the
+//   occupancy (entry >= 0) for every row from the table it holds in
+//   shared memory.  On the KV stack B12's sources (the odd lanes) touch
+//   every sector, so a tile stages as one contiguous chunk; B14's (2,1)
+//   scatter lists the values' half of each row.
+//   B13 (one kernel a call): its network is static, and for an occupied
+//   lane the plan's `ShiftPlan.source` is the lane the routed network
+//   delivers, so the wrapper composes the same operands on the host from
+//   where(plan.valid, plan.source, -1) and uploads them once per plan,
+//   staging unit and element size; the staged copy with the occupancy is
+//   launched plainly, stream-ordered after whatever wrote `x`.
+//   No kernel derives a network per block, and B12-B14 make no pass per
+//   layer.  Elements move as raw bits (1, 2, 4 or 8 bytes), so every
+//   dtype is bit-exact, -0.0 and NaN payloads included.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,7 +172,7 @@ static cudaError_t launch_route_rows(const void* x, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// B11-B14: the row tile in and out
+// B11: the raw GSN through a compiled plan
 // ---------------------------------------------------------------------------
 
 // Rows [0, nr) of the (nr, n) payload `xs` into the shared tile `ba`.
@@ -178,10 +186,9 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ xs, T* ba,
 }
 
 // The routed tile `res` to `os`, zero where the lane's bit of `occ_bits`
-// is clear; with `oc` (B13 / B14) also that bit for every element.
+// is clear.
 template <typename T>
 __device__ __forceinline__ void store_masked(const T* res, T* __restrict__ os,
-                                             uint8_t* __restrict__ oc,
                                              const uint32_t* occ_bits, int nr,
                                              int n, const TileMap& tm) {
   if (tm.g >= tm.groups) return;
@@ -189,23 +196,15 @@ __device__ __forceinline__ void store_masked(const T* res, T* __restrict__ os,
     const bool keep = lane_bit(occ_bits, c);
     for (int r = tm.g; r < nr; r += tm.groups)
       os[(size_t)r * n + c] = keep ? res[(size_t)r * n + c] : T(0);
-    if (oc)
-      for (int r = tm.g; r < nr; r += tm.groups)
-        oc[(size_t)r * n + c] = keep ? 1 : 0;
   }
 }
 
-// ---------------------------------------------------------------------------
-// B11 / B13: the raw network through a compiled plan
-// ---------------------------------------------------------------------------
-
 // (R, n) -> (R, n) through plan layers [0, nlayers), zero where the plan's
-// occupancy bit is clear; with `occ` (B13) also that bit for every element.
+// occupancy bit is clear.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shift_plan_kernel(const T* __restrict__ x, T* __restrict__ out,
-                  uint8_t* __restrict__ occ, long long R, int n,
-                  const uint32_t* __restrict__ masks, int S, int words,
+shift_plan_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
+                  int n, const uint32_t* __restrict__ masks, int S, int words,
                   const int* __restrict__ layers, int nlayers,
                   const uint32_t* __restrict__ valid, int rows) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -224,14 +223,13 @@ shift_plan_kernel(const T* __restrict__ x, T* __restrict__ out,
   __syncthreads();
   const T* res = route_plan<T>(ba, ba, bb, nr, n, words, smask, layers, 0,
                                nlayers, tm);
-  store_masked(res, out + r0 * n, occ ? occ + r0 * n : nullptr, svalid, nr,
-               n, tm);
+  store_masked(res, out + r0 * n, svalid, nr, n, tm);
 }
 
 template <typename T>
-static cudaError_t launch_shift_plan(const void* x, void* out, void* occ,
-                                     long long R, int n, const void* masks,
-                                     int S, int words, const void* layers,
+static cudaError_t launch_shift_plan(const void* x, void* out, long long R,
+                                     int n, const void* masks, int S,
+                                     int words, const void* layers,
                                      int nlayers, const void* valid, int rows,
                                      cudaStream_t stream) {
   const size_t mbytes = ((size_t)(S + 1) * words * 4 + 15) & ~(size_t)15;
@@ -242,15 +240,15 @@ static cudaError_t launch_shift_plan(const void* x, void* out, void* occ,
   cudaError_t e = set_smem(shift_plan_kernel<T>, smem, granted);
   if (e != cudaSuccess) return e;
   shift_plan_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<uint8_t*>(occ), R, n, static_cast<const uint32_t*>(masks),
-      S, words, static_cast<const int*>(layers), nlayers,
+      static_cast<const T*>(x), static_cast<T*>(out), R, n,
+      static_cast<const uint32_t*>(masks), S, words,
+      static_cast<const int*>(layers), nlayers,
       static_cast<const uint32_t*>(valid), rows);
   return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// B14's derivation: once per launch, on the operand counts
+// B12 / B14's derivation: once per launch, on the operand counts
 // ---------------------------------------------------------------------------
 
 // Shared memory of the derive kernel: the network, the n-entry source
@@ -261,13 +259,13 @@ static inline size_t shift_sources_smem(int n, int nu) {
          pad16((size_t)(uw + 1) * 4);
 }
 
-// One block derives the GSN (`gsn`) or the SSN (B14) on the (n,) operand
-// counts, composes it into the source table (`dyn_sources`: n int32, -1
-// where the routed validity is clear) and writes it to `table`, and from it
-// the staged copy's operands for rows of `elem`-byte lanes staged in
-// `sunit`-byte units (`dyn_staged_units`): the remapped table `pos` (n),
-// the unit count `nunits` (1) and the unit list `units` (at most
-// n*elem/sunit).  It lets the copy that follows start at once
+// One block derives the GSN (`gsn`, B12) or the SSN (B14) on the (n,)
+// operand counts, composes it into the source table (`dyn_sources`: n
+// int32, -1 where the routed validity is clear) and writes it to `table`,
+// and from it the staged copy's operands for rows of `elem`-byte lanes
+// staged in `sunit`-byte units (`dyn_staged_units`): the remapped table
+// `pos` (n), the unit count `nunits` (1) and the unit list `units` (at
+// most n*elem/sunit).  It lets the copy that follows start at once
 // (Programmatic Dependent Launch); that copy waits for it before it reads
 // the list, since what it stages depends on it.
 __global__ void __launch_bounds__(THREADS)
@@ -310,47 +308,58 @@ static cudaError_t launch_shift_sources(int gsn, int n, const int* shift,
 }
 
 // ---------------------------------------------------------------------------
-// B12: the raw GSN on runtime counts, derived per block
+// B12-B14: the staged copy through a source table's operands
 // ---------------------------------------------------------------------------
 
-// (R, n) -> (R, n) through the GSN on the operand counts, zero where the
-// routed validity is clear.  Serves B12 alone (B14 is a derive kernel and
-// a staged copy, above and below).
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-shift_dyn_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
-                 int n, const int* __restrict__ shift,
-                 const int* __restrict__ valid, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  DynNet net = dyn_carve(smem, n);
-  T* ba = reinterpret_cast<T*>(smem + dyn_bytes(n));
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-
-  load_tile(x + r0 * n, ba, nr, n, tm);
-  operand_counts(net, shift, valid);
-  dyn_derive(net, true);
-  const T* res = route_dyn<T>(net, ba, ba, bb, nr, tm);
-  store_masked(res, out + r0 * n, nullptr, net.occ, nr, n, tm);
+// The staged copy of the R rows of n `elem`-byte lanes through the
+// remapped table `pos` and the unit list `units` (nunits[0] of at most
+// `kmax` used), zero where `pos` is -1, and with `occ` the (R, n)
+// occupancy bytes; under PDL (`pdl`) behind the derive kernel that writes
+// the list, else stream-ordered.
+static cudaError_t launch_shift_copy(int elem_bytes, const void* x, void* out,
+                                     void* occ, long long R, int n,
+                                     const int* pos, const int* units,
+                                     const int* nunits, int kmax, int rows,
+                                     int blocks, int sunit, int ounit,
+                                     bool pdl, cudaStream_t s) {
+  switch (elem_bytes) {
+    case 1: return launch_staged_copy<uint8_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, pdl, occ);
+    case 2: return launch_staged_copy<uint16_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, pdl, occ);
+    case 4: return launch_staged_copy<uint32_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, pdl, occ);
+    case 8: return launch_staged_copy<unsigned long long>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, pdl, occ);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
-template <typename T>
-static cudaError_t launch_shift_dyn(const void* x, void* out, long long R,
-                                    int n, const void* shift,
-                                    const void* valid, int rows,
-                                    cudaStream_t stream) {
-  const size_t smem = dyn_bytes(n) + 2 * (size_t)rows * n * sizeof(T);
-  const long long tiles = (R + rows - 1) / rows;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(shift_dyn_kernel<T>, smem, granted);
+// B12 (the GSN, `gsn`) and B14 (the SSN, with `occ`): the derivation
+// of the source table and the staged copy's operands into `work` (the
+// caller's int32 workspace of 3n + 1 entries: the table, the remapped
+// table, the unit count, the unit list), then the staged copy of the R
+// rows under PDL.  The staging and store units are picked here from the
+// row's bytes and the pointers.
+static cudaError_t launch_shift_dyn(int gsn, int elem_bytes, const void* x,
+                                    void* out, void* occ, long long R, int n,
+                                    const void* shift, const void* valid,
+                                    void* work, int rows, int blocks,
+                                    cudaStream_t s) {
+  if (n < 1 || rows < 1 || elem_bytes < 1 || elem_bytes > 8)
+    return cudaErrorInvalidValue;
+  const size_t row = (size_t)n * elem_bytes;
+  const void* xp[1] = {x};
+  const void* op[1] = {out};
+  const int sunit = copy_unit(row, elem_bytes, xp, 1);
+  const int ounit = copy_unit(row, elem_bytes, op, 1);
+  int* tab = static_cast<int*>(work);
+  int* pos = tab + n;
+  int* nunits = pos + n;
+  int* units = nunits + 1;
+  cudaError_t e = launch_shift_sources(
+      gsn, n, static_cast<const int*>(shift), static_cast<const int*>(valid),
+      elem_bytes, sunit, tab, pos, nunits, units, s);
   if (e != cudaSuccess) return e;
-  shift_dyn_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), R, n,
-      static_cast<const int*>(shift), static_cast<const int*>(valid), rows);
-  return cudaGetLastError();
+  return launch_shift_copy(elem_bytes, x, out, occ, R, n, pos, units, nunits,
+                           (int)(row / sunit), rows, blocks, sunit, ounit,
+                           true, s);
 }
 
 extern "C" {
@@ -375,78 +384,56 @@ int route_rows(int unit_bytes, const void* x, void* out, const void* masks,
   }
 }
 
-// B11 (occ == NULL) and B13 (occ != NULL).
-int shift_plan(int elem_bytes, const void* x, void* out, void* occ,
-               long long R, int n, const void* masks, int S, int words,
-               const void* layers, int nlayers, const void* valid, int rows,
-               void* stream) {
+// B11.
+int shift_plan(int elem_bytes, const void* x, void* out, long long R, int n,
+               const void* masks, int S, int words, const void* layers,
+               int nlayers, const void* valid, int rows, void* stream) {
   if (n < 1 || rows < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (elem_bytes) {
-    case 1: return launch_shift_plan<uint8_t>(x, out, occ, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    case 2: return launch_shift_plan<uint16_t>(x, out, occ, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    case 4: return launch_shift_plan<uint32_t>(x, out, occ, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    case 8: return launch_shift_plan<unsigned long long>(x, out, occ, R, n, masks, S, words, layers, nlayers, valid, rows, s);
+    case 1: return launch_shift_plan<uint8_t>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
+    case 2: return launch_shift_plan<uint16_t>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
+    case 4: return launch_shift_plan<uint32_t>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
+    case 8: return launch_shift_plan<unsigned long long>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// B12: the GSN on the (n,) int32 operand counts, derived per block.
-int shift_gather_dyn(int elem_bytes, const void* x, void* out, long long R,
-                     int n, const void* shift, const void* valid, int rows,
-                     void* stream) {
-  if (n < 1 || rows < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (elem_bytes) {
-    case 1: return launch_shift_dyn<uint8_t>(x, out, R, n, shift, valid, rows, s);
-    case 2: return launch_shift_dyn<uint16_t>(x, out, R, n, shift, valid, rows, s);
-    case 4: return launch_shift_dyn<uint32_t>(x, out, R, n, shift, valid, rows, s);
-    case 8: return launch_shift_dyn<unsigned long long>(x, out, R, n, shift, valid, rows, s);
-    default: return cudaErrorInvalidValue;
-  }
+// B12 (`gsn`, occ == NULL) and B14 (the SSN, which also writes the (R, n)
+// occupancy bytes `occ`) on the (n,) int32 operand counts: two kernels on
+// `stream` (`launch_shift_dyn`), in `rows`-row tiles over at most `blocks`
+// blocks, with the caller's int32 workspace `work` of 3n + 1 entries.
+int shift_dyn(int gsn, int elem_bytes, const void* x, void* out, void* occ,
+              long long R, int n, const void* shift, const void* valid,
+              void* work, int rows, int blocks, void* stream) {
+  return launch_shift_dyn(gsn, elem_bytes, x, out, occ, R, n, shift, valid,
+                          work, rows, blocks,
+                          static_cast<cudaStream_t>(stream));
 }
 
-// B14: the SSN on the (n,) int32 operand counts, two kernels on `stream`:
-// the derivation of the source table and the staged copy's operands into
-// `work` (the caller's int32 workspace of 3n + 1 entries: the table, the
-// remapped table, the unit count, the unit list), then the staged copy of
-// the R rows, which also writes the (R, n) occupancy bytes `occ`, in
-// `rows`-row tiles over at most `blocks` blocks.  The staging and store
-// units are picked here from the row's bytes and the pointers.
-int shift_scatter_dyn(int elem_bytes, const void* x, void* out, void* occ,
-                      long long R, int n, const void* shift,
-                      const void* valid, void* work, int rows, int blocks,
-                      void* stream) {
-  if (n < 1 || rows < 1 || !occ || elem_bytes < 1 || elem_bytes > 8)
-    return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t row = (size_t)n * elem_bytes;
-  const void* xp[1] = {x};
-  const void* op[1] = {out};
-  const int sunit = copy_unit(row, elem_bytes, xp, 1);
-  const int ounit = copy_unit(row, elem_bytes, op, 1);
-  const int kmax = (int)(row / sunit);
-  int* tab = static_cast<int*>(work);
-  int* pos = tab + n;
-  int* nunits = pos + n;
-  int* units = nunits + 1;
-  cudaError_t e = launch_shift_sources(
-      0, n, static_cast<const int*>(shift), static_cast<const int*>(valid),
-      elem_bytes, sunit, tab, pos, nunits, units, s);
-  if (e != cudaSuccess) return e;
-  switch (elem_bytes) {
-    case 1: return launch_staged_copy<uint8_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
-    case 2: return launch_staged_copy<uint16_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
-    case 4: return launch_staged_copy<uint32_t>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
-    case 8: return launch_staged_copy<unsigned long long>(x, out, 1, R, n, n, pos, units, nunits, kmax, rows, blocks, sunit, ounit, s, true, occ);
-    default: return cudaErrorInvalidValue;
-  }
+// B13: one staged copy of the R rows through the operands the host
+// composed from the plan's table (the remapped table `pos` (n), the unit
+// list `units` (kmax entries, nunits[0] of them used)), which also writes
+// the (R, n) occupancy bytes `occ`; stream-ordered, no PDL.  Staged in
+// `sunit`-byte units (the unit the list counts in) and stored in
+// `ounit`-byte units.
+int shift_scatter_plan(int elem_bytes, const void* x, void* out, void* occ,
+                       long long R, int n, const void* pos, const void* units,
+                       const void* nunits, int kmax, int rows, int blocks,
+                       int sunit, int ounit, void* stream) {
+  if (n < 1 || rows < 1 || !occ) return cudaErrorInvalidValue;
+  return launch_shift_copy(elem_bytes, x, out, occ, R, n,
+                           static_cast<const int*>(pos),
+                           static_cast<const int*>(units),
+                           static_cast<const int*>(nunits), kmax, rows,
+                           blocks, sunit, ounit, false,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // The derive kernel alone on the operand counts: the (n,) source table of
-// the GSN (`gsn`) or the SSN (B14's) and the staged copy's operands for
-// rows of `elem`-byte lanes in `sunit`-byte units, into `work` laid out as
-// B14's workspace (3n + 1 int32).
+// the GSN (`gsn`, B12's) or the SSN (B14's) and the staged copy's operands
+// for rows of `elem`-byte lanes in `sunit`-byte units, into `work` laid out
+// as B12's and B14's workspace (3n + 1 int32).
 int shift_sources(int gsn, int n, const void* shift, const void* valid,
                   int elem, int sunit, void* work, void* stream) {
   int* tab = static_cast<int*>(work);

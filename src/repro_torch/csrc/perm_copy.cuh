@@ -2,8 +2,9 @@
 // permutation kernel:
 //   * `perm_copy_kernel`: B1 and B6 (segment.cu), the copy half of B8
 //     (strided.cu);
-//   * `staged_copy_kernel`: the whole of B3 and B4 (strided.cu), the copy
-//     half of B14 (indexed.cu, which also writes the occupancy);
+//   * `staged_copy_kernel`: the whole of B3 and B4 (strided.cu) and of B13
+//     (indexed.cu, which also writes the occupancy), the copy half of B12
+//     and B14 (indexed.cu; B14 also writes the occupancy);
 //   * `merge_copy_kernel`: the whole of B5 and the copy half of B9
 //     (strided.cu);
 //   * `interleave_copy_kernel`: the whole of B2 and the copy half of B7
@@ -259,7 +260,7 @@ static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
 }
 
 // ---------------------------------------------------------------------------
-// The staged copy: B3 and B4 (strided.cu)
+// The staged copy: B3, B4 (strided.cu) and B12-B14 (indexed.cu)
 // ---------------------------------------------------------------------------
 //
 // For access a < A (blockIdx.y), every row r of its (R, n) window and lane
@@ -268,15 +269,17 @@ static cudaError_t launch_perm_copy(const void* x, const Ptrs& outs,
 // where staged_a[r] is row r compacted to its listed units: units[a*kmax +
 // k] (k < nunits[a]) of `sunit` bytes each, in order.  For B3 and B4 the
 // host composes both from a gather plan's table (`ShiftPlan.source`, which
-// is static; every entry >= 0), so there is no derive kernel and nothing to
-// wait for: the wrapper uploads the list and the remapped table once per
-// plan and copy unit, and the copy is launched plainly.  For B14 (one
-// access, vl = n) the derive kernel launched just before this one composes
-// them on the card from the SSN's source table (route_dyn.cuh,
+// is static; every entry >= 0), and for B13 (one access, vl = n) from a
+// counts plan's table under its occupancy (-1 where a lane is
+// unoccupied), so there is no derive kernel and nothing to wait for: the
+// wrapper uploads the list and the remapped table once per plan and copy
+// unit, and the copy is launched plainly.  For B12 and B14 (one access, vl
+// = n) the derive kernel launched just before this one composes them on
+// the card from the GSN's or the SSN's source table (route_dyn.cuh,
 // `dyn_staged_units`; -1 where a lane is unoccupied), and the copy starts
 // under Programmatic Dependent Launch: it waits for that kernel before it
-// reads the list, since what it stages depends on it.  With `occ` (B14) it
-// also writes
+// reads the list, since what it stages depends on it.  With `occ` (B13,
+// B14) it also writes
 //   occ[r][j] = pos[j] >= 0
 // as one byte (0 / 1) for every row, built once per block in shared memory
 // and stored beside each output tile in `occ_unit`-byte vector stores, in
@@ -357,7 +360,7 @@ staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
                    int occ_unit) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int a = blockIdx.y;
-  pdl_wait();                             // B14: the derive kernel's list
+  pdl_wait();                      // B12 / B14: the derive kernel's list
   const int K = nunits[a];
   const size_t in_row = (size_t)n * sizeof(T);
   const size_t out_row = (size_t)vl * sizeof(T);
@@ -436,9 +439,9 @@ static inline bool bad_unit(int unit, size_t elem) {
 }
 
 // One launch of the staged copy over A accesses: a persistent grid of at
-// most `blocks` blocks per access.  With `pdl` (B14) after the derive
+// most `blocks` blocks per access.  With `pdl` (B12, B14) after the derive
 // kernel that writes the list and the table on the same stream, allowed to
-// start before that kernel ends; without (B3, B4: host operands),
+// start before that kernel ends; without (B3, B4, B13: host operands),
 // stream-ordered after whatever wrote `x`.  With `occ` (one access only)
 // it also writes the (R, vl) occupancy bytes, in the widest unit that
 // divides vl and the pointer.

@@ -14,33 +14,28 @@
 // The counts are the same for every row (the Pallas bodies carry them as
 // (1, n)), so the per-layer take-masks are derived from the counts in
 // shared memory (`dyn_derive`, one barrier per layer), exactly the
-// reference's `layer_masks`.  Two ways to use them:
-//   * B12 derives them in every block and routes the block's row tile
-//     through route_plan's lane-major layer loop (`route_dyn`): one shift
-//     record and one select under the derived mask row per layer,
-//     `apply_layer_masks`.
-//   * B6, B7, B8, B9 and B14 derive them once per launch and compose them
-//     into a source table (`dyn_sources`): a lane takes its candidate
-//     regardless of the payload, so every output lane holds one input
-//     lane's raw bits, found by walking the layers backwards.  The table
-//     goes to device memory and a copy (perm_copy.cuh) moves the rows
-//     through it: the permuted copy for B6 and B8; B2's interleave copy
-//     for B7, which merges the fields' tables as it loads them; for B9 the
-//     merge copy, through the list of the occupied lanes and their sources
-//     that the same kernel compacts from the table (vl pairs, not n
-//     lanes); for B14 the staged copy, through the list of the input units
-//     that hold a source lane and the table remapped into the row
-//     compacted to them (`dyn_staged_units`), so that only those units are
-//     read.  B6-B9 derive in `dyn_sources_kernel` below, on counts from
-//     (stride, offset); B14 in indexed.cu's `shift_sources_kernel`, on the
-//     (n,) `shift` / `valid` operands (`operand_counts`).
+// reference's `layer_masks`, once per launch.  A lane takes its candidate
+// regardless of the payload, so every output lane holds one input lane's
+// raw bits: `dyn_sources` composes the masks into a source table, found by
+// walking the layers backwards.  The table goes to device memory and a
+// copy (perm_copy.cuh) moves the rows through it: the permuted copy for B6
+// and B8; B2's interleave copy for B7, which merges the fields' tables as
+// it loads them; for B9 the merge copy, through the list of the occupied
+// lanes and their sources that the same kernel compacts from the table (vl
+// pairs, not n lanes); for B12 and B14 the staged copy, through the list
+// of the input units that hold a source lane and the table remapped into
+// the row compacted to them (`dyn_staged_units`), so that only those units
+// are read.  B6-B9 derive in `dyn_sources_kernel` below, on counts from
+// (stride, offset); B12 and B14 in indexed.cu's `shift_sources_kernel`, on
+// the (n,) `shift` / `valid` operands (`operand_counts`).  No kernel
+// derives a network per block or routes rows layer by layer through it.
 // The routing is computed on the device at run time from the counts: no
 // host plan, no pruned layers.
 //
 // Shared-memory state of one network (`DynNet`, carved by `dyn_carve`):
 //   masks  L x words   packed take-masks, route_plan's bit format (lane_bit)
 //   occ    words       final occupancy (validity after the last layer)
-//   layers 4 x L       route_plan layer records (1, shift, 0, mask_row)
+//   shift  L           each layer's signed shift (+-2^l)
 //   sc     2 x n       shift counts, ping-pong
 //   val    2 x words   packed validity, ping-pong
 // The caller fills sc[0, n) and val[0, words) (the `*_counts` helpers
@@ -62,7 +57,7 @@ __host__ __device__ inline int dyn_layers(int n) {
 __host__ __device__ inline size_t dyn_bytes(int n) {
   const int words = (n + 31) / 32;
   const int L = dyn_layers(n);
-  const size_t b = 4 * ((size_t)L * words + words + 4 * L + 2 * (size_t)n +
+  const size_t b = 4 * ((size_t)L * words + words + L + 2 * (size_t)n +
                         2 * words);
   return (b + 15) & ~(size_t)15;
 }
@@ -70,7 +65,7 @@ __host__ __device__ inline size_t dyn_bytes(int n) {
 struct DynNet {
   uint32_t* masks;
   uint32_t* occ;
-  int* layers;
+  int* shift;
   int* sc;
   uint32_t* val;
   int n, words, L;
@@ -83,8 +78,8 @@ __device__ inline DynNet dyn_carve(unsigned char* base, int n) {
   net.L = dyn_layers(n);
   net.masks = reinterpret_cast<uint32_t*>(base);
   net.occ = net.masks + (size_t)net.L * net.words;
-  net.layers = reinterpret_cast<int*>(net.occ + net.words);
-  net.sc = net.layers + 4 * net.L;
+  net.shift = reinterpret_cast<int*>(net.occ + net.words);
+  net.sc = net.shift + net.L;
   net.val = reinterpret_cast<uint32_t*>(net.sc + 2 * (size_t)n);
   return net;
 }
@@ -160,11 +155,12 @@ __device__ inline void operand_counts(DynNet& net,
   }
 }
 
-// Derive the take-mask of every layer and the final occupancy from the
-// counts in sc[0, n) / val[0, words).  `gsn`: toward lower lanes, LSB
-// first; else the SSN.  Every thread of the block calls it (one barrier
-// per layer); it starts and ends with a barrier, so the caller's fill and
-// the caller's reads of masks/occ/layers need none of their own.
+// Derive the take-mask and the signed shift of every layer and the final
+// occupancy from the counts in sc[0, n) / val[0, words).  `gsn`: toward
+// lower lanes, LSB first; else the SSN.  Every thread of the block calls
+// it (one barrier per layer); it starts and ends with a barrier, so the
+// caller's fill and the caller's reads of masks/occ/shift need none of
+// their own.
 __device__ inline void dyn_derive(DynNet& net, bool gsn) {
   const int n = net.n, words = net.words, L = net.L;
   int* sc = net.sc;
@@ -199,28 +195,13 @@ __device__ inline void dyn_derive(DynNet& net, bool gsn) {
         v2[c >> 5] = vw;
       }
     }
-    if (threadIdx.x == 0) {
-      net.layers[4 * i] = 1;
-      net.layers[4 * i + 1] = d;
-      net.layers[4 * i + 2] = 0;
-      net.layers[4 * i + 3] = i;
-    }
+    if (threadIdx.x == 0) net.shift[i] = d;
     __syncthreads();
     int* ts = sc; sc = sc2; sc2 = ts;
     uint32_t* tv = v; v = v2; v2 = tv;
   }
   for (int w = threadIdx.x; w < words; w += blockDim.x) net.occ[w] = v[w];
   __syncthreads();
-}
-
-// Route a row tile through the derived network: route_plan's layer loop
-// over the records `dyn_derive` wrote.  Returns the buffer that holds the
-// routed tile (`bin` when the network has no layer).
-template <typename T>
-__device__ inline T* route_dyn(const DynNet& net, T* bin, T* ba, T* bb,
-                               int nr, const TileMap& tm) {
-  return route_plan<T>(bin, ba, bb, nr, net.n, net.words, net.masks,
-                       net.layers, 0, net.L, tm);
 }
 
 // The set bits below each word of the packed bit row `bits`, over bits
@@ -261,7 +242,7 @@ __device__ inline void bit_prefix(const uint32_t* bits, int count, int* pre) {
 // in lane j, or -1 where the final occupancy is clear (the lane is
 // written as 0).  Walking backwards from the last layer, lane c's value
 // came from c + d_i wherever layer i's take bit of c is set (d_i the
-// layer's signed shift, `layers[4*i + 1]`); a take never reads outside
+// layer's signed shift, `shift[i]`); a take never reads outside
 // [0, n), so the walk stays in range.  No layer (n <= 1): src[j] = j.
 // With `list`, also the occupied lanes compacted in lane order:
 //   list = {K, lane_0, src_0, lane_1, src_1, ...}
@@ -280,7 +261,7 @@ __device__ inline void dyn_sources(const DynNet& net, int* __restrict__ src,
     } else {
       for (int i = net.L - 1; i >= 0; --i)
         if (lane_bit(net.masks + (size_t)i * net.words, c))
-          c += net.layers[4 * i + 1];
+          c += net.shift[i];
     }
     src[j] = c;
     if (list && c >= 0) {

@@ -12,17 +12,18 @@ headers, so the build takes seconds); :func:`build_all` builds several
 sources in parallel (:data:`SOURCES` lists them all).  A missing ``nvcc``
 or a failed build raises; nothing falls back to a plain version.  The
 CUDA launch helpers shared by the kernel wrappers
-(:func:`rows_per_block`, :func:`dyn_net_bytes`, :func:`copy_tile_rows`,
+(:func:`rows_per_block`, :func:`copy_tile_rows`,
 :func:`merge_tile_rows`, :func:`interleave_tile_rows`,
 :func:`copy_unit`, :func:`check_cuda`,
 :func:`cuda_stream`, :func:`layer_table`) live here too, with
 :func:`dyn_sources_plain`, the torch-ops twin of the source table that
-B6, B7, B8, B9 and B14 derive on the card; :func:`merge_pairs` /
+B6, B7, B8, B9, B12 and B14 derive on the card; :func:`merge_pairs` /
 :func:`merge_copy_plain`, the list of occupied lanes the merge copy walks
 (derived on the card for B9, from the host plan for B5) and that copy as
 torch ops; and :func:`staged_units` /
 :func:`staged_copy_plain`, the staged-unit list and remapped table that
-B3 and B4 take from the host plan, and their composition as torch ops.
+B3, B4 and B13 take from the host plan (B12 and B14 from their derive
+kernel), and their composition as torch ops.
 """
 from __future__ import annotations
 
@@ -202,20 +203,8 @@ def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
                       -(-R // max(1, min_blocks))))
 
 
-def dyn_net_bytes(n: int) -> int:
-    """Shared memory of one dynamic-count network over ``n`` lanes, as
-    ``dyn_bytes`` in ``csrc/route_dyn.cuh`` carves it: the derived
-    take-masks (one packed row per layer), the final occupancy, the layer
-    records, and the count and validity scratch (two of each), rounded up
-    to 16 bytes.  At n = 4096 that is 40640 bytes, most of it counts."""
-    words = -(-n // 32)
-    layers = shiftnet._num_layers(n)
-    b = 4 * (layers * words + words + 4 * layers + 2 * n + 2 * words)
-    return -(-b // 16) * 16
-
-
 #: Shared memory of one block of the copies in ``csrc/perm_copy.cuh`` (the
-#: permuted copy of B1 and of B6 / B8 / B14, the staged copy of B3 and B4,
+#: permuted copy of B1, B6 and B8, the staged copy of B3, B4 and B12-B14,
 #: the merge copy of B5 and B9, the interleave copy of B2 and B7): two
 #: blocks share an SM, each with two staged input tiles of about 32 KB at
 #: the main shape.
@@ -231,10 +220,12 @@ def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
     :data:`COPY_SMEM` (one row at least, if that fits the card's 227 KB at
     all; raises beyond that), and low enough that ``blocks`` blocks share
     the ``R`` rows when ``R`` allows it.  ``n`` is the lanes staged per
-    row: the whole row for B6 / B8 / B14; for B3 / B4 (the staged copy)
-    the lanes of the listed units only, whose list of ``units`` int32
-    entries then sits beside the table.  With ``occupancy`` (B14) the
-    (rows, nout) tile of occupancy bytes sits beside the output tile."""
+    row: the whole row for B6 / B8, and for B12 / B14 (whose list is known
+    only on the card); for B3 / B4 / B13 (the staged copy through host
+    operands) the lanes of the listed units only.  The staged copy's list
+    of ``units`` int32 entries sits beside the table.  With ``occupancy``
+    (B13, B14) the (rows, nout) tile of occupancy bytes sits beside the
+    output tile."""
     fixed = (-(-nout * 4 // 16) * 16 + -(-units * 4 // 16) * 16
              + 16 * (2 + parts + occupancy))
     per_row = (2 * n + nout) * elem + (nout if occupancy else 0)
@@ -322,16 +313,16 @@ def copy_unit(nbytes: int, *ptrs: int) -> int:
 
 def staged_units(source, n: int, per_unit: int,
                  elem: int) -> tuple[np.ndarray, np.ndarray]:
-    """What the staged copy (B3 / B4) loads of an ``n``-lane row of
-    ``elem``-byte lanes, from a static source table: ``source`` gives each
-    output lane's input lane (all >= 0), and a copy unit holds
-    ``per_unit`` lanes.  Returns ``units``, the staged-unit list, and
-    ``pos``, each output lane's position in the row compacted to those
-    units (the remapped table), both int32.  The list is the sorted
-    distinct units that hold a source lane, or every unit of the row when
-    those units touch every 32-byte sector of it (counted from the row's
-    start): the same sectors move either way, and a whole row stages as
-    one contiguous chunk."""
+    """What the staged copy (B3 / B4, and B13 over its occupied lanes)
+    loads of an ``n``-lane row of ``elem``-byte lanes, from a static
+    source table: ``source`` gives each output lane's input lane (all >=
+    0), and a copy unit holds ``per_unit`` lanes.  Returns ``units``, the
+    staged-unit list, and ``pos``, each output lane's position in the row
+    compacted to those units (the remapped table), both int32.  The list
+    is the sorted distinct units that hold a source lane, or every unit of
+    the row when those units touch every 32-byte sector of it (counted
+    from the row's start): the same sectors move either way, and a whole
+    row stages as one contiguous chunk."""
     src = np.asarray(source, np.int64)
     if src.size and src.min() < 0:
         raise ValueError("staged copy: every output lane needs a source lane")

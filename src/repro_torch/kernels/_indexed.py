@@ -3,12 +3,16 @@ kernels/shift_scatter.py: the ctypes binding of ``csrc/indexed.cu``
 (kernels B10-B14), built on first use (``_common.library``; a failed
 build or a launch that returns a CUDA error raises), the device operands
 of a compiled counts plan, and the launches of the raw networks:
-:func:`launch_plan` (B11 / B13), :func:`launch_gather_dyn` (B12, which
-derives its network in every block) and :func:`launch_scatter_dyn` (B14:
-one derive kernel into a per-call workspace, then a staged copy that reads
-only the input units holding a source lane and also writes the
-occupancy); :func:`dyn_sources` runs the derive kernel alone, and
-:func:`staged_units_plain` is the twin of the unit list it composes."""
+:func:`launch_plan` (B11, route_plan's layer loop over row tiles),
+:func:`launch_dyn` (B12 and B14: one derive kernel into a per-call
+workspace, then a staged copy that reads only the input units holding a
+source lane, and for B14 also writes the occupancy) and
+:func:`launch_scatter_plan` (B13: the same staged copy with the
+occupancy, through operands composed on the host from the plan's table,
+:func:`scatter_plan_staged`, uploaded once per plan, device, staging unit
+and element size by :func:`scatter_plan_operands`).  :func:`dyn_sources`
+runs the derive kernel alone, and :func:`staged_units_plain` is the twin
+of the unit list it composes."""
 from __future__ import annotations
 
 import ctypes
@@ -26,13 +30,13 @@ def lib() -> ctypes.CDLL:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.route_rows.argtypes = [I, P, P, P, P, I, I, I, I, I, I, P]
         lib.route_rows.restype = I
-        lib.shift_plan.argtypes = [I, P, P, P, LL, I, P, I, I, P, I, P, I, P]
+        lib.shift_plan.argtypes = [I, P, P, LL, I, P, I, I, P, I, P, I, P]
         lib.shift_plan.restype = I
-        lib.shift_gather_dyn.argtypes = [I, P, P, LL, I, P, P, I, P]
-        lib.shift_gather_dyn.restype = I
-        lib.shift_scatter_dyn.argtypes = [I, P, P, P, LL, I, P, P, P, I, I,
-                                          P]
-        lib.shift_scatter_dyn.restype = I
+        lib.shift_dyn.argtypes = [I, I, P, P, P, LL, I, P, P, P, I, I, P]
+        lib.shift_dyn.restype = I
+        lib.shift_scatter_plan.argtypes = [I, P, P, P, LL, I, P, P, P, I, I,
+                                           I, I, I, P]
+        lib.shift_scatter_plan.restype = I
         lib.shift_sources.argtypes = [I, I, P, P, I, I, P, P]
         lib.shift_sources.restype = I
         lib.indexed_error_string.argtypes = [I]
@@ -52,7 +56,7 @@ def plan_operands(plan, device: torch.device) -> dict:
     """A compiled plan's operands on ``device``, uploaded once per (plan,
     device): bool ``masks`` (S, n) and ``valid`` (n,) for the plain
     versions, and on a card the packed bit rows and layer records of the
-    B11 / B13 launch.  The key holds the plan itself (plans compare by
+    B11 launch.  The key holds the plan itself (plans compare by
     identity and the counts-keyed plan cache returns the same object)."""
     return PLANS.get(("indexed.operands", plan, str(device)),
                      lambda: _build_plan_operands(plan, device))
@@ -96,9 +100,8 @@ def _launch(x: torch.Tensor, wrapper, occupancy: bool, call):
     return out.reshape(x.shape), occ.reshape(x.shape)
 
 
-def launch_plan(x: torch.Tensor, plan, wrapper, *, occupancy: bool):
-    """``x`` through compiled ``plan`` on the card: B11, or with
-    ``occupancy`` B13 (which also returns the occupancy)."""
+def launch_plan(x: torch.Tensor, plan, wrapper):
+    """``x`` through compiled ``plan`` on the card (B11)."""
     ops = plan_operands(plan, x.device)
 
     def call(lib_, flat, out, occ, R, n):
@@ -107,53 +110,97 @@ def launch_plan(x: torch.Tensor, plan, wrapper, *, occupancy: bool):
             R, n, elem, (ops["S"] + 1) * ops["words"] * 4,
             _common.min_blocks(x.device), buffers=2)
         return lib_.shift_plan(
-            elem, flat.data_ptr(), out.data_ptr(), occ, R, n,
+            elem, flat.data_ptr(), out.data_ptr(), R, n,
             ops["masks_bits"].data_ptr(), ops["S"], ops["words"],
             ops["layers"].data_ptr(), ops["nlayers"],
             ops["valid_bits"].data_ptr(), rows, _common.cuda_stream(x))
 
-    return _launch(x, wrapper, occupancy, call)
-
-
-def launch_gather_dyn(x: torch.Tensor, shift: torch.Tensor,
-                      valid: torch.Tensor, wrapper):
-    """``x`` through the GSN on the (n,) int32 count operands on the card
-    (B12): every block derives the network and routes its row tile."""
-
-    def call(lib_, flat, out, occ, R, n):
-        elem = flat.element_size()
-        rows = _common.rows_per_block(R, n, elem, _common.dyn_net_bytes(n),
-                                      _common.min_blocks(x.device),
-                                      buffers=2)
-        return lib_.shift_gather_dyn(elem, flat.data_ptr(), out.data_ptr(),
-                                     R, n, shift.data_ptr(),
-                                     valid.data_ptr(), rows,
-                                     _common.cuda_stream(x))
-
     return _launch(x, wrapper, False, call)
 
 
-def launch_scatter_dyn(x: torch.Tensor, shift: torch.Tensor,
-                       valid: torch.Tensor, wrapper):
-    """``x`` through the SSN on the (n,) int32 count operands on the card
-    (B14), with the occupancy: one derive kernel writes the ``(n,)`` source
-    table (``_common.dyn_sources_plain``'s twin) and the staged copy's
-    operands (:func:`staged_units_plain`'s twin) into a workspace from the
-    caching allocator, then a staged copy reads only the listed units of
-    every row, moves the rows through the remapped table and writes the
-    occupancy in the same pass.  The tile is sized for the whole row: the
-    list is known only on the card."""
+def launch_dyn(x: torch.Tensor, shift: torch.Tensor, valid: torch.Tensor,
+               wrapper, *, gsn: bool):
+    """``x`` through the GSN (``gsn``, B12) or the SSN (B14, which also
+    returns the occupancy) on the (n,) int32 count operands on the card:
+    one derive kernel writes the ``(n,)`` source table
+    (``_common.dyn_sources_plain``'s twin) and the staged copy's operands
+    (:func:`staged_units_plain`'s twin) into a workspace from the caching
+    allocator, then a staged copy reads only the listed units of every row
+    and moves the rows through the remapped table, 0 where it holds -1
+    (B14: and writes the occupancy in the same pass).  The tile is sized
+    for the whole row: the list is known only on the card."""
 
     def call(lib_, flat, out, occ, R, n):
         elem = flat.element_size()
         blocks = _common.min_blocks(x.device)
         rows = _common.copy_tile_rows(R, n, n, 1, elem, blocks, units=n,
-                                      occupancy=True)
+                                      occupancy=not gsn)
         work = torch.empty((3 * n + 1,), dtype=torch.int32, device=x.device)
-        return lib_.shift_scatter_dyn(
-            elem, flat.data_ptr(), out.data_ptr(), occ, R, n,
+        return lib_.shift_dyn(
+            int(gsn), elem, flat.data_ptr(), out.data_ptr(), occ, R, n,
             shift.data_ptr(), valid.data_ptr(), work.data_ptr(), rows,
             blocks, _common.cuda_stream(x))
+
+    return _launch(x, wrapper, not gsn, call)
+
+
+def scatter_plan_staged(plan, per_unit: int, elem: int) -> dict:
+    """B13's staged-copy operands, composed on the host from a compiled
+    scatter plan for rows of ``elem``-byte lanes staged in units of
+    ``per_unit`` lanes: ``table``, ``where(plan.valid, plan.source, -1)``
+    (for an occupied lane the plan's source is exactly the lane the routed
+    network delivers, conflicts included); from it, as
+    :func:`staged_units_plain` composes them, the unit list ``units``
+    ``(kmax,)`` (zero past its ``nunits[0]`` entries; ``kmax`` is at least
+    1, so a plan that occupies no lane lists none and still launches) and
+    the remapped table ``pos`` ``(n,)``, -1 where the plan leaves a lane
+    unoccupied.  All int32 numpy arrays."""
+    n = plan.n
+    table = np.where(np.asarray(plan.valid).reshape(n),
+                     np.asarray(plan.source).reshape(n), -1).astype(np.int32)
+    units, pos = staged_units_plain(table, n, per_unit, elem)
+    kmax = max(len(units), 1)
+    padded = np.zeros(kmax, np.int32)
+    padded[:len(units)] = units
+    return {"table": table, "units": padded, "kmax": kmax, "pos": pos,
+            "nunits": np.array([len(units)], np.int32)}
+
+
+def scatter_plan_operands(plan, device: torch.device, per_unit: int,
+                          elem: int) -> dict:
+    """:func:`scatter_plan_staged` on ``device``: ``kmax`` and the int32
+    tensors ``units``, ``nunits`` and ``pos``, uploaded once per (plan,
+    device, staging unit, element size) through the plan cache."""
+    def build():
+        host = scatter_plan_staged(plan, per_unit, elem)
+        return {"kmax": host["kmax"], **{
+            k: torch.from_numpy(host[k]).to(device)
+            for k in ("units", "nunits", "pos")}}
+
+    return PLANS.get(("indexed.staged", plan, str(device), per_unit, elem),
+                     build)
+
+
+def launch_scatter_plan(x: torch.Tensor, plan, wrapper):
+    """``x`` through compiled scatter ``plan`` on the card (B13), with the
+    occupancy: one staged copy through the host-composed operands of
+    :func:`scatter_plan_operands`, launched plainly (no derive kernel, so
+    nothing to wait for but ``x``'s writer, which the stream orders)."""
+
+    def call(lib_, flat, out, occ, R, n):
+        elem = flat.element_size()
+        sunit = _common.copy_unit(n * elem, flat.data_ptr())
+        ounit = _common.copy_unit(n * elem, out.data_ptr())
+        st = scatter_plan_operands(plan, x.device, sunit // elem, elem)
+        blocks = _common.min_blocks(x.device)
+        rows = _common.copy_tile_rows(R, st["kmax"] * sunit // elem, n, 1,
+                                      elem, blocks, units=st["kmax"],
+                                      occupancy=True)
+        return lib_.shift_scatter_plan(
+            elem, flat.data_ptr(), out.data_ptr(), occ, R, n,
+            st["pos"].data_ptr(), st["units"].data_ptr(),
+            st["nunits"].data_ptr(), st["kmax"], rows, blocks, sunit, ounit,
+            _common.cuda_stream(x))
 
     return _launch(x, wrapper, True, call)
 
@@ -161,8 +208,9 @@ def launch_scatter_dyn(x: torch.Tensor, shift: torch.Tensor,
 def staged_units_plain(table, n: int, per_unit: int,
                        elem: int) -> tuple[np.ndarray, np.ndarray]:
     """The staged copy's operands for an ``(n,)`` source table with -1 in
-    unoccupied lanes, as B14's derive kernel composes them on the card
-    (``dyn_staged_units`` in ``csrc/route_dyn.cuh``): ``_common.staged_units``
+    unoccupied lanes, as B12's and B14's derive kernel composes them on
+    the card (``dyn_staged_units`` in ``csrc/route_dyn.cuh``) and B13's
+    wrapper on the host (:func:`scatter_plan_staged`): ``_common.staged_units``
     of the occupied lanes' sources (every unit of the row when those touch
     every 32-byte sector), and the remapped table with -1 where ``table``
     has it.  Both int32; no unit and all -1 where no lane is occupied."""
@@ -179,8 +227,8 @@ def dyn_sources(shift: torch.Tensor, valid: torch.Tensor, *, gsn: bool,
                 elem: int, unit: int):
     """The derive kernel alone on the (n,) int32 count operands on the
     card, ``(table, pos, units)``: the ``(n,)`` int32 source table of the
-    GSN (``gsn``) or the SSN (B14's), -1 where the routed validity is
-    clear, and as B14's copy takes them for rows of ``elem``-byte lanes
+    GSN (``gsn``, B12's) or the SSN (B14's), -1 where the routed validity
+    is clear, and as their copy takes them for rows of ``elem``-byte lanes
     staged in ``unit``-byte units, the remapped table ``(n,)`` and the unit
     list ``(1 + n*elem/unit,)``: the count K, then K units, the rest
     unwritten.  Nothing is read back, so a CUDA graph can capture it.  For

@@ -10,8 +10,13 @@ lanes the routing leaves invalid come out 0.
   counts (numpy arrays, tuples, lists) compiles them to a
   ``shiftplan.counts_plan`` plan and takes the same kernel.
 * :func:`shift_gather` with tensor counts (B12) runs the dynamic-count
-  network: the counts go to the card as int32 operands (cast there, no
-  host sync) and each block derives the network from them.
+  network on int32 count operands cast on the card (no host sync): one
+  derive kernel composes the GSN into an ``(n,)`` source table (its twin
+  is ``_common.dyn_sources_plain(shift, valid, gsn=True)``) and lists the
+  input units that hold a source lane (``_indexed.staged_units_plain``),
+  then one staged copy reads only those units of each row and moves the
+  rows through the table, 0 where it holds -1; the two count as one
+  launch.
 
 For CUDA tensors each wrapper launches its kernel in ``csrc/indexed.cu``,
 one launch per call; for CPU tensors it runs the plain version
@@ -77,8 +82,7 @@ def shift_gather_static(x: torch.Tensor, plan) -> torch.Tensor:
     assert plan.n == n, (plan.n, n)
     if x.device.type == "cpu":
         return shift_gather_static_plain(x, plan)
-    return _indexed.launch_plan(x, plan, shift_gather_static,
-                                occupancy=False)
+    return _indexed.launch_plan(x, plan, shift_gather_static)
 
 
 shift_gather_static.calls = 0
@@ -97,7 +101,7 @@ def shift_gather(x: torch.Tensor, shift, valid) -> torch.Tensor:
     shift, valid = device_counts(shift, valid, n, x.device)
     if x.device.type == "cpu":
         return shift_gather_plain(x, shift, valid)
-    return _indexed.launch_gather_dyn(x, shift, valid, shift_gather)
+    return _indexed.launch_dyn(x, shift, valid, shift_gather, gsn=True)
 
 
 shift_gather.calls = 0

@@ -9,14 +9,18 @@ buffer (the store path of LSDO).
 
 * :func:`shift_scatter_static` (B13) routes through a compiled ShiftPlan;
   :func:`shift_scatter` with HOST counts compiles them to a
-  ``shiftplan.counts_plan`` plan and takes the same kernel.
+  ``shiftplan.counts_plan`` plan and takes the same kernel.  The plan is
+  static, so its table ``where(plan.valid, plan.source, -1)`` and the
+  staged copy's operands are composed on the host
+  (``_indexed.scatter_plan_staged``) and uploaded once per plan, staging
+  unit and element size; one staged copy reads only the input units that
+  hold a source lane and writes payload and occupancy in one pass.
 * :func:`shift_scatter` with tensor counts (B14) runs the dynamic-count
   network on int32 count operands cast on the card: one derive kernel
   composes the SSN into an ``(n,)`` source table (its twin is
   ``_common.dyn_sources_plain(shift, valid, gsn=False)``) and lists the
   input units that hold a source lane (``_indexed.staged_units_plain``),
-  then one staged copy reads only those units of each row, moves the rows
-  through the table and writes the occupancy in the same pass; the two
+  then the same staged copy as B13's, which waits for that list; the two
   count as one launch.
 
 For CUDA tensors each wrapper launches its kernel in ``csrc/indexed.cu``
@@ -72,8 +76,7 @@ def shift_scatter_static(x: torch.Tensor, plan
     assert plan.n == x.shape[-1], (plan.n, x.shape[-1])
     if x.device.type == "cpu":
         return shift_scatter_static_plain(x, plan)
-    return _indexed.launch_plan(x, plan, shift_scatter_static,
-                                occupancy=True)
+    return _indexed.launch_scatter_plan(x, plan, shift_scatter_static)
 
 
 shift_scatter_static.calls = 0
@@ -93,7 +96,7 @@ def shift_scatter(x: torch.Tensor, shift, valid
     shift, valid = device_counts(shift, valid, n, x.device)
     if x.device.type == "cpu":
         return shift_scatter_plain(x, shift, valid)
-    return _indexed.launch_scatter_dyn(x, shift, valid, shift_scatter)
+    return _indexed.launch_dyn(x, shift, valid, shift_scatter, gsn=False)
 
 
 shift_scatter.calls = 0

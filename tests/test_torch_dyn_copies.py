@@ -528,17 +528,27 @@ def test_b7_b14_right_behind_their_producer_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_b12_keeps_its_own_kernel_on_card(cuda_device):
-    """B12 still routes through its per-block derivation and equals B11 and
-    its plain version on the random counts B14 takes."""
+    """B12 runs B14's pair on its own network: the derive kernel on the GSN
+    (``gsn=True``: its table is the GSN's twin, not the SSN's B14 derives
+    on the same counts) and the staged copy without the occupancy, one
+    launch a call; it equals B11 and its plain version on the random
+    counts B14 takes."""
     dev = cuda_device
     for n in B14_WIDTHS:
         x = card_rand(n, (1001, n), torch.bfloat16, dev)
         for k, kind in enumerate(COUNT_KINDS):
             shift, valid = (t.to(dev) for t in random_counts(n, kind, k))
+            before = shift_gather.shift_gather.launches
             got = shift_gather.shift_gather(x, shift, valid)
             twin = shift_gather.shift_gather(x, shift.cpu().numpy(),
                                              valid.cpu().numpy())
             torch.cuda.synchronize()
+            assert shift_gather.shift_gather.launches == before + 1
             assert_same_bits(got, shift_gather.shift_gather_plain(
                 x, shift, valid))
             assert_same_bits(got, twin)
+            table = _indexed.dyn_sources(shift, valid, gsn=True, elem=2,
+                                         unit=_common.copy_unit(2 * n, 0))[0]
+            np.testing.assert_array_equal(
+                table.cpu().numpy(), _common.dyn_sources_plain(
+                    shift.cpu(), valid.cpu(), gsn=True).numpy())

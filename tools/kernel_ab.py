@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time kernels B7 and B14 of one checkout of the port on one card, so
-that two commits can be compared in one call (parent, change, change,
+"""Time kernels B7 and B12-B14 of one checkout of the port on one card,
+so that two commits can be compared in one call (parent, change, change,
 parent).
 
     python3 tools/kernel_ab.py [--root DIR] [--label NAME]
@@ -16,10 +16,16 @@ version, and prints one line per measurement, each with the card's
   calls, ``chip_smoke.graph_ms``), beside ``torch.stack(..., -1)
   .flatten(-2)``;
 * B7 at the decode stack ``(28, 4, 512, 8, 128)`` x2 bf16;
-* B14, ``shift_scatter.shift_scatter`` with tensor counts, on the KV
-  stack ``(28, 4, 512, 8, 256)`` bf16 with ``scg.scatter_counts(256, 2,
-  1, 128)``, beside ``torch.gather`` by the plan's source index plus a
-  ``where``.
+* B14, ``shift_scatter.shift_scatter`` with tensor counts, and B13,
+  ``shift_scatter.shift_scatter_static`` on the plan of the same counts
+  as host data, on the KV stack ``(28, 4, 512, 8, 256)`` bf16 (values
+  zero-padded from 128 lanes) with ``scg.scatter_counts(256, 2, 1,
+  128)``, each beside ``torch.gather`` by the plan's source index plus a
+  ``where``;
+* B12, ``shift_gather.shift_gather`` with tensor counts, on the same
+  stack with ``scg.gather_counts(256, 2, 1, 128)``, beside the same
+  library call on its plan, and its derive kernel alone
+  (``_indexed.dyn_sources(gsn=True)``, CUDA graph) at n = 256.
 
 Exits non-zero without a card.  Seeded; nothing is written.
 """
@@ -46,8 +52,8 @@ def main() -> int:
     from chip_smoke import card_line, graph_ms, same_bits, time_ms
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
     from repro_torch.core import scg
-    from repro_torch.kernels import _common, segment, shift_gather, \
-        shift_scatter
+    from repro_torch.kernels import _common, _indexed, segment, \
+        shift_gather, shift_scatter
     _common.build_all(_common.SOURCES)
     tag = f"ab[{args.label or args.root}]"
     print(f"{tag} card: {card_line()}")
@@ -86,13 +92,37 @@ def main() -> int:
     b14 = (lambda: list(shift_scatter.shift_scatter(x, ss, sv)))
     held(b14, lambda: list(shift_scatter.shift_scatter_plain(x, ss, sv)),
          "B14")
-    plan = shift_gather.host_plan(ss.cpu().numpy(), sv.cpu().numpy(),
-                                  gather=False)
-    src = torch.from_numpy(plan.source).to(dev).clamp(min=0).expand(x.shape)
-    keep = torch.from_numpy(plan.valid).to(dev)
+    hs, hv = ss.cpu().numpy(), sv.cpu().numpy()
+    plan = shift_gather.host_plan(hs, hv, gather=False)
+
+    def library(x, plan):
+        src = torch.from_numpy(plan.source).to(dev).clamp(min=0).expand(
+            x.shape)
+        keep = torch.from_numpy(plan.valid).to(dev)
+        return lambda: torch.where(keep, torch.gather(x, -1, src), 0)
+
     print(f"{tag} B14 [28, 4, 512, 8, 256, 'tensor counts (2,1) vl 128']: "
           f"{time_ms(b14, 20):.4f} ms; library "
-          f"{time_ms(lambda: torch.where(keep, torch.gather(x, -1, src), 0), 20):.4f} ms")
+          f"{time_ms(library(x, plan), 20):.4f} ms")
+    b13 = (lambda: list(shift_scatter.shift_scatter_static(x, plan)))
+    held(b13, lambda: list(shift_scatter.shift_scatter_static_plain(x, plan)),
+         "B13")
+    print(f"{tag} B13 [28, 4, 512, 8, 256, 'host counts (2,1) vl 128']: "
+          f"{time_ms(b13, 20):.4f} ms")
+    del x
+    kv = bf16((28, 4, 512, 8, n))
+    gs, gv = scg.gather_counts(n, 2, 1, vl, device=dev)
+    gplan = shift_gather.host_plan(gs.cpu().numpy(), gv.cpu().numpy(),
+                                   gather=True)
+    b12 = (lambda: shift_gather.shift_gather(kv, gs, gv))
+    held(b12, lambda: shift_gather.shift_gather_plain(kv, gs, gv), "B12")
+    gs32, gv32 = gs.to(torch.int32), gv.to(torch.int32)
+    derive = graph_ms(lambda: _indexed.dyn_sources(
+        gs32, gv32, gsn=True, elem=2, unit=16), 20)
+    print(f"{tag} B12 [28, 4, 512, 8, 256, 'tensor counts (2,1) vl 128']: "
+          f"{time_ms(b12, 20):.4f} ms; library "
+          f"{time_ms(library(kv, gplan), 20):.4f} ms; GSN derivation alone "
+          f"{derive:.4f} ms")
     return 0
 
 
