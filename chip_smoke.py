@@ -87,8 +87,9 @@ Phases, in order (any failure raises and exits non-zero):
    (256, 2, 1), (100, 7, 5), (4095, 64, 0) and (1, 1, 0) and of
    ``compaction_counts`` / ``expansion_counts`` of random masks, and B12
    / B14 against their plan twins B11 / B13, also on random operand
-   counts, and B12's and B14's device source tables and unit lists (the
-   derive kernel alone, on the GSN and the SSN) against
+   counts (where B11 must refuse the gather plans with conflicts, as the
+   reference does), and B12's and B14's device source tables and unit
+   lists (the derive kernel alone, on the GSN and the SSN) against
    ``_common.dyn_sources_plain`` and ``_indexed.staged_units_plain``; on
    the KV stack of phase 5 with the counts of ``gather_counts(256, 2, 1,
    128)`` / ``scatter_counts``, B12 and B11 must equal B3 on lanes [0,
@@ -97,8 +98,12 @@ Phases, in order (any failure raises and exits non-zero):
    the plan's source index plus a ``where``; B12 and B14 beside their
    derivation alone at n = 256 and 4095, a derive kernel that also lists
    the input units holding a source lane, before a staged copy that reads
-   only those (B14: and also writes the occupancy); B13 beside the units
-   its host operands list, one staged copy with the occupancy); at
+   only those (B14: and also writes the occupancy); B11 and B13 beside
+   the units their host operands list, one staged copy each, B13's with
+   the occupancy); the Indexed gather's static-routing arm
+   (``vx.gather(Indexed(n, routing=...))``, torch ops: one take through
+   the plan's table and a select) must equal B11 and the layer-mask form
+   there, and is timed beside that form and the library call; at
    qwen3-moe-30b-a3b's width (d_model
    2048, 128 experts, top-8; 2048- and 512-token chunks, n = 16384 and
    4096 units, one shard of 4-way expert parallelism set) ``vx.compact``
@@ -1141,7 +1146,9 @@ def check_indexed(dev) -> int:
     and B14 also on random operand counts, with the derive kernel's source
     tables (the GSN's and the SSN's) against ``_common.dyn_sources_plain``
     and the staged copy's operands it composes against
-    ``_indexed.staged_units_plain``."""
+    ``_indexed.staged_units_plain``; there B11 takes the gather plans
+    without conflicts and refuses the others (``AssertionError``, as the
+    reference's plan body does), before any launch."""
     import numpy as np
     import torch
     from repro_torch.core import scg, shiftnet
@@ -1247,6 +1254,7 @@ def check_indexed(dev) -> int:
     # out-of-range shifts; B13 routes their collisions as B14 does), and
     # the derive kernel's tables against their twins
     rng = np.random.default_rng(SEED + 7)
+    refused = 0
     for n, _, _ in INDEXED_GEOM:
         for lo, hi, density in ((0, n, 0.5), (0, 8, 0.8), (-n, 2 * n + 1,
                                                             0.6)):
@@ -1272,6 +1280,7 @@ def check_indexed(dev) -> int:
                             f"{what} staged units != twin: n={n} elem "
                             f"{elem} shifts in [{lo}, {hi})")
             hs, hv = sh.numpy(), va.numpy()
+            gplan = shift_gather.host_plan(hs, hv, gather=True)
             sh, va = sh.to(dev), va.to(dev)
             for dtype in dtypes:
                 x = rand((1001, n), dtype)
@@ -1279,8 +1288,24 @@ def check_indexed(dev) -> int:
                 tp, to = shift_scatter.shift_scatter(x, hs, hv)
                 wp, wo = shift_scatter.shift_scatter_plain(x, sh, va)
                 gd = shift_gather.shift_gather(x, sh, va)
-                gt = shift_gather.shift_gather(x, hs, hv)
                 gw = shift_gather.shift_gather_plain(x, sh, va)
+                before = shift_gather.shift_gather_static.launches
+                if gplan.conflict:       # refused, as the reference does
+                    gt = gd
+                    try:
+                        shift_gather.shift_gather(x, hs, hv)
+                    except AssertionError as err:
+                        if "conflicting plan" not in str(err):
+                            raise
+                    else:
+                        raise AssertionError(f"B11 took a conflicting plan: "
+                                             f"n={n} shifts in [{lo}, {hi})")
+                    if shift_gather.shift_gather_static.launches != before:
+                        raise AssertionError("B11 launched on a conflicting "
+                                             "plan")
+                    refused += 1
+                else:
+                    gt = shift_gather.shift_gather(x, hs, hv)
                 torch.cuda.synchronize()
                 if not (same_bits(dp, wp) and torch.equal(do, wo)
                         and same_bits(dp, tp) and torch.equal(do, to)):
@@ -1290,6 +1315,9 @@ def check_indexed(dev) -> int:
                     raise AssertionError(f"B12 != plain / B11: {dtype} n={n} "
                                          f"shifts in [{lo}, {hi})")
             cases += 1
+    print(f"B11 refused {refused} conflicting gather plans of the random "
+          f"operand counts (AssertionError before any launch, as the "
+          f"reference's plan body)")
     return cases
 
 
@@ -1315,6 +1343,49 @@ def kv_indexed_operands(dev, kv_shape, seed: int) -> dict:
             "hgs": gs.cpu().numpy(), "hgv": gv.cpu().numpy(),
             "hss": ss.cpu().numpy(), "hsv": sv.cpu().numpy(), "vals": vals,
             "padded": torch.nn.functional.pad(vals, (0, n - vl))}
+
+
+def time_routing_arm(kv, gs, gv, hgs, hgv, gplan, library) -> None:
+    """The Indexed gather's static-routing arm (``vx.gather(Indexed(n,
+    routing=...))``, torch ops under every policy, no kernel) on the KV
+    stack: one take through the plan's table and a select.  Held bit for
+    bit against B11 and against the layer-mask form (``layer_masks`` +
+    ``apply_layer_masks`` + ``where``, every layer of the network), and
+    timed beside that form and the library call."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.core import shiftnet
+    from repro_torch.kernels import shift_gather
+    routing = (tuple(int(s) for s in hgs.reshape(-1)),
+               tuple(bool(v) for v in hgv.reshape(-1)))
+    ix = vx.Indexed(n=kv.shape[-1], routing=routing)
+    masks, occ = shiftnet.layer_masks(gs.to(torch.int32), gv.bool(),
+                                      toward_zero=True, lsb_first=True)
+
+    def arm():
+        return vx.gather(ix, kv, policy="kernel")
+
+    def layered():
+        return torch.where(occ, shiftnet.apply_layer_masks(
+            kv, masks, axis=-1, toward_zero=True, lsb_first=True), 0)
+
+    before = [f.launches for f in shift_gather.KERNELS]
+    got = arm()
+    if [f.launches for f in shift_gather.KERNELS] != before:
+        raise AssertionError("the static-routing arm launched a kernel")
+    b11 = shift_gather.shift_gather_static(kv, gplan)
+    torch.cuda.synchronize()
+    if not (same_bits(got, b11) and same_bits(layered(), b11)):
+        raise AssertionError("vx.gather(Indexed routing) != B11 / the "
+                             "layer-mask form on the KV stack")
+    del got, b11
+    shape = list(kv.shape) + ["host counts (2,1) vl 128"]
+    print(f"time vx.gather[Indexed routing] {shape}: "
+          f"{time_ms(arm, 20):.4f} ms (one take through the plan's table "
+          f"and a select; torch ops, no launch); layer-mask form "
+          f"{time_ms(layered, 10):.4f} ms ({masks.shape[0]} layers and a "
+          f"select); library {time_ms(library, 20):.4f} ms; all == B11, "
+          f"bit for bit")
 
 
 def time_indexed(dev, kv_shape) -> dict:
@@ -1381,15 +1452,22 @@ def time_indexed(dev, kv_shape) -> dict:
         + R * n * e + R * n
     shape = list(kv.shape)
     out = {}
+    # B11's and B13's staged copies list the units their host plan's table
+    # reads: no derivation on the card
+    gunit = _common.copy_unit(n * e, kv.data_ptr())
+    gst = _indexed.plan_staged(gplan, gunit // e, e)
     out["shift_gather_static"] = record(
         "shift_gather_static",
         lambda: shift_gather.shift_gather_static(kv, gplan),
         lambda: shift_gather.shift_gather_static_plain(kv, gplan),
         library(kv, gplan), gather_move,
-        shape + ["host counts (2,1) vl 128"])
-    # B13's staged copy lists the units its host plan's table reads
+        shape + ["host counts (2,1) vl 128"],
+        f"; {int(gst['nunits'][0])} of {n * e // gunit} {gunit}-byte units "
+        f"of a row listed by the host plan's table (one staged copy, no "
+        f"derive kernel)")
+    time_routing_arm(kv, gs, gv, hgs, hgv, gplan, library(kv, gplan))
     sunit = _common.copy_unit(n * e, padded.data_ptr())
-    st = _indexed.scatter_plan_staged(splan, sunit // e, e)
+    st = _indexed.plan_staged(splan, sunit // e, e)
     print(f"shift_scatter_static units: {int(st['nunits'][0])} of "
           f"{n * e // sunit} {sunit}-byte units of a row listed by the host "
           f"plan's table (one staged copy with the occupancy, no derive "
@@ -1743,7 +1821,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _common.build_all(_common.SOURCES)
     print(f"build: {', '.join(f'{s}.cu' for s in _common.SOURCES)} (with "
-          f"route_plan.cuh, route_dyn.cuh and perm_copy.cuh) in parallel in "
+          f"the shared headers route_plan.cuh, route_dyn.cuh and "
+          f"perm_copy.cuh) in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()

@@ -21,8 +21,8 @@
 //        (d_i = +2^l for the GSN, which consumes bits LSB first, -2^l for
 //        the SSN, MSB first; a read outside [0, n) gives 0).  The (L, n)
 //        take-masks come precomputed (`shiftnet.layer_masks`).
-//   B11 / B13: a row tile through a `shiftplan.counts_plan` plan, then
-//        zero where the plan's occupancy is clear; B13 also writes that
+//   B11 / B13: rows through a `shiftplan.counts_plan` plan, then zero
+//        where the plan's occupancy is clear; B13 also writes that
 //        occupancy for every (row, lane).
 //   B12 / B14: the same through the dynamic-count network whose counts are
 //        the (n,) `shift` / `valid` operands shared by all rows; zero where
@@ -51,8 +51,6 @@
 //   widest unit (16, 8, 4, 2 or 1 bytes) that divides the row and both
 //   pointers; a row outside out_valid is written as zeros without reading
 //   its source.  One launch per call, no shared-memory staging of rows.
-//   B11: a row tile through route_plan's lane-major layer loop, zero
-//   where the plan's occupancy bit is clear (`shift_plan_kernel`).
 //   B12 and B14 (two kernels a call, one launcher): one derive kernel
 //   (`shift_sources_kernel`, one block) derives the GSN (B12) or the SSN
 //   (B14) on the operand counts once, composes it into an (n,) source
@@ -69,13 +67,15 @@
 //   shared memory.  On the KV stack B12's sources (the odd lanes) touch
 //   every sector, so a tile stages as one contiguous chunk; B14's (2,1)
 //   scatter lists the values' half of each row.
-//   B13 (one kernel a call): its network is static, and for an occupied
-//   lane the plan's `ShiftPlan.source` is the lane the routed network
-//   delivers, so the wrapper composes the same operands on the host from
-//   where(plan.valid, plan.source, -1) and uploads them once per plan,
-//   staging unit and element size; the staged copy with the occupancy is
-//   launched plainly, stream-ordered after whatever wrote `x`.
-//   No kernel derives a network per block, and B12-B14 make no pass per
+//   B11 and B13 (one kernel a call, one C entry): their network is
+//   static, and for an occupied lane the plan's `ShiftPlan.source` is the
+//   lane the routed network delivers, so the wrapper composes the same
+//   operands on the host from where(plan.valid, plan.source, -1) and
+//   uploads them once per plan, staging unit and element size; the staged
+//   copy (for B13 with the occupancy) is launched plainly, stream-ordered
+//   after whatever wrote `x`.  On the KV stack B11's sources (the odd
+//   lanes) touch every sector, so a tile stages as one chunk, as B12's.
+//   No kernel derives a network per block, and B11-B14 make no pass per
 //   layer.  Elements move as raw bits (1, 2, 4 or 8 bytes), so every
 //   dtype is bit-exact, -0.0 and NaN payloads included.
 
@@ -172,82 +172,6 @@ static cudaError_t launch_route_rows(const void* x, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// B11: the raw GSN through a compiled plan
-// ---------------------------------------------------------------------------
-
-// Rows [0, nr) of the (nr, n) payload `xs` into the shared tile `ba`.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ xs, T* ba,
-                                          int nr, int n, const TileMap& tm) {
-  if (tm.g >= tm.groups) return;
-  for (int c = tm.t; c < n; c += tm.lanes)
-    for (int r = tm.g; r < nr; r += tm.groups)
-      ba[(size_t)r * n + c] = xs[(size_t)r * n + c];
-}
-
-// The routed tile `res` to `os`, zero where the lane's bit of `occ_bits`
-// is clear.
-template <typename T>
-__device__ __forceinline__ void store_masked(const T* res, T* __restrict__ os,
-                                             const uint32_t* occ_bits, int nr,
-                                             int n, const TileMap& tm) {
-  if (tm.g >= tm.groups) return;
-  for (int c = tm.t; c < n; c += tm.lanes) {
-    const bool keep = lane_bit(occ_bits, c);
-    for (int r = tm.g; r < nr; r += tm.groups)
-      os[(size_t)r * n + c] = keep ? res[(size_t)r * n + c] : T(0);
-  }
-}
-
-// (R, n) -> (R, n) through plan layers [0, nlayers), zero where the plan's
-// occupancy bit is clear.
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-shift_plan_kernel(const T* __restrict__ x, T* __restrict__ out, long long R,
-                  int n, const uint32_t* __restrict__ masks, int S, int words,
-                  const int* __restrict__ layers, int nlayers,
-                  const uint32_t* __restrict__ valid, int rows) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* smask = reinterpret_cast<uint32_t*>(smem);
-  uint32_t* svalid = smask + (size_t)S * words;
-  const size_t mbytes = ((size_t)(S + 1) * words * 4 + 15) & ~(size_t)15;
-  T* ba = reinterpret_cast<T*>(smem + mbytes);
-  T* bb = ba + (size_t)rows * n;
-  const long long r0 = (long long)blockIdx.x * rows;
-  const int nr = (int)min((long long)rows, R - r0);
-  const TileMap tm(n);
-
-  for (int i = threadIdx.x; i < S * words; i += blockDim.x) smask[i] = masks[i];
-  for (int i = threadIdx.x; i < words; i += blockDim.x) svalid[i] = valid[i];
-  load_tile(x + r0 * n, ba, nr, n, tm);
-  __syncthreads();
-  const T* res = route_plan<T>(ba, ba, bb, nr, n, words, smask, layers, 0,
-                               nlayers, tm);
-  store_masked(res, out + r0 * n, svalid, nr, n, tm);
-}
-
-template <typename T>
-static cudaError_t launch_shift_plan(const void* x, void* out, long long R,
-                                     int n, const void* masks, int S,
-                                     int words, const void* layers,
-                                     int nlayers, const void* valid, int rows,
-                                     cudaStream_t stream) {
-  const size_t mbytes = ((size_t)(S + 1) * words * 4 + 15) & ~(size_t)15;
-  const size_t smem = mbytes + 2 * (size_t)rows * n * sizeof(T);
-  const long long tiles = (R + rows - 1) / rows;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  static size_t granted[MAX_DEVICES] = {0};
-  cudaError_t e = set_smem(shift_plan_kernel<T>, smem, granted);
-  if (e != cudaSuccess) return e;
-  shift_plan_kernel<T><<<(unsigned)tiles, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out), R, n,
-      static_cast<const uint32_t*>(masks), S, words,
-      static_cast<const int*>(layers), nlayers,
-      static_cast<const uint32_t*>(valid), rows);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // B12 / B14's derivation: once per launch, on the operand counts
 // ---------------------------------------------------------------------------
 
@@ -308,7 +232,7 @@ static cudaError_t launch_shift_sources(int gsn, int n, const int* shift,
 }
 
 // ---------------------------------------------------------------------------
-// B12-B14: the staged copy through a source table's operands
+// B11-B14: the staged copy through a source table's operands
 // ---------------------------------------------------------------------------
 
 // The staged copy of the R rows of n `elem`-byte lanes through the
@@ -384,21 +308,6 @@ int route_rows(int unit_bytes, const void* x, void* out, const void* masks,
   }
 }
 
-// B11.
-int shift_plan(int elem_bytes, const void* x, void* out, long long R, int n,
-               const void* masks, int S, int words, const void* layers,
-               int nlayers, const void* valid, int rows, void* stream) {
-  if (n < 1 || rows < 1) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (elem_bytes) {
-    case 1: return launch_shift_plan<uint8_t>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    case 2: return launch_shift_plan<uint16_t>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    case 4: return launch_shift_plan<uint32_t>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    case 8: return launch_shift_plan<unsigned long long>(x, out, R, n, masks, S, words, layers, nlayers, valid, rows, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 // B12 (`gsn`, occ == NULL) and B14 (the SSN, which also writes the (R, n)
 // occupancy bytes `occ`) on the (n,) int32 operand counts: two kernels on
 // `stream` (`launch_shift_dyn`), in `rows`-row tiles over at most `blocks`
@@ -411,17 +320,17 @@ int shift_dyn(int gsn, int elem_bytes, const void* x, void* out, void* occ,
                           static_cast<cudaStream_t>(stream));
 }
 
-// B13: one staged copy of the R rows through the operands the host
+// B11 (occ == NULL) and B13 (which also writes the (R, n) occupancy bytes
+// `occ`): one staged copy of the R rows through the operands the host
 // composed from the plan's table (the remapped table `pos` (n), the unit
-// list `units` (kmax entries, nunits[0] of them used)), which also writes
-// the (R, n) occupancy bytes `occ`; stream-ordered, no PDL.  Staged in
-// `sunit`-byte units (the unit the list counts in) and stored in
-// `ounit`-byte units.
-int shift_scatter_plan(int elem_bytes, const void* x, void* out, void* occ,
-                       long long R, int n, const void* pos, const void* units,
-                       const void* nunits, int kmax, int rows, int blocks,
-                       int sunit, int ounit, void* stream) {
-  if (n < 1 || rows < 1 || !occ) return cudaErrorInvalidValue;
+// list `units` (kmax entries, nunits[0] of them used)); stream-ordered,
+// no PDL.  Staged in `sunit`-byte units (the unit the list counts in) and
+// stored in `ounit`-byte units.
+int shift_table_copy(int elem_bytes, const void* x, void* out, void* occ,
+                     long long R, int n, const void* pos, const void* units,
+                     const void* nunits, int kmax, int rows, int blocks,
+                     int sunit, int ounit, void* stream) {
+  if (n < 1 || rows < 1) return cudaErrorInvalidValue;
   return launch_shift_copy(elem_bytes, x, out, occ, R, n,
                            static_cast<const int*>(pos),
                            static_cast<const int*>(units),

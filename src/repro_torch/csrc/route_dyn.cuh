@@ -33,7 +33,7 @@
 // host plan, no pruned layers.
 //
 // Shared-memory state of one network (`DynNet`, carved by `dyn_carve`):
-//   masks  L x words   packed take-masks, route_plan's bit format (lane_bit)
+//   masks  L x words   packed take-masks, in lane_bit's format (route_plan.cuh)
 //   occ    words       final occupancy (validity after the last layer)
 //   shift  L           each layer's signed shift (+-2^l)
 //   sc     2 x n       shift counts, ping-pong

@@ -15,14 +15,14 @@ CUDA launch helpers shared by the kernel wrappers
 (:func:`rows_per_block`, :func:`copy_tile_rows`,
 :func:`merge_tile_rows`, :func:`interleave_tile_rows`,
 :func:`copy_unit`, :func:`check_cuda`,
-:func:`cuda_stream`, :func:`layer_table`) live here too, with
+:func:`cuda_stream`) live here too, with
 :func:`dyn_sources_plain`, the torch-ops twin of the source table that
 B6, B7, B8, B9, B12 and B14 derive on the card; :func:`merge_pairs` /
 :func:`merge_copy_plain`, the list of occupied lanes the merge copy walks
 (derived on the card for B9, from the host plan for B5) and that copy as
 torch ops; and :func:`staged_units` /
 :func:`staged_copy_plain`, the staged-unit list and remapped table that
-B3, B4 and B13 take from the host plan (B12 and B14 from their derive
+B3, B4, B11 and B13 take from the host plan (B12 and B14 from their derive
 kernel), and their composition as torch ops.
 """
 from __future__ import annotations
@@ -192,7 +192,9 @@ def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
     """Row-tile height: ``buffers`` (rows, width) shared buffers plus the
     packed masks within :data:`SMEM_BUDGET` (one row at least, if it fits
     the card's 227 KB at all; raises beyond that), and low enough that
-    the grid has ``min_blocks`` blocks when ``R`` allows it."""
+    the grid has ``min_blocks`` blocks when ``R`` allows it.  The sizing
+    of the layer-loop kernels; no wrapper calls it since the last of them
+    became a staged copy."""
     mb = -(-mask_bytes // 16) * 16
     per_row = buffers * width * elem
     if mb + per_row > SMEM_LIMIT:
@@ -204,7 +206,7 @@ def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
 
 
 #: Shared memory of one block of the copies in ``csrc/perm_copy.cuh`` (the
-#: permuted copy of B1, B6 and B8, the staged copy of B3, B4 and B12-B14,
+#: permuted copy of B1, B6 and B8, the staged copy of B3, B4 and B11-B14,
 #: the merge copy of B5 and B9, the interleave copy of B2 and B7): two
 #: blocks share an SM, each with two staged input tiles of about 32 KB at
 #: the main shape.
@@ -420,24 +422,3 @@ def cuda_stream(t: torch.Tensor) -> int:
     launch on it), read without building a ``torch.cuda.Stream``."""
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
-
-def layer_table(plans, spans, *, relative: bool) -> tuple[list, list]:
-    """The kernels' layer records ``(shifts, s0, s1, mask_row)`` for
-    ``plans`` in order, and each plan's first record (``plan_lo``, one
-    entry more than plans).  ``mask_row`` indexes the stacked mask rows of
-    :func:`stack_plan_masks`, or with ``relative`` the plan's own rows."""
-    layers, plan_lo = [], [0]
-    for p, plan in enumerate(plans):
-        row = 0 if relative else spans[p][0]
-        for layer in plan.layers:
-            ns = len(layer.shifts)
-            if ns not in (1, 2):
-                raise NotImplementedError(
-                    f"plan kernels take 1- or 2-shift layers, got {ns}")
-            s1 = layer.shifts[1] if ns == 2 else 0
-            layers.append((ns, layer.shifts[0], s1, row))
-            row += ns
-        plan_lo.append(len(layers))
-    if not layers:
-        layers.append((1, 0, 0, 0))            # never read: empty plans
-    return layers, plan_lo

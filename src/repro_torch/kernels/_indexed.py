@@ -1,16 +1,15 @@
 """Shared by kernels/moe_compact.py, kernels/shift_gather.py and
 kernels/shift_scatter.py: the ctypes binding of ``csrc/indexed.cu``
 (kernels B10-B14), built on first use (``_common.library``; a failed
-build or a launch that returns a CUDA error raises), the device operands
-of a compiled counts plan, and the launches of the raw networks:
-:func:`launch_plan` (B11, route_plan's layer loop over row tiles),
+build or a launch that returns a CUDA error raises), the plain versions'
+operands of a compiled counts plan, and the launches of the raw networks:
 :func:`launch_dyn` (B12 and B14: one derive kernel into a per-call
 workspace, then a staged copy that reads only the input units holding a
 source lane, and for B14 also writes the occupancy) and
-:func:`launch_scatter_plan` (B13: the same staged copy with the
-occupancy, through operands composed on the host from the plan's table,
-:func:`scatter_plan_staged`, uploaded once per plan, device, staging unit
-and element size by :func:`scatter_plan_operands`).  :func:`dyn_sources`
+:func:`launch_plan_copy` (B11 and B13: the same staged copy, for B13 with
+the occupancy, through operands composed on the host from the plan's
+table, :func:`plan_staged`, uploaded once per plan, device, staging unit
+and element size by :func:`plan_staged_operands`).  :func:`dyn_sources`
 runs the derive kernel alone, and :func:`staged_units_plain` is the twin
 of the unit list it composes."""
 from __future__ import annotations
@@ -30,13 +29,11 @@ def lib() -> ctypes.CDLL:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.route_rows.argtypes = [I, P, P, P, P, I, I, I, I, I, I, P]
         lib.route_rows.restype = I
-        lib.shift_plan.argtypes = [I, P, P, LL, I, P, I, I, P, I, P, I, P]
-        lib.shift_plan.restype = I
         lib.shift_dyn.argtypes = [I, I, P, P, P, LL, I, P, P, P, I, I, P]
         lib.shift_dyn.restype = I
-        lib.shift_scatter_plan.argtypes = [I, P, P, P, LL, I, P, P, P, I, I,
-                                           I, I, I, P]
-        lib.shift_scatter_plan.restype = I
+        lib.shift_table_copy.argtypes = [I, P, P, P, LL, I, P, P, P, I, I,
+                                         I, I, I, P]
+        lib.shift_table_copy.restype = I
         lib.shift_sources.argtypes = [I, I, P, P, I, I, P, P]
         lib.shift_sources.restype = I
         lib.indexed_error_string.argtypes = [I]
@@ -53,30 +50,16 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
 
 
 def plan_operands(plan, device: torch.device) -> dict:
-    """A compiled plan's operands on ``device``, uploaded once per (plan,
-    device): bool ``masks`` (S, n) and ``valid`` (n,) for the plain
-    versions, and on a card the packed bit rows and layer records of the
-    B11 launch.  The key holds the plan itself (plans compare by
-    identity and the counts-keyed plan cache returns the same object)."""
-    return PLANS.get(("indexed.operands", plan, str(device)),
-                     lambda: _build_plan_operands(plan, device))
+    """A compiled plan's operands for the plain versions on ``device``,
+    uploaded once per (plan, device): bool ``masks`` (S, n) and ``valid``
+    (n,).  The key holds the plan itself (plans compare by identity and
+    the counts-keyed plan cache returns the same object)."""
+    def build():
+        masks, valid, _ = _common.plan_operands(plan)
+        return {"masks": torch.from_numpy(masks != 0).to(device),
+                "valid": torch.from_numpy(valid[0] != 0).to(device)}
 
-
-def _build_plan_operands(plan, device: torch.device) -> dict:
-    masks, valid, S = _common.plan_operands(plan)
-    ops = {"masks": torch.from_numpy(masks != 0).to(device),
-           "valid": torch.from_numpy(valid[0] != 0).to(device)}
-    if device.type != "cuda":
-        return ops
-    layers, plan_lo = _common.layer_table([plan], [(0, S)], relative=False)
-    packed = _common.pack_bits(masks)
-    ops.update(
-        S=S, words=packed.shape[1], nlayers=plan_lo[-1],
-        masks_bits=torch.from_numpy(packed.view(np.int32)).to(device),
-        valid_bits=torch.from_numpy(
-            _common.pack_bits(valid).view(np.int32)).to(device),
-        layers=torch.tensor(layers, dtype=torch.int32, device=device))
-    return ops
+    return PLANS.get(("indexed.operands", plan, str(device)), build)
 
 
 def _launch(x: torch.Tensor, wrapper, occupancy: bool, call):
@@ -98,24 +81,6 @@ def _launch(x: torch.Tensor, wrapper, occupancy: bool, call):
     if occ is None:
         return out.reshape(x.shape)
     return out.reshape(x.shape), occ.reshape(x.shape)
-
-
-def launch_plan(x: torch.Tensor, plan, wrapper):
-    """``x`` through compiled ``plan`` on the card (B11)."""
-    ops = plan_operands(plan, x.device)
-
-    def call(lib_, flat, out, occ, R, n):
-        elem = flat.element_size()
-        rows = _common.rows_per_block(
-            R, n, elem, (ops["S"] + 1) * ops["words"] * 4,
-            _common.min_blocks(x.device), buffers=2)
-        return lib_.shift_plan(
-            elem, flat.data_ptr(), out.data_ptr(), R, n,
-            ops["masks_bits"].data_ptr(), ops["S"], ops["words"],
-            ops["layers"].data_ptr(), ops["nlayers"],
-            ops["valid_bits"].data_ptr(), rows, _common.cuda_stream(x))
-
-    return _launch(x, wrapper, False, call)
 
 
 def launch_dyn(x: torch.Tensor, shift: torch.Tensor, valid: torch.Tensor,
@@ -144,20 +109,27 @@ def launch_dyn(x: torch.Tensor, shift: torch.Tensor, valid: torch.Tensor,
     return _launch(x, wrapper, not gsn, call)
 
 
-def scatter_plan_staged(plan, per_unit: int, elem: int) -> dict:
-    """B13's staged-copy operands, composed on the host from a compiled
-    scatter plan for rows of ``elem``-byte lanes staged in units of
-    ``per_unit`` lanes: ``table``, ``where(plan.valid, plan.source, -1)``
-    (for an occupied lane the plan's source is exactly the lane the routed
-    network delivers, conflicts included); from it, as
+def plan_table(plan) -> np.ndarray:
+    """``where(plan.valid, plan.source, -1)`` as an (n,) int32 numpy array:
+    for an occupied lane the plan's source is exactly the lane the routed
+    network delivers there, conflicts included (the plan simulates the
+    network's layer loop), and -1 where it leaves a lane unoccupied."""
+    n = plan.n
+    return np.where(np.asarray(plan.valid).reshape(n),
+                    np.asarray(plan.source).reshape(n), -1).astype(np.int32)
+
+
+def plan_staged(plan, per_unit: int, elem: int) -> dict:
+    """B11's and B13's staged-copy operands, composed on the host from a
+    compiled counts plan for rows of ``elem``-byte lanes staged in units of
+    ``per_unit`` lanes: ``table``, :func:`plan_table`; from it, as
     :func:`staged_units_plain` composes them, the unit list ``units``
     ``(kmax,)`` (zero past its ``nunits[0]`` entries; ``kmax`` is at least
     1, so a plan that occupies no lane lists none and still launches) and
     the remapped table ``pos`` ``(n,)``, -1 where the plan leaves a lane
     unoccupied.  All int32 numpy arrays."""
     n = plan.n
-    table = np.where(np.asarray(plan.valid).reshape(n),
-                     np.asarray(plan.source).reshape(n), -1).astype(np.int32)
+    table = plan_table(plan)
     units, pos = staged_units_plain(table, n, per_unit, elem)
     kmax = max(len(units), 1)
     padded = np.zeros(kmax, np.int32)
@@ -166,13 +138,13 @@ def scatter_plan_staged(plan, per_unit: int, elem: int) -> dict:
             "nunits": np.array([len(units)], np.int32)}
 
 
-def scatter_plan_operands(plan, device: torch.device, per_unit: int,
-                          elem: int) -> dict:
-    """:func:`scatter_plan_staged` on ``device``: ``kmax`` and the int32
-    tensors ``units``, ``nunits`` and ``pos``, uploaded once per (plan,
-    device, staging unit, element size) through the plan cache."""
+def plan_staged_operands(plan, device: torch.device, per_unit: int,
+                         elem: int) -> dict:
+    """:func:`plan_staged` on ``device``: ``kmax`` and the int32 tensors
+    ``units``, ``nunits`` and ``pos``, uploaded once per (plan, device,
+    staging unit, element size) through the plan cache."""
     def build():
-        host = scatter_plan_staged(plan, per_unit, elem)
+        host = plan_staged(plan, per_unit, elem)
         return {"kmax": host["kmax"], **{
             k: torch.from_numpy(host[k]).to(device)
             for k in ("units", "nunits", "pos")}}
@@ -181,39 +153,42 @@ def scatter_plan_operands(plan, device: torch.device, per_unit: int,
                      build)
 
 
-def launch_scatter_plan(x: torch.Tensor, plan, wrapper):
-    """``x`` through compiled scatter ``plan`` on the card (B13), with the
-    occupancy: one staged copy through the host-composed operands of
-    :func:`scatter_plan_operands`, launched plainly (no derive kernel, so
-    nothing to wait for but ``x``'s writer, which the stream orders)."""
+def launch_plan_copy(x: torch.Tensor, plan, wrapper, *, occupancy: bool):
+    """``x`` through compiled counts ``plan`` on the card: B11 (the
+    gather plan) or, with ``occupancy``, B13 (the scatter plan, which also
+    returns the occupancy).  One staged copy through the host-composed
+    operands of :func:`plan_staged_operands`, launched plainly (no derive
+    kernel, so nothing to wait for but ``x``'s writer, which the stream
+    orders)."""
 
     def call(lib_, flat, out, occ, R, n):
         elem = flat.element_size()
         sunit = _common.copy_unit(n * elem, flat.data_ptr())
         ounit = _common.copy_unit(n * elem, out.data_ptr())
-        st = scatter_plan_operands(plan, x.device, sunit // elem, elem)
+        st = plan_staged_operands(plan, x.device, sunit // elem, elem)
         blocks = _common.min_blocks(x.device)
         rows = _common.copy_tile_rows(R, st["kmax"] * sunit // elem, n, 1,
                                       elem, blocks, units=st["kmax"],
-                                      occupancy=True)
-        return lib_.shift_scatter_plan(
+                                      occupancy=occupancy)
+        return lib_.shift_table_copy(
             elem, flat.data_ptr(), out.data_ptr(), occ, R, n,
             st["pos"].data_ptr(), st["units"].data_ptr(),
             st["nunits"].data_ptr(), st["kmax"], rows, blocks, sunit, ounit,
             _common.cuda_stream(x))
 
-    return _launch(x, wrapper, True, call)
+    return _launch(x, wrapper, occupancy, call)
 
 
 def staged_units_plain(table, n: int, per_unit: int,
                        elem: int) -> tuple[np.ndarray, np.ndarray]:
     """The staged copy's operands for an ``(n,)`` source table with -1 in
     unoccupied lanes, as B12's and B14's derive kernel composes them on
-    the card (``dyn_staged_units`` in ``csrc/route_dyn.cuh``) and B13's
-    wrapper on the host (:func:`scatter_plan_staged`): ``_common.staged_units``
-    of the occupied lanes' sources (every unit of the row when those touch
-    every 32-byte sector), and the remapped table with -1 where ``table``
-    has it.  Both int32; no unit and all -1 where no lane is occupied."""
+    the card (``dyn_staged_units`` in ``csrc/route_dyn.cuh``) and B11's
+    and B13's wrappers on the host (:func:`plan_staged`):
+    ``_common.staged_units`` of the occupied lanes' sources (every unit of
+    the row when those touch every 32-byte sector), and the remapped table
+    with -1 where ``table`` has it.  Both int32; no unit and all -1 where
+    no lane is occupied."""
     src = np.asarray(table, np.int64)
     keep = src >= 0
     pos = np.full(n, -1, np.int32)

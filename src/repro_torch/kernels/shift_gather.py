@@ -5,10 +5,17 @@ shift counts and a validity mask (the SCG output), one routing program
 shared by every row: lanes move toward lower indices by their count, and
 lanes the routing leaves invalid come out 0.
 
-* :func:`shift_gather_static` (B11) routes through a compiled ShiftPlan
-  (pruned layers, constant take-masks); :func:`shift_gather` with HOST
-  counts (numpy arrays, tuples, lists) compiles them to a
-  ``shiftplan.counts_plan`` plan and takes the same kernel.
+* :func:`shift_gather_static` (B11) routes through a compiled ShiftPlan;
+  :func:`shift_gather` with HOST counts (numpy arrays, tuples, lists)
+  compiles them to a ``shiftplan.counts_plan`` plan and takes the same
+  kernel.  A plan with conflicts is refused (``AssertionError``, as the
+  reference's plan body refuses it) on every device.  The network is
+  static, so the whole function is the plan's table ``where(plan.valid,
+  plan.source, -1)``: the staged copy's operands are composed from it on
+  the host (``_indexed.plan_staged``) and uploaded once per plan, staging
+  unit and element size, and one staged copy reads only the input units
+  that hold a source lane and moves the rows through the table, 0 where
+  it holds -1 (B13's copy without the occupancy).
 * :func:`shift_gather` with tensor counts (B12) runs the dynamic-count
   network on int32 count operands cast on the card (no host sync): one
   derive kernel composes the GSN into an ``(n,)`` source table (its twin
@@ -80,9 +87,11 @@ def shift_gather_static(x: torch.Tensor, plan) -> torch.Tensor:
     shift_gather_static.calls += 1
     n = x.shape[-1]
     assert plan.n == n, (plan.n, n)
+    assert not plan.conflict, "conflicting plan (illegal mapping)"
     if x.device.type == "cpu":
         return shift_gather_static_plain(x, plan)
-    return _indexed.launch_plan(x, plan, shift_gather_static)
+    return _indexed.launch_plan_copy(x, plan, shift_gather_static,
+                                     occupancy=False)
 
 
 shift_gather_static.calls = 0

@@ -12,7 +12,7 @@ buffer (the store path of LSDO).
   ``shiftplan.counts_plan`` plan and takes the same kernel.  The plan is
   static, so its table ``where(plan.valid, plan.source, -1)`` and the
   staged copy's operands are composed on the host
-  (``_indexed.scatter_plan_staged``) and uploaded once per plan, staging
+  (``_indexed.plan_staged``) and uploaded once per plan, staging
   unit and element size; one staged copy reads only the input units that
   hold a source lane and writes payload and occupancy in one pass.
 * :func:`shift_scatter` with tensor counts (B14) runs the dynamic-count
@@ -76,7 +76,8 @@ def shift_scatter_static(x: torch.Tensor, plan
     assert plan.n == x.shape[-1], (plan.n, x.shape[-1])
     if x.device.type == "cpu":
         return shift_scatter_static_plain(x, plan)
-    return _indexed.launch_scatter_plan(x, plan, shift_scatter_static)
+    return _indexed.launch_plan_copy(x, plan, shift_scatter_static,
+                                     occupancy=True)
 
 
 shift_scatter_static.calls = 0

@@ -148,13 +148,27 @@ def _idx_gather(txn: prg.Txn, specs: tuple):
     from repro_torch.kernels import shift_gather
     spec = specs[0]
     if spec.routing is not None:
-        # Static routing: the plan stage.  The counts plan and its take-masks
-        # are built ONCE here and the executor is memoized in vx.PLANS under
-        # the spec key (routing included), so the payload pays one static
-        # shift + one select per active layer, on every impl, as in the
-        # reference (torch ops, no kernel: the masks are already constants).
-        plan = shift_gather.host_plan(*spec.routing, gather=True)
-        return lambda buf: shift_gather.shift_gather_static_plain(buf, plan)
+        # Static routing: the plan stage.  The counts plan is compiled ONCE
+        # here and the executor memoized in vx.PLANS under the spec key
+        # (routing included).  Its table where(valid, source, -1) names the
+        # lane the reference's layer loop delivers to each output lane, for
+        # any counts, colliding ones included, so the payload pays one take
+        # and one select on every impl (torch ops, no kernel).  The table
+        # moves to a payload's device once per device.
+        from repro_torch.kernels import _indexed
+        table = torch.from_numpy(_indexed.plan_table(
+            shift_gather.host_plan(*spec.routing, gather=True)))
+        on_device = {}
+
+        def planned(buf):
+            if buf.device not in on_device:
+                t = table.to(buf.device)
+                on_device[buf.device] = (t >= 0, t.clamp(min=0).long())
+            keep, src = on_device[buf.device]
+            return torch.where(keep, torch.gather(buf, -1,
+                                                  src.expand(buf.shape)), 0)
+
+        return planned
     if txn.impl == "ref":
         # the GSN as torch ops on any device: the kernels' plain version
         return lambda buf, shift, valid: shift_gather.shift_gather_plain(

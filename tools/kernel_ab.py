@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time kernels B7 and B12-B14 of one checkout of the port on one card,
+"""Time kernels B7 and B11-B14 of one checkout of the port on one card,
 so that two commits can be compared in one call (parent, change, change,
 parent).
 
@@ -25,7 +25,12 @@ version, and prints one line per measurement, each with the card's
 * B12, ``shift_gather.shift_gather`` with tensor counts, on the same
   stack with ``scg.gather_counts(256, 2, 1, 128)``, beside the same
   library call on its plan, and its derive kernel alone
-  (``_indexed.dyn_sources(gsn=True)``, CUDA graph) at n = 256.
+  (``_indexed.dyn_sources(gsn=True)``, CUDA graph) at n = 256;
+* B11, ``shift_gather.shift_gather_static`` on the plan of the same
+  counts as host data, on the same stack;
+* the Indexed gather's static-routing arm, ``vx.gather(Indexed(n,
+  routing=...))`` on the same counts (torch ops, no kernel), on the same
+  stack.
 
 Exits non-zero without a card.  Seeded; nothing is written.
 """
@@ -123,6 +128,20 @@ def main() -> int:
           f"{time_ms(b12, 20):.4f} ms; library "
           f"{time_ms(library(kv, gplan), 20):.4f} ms; GSN derivation alone "
           f"{derive:.4f} ms")
+    b11 = (lambda: shift_gather.shift_gather_static(kv, gplan))
+    held(b11, lambda: shift_gather.shift_gather_static_plain(kv, gplan),
+         "B11")
+    print(f"{tag} B11 [28, 4, 512, 8, 256, 'host counts (2,1) vl 128']: "
+          f"{time_ms(b11, 20):.4f} ms")
+    from repro_torch import vx
+    ix = vx.Indexed(n=n, routing=(
+        tuple(int(s) for s in gs.cpu().numpy().reshape(-1)),
+        tuple(bool(v) for v in gv.cpu().numpy().reshape(-1))))
+    arm = (lambda: vx.gather(ix, kv, policy="kernel"))
+    held(arm, lambda: shift_gather.shift_gather_static_plain(kv, gplan),
+         "vx.gather(Indexed routing)")
+    print(f"{tag} vx.gather[Indexed routing] [28, 4, 512, 8, 256, 'host "
+          f"counts (2,1) vl 128']: {time_ms(arm, 10):.4f} ms")
     return 0
 
 
