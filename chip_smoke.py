@@ -116,15 +116,37 @@ Phases, in order (any failure raises and exits non-zero):
    stage), one B14 / B13 for the tensor- / numpy-count Indexed scatter,
    one B10 each for ``compact`` and ``scatter(Compact)``, none for the
    compact ids, plus one B11 for the direct ``kernels.shift_gather`` call
-   with numpy counts; ``ref`` launches none.
+   with numpy counts; ``ref`` launches none;
+7. dense serving of qwen3-0.6b at full width (weights cast once to bf16):
+   (a) ``serve.engine.jit_prefill`` over 4 numpy-seeded prompts of 64
+   tokens (one warm-up call, then the timed one), ``cache_from_prefill``
+   into 512 bf16 beats, then 16 greedy ``jit_decode_step`` steps with
+   ``ServeConfig(step_fusion=True)``, under ``kernel``, ``ref``,
+   ``kernel_dynamic``, ``kernel_dynamic``, ``ref``, ``kernel``: the token
+   streams must be equal, each prefill must launch B1 and B2 under
+   ``kernel`` and B6 and B7 under ``kernel_dynamic`` (and nothing else),
+   each decode step exactly one B1 under ``kernel``, one B6 under
+   ``kernel_dynamic``, none under ``ref`` (counts zeroed just before the
+   prefill and each step, read just after); the prefill ms, the median
+   decode step ms and the decode tokens/s are printed with the card's
+   line; (b) from empty caches, 8 steps of one numpy-seeded forced token
+   stream through ``models.decode.decode_step`` and ``paged_decode_step``,
+   each fused and per-access, under ``kernel`` (slots 4, page_size 16):
+   every step's logits must equal the fused dense step's bit for bit; (c)
+   ``python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 4
+   --prompt-len 64 --gen 16 --max-len 512`` in a subprocess must exit 0,
+   with every request finished and its tok/s line naming the card.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, the strided path's for B3/B4/B5 under ``kernel`` and
 B8/B9 under ``kernel_dynamic``, the indexed path's under ``kernel`` for
-B10-B14); the last line is ``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
+B10-B14; phase 7 prints its own launches per prefill and per decode
+step); the last line is ``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
 torch.profiler-traced serve run per policy and the operators whose host
-and device times differ most between the ``kernel`` and ``ref`` runs.
+and device times differ most between the ``kernel`` and ``ref`` runs,
+and after phase 7a the same for one traced dense prefill and its 16
+decode steps per policy.
 """
 from __future__ import annotations
 
@@ -1763,6 +1785,234 @@ def indexed_phase(dev, kv_shape, timing: dict) -> dict:
     return path["kernel"]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: dense serving (forward prefill, dense decode) and the serve CLI
+# ---------------------------------------------------------------------------
+
+DENSE_PROMPT, DENSE_STEPS, DENSE_MAX_LEN = 64, 16, 512
+ORACLE_STEPS = 8
+CLI_ARGS = ("--arch", "qwen3-0.6b", "--requests", "4", "--prompt-len", "64",
+            "--gen", "16", "--max-len", "512")
+
+
+def segment_counts() -> dict:
+    from repro_torch.kernels import segment
+    return {f.__name__: f.launches for f in segment.KERNELS + segment.DYNAMIC}
+
+
+def dense_serve(dev, cfg, params, impl: str, tokens,
+                profiled: bool = False) -> dict:
+    """Phase 7a under policy ``impl``: ``jit_prefill`` over ``tokens``
+    (one warm-up call, then the timed one), ``cache_from_prefill`` into
+    ``DENSE_MAX_LEN`` bf16 beats, then ``DENSE_STEPS`` greedy fused
+    ``jit_decode_step`` steps.  The counts are zeroed just before the timed
+    prefill and before each step, and read just after.  With ``profiled``
+    the timed prefill and the steps are traced by torch.profiler (host and
+    device) and the trace returned."""
+    import contextlib
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import segment
+    from repro_torch.models import decode as dec
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill)
+    cfg = dataclasses.replace(cfg, kernel_impl=impl)
+    prefill = jit_prefill(cfg, None, device=dev)
+    step = jit_decode_step(cfg, None, ServeConfig(max_len=DENSE_MAX_LEN,
+                                                  step_fusion=True),
+                           device=dev)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    tracer = (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext())
+    tracer.__enter__()
+    wall0 = time.perf_counter()
+    segment.reset_counts()
+    t0 = time.perf_counter()
+    logits, states = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = segment_counts()
+    B, S = tokens.shape
+    if tuple(logits.shape) != (B, 1, cfg.vocab) or \
+            not bool(torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"dense [{impl}]: prefill logits not finite of "
+                             f"shape ({B}, 1, {cfg.vocab})")
+    cache = dec.cache_from_prefill(cfg, states, S, DENSE_MAX_LEN,
+                                   torch.bfloat16)
+    del states
+    tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+    stream = [tok]
+    step_ms, step_launches = [], []
+    for _ in range(DENSE_STEPS):
+        torch.cuda.synchronize()
+        segment.reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok)
+        tok = torch.argmax(logits.float(), dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_launches.append(segment_counts())
+        stream.append(tok)
+    wall = time.perf_counter() - wall0
+    tracer.__exit__(None, None, None)
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not bool(torch.isfinite(logits.float()).all()) or \
+            int(cache["len"]) != S + DENSE_STEPS:
+        raise AssertionError(f"dense [{impl}]: decode logits not finite of "
+                             f"shape ({B}, {cfg.vocab}), or the cache's "
+                             f"length is not {S + DENSE_STEPS}")
+    del cache
+    torch.cuda.empty_cache()
+    return {"streams": torch.stack(stream, 1).cpu().tolist(),
+            "prefill_ms": prefill_ms, "prefill_launches": prefill_launches,
+            "step_ms": step_ms, "step_launches": step_launches,
+            "wall_s": wall, "prof": tracer if profiled else None,
+            "label": f"dense: 1 prefill of {B}x{S} tokens + {DENSE_STEPS} "
+                     f"decode steps"}
+
+
+def dense_vs_paged(dev, cfg, params, slots: int, page_size: int) -> list:
+    """Phase 7b: from empty caches, the same forced token stream for
+    ``ORACLE_STEPS`` steps through the dense step and the paged step,
+    each fused and per-access, under ``kernel``; every step's logits must
+    equal the fused dense step's bit for bit.  Returns, per pair, the
+    steps that differed and the largest difference."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode as dec
+    cfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    forced = torch.from_numpy(np.random.default_rng(SEED + 7).integers(
+        0, cfg.vocab, (ORACLE_STEPS, slots)).astype(np.int32)).to(dev)
+    caches = {"dense fused": dec.init_cache(cfg, slots, DENSE_MAX_LEN,
+                                            torch.bfloat16, device=dev),
+              "dense per-access": dec.init_cache(cfg, slots, DENSE_MAX_LEN,
+                                                 torch.bfloat16, device=dev),
+              "paged fused": dec.init_paged_cache(
+                  cfg, slots, DENSE_MAX_LEN, page_size, torch.bfloat16,
+                  device=dev),
+              "paged per-access": dec.init_paged_cache(
+                  cfg, slots, DENSE_MAX_LEN, page_size, torch.bfloat16,
+                  device=dev)}
+    steps = {"dense fused": lambda c, t: dec.decode_step(
+                 params, c, t, cfg, fuse=True),
+             "dense per-access": lambda c, t: dec.decode_step(
+                 params, c, t, cfg, fuse=False),
+             "paged fused": lambda c, t: dec.paged_decode_step(
+                 params, c, t, cfg, fuse=True),
+             "paged per-access": lambda c, t: dec.paged_decode_step(
+                 params, c, t, cfg, fuse=False)}
+    diffs = {k: [0, 0.0] for k in steps if k != "dense fused"}
+    for t in range(ORACLE_STEPS):
+        out = {}
+        for name, fn in steps.items():
+            out[name], caches[name] = fn(caches[name], forced[t])
+        base = out["dense fused"]
+        for name in diffs:
+            if not same_bits(out[name], base):
+                diffs[name][0] += 1
+                diffs[name][1] = max(diffs[name][1], float(
+                    (out[name].float() - base.float()).abs().max()))
+    del caches
+    torch.cuda.empty_cache()
+    return diffs
+
+
+def run_cli(card: str) -> dict:
+    """Phase 7c: the port's serve CLI at full width in a subprocess."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          *CLI_ARGS], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"serve CLI exited {out.returncode}:\n"
+                             f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    lines = out.stdout.splitlines()
+    reqs = [ln for ln in lines if ln.startswith("req ")]
+    tok_line = [ln for ln in lines if "tok/s on " in ln]
+    name = card.split(",")[0].strip()
+    if len(reqs) != 4 or not all(" finished " in ln for ln in reqs) or \
+            len(tok_line) != 1 or name not in tok_line[0]:
+        raise AssertionError(f"serve CLI output: every request must be "
+                             f"finished and the tok/s line must name "
+                             f"{name}:\n{out.stdout[-3000:]}")
+    return {"lines": lines, "wall_s": wall}
+
+
+def dense_phase(dev, cfg, card: str, slots: int, page_size: int) -> None:
+    """Phase 7: dense serving under ``kernel``, ``ref``,
+    ``kernel_dynamic``, ``kernel_dynamic``, ``ref``, ``kernel`` (streams
+    equal; prefill launches B1 and B2 or B6 and B7; every decode step
+    exactly one fused split, B1 or B6, none under ``ref``), the dense step
+    against the paged step, and the CLI."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import cast_params, init_params
+    t0 = time.perf_counter()
+    params = cast_params(init_params(cfg, SEED, device=dev), cfg)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, cfg.vocab, (slots, DENSE_PROMPT)).astype(np.int32)).to(dev)
+    # the host clock drifts within a call: phase 4's order puts every
+    # policy at the same mean position
+    order = ("kernel", "ref", "kernel_dynamic", "kernel_dynamic", "ref",
+             "kernel")
+    runs = [(impl, dense_serve(dev, cfg, params, impl, tokens))
+            for impl in order]
+    want_step = {"kernel": "deinterleave",
+                 "kernel_dynamic": "deinterleave_dynamic", "ref": None}
+    want_prefill = {"kernel": ("deinterleave", "interleave"),
+                    "kernel_dynamic": ("deinterleave_dynamic",
+                                       "interleave_dynamic"), "ref": ()}
+    for impl, r in runs:
+        if r["streams"] != runs[0][1]["streams"]:
+            raise AssertionError(f"dense [{impl}]: other token streams than "
+                                 f"under kernel")
+        pre = r["prefill_launches"]
+        if any((pre[k] > 0) != (k in want_prefill[impl]) for k in pre):
+            raise AssertionError(f"dense [{impl}]: prefill launches {pre}")
+        for n in r["step_launches"]:
+            want = {k: int(k == want_step[impl]) for k in n}
+            if n != want:
+                raise AssertionError(f"dense [{impl}]: decode step launches "
+                                     f"{n}, want {want}")
+        decode_s = sum(r["step_ms"]) / 1e3
+        print(f"dense serve[{impl}] {cfg.name} on {card}: prefill "
+              f"{slots}x{DENSE_PROMPT} tokens {r['prefill_ms']:.3f} ms "
+              f"(launches per prefill {pre}); median decode step "
+              f"{statistics.median(r['step_ms']):.3f} ms over "
+              f"{DENSE_STEPS} steps; decode tokens/s "
+              f"{slots * DENSE_STEPS / decode_s:.2f}; launches per decode "
+              f"step {r['step_launches'][0]}")
+    print(f"dense streams equal under kernel, ref and kernel_dynamic in "
+          f"{len(runs)} runs ({slots} x {DENSE_STEPS + 1} tokens); one fused "
+          f"split launch "
+          f"in each decode step (B1 under kernel, B6 under kernel_dynamic, "
+          f"none under ref) ({time.perf_counter() - t0:.1f} s)")
+    if "--profile" in sys.argv[1:]:
+        profile_policies({impl: dense_serve(dev, cfg, params, impl, tokens,
+                                            profiled=True)
+                          for impl in ("kernel", "ref")})
+    t0 = time.perf_counter()
+    diffs = dense_vs_paged(dev, cfg, params, slots, page_size)
+    print(f"dense step vs paged step under kernel, {ORACLE_STEPS} forced "
+          f"steps, slots {slots}, page_size {page_size}: steps differing "
+          f"from the fused dense step's logits, and the largest difference "
+          f"{diffs} ({time.perf_counter() - t0:.1f} s)")
+    if any(n for n, _ in diffs.values()):
+        raise AssertionError(f"dense step vs paged step: logits differ "
+                             f"{diffs}")
+    del params
+    torch.cuda.empty_cache()
+    cli = run_cli(card)
+    tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+    print(f"serve CLI ({' '.join(CLI_ARGS)}): exit 0, every request "
+          f"finished, {cli['wall_s']:.1f} s of wall time: {tail}")
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -1782,8 +2032,9 @@ def profile_policies(runs: dict) -> None:
         dev_ms = sum(device[impl].values())
         op_ms = sum(host[impl].values())
         launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-        print(f"profile[{impl}]: {r['prefill_chunks']} prefill chunks + "
-              f"{r['decode_steps']} decode steps in {wall_ms:.3f} ms (host "
+        what = r.get("label") or (f"{r['prefill_chunks']} prefill chunks "
+                                  f"+ {r['decode_steps']} decode steps")
+        print(f"profile[{impl}]: {what} in {wall_ms:.3f} ms (host "
               f"clock, traced); device busy {dev_ms:.3f} ms = "
               f"{dev_ms / wall_ms:.4f} of the run; host self time in "
               f"operators {op_ms:.3f} ms, outside them {wall_ms - op_ms:.3f} "
@@ -1951,6 +2202,7 @@ def main() -> int:
           f"kernel_dynamic ({time.perf_counter() - t0:.1f} s)")
 
     ipk = indexed_phase(dev, kv_shape, timing)
+    dense_phase(dev, cfg, card, slots, page_size)
 
     launches = {k: kr["launches"][k] for k in plan}
     launches.update({k: dr["launches"][k] for k in dynamic})

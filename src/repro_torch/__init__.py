@@ -19,8 +19,10 @@ and the runtime-stride plan bank; the strided step-fusion group;
 core/lsdo), and the ``kernel_dynamic`` policy through both (CUDA kernels
 B6 and B7 in kernels/segment, B8 and B9 in kernels/strided: the
 dynamic-count networks, derived on the card by ``csrc/route_dyn.cuh``),
-and the vx Indexed / Compact accesses (kernels/moe_compact, B10 row
+the vx Indexed / Compact accesses (kernels/moe_compact, B10 row
 routing; kernels/shift_gather, B11 and B12; kernels/shift_scatter, B13
-and B14; the compaction counts, row routing and compact_indices).
-ROADMAP.md lists what waits.
+and B14; the compaction counts, row routing and compact_indices), and
+dense serving (the forward pass with flash attention, the dense decode
+cache and step, serve/engine, the serve CLI in launch/serve and the step
+watchdog in ft/straggler).  ROADMAP.md lists what waits.
 """

@@ -1,4 +1,5 @@
-"""The port's device rule: ``cuda`` unless the caller asks for the CPU."""
+"""The port's device rule: ``cuda`` unless the caller asks for the CPU, and
+one device (a mesh waits for the port's dist slice)."""
 from __future__ import annotations
 
 import torch
@@ -15,3 +16,11 @@ def resolve(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def refuse_mesh(ctx) -> None:
+    """Raise for a sharding context with a mesh: the port runs on one
+    device until its dist slice."""
+    if ctx is not None and getattr(ctx, "mesh", None) is not None:
+        raise NotImplementedError("sharded execution waits for the port's "
+                                  "dist slice")

@@ -1,12 +1,12 @@
 """Interleaved (AoS) KV-cache ops — EARTH segment access applied to serving.
 
 Port of ``repro``'s ``kernels/kv_interleaved.py``: ``interleave_kv``,
-``split_kv``, ``split_kv_step``, ``gather_paged_kv`` and
-``append_paged_token`` over float pools.  Layout: ``cache[..., t, 2*d]``
-holds ``[k0, v0, k1, v1, ...]`` per token — K and V of a token are one
-contiguous beat, and the attention-time split is a FIELD=2 segment load.
-The dense-cache ``append_token``, quantized ``scales=`` and ``shard=``
-wait for later slices.
+``split_kv``, ``split_kv_step``, ``gather_paged_kv``,
+``append_paged_token`` over float pools, and the dense-cache
+``append_token``.  Layout: ``cache[..., t, 2*d]`` holds ``[k0, v0, k1, v1,
+...]`` per token — K and V of a token are one contiguous beat, and the
+attention-time split is a FIELD=2 segment load.  Quantized ``scales=``
+and ``shard=`` wait for later slices.
 """
 from __future__ import annotations
 
@@ -63,3 +63,20 @@ def append_paged_token(pool: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     spec = vx.Paged(page_size=pool.shape[-3], pages=table.shape[-1],
                     trail=2)
     return vx.scatter(spec, pool, beat, table=table, pos=pos, policy=policy)
+
+
+def append_token(cache: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos,
+                 *, policy=None) -> torch.Tensor:
+    """Write one token's interleaved KV beat at position ``pos``.
+
+    cache: (B, S, H, 2d); k, v: (B, H, d); pos: one position for the whole
+    batch (an int or a 0-dim tensor), taken as the reference's
+    ``dynamic_update_slice`` takes it: a negative one counts from the end,
+    then it is clamped into ``[0, S)``.  One beat write per layer instead
+    of two (K and V).  Returns a new cache."""
+    beat = interleave_kv(k, v, policy=policy)             # (B, H, 2d)
+    S = cache.shape[1]
+    pos = torch.as_tensor(pos, device=cache.device)
+    slot = torch.clamp(torch.where(pos < 0, pos + S, pos), 0,
+                       S - 1).reshape(1).long()
+    return cache.index_copy(1, slot, beat[:, None].to(cache.dtype))

@@ -1,12 +1,20 @@
-"""Paged decode over the interleaved KV cache (the serving step body).
+"""Single-token decode over the interleaved KV cache: the dense cache and
+the paged one (the serving step body).
 
-Port of the paged, attention-only subset of ``repro``'s
-``models/decode.py``: ``init_paged_cache`` (float pools),
-``paged_prefill_chunk``, ``paged_decode_step`` (``fuse=True`` and
-``fuse=False``), ``paged_release_slot``, ``paged_insert_prefill`` and
-``paged_invariants``.
+Port of the attention-only subset of ``repro``'s ``models/decode.py``.
+The dense cache: ``cache_len_for_pos``, ``init_cache``,
+``cache_from_prefill`` and ``decode_step`` (``fuse=True`` and
+``fuse=False``), the oracle the paged step is held against.  The paged
+cache: ``init_paged_cache`` (float pools), ``paged_prefill_chunk``,
+``paged_decode_step`` (``fuse=True`` and ``fuse=False``),
+``paged_release_slot``, ``paged_insert_prefill`` and ``paged_invariants``.
 
-Cache layout (EARTH): each attention layer's pool stores K and V
+Dense layout (EARTH): each attention layer stores K and V interleaved along
+features, ``(NS, B, Sc, K, 2D)``; appending a token is one beat write per
+layer at ``pos % Sc`` (sliding-window layers keep a ring of ``Sc = W``
+beats), and ``cache["len"]`` is one position for the whole batch.
+
+Paged layout (EARTH): each attention layer's pool stores K and V
 interleaved along features, ``(NS, P, page_size, K, 2D)``; ``table`` maps
 each slot's logical pages to physical pages (``-1`` = unallocated),
 ``pos`` holds per-slot positions, ``free[:free_top]`` is the device free
@@ -15,12 +23,13 @@ the reference bit for bit: cumsum ranks, pops from the free stack, and
 masked (never wrapped) out-of-range updates.
 
 Superblocks run in a Python loop over the stacked ``(NS, ...)`` leaves in
-place of ``lax.scan``.  Pools are updated IN PLACE (the reference donates
-the cache to its jit'd step); the small integer state is rebuilt.
+place of ``lax.scan``.  Dense cache leaves and page pools are updated IN
+PLACE (the reference donates the cache to its jit'd step); the small
+integer state is rebuilt.
 
-Waiting for later slices: the dense ``decode_step`` oracle, Mamba/xLSTM
-blocks, the quantized pool, speculative verify/truncate and prefix
-adopt/fork.
+Waiting for later slices: Mamba/xLSTM blocks and the encoder-decoder step,
+the sequence-sharded dense step (``kv_shard``, with ``dist``), the
+quantized pool, speculative verify/truncate and prefix adopt/fork.
 """
 from __future__ import annotations
 
@@ -38,6 +47,123 @@ from repro_torch.models.transformer import (ModelConfig, _ffn_apply,
                                             superblock)
 
 I32 = torch.int32
+
+
+def cache_len_for_pos(cfg: ModelConfig, i: int, max_len: int) -> int:
+    w = cfg.window_pattern[i]
+    return min(w, max_len) if w is not None else max_len
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, *, device=None) -> dict:
+    """Empty dense cache: ``{"len": 0-dim int32, "blocks": {"pos{i}":
+    (NS, batch, Sc, K, 2D)}}``, leaves stacked over superblocks."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    ns = cfg.n_superblocks
+    blocks = {f"pos{i}": torch.zeros(
+        (ns, batch, cache_len_for_pos(cfg, i, max_len), cfg.n_kv_heads,
+         2 * cfg.hd), dtype=dtype, device=device)
+        for i in range(cfg.sb_len)}
+    return {"len": torch.zeros((), dtype=I32, device=device),
+            "blocks": blocks}
+
+
+def cache_from_prefill(cfg: ModelConfig, cache_states, seq_len: int,
+                       max_len: int, dtype=torch.float32) -> dict:
+    """Embed prefill states ``{"pos{i}": (NS, B, S or W, K, 2D)}`` into a
+    fresh ``max_len`` dense cache: zero-padded, or trimmed, to each
+    layer's ``Sc`` beats."""
+    check_supported(cfg)
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype)
+    blocks = {}
+    for i in range(cfg.sb_len):
+        st = cache_states[f"pos{i}"]
+        sc = cache_len_for_pos(cfg, i, max_len)
+        kv = torch.zeros(st.shape[:2] + (sc,) + st.shape[3:], dtype=dtype,
+                         device=st.device)
+        n = min(sc, st.shape[2])
+        kv[:, :, :n] = st[:, :, :n]
+        blocks[f"pos{i}"] = kv
+    return {"len": torch.tensor(seq_len, dtype=I32,
+                                device=blocks["pos0"].device),
+            "blocks": blocks}
+
+
+def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
+                ctx=None, *, fuse: bool | None = None, kv_shard=None):
+    """token: (B,) int.  Returns (logits (B, V), updated cache).
+
+    ``fuse`` (default ``cfg.step_fusion``) is whole-step access fusion:
+    every layer's cache split is hoisted to the top of the step (it reads
+    the pre-append cache) and runs as ONE fused FIELD=2 segment load (one
+    B1 launch under ``kernel``, one B6 under ``kernel_dynamic``); the
+    current token's k and v are then written into the pre-split arrays at
+    its slot, bit-exact with splitting the post-append cache.  The
+    single-token beat pack and GLU split ride the plain path below the
+    policy's fusion threshold.  ``fuse=False`` splits each layer's
+    post-append cache on its own (the equivalence oracle).  The cache
+    leaves are updated in place; ``len`` is rebuilt.  ``kv_shard`` (the
+    sequence-sharded cache) waits for the port's dist slice."""
+    check_supported(cfg)
+    if kv_shard is not None:
+        raise NotImplementedError("the sequence-sharded dense step waits "
+                                  "for the port's dist slice")
+    params = cast_params(params, cfg)
+    fuse = cfg.step_fusion if fuse is None else fuse
+    pol = cfg.vx_policy
+    B = token.shape[0]
+    pos = cache["len"]
+    x = layers.embed(token, params["embed"]).to(cfg.cdtype)
+    attn_pos = [i for i, k in enumerate(cfg.block_pattern) if k == "attn"]
+    pre_split: dict[str, Any] = {}
+    if fuse and attn_pos:
+        splits = kv_interleaved.split_kv_step(
+            [cache["blocks"][f"pos{i}"] for i in attn_pos], policy=pol)
+        pre_split = {f"pos{i}": splits[a] for a, i in enumerate(attn_pos)}
+    beat_pol = (pol.for_elems(B * cfg.n_kv_heads * 2 * cfg.hd)
+                if fuse else pol)
+    ffn_pol = pol.for_elems(B * 2 * cfg.d_ff) if fuse else pol
+    positions = pos.expand(B, 1)
+
+    for sbi in range(cfg.n_superblocks):
+        sb_p = superblock(params["blocks"], sbi)
+        for i in attn_pos:
+            p = sb_p[f"pos{i}"]
+            h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v, kv = attention.qkv_project(
+                p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                positions, cfg.rope_theta, policy=beat_pol)
+            kvc = cache["blocks"][f"pos{i}"][sbi]          # (B, Sc, K, 2D)
+            sc = kvc.shape[1]
+            slot = torch.remainder(pos, sc).reshape(1).long()
+            kvc.index_copy_(1, slot, kv.to(kvc.dtype))
+            if fuse:
+                # the pre-split arrays are this step's own (under ``ref``
+                # a view of the cache, where the beat wrote the same bits)
+                k_all, v_all = (t[sbi] for t in pre_split[f"pos{i}"])
+                k_all.index_copy_(1, slot, k.to(kvc.dtype))
+                v_all.index_copy_(1, slot, v.to(kvc.dtype))
+            else:
+                k_all, v_all = vx.transpose(
+                    vx.Segment(n=kvc.shape[-1], fields=2), kvc, policy=pol)
+            eff_len = torch.clamp(pos + 1, max=sc)
+            out = attention.decode_attention(q[:, 0], k_all, v_all, eff_len,
+                                             window=None)
+            x = x + (out.reshape(B, cfg.n_heads * cfg.hd)
+                     @ p["attn"]["wo"]).to(x.dtype)
+            if cfg.pos_has_ffn(i):
+                x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, i,
+                                   policy=ffn_pol)
+                x = x2[:, 0]
+
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = layers.unembed(x, head.to(cfg.cdtype))
+    return logits, {"len": pos + 1, "blocks": cache["blocks"]}
 
 
 def pages_per_seq(max_len: int, page_size: int) -> int:

@@ -1,16 +1,22 @@
-"""Decoder-only transformer: config, parameters and the FFN block.
+"""Decoder-only transformer: config, parameters, the forward pass.
 
-Port of the parts of ``repro``'s ``models/transformer.py`` that the paged
-serving path uses: :class:`ModelConfig` (the same fields), a seeded
+Port of ``repro``'s ``models/transformer.py`` for dense attention
+decoders: :class:`ModelConfig` (the same fields), a seeded
 :func:`init_params` with the reference's parameter layout, shapes and
-scales (leaves stacked over superblocks, ``(NS, ...)``), :func:`cast_params`
-and :func:`_ffn_apply`, plus :func:`params_from_jax`, which turns the
-reference's ``init_params`` output (converted through ``np.asarray``) into
-the port's parameters.
+scales (leaves stacked over superblocks, ``(NS, ...)``), :func:`param_count`,
+:func:`cast_params`, the superblock application (``_attn_apply``,
+``_ffn_apply``, ``_position_apply``, :func:`superblock_apply`,
+``_ring_trim``) and :func:`forward` in the modes ``train``, ``prefill`` and
+``hidden``, plus :func:`params_from_jax`, which turns the reference's
+``init_params`` output (converted through ``np.asarray``) into the port's
+parameters.  Superblocks run in a Python loop over the stacked leaves
+(the reference's ``lax.scan``; ``scan_layers`` gives the same result either
+way); ``remat`` is a no-op without a backward.
 
-Waiting for later slices: ``forward`` / ``loss_fn`` (training and dense
-prefill), and the MoE, Mamba, xLSTM and encoder families — their configs
-are accepted, but init raises ``NotImplementedError``.
+Waiting for later slices: ``loss_fn`` and the backward (training), sharding
+constraints (``dist``), and the MoE, Mamba, xLSTM and encoder families —
+their configs are accepted, but init and forward raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -20,8 +26,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.device import resolve as resolve_device
-from repro_torch.models import layers
+from repro_torch.device import refuse_mesh, resolve as resolve_device
+from repro_torch.kernels._common import tree_leaves
+from repro_torch.models import attention, layers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +204,10 @@ def params_from_jax(np_tree, cfg: ModelConfig, device=None) -> dict:
     return conv(np_tree)
 
 
+def param_count(params) -> int:
+    return sum(t.numel() for t in tree_leaves(params))
+
+
 def tree_map(fn, tree):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
@@ -241,3 +252,106 @@ def _ffn_apply(p, x, cfg: ModelConfig, ctx, i: int, *, policy=None):
                        policy=policy if policy is not None
                        else cfg.vx_policy)
     return x + y, aux
+
+
+# ---------------------------------------------------------------------------
+# Superblock application and the forward pass
+# ---------------------------------------------------------------------------
+
+def _attn_apply(p, x, cfg: ModelConfig, ctx, i: int, positions,
+                mode: str):
+    """Returns (x, kv_beat or None).  Cross-attention waits for the
+    encoder-decoder slice."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    q, k, v, kv = attention.qkv_project(
+        p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions,
+        cfg.rope_theta, policy=cfg.vx_policy)
+    B, S = x.shape[:2]
+    out = attention.flash_attention(q, k, v, causal=True,
+                                    window=cfg.window_pattern[i],
+                                    q_chunk=min(512, S),
+                                    kv_chunk=min(512, S), ctx=ctx)
+    x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+    return x, (kv if mode == "prefill" else None)
+
+
+def superblock_apply(sb_p, x, cfg: ModelConfig, ctx, positions, *,
+                     mode: str = "train"):
+    """Apply one superblock.  Returns (x, aux, cache_updates)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    updates = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        x, aux, upd = _position_apply(sb_p[f"pos{i}"], x, positions,
+                                      cfg=cfg, ctx=ctx, i=i, kind=kind,
+                                      mode=mode)
+        aux_total = aux_total + aux
+        if upd is not None:
+            updates[f"pos{i}"] = upd
+    return x, aux_total, updates
+
+
+def _position_apply(p, x, positions, *, cfg: ModelConfig, ctx, i: int,
+                    kind: str, mode: str):
+    """One (mixer + FFN) position of a superblock."""
+    if kind != "attn":
+        raise NotImplementedError(f"{kind} blocks wait for a later slice")
+    x, kv = _attn_apply(p, x, cfg, ctx, i, positions, mode)
+    update = _ring_trim(kv, cfg.window_pattern[i]) if mode == "prefill" \
+        else None
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.pos_has_ffn(i):
+        x, aux = _ffn_apply(p, x, cfg, ctx, i)
+    return x, aux, update
+
+
+def _ring_trim(kv: torch.Tensor, window: int | None) -> torch.Tensor:
+    """Prefill cache beat tensor; windowed layers keep a ring of size W."""
+    S = kv.shape[1]
+    if window is None or S <= window:
+        return kv
+    return torch.roll(kv[:, -window:], shifts=S % window, dims=1)
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig, ctx) -> torch.Tensor:
+    x = layers.embed(batch["tokens"], params["embed"]).to(cfg.cdtype)
+    if cfg.vlm_patches and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(cfg.cdtype)
+        x = x.clone()
+        x[:, :pe.shape[1]] = pe
+    return x
+
+
+def forward(params, batch, cfg: ModelConfig, ctx=None, *,
+            mode: str = "train"):
+    """batch: {"tokens": (B,S) int, optional "patch_embeds"}.
+
+    Returns (logits (B,S,V), aux, cache_states).  ``mode="prefill"``
+    returns only the last position's logits (B,1,V) and the cache states
+    ``{"pos{i}": (NS, B, S or W, K, 2D)}``, stacked over superblocks;
+    ``mode="hidden"`` returns the final-normed hidden states in place of
+    logits.  Eager and forward only: no backward is defined."""
+    check_supported(cfg)
+    refuse_mesh(ctx)
+    if mode not in ("train", "prefill", "hidden"):
+        raise ValueError(f"unknown mode {mode!r}")
+    params = cast_params(params, cfg)
+    x = _embed_inputs(params, batch, cfg, ctx)
+    B, S = batch["tokens"].shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    states = []
+    for sbi in range(cfg.n_superblocks):
+        x, aux_d, upd = superblock_apply(superblock(params["blocks"], sbi),
+                                         x, cfg, ctx, positions, mode=mode)
+        aux = aux + aux_d
+        states.append(upd)
+    cache_states = ({k: torch.stack([u[k] for u in states])
+                     for k in states[0]} if mode == "prefill" else {})
+    if mode == "prefill":
+        x = x[:, -1:]      # serving prefill only needs next-token logits
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if mode == "hidden":
+        return x, aux, cache_states
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = layers.unembed(x, head.to(cfg.cdtype))
+    return logits, aux, cache_states

@@ -1,6 +1,11 @@
-"""Serving: the paged cache, the request lifecycle and the plain greedy
-scheduler (port of ``repro.serve``).  The engine wrapper, the prefix
-cache, chaos and the replica fleet wait for a later slice."""
+"""Serving: the paged cache, the request lifecycle, the plain greedy
+scheduler and the engine (dense prefill / decode steps and the fixed-slot
+server) — port of ``repro.serve``.  The prefix cache, chaos, the replica
+fleet (``make_fleet``) and sharded serving wait for later slices."""
+from repro_torch.serve.engine import (BatchedServer,  # noqa: F401
+                                      ServeConfig, cache_specs,
+                                      jit_decode_step, jit_prefill,
+                                      serve_param_shardings)
 from repro_torch.serve.lifecycle import (AdmissionError,  # noqa: F401
                                          AdmissionQueue, LifecycleError,
                                          Request, RequestState,

@@ -5,9 +5,10 @@ Port of ``repro``'s ``serve/scheduler.py``, plain path: admission
 page-sized chunks per ``tick``, through ``paged_prefill_chunk``), the
 per-step active set (one ``paged_decode_step`` over all slots with an
 ``active`` mask), sampling, preemption-and-restore under page pressure,
-and reclamation (``finish`` releases the slot's
-pages).  Surfaces kept: ``add_request``, ``step``, ``finish``,
-``submit``, ``tick`` and ``stats``.
+reclamation (``finish`` releases the slot's pages), and the step watchdog
+(``watchdog``, a :class:`~repro_torch.ft.straggler.StepWatchdog` fed each
+decode step's wall time; ``stats`` counts its breaches).  Surfaces kept:
+``add_request``, ``step``, ``finish``, ``submit``, ``tick`` and ``stats``.
 
 The reference jit-compiles the step and donates the cache; the port runs
 eagerly and updates the page pools in place.  Greedy decoding is the
@@ -16,9 +17,9 @@ parity target; temperature / top-k sampling draws from one seeded
 threefry keys are not torch generators).
 
 Waiting for later slices (they raise ``NotImplementedError``): speculative
-decode (``speculate > 1``), the prefix cache (``prefix_cache=True``), the
-quantized pool (``kv_quant``) and the step watchdog (``watchdog``).  The
-per-slot NaN guard and its chaos hook wait with the chaos harness.
+decode (``speculate > 1``), the prefix cache (``prefix_cache=True``) and the
+quantized pool (``kv_quant``).  The per-slot NaN guard and its chaos hook
+wait with the chaos harness.
 """
 from __future__ import annotations
 
@@ -82,9 +83,6 @@ class Scheduler:
         if kv_quant is not None:
             raise NotImplementedError("the quantized page pool waits for "
                                       "a later slice of the port")
-        if watchdog is not None:
-            raise NotImplementedError("the step watchdog waits for a later "
-                                      "slice of the port")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0 (0 = greedy), "
                              f"got {temperature}")
@@ -117,6 +115,7 @@ class Scheduler:
         self.tokens: list[list[int]] = [[] for _ in range(slots)]
         self.last_logits = None
         self.clock = clock
+        self.watchdog = watchdog
         self.preemption = preemption
         self.queue = AdmissionQueue(
             queue_depth if queue_depth is not None else 4 * slots,
@@ -396,6 +395,8 @@ class Scheduler:
         dt = time.perf_counter() - t0
         self._step_ewma = dt if self._step_ewma == 0.0 else \
             0.8 * self._step_ewma + 0.2 * dt
+        if self.watchdog is not None:
+            self.watchdog.observe(dt)
         return out
 
     def _note_tokens(self, slot: int, t_now: float) -> None:
@@ -502,6 +503,8 @@ class Scheduler:
                    prefilling=len(self._prefilling),
                    prefill_chunks=self.prefill_chunks,
                    decode_steps=self.decode_steps)
+        if self.watchdog is not None:
+            out["watchdog_breaches"] = self.watchdog.breaches
         out["latency"] = self.latency_stats()
         return out
 

@@ -32,7 +32,7 @@ def test_port_imports_no_jax_and_no_reference():
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1) if " " in \
         out.stdout.strip() else (out.stdout.strip(), "")
-    assert int(count) >= 20
+    assert int(count) >= 41
     assert bad == "", f"port imported {bad}"
 
 
@@ -47,14 +47,25 @@ def test_entry_points_raise_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     from repro_torch.configs.qwen3_0_6b import smoke_config
+    from repro_torch.launch import serve as serve_cli
     from repro_torch.models import decode
     from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import BatchedServer, jit_prefill
     from repro_torch.serve.scheduler import Scheduler
     cfg = smoke_config()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg, 0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode.init_paged_cache(cfg, 2, 16, 4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode.init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        jit_prefill(cfg, None)
     params = init_params(cfg, 0, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Scheduler(cfg, params, slots=1, max_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchedServer(cfg, params, slots=1, max_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--arch", "qwen3-0.6b", "--smoke", "--requests",
+                        "1", "--prompt-len", "4", "--gen", "2"])

@@ -144,7 +144,7 @@ def test_sampling_seeded_and_topk1_is_greedy():
 
 @pytest.mark.parametrize("knob", [dict(speculate=2), dict(prefix_cache=True),
                                   dict(kv_quant="int8"),
-                                  dict(watchdog=object())])
+                                  dict(kv_quant="fp8")])
 def test_waiting_knobs_raise(knob):
     cfg, params = _port()
     with pytest.raises(NotImplementedError):
