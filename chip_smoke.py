@@ -135,14 +135,37 @@ Phases, in order (any failure raises and exits non-zero):
    every step's logits must equal the fused dense step's bit for bit; (c)
    ``python -m repro_torch.launch.serve --arch qwen3-0.6b --requests 4
    --prompt-len 64 --gen 16 --max-len 512`` in a subprocess must exit 0,
-   with every request finished and its tok/s line naming the card.
+   with every request finished and its tok/s line naming the card;
+8. the quantized page pool and prefix sharing through the port's paged
+   ``Scheduler`` at full width (weights cast once to bf16; slots 4,
+   max_len 512, page_size 16, 16 greedy tokens): (a) ``kv_quant="int8"``,
+   then ``"fp8"``, on phase 4's prompts under ``kernel``, ``ref`` and
+   ``kernel_dynamic``: streams equal, exactly one fused split per decode
+   step (B1, B6, none; B1 / B6 split the float32 dequantized stack),
+   tokens/s, the median step, ``used_cache_bytes`` at the peak beside the
+   float32 pool's and the page's bytes beside the prediction from the
+   geometry (the int8 page must equal it); (b) 8 forced-teacher steps of
+   the int8 pool against the float32 pool under ``kernel``: the worst
+   logit gap within the reference's bound ``max(0.08, 0.03 *
+   |logits|max)``; (c) ``prefix_cache=True, chunk_pages=2`` on staggered
+   traffic (4 requests of one 64-token seeded prefix and distinct 24-token
+   tails, one tail repeating the first 8 tokens of another's fifth page;
+   request 0 alone until its prefill has published), on the float32 pool
+   and then the int8 pool, under ``kernel``: streams equal to the same
+   traffic with the cache off, trie hits > 0 and at least one fork; the
+   trie's stats, the pages shared at the peak and the fork count printed;
+   (d) the CLI with ``--kv-dtype int8 --prefix-cache --chunk-pages 2
+   --check-invariants`` in a subprocess: exit 0, every request finished;
+   (e) B1 timed on the float32 stack ``(28, 4, 512, 8, 256)`` beside its
+   bound and its library call (line ``time deinterleave[f32 stack]``).
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, the strided path's for B3/B4/B5 under ``kernel`` and
 B8/B9 under ``kernel_dynamic``, the indexed path's under ``kernel`` for
-B10-B14; phase 7 prints its own launches per prefill and per decode
-step); the last line is ``{"ok": true, "device": {...}}``.  ``--profile`` adds, after phase 4, one
+B10-B14; phases 7 and 8 print their own launches per prefill and per
+decode step); the last line is ``{"ok": true, "device": {...}}``.
+``--profile`` adds, after phase 4, one
 torch.profiler-traced serve run per policy and the operators whose host
 and device times differ most between the ``kernel`` and ``ref`` runs,
 and after phase 7a the same for one traced dense prefill and its 16
@@ -988,9 +1011,16 @@ def time_fig12(dev) -> None:
 # ---------------------------------------------------------------------------
 
 def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
-          max_len: int, page_size: int, profiled: bool = False) -> dict:
+          max_len: int, page_size: int, profiled: bool = False,
+          cache_dtype="bfloat16", stagger: bool = False,
+          **sched_kw) -> dict:
     """One serve run under policy ``impl``; with ``profiled`` the run is
-    traced by torch.profiler (host and device) and the trace returned."""
+    traced by torch.profiler (host and device) and the trace returned.
+    ``sched_kw`` go to the Scheduler (``kv_quant``, ``prefix_cache``,
+    ``chunk_pages``); with ``stagger`` the first request is submitted
+    alone and the others once its prefill has completed (and published
+    its prompt pages).  The peak of ``used_cache_bytes`` is read after
+    every decode step, outside its timing."""
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -998,8 +1028,10 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
     from repro_torch.serve.scheduler import Scheduler
     sched = Scheduler(dataclasses.replace(cfg, kernel_impl=impl), params,
                       slots=slots, max_len=max_len, page_size=page_size,
-                      cache_dtype=torch.bfloat16, device=dev)
+                      cache_dtype=getattr(torch, cache_dtype), device=dev,
+                      **sched_kw)
     step_launches, step_ms, step_tokens = [], [], []
+    peak = {"used_bytes": 0, "pages": 0, "shared": 0}
     plain_step = sched.step
 
     def counted_step():
@@ -1014,10 +1046,17 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             (segment.deinterleave.launches - d0[0],
              segment.deinterleave_dynamic.launches - d0[1]))
         step_tokens.append(sum(1 for t in out if t >= 0))
+        if sched.cache.pages_in_use() > peak["pages"]:
+            peak.update(pages=sched.cache.pages_in_use(),
+                        used_bytes=sched.cache.used_cache_bytes())
+        if sched.prefix is not None:
+            peak["shared"] = max(peak["shared"], int(
+                (sched.cache.page_refcounts() > 1).sum()))
         return out
 
     sched.step = counted_step
-    reqs = [sched.submit(p, max_new_tokens=gen) for p in prompts]
+    reqs = [sched.submit(p, max_new_tokens=gen)
+            for p in (prompts[:1] if stagger else prompts)]
     torch.cuda.synchronize()
     tracer = (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA])
@@ -1025,6 +1064,11 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
     segment.reset_counts()                  # counts from here: main path
     with tracer as prof:
         t0 = time.perf_counter()
+        if stagger:
+            while reqs[0].state.value in ("queued", "prefilling"):
+                sched.tick()
+            reqs += [sched.submit(p, max_new_tokens=gen)
+                     for p in prompts[1:]]
         for _ in range(10 * (gen + max_len)):
             sched.tick()
             if sched.drained():
@@ -1047,6 +1091,7 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             raise AssertionError(f"{impl}: request {r.rid} ended "
                                  f"{r.state.value} with {r.generated} tokens")
     stats = sched.stats()
+    page_bytes, forks = sched.cache.page_bytes(), sched.cache.forks
     del sched
     torch.cuda.empty_cache()
     return {"streams": streams, "launches": launches,
@@ -1054,7 +1099,11 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             "step_tokens": step_tokens,
             "wall_s": wall, "tokens": gen * len(prompts),
             "prefill_chunks": stats["prefill_chunks"],
-            "decode_steps": stats["decode_steps"], "prof": prof}
+            "decode_steps": stats["decode_steps"], "prof": prof,
+            "peak_used_bytes": peak["used_bytes"],
+            "peak_pages": peak["pages"], "page_bytes": page_bytes,
+            "prefix": stats.get("prefix"), "peak_shared": peak["shared"],
+            "forks": forks}
 
 
 # ---------------------------------------------------------------------------
@@ -1919,14 +1968,15 @@ def dense_vs_paged(dev, cfg, params, slots: int, page_size: int) -> list:
     return diffs
 
 
-def run_cli(card: str) -> dict:
-    """Phase 7c: the port's serve CLI at full width in a subprocess."""
+def run_cli(card: str, flags=()) -> dict:
+    """Phase 7c (and 8, with ``flags``): the port's serve CLI at full width
+    in a subprocess."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *CLI_ARGS], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
+                          *CLI_ARGS, *flags], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
         raise AssertionError(f"serve CLI exited {out.returncode}:\n"
@@ -2011,6 +2061,252 @@ def dense_phase(dev, cfg, card: str, slots: int, page_size: int) -> None:
     tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
     print(f"serve CLI ({' '.join(CLI_ARGS)}): exit 0, every request "
           f"finished, {cli['wall_s']:.1f} s of wall time: {tail}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: the quantized page pool and prefix sharing
+# ---------------------------------------------------------------------------
+
+QUANT_POLICIES = ("kernel", "ref", "kernel_dynamic")
+FORCED_STEPS = 8
+PREFIX_LEN, TAIL_LEN, FORK_LEN = 64, 24, 8
+QUANT_CLI_FLAGS = ("--kv-dtype", "int8", "--prefix-cache", "--chunk-pages",
+                   "2", "--check-invariants")
+
+
+def check_step_launches(name: str, impl: str, r: dict) -> None:
+    """The kernels of ``impl`` launched on the run and no other policy's;
+    exactly one fused split per decode step (B1 under ``kernel``, B6 under
+    ``kernel_dynamic``, none under ``ref``)."""
+    plan = ("deinterleave", "interleave")
+    dynamic = ("deinterleave_dynamic", "interleave_dynamic")
+    mine, other, split = {"kernel": (plan, dynamic, (1, 0)),
+                          "kernel_dynamic": (dynamic, plan, (0, 1)),
+                          "ref": ((), plan + dynamic, (0, 0))}[impl]
+    if any(r["launches"][k] <= 0 for k in mine) or \
+            any(r["launches"][k] != 0 for k in other):
+        raise AssertionError(f"{name} [{impl}]: launches {r['launches']}")
+    if any(n != split for n in r["step_launches"]):
+        raise AssertionError(f"{name} [{impl}]: fused split launches (B1, "
+                             f"B6) per decode step {r['step_launches']}")
+
+
+def forced_quant_gap(dev, cfg, params, slots: int, max_len: int,
+                     page_size: int) -> tuple:
+    """From empty caches, ``FORCED_STEPS`` steps of the int8 pool and the
+    float32 pool on the float32 pool's own greedy tokens (forced teacher),
+    fused, under ``kernel``.  Returns the worst logit gap and the
+    reference's bound ``max(0.08, 0.03 * |logits|max)`` (tests/
+    test_quant_pool.py), from the last step's float32 logits."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode as dec
+    cfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    cf = dec.init_paged_cache(cfg, slots, max_len, page_size, torch.float32,
+                              device=dev)
+    cq = dec.init_paged_cache(cfg, slots, max_len, page_size,
+                              quantize="int8", device=dev)
+    tok = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab, slots).astype(np.int32)).to(dev)
+    worst = 0.0
+    for _ in range(FORCED_STEPS):
+        lf, cf = dec.paged_decode_step(params, cf, tok, cfg, fuse=True)
+        lq, cq = dec.paged_decode_step(params, cq, tok, cfg, fuse=True)
+        lf, lq = lf.float(), lq.float()
+        if not bool(torch.isfinite(lq).all()):
+            raise AssertionError("int8 pool: logits not finite")
+        worst = max(worst, float((lf - lq).abs().max()))
+        tok = torch.argmax(lf, dim=-1).to(torch.int32)
+    bound = max(0.08, 0.03 * float(lf.abs().max()))
+    del cf, cq
+    torch.cuda.empty_cache()
+    return worst, bound
+
+
+def prefix_traffic(vocab: int, slots: int) -> list:
+    """``slots`` prompts sharing a ``PREFIX_LEN``-token seeded prefix (4
+    full pages at page_size 16), each with a distinct ``TAIL_LEN``-token
+    tail; request 1's tail repeats the first ``FORK_LEN`` tokens of
+    request 0's (its fifth page), so that its admission forks that page."""
+    import numpy as np
+    rng = np.random.default_rng(SEED + 9)
+    prefix = rng.integers(0, vocab, PREFIX_LEN).tolist()
+    tails = [rng.integers(0, vocab, TAIL_LEN).tolist() for _ in range(slots)]
+    tails[1][:FORK_LEN] = tails[0][:FORK_LEN]
+    return [prefix + t for t in tails]
+
+
+def quant_prefix_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
+                       max_len: int, page_size: int, timing: dict) -> None:
+    """Phase 8: the quantized pool (int8, fp8) and prefix sharing through
+    the port's paged Scheduler at full width, the CLI with both, and B1 on
+    the float32 dequantized stack."""
+    import torch
+    from repro_torch.kernels import segment
+    from repro_torch.models.transformer import cast_params, init_params
+    from repro_torch.serve.paged_cache import PagedCache
+    params = cast_params(init_params(cfg, SEED, device=dev), cfg)
+    # the bytes of one page, predicted from the geometry: K * 2D elements
+    # of a beat, page_size beats, a float32 scale per head, every layer
+    K, D2, NS = cfg.n_kv_heads, 2 * cfg.hd, cfg.n_superblocks
+    pred_f32 = NS * page_size * K * D2 * 4
+    pred_int8 = NS * (page_size * K * D2 + 4 * K)
+    f32 = PagedCache(cfg, slots, max_len, page_size,
+                     cache_dtype=torch.float32, device=dev)
+    f32_page, f32_table = f32.page_bytes(), f32.state["table"]
+    table_bytes = f32_table.numel() * f32_table.element_size()
+    del f32
+    torch.cuda.empty_cache()
+    print(f"quant pool prediction: one page of every layer {pred_int8} B "
+          f"int8 (with its scales) against {pred_f32} B float32, ratio "
+          f"{pred_int8 / pred_f32:.4f}")
+    for kv in ("int8", "fp8"):
+        t0 = time.perf_counter()
+        runs = [(impl, serve(dev, cfg, params, impl, prompts, gen, slots,
+                             max_len, page_size, kv_quant=kv))
+                for impl in QUANT_POLICIES]
+        for impl, r in runs:
+            check_step_launches(f"serve {kv}", impl, r)
+            if r["streams"] != runs[0][1]["streams"]:
+                raise AssertionError(f"serve {kv} [{impl}]: other token "
+                                     f"streams than under kernel")
+            decode_s = sum(r["step_ms"]) / 1e3
+            f32_used = r["peak_pages"] * f32_page + table_bytes
+            print(f"serve {kv}[{impl}] {cfg.name} on {card}: generated "
+                  f"tokens/s over the whole run "
+                  f"{r['tokens'] / r['wall_s']:.2f} ({r['tokens']} tokens "
+                  f"in {r['wall_s']:.3f} s); decode-step tokens/s "
+                  f"{sum(r['step_tokens']) / decode_s:.2f}; median decode "
+                  f"step {statistics.median(r['step_ms']):.3f} ms over "
+                  f"{r['decode_steps']} steps; used_cache_bytes at the "
+                  f"peak ({r['peak_pages']} pages) {r['peak_used_bytes']} "
+                  f"against the float32 pool's {f32_used}; page "
+                  f"{r['page_bytes']} B against {f32_page} B, ratio "
+                  f"{r['page_bytes'] / f32_page:.4f} (predicted "
+                  f"{pred_int8 / pred_f32:.4f}); launches per decode step "
+                  f"{r['step_launches'][0]}; launches {r['launches']}")
+        if kv == "int8" and runs[0][1]["page_bytes"] != pred_int8:
+            raise AssertionError(f"int8 page bytes "
+                                 f"{runs[0][1]['page_bytes']} != predicted "
+                                 f"{pred_int8}")
+        print(f"serve {kv}: streams equal under kernel, ref and "
+              f"kernel_dynamic; one fused split launch in each of "
+              f"{len(runs[0][1]['step_launches'])} decode steps "
+              f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    worst, bound = forced_quant_gap(dev, cfg, params, slots, max_len,
+                                    page_size)
+    print(f"int8 pool vs float32 pool, {FORCED_STEPS} forced-teacher steps "
+          f"under kernel: worst logit gap {worst:.6f}, bound "
+          f"max(0.08, 0.03 * |logits|max) = {bound:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not worst <= bound:
+        raise AssertionError(f"int8 pool: logit gap {worst} over the "
+                             f"bound {bound}")
+    traffic = prefix_traffic(cfg.vocab, slots)
+    for pool in ("float32", "int8"):
+        t0 = time.perf_counter()
+        kw = dict(cache_dtype="float32", stagger=True, chunk_pages=2,
+                  kv_quant=None if pool == "float32" else pool)
+        off = serve(dev, cfg, params, "kernel", traffic, gen, slots,
+                    max_len, page_size, **kw)
+        on = serve(dev, cfg, params, "kernel", traffic, gen, slots, max_len,
+                   page_size, prefix_cache=True, **kw)
+        for name, r in (("off", off), ("on", on)):
+            check_step_launches(f"prefix {name} {pool}", "kernel", r)
+        px = on["prefix"]
+        print(f"prefix cache [{pool} pool, kernel] on {card}: {slots} "
+              f"requests of a {PREFIX_LEN}-token shared prefix + "
+              f"{TAIL_LEN}-token tails, staggered, chunk_pages 2: hits "
+              f"{px['hits']}, misses {px['misses']}, tokens reused "
+              f"{px['tokens_reused']}, trie pages {px['pages']}, pages "
+              f"shared (refcount > 1) at the peak {on['peak_shared']}, "
+              f"forks {on['forks']}; "
+              f"{on['prefill_chunks']} prefill chunks against "
+              f"{off['prefill_chunks']} with the cache off; tokens/s over "
+              f"the whole run {on['tokens'] / on['wall_s']:.2f} against "
+              f"{off['tokens'] / off['wall_s']:.2f}; peak pages "
+              f"{on['peak_pages']} against {off['peak_pages']}; streams "
+              f"{'equal' if on['streams'] == off['streams'] else 'DIFFER'} "
+              f"({time.perf_counter() - t0:.1f} s)")
+        if on["streams"] != off["streams"]:
+            raise AssertionError(f"prefix cache [{pool}]: streams differ "
+                                 f"from the cache off")
+        if px["hits"] <= 0 or on["forks"] < 1:
+            raise AssertionError(f"prefix cache [{pool}]: {px['hits']} "
+                                 f"hits, {on['forks']} forks")
+    del params
+    torch.cuda.empty_cache()
+    cli = run_cli(card, QUANT_CLI_FLAGS)
+    tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+    pline = [ln for ln in cli["lines"] if ln.startswith("prefix cache:")]
+    print(f"serve CLI ({' '.join(CLI_ARGS + QUANT_CLI_FLAGS)}): exit 0, "
+          f"every request finished, {cli['wall_s']:.1f} s of wall time: "
+          f"{tail}; {pline[0] if pline else 'no prefix line'}")
+    if not pline:
+        raise AssertionError("serve CLI with --prefix-cache printed no "
+                             "prefix cache line")
+    # B1 on the quantized step's operand: the float32 dequantized stack
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 10)
+    kv = torch.randn((NS, slots, max_len, K, D2), generator=g, device=dev)
+    R = kv.numel() // D2
+    timing["deinterleave[f32 stack]"] = record(
+        "deinterleave[f32 stack]", lambda: segment.deinterleave(kv, 2),
+        lambda: segment.deinterleave_plain(kv, 2),
+        lambda: kv.view(R, D2 // 2, 2).permute(2, 0, 1).contiguous(),
+        2 * kv.numel() * kv.element_size(), list(kv.shape),
+        f" (float32; {card})")
+    del kv
+    torch.cuda.empty_cache()
+    time_paged_access(dev, cfg, card, slots, max_len, page_size)
+
+
+def time_paged_access(dev, cfg, card: str, slots: int, max_len: int,
+                      page_size: int) -> None:
+    """The quantized step's page accesses alone (torch ops, no kernel; CUDA
+    events over 20 calls): the one fused page gather of every layer's
+    pool through a full table, int8 with its dequant against the bf16
+    pool's, each beside its bytes' bound; and one decode beat's
+    quantize-on-write into one layer's pool (launch-sized, timed at the
+    host's launch rate)."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.kernels import kv_interleaved
+    NS, K, D2 = cfg.n_superblocks, cfg.n_kv_heads, 2 * cfg.hd
+    n_seq = max_len // page_size
+    P = slots * n_seq
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 11)
+    shape = (NS, P, page_size, K, D2)
+    pools = {"int8": torch.randint(-127, 128, shape, generator=g,
+                                   device=dev, dtype=torch.int8),
+             "bfloat16": torch.randn(shape, generator=g,
+                                     device=dev).to(torch.bfloat16)}
+    scl = torch.rand((NS, P, K), generator=g, device=dev)
+    table = torch.arange(P, dtype=torch.int32, device=dev).view(slots, n_seq)
+    for name, pool in pools.items():
+        sc = [scl] if name == "int8" else None
+        out = kv_interleaved.gather_paged_kv([pool], table, page_size,
+                                             scales=sc)[0]
+        moved = pool.numel() * pool.element_size() + \
+            out.numel() * out.element_size()
+        ms = time_ms(lambda: kv_interleaved.gather_paged_kv(
+            [pool], table, page_size, scales=sc), 20)
+        print(f"time paged gather[{name} pool] {list(out.shape)} "
+              f"{out.dtype}: {ms:.4f} ms, bound "
+              f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes) ({card})")
+        del out
+    spec = vx.Paged(page_size=page_size, pages=n_seq, trail=2)
+    beat = torch.randn((slots, K, D2), generator=g, device=dev).to(
+        torch.bfloat16)
+    pos = torch.full((slots,), 37, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: vx.scatter(spec, pools["int8"][0], beat,
+                                    table=table, pos=pos, scales=scl[0]), 20)
+    print(f"time paged scatter[int8 pool, one decode beat of {slots} "
+          f"slots into one layer]: {ms:.4f} ms a call ({card})")
+    del pools, scl
+    torch.cuda.empty_cache()
 
 
 def profile_policies(runs: dict) -> None:
@@ -2203,6 +2499,8 @@ def main() -> int:
 
     ipk = indexed_phase(dev, kv_shape, timing)
     dense_phase(dev, cfg, card, slots, page_size)
+    quant_prefix_phase(dev, cfg, card, prompts, gen, slots, max_len,
+                       page_size, timing)
 
     launches = {k: kr["launches"][k] for k in plan}
     launches.update({k: dr["launches"][k] for k in dynamic})

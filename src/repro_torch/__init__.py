@@ -24,5 +24,9 @@ routing; kernels/shift_gather, B11 and B12; kernels/shift_scatter, B13
 and B14; the compaction counts, row routing and compact_indices), and
 dense serving (the forward pass with flash attention, the dense decode
 cache and step, serve/engine, the serve CLI in launch/serve and the step
-watchdog in ft/straggler).  ROADMAP.md lists what waits.
+watchdog in ft/straggler), the quantized page pool (core/quant; int8 /
+fp8 pages with per-page scales, the dequant inside the one fused page
+gather) and prefix sharing (serve/prefix_cache, the radix trie; adopt,
+copy-on-write fork and trie pins in models/decode).  ROADMAP.md lists
+what waits.
 """

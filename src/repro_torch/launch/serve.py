@@ -13,14 +13,22 @@ On the CPU (reduced geometry):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --requests 3 --prompt-len 8 --gen 6 --max-len 64
 
+``--kv-dtype int8`` / ``fp8`` serves from the quantized page pool;
+``--prefix-cache`` shares prompt-prefix pages through the radix trie, and
+every prompt then opens with the same seeded system prefix (half the
+prompt length), so that the hit rate it prints means something:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --smoke --device cpu --kv-dtype int8 --prefix-cache --chunk-pages 2 \\
+      --check-invariants
+
 ``--device`` defaults to CUDA and follows the port's rule: without a GPU
 the CLI raises unless ``--device cpu`` is given.  Params come from the
 port's seeded ``init_params`` and prompts from a seeded generator (the
 reference draws both from ``jax.random``); :func:`run` takes both as
 arguments so that a caller can feed it the reference's.  The flags of the
-chaos harness, the replica fleet, speculative decode, the prefix cache and
-the quantized pool are kept and exit with a message naming the ROADMAP.md
-queue A item they wait for.
+chaos harness, the replica fleet and speculative decode are kept and exit
+with a message naming the ROADMAP.md queue A item they wait for.
 """
 from __future__ import annotations
 
@@ -63,7 +71,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--kv-dtype", choices=("float32", "int8", "fp8"),
                     default="float32",
-                    help="page-pool element type (int8/fp8: queue A item 3)")
+                    help="page-pool element type; int8/fp8 store "
+                         "quantized pages with per-page scales, the "
+                         "dequant inside the one page gather")
     ap.add_argument("--speculate", type=int, default=1, metavar="K",
                     help="speculative decode width (queue A item 7)")
     ap.add_argument("--draft", default=None, metavar="ARCH",
@@ -79,7 +89,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--queue-depth", type=int, default=None,
                     help="admission queue bound (backpressure beyond)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="share prompt-prefix KV pages (queue A item 4)")
+                    help="share prompt-prefix KV pages through the radix "
+                         "trie (attention-only stacks); every prompt opens "
+                         "with one seeded system prefix")
     ap.add_argument("--chunk-pages", type=int, default=1,
                     help="prefill chunk budget per tick, in pages")
     ap.add_argument("--check-invariants", action="store_true",
@@ -107,9 +119,6 @@ def _refuse_waiting(args) -> None:
         (args.chaos is not None, "--chaos", "5 (chaos)"),
         (args.guard_nan, "--guard-nan", "5 (chaos)"),
         (args.speculate > 1, "--speculate > 1", "7 (speculative decode)"),
-        (args.prefix_cache, "--prefix-cache", "4 (prefix sharing)"),
-        (args.kv_dtype != "float32", f"--kv-dtype {args.kv_dtype}",
-         "3 (the quantized pool)"),
     ]
     for on, flag, item in waiting:
         if on:
@@ -125,10 +134,16 @@ def device_name(device: torch.device) -> str:
     return device.type.upper()
 
 
-def seeded_prompts(n: int, length: int, vocab: int,
-                   seed: int = 42) -> list[list[int]]:
+def seeded_prompts(n: int, length: int, vocab: int, seed: int = 42, *,
+                   shared_prefix: bool = False) -> list[list[int]]:
+    """``n`` seeded prompts of ``length`` tokens; with ``shared_prefix``
+    each opens with the same system prefix of ``length // 2`` tokens."""
     g = torch.Generator().manual_seed(seed)
-    return [torch.randint(0, vocab, (max(length, 1),), generator=g).tolist()
+    sys_prefix = (torch.randint(0, vocab, (length // 2,), generator=g)
+                  .tolist() if shared_prefix else [])
+    n_tail = max(length - len(sys_prefix), 1)
+    return [sys_prefix + torch.randint(0, vocab, (n_tail,),
+                                       generator=g).tolist()
             for _ in range(n)]
 
 
@@ -143,13 +158,17 @@ def run(args, *, params=None, prompts=None) -> list:
     if params is None:
         params = init_params(cfg, 0, device=device)
     if prompts is None:
-        prompts = seeded_prompts(args.requests, args.prompt_len, cfg.vocab)
+        prompts = seeded_prompts(args.requests, args.prompt_len, cfg.vocab,
+                                 shared_prefix=args.prefix_cache)
     server = BatchedServer(cfg, params, slots=args.requests,
                            max_len=args.max_len, page_size=args.page_size,
                            temperature=args.temperature, top_k=args.top_k,
                            queue_depth=args.queue_depth,
                            debug_invariants=args.check_invariants,
+                           prefix_cache=args.prefix_cache,
                            chunk_pages=args.chunk_pages,
+                           kv_quant=(None if args.kv_dtype == "float32"
+                                     else args.kv_dtype),
                            watchdog=StepWatchdog(), device=device)
     sched = server.scheduler
     reqs = [server.submit(p, max_new_tokens=args.gen, ttl=args.deadline)
@@ -177,6 +196,13 @@ def run(args, *, params=None, prompts=None) -> list:
           f"preemptions={stats['preemptions']} "
           f"prefill_chunks={stats['prefill_chunks']} "
           f"watchdog_breaches={stats.get('watchdog_breaches', 0)}")
+    if "prefix" in stats:
+        px = stats["prefix"]
+        print(f"prefix cache: hit_rate={px['hit_rate']:.2f} "
+              f"({px['hits']}/{px['hits'] + px['misses']}), "
+              f"{px['tokens_reused']} tokens reused, "
+              f"{stats['shared_pages']} shared pages, "
+              f"{px['pages']} trie pages ({px['evicted']} evicted)")
     if args.stats:
         _print_stats(stats)
     return reqs

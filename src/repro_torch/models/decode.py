@@ -5,9 +5,12 @@ Port of the attention-only subset of ``repro``'s ``models/decode.py``.
 The dense cache: ``cache_len_for_pos``, ``init_cache``,
 ``cache_from_prefill`` and ``decode_step`` (``fuse=True`` and
 ``fuse=False``), the oracle the paged step is held against.  The paged
-cache: ``init_paged_cache`` (float pools), ``paged_prefill_chunk``,
-``paged_decode_step`` (``fuse=True`` and ``fuse=False``),
-``paged_release_slot``, ``paged_insert_prefill`` and ``paged_invariants``.
+cache: ``init_paged_cache`` (float pools, or int8 / fp8 pools with
+per-page scales), ``paged_prefill_chunk``, ``paged_decode_step``
+(``fuse=True`` and ``fuse=False``), ``paged_release_slot``,
+``paged_insert_prefill``, ``paged_invariants``, and prefix sharing:
+``paged_adopt_prefix``, ``paged_addref``, ``paged_deref_pages`` and the
+copy-on-write ``paged_fork_page``.
 
 Dense layout (EARTH): each attention layer stores K and V interleaved along
 features, ``(NS, B, Sc, K, 2D)``; appending a token is one beat write per
@@ -20,7 +23,10 @@ each slot's logical pages to physical pages (``-1`` = unallocated),
 ``pos`` holds per-slot positions, ``free[:free_top]`` is the device free
 stack and ``ref`` the per-page reference count.  The page allocators match
 the reference bit for bit: cumsum ranks, pops from the free stack, and
-masked (never wrapped) out-of-range updates.
+masked (never wrapped) out-of-range updates.  A QUANTIZED pool stores
+int8 / fp8 pages, and each attention layer's pool ``pos{i}`` has a
+float32 scale side tensor ``scl{i}`` ``(NS, P, K)`` beside it: a page's
+scale travels with its id through adoption and forks.
 
 Superblocks run in a Python loop over the stacked ``(NS, ...)`` leaves in
 place of ``lax.scan``.  Dense cache leaves and page pools are updated IN
@@ -28,8 +34,8 @@ PLACE (the reference donates the cache to its jit'd step); the small
 integer state is rebuilt.
 
 Waiting for later slices: Mamba/xLSTM blocks and the encoder-decoder step,
-the sequence-sharded dense step (``kv_shard``, with ``dist``), the
-quantized pool, speculative verify/truncate and prefix adopt/fork.
+the sequence-sharded dense step (``kv_shard``, with ``dist``) and
+speculative verify/truncate.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch import vx
+from repro_torch.core import quant
 from repro_torch.device import resolve as resolve_device
 from repro_torch.kernels import kv_interleaved
 from repro_torch.models import attention, layers
@@ -172,11 +179,15 @@ def pages_per_seq(max_len: int, page_size: int) -> int:
 
 def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
                      page_size: int, dtype=torch.float32, *,
-                     num_pages: int | None = None, device=None) -> dict:
+                     num_pages: int | None = None,
+                     quantize: str | None = None, device=None) -> dict:
     """Paged cache: a shared page pool per attention layer, one page table,
     per-slot positions, the free-page stack and page refcounts.
     ``num_pages`` defaults to full provisioning (``slots *
-    pages_per_seq``)."""
+    pages_per_seq``).  ``quantize`` ("int8" / "fp8") switches the pools to
+    the QUANTIZED layout: each pool stores int8 / fp8 and gains a
+    per-page, per-head float32 scale side tensor ``scl{i}`` of shape
+    ``(NS, num_pages, K)`` in ``blocks``."""
     check_supported(cfg)
     device = resolve_device(device)
     if isinstance(dtype, str):
@@ -185,9 +196,16 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
     n_seq = pages_per_seq(max_len, page_size)
     if num_pages is None:
         num_pages = slots * n_seq
-    blocks = {f"pos{i}": torch.zeros(
-        (ns, num_pages, page_size, cfg.n_kv_heads, 2 * cfg.hd),
-        dtype=dtype, device=device) for i in range(cfg.sb_len)}
+    qdt = None if quantize is None else quant.pool_dtype(quantize)
+    blocks = {}
+    for i in range(cfg.sb_len):
+        blocks[f"pos{i}"] = torch.zeros(
+            (ns, num_pages, page_size, cfg.n_kv_heads, 2 * cfg.hd),
+            dtype=dtype if qdt is None else qdt, device=device)
+        if qdt is not None:
+            blocks[f"scl{i}"] = torch.zeros(
+                (ns, num_pages, cfg.n_kv_heads), dtype=torch.float32,
+                device=device)
     return {
         "pos": torch.zeros((slots,), dtype=I32, device=device),
         "table": torch.full((slots, n_seq), -1, dtype=I32, device=device),
@@ -206,6 +224,28 @@ def _paged_geometry(cfg: ModelConfig, cache: dict):
     n_seq = cache["table"].shape[-1]
     ps = cache["blocks"][f"pos{attn_pos[0]}"].shape[2]
     return attn_pos, ps, n_seq
+
+
+def _pool_quantized(cache: dict, attn_pos) -> bool:
+    """Quantized pool detection from the cache itself (the scale side
+    tensors are present): every paged op switches on this, so a quantized
+    cache flows through the scheduler unannotated."""
+    return bool(attn_pos) and f"scl{attn_pos[0]}" in cache["blocks"]
+
+
+def _reset_scales(cache: dict, attn_pos, ids: torch.Tensor,
+                  on: torch.Tensor) -> None:
+    """Fresh pages start at scale 0: a stale scale would poison the
+    monotone widen's ``s_old`` (and the rescale would never zero the
+    resident garbage).  Zeroes, in place, every layer's scale rows of the
+    pages ``ids`` where ``on``, without a host sync."""
+    P = cache["free"].shape[0]
+    hit = torch.zeros((P,), dtype=I32, device=ids.device)
+    hit.index_put_((torch.where(on, ids, 0).to(torch.int64),), on.to(I32),
+                   accumulate=True)
+    for i in attn_pos:
+        cache["blocks"][f"scl{i}"].masked_fill_((hit > 0)[None, :, None],
+                                                0.0)
 
 
 def _add_refs(ref: torch.Tensor, ids: torch.Tensor,
@@ -233,9 +273,13 @@ def _pop_pages(free, free_top, need):
 def paged_invariants(cfg: ModelConfig, cache: dict, *,
                      external_ref=None) -> list[str]:
     """Audit the paged cache's structural invariants (refcount
-    conservation, free-stack consistency, copy-on-write tails,
-    pos-vs-table occupancy, bounds); returns violations (empty =
-    healthy).  One host fetch of the small integer state."""
+    conservation with the external pins ``external_ref``, the prefix
+    trie's per-page counts; free-stack consistency, copy-on-write tails,
+    pos-vs-table occupancy, bounds; for a QUANTIZED pool the scale
+    liveness: every layer carries its ``scl{i}``, of the pool's geometry,
+    finite and non-negative); returns violations (empty = healthy).  One
+    host fetch of the small integer state, plus the scales when
+    quantized."""
     attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
     table, free, pos, ref = (cache[k].cpu().numpy()
                              for k in ("table", "free", "pos", "ref"))
@@ -301,6 +345,28 @@ def paged_invariants(cfg: ModelConfig, cache: dict, *,
         if alloc.size and alloc.max() >= extent:
             out.append(f"slot {s}: page at logical index "
                        f"{int(alloc.max())} beyond pos={p} extent {extent}")
+    scl_layers = [i for i in attn_pos if f"scl{i}" in cache["blocks"]]
+    if scl_layers:
+        if len(scl_layers) != len(attn_pos):
+            missing = sorted(set(attn_pos) - set(scl_layers))
+            out.append(f"quantized pool missing scale tensor(s) for "
+                       f"attention layer(s) {missing}")
+        for i in scl_layers:
+            s = cache["blocks"][f"scl{i}"].cpu().numpy()
+            pool = cache["blocks"][f"pos{i}"]
+            if s.shape[1] != num_pages or s.shape[0] != pool.shape[0] \
+                    or s.shape[2] != pool.shape[3]:
+                out.append(f"layer {i}: scale tensor shape {s.shape} does "
+                           f"not match pool (NS={pool.shape[0]}, "
+                           f"P={num_pages}, K={pool.shape[3]})")
+                continue
+            if not np.isfinite(s).all():
+                bad = sorted(set(np.nonzero(~np.isfinite(s))[1].tolist()))
+                out.append(f"layer {i}: non-finite scale on page(s) {bad} "
+                           f"— beats there can never be dequantized")
+            elif (s < 0).any():
+                bad = sorted(set(np.nonzero(s < 0)[1].tolist()))
+                out.append(f"layer {i}: negative scale on page(s) {bad}")
     return out
 
 
@@ -364,9 +430,13 @@ def paged_insert_prefill(cfg: ModelConfig, cache: dict, slot: int,
     pos = cache["pos"].clone()
     pos[slot] = int(length)
     ref = _add_refs(cache["ref"], newp, have)
+    quantized = _pool_quantized(cache, attn_pos)
     for i in attn_pos:
         leaf = cache["blocks"][f"pos{i}"]
-        kv = cache_states[f"pos{i}"].to(leaf.dtype)
+        # a quantized pool keeps the states float here and quantizes per
+        # page below (a cast to the pool's dtype would truncate)
+        kv = cache_states[f"pos{i}"].to(torch.float32 if quantized
+                                        else leaf.dtype)
         w = cfg.window_pattern[i]
         if w is not None and kv.shape[2] < state_len:
             # prefill ring-trimmed the window: un-roll to natural order and
@@ -385,7 +455,107 @@ def paged_insert_prefill(cfg: ModelConfig, cache: dict, slot: int,
                                               sp - kv.shape[2]))
         beats = kv[:, 0].reshape(kv.shape[0], n_pg, ps, *kv.shape[3:])
         hv = have.to(torch.int64).nonzero()[:, 0]
-        leaf[:, newp[hv].to(torch.int64)] = beats[:, hv]
+        ids = newp[hv].to(torch.int64)
+        if quantized:
+            # per-(superblock, page, head) max-abs scale over the in-page
+            # and feature axes, then the beats quantized at it
+            s = quant.scale_for(beats, leaf.dtype, axis=(2, 4))
+            beats = quant.quantize(beats, s[:, :, None, :, None],
+                                   leaf.dtype)
+            cache["blocks"][f"scl{i}"][:, ids] = s[:, hv]
+        quant.raw(leaf)[:, ids] = quant.raw(beats)[:, hv]
+    return {"pos": pos, "table": table, "free": free, "free_top": free_top,
+            "ref": ref, "blocks": cache["blocks"]}
+
+
+def paged_adopt_prefix(cfg: ModelConfig, cache: dict, slot: int,
+                       page_ids) -> dict:
+    """Point a freshly admitted slot's page table at SHARED prefix pages.
+
+    ``page_ids`` is ``(pages_per_seq,)`` int32, the physical page run
+    backing the slot's leading logical pages, padded with -1.  Each
+    adopted page gains one reference and no pool data moves: the page
+    gather already reads through the table.  The slot's position is set to
+    ``(#adopted) * page_size`` (whole pages only; a partial tail is forked
+    with :func:`paged_fork_page`).  The slot must be empty (released)."""
+    attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
+    ids = torch.as_tensor(page_ids, dtype=I32,
+                          device=cache["table"].device)
+    valid = ids >= 0
+    table = cache["table"].clone()
+    table[slot] = torch.where(valid, ids, -1)
+    pos = cache["pos"].clone()
+    pos[slot] = valid.to(I32).sum(dtype=I32) * ps
+    return {"pos": pos, "table": table, "free": cache["free"],
+            "free_top": cache["free_top"],
+            "ref": _add_refs(cache["ref"], ids, valid),
+            "blocks": cache["blocks"]}
+
+
+def paged_addref(cfg: ModelConfig, cache: dict, page_ids) -> dict:
+    """Add one EXTERNAL reference (a prefix-trie pin) to each page id in
+    ``page_ids`` (padded with -1): pinned pages survive the release of
+    every slot that references them until the trie evicts them
+    (:func:`paged_deref_pages`)."""
+    ids = torch.as_tensor(page_ids, dtype=I32, device=cache["ref"].device)
+    return dict(cache, ref=_add_refs(cache["ref"], ids, ids >= 0))
+
+
+def paged_deref_pages(cfg: ModelConfig, cache: dict, page_ids) -> dict:
+    """Drop one reference from each page id in ``page_ids`` (padded with
+    -1), the trie-eviction counterpart of :func:`paged_addref`; pages whose
+    count hits zero go back on the free stack."""
+    ids = torch.as_tensor(page_ids, dtype=I32, device=cache["ref"].device)
+    ref, free, free_top = _deref_push(cache["ref"], cache["free"],
+                                      cache["free_top"], ids)
+    return dict(cache, ref=ref, free=free, free_top=free_top)
+
+
+def paged_fork_page(cfg: ModelConfig, cache: dict, slot: int,
+                    logical_idx: int, src: int, *, deref_src: bool = False,
+                    pos_to: int | None = None) -> dict:
+    """Copy-on-write fork: pop a fresh page off the free stack, copy the
+    SOURCE page's beats into it in every attention layer's pool, and point
+    ``table[slot, logical_idx]`` at the copy (refcount 1).
+
+    Used at admission when a prompt's tail matches only PART of a trie
+    page: the slot adopts the shared whole-page run, then forks the
+    donor's next page to go on writing mid-page, so a shared page is never
+    written in place.  ``deref_src=True`` also drops one reference on
+    ``src`` (the slot referenced the shared page before).  ``pos_to``, when
+    given, sets the slot's position.  A quantized pool's scale forks WITH
+    the page, before any write lands on the copy; a sourceless fork (``src
+    < 0``: a fresh empty page) resets the scale to 0 instead.  An exhausted
+    free stack degrades locally (the entry stays -1, nothing is copied).
+    Admission-time bookkeeping: reads ``free_top`` on the host."""
+    attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
+    slot, logical_idx, src = int(slot), int(logical_idx), int(src)
+    free, free_top, ref = cache["free"], cache["free_top"], cache["ref"]
+    top = int(free_top)
+    newp = int(free[top - 1]) if top > 0 else -1
+    table = cache["table"].clone()
+    table[slot, logical_idx] = newp
+    if newp >= 0:
+        free_top = free_top - 1
+        ref = ref.clone()
+        ref[newp] += 1
+        for i in attn_pos:
+            if src >= 0:
+                leaf = quant.raw(cache["blocks"][f"pos{i}"])
+                leaf[:, newp] = leaf[:, src]
+            scl = cache["blocks"].get(f"scl{i}")
+            if scl is not None:
+                # the source's scale, or 0 for a sourceless fork (a stale
+                # scale would poison the first widen's s_old)
+                scl[:, newp] = scl[:, src] if src >= 0 else 0.0
+    if deref_src:
+        ref, free, free_top = _deref_push(
+            ref, free, free_top,
+            torch.tensor([max(src, -1)], dtype=I32, device=free.device))
+    pos = cache["pos"]
+    if pos_to is not None:
+        pos = pos.clone()
+        pos[slot] = int(pos_to)
     return {"pos": pos, "table": table, "free": free, "free_top": free_top,
             "ref": ref, "blocks": cache["blocks"]}
 
@@ -425,6 +595,9 @@ def paged_prefill_chunk(params, cache: dict, tokens: torch.Tensor,
     table = table.clone()
     table[slot] = row
     ref = _add_refs(ref, newp, have)
+    quantized = _pool_quantized(cache, attn_pos)
+    if quantized:
+        _reset_scales(cache, attn_pos, newp, have)
     table_c = row[None].expand(C, n_seq)
     wpos = torch.where(real & (tpos < seq), tpos, torch.full_like(tpos, -1))
     spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
@@ -439,9 +612,15 @@ def paged_prefill_chunk(params, cache: dict, tokens: torch.Tensor,
                 p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                 tpos[None], cfg.rope_theta, policy=pol)
             pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
+            # quantized: quantize-on-write (the scale only widens), then
+            # the read dequantizes the slot's whole prefix, the beats just
+            # written included, in the same one gather
+            scl = (cache["blocks"][f"scl{i}"][sbi] if quantized
+                   else None)
             vx.scatter(spec, pool, kv[0], table=table_c, pos=wpos,
-                       policy=pol)
-            full = vx.gather(spec, pool, table=row[None], policy=pol)
+                       scales=scl, policy=pol)
+            full = vx.gather(spec, pool, table=row[None], scales=scl,
+                             policy=pol)
             k_all, v_all = vx.transpose(
                 vx.Segment(n=full.shape[-1], fields=2), full, policy=pol)
             out = attention.chunk_attention(
@@ -468,7 +647,15 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
     ``fuse=True`` ALL layers' page gathers run as ONE page-granular gather
     and ONE fused FIELD=2 split (kernel B1: one launch per step) over the
     pre-append pages, and each layer's fresh beat is inserted into the
-    split K/V.  ``fuse=False`` is the per-access paged oracle."""
+    split K/V.  ``fuse=False`` is the per-access paged oracle.
+
+    QUANTIZED pools dequantize inside the same fused gather (float32
+    K/V), quantize the appended beat on write (the page scale only
+    widens), and attention always reads the pre-append pages plus the
+    fresh FLOAT beat: the fused and per-access paths stay bit-identical,
+    and the beat is quantized only for the next step's read.  The
+    per-access arm gathers each layer's pages before its scatter writes
+    the pool in place."""
     params = cast_params(params, cfg)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
@@ -491,6 +678,9 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
                            == (pos // ps)[:, None])
     table = torch.where(hit, newp[:, None], table)
     ref = _add_refs(cache["ref"], newp, have)
+    quantized = _pool_quantized(cache, attn_pos)
+    if quantized:
+        _reset_scales(cache, attn_pos, newp, have)
     # idle slots and full sequences append nothing (dropped scatter rows)
     write_pos = torch.where(active & (pos < seq), pos,
                             torch.full_like(pos, -1))
@@ -504,7 +694,8 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
         # FIELD=2 split
         gathered = kv_interleaved.gather_paged_kv(
             [cache["blocks"][f"pos{i}"] for i in attn_pos], table, ps,
-            policy=pol)
+            policy=pol, scales=([cache["blocks"][f"scl{i}"]
+                                 for i in attn_pos] if quantized else None))
         splits = kv_interleaved.split_kv_step(gathered, policy=pol)
         pre_split = {f"pos{i}": splits[a] for a, i in enumerate(attn_pos)}
     beat_pol = (pol.for_elems(B * cfg.n_kv_heads * 2 * cfg.hd)
@@ -523,10 +714,20 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
                 p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads,
                 cfg.hd, pos[:, None], cfg.rope_theta, policy=beat_pol)
             pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
+            scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
+            if quantized and not fuse:
+                # the per-access quantized arm reads the PRE-append pages
+                # (as the fused gather does) and inserts the fresh float
+                # beat below
+                full = vx.gather(spec, pool, table=table, scales=scl,
+                                 policy=pol)
+                pre = vx.transpose(vx.Segment(n=full.shape[-1], fields=2),
+                                   full, policy=pol)
             vx.scatter(spec, pool, kv[:, 0], table=table, pos=write_pos,
-                       policy=pol)
-            if fuse:
-                k_pre, v_pre = (t[sbi] for t in pre_split[f"pos{i}"])
+                       scales=scl, policy=pol)
+            if fuse or quantized:
+                k_pre, v_pre = ((t[sbi] for t in pre_split[f"pos{i}"])
+                                if fuse else pre)
                 # k/v are (B, 1, K, D): broadcast over the seq axis
                 k_all = torch.where(ins, k.to(k_pre.dtype), k_pre)
                 v_all = torch.where(ins, v.to(v_pre.dtype), v_pre)

@@ -114,8 +114,9 @@ class BatchedServer:
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.ctx = slots, max_len, ctx
         # lifecycle_kw passes the runtime knobs through unchanged
-        # (queue_depth / preemption / watchdog / debug_invariants / clock /
-        # chunk_pages; see serve/scheduler.py)
+        # (queue_depth / preemption / watchdog / debug_invariants / clock,
+        # the prefix_cache / chunk_pages prefill knobs and the kv_quant
+        # quantized-pool selector; see serve/scheduler.py)
         self.scheduler = Scheduler(
             cfg, params, slots=slots, max_len=max_len, page_size=page_size,
             num_pages=num_pages, cache_dtype=cache_dtype,

@@ -1,14 +1,23 @@
 """Continuous-batching scheduler over the paged KV runtime.
 
-Port of ``repro``'s ``serve/scheduler.py``, plain path: admission
-(free-slot and reserved-page checks), chunked prefill (``chunk_pages``
-page-sized chunks per ``tick``, through ``paged_prefill_chunk``), the
-per-step active set (one ``paged_decode_step`` over all slots with an
-``active`` mask), sampling, preemption-and-restore under page pressure,
-reclamation (``finish`` releases the slot's pages), and the step watchdog
+Port of ``repro``'s ``serve/scheduler.py``: admission (free-slot and
+reserved-page checks), chunked prefill (``chunk_pages`` page-sized chunks
+per ``tick``, through ``paged_prefill_chunk``), the per-step active set
+(one ``paged_decode_step`` over all slots with an ``active`` mask),
+sampling, preemption-and-restore under page pressure, reclamation
+(``finish`` releases the slot's pages), and the step watchdog
 (``watchdog``, a :class:`~repro_torch.ft.straggler.StepWatchdog` fed each
 decode step's wall time; ``stats`` counts its breaches).  Surfaces kept:
 ``add_request``, ``step``, ``finish``, ``submit``, ``tick`` and ``stats``.
+
+``kv_quant`` ("int8" / "fp8") serves from the QUANTIZED page pool (per-page
+scales, the dequant inside the one fused page gather).  ``prefix_cache=True``
+(attention-only stacks, as in the reference) shares prompt-prefix pages
+through the radix trie (``serve/prefix_cache.py``): admission ADOPTS the
+matched full pages and FORKS a copy-on-write tail when the match ends
+mid-page, completed prefills PUBLISH their full prompt pages (the trie's
++1 pin), and under page pressure the trie evicts LRU unpinned leaves
+before any slot is preempted; ``stats()["prefix"]`` reports it.
 
 The reference jit-compiles the step and donates the cache; the port runs
 eagerly and updates the page pools in place.  Greedy decoding is the
@@ -16,10 +25,9 @@ parity target; temperature / top-k sampling draws from one seeded
 ``torch.Generator`` and is held only to determinism inside the port (JAX
 threefry keys are not torch generators).
 
-Waiting for later slices (they raise ``NotImplementedError``): speculative
-decode (``speculate > 1``), the prefix cache (``prefix_cache=True``) and the
-quantized pool (``kv_quant``).  The per-slot NaN guard and its chaos hook
-wait with the chaos harness.
+Waiting for a later slice (it raises ``NotImplementedError``): speculative
+decode (``speculate > 1``).  The per-slot NaN guard and its chaos hook wait
+with the chaos harness.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.models.transformer import ModelConfig, cast_params
 from repro_torch.serve.lifecycle import (AdmissionError, AdmissionQueue,
                                          Request, RequestState, summarize)
 from repro_torch.serve.paged_cache import PagedCache
+from repro_torch.serve.prefix_cache import PrefixCache
 
 
 def sample_tokens(logits: torch.Tensor, generator: torch.Generator | None,
@@ -77,12 +86,6 @@ class Scheduler:
         if speculate != 1:
             raise NotImplementedError("speculative decode waits for a "
                                       "later slice of the port")
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache waits for a later "
-                                      "slice of the port")
-        if kv_quant is not None:
-            raise NotImplementedError("the quantized page pool waits for "
-                                      "a later slice of the port")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0 (0 = greedy), "
                              f"got {temperature}")
@@ -99,7 +102,8 @@ class Scheduler:
         page_size = min(page_size or 16, max_len)
         self.cache = PagedCache(cfg, slots, max_len, page_size,
                                 cache_dtype=cache_dtype,
-                                num_pages=num_pages, device=self.device,
+                                num_pages=num_pages, kv_quant=kv_quant,
+                                device=self.device,
                                 debug_invariants=debug_invariants)
         self.temperature, self.top_k = float(temperature), top_k
         self.fuse_step = fuse_step
@@ -111,6 +115,13 @@ class Scheduler:
         self._prefilling: dict[int, int] = {}   # slot -> prefilled tokens
         self.prefill_chunks = 0
         self.decode_steps = 0
+        # prefix sharing is sound only when every layer's state lives in
+        # the page pool: the trie is gated to attention-only stacks
+        self.prefix: PrefixCache | None = None
+        if prefix_cache and all(k == "attn" for k in cfg.block_pattern):
+            self.prefix = PrefixCache(self.cache.page_size,
+                                      self.cache.num_pages)
+            self.cache.external_ref = self.prefix.page_refs
         self.active = [False] * slots
         self.tokens: list[list[int]] = [[] for _ in range(slots)]
         self.last_logits = None
@@ -179,8 +190,13 @@ class Scheduler:
         if slot is None:
             raise AdmissionError("no free slot",
                                  retry_after=self._retry_after())
+        # trie orphans are evictable: under pressure LRU leaves are dropped
+        # before refusing
         need = self._pages_for(toks)
-        if self.cache.num_pages - self._reserved_pages() < need:
+        avail = self.cache.num_pages - self._reserved_pages()
+        if avail < need:
+            avail += self._evict_prefix(need - avail)
+        if avail < need:
             raise AdmissionError(
                 "page pool exhausted; finish a request or grow num_pages",
                 retry_after=self._retry_after())
@@ -211,11 +227,28 @@ class Scheduler:
 
     # -- chunked prefill ----------------------------------------------------
     def _begin_prefill(self, slot: int, req: Request) -> None:
-        if not req.prompt[:-1]:
+        """Arm the prefill cursor: serve whatever prefix the trie holds
+        (the full-page run adopted; a partial tail forked copy-on-write
+        when a free page exists, else recomputed), then leave the rest to
+        ``_advance_prefill``."""
+        pre = req.prompt[:-1]
+        if not pre:
             self._finish_prefill(slot)
             return
-        self._prefilling[slot] = 0
-        self._pos[slot] = 0
+        done = 0
+        if self.prefix is not None:
+            m = self.prefix.acquire(slot, pre)
+            if m.run:
+                self.cache.adopt_prefix(slot, list(m.run))
+                done = len(m.run) * self.cache.page_size
+            if m.fork_src >= 0 and self.cache.free_pages() >= 1:
+                self.cache.fork_page(slot, len(m.run), m.fork_src,
+                                     done + m.fork_len)
+                done += m.fork_len
+        self._prefilling[slot] = done
+        self._pos[slot] = done
+        if done >= len(pre):
+            self._finish_prefill(slot)
 
     def _advance_prefill(self, slot: int, chunks: int) -> bool:
         """Run up to ``chunks`` page-sized prefill chunks for ``slot``.
@@ -230,6 +263,8 @@ class Scheduler:
             n = min(ps, len(pre) - c)
             newp = self.cache.pages_needed(c + n) - \
                 (0 if c == 0 else -(-c // ps))
+            if self.cache.free_pages() < newp:
+                self._evict_prefix(newp - self.cache.free_pages())
             if self.cache.free_pages() < newp:
                 return False
             tok = torch.tensor(pre[c:c + n] + [0] * (ps - n),
@@ -247,11 +282,30 @@ class Scheduler:
         return True
 
     def _finish_prefill(self, slot: int) -> None:
+        """Publish the prompt's full pages to the trie (newly inserted
+        ones take the trie's +1 pin), arm the replay cursor and mark the
+        request RUNNING."""
         req = self._slot_req[slot]
         self._prefilling.pop(slot, None)
+        pre = req.prompt[:-1]
+        if self.prefix is not None and pre:
+            new = self.prefix.publish(slot, pre, self.cache.table_row(slot))
+            if new:
+                self.cache.addref(new)
         self._fed[slot] = len(req.prompt) - 1
         self._pos[slot] = len(req.prompt) - 1
         req.to(RequestState.RUNNING)
+
+    def _evict_prefix(self, n_pages: int) -> int:
+        """Drop up to ``n_pages`` LRU unpinned trie leaves; returns how
+        many pages that freed (the page-pressure valve that runs before
+        any slot is preempted)."""
+        if self.prefix is None or n_pages <= 0:
+            return 0
+        ids = self.prefix.evict(n_pages)
+        if ids:
+            self.cache.deref_pages(ids)
+        return len(ids)
 
     def _pending_prefill_pages(self) -> int:
         ps = self.cache.page_size
@@ -347,6 +401,8 @@ class Scheduler:
     def _release_slot(self, slot: int) -> None:
         if self.active[slot]:
             self.cache.release(slot)
+        if self.prefix is not None:
+            self.prefix.release(slot)
         self._prefilling.pop(slot, None)
         self.active[slot] = False
         self.tokens[slot] = []
@@ -447,8 +503,9 @@ class Scheduler:
                     self.preempt(s)
                 else:
                     self.fail_slot(s, "page pool exhausted mid-prefill")
-        # in-step page-pressure guard: preempt victims rather than let the
-        # device allocator starve a page-boundary crosser
+        # in-step page-pressure guard: evict trie orphans first (they free
+        # pages without killing work), then preempt victims rather than let
+        # the device allocator starve a page-boundary crosser
         if self.preemption and any(self.active):
             ps = self.cache.page_size
             n_seq = self.cache.pages_per_seq
@@ -456,6 +513,9 @@ class Scheduler:
                         if self.active[s] and s not in self._prefilling
                         and self._pos[s] % ps == 0
                         and self._pos[s] // ps < n_seq}
+            short = len(crossers) - self.cache.free_pages()
+            if short > 0:
+                self._evict_prefix(short)
             for _ in range(self.slots):
                 live = {s for s in crossers if self.active[s]}
                 if len(live) <= self.cache.free_pages():
@@ -503,6 +563,10 @@ class Scheduler:
                    prefilling=len(self._prefilling),
                    prefill_chunks=self.prefill_chunks,
                    decode_steps=self.decode_steps)
+        if self.prefix is not None:
+            out["prefix"] = self.prefix.stats()
+            out["shared_pages"] = int(
+                np.sum(self.cache.page_refcounts() > 1))
         if self.watchdog is not None:
             out["watchdog_breaches"] = self.watchdog.breaches
         out["latency"] = self.latency_stats()

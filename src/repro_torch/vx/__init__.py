@@ -18,6 +18,9 @@ One spec type per access, a few verbs, one policy::
     seqs = vx.gather(pg, pool, table=tables)               # paged read
     pool = vx.scatter(pg, pool, beats, table=tables, pos=pos)  # append
     alls = vx.gather_many(pg, pools, table=tables)         # ONE program
+    seqs = vx.gather(pg, qpool, table=tables, scales=scl)  # int8 / fp8
+    qpool, scl = vx.scatter(pg, qpool, beats, table=tables, pos=pos,
+                            scales=scl)                    # widen + write
 
     ix = vx.Indexed(n=64)
     out = vx.gather(ix, buf, shift=shift, valid=valid)     # raw GSN
@@ -30,9 +33,9 @@ One spec type per access, a few verbs, one policy::
         ...
 
 The port covers ``Strided`` (static and runtime ``BANK`` strides),
-``Segment``, ``Indexed``, ``Compact`` and float ``Paged`` specs; the rest
-of the reference's vx layer (``scatter_many``, quantized pools, sharded
-lowering) waits for later slices (ROADMAP.md, queue A).
+``Segment``, ``Indexed``, ``Compact`` and ``Paged`` specs (float and
+quantized pools); the rest of the reference's vx layer (``scatter_many``,
+sharded lowering) waits for later slices (ROADMAP.md, queue A).
 """
 from repro_torch.vx import lower, program
 from repro_torch.vx._dispatch import (compact, gather, gather_many,

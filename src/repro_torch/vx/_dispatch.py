@@ -2,9 +2,9 @@
 pipeline (port of ``repro``'s ``vx/_dispatch.py``).
 
 The port has ``transpose`` (Segment), ``gather`` / ``scatter`` (Strided,
-Indexed, Paged over float pools, and the Compact expansion), ``compact``
-(Compact), ``gather_many`` (Strided, Paged and Segment) and ``warm``.
-``scatter_many``, quantized ``scales=`` and ``shard=`` wait for later
+Indexed, Paged over float and quantized pools, and the Compact
+expansion), ``compact`` (Compact), ``gather_many`` (Strided, Paged and
+Segment) and ``warm``.  ``scatter_many`` and ``shard=`` wait for later
 slices.
 """
 from __future__ import annotations
@@ -19,7 +19,7 @@ from repro_torch.vx import lower as _lower
 from repro_torch.vx import program as _program
 from repro_torch.vx.policy import Policy, resolve
 from repro_torch.vx.spec import (AccessSpec, Compact, Indexed, Paged,
-                                 Segment, Strided)
+                                 Segment, Strided, _dtype_str)
 
 
 def _fold_routing(spec: Indexed, shift, valid) -> Indexed | None:
@@ -58,8 +58,22 @@ def _static_strided(spec: Strided, stride) -> Strided | None:
     return dataclasses.replace(spec, stride=int(stride))
 
 
+def _bind_scales(spec: Paged, scales):
+    """Fold the runtime ``scales`` operand into a quantized spec: its
+    dtype becomes ``spec.scale_dtype``, so the quantized program is a
+    plan-cache entry of its own (spec fields are the cache key).  Checks
+    presence both ways."""
+    if scales is None:
+        if spec.quantized:
+            raise ValueError(f"{spec} is quantized: pass scales=")
+        return spec
+    if spec.scale_dtype is None:
+        return dataclasses.replace(spec, scale_dtype=_dtype_str(scales.dtype))
+    return spec
+
+
 def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
-           valid=None, table=None,
+           valid=None, table=None, scales=None,
            policy: Policy | str | None = None) -> torch.Tensor:
     """Dense read through the access described by ``spec``.
 
@@ -78,7 +92,9 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
     * :class:`Paged` — page-table gather over a ``(*lead, P, ps, *trail)``
       pool: ``table=`` is the runtime ``(*batch, pages)`` int32 page table
       (entries ``< 0`` read as zeros); returns ``(*lead, *batch,
-      pages*ps, *trail)``.
+      pages*ps, *trail)``.  A QUANTIZED pool passes its per-page scale
+      tensor as ``scales=`` and gets the dequantized float sequences back
+      from the same one gather.
     """
     pol = resolve(policy)
     if isinstance(spec, Strided):
@@ -101,13 +117,16 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
                         f"specs in this slice")
     if table is None:
         raise ValueError("Paged gather needs the page table as table=")
-    return _lower.run("paged.gather", spec.bind(buf.dtype), pol.impl, buf,
-                      table)
+    spec = _bind_scales(spec.bind(buf.dtype), scales)
+    if spec.quantized:
+        return _lower.run("paged.gather", spec, pol.impl, buf, scales, table)
+    return _lower.run("paged.gather", spec, pol.impl, buf, table)
 
 
 def scatter(spec: AccessSpec, buf: torch.Tensor | None,
             values: torch.Tensor, *, stride=None, shift=None, valid=None,
-            table=None, pos=None, policy: Policy | str | None = None):
+            table=None, pos=None, scales=None,
+            policy: Policy | str | None = None):
     """Write/merge through the access described by ``spec``.
 
     * :class:`Strided` — merge dense ``values`` into the strided lanes of
@@ -116,7 +135,10 @@ def scatter(spec: AccessSpec, buf: torch.Tensor | None,
     * :class:`Paged` — the decode append: one ``(*batch, *trail)`` beat
       per table row into pool ``buf`` at per-row position ``pos=`` through
       ``table=`` (rows with ``pos < 0`` or an unallocated page are
-      dropped).  Updates the pool in place and returns it.
+      dropped).  Updates the pool in place and returns it.  A QUANTIZED
+      pool passes ``scales=`` (updated in place too) and gets ``(pool,
+      scales)`` back: the beat quantizes on write and the page scale only
+      widens (see vx/lower.py).
     * :class:`Indexed` — raw DROM scatter of ``values`` (``buf`` is
       unused; pass None); returns ``(payload, occupancy)``.  Host counts
       run the compiled plan (kernel B13), tensor counts the dynamic-count
@@ -146,8 +168,12 @@ def scatter(spec: AccessSpec, buf: torch.Tensor | None,
                         f"specs in this slice")
     if table is None or pos is None:
         raise ValueError("Paged scatter needs table= and pos=")
-    return _lower.run("paged.scatter", spec.bind(buf.dtype), pol.impl,
-                      buf, values, table, pos)
+    spec = _bind_scales(spec.bind(buf.dtype), scales)
+    if spec.quantized:
+        return _lower.run("paged.scatter", spec, pol.impl, buf, scales,
+                          values, table, pos)
+    return _lower.run("paged.scatter", spec, pol.impl, buf, values, table,
+                      pos)
 
 
 def transpose(spec: Segment, x, *, policy: Policy | str | None = None):
@@ -192,7 +218,7 @@ def compact(spec: Compact, mask: torch.Tensor,
                       rows, mask)
 
 
-def gather_many(specs, bufs, *, table=None,
+def gather_many(specs, bufs, *, table=None, scales=None,
                 policy: Policy | str | None = None):
     """Whole-step batched gather — ONE program for the whole group.
 
@@ -202,8 +228,10 @@ def gather_many(specs, bufs, *, table=None,
       of the fused gather (one shared plan when the specs are equal).
       Returns the stacked ``(A, ..., vl)``.
     * ``specs`` a single :class:`Paged`, ``bufs`` same-shape pools sharing
-      one ``table=``: all pools stack and gather in one program.  Returns
-      one gathered array per pool.
+      one ``table=``: all pools stack and gather in one program.  Quantized
+      pools pass their per-page scale tensors as ``scales=`` (stacked the
+      same way); the dequant rides the same program.  Returns one
+      gathered array per pool.
     * ``specs`` a single :class:`Segment`, ``bufs`` same-shape AoS arrays:
       the step-fused segment load (one kernel launch).  Returns one field
       list per input array.
@@ -215,11 +243,18 @@ def gather_many(specs, bufs, *, table=None,
     if isinstance(specs, Paged):
         if table is None:
             raise ValueError("Paged gather_many needs table=")
-        spec = specs.bind(bufs[0].dtype)
+        scl = None if scales is None else list(scales)
+        spec = _bind_scales(specs.bind(bufs[0].dtype),
+                            None if scl is None else scl[0])
         prog = _program.fuse([_lower.lower("paged.gather", spec,
                                            pol.impl)] * len(bufs))
         stacked = bufs[0] if len(bufs) == 1 else torch.stack(bufs)
-        out = _lower.executor(prog, (spec,) * len(bufs))(stacked, table)
+        exe = _lower.executor(prog, (spec,) * len(bufs))
+        if scl is None:
+            out = exe(stacked, table)
+        else:
+            out = exe(stacked, scl[0] if len(scl) == 1 else torch.stack(scl),
+                      table)
         return [out] if len(bufs) == 1 else list(out.unbind(0))
     spec = specs.bind(bufs[0].dtype)
     prog = _program.fuse([_lower.lower("seg.deint", spec,

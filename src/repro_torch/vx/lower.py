@@ -14,19 +14,19 @@ kernel B12 under both kernel policies), ``idx.scatter`` (the SSN under
 policies), ``compact.rows`` / ``compact.expand`` (the oracles under
 ``ref``, kernel B10 otherwise), ``compact.ids``
 (``accessfuse.compact_indices``, torch ops under every policy) and
-``paged.gather`` / ``paged.scatter`` over float pools (plain torch ops:
-the reference has no Pallas kernel for them either).  ``lower()`` builds a validated
-:class:`~repro_torch.vx.program.Program`; ``executor()`` compiles it into
-the callable that runs it, memoized in ``vx.PLANS`` under
-``Program.key()`` (dtype and impl included).
+``paged.gather`` / ``paged.scatter`` over float and quantized pools
+(plain torch ops: the reference has no Pallas kernel for them either).
+``lower()`` builds a validated :class:`~repro_torch.vx.program.Program`;
+``executor()`` compiles it into the callable that runs it, memoized in
+``vx.PLANS`` under ``Program.key()`` (dtype and impl included).
 
-Waiting for later slices: the quantized paged arm (``core/quant.py``)
-and every sharded lowering.
+Waiting for later slices: every sharded lowering.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quant
 from repro_torch.vx import program as prg
 from repro_torch.vx.cache import PLANS
 from repro_torch.vx.spec import AccessSpec
@@ -218,15 +218,47 @@ def _compact_expand(txn: prg.Txn, specs: tuple):
     return moe_compact.expand_rows
 
 
+def _put_kept(dst: torch.Tensor, lead: tuple, idx: tuple,
+              rows: torch.Tensor, keep: torch.Tensor) -> None:
+    """``dst[lead + idx] = rows`` for the kept rows only (``idx``: one
+    ``(nb,)`` index per indexed axis, ``rows`` leading with ``nb``).  The
+    reference drops rows with an out-of-bounds scatter; torch has no
+    dropping scatter, so a dropped row rewrites the first kept row's
+    (location, value) or, when no row is kept, the value already at its
+    own location.  That leaves ``dst`` exactly as the reference's and
+    needs no host sync."""
+    # index with a 1-element tensor, never a 0-dim one (that would read
+    # the index back to the host)
+    first = torch.argmax(keep.to(torch.int32)).reshape(1)
+    any_keep = keep.any()
+    current = dst[lead + idx]
+    idx = tuple(torch.where(keep, i, torch.where(any_keep, i[first], i))
+                for i in idx)
+    alt = torch.where(any_keep, rows[first].expand_as(rows), current)
+    kshape = (keep.shape[0],) + (1,) * (rows.ndim - 1)
+    dst[lead + idx] = torch.where(keep.reshape(kshape), rows, alt)
+
+
 def _paged_gather(txn: prg.Txn, specs: tuple):
     """Page-table gather: ``out[.., j, ..] = pool[.., t[j//ps], j%ps, ..]``,
     entries ``< 0`` read as zeros.  Width-N fused transactions run on a
     stacked pool with ONE shared table — still a single gather (the page
-    axis is found from the end)."""
+    axis is found from the end).
+
+    QUANTIZED specs (``scale_dtype`` set) take the per-page scale side
+    tensor ``(*lead, P, *trail[:-1])`` as an extra operand and dequantize
+    in the same program: the pages' values times each page's scale, and
+    only then the validity mask, through ``where`` (never a multiply by
+    the mask: garbage on a never-written fp8 page can be NaN, and ``0 *
+    NaN`` leaks).  The reference looks the scale up with a one-hot
+    contraction; the port takes it by index, through the same clamped
+    table as the pages.  Both give the same bits, because the scales are
+    finite and non-negative, so the contraction's one nonzero term is the
+    page's scale."""
     spec = specs[0]
     ps, pages, trail = spec.page_size, spec.pages, spec.trail
 
-    def fn(pool, table):
+    def check(pool, table):
         pa = spec.pool_axis(pool.ndim)
         if pool.shape[pa + 1] != ps:
             raise ValueError(
@@ -235,60 +267,134 @@ def _paged_gather(txn: prg.Txn, specs: tuple):
         if table.shape[-1] != pages:
             raise ValueError(
                 f"table has {table.shape[-1]} pages, spec.pages is {pages}")
+        return pa
+
+    def pages_of(t, pa, table):
+        """``t``'s pages through the table: ``(*lead, *batch, pages,
+        ...)``."""
         idx = table.clamp(min=0).reshape(-1).to(torch.int64)
-        out = pool.index_select(pa, idx)
-        out = out.reshape(pool.shape[:pa] + table.shape
-                          + pool.shape[pa + 1:])
-        # (*lead, *batch, pages, ps, *trail): zero unallocated pages
+        out = quant.raw(t).index_select(pa, idx).view(t.dtype)
+        return out.reshape(t.shape[:pa] + table.shape + t.shape[pa + 1:])
+
+    def merged(out, pa, table):
         vshape = (1,) * pa + tuple(table.shape) + (1,) + (1,) * trail
-        out.masked_fill_((table < 0).reshape(vshape), 0)
+        out = torch.where((table >= 0).reshape(vshape), out, 0)
         shape = (out.shape[:pa + table.ndim - 1] + (pages * ps,)
                  + out.shape[pa + table.ndim + 1:])
         return out.reshape(shape)
+
+    if spec.quantized:
+        def qfn(pool, scales, table):
+            pa = check(pool, table)
+            want = pool.shape[:pa + 1] + pool.shape[pa + 2:-1]
+            if tuple(scales.shape) != want:
+                raise ValueError(
+                    f"scales shape {tuple(scales.shape)} != {want} (per "
+                    f"page, per trail dim except the last) for pool "
+                    f"{tuple(pool.shape)}")
+            s = pages_of(scales, pa, table).unsqueeze(pa + table.ndim)
+            if trail:
+                s = s.unsqueeze(-1)         # shared last trail dim
+            return merged(pages_of(pool, pa, table).to(s.dtype) * s, pa,
+                          table)
+
+        return qfn
+
+    def fn(pool, table):
+        pa = check(pool, table)
+        return merged(pages_of(pool, pa, table), pa, table)
 
     return fn
 
 
 def _paged_scatter(txn: prg.Txn, specs: tuple):
     """Decode append: one beat per table row, written through the page
-    table at per-row position ``pos``.  Rows with ``pos < 0`` or an
-    unallocated table entry are dropped.
+    table at per-row position ``pos``.  Rows with ``pos < 0``, with ``pos``
+    past the end or on an unallocated page are dropped (``_put_kept``).
 
     Updates the pool IN PLACE and returns it (the reference donates the
-    cache to its jit'd step).  The reference drops rows with an
-    out-of-bounds scatter; torch has no dropping scatter, so a dropped row
-    rewrites the first kept row's (location, value) — or, when no row is
-    kept, the value already at its own location — which leaves the pool
-    exactly as the reference's and needs no host sync."""
+    cache to its jit'd step).
+
+    QUANTIZED specs append in three phases with a MONOTONE per-page scale
+    (a page's scale only ever widens, so shared copy-on-write prefix
+    pages are never rewritten):
+
+    1. scatter-max the beat's max-abs scale into the page's scale row;
+    2. rescale the page's RESIDENT values to the widened scale (``ratio =
+       s_old / s_new <= 1``; a fresh page, ``s_old == 0``, zeroes whatever
+       was resident).  Rows hitting the same physical page (a chunked
+       prefill writes up to ``ps`` beats into one page in one scatter)
+       write IDENTICAL content here: every read (``s_old``, the final
+       scale, the resident page, each a copy) comes before the first
+       write, so duplicate indices in one put are safe;
+    3. quantize each beat at the final page scale and write it at its own
+       ``(page, offset)``, as the float arm does.
+
+    Updates pool and scales in place and returns ``(pool, scales)``."""
     spec = specs[0]
     ps, trail = spec.page_size, spec.trail
 
-    def fn(pool, values, table, pos):
-        pa = spec.pool_axis(pool.ndim)
-        P = pool.shape[pa]
+    def rows_of(pool, values, table, pos):
+        """Flattened rows: (nb, *trail) values, physical page (clamped
+        into the pool), in-page offset and the kept mask."""
+        P = pool.shape[spec.pool_axis(pool.ndim)]
         pos = pos.reshape(-1).to(torch.int64)
         nb = pos.shape[0]
         tab = table.reshape(nb, table.shape[-1]).to(torch.int64)
         vals = values.reshape((nb,) + tuple(values.shape[-trail:]
-                                            if trail else ())).to(pool.dtype)
+                                            if trail else ()))
         oob = (pos < 0) | (pos >= spec.pages * ps)
-        page = torch.where(oob, torch.zeros_like(pos), pos // ps)
+        page = torch.where(oob, 0, pos // ps)
         phys = torch.gather(tab, 1, page[:, None])[:, 0]
         keep = ~(oob | (phys < 0))
-        ph = phys.clamp(0, P - 1)
-        off = torch.where(keep, pos % ps, torch.zeros_like(pos))
-        # index with a 1-element tensor, never a 0-dim one (that would
-        # read the index back to the host)
-        first = torch.argmax(keep.to(torch.int32)).reshape(1)
-        any_keep = keep.any()
-        tph = torch.where(keep, ph, torch.where(any_keep, ph[first], ph))
-        toff = torch.where(keep, off, torch.where(any_keep, off[first], off))
-        lead = (slice(None),) * pa
-        current = pool[lead + (tph, toff)]          # (*lead, nb, *trail)
-        kshape = (nb,) + (1,) * trail
-        alt = torch.where(any_keep, vals[first].expand_as(vals), current)
-        pool[lead + (tph, toff)] = torch.where(keep.reshape(kshape), vals,
-                                               alt)
+        off = torch.where(keep, pos % ps, 0)
+        return vals, phys.clamp(0, P - 1), off, keep
+
+    if spec.quantized:
+        def qfn(pool, scales, values, table, pos):
+            if spec.pool_axis(pool.ndim) != 0:
+                raise NotImplementedError(
+                    "quantized paged scatter wants the page axis leading "
+                    "(no lead dims): per-lead beat scales have no "
+                    "broadcast rule here")
+            if trail < 1:
+                raise NotImplementedError(
+                    "quantized paged scatter needs >= 1 trailing dim "
+                    "(the max-abs scale reduces over the last)")
+            vals, safe, off, keep = rows_of(pool, values, table, pos)
+            kb = keep.reshape((-1,) + (1,) * (trail - 1))
+            # 1. widen: the beat's scale per (row, *trail[:-1]); a dropped
+            # row takes its page's own scale, which leaves it as it was
+            s_beat = quant.scale_for(vals, pool.dtype, axis=-1)
+            s_old = scales[safe]
+            wide = torch.where(kb, torch.maximum(s_old, s_beat), s_old)
+            scales.scatter_reduce_(
+                0, safe.reshape((-1,) + (1,) * (trail - 1)).expand_as(wide),
+                wide, "amax")
+            s_fin = scales[safe]
+            # 2. rescale the resident values to the widened scale
+            on = s_fin > 0
+            ratio = torch.where(on, s_old / torch.where(on, s_fin, 1.0),
+                                1.0)
+            rb = ratio.unsqueeze(1).unsqueeze(-1)
+            dst = quant.raw(pool)
+            resident = dst[safe].view(pool.dtype).to(rb.dtype)
+            _put_kept(dst, (), (safe,),
+                      quant.raw(quant.requantize(resident * rb, pool.dtype)),
+                      keep)
+            # 3. quantize the beat at the final page scale (safe divide:
+            # an all-zero beat on a fresh page keeps scale 0 and writes 0)
+            _put_kept(dst, (), (safe, off),
+                      quant.raw(quant.quantize(vals, s_fin.unsqueeze(-1),
+                                          pool.dtype)), keep)
+            return pool, scales
+
+        return qfn
+
+    def fn(pool, values, table, pos):
+        vals, ph, off, keep = rows_of(pool, values, table, pos)
+        lead = (slice(None),) * spec.pool_axis(pool.ndim)
+        _put_kept(pool, lead, (ph, off), vals.to(pool.dtype), keep)
         return pool
 
     return fn

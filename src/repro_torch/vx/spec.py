@@ -6,8 +6,9 @@ window[offset + i*stride]``, a static stride or the runtime :data:`BANK`),
 shift-network access on per-lane ``(shift, valid)`` routing, runtime or
 folded into the spec as ``routing=``), :class:`Compact` (order-preserving
 masked compaction, the MoE dispatch primitive, and its expansion) and
-:class:`Paged` (page-table gather/append over a shared pool, float pools
-only).  The quantized ``Paged.scale_dtype`` waits for a later slice.
+:class:`Paged` (page-table gather/append over a shared pool; a
+``scale_dtype`` selects the quantized pool, int8 or fp8 pages with
+per-page scales).
 
 ``dtype`` participates in ``key()``, so plan-cache entries never collide
 across element types.
@@ -121,6 +122,10 @@ class Segment(AccessSpec):
             raise ValueError(
                 f"segment needs n divisible by fields, got {self}")
 
+    @property
+    def field_len(self) -> int:
+        return self.n // self.fields
+
 
 @dataclasses.dataclass(frozen=True)
 class Indexed(AccessSpec):
@@ -186,17 +191,38 @@ class Paged(AccessSpec):
     runtime int32 operand ``(*batch, pages)`` with ``-1`` marking
     unallocated entries (gather returns zeros there; scatter drops
     writes).  Only the page geometry is spec data, so one cached program
-    serves every request and every step."""
+    serves every request and every step.
+
+    ``scale_dtype`` selects the QUANTIZED pool: the pool stores int8 / fp8
+    values and a per-page side tensor of symmetric max-abs scales
+    (``(*lead, P, *trail[:-1])``: per page, per head, shared over the
+    last trail dim) rides every gather / scatter as an extra operand.
+    Gather dequantizes in the same program; scatter quantizes the beat on
+    write and only ever WIDENS the page scale (rescaling the resident
+    values), so shared copy-on-write prefix pages never need rewriting.
+    ``scale_dtype`` is a spec field, so the quantized program is a plan-
+    cache entry of its own."""
 
     page_size: int
-    pages: int
-    trail: int = 0
+    pages: int                     # static table width (pages per sequence)
+    trail: int = 0                 # trailing dims after the in-page axis
     dtype: str | None = None
+    scale_dtype: str | None = None  # set => quantized pool (+scales operand)
 
     def __post_init__(self):
         object.__setattr__(self, "dtype", _dtype_str(self.dtype))
+        object.__setattr__(self, "scale_dtype", _dtype_str(self.scale_dtype))
         if self.page_size < 1 or self.pages < 1 or self.trail < 0:
             raise ValueError(f"bad paged geometry: {self}")
+
+    @property
+    def quantized(self) -> bool:
+        return self.scale_dtype is not None
+
+    @property
+    def seq_len(self) -> int:
+        """Gathered logical length: pages * page_size."""
+        return self.pages * self.page_size
 
     def pool_axis(self, ndim: int) -> int:
         """Index of the pool's page axis for a rank-``ndim`` operand."""

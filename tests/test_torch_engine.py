@@ -192,7 +192,7 @@ def test_scheduler_feeds_the_watchdog():
 # launch/serve.py
 # ---------------------------------------------------------------------------
 
-def _reference_cli(monkeypatch):
+def _reference_cli(monkeypatch, extra=()):
     """The reference CLI's printed lines and its requests' full streams."""
     from repro.launch import serve as jserve
     servers = []
@@ -203,7 +203,7 @@ def _reference_cli(monkeypatch):
             servers.append(self)
 
     monkeypatch.setattr(jserve, "BatchedServer", Recording)
-    monkeypatch.setattr(sys, "argv", ["serve"] + CLI_ARGS)
+    monkeypatch.setattr(sys, "argv", ["serve"] + CLI_ARGS + list(extra))
     out = io.StringIO()
     with redirect_stdout(out):
         jserve.main()
@@ -212,13 +212,18 @@ def _reference_cli(monkeypatch):
     return out.getvalue().splitlines(), [r.tokens for r in reqs]
 
 
-def _reference_prompts(vocab):
+def _reference_prompts(vocab, prefix_cache=False):
     """The reference CLI's prompts (launch/serve.py: jax.random, key 42
-    folded with the request index)."""
+    folded with the request index; with --prefix-cache a shared system
+    prefix of half the prompt length, key 42 folded with 999983)."""
     key = jax.random.key(42)
-    return [[int(t) for t in jax.random.randint(
-        jax.random.fold_in(key, r), (PROMPT_LEN,), 0, vocab)]
-        for r in range(N_REQ)]
+    sys_prefix = []
+    if prefix_cache:
+        sys_prefix = [int(t) for t in jax.random.randint(
+            jax.random.fold_in(key, 999983), (PROMPT_LEN // 2,), 0, vocab)]
+    return [sys_prefix + [int(t) for t in jax.random.randint(
+        jax.random.fold_in(key, r), (PROMPT_LEN - len(sys_prefix),), 0,
+        vocab)] for r in range(N_REQ)]
 
 
 def test_cli_matches_reference_cli(monkeypatch):
@@ -261,8 +266,32 @@ def test_cli_subprocess_on_cpu():
 @pytest.mark.parametrize("flags,item", [
     (["--replicas", "2"], "item 6"), (["--kill-replica", "3"], "item 6"),
     (["--chaos", "0"], "item 5"), (["--guard-nan"], "item 5"),
-    (["--speculate", "2"], "item 7"), (["--prefix-cache"], "item 4"),
-    (["--kv-dtype", "int8"], "item 3"), (["--kv-dtype", "fp8"], "item 3")])
+    (["--speculate", "2"], "item 7")])
 def test_cli_flags_that_wait_exit_with_their_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(CLI_ARGS + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--prefix-cache", "--chunk-pages", "2", "--check-invariants"],
+    ["--kv-dtype", "int8"], ["--kv-dtype", "fp8"]])
+def test_cli_quant_and_prefix_flags_match_reference_cli(monkeypatch, flags):
+    """The quantized pools and the prefix cache through the CLI: with the
+    reference's params and prompts, the reference CLI's streams and its
+    page, request and prefix-cache lines."""
+    want_lines, want_streams = _reference_cli(monkeypatch, flags)
+    cfg, params = _port()
+    args = cli.parser().parse_args(CLI_ARGS + ["--device", "cpu"] + flags)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        reqs = cli.run(args, params=params, prompts=_reference_prompts(
+            cfg.vocab, "--prefix-cache" in flags))
+    got_lines = out.getvalue().splitlines()
+    assert [r.tokens for r in reqs] == want_streams
+    assert all(r.state.value == "finished" for r in reqs)
+
+    def keep(lines):
+        return [re.sub(r"^req \d+:", "req:", ln) for ln in lines
+                if ln.startswith(("pages:", "req ", "prefix cache:"))]
+    assert keep(got_lines) == keep(want_lines)
+    assert len(keep(got_lines)) == N_REQ + 1 + ("--prefix-cache" in flags)

@@ -58,6 +58,8 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         decode.init_paged_cache(cfg, 2, 16, 4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        decode.init_paged_cache(cfg, 2, 16, 4, quantize="int8")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         decode.init_cache(cfg, 2, 16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         jit_prefill(cfg, None)
@@ -65,7 +67,14 @@ def test_entry_points_raise_without_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Scheduler(cfg, params, slots=1, max_len=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        Scheduler(cfg, params, slots=1, max_len=16, kv_quant="fp8",
+                  prefix_cache=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         BatchedServer(cfg, params, slots=1, max_len=16)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cli.main(["--arch", "qwen3-0.6b", "--smoke", "--requests",
                         "1", "--prompt-len", "4", "--gen", "2"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cli.main(["--arch", "qwen3-0.6b", "--smoke", "--requests",
+                        "1", "--prompt-len", "4", "--gen", "2",
+                        "--kv-dtype", "int8", "--prefix-cache"])

@@ -1,7 +1,8 @@
 """Port parity for serving: the ci.yml smoke (3 requests, prompt length 8,
 6 generated tokens, max_len 64) gives identical greedy token streams
 through repro.serve.scheduler.Scheduler and the port's Scheduler with the
-reference's weights; plus the port scheduler's own contracts (page
+reference's weights, also with the int8 / fp8 pools and the prefix cache
+on staggered traffic; plus the port scheduler's own contracts (page
 reclamation, zero steady-state plan-cache misses, preempt/resume,
 seeded sampling)."""
 import dataclasses
@@ -142,13 +143,52 @@ def test_sampling_seeded_and_topk1_is_greedy():
     assert g == k1
 
 
-@pytest.mark.parametrize("knob", [dict(speculate=2), dict(prefix_cache=True),
-                                  dict(kv_quant="int8"),
-                                  dict(kv_quant="fp8")])
+@pytest.mark.parametrize("knob", [dict(speculate=2)])
 def test_waiting_knobs_raise(knob):
     cfg, params = _port()
     with pytest.raises(NotImplementedError):
         Scheduler(cfg, params, slots=1, max_len=16, device="cpu", **knob)
+
+
+def _serve_staggered(sched, prompts, gen=GEN):
+    """Request 0 first; the rest once its prefill has completed (so that
+    it has published its prompt pages), then drained."""
+    reqs = [sched.submit(prompts[0], max_new_tokens=gen)]
+    for _ in range(50):
+        sched.tick()
+        if reqs[0].state.value != "queued" and 0 not in sched._prefilling:
+            break
+    reqs += [sched.submit(p, max_new_tokens=gen) for p in prompts[1:]]
+    for _ in range(200):
+        sched.tick()
+        if sched.drained():
+            break
+    assert sched.drained()
+    return [r.tokens for r in reqs]
+
+
+@pytest.mark.parametrize("knob", [dict(prefix_cache=True, chunk_pages=2),
+                                  dict(kv_quant="int8"),
+                                  dict(kv_quant="fp8")])
+def test_knobs_streams_match_reference(knob):
+    """The quantized pools and the prefix cache through the port's
+    Scheduler against the reference's: equal greedy streams on staggered
+    traffic whose prompts share a 2-page prefix (page_size 4), equal
+    prefix stats, and the pool audit clean after every mutation."""
+    jcfg, jparams = _jax()
+    cfg, params = _port()
+    shared = _prompts(8, 1, 8)[0]
+    prompts = [shared + t for t in _prompts(9, N_REQ, 3)]
+    kw = dict(slots=N_REQ, max_len=MAX_LEN, page_size=4, **knob)
+    j = JScheduler(jcfg, jparams, debug_invariants=True, **kw)
+    t = Scheduler(cfg, params, debug_invariants=True, device="cpu", **kw)
+    want = _serve_staggered(j, prompts)
+    got = _serve_staggered(t, prompts)
+    assert got == want
+    assert all(len(x) == 11 + GEN for x in got)
+    assert t.stats().get("prefix") == j.stats().get("prefix")
+    if "prefix_cache" in knob:
+        assert t.stats()["prefix"]["hits"] == N_REQ - 1
 
 
 def test_sampling_knobs_validated():
