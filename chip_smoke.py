@@ -157,7 +157,38 @@ Phases, in order (any failure raises and exits non-zero):
    (d) the CLI with ``--kv-dtype int8 --prefix-cache --chunk-pages 2
    --check-invariants`` in a subprocess: exit 0, every request finished;
    (e) B1 timed on the float32 stack ``(28, 4, 512, 8, 256)`` beside its
-   bound and its library call (line ``time deinterleave[f32 stack]``).
+   bound and its library call (line ``time deinterleave[f32 stack]``);
+9. the chaos harness and the replica fleet at full width (weights cast
+   once to bf16): (a) ``run_plan`` of ``FaultPlan(ChaosConfig(seed, 6
+   requests, 32 steps, 256 ticks))`` over one ``Scheduler`` on the
+   reference's chaos geometry (slots 2, max_len 16, page_size 4, 6 pages,
+   queue depth 3, NaN guard on, a ``StepWatchdog``, a ``StepClock``):
+   seed 0 under ``kernel``, ``ref`` and ``kernel_dynamic`` with reports
+   and streams equal, seeds 1-2 under ``kernel``, then seed 0 with
+   ``prefix_cache=True, chunk_pages=2, p_evict=0.15`` and at
+   ``kv_quant="int8"``; every request terminal, drained under the tick
+   cap, the pool audited every tick, one fused split per decode step (B1,
+   B6, none); (b) the NaN guard on the reference's traffic: the victim
+   alone fails, the neighbour's stream equals its solo stream; (c)
+   migration at the serve size (2 replicas of phase 4's geometry, phase
+   4's prompts, ``kernel``): the replica holding request 0 killed
+   mid-decode, then again once the moved requests have each made a new
+   token; streams equal to the uninterrupted 1-replica run, the largest
+   logit gap at the shared positions, the recovery of each moved request
+   in ticks and ms to its first new token, ``memory_allocated`` before the
+   kill and after each respawn (must not grow); (d) fleet chaos,
+   ``FleetFaultPlan(FleetChaosConfig(seed=0, replicas=3))`` on the test
+   geometry (slots 2, max_len 16, page_size 4, ``StepClock``, hard limit
+   30 s, one breach to degrade, guard on) under the three policies:
+   reports and streams equal, the audit every tick, every death injected
+   (none ``tick crashed``), one fused split in every decode step of every
+   replica, dead ones included; (e) whole-run tokens/s of a 3-replica
+   fleet without faults on phase 4's prompts beside one scheduler's
+   (single, fleet, fleet, single; streams equal); (f) the CLI's fault
+   modes at full width in subprocesses (``--chaos 5 ... --prefix-cache``,
+   ``--replicas 3 --kill-replica 4``, ``--replicas 3 --chaos 0``,
+   ``--replicas 2 --chaos 7 --kv-dtype int8``): exit 0, every request
+   terminal, the chaos runs' terminal-state line printed.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
@@ -2068,6 +2099,8 @@ def dense_phase(dev, cfg, card: str, slots: int, page_size: int) -> None:
 # ---------------------------------------------------------------------------
 
 QUANT_POLICIES = ("kernel", "ref", "kernel_dynamic")
+# (B1, B6) launches in each decode step, by policy
+SPLIT = {"kernel": (1, 0), "kernel_dynamic": (0, 1), "ref": (0, 0)}
 FORCED_STEPS = 8
 PREFIX_LEN, TAIL_LEN, FORK_LEN = 64, 24, 8
 QUANT_CLI_FLAGS = ("--kv-dtype", "int8", "--prefix-cache", "--chunk-pages",
@@ -2080,13 +2113,13 @@ def check_step_launches(name: str, impl: str, r: dict) -> None:
     ``kernel_dynamic``, none under ``ref``)."""
     plan = ("deinterleave", "interleave")
     dynamic = ("deinterleave_dynamic", "interleave_dynamic")
-    mine, other, split = {"kernel": (plan, dynamic, (1, 0)),
-                          "kernel_dynamic": (dynamic, plan, (0, 1)),
-                          "ref": ((), plan + dynamic, (0, 0))}[impl]
+    mine, other = {"kernel": (plan, dynamic),
+                   "kernel_dynamic": (dynamic, plan),
+                   "ref": ((), plan + dynamic)}[impl]
     if any(r["launches"][k] <= 0 for k in mine) or \
             any(r["launches"][k] != 0 for k in other):
         raise AssertionError(f"{name} [{impl}]: launches {r['launches']}")
-    if any(n != split for n in r["step_launches"]):
+    if any(n != SPLIT[impl] for n in r["step_launches"]):
         raise AssertionError(f"{name} [{impl}]: fused split launches (B1, "
                              f"B6) per decode step {r['step_launches']}")
 
@@ -2309,6 +2342,508 @@ def time_paged_access(dev, cfg, card: str, slots: int, max_len: int,
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the chaos harness and the replica fleet
+# ---------------------------------------------------------------------------
+
+# the reference's chaos geometry (tests/test_chaos.py) and fleet geometry
+# (tests/test_fleet.py)
+CHAOS_GEOM = dict(slots=2, max_len=16, page_size=4, num_pages=6,
+                  queue_depth=3, guard_nan=True)
+CHAOS_PLAN = dict(requests=6, steps=32, max_ticks=256)
+FLEET_GEOM = dict(slots=2, max_len=16, page_size=4, guard_nan=True,
+                  watchdog_hard_limit=30.0, hard_breach_limit=1)
+FAULT_CLI = (
+    ("--chaos", "5", "--requests", "6", "--gen", "6", "--check-invariants",
+     "--prefix-cache", "--chunk-pages", "2"),
+    ("--replicas", "3", "--kill-replica", "4", "--requests", "4",
+     "--prompt-len", "6", "--gen", "8", "--max-len", "32", "--page-size",
+     "4"),
+    ("--replicas", "3", "--chaos", "0", "--requests", "6", "--gen", "6",
+     "--max-len", "32", "--page-size", "4"),
+    ("--replicas", "2", "--chaos", "7", "--requests", "6", "--gen", "6",
+     "--max-len", "32", "--page-size", "4", "--kv-dtype", "int8"))
+
+
+def count_steps(sched, steps: list, on_step=None) -> None:
+    """Wrap ``sched.step``: append its fused split launches (B1, B6) to
+    ``steps``, then call ``on_step(sched)``."""
+    from repro_torch.kernels import segment
+    plain = sched.step
+
+    def step():
+        d0 = (segment.deinterleave.launches,
+              segment.deinterleave_dynamic.launches)
+        out = plain()
+        steps.append((segment.deinterleave.launches - d0[0],
+                      segment.deinterleave_dynamic.launches - d0[1]))
+        if on_step is not None:
+            on_step(sched)
+        return out
+    sched.step = step
+
+
+def counted_fleet(router, steps: list, on_step=None) -> list:
+    """Count the steps of every replica the router holds or will spawn:
+    a dead replica's steps stay counted.  Returns the list of every
+    scheduler the router ran (it grows with each respawn)."""
+    spawn = router._spawn
+    scheds = [rep.sched for rep in router.replicas]
+
+    def counted_spawn(idx, generation):
+        rep = spawn(idx, generation)
+        count_steps(rep.sched, steps, on_step)
+        scheds.append(rep.sched)
+        return rep
+    router._spawn = counted_spawn
+    for rep in router.replicas:
+        count_steps(rep.sched, steps, on_step)
+    return scheds
+
+
+def check_split(name: str, impl: str, steps: list) -> None:
+    """Exactly one fused split per decode step: B1 under ``kernel``, B6
+    under ``kernel_dynamic``, none under ``ref``."""
+    if not steps or any(n != SPLIT[impl] for n in steps):
+        raise AssertionError(f"{name} [{impl}]: fused split launches (B1, "
+                             f"B6) per decode step {steps}")
+
+
+def check_typed(name: str, reqs) -> None:
+    bad = [(r.rid, r.state.value, r.error) for r in reqs
+           if not r.terminal or (r.state.value == "failed" and not r.error)]
+    if bad:
+        raise AssertionError(f"{name}: requests outside a terminal typed "
+                             f"state: {bad}")
+
+
+def chaos_single(dev, cfg, params, impl: str, seed: int, plan_kw=None,
+                 **sched_kw) -> dict:
+    """One seeded chaos run over one Scheduler on the chaos geometry; the
+    pool audited every tick (``run_plan``)."""
+    import torch
+    from repro_torch.ft.straggler import StepWatchdog
+    from repro_torch.serve.chaos import (ChaosConfig, FaultPlan, StepClock,
+                                         run_plan)
+    from repro_torch.serve.scheduler import Scheduler
+    sched = Scheduler(dataclasses.replace(cfg, kernel_impl=impl), params,
+                      watchdog=StepWatchdog(), clock=StepClock(),
+                      device=dev, **{**CHAOS_GEOM, **sched_kw})
+    steps = []
+    count_steps(sched, steps)
+    plan = FaultPlan(ChaosConfig(seed=seed, **CHAOS_PLAN, **(plan_kw or {})))
+    t0 = time.perf_counter()
+    rep = run_plan(sched, plan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    name = f"chaos seed {seed} {sched_kw or ''}"
+    if rep.ticks >= plan.cfg.max_ticks or not sched.drained():
+        raise AssertionError(f"{name} [{impl}]: never drained")
+    check_typed(f"{name} [{impl}]", rep.submitted)
+    if rep.invariant_checks < rep.ticks:
+        raise AssertionError(f"{name} [{impl}]: {rep.invariant_checks} "
+                             f"audits over {rep.ticks} ticks")
+    check_split(name, impl, steps)
+    if len(steps) != sched.decode_steps:
+        raise AssertionError(f"{name} [{impl}]: {len(steps)} counted steps, "
+                             f"{sched.decode_steps} decode steps")
+    return {"report": (rep.ticks, rep.states, rep.preemptions,
+                       rep.nan_failures, rep.backpressured),
+            "streams": [(r.state.value, r.tokens) for r in rep.submitted],
+            "checks": rep.invariant_checks, "steps": len(steps),
+            "wall_s": wall, "evicted": (sched.stats().get("prefix") or
+                                        {}).get("evicted")}
+
+
+def nan_isolation(dev, cfg, params) -> dict:
+    """The reference's NaN-guard traffic (tests/test_chaos.py): the victim
+    alone fails, the neighbour's stream equals its solo stream."""
+    import numpy as np
+    from repro_torch.serve.scheduler import Scheduler
+
+    def mk():
+        return Scheduler(dataclasses.replace(cfg, kernel_impl="kernel"),
+                         params, slots=2, max_len=16, page_size=4,
+                         guard_nan=True, device=dev)
+    solo = mk()
+    r_solo = solo.submit([11, 13], max_new_tokens=6)
+    while not r_solo.terminal:
+        solo.tick()
+    chaotic = mk()
+    victim = chaotic.submit([2, 4, 6], max_new_tokens=6)
+    neighbour = chaotic.submit([11, 13], max_new_tokens=6)
+    chaotic.tick()
+    taint = np.zeros(2, bool)
+    taint[victim.slot] = True
+    chaotic._taint = taint
+    while not (victim.terminal and neighbour.terminal):
+        chaotic.tick()
+    chaotic.cache.check_invariants()
+    ok = (victim.state.value == "failed" and "non-finite" in victim.error
+          and chaotic.nan_failures == 1
+          and neighbour.state.value == "finished"
+          and neighbour.tokens == r_solo.tokens
+          and chaotic.cache.pages_in_use() == 0)
+    if not ok:
+        raise AssertionError(f"NaN guard: victim {victim.state.value} "
+                             f"({victim.error}), nan_failures "
+                             f"{chaotic.nan_failures}, neighbour "
+                             f"{neighbour.tokens} against solo "
+                             f"{r_solo.tokens}")
+    return {"victim": victim.error, "neighbour": neighbour.tokens}
+
+
+def record_logits(rid_index: dict, logits: dict):
+    """An ``on_step`` hook: the logits row of each decoding slot, keyed by
+    (request, replay cursor)."""
+    def on_step(sched):
+        for s, req in enumerate(sched._slot_req):
+            if req is not None and sched.active[s] and \
+                    s not in sched._prefilling:
+                logits[(rid_index[req.rid], sched._fed[s])] = \
+                    sched.last_logits[s].float().cpu()
+    return on_step
+
+
+def migration_run(dev, cfg, params, prompts, gen: int, slots: int,
+                  max_len: int, page_size: int) -> dict:
+    """Phase 9's migration at the serve size: the uninterrupted 1-replica
+    run, then 2 replicas with the replica holding request 0 killed twice
+    (mid-decode, then once its migrated requests have all made a new
+    token): streams equal, the logit gap at the shared positions, the
+    recovery of each kill, memory_allocated around both respawns."""
+    import gc
+    import torch
+    from repro_torch.kernels import segment
+    from repro_torch.serve.fleet import FleetRouter
+    kcfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    kw = dict(slots=slots, max_len=max_len, page_size=page_size, device=dev)
+
+    def submit(router):
+        reqs = [router.submit(p, max_new_tokens=gen) for p in prompts]
+        return reqs, {r.rid: i for i, r in enumerate(reqs)}
+
+    one = FleetRouter(kcfg, params, replicas=1, **kw)
+    la, steps_a = {}, []
+    reqs_a, idx_a = submit(one)
+    counted_fleet(one, steps_a, record_logits(idx_a, la))
+    while not one.drained():
+        one.tick()
+        one.audit()
+    torch.cuda.synchronize()
+    want = [r.tokens for r in reqs_a]
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fl = FleetRouter(kcfg, params, replicas=2, **kw)
+    lb, steps_b = {}, []
+    reqs, idx = submit(fl)
+    scheds = counted_fleet(fl, steps_b, record_logits(idx, lb))
+    segment.reset_counts()
+
+    def cur_len(r):
+        rep = fl.replicas[r.replica] if r.replica is not None else None
+        if rep is not None and rep.alive and r.slot is not None and \
+                rep.sched._slot_req[r.slot] is r:
+            return len(rep.sched.tokens[r.slot])
+        return len(r.tokens)
+
+    kills, mem, pending = [], [], None
+    while not fl.drained() and fl.tick_no < 40 * (gen + 8):
+        if pending is None and len(kills) < 2 and \
+                reqs[0].state.value == "running" and \
+                cur_len(reqs[0]) - len(prompts[0]) >= \
+                (gen // 2 if not kills else gen - 4):
+            torch.cuda.synchronize()
+            gc.collect()
+            mem.append(torch.cuda.memory_allocated())
+            victim = reqs[0].replica
+            moved = [r for r in reqs if r.replica == victim
+                     and not r.terminal]
+            at = {r.rid: cur_len(r) for r in moved}
+            fl.kill_replica(victim, reason="phase 9 kill")
+            pending = {"tick": fl.tick_no, "t0": time.perf_counter(),
+                       "moved": moved, "at": at, "done": {}}
+        fl.tick()
+        fl.audit()
+        if pending is not None:
+            if "mem_after" not in pending and \
+                    fl.respawns == len(kills) + 1:
+                torch.cuda.synchronize()
+                gc.collect()
+                pending["mem_after"] = torch.cuda.memory_allocated()
+            for r in pending["moved"]:
+                if r.rid not in pending["done"] and \
+                        cur_len(r) > pending["at"][r.rid]:
+                    torch.cuda.synchronize()
+                    pending["done"][r.rid] = (
+                        fl.tick_no - pending["tick"],
+                        (time.perf_counter() - pending["t0"]) * 1e3)
+            if len(pending["done"]) == len(pending["moved"]) or \
+                    all(r.terminal for r in pending["moved"]):
+                kills.append(pending)
+                mem.append(pending["mem_after"])
+                pending = None
+    torch.cuda.synchronize()
+    b2, chunks = segment.interleave.launches, sum(s.prefill_chunks
+                                                  for s in scheds)
+    got = [r.tokens for r in reqs]
+    if not fl.drained() or len(kills) != 2 or pending is not None:
+        raise AssertionError(f"migration: drained {fl.drained()}, "
+                             f"{len(kills)} kills recovered")
+    check_typed("migration", reqs)
+    if got != want:
+        raise AssertionError("migration: migrated streams differ from the "
+                             "uninterrupted run's")
+    for r in kills[0]["moved"] + kills[1]["moved"]:
+        if r.migrations < 1:
+            raise AssertionError(f"migration: request {r.rid} never moved")
+    shared = sorted(set(la) & set(lb))
+    gap = max(float((la[k] - lb[k]).abs().max()) for k in shared)
+    unequal = sum(1 for k in shared if not torch.equal(la[k], lb[k]))
+    if mem[1] > mem[0] or mem[2] > mem[0]:
+        raise AssertionError(f"migration: memory_allocated grew across "
+                             f"respawns {mem}")
+    check_split("migration", "kernel", steps_a)
+    check_split("migration", "kernel", steps_b)
+    if b2 != cfg.n_superblocks * chunks:
+        raise AssertionError(f"migration: {b2} B2 launches over {chunks} "
+                             f"prefill chunks")
+    return {"kills": kills, "mem": mem, "gap": gap, "unequal": unequal,
+            "b2": b2, "chunks": chunks,
+            "shared": len(shared), "deaths": fl.deaths,
+            "respawns": fl.respawns, "migrated": fl.migrated}
+
+
+def fleet_chaos(dev, cfg, params, impl: str) -> dict:
+    """FleetFaultPlan(FleetChaosConfig(seed=0, replicas=3)) on the test
+    geometry, the fleet audit every tick (``run_fleet_plan``)."""
+    import torch
+    from repro_torch.serve.chaos import (FleetChaosConfig, FleetFaultPlan,
+                                         StepClock, run_fleet_plan)
+    from repro_torch.serve.fleet import FleetRouter
+    router = FleetRouter(dataclasses.replace(cfg, kernel_impl=impl), params,
+                         replicas=3, clock=StepClock(), device=dev,
+                         **FLEET_GEOM)
+    steps = []
+    counted_fleet(router, steps)
+    plan = FleetFaultPlan(FleetChaosConfig(seed=0, replicas=3))
+    t0 = time.perf_counter()
+    rep = run_fleet_plan(router, plan)
+    torch.cuda.synchronize()            # outside any catch
+    wall = time.perf_counter() - t0
+    name = f"fleet chaos [{impl}]"
+    if rep.ticks >= plan.cfg.max_ticks or not router.drained():
+        raise AssertionError(f"{name}: never drained")
+    check_typed(name, rep.submitted)
+    if rep.audits != rep.ticks:
+        raise AssertionError(f"{name}: {rep.audits} audits, {rep.ticks} "
+                             f"ticks")
+    crashed = [r.death_reason for r in router.replicas
+               if (r.death_reason or "").startswith("tick crashed")]
+    if crashed or rep.deaths < 1:
+        raise AssertionError(f"{name}: deaths {rep.deaths}, crashed "
+                             f"{crashed}")
+    check_split(name, impl, steps)
+    return {"report": (rep.ticks, rep.states, rep.deaths, rep.respawns,
+                       rep.migrated, rep.drains, rep.recovered,
+                       rep.backpressured, rep.audits),
+            "streams": [(r.state.value, r.tokens) for r in rep.submitted],
+            "steps": len(steps), "wall_s": wall}
+
+
+def leaf_ptrs(tree) -> list:
+    if isinstance(tree, dict):
+        return [p for v in tree.values() for p in leaf_ptrs(v)]
+    return [tree.data_ptr()]
+
+
+def fleet_serve(dev, cfg, params, prompts, gen: int, slots: int,
+                max_len: int, page_size: int) -> dict:
+    """The serve cell through a 3-replica fleet without faults, under
+    ``kernel``: whole-run tokens/s (host clock, prefill included)."""
+    import torch
+    from repro_torch.serve.fleet import FleetRouter
+    router = FleetRouter(dataclasses.replace(cfg, kernel_impl="kernel"),
+                         params, replicas=3, slots=slots, max_len=max_len,
+                         page_size=page_size, device=dev)
+    ptrs = [leaf_ptrs(rep.sched.params) for rep in router.replicas]
+    if any(p != leaf_ptrs(params) for p in ptrs):
+        raise AssertionError("fleet: replicas hold other weight copies")
+    reqs = [router.submit(p, max_new_tokens=gen) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not router.drained():
+        router.tick()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_typed("fleet serve", reqs)
+    return {"streams": [r.tokens for r in reqs], "wall_s": wall,
+            "tokens": sum(r.generated for r in reqs),
+            "ticks": router.tick_no,
+            "steps": sum(rep.sched.decode_steps for rep in router.replicas),
+            "placed": [r.replica for r in reqs]}
+
+
+def run_fault_cli(card: str, flags) -> dict:
+    """Phase 9's CLI runs at full width in a subprocess: exit 0, every
+    request terminal, the chaos runs' terminal-state line printed."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "qwen3-0.6b", *flags], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    terminal = ("finished", "failed", "timed_out")
+    reqs = [ln for ln in lines if ln.startswith("req ")]
+    ok = out.returncode == 0
+    if "--chaos" in flags:
+        ok = ok and any(ln.startswith("every request reached a terminal "
+                                      "typed state") for ln in lines)
+    else:
+        ok = ok and reqs and all(ln.split()[2] in terminal for ln in reqs) \
+            and any(ln.startswith("fleet:") and "deaths=1 " in ln
+                    for ln in lines)
+    if not ok:
+        raise AssertionError(f"serve CLI {' '.join(flags)} exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return {"lines": lines, "wall_s": wall}
+
+
+def chaos_fleet_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
+                      max_len: int, page_size: int) -> None:
+    """Phase 9: chaos over one scheduler, the NaN guard, migration at the
+    serve size, fleet chaos, the CLI's fault modes, and a fleet's
+    throughput beside one scheduler's, qwen3-0.6b at full width in bf16."""
+    import torch
+    from repro_torch.models.transformer import cast_params, init_params
+    t_phase = time.perf_counter()
+    params = cast_params(init_params(cfg, SEED, device=dev), cfg)
+
+    t0 = time.perf_counter()
+    runs = {impl: chaos_single(dev, cfg, params, impl, 0)
+            for impl in ("kernel", "ref", "kernel_dynamic")}
+    for impl, r in runs.items():
+        if (r["report"], r["streams"]) != (runs["kernel"]["report"],
+                                           runs["kernel"]["streams"]):
+            raise AssertionError(f"chaos seed 0 [{impl}]: another report or "
+                                 f"other streams than under kernel")
+    seeds = {s: chaos_single(dev, cfg, params, "kernel", s) for s in (1, 2)}
+    extra = {"prefix_cache=True, chunk_pages=2, p_evict=0.15": chaos_single(
+                 dev, cfg, params, "kernel", 0, dict(p_evict=0.15),
+                 prefix_cache=True, chunk_pages=2),
+             "kv_quant=int8": chaos_single(dev, cfg, params, "kernel", 0,
+                                           kv_quant="int8")}
+    for name, r in [("seed 0, kernel / ref / kernel_dynamic", runs["kernel"])] \
+            + [(f"seed {s}, kernel", r) for s, r in seeds.items()] \
+            + [(f"seed 0, {k}", r) for k, r in extra.items()]:
+        ticks, states, pre, nan, bp = r["report"]
+        print(f"chaos [{name}] {cfg.name} on {card}: {ticks} ticks, states "
+              f"{states}, preemptions {pre}, nan_failures {nan}, "
+              f"backpressured {bp}, invariant checks {r['checks']}, "
+              f"{r['steps']} decode steps each with one fused split"
+              + (f", trie pages evicted {r['evicted']}"
+                 if r["evicted"] is not None else "")
+              + f"; {r['wall_s']:.3f} s")
+    print(f"chaos: reports and streams equal under kernel, ref and "
+          f"kernel_dynamic; every request terminal, drained, the pool "
+          f"audited every tick ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    nan = nan_isolation(dev, cfg, params)
+    print(f"NaN guard on {card}: the victim failed ({nan['victim']}), "
+          f"nan_failures 1, the neighbour's stream equal to its solo stream "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    mig = migration_run(dev, cfg, params, prompts, gen, slots, max_len,
+                        page_size)
+    for k, kill in enumerate(mig["kills"]):
+        rec = ", ".join(f"request {r.rid}: {kill['done'][r.rid][0]} ticks "
+                        f"{kill['done'][r.rid][1]:.3f} ms"
+                        for r in kill["moved"] if r.rid in kill["done"])
+        print(f"migration kill {k + 1} at fleet tick {kill['tick']} on "
+              f"{card}: {len(kill['moved'])} requests moved; recovery to "
+              f"the first new token on the new replica: {rec}")
+    print(f"migration at the serve size (2 replicas, slots {slots}, max_len "
+          f"{max_len}, page_size {page_size}, kernel) on {card}: streams "
+          f"equal to the uninterrupted 1-replica run; deaths "
+          f"{mig['deaths']}, respawns {mig['respawns']}, migrated "
+          f"{mig['migrated']}; B2 launches {mig['b2']} over "
+          f"{mig['chunks']} prefill chunks, re-prefills included; largest "
+          f"logit gap at {mig['shared']} shared "
+          f"positions {mig['gap']} ({mig['unequal']} rows not bit-equal); "
+          f"memory_allocated before the kill {mig['mem'][0]}, after the "
+          f"respawn {mig['mem'][1]}, after a second kill/respawn "
+          f"{mig['mem'][2]} ({time.perf_counter() - t0:.1f} s)")
+    if mig["unequal"]:
+        print("migration: logits differ at shared positions (a finding for "
+              "ROADMAP C): streams equal, rows not bit-equal")
+
+    t0 = time.perf_counter()
+    fleet = {impl: fleet_chaos(dev, cfg, params, impl)
+             for impl in ("kernel", "ref", "kernel_dynamic")}
+    for impl, r in fleet.items():
+        if (r["report"], r["streams"]) != (fleet["kernel"]["report"],
+                                           fleet["kernel"]["streams"]):
+            raise AssertionError(f"fleet chaos [{impl}]: another report or "
+                                 f"other streams than under kernel")
+        (ticks, states, deaths, respawns, migrated, drains, recovered, bp,
+         audits) = r["report"]
+        print(f"fleet chaos seed 0 [{impl}] {cfg.name} on {card}: {ticks} "
+              f"ticks, states {states}, deaths {deaths} (none crashed), "
+              f"respawns {respawns}, migrated {migrated}, drains {drains}, "
+              f"recovered {recovered}, backpressured {bp}, audits {audits}; "
+              f"{r['steps']} decode steps over every replica, each with "
+              f"{SPLIT[impl]} (B1, B6) launches; {r['wall_s']:.3f} s")
+    print(f"fleet chaos: reports and streams equal under kernel, ref and "
+          f"kernel_dynamic ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    order = ("single", "fleet", "fleet", "single")
+    thr = []
+    for kind in order:
+        if kind == "single":
+            r = serve(dev, cfg, params, "kernel", prompts, gen, slots,
+                      max_len, page_size)
+            thr.append((kind, r["tokens"] / r["wall_s"], r["streams"],
+                        f"{r['decode_steps']} decode steps"))
+        else:
+            r = fleet_serve(dev, cfg, params, prompts, gen, slots, max_len,
+                            page_size)
+            thr.append((kind, r["tokens"] / r["wall_s"], r["streams"],
+                        f"{r['steps']} decode steps over {r['ticks']} fleet "
+                        f"ticks, requests on replicas {r['placed']}"))
+    for kind, tps, streams, what in thr:
+        if streams != thr[0][2]:
+            raise AssertionError("fleet serve: other streams than the single "
+                                 "scheduler's")
+        print(f"throughput [{kind}{' of 3 replicas' if kind == 'fleet' else ''}"
+              f", kernel] {cfg.name} on {card}: whole-run tokens/s "
+              f"{tps:.2f} ({what})")
+    single = [t for k, t, _, _ in thr if k == "single"]
+    multi = [t for k, t, _, _ in thr if k == "fleet"]
+    print(f"throughput: 3-replica fleet / one scheduler "
+          f"{statistics.mean(multi) / statistics.mean(single):.4f} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del params
+    torch.cuda.empty_cache()
+
+    for flags in FAULT_CLI:
+        cli = run_fault_cli(card, flags)
+        tail = [ln for ln in cli["lines"]
+                if ln.startswith(("chaos seed", "fleet chaos seed",
+                                  "fleet:"))]
+        print(f"serve CLI (--arch qwen3-0.6b {' '.join(flags)}): exit 0, "
+              f"every request terminal, {cli['wall_s']:.1f} s of wall time: "
+              f"{tail[0] if tail else ''}")
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -2501,6 +3036,8 @@ def main() -> int:
     dense_phase(dev, cfg, card, slots, page_size)
     quant_prefix_phase(dev, cfg, card, prompts, gen, slots, max_len,
                        page_size, timing)
+    chaos_fleet_phase(dev, cfg, card, prompts, gen, slots, max_len,
+                      page_size)
 
     launches = {k: kr["launches"][k] for k in plan}
     launches.update({k: dr["launches"][k] for k in dynamic})

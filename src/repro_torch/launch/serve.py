@@ -1,6 +1,8 @@
 """Serving CLI: paged continuous batching (chunked prefill + decode +
 sampling) through the request lifecycle (typed requests, deadlines,
-preemption-and-restore) and the step watchdog.
+preemption-and-restore) and the step watchdog, an optional in-process
+replica FLEET (least-loaded routing, health tracking, replay-based
+failover), and chaos modes for both.
 
 Port of ``repro``'s ``launch/serve.py``, plain path.  On the card
 (qwen3-0.6b at full width, seeded random weights):
@@ -22,13 +24,30 @@ prompt length), so that the hit rate it prints means something:
       --smoke --device cpu --kv-dtype int8 --prefix-cache --chunk-pages 2 \\
       --check-invariants
 
+Fleet failover (3 replicas, replica 0 killed at fleet tick 4, its work
+migrates and resumes elsewhere):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --smoke --device cpu --replicas 3 --kill-replica 4 --requests 4 \\
+      --prompt-len 6 --gen 8 --max-len 32 --page-size 4
+
+Chaos (a seeded fault plan, the pool invariants audited every tick; with
+``--replicas > 1`` the plan adds replica kills, hangs and admission storms
+and the fleet residency audit).  ``--chaos`` turns on ``--guard-nan``.  The
+CLI exits 2 when an audit trips, the fleet never drains, or a request ends
+outside a terminal typed state:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --smoke --device cpu --chaos 0 --requests 6 --gen 6 [--replicas 3 \\
+      --max-len 32 --page-size 4]
+
 ``--device`` defaults to CUDA and follows the port's rule: without a GPU
 the CLI raises unless ``--device cpu`` is given.  Params come from the
 port's seeded ``init_params`` and prompts from a seeded generator (the
 reference draws both from ``jax.random``); :func:`run` takes both as
-arguments so that a caller can feed it the reference's.  The flags of the
-chaos harness, the replica fleet and speculative decode are kept and exit
-with a message naming the ROADMAP.md queue A item they wait for.
+arguments so that a caller can feed it the reference's.  ``--speculate >
+1`` is kept and exits with a message naming the ROADMAP.md queue A item it
+waits for.
 """
 from __future__ import annotations
 
@@ -42,7 +61,28 @@ from repro_torch.configs.base import get_arch
 from repro_torch.device import resolve as resolve_device
 from repro_torch.ft.straggler import StepWatchdog
 from repro_torch.models.transformer import init_params
-from repro_torch.serve.engine import BatchedServer
+from repro_torch.serve.chaos import (ChaosConfig, FaultPlan,
+                                     FleetChaosConfig, FleetFaultPlan,
+                                     StepClock, run_fleet_plan, run_plan)
+from repro_torch.serve.engine import BatchedServer, make_fleet
+from repro_torch.serve.fleet import FleetAuditError
+from repro_torch.serve.lifecycle import (LifecycleError, RequestState,
+                                         TERMINAL_STATES)
+from repro_torch.serve.paged_cache import InvariantViolation
+
+EXIT_CHAOS = 2          # audit tripped / non-typed termination / livelock
+
+
+def _check_typed(requests) -> list[str]:
+    """Every request must sit in a TERMINAL typed state, and FAILED ones
+    must carry an error string — anything else is a lifecycle escape."""
+    problems = []
+    for r in requests:
+        if r.state not in TERMINAL_STATES:
+            problems.append(f"req {r.rid} non-terminal: {r.state.value}")
+        elif r.state is RequestState.FAILED and not r.error:
+            problems.append(f"req {r.rid} FAILED without a typed error")
+    return problems
 
 
 def _print_stats(stats: dict) -> None:
@@ -97,35 +137,34 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--check-invariants", action="store_true",
                     help="audit the page pool after every mutation")
     ap.add_argument("--guard-nan", action="store_true",
-                    help="fail slots producing non-finite logits (queue A "
-                         "item 5)")
+                    help="fail (only) slots producing non-finite logits")
     ap.add_argument("--chaos", type=int, default=None, metavar="SEED",
-                    help="seeded fault plan (queue A item 5)")
+                    help="run a seeded fault plan instead of clean "
+                         "serving (fleet faults when --replicas > 1); "
+                         "exits 2 on an audit trip or a non-typed end")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="scheduler replicas behind the fleet router "
-                         "(queue A item 6)")
+                    help="in-process scheduler replicas behind the fleet "
+                         "router (least-loaded admission, health-checked "
+                         "failover)")
     ap.add_argument("--kill-replica", type=int, default=None,
-                    metavar="TICK", help="kill replica 0 at this fleet tick "
-                                         "(queue A item 6)")
+                    metavar="TICK",
+                    help="kill replica 0 at this fleet tick; its work "
+                         "migrates and resumes elsewhere (needs "
+                         "--replicas > 1)")
     return ap
 
 
 def _refuse_waiting(args) -> None:
-    """Exit with a message for a flag whose feature the port lacks yet."""
-    waiting = [
-        (args.replicas > 1, "--replicas > 1", "6 (the replica fleet)"),
-        (args.kill_replica is not None, "--kill-replica",
-         "6 (the replica fleet)"),
-        (args.chaos is not None, "--chaos", "5 (chaos)"),
-        (args.guard_nan, "--guard-nan", "5 (chaos)"),
-        (args.speculate > 1, "--speculate > 1", "7 (speculative decode)"),
-    ]
-    for on, flag, item in waiting:
-        if on:
-            raise SystemExit(f"{flag} waits for ROADMAP.md queue A item "
-                             f"{item} of the port")
+    """Exit for a flag whose feature the port lacks yet, or a combination
+    the reference CLI refuses."""
+    if args.speculate > 1:
+        raise SystemExit("--speculate > 1 waits for ROADMAP.md queue A item "
+                         "7 (speculative decode) of the port")
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
+    if args.kill_replica is not None and args.replicas < 2:
+        raise SystemExit("--kill-replica needs --replicas > 1 "
+                         "(killing the only replica strands the work)")
 
 
 def device_name(device: torch.device) -> str:
@@ -147,30 +186,160 @@ def seeded_prompts(n: int, length: int, vocab: int, seed: int = 42, *,
             for _ in range(n)]
 
 
+def _wall(t0: float, device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.time() - t0
+
+
+def _run_chaos_single(sched, args, device) -> list:
+    plan = FaultPlan(ChaosConfig(seed=args.chaos, requests=args.requests,
+                                 max_prompt=min(args.prompt_len,
+                                                args.max_len // 2),
+                                 max_new_tokens=args.gen))
+    t0 = time.time()
+    try:
+        rep = run_plan(sched, plan)
+    except (InvariantViolation, LifecycleError) as e:
+        print(f"CHAOS FAIL: audit tripped: {type(e).__name__}: {e}")
+        raise SystemExit(EXIT_CHAOS)
+    dt = _wall(t0, device)
+    print(f"chaos seed {args.chaos}: {rep.ticks} ticks in {dt:.2f}s — "
+          f"states={rep.states} preemptions={rep.preemptions} "
+          f"nan_failures={rep.nan_failures} "
+          f"invariant_checks={rep.invariant_checks} "
+          f"backpressured={rep.backpressured}")
+    problems = _check_typed(rep.submitted)
+    if problems:
+        print("CHAOS FAIL: " + "; ".join(problems))
+        raise SystemExit(EXIT_CHAOS)
+    print("every request reached a terminal typed state; "
+          "invariants never tripped")
+    if args.stats:
+        _print_stats(sched.stats())
+    return rep.submitted
+
+
+def _run_chaos_fleet(router, args, device) -> list:
+    plan = FleetFaultPlan(FleetChaosConfig(
+        seed=args.chaos, replicas=args.replicas, requests=args.requests,
+        max_prompt=min(args.prompt_len, args.max_len // 2),
+        max_new_tokens=args.gen))
+    t0 = time.time()
+    try:
+        rep = run_fleet_plan(router, plan)
+    except (FleetAuditError, InvariantViolation, LifecycleError) as e:
+        print(f"FLEET CHAOS FAIL: audit tripped: "
+              f"{type(e).__name__}: {e}")
+        raise SystemExit(EXIT_CHAOS)
+    dt = _wall(t0, device)
+    print(f"fleet chaos seed {args.chaos}: {rep.ticks} ticks in "
+          f"{dt:.2f}s — states={rep.states} deaths={rep.deaths} "
+          f"respawns={rep.respawns} migrated={rep.migrated} "
+          f"drains={rep.drains} recovered={rep.recovered} "
+          f"audits={rep.audits} backpressured={rep.backpressured}")
+    if rep.ticks >= plan.cfg.max_ticks:
+        print("FLEET CHAOS FAIL: fleet never drained (livelock)")
+        raise SystemExit(EXIT_CHAOS)
+    problems = _check_typed(rep.submitted)
+    if problems:
+        print("FLEET CHAOS FAIL: " + "; ".join(problems))
+        raise SystemExit(EXIT_CHAOS)
+    print("every request reached a terminal typed state; the fleet "
+          "audit held every tick")
+    if args.stats:
+        _print_stats(router.stats())
+    return rep.submitted
+
+
+def _run_fleet(router, args, prompts, device) -> list:
+    reqs = [router.submit(p, max_new_tokens=args.gen, ttl=args.deadline)
+            for p in prompts]
+    t0 = time.time()
+    cap = 8 * (args.gen + args.requests)
+    while not (router.drained() and all(r.terminal for r in reqs)) \
+            and router.tick_no < cap:
+        if args.kill_replica is not None and \
+                router.tick_no + 1 == args.kill_replica:
+            print(f"killing replica 0 at tick {args.kill_replica}")
+            router.kill_replica(0, reason="--kill-replica")
+        router.tick()
+        router.audit()
+    dt = _wall(t0, device)
+    for r in reqs:
+        print(f"req {r.rid}: {r.state.value:>9} on r{r.replica} "
+              f"(migrations={r.migrations}) {r.tokens[:12]} ...")
+    stats = router.stats()
+    generated = sum(r.generated for r in reqs)
+    recovered = sum(1 for r in reqs if r.migrations > 0
+                    and r.state is RequestState.FINISHED)
+    print(f"fleet: {stats['ticks']} ticks, {generated} tokens in "
+          f"{dt:.2f}s ({generated / max(dt, 1e-9):.1f} tok/s on "
+          f"{device_name(device)}); "
+          f"deaths={stats['deaths']} respawns={stats['respawns']} "
+          f"migrated={stats['migrated']} recovered={recovered} "
+          f"drains={stats['drains']} rejoins={stats['rejoins']}")
+    for idx, rs in stats["replicas"].items():
+        print(f"  r{idx}: {rs['state']:>8} gen={rs['generation']} "
+              f"load={rs['load']} hard_breaches={rs['hard_breaches']} "
+              f"pages_in_use={rs['pages_in_use']}")
+    if "prefix_hit_rate" in stats:
+        print(f"fleet prefix cache: hit_rate={stats['prefix_hit_rate']:.2f} "
+              f"({stats['prefix_hits']}/"
+              f"{stats['prefix_hits'] + stats['prefix_misses']}), "
+              f"{stats['prefix_tokens_reused']} tokens reused, "
+              f"{stats['shared_pages']} shared pages fleet-wide")
+    if args.stats:
+        _print_stats(stats)
+    problems = _check_typed(reqs)
+    if problems:
+        print("FLEET FAIL: " + "; ".join(problems))
+        raise SystemExit(EXIT_CHAOS)
+    return reqs
+
+
 def run(args, *, params=None, prompts=None) -> list:
     """Serve ``args.requests`` requests and print the reference CLI's
-    lines.  ``params`` (on the run's device) and ``prompts`` (token lists)
-    default to seeded ones.  Returns the requests."""
+    lines: clean serving on one scheduler, a replica fleet
+    (``--replicas > 1``), or a chaos plan over either (``--chaos``, whose
+    plan draws its own prompts).  ``params`` (on the run's device) and
+    ``prompts`` (token lists) default to seeded ones.  Returns the
+    requests; raises ``SystemExit(2)`` when an audit trips, the fleet
+    never drains, or a request ends outside a terminal typed state."""
     _refuse_waiting(args)
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.smoke else arch.model
     if params is None:
         params = init_params(cfg, 0, device=device)
-    if prompts is None:
+    if prompts is None and args.chaos is None:
         prompts = seeded_prompts(args.requests, args.prompt_len, cfg.vocab,
                                  shared_prefix=args.prefix_cache)
+    knobs = dict(temperature=args.temperature, top_k=args.top_k,
+                 queue_depth=args.queue_depth,
+                 guard_nan=args.guard_nan or args.chaos is not None,
+                 debug_invariants=args.check_invariants,
+                 prefix_cache=args.prefix_cache,
+                 chunk_pages=args.chunk_pages,
+                 kv_quant=(None if args.kv_dtype == "float32"
+                           else args.kv_dtype), device=device)
+    if args.replicas > 1:
+        if args.chaos is not None:
+            # a quantized clock and a hard limit it dwarfs: determinism
+            knobs.update(clock=StepClock(), watchdog_hard_limit=30.0,
+                         hard_breach_limit=1)
+        router = make_fleet(cfg, params, replicas=args.replicas,
+                            slots=args.requests, max_len=args.max_len,
+                            page_size=args.page_size, **knobs)
+        if args.chaos is not None:
+            return _run_chaos_fleet(router, args, device)
+        return _run_fleet(router, args, prompts, device)
     server = BatchedServer(cfg, params, slots=args.requests,
                            max_len=args.max_len, page_size=args.page_size,
-                           temperature=args.temperature, top_k=args.top_k,
-                           queue_depth=args.queue_depth,
-                           debug_invariants=args.check_invariants,
-                           prefix_cache=args.prefix_cache,
-                           chunk_pages=args.chunk_pages,
-                           kv_quant=(None if args.kv_dtype == "float32"
-                                     else args.kv_dtype),
-                           watchdog=StepWatchdog(), device=device)
+                           watchdog=StepWatchdog(), **knobs)
     sched = server.scheduler
+    if args.chaos is not None:
+        return _run_chaos_single(sched, args, device)
     reqs = [server.submit(p, max_new_tokens=args.gen, ttl=args.deadline)
             for p in prompts]
 
@@ -179,9 +348,7 @@ def run(args, *, params=None, prompts=None) -> list:
     while not sched.drained() and steps < 4 * (args.gen + args.requests):
         server.tick()
         steps += 1
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    dt = time.time() - t0
+    dt = _wall(t0, device)
     generated = sum(r.generated for r in reqs)
     cache = sched.cache
     print(f"pages: {cache.pages_in_use()} in use of {cache.num_pages} "

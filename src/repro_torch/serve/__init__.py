@@ -1,16 +1,22 @@
 """Serving: the paged cache (float or quantized pools), the prefix trie,
-the request lifecycle, the scheduler and the engine (dense prefill /
-decode steps and the fixed-slot server) — port of ``repro.serve``.
-Chaos, the replica fleet (``make_fleet``), speculative decode and sharded
+the request lifecycle, the scheduler, the engine (dense prefill / decode
+steps, the fixed-slot server and ``make_fleet``), the replica fleet and the
+chaos harness — port of ``repro.serve``.  Speculative decode and sharded
 serving wait for later slices."""
+from repro_torch.serve.chaos import (ChaosConfig, ChaosReport,  # noqa: F401
+                                     FaultPlan, FleetChaosConfig,
+                                     FleetChaosReport, FleetFaultPlan,
+                                     StepClock, run_fleet_plan, run_plan)
 from repro_torch.serve.engine import (BatchedServer,  # noqa: F401
                                       ServeConfig, cache_specs,
                                       jit_decode_step, jit_prefill,
-                                      serve_param_shardings)
+                                      make_fleet, serve_param_shardings)
+from repro_torch.serve.fleet import (FleetAuditError,  # noqa: F401
+                                     FleetRouter, Replica, ReplicaState)
 from repro_torch.serve.lifecycle import (AdmissionError,  # noqa: F401
                                          AdmissionQueue, LifecycleError,
                                          Request, RequestState,
-                                         TERMINAL_STATES)
+                                         TERMINAL_STATES, retry_with_backoff)
 from repro_torch.serve.paged_cache import (InvariantViolation,  # noqa: F401
                                            PagedCache)
 from repro_torch.serve.prefix_cache import (PrefixCache,  # noqa: F401

@@ -9,8 +9,9 @@ place) and :class:`BatchedServer` over
 :class:`repro_torch.serve.scheduler.Scheduler`.  :func:`cache_specs` and
 :func:`serve_param_shardings` return ``None`` without a mesh, as the
 reference does; a mesh, and ``ServeConfig.long_context``, wait for the
-port's dist slice.  ``make_fleet`` waits for the replica fleet (ROADMAP.md
-queue A, item 6), and the encoder-decoder step for its model family.
+port's dist slice.  :func:`make_fleet` puts N scheduler replicas behind the
+fleet router (``serve/fleet.py``).  The encoder-decoder step waits for its
+model family.
 """
 from __future__ import annotations
 
@@ -114,7 +115,8 @@ class BatchedServer:
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.ctx = slots, max_len, ctx
         # lifecycle_kw passes the runtime knobs through unchanged
-        # (queue_depth / preemption / watchdog / debug_invariants / clock,
+        # (queue_depth / preemption / guard_nan / watchdog /
+        # debug_invariants / clock,
         # the prefix_cache / chunk_pages prefill knobs and the kv_quant
         # quantized-pool selector; see serve/scheduler.py)
         self.scheduler = Scheduler(
@@ -159,3 +161,18 @@ class BatchedServer:
     def finish(self, slot: int) -> list[int]:
         """Release the slot (pages reclaimed, per-slot state cleared)."""
         return self.scheduler.finish(slot)
+
+
+def make_fleet(cfg: ModelConfig, params, *, replicas: int, slots: int,
+               max_len: int, **fleet_kw):
+    """N scheduler replicas behind the health-checked fleet router — the
+    multi-replica counterpart of :class:`BatchedServer`.  Each replica is a
+    full :class:`~repro_torch.serve.scheduler.Scheduler` (own page pool,
+    own admission queue) over ONE copy of the weights; the router does
+    least-loaded admission, heartbeat / watchdog health tracking and
+    replay-based failover (``serve/fleet.py``).  A ``replicas=1`` fleet is
+    exactly one ``BatchedServer.scheduler`` behind a router.  ``device``
+    (in ``fleet_kw``) follows the port's rule."""
+    from repro_torch.serve.fleet import FleetRouter
+    return FleetRouter(cfg, params, replicas=replicas, slots=slots,
+                       max_len=max_len, **fleet_kw)

@@ -1,7 +1,7 @@
 """Request lifecycle for the hardened serve runtime (a copy of ``repro``'s
 ``serve/lifecycle.py``: pure Python, kept here so the port never imports
-the reference package).  The MIGRATING edges serve the replica fleet,
-which waits for a later slice.
+the reference package).  The MIGRATING edges serve the replica fleet
+(``serve/fleet.py``).
 
 The paged scheduler (serve/scheduler.py) owns device state: slots, the
 page pool, the jit'd step.  This module owns everything a request goes

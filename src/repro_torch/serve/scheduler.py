@@ -25,9 +25,17 @@ parity target; temperature / top-k sampling draws from one seeded
 ``torch.Generator`` and is held only to determinism inside the port (JAX
 threefry keys are not torch generators).
 
+``guard_nan=True`` turns on the per-slot NaN/Inf logit guard: the sampled
+tokens and a finite flag per slot come back to the host in one sync, and a
+slot whose logits are not all finite fails alone (``fail_slot``; counted in
+``nan_failures``).  ``_taint`` is the chaos harness's hook
+(``serve/chaos.py``): a boolean row mask whose rows the next step's logits
+carry as NaN, once.  The fleet surface (``load``, ``resident_rids``,
+``migrate_queued``, ``adopt``, ``evacuate``, ``latency_samples``) serves the
+replica router (``serve/fleet.py``).
+
 Waiting for a later slice (it raises ``NotImplementedError``): speculative
-decode (``speculate > 1``).  The per-slot NaN guard and its chaos hook wait
-with the chaos harness.
+decode (``speculate > 1``).
 """
 from __future__ import annotations
 
@@ -78,7 +86,7 @@ class Scheduler:
                  fuse_step: bool = True, temperature: float = 0.0,
                  top_k: int | None = None, seed: int = 0,
                  queue_depth: int | None = None, preemption: bool = True,
-                 watchdog=None,
+                 guard_nan: bool = False, watchdog=None,
                  debug_invariants: bool = False,
                  prefix_cache: bool = False, chunk_pages: int = 1,
                  speculate: int = 1, device=None,
@@ -128,6 +136,7 @@ class Scheduler:
         self.clock = clock
         self.watchdog = watchdog
         self.preemption = preemption
+        self.guard_nan = guard_nan
         self.queue = AdmissionQueue(
             queue_depth if queue_depth is not None else 4 * slots,
             retry_after_hint=self._retry_after)
@@ -136,8 +145,10 @@ class Scheduler:
         # replay cursor: index into tokens[s] of the NEXT input token
         self._fed = [0] * slots
         self._pos = [0] * slots      # host mirror of cache.state["pos"]
+        self._taint: np.ndarray | None = None   # chaos NaN-injection hook
         self._newly_terminal: list[Request] = []
         self._step_ewma = 0.0
+        self.nan_failures = 0
         self.preemptions = 0
         self._submit_t: dict[int, float] = {}
         self._last_tok_t: dict[int, float] = {}
@@ -426,16 +437,38 @@ class Scheduler:
             self.params, self.cache.state, cur, self.cfg, None, active=act,
             fuse=self.fuse_step)
         self.decode_steps += 1
+        if self._taint is not None:      # chaos-only NaN injection hook
+            mask = torch.as_tensor(self._taint, device=logits.device)[:, None]
+            logits = torch.where(mask, torch.nan, logits.float()).to(
+                logits.dtype)
+            self._taint = None
         self.last_logits = logits
-        nxt = sample_tokens(logits, self._gen, temperature=self.temperature,
-                            top_k=self.top_k)
-        nxt = nxt.cpu().numpy()                      # ONE host sync
+        fin = None
+        if self.guard_nan:
+            # the finite flags ride with the tokens in the one host sync;
+            # a non-finite row is sampled from zeros (its token is dropped)
+            ok = torch.isfinite(logits.float()).all(dim=-1)
+            nxt = sample_tokens(torch.where(ok[:, None], logits,
+                                            torch.zeros_like(logits)),
+                                self._gen, temperature=self.temperature,
+                                top_k=self.top_k)
+            both = torch.stack([nxt, ok.to(torch.int32)]).cpu().numpy()
+            nxt, fin = both[0], both[1].astype(bool)
+        else:
+            nxt = sample_tokens(logits, self._gen,
+                                temperature=self.temperature,
+                                top_k=self.top_k).cpu().numpy()  # ONE sync
         out = []
         t_now = self.clock()
         seq_cap = self.cache.pages_per_seq * self.cache.page_size
         for s in range(self.slots):
             t = int(nxt[s])
             if not decoding[s]:
+                out.append(-1)
+                continue
+            if fin is not None and not fin[s]:
+                self.nan_failures += 1
+                self.fail_slot(s, "non-finite logits")
                 out.append(-1)
                 continue
             if self._pos[s] < seq_cap:
@@ -552,12 +585,67 @@ class Scheduler:
     def drained(self) -> bool:
         return not any(self.active) and len(self.queue) == 0
 
+    # -- fleet surface (serve/fleet.py) -------------------------------------
+    def load(self) -> int:
+        """Admission-routing load signal: queued + occupying a slot."""
+        return len(self.queue) + sum(self.active)
+
+    def resident_rids(self) -> set[int]:
+        """rids resident here: waiting in the queue or occupying a slot
+        (the fleet audit holds every live request to exactly one
+        replica)."""
+        out = {r.rid for r in self.queue._q}
+        out |= {r.rid for r in self._slot_req if r is not None}
+        return out
+
+    def migrate_queued(self) -> list[Request]:
+        """Lift every QUEUED request off this replica (the drain of a
+        DEGRADED replica); each comes back MIGRATING with the tokens it
+        had accumulated."""
+        out = self.queue.drain()
+        for r in out:
+            r.to(RequestState.MIGRATING)
+            self.requests.pop(r.rid, None)
+        return out
+
+    def adopt(self, req: Request) -> None:
+        """Accept a MIGRATING request from another replica: force-queued
+        (migration is never dropped by the admission bound) and resumed
+        by the next tick through the preemption-resume path."""
+        self.requests[req.rid] = req
+        self.queue.push(req, force=True)
+
+    def evacuate(self) -> list[Request]:
+        """Lift EVERY resident request off this replica (failover when it
+        is declared dead): slots carry prompt + generated into MIGRATING,
+        queued work follows.  Host bookkeeping only: the pool is never
+        touched; the router drops the whole replica at respawn, and the
+        target re-prefills the prompt and replays the generated tokens."""
+        out: list[Request] = []
+        for s in range(self.slots):
+            req = self._slot_req[s]
+            if req is not None and not req.terminal:
+                req.tokens = list(self.tokens[s])
+                req.to(RequestState.MIGRATING)   # mid-prefill slots too
+                req.slot = None
+                out.append(req)
+                self.requests.pop(req.rid, None)
+            self.active[s] = False
+            self.tokens[s] = []
+            self._fed[s] = 0
+            self._pos[s] = 0
+            self._slot_req[s] = None
+        self._prefilling.clear()   # cursors die with the replica's pool
+        out.extend(self.migrate_queued())
+        return out
+
     def stats(self) -> dict:
         out = summarize(list(self.requests.values()))
         out.update(queue_depth=len(self.queue),
                    queue_rejected=self.queue.rejected,
                    pages_in_use=self.cache.pages_in_use(),
                    free_pages=self.cache.free_pages(),
+                   nan_failures=self.nan_failures,
                    invariant_checks=self.cache.invariant_checks,
                    step_ewma_s=self._step_ewma,
                    prefilling=len(self._prefilling),
@@ -571,6 +659,11 @@ class Scheduler:
             out["watchdog_breaches"] = self.watchdog.breaches
         out["latency"] = self.latency_stats()
         return out
+
+    def latency_samples(self) -> dict[str, list[float]]:
+        """Raw latency samples (seconds); the fleet router concatenates
+        them across replicas before taking percentiles."""
+        return {"ttft": list(self._ttft), "itl": list(self._itl)}
 
     def latency_stats(self) -> dict[str, float]:
         """TTFT and inter-token latency p50/p99 (seconds, host clock)."""

@@ -3,7 +3,9 @@ jit_decode_step, BatchedServer) and the serve CLI (launch/serve.py)
 against repro's, with the reference's weights and prompts, on the CPU.
 
 Tolerances: greedy token streams are equal, and so are the CLI's printed
-page and request lines.  The dense steps' logits agree within rtol 1e-5 /
+page and request lines, and its fleet and chaos lines (chaos on one
+scheduler and on a fleet, a fleet with a replica killed, a fleet at int8)
+but for their wall times.  The dense steps' logits agree within rtol 1e-5 /
 atol 1e-5 (float32 matmuls summed in another order).  The scheduler's
 step watchdog sees every decode step.
 """
@@ -170,7 +172,20 @@ def test_engine_refuses_what_waits():
                      device="cpu")):
         with pytest.raises(NotImplementedError, match="dist"):
             call()
-    assert not hasattr(engine, "make_fleet")
+    # make_fleet(replicas=1) is one BatchedServer's scheduler behind a
+    # router: the same streams
+    cfg, params = _port()
+    prompts = _prompts(4)
+    want = _drain(engine.BatchedServer(cfg, params, slots=N_REQ,
+                                       max_len=MAX_LEN, device="cpu"),
+                  prompts)
+    fleet = engine.make_fleet(cfg, params, replicas=1, slots=N_REQ,
+                              max_len=MAX_LEN, device="cpu")
+    reqs = [fleet.submit(p, max_new_tokens=GEN) for p in prompts]
+    while not fleet.drained():
+        fleet.tick()
+        fleet.audit()
+    assert [r.tokens for r in reqs] == want
 
 
 def test_scheduler_feeds_the_watchdog():
@@ -192,27 +207,38 @@ def test_scheduler_feeds_the_watchdog():
 # launch/serve.py
 # ---------------------------------------------------------------------------
 
-def _reference_cli(monkeypatch, extra=()):
-    """The reference CLI's printed lines and its requests' full streams."""
+def _reference_cli(monkeypatch, extra=(), base=CLI_ARGS):
+    """The reference CLI's printed lines and its requests' full streams
+    (every request a scheduler or the fleet router registered, in request
+    id order, which is submission order)."""
     from repro.launch import serve as jserve
     servers = []
 
     class Recording(jengine.BatchedServer):
         def __init__(self, *a, **kw):
             super().__init__(*a, **kw)
-            servers.append(self)
+            servers.append(self.scheduler)
 
+    def recording_fleet(*a, **kw):
+        servers.append(jmake_fleet(*a, **kw))
+        return servers[-1]
+
+    jmake_fleet = jengine.make_fleet
     monkeypatch.setattr(jserve, "BatchedServer", Recording)
-    monkeypatch.setattr(sys, "argv", ["serve"] + CLI_ARGS + list(extra))
+    monkeypatch.setattr(jengine, "make_fleet", recording_fleet)
+    monkeypatch.setattr(sys, "argv", ["serve"] + list(base) + list(extra))
     out = io.StringIO()
     with redirect_stdout(out):
-        jserve.main()
-    reqs = sorted(servers[0].scheduler.requests.values(),
-                  key=lambda r: r.rid)
+        try:
+            jserve.main()
+        except SystemExit as e:
+            assert e.code in (None, 0), out.getvalue()
+    reqs = sorted(servers[0].requests.values(), key=lambda r: r.rid)
     return out.getvalue().splitlines(), [r.tokens for r in reqs]
 
 
-def _reference_prompts(vocab, prefix_cache=False):
+def _reference_prompts(vocab, prefix_cache=False, n=N_REQ,
+                       length=PROMPT_LEN):
     """The reference CLI's prompts (launch/serve.py: jax.random, key 42
     folded with the request index; with --prefix-cache a shared system
     prefix of half the prompt length, key 42 folded with 999983)."""
@@ -220,10 +246,10 @@ def _reference_prompts(vocab, prefix_cache=False):
     sys_prefix = []
     if prefix_cache:
         sys_prefix = [int(t) for t in jax.random.randint(
-            jax.random.fold_in(key, 999983), (PROMPT_LEN // 2,), 0, vocab)]
+            jax.random.fold_in(key, 999983), (length // 2,), 0, vocab)]
     return [sys_prefix + [int(t) for t in jax.random.randint(
-        jax.random.fold_in(key, r), (PROMPT_LEN - len(sys_prefix),), 0,
-        vocab)] for r in range(N_REQ)]
+        jax.random.fold_in(key, r), (length - len(sys_prefix),), 0,
+        vocab)] for r in range(n)]
 
 
 def test_cli_matches_reference_cli(monkeypatch):
@@ -264,12 +290,61 @@ def test_cli_subprocess_on_cpu():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--replicas", "2"], "item 6"), (["--kill-replica", "3"], "item 6"),
-    (["--chaos", "0"], "item 5"), (["--guard-nan"], "item 5"),
     (["--speculate", "2"], "item 7")])
 def test_cli_flags_that_wait_exit_with_their_item(flags, item):
     with pytest.raises(SystemExit, match=item):
         cli.main(CLI_ARGS + ["--device", "cpu"] + flags)
+
+
+# the four fault-tolerance runs of chip_smoke.py phase 9, at smoke size
+FAULT_RUNS = {
+    "chaos-single": "--chaos 5 --requests 6 --gen 6 --check-invariants "
+                    "--prefix-cache --chunk-pages 2",
+    "fleet-kill": "--replicas 3 --kill-replica 4 --requests 4 --prompt-len 6 "
+                  "--gen 8 --max-len 32 --page-size 4",
+    "fleet-chaos": "--replicas 3 --chaos 0 --requests 6 --gen 6 --max-len 32 "
+                   "--page-size 4",
+    "fleet-chaos-int8": "--replicas 2 --chaos 7 --requests 6 --gen 6 "
+                        "--max-len 32 --page-size 4 --kv-dtype int8"}
+FAULT_LINES = ("req ", "fleet:", "  r", "killing replica", "chaos seed",
+               "fleet chaos seed", "fleet prefix cache:", "every request")
+
+
+@pytest.mark.parametrize("name", sorted(FAULT_RUNS))
+def test_cli_fault_runs_match_reference_cli(monkeypatch, name):
+    """Chaos on one scheduler and on a fleet, a fleet with replica 0
+    killed, and fleet chaos at int8: with the reference's params (and its
+    prompts where the run does not draw them from the plan), the reference
+    CLI's streams and its request, fleet, replica and chaos lines, wall
+    times aside."""
+    flags = FAULT_RUNS[name].split()
+    base = ["--arch", "qwen3-0.6b", "--smoke"]
+    want_lines, want_streams = _reference_cli(monkeypatch, flags, base)
+    cfg, params = _port()
+    args = cli.parser().parse_args(base + flags + ["--device", "cpu"])
+    prompts = None
+    if args.chaos is None:
+        prompts = _reference_prompts(cfg.vocab, n=args.requests,
+                                     length=args.prompt_len)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        reqs = cli.run(args, params=params, prompts=prompts)
+    got_lines = out.getvalue().splitlines()
+    assert [r.tokens for r in reqs] == want_streams
+    assert all(r.terminal for r in reqs)
+
+    def keep(lines):
+        lines = [ln for ln in lines if ln.startswith(FAULT_LINES)]
+        lines = [re.sub(r"^req \d+:", "req:", ln) for ln in lines]
+        return [re.sub(r" in [0-9.]+s( \([^)]*\))?", "", ln)
+                for ln in lines]
+    assert keep(got_lines) == keep(want_lines)
+    if args.chaos is not None:
+        assert got_lines[-1].startswith(
+            "every request reached a terminal typed state")
+    else:
+        assert any(ln.startswith("fleet:") and "deaths=1 " in ln
+                   for ln in got_lines)
 
 
 @pytest.mark.parametrize("flags", [

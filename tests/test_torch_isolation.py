@@ -78,3 +78,15 @@ def test_entry_points_raise_without_gpu():
         serve_cli.main(["--arch", "qwen3-0.6b", "--smoke", "--requests",
                         "1", "--prompt-len", "4", "--gen", "2",
                         "--kv-dtype", "int8", "--prefix-cache"])
+    from repro_torch.serve.engine import make_fleet
+    from repro_torch.serve.fleet import FleetRouter
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FleetRouter(cfg, params, replicas=2, slots=1, max_len=16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fleet(cfg, params, replicas=2, slots=1, max_len=16)
+    for flags in (["--chaos", "0"], ["--guard-nan"],
+                  ["--replicas", "2", "--kill-replica", "2"],
+                  ["--replicas", "2", "--chaos", "1"]):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            serve_cli.main(["--arch", "qwen3-0.6b", "--smoke", "--requests",
+                            "2", "--prompt-len", "4", "--gen", "2"] + flags)

@@ -13,8 +13,11 @@ shared pages survive the donor's release, decode is bit-exact against
 the non-shared oracle, a partial tail forks one copy-on-write page,
 mid-prefill preemption resumes bit-exactly, the retry hint counts the
 prefill backlog, the trie evicts orphans under pressure, and steady state
-makes no plan-cache miss.  No tolerance anywhere: bookkeeping and token
-streams are exact.  The chaos cases wait for the port's chaos slice."""
+makes no plan-cache miss.  The chaos cases: seeded plans with forced trie
+eviction over the prefix-sharing pool with chunked prefill terminate every
+request typed with the refcount audit clean every tick, with the
+reference's report, states and streams; the plans do evict.  No tolerance
+anywhere: bookkeeping and token streams are exact."""
 import dataclasses
 import functools
 
@@ -25,12 +28,15 @@ import pytest
 from _torch_bridge import jax_tree_to_np
 from repro.configs import get_arch as jget_arch
 from repro.models.transformer import init_params as jinit
+from repro.serve import chaos as jchaos
 from repro.serve.prefix_cache import PrefixCache as JPrefixCache
 from repro.serve.scheduler import Scheduler as JScheduler
 from repro_torch import vx
 from repro_torch.configs.base import get_arch
 from repro_torch.models.transformer import params_from_jax
-from repro_torch.serve.lifecycle import AdmissionError, RequestState
+from repro_torch.serve.chaos import ChaosConfig, FaultPlan, run_plan
+from repro_torch.serve.lifecycle import (AdmissionError, RequestState,
+                                         TERMINAL_STATES)
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.scheduler import Scheduler
 
@@ -317,3 +323,57 @@ def test_prefix_cache_gated_to_attention_only_stacks():
     assert isinstance(sched.prefix, PrefixCache)
     assert sched.cache.external_ref == sched.prefix.page_refs
     assert _sched(prefix_cache=False).prefix is None
+
+
+# --------------------------- chaos: refcount conservation --------------------
+
+CHAOS_GEOM = dict(slots=2, max_len=16, page_size=4, num_pages=8,
+                  guard_nan=True, queue_depth=3, prefix_cache=True,
+                  chunk_pages=1, debug_invariants=True)
+
+
+@pytest.mark.parametrize("seed", (0, 1, 2))
+def test_chaos_refcount_conservation_with_prefix_and_chunks(seed):
+    """Seeded chaos over the prefix-sharing pool with chunked prefill:
+    preempt / kill / evict faults land mid-prefill, yet every request
+    terminates typed and the refcount audit (table counts + trie pins ==
+    device refcounts) passes every tick; the report, states and streams
+    are the reference's."""
+    plan_kw = dict(seed=seed, requests=6, steps=32, max_ticks=256,
+                   p_evict=0.15)
+    sched = _sched(clock=_StepClock(), **CHAOS_GEOM)
+    report = run_plan(sched, FaultPlan(ChaosConfig(**plan_kw)))
+    assert report.ticks < plan_kw["max_ticks"]
+    assert sched.drained()
+    assert report.all_terminal, report.states
+    for r in report.submitted:
+        assert r.state in TERMINAL_STATES
+    assert report.invariant_checks >= report.ticks
+    jcfg, jparams = _jax()
+    jsched = JScheduler(jcfg, jparams, clock=_StepClock(), **CHAOS_GEOM)
+    want = jchaos.run_plan(jsched,
+                           jchaos.FaultPlan(jchaos.ChaosConfig(**plan_kw)))
+    assert (report.ticks, report.states, report.preemptions,
+            report.nan_failures, report.backpressured) == \
+        (want.ticks, want.states, want.preemptions, want.nan_failures,
+         want.backpressured)
+    assert [(r.state.value, r.tokens) for r in report.submitted] == \
+        [(r.state.value, r.tokens) for r in want.submitted]
+    assert sched.stats()["prefix"] == jsched.stats()["prefix"]
+
+
+def test_chaos_plans_actually_evict():
+    """The evict fault fires somewhere across the seed set, and lands on a
+    trie that holds pages."""
+    kinds = set()
+    for seed in (0, 1, 2):
+        kinds |= {f.kind for f in FaultPlan(
+            ChaosConfig(seed=seed, p_evict=0.15)).faults}
+    assert "evict" in kinds
+    evicted = 0
+    for seed in (0, 1, 2):
+        sched = _sched(clock=_StepClock(), **CHAOS_GEOM)
+        run_plan(sched, FaultPlan(ChaosConfig(
+            seed=seed, requests=6, steps=32, max_ticks=256, p_evict=0.15)))
+        evicted += sched.stats()["prefix"]["evicted"]
+    assert evicted > 0

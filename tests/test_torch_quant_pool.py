@@ -17,8 +17,13 @@ steps bit for bit; one fused split per step, read from the port's call
 counter with the kernel lowering pinned.  Prefix interop at the decode
 level: the fork copies the page's scale and leaves the source unchanged;
 adopt / fork / addref / deref bookkeeping and ``paged_invariants``
-against the reference's.  The chaos and fleet cases at int8 wait for the
-port's chaos and fleet slices."""
+against the reference's.  The reference's chaos and fleet gates at int8:
+seeded chaos (preemption replays through quantize-on-write from scratch)
+and fleet chaos (migration by replay into a fresh quantized pool)
+terminate every request typed with the scale-extended audit every tick;
+these hold the port to the reference's properties, not to its streams,
+since a quantized step is held to the reference's only within the bound
+above."""
 import dataclasses
 import functools
 
@@ -591,3 +596,64 @@ def test_quantized_prefix_sharing_bit_exact_vs_nonshared():
                           (s.step() for _ in range(6))]
             s.cache.check_invariants()
         assert outs["shared"] == outs["oracle"]
+
+
+class _StepClock:
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        self.t += 0.01
+        return self.t
+
+
+@pytest.mark.parametrize("seed", (0, 1))
+def test_chaos_preempt_replay_holds_at_int8(seed):
+    """The chaos gate on the quantized pool: preemption replays a
+    request's tokens through quantize-on-write from scratch; every request
+    terminates typed and the scale-extended audit holds every tick."""
+    from repro_torch.ft.straggler import StepWatchdog
+    from repro_torch.serve.chaos import ChaosConfig, FaultPlan, run_plan
+    from repro_torch.serve.lifecycle import TERMINAL_STATES
+    _, _, cfg, params = _smoke()
+    sched = Scheduler(cfg, params, slots=2, max_len=16, page_size=4,
+                      num_pages=6, kv_quant="int8", guard_nan=True,
+                      queue_depth=3, watchdog=StepWatchdog(),
+                      clock=_StepClock(), device="cpu")
+    plan = FaultPlan(ChaosConfig(seed=seed, requests=6, steps=32,
+                                 max_ticks=256))
+    report = run_plan(sched, plan)
+    assert report.ticks < plan.cfg.max_ticks
+    assert sched.drained()
+    assert report.all_terminal, report.states
+    for r in report.submitted:
+        assert r.state in TERMINAL_STATES
+    assert report.invariant_checks >= report.ticks
+    assert report.preemptions > 0 or report.nan_failures > 0
+
+
+def test_fleet_migration_holds_at_int8():
+    """The fleet gate at int8: replica death migrates requests by replay
+    into a fresh quantized pool; the fleet audit (with the per-replica
+    scale-extended invariants) holds every tick."""
+    from repro_torch.serve.chaos import (FleetChaosConfig, FleetFaultPlan,
+                                         StepClock, run_fleet_plan)
+    from repro_torch.serve.fleet import FleetRouter
+    from repro_torch.serve.lifecycle import TERMINAL_STATES
+    _, _, cfg, params = _smoke()
+    fl = FleetRouter(cfg, params, replicas=2, slots=2, max_len=16,
+                     page_size=4, num_pages=6, kv_quant="int8",
+                     queue_depth=3, guard_nan=True, clock=StepClock(),
+                     watchdog_hard_limit=30.0, hard_breach_limit=1,
+                     heartbeat_ticks=4, device="cpu")
+    plan = FleetFaultPlan(FleetChaosConfig(seed=1, requests=6, steps=24,
+                                           max_ticks=512))
+    report = run_fleet_plan(fl, plan)
+    assert report.ticks < plan.cfg.max_ticks
+    assert fl.drained()
+    assert report.all_terminal, report.states
+    for r in report.submitted:
+        assert r.state in TERMINAL_STATES
+    assert report.audits == report.ticks
+    assert report.deaths > 0 and report.migrated > 0
+    assert all(rep.sched.cache.kv_quant == "int8" for rep in fl.replicas)
