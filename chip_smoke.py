@@ -188,14 +188,45 @@ Phases, in order (any failure raises and exits non-zero):
    modes at full width in subprocesses (``--chaos 5 ... --prefix-cache``,
    ``--replicas 3 --kill-replica 4``, ``--replicas 3 --chaos 0``,
    ``--replicas 2 --chaos 7 --kv-dtype int8``): exit 0, every request
-   terminal, the chaos runs' terminal-state line printed.
+   terminal, the chaos runs' terminal-state line printed;
+10. speculative decode (K = 4) and ``vx.scatter_many`` at full width
+   (bf16, phase 4's geometry and prompts, 16 greedy tokens): (a)
+   ``models.decode.paged_verify_step`` fed the plain ``paged_decode_step``
+   oracle's stream as drafts, then those drafts corrupted (a reject-all
+   round; slot 0 rejected exactly on a page boundary, whose page must be
+   back on the free stack; rejections in slots 1-3), under ``kernel``,
+   ``ref`` and ``kernel_dynamic``: commits and streams equal across the
+   policies, ``paged_invariants`` clean every round, the launches of
+   every verify step as predicted from the code (one fused split, and per
+   layer the (B, K) beat split and re-pack and the GLU split when their
+   sizes reach the launch threshold), the committed streams equal to the
+   oracle's with K tokens a launch on perfect drafts and 1 on the
+   reject-all round, the largest logit gap to the oracle printed; a
+   greedy flip prints its position, the plain run's top-2 margin there
+   and the gap, and the gate then runs in float32 compute; (b) the
+   speculative ``Scheduler`` with two drafts, the target's own weights
+   and seed 1's, under the three policies: streams equal to the plain
+   scheduler's (in float32 compute after a bf16 flip), the speculative
+   stats, the launches of every verify step and draft step as predicted,
+   each prefill chunk's launches, whole-run tokens/s beside the plain
+   scheduler's; (c) the int8 pool under speculation with the pool audited
+   after every mutation: every request finished; (d) ``vx.scatter_many``
+   at the KV stack, 28 groups of ``(4, 512, 8, 128)`` x2 bf16: one B2 / B7
+   launch a call, equal bit for bit to the plain version and to the
+   per-group ``interleave``, timed beside B2 on the same bytes; (e) the
+   CLI with ``--speculate 4 --stats`` at full width and CI's speculative
+   fleet chaos smoke (``--replicas 3 --chaos 0 --kv-dtype int8
+   --speculate 4 --stats``) in subprocesses: exit 0 and a
+   ``speculative:`` line.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
-``kernel_dynamic``, the strided path's for B3/B4/B5 under ``kernel`` and
-B8/B9 under ``kernel_dynamic``, the indexed path's under ``kernel`` for
-B10-B14; phases 7 and 8 print their own launches per prefill and per
-decode step); the last line is ``{"ok": true, "device": {...}}``.
+``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
+``scatter_many`` call under the same policies; the strided path's for
+B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
+indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
+own launches per prefill and per decode step); the last line is
+``{"ok": true, "device": {...}}``.
 ``--profile`` adds, after phase 4, one
 torch.profiler-traced serve run per policy and the operators whose host
 and device times differ most between the ``kernel`` and ``ref`` runs,
@@ -810,6 +841,7 @@ def time_kernels(dev, full_cfg, slots: int, max_len: int) -> dict:
                    f"; B1 on the same bytes {b1:.4f} ms")
     print(f"interleave[stack] / deinterleave (B2 / B1, the same bytes): "
           f"{stack['ms'] / b1:.4f}")
+    out["interleave[stack]"] = stack
     # B7 on the same bytes: the derivation at n = 256 under the copy's
     # first tile loads
     stack7 = record("interleave_dynamic[stack]",
@@ -1134,7 +1166,8 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             "peak_used_bytes": peak["used_bytes"],
             "peak_pages": peak["pages"], "page_bytes": page_bytes,
             "prefix": stats.get("prefix"), "peak_shared": peak["shared"],
-            "forks": forks}
+            "forks": forks, "spec": stats.get("speculative"),
+            "invariant_checks": stats["invariant_checks"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2844,6 +2877,495 @@ def chaos_fleet_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: speculative decode and vx.scatter_many
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# the drafts: the target's own weights (seed 0), and another draw (seed 1)
+DRAFT_SEEDS = (SEED, SEED + 1)
+SPEC_POLICIES = ("kernel", "ref", "kernel_dynamic")
+SEG_ORDER = ("deinterleave", "interleave", "deinterleave_dynamic",
+             "interleave_dynamic")
+SPEC_CLI_FLAGS = ("--speculate", "4", "--stats")
+SPEC_FAULT_CLI = ("--replicas", "3", "--chaos", "0", "--requests", "6",
+                  "--gen", "6", "--max-len", "32", "--page-size", "4",
+                  "--kv-dtype", "int8", "--speculate", "4", "--stats")
+
+
+def seg_delta(before: dict) -> tuple:
+    """(B1, B2, B6, B7) launches since ``before`` (a ``segment_counts()``)."""
+    now = segment_counts()
+    return tuple(now[k] - before[k] for k in SEG_ORDER)
+
+
+def verify_prediction(cfg, impl: str, slots: int, k: int) -> tuple:
+    """(B1, B2, B6, B7) launches of one verify step, read off the code
+    (``models/decode.paged_verify_step``): ONE fused split of every
+    layer's pre-append pages; per layer the (B, K) beat split and re-pack
+    when ``B*K*n_kv*2*hd`` reaches the policy's launch threshold, and the
+    GLU split when ``B*K*2*d_ff`` does (``Policy.for_elems``).  At ``k=1``
+    the same reading gives a draft model's ``paged_decode_step``."""
+    from repro_torch import vx
+    if impl == "ref":
+        return (0, 0, 0, 0)
+    pol = vx.Policy(impl=impl)
+    beat = pol.for_elems(slots * k * cfg.n_kv_heads * 2 * cfg.hd).impl
+    glu = pol.for_elems(slots * k * 2 * cfg.d_ff).impl
+    layers = cfg.n_layers
+    split = 1 + layers * (beat != "ref") + layers * (glu != "ref")
+    pack = layers * (beat != "ref")
+    return (split, pack, 0, 0) if impl == "kernel" else (0, 0, split, pack)
+
+
+class counted_calls:
+    """Wrap functions of ``repro_torch.models.decode`` for the length of a
+    ``with``: each call appends ``(name, (B1, B2, B6, B7) launches)`` to
+    ``log``.  The scheduler reads them through the module, so every
+    verify step, draft step and prefill chunk is seen."""
+
+    NAMES = ("paged_verify_step", "paged_decode_step", "paged_prefill_chunk")
+
+    def __init__(self, log: list):
+        from repro_torch.models import decode
+        self.mod, self.log = decode, log
+        self.real = {n: getattr(decode, n) for n in self.NAMES}
+
+    def __enter__(self):
+        def wrap(name, fn):
+            def inner(*a, **k):
+                before = segment_counts()
+                out = fn(*a, **k)
+                self.log.append((name, seg_delta(before)))
+                return out
+            return inner
+        for n, fn in self.real.items():
+            setattr(self.mod, n, wrap(n, fn))
+        return self.log
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.mod, n, fn)
+
+
+def clone_cache(cache: dict) -> dict:
+    return {k: ({b: t.clone() for b, t in v.items()} if k == "blocks"
+                else v.clone()) for k, v in cache.items()}
+
+
+def verify_decode_level(dev, cfg, params, impl: str, prompts, gen: int,
+                        slots: int, max_len: int, page_size: int,
+                        dtype) -> dict:
+    """Phase 10a: ``paged_verify_step`` at K = SPEC_K fed the plain
+    ``paged_decode_step`` oracle's stream as drafts, then the same drafts
+    corrupted: round 0 rejects every draft of every slot; slot 0 is then
+    steered onto a page boundary and rejected exactly there (the page the
+    verify allocated past it must come back); slots 1-3 reject at drafts
+    2, 3 and 1 of rounds 2, 3 and 4.  Every round: ``paged_invariants``
+    clean, the launches of the verify step.  Returns the committed
+    streams, commits, the oracle's streams, the largest logit gap over
+    the committed prefix that agrees with the oracle, and the first
+    disagreement with the plain run's top-2 margin there."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode as dec
+    c = dataclasses.replace(cfg, kernel_impl=impl)
+    K, ps = SPEC_K, page_size
+    base = dec.init_paged_cache(c, slots, max_len, ps, dtype, device=dev)
+    for s, p in enumerate(prompts):
+        pre = p[:-1]
+        for i in range(0, len(pre), ps):
+            chunk = pre[i:i + ps]
+            tok = torch.tensor(chunk + [0] * (ps - len(chunk)),
+                               dtype=torch.int32, device=dev)
+            base = dec.paged_prefill_chunk(params, base, tok, c, slot=s,
+                                           count=len(chunk))
+    heads = [p[-1] for p in prompts]
+    oc = clone_cache(base)
+    cur = torch.tensor(heads, dtype=torch.int32, device=dev)
+    ostream = [[h] for h in heads]
+    ologits = [[] for _ in range(slots)]
+    for _ in range(gen + K):
+        lg, oc = dec.paged_decode_step(params, oc, cur, c)
+        cur = torch.argmax(lg.float(), dim=-1).to(torch.int32)
+        for s, t in enumerate(cur.tolist()):
+            ostream[s].append(t)
+            ologits[s].append(lg[s].float())
+    del oc
+    # the tolerance a verify-plain logit gap is held to: the bound the repo
+    # gives a quantized step, max(0.08, 0.03 |logits|max)
+    tol = max(0.08, 0.03 * max(float(t.abs().max()) for row in ologits
+                               for t in row))
+    nd = torch.full((slots,), K, dtype=torch.int32, device=dev)
+    runs = {}
+    for kind in ("perfect", "corrupted"):
+        vc = clone_cache(base)
+        stream = [[h] for h in heads]
+        commits, launches, boundary = [], [], None
+        gap, first = 0.0, None
+        rnd = 0
+        while min(len(t) for t in stream) <= gen and rnd < 8 * gen:
+            toks = np.zeros((slots, K), np.int32)
+            bad = set()
+            if kind == "corrupted":
+                if rnd == 0:
+                    bad = {(s, 1) for s in range(slots)}
+                else:
+                    bad = {(s, j) for r, s, j in ((2, 1, 2), (3, 2, 3),
+                                                  (4, 3, 1)) if r == rnd}
+                    if boundary is None:
+                        pos0 = len(prompts[0]) - 1 + len(stream[0]) - 1
+                        d = ps - pos0 % ps
+                        if d < K:
+                            bad.add((0, d))      # commit d: on the boundary
+                            boundary = (rnd, (pos0 + d) // ps)
+                        elif min(K, d - 1) < K:
+                            bad.add((0, min(K, d - 1)))
+            for s in range(slots):
+                fed = len(stream[s])
+                toks[s, 0] = stream[s][-1]
+                for j in range(1, K):
+                    i = fed - 1 + j
+                    t = ostream[s][i] if i < len(ostream[s]) else 0
+                    toks[s, j] = (t + 1) % cfg.vocab if (s, j) in bad else t
+            before = segment_counts()
+            lg, o, cm, vc = dec.paged_verify_step(
+                params, vc, torch.from_numpy(toks).to(dev), c, n_draft=nd)
+            launches.append(seg_delta(before))
+            host = torch.cat([o, cm[:, None]], dim=1).cpu().numpy()
+            commits.append(host[:, K].tolist())
+            for s in range(slots):
+                for j in range(int(host[s, K])):
+                    i = len(stream[s])
+                    stream[s].append(int(host[s, j]))
+                    if first is None and i < len(ostream[s]):
+                        gap = max(gap, float(
+                            (lg[s, j].float() - ologits[s][i - 1]).abs()
+                            .max()))
+                        if stream[s][i] != ostream[s][i]:
+                            top2 = torch.topk(ologits[s][i - 1], 2).values
+                            first = {"slot": s, "position": i,
+                                     "margin": float(top2[0] - top2[1]),
+                                     "got": stream[s][i],
+                                     "want": ostream[s][i]}
+            bad_inv = dec.paged_invariants(c, vc)
+            if bad_inv:
+                raise AssertionError(f"verify [{impl}, {kind}] round {rnd}: "
+                                     f"{bad_inv}")
+            if boundary is not None and boundary[0] == rnd:
+                pos0 = int(vc["pos"][0])
+                if pos0 % ps or int(vc["table"][0, boundary[1]]) != -1:
+                    raise AssertionError(f"verify [{impl}]: the page past "
+                                         f"the boundary at {pos0} was not "
+                                         f"rolled back")
+            rnd += 1
+        if kind == "corrupted" and boundary is None:
+            raise AssertionError("verify: slot 0 never reached a boundary")
+        runs[kind] = {"streams": stream, "commits": commits,
+                      "launches": launches, "gap": gap, "first": first,
+                      "boundary": boundary}
+    del base
+    torch.cuda.empty_cache()
+    return {"runs": runs, "oracle": ostream, "tol": tol}
+
+
+def check_verify_run(name: str, impl: str, r: dict, gen: int,
+                     pred: tuple) -> list:
+    """The decode-level checks of one policy's run; returns the flips
+    (first disagreements with the oracle) for the caller to judge."""
+    flips = []
+    for kind, run in r["runs"].items():
+        if any(n != pred for n in run["launches"]):
+            raise AssertionError(f"{name} [{impl}, {kind}]: launches (B1, "
+                                 f"B2, B6, B7) per verify step "
+                                 f"{run['launches']}, predicted {pred}")
+        if run["first"] is not None:
+            flips.append((kind, run["first"], run["gap"]))
+            continue
+        for s, st in enumerate(run["streams"]):
+            if st[:gen + 1] != r["oracle"][s][:gen + 1]:
+                raise AssertionError(f"{name} [{impl}, {kind}]: slot {s} "
+                                     f"stream differs from the oracle")
+        if kind == "perfect" and any(
+                n != SPEC_K for row in run["commits"] for n in row):
+            raise AssertionError(f"{name} [{impl}]: perfect drafts committed "
+                                 f"{run['commits']}, want {SPEC_K} a launch")
+        if kind == "corrupted" and run["commits"][0] != [1] * len(
+                run["commits"][0]):
+            raise AssertionError(f"{name} [{impl}]: the reject-all round "
+                                 f"committed {run['commits'][0]}")
+    return flips
+
+
+def spec_serve(dev, cfg, params, draft_params, impl: str, prompts, gen: int,
+               slots: int, max_len: int, page_size: int,
+               **serve_kw) -> dict:
+    """Phase 4's serve run with speculation (K = SPEC_K, a draft of the
+    target's arch): adds the launches of every verify step, draft step
+    and prefill chunk."""
+    log: list = []
+    with counted_calls(log):
+        r = serve(dev, cfg, params, impl, prompts, gen, slots, max_len,
+                  page_size, speculate=SPEC_K,
+                  draft_cfg=dataclasses.replace(cfg, kernel_impl=impl),
+                  draft_params=draft_params, **serve_kw)
+    by = {n: [d for m, d in log if m == n] for n in counted_calls.NAMES}
+    r.update(verify=by["paged_verify_step"], draft=by["paged_decode_step"],
+             chunks=by["paged_prefill_chunk"])
+    return r
+
+
+def first_divergence(streams, want) -> tuple | None:
+    for r, (a, b) in enumerate(zip(streams, want)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return r, i
+    return None
+
+
+def scatter_many_phase(dev, cfg, slots: int, max_len: int, timing: dict,
+                       launches: dict) -> None:
+    """Phase 10d: ``vx.scatter_many`` at the KV stack, 28 groups of K / V
+    ``(4, 512, 8, 128)`` bf16: one launch a call (B2 under ``kernel``, B7
+    under ``kernel_dynamic``), equal bit for bit to the plain version and
+    to the per-group ``interleave``.  Timed in turns (B2 on the stacked
+    fields, the verb under ``kernel``, under ``kernel_dynamic``, then the
+    same in reverse), 50 calls each, so that a clock that ramps during the
+    window weighs on every one alike."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.kernels import segment
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 10)
+    hd = cfg.hd
+    shape = (slots, max_len, cfg.n_kv_heads, hd)
+    groups = [[torch.randn(shape, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(2)] for _ in range(cfg.n_layers)]
+    spec = vx.Segment(n=2 * hd, fields=2)
+    plain = segment.interleave_plain([torch.stack([grp[f] for grp in groups])
+                                      for f in range(2)])
+    for impl, fn in (("kernel", "interleave"),
+                     ("kernel_dynamic", "interleave_dynamic")):
+        before = segment_counts()
+        out = vx.scatter_many(spec, groups, policy=impl)
+        torch.cuda.synchronize()
+        n = seg_delta(before)
+        want = (0, 1, 0, 0) if impl == "kernel" else (0, 0, 0, 1)
+        launches[fn] += n[SEG_ORDER.index(fn)]
+        if n != want:
+            raise AssertionError(f"scatter_many [{impl}]: (B1, B2, B6, B7) "
+                                 f"launches {n}, want {want}")
+        for a, (o, grp) in enumerate(zip(out, groups)):
+            if not (same_bits(o, plain[a]) and same_bits(
+                    o, vx.transpose(spec, grp, policy=impl))):
+                raise AssertionError(f"scatter_many [{impl}]: group {a} "
+                                     f"differs from the plain version")
+        del out
+    stacked = [torch.stack([grp[f] for grp in groups]) for f in range(2)]
+    fns = {"B2 on the stacked fields": lambda: segment.interleave(stacked),
+           "kernel": lambda: vx.scatter_many(spec, groups, policy="kernel"),
+           "kernel_dynamic": lambda: vx.scatter_many(
+               spec, groups, policy="kernel_dynamic")}
+    order = list(fns) + list(fns)[::-1]
+    ms = {k: [] for k in fns}
+    for k in order:
+        ms[k].append(time_ms(fns[k], 50))
+    b2 = timing["interleave[stack]"]
+    print(f"time scatter_many {cfg.n_layers} groups of {list(shape)} x2 "
+          f"bf16, one launch a call, == plain == per-group interleave bit "
+          f"for bit, in turns {order}: "
+          + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)} ms"
+                      for k, v in ms.items())
+          + f"; bound {b2['bound_ms']:.4f} ms (the stack's bytes, without "
+          f"the stacking), library {b2['library_ms']:.4f} ms")
+    del groups, plain, stacked
+    torch.cuda.empty_cache()
+
+
+def speculative_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
+                      max_len: int, page_size: int, timing: dict,
+                      launches: dict) -> None:
+    """Phase 10: speculative decode at full width (qwen3-0.6b, bf16,
+    phase 4's geometry and prompts, 16 greedy tokens), and
+    ``vx.scatter_many`` at the KV stack.  ``launches`` gains the verify
+    launch sites' counts (the scheduler runs under ``kernel`` for B1 / B2
+    and ``kernel_dynamic`` for B6 / B7, both drafts) and scatter_many's."""
+    import torch
+    from repro_torch.models.transformer import cast_params, init_params
+    t_phase = time.perf_counter()
+    params = cast_params(init_params(cfg, SEED, device=dev), cfg)
+    drafts = {seed: (params if seed == SEED else cast_params(
+        init_params(cfg, seed, device=dev), cfg)) for seed in DRAFT_SEEDS}
+    preds = {impl: verify_prediction(cfg, impl, slots, SPEC_K)
+             for impl in SPEC_POLICIES}
+    dpreds = {impl: verify_prediction(cfg, impl, slots, 1)
+              for impl in SPEC_POLICIES}
+    print(f"verify prediction (from the code): (B1, B2, B6, B7) launches "
+          f"per verify step at slots {slots}, K {SPEC_K}: {preds}; per "
+          f"draft step: {dpreds}")
+
+    # (a) the decode level, bf16; float32 compute if a greedy flip shows
+    t0 = time.perf_counter()
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gated = []
+    for label, c, p, dt in (("bf16", cfg, params, torch.bfloat16),
+                            ("float32", f32, None, torch.float32)):
+        if p is None:
+            p = cast_params(init_params(f32, SEED, device=dev), f32)
+        res = {impl: verify_decode_level(dev, c, p, impl, prompts, gen,
+                                         slots, max_len, page_size, dt)
+               for impl in SPEC_POLICIES}
+        for impl, r in res.items():
+            for kind in r["runs"]:
+                if (r["runs"][kind]["streams"], r["runs"][kind]["commits"]) \
+                        != (res["kernel"]["runs"][kind]["streams"],
+                            res["kernel"]["runs"][kind]["commits"]):
+                    raise AssertionError(f"verify [{label}, {impl}, {kind}]: "
+                                         f"other commits than under kernel")
+        flips = {impl: check_verify_run(f"verify {label}", impl, r, gen,
+                                        preds[impl])
+                 for impl, r in res.items()}
+        rk = res["kernel"]["runs"]
+        print(f"verify [{label}] {cfg.name} on {card}, slots {slots}, K "
+              f"{SPEC_K}: commits per round, perfect drafts "
+              f"{rk['perfect']['commits']}, corrupted "
+              f"{rk['corrupted']['commits']} (page-boundary rejection of "
+              f"slot 0 at round {rk['corrupted']['boundary'][0]}, page "
+              f"{rk['corrupted']['boundary'][1]} back on the free stack); "
+              f"paged_invariants clean every round; equal under kernel, "
+              f"ref and kernel_dynamic; largest logit gap to the plain "
+              f"step over the committed prefix {rk['perfect']['gap']} / "
+              f"{rk['corrupted']['gap']} (tolerance max(0.08, 0.03 * "
+              f"|logits|max) = {res['kernel']['tol']}); launches per verify "
+              f"step as predicted")
+        if not flips["kernel"]:
+            print(f"verify [{label}]: committed streams == the plain "
+                  f"paged_decode_step oracle's, {SPEC_K} tokens a launch on "
+                  f"perfect drafts, 1 on the reject-all round")
+            gated.append(label)
+            break
+        for kind, fl, gap in flips["kernel"]:
+            print(f"verify [{label}, {kind}]: greedy flip at slot "
+                  f"{fl['slot']} position {fl['position']} (verify "
+                  f"{fl['got']}, plain {fl['want']}); the plain run's top-2 "
+                  f"margin there {fl['margin']}, the largest verify-plain "
+                  f"logit gap over the committed prefix {gap}")
+        if label == "float32":
+            raise AssertionError("verify: streams differ from the oracle in "
+                                 "float32 compute")
+    print(f"verify gate held in {gated[0]} compute "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    # (b) the scheduler: both drafts, three policies, beside the plain one
+    t0 = time.perf_counter()
+    plain = serve(dev, cfg, params, "kernel", prompts, gen, slots, max_len,
+                  page_size)
+    plain_tps = plain["tokens"] / plain["wall_s"]
+    print(f"serve[kernel, plain] {cfg.name} on {card}: whole-run tokens/s "
+          f"{plain_tps:.2f} ({plain['decode_steps']} decode steps)")
+    spec = {}
+    for seed in DRAFT_SEEDS:
+        for impl in SPEC_POLICIES:
+            r = spec_serve(dev, cfg, params, drafts[seed], impl, prompts,
+                           gen, slots, max_len, page_size)
+            spec[seed, impl] = r
+            pred = preds[impl]
+            if any(n != pred for n in r["verify"]):
+                raise AssertionError(f"speculative [{impl}, draft seed "
+                                     f"{seed}]: launches per verify step "
+                                     f"{r['verify']}, predicted {pred}")
+            dpred = dpreds[impl]
+            if any(n != dpred for n in r["draft"]):
+                raise AssertionError(f"speculative [{impl}, draft seed "
+                                     f"{seed}]: draft step launches "
+                                     f"{sorted(set(r['draft']))}")
+            chunk = sorted(set(r["chunks"]))
+            print(f"speculative[{impl}, draft seed {seed}] {cfg.name} on "
+                  f"{card}: {r['spec']}; {len(r['verify'])} verify steps of "
+                  f"{pred} (B1, B2, B6, B7) launches each, as predicted; "
+                  f"{len(r['draft'])} draft steps of {dpred}; "
+                  f"{len(r['chunks'])} prefill chunks (target and draft) of "
+                  f"{chunk}; whole-run tokens/s "
+                  f"{r['tokens'] / r['wall_s']:.2f} against the plain "
+                  f"scheduler's {plain_tps:.2f} "
+                  f"({r['tokens'] / r['wall_s'] / plain_tps:.4f}x)")
+    for (seed, impl), r in spec.items():
+        if (r["streams"], r["spec"]) != (spec[seed, "kernel"]["streams"],
+                                         spec[seed, "kernel"]["spec"]):
+            raise AssertionError(f"speculative [{impl}, draft seed {seed}]: "
+                                 f"other streams or stats than under kernel")
+    for fn, impl in (("deinterleave", "kernel"), ("interleave", "kernel"),
+                     ("deinterleave_dynamic", "kernel_dynamic"),
+                     ("interleave_dynamic", "kernel_dynamic")):
+        launches[fn] += sum(spec[s, impl]["launches"][fn]
+                            for s in DRAFT_SEEDS)
+    div = {seed: first_divergence(spec[seed, "kernel"]["streams"],
+                                  plain["streams"]) for seed in DRAFT_SEEDS}
+    if not any(div.values()):
+        print(f"speculative: streams == the plain scheduler's under both "
+              f"drafts and the three policies, bf16 "
+              f"({time.perf_counter() - t0:.1f} s)")
+    else:
+        print(f"speculative: bf16 streams differ from the plain scheduler's "
+              f"at (request, token) {div}; the gate runs in float32 compute")
+        pf = cast_params(init_params(f32, SEED, device=dev), f32)
+        want = serve(dev, f32, pf, "kernel", prompts, gen, slots, max_len,
+                     page_size, cache_dtype="float32")["streams"]
+        for seed in DRAFT_SEEDS:
+            dp = pf if seed == SEED else cast_params(
+                init_params(f32, seed, device=dev), f32)
+            for impl in SPEC_POLICIES:
+                r = spec_serve(dev, f32, pf, dp, impl, prompts, gen, slots,
+                               max_len, page_size, cache_dtype="float32")
+                if r["streams"] != want:
+                    raise AssertionError(f"speculative float32 [{impl}, "
+                                         f"draft seed {seed}]: streams "
+                                         f"differ from the plain scheduler's "
+                                         f"at {first_divergence(r['streams'], want)}")
+                print(f"speculative float32 [{impl}, draft seed {seed}]: "
+                      f"streams == the plain float32 scheduler's; "
+                      f"{r['spec']}")
+        del pf
+        torch.cuda.empty_cache()
+        print(f"speculative: the gate held in float32 compute "
+              f"({time.perf_counter() - t0:.1f} s)")
+
+    # (c) the int8 pool under speculation, the audit after every mutation
+    t0 = time.perf_counter()
+    q = spec_serve(dev, cfg, params, drafts[SEED + 1], "kernel", prompts,
+                   gen, slots, max_len, page_size, kv_quant="int8",
+                   debug_invariants=True)
+    print(f"speculative int8 [kernel, draft seed {SEED + 1}] {cfg.name} on "
+          f"{card}: every request finished, {q['invariant_checks']} "
+          f"invariant checks (scale liveness included) all clean; "
+          f"{q['spec']} ({time.perf_counter() - t0:.1f} s)")
+    del params, drafts
+    torch.cuda.empty_cache()
+
+    # (d) vx.scatter_many at the KV stack
+    scatter_many_phase(dev, cfg, slots, max_len, timing, launches)
+
+    # (e) the CLI: --speculate 4 --stats, and CI's speculative fleet chaos
+    cli = run_cli(card, SPEC_CLI_FLAGS)
+    line = [ln for ln in cli["lines"] if ln.startswith("speculative:")]
+    if not line:
+        raise AssertionError("serve CLI --speculate 4: no speculative line")
+    tok = [ln for ln in cli["lines"] if "tok/s on " in ln]
+    print(f"serve CLI ({' '.join(CLI_ARGS + SPEC_CLI_FLAGS)}): exit 0, every "
+          f"request finished, {cli['wall_s']:.1f} s of wall time: {tok[0]}; "
+          f"{line[0]}")
+    cli = run_fault_cli(card, SPEC_FAULT_CLI)
+    line = [ln for ln in cli["lines"] if ln.startswith(("speculative:",
+                                                        "fleet chaos seed"))]
+    if len(line) != 2:
+        raise AssertionError("serve CLI speculative fleet chaos: no "
+                             "speculative or chaos line")
+    print(f"serve CLI (--arch qwen3-0.6b {' '.join(SPEC_FAULT_CLI)}): exit 0, "
+          f"every request terminal, {cli['wall_s']:.1f} s of wall time: "
+          f"{line[0]}; {line[1]}")
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -3041,6 +3563,8 @@ def main() -> int:
 
     launches = {k: kr["launches"][k] for k in plan}
     launches.update({k: dr["launches"][k] for k in dynamic})
+    speculative_phase(dev, cfg, card, prompts, gen, slots, max_len,
+                      page_size, timing, launches)
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})
     launches.update(ipk)

@@ -41,13 +41,20 @@ outside a terminal typed state:
       --smoke --device cpu --chaos 0 --requests 6 --gen 6 [--replicas 3 \\
       --max-len 32 --page-size 4]
 
+Speculative decode (``--speculate K``, greedy only): a draft model
+(``--draft ARCH``, by default the target's arch with weights from seed 1)
+proposes K-1 tokens and the target verifies all K in one fused page
+gather per step; ``--stats`` then prints the acceptance line:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
+      --smoke --device cpu --speculate 4 --stats
+
 ``--device`` defaults to CUDA and follows the port's rule: without a GPU
 the CLI raises unless ``--device cpu`` is given.  Params come from the
 port's seeded ``init_params`` and prompts from a seeded generator (the
-reference draws both from ``jax.random``); :func:`run` takes both as
-arguments so that a caller can feed it the reference's.  ``--speculate >
-1`` is kept and exits with a message naming the ROADMAP.md queue A item it
-waits for.
+reference draws both from ``jax.random``); :func:`run` takes the target's
+and the draft's params and the prompts as arguments so that a caller can
+feed it the reference's.
 """
 from __future__ import annotations
 
@@ -86,7 +93,7 @@ def _check_typed(requests) -> list[str]:
 
 
 def _print_stats(stats: dict) -> None:
-    """--stats: latency percentiles."""
+    """--stats: latency percentiles and speculation acceptance."""
     lat = stats.get("latency") or {}
     if lat:
         print(f"latency: ttft p50={lat.get('ttft_p50_s', 0.0):.4f}s "
@@ -95,6 +102,11 @@ def _print_stats(stats: dict) -> None:
               f"p99={lat.get('itl_p99_s', 0.0):.5f}s")
     else:
         print("latency: no samples recorded")
+    sp = stats.get("speculative")
+    if sp:
+        print(f"speculative: K={sp.get('k', '?')} "
+              f"acceptance={sp['acceptance']:.2f} "
+              f"({sp['accepted']}/{sp['proposed']} drafts accepted)")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -115,12 +127,17 @@ def parser() -> argparse.ArgumentParser:
                          "quantized pages with per-page scales, the "
                          "dequant inside the one page gather")
     ap.add_argument("--speculate", type=int, default=1, metavar="K",
-                    help="speculative decode width (queue A item 7)")
+                    help="speculative decode width: a draft model proposes "
+                         "K-1 tokens and the target verifies all K in one "
+                         "fused page gather per step (greedy sampling "
+                         "only)")
     ap.add_argument("--draft", default=None, metavar="ARCH",
-                    help="draft model arch for --speculate")
+                    help="draft model arch for --speculate (defaults to "
+                         "--arch; must be attention-only)")
     ap.add_argument("--stats", action="store_true",
                     help="print latency percentiles (TTFT / inter-token "
-                         "p50/p99) after the run")
+                         "p50/p99) and speculation acceptance after the "
+                         "run")
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="0 = greedy (default)")
     ap.add_argument("--top-k", type=int, default=None)
@@ -154,12 +171,11 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
-def _refuse_waiting(args) -> None:
-    """Exit for a flag whose feature the port lacks yet, or a combination
-    the reference CLI refuses."""
-    if args.speculate > 1:
-        raise SystemExit("--speculate > 1 waits for ROADMAP.md queue A item "
-                         "7 (speculative decode) of the port")
+def _refuse(args) -> None:
+    """Exit for a combination the reference CLI refuses."""
+    if args.speculate > 1 and args.temperature > 0.0:
+        raise SystemExit("--speculate requires greedy sampling "
+                         "(drop --temperature)")
     if args.replicas < 1:
         raise SystemExit("--replicas must be >= 1")
     if args.kill_replica is not None and args.replicas < 2:
@@ -298,20 +314,30 @@ def _run_fleet(router, args, prompts, device) -> list:
     return reqs
 
 
-def run(args, *, params=None, prompts=None) -> list:
+def run(args, *, params=None, prompts=None, draft_params=None) -> list:
     """Serve ``args.requests`` requests and print the reference CLI's
     lines: clean serving on one scheduler, a replica fleet
     (``--replicas > 1``), or a chaos plan over either (``--chaos``, whose
-    plan draws its own prompts).  ``params`` (on the run's device) and
-    ``prompts`` (token lists) default to seeded ones.  Returns the
-    requests; raises ``SystemExit(2)`` when an audit trips, the fleet
-    never drains, or a request ends outside a terminal typed state."""
-    _refuse_waiting(args)
+    plan draws its own prompts).  ``params`` (on the run's device),
+    ``draft_params`` (with ``--speculate > 1``) and ``prompts`` (token
+    lists) default to seeded ones: seed 0 for the target, seed 1 for the
+    draft.  Returns the requests; raises ``SystemExit(2)`` when an audit
+    trips, the fleet never drains, or a request ends outside a terminal
+    typed state."""
+    _refuse(args)
     device = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.smoke else arch.model
     if params is None:
         params = init_params(cfg, 0, device=device)
+    spec_kw = {}
+    if args.speculate > 1:
+        draft_arch = get_arch(args.draft or args.arch)
+        draft_cfg = draft_arch.smoke if args.smoke else draft_arch.model
+        if draft_params is None:
+            draft_params = init_params(draft_cfg, 1, device=device)
+        spec_kw = dict(speculate=args.speculate, draft_cfg=draft_cfg,
+                       draft_params=draft_params)
     if prompts is None and args.chaos is None:
         prompts = seeded_prompts(args.requests, args.prompt_len, cfg.vocab,
                                  shared_prefix=args.prefix_cache)
@@ -322,7 +348,7 @@ def run(args, *, params=None, prompts=None) -> list:
                  prefix_cache=args.prefix_cache,
                  chunk_pages=args.chunk_pages,
                  kv_quant=(None if args.kv_dtype == "float32"
-                           else args.kv_dtype), device=device)
+                           else args.kv_dtype), device=device, **spec_kw)
     if args.replicas > 1:
         if args.chaos is not None:
             # a quantized clock and a hard limit it dwarfs: determinism

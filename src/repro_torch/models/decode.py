@@ -10,7 +10,8 @@ per-page scales), ``paged_prefill_chunk``, ``paged_decode_step``
 (``fuse=True`` and ``fuse=False``), ``paged_release_slot``,
 ``paged_insert_prefill``, ``paged_invariants``, and prefix sharing:
 ``paged_adopt_prefix``, ``paged_addref``, ``paged_deref_pages`` and the
-copy-on-write ``paged_fork_page``.
+copy-on-write ``paged_fork_page``; speculative decode: the K-token
+``paged_verify_step`` and the draft pool's ``paged_truncate``.
 
 Dense layout (EARTH): each attention layer stores K and V interleaved along
 features, ``(NS, B, Sc, K, 2D)``; appending a token is one beat write per
@@ -33,9 +34,10 @@ place of ``lax.scan``.  Dense cache leaves and page pools are updated IN
 PLACE (the reference donates the cache to its jit'd step); the small
 integer state is rebuilt.
 
-Waiting for later slices: Mamba/xLSTM blocks and the encoder-decoder step,
-the sequence-sharded dense step (``kv_shard``, with ``dist``) and
-speculative verify/truncate.
+Waiting for later slices: Mamba/xLSTM blocks (in the verify step too: the
+reference's post-hoc accept-point select of recurrent state) and the
+encoder-decoder step, and the sequence-sharded dense step (``kv_shard``,
+with ``dist``).
 """
 from __future__ import annotations
 
@@ -373,7 +375,8 @@ def paged_invariants(cfg: ModelConfig, cache: dict, *,
 def _deref_push(ref, free, free_top, ids):
     """Drop one reference from each page id in ``ids`` (pad with -1; ids
     distinct) and push pages whose count hits zero back on the free
-    stack."""
+    stack.  No host sync: rows that push nothing write one slot past the
+    stack, which is cut off (the reference's ``mode="drop"``)."""
     ids = ids.to(I32)
     valid = ids >= 0
     safe = torch.where(valid, ids, torch.zeros_like(ids)).to(torch.int64)
@@ -382,9 +385,11 @@ def _deref_push(ref, free, free_top, ids):
     orphan = valid & (ref[safe] <= 0)
     oi = orphan.to(I32)
     rank = torch.cumsum(oi, 0, dtype=I32) - oi
-    free = free.clone()
-    free[(free_top + rank)[orphan].to(torch.int64)] = ids[orphan]
-    return ref, free, free_top + oi.sum(dtype=I32)
+    P = free.shape[0]
+    dst = torch.where(orphan, free_top + rank, P).to(torch.int64)
+    buf = torch.cat([free, free.new_zeros(1)])
+    buf[dst] = ids
+    return ref, buf[:P], free_top + oi.sum(dtype=I32)
 
 
 def paged_release_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
@@ -634,6 +639,192 @@ def paged_prefill_chunk(params, cache: dict, tokens: torch.Tensor,
     new_pos[slot] = torch.clamp(start + count, max=seq)
     return {"pos": new_pos, "table": table, "free": free,
             "free_top": free_top, "ref": ref, "blocks": cache["blocks"]}
+
+
+def paged_truncate(cfg: ModelConfig, cache: dict, new_pos) -> dict:
+    """Truncate every slot's position DOWN to ``new_pos`` (B,) and free the
+    pages past the new extent: the draft-cache sync of speculative decode
+    (the draft ran ahead on tokens the target then rejected).
+
+    Pages at logical indices ``>= ceil(new_pos / page_size)`` lose one
+    reference and go back on the free stack when their count hits zero.
+    The truncated range must not be shared ACROSS slots (the scheduler
+    truncates only the draft pool, which never runs the prefix trie).
+    Beats left in the surviving tail page past ``new_pos`` are unreachable
+    and overwritten by the next append."""
+    attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
+    table, pos = cache["table"], cache["pos"]
+    new_pos = torch.as_tensor(new_pos, dtype=I32, device=pos.device)
+    new_pos = torch.minimum(torch.clamp(new_pos, 0, n_seq * ps), pos)
+    ext = (new_pos + ps - 1) // ps                   # surviving extent
+    idx = torch.arange(n_seq, device=pos.device)[None, :]
+    roll = (table >= 0) & (idx >= ext[:, None])
+    ids = torch.where(roll, table, -1).reshape(-1)
+    ref, free, free_top = _deref_push(cache["ref"], cache["free"],
+                                      cache["free_top"], ids)
+    return {"pos": new_pos, "table": torch.where(roll, -1, table),
+            "free": free, "free_top": free_top, "ref": ref,
+            "blocks": cache["blocks"]}
+
+
+def _insert_beats(pre: torch.Tensor, beats: torch.Tensor,
+                  at: torch.Tensor) -> torch.Tensor:
+    """``pre.at[b, at[b, j]].set(beats[b, j], mode="drop")`` out of place:
+    ``pre`` (B, S, ...), ``beats`` (B, K, ...), ``at`` (B, K) with ``S``
+    marking a dropped row.  The rows are written into a buffer one
+    position longer, whose last position is cut off."""
+    B, S = pre.shape[:2]
+    buf = torch.cat([pre, pre.new_zeros((B, 1) + pre.shape[2:])], dim=1)
+    rows = torch.arange(B, device=pre.device)[:, None].expand(at.shape)
+    buf[rows, at.long()] = beats.to(pre.dtype)
+    return buf[:, :S]
+
+
+def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
+                      cfg: ModelConfig, ctx=None, *, n_draft, active=None,
+                      fuse: bool | None = None):
+    """Speculative K-token verify over the paged cache.
+
+    ``tokens`` is ``(B, K)`` int: column 0 is each slot's CURRENT token,
+    columns 1..K-1 the draft's proposals; ``n_draft`` (B,) in [1, K] is
+    the number of real columns per slot (a tensor: one call serves every
+    mixture of widths).  Returns ``(logits (B, K, V), out_tok (B, K),
+    commit (B,), cache)``: ``out_tok[:, j]`` is the argmax of column j and
+    ``commit`` the greedy accept count, 1 plus the number of LEADING
+    drafts equal to the previous column's argmax, so ``out_tok[b,
+    :commit[b]]`` is the non-speculative greedy stream.
+
+    The K positions stack along the beat axis of the single-token step's
+    ``vx.Paged`` spec: pages over ``[pos, pos + n_draft - 1]`` are
+    allocated in one rank-pop (exhaustion degrades locally), the append is
+    one ``(B*K,)`` scatter per layer through the table rows repeated K
+    times (the chunked prefill's shape), and the read is the step's ONE
+    fused page gather and ONE fused FIELD=2 split (``fuse=True``) or the
+    per-access pair per layer (``fuse=False``).  Attention reads the
+    PRE-append pages and inserts the K fresh beats as floats, so every
+    arm sees the same attention inputs.  The pools are updated in place
+    (the reference donates them), so the fused gather runs before any
+    scatter and the per-access gather of a layer before that layer's
+    scatter; a quantized pool's gather reads the scales before the
+    append widens them.  Rejection rolls back through the page table
+    only: pages allocated this step past the accept extent go straight
+    back on the free stack.  Recurrent blocks raise (``check_supported``).
+    """
+    check_supported(cfg)
+    params = cast_params(params, cfg)
+    fuse = cfg.step_fusion if fuse is None else fuse
+    pol = cfg.vx_policy
+    B, K = tokens.shape
+    dev = tokens.device
+    pos = cache["pos"]
+    active = (torch.ones((B,), dtype=torch.bool, device=dev)
+              if active is None else torch.as_tensor(active, device=dev)
+              .to(torch.bool))
+    n_draft = torch.clamp(torch.as_tensor(n_draft, dtype=I32, device=dev),
+                          1, K)
+    attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
+    table, free, free_top = cache["table"], cache["free"], cache["free_top"]
+    quantized = _pool_quantized(cache, attn_pos)
+    seq = n_seq * ps
+
+    offs = torch.arange(K, device=dev, dtype=I32)[None, :]
+    tpos = pos[:, None] + offs                       # (B, K) positions
+    valid = active[:, None] & (offs < n_draft[:, None])
+    # batched multi-page allocation: exactly the pages the oracle would
+    # allocate crossing boundaries in [pos, pos + n_draft - 1]
+    idx = torch.arange(n_seq, device=dev, dtype=I32)[None, :]
+    startp = (pos + ps - 1) // ps
+    lastp = (pos + n_draft - 1) // ps
+    need = (active[:, None] & (idx >= startp[:, None])
+            & (idx <= lastp[:, None]) & (table < 0))
+    have_f, newp_f, free_top = _pop_pages(free, free_top, need.reshape(-1))
+    have = have_f.reshape(B, n_seq)
+    newp_grid = torch.where(have, newp_f.reshape(B, n_seq), -1)
+    table = torch.where(have, newp_grid, table)
+    ref = _add_refs(cache["ref"], newp_f, have_f)
+    if quantized:
+        _reset_scales(cache, attn_pos, newp_f, have_f)
+    spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
+    # (B*K,) append rows through the table rows repeated K times
+    keep = valid & (tpos < seq)
+    wpos_flat = torch.where(keep, tpos, -1).reshape(-1)
+    table_flat = table.repeat_interleave(K, dim=0)
+    qpos = torch.where(valid, tpos, -1)              # pad queries
+    wp_ins = torch.where(keep, tpos, seq)            # pad rows drop
+
+    x = layers.embed(tokens, params["embed"]).to(cfg.cdtype)   # (B, K, d)
+    pre_split: dict[str, Any] = {}
+    if fuse:
+        gathered = kv_interleaved.gather_paged_kv(
+            [cache["blocks"][f"pos{i}"] for i in attn_pos], table, ps,
+            policy=pol, scales=([cache["blocks"][f"scl{i}"]
+                                 for i in attn_pos] if quantized else None))
+        splits = kv_interleaved.split_kv_step(gathered, policy=pol)
+        pre_split = {f"pos{i}": splits[a] for a, i in enumerate(attn_pos)}
+    beat_pol = (pol.for_elems(B * K * cfg.n_kv_heads * 2 * cfg.hd)
+                if fuse else pol)
+    ffn_pol = pol.for_elems(B * K * 2 * cfg.d_ff) if fuse else pol
+
+    for sbi in range(cfg.n_superblocks):
+        sb_p = superblock(params["blocks"], sbi)
+        for i in attn_pos:
+            p = sb_p[f"pos{i}"]
+            h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+            q, k, v, kv = attention.qkv_project(
+                p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, tpos,
+                cfg.rope_theta, policy=beat_pol)
+            pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
+            scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
+            if fuse:
+                k_pre, v_pre = (t[sbi] for t in pre_split[f"pos{i}"])
+            else:
+                # the per-access arm reads this layer's PRE-append pages
+                # before its scatter writes the pool in place
+                full = vx.gather(spec, pool, table=table, scales=scl,
+                                 policy=pol)
+                k_pre, v_pre = vx.transpose(
+                    vx.Segment(n=full.shape[-1], fields=2), full,
+                    policy=pol)
+            vx.scatter(spec, pool,
+                       kv.reshape(B * K, cfg.n_kv_heads, 2 * cfg.hd),
+                       table=table_flat, pos=wpos_flat, scales=scl,
+                       policy=pol)
+            # all K fresh beats inserted as floats; pad rows drop
+            k_all = _insert_beats(k_pre, k, wp_ins)
+            v_all = _insert_beats(v_pre, v, wp_ins)
+            out = attention.chunk_attention(
+                q, k_all, v_all, qpos, window=cfg.window_pattern[i])
+            x = x + (out.reshape(B, K, cfg.n_heads * cfg.hd)
+                     @ p["attn"]["wo"]).to(x.dtype)
+            if cfg.pos_has_ffn(i):
+                x, _ = _ffn_apply(p, x, cfg, ctx, i, policy=ffn_pol)
+
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = layers.unembed(x, head.to(cfg.cdtype))        # (B, K, V)
+
+    # greedy accept recurrence: commit = 1 + (# leading drafts equal to
+    # the previous column's argmax)
+    out_tok = torch.argmax(logits.float(), dim=-1).to(I32)
+    if K > 1:
+        match = ((tokens[:, 1:].to(I32) == out_tok[:, :-1])
+                 & (offs[:, 1:] < n_draft[:, None]))
+        m = torch.cumprod(match.to(I32), dim=1).sum(dim=1, dtype=I32)
+    else:
+        m = torch.zeros((B,), dtype=I32, device=dev)
+    commit = torch.where(active, 1 + m, 0).to(I32)
+    new_pos = torch.where(active, torch.clamp(pos + commit, max=seq), pos)
+
+    # rollback through the page table only: pages allocated THIS step
+    # past the accept extent are refcount 1; clear and push them back
+    ext = (new_pos + ps - 1) // ps
+    roll = have & (idx >= ext[:, None])
+    ref, free, free_top = _deref_push(
+        ref, free, free_top, torch.where(roll, newp_grid, -1).reshape(-1))
+    table = torch.where(roll, -1, table)
+    return logits, out_tok, commit, {
+        "pos": new_pos, "table": table, "free": free,
+        "free_top": free_top, "ref": ref, "blocks": cache["blocks"]}
 
 
 def paged_decode_step(params, cache: dict, token: torch.Tensor,

@@ -117,8 +117,9 @@ class BatchedServer:
         # lifecycle_kw passes the runtime knobs through unchanged
         # (queue_depth / preemption / guard_nan / watchdog /
         # debug_invariants / clock,
-        # the prefix_cache / chunk_pages prefill knobs and the kv_quant
-        # quantized-pool selector; see serve/scheduler.py)
+        # the prefix_cache / chunk_pages prefill knobs, the kv_quant
+        # quantized-pool selector and the speculate / draft_cfg /
+        # draft_params speculation knobs; see serve/scheduler.py)
         self.scheduler = Scheduler(
             cfg, params, slots=slots, max_len=max_len, page_size=page_size,
             num_pages=num_pages, cache_dtype=cache_dtype,

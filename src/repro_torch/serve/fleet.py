@@ -32,15 +32,16 @@ weights, and does
 
 The weights are cast to the compute dtype ONCE, here, and every spawn and
 respawn receives that tree (``cast_params`` returns leaves already in the
-compute dtype unchanged), so N replicas hold one copy.  ``device`` follows
+compute dtype unchanged), so N replicas hold one copy; a speculative
+fleet's draft weights (``draft_params`` with ``draft_cfg``) follow the same
+rule.  ``device`` follows
 the port's rule (cuda unless the caller passes ``device="cpu"``) and goes
 to every replica.
 
 The fleet is deterministic under an injected clock: routing ties break on
 replica index, death and respawn happen on tick boundaries, and greedy
-decode makes a request's stream independent of its batch.  The
-speculative roll-up of the reference's ``stats`` waits for speculative
-decode (ROADMAP.md queue A, item 7).
+decode makes a request's stream independent of its batch.  ``stats``
+rolls the replicas' speculative acceptance up fleet-wide.
 """
 from __future__ import annotations
 
@@ -142,6 +143,10 @@ class FleetRouter:
         self.respawn = respawn
         self.clock = clock
         self._sched_kw = dict(scheduler_kw)
+        if self._sched_kw.get("draft_params") is not None and \
+                self._sched_kw.get("draft_cfg") is not None:
+            self._sched_kw["draft_params"] = cast_params(
+                self._sched_kw["draft_params"], self._sched_kw["draft_cfg"])
         self.tick_no = 0
         self.requests: dict[int, Request] = {}      # fleet-wide registry
         self._newly_terminal: list[Request] = []    # failed in failover
@@ -424,4 +429,14 @@ class FleetRouter:
                 lat[f"{name}_p50_s"] = float(np.percentile(xs, 50))
                 lat[f"{name}_p99_s"] = float(np.percentile(xs, 99))
         out["latency"] = lat
+        # speculative roll-up: acceptance over every verify step fleet-wide
+        live = [rep.sched for rep in self.replicas if rep.alive]
+        if any(s.speculate > 1 for s in live):
+            proposed = sum(s.spec_proposed for s in live)
+            accepted = sum(s.spec_accepted for s in live)
+            out["speculative"] = {
+                "k": max(s.speculate for s in live),
+                "proposed": proposed, "accepted": accepted,
+                "acceptance": accepted / proposed if proposed else 0.0,
+            }
         return out

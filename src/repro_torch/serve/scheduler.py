@@ -34,8 +34,19 @@ carry as NaN, once.  The fleet surface (``load``, ``resident_rids``,
 ``migrate_queued``, ``adopt``, ``evacuate``, ``latency_samples``) serves the
 replica router (``serve/fleet.py``).
 
-Waiting for a later slice (it raises ``NotImplementedError``): speculative
-decode (``speculate > 1``).
+``speculate=K`` with a ``draft_cfg`` / ``draft_params`` model (greedy only,
+an attention-only draft) turns decode into a K-token verify: the draft
+proposes K-1 tokens from its own page pool (``_draft_pump``: catch-up
+chunks, then batched single steps), the target checks all K in one
+``paged_verify_step`` (one fused page gather and one fused split), and
+rejected tokens roll back through the page table and ``pos`` only; the
+draft pool is then truncated to the committed positions.  The tokens and
+the commit counts (and the finite flags, with the guard) come back to the
+host in ONE sync per verify step.  ``submit(..., speculate=k)`` sets a
+per-request width (clamped to K; 1 opts out), so speculative and plain
+slots share one verify call; replay after preemption feeds recorded
+tokens through the verify batch as perfect drafts.
+``stats()["speculative"]`` reports the acceptance.
 """
 from __future__ import annotations
 
@@ -89,11 +100,29 @@ class Scheduler:
                  guard_nan: bool = False, watchdog=None,
                  debug_invariants: bool = False,
                  prefix_cache: bool = False, chunk_pages: int = 1,
-                 speculate: int = 1, device=None,
+                 speculate: int = 1, draft_cfg: ModelConfig | None = None,
+                 draft_params=None, device=None,
                  clock: Callable[[], float] = time.monotonic):
-        if speculate != 1:
-            raise NotImplementedError("speculative decode waits for a "
-                                      "later slice of the port")
+        # speculation knobs fail loudly here, not at the first verify step
+        if speculate < 1:
+            raise ValueError(f"speculate must be >= 1, got {speculate}")
+        if speculate > 1:
+            if draft_cfg is None or draft_params is None:
+                raise ValueError("speculate > 1 requires draft_cfg and "
+                                 "draft_params (the small draft model)")
+            if temperature > 0.0:
+                raise ValueError(
+                    "speculative decode requires greedy sampling "
+                    "(temperature=0): verify accepts a draft iff it equals "
+                    "the target argmax — a sampled target has no single "
+                    "token to match against")
+            if draft_cfg.encoder is not None or \
+                    any(k != "attn" for k in draft_cfg.block_pattern):
+                raise ValueError(
+                    "draft model must be an attention-only decoder: the "
+                    "draft cache rolls back rejected tokens via "
+                    "paged_truncate (page table + pos only) and recurrent "
+                    "draft state cannot be truncated that way")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0 (0 = greedy), "
                              f"got {temperature}")
@@ -123,6 +152,26 @@ class Scheduler:
         self._prefilling: dict[int, int] = {}   # slot -> prefilled tokens
         self.prefill_chunks = 0
         self.decode_steps = 0
+        # speculative decode: the verify width is fixed (= speculate); each
+        # slot's effective width rides in as the n_draft tensor.  The draft
+        # runs in its own fully provisioned float page pool.
+        self.speculate = int(speculate)
+        self.draft_cfg = draft_cfg
+        self.draft_params = None
+        self.draft_cache: PagedCache | None = None
+        if self.speculate > 1:
+            self.draft_params = cast_params(draft_params, draft_cfg)
+            self.draft_cache = PagedCache(
+                draft_cfg, slots, max_len, self.cache.page_size,
+                cache_dtype=cache_dtype, device=self.device,
+                debug_invariants=debug_invariants)
+            vx.warm(2 * draft_cfg.hd, strided=False, fields=(2,),
+                    policy=draft_cfg.vx_policy)
+        self._spec_k = [1] * slots   # per-slot verify width (request K)
+        self._dpos = [0] * slots     # draft tokens consumed (host mirror)
+        self.spec_steps = 0          # verify steps taken
+        self.spec_proposed = 0       # draft tokens proposed to verify
+        self.spec_accepted = 0       # draft tokens accepted by verify
         # prefix sharing is sound only when every layer's state lives in
         # the page pool: the trie is gated to attention-only stacks
         self.prefix: PrefixCache | None = None
@@ -163,12 +212,20 @@ class Scheduler:
         return None
 
     def _reserved_pages(self) -> int:
-        """Pages live requests need for their CURRENT tokens."""
-        return sum(self.cache.pages_needed(len(self.tokens[s]))
+        """Pages live requests need for their CURRENT tokens, plus the
+        K-token worst case of speculative slots: a verify step may append
+        ``_spec_k[s]`` tokens before any rollback."""
+        return sum(self.cache.pages_needed(len(self.tokens[s])
+                                           + self._spec_k[s] - 1)
                    for s in range(self.slots) if self.active[s])
 
-    def _pages_for(self, toks: Sequence[int]) -> int:
-        return self.cache.pages_needed(max(len(toks) - 1, 1)) + 1
+    def _pages_for(self, toks: Sequence[int], k: int = 1) -> int:
+        return self.cache.pages_needed(max(len(toks) - 1, 1) + k - 1) + 1
+
+    def _req_k(self, req: Request) -> int:
+        """A request's verify width: its ``speculate`` clamped into [1,
+        scheduler K]."""
+        return max(1, min(int(req.speculate), self.speculate))
 
     def add_request(self, prompt: int | Sequence[int]) -> int:
         """Admit a request immediately and prefill it to completion; the
@@ -181,7 +238,7 @@ class Scheduler:
         if len(toks) > self.max_len:
             raise ValueError(f"prompt of {len(toks)} tokens exceeds "
                              f"max_len={self.max_len}")
-        req = Request(prompt=toks)
+        req = Request(prompt=toks, speculate=self.speculate)
         req.arrival_seq = next(self.queue._seq)
         self.requests[req.rid] = req
         self._submit_t[req.rid] = self.clock()
@@ -203,7 +260,7 @@ class Scheduler:
                                  retry_after=self._retry_after())
         # trie orphans are evictable: under pressure LRU leaves are dropped
         # before refusing
-        need = self._pages_for(toks)
+        need = self._pages_for(toks, self._req_k(req))
         avail = self.cache.num_pages - self._reserved_pages()
         if avail < need:
             avail += self._evict_prefix(need - avail)
@@ -216,6 +273,8 @@ class Scheduler:
         self.tokens[slot] = list(toks)
         self._fed[slot] = 0
         self._pos[slot] = 0
+        self._spec_k[slot] = self._req_k(req)
+        self._dpos[slot] = 0     # the draft catches up lazily in the pump
         self._slot_req[slot] = req
         req.slot = slot
         try:
@@ -336,18 +395,24 @@ class Scheduler:
 
     def submit(self, prompt: Sequence[int], *,
                max_new_tokens: int | None = None, priority: int = 0,
-               deadline: float | None = None,
-               ttl: float | None = None) -> Request:
+               deadline: float | None = None, ttl: float | None = None,
+               speculate: int | None = None) -> Request:
         """Queue a typed request for admission by ``tick``.  Malformed
-        requests come back already FAILED; a full queue raises
-        :class:`AdmissionError`."""
+        requests (``speculate < 1`` included) come back already FAILED; a
+        full queue raises :class:`AdmissionError`."""
         if ttl is not None:
             deadline = self.clock() + ttl if deadline is None else \
                 min(deadline, self.clock() + ttl)
         req = Request(prompt=list(prompt), max_new_tokens=max_new_tokens,
-                      priority=priority, deadline=deadline)
+                      priority=priority, deadline=deadline,
+                      speculate=self.speculate if speculate is None
+                      else int(speculate))
         self.requests[req.rid] = req
         self._submit_t[req.rid] = self.clock()
+        if req.speculate < 1:
+            req.to(RequestState.FAILED,
+                   error=f"speculate must be >= 1, got {req.speculate}")
+            return req
         if not req.prompt:
             req.to(RequestState.FAILED, error="empty prompt")
             return req
@@ -412,6 +477,8 @@ class Scheduler:
     def _release_slot(self, slot: int) -> None:
         if self.active[slot]:
             self.cache.release(slot)
+            if self.draft_cache is not None:
+                self.draft_cache.release(slot)
         if self.prefix is not None:
             self.prefix.release(slot)
         self._prefilling.pop(slot, None)
@@ -419,16 +486,47 @@ class Scheduler:
         self.tokens[slot] = []
         self._fed[slot] = 0
         self._pos[slot] = 0
+        self._spec_k[slot] = 1
+        self._dpos[slot] = 0
         self._slot_req[slot] = None
 
     # -- decode -------------------------------------------------------------
     def step(self) -> list[int]:
         """Advance every ACTIVE, fully prefilled slot; others report -1.
         Slots behind their replay cursor feed the next replayed token and
-        discard the sampled output until they catch up."""
+        discard the sampled output until they catch up.  When any slot
+        speculates this step, the whole active set goes through the one
+        K-wide verify call instead (``_step_speculative``): plain slots
+        ride along at width 1."""
         t0 = time.perf_counter()
         decoding = [self.active[s] and s not in self._prefilling
                     for s in range(self.slots)]
+        if self.speculate > 1 and any(
+                decoding[s] and self._spec_k[s] > 1
+                for s in range(self.slots)):
+            out = self._step_speculative(decoding)
+        else:
+            out = self._step_plain(decoding)
+        self.decode_steps += 1
+        self.cache._maybe_check()
+        dt = time.perf_counter() - t0
+        self._step_ewma = dt if self._step_ewma == 0.0 else \
+            0.8 * self._step_ewma + 0.2 * dt
+        if self.watchdog is not None:
+            self.watchdog.observe(dt)
+        return out
+
+    def _taint_logits(self, logits: torch.Tensor) -> torch.Tensor:
+        """The chaos hook: the tainted rows' logits become NaN, once."""
+        if self._taint is None:
+            return logits
+        mask = torch.as_tensor(self._taint, device=logits.device)
+        mask = mask.reshape(mask.shape + (1,) * (logits.ndim - 1))
+        self._taint = None
+        return torch.where(mask, torch.nan, logits.float()).to(logits.dtype)
+
+    def _step_plain(self, decoding: list[bool]) -> list[int]:
+        """The single-token decode step."""
         cur = torch.tensor([self.tokens[s][self._fed[s]] if decoding[s]
                             else 0 for s in range(self.slots)],
                            dtype=torch.int32, device=self.device)
@@ -436,12 +534,7 @@ class Scheduler:
         logits, self.cache.state = dec.paged_decode_step(
             self.params, self.cache.state, cur, self.cfg, None, active=act,
             fuse=self.fuse_step)
-        self.decode_steps += 1
-        if self._taint is not None:      # chaos-only NaN injection hook
-            mask = torch.as_tensor(self._taint, device=logits.device)[:, None]
-            logits = torch.where(mask, torch.nan, logits.float()).to(
-                logits.dtype)
-            self._taint = None
+        logits = self._taint_logits(logits)
         self.last_logits = logits
         fin = None
         if self.guard_nan:
@@ -478,17 +571,161 @@ class Scheduler:
             else:
                 self.tokens[s].append(t)
                 self._fed[s] += 1
-                self._note_tokens(s, t_now)
+                self._note_tokens(s, t_now, 1)
             out.append(t)
-        self.cache._maybe_check()
-        dt = time.perf_counter() - t0
-        self._step_ewma = dt if self._step_ewma == 0.0 else \
-            0.8 * self._step_ewma + 0.2 * dt
-        if self.watchdog is not None:
-            self.watchdog.observe(dt)
         return out
 
-    def _note_tokens(self, slot: int, t_now: float) -> None:
+    def _step_speculative(self, decoding: list[bool]) -> list[int]:
+        """One K-wide verify step over the whole active set.
+
+        Per slot the batch is up to ``_spec_k`` recorded tokens when the
+        slot is behind its replay cursor (recorded tokens are perfect
+        drafts under greedy decode), else the head token plus ``_spec_k -
+        1`` draft tokens from :meth:`_draft_pump`; a width is clamped so
+        that a commit never passes ``max_new_tokens``.  A commit ``c``
+        advances the cursor or appends exactly the tokens the plain step
+        would produce; the verify call has already rolled the rejected
+        pages back.  The draft pool is then truncated to the committed
+        positions."""
+        K = self.speculate
+        toks = np.zeros((self.slots, K), np.int32)
+        nd = np.ones((self.slots,), np.int32)
+        recorded = [0] * self.slots
+        need = [0] * self.slots
+        for s in range(self.slots):
+            if not decoding[s]:
+                continue
+            k = self._spec_k[s]
+            req = self._slot_req[s]
+            if req is not None and req.max_new_tokens is not None:
+                behind = len(self.tokens[s]) - 1 - self._fed[s]
+                done = len(self.tokens[s]) - len(req.prompt)
+                rem = max(req.max_new_tokens - done, 0)
+                k = max(1, min(k, behind + rem))
+            avail = len(self.tokens[s]) - self._fed[s]
+            r = min(avail, k)
+            toks[s, :r] = self.tokens[s][self._fed[s]:self._fed[s] + r]
+            recorded[s] = nd[s] = r
+            if r == avail and k > r:
+                need[s] = k - r          # top up with draft-model tokens
+        if any(need):
+            drafts = self._draft_pump(need)
+            for s in range(self.slots):
+                if need[s]:
+                    got = drafts[s]
+                    toks[s, recorded[s]:recorded[s] + len(got)] = got
+                    nd[s] = recorded[s] + len(got)
+        act = torch.tensor(decoding, device=self.device)
+        logits, o, commit, self.cache.state = dec.paged_verify_step(
+            self.params, self.cache.state,
+            torch.from_numpy(toks).to(self.device), self.cfg, None,
+            n_draft=torch.from_numpy(nd).to(self.device), active=act,
+            fuse=self.fuse_step)
+        logits = self._taint_logits(logits)
+        self.last_logits = logits[:, 0, :]
+        # ONE host sync: the tokens, the commits (and the finite flags)
+        parts = [o, commit[:, None]]
+        if self.guard_nan:
+            parts.append(torch.isfinite(logits.float()).all(dim=-1)
+                         .to(torch.int32))
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        o_np, cm = host[:, :K], host[:, K]
+        fin = host[:, K + 1:].astype(bool) if self.guard_nan else None
+        out = []
+        t_now = self.clock()
+        seq_cap = self.cache.pages_per_seq * self.cache.page_size
+        drafted = False
+        for s in range(self.slots):
+            if not decoding[s]:
+                out.append(-1)
+                continue
+            c = max(int(cm[s]), 1)
+            if fin is not None and not np.all(fin[s, :c]):
+                self.nan_failures += 1
+                self.fail_slot(s, "non-finite logits")
+                out.append(-1)
+                continue
+            fresh = 0
+            for j in range(c):
+                if self._fed[s] < len(self.tokens[s]) - 1:
+                    self._fed[s] += 1    # replay: the record has it
+                else:
+                    self.tokens[s].append(int(o_np[s, j]))
+                    self._fed[s] += 1
+                    fresh += 1
+            self._pos[s] = min(self._pos[s] + c, seq_cap)
+            if need[s]:
+                drafted = True
+                self.spec_proposed += need[s]
+                self.spec_accepted += max(0, c - recorded[s])
+            if fresh:
+                self._note_tokens(s, t_now, fresh)
+            out.append(int(o_np[s, c - 1]))
+        self.spec_steps += 1
+        if drafted:
+            # the rejected draft tail rolls back through its page table; a
+            # fully accepted step leaves the draft one token behind, which
+            # the next pump's catch-up singles cover
+            self.draft_cache.state = dec.paged_truncate(
+                self.draft_cfg, self.draft_cache.state,
+                torch.tensor(self._pos, dtype=torch.int32,
+                             device=self.device))
+            self.draft_cache._maybe_check()
+            for s in range(self.slots):
+                self._dpos[s] = min(self._dpos[s], self._pos[s])
+        return out
+
+    def _draft_pump(self, need: list[int]) -> list[list[int]]:
+        """``need[s]`` draft tokens per slot from the draft model: first
+        the draft pool catches up on the slot's recorded tokens (whole
+        pages through the chunk prefill, then single steps), then the
+        drafts autoregress from the head token.  Single steps are batched
+        across slots through one draft step with an active mask."""
+        dc = self.draft_cache
+        ps = dc.page_size
+        for s in range(self.slots):
+            if need[s] <= 0:
+                continue
+            target = len(self.tokens[s]) - 1     # tokens before the head
+            while self._dpos[s] % ps == 0 and \
+                    target - self._dpos[s] >= ps:
+                tok = torch.tensor(
+                    self.tokens[s][self._dpos[s]:self._dpos[s] + ps],
+                    dtype=torch.int32, device=self.device)
+                dc.state = dec.paged_prefill_chunk(
+                    self.draft_params, dc.state, tok, self.draft_cfg, None,
+                    slot=s, count=ps)
+                self._dpos[s] += ps
+        drafts: list[list[int]] = [[] for _ in range(self.slots)]
+        pend = {s for s in range(self.slots) if need[s] > 0}
+        while pend:
+            feed = np.zeros((self.slots,), np.int32)
+            act = np.zeros((self.slots,), bool)
+            for s in pend:
+                i = self._dpos[s]
+                feed[s] = self.tokens[s][i] if i < len(self.tokens[s]) \
+                    else drafts[s][i - len(self.tokens[s])]
+                act[s] = True
+            lg, dc.state = dec.paged_decode_step(
+                self.draft_params, dc.state,
+                torch.from_numpy(feed).to(self.device), self.draft_cfg,
+                None, active=torch.from_numpy(act).to(self.device),
+                fuse=self.fuse_step)
+            nxt = torch.argmax(lg.float(), dim=-1).cpu().numpy()
+            for s in list(pend):
+                keep = self._dpos[s] >= len(self.tokens[s]) - 1
+                self._dpos[s] += 1
+                if keep:
+                    drafts[s].append(int(nxt[s]))
+                    if len(drafts[s]) >= need[s]:
+                        pend.discard(s)
+        dc._maybe_check()
+        return drafts
+
+    def _note_tokens(self, slot: int, t_now: float, n: int) -> None:
+        """Latency samples for ``n`` tokens appended to ``slot``: TTFT on
+        the first, then the gap per token (a K-token commit records
+        gap/K)."""
         req = self._slot_req[slot]
         if req is None:
             return
@@ -498,7 +735,7 @@ class Scheduler:
             if t0 is not None:
                 self._ttft.append(max(t_now - t0, 0.0))
         else:
-            self._itl.append(max(t_now - last, 0.0))
+            self._itl.append(max(t_now - last, 0.0) / n)
         self._last_tok_t[req.rid] = t_now
 
     # -- lifecycle pump ------------------------------------------------------
@@ -542,16 +779,26 @@ class Scheduler:
         if self.preemption and any(self.active):
             ps = self.cache.page_size
             n_seq = self.cache.pages_per_seq
-            crossers = {s for s in range(self.slots)
+
+            def _step_new_pages(s: int) -> int:
+                # pages this step may allocate for slot s: a plain slot
+                # crosses at most one boundary, a speculative slot may
+                # append up to _spec_k tokens before rollback
+                p = self._pos[s]
+                first = -(-p // ps)
+                last = min((p + self._spec_k[s] - 1) // ps, n_seq - 1)
+                return max(0, last - first + 1)
+
+            crossers = {s: _step_new_pages(s) for s in range(self.slots)
                         if self.active[s] and s not in self._prefilling
-                        and self._pos[s] % ps == 0
-                        and self._pos[s] // ps < n_seq}
-            short = len(crossers) - self.cache.free_pages()
+                        and _step_new_pages(s) > 0}
+            short = sum(crossers.values()) - self.cache.free_pages()
             if short > 0:
                 self._evict_prefix(short)
             for _ in range(self.slots):
-                live = {s for s in crossers if self.active[s]}
-                if len(live) <= self.cache.free_pages():
+                live = {s: n for s, n in crossers.items()
+                        if self.active[s]}
+                if sum(live.values()) <= self.cache.free_pages():
                     break
                 victim = self._victim()
                 if victim is None or (victim in live and len(live) == 1):
@@ -634,6 +881,8 @@ class Scheduler:
             self.tokens[s] = []
             self._fed[s] = 0
             self._pos[s] = 0
+            self._spec_k[s] = 1
+            self._dpos[s] = 0
             self._slot_req[s] = None
         self._prefilling.clear()   # cursors die with the replica's pool
         out.extend(self.migrate_queued())
@@ -658,6 +907,15 @@ class Scheduler:
         if self.watchdog is not None:
             out["watchdog_breaches"] = self.watchdog.breaches
         out["latency"] = self.latency_stats()
+        if self.speculate > 1:
+            out["speculative"] = {
+                "k": self.speculate,
+                "verify_steps": self.spec_steps,
+                "proposed": self.spec_proposed,
+                "accepted": self.spec_accepted,
+                "acceptance": (self.spec_accepted / self.spec_proposed
+                               if self.spec_proposed else 0.0),
+            }
         return out
 
     def latency_samples(self) -> dict[str, list[float]]:

@@ -18,6 +18,8 @@ One spec type per access, a few verbs, one policy::
     seqs = vx.gather(pg, pool, table=tables)               # paged read
     pool = vx.scatter(pg, pool, beats, table=tables, pos=pos)  # append
     alls = vx.gather_many(pg, pools, table=tables)         # ONE program
+    aos  = vx.scatter_many(vx.Segment(n=2 * d, fields=2),
+                           [[k0, v0], [k1, v1]])           # ONE interleave
     seqs = vx.gather(pg, qpool, table=tables, scales=scl)  # int8 / fp8
     qpool, scl = vx.scatter(pg, qpool, beats, table=tables, pos=pos,
                             scales=scl)                    # widen + write
@@ -34,12 +36,13 @@ One spec type per access, a few verbs, one policy::
 
 The port covers ``Strided`` (static and runtime ``BANK`` strides),
 ``Segment``, ``Indexed``, ``Compact`` and ``Paged`` specs (float and
-quantized pools); the rest of the reference's vx layer (``scatter_many``,
-sharded lowering) waits for later slices (ROADMAP.md, queue A).
+quantized pools) and every verb of the reference; its sharded lowering
+waits for a later slice (ROADMAP.md, queue A).
 """
 from repro_torch.vx import lower, program
 from repro_torch.vx._dispatch import (compact, gather, gather_many,
-                                      scatter, transpose, warm)
+                                      scatter, scatter_many, transpose,
+                                      warm)
 from repro_torch.vx.cache import PLANS, PlanCache
 from repro_torch.vx.policy import (BANK_FIELDS, BANK_STRIDES, IMPLS,
                                    MIN_FUSED_ELEMS, Policy, current, resolve,
@@ -51,7 +54,7 @@ from repro_torch.vx.spec import (BANK, AccessSpec, Compact, Indexed, Paged,
 __all__ = [
     "AccessSpec", "Strided", "Segment", "Indexed", "Compact", "Paged",
     "BANK", "gather", "scatter", "transpose", "compact", "gather_many",
-    "warm",
+    "scatter_many", "warm",
     "Policy", "use", "current", "resolve",
     "PLANS", "PlanCache", "Program", "Txn", "program", "lower",
     "MIN_FUSED_ELEMS", "BANK_STRIDES", "BANK_FIELDS", "IMPLS",

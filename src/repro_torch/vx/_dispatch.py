@@ -4,8 +4,8 @@ pipeline (port of ``repro``'s ``vx/_dispatch.py``).
 The port has ``transpose`` (Segment), ``gather`` / ``scatter`` (Strided,
 Indexed, Paged over float and quantized pools, and the Compact
 expansion), ``compact`` (Compact), ``gather_many`` (Strided, Paged and
-Segment) and ``warm``.  ``scatter_many`` and ``shard=`` wait for later
-slices.
+Segment), ``scatter_many`` (Segment) and ``warm``.  ``shard=`` waits for
+the distribution slice.
 """
 from __future__ import annotations
 
@@ -264,6 +264,27 @@ def gather_many(specs, bufs, *, table=None, scales=None,
     if len(bufs) == 1:
         return [list(outs)]
     return [[o[a] for o in outs] for a in range(len(bufs))]
+
+
+def scatter_many(spec: Segment, groups, *,
+                 policy: Policy | str | None = None) -> list[torch.Tensor]:
+    """Step-fused segment store: same-shape SoA groups (each a sequence of
+    ``spec.fields`` arrays ``(..., m)``) in ONE interleave (one B2 launch
+    under ``kernel``, one B7 under ``kernel_dynamic``).  Returns one AoS
+    array ``(..., fields * m)`` per group."""
+    if not isinstance(spec, Segment):
+        raise TypeError("scatter_many needs a Segment spec")
+    pol = resolve(policy)
+    groups = [list(g) for g in groups]
+    spec = spec.bind(groups[0][0].dtype)
+    prog = _program.fuse([_lower.lower("seg.int", spec,
+                                       pol.impl)] * len(groups))
+    fn = _lower.executor(prog, (spec,) * len(groups))
+    if len(groups) == 1:
+        return [fn(groups[0])]
+    stacked = [torch.stack([g[f] for g in groups])
+               for f in range(spec.fields)]
+    return list(fn(stacked).unbind(0))
 
 
 def _gather_many_strided(specs: list, bufs, pol: Policy) -> torch.Tensor:

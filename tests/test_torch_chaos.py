@@ -330,3 +330,49 @@ def test_no_fault_clean_run_zero_steady_state_plan_misses():
     assert steady["misses"] == warm["misses"], (warm, steady)
     assert r1.state is RequestState.FINISHED
     assert r2.state is RequestState.FINISHED
+
+
+# --------------------------- chaos under speculation -------------------------
+
+@functools.lru_cache(maxsize=None)
+def _drafts():
+    """The reference CLI's draft (the target's arch, weights from seed 1),
+    for the reference and the port."""
+    cfg, _ = _jax()
+    jd = jinit(cfg, jax.random.key(1))
+    pcfg, _ = _port()
+    return (dict(speculate=4, draft_cfg=cfg, draft_params=jd),
+            dict(speculate=4, draft_cfg=pcfg, draft_params=params_from_jax(
+                jax_tree_to_np(jd), pcfg, device="cpu")))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_chaos_run_speculative_matches_reference(seed):
+    """The seeded plan through K=4 speculative schedulers: the reference's
+    report, states and streams, and its speculative counts (preemption
+    replays through the verify batch, NaN taints a (B, K) verify)."""
+    jkw, kw = _drafts()
+    jsched = _ref_chaos_sched(**jkw)
+    want = jchaos.run_plan(jsched, jchaos.FaultPlan(jchaos.ChaosConfig(
+        seed=seed, **PLAN_KW)))
+    sched = _chaos_sched(**kw)
+    got = run_plan(sched, FaultPlan(ChaosConfig(seed=seed, **PLAN_KW)))
+    assert _summary(got) == _summary(want)
+    assert _per_request(got) == _per_request(want)
+    assert sched.stats()["speculative"] == jsched.stats()["speculative"]
+    assert sched.spec_steps > 0
+    assert got.all_terminal and sched.drained()
+
+
+def test_chaos_run_speculative_int8_holds_the_audit():
+    """Speculation over an int8 pool under the seeded plan (rejected beats
+    may have widened a surviving page's scale): every request terminal,
+    the scale-extended audit every tick, drained."""
+    _, kw = _drafts()
+    sched = _chaos_sched(kv_quant="int8", debug_invariants=True, **kw)
+    rep = run_plan(sched, FaultPlan(ChaosConfig(seed=0, **PLAN_KW)))
+    assert rep.all_terminal and sched.drained()
+    assert rep.invariant_checks >= rep.ticks
+    assert sched.spec_steps > 0
+    for r in rep.submitted:
+        assert r.state is not RequestState.FAILED or r.error

@@ -289,11 +289,71 @@ def test_cli_subprocess_on_cpu():
     assert lines[-1].startswith("latency:")
 
 
+@functools.lru_cache(maxsize=None)
+def _draft():
+    """The reference CLI's draft weights (the target's smoke arch, seed 1)
+    as the port's."""
+    jcfg, _ = _jax()
+    cfg, _ = _port()
+    return params_from_jax(jax_tree_to_np(jinit(jcfg, jax.random.key(1))),
+                           cfg, device="cpu")
+
+
+SPEC_LINES = ("pages:", "req ", "speculative:")
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--speculate", "2"], "item 7")])
-def test_cli_flags_that_wait_exit_with_their_item(flags, item):
-    with pytest.raises(SystemExit, match=item):
-        cli.main(CLI_ARGS + ["--device", "cpu"] + flags)
+def test_cli_flags_that_wait_exit_with_their_item(monkeypatch, flags, item):
+    """The flag that waited for queue A ``item`` runs now: with the
+    reference's params, draft and prompts, the reference CLI's streams and
+    its page, request and ``speculative:`` lines."""
+    flags = flags + ["--stats"]
+    want_lines, want_streams = _reference_cli(monkeypatch, flags)
+    cfg, params = _port()
+    args = cli.parser().parse_args(CLI_ARGS + ["--device", "cpu"] + flags)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        reqs = cli.run(args, params=params, draft_params=_draft(),
+                       prompts=_reference_prompts(cfg.vocab))
+    got_lines = out.getvalue().splitlines()
+    assert [r.tokens for r in reqs] == want_streams, item
+
+    def keep(lines):
+        return [re.sub(r"^req \d+:", "req:", ln) for ln in lines
+                if ln.startswith(SPEC_LINES)]
+    assert keep(got_lines) == keep(want_lines)
+    assert got_lines[-1].startswith("speculative: K=2 ")
+
+
+@pytest.mark.parametrize("flags", [["--speculate", "4", "--stats"],
+                                   ["--speculate", "4", "--stats",
+                                    "--kv-dtype", "int8"]])
+def test_cli_speculative_matches_reference_cli(monkeypatch, flags):
+    """``--speculate 4 --stats`` (float32 and int8 pools): the reference
+    CLI's streams and its page, request and acceptance lines."""
+    want_lines, want_streams = _reference_cli(monkeypatch, flags)
+    cfg, params = _port()
+    args = cli.parser().parse_args(CLI_ARGS + ["--device", "cpu"] + flags)
+    out = io.StringIO()
+    with redirect_stdout(out):
+        reqs = cli.run(args, params=params, draft_params=_draft(),
+                       prompts=_reference_prompts(cfg.vocab))
+    got_lines = out.getvalue().splitlines()
+    assert [r.tokens for r in reqs] == want_streams
+    assert all(r.state.value == "finished" for r in reqs)
+
+    def keep(lines):
+        return [re.sub(r"^req \d+:", "req:", ln) for ln in lines
+                if ln.startswith(SPEC_LINES)]
+    assert keep(got_lines) == keep(want_lines)
+    assert len(keep(got_lines)) == N_REQ + 2
+
+
+def test_cli_speculate_refuses_sampling():
+    with pytest.raises(SystemExit, match="greedy"):
+        cli.main(CLI_ARGS + ["--device", "cpu", "--speculate", "4",
+                             "--temperature", "0.8"])
 
 
 # the four fault-tolerance runs of chip_smoke.py phase 9, at smoke size
@@ -305,9 +365,14 @@ FAULT_RUNS = {
     "fleet-chaos": "--replicas 3 --chaos 0 --requests 6 --gen 6 --max-len 32 "
                    "--page-size 4",
     "fleet-chaos-int8": "--replicas 2 --chaos 7 --requests 6 --gen 6 "
-                        "--max-len 32 --page-size 4 --kv-dtype int8"}
+                        "--max-len 32 --page-size 4 --kv-dtype int8",
+    # ci.yml's speculative fleet chaos smoke
+    "fleet-chaos-int8-speculative": "--replicas 3 --chaos 0 --requests 6 "
+                                    "--gen 6 --max-len 32 --page-size 4 "
+                                    "--kv-dtype int8 --speculate 4 --stats"}
 FAULT_LINES = ("req ", "fleet:", "  r", "killing replica", "chaos seed",
-               "fleet chaos seed", "fleet prefix cache:", "every request")
+               "fleet chaos seed", "fleet prefix cache:", "every request",
+               "speculative:")
 
 
 @pytest.mark.parametrize("name", sorted(FAULT_RUNS))
@@ -328,7 +393,8 @@ def test_cli_fault_runs_match_reference_cli(monkeypatch, name):
                                      length=args.prompt_len)
     out = io.StringIO()
     with redirect_stdout(out):
-        reqs = cli.run(args, params=params, prompts=prompts)
+        reqs = cli.run(args, params=params, prompts=prompts,
+                       draft_params=_draft() if args.speculate > 1 else None)
     got_lines = out.getvalue().splitlines()
     assert [r.tokens for r in reqs] == want_streams
     assert all(r.terminal for r in reqs)
@@ -339,7 +405,9 @@ def test_cli_fault_runs_match_reference_cli(monkeypatch, name):
         return [re.sub(r" in [0-9.]+s( \([^)]*\))?", "", ln)
                 for ln in lines]
     assert keep(got_lines) == keep(want_lines)
-    if args.chaos is not None:
+    if args.speculate > 1:
+        assert got_lines[-1].startswith("speculative: K=4 ")
+    elif args.chaos is not None:
         assert got_lines[-1].startswith(
             "every request reached a terminal typed state")
     else:

@@ -605,3 +605,79 @@ def test_fleet_stats_roll_up_prefix_and_latency():
             "prefix_hits", "prefix_misses", "prefix_hit_rate",
             "prefix_tokens_reused", "shared_pages", "finished")})
     assert views[0] == views[1]
+
+
+# --------------------------- the speculative fleet ---------------------------
+
+@functools.lru_cache(maxsize=None)
+def _drafts():
+    """The reference CLI's draft (the target's arch, weights from seed 1)
+    for the reference and the port."""
+    cfg, _ = _jax()
+    jd = jinit(cfg, jax.random.key(1))
+    pcfg, _ = _port()
+    return (dict(speculate=4, draft_cfg=cfg, draft_params=jd),
+            dict(speculate=4, draft_cfg=pcfg, draft_params=params_from_jax(
+                jax_tree_to_np(jd), pcfg, device="cpu")))
+
+
+@pytest.mark.parametrize("kv_quant", [None, "int8"])
+def test_fleet_chaos_speculative_matches_reference(kv_quant):
+    """CI's speculative fleet chaos smoke at the test geometry: the seeded
+    plan through K=4 speculative replicas gives the reference's report,
+    states and streams, and the fleet's speculative roll-up equals the
+    reference router's."""
+    jkw, kw = _drafts()
+    plan_kw = dict(seed=0, **CHAOS_PLAN)
+    fl = _fleet(kv_quant=kv_quant, **CHAOS_KW, **kw)
+    jfl = _ref_fleet(kv_quant=kv_quant, **CHAOS_KW, **jkw)
+    got = run_fleet_plan(fl, FleetFaultPlan(FleetChaosConfig(**plan_kw)))
+    want = jchaos.run_fleet_plan(
+        jfl, jchaos.FleetFaultPlan(jchaos.FleetChaosConfig(**plan_kw)))
+    fields = ("ticks", "states", "deaths", "respawns", "migrated", "drains",
+              "backpressured", "audits", "recovered")
+    assert {f: getattr(got, f) for f in fields} == \
+        {f: getattr(want, f) for f in fields}
+    assert [(r.state.value, r.tokens) for r in got.submitted] == \
+        [(r.state.value, r.tokens) for r in want.submitted]
+    assert got.all_terminal and got.audits == got.ticks
+    st, jst = fl.stats(), jfl.stats()
+    assert st["speculative"] == jst["speculative"]
+    assert st["speculative"]["proposed"] > 0
+
+
+def test_fleet_stats_roll_up_speculative():
+    """A speculative fleet without faults: the roll-up of acceptance over
+    the live replicas equals the reference router's."""
+    jkw, kw = _drafts()
+    views = []
+    for fl in (_fleet(replicas=2, max_len=32, **kw),
+               _ref_fleet(replicas=2, max_len=32, **jkw)):
+        reqs = [fl.submit([3, 5, 7, 9, 2], max_new_tokens=6),
+                fl.submit([4, 6], max_new_tokens=6)]
+        _drain(fl, reqs)
+        st = fl.stats()
+        views.append((st["speculative"], _view(reqs)))
+    assert views[0] == views[1]
+    assert views[0][0]["k"] == 4 and views[0][0]["proposed"] > 0
+
+
+def test_speculative_replicas_share_one_draft_copy():
+    """The router casts the draft once too: every replica, and every
+    respawn, reads the same draft tensors."""
+    _, kw = _drafts()
+    cfg, params = _port()
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    kw = dict(kw, draft_cfg=dataclasses.replace(kw["draft_cfg"],
+                                                compute_dtype="bfloat16"))
+    fl = FleetRouter(cfg, params, replicas=3, slots=2, max_len=16,
+                     page_size=4, device="cpu", **kw)
+    base = [t.data_ptr() for t in _leaves(fl.replicas[0].sched.draft_params)]
+    assert all(t.dtype == torch.bfloat16
+               for t in _leaves(fl.replicas[0].sched.draft_params)
+               if t.is_floating_point())
+    fl.kill_replica(1)
+    fl.tick()
+    assert fl.respawns == 1
+    for rep in fl.replicas:
+        assert [t.data_ptr() for t in _leaves(rep.sched.draft_params)] == base

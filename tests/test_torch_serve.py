@@ -145,9 +145,29 @@ def test_sampling_seeded_and_topk1_is_greedy():
 
 @pytest.mark.parametrize("knob", [dict(speculate=2)])
 def test_waiting_knobs_raise(knob):
+    """The knob the port once refused runs now.  ``speculate=2`` with a
+    draft (the reference CLI's: the target's arch, weights from seed 1)
+    gives the reference scheduler's streams and speculative stats on the
+    ci.yml smoke; without a draft both raise the reference's ValueError."""
+    jcfg, jparams = _jax()
     cfg, params = _port()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         Scheduler(cfg, params, slots=1, max_len=16, device="cpu", **knob)
+    with pytest.raises(ValueError):
+        JScheduler(jcfg, jparams, slots=1, max_len=16, **knob)
+    jdraft = jinit(jcfg, jax.random.key(1))
+    draft = params_from_jax(jax_tree_to_np(jdraft), cfg, device="cpu")
+    prompts = _prompts(5)
+    js = JScheduler(jcfg, jparams, slots=N_REQ, max_len=MAX_LEN,
+                    draft_cfg=jcfg, draft_params=jdraft, **knob)
+    ts = Scheduler(cfg, params, slots=N_REQ, max_len=MAX_LEN, device="cpu",
+                   draft_cfg=cfg, draft_params=draft, **knob)
+    want, got = _serve(js, prompts), _serve(ts, prompts)
+    assert got == want == _serve(Scheduler(cfg, params, slots=N_REQ,
+                                           max_len=MAX_LEN, device="cpu"),
+                                 prompts)
+    assert ts.stats()["speculative"] == js.stats()["speculative"]
+    assert ts.spec_steps > 0
 
 
 def _serve_staggered(sched, prompts, gen=GEN):
