@@ -217,12 +217,39 @@ Phases, in order (any failure raises and exits non-zero):
    CLI with ``--speculate 4 --stats`` at full width and CI's speculative
    fleet chaos smoke (``--replicas 3 --chaos 0 --kv-dtype int8
    --speculate 4 --stats``) in subprocesses: exit 0 and a
-   ``speculative:`` line.
+   ``speculative:`` line;
+11. model families at full width through the port's ``Scheduler``
+   (seeded random weights cast once to bf16, the router float32; before
+   each cell the parameter count and bytes predicted from the config's
+   shapes, after init ``param_count`` held against the prediction and
+   ``max_memory_allocated`` beside it; every run's wall seconds): (a)
+   gemma3-12b, depth cut from 48 to 6 layers (one 5 local : 1 global
+   superblock, window 1024; B1 and B6 first held bit for bit on its GLU
+   split, 30720 lanes, whose rows the wrappers fold into chunks that fit
+   the copy's shared memory), 2 slots, max_len 2048, page_size 16, 2
+   numpy-seeded prompts of 1600-1800 tokens, 16 greedy tokens, under
+   ``kernel``, ``ref`` and ``kernel_dynamic``: streams equal, in every
+   decode step one fused split and the 6 GLU splits that reach the launch
+   threshold (B1, B6, none; as ``verify_prediction`` reads
+   ``paged_decode_step``), and the dense engine's banded
+   prefill and ring-cache decode steps against the paged cache's chunks
+   and steps on the same tokens, the largest logit gap within ``max(0.08,
+   0.03 * |logits|max)``; (b) starcoder2-3b at its published geometry (30
+   layers, GELU MLP, 2 KV heads) on phase 4's traffic (its vocabulary)
+   under the three policies with phase 4's gates; (c) qwen3-moe-30b-a3b,
+   depth cut from 48 to 4 layers (128 experts, top-8), phase 4's traffic
+   under ``kernel``, ``ref``, ``kernel_dynamic`` and ``kernel`` again
+   (the two kernel runs' streams equal: the MoE combine is deterministic
+   on CUDA), and one MoE layer alone at the decode step's shape (CUDA
+   events, host clock, host syncs a call); (d) the CLI with ``--smoke``
+   for llava-next-mistral-7b, granite-34b and phi3.5-moe in
+   subprocesses: exit 0, every request finished.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
-``scatter_many`` call under the same policies; the strided path's for
+``scatter_many`` call and phase 11's scheduler runs under the same
+policies; the strided path's for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -2032,14 +2059,14 @@ def dense_vs_paged(dev, cfg, params, slots: int, page_size: int) -> list:
     return diffs
 
 
-def run_cli(card: str, flags=()) -> dict:
+def run_cli(card: str, flags=(), base=CLI_ARGS) -> dict:
     """Phase 7c (and 8, with ``flags``): the port's serve CLI at full width
-    in a subprocess."""
+    in a subprocess (phase 11: ``base`` names another arch)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          *CLI_ARGS, *flags], cwd=ROOT, env=env,
+                          *base, *flags], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     if out.returncode != 0:
@@ -2140,10 +2167,12 @@ QUANT_CLI_FLAGS = ("--kv-dtype", "int8", "--prefix-cache", "--chunk-pages",
                    "2", "--check-invariants")
 
 
-def check_step_launches(name: str, impl: str, r: dict) -> None:
+def check_step_launches(name: str, impl: str, r: dict,
+                        split: tuple | None = None) -> None:
     """The kernels of ``impl`` launched on the run and no other policy's;
     exactly one fused split per decode step (B1 under ``kernel``, B6 under
-    ``kernel_dynamic``, none under ``ref``)."""
+    ``kernel_dynamic``, none under ``ref``), or the (B1, B6) of ``split``
+    in every decode step."""
     plan = ("deinterleave", "interleave")
     dynamic = ("deinterleave_dynamic", "interleave_dynamic")
     mine, other = {"kernel": (plan, dynamic),
@@ -2152,7 +2181,8 @@ def check_step_launches(name: str, impl: str, r: dict) -> None:
     if any(r["launches"][k] <= 0 for k in mine) or \
             any(r["launches"][k] != 0 for k in other):
         raise AssertionError(f"{name} [{impl}]: launches {r['launches']}")
-    if any(n != SPLIT[impl] for n in r["step_launches"]):
+    split = SPLIT[impl] if split is None else split
+    if any(n != split for n in r["step_launches"]):
         raise AssertionError(f"{name} [{impl}]: fused split launches (B1, "
                              f"B6) per decode step {r['step_launches']}")
 
@@ -2899,13 +2929,23 @@ def seg_delta(before: dict) -> tuple:
     return tuple(now[k] - before[k] for k in SEG_ORDER)
 
 
+def glu_layers(cfg) -> int:
+    """The layers whose FFN is a fused SwiGLU (not MoE, not the GELU MLP):
+    each splits its gate / up rows through B1 / B6."""
+    return cfg.n_superblocks * sum(
+        1 for i in range(cfg.sb_len) if cfg.pos_has_ffn(i)
+        and not cfg.moe_pattern[i] and cfg.mlp == "swiglu" and cfg.fused_glu)
+
+
 def verify_prediction(cfg, impl: str, slots: int, k: int) -> tuple:
     """(B1, B2, B6, B7) launches of one verify step, read off the code
     (``models/decode.paged_verify_step``): ONE fused split of every
     layer's pre-append pages; per layer the (B, K) beat split and re-pack
-    when ``B*K*n_kv*2*hd`` reaches the policy's launch threshold, and the
-    GLU split when ``B*K*2*d_ff`` does (``Policy.for_elems``).  At ``k=1``
-    the same reading gives a draft model's ``paged_decode_step``."""
+    when ``B*K*n_kv*2*hd`` reaches the policy's launch threshold, and in
+    each fused SwiGLU layer (not MoE, not the GELU MLP) the GLU split when
+    ``B*K*2*d_ff`` does (``Policy.for_elems``).  At ``k=1`` the same
+    reading gives ``paged_decode_step``: a draft model's, and phase 11's
+    decode steps."""
     from repro_torch import vx
     if impl == "ref":
         return (0, 0, 0, 0)
@@ -2913,7 +2953,7 @@ def verify_prediction(cfg, impl: str, slots: int, k: int) -> tuple:
     beat = pol.for_elems(slots * k * cfg.n_kv_heads * 2 * cfg.hd).impl
     glu = pol.for_elems(slots * k * 2 * cfg.d_ff).impl
     layers = cfg.n_layers
-    split = 1 + layers * (beat != "ref") + layers * (glu != "ref")
+    split = 1 + layers * (beat != "ref") + glu_layers(cfg) * (glu != "ref")
     pack = layers * (beat != "ref")
     return (split, pack, 0, 0) if impl == "kernel" else (0, 0, split, pack)
 
@@ -3366,6 +3406,376 @@ def speculative_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: model families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_POLICIES = ("kernel", "ref", "kernel_dynamic")
+GEMMA_LAYERS, MOE_LAYERS = 6, 4       # one 5:1 superblock; 4 of 48
+GEMMA_SLOTS, GEMMA_MAX_LEN, GEMMA_PROMPT = 2, 2048, (1600, 1800)
+SMOKE_CLI = ("llava-next-mistral-7b", "granite-34b", "phi3.5-moe-42b-a6.6b")
+SMOKE_CLI_ARGS = ("--smoke", "--requests", "4", "--prompt-len", "64",
+                  "--gen", "16", "--max-len", "512")
+MOE_TIME_ITERS = 20
+
+
+def phase4_prompts(vocab: int, slots: int) -> list:
+    """Phase 4's traffic: ``slots`` numpy-seeded prompts of 40-100 tokens
+    drawn from ``vocab``."""
+    import numpy as np
+    rng = np.random.default_rng(SEED)
+    return [rng.integers(0, vocab, int(n)).tolist()
+            for n in rng.integers(40, 101, slots)]
+
+
+def predicted_params(cfg) -> tuple:
+    """(parameters, router parameters) from the config's shapes: the
+    embedding (and an untied head), the final norm, and per layer the two
+    norms, attention (q, the interleaved kv, o, the qk norms) and the FFN
+    arm (MoE: router and experts; SwiGLU; GELU MLP)."""
+    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
+    router = 0
+    for i in range(cfg.sb_len):
+        n = d + d * H * D + d * 2 * K * D + H * D * d
+        n += 2 * D if cfg.qk_norm else 0
+        if cfg.pos_has_ffn(i):
+            n += d
+            if cfg.moe_pattern[i]:
+                E, f = cfg.moe.n_experts, cfg.moe.d_ff
+                n += d * E + 3 * E * d * f
+                router += d * E * cfg.n_superblocks
+            elif cfg.mlp == "swiglu":
+                n += 3 * d * cfg.d_ff
+            else:
+                n += 2 * d * cfg.d_ff
+        total += n * cfg.n_superblocks
+    return total, router
+
+
+def family_params(dev, cfg, label: str, published_layers: int):
+    """Print the parameter count and bytes predicted from the config's
+    shapes, then init (float32) and cast once to bf16 (the router stays
+    float32, the same tensor), check ``param_count`` against the
+    prediction and print ``max_memory_allocated`` beside it."""
+    import gc
+    import torch
+    from repro_torch.models.transformer import (cast_params, init_params,
+                                                param_count)
+    n, router = predicted_params(cfg)
+    want = 4 * n + 2 * (n - router)
+    cut = ("" if cfg.n_layers == published_layers else
+           f", depth cut {published_layers} -> {cfg.n_layers} layers")
+    print(f"{label}: predicted {n} parameters from the config's shapes "
+          f"({4 * n / 1e9:.3f} GB float32 + {2 * (n - router) / 1e9:.3f} GB "
+          f"bf16 copy = {want / 1e9:.3f} GB){cut}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    master = init_params(cfg, SEED, device=dev)
+    params = cast_params(master, cfg)
+    torch.cuda.synchronize()
+    got = param_count(master)
+    print(f"{label}: param_count {got} (predicted {n}); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+          f" GB ({held / 1e9:.3f} GB held before init) beside the predicted "
+          f"{want / 1e9:.3f} GB; init and cast "
+          f"{time.perf_counter() - t0:.1f} s")
+    if got != n:
+        raise AssertionError(f"{label}: param_count {got} != predicted {n}")
+    return master, params
+
+
+def family_runs(dev, card: str, label: str, cfg, params, prompts, gen: int,
+                slots: int, max_len: int, page_size: int, order) -> list:
+    """Serve runs under each policy of ``order`` (phase 4's ``serve``:
+    counts zeroed just before each run, read just after): the kernels of
+    the policy and no other launched, in every decode step one fused split
+    and the GLU splits that reach the launch threshold (B1 under
+    ``kernel``, B6 under ``kernel_dynamic``, as ``verify_prediction`` reads
+    ``paged_decode_step``), streams equal across the runs."""
+    runs = []
+    for impl in order:
+        r = serve(dev, cfg, params, impl, prompts, gen, slots, max_len,
+                  page_size)
+        pred = verify_prediction(cfg, impl, slots, 1)
+        check_step_launches(label, impl, r, (pred[0], pred[2]))
+        decode_s = sum(r["step_ms"]) / 1e3
+        print(f"{label} serve[{impl}] on {card}: generated tokens/s over the "
+              f"whole run {r['tokens'] / r['wall_s']:.2f} ({r['tokens']} "
+              f"tokens in {r['wall_s']:.3f} s); decode-step tokens/s "
+              f"{sum(r['step_tokens']) / decode_s:.2f}; median decode step "
+              f"{statistics.median(r['step_ms']):.3f} ms over "
+              f"{r['decode_steps']} steps; {r['prefill_chunks']} prefill "
+              f"chunks; launches {r['launches']}")
+        runs.append((impl, r))
+    for impl, r in runs[1:]:
+        if r["streams"] != runs[0][1]["streams"]:
+            raise AssertionError(f"{label} [{impl}]: other token streams "
+                                 f"than the first {runs[0][0]} run")
+    pred = verify_prediction(cfg, "kernel", slots, 1)[0]
+    print(f"{label}: streams equal under {', '.join(order)}; in each of "
+          f"{len(runs[0][1]['step_launches'])} decode steps one fused split "
+          f"and {pred - 1} GLU splits, {pred} launches as read off the code "
+          f"(B1 under kernel, B6 under kernel_dynamic)")
+    return runs
+
+
+def segment_shapes(cfg, slots: int, max_len: int, page_size: int) -> tuple:
+    """(B1 / B6 row shapes, B2 / B7 field shapes) the paged serve path
+    hands the segment kernels at this cell, read off ``models/decode``:
+    the decode step's fused split of every layer's gathered pages; each
+    prefill chunk's split of its ``(1, page_size)`` kv beat, re-pack of the
+    post-RoPE k / v and split of its slot's gathered pages; the GLU split
+    of a prefill chunk and of a decode step where a layer is a fused
+    SwiGLU; the decode step's beat split and re-pack where ``slots`` beats
+    reach the launch threshold."""
+    from repro_torch import vx
+    K, D = cfg.n_kv_heads, cfg.hd
+    seq = -(-max_len // page_size) * page_size
+    split = [(cfg.n_layers, slots, seq, K, 2 * D), (1, seq, K, 2 * D),
+             (1, page_size, K, 2 * D)]
+    pack = [(1, page_size, K, D)]
+    if glu_layers(cfg):
+        split += [(1, page_size, 2 * cfg.d_ff), (slots, 1, 2 * cfg.d_ff)]
+    if vx.Policy(impl="kernel").for_elems(slots * K * 2 * D).impl != "ref":
+        split.append((slots, 1, K, 2 * D))
+        pack.append((slots, 1, K, D))
+    return split, pack
+
+
+def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
+                         page_size: int) -> None:
+    """B1 and B6 on every row shape, B2 and B7 on every field shape of
+    :func:`segment_shapes`, seeded bf16, each against its plain version
+    bit for bit and one launch a call (a row too wide for the copy's
+    shared memory folded into chunks by the wrappers)."""
+    import torch
+    from repro_torch.kernels import segment
+    g = torch.Generator(dev).manual_seed(SEED + 13)
+
+    def rand(shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    def once(fn, *args):
+        before = fn.launches
+        out = fn(*args)
+        if fn.launches != before + 1:
+            raise AssertionError(f"{label}: {fn.__name__} launched "
+                                 f"{fn.launches - before} times in a call")
+        return out
+
+    split, pack = segment_shapes(cfg, slots, max_len, page_size)
+    for shape in split:
+        x = rand(shape)
+        for fn, plain in ((segment.deinterleave, segment.deinterleave_plain),
+                          (segment.deinterleave_dynamic,
+                           segment.deinterleave_dynamic_plain)):
+            if not all(same_bits(a, b)
+                       for a, b in zip(once(fn, x, 2), plain(x, 2))):
+                raise AssertionError(f"{label}: {fn.__name__} at {shape} "
+                                     f"bf16 != plain")
+        del x
+    for shape in pack:
+        soa = [rand(shape) for _ in range(2)]
+        for fn, plain in ((segment.interleave, segment.interleave_plain),
+                          (segment.interleave_dynamic,
+                           segment.interleave_dynamic_plain)):
+            if not same_bits(once(fn, soa), plain(soa)):
+                raise AssertionError(f"{label}: {fn.__name__} at {shape} x2 "
+                                     f"bf16 != plain")
+    torch.cuda.empty_cache()
+    print(f"{label}: B1 and B6 at {', '.join(map(str, split))} bf16, B2 and "
+          f"B7 at {', '.join(f'{s} x2' for s in pack)} bf16 (the serve "
+          f"path's shapes, rows too wide for the copy folded into chunks) "
+          f"== plain bit for bit, one launch a call")
+
+
+def dense_ring_vs_paged(dev, cfg, params, prompt, gen: int, page_size: int,
+                        max_len: int) -> tuple:
+    """Cell (a)'s oracle under ``kernel``: the dense engine's prefill of
+    the whole prompt (``flash_attention``'s banded branch once the prompt
+    is longer than window + q_chunk; windowed layers ring-trimmed into the
+    dense cache) and ``gen - 1`` dense decode steps, against the paged
+    cache's page-sized prefill chunks of the prompt but its last token,
+    then paged decode steps fed the prompt's last token and the dense
+    greedy stream.  Returns (largest logit gap, largest |logit|)."""
+    import torch
+    from repro_torch.models import decode as dec
+    from repro_torch.serve.engine import jit_prefill
+    cfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    L = len(prompt)
+    logits, states = jit_prefill(cfg, None, device=dev)(
+        params, {"tokens": torch.tensor([prompt], dtype=torch.int32)})
+    dense = dec.cache_from_prefill(cfg, states, L, max_len, torch.bfloat16)
+    del states
+    paged = dec.init_paged_cache(cfg, 1, max_len, page_size, torch.bfloat16,
+                                 device=dev)
+    pre = prompt[:-1]
+    for c in range(0, len(pre), page_size):
+        n = min(page_size, len(pre) - c)
+        paged = dec.paged_prefill_chunk(
+            params, paged, torch.tensor(pre[c:c + n] + [0] * (page_size - n),
+                                        dtype=torch.int32, device=dev),
+            cfg, None, slot=0, count=n)
+    dl = logits[:, 0]
+    pl, paged = dec.paged_decode_step(
+        params, paged, torch.tensor([prompt[-1]], dtype=torch.int32,
+                                    device=dev), cfg)
+    gap = scale = 0.0
+    for step in range(gen):
+        gap = max(gap, float((pl.float() - dl.float()).abs().max()))
+        scale = max(scale, float(dl.float().abs().max()))
+        if step == gen - 1:
+            break
+        tok = torch.argmax(dl.float(), dim=-1).to(torch.int32)
+        dl, dense = dec.decode_step(params, dense, tok, cfg)
+        pl, paged = dec.paged_decode_step(params, paged, tok, cfg)
+    del dense, paged
+    torch.cuda.empty_cache()
+    return gap, scale
+
+
+def moe_layer_time(dev, cfg, params, slots: int) -> dict:
+    """One MoE layer alone at the decode step's shape ``(slots, 1,
+    d_model)`` bf16: device time over ``MOE_TIME_ITERS`` calls (CUDA
+    events; each call holds its host sync), host clock per call, and the
+    host syncs one call makes (``torch.cuda.set_sync_debug_mode``)."""
+    import warnings
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import superblock
+    p = superblock(params["blocks"], 0)["pos0"]["moe"]
+    x = torch.randn((slots, 1, cfg.d_model),
+                    generator=torch.Generator(dev).manual_seed(SEED + 5),
+                    device=dev).to(cfg.cdtype)
+    ms = time_ms(lambda: moe.moe_layer(p, x, cfg.moe, None), MOE_TIME_ITERS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MOE_TIME_ITERS):
+        moe.moe_layer(p, x, cfg.moe, None)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / MOE_TIME_ITERS
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            moe.moe_layer(p, x, cfg.moe, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return {"ms": ms, "host_ms": host_ms, "syncs": syncs}
+
+
+def family_phase(dev, card: str, slots: int, max_len: int,
+                 page_size: int, gen: int) -> dict:
+    """Phase 11: gemma3-12b (windowed, 6 of 48 layers), starcoder2-3b
+    (published geometry) and qwen3-moe-30b-a3b (4 of 48 layers) at full
+    width through the port's ``Scheduler`` under the three policies, and
+    the CLI with ``--smoke`` for llava-next-mistral-7b, granite-34b and
+    phi3.5-moe.  Returns the launches of B1 / B2 under ``kernel`` and B6 /
+    B7 under ``kernel_dynamic``, summed over the cells' runs."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(("deinterleave", "interleave",
+                              "deinterleave_dynamic",
+                              "interleave_dynamic"), 0)
+
+    def tally(runs):
+        for impl, r in runs:
+            for k in launches:
+                if (impl == "kernel_dynamic") == k.endswith("_dynamic") \
+                        and impl != "ref":
+                    launches[k] += r["launches"][k]
+
+    # (a) gemma3-12b, windowed: prompts longer than window + q_chunk
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("gemma3-12b").model,
+                              n_layers=GEMMA_LAYERS)
+    label = "phase 11a gemma3-12b"
+    check_segment_shapes(dev, label, cfg, GEMMA_SLOTS, GEMMA_MAX_LEN,
+                         page_size)
+    master, params = family_params(dev, cfg, label, 48)
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(GEMMA_PROMPT[0], GEMMA_PROMPT[1] + 1,
+                                     GEMMA_SLOTS)]
+    tally(family_runs(dev, card, label, cfg, params, prompts, gen,
+                      GEMMA_SLOTS, GEMMA_MAX_LEN, page_size,
+                      FAMILY_POLICIES))
+    gap, scale = dense_ring_vs_paged(dev, cfg, params, prompts[0], gen,
+                                     page_size, GEMMA_MAX_LEN)
+    tol = max(0.08, 0.03 * scale)
+    window = max(w for w in cfg.window_pattern if w)
+    print(f"{label}: dense ring vs paged under kernel, prompt of "
+          f"{len(prompts[0])} tokens (window {window}, banded dense "
+          f"prefill), {gen} steps: largest logit gap {gap} "
+          f"within max(0.08, 0.03 * |logits|max = {scale}) = {tol}; KV "
+          f"stack ({cfg.n_layers}, {GEMMA_SLOTS}, {GEMMA_MAX_LEN}, "
+          f"{cfg.n_kv_heads}, {2 * cfg.hd}) bf16 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: dense ring vs paged gap {gap} > "
+                             f"{tol}")
+    del master, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) starcoder2-3b at its published geometry, phase 4's traffic
+    t0 = time.perf_counter()
+    cfg = get_arch("starcoder2-3b").model
+    label = "phase 11b starcoder2-3b"
+    check_segment_shapes(dev, label, cfg, slots, max_len, page_size)
+    master, params = family_params(dev, cfg, label, 30)
+    tally(family_runs(dev, card, label, cfg, params,
+                      phase4_prompts(cfg.vocab, slots), gen, slots, max_len,
+                      page_size, FAMILY_POLICIES))
+    print(f"{label}: KV stack ({cfg.n_layers}, {slots}, {max_len}, "
+          f"{cfg.n_kv_heads}, {2 * cfg.hd}) bf16 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    del master, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) qwen3-moe-30b-a3b, 4 of 48 layers: two kernel runs equal
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").model,
+                              n_layers=MOE_LAYERS)
+    label = "phase 11c qwen3-moe-30b-a3b"
+    check_segment_shapes(dev, label, cfg, slots, max_len, page_size)
+    master, params = family_params(dev, cfg, label, 48)
+    tally(family_runs(dev, card, label, cfg, params,
+                      phase4_prompts(cfg.vocab, slots), gen, slots, max_len,
+                      page_size, FAMILY_POLICIES + ("kernel",)))
+    t = moe_layer_time(dev, cfg, params, slots)
+    print(f"{label}: one MoE layer alone at the decode step's shape "
+          f"({slots}, 1, {cfg.d_model}) bf16, {slots * cfg.moe.top_k} units "
+          f"over {cfg.moe.n_experts} experts: {t['ms']:.4f} ms a call (CUDA "
+          f"events over {MOE_TIME_ITERS} calls), {t['host_ms']:.4f} ms of "
+          f"host clock a call, {t['syncs']} host sync(s) a call on {card}; "
+          f"KV stack ({cfg.n_layers}, {slots}, {max_len}, {cfg.n_kv_heads}, "
+          f"{2 * cfg.hd}) bf16 ({time.perf_counter() - t0:.1f} s)")
+    del master, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the CLI with --smoke for the configs with no full-width run
+    for name in SMOKE_CLI:
+        base = ("--arch", name) + SMOKE_CLI_ARGS
+        cli = run_cli(card, base=base)
+        tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+        print(f"phase 11d serve CLI ({' '.join(base)}): exit 0, every "
+              f"request finished, {cli['wall_s']:.1f} s of wall time: {tail}")
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches under "
+          f"kernel / kernel_dynamic {launches}")
+    return launches
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -3412,7 +3822,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    import numpy as np
 
     from repro_torch.configs.qwen3_0_6b import config
     from repro_torch.kernels import _common, strided
@@ -3456,9 +3865,7 @@ def main() -> int:
     slots, max_len, page_size, gen = 4, 512, 16, 16
     timing = time_kernels(dev, cfg, slots, max_len)
 
-    rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
-               for n in rng.integers(40, 101, slots)]
+    prompts = phase4_prompts(cfg.vocab, slots)
     params = init_params(cfg, SEED, device=dev)
     # the host clock drifts within a call, and this order puts every
     # policy at the same mean position
@@ -3565,6 +3972,9 @@ def main() -> int:
     launches.update({k: dr["launches"][k] for k in dynamic})
     speculative_phase(dev, cfg, card, prompts, gen, slots, max_len,
                       page_size, timing, launches)
+    for k, n in family_phase(dev, card, slots, max_len, page_size,
+                             gen).items():
+        launches[k] += n
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})
     launches.update(ipk)

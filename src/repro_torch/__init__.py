@@ -27,6 +27,8 @@ cache and step, serve/engine, the serve CLI in launch/serve and the step
 watchdog in ft/straggler), the quantized page pool (core/quant; int8 /
 fp8 pages with per-page scales, the dequant inside the one fused page
 gather) and prefix sharing (serve/prefix_cache, the radix trie; adopt,
-copy-on-write fork and trie pins in models/decode).  ROADMAP.md lists
-what waits.
+copy-on-write fork and trie pins in models/decode), and the arch
+registry (configs: all ten archs; the windowed, VLM, GELU-MLP and MoE
+attention decoders run, models/moe with EARTH-compaction dispatch).
+ROADMAP.md lists what waits.
 """

@@ -213,6 +213,21 @@ def rows_per_block(R: int, width: int, elem: int, mask_bytes: int,
 COPY_SMEM = 96 * 1024
 
 
+def _copy_smem(n: int, nout: int, parts: int, elem: int, units: int,
+               occupancy: bool) -> tuple:
+    """(fixed bytes, bytes a row) of the copy's shared memory, as
+    :func:`copy_tile_rows` lays it out."""
+    fixed = (-(-nout * 4 // 16) * 16 + -(-units * 4 // 16) * 16
+             + 16 * (2 + parts + occupancy))
+    return fixed, (2 * n + nout) * elem + (nout if occupancy else 0)
+
+
+def copy_row_fits(n: int, nout: int, parts: int, elem: int) -> bool:
+    """Whether one row of the permuted copy fits the card's shared memory
+    (:func:`copy_tile_rows` raises otherwise)."""
+    return sum(_copy_smem(n, nout, parts, elem, 0, False)) <= SMEM_LIMIT
+
+
 def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
                    blocks: int, *, units: int = 0,
                    occupancy: bool = False) -> int:
@@ -228,9 +243,7 @@ def copy_tile_rows(R: int, n: int, nout: int, parts: int, elem: int,
     of ``units`` int32 entries sits beside the table.  With ``occupancy``
     (B13, B14) the (rows, nout) tile of occupancy bytes sits beside the
     output tile."""
-    fixed = (-(-nout * 4 // 16) * 16 + -(-units * 4 // 16) * 16
-             + 16 * (2 + parts + occupancy))
-    per_row = (2 * n + nout) * elem + (nout if occupancy else 0)
+    fixed, per_row = _copy_smem(n, nout, parts, elem, units, occupancy)
     if fixed + per_row > SMEM_LIMIT:
         raise ValueError(
             f"permuted copy of {n} lanes x {elem} B does not fit shared "

@@ -373,6 +373,25 @@ def _copy_rows(entry: str, what: str, flat: torch.Tensor, outs: list,
     _check(lib, status, what)
 
 
+def _fold(n: int, fields: int, elem: int, *,
+          interleave: bool = False) -> int:
+    """Chunks an ``n``-lane row goes as through the permuted copy (or,
+    with ``interleave``, the interleave copy).  The deinterleave of ``(R,
+    n)`` equals that of ``(R * c, n / c)`` when ``fields`` divides ``n /
+    c``: a chunk's lanes land, field by field, at the chunk's own lanes of
+    each output; the interleave likewise the other way.  A row whose copy
+    does not fit shared memory (the GLU split of gemma3-12b, n = 30720 in
+    bf16) goes as the fewest chunks that fit; every other row as one."""
+    for c in range(1, n // fields + 1):
+        w = n // c
+        if n % (c * fields) == 0 and (
+                _common.interleave_smem(w, fields, 1, elem)
+                <= _common.SMEM_LIMIT if interleave else
+                _common.copy_row_fits(w, w, fields, elem)):
+            return c
+    return 1                     # the tile sizing raises for the whole row
+
+
 # ---------------------------------------------------------------------------
 # Deinterleave (segment load) — kernel B1
 # ---------------------------------------------------------------------------
@@ -382,9 +401,10 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
     """(..., fields*m) -> fields x (..., m)   (segment load).
 
     Kernel B1: one permuted copy of the rows through the plans' composed
-    table.  ``plans`` overrides the cost model's ``(mode, plans)`` pick
-    (the card check forces the fused Benes plan, which the model never
-    picks at penalty 6)."""
+    table (a row too wide for the copy's shared memory as chunks of a
+    narrower plan, :func:`_fold`).  ``plans`` overrides the cost model's
+    ``(mode, plans)`` pick (the card check forces the fused Benes plan,
+    which the model never picks at penalty 6)."""
     deinterleave.calls += 1
     if not fused:
         return deinterleave_dynamic(aos, fields)
@@ -397,16 +417,19 @@ def deinterleave(aos: torch.Tensor, fields: int, *, fused: bool = True,
     aos = _common.check_cuda(aos, "deinterleave")
     if fields > MAX_FIELDS:
         raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
+    w = n // (1 if plans is not None else
+              _fold(n, fields, aos.element_size()))
     mode, pl = plans if plans is not None else \
-        shiftplan.segment_deinterleave_plans(n, fields)
+        shiftplan.segment_deinterleave_plans(w, fields)
     flat, lead = _common.flatten_rows(aos)
-    ops = _operands("deint", mode, pl, n, fields, aos.device)
+    flat = flat.reshape(-1, w)
+    ops = _operands("deint", mode, pl, w, fields, aos.device)
     R = flat.shape[0]
-    outs = [torch.empty((R, m), dtype=aos.dtype, device=aos.device)
-            for _ in range(fields)]
+    outs = [torch.empty((R, w // fields), dtype=aos.dtype,
+                        device=aos.device) for _ in range(fields)]
     if R and m:
-        _copy_rows("segment_deinterleave", "deinterleave", flat, outs, n, m,
-                   ops["table"])
+        _copy_rows("segment_deinterleave", "deinterleave", flat, outs, w,
+                   w // fields, ops["table"])
         deinterleave.launches += 1
     return [o.reshape(lead + (m,)) for o in outs]
 
@@ -422,7 +445,8 @@ def deinterleave_dynamic(aos: torch.Tensor,
     call, made of two CUDA kernels on the call's stream: one block per
     field derives that field's network from its counts and writes the
     source lane of each of its m output lanes into a small int32
-    workspace; then a permuted copy moves every row through that table."""
+    workspace; then a permuted copy moves every row through that table (a
+    row too wide for the copy's shared memory as chunks, :func:`_fold`)."""
     deinterleave_dynamic.calls += 1
     n = aos.shape[-1]
     if fields < 1 or n % fields:
@@ -433,15 +457,17 @@ def deinterleave_dynamic(aos: torch.Tensor,
     aos = _common.check_cuda(aos, "deinterleave_dynamic")
     if fields > MAX_FIELDS:
         raise ValueError(f"deinterleave kernel takes <= {MAX_FIELDS} fields")
+    w = n // _fold(n, fields, aos.element_size())
     flat, lead = _common.flatten_rows(aos)
+    flat = flat.reshape(-1, w)
     R = flat.shape[0]
-    outs = [torch.empty((R, m), dtype=aos.dtype, device=aos.device)
-            for _ in range(fields)]
+    outs = [torch.empty((R, w // fields), dtype=aos.dtype,
+                        device=aos.device) for _ in range(fields)]
     if R and m:
-        table = torch.empty((fields, m), dtype=torch.int32,
+        table = torch.empty((fields, w // fields), dtype=torch.int32,
                             device=aos.device)
         _copy_rows("segment_deinterleave_dyn", "deinterleave_dynamic", flat,
-                   outs, n, m, table)
+                   outs, w, w // fields, table)
         deinterleave_dynamic.launches += 1
     return [o.reshape(lead + (m,)) for o in outs]
 
@@ -488,8 +514,9 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
     """fields x (..., m) -> (..., fields*m)   (segment store).
 
     Kernel B2: one interleave copy of the rows through the plans' composed
-    table.  ``plans`` overrides the cost model's ``(mode, plans)`` pick
-    (the card check forces the fused Benes plan)."""
+    table (a row too wide for the copy's shared memory as chunks of a
+    narrower plan, :func:`_fold`).  ``plans`` overrides the cost model's
+    ``(mode, plans)`` pick (the card check forces the fused Benes plan)."""
     interleave.calls += 1
     if not fused:
         return interleave_dynamic(soa)
@@ -505,10 +532,12 @@ def interleave(soa: list[torch.Tensor], *, fused: bool = True,
     if fields > MAX_FIELDS:
         raise ValueError(f"interleave kernel takes <= {MAX_FIELDS} fields")
     out = x0.new_empty(x0.shape[:-1] + (n,))
-    R = x0.numel() // m if m else 0
+    c = 1 if plans is not None else _fold(n, fields, out.element_size(),
+                                          interleave=True)
+    R = x0.numel() // m * c if m else 0
     if R:
-        ent = _interleave_launch(n, fields, plans, dev)
-        _launch_interleave(ent, "interleave", soa, out, R, m,
+        ent = _interleave_launch(n // c, fields, plans, dev)
+        _launch_interleave(ent, "interleave", soa, out, R, m // c,
                            ent["table_ptr"])
         interleave.launches += 1
     return out
@@ -537,7 +566,8 @@ def interleave_dynamic(soa: list[torch.Tensor]) -> torch.Tensor:
     field derives that field's SSN and writes the source lane of each of
     the n output lanes of its routed beat into a small int32 workspace;
     then B2's interleave copy merges those tables (a later field winning)
-    and moves every row through them."""
+    and moves every row through them (a row too wide for the copy's
+    shared memory as chunks, :func:`_fold`)."""
     interleave_dynamic.calls += 1
     soa = list(soa)
     fields = len(soa)
@@ -551,11 +581,12 @@ def interleave_dynamic(soa: list[torch.Tensor]) -> torch.Tensor:
     if fields > MAX_FIELDS:
         raise ValueError(f"interleave kernel takes <= {MAX_FIELDS} fields")
     out = x0.new_empty(x0.shape[:-1] + (n,))
-    R = x0.numel() // m if m else 0
+    c = _fold(n, fields, out.element_size(), interleave=True)
+    R = x0.numel() // m * c if m else 0
     if R:
-        ent = _interleave_dyn_launch(n, fields, dev)
-        table = torch.empty((fields, n), dtype=torch.int32, device=dev)
-        _launch_interleave(ent, "interleave_dynamic", soa, out, R, m,
+        ent = _interleave_dyn_launch(n // c, fields, dev)
+        table = torch.empty((fields, n // c), dtype=torch.int32, device=dev)
+        _launch_interleave(ent, "interleave_dynamic", soa, out, R, m // c,
                            table.data_ptr())
         interleave_dynamic.launches += 1
     return out

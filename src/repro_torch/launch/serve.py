@@ -15,6 +15,14 @@ On the CPU (reduced geometry):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
       --smoke --device cpu --requests 3 --prompt-len 8 --gen 6 --max-len 64
 
+``--arch`` takes every arch of the registry that the port runs:
+qwen3-0.6b, gemma3-12b, llava-next-mistral-7b, granite-34b,
+starcoder2-3b, phi3.5-moe-42b-a6.6b and qwen3-moe-30b-a3b (jamba, xlstm
+and whisper are refused with ``NotImplementedError``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
+      --smoke --device cpu --requests 3 --prompt-len 8 --gen 6 --max-len 64
+
 ``--kv-dtype int8`` / ``fp8`` serves from the quantized page pool;
 ``--prefix-cache`` shares prompt-prefix pages through the radix trie, and
 every prompt then opens with the same seeded system prefix (half the

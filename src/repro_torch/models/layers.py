@@ -2,10 +2,10 @@
 with the EARTH interleaved fused projection option.
 
 Port of ``repro``'s ``models/layers.py``: ``rms_norm`` (computed in
-float32), ``rope``, ``embed``, ``unembed`` and ``glu_ffn`` (fused and
-unfused).  ``mlp_ffn``, ``layer_norm`` and the ``init_*``
-helpers wait for the model families that need them (the port's init
-lives in models/transformer.py).
+float32), ``rope``, ``embed``, ``unembed``, ``glu_ffn`` (fused and
+unfused), the GELU ``mlp_ffn`` and the seeded ``init_glu`` / ``init_mlp``
+(the reference's shapes and scales, drawn from a ``torch.Generator``).
+``layer_norm`` waits for the encoder-decoder slice (whisper).
 """
 from __future__ import annotations
 
@@ -63,6 +63,29 @@ def glu_ffn(params, x: torch.Tensor, *, fused: bool = False,
         gate = x @ params["wg"]
         up = x @ params["wu"]
     return (F.silu(gate) * up) @ params["wo"]
+
+
+def mlp_ffn(params, x: torch.Tensor) -> torch.Tensor:
+    """2-matmul GELU MLP (GPT-BigCode / whisper style); the tanh form, as
+    the reference's ``jax.nn.gelu(approximate=True)``."""
+    return F.gelu(x @ params["wi"], approximate="tanh") @ params["wo"]
+
+
+def init_glu(d: int, f: int, g: torch.Generator, *, fused: bool, dtype,
+             device) -> dict:
+    wg = normal((d, f), d ** -0.5, g, dtype, device)
+    wu = normal((d, f), d ** -0.5, g, dtype, device)
+    wo = normal((f, d), f ** -0.5, g, dtype, device)
+    if fused:
+        # interleave columns -> [g0,u0,g1,u1,...]
+        return {"wi": torch.stack([wg, wu], dim=-1).reshape(d, 2 * f),
+                "wo": wo}
+    return {"wg": wg, "wu": wu, "wo": wo}
+
+
+def init_mlp(d: int, f: int, g: torch.Generator, dtype, device) -> dict:
+    return {"wi": normal((d, f), d ** -0.5, g, dtype, device),
+            "wo": normal((f, d), f ** -0.5, g, dtype, device)}
 
 
 def normal(shape, scale: float, generator: torch.Generator, dtype,

@@ -1,7 +1,7 @@
 """Decoder-only transformer: config, parameters, the forward pass.
 
-Port of ``repro``'s ``models/transformer.py`` for dense attention
-decoders: :class:`ModelConfig` (the same fields), a seeded
+Port of ``repro``'s ``models/transformer.py`` for attention decoders:
+:class:`ModelConfig` and :class:`EncoderSpec` (the same fields), a seeded
 :func:`init_params` with the reference's parameter layout, shapes and
 scales (leaves stacked over superblocks, ``(NS, ...)``), :func:`param_count`,
 :func:`cast_params`, the superblock application (``_attn_apply``,
@@ -13,10 +13,14 @@ parameters.  Superblocks run in a Python loop over the stacked leaves
 (the reference's ``lax.scan``; ``scan_layers`` gives the same result either
 way); ``remat`` is a no-op without a backward.
 
-Waiting for later slices: ``loss_fn`` and the backward (training), sharding
-constraints (``dist``), and the MoE, Mamba, xLSTM and encoder families —
-their configs are accepted, but init and forward raise
-``NotImplementedError``.
+Covered: dense GQA / MQA attention, sliding-window:global patterns,
+qk-norm, the VLM patch-embedding stub, and per position the reference's
+three FFN arms: MoE (``p["moe"]``, models/moe.py; its aux loss flows out of
+:func:`forward`), the SwiGLU (``p["ffn"]``) and the GELU MLP
+(``p["mlp"]``).  Waiting for later slices: Mamba and xLSTM blocks (item 9d)
+and the encoder (item 9e), whose configs are accepted but refused at init,
+forward and serve time by :func:`check_supported`; ``loss_fn`` and the
+backward (training); sharding constraints (``dist``).
 """
 from __future__ import annotations
 
@@ -29,6 +33,15 @@ import torch
 from repro_torch.device import refuse_mesh, resolve as resolve_device
 from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
+from repro_torch.models.moe import MoESpec, init_moe, moe_layer
+from repro_torch.models.ssm import MambaSpec
+from repro_torch.models.xlstm import XLSTMSpec
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    n_layers: int
+    context: int          # encoder sequence length (e.g. whisper 1500 frames)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +61,11 @@ class ModelConfig:
     fused_glu: bool = True                 # EARTH interleaved gate/up
     qk_norm: bool = False
     rope_theta: float = 1e4
-    moe: Any = None
-    mamba: Any = None
-    xlstm: Any = None
-    encoder: Any = None
-    vlm_patches: int = 0
+    moe: MoESpec | None = None
+    mamba: MambaSpec | None = None
+    xlstm: XLSTMSpec | None = None
+    encoder: EncoderSpec | None = None     # whisper
+    vlm_patches: int = 0                   # llava stub: # patch embeddings
     tie_embeddings: bool = True
     norm_eps: float = 1e-6
     param_dtype: str = "float32"
@@ -103,14 +116,21 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """This slice covers dense attention decoders with a SwiGLU FFN."""
-    if cfg.encoder is not None or any(k != "attn"
-                                      for k in cfg.block_pattern) \
-            or any(cfg.moe_pattern) or cfg.mlp not in ("swiglu", "none"):
+    """The port runs attention decoders with any of the reference's FFN
+    arms (SwiGLU, GELU MLP, MoE); recurrent blocks and the encoder wait."""
+    if cfg.encoder is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the port covers dense attention decoders with a "
-            f"SwiGLU FFN; MoE, Mamba, xLSTM, encoder blocks and the GELU "
-            f"MLP wait for a later slice")
+            f"{cfg.name}: encoder-decoder models wait for the port's "
+            f"encoder-decoder slice (ROADMAP.md queue A, item 9e)")
+    recurrent = sorted({k for k in cfg.block_pattern
+                        if k in ("mamba", "mlstm", "slstm")})
+    if recurrent:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(recurrent)} blocks wait for the port's "
+            f"recurrent slice (ROADMAP.md queue A, item 9d)")
+    other = [k for k in cfg.block_pattern if k != "attn"]
+    if other:
+        raise ValueError(other[0])
 
 
 # ---------------------------------------------------------------------------
@@ -134,14 +154,14 @@ def _init_pos(cfg: ModelConfig, i: int, g: torch.Generator, device) -> dict:
     p: dict[str, Any] = {"ln1": torch.ones((d,), dtype=dt, device=device),
                          "attn": attn}
     if cfg.pos_has_ffn(i):
-        f = cfg.d_ff
         p["ln2"] = torch.ones((d,), dtype=dt, device=device)
-        wg = layers.normal((d, f), s, g, dt, device)
-        wu = layers.normal((d, f), s, g, dt, device)
-        wo = layers.normal((f, d), f ** -0.5, g, dt, device)
-        p["ffn"] = ({"wi": torch.stack([wg, wu], dim=-1).reshape(d, 2 * f),
-                     "wo": wo} if cfg.fused_glu
-                    else {"wg": wg, "wu": wu, "wo": wo})
+        if cfg.moe_pattern[i]:
+            p["moe"] = init_moe(d, cfg.moe, g, dt, device)
+        elif cfg.mlp == "swiglu":
+            p["ffn"] = layers.init_glu(d, cfg.d_ff, g, fused=cfg.fused_glu,
+                                       dtype=dt, device=device)
+        else:
+            p["mlp"] = layers.init_mlp(d, cfg.d_ff, g, dt, device)
     return p
 
 
@@ -248,9 +268,14 @@ def _ffn_apply(p, x, cfg: ModelConfig, ctx, i: int, *, policy=None):
     if not cfg.pos_has_ffn(i):
         return x, aux
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    y = layers.glu_ffn(p["ffn"], h, fused=cfg.fused_glu,
-                       policy=policy if policy is not None
-                       else cfg.vx_policy)
+    if cfg.moe_pattern[i]:
+        y, aux = moe_layer(p["moe"], h, cfg.moe, ctx)
+    elif cfg.mlp == "swiglu":
+        y = layers.glu_ffn(p["ffn"], h, fused=cfg.fused_glu,
+                           policy=policy if policy is not None
+                           else cfg.vx_policy)
+    else:
+        y = layers.mlp_ffn(p["mlp"], h)
     return x + y, aux
 
 

@@ -1,8 +1,9 @@
 """Serving: the paged cache (float or quantized pools), the prefix trie,
 the request lifecycle, the scheduler, the engine (dense prefill / decode
-steps, the fixed-slot server and ``make_fleet``), the replica fleet and the
-chaos harness — port of ``repro.serve``.  Speculative decode and sharded
-serving wait for later slices."""
+steps, the fixed-slot server and ``make_fleet``), the replica fleet, the
+chaos harness and speculative decode (the scheduler's ``speculate``) —
+port of ``repro.serve``, for every attention decoder of the arch registry.
+Sharded serving and the encoder-decoder arm wait for later slices."""
 from repro_torch.serve.chaos import (ChaosConfig, ChaosReport,  # noqa: F401
                                      FaultPlan, FleetChaosConfig,
                                      FleetChaosReport, FleetFaultPlan,

@@ -38,6 +38,13 @@ The port covers ``Strided`` (static and runtime ``BANK`` strides),
 ``Segment``, ``Indexed``, ``Compact`` and ``Paged`` specs (float and
 quantized pools) and every verb of the reference; its sharded lowering
 waits for a later slice (ROADMAP.md, queue A).
+
+The reference's deprecated shims, ``repro.kernels.ops`` and
+``repro.core.drom`` (impl-string wrappers that only warn and delegate to
+``vx``; the reference's CI turns their warnings into errors), have no
+port: callers use the verbs above, by the migration map in
+``src/repro/kernels/ops.py:10-24`` (for example ``gather_strided(w, s, o,
+vl, impl=i)`` -> ``vx.gather(vx.Strided(n, s, vl, o), w, policy=i)``).
 """
 from repro_torch.vx import lower, program
 from repro_torch.vx._dispatch import (compact, gather, gather_many,

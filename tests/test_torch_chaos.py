@@ -45,15 +45,15 @@ PLAN_KW = dict(requests=6, steps=32, max_ticks=256)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax():
-    cfg = jget_arch("qwen3-0.6b").smoke
+def _jax(arch="qwen3-0.6b"):
+    cfg = jget_arch(arch).smoke
     return cfg, jinit(cfg, jax.random.key(0))
 
 
 @functools.lru_cache(maxsize=None)
-def _port(impl="ref"):
-    _, jparams = _jax()
-    cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke, kernel_impl=impl)
+def _port(impl="ref", arch="qwen3-0.6b"):
+    _, jparams = _jax(arch)
+    cfg = dataclasses.replace(get_arch(arch).smoke, kernel_impl=impl)
     return cfg, params_from_jax(jax_tree_to_np(jparams), cfg, device="cpu")
 
 
@@ -211,11 +211,11 @@ def _drive(sched, req, *, preempt_at=None, cap=64):
     return logits_by_pos
 
 
-def test_preempt_resume_bit_exact_pad_safe():
-    """Re-prefilling the prompt and replaying the generated tokens is the
-    computation the uninterrupted run made: logits bit for bit at every
-    shared replay position, and the reference's stream."""
-    cfg, params = _port()
+def _resume_oracle(arch, comparer):
+    """Preempted once after 3 ticks against uninterrupted: the same stream
+    (the reference's), and the logits at every shared replay position
+    compared by ``comparer``."""
+    cfg, params = _port(arch=arch)
     prompt, gen = [3, 5, 7, 9, 2], 8
 
     def mk():
@@ -234,14 +234,32 @@ def test_preempt_resume_bit_exact_pad_safe():
     shared = sorted(set(la) & set(lb))
     assert len(shared) >= gen - 1
     for pos in shared:
-        assert np.array_equal(la[pos], lb[pos]), \
-            f"pos {pos}: maxdiff {np.abs(la[pos] - lb[pos]).max()}"
-    jcfg, jparams = _jax()
+        comparer(la[pos], lb[pos], pos)
+    jcfg, jparams = _jax(arch)
     j = JScheduler(jcfg, jparams, slots=2, max_len=32, page_size=4)
     rj = j.submit(prompt, max_new_tokens=gen)
     while not rj.terminal:
         j.tick()
     assert rb.tokens == rj.tokens
+
+
+def test_preempt_resume_bit_exact_pad_safe():
+    """Re-prefilling the prompt and replaying the generated tokens is the
+    computation the uninterrupted run made: logits bit for bit at every
+    shared replay position, and the reference's stream."""
+    def bit_exact(x, y, pos):
+        assert np.array_equal(x, y), \
+            f"pos {pos}: maxdiff {np.abs(x - y).max()}"
+    _resume_oracle("qwen3-0.6b", bit_exact)
+
+
+def test_preempt_resume_allclose_windowed():
+    """Windowed stack (gemma3 smoke, ring-window layers): allclose, the
+    reference's bar (prefill at the true length), and its stream."""
+    def close(x, y, pos):
+        np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-5,
+                                   err_msg=f"pos {pos}")
+    _resume_oracle("gemma3-12b", close)
 
 
 # --------------------------- NaN guard isolation ----------------------------

@@ -15,8 +15,9 @@ request.  Fleet chaos on seeds 0-2 gives the reference's
 (submission order: request ids count per process).  Port-only: every
 replica and every respawn reads the one weight copy the router cast, and
 a dead replica's scheduler (pool, logits, watchdog) is freed at respawn.
-No tolerance: streams, states, counts and logits are exact.  The windowed
-migration case waits for gemma3 (ROADMAP.md queue A, item 9)."""
+No tolerance: streams, states, counts and logits are exact, except the
+windowed migration case (gemma3's smoke config), held to the reference's
+``rtol 2e-4 / atol 2e-5`` (its prefill runs at the true length)."""
 import dataclasses
 import functools
 import gc
@@ -50,15 +51,15 @@ CHAOS_PLAN = dict(requests=8, steps=32, max_ticks=512)
 
 
 @functools.lru_cache(maxsize=None)
-def _jax():
-    cfg = jget_arch("qwen3-0.6b").smoke
+def _jax(arch="qwen3-0.6b"):
+    cfg = jget_arch(arch).smoke
     return cfg, jinit(cfg, jax.random.key(0))
 
 
 @functools.lru_cache(maxsize=None)
-def _port(impl="ref"):
-    _, jparams = _jax()
-    cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke, kernel_impl=impl)
+def _port(impl="ref", arch="qwen3-0.6b"):
+    _, jparams = _jax(arch)
+    cfg = dataclasses.replace(get_arch(arch).smoke, kernel_impl=impl)
     return cfg, params_from_jax(jax_tree_to_np(jparams), cfg, device="cpu")
 
 
@@ -72,14 +73,14 @@ def _kw(kw):
     return kw
 
 
-def _fleet(replicas=3, impl="ref", **kw):
-    cfg, params = _port(impl)
+def _fleet(replicas=3, impl="ref", arch="qwen3-0.6b", **kw):
+    cfg, params = _port(impl, arch)
     return FleetRouter(cfg, params, replicas=replicas, device="cpu",
                        **_kw(kw))
 
 
-def _ref_fleet(replicas=3, **kw):
-    cfg, params = _jax()
+def _ref_fleet(replicas=3, arch="qwen3-0.6b", **kw):
+    cfg, params = _jax(arch)
     kw = _kw(kw)
     kw["clock"] = jchaos.StepClock()
     return jfleet.FleetRouter(cfg, params, replicas=replicas, **kw)
@@ -382,18 +383,19 @@ def _logits_drive(fl, req, *, kill_at=None, preempt_at=None, cap=64):
     return logits_by_pos
 
 
-def test_migration_equals_preemption_bit_exact_pad_safe():
-    """Kill-then-migrate == preempt-then-resume == uninterrupted, at the
-    logits level, bit for bit; the stream is the reference's."""
+def _migration_oracle(arch, comparer):
+    """Kill-then-migrate, preempt-then-resume and uninterrupted: one
+    stream (the reference's), and the logits at the shared replay
+    positions compared by ``comparer``."""
     prompt, gen = [3, 5, 7, 9, 2], 8
-    fa = _fleet(replicas=1)
+    fa = _fleet(replicas=1, arch=arch)
     ra = fa.submit(prompt, max_new_tokens=gen)
     la = _logits_drive(fa, ra)
-    fb = _fleet(replicas=2)
+    fb = _fleet(replicas=2, arch=arch)
     rb = fb.submit(prompt, max_new_tokens=gen)
     lb = _logits_drive(fb, rb, kill_at=3)
     assert rb.migrations == 1
-    fc = _fleet(replicas=1)
+    fc = _fleet(replicas=1, arch=arch)
     rc = fc.submit(prompt, max_new_tokens=gen)
     lc = _logits_drive(fc, rc, preempt_at=3)
     assert rc.preemptions == 1
@@ -404,12 +406,29 @@ def test_migration_equals_preemption_bit_exact_pad_safe():
     shared = sorted(set(la) & set(lb) & set(lc))
     assert len(shared) >= gen - 1
     for pos in shared:
-        assert np.array_equal(la[pos], lb[pos]), pos
-        assert np.array_equal(lc[pos], lb[pos]), pos
-    jf = _ref_fleet(replicas=2)
+        comparer(la[pos], lb[pos], pos)      # migrate == uninterrupted
+        comparer(lc[pos], lb[pos], pos)      # migrate == preempt-resume
+    jf = _ref_fleet(replicas=2, arch=arch)
     rj = jf.submit(prompt, max_new_tokens=gen)
     _logits_drive(jf, rj, kill_at=3)
     assert rj.tokens == rb.tokens and rj.migrations == 1
+
+
+def test_migration_equals_preemption_bit_exact_pad_safe():
+    """Kill-then-migrate == preempt-then-resume == uninterrupted, at the
+    logits level, bit for bit; the stream is the reference's."""
+    def bit_exact(x, y, pos):
+        assert np.array_equal(x, y), pos
+    _migration_oracle("qwen3-0.6b", bit_exact)
+
+
+def test_migration_allclose_windowed():
+    """Windowed stack (gemma3 smoke): allclose, the reference's bar, and
+    the reference's stream."""
+    def close(x, y, pos):
+        np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-5,
+                                   err_msg=f"pos {pos}")
+    _migration_oracle("gemma3-12b", close)
 
 
 def test_midprefill_failover_resumes_bit_exact():
