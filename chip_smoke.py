@@ -245,11 +245,39 @@ Phases, in order (any failure raises and exits non-zero):
    for llava-next-mistral-7b, granite-34b and phi3.5-moe in
    subprocesses: exit 0, every request finished.
 
+12. the recurrent and hybrid models (phase 4's geometry: 4 slots,
+   max_len 512, page_size 16, 16 greedy tokens): (a) xlstm-125m uncut
+   (12 layers, d_model 768, 167 349 544 parameters, predicted from the
+   config's shapes and checked against ``param_count``, with
+   ``max_memory_allocated``), bf16, phase 4's traffic in its vocabulary
+   under ``kernel``, ``ref`` and ``kernel_dynamic``: streams equal, no
+   segment launch in any decode step (a stack without attention, as
+   ``verify_prediction`` reads it), ``used_cache_bytes`` 94 717 056 (the
+   reference's) after every tick, tokens/s and the median step; then the
+   dense ``jit_prefill`` of 4 x 64 tokens and 8 forced dense decode steps
+   against paged prefill chunks and steps, in float32 the largest logit
+   gap within ``max(0.08, 0.03 * |logits|max)`` (in bf16 printed beside
+   how far one ulp of one weight moves the logits: about their own size,
+   so no bf16 gate can hold); (b) jamba's Mamba layer alone at
+   its published widths (d_model 8192, ed 16384, N 16, conv 4, rank 512;
+   one superblock of 8 layers holds 44 701 474 816 parameters, over the
+   card): the forward over (2, 1024, 8192) and 16 decode steps from its
+   cache in bf16, timed with CUDA events and the host clock, and in
+   float32 the forward's final state and conv window against 1024 decode
+   steps from zero, each within 1e-4 of its largest magnitude (the bf16
+   gap printed); (c) jamba-smoke (float32) through the paged scheduler
+   under the three policies with the pool audited at every mutation: B1 /
+   B6 and B2 / B7 bit for bit at its shapes first, streams equal, the
+   fused split of its attention layer once per decode step (B1, B6,
+   none); (d) the CLI for xlstm-125m at full width, jamba with
+   ``--smoke``, and xlstm with ``--smoke --replicas 3 --chaos 0``: exit 0,
+   every request finished (terminal, for the chaos run).
+
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
-``scatter_many`` call and phase 11's scheduler runs under the same
-policies; the strided path's for
+``scatter_many`` call and phases 11's and 12's scheduler runs under the
+same policies; the strided path's for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -1103,14 +1131,17 @@ def time_fig12(dev) -> None:
 def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
           max_len: int, page_size: int, profiled: bool = False,
           cache_dtype="bfloat16", stagger: bool = False,
-          **sched_kw) -> dict:
+          track_used: bool = False, **sched_kw) -> dict:
     """One serve run under policy ``impl``; with ``profiled`` the run is
     traced by torch.profiler (host and device) and the trace returned.
     ``sched_kw`` go to the Scheduler (``kv_quant``, ``prefix_cache``,
     ``chunk_pages``); with ``stagger`` the first request is submitted
     alone and the others once its prefill has completed (and published
     its prompt pages).  The peak of ``used_cache_bytes`` is read after
-    every decode step, outside its timing."""
+    every decode step; with ``track_used`` also after every tick
+    (``used_bytes``, from the tick that admits the first request on).
+    Those reads are timed apart and left out of the step times and of
+    ``wall_s``."""
     import contextlib
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1122,6 +1153,7 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
                       **sched_kw)
     step_launches, step_ms, step_tokens = [], [], []
     peak = {"used_bytes": 0, "pages": 0, "shared": 0}
+    reads = [0.0]               # seconds of cache-byte reads, off the wall
     plain_step = sched.step
 
     def counted_step():
@@ -1136,12 +1168,14 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             (segment.deinterleave.launches - d0[0],
              segment.deinterleave_dynamic.launches - d0[1]))
         step_tokens.append(sum(1 for t in out if t >= 0))
+        r0 = time.perf_counter()
         if sched.cache.pages_in_use() > peak["pages"]:
             peak.update(pages=sched.cache.pages_in_use(),
                         used_bytes=sched.cache.used_cache_bytes())
         if sched.prefix is not None:
             peak["shared"] = max(peak["shared"], int(
                 (sched.cache.page_refcounts() > 1).sum()))
+        reads[0] += time.perf_counter() - r0
         return out
 
     sched.step = counted_step
@@ -1159,12 +1193,17 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
                 sched.tick()
             reqs += [sched.submit(p, max_new_tokens=gen)
                      for p in prompts[1:]]
+        used = []
         for _ in range(10 * (gen + max_len)):
             sched.tick()
+            if track_used:
+                r0 = time.perf_counter()
+                used.append(sched.cache.used_cache_bytes())
+                reads[0] += time.perf_counter() - r0
             if sched.drained():
                 break
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - reads[0]
     launches = {f.__name__: f.launches
                 for f in segment.KERNELS + segment.DYNAMIC}
     if not sched.drained():
@@ -1194,7 +1233,8 @@ def serve(dev, cfg, params, impl: str, prompts, gen: int, slots: int,
             "peak_pages": peak["pages"], "page_bytes": page_bytes,
             "prefix": stats.get("prefix"), "peak_shared": peak["shared"],
             "forks": forks, "spec": stats.get("speculative"),
-            "invariant_checks": stats["invariant_checks"]}
+            "invariant_checks": stats["invariant_checks"],
+            "used_bytes": used}
 
 
 # ---------------------------------------------------------------------------
@@ -2749,14 +2789,15 @@ def fleet_serve(dev, cfg, params, prompts, gen: int, slots: int,
             "placed": [r.replica for r in reqs]}
 
 
-def run_fault_cli(card: str, flags) -> dict:
+def run_fault_cli(card: str, flags, arch: str = "qwen3-0.6b") -> dict:
     """Phase 9's CLI runs at full width in a subprocess: exit 0, every
-    request terminal, the chaos runs' terminal-state line printed."""
+    request terminal, the chaos runs' terminal-state line printed (phase
+    12: ``arch`` names another arch)."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     t0 = time.perf_counter()
     out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
-                          "--arch", "qwen3-0.6b", *flags], cwd=ROOT, env=env,
+                          "--arch", arch, *flags], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=600)
     wall = time.perf_counter() - t0
     lines = out.stdout.splitlines()
@@ -2929,6 +2970,12 @@ def seg_delta(before: dict) -> tuple:
     return tuple(now[k] - before[k] for k in SEG_ORDER)
 
 
+def attn_layers(cfg) -> int:
+    """The attention layers of the stack (every layer but a recurrent
+    stack's Mamba and xLSTM blocks)."""
+    return cfg.n_superblocks * cfg.block_pattern.count("attn")
+
+
 def glu_layers(cfg) -> int:
     """The layers whose FFN is a fused SwiGLU (not MoE, not the GELU MLP):
     each splits its gate / up rows through B1 / B6."""
@@ -2945,15 +2992,17 @@ def verify_prediction(cfg, impl: str, slots: int, k: int) -> tuple:
     each fused SwiGLU layer (not MoE, not the GELU MLP) the GLU split when
     ``B*K*2*d_ff`` does (``Policy.for_elems``).  At ``k=1`` the same
     reading gives ``paged_decode_step``: a draft model's, and phase 11's
-    decode steps."""
+    and 12's decode steps (a stack without attention gathers no page and
+    splits nothing)."""
     from repro_torch import vx
     if impl == "ref":
         return (0, 0, 0, 0)
     pol = vx.Policy(impl=impl)
     beat = pol.for_elems(slots * k * cfg.n_kv_heads * 2 * cfg.hd).impl
     glu = pol.for_elems(slots * k * 2 * cfg.d_ff).impl
-    layers = cfg.n_layers
-    split = 1 + layers * (beat != "ref") + glu_layers(cfg) * (glu != "ref")
+    layers = attn_layers(cfg)
+    split = (layers > 0) + layers * (beat != "ref") \
+        + glu_layers(cfg) * (glu != "ref")
     pack = layers * (beat != "ref")
     return (split, pack, 0, 0) if impl == "kernel" else (0, 0, split, pack)
 
@@ -3430,15 +3479,33 @@ def phase4_prompts(vocab: int, slots: int) -> list:
 
 def predicted_params(cfg) -> tuple:
     """(parameters, router parameters) from the config's shapes: the
-    embedding (and an untied head), the final norm, and per layer the two
-    norms, attention (q, the interleaved kv, o, the qk norms) and the FFN
-    arm (MoE: router and experts; SwiGLU; GELU MLP)."""
+    embedding (and an untied head), the final norm, and per layer the
+    norms, the mixer (attention: q, the interleaved kv, o, the qk norms;
+    Mamba: in_proj, the conv, x_proj, dt_proj and dt_bias, A_log, D,
+    out_proj; mLSTM: up, q / k / v, the i / f gates and forget bias,
+    down, the o gate; sLSTM: wx, the block-diagonal r, the forget bias,
+    the gated FFN) and the FFN arm (MoE: router and experts; SwiGLU;
+    GELU MLP)."""
     d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
     router = 0
-    for i in range(cfg.sb_len):
-        n = d + d * H * D + d * 2 * K * D + H * D * d
-        n += 2 * D if cfg.qk_norm else 0
+    for i, kind in enumerate(cfg.block_pattern):
+        n = d
+        if kind == "attn":
+            n += d * H * D + d * 2 * K * D + H * D * d
+            n += 2 * D if cfg.qk_norm else 0
+        elif kind == "mamba":
+            m = cfg.mamba
+            ed, N, r = m.ed, m.state_dim, m.rank
+            n += (2 * d * ed + (m.conv_width + 1) * ed + ed * (r + 2 * N)
+                  + r * ed + ed + ed * N + ed + ed * d)
+        elif kind == "mlstm":
+            mi, h = cfg.xlstm.m_inner, cfg.xlstm.n_heads
+            n += 2 * d * mi + 3 * mi * mi + 2 * mi * h + h + 2 * mi * d
+        else:
+            h, dh = cfg.xlstm.n_heads, cfg.xlstm.s_head
+            f = int(d * cfg.xlstm.s_ffn_factor)
+            n += 4 * d * d + h * dh * 4 * dh + d + 3 * d * f
         if cfg.pos_has_ffn(i):
             n += d
             if cfg.moe_pattern[i]:
@@ -3489,17 +3556,19 @@ def family_params(dev, cfg, label: str, published_layers: int):
 
 
 def family_runs(dev, card: str, label: str, cfg, params, prompts, gen: int,
-                slots: int, max_len: int, page_size: int, order) -> list:
+                slots: int, max_len: int, page_size: int, order,
+                **serve_kw) -> list:
     """Serve runs under each policy of ``order`` (phase 4's ``serve``:
     counts zeroed just before each run, read just after): the kernels of
     the policy and no other launched, in every decode step one fused split
     and the GLU splits that reach the launch threshold (B1 under
     ``kernel``, B6 under ``kernel_dynamic``, as ``verify_prediction`` reads
-    ``paged_decode_step``), streams equal across the runs."""
+    ``paged_decode_step``), streams equal across the runs.  ``serve_kw``
+    go to ``serve`` (the cache dtype, the scheduler's knobs)."""
     runs = []
     for impl in order:
         r = serve(dev, cfg, params, impl, prompts, gen, slots, max_len,
-                  page_size)
+                  page_size, **serve_kw)
         pred = verify_prediction(cfg, impl, slots, 1)
         check_step_launches(label, impl, r, (pred[0], pred[2]))
         decode_s = sum(r["step_ms"]) / 1e3
@@ -3535,7 +3604,7 @@ def segment_shapes(cfg, slots: int, max_len: int, page_size: int) -> tuple:
     from repro_torch import vx
     K, D = cfg.n_kv_heads, cfg.hd
     seq = -(-max_len // page_size) * page_size
-    split = [(cfg.n_layers, slots, seq, K, 2 * D), (1, seq, K, 2 * D),
+    split = [(attn_layers(cfg), slots, seq, K, 2 * D), (1, seq, K, 2 * D),
              (1, page_size, K, 2 * D)]
     pack = [(1, page_size, K, D)]
     if glu_layers(cfg):
@@ -3547,17 +3616,20 @@ def segment_shapes(cfg, slots: int, max_len: int, page_size: int) -> tuple:
 
 
 def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
-                         page_size: int) -> None:
+                         page_size: int, dtype: str = "bfloat16") -> None:
     """B1 and B6 on every row shape, B2 and B7 on every field shape of
-    :func:`segment_shapes`, seeded bf16, each against its plain version
-    bit for bit and one launch a call (a row too wide for the copy's
-    shared memory folded into chunks by the wrappers)."""
+    :func:`segment_shapes`, seeded in ``dtype`` (the dtype the cell serves
+    in), each against its plain version bit for bit and one launch a call
+    (a row too wide for the copy's shared memory folded into chunks by the
+    wrappers)."""
     import torch
     from repro_torch.kernels import segment
     g = torch.Generator(dev).manual_seed(SEED + 13)
+    tag = {"bfloat16": "bf16", "float32": "float32"}[dtype]
 
     def rand(shape):
-        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+        return torch.randn(shape, generator=g, device=dev).to(
+            getattr(torch, dtype))
 
     def once(fn, *args):
         before = fn.launches
@@ -3576,7 +3648,7 @@ def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
             if not all(same_bits(a, b)
                        for a, b in zip(once(fn, x, 2), plain(x, 2))):
                 raise AssertionError(f"{label}: {fn.__name__} at {shape} "
-                                     f"bf16 != plain")
+                                     f"{tag} != plain")
         del x
     for shape in pack:
         soa = [rand(shape) for _ in range(2)]
@@ -3585,10 +3657,10 @@ def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
                            segment.interleave_dynamic_plain)):
             if not same_bits(once(fn, soa), plain(soa)):
                 raise AssertionError(f"{label}: {fn.__name__} at {shape} x2 "
-                                     f"bf16 != plain")
+                                     f"{tag} != plain")
     torch.cuda.empty_cache()
-    print(f"{label}: B1 and B6 at {', '.join(map(str, split))} bf16, B2 and "
-          f"B7 at {', '.join(f'{s} x2' for s in pack)} bf16 (the serve "
+    print(f"{label}: B1 and B6 at {', '.join(map(str, split))} {tag}, B2 "
+          f"and B7 at {', '.join(f'{s} x2' for s in pack)} {tag} (the serve "
           f"path's shapes, rows too wide for the copy folded into chunks) "
           f"== plain bit for bit, one launch a call")
 
@@ -3772,6 +3844,345 @@ def family_phase(dev, card: str, slots: int, max_len: int,
         print(f"phase 11d serve CLI ({' '.join(base)}): exit 0, every "
               f"request finished, {cli['wall_s']:.1f} s of wall time: {tail}")
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches under "
+          f"kernel / kernel_dynamic {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the recurrent and hybrid models
+# ---------------------------------------------------------------------------
+
+RECURRENT_POLICIES = ("kernel", "ref", "kernel_dynamic")
+# the reference's numbers (its init_params under jax.eval_shape, its
+# PagedCache at 4 slots, max_len 512, page 16), which the config's shapes
+# must give
+XLSTM_PARAMS, XLSTM_USED_BYTES = 167_349_544, 94_717_056
+JAMBA_SUPERBLOCK_PARAMS, MAMBA_LAYER_PARAMS = 44_701_474_816, 420_339_712
+MAMBA_BATCH, MAMBA_SEQ, MAMBA_STEPS = 2, 1024, 16
+RECURRENT_CLI = (
+    ("--arch", "xlstm-125m", "--requests", "4", "--prompt-len", "64",
+     "--gen", "16", "--max-len", "512"),
+    ("--arch", "jamba-1.5-large-398b") + SMOKE_CLI_ARGS)
+RECURRENT_FAULT_CLI = ("--smoke", "--replicas", "3", "--chaos", "0",
+                       "--requests", "6", "--gen", "6", "--max-len", "32",
+                       "--page-size", "4")
+
+
+def recurrent_dense_vs_paged(dev, cfg, params, slots: int, page_size: int,
+                             max_len: int) -> tuple:
+    """The dense path against the paged one under ``kernel``, caches in
+    the compute dtype:
+    ``jit_prefill`` of ``slots`` x ``DENSE_PROMPT`` numpy-seeded tokens
+    against page-sized prefill chunks of each prompt but its last token
+    and a paged decode step fed it; then ``FORCED_STEPS`` forced tokens
+    through the dense ``jit_decode_step`` and the paged step.  Returns
+    (largest logit gap, largest |logit|)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import decode as dec
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill)
+    cfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    rng = np.random.default_rng(SEED + 12)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (slots, DENSE_PROMPT)).astype(np.int32)).to(dev)
+    forced = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (FORCED_STEPS, slots)).astype(np.int32)).to(dev)
+    logits, states = jit_prefill(cfg, None, device=dev)(
+        params, {"tokens": tokens})
+    dense = dec.cache_from_prefill(cfg, states, DENSE_PROMPT, max_len,
+                                   cfg.cdtype)
+    step = jit_decode_step(cfg, None, ServeConfig(max_len=max_len),
+                           device=dev)
+    paged = dec.init_paged_cache(cfg, slots, max_len, page_size, cfg.cdtype,
+                                 device=dev)
+    for s in range(slots):
+        for c in range(0, DENSE_PROMPT - 1, page_size):
+            n = min(page_size, DENSE_PROMPT - 1 - c)
+            chunk = torch.zeros((page_size,), dtype=torch.int32, device=dev)
+            chunk[:n] = tokens[s, c:c + n]
+            paged = dec.paged_prefill_chunk(params, paged, chunk, cfg,
+                                            slot=s, count=n)
+    dl = logits[:, 0]
+    pl, paged = dec.paged_decode_step(params, paged, tokens[:, -1], cfg)
+    gap = scale = 0.0
+    for t in range(FORCED_STEPS + 1):
+        gap = max(gap, float((pl.float() - dl.float()).abs().max()))
+        scale = max(scale, float(dl.float().abs().max()))
+        if t == FORCED_STEPS:
+            break
+        dl, dense = step(params, dense, forced[t])
+        pl, paged = dec.paged_decode_step(params, paged, forced[t], cfg)
+    del dense, paged, states
+    torch.cuda.empty_cache()
+    return gap, scale
+
+
+def ulp_sensitivity(dev, cfg, params, slots: int) -> float:
+    """How far one ulp moves the model: the prefill logits of phase 12a's
+    prompts with the first entry of the first block's ``ln1`` nudged up by
+    one ulp of the compute dtype, against the unmoved ones."""
+    import numpy as np
+    import torch
+    from repro_torch.serve.engine import jit_prefill
+    rng = np.random.default_rng(SEED + 12)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (slots, DENSE_PROMPT)).astype(np.int32)).to(dev)
+    prefill = jit_prefill(dataclasses.replace(cfg, kernel_impl="kernel"),
+                          None, device=dev)
+    base, _ = prefill(params, {"tokens": tokens})
+    ln = params["blocks"]["pos0"]["ln1"]
+    old = ln[0, 0].clone()
+    ln[0, 0] = torch.nextafter(old, torch.full_like(old, float("inf")))
+    moved, _ = prefill(params, {"tokens": tokens})
+    ln[0, 0] = old
+    return float((moved.float() - base.float()).abs().max())
+
+
+def xlstm_cell(dev, card: str, slots: int, max_len: int, page_size: int,
+               gen: int) -> None:
+    """Phase 12a: xlstm-125m uncut in bf16 through the paged scheduler
+    under the three policies (phase 4's traffic in its vocabulary): equal
+    streams, no segment launch in any decode step (as
+    ``verify_prediction`` reads a stack without attention),
+    ``used_cache_bytes`` flat at the reference's number after every tick;
+    then the dense path against the paged one, gated in float32."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_arch
+    cfg = get_arch("xlstm-125m").model
+    label = "phase 12a xlstm-125m"
+    if predicted_params(cfg)[0] != XLSTM_PARAMS:
+        raise AssertionError(f"{label}: the config's shapes give "
+                             f"{predicted_params(cfg)[0]} parameters, the "
+                             f"reference {XLSTM_PARAMS}")
+    master, params = family_params(dev, cfg, label, cfg.n_layers)
+    prompts = phase4_prompts(cfg.vocab, slots)
+    runs = []
+    for impl in RECURRENT_POLICIES:
+        r = serve(dev, cfg, params, impl, prompts, gen, slots, max_len,
+                  page_size, track_used=True)
+        want = verify_prediction(cfg, impl, slots, 1)
+        if any(r["launches"].values()) or want != (0, 0, 0, 0) or \
+                any(n != (0, 0) for n in r["step_launches"]):
+            raise AssertionError(f"{label} [{impl}]: segment launches "
+                                 f"{r['launches']}, per decode step "
+                                 f"{r['step_launches']}; read off the code "
+                                 f"{want}")
+        used = sorted(set(r["used_bytes"]))
+        if used != [XLSTM_USED_BYTES]:
+            raise AssertionError(f"{label} [{impl}]: used_cache_bytes "
+                                 f"{used}, want {XLSTM_USED_BYTES} from the "
+                                 f"first admission to the end")
+        decode_s = sum(r["step_ms"]) / 1e3
+        print(f"{label} serve[{impl}] on {card}: generated tokens/s over the "
+              f"whole run {r['tokens'] / r['wall_s']:.2f} ({r['tokens']} "
+              f"tokens in {r['wall_s']:.3f} s); decode-step tokens/s "
+              f"{sum(r['step_tokens']) / decode_s:.2f}; median decode step "
+              f"{statistics.median(r['step_ms']):.3f} ms over "
+              f"{r['decode_steps']} steps; {r['prefill_chunks']} prefill "
+              f"chunks; used_cache_bytes {used[0]} after each of "
+              f"{len(r['used_bytes'])} ticks; page_bytes {r['page_bytes']}")
+        runs.append((impl, r))
+    for impl, r in runs[1:]:
+        if r["streams"] != runs[0][1]["streams"]:
+            raise AssertionError(f"{label} [{impl}]: other token streams "
+                                 f"than the first {runs[0][0]} run")
+    print(f"{label}: streams equal under {', '.join(RECURRENT_POLICIES)}; "
+          f"0 segment launches in each of "
+          f"{len(runs[0][1]['step_launches'])} decode steps, as read off "
+          f"the code; used_cache_bytes {XLSTM_USED_BYTES} (the reference's) "
+          f"from the first admission to the end")
+    # the gate runs in float32: in bf16 one ulp anywhere moves this
+    # seeded stack's logits by about their own size (printed below), so
+    # the bf16 dense and paged paths are only printed
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gap, scale = recurrent_dense_vs_paged(dev, cfg32, master, slots,
+                                          page_size, max_len)
+    tol = max(0.08, 0.03 * scale)
+    bgap, bscale = recurrent_dense_vs_paged(dev, cfg, params, slots,
+                                            page_size, max_len)
+    moved = {name: ulp_sensitivity(dev, c, p, slots)
+             for name, c, p in (("float32", cfg32, master),
+                                ("bf16", cfg, params))}
+    print(f"{label}: dense jit_prefill of {slots} x {DENSE_PROMPT} tokens "
+          f"and {FORCED_STEPS} forced dense decode steps against paged "
+          f"prefill chunks and steps under kernel: float32 largest logit "
+          f"gap {gap} within max(0.08, 0.03 * |logits|max = {scale}) = "
+          f"{tol}; bf16 gap {bgap} (|logits|max {bscale}); one ulp of one "
+          f"ln1 entry moves the prefill logits by {moved['float32']} in "
+          f"float32, {moved['bf16']} in bf16 "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: dense vs paged gap {gap} > {tol}")
+    del master, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def mamba_layer_alone(dev, card: str) -> None:
+    """Phase 12b: jamba's Mamba layer alone at its published widths, with
+    seeded weights: the forward over ``(MAMBA_BATCH, MAMBA_SEQ, d)`` then
+    ``MAMBA_STEPS`` decode steps from its cache, in bf16 and timed; in
+    float32 the forward's final state and conv window against
+    ``MAMBA_SEQ`` decode steps from zero (each within 1e-4 of its largest
+    magnitude), and the same gap printed in bf16."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import ssm
+    label = "phase 12b jamba Mamba layer"
+    full = get_arch("jamba-1.5-large-398b").model
+    spec = full.mamba
+    sb = predicted_params(dataclasses.replace(full, n_layers=full.sb_len))[0]
+    print(f"{label}: one jamba superblock of {full.sb_len} layers at "
+          f"published widths holds {sb} parameters ({2 * sb / 1e9:.1f} GB "
+          f"bf16, {4 * sb / 1e9:.1f} GB float32) over the card's 80 GB: "
+          f"jamba is served at its smoke size, its Mamba layer alone at "
+          f"published widths")
+    if sb != JAMBA_SUPERBLOCK_PARAMS:
+        raise AssertionError(f"{label}: superblock {sb} != "
+                             f"{JAMBA_SUPERBLOCK_PARAMS}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(dev).manual_seed(SEED + 12)
+    p32 = ssm.init_mamba(spec, g, torch.float32, dev)
+    n = sum(t.numel() for t in p32.values()) + full.d_model   # with ln1
+    if n != MAMBA_LAYER_PARAMS:
+        raise AssertionError(f"{label}: {n} parameters, want "
+                             f"{MAMBA_LAYER_PARAMS}")
+    pb = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    x32 = torch.randn((MAMBA_BATCH, MAMBA_SEQ + MAMBA_STEPS, full.d_model),
+                      generator=g, device=dev)
+    xb = x32.to(torch.bfloat16)
+
+    def gaps(fwd, steps):
+        return tuple(float((a.float() - b.float()).abs().max())
+                     / float(b.float().abs().max())
+                     for a, b in ((fwd.h, steps.h), (fwd.conv, steps.conv)))
+
+    def from_zero(p, x, dtype):
+        c = ssm.init_mamba_cache(MAMBA_BATCH, spec, dtype, dev)
+        for t in range(MAMBA_SEQ):
+            _, c = ssm.mamba_decode_step(p, x[:, t], c, spec)
+        return c
+
+    # bf16: warm once, then the timed forward and decode steps
+    ssm.mamba_forward(pb, xb[:, :MAMBA_SEQ], spec, chunk=full.ssm_chunk)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    out, cache = ssm.mamba_forward(pb, xb[:, :MAMBA_SEQ], spec,
+                                   chunk=full.ssm_chunk)
+    e1.record()
+    torch.cuda.synchronize()
+    fwd_host = (time.perf_counter() - t0) * 1e3
+    fwd_dev = e0.elapsed_time(e1)
+    fwd_cache = cache
+    t0 = time.perf_counter()
+    e0.record()
+    for t in range(MAMBA_STEPS):
+        y, cache = ssm.mamba_decode_step(pb, xb[:, MAMBA_SEQ + t], cache,
+                                         spec)
+    e1.record()
+    torch.cuda.synchronize()
+    step_host = (time.perf_counter() - t0) * 1e3 / MAMBA_STEPS
+    step_dev = e0.elapsed_time(e1) / MAMBA_STEPS
+    if not (bool(torch.isfinite(out.float()).all())
+            and bool(torch.isfinite(y.float()).all())
+            and tuple(out.shape) == (MAMBA_BATCH, MAMBA_SEQ, full.d_model)):
+        raise AssertionError(f"{label}: bf16 outputs not finite of shape "
+                             f"({MAMBA_BATCH}, {MAMBA_SEQ}, {full.d_model})")
+    bf_gap = gaps(fwd_cache, from_zero(pb, xb, torch.bfloat16))
+    _, c32 = ssm.mamba_forward(p32, x32[:, :MAMBA_SEQ], spec,
+                               chunk=full.ssm_chunk)
+    f32_gap = gaps(c32, from_zero(p32, x32, torch.float32))
+    wbytes = sum(t.numel() * t.element_size() for t in pb.values())
+    sbytes = sum(t.numel() * t.element_size() for t in cache)
+    print(f"{label} MambaSpec{tuple(spec)} (ed {spec.ed}, rank "
+          f"{spec.rank}), {n} parameters with ln1, {wbytes} bytes of bf16 "
+          f"weights, {sbytes} bytes of state for {MAMBA_BATCH} rows, on "
+          f"{card}: forward over ({MAMBA_BATCH}, {MAMBA_SEQ}, "
+          f"{full.d_model}) bf16 {fwd_dev:.3f} ms (CUDA events), "
+          f"{fwd_host:.3f} ms (host clock); decode step {step_dev:.4f} ms "
+          f"(CUDA events over {MAMBA_STEPS}), {step_host:.4f} ms (host "
+          f"clock); max_memory_allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    print(f"{label}: forward's final state against {MAMBA_SEQ} decode "
+          f"steps from zero, largest gap over largest magnitude: float32 h "
+          f"{f32_gap[0]:.3e}, conv {f32_gap[1]:.3e} (bound 1e-4); bf16 h "
+          f"{bf_gap[0]:.3e}, conv {bf_gap[1]:.3e}")
+    if not max(f32_gap) <= 1e-4:
+        raise AssertionError(f"{label}: float32 forward against steps "
+                             f"{f32_gap} > 1e-4")
+    del p32, pb, x32, xb, out, cache, fwd_cache, c32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recurrent_phase(dev, card: str, slots: int, max_len: int,
+                    page_size: int, gen: int) -> dict:
+    """Phase 12: (a) xlstm-125m uncut, (b) jamba's Mamba layer alone at
+    published widths, (c) jamba-smoke through the paged path under the
+    three policies (float32, its own dtype; B1 / B6 and B2 / B7 held bit
+    for bit at its shapes first; the pool audited at every mutation),
+    (d) three CLI runs.  Returns the launches of B1 / B2 under ``kernel``
+    and B6 / B7 under ``kernel_dynamic`` of (c)'s runs."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import init_params
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    xlstm_cell(dev, card, slots, max_len, page_size, gen)
+    print(f"phase 12a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mamba_layer_alone(dev, card)
+    print(f"phase 12b: {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    cfg = get_arch("jamba-1.5-large-398b").smoke
+    label = "phase 12c jamba-smoke"
+    dtype = str(cfg.cdtype).removeprefix("torch.")   # float32: the cache's
+    check_segment_shapes(dev, label, cfg, slots, max_len, page_size, dtype)
+    params = init_params(cfg, SEED, device=dev)
+    runs = family_runs(dev, card, label, cfg, params,
+                       phase4_prompts(cfg.vocab, slots), gen, slots,
+                       max_len, page_size, RECURRENT_POLICIES,
+                       cache_dtype=dtype, debug_invariants=True)
+    launches = dict.fromkeys(("deinterleave", "interleave",
+                              "deinterleave_dynamic", "interleave_dynamic"),
+                             0)
+    for impl, r in runs:
+        if r["invariant_checks"] <= 0:
+            raise AssertionError(f"{label} [{impl}]: the pool was never "
+                                 f"audited")
+        for k in launches:
+            if (impl == "kernel_dynamic") == k.endswith("_dynamic") \
+                    and impl != "ref":
+                launches[k] += r["launches"][k]
+    print(f"{label}: pool invariants audited {runs[0][1]['invariant_checks']}"
+          f" times a run, all green ({time.perf_counter() - t0:.1f} s)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for base in RECURRENT_CLI:
+        cli = run_cli(card, base=base)
+        tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+        pages = [ln for ln in cli["lines"] if ln.startswith("pages:")][0]
+        print(f"phase 12d serve CLI ({' '.join(base)}): exit 0, every "
+              f"request finished, {cli['wall_s']:.1f} s of wall time: "
+              f"{pages} | {tail}")
+    cli = run_fault_cli(card, RECURRENT_FAULT_CLI, arch="xlstm-125m")
+    done = [ln for ln in cli["lines"] if ln.startswith("every request")][0]
+    print(f"phase 12d serve CLI (--arch xlstm-125m "
+          f"{' '.join(RECURRENT_FAULT_CLI)}): exit 0, {cli['wall_s']:.1f} s "
+          f"of wall time: {done}")
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches under "
           f"kernel / kernel_dynamic {launches}")
     return launches
 
@@ -3974,6 +4385,9 @@ def main() -> int:
                       page_size, timing, launches)
     for k, n in family_phase(dev, card, slots, max_len, page_size,
                              gen).items():
+        launches[k] += n
+    for k, n in recurrent_phase(dev, card, slots, max_len, page_size,
+                                gen).items():
         launches[k] += n
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})

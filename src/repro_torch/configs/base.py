@@ -8,9 +8,9 @@ Every assigned architecture ships as ``configs/<id>.py`` exposing:
 Shape cells follow the assignment: train_4k / prefill_32k / decode_32k /
 long_500k; ``long_500k`` only runs for sub-quadratic archs (see
 ``runs_long_context``).  ``get_arch`` returns all ten archs; the port runs
-the attention decoders among them (dense, windowed, VLM, GELU MLP, MoE),
-and ``transformer.check_supported`` refuses the Mamba, xLSTM and encoder
-families when they are used.  The input builders (``train_batch``,
+the decoders among them (dense, windowed, VLM, GELU MLP, MoE, the hybrid
+Mamba stack and xLSTM), and ``transformer.check_supported`` refuses the
+encoder family when it is used.  The input builders (``train_batch``,
 ``prefill_batch``, ``decode_inputs``) wait for the training and benchmark
 slices.
 """

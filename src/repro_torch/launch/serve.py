@@ -17,8 +17,9 @@ On the CPU (reduced geometry):
 
 ``--arch`` takes every arch of the registry that the port runs:
 qwen3-0.6b, gemma3-12b, llava-next-mistral-7b, granite-34b,
-starcoder2-3b, phi3.5-moe-42b-a6.6b and qwen3-moe-30b-a3b (jamba, xlstm
-and whisper are refused with ``NotImplementedError``):
+starcoder2-3b, phi3.5-moe-42b-a6.6b, qwen3-moe-30b-a3b, the hybrid
+jamba-1.5-large-398b and the recurrent xlstm-125m (whisper is refused with
+``NotImplementedError`` naming the encoder-decoder slice):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --smoke --device cpu --requests 3 --prompt-len 8 --gen 6 --max-len 64

@@ -1,8 +1,8 @@
 """Single-token decode over the interleaved KV cache: the dense cache and
 the paged one (the serving step body).
 
-Port of the attention-only subset of ``repro``'s ``models/decode.py``.
-The dense cache: ``cache_len_for_pos``, ``init_cache``,
+Port of ``repro``'s ``models/decode.py`` for decoders of attention, Mamba
+and xLSTM blocks.  The dense cache: ``cache_len_for_pos``, ``init_cache``,
 ``cache_from_prefill`` and ``decode_step`` (``fuse=True`` and
 ``fuse=False``), the oracle the paged step is held against.  The paged
 cache: ``init_paged_cache`` (float pools, or int8 / fp8 pools with
@@ -29,15 +29,23 @@ int8 / fp8 pages, and each attention layer's pool ``pos{i}`` has a
 float32 scale side tensor ``scl{i}`` ``(NS, P, K)`` beside it: a page's
 scale travels with its id through adoption and forks.
 
-Superblocks run in a Python loop over the stacked ``(NS, ...)`` leaves in
-place of ``lax.scan``.  Dense cache leaves and page pools are updated IN
-PLACE (the reference donates the cache to its jit'd step); the small
-integer state is rebuilt.
+Recurrent positions (``mamba``, ``mlstm``, ``slstm``) carry O(1) state
+instead of KV beats: the NamedTuples of models/ssm.py and models/xlstm.py,
+each leaf ``(NS, B or slots, ...)``, the Mamba conv window in the cache
+dtype and every other leaf float32.  The paged cache keeps them per slot
+beside the pools (pools exist only at attention positions; a stack without
+attention has page size 1 and nothing to page); the prefill chunk and the
+verify step advance them token by token with pad tokens gated out, and the
+verify step keeps the state after ``commit`` tokens.
 
-Waiting for later slices: Mamba/xLSTM blocks (in the verify step too: the
-reference's post-hoc accept-point select of recurrent state) and the
-encoder-decoder step, and the sequence-sharded dense step (``kv_shard``,
-with ``dist``).
+Superblocks run in a Python loop over the stacked ``(NS, ...)`` leaves in
+place of ``lax.scan``.  Dense cache leaves, page pools and recurrent
+states are updated IN PLACE (the reference donates the cache to its jit'd
+step), so a step consumes the cache it is given; the small integer state
+is rebuilt.
+
+Waiting for later slices: the encoder-decoder step, and the
+sequence-sharded dense step (``kv_shard``, with ``dist``).
 """
 from __future__ import annotations
 
@@ -50,12 +58,65 @@ from repro_torch import vx
 from repro_torch.core import quant
 from repro_torch.device import resolve as resolve_device
 from repro_torch.kernels import kv_interleaved
+from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
+from repro_torch.models.ssm import init_mamba_cache, mamba_decode_step
 from repro_torch.models.transformer import (ModelConfig, _ffn_apply,
-                                            cast_params, check_supported,
-                                            superblock)
+                                            _mixer_params, cast_params,
+                                            check_supported, superblock,
+                                            tree_map)
+from repro_torch.models.xlstm import (init_mlstm_state, init_slstm_state,
+                                      mlstm_decode_step, slstm_decode_step)
 
 I32 = torch.int32
+
+
+def _recurrent_init(cfg: ModelConfig, kind: str, batch: int, dtype,
+                    device):
+    """A recurrent position's initial state for ``batch`` rows (the Mamba
+    conv window in ``dtype``, every other leaf float32)."""
+    if kind == "mamba":
+        return init_mamba_cache(batch, cfg.mamba, dtype, device)
+    if kind == "mlstm":
+        return init_mlstm_state(batch, cfg.xlstm, device)
+    return init_slstm_state(batch, cfg.xlstm, device)
+
+
+def _stacked_init(cfg: ModelConfig, kind: str, batch: int, dtype, device):
+    """The initial state broadcast over superblocks, ``(NS, batch, ...)``."""
+    ns = cfg.n_superblocks
+    return tree_map(lambda a: a.expand((ns,) + a.shape).clone(),
+                    _recurrent_init(cfg, kind, batch, dtype, device))
+
+
+def _recurrent_step(p, h: torch.Tensor, state, cfg: ModelConfig,
+                    kind: str):
+    """(y, state) of one token through a recurrent position's block."""
+    pm = _mixer_params(p, cfg, kind)
+    if kind == "mamba":
+        return mamba_decode_step(pm, h, state, cfg.mamba)
+    if kind == "mlstm":
+        return mlstm_decode_step(pm, h, state, cfg.xlstm)
+    return slstm_decode_step(pm, h, state, cfg.xlstm)
+
+
+def _keep_active(new, old, active: torch.Tensor):
+    """Per-slot state gate: inactive slots keep their old state."""
+    def sel(n, o):
+        return torch.where(active.reshape(active.shape + (1,) * (n.ndim - 1)),
+                           n, o)
+    return tree_map(sel, new, old)
+
+
+def _sb_state(leaf, sbi: int):
+    """Superblock ``sbi``'s slice of a stacked recurrent state."""
+    return tree_map(lambda a: a[sbi], leaf)
+
+
+def _set_state(leaf, index, state) -> None:
+    """Write ``state`` into the stacked recurrent ``leaf`` at ``index`` in
+    place (cast to each leaf's dtype), as the pools are written."""
+    tree_map(lambda c, s: c[index].copy_(s), leaf, state)
 
 
 def cache_len_for_pos(cfg: ModelConfig, i: int, max_len: int) -> int:
@@ -66,16 +127,19 @@ def cache_len_for_pos(cfg: ModelConfig, i: int, max_len: int) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, *, device=None) -> dict:
     """Empty dense cache: ``{"len": 0-dim int32, "blocks": {"pos{i}":
-    (NS, batch, Sc, K, 2D)}}``, leaves stacked over superblocks."""
+    (NS, batch, Sc, K, 2D)}}`` at attention positions and the initial
+    recurrent state broadcast over superblocks at the others."""
     check_supported(cfg)
     device = resolve_device(device)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     ns = cfg.n_superblocks
-    blocks = {f"pos{i}": torch.zeros(
-        (ns, batch, cache_len_for_pos(cfg, i, max_len), cfg.n_kv_heads,
-         2 * cfg.hd), dtype=dtype, device=device)
-        for i in range(cfg.sb_len)}
+    blocks = {}
+    for i, kind in enumerate(cfg.block_pattern):
+        blocks[f"pos{i}"] = (torch.zeros(
+            (ns, batch, cache_len_for_pos(cfg, i, max_len), cfg.n_kv_heads,
+             2 * cfg.hd), dtype=dtype, device=device) if kind == "attn"
+            else _stacked_init(cfg, kind, batch, dtype, device))
     return {"len": torch.zeros((), dtype=I32, device=device),
             "blocks": blocks}
 
@@ -84,13 +148,17 @@ def cache_from_prefill(cfg: ModelConfig, cache_states, seq_len: int,
                        max_len: int, dtype=torch.float32) -> dict:
     """Embed prefill states ``{"pos{i}": (NS, B, S or W, K, 2D)}`` into a
     fresh ``max_len`` dense cache: zero-padded, or trimmed, to each
-    layer's ``Sc`` beats."""
+    layer's ``Sc`` beats; recurrent states are copied through (the steps
+    update them in place)."""
     check_supported(cfg)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     blocks = {}
-    for i in range(cfg.sb_len):
+    for i, kind in enumerate(cfg.block_pattern):
         st = cache_states[f"pos{i}"]
+        if kind != "attn":
+            blocks[f"pos{i}"] = tree_map(torch.clone, st)
+            continue
         sc = cache_len_for_pos(cfg, i, max_len)
         kv = torch.zeros(st.shape[:2] + (sc,) + st.shape[3:], dtype=dtype,
                          device=st.device)
@@ -98,7 +166,7 @@ def cache_from_prefill(cfg: ModelConfig, cache_states, seq_len: int,
         kv[:, :, :n] = st[:, :, :n]
         blocks[f"pos{i}"] = kv
     return {"len": torch.tensor(seq_len, dtype=I32,
-                                device=blocks["pos0"].device),
+                                device=tree_leaves(blocks)[0].device),
             "blocks": blocks}
 
 
@@ -114,9 +182,10 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     its slot, bit-exact with splitting the post-append cache.  The
     single-token beat pack and GLU split ride the plain path below the
     policy's fusion threshold.  ``fuse=False`` splits each layer's
-    post-append cache on its own (the equivalence oracle).  The cache
-    leaves are updated in place; ``len`` is rebuilt.  ``kv_shard`` (the
-    sequence-sharded cache) waits for the port's dist slice."""
+    post-append cache on its own (the equivalence oracle).  The KV leaves
+    and the recurrent states are updated in place; ``len`` is rebuilt.
+    ``kv_shard`` (the sequence-sharded cache) waits for the port's dist
+    slice."""
     check_supported(cfg)
     if kv_shard is not None:
         raise NotImplementedError("the sequence-sharded dense step waits "
@@ -140,30 +209,39 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
 
     for sbi in range(cfg.n_superblocks):
         sb_p = superblock(params["blocks"], sbi)
-        for i in attn_pos:
+        for i, kind in enumerate(cfg.block_pattern):
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v, kv = attention.qkv_project(
-                p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                positions, cfg.rope_theta, policy=beat_pol)
-            kvc = cache["blocks"][f"pos{i}"][sbi]          # (B, Sc, K, 2D)
-            sc = kvc.shape[1]
-            slot = torch.remainder(pos, sc).reshape(1).long()
-            kvc.index_copy_(1, slot, kv.to(kvc.dtype))
-            if fuse:
-                # the pre-split arrays are this step's own (under ``ref``
-                # a view of the cache, where the beat wrote the same bits)
-                k_all, v_all = (t[sbi] for t in pre_split[f"pos{i}"])
-                k_all.index_copy_(1, slot, k.to(kvc.dtype))
-                v_all.index_copy_(1, slot, v.to(kvc.dtype))
+            if kind != "attn":
+                leaf = cache["blocks"][f"pos{i}"]
+                y, st = _recurrent_step(p, h, _sb_state(leaf, sbi), cfg,
+                                        kind)
+                x = x + y
+                _set_state(leaf, sbi, st)
             else:
-                k_all, v_all = vx.transpose(
-                    vx.Segment(n=kvc.shape[-1], fields=2), kvc, policy=pol)
-            eff_len = torch.clamp(pos + 1, max=sc)
-            out = attention.decode_attention(q[:, 0], k_all, v_all, eff_len,
-                                             window=None)
-            x = x + (out.reshape(B, cfg.n_heads * cfg.hd)
-                     @ p["attn"]["wo"]).to(x.dtype)
+                q, k, v, kv = attention.qkv_project(
+                    p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads,
+                    cfg.hd, positions, cfg.rope_theta, policy=beat_pol)
+                kvc = cache["blocks"][f"pos{i}"][sbi]      # (B, Sc, K, 2D)
+                sc = kvc.shape[1]
+                slot = torch.remainder(pos, sc).reshape(1).long()
+                kvc.index_copy_(1, slot, kv.to(kvc.dtype))
+                if fuse:
+                    # the pre-split arrays are this step's own (under
+                    # ``ref`` a view of the cache, where the beat wrote the
+                    # same bits)
+                    k_all, v_all = (t[sbi] for t in pre_split[f"pos{i}"])
+                    k_all.index_copy_(1, slot, k.to(kvc.dtype))
+                    v_all.index_copy_(1, slot, v.to(kvc.dtype))
+                else:
+                    k_all, v_all = vx.transpose(
+                        vx.Segment(n=kvc.shape[-1], fields=2), kvc,
+                        policy=pol)
+                eff_len = torch.clamp(pos + 1, max=sc)
+                out = attention.decode_attention(q[:, 0], k_all, v_all,
+                                                 eff_len, window=None)
+                x = x + (out.reshape(B, cfg.n_heads * cfg.hd)
+                         @ p["attn"]["wo"]).to(x.dtype)
             if cfg.pos_has_ffn(i):
                 x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, i,
                                    policy=ffn_pol)
@@ -189,7 +267,10 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
     pages_per_seq``).  ``quantize`` ("int8" / "fp8") switches the pools to
     the QUANTIZED layout: each pool stores int8 / fp8 and gains a
     per-page, per-head float32 scale side tensor ``scl{i}`` of shape
-    ``(NS, num_pages, K)`` in ``blocks``."""
+    ``(NS, num_pages, K)`` in ``blocks``.  Recurrent positions hold
+    per-slot O(1) state ``(NS, slots, ...)`` instead of a pool, in
+    ``dtype`` (the Mamba conv window) or float32, also when the pools are
+    quantized."""
     check_supported(cfg)
     device = resolve_device(device)
     if isinstance(dtype, str):
@@ -200,7 +281,11 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
         num_pages = slots * n_seq
     qdt = None if quantize is None else quant.pool_dtype(quantize)
     blocks = {}
-    for i in range(cfg.sb_len):
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind != "attn":
+            blocks[f"pos{i}"] = _stacked_init(cfg, kind, slots, dtype,
+                                              device)
+            continue
         blocks[f"pos{i}"] = torch.zeros(
             (ns, num_pages, page_size, cfg.n_kv_heads, 2 * cfg.hd),
             dtype=dtype if qdt is None else qdt, device=device)
@@ -221,10 +306,12 @@ def init_paged_cache(cfg: ModelConfig, slots: int, max_len: int,
 
 
 def _paged_geometry(cfg: ModelConfig, cache: dict):
-    """(attn positions, page_size, pages_per_seq) from the cache leaves."""
+    """(attn positions, page_size, pages_per_seq) from the cache leaves; a
+    stack without attention has page size 1."""
     attn_pos = [i for i, k in enumerate(cfg.block_pattern) if k == "attn"]
     n_seq = cache["table"].shape[-1]
-    ps = cache["blocks"][f"pos{attn_pos[0]}"].shape[2]
+    ps = (cache["blocks"][f"pos{attn_pos[0]}"].shape[2] if attn_pos
+          else 1)
     return attn_pos, ps, n_seq
 
 
@@ -288,6 +375,8 @@ def paged_invariants(cfg: ModelConfig, cache: dict, *,
     free_top = int(cache["free_top"])
     num_pages = free.shape[0]
     out: list[str] = []
+    if not attn_pos:
+        return out                      # recurrent-only: no pool to audit
     if not (0 <= free_top <= num_pages):
         out.append(f"free_top={free_top} outside [0, {num_pages}]")
         return out
@@ -394,9 +483,11 @@ def _deref_push(ref, free, free_top, ids):
 
 def paged_release_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
     """Free a slot: drop one reference from each of its pages (orphans go
-    back on the free stack), then clear its table row and position.  Pool
-    pages are not zeroed: a new occupant overwrites position ``p`` before
-    ``p`` ever becomes attendable."""
+    back on the free stack), then clear its table row and position and
+    reset its recurrent state to init, so that a reused slot never carries
+    the previous occupant's state.  Pool pages are not zeroed: a new
+    occupant overwrites position ``p`` before ``p`` ever becomes
+    attendable."""
     table = cache["table"]
     ref, free, free_top = _deref_push(cache["ref"], cache["free"],
                                       cache["free_top"], table[slot])
@@ -404,6 +495,11 @@ def paged_release_slot(cfg: ModelConfig, cache: dict, slot: int) -> dict:
     table[slot] = -1
     pos = cache["pos"].clone()
     pos[slot] = 0
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind != "attn":
+            _set_state(cache["blocks"][f"pos{i}"], (slice(None), slot),
+                       _recurrent_init(cfg, kind, 1, torch.float32,
+                                       pos.device))
     return {"pos": pos, "table": table, "free": free, "free_top": free_top,
             "ref": ref, "blocks": cache["blocks"]}
 
@@ -414,7 +510,8 @@ def paged_insert_prefill(cfg: ModelConfig, cache: dict, slot: int,
     """Embed B=1 prefill states ``{"pos{i}": (NS, 1, S or W, K, 2D)}`` into
     a slot's pages: allocates ``ceil(state_len / page_size)`` pages off the
     free stack (exhaustion degrades locally), zero-pads the beats to whole
-    pages and sets the slot's position to ``length``."""
+    pages and sets the slot's position to ``length``.  Recurrent states
+    ``(NS, 1, ...)`` are installed in the slot's row."""
     attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
     n_pg = -(-state_len // ps)
     sp = n_pg * ps
@@ -469,6 +566,11 @@ def paged_insert_prefill(cfg: ModelConfig, cache: dict, slot: int,
                                    leaf.dtype)
             cache["blocks"][f"scl{i}"][:, ids] = s[:, hv]
         quant.raw(leaf)[:, ids] = quant.raw(beats)[:, hv]
+    for i, kind in enumerate(cfg.block_pattern):
+        if kind != "attn":
+            _set_state(cache["blocks"][f"pos{i}"], (slice(None), slot),
+                       tree_map(lambda st: st[:, 0],
+                                cache_states[f"pos{i}"]))
     return {"pos": pos, "table": table, "free": free, "free_top": free_top,
             "ref": ref, "blocks": cache["blocks"]}
 
@@ -565,16 +667,34 @@ def paged_fork_page(cfg: ModelConfig, cache: dict, slot: int,
             "ref": ref, "blocks": cache["blocks"]}
 
 
+def _tok_scan(step_fn, state0, h: torch.Tensor, on: torch.Tensor,
+              keep_dtype, *, collect: bool = False):
+    """Advance B rows of recurrent state over the T tokens of ``h`` (B, T,
+    d) one token at a time; ``on`` (B, T) gates pad tokens out of both the
+    carry and the output (their outputs are zero).  Returns (the final
+    state, or with ``collect`` the list of the T intermediate states; the
+    outputs (B, T, d) in ``keep_dtype``)."""
+    st, sts, ys = state0, [], []
+    for t in range(h.shape[1]):
+        y, st2 = step_fn(h[:, t], st)
+        st = _keep_active(st2, st, on[:, t])
+        sts.append(st)
+        ys.append(torch.where(on[:, t, None], y, 0.0))
+    return (sts if collect else st), torch.stack(ys, dim=1).to(keep_dtype)
+
+
 def paged_prefill_chunk(params, cache: dict, tokens: torch.Tensor,
                         cfg: ModelConfig, ctx=None, *, slot: int,
                         count) -> dict:
     """Prefill up to ``tokens.shape[0]`` prompt tokens into ONE slot,
     starting at the slot's current position; ``count`` leading tokens are
-    real (pad tokens append nothing).  Missing pages in the touched range
-    are allocated off the free stack (refcount 1), the chunk's KV beats
-    scatter through the page table, and C-query causal attention runs over
-    the slot's gathered pages.  No logits: the scheduler feeds the last
-    prompt token through the decode step.  Returns the updated cache."""
+    real (pad tokens append nothing and never touch recurrent state).
+    Missing pages in the touched range are allocated off the free stack
+    (refcount 1), the chunk's KV beats scatter through the page table, and
+    C-query causal attention runs over the slot's gathered pages;
+    recurrent blocks advance the slot's state token by token.  No logits:
+    the scheduler feeds the last prompt token through the decode step.
+    Returns the updated cache."""
     params = cast_params(params, cfg)
     pol = cfg.vx_policy
     C = tokens.shape[0]
@@ -587,51 +707,64 @@ def paged_prefill_chunk(params, cache: dict, tokens: torch.Tensor,
     offs = torch.arange(C, device=dev, dtype=I32)
     tpos = start + offs                          # (C,) token positions
     real = offs < count
-    seq = n_seq * ps
-
-    # allocate every missing page the chunk touches (rank-pop, as the
-    # decode step; exhaustion degrades locally)
-    row = table[slot]
-    idx = torch.arange(n_seq, device=dev, dtype=I32)
-    lastp = (start + torch.clamp(count, min=1) - 1) // ps
-    neednew = (idx >= start // ps) & (idx <= lastp) & (row < 0)
-    have, newp, free_top = _pop_pages(free, free_top, neednew)
-    row = torch.where(have, newp, row)
-    table = table.clone()
-    table[slot] = row
-    ref = _add_refs(ref, newp, have)
+    seq = n_seq * ps if attn_pos else 1 << 30
     quantized = _pool_quantized(cache, attn_pos)
-    if quantized:
-        _reset_scales(cache, attn_pos, newp, have)
-    table_c = row[None].expand(C, n_seq)
-    wpos = torch.where(real & (tpos < seq), tpos, torch.full_like(tpos, -1))
-    spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
+
+    if attn_pos:
+        # allocate every missing page the chunk touches (rank-pop, as the
+        # decode step; exhaustion degrades locally)
+        row = table[slot]
+        idx = torch.arange(n_seq, device=dev, dtype=I32)
+        lastp = (start + torch.clamp(count, min=1) - 1) // ps
+        neednew = (idx >= start // ps) & (idx <= lastp) & (row < 0)
+        have, newp, free_top = _pop_pages(free, free_top, neednew)
+        row = torch.where(have, newp, row)
+        table = table.clone()
+        table[slot] = row
+        ref = _add_refs(ref, newp, have)
+        if quantized:
+            _reset_scales(cache, attn_pos, newp, have)
+        table_c = row[None].expand(C, n_seq)
+        wpos = torch.where(real & (tpos < seq), tpos,
+                           torch.full_like(tpos, -1))
+        spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
 
     x = layers.embed(tokens, params["embed"]).to(cfg.cdtype)[None]
     for sbi in range(cfg.n_superblocks):
         sb_p = superblock(params["blocks"], sbi)
-        for i in attn_pos:
+        for i, kind in enumerate(cfg.block_pattern):
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v, kv = attention.qkv_project(
-                p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                tpos[None], cfg.rope_theta, policy=pol)
-            pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
-            # quantized: quantize-on-write (the scale only widens), then
-            # the read dequantizes the slot's whole prefix, the beats just
-            # written included, in the same one gather
-            scl = (cache["blocks"][f"scl{i}"][sbi] if quantized
-                   else None)
-            vx.scatter(spec, pool, kv[0], table=table_c, pos=wpos,
-                       scales=scl, policy=pol)
-            full = vx.gather(spec, pool, table=row[None], scales=scl,
-                             policy=pol)
-            k_all, v_all = vx.transpose(
-                vx.Segment(n=full.shape[-1], fields=2), full, policy=pol)
-            out = attention.chunk_attention(
-                q, k_all, v_all, tpos, window=cfg.window_pattern[i])
-            x = x + (out.reshape(1, C, cfg.n_heads * cfg.hd)
-                     @ p["attn"]["wo"]).to(x.dtype)
+            if kind != "attn":
+                leaf = cache["blocks"][f"pos{i}"]
+                st, y = _tok_scan(
+                    lambda ht, st, p=p, kind=kind: _recurrent_step(
+                        p, ht, st, cfg, kind),
+                    tree_map(lambda a: a[sbi, slot:slot + 1], leaf), h,
+                    real[None], x.dtype)
+                x = x + y
+                _set_state(leaf, (sbi, slice(slot, slot + 1)), st)
+            else:
+                q, k, v, kv = attention.qkv_project(
+                    p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                    tpos[None], cfg.rope_theta, policy=pol)
+                pool = cache["blocks"][f"pos{i}"][sbi]  # (P, ps, K, 2D)
+                # quantized: quantize-on-write (the scale only widens),
+                # then the read dequantizes the slot's whole prefix, the
+                # beats just written included, in the same one gather
+                scl = (cache["blocks"][f"scl{i}"][sbi] if quantized
+                       else None)
+                vx.scatter(spec, pool, kv[0], table=table_c, pos=wpos,
+                           scales=scl, policy=pol)
+                full = vx.gather(spec, pool, table=row[None], scales=scl,
+                                 policy=pol)
+                k_all, v_all = vx.transpose(
+                    vx.Segment(n=full.shape[-1], fields=2), full,
+                    policy=pol)
+                out = attention.chunk_attention(
+                    q, k_all, v_all, tpos, window=cfg.window_pattern[i])
+                x = x + (out.reshape(1, C, cfg.n_heads * cfg.hd)
+                         @ p["attn"]["wo"]).to(x.dtype)
             if cfg.pos_has_ffn(i):
                 x, _ = _ffn_apply(p, x, cfg, ctx, i, policy=pol)
 
@@ -708,7 +841,10 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
     scatter; a quantized pool's gather reads the scales before the
     append widens them.  Rejection rolls back through the page table
     only: pages allocated this step past the accept extent go straight
-    back on the free stack.  Recurrent blocks raise (``check_supported``).
+    back on the free stack.  Recurrent blocks advance token by token with
+    every intermediate state kept; the state after ``commit`` tokens is
+    selected afterwards (a K-way where), so rejected tokens never reach
+    the carry.
     """
     check_supported(cfg)
     params = cast_params(params, cfg)
@@ -724,37 +860,40 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
                           1, K)
     attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
     table, free, free_top = cache["table"], cache["free"], cache["free_top"]
+    ref = cache["ref"]
     quantized = _pool_quantized(cache, attn_pos)
-    seq = n_seq * ps
+    seq = n_seq * ps if attn_pos else 1 << 30
 
     offs = torch.arange(K, device=dev, dtype=I32)[None, :]
     tpos = pos[:, None] + offs                       # (B, K) positions
     valid = active[:, None] & (offs < n_draft[:, None])
-    # batched multi-page allocation: exactly the pages the oracle would
-    # allocate crossing boundaries in [pos, pos + n_draft - 1]
     idx = torch.arange(n_seq, device=dev, dtype=I32)[None, :]
-    startp = (pos + ps - 1) // ps
-    lastp = (pos + n_draft - 1) // ps
-    need = (active[:, None] & (idx >= startp[:, None])
-            & (idx <= lastp[:, None]) & (table < 0))
-    have_f, newp_f, free_top = _pop_pages(free, free_top, need.reshape(-1))
-    have = have_f.reshape(B, n_seq)
-    newp_grid = torch.where(have, newp_f.reshape(B, n_seq), -1)
-    table = torch.where(have, newp_grid, table)
-    ref = _add_refs(cache["ref"], newp_f, have_f)
-    if quantized:
-        _reset_scales(cache, attn_pos, newp_f, have_f)
-    spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
-    # (B*K,) append rows through the table rows repeated K times
-    keep = valid & (tpos < seq)
-    wpos_flat = torch.where(keep, tpos, -1).reshape(-1)
-    table_flat = table.repeat_interleave(K, dim=0)
-    qpos = torch.where(valid, tpos, -1)              # pad queries
-    wp_ins = torch.where(keep, tpos, seq)            # pad rows drop
+    if attn_pos:
+        # batched multi-page allocation: exactly the pages the oracle
+        # would allocate crossing boundaries in [pos, pos + n_draft - 1]
+        startp = (pos + ps - 1) // ps
+        lastp = (pos + n_draft - 1) // ps
+        need = (active[:, None] & (idx >= startp[:, None])
+                & (idx <= lastp[:, None]) & (table < 0))
+        have_f, newp_f, free_top = _pop_pages(free, free_top,
+                                              need.reshape(-1))
+        have = have_f.reshape(B, n_seq)
+        newp_grid = torch.where(have, newp_f.reshape(B, n_seq), -1)
+        table = torch.where(have, newp_grid, table)
+        ref = _add_refs(ref, newp_f, have_f)
+        if quantized:
+            _reset_scales(cache, attn_pos, newp_f, have_f)
+        spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
+        # (B*K,) append rows through the table rows repeated K times
+        keep = valid & (tpos < seq)
+        wpos_flat = torch.where(keep, tpos, -1).reshape(-1)
+        table_flat = table.repeat_interleave(K, dim=0)
+        qpos = torch.where(valid, tpos, -1)          # pad queries
+        wp_ins = torch.where(keep, tpos, seq)        # pad rows drop
 
     x = layers.embed(tokens, params["embed"]).to(cfg.cdtype)   # (B, K, d)
     pre_split: dict[str, Any] = {}
-    if fuse:
+    if fuse and attn_pos:
         gathered = kv_interleaved.gather_paged_kv(
             [cache["blocks"][f"pos{i}"] for i in attn_pos], table, ps,
             policy=pol, scales=([cache["blocks"][f"scl{i}"]
@@ -764,38 +903,49 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
     beat_pol = (pol.for_elems(B * K * cfg.n_kv_heads * 2 * cfg.hd)
                 if fuse else pol)
     ffn_pol = pol.for_elems(B * K * 2 * cfg.d_ff) if fuse else pol
+    states = {f"pos{i}": [] for i, k in enumerate(cfg.block_pattern)
+              if k != "attn"}
 
     for sbi in range(cfg.n_superblocks):
         sb_p = superblock(params["blocks"], sbi)
-        for i in attn_pos:
+        for i, kind in enumerate(cfg.block_pattern):
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v, kv = attention.qkv_project(
-                p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, tpos,
-                cfg.rope_theta, policy=beat_pol)
-            pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
-            scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
-            if fuse:
-                k_pre, v_pre = (t[sbi] for t in pre_split[f"pos{i}"])
+            if kind != "attn":
+                sts, y = _tok_scan(
+                    lambda ht, st, p=p, kind=kind: _recurrent_step(
+                        p, ht, st, cfg, kind),
+                    _sb_state(cache["blocks"][f"pos{i}"], sbi), h, valid,
+                    x.dtype, collect=True)
+                x = x + y
+                states[f"pos{i}"].append(sts)
             else:
-                # the per-access arm reads this layer's PRE-append pages
-                # before its scatter writes the pool in place
-                full = vx.gather(spec, pool, table=table, scales=scl,
-                                 policy=pol)
-                k_pre, v_pre = vx.transpose(
-                    vx.Segment(n=full.shape[-1], fields=2), full,
-                    policy=pol)
-            vx.scatter(spec, pool,
-                       kv.reshape(B * K, cfg.n_kv_heads, 2 * cfg.hd),
-                       table=table_flat, pos=wpos_flat, scales=scl,
-                       policy=pol)
-            # all K fresh beats inserted as floats; pad rows drop
-            k_all = _insert_beats(k_pre, k, wp_ins)
-            v_all = _insert_beats(v_pre, v, wp_ins)
-            out = attention.chunk_attention(
-                q, k_all, v_all, qpos, window=cfg.window_pattern[i])
-            x = x + (out.reshape(B, K, cfg.n_heads * cfg.hd)
-                     @ p["attn"]["wo"]).to(x.dtype)
+                q, k, v, kv = attention.qkv_project(
+                    p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, tpos,
+                    cfg.rope_theta, policy=beat_pol)
+                pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
+                scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
+                if fuse:
+                    k_pre, v_pre = (t[sbi] for t in pre_split[f"pos{i}"])
+                else:
+                    # the per-access arm reads this layer's PRE-append pages
+                    # before its scatter writes the pool in place
+                    full = vx.gather(spec, pool, table=table, scales=scl,
+                                     policy=pol)
+                    k_pre, v_pre = vx.transpose(
+                        vx.Segment(n=full.shape[-1], fields=2), full,
+                        policy=pol)
+                vx.scatter(spec, pool,
+                           kv.reshape(B * K, cfg.n_kv_heads, 2 * cfg.hd),
+                           table=table_flat, pos=wpos_flat, scales=scl,
+                           policy=pol)
+                # all K fresh beats inserted as floats; pad rows drop
+                k_all = _insert_beats(k_pre, k, wp_ins)
+                v_all = _insert_beats(v_pre, v, wp_ins)
+                out = attention.chunk_attention(
+                    q, k_all, v_all, qpos, window=cfg.window_pattern[i])
+                x = x + (out.reshape(B, K, cfg.n_heads * cfg.hd)
+                         @ p["attn"]["wo"]).to(x.dtype)
             if cfg.pos_has_ffn(i):
                 x, _ = _ffn_apply(p, x, cfg, ctx, i, policy=ffn_pol)
 
@@ -815,13 +965,31 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
     commit = torch.where(active, 1 + m, 0).to(I32)
     new_pos = torch.where(active, torch.clamp(pos + commit, max=seq), pos)
 
-    # rollback through the page table only: pages allocated THIS step
-    # past the accept extent are refcount 1; clear and push them back
-    ext = (new_pos + ps - 1) // ps
-    roll = have & (idx >= ext[:, None])
-    ref, free, free_top = _deref_push(
-        ref, free, free_top, torch.where(roll, newp_grid, -1).reshape(-1))
-    table = torch.where(roll, -1, table)
+    # accept-point select for recurrent leaves: the state after `commit`
+    # tokens is index commit-1 (inactive slots carried their old state
+    # through the gated scan, so any index reads it back)
+    ci = torch.clamp(commit, 1, K) - 1
+
+    def select(*per_tok):
+        out = per_tok[0]
+        for kk in range(1, K):
+            hit = (ci == kk).reshape((-1,) + (1,) * (out.ndim - 1))
+            out = torch.where(hit, per_tok[kk], out)
+        return out
+
+    for key, per_sb in states.items():
+        for sbi, sts in enumerate(per_sb):
+            _set_state(cache["blocks"][key], sbi, tree_map(select, *sts))
+
+    if attn_pos:
+        # rollback through the page table only: pages allocated THIS step
+        # past the accept extent are refcount 1; clear and push them back
+        ext = (new_pos + ps - 1) // ps
+        roll = have & (idx >= ext[:, None])
+        ref, free, free_top = _deref_push(
+            ref, free, free_top,
+            torch.where(roll, newp_grid, -1).reshape(-1))
+        table = torch.where(roll, -1, table)
     return logits, out_tok, commit, {
         "pos": new_pos, "table": table, "free": free,
         "free_top": free_top, "ref": ref, "blocks": cache["blocks"]}
@@ -846,7 +1014,8 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
     fresh FLOAT beat: the fused and per-access paths stay bit-identical,
     and the beat is quantized only for the next step's read.  The
     per-access arm gathers each layer's pages before its scatter writes
-    the pool in place."""
+    the pool in place.  Recurrent positions step every slot's state and
+    keep the old state (and add nothing to ``x``) where a slot is idle."""
     params = cast_params(params, cfg)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
@@ -858,29 +1027,36 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
               .to(torch.bool))
     attn_pos, ps, n_seq = _paged_geometry(cfg, cache)
     table, free, free_top = cache["table"], cache["free"], cache["free_top"]
-    seq = n_seq * ps
-
-    # allocate on page-boundary crossing — one shared table update for
-    # every layer.  An exhausted free stack degrades locally: slots whose
-    # pop rank exceeds the free count get no page (never an aliased one).
-    need = active & (pos % ps == 0) & (pos // ps < n_seq)
-    have, newp, free_top = _pop_pages(free, free_top, need)
-    hit = have[:, None] & (torch.arange(n_seq, device=dev)[None, :]
-                           == (pos // ps)[:, None])
-    table = torch.where(hit, newp[:, None], table)
-    ref = _add_refs(cache["ref"], newp, have)
+    ref = cache["ref"]
     quantized = _pool_quantized(cache, attn_pos)
-    if quantized:
-        _reset_scales(cache, attn_pos, newp, have)
-    # idle slots and full sequences append nothing (dropped scatter rows)
-    write_pos = torch.where(active & (pos < seq), pos,
-                            torch.full_like(pos, -1))
-    spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
+    # logical capacity; a stack without attention carries O(1) state
+    seq = n_seq * ps if attn_pos else 1 << 30
+
+    if attn_pos:
+        # allocate on page-boundary crossing — one shared table update for
+        # every layer.  An exhausted free stack degrades locally: slots
+        # whose pop rank exceeds the free count get no page (never an
+        # aliased one).
+        need = active & (pos % ps == 0) & (pos // ps < n_seq)
+        have, newp, free_top = _pop_pages(free, free_top, need)
+        hit = have[:, None] & (torch.arange(n_seq, device=dev)[None, :]
+                               == (pos // ps)[:, None])
+        table = torch.where(hit, newp[:, None], table)
+        ref = _add_refs(ref, newp, have)
+        if quantized:
+            _reset_scales(cache, attn_pos, newp, have)
+        # idle slots and full sequences append nothing (dropped scatter
+        # rows)
+        write_pos = torch.where(active & (pos < seq), pos,
+                                torch.full_like(pos, -1))
+        spec = vx.Paged(page_size=ps, pages=n_seq, trail=2)
+        ins = (active[:, None] & (torch.arange(seq, device=dev)[None, :]
+                                  == pos[:, None]))[:, :, None, None]
 
     x = layers.embed(token, params["embed"]).to(cfg.cdtype)
 
     pre_split: dict[str, Any] = {}
-    if fuse:
+    if fuse and attn_pos:
         # ONE fused page gather for all layers' pools, then ONE fused
         # FIELD=2 split
         gathered = kv_interleaved.gather_paged_kv(
@@ -893,44 +1069,49 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
                 if fuse else pol)
     ffn_pol = pol.for_elems(B * 2 * cfg.d_ff) if fuse else pol
     eff = (pos + active.to(I32))[:, None]                 # (B, 1) per slot
-    ins = (active[:, None] & (torch.arange(seq, device=dev)[None, :]
-                              == pos[:, None]))[:, :, None, None]
 
     for sbi in range(cfg.n_superblocks):
         sb_p = superblock(params["blocks"], sbi)
-        for i in attn_pos:
+        for i, kind in enumerate(cfg.block_pattern):
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-            q, k, v, kv = attention.qkv_project(
-                p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads,
-                cfg.hd, pos[:, None], cfg.rope_theta, policy=beat_pol)
-            pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
-            scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
-            if quantized and not fuse:
-                # the per-access quantized arm reads the PRE-append pages
-                # (as the fused gather does) and inserts the fresh float
-                # beat below
-                full = vx.gather(spec, pool, table=table, scales=scl,
-                                 policy=pol)
-                pre = vx.transpose(vx.Segment(n=full.shape[-1], fields=2),
-                                   full, policy=pol)
-            vx.scatter(spec, pool, kv[:, 0], table=table, pos=write_pos,
-                       scales=scl, policy=pol)
-            if fuse or quantized:
-                k_pre, v_pre = ((t[sbi] for t in pre_split[f"pos{i}"])
-                                if fuse else pre)
-                # k/v are (B, 1, K, D): broadcast over the seq axis
-                k_all = torch.where(ins, k.to(k_pre.dtype), k_pre)
-                v_all = torch.where(ins, v.to(v_pre.dtype), v_pre)
+            if kind != "attn":
+                leaf = cache["blocks"][f"pos{i}"]
+                old = _sb_state(leaf, sbi)
+                y, st = _recurrent_step(p, h, old, cfg, kind)
+                x = x + torch.where(active[:, None], y, 0)
+                _set_state(leaf, sbi, _keep_active(st, old, active))
             else:
-                full = vx.gather(spec, pool, table=table, policy=pol)
-                k_all, v_all = vx.transpose(
-                    vx.Segment(n=full.shape[-1], fields=2), full,
-                    policy=pol)
-            out = attention.decode_attention(
-                q[:, 0], k_all, v_all, eff, window=cfg.window_pattern[i])
-            x = x + (out.reshape(B, cfg.n_heads * cfg.hd)
-                     @ p["attn"]["wo"]).to(x.dtype)
+                q, k, v, kv = attention.qkv_project(
+                    p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads,
+                    cfg.hd, pos[:, None], cfg.rope_theta, policy=beat_pol)
+                pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
+                scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
+                if quantized and not fuse:
+                    # the per-access quantized arm reads the PRE-append pages
+                    # (as the fused gather does) and inserts the fresh float
+                    # beat below
+                    full = vx.gather(spec, pool, table=table, scales=scl,
+                                     policy=pol)
+                    pre = vx.transpose(vx.Segment(n=full.shape[-1], fields=2),
+                                       full, policy=pol)
+                vx.scatter(spec, pool, kv[:, 0], table=table, pos=write_pos,
+                           scales=scl, policy=pol)
+                if fuse or quantized:
+                    k_pre, v_pre = ((t[sbi] for t in pre_split[f"pos{i}"])
+                                    if fuse else pre)
+                    # k/v are (B, 1, K, D): broadcast over the seq axis
+                    k_all = torch.where(ins, k.to(k_pre.dtype), k_pre)
+                    v_all = torch.where(ins, v.to(v_pre.dtype), v_pre)
+                else:
+                    full = vx.gather(spec, pool, table=table, policy=pol)
+                    k_all, v_all = vx.transpose(
+                        vx.Segment(n=full.shape[-1], fields=2), full,
+                        policy=pol)
+                out = attention.decode_attention(
+                    q[:, 0], k_all, v_all, eff, window=cfg.window_pattern[i])
+                x = x + (out.reshape(B, cfg.n_heads * cfg.hd)
+                         @ p["attn"]["wo"]).to(x.dtype)
             if cfg.pos_has_ffn(i):
                 x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, i,
                                    policy=ffn_pol)

@@ -1,6 +1,6 @@
 """Decoder-only transformer: config, parameters, the forward pass.
 
-Port of ``repro``'s ``models/transformer.py`` for attention decoders:
+Port of ``repro``'s ``models/transformer.py`` for decoders:
 :class:`ModelConfig` and :class:`EncoderSpec` (the same fields), a seeded
 :func:`init_params` with the reference's parameter layout, shapes and
 scales (leaves stacked over superblocks, ``(NS, ...)``), :func:`param_count`,
@@ -14,13 +14,16 @@ parameters.  Superblocks run in a Python loop over the stacked leaves
 way); ``remat`` is a no-op without a backward.
 
 Covered: dense GQA / MQA attention, sliding-window:global patterns,
-qk-norm, the VLM patch-embedding stub, and per position the reference's
-three FFN arms: MoE (``p["moe"]``, models/moe.py; its aux loss flows out of
-:func:`forward`), the SwiGLU (``p["ffn"]``) and the GELU MLP
-(``p["mlp"]``).  Waiting for later slices: Mamba and xLSTM blocks (item 9d)
-and the encoder (item 9e), whose configs are accepted but refused at init,
-forward and serve time by :func:`check_supported`; ``loss_fn`` and the
-backward (training); sharding constraints (``dist``).
+qk-norm, the VLM patch-embedding stub, Mamba blocks (models/ssm.py, the
+hybrid jamba stack) and xLSTM mLSTM / sLSTM blocks (models/xlstm.py), and
+per position the reference's three FFN arms: MoE (``p["moe"]``,
+models/moe.py; its aux loss flows out of :func:`forward`), the SwiGLU
+(``p["ffn"]``) and the GELU MLP (``p["mlp"]``).  In prefill mode a
+recurrent position's cache update is its final state (a NamedTuple of
+``(B, ...)`` leaves, stacked over superblocks like the KV beats).  Waiting
+for later slices: the encoder (item 9e), whose config is accepted but
+refused at init, forward and serve time by :func:`check_supported`;
+``loss_fn`` and the backward (training); sharding constraints (``dist``).
 """
 from __future__ import annotations
 
@@ -34,8 +37,11 @@ from repro_torch.device import refuse_mesh, resolve as resolve_device
 from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
 from repro_torch.models.moe import MoESpec, init_moe, moe_layer
-from repro_torch.models.ssm import MambaSpec
-from repro_torch.models.xlstm import XLSTMSpec
+from repro_torch.models.ssm import MambaSpec, init_mamba, mamba_forward
+from repro_torch.models.xlstm import (XLSTMSpec, init_mlstm, init_slstm,
+                                      mlstm_forward, slstm_forward)
+
+RECURRENT = ("mamba", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,19 +122,14 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs attention decoders with any of the reference's FFN
-    arms (SwiGLU, GELU MLP, MoE); recurrent blocks and the encoder wait."""
+    """The port runs decoders of attention, Mamba and xLSTM blocks with
+    any of the reference's FFN arms (SwiGLU, GELU MLP, MoE); the encoder
+    waits."""
     if cfg.encoder is not None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models wait for the port's "
             f"encoder-decoder slice (ROADMAP.md queue A, item 9e)")
-    recurrent = sorted({k for k in cfg.block_pattern
-                        if k in ("mamba", "mlstm", "slstm")})
-    if recurrent:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(recurrent)} blocks wait for the port's "
-            f"recurrent slice (ROADMAP.md queue A, item 9d)")
-    other = [k for k in cfg.block_pattern if k != "attn"]
+    other = [k for k in cfg.block_pattern if k not in ("attn",) + RECURRENT]
     if other:
         raise ValueError(other[0])
 
@@ -138,21 +139,38 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_pos(cfg: ModelConfig, i: int, g: torch.Generator, device) -> dict:
+    kind = cfg.block_pattern[i]
     dt = cfg.pdtype
-    d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    s = d ** -0.5
-    wq = layers.normal((d, H * D), s, g, dt, device)
-    wk = layers.normal((d, K, D), s, g, dt, device)
-    wv = layers.normal((d, K, D), s, g, dt, device)
-    attn = {"wq": wq,
-            # interleave K/V output features -> one coalesced beat per head
-            "wkv": torch.stack([wk, wv], dim=-1).reshape(d, K * 2 * D),
-            "wo": layers.normal((H * D, d), (H * D) ** -0.5, g, dt, device)}
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((D,), dtype=dt, device=device)
-        attn["k_norm"] = torch.ones((D,), dtype=dt, device=device)
-    p: dict[str, Any] = {"ln1": torch.ones((d,), dtype=dt, device=device),
-                         "attn": attn}
+    d = cfg.d_model
+    p: dict[str, Any] = {"ln1": torch.ones((d,), dtype=dt, device=device)}
+    if kind == "attn":
+        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        s = d ** -0.5
+        wq = layers.normal((d, H * D), s, g, dt, device)
+        wk = layers.normal((d, K, D), s, g, dt, device)
+        wv = layers.normal((d, K, D), s, g, dt, device)
+        attn = {"wq": wq,
+                # interleave K/V output features -> one coalesced beat per
+                # head
+                "wkv": torch.stack([wk, wv], dim=-1).reshape(d, K * 2 * D),
+                "wo": layers.normal((H * D, d), (H * D) ** -0.5, g, dt,
+                                    device)}
+        if cfg.qk_norm:
+            attn["q_norm"] = torch.ones((D,), dtype=dt, device=device)
+            attn["k_norm"] = torch.ones((D,), dtype=dt, device=device)
+        p["attn"] = attn
+    elif kind == "mamba":
+        p["mamba"] = init_mamba(cfg.mamba, g, dt, device)
+        # in_proj as (d, 2, ed): the reference's (x|z) sharding layout
+        p["mamba"]["in_proj"] = p["mamba"]["in_proj"].reshape(
+            d, 2, cfg.mamba.ed)
+    elif kind == "mlstm":
+        p["xl"] = init_mlstm(cfg.xlstm, g, dt, device)
+        p["xl"]["up"] = p["xl"]["up"].reshape(d, 2, cfg.xlstm.m_inner)
+    elif kind == "slstm":
+        p["slstm"] = init_slstm(cfg.xlstm, g, dt, device)
+    else:
+        raise ValueError(kind)
     if cfg.pos_has_ffn(i):
         p["ln2"] = torch.ones((d,), dtype=dt, device=device)
         if cfg.moe_pattern[i]:
@@ -166,8 +184,12 @@ def _init_pos(cfg: ModelConfig, i: int, g: torch.Generator, device) -> dict:
 
 
 def _stack(trees: list):
+    """Stack a list of like trees (dicts and NamedTuples of tensors) leaf
+    by leaf on a new leading axis."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return type(trees[0])(*(_stack(list(xs)) for xs in zip(*trees)))
     return torch.stack(trees)
 
 
@@ -228,10 +250,14 @@ def param_count(params) -> int:
     return sum(t.numel() for t in tree_leaves(params))
 
 
-def tree_map(fn, tree):
+def tree_map(fn, tree, *rest):
+    """``jax.tree.map`` over dicts and NamedTuples of tensors."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    return fn(tree, *rest)
 
 
 def superblock(params_blocks: dict, sbi: int) -> dict:
@@ -315,14 +341,44 @@ def superblock_apply(sb_p, x, cfg: ModelConfig, ctx, positions, *,
     return x, aux_total, updates
 
 
+def _mixer_params(p, cfg: ModelConfig, kind: str) -> dict:
+    """A recurrent position's block parameters with the fused input
+    projection back in its ``(d, 2 * inner)`` matmul shape."""
+    if kind == "mamba":
+        pm = dict(p["mamba"])
+        pm["in_proj"] = pm["in_proj"].reshape(cfg.d_model, 2 * cfg.mamba.ed)
+        return pm
+    if kind == "mlstm":
+        px = dict(p["xl"])
+        px["up"] = px["up"].reshape(cfg.d_model, 2 * cfg.xlstm.m_inner)
+        return px
+    return p["slstm"]
+
+
+def _recurrent_forward(p, h, cfg: ModelConfig, kind: str):
+    """(y, final state) of a recurrent block over ``h`` (B, S, d)."""
+    pm = _mixer_params(p, cfg, kind)
+    if kind == "mamba":
+        return mamba_forward(pm, h, cfg.mamba, chunk=cfg.ssm_chunk)
+    if kind == "mlstm":
+        return mlstm_forward(pm, h, cfg.xlstm)
+    return slstm_forward(pm, h, cfg.xlstm)
+
+
 def _position_apply(p, x, positions, *, cfg: ModelConfig, ctx, i: int,
                     kind: str, mode: str):
     """One (mixer + FFN) position of a superblock."""
-    if kind != "attn":
-        raise NotImplementedError(f"{kind} blocks wait for a later slice")
-    x, kv = _attn_apply(p, x, cfg, ctx, i, positions, mode)
-    update = _ring_trim(kv, cfg.window_pattern[i]) if mode == "prefill" \
-        else None
+    if kind == "attn":
+        x, kv = _attn_apply(p, x, cfg, ctx, i, positions, mode)
+        update = _ring_trim(kv, cfg.window_pattern[i]) if mode == "prefill" \
+            else None
+    elif kind in RECURRENT:
+        y, state = _recurrent_forward(
+            p, layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg, kind)
+        x = x + y
+        update = state if mode == "prefill" else None
+    else:
+        raise ValueError(kind)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.pos_has_ffn(i):
         x, aux = _ffn_apply(p, x, cfg, ctx, i)
@@ -352,7 +408,8 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
 
     Returns (logits (B,S,V), aux, cache_states).  ``mode="prefill"``
     returns only the last position's logits (B,1,V) and the cache states
-    ``{"pos{i}": (NS, B, S or W, K, 2D)}``, stacked over superblocks;
+    ``{"pos{i}": (NS, B, S or W, K, 2D)}`` of the attention positions and
+    the final states of the recurrent ones, stacked over superblocks;
     ``mode="hidden"`` returns the final-normed hidden states in place of
     logits.  Eager and forward only: no backward is defined."""
     check_supported(cfg)
@@ -370,8 +427,7 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
                                          x, cfg, ctx, positions, mode=mode)
         aux = aux + aux_d
         states.append(upd)
-    cache_states = ({k: torch.stack([u[k] for u in states])
-                     for k in states[0]} if mode == "prefill" else {})
+    cache_states = _stack(states) if mode == "prefill" else {}
     if mode == "prefill":
         x = x[:, -1:]      # serving prefill only needs next-token logits
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -10,8 +10,10 @@ FORKED copy-on-write (``fork_page``), and the radix trie
 (``addref`` / ``deref_pages``).  ``check_invariants`` audits refcount
 conservation through the ``external_ref`` hook the scheduler sets.
 ``kv_quant`` ("int8" / "fp8") selects the quantized pool; ``page_bytes``
-counts its scale side tensor.  Mutations update the state in place where
-the reference donated it to a jit'd entry point.
+counts its scale side tensor.  Recurrent positions (Mamba, xLSTM) hold
+per-slot state beside the pools: ``used_cache_bytes`` counts it whole, as
+the reference's ``_is_page_leaf`` accounting does.  Mutations update the
+state in place where the reference donated it to a jit'd entry point.
 """
 from __future__ import annotations
 
@@ -83,18 +85,30 @@ class PagedCache:
     def active_tokens(self) -> int:
         return int(self.state["pos"].sum())
 
+    @staticmethod
+    def _is_page_leaf(name: str, leaf) -> bool:
+        """Pool leaves (rank-5 page pools) and their per-page scale side
+        tensors (``scl*``): everything whose axis 1 is the physical page
+        axis.  Recurrent states (NamedTuples) are not."""
+        return isinstance(leaf, torch.Tensor) and (
+            leaf.ndim == 5 or name.startswith("scl"))
+
     def page_bytes(self) -> int:
         """Bytes of ONE page across every attention layer's pool and, for
-        a quantized pool, its scale side tensor (axis 1 of every leaf is
-        the page axis)."""
+        a quantized pool, its scale side tensor."""
         return sum((t.numel() // t.shape[1]) * t.element_size()
-                   for t in self.state["blocks"].values())
+                   for name, t in self.state["blocks"].items()
+                   if self._is_page_leaf(name, t))
 
     def used_cache_bytes(self) -> int:
-        """Bytes backing live requests: pages in use plus the page table."""
+        """Bytes backing live requests: pages in use, the page table, and
+        the recurrent state (whole: it does not grow with tokens)."""
         tab = self.state["table"]
+        recurrent = sum(pytree_nbytes(leaf)
+                        for name, leaf in self.state["blocks"].items()
+                        if not self._is_page_leaf(name, leaf))
         return (self.pages_in_use() * self.page_bytes()
-                + tab.numel() * tab.element_size())
+                + tab.numel() * tab.element_size() + recurrent)
 
     def total_cache_bytes(self) -> int:
         return pytree_nbytes(self.state)

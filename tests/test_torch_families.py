@@ -27,8 +27,9 @@ weights, on the CPU at the smoke configs.
 - B1 / B6 take a row too wide for the permuted copy's shared memory
   (gemma3-12b's GLU split, 30720 lanes in bf16) as chunks: the identity
   the wrappers rely on holds bit for bit on the plain versions.
-- jamba, xlstm and whisper are refused at init, forward and serve time with
-  ``NotImplementedError`` naming the slice they wait for.
+- whisper is refused at init, forward and serve time with
+  ``NotImplementedError`` naming the slice it waits for (jamba and xlstm
+  run: tests/test_torch_recurrent_serve.py).
 """
 import dataclasses
 import functools
@@ -52,8 +53,7 @@ from repro_torch.serve.scheduler import Scheduler
 
 FAMILIES = ("gemma3-12b", "llava-next-mistral-7b", "granite-34b",
             "starcoder2-3b", "phi3.5-moe-42b-a6.6b", "qwen3-moe-30b-a3b")
-REFUSED = {"jamba-1.5-large-398b": "9d", "xlstm-125m": "9d",
-           "whisper-tiny": "9e"}
+REFUSED = {"whisper-tiny": "9e"}
 RTOL = ATOL = 2e-5
 SLOTS, PROMPT_LEN, GEN, MAX_LEN, PAGE = 2, 20, 6, 64, 4
 

@@ -16,8 +16,9 @@ request.  Fleet chaos on seeds 0-2 gives the reference's
 replica and every respawn reads the one weight copy the router cast, and
 a dead replica's scheduler (pool, logits, watchdog) is freed at respawn.
 No tolerance: streams, states, counts and logits are exact, except the
-windowed migration case (gemma3's smoke config), held to the reference's
-``rtol 2e-4 / atol 2e-5`` (its prefill runs at the true length)."""
+windowed and recurrent migration cases (gemma3's and xlstm's smoke
+configs), held to the reference's ``rtol 2e-4 / atol 2e-5`` (their prefill
+runs at the true length)."""
 import dataclasses
 import functools
 import gc
@@ -429,6 +430,16 @@ def test_migration_allclose_windowed():
         np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-5,
                                    err_msg=f"pos {pos}")
     _migration_oracle("gemma3-12b", close)
+
+
+def test_migration_allclose_recurrent():
+    """Recurrent stack (xlstm smoke): migration re-prefills and replays
+    the state on the other replica.  Allclose, the reference's bar, and
+    the reference router's stream."""
+    def close(x, y, pos):
+        np.testing.assert_allclose(x, y, rtol=2e-4, atol=2e-5,
+                                   err_msg=f"pos {pos}")
+    _migration_oracle("xlstm-125m", close)
 
 
 def test_midprefill_failover_resumes_bit_exact():

@@ -211,6 +211,6 @@ def test_forward_refuses_what_waits():
         mesh = object()
     with pytest.raises(NotImplementedError, match="dist"):
         forward(params, batch, cfg, Ctx())
-    with pytest.raises(NotImplementedError):
-        forward(params, batch, dataclasses.replace(
-            cfg, block_pattern=("mamba",)))
+    from repro_torch.configs.whisper_tiny import smoke_config
+    with pytest.raises(NotImplementedError, match="item 9e"):
+        forward(params, batch, smoke_config())

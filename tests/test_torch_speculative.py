@@ -20,8 +20,8 @@ verify batch, prefix sharing), each against the reference's speculative
 scheduler (streams and the speculative stats) and the plain scheduler's
 streams.  ``paged_truncate`` against the reference on random page
 tables, quantized pools included.  The reference's recurrent mix case
-waits for the port's recurrent blocks (ROADMAP.md queue A item 9); the
-port's verify step refuses such a stack.
+(an ``("attn", "mamba")`` stack) runs in lockstep with the reference's
+verify step, the Mamba state kept at the accept point.
 """
 import functools
 
@@ -61,8 +61,15 @@ def _kw(layers=2, hd=16, scan=True, pattern=("attn",), window=None,
 def _pair(impl="ref", seed=0, **kw):
     """(reference cfg, reference params, port cfg, port params)."""
     kw = _kw(**kw)
-    jcfg = jtf.ModelConfig(**kw, kernel_impl=JIMPL[impl])
-    cfg = ModelConfig(**kw, kernel_impl=impl)
+    jkw, tkw = {}, {}
+    if "mamba" in kw["block_pattern"]:
+        # tests/test_speculative.py's MambaSpec(d_model=2 * hd)
+        from repro.models.ssm import MambaSpec as JMambaSpec
+        from repro_torch.models.ssm import MambaSpec
+        jkw["mamba"] = JMambaSpec(d_model=kw["d_model"])
+        tkw["mamba"] = MambaSpec(d_model=kw["d_model"])
+    jcfg = jtf.ModelConfig(**kw, **jkw, kernel_impl=JIMPL[impl])
+    cfg = ModelConfig(**kw, **tkw, kernel_impl=impl)
     jparams = jtf.init_params(jcfg, jax.random.key(seed))
     return jcfg, jparams, cfg, params_from_jax(jax_tree_to_np(jparams), cfg,
                                                device="cpu")
@@ -133,6 +140,12 @@ def _lockstep(jcfg, jparams, cfg, params, oracle, K, steps, slots, ps,
                 nd), active=torch.from_numpy(act))
         np.testing.assert_array_equal(tcm.numpy(), np.asarray(jcm))
         _state_equal(tc, jc)
+        for i, kind in enumerate(cfg.block_pattern):
+            if kind != "attn":    # the recurrent state at the accept point
+                for a, b in zip(tc["blocks"][f"pos{i}"],
+                                jc["blocks"][f"pos{i}"]):
+                    np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                               rtol=RTOL, atol=ATOL)
         commits.append(tcm.tolist())
         for s in range(slots):
             c = int(tcm[s])
@@ -274,16 +287,23 @@ def test_windowed_stream_tracks_oracle():
 
 
 def test_recurrent_mix_waits_for_the_recurrent_blocks():
-    """The reference's ``test_recurrent_mix_stream_tracks_oracle`` needs
-    Mamba blocks (ROADMAP.md queue A item 9): the port refuses the stack."""
-    from repro_torch.models.transformer import check_supported
-    cfg = ModelConfig(**_kw(pattern=("attn", "mamba")), kernel_impl="ref")
-    with pytest.raises(NotImplementedError):
-        check_supported(cfg)
-    cache = {"pos": torch.zeros(2, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError):
-        dec.paged_verify_step({}, cache, torch.zeros((2, 3), dtype=torch.int32),
-                              cfg, n_draft=torch.ones(2, dtype=torch.int32))
+    """The reference's ``test_recurrent_mix_stream_tracks_oracle`` (an
+    ``("attn", "mamba")`` stack, K = 3), which waited for the port's
+    recurrent blocks: in lockstep with the reference's verify step, with
+    drafts corrupted to force rejections, the committed tokens, commits
+    and page state equal the reference's every round, the committed
+    logits hold to its tolerance, the Mamba state after the accept point
+    to the same tolerance, and the stream is the plain step's."""
+    jcfg, jparams, cfg, params = _pair(pattern=("attn", "mamba"))
+    K, steps, slots, ps, max_len = 3, 10, 2, 4, 64
+    oracle = _oracle(cfg, params, slots, ps, max_len, steps + K + 2)
+    stream, commits, tc = _lockstep(
+        jcfg, jparams, cfg, params, oracle, K, steps, slots, ps, max_len,
+        corrupt_at=frozenset({(1, 0, 1), (2, 1, 2)}))
+    _streams_equal(stream, oracle[0], steps)
+    assert any(c < K for cs in commits for c in cs)
+    assert any(c == K for cs in commits for c in cs)
+    assert type(tc["blocks"]["pos1"]).__name__ == "MambaCache"
 
 
 @pytest.mark.parametrize("dt", ["int8", "fp8"])
