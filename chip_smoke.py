@@ -273,11 +273,57 @@ Phases, in order (any failure raises and exits non-zero):
    ``--smoke``, and xlstm with ``--smoke --replicas 3 --chaos 0``: exit 0,
    every request finished (terminal, for the chaos run).
 
+13. the encoder-decoder through the dense path: (a) whisper-tiny uncut (4
+   + 4 layers, d_model 384, 36 479 232 parameters, predicted from the
+   config's shapes and checked against ``param_count``, with
+   ``max_memory_allocated``), float32 params cast once to bf16; B1 / B6
+   and B2 / B7 first held bit for bit in bf16 at its shapes (the
+   encoder's split ``(4, 1500, 6, 128)``, the prefill's ``(4, 32, 6,
+   128)`` and a step's ``(4, 1, 6, 128)``, the re-packs ``(4, 32, 6, 64)``
+   and ``(4, 1, 6, 64)`` x2); numpy-seeded frames ``(4, 1500, 384)`` and 4
+   prompts of 32 tokens under ``kernel``, ``ref`` and ``kernel_dynamic``:
+   ``encdec.encode`` alone, ``jit_prefill``, ``cache_from_prefill`` into
+   64 bf16 beats, ``precompute_enc_kv``, 16 greedy ``jit_decode_step``
+   steps, each call timed (CUDA events and the host clock) with the
+   counts zeroed just before it and read just after, the (split, pack)
+   launches equal to those read off models/encdec.py (per encode (4, 0),
+   per prefill (12, 4), per ``enc_kv`` (4, 0), per step (4, 4); none under
+   ``ref``); streams equal; the prefill's and steps' logits against a
+   teacher-forced ``forward`` over the 48-token sequence within ``max(0.08,
+   0.03 * |logits|max)``; (b) the paged ``Scheduler`` and
+   ``BatchedServer`` refuse whisper with the reference's message and
+   ``python -m repro_torch.launch.serve --arch whisper-tiny`` exits
+   non-zero with the reference's text;
+14. training on one card, under ``ref`` (the hand-written kernels have no
+   backward): (a) qwen3-0.6b at full width (596 049 920 parameters) on
+   the ``train_4k`` cell's 4096-token sequences, its global batch of 256
+   cut to 4 sequences as 2 microbatches of 2: 3 ``jit_train_step`` steps
+   with the default ``AdamWConfig``, with compression ``none`` and then
+   ``int8``, each step's loss, grad norm, lr, ms and tokens/s, the
+   predicted state bytes beside ``max_memory_allocated`` (split per step
+   into the peak up to the AdamW update and the peak within it); each run
+   trains its own seeded params (a step updates its state in place); loss
+   and grad norm finite, the norm above 0; the reference's smoke gate at
+   full width (one SGD step at lr 1e-2 on one microbatch lowers the loss
+   along the step, tests/test_smoke_archs.py:43-65); (b) one whisper-tiny step
+   (frames ``(2, 1500, 384)``, 64 tokens) with the same gates; (c) the
+   flash backward in float32 at ``(1, 4096, 16, 128)`` with 8 KV heads
+   causal, the same with a 1024 window, and the encoder's non-causal
+   1500 x 1500 (6 heads of 64): ``dq``, ``dk``, ``dv`` within 1e-4 of their
+   largest magnitudes against autograd through the plain unchunked
+   softmax, the forward's and backward's ms; (d) under ``kernel`` a
+   training forward with gradients on raises at the first ``vx`` verb and
+   no gradient reaches the params; (e) qwen3-0.6b-smoke in float32: loss
+   and gradients on the card within 1e-4 relative of the port's own
+   ``device="cpu"`` run.  A script that imports ``chip_smoke``, builds
+   ``_common.SOURCES`` and calls ``encdec_train_phase(dev, card)`` runs
+   phases 13 and 14 alone.
+
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
-``scatter_many`` call and phases 11's and 12's scheduler runs under the
-same policies; the strided path's for
+``scatter_many`` call, phases 11's and 12's scheduler runs and phase
+13's whisper calls under the same policies; the strided path's for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -290,8 +336,10 @@ decode steps per policy.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -3485,7 +3533,8 @@ def predicted_params(cfg) -> tuple:
     out_proj; mLSTM: up, q / k / v, the i / f gates and forget bias,
     down, the o gate; sLSTM: wx, the block-diagonal r, the forget bias,
     the gated FFN) and the FFN arm (MoE: router and experts; SwiGLU;
-    GELU MLP)."""
+    GELU MLP); an encoder config adds its blocks, its final norm and one
+    cross-attention with its norm per decoder layer."""
     d, H, K, D = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     total = cfg.vocab * d * (1 if cfg.tie_embeddings else 2) + d
     router = 0
@@ -3517,6 +3566,12 @@ def predicted_params(cfg) -> tuple:
             else:
                 n += 2 * d * cfg.d_ff
         total += n * cfg.n_superblocks
+    if cfg.encoder is not None:
+        attn = d * H * D + d * 2 * K * D + H * D * d
+        # encoder blocks (ln1, attention, ln2, GELU MLP) and final norm;
+        # per decoder layer a cross-attention and its norm
+        total += cfg.encoder.n_layers * (2 * d + attn + 2 * d * cfg.d_ff) + d
+        total += cfg.n_superblocks * (d + attn)
     return total, router
 
 
@@ -3616,12 +3671,14 @@ def segment_shapes(cfg, slots: int, max_len: int, page_size: int) -> tuple:
 
 
 def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
-                         page_size: int, dtype: str = "bfloat16") -> None:
+                         page_size: int, dtype: str = "bfloat16",
+                         shapes=None) -> None:
     """B1 and B6 on every row shape, B2 and B7 on every field shape of
-    :func:`segment_shapes`, seeded in ``dtype`` (the dtype the cell serves
-    in), each against its plain version bit for bit and one launch a call
-    (a row too wide for the copy's shared memory folded into chunks by the
-    wrappers)."""
+    :func:`segment_shapes` (or of ``shapes``, a (split, pack) pair of
+    lists, for a path it does not read), seeded in ``dtype`` (the dtype
+    the cell serves in), each against its plain version bit for bit and
+    one launch a call (a row too wide for the copy's shared memory folded
+    into chunks by the wrappers)."""
     import torch
     from repro_torch.kernels import segment
     g = torch.Generator(dev).manual_seed(SEED + 13)
@@ -3639,7 +3696,7 @@ def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
                                  f"{fn.launches - before} times in a call")
         return out
 
-    split, pack = segment_shapes(cfg, slots, max_len, page_size)
+    split, pack = shapes or segment_shapes(cfg, slots, max_len, page_size)
     for shape in split:
         x = rand(shape)
         for fn, plain in ((segment.deinterleave, segment.deinterleave_plain),
@@ -4187,6 +4244,557 @@ def recurrent_phase(dev, card: str, slots: int, max_len: int,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the encoder-decoder (whisper-tiny) through the dense path
+# ---------------------------------------------------------------------------
+
+# the reference's count (its init_params under jax.eval_shape), which the
+# config's shapes must give
+WHISPER_PARAMS = 36_479_232
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_LEN, WHISPER_STEPS = 4, 32, 64, 16
+WHISPER_POLICIES = ("kernel", "ref", "kernel_dynamic")
+# the reference's own messages (src/repro/serve/scheduler.py:171-173,
+# src/repro/launch/serve.py:262-263)
+PAGED_REFUSAL = "paged serving covers decoder-only models"
+CLI_REFUSAL = "use whisper example for enc-dec serving"
+
+
+def timed(fn):
+    """(fn(), device ms by CUDA events, host ms) of one synchronized
+    call."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def seg_pair(counts: dict, impl: str) -> tuple:
+    """(split, pack) launches of ``impl``'s segment kernels (B1 / B2 under
+    ``kernel``, B6 / B7 under ``kernel_dynamic``); under ``ref`` every
+    segment kernel counts.  Raises when another policy's kernels ran."""
+    mine = {"kernel": ("deinterleave", "interleave"),
+            "kernel_dynamic": ("deinterleave_dynamic", "interleave_dynamic"),
+            "ref": ()}[impl]
+    other = [k for k in counts if k not in mine and counts[k]]
+    if other:
+        raise AssertionError(f"[{impl}] launched {other}: {counts}")
+    return tuple(counts[k] for k in mine) if mine else (0, 0)
+
+
+def whisper_prediction(cfg, impl: str) -> dict:
+    """(split, pack) launches per call as read off models/encdec.py:
+    ``encode`` splits each encoder layer's kv beat (1 each); the prefill's
+    ``forward`` encodes, then per decoder layer splits ``encoder_kv`` and
+    ``qkv_project``'s beat and re-packs it (2 and 1); ``precompute_enc_kv``
+    encodes and projects without a split; a decode step's ``qkv_project``
+    splits and re-packs each layer's beat (1 and 1) and pins its cache
+    splits to ``ref``.  None under ``ref``."""
+    E, L = cfg.encoder.n_layers, cfg.n_superblocks
+    if impl == "ref":
+        return dict.fromkeys(("encode", "prefill", "enc_kv", "step"), (0, 0))
+    return {"encode": (E, 0), "prefill": (E + 2 * L, L), "enc_kv": (E, 0),
+            "step": (L, L)}
+
+
+def whisper_serve(dev, cfg, params, impl: str, tokens, frames) -> dict:
+    """Phase 13a under ``impl``: ``encdec.encode`` alone, ``jit_prefill``
+    (one warm-up call, then the timed one), ``cache_from_prefill`` into
+    ``WHISPER_MAX_LEN`` bf16 beats, ``precompute_enc_kv`` into the cache,
+    then ``WHISPER_STEPS`` greedy ``jit_decode_step`` steps; the counts
+    are zeroed just before each call and read just after."""
+    import torch
+    from repro_torch.kernels import segment
+    from repro_torch.models import decode as dec
+    from repro_torch.models import encdec
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill)
+    cfg = dataclasses.replace(cfg, kernel_impl=impl)
+    prefill = jit_prefill(cfg, None, device=dev)
+    step = jit_decode_step(cfg, None, ServeConfig(max_len=WHISPER_MAX_LEN),
+                           device=dev)
+    batch = {"tokens": tokens, "audio_frames": frames}
+    prefill(params, batch)
+    launches, ms, host = {}, {}, {}
+
+    def call(name, fn):
+        segment.reset_counts()
+        with torch.no_grad():
+            out, ms[name], host[name] = timed(fn)
+        launches[name] = seg_pair(segment_counts(), impl)
+        return out
+
+    call("encode", lambda: encdec.encode(params, frames, cfg))
+    logits, states = call("prefill", lambda: prefill(params, batch))
+    B, S = tokens.shape
+    cache = dec.cache_from_prefill(cfg, states, S, WHISPER_MAX_LEN,
+                                   torch.bfloat16)
+    del states
+    cache["enc_kv"] = call("enc_kv", lambda: encdec.precompute_enc_kv(
+        params, frames, cfg)).to(torch.bfloat16)
+    tok = torch.argmax(logits[:, -1].float(), dim=-1).to(torch.int32)
+    stream, step_logits = [tok], [logits[:, -1].float()]
+    step_ms, step_host, step_launches = [], [], []
+    for _ in range(WHISPER_STEPS):
+        out, cache = call("step", lambda: step(params, cache, tok))
+        step_ms.append(ms["step"])
+        step_host.append(host["step"])
+        step_launches.append(launches["step"])
+        tok = torch.argmax(out.float(), dim=-1).to(torch.int32)
+        stream.append(tok)
+        step_logits.append(out.float())
+    if int(cache["len"]) != S + WHISPER_STEPS or not all(
+            bool(torch.isfinite(t).all()) for t in step_logits):
+        raise AssertionError(f"whisper [{impl}]: decode logits not finite, "
+                             f"or the cache's length is not "
+                             f"{S + WHISPER_STEPS}")
+    del launches["step"]
+    return {"streams": torch.stack(stream, 1).cpu().tolist(),
+            "stream": torch.stack(stream[:-1], 1),
+            "logits": torch.stack(step_logits, 1), "ms": ms, "host": host,
+            "launches": launches, "step_ms": step_ms,
+            "step_host": step_host, "step_launches": step_launches}
+
+
+def whisper_cell(dev, card: str) -> dict:
+    """Phase 13a: whisper-tiny uncut, float32 params cast once to bf16,
+    under the three policies."""
+    import gc
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models.transformer import forward
+    cfg = get_arch("whisper-tiny").model
+    label = "phase 13a whisper-tiny"
+    if predicted_params(cfg)[0] != WHISPER_PARAMS:
+        raise AssertionError(f"{label}: the config's shapes give "
+                             f"{predicted_params(cfg)[0]} parameters, the "
+                             f"reference {WHISPER_PARAMS}")
+    master, params = family_params(dev, cfg, label, cfg.n_layers)
+    del master
+    K, D, F = cfg.n_kv_heads, cfg.hd, cfg.encoder.context
+    Bw, S = WHISPER_BATCH, WHISPER_PROMPT
+    check_segment_shapes(dev, label, cfg, Bw, WHISPER_MAX_LEN, 16,
+                         shapes=([(Bw, F, K, 2 * D), (Bw, S, K, 2 * D),
+                                  (Bw, 1, K, 2 * D)],
+                                 [(Bw, S, K, D), (Bw, 1, K, D)]))
+    rng = np.random.default_rng(SEED + 13)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (Bw, S)).astype(
+        np.int32)).to(dev)
+    frames = torch.from_numpy(rng.normal(size=(Bw, F, cfg.d_model)).astype(
+        np.float32)).to(dev)
+    runs = []
+    for impl in WHISPER_POLICIES:
+        r = whisper_serve(dev, cfg, params, impl, tokens, frames)
+        want = whisper_prediction(cfg, impl)
+        got = dict(r["launches"])
+        if got != {k: want[k] for k in got} or \
+                any(n != want["step"] for n in r["step_launches"]):
+            raise AssertionError(f"{label} [{impl}]: launches {got}, per "
+                                 f"decode step {r['step_launches']}; read "
+                                 f"off the code {want}")
+        dec_s = sum(r["step_ms"]) / 1e3
+        print(f"{label} serve[{impl}] on {card}: encode of {Bw} x {F} frames "
+              f"{r['ms']['encode']:.3f} ms (host {r['host']['encode']:.3f}); "
+              f"prefill of {Bw} x {S} tokens {r['ms']['prefill']:.3f} ms "
+              f"(host {r['host']['prefill']:.3f}); enc_kv "
+              f"{r['ms']['enc_kv']:.3f} ms (host {r['host']['enc_kv']:.3f});"
+              f" median decode step {statistics.median(r['step_ms']):.3f} ms"
+              f" (host {statistics.median(r['step_host']):.3f}) over "
+              f"{WHISPER_STEPS} steps; decode tokens/s "
+              f"{Bw * WHISPER_STEPS / dec_s:.2f}; (split, pack) launches per "
+              f"encode / prefill / enc_kv / step {got['encode']} / "
+              f"{got['prefill']} / {got['enc_kv']} / {want['step']}")
+        runs.append((impl, r))
+    for impl, r in runs[1:]:
+        if r["streams"] != runs[0][1]["streams"]:
+            raise AssertionError(f"{label} [{impl}]: other token streams "
+                                 f"than the first {runs[0][0]} run")
+    kr = runs[0][1]
+    kcfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    with torch.no_grad():
+        full, _, _ = forward(params, {"tokens": torch.cat(
+            [tokens, kr["stream"]], 1), "audio_frames": frames}, kcfg)
+    teacher = full[:, S - 1:].float()
+    gap = float((teacher - kr["logits"]).abs().max())
+    scale = float(teacher.abs().max())
+    tol = max(0.08, 0.03 * scale)
+    print(f"{label}: streams equal under {', '.join(WHISPER_POLICIES)}; "
+          f"prefill and {WHISPER_STEPS} decode steps' logits against a "
+          f"teacher-forced forward over the {S + WHISPER_STEPS}-token "
+          f"sequence under kernel: largest gap {gap} within max(0.08, 0.03 "
+          f"* |logits|max = {scale}) = {tol}")
+    if not gap <= tol:
+        raise AssertionError(f"{label}: decode vs forward gap {gap} > {tol}")
+    totals = dict.fromkeys(("deinterleave", "interleave",
+                            "deinterleave_dynamic", "interleave_dynamic"), 0)
+    for impl, r in runs:
+        if impl == "ref":
+            continue
+        names = (("deinterleave", "interleave") if impl == "kernel" else
+                 ("deinterleave_dynamic", "interleave_dynamic"))
+        pairs = list(r["launches"].values()) + r["step_launches"]
+        for i, k in enumerate(names):
+            totals[k] += sum(p[i] for p in pairs)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def whisper_refusals(dev, card: str) -> None:
+    """Phase 13b: the paged Scheduler and BatchedServer refuse whisper
+    with the reference's message, and the serve CLI exits non-zero with
+    the reference's text."""
+    import os
+    from repro_torch.configs.base import get_arch
+    from repro_torch.serve.engine import BatchedServer
+    from repro_torch.serve.scheduler import Scheduler
+    cfg = get_arch("whisper-tiny").model
+    for cls in (Scheduler, BatchedServer):
+        try:
+            cls(cfg, {}, slots=4, max_len=64, page_size=16, device=dev)
+        except NotImplementedError as e:
+            if str(e) != PAGED_REFUSAL:
+                raise AssertionError(f"{cls.__name__}: {e!r}") from e
+        else:
+            raise AssertionError(f"{cls.__name__} took whisper-tiny")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--arch", "whisper-tiny"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode == 0 or CLI_REFUSAL not in out.stderr:
+        raise AssertionError(f"serve CLI on whisper-tiny exited "
+                             f"{out.returncode}: {out.stderr[-2000:]}")
+    print(f"phase 13b whisper-tiny: Scheduler and BatchedServer raise "
+          f"NotImplementedError({PAGED_REFUSAL!r}); python -m "
+          f"repro_torch.launch.serve --arch whisper-tiny exits "
+          f"{out.returncode} with {CLI_REFUSAL!r}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: training on one card
+# ---------------------------------------------------------------------------
+
+QWEN3_PARAMS = 596_049_920
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4, 2, 3
+SGD_LR = 1e-2                  # tests/test_smoke_archs.py:43-65's step
+WHISPER_TRAIN_BATCH, WHISPER_TRAIN_SEQ = 2, 64
+FLASH_BWD_CASES = (
+    # (label, B, S, H, K, D, causal, window, chunk)
+    ("qwen3 causal", 1, 4096, 16, 8, 128, True, None, 512),
+    ("windowed 1024", 1, 4096, 16, 8, 128, True, 1024, 512),
+    ("encoder", 1, 1500, 6, 6, 64, False, None, 512),
+)
+
+
+def sgd_gate(label: str, cfg, params, batch) -> tuple:
+    """The reference's smoke gate (tests/test_smoke_archs.py:43-65): one
+    SGD step at ``SGD_LR`` from finite gradients lowers the loss along
+    the step (within 1e-3)."""
+    import torch
+    from repro_torch.kernels._common import tree_leaves
+    from repro_torch.models.transformer import loss_fn, tree_map
+    from repro_torch.train.step import _loss_and_grads
+    loss0, _, grads = _loss_and_grads(params, batch, cfg, None)
+    with torch.no_grad():
+        gnorm = float(torch.sqrt(sum(torch.sum(g.float() ** 2)
+                                     for g in tree_leaves(grads))))
+        stepped = tree_map(lambda p, g: p - SGD_LR * g.to(p.dtype), params,
+                           grads)
+        del grads
+        loss1 = float(loss_fn(stepped, batch, cfg)[0])
+    del stepped
+    loss0 = float(loss0)
+    if not (math.isfinite(loss0) and math.isfinite(gnorm) and gnorm > 0
+            and loss1 < loss0 + 1e-3):
+        raise AssertionError(f"{label}: SGD gate: loss {loss0} -> {loss1} "
+                             f"along the step, grad norm {gnorm}")
+    return loss0, loss1, gnorm
+
+
+def train_steps(label: str, card: str, cfg, state, batch, tcfg,
+                steps: int) -> dict:
+    """``steps`` calls of ``jit_train_step``; per step loss, grad norm,
+    lr, ms (host clock around a synchronized step) and tokens/s."""
+    import torch
+    from repro_torch.train.step import jit_train_step
+    step = jit_train_step(cfg, tcfg, None, state, batch)
+    tokens = batch["tokens"].numel()
+    rows = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        loss, gn = float(m["loss"]), float(m["grad_norm"])
+        if not (math.isfinite(loss) and math.isfinite(gn) and gn > 0):
+            raise AssertionError(f"{label} step {i}: loss {loss}, grad norm "
+                                 f"{gn}")
+        rows.append((loss, gn, float(m["lr"]), s * 1e3, tokens / s))
+    comp = tcfg.compression.kind
+    print(f"{label} [compression {comp}, {tcfg.microbatches} microbatches] "
+          f"on {card}: " + "; ".join(
+              f"step {i}: loss {r[0]:.6f} grad norm {r[1]:.6f} lr {r[2]:.3e} "
+              f"{r[3]:.1f} ms {r[4]:.1f} tokens/s"
+              for i, r in enumerate(rows)))
+    return {"state": state, "rows": rows}
+
+
+@contextlib.contextmanager
+def update_peaks():
+    """Splits ``max_memory_allocated`` at each AdamW update of the train
+    step: yields a list that gets, per step, the peak up to the update
+    (forward, backward, microbatch sums, compression) and the peak within
+    it."""
+    import torch
+    from repro_torch.train import step as train_step
+    apply = train_step.apply_updates
+    peaks = []
+
+    def probe(*args, **kw):
+        before = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = apply(*args, **kw)
+        peaks.append((before, torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        return out
+
+    train_step.apply_updates = probe
+    try:
+        yield peaks
+    finally:
+        train_step.apply_updates = apply
+
+
+def qwen3_train_cell(dev, card: str) -> None:
+    """Phase 14a: qwen3-0.6b at full width on the train_4k cell's sequence
+    (4096 tokens), the global batch of 256 cut to 4 sequences as 2
+    microbatches of 2; 3 steps with compression none, then int8; the SGD
+    gate; the refusal under ``kernel`` (14d)."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_arch, shape_by_name, train_batch
+    from repro_torch.kernels._common import tree_leaves
+    from repro_torch.models.transformer import (init_params, loss_fn,
+                                                param_count, tree_map)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               init_error_state)
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import TrainConfig
+    label = "phase 14a qwen3-0.6b train"
+    cell = shape_by_name("train_4k")
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").model, kernel_impl="ref")
+    n = predicted_params(cfg)[0]
+    if n != QWEN3_PARAMS:
+        raise AssertionError(f"{label}: the config's shapes give {n}, the "
+                             f"reference {QWEN3_PARAMS}")
+    print(f"{label}: cell {cell.name} (seq {cell.seq_len}, global batch "
+          f"{cell.global_batch} cut to {TRAIN_BATCH} sequences on one card, "
+          f"{TRAIN_MICRO} microbatches of {TRAIN_BATCH // TRAIN_MICRO}); "
+          f"predicted state: float32 params {4 * n / 1e9:.3f} GB + grads "
+          f"{4 * n / 1e9:.3f} + AdamW m, v {8 * n / 1e9:.3f} + bf16 copy "
+          f"{2 * n / 1e9:.3f} = {18 * n / 1e9:.3f} GB before activations")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    g = torch.Generator(dev).manual_seed(SEED + 14)
+    batch = train_batch(cfg, cell.seq_len, TRAIN_BATCH, specs=False,
+                        generator=g, device=dev)
+    for kind in ("none", "int8"):
+        # a step consumes its state in place: each run trains its own
+        # seeded params
+        params = init_params(cfg, SEED, device=dev)
+        if param_count(params) != n:
+            raise AssertionError(f"{label}: param_count "
+                                 f"{param_count(params)}")
+        tcfg = TrainConfig(optimizer=AdamWConfig(), microbatches=TRAIN_MICRO,
+                           compression=CompressionConfig(kind=kind))
+        state = init_train_state(params)
+        if kind != "none":
+            state["grad_error"] = init_error_state(params)
+        del params
+        with update_peaks() as peaks:
+            r = train_steps(label, card, cfg, state, batch, tcfg,
+                            TRAIN_STEPS)
+        del state, r["state"]
+        gc.collect()
+        top = max(max(p) for p in peaks)
+        print(f"{label} [compression {kind}]: param_count {n}; median step "
+              f"{statistics.median(x[3] for x in r['rows']):.1f} ms, "
+              f"{statistics.median(x[4] for x in r['rows']):.1f} tokens/s; "
+              f"max_memory_allocated {top / 1e9:.3f} GB "
+              f"({held / 1e9:.3f} GB held before init); per step, the peak "
+              f"up to the update / within it: " + ", ".join(
+                  f"{a / 1e9:.3f} / {b / 1e9:.3f}" for a, b in peaks)
+              + " GB")
+    params = init_params(cfg, SEED, device=dev)
+    half = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batch.items()}
+    l0, l1, gn = sgd_gate(label, cfg, params, half)
+    print(f"{label}: SGD gate at lr {SGD_LR} on one microbatch "
+          f"({TRAIN_BATCH // TRAIN_MICRO} x {cell.seq_len}): loss {l0} -> "
+          f"{l1} along the step, grad norm {gn}")
+    # 14d: under kernel the training forward refuses at the first vx verb
+    kcfg = dataclasses.replace(cfg, kernel_impl="kernel")
+    leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+    small = {k: v[:1, :128] for k, v in batch.items()}
+    try:
+        loss_fn(leaves, small, kcfg)
+    except RuntimeError as e:
+        if "no backward" not in str(e):
+            raise
+        msg = str(e)
+    else:
+        raise AssertionError(f"{label}: a kernel-policy training forward "
+                             f"returned")
+    if any(p.grad is not None for p in tree_leaves(leaves)):
+        raise AssertionError(f"{label}: gradients reached the params")
+    print(f"phase 14d: under kernel, loss_fn with gradients on raised "
+          f"RuntimeError at the first vx verb: {msg[:96]}...")
+    del params, leaves, batch, half
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def whisper_train_cell(dev, card: str) -> None:
+    """Phase 14b: one whisper-tiny train step at full width, frames of
+    (2, 1500, 384) and 64 tokens, with 14a's gates."""
+    import gc
+    import torch
+    from repro_torch.configs.base import get_arch, train_batch
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import init_train_state
+    from repro_torch.train.step import TrainConfig
+    from repro_torch.models.transformer import init_params
+    label = "phase 14b whisper-tiny train"
+    cfg = dataclasses.replace(get_arch("whisper-tiny").model,
+                              kernel_impl="ref")
+    params = init_params(cfg, SEED, device=dev)
+    g = torch.Generator(dev).manual_seed(SEED + 15)
+    batch = train_batch(cfg, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH,
+                        specs=False, generator=g, device=dev)
+    shape = tuple(batch["audio_frames"].shape)
+    train_steps(label, card, cfg, init_train_state(params), batch,
+                TrainConfig(optimizer=AdamWConfig()), 1)
+    params = init_params(cfg, SEED, device=dev)     # the step consumed it
+    l0, l1, gn = sgd_gate(label, cfg, params, batch)
+    print(f"{label}: frames {shape}, {WHISPER_TRAIN_SEQ} tokens; SGD gate at "
+          f"lr {SGD_LR}: loss {l0} -> {l1} along the step, grad norm {gn}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def plain_attention(q, k, v, *, causal: bool, window):
+    """Unchunked softmax attention (float32) for autograd to
+    differentiate: the flash backward's plain version."""
+    import torch
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    qt = q.reshape(B, Sq, K, H // K, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qt, k) * D ** -0.5
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window is not None:
+        mask = mask & ((qp - kp) < window)
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p, v)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+
+
+def flash_backward_check(dev, card: str) -> None:
+    """Phase 14c: the flash backward against autograd through the plain
+    attention in float32, each of dq / dk / dv within 1e-4 of its largest
+    magnitude; the forward's and backward's ms (CUDA events)."""
+    import torch
+    from repro_torch.models import attention
+    for name, B, S, H, K, D, causal, window, chunk in FLASH_BWD_CASES:
+        g = torch.Generator(dev).manual_seed(SEED + S + H)
+        q = torch.randn((B, S, H, D), generator=g, device=dev)
+        k, v = (torch.randn((B, S, K, D), generator=g, device=dev)
+                for _ in range(2))
+        dout = torch.randn((B, S, H, D), generator=g, device=dev)
+        leaves = [t.requires_grad_() for t in (q, k, v)]
+        kw = dict(causal=causal, window=window, q_chunk=chunk,
+                  kv_chunk=chunk)
+        attention.flash_attention(*leaves, **kw)        # warm-up
+        out, fwd_ms, _ = timed(lambda: attention.flash_attention(*leaves,
+                                                                  **kw))
+        got, bwd_ms, _ = timed(lambda: torch.autograd.grad(out, leaves,
+                                                           dout))
+        want = torch.autograd.grad(plain_attention(
+            *leaves, causal=causal, window=window), leaves, dout)
+        errs = [float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(got, want)]
+        print(f"phase 14c flash backward [{name}] ({B}, {S}, {H}, {D}), "
+              f"{K} KV heads, chunk {chunk}, float32 on {card}: forward "
+              f"{fwd_ms:.3f} ms, backward {bwd_ms:.3f} ms; dq / dk / dv "
+              f"against autograd through the plain attention: "
+              f"{' / '.join(f'{e:.3e}' for e in errs)} of max|grad| "
+              f"(bound 1e-4)")
+        if max(errs) > 1e-4:
+            raise AssertionError(f"phase 14c [{name}]: {errs} > 1e-4")
+        del q, k, v, dout, leaves, out, got, want
+        torch.cuda.empty_cache()
+
+
+def card_vs_cpu(dev) -> None:
+    """Phase 14e: qwen3-smoke in float32, the port's loss and gradients on
+    the card against its own device="cpu" run, within 1e-4 relative."""
+    from repro_torch.configs.base import get_arch, train_batch
+    from repro_torch.kernels._common import tree_leaves
+    from repro_torch.models.transformer import init_params, tree_map
+    from repro_torch.train.step import _loss_and_grads
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke, kernel_impl="ref")
+    params = init_params(cfg, SEED, device="cpu")
+    batch = train_batch(cfg, 64, 2, specs=False, device="cpu")
+    cpu = _loss_and_grads(params, batch, cfg, None)
+    card = _loss_and_grads(tree_map(lambda t: t.to(dev), params),
+                           {k: v.to(dev) for k, v in batch.items()}, cfg,
+                           None)
+    loss_gap = abs(float(card[0]) - float(cpu[0])) / abs(float(cpu[0]))
+    worst = max(float((a.cpu() - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(tree_leaves(card[2]), tree_leaves(cpu[2])))
+    print(f"phase 14e qwen3-0.6b-smoke float32: loss on the card "
+          f"{float(card[0])} vs the CPU {float(cpu[0])} (relative gap "
+          f"{loss_gap:.3e}); worst gradient leaf gap {worst:.3e} of its "
+          f"max (bound 1e-4)")
+    if loss_gap > 1e-4 or worst > 1e-4:
+        raise AssertionError(f"phase 14e: loss gap {loss_gap}, grads "
+                             f"{worst}")
+
+
+def encdec_train_phase(dev, card: str) -> dict:
+    """Phases 13 (whisper-tiny serving and its refusals) and 14 (training:
+    qwen3-0.6b and whisper-tiny at full width, the flash backward, the
+    refusal under ``kernel``, the card against the CPU).  Returns phase
+    13's launches of B1 / B2 under ``kernel`` and B6 / B7 under
+    ``kernel_dynamic``."""
+    t_phase = time.perf_counter()
+    launches = whisper_cell(dev, card)
+    whisper_refusals(dev, card)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s; launches under "
+          f"kernel / kernel_dynamic {launches}")
+    t_phase = time.perf_counter()
+    qwen3_train_cell(dev, card)
+    whisper_train_cell(dev, card)
+    flash_backward_check(dev, card)
+    card_vs_cpu(dev)
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -4388,6 +4996,8 @@ def main() -> int:
         launches[k] += n
     for k, n in recurrent_phase(dev, card, slots, max_len, page_size,
                                 gen).items():
+        launches[k] += n
+    for k, n in encdec_train_phase(dev, card).items():
         launches[k] += n
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})

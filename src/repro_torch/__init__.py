@@ -29,6 +29,11 @@ fp8 pages with per-page scales, the dequant inside the one fused page
 gather) and prefix sharing (serve/prefix_cache, the radix trie; adopt,
 copy-on-write fork and trie pins in models/decode), and the arch
 registry (configs: all ten archs; the windowed, VLM, GELU-MLP and MoE
-attention decoders run, models/moe with EARTH-compaction dispatch).
-ROADMAP.md lists what waits.
+attention decoders run, models/moe with EARTH-compaction dispatch), the
+recurrent models (models/ssm, models/xlstm), the whisper
+encoder-decoder (models/encdec, served through the dense engine steps)
+and training on one device (the flash attention backward, the losses,
+optim/adamw, optim/compression, train/state and train/step, under the
+``ref`` policy: the hand-written kernels have no backward).  ROADMAP.md
+lists what waits.
 """

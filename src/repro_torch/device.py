@@ -23,4 +23,5 @@ def refuse_mesh(ctx) -> None:
     device until its dist slice."""
     if ctx is not None and getattr(ctx, "mesh", None) is not None:
         raise NotImplementedError("sharded execution waits for the port's "
-                                  "dist slice")
+                                  "dist slice (ROADMAP.md queue A, item "
+                                  "9h)")

@@ -18,8 +18,10 @@ On the CPU (reduced geometry):
 ``--arch`` takes every arch of the registry that the port runs:
 qwen3-0.6b, gemma3-12b, llava-next-mistral-7b, granite-34b,
 starcoder2-3b, phi3.5-moe-42b-a6.6b, qwen3-moe-30b-a3b, the hybrid
-jamba-1.5-large-398b and the recurrent xlstm-125m (whisper is refused with
-``NotImplementedError`` naming the encoder-decoder slice):
+jamba-1.5-large-398b and the recurrent xlstm-125m.  whisper-tiny exits
+with the reference's ``SystemExit("use whisper example for enc-dec
+serving")``: the paged scheduler serves decoders only, and whisper serves
+through ``serve.engine.jit_prefill`` / ``jit_decode_step``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-12b \\
       --smoke --device cpu --requests 3 --prompt-len 8 --gen 6 --max-len 64
@@ -334,9 +336,11 @@ def run(args, *, params=None, prompts=None, draft_params=None) -> list:
     trips, the fleet never drains, or a request ends outside a terminal
     typed state."""
     _refuse(args)
-    device = resolve_device(args.device)
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.smoke else arch.model
+    if cfg.encoder is not None:
+        raise SystemExit("use whisper example for enc-dec serving")
+    device = resolve_device(args.device)
     if params is None:
         params = init_params(cfg, 0, device=device)
     spec_kw = {}

@@ -44,8 +44,10 @@ states are updated IN PLACE (the reference donates the cache to its jit'd
 step), so a step consumes the cache it is given; the small integer state
 is rebuilt.
 
-Waiting for later slices: the encoder-decoder step, and the
-sequence-sharded dense step (``kv_shard``, with ``dist``).
+An encoder config (whisper) takes the dense step only: :func:`decode_step`
+dispatches to ``models/encdec.decode_step``, and the paged steps raise the
+reference's ``NotImplementedError``.  Waiting for later slices: the
+sequence-sharded dense step (``kv_shard``, with ``dist``, item 9h).
 """
 from __future__ import annotations
 
@@ -119,6 +121,13 @@ def _set_state(leaf, index, state) -> None:
     tree_map(lambda c, s: c[index].copy_(s), leaf, state)
 
 
+def _refuse_encoder(cfg: ModelConfig) -> None:
+    """The paged steps serve decoders only, as in the reference."""
+    if cfg.encoder is not None:
+        raise NotImplementedError("paged serving covers decoder-only "
+                                  "models; use encdec.decode_step")
+
+
 def cache_len_for_pos(cfg: ModelConfig, i: int, max_len: int) -> int:
     w = cfg.window_pattern[i]
     return min(w, max_len) if w is not None else max_len
@@ -185,12 +194,17 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     post-append cache on its own (the equivalence oracle).  The KV leaves
     and the recurrent states are updated in place; ``len`` is rebuilt.
     ``kv_shard`` (the sequence-sharded cache) waits for the port's dist
-    slice."""
+    slice.  An encoder config runs :func:`models.encdec.decode_step` (its
+    cache carries ``enc_kv``)."""
     check_supported(cfg)
     if kv_shard is not None:
         raise NotImplementedError("the sequence-sharded dense step waits "
-                                  "for the port's dist slice")
+                                  "for the port's dist slice (ROADMAP.md "
+                                  "queue A, item 9h)")
     params = cast_params(params, cfg)
+    if cfg.encoder is not None:
+        from repro_torch.models import encdec
+        return encdec.decode_step(params, cache, token, cfg, ctx)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
     B = token.shape[0]
@@ -695,6 +709,7 @@ def paged_prefill_chunk(params, cache: dict, tokens: torch.Tensor,
     recurrent blocks advance the slot's state token by token.  No logits:
     the scheduler feeds the last prompt token through the decode step.
     Returns the updated cache."""
+    _refuse_encoder(cfg)
     params = cast_params(params, cfg)
     pol = cfg.vx_policy
     C = tokens.shape[0]
@@ -847,6 +862,7 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
     the carry.
     """
     check_supported(cfg)
+    _refuse_encoder(cfg)
     params = cast_params(params, cfg)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
@@ -1016,6 +1032,7 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
     per-access arm gathers each layer's pages before its scatter writes
     the pool in place.  Recurrent positions step every slot's state and
     keep the old state (and add nothing to ``x``) where a slot is idle."""
+    _refuse_encoder(cfg)
     params = cast_params(params, cfg)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy

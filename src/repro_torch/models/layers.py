@@ -1,11 +1,11 @@
 """Shared neural-net layers as torch ops: norms, RoPE, embeddings, MLP/GLU
 with the EARTH interleaved fused projection option.
 
-Port of ``repro``'s ``models/layers.py``: ``rms_norm`` (computed in
-float32), ``rope``, ``embed``, ``unembed``, ``glu_ffn`` (fused and
-unfused), the GELU ``mlp_ffn`` and the seeded ``init_glu`` / ``init_mlp``
-(the reference's shapes and scales, drawn from a ``torch.Generator``).
-``layer_norm`` waits for the encoder-decoder slice (whisper).
+Port of ``repro``'s ``models/layers.py``: ``rms_norm`` and
+``layer_norm`` (both computed in float32), ``rope``, ``embed``,
+``unembed``, ``glu_ffn`` (fused and unfused), the GELU ``mlp_ffn`` and the
+seeded ``init_glu`` / ``init_mlp`` (the reference's shapes and scales,
+drawn from a ``torch.Generator``).
 """
 from __future__ import annotations
 
@@ -21,6 +21,16 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,

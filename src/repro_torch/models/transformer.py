@@ -1,29 +1,35 @@
-"""Decoder-only transformer: config, parameters, the forward pass.
+"""The transformer: config, parameters, the forward pass and the losses.
 
-Port of ``repro``'s ``models/transformer.py`` for decoders:
-:class:`ModelConfig` and :class:`EncoderSpec` (the same fields), a seeded
-:func:`init_params` with the reference's parameter layout, shapes and
-scales (leaves stacked over superblocks, ``(NS, ...)``), :func:`param_count`,
-:func:`cast_params`, the superblock application (``_attn_apply``,
-``_ffn_apply``, ``_position_apply``, :func:`superblock_apply`,
-``_ring_trim``) and :func:`forward` in the modes ``train``, ``prefill`` and
-``hidden``, plus :func:`params_from_jax`, which turns the reference's
-``init_params`` output (converted through ``np.asarray``) into the port's
-parameters.  Superblocks run in a Python loop over the stacked leaves
-(the reference's ``lax.scan``; ``scan_layers`` gives the same result either
-way); ``remat`` is a no-op without a backward.
+Port of ``repro``'s ``models/transformer.py``: :class:`ModelConfig` and
+:class:`EncoderSpec` (the same fields), a seeded :func:`init_params` with
+the reference's parameter layout, shapes and scales (leaves stacked over
+superblocks, ``(NS, ...)``; an encoder config adds ``encoder`` and
+``cross``), :func:`param_count`, :func:`cast_params`, the superblock
+application (``_attn_apply``, ``_ffn_apply``, ``_position_apply``,
+:func:`superblock_apply`, ``_ring_trim``), :func:`forward` in the modes
+``train``, ``prefill`` and ``hidden`` (an encoder config dispatches to
+models/encdec.py), the losses :func:`label_logprob_terms`,
+:func:`chunked_xent` and :func:`loss_fn`, and :func:`params_from_jax`,
+which turns the reference's ``init_params`` output (converted through
+``np.asarray``) into the port's parameters.  Superblocks run in a Python
+loop over the stacked leaves (the reference's ``lax.scan``;
+``scan_layers`` gives the same result either way).
 
 Covered: dense GQA / MQA attention, sliding-window:global patterns,
 qk-norm, the VLM patch-embedding stub, Mamba blocks (models/ssm.py, the
-hybrid jamba stack) and xLSTM mLSTM / sLSTM blocks (models/xlstm.py), and
-per position the reference's three FFN arms: MoE (``p["moe"]``,
-models/moe.py; its aux loss flows out of :func:`forward`), the SwiGLU
-(``p["ffn"]``) and the GELU MLP (``p["mlp"]``).  In prefill mode a
-recurrent position's cache update is its final state (a NamedTuple of
-``(B, ...)`` leaves, stacked over superblocks like the KV beats).  Waiting
-for later slices: the encoder (item 9e), whose config is accepted but
-refused at init, forward and serve time by :func:`check_supported`;
-``loss_fn`` and the backward (training); sharding constraints (``dist``).
+hybrid jamba stack), xLSTM mLSTM / sLSTM blocks (models/xlstm.py), the
+whisper encoder-decoder (models/encdec.py), and per position the
+reference's three FFN arms: MoE (``p["moe"]``, models/moe.py; its aux loss
+flows out of :func:`forward`), the SwiGLU (``p["ffn"]``) and the GELU MLP
+(``p["mlp"]``).  In prefill mode a recurrent position's cache update is
+its final state (a NamedTuple of ``(B, ...)`` leaves, stacked over
+superblocks like the KV beats).  ``cfg.remat`` maps to
+``torch.utils.checkpoint`` (non-reentrant) while gradients are on:
+``"full"`` and ``"dots"`` around each superblock (``"dots"``, the
+reference's matmul-saving policy, recomputes everything as ``"full"``
+does), any remat around each position of a multi-position superblock,
+and every :func:`chunked_xent` chunk.  Sharding constraints wait for
+``dist`` (item 9h).
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import refuse_mesh, resolve as resolve_device
 from repro_torch.kernels._common import tree_leaves
@@ -122,13 +129,9 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs decoders of attention, Mamba and xLSTM blocks with
-    any of the reference's FFN arms (SwiGLU, GELU MLP, MoE); the encoder
-    waits."""
-    if cfg.encoder is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models wait for the port's "
-            f"encoder-decoder slice (ROADMAP.md queue A, item 9e)")
+    """The port runs stacks of attention, Mamba and xLSTM blocks with any
+    of the reference's FFN arms (SwiGLU, GELU MLP, MoE), and the whisper
+    encoder-decoder; any other block kind is refused."""
     other = [k for k in cfg.block_pattern if k not in ("attn",) + RECURRENT]
     if other:
         raise ValueError(other[0])
@@ -144,21 +147,9 @@ def _init_pos(cfg: ModelConfig, i: int, g: torch.Generator, device) -> dict:
     d = cfg.d_model
     p: dict[str, Any] = {"ln1": torch.ones((d,), dtype=dt, device=device)}
     if kind == "attn":
-        H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-        s = d ** -0.5
-        wq = layers.normal((d, H * D), s, g, dt, device)
-        wk = layers.normal((d, K, D), s, g, dt, device)
-        wv = layers.normal((d, K, D), s, g, dt, device)
-        attn = {"wq": wq,
-                # interleave K/V output features -> one coalesced beat per
-                # head
-                "wkv": torch.stack([wk, wv], dim=-1).reshape(d, K * 2 * D),
-                "wo": layers.normal((H * D, d), (H * D) ** -0.5, g, dt,
-                                    device)}
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.ones((D,), dtype=dt, device=device)
-            attn["k_norm"] = torch.ones((D,), dtype=dt, device=device)
-        p["attn"] = attn
+        p["attn"] = attention.init_attention(
+            d, cfg.n_heads, cfg.n_kv_heads, cfg.hd, g, qk_norm=cfg.qk_norm,
+            dtype=dt, device=device)
     elif kind == "mamba":
         p["mamba"] = init_mamba(cfg.mamba, g, dt, device)
         # in_proj as (d, 2, ed): the reference's (x|z) sharding layout
@@ -220,6 +211,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | int = 0,
     sbs = [{f"pos{i}": _init_pos(cfg, i, generator, device)
             for i in range(cfg.sb_len)} for _ in range(cfg.n_superblocks)]
     params["blocks"] = _stack(sbs)
+    if cfg.encoder is not None:
+        from repro_torch.models import encdec
+        params["encoder"] = encdec.init_encoder(cfg, generator, device)
+        params["cross"] = encdec.init_cross_stack(cfg, generator, device)
     return params
 
 
@@ -310,9 +305,11 @@ def _ffn_apply(p, x, cfg: ModelConfig, ctx, i: int, *, policy=None):
 # ---------------------------------------------------------------------------
 
 def _attn_apply(p, x, cfg: ModelConfig, ctx, i: int, positions,
-                mode: str):
-    """Returns (x, kv_beat or None).  Cross-attention waits for the
-    encoder-decoder slice."""
+                mode: str, cross_kv=None):
+    """Returns (x, kv_beat or None).  ``cross_kv`` (k, v) adds
+    cross-attention through ``p["cross"]`` after ``p["ln_cross"]``, as the
+    reference's arm does (whisper's decoder runs models/encdec.py's own
+    layer)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     q, k, v, kv = attention.qkv_project(
         p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions,
@@ -323,18 +320,32 @@ def _attn_apply(p, x, cfg: ModelConfig, ctx, i: int, positions,
                                     q_chunk=min(512, S),
                                     kv_chunk=min(512, S), ctx=ctx)
     x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+    if cross_kv is not None:
+        ck, cv = cross_kv
+        x = x + attention.cross_attention(p["cross"], layers.rms_norm(
+            x, p["ln_cross"], cfg.norm_eps), ck, cv, cfg.n_heads,
+            cfg.n_kv_heads, cfg.hd, ctx=ctx)
     return x, (kv if mode == "prefill" else None)
 
 
 def superblock_apply(sb_p, x, cfg: ModelConfig, ctx, positions, *,
                      mode: str = "train"):
-    """Apply one superblock.  Returns (x, aux, cache_updates)."""
+    """Apply one superblock.  Returns (x, aux, cache_updates).  With
+    gradients on, each position of a multi-position superblock runs under
+    its own checkpoint unless ``cfg.remat == "none"``: only one position's
+    residuals are live in its backward."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     updates = {}
+    remat = (cfg.remat != "none" and cfg.sb_len > 1
+             and torch.is_grad_enabled())
     for i, kind in enumerate(cfg.block_pattern):
-        x, aux, upd = _position_apply(sb_p[f"pos{i}"], x, positions,
-                                      cfg=cfg, ctx=ctx, i=i, kind=kind,
-                                      mode=mode)
+        kw = dict(cfg=cfg, ctx=ctx, i=i, kind=kind, mode=mode)
+        if remat:
+            x, aux, upd = checkpoint(_position_apply, sb_p[f"pos{i}"], x,
+                                     positions, use_reentrant=False, **kw)
+        else:
+            x, aux, upd = _position_apply(sb_p[f"pos{i}"], x, positions,
+                                          **kw)
         aux_total = aux_total + aux
         if upd is not None:
             updates[f"pos{i}"] = upd
@@ -404,27 +415,39 @@ def _embed_inputs(params, batch, cfg: ModelConfig, ctx) -> torch.Tensor:
 
 def forward(params, batch, cfg: ModelConfig, ctx=None, *,
             mode: str = "train"):
-    """batch: {"tokens": (B,S) int, optional "patch_embeds"}.
+    """batch: {"tokens": (B,S) int, optional "patch_embeds"; an encoder
+    config also "audio_frames" (B, F, d)}.
 
     Returns (logits (B,S,V), aux, cache_states).  ``mode="prefill"``
     returns only the last position's logits (B,1,V) and the cache states
     ``{"pos{i}": (NS, B, S or W, K, 2D)}`` of the attention positions and
-    the final states of the recurrent ones, stacked over superblocks;
-    ``mode="hidden"`` returns the final-normed hidden states in place of
-    logits.  Eager and forward only: no backward is defined."""
+    the final states of the recurrent ones, stacked over superblocks
+    (whisper: ``{"pos0", "enc_out"}``); ``mode="hidden"`` returns the
+    final-normed hidden states in place of logits.  Differentiable: the
+    flash attention carries the reference's backward."""
     check_supported(cfg)
     refuse_mesh(ctx)
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
     params = cast_params(params, cfg)
+    if cfg.encoder is not None:
+        from repro_torch.models import encdec
+        return encdec.forward(params, batch, cfg, ctx, mode=mode)
     x = _embed_inputs(params, batch, cfg, ctx)
     B, S = batch["tokens"].shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
     states = []
     for sbi in range(cfg.n_superblocks):
-        x, aux_d, upd = superblock_apply(superblock(params["blocks"], sbi),
-                                         x, cfg, ctx, positions, mode=mode)
+        sb_p = superblock(params["blocks"], sbi)
+        if remat:
+            x, aux_d, upd = checkpoint(superblock_apply, sb_p, x, cfg, ctx,
+                                       positions, mode=mode,
+                                       use_reentrant=False)
+        else:
+            x, aux_d, upd = superblock_apply(sb_p, x, cfg, ctx, positions,
+                                             mode=mode)
         aux = aux + aux_d
         states.append(upd)
     cache_states = _stack(states) if mode == "prefill" else {}
@@ -436,3 +459,60 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = layers.unembed(x, head.to(cfg.cdtype))
     return logits, aux, cache_states
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def label_logprob_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(lse, ll) in float32, the label's logit taken by a one-hot
+    reduction over the vocab axis (no gather), as the reference does."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    onehot = labels[..., None] == torch.arange(
+        logits.shape[-1], dtype=labels.dtype, device=logits.device)
+    ll = torch.sum(torch.where(onehot, logits, 0.0), dim=-1)
+    return lse, ll
+
+
+def _xent_chunk(x, head, labels, w):
+    lse, ll = label_logprob_terms(layers.unembed(x, head), labels)
+    return torch.sum((lse - ll) * w), torch.sum(w)
+
+
+def chunked_xent(x, head, labels, w, ctx=None, *,
+                 chunk: int = 512) -> torch.Tensor:
+    """Head matmul + weighted cross entropy over sequence chunks: only one
+    chunk's ``(B, chunk, V)`` logits are alive at a time, each chunk under
+    a checkpoint while gradients are on (recomputed in the backward).  The
+    chunk falls back to ``S`` when it does not divide ``S`` or covers it.
+    Returns ``sum(w * (lse - ll)) / max(sum(w), 1)``."""
+    refuse_mesh(ctx)
+    S = x.shape[1]
+    if S % chunk or S <= chunk:
+        chunk = S
+    remat = torch.is_grad_enabled()
+    num = torch.zeros((), dtype=torch.float32, device=x.device)
+    den = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, S, chunk):
+        args = (x[:, lo:lo + chunk], head, labels[:, lo:lo + chunk],
+                w[:, lo:lo + chunk])
+        n, d = (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                if remat else _xent_chunk(*args))
+        num, den = num + n, den + d
+    return num / torch.clamp(den, min=1.0)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, ctx=None):
+    """Next-token cross entropy; batch: tokens, labels, optional
+    loss_weight (ones by default).  Returns (loss + aux, {"loss", "aux"})."""
+    x, aux, _ = forward(params, batch, cfg, ctx, mode="hidden")
+    labels = batch["labels"]
+    w = batch.get("loss_weight")
+    if w is None:
+        w = torch.ones(labels.shape, dtype=torch.float32,
+                       device=labels.device)
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    loss = chunked_xent(x, head.to(cfg.cdtype), labels, w, ctx)
+    return loss + aux, {"loss": loss, "aux": aux}

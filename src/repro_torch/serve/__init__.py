@@ -2,8 +2,10 @@
 the request lifecycle, the scheduler, the engine (dense prefill / decode
 steps, the fixed-slot server and ``make_fleet``), the replica fleet, the
 chaos harness and speculative decode (the scheduler's ``speculate``) —
-port of ``repro.serve``, for every attention decoder of the arch registry.
-Sharded serving and the encoder-decoder arm wait for later slices."""
+port of ``repro.serve``, for every decoder of the arch registry; the
+engine's dense steps also serve the whisper encoder-decoder (the paged
+scheduler refuses it, as the reference's does).  Sharded serving waits for
+``dist`` (item 9h)."""
 from repro_torch.serve.chaos import (ChaosConfig, ChaosReport,  # noqa: F401
                                      FaultPlan, FleetChaosConfig,
                                      FleetChaosReport, FleetFaultPlan,

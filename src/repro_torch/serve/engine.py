@@ -10,8 +10,12 @@ place) and :class:`BatchedServer` over
 :func:`serve_param_shardings` return ``None`` without a mesh, as the
 reference does; a mesh, and ``ServeConfig.long_context``, wait for the
 port's dist slice.  :func:`make_fleet` puts N scheduler replicas behind the
-fleet router (``serve/fleet.py``).  The encoder-decoder step waits for its
-model family.
+fleet router (``serve/fleet.py``).  An encoder config (whisper) takes
+the dense steps: :func:`jit_prefill` runs its forward (the batch carries
+``audio_frames``), and :func:`jit_decode_step` runs
+``models/encdec.decode_step`` over a cache whose ``enc_kv`` the caller
+filled with ``encdec.precompute_enc_kv``; ``BatchedServer`` refuses it,
+as the paged scheduler does.  Serving runs under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -69,7 +73,9 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     vx.warm(2 * cfg.hd, strided=False, fields=(2,), policy=cfg.vx_policy)
     fuse = scfg.step_fusion
 
+    @torch.no_grad()
     def serve_step(params, cache, token):
+        # an encoder config dispatches to encdec.decode_step in there
         return dec.decode_step(params, cache, token.to(device), cfg, ctx,
                                fuse=fuse)
 
@@ -80,14 +86,18 @@ def jit_prefill(cfg: ModelConfig, ctx, params_template=None,
                 batch_template=None, *, param_ctx=None, device=None):
     """``prefill(params, batch) -> (logits (B, 1, V), cache_states)``:
     :func:`repro_torch.models.transformer.forward` in ``prefill`` mode,
-    eager.  ``batch["tokens"]`` is moved to ``device``."""
+    eager.  The batch's tensors (``tokens``, and ``audio_frames`` or
+    ``patch_embeds`` where the config takes them) are moved to
+    ``device``."""
     refuse_mesh(ctx)
     refuse_mesh(param_ctx)
     check_supported(cfg)
     device = resolve_device(device)
 
+    @torch.no_grad()
     def prefill(params, batch):
-        batch = dict(batch, tokens=batch["tokens"].to(device))
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in batch.items()}
         logits, _, cache_states = forward(params, batch, cfg, ctx,
                                           mode="prefill")
         return logits, cache_states

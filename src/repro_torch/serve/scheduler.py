@@ -103,6 +103,9 @@ class Scheduler:
                  speculate: int = 1, draft_cfg: ModelConfig | None = None,
                  draft_params=None, device=None,
                  clock: Callable[[], float] = time.monotonic):
+        if cfg.encoder is not None:
+            raise NotImplementedError("paged serving covers decoder-only "
+                                      "models")
         # speculation knobs fail loudly here, not at the first verify step
         if speculate < 1:
             raise ValueError(f"speculate must be >= 1, got {speculate}")
@@ -134,7 +137,8 @@ class Scheduler:
         self.device = resolve_device(device)
         self.cfg = cfg
         # cast once: the step's own cast then finds every leaf in place
-        self.params = cast_params(params, cfg)
+        with torch.no_grad():
+            self.params = cast_params(params, cfg)
         self.slots, self.max_len = slots, max_len
         page_size = min(page_size or 16, max_len)
         self.cache = PagedCache(cfg, slots, max_len, page_size,
@@ -160,7 +164,8 @@ class Scheduler:
         self.draft_params = None
         self.draft_cache: PagedCache | None = None
         if self.speculate > 1:
-            self.draft_params = cast_params(draft_params, draft_cfg)
+            with torch.no_grad():
+                self.draft_params = cast_params(draft_params, draft_cfg)
             self.draft_cache = PagedCache(
                 draft_cfg, slots, max_len, self.cache.page_size,
                 cache_dtype=cache_dtype, device=self.device,
@@ -227,6 +232,7 @@ class Scheduler:
         scheduler K]."""
         return max(1, min(int(req.speculate), self.speculate))
 
+    @torch.no_grad()
     def add_request(self, prompt: int | Sequence[int]) -> int:
         """Admit a request immediately and prefill it to completion; the
         last prompt token is fed to the next decode step.  Raises
@@ -491,6 +497,7 @@ class Scheduler:
         self._slot_req[slot] = None
 
     # -- decode -------------------------------------------------------------
+    @torch.no_grad()
     def step(self) -> list[int]:
         """Advance every ACTIVE, fully prefilled slot; others report -1.
         Slots behind their replay cursor feed the next replayed token and
@@ -739,6 +746,7 @@ class Scheduler:
         self._last_tok_t[req.rid] = t_now
 
     # -- lifecycle pump ------------------------------------------------------
+    @torch.no_grad()
     def tick(self) -> list[Request]:
         """One engine iteration: expire stale queued work, pump admission
         (preempting a lower-priority victim under page pressure), advance

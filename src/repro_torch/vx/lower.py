@@ -20,6 +20,13 @@ policies), ``compact.rows`` / ``compact.expand`` (the oracles under
 ``executor()`` compiles it into the callable that runs it, memoized in
 ``vx.PLANS`` under ``Program.key()`` (dtype and impl included).
 
+The hand-written kernels have no backward.  Each builder wraps its kernel
+branch in :func:`_guard`: that executor raises when gradients are on and
+an operand requires grad, before the kernel wrapper runs (so before a
+wrapper's CPU route too).  The reference cannot differentiate its Pallas
+path either, and a kernel's output would otherwise come back detached and
+silently cut the gradient.  Training runs under ``ref``.
+
 Waiting for later slices: every sharded lowering.
 """
 from __future__ import annotations
@@ -49,6 +56,28 @@ def executor(program: prg.Program, specs):
     return PLANS.get(program.key(), lambda: _BUILDERS[txn.op](txn, specs))
 
 
+def _wants_grad(x) -> bool:
+    if isinstance(x, (list, tuple)):
+        return any(_wants_grad(t) for t in x)
+    return isinstance(x, torch.Tensor) and x.requires_grad
+
+
+def _guard(txn: prg.Txn, fn):
+    """``fn``, a call into a hand-written kernel's wrapper, refusing an
+    operand that requires grad while gradients are on."""
+    def guarded(*operands):
+        if torch.is_grad_enabled() and _wants_grad(operands):
+            raise RuntimeError(
+                f"vx {txn.op} under impl={txn.impl!r} reaches a "
+                f"hand-written kernel, which has no backward: the "
+                f"reference cannot differentiate its Pallas path either "
+                f"(jax.grad raises 'Linearization failed'); train under "
+                f"vx.use('ref') or a config with kernel_impl='ref'")
+        return fn(*operands)
+
+    return guarded
+
+
 def run(op: str, spec: AccessSpec, impl: str, *operands):
     """lower + compile + execute in one call (the verb tail)."""
     return executor(lower(op, spec, impl), spec)(*operands)
@@ -70,8 +99,8 @@ def _gather_plan(txn: prg.Txn, specs: tuple):
         from repro_torch.kernels import ref
         return lambda w: ref.gather_strided(w, s, o, vl)
     from repro_torch.kernels import strided
-    return lambda w: strided.gather_strided(w, s, o, vl,
-                                            compiled=impl == "kernel")
+    return _guard(txn, lambda w: strided.gather_strided(
+        w, s, o, vl, compiled=impl == "kernel"))
 
 
 def _gather_fused(txn: prg.Txn, specs: tuple):
@@ -94,8 +123,8 @@ def _gather_fused(txn: prg.Txn, specs: tuple):
 
         return ref_many
     from repro_torch.kernels import strided
-    return lambda windows: strided.gather_strided_fused(
-        windows, pairs, vl, compiled=txn.impl == "kernel")
+    return _guard(txn, lambda windows: strided.gather_strided_fused(
+        windows, pairs, vl, compiled=txn.impl == "kernel"))
 
 
 def _scatter_plan(txn: prg.Txn, specs: tuple):
@@ -108,8 +137,8 @@ def _scatter_plan(txn: prg.Txn, specs: tuple):
         from repro_torch.kernels import ref
         return lambda w, v: ref.scatter_strided(w, v, s, o)
     from repro_torch.kernels import strided
-    return lambda w, v: strided.scatter_strided(w, v, s, o,
-                                                compiled=impl == "kernel")
+    return _guard(txn, lambda w, v: strided.scatter_strided(
+        w, v, s, o, compiled=impl == "kernel"))
 
 
 def _bank_gather(txn: prg.Txn, specs: tuple):
@@ -132,7 +161,8 @@ def _seg_deint(txn: prg.Txn, specs: tuple):
         from repro_torch.kernels import ref
         return lambda a: ref.deinterleave(a, fields)
     from repro_torch.kernels import segment
-    return lambda a: segment.deinterleave(a, fields, fused=impl == "kernel")
+    return _guard(txn, lambda a: segment.deinterleave(
+        a, fields, fused=impl == "kernel"))
 
 
 def _seg_int(txn: prg.Txn, specs: tuple):
@@ -141,7 +171,8 @@ def _seg_int(txn: prg.Txn, specs: tuple):
         from repro_torch.kernels import ref
         return lambda parts: ref.interleave(parts)
     from repro_torch.kernels import segment
-    return lambda parts: segment.interleave(parts, fused=impl == "kernel")
+    return _guard(txn, lambda parts: segment.interleave(
+        parts, fused=impl == "kernel"))
 
 
 def _idx_gather(txn: prg.Txn, specs: tuple):
@@ -174,7 +205,7 @@ def _idx_gather(txn: prg.Txn, specs: tuple):
         return lambda buf, shift, valid: shift_gather.shift_gather_plain(
             buf, *shift_gather.device_counts(shift, valid, buf.shape[-1],
                                              buf.device))
-    return shift_gather.shift_gather
+    return _guard(txn, shift_gather.shift_gather)
 
 
 def _idx_scatter(txn: prg.Txn, specs: tuple):
@@ -185,7 +216,7 @@ def _idx_scatter(txn: prg.Txn, specs: tuple):
         return lambda values, shift, valid: shift_scatter.shift_scatter_plain(
             values, *device_counts(shift, valid, values.shape[-1],
                                    values.device))
-    return shift_scatter.shift_scatter
+    return _guard(txn, shift_scatter.shift_scatter)
 
 
 def _compact_rows(txn: prg.Txn, specs: tuple):
@@ -195,7 +226,7 @@ def _compact_rows(txn: prg.Txn, specs: tuple):
         pack = ref.compact_rows
     else:
         from repro_torch.kernels import moe_compact
-        pack = moe_compact.compact_rows
+        pack = _guard(txn, moe_compact.compact_rows)
 
     def fn(rows, mask):
         packed, valid = pack(rows, mask)
@@ -215,7 +246,7 @@ def _compact_expand(txn: prg.Txn, specs: tuple):
         from repro_torch.kernels import ref
         return ref.expand_rows
     from repro_torch.kernels import moe_compact
-    return moe_compact.expand_rows
+    return _guard(txn, moe_compact.expand_rows)
 
 
 def _put_kept(dst: torch.Tensor, lead: tuple, idx: tuple,

@@ -27,9 +27,10 @@ weights, on the CPU at the smoke configs.
 - B1 / B6 take a row too wide for the permuted copy's shared memory
   (gemma3-12b's GLU split, 30720 lanes in bf16) as chunks: the identity
   the wrappers rely on holds bit for bit on the plain versions.
-- whisper is refused at init, forward and serve time with
-  ``NotImplementedError`` naming the slice it waits for (jamba and xlstm
-  run: tests/test_torch_recurrent_serve.py).
+- whisper (the encoder-decoder, tests/test_torch_encdec.py) inits and
+  runs its forward in the tree and forward cases here, and the paged
+  ``Scheduler`` and ``BatchedServer`` refuse it with the reference's own
+  message (jamba and xlstm run: tests/test_torch_recurrent_serve.py).
 """
 import dataclasses
 import functools
@@ -53,7 +54,10 @@ from repro_torch.serve.scheduler import Scheduler
 
 FAMILIES = ("gemma3-12b", "llava-next-mistral-7b", "granite-34b",
             "starcoder2-3b", "phi3.5-moe-42b-a6.6b", "qwen3-moe-30b-a3b")
-REFUSED = {"whisper-tiny": "9e"}
+# the paged path serves decoders only, in the reference as in the port
+REFUSED = {"whisper-tiny": "paged serving covers decoder-only models"}
+# the forward and init cases also run the encoder-decoder
+MODELS = FAMILIES + ("whisper-tiny",)
 RTOL = ATOL = 2e-5
 SLOTS, PROMPT_LEN, GEN, MAX_LEN, PAGE = 2, 20, 6, 64, 4
 
@@ -96,18 +100,25 @@ def test_shapes_and_lookups_match_reference():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_families_refused_at_use(name):
+    """Init and the forward run; the paged Scheduler and BatchedServer
+    raise the reference scheduler's own message."""
+    jcfg, jparams = _jax(name)
+    with pytest.raises(NotImplementedError) as want:
+        JScheduler(jcfg, jparams, slots=1, max_len=16, page_size=4)
+    assert str(want.value) == REFUSED[name]
     cfg = base.get_arch(name).smoke
-    match = f"item {REFUSED[name]}"
-    with pytest.raises(NotImplementedError, match=match):
-        tf.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        tf.forward({}, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                   cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        Scheduler(cfg, {}, slots=1, max_len=16, page_size=4, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        BatchedServer(cfg, {}, slots=1, max_len=16, page_size=4,
+    params = tf.init_params(cfg, 0, device="cpu")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg).items()}
+    logits, _, _ = tf.forward(params, batch, cfg)
+    assert bool(torch.isfinite(logits).all())
+    with pytest.raises(NotImplementedError) as got:
+        Scheduler(cfg, params, slots=1, max_len=16, page_size=4,
+                  device="cpu")
+    assert str(got.value) == REFUSED[name]
+    with pytest.raises(NotImplementedError) as got:
+        BatchedServer(cfg, params, slots=1, max_len=16, page_size=4,
                       device="cpu")
+    assert str(got.value) == REFUSED[name]
 
 
 # ---------------------------------------------------------------------------
@@ -133,7 +144,7 @@ def _shapes(tree):
     return tuple(tree.shape), str(tree.dtype).replace("torch.", "")
 
 
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", MODELS)
 def test_init_params_tree_matches_reference(name):
     jcfg = jbase.get_arch(name).smoke
     want = jax.eval_shape(lambda: jtf.init_params(jcfg, jax.random.key(0)))
@@ -165,6 +176,9 @@ def _batch(cfg):
     if cfg.vlm_patches:
         batch["patch_embeds"] = np.random.default_rng(1).normal(
             size=(2, cfg.vlm_patches, cfg.d_model)).astype(np.float32)
+    if cfg.encoder is not None:
+        batch["audio_frames"] = np.random.default_rng(2).normal(
+            size=(2, cfg.encoder.context, cfg.d_model)).astype(np.float32)
     return batch
 
 
@@ -178,7 +192,7 @@ def _jax_forward(name, mode):
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill"])
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", MODELS)
 def test_forward_matches_reference(name, mode):
     cfg, params = _port(name)
     want, want_aux, want_states = _jax_forward(name, mode)

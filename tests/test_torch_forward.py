@@ -211,6 +211,16 @@ def test_forward_refuses_what_waits():
         mesh = object()
     with pytest.raises(NotImplementedError, match="dist"):
         forward(params, batch, cfg, Ctx())
+    # whisper runs the forward now (tests/test_torch_encdec.py); its paged
+    # prefill raises the reference's own text
+    from repro.models import decode as jdec
     from repro_torch.configs.whisper_tiny import smoke_config
-    with pytest.raises(NotImplementedError, match="item 9e"):
-        forward(params, batch, smoke_config())
+    from repro_torch.models import decode
+    toks = jnp.zeros((4,), jnp.int32)
+    with pytest.raises(NotImplementedError) as want:
+        jdec.paged_prefill_chunk({}, {}, toks, jget_arch("whisper-tiny").smoke,
+                                 None, slot=0, count=4)
+    with pytest.raises(NotImplementedError) as got:
+        decode.paged_prefill_chunk(params, {}, batch["tokens"][0],
+                                   smoke_config(), slot=0, count=4)
+    assert str(got.value) == str(want.value)

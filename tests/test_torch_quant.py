@@ -7,7 +7,8 @@ directions of the rounding and at the subnormal floor; and the port of
 ``tests/test_quant.py``'s own cases (round-trip bounds, zero-scale
 safety, the fp8 gate).  No tolerance: every comparison is of bits, except
 the round-trip bound cases, which hold the reference's own bound.  The
-compression-delegation case waits for the port's training slice."""
+compression-delegation case (``optim/compression._int8_roundtrip``) is
+ported with the optimizer, in tests/test_torch_train.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
