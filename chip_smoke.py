@@ -317,13 +317,41 @@ Phases, in order (any failure raises and exits non-zero):
    and gradients on the card within 1e-4 relative of the port's own
    ``device="cpu"`` run.  A script that imports ``chip_smoke``, builds
    ``_common.SOURCES`` and calls ``encdec_train_phase(dev, card)`` runs
-   phases 13 and 14 alone.
+   phases 13 and 14 alone;
+15. the training launcher's substrate on one card: (a) the data pipeline
+   at ``train_4k``'s shape, uncut (``DataConfig(vocab=151936,
+   seq_len=4096, global_batch=256)``, the AoS buffer ``(256, 16384)``
+   int32): under ``kernel``, ``kernel_dynamic`` and ``ref``,
+   ``next_host_aos`` equal to a numpy interleave of the pipeline's fields,
+   ``unpack_records`` equal to the fields, ``next_batch(fused=True)``
+   equal to ``next_batch(fused=False)`` over 2 steps with equal states,
+   the counts zeroed before each call and read after it: one B2 (B7) per
+   pack, one B1 (B6) per unpack, one of each per unfused batch, none
+   under ``ref`` nor on the fused path; B1 / B6 / B2 / B7 bit for bit
+   against their plain versions at int32 with 4 fields at ``(256,
+   16384)`` / 4 x ``(256, 4096)`` and at the CLI's ``(4, 2048)`` / 4 x
+   ``(4, 512)``; pack and unpack timed (CUDA events, and in a CUDA graph)
+   beside their byte bound and the library calls; (b) a checkpoint round
+   trip of qwen3-0.6b's full train state (7 152 599 044 B) after one
+   ``ref`` train step at (1, 512): ``save(blocking=False)``, ``wait``,
+   ``restore`` into a state from another seed, every leaf bit for bit on
+   the card; the snapshot, write and restore times and the bytes on disk
+   (under ``build/``, deleted after); (c) the training CLI in
+   subprocesses: qwen3-0.6b at full width under ``REPRO_TORCH_VX_IMPL=ref``
+   (6 steps of 4 x 512 tokens; finite losses, ms per step and tokens/s
+   from its lines), its refusal under the default ``kernel`` policy (exit
+   non-zero with the kernels' gradient guard), ``--mesh single-pod``
+   (exit non-zero naming item 9h), and at smoke size a 9-step run with a
+   checkpoint every 3 steps and its resume from step 6, whose final
+   losses agree within 1e-5 relative; (d) ``core/rcvrf`` on the card
+   against the CPU bit for bit over every (block, byte, count) of the
+   reference test's spec.  ``launcher_phase(dev, card)`` runs it alone.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
-``scatter_many`` call, phases 11's and 12's scheduler runs and phase
-13's whisper calls under the same policies; the strided path's for
+``scatter_many`` call, phases 11's and 12's scheduler runs, phase 13's
+whisper calls and phase 15a's data-path calls under the same policies; the strided path's for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -3672,19 +3700,24 @@ def segment_shapes(cfg, slots: int, max_len: int, page_size: int) -> tuple:
 
 def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
                          page_size: int, dtype: str = "bfloat16",
-                         shapes=None) -> None:
+                         shapes=None, fields: int = 2) -> None:
     """B1 and B6 on every row shape, B2 and B7 on every field shape of
     :func:`segment_shapes` (or of ``shapes``, a (split, pack) pair of
-    lists, for a path it does not read), seeded in ``dtype`` (the dtype
-    the cell serves in), each against its plain version bit for bit and
-    one launch a call (a row too wide for the copy's shared memory folded
-    into chunks by the wrappers)."""
+    lists, for a path it does not read), ``fields`` fields (2: K / V or a
+    GLU's halves; 4: the data path's AoS records), seeded in ``dtype``
+    (the dtype the cell serves in; int32 payloads are integers over the
+    whole range from the generator), each against its plain version bit
+    for bit and one launch a call (a row too wide for the copy's shared
+    memory folded into chunks by the wrappers)."""
     import torch
     from repro_torch.kernels import segment
     g = torch.Generator(dev).manual_seed(SEED + 13)
-    tag = {"bfloat16": "bf16", "float32": "float32"}[dtype]
+    tag = {"bfloat16": "bf16", "float32": "float32", "int32": "int32"}[dtype]
 
     def rand(shape):
+        if dtype == "int32":
+            return torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=g,
+                                 device=dev, dtype=torch.int32)
         return torch.randn(shape, generator=g, device=dev).to(
             getattr(torch, dtype))
 
@@ -3702,24 +3735,25 @@ def check_segment_shapes(dev, label: str, cfg, slots: int, max_len: int,
         for fn, plain in ((segment.deinterleave, segment.deinterleave_plain),
                           (segment.deinterleave_dynamic,
                            segment.deinterleave_dynamic_plain)):
-            if not all(same_bits(a, b)
-                       for a, b in zip(once(fn, x, 2), plain(x, 2))):
+            if not all(same_bits(a, b) for a, b in zip(once(fn, x, fields),
+                                                       plain(x, fields))):
                 raise AssertionError(f"{label}: {fn.__name__} at {shape} "
                                      f"{tag} != plain")
         del x
     for shape in pack:
-        soa = [rand(shape) for _ in range(2)]
+        soa = [rand(shape) for _ in range(fields)]
         for fn, plain in ((segment.interleave, segment.interleave_plain),
                           (segment.interleave_dynamic,
                            segment.interleave_dynamic_plain)):
             if not same_bits(once(fn, soa), plain(soa)):
-                raise AssertionError(f"{label}: {fn.__name__} at {shape} x2 "
-                                     f"{tag} != plain")
+                raise AssertionError(f"{label}: {fn.__name__} at {shape} "
+                                     f"x{fields} {tag} != plain")
     torch.cuda.empty_cache()
-    print(f"{label}: B1 and B6 at {', '.join(map(str, split))} {tag}, B2 "
-          f"and B7 at {', '.join(f'{s} x2' for s in pack)} {tag} (the serve "
-          f"path's shapes, rows too wide for the copy folded into chunks) "
-          f"== plain bit for bit, one launch a call")
+    print(f"{label}: B1 and B6 at {', '.join(map(str, split))} {tag} into "
+          f"{fields} fields, B2 and B7 at "
+          f"{', '.join(f'{s} x{fields}' for s in pack)} {tag} (the path's "
+          f"shapes, rows too wide for the copy folded into chunks) == plain "
+          f"bit for bit, one launch a call")
 
 
 def dense_ring_vs_paged(dev, cfg, params, prompt, gen: int, page_size: int,
@@ -4795,6 +4829,402 @@ def encdec_train_phase(dev, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the training launcher's substrate — the AoS data path,
+# checkpoints, the CLI, and the RCVRF model
+# ---------------------------------------------------------------------------
+
+DATA_VOCAB, DATA_SEQ, DATA_BATCH = 151_936, 4096, 256      # train_4k
+CKPT_BATCH, CKPT_SEQ = 1, 512
+TRAIN_CLI = ("--arch", "qwen3-0.6b", "--steps", "6", "--batch", "4",
+             "--seq", "512", "--lr", "1e-3")
+RESUME_CLI = ("--arch", "qwen3-0.6b", "--smoke", "--steps", "9", "--batch",
+              "4", "--seq", "64", "--lr", "1e-3", "--ckpt-every", "3")
+# the reference CLI's step line (src/repro/launch/train.py:98-102)
+TRAIN_STEP_LINE = (r"step +(\d+) loss=(-?\d+\.\d{4}) gnorm=(\d+\.\d{3}) "
+                   r"lr=(\d\.\d{2}e[+-]\d{2}) (\d+)ms excluded_hosts=\[\]")
+GUARD_TEXT = "no backward"
+
+
+def data_gate(label: str, impl: str, what: str, got: dict,
+              split: int, pack: int) -> None:
+    """``got`` must be ``split`` B1 (B6) and ``pack`` B2 (B7) launches
+    under ``impl`` and nothing else; none under ``ref``."""
+    want = dict.fromkeys(SEG_ORDER, 0)
+    if impl != "ref":
+        d, i = {"kernel": ("deinterleave", "interleave"),
+                "kernel_dynamic": ("deinterleave_dynamic",
+                                   "interleave_dynamic")}[impl]
+        want[d], want[i] = split, pack
+    if got != want:
+        raise AssertionError(f"{label} [{impl}] {what}: launches {got}, "
+                             f"want {want}")
+
+
+def data_cell(dev, card: str) -> dict:
+    """15a: the data path at train_4k's shape, uncut: the AoS buffer
+    ``(256, 16384)`` int32 under ``kernel``, ``kernel_dynamic`` and
+    ``ref`` against a numpy interleave of the pipeline's fields, its
+    unpack, fused against unfused batches; the launches gated; B1 / B2 /
+    B6 / B7 bit for bit against their plain versions at the path's shapes
+    and the CLI's; pack and unpack timed.  Returns the launches of the
+    main-path runs (pack, unpack and two unfused batches a policy)."""
+    import numpy as np
+    import torch
+    from repro_torch import vx
+    from repro_torch.data.aos import FIELDS, WEIGHT_SCALE, unpack_records
+    from repro_torch.data.pipeline import DataConfig, SyntheticAoSPipeline
+    from repro_torch.kernels import segment
+    label = "phase 15a data"
+    cfg = DataConfig(vocab=DATA_VOCAB, seq_len=DATA_SEQ,
+                     global_batch=DATA_BATCH)
+    B, S, n = DATA_BATCH, DATA_SEQ, FIELDS * DATA_SEQ
+    toks, labels, weights, docs = SyntheticAoSPipeline(
+        cfg, device=dev)._global_fields_np(0)
+    wq = np.round(weights * WEIGHT_SCALE).astype(np.int32)
+    want = np.stack([toks, labels, wq, docs], -1).reshape(B, n)
+    soa = {"tokens": toks, "labels": labels, "doc_id": docs,
+           "loss_weight": wq.astype(np.float32) / np.float32(WEIGHT_SCALE)}
+    print(f"{label}: DataConfig(vocab={DATA_VOCAB}, seq_len={S}, "
+          f"global_batch={B}), the AoS buffer ({B}, {n}) int32 "
+          f"({want.nbytes} B); B1 / B6 fold each {n}-lane row into "
+          f"{segment._fold(n, FIELDS, 4)} chunks, B2 / B7 into "
+          f"{segment._fold(n, FIELDS, 4, interleave=True)}")
+    total = dict.fromkeys(SEG_ORDER, 0)
+    for impl in ("kernel", "kernel_dynamic", "ref"):
+        with vx.use(impl):
+            pipe = SyntheticAoSPipeline(cfg, device=dev)
+            segment.reset_counts()
+            buf = pipe.next_host_aos()
+            c_pack = segment_counts()
+            data_gate(label, impl, "next_host_aos", c_pack, 0, 1)
+            if not (buf.dtype == np.int32 and np.array_equal(buf, want)):
+                raise AssertionError(f"{label} [{impl}]: next_host_aos != "
+                                     f"the numpy interleave")
+            segment.reset_counts()
+            out = unpack_records(torch.from_numpy(buf).to(dev))
+            c_unpack = segment_counts()
+            data_gate(label, impl, "unpack_records", c_unpack, 1, 0)
+            for key, w in soa.items():
+                got = out[key].cpu().numpy()
+                if got.dtype != w.dtype or not np.array_equal(
+                        got.view(np.int32), w.view(np.int32)):
+                    raise AssertionError(f"{label} [{impl}]: unpacked "
+                                         f"{key} != the pipeline's field")
+            del out
+            fused = SyntheticAoSPipeline(cfg, device=dev)
+            unfused = SyntheticAoSPipeline(cfg, device=dev)
+            c_steps = dict.fromkeys(SEG_ORDER, 0)
+            for _ in range(2):
+                segment.reset_counts()
+                a = fused.next_batch(fused=True)
+                data_gate(label, impl, "next_batch(fused=True)",
+                          segment_counts(), 0, 0)
+                segment.reset_counts()
+                b = unfused.next_batch(fused=False)
+                c = segment_counts()
+                data_gate(label, impl, "next_batch(fused=False)", c, 1, 1)
+                for k in c_steps:
+                    c_steps[k] += c[k]
+                if sorted(a) != sorted(b) or not all(
+                        same_bits(a[k], b[k]) for k in a):
+                    raise AssertionError(f"{label} [{impl}]: fused batch != "
+                                         f"unfused batch")
+            if fused.state_dict() != unfused.state_dict():
+                raise AssertionError(f"{label} [{impl}]: pipeline states "
+                                     f"{fused.state_dict()} vs "
+                                     f"{unfused.state_dict()}")
+        for k in total:
+            total[k] += c_pack[k] + c_unpack[k] + c_steps[k]
+        print(f"{label} [{impl}]: next_host_aos == the numpy interleave bit "
+              f"for bit, unpack_records == the fields, next_batch(fused) == "
+              f"next_batch(fused=False) over 2 steps with equal states; "
+              f"launches per pack / unpack / unfused batch "
+              f"{seg_pair(c_pack, impl)} / {seg_pair(c_unpack, impl)} / "
+              f"{tuple(x // 2 for x in seg_pair(c_steps, impl))} as (split, "
+              f"pack), none on the fused path")
+    check_segment_shapes(dev, label, None, 0, 0, 0, dtype="int32",
+                         fields=FIELDS, shapes=([(B, n), (4, 4 * 512)],
+                                                [(B, S), (4, 512)]))
+    fields = [torch.from_numpy(f).to(dev) for f in (toks, labels, wq, docs)]
+    aos = torch.from_numpy(want).to(dev)
+    for fn, args, plain in (
+            (segment.interleave, (fields,), segment.interleave_plain),
+            (segment.interleave_dynamic, (fields,),
+             segment.interleave_dynamic_plain),
+            (segment.deinterleave, (aos, FIELDS),
+             segment.deinterleave_plain),
+            (segment.deinterleave_dynamic, (aos, FIELDS),
+             segment.deinterleave_dynamic_plain)):
+        got, ref = fn(*args), plain(*args)
+        if not all(same_bits(x, y) for x, y in zip(
+                got if isinstance(got, list) else [got],
+                ref if isinstance(ref, list) else [ref])):
+            raise AssertionError(f"{label}: timed {fn.__name__} != plain")
+    bound = 2 * want.nbytes / HBM_BYTES_PER_S * 1e3
+    times = {}
+    for name, fn in (
+            ("B2 interleave", lambda: segment.interleave(fields)),
+            ("B7 interleave_dynamic",
+             lambda: segment.interleave_dynamic(fields)),
+            ("library stack(fields, -1).flatten(-2)",
+             lambda: torch.stack(fields, -1).flatten(-2)),
+            ("B1 deinterleave", lambda: segment.deinterleave(aos, FIELDS)),
+            ("B6 deinterleave_dynamic",
+             lambda: segment.deinterleave_dynamic(aos, FIELDS)),
+            ("library view(B, S, 4).permute(2, 0, 1).contiguous()",
+             lambda: aos.view(B, S, FIELDS).permute(2, 0, 1).contiguous())):
+        times[name] = (time_ms(fn, 50), graph_ms(fn, 20))
+    plain = {"B2 plain": time_ms(lambda: segment.interleave_plain(fields), 3),
+             "B1 plain": time_ms(lambda: segment.deinterleave_plain(
+                 aos, FIELDS), 3)}
+    print(f"{label} on {card}: pack (4 x ({B}, {S}) int32 -> ({B}, {n})) and "
+          f"unpack, ms a call (CUDA events over 50 calls / device alone in a "
+          f"CUDA graph of 20), bound {bound:.4f} ms (2 x {want.nbytes} B / "
+          f"3.35 TB/s): " + "; ".join(
+              f"{k} {a:.4f} / {g:.4f} ({g / bound:.2f}x bound)"
+              for k, (a, g) in times.items())
+          + "; " + "; ".join(f"{k} {v:.4f}" for k, v in plain.items()))
+    del fields, aos
+    torch.cuda.empty_cache()
+    return total
+
+
+def checkpoint_cell(dev, card: str) -> None:
+    """15b: qwen3-0.6b's full train state (float32 params, AdamW m and v,
+    the int32 step) after one ``ref`` train step on a (1, 512) pipeline
+    batch: ``save(blocking=False)``, ``wait()``, ``restore`` into a state
+    from another seed, every leaf bit for bit on the card; the snapshot,
+    write and restore times and the bytes on disk."""
+    import gc
+    import shutil
+    import torch
+    from repro_torch import vx
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.pipeline import DataConfig, SyntheticAoSPipeline
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.kernels._common import pytree_nbytes, tree_leaves
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import (TrainConfig, init_full_state,
+                                        make_train_step)
+    label = "phase 15b checkpoint"
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").model, kernel_impl="ref")
+    tcfg = TrainConfig(optimizer=AdamWConfig())
+    state = init_full_state(cfg, tcfg, SEED, dev)
+    pipe = SyntheticAoSPipeline(DataConfig(vocab=cfg.vocab, seq_len=CKPT_SEQ,
+                                           global_batch=CKPT_BATCH),
+                                device=dev)
+    with vx.use("ref"):
+        state, m = make_train_step(cfg, tcfg)(state, pipe.next_batch())
+    if int(state["opt"]["step"]) != 1 or not math.isfinite(float(m["loss"])):
+        raise AssertionError(f"{label}: the train step: {m}")
+    nbytes = pytree_nbytes(state)
+    d = ROOT / "build" / "phase15_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.parent.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(d.parent).free
+    mgr = CheckpointManager(str(d))
+    extra = {"step": 1, "pipeline": pipe.state_dict()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, state, extra=extra, blocking=False)
+    snap = time.perf_counter() - t0
+    mgr.wait()
+    write = time.perf_counter() - t0 - snap
+    disk = sum(f.stat().st_size for f in (d / "step_00000001").iterdir())
+    other = init_full_state(cfg, tcfg, SEED + 1, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, got_extra = mgr.restore(other)
+    torch.cuda.synchronize()
+    restore = time.perf_counter() - t0
+    del other
+    pairs = list(zip(tree_leaves(restored), tree_leaves(state)))
+    bad = [i for i, (a, b) in enumerate(pairs)
+           if a.device != b.device or not same_bits(a, b)]
+    if bad or got_extra != extra or len(pairs) != len(tree_leaves(state)):
+        raise AssertionError(f"{label}: {len(bad)} of {len(pairs)} leaves "
+                             f"differ or sit elsewhere; extra {got_extra}")
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"{label} qwen3-0.6b train state on {card}: {len(pairs)} leaves, "
+          f"{nbytes} B on the card (3 x {QWEN3_PARAMS} float32 + the int32 "
+          f"step); snapshot to host memory before save returns "
+          f"{snap * 1e3:.1f} ms ({nbytes / snap / 1e9:.2f} GB/s), background "
+          f"write {write:.2f} s ({nbytes / write / 1e9:.3f} GB/s; "
+          f"{free / 1e9:.1f} GB free before), {disk} B on disk "
+          f"({disk - nbytes} B of npz and manifest over the leaves), restore "
+          f"into a state from another seed {restore:.2f} s; every leaf bit "
+          f"for bit on the card, the pipeline state restored")
+    del restored, state, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_cli(args, impl: str | None = "ref", ok: bool = True) -> dict:
+    """``python -m repro_torch.launch.train ARGS`` in a subprocess, with
+    ``REPRO_TORCH_VX_IMPL=impl`` (unset for ``None``); raises unless it
+    exits 0 (``ok``) or non-zero (not ``ok``)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("REPRO_TORCH_VX_IMPL", None)
+    if impl is not None:
+        env["REPRO_TORCH_VX_IMPL"] = impl
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if (out.returncode == 0) != ok:
+        raise AssertionError(f"train CLI {' '.join(args)} exited "
+                             f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+                             f"{out.stderr[-3000:]}")
+    return {"lines": out.stdout.splitlines(), "stderr": out.stderr,
+            "wall_s": wall, "rc": out.returncode}
+
+
+def parse_train(r: dict) -> tuple:
+    """({step: (loss, ms)}, final loss, resumed step or None) of a train
+    CLI run's lines; every loss finite."""
+    import re
+    steps, final, resumed = {}, None, None
+    for line in r["lines"]:
+        if m := re.fullmatch(TRAIN_STEP_LINE, line):
+            steps[int(m[1])] = (float(m[2]), int(m[5]))
+        elif line.startswith("done; final loss "):
+            final = float(line.split()[-1])
+        elif m := re.fullmatch(r"resumed from step (\d+)", line):
+            resumed = int(m[1])
+    if final is None or not steps or not all(
+            math.isfinite(x) for x in [final] + [v[0] for v in
+                                                  steps.values()]):
+        raise AssertionError(f"train CLI lines: {r['lines']}")
+    return steps, final, resumed
+
+
+def cli_cell(card: str) -> None:
+    """15c: the training CLI in subprocesses: (i) qwen3-0.6b at full width
+    under ``ref``, the batch cut to 4 x 512 tokens; (ii) the same under the
+    card's default policy refuses at the kernels' gradient guard; (iii) a
+    mesh is refused naming item 9h; (iv) at smoke size, a run and its
+    resume from the step-6 checkpoint end at the same loss."""
+    import shutil
+    label = "phase 15c train CLI"
+    r = train_cli(TRAIN_CLI)
+    steps, final, _ = parse_train(r)
+    tokens = 4 * 512
+    print(f"{label} ({' '.join(TRAIN_CLI)}; train_4k's global batch 256 x "
+          f"4096 cut to 4 x 512 tokens) under REPRO_TORCH_VX_IMPL=ref on "
+          f"{card}: exit 0 in {r['wall_s']:.1f} s; " + "; ".join(
+              f"step {s}: loss {v[0]} {v[1]} ms ({tokens / v[1] * 1e3:.1f} "
+              f"tokens/s)" for s, v in sorted(steps.items()))
+          + f"; final loss {final}")
+    r = train_cli(TRAIN_CLI[:2] + ("--steps", "1") + TRAIN_CLI[4:],
+                  impl=None, ok=False)
+    if GUARD_TEXT not in r["stderr"] or "RuntimeError" not in r["stderr"]:
+        raise AssertionError(f"{label}: the default policy's refusal: "
+                             f"{r['stderr'][-2000:]}")
+    print(f"{label}: without REPRO_TORCH_VX_IMPL (the card's default policy "
+          f"kernel) exit {r['rc']} with the kernels' gradient guard: "
+          f"{r['stderr'].strip().splitlines()[-1][:120]}...")
+    r = train_cli(TRAIN_CLI[:2] + ("--steps", "1", "--mesh", "single-pod"),
+                  ok=False)
+    if "9h" not in r["stderr"] or "NotImplementedError" not in r["stderr"]:
+        raise AssertionError(f"{label}: the mesh refusal: "
+                             f"{r['stderr'][-2000:]}")
+    print(f"{label}: --mesh single-pod exit {r['rc']}: "
+          f"{r['stderr'].strip().splitlines()[-1]}")
+    a_dir, b_dir = ROOT / "build" / "phase15_cli_a", ROOT / "build" / \
+        "phase15_cli_b"
+    for d in (a_dir, b_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    a = parse_train(train_cli(RESUME_CLI + ("--ckpt-dir", str(a_dir))))
+    shutil.copytree(a_dir, b_dir)
+    shutil.rmtree(b_dir / "step_00000009")
+    b = parse_train(train_cli(RESUME_CLI + ("--ckpt-dir", str(b_dir),
+                                            "--resume")))
+    for d in (a_dir, b_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    gap = abs(b[1] - a[1]) / abs(a[1])
+    if b[2] != 6 or gap > 1e-5:
+        raise AssertionError(f"{label}: resume {b[2]}, final losses {a[1]} "
+                             f"/ {b[1]}, A's losses {a[0]}")
+    losses = ", ".join(f"step {k} {v[0]}" for k, v in sorted(a[0].items()))
+    print(f"{label} resume ({' '.join(RESUME_CLI)}) on {card}: run A "
+          f"losses {losses}, final {a[1]}; run B resumed from step "
+          f"{b[2]} of A's checkpoints to {b[1]} (relative gap {gap:.3e}, "
+          f"bound 1e-5)")
+
+
+def rcvrf_cell(dev, card: str) -> None:
+    """15d: ``core/rcvrf`` on the card against the same calls on the CPU,
+    bit for bit: 32 row writes and reads, then every (block, byte, count)
+    of the reference test's spec: a column read, a column write and the
+    rows it wrote."""
+    import torch
+    from repro_torch.core import rcvrf
+    label = "phase 15d rcvrf"
+    spec = rcvrf.VRFSpec(vlen=256, elen=64, n_regs=32, n_banks=8,
+                         elem_bits=8)
+    t0 = time.perf_counter()
+    vrfs = {d: rcvrf.empty_vrf(spec, device=d) for d in (dev, "cpu")}
+    for reg in range(spec.n_regs):
+        data = (torch.arange(32) * 3 + 11 * reg).remainder(256).to(
+            torch.uint8)
+        vrfs = {d: rcvrf.write_row(spec, v, reg, data.to(d))
+                for d, v in vrfs.items()}
+    full_card, full_cpu = vrfs[dev], vrfs["cpu"]
+    if not (same_bits(full_card.cpu(), full_cpu) and all(
+            same_bits(rcvrf.read_row(spec, full_card, r).cpu(),
+                      rcvrf.read_row(spec, full_cpu, r))
+            for r in range(spec.n_regs))):
+        raise AssertionError(f"{label}: write_row / read_row differ")
+    cases = 0
+    for block in range(spec.blocks_per_reg):
+        for byte in range(spec.elems_per_block):
+            for count in range(1, spec.n_banks + 1):
+                col = [rcvrf.read_column(spec, v, 0, block, byte, count)
+                       for v in (full_card, full_cpu)]
+                vals = torch.arange(count, dtype=torch.uint8) + 100
+                wrote = [rcvrf.write_column(spec, v, 0, block, byte,
+                                            vals.to(v.device))
+                         for v in (full_card, full_cpu)]
+                rows = [[rcvrf.read_row(spec, w, i) for i in range(count)]
+                        for w in wrote]
+                if not (same_bits(col[0].cpu(), col[1])
+                        and same_bits(wrote[0].cpu(), wrote[1])
+                        and all(same_bits(x.cpu(), y)
+                                for x, y in zip(*rows))
+                        and all(int(rows[1][i][block * spec.elems_per_block
+                                               + byte]) == 100 + i
+                                for i in range(count))):
+                    raise AssertionError(f"{label}: (block, byte, count) "
+                                         f"({block}, {byte}, {count})")
+                cases += 1
+    print(f"{label} {spec} on {card}: 32 row writes and reads, then "
+          f"{cases} (block, byte, count) cases of read_column / write_column "
+          f"/ read_row: the card == the CPU bit for bit "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def launcher_phase(dev, card: str) -> dict:
+    """Phase 15: 15a-15d.  Returns 15a's launches of B1 / B2 under
+    ``kernel`` and B6 / B7 under ``kernel_dynamic``."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    launches = data_cell(dev, card)
+    print(f"phase 15a: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checkpoint_cell(dev, card)
+    print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli_cell(card)
+    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
+    rcvrf_cell(dev, card)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; launches on the "
+          f"data path {launches}")
+    return launches
+
+
 def profile_policies(runs: dict) -> None:
     """``--profile``: where each policy's serve run spends its time, from
     torch.profiler traces of one whole run (prefill and decode) per policy.
@@ -4998,6 +5428,8 @@ def main() -> int:
                                 gen).items():
         launches[k] += n
     for k, n in encdec_train_phase(dev, card).items():
+        launches[k] += n
+    for k, n in launcher_phase(dev, card).items():
         launches[k] += n
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})

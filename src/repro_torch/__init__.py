@@ -34,6 +34,9 @@ recurrent models (models/ssm, models/xlstm), the whisper
 encoder-decoder (models/encdec, served through the dense engine steps)
 and training on one device (the flash attention backward, the losses,
 optim/adamw, optim/compression, train/state and train/step, under the
-``ref`` policy: the hand-written kernels have no backward).  ROADMAP.md
-lists what waits.
+``ref`` policy: the hand-written kernels have no backward), and the
+training launcher on one device (the AoS data pipeline in data/, async
+atomic checkpoints and elastic restore in ft/, the CLI in launch/train)
+and the RCVRF register-file model (core/rcvrf).  ROADMAP.md lists what
+waits.
 """

@@ -1,2 +1,3 @@
-"""Command-line entry points (port of ``repro.launch``): the serving CLI.
-Training, dry-run and the mesh launcher wait for later slices."""
+"""Command-line entry points (port of ``repro.launch``): the serving CLI
+and the training CLI on one device.  The multi-pod dry-run and the
+production mesh launcher wait for later slices (items 9h, 9k, 9l)."""

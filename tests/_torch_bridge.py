@@ -1,6 +1,6 @@
 """Helpers shared by the port's parity tests (tests/test_torch_*.py): move
-arrays between JAX and torch through NumPy, compare bits, run a module's
-torch ops on one CPU thread, and gate the cases that need a CUDA card."""
+arrays between JAX and torch through NumPy, compare bits, and gate the
+cases that need a CUDA card."""
 from __future__ import annotations
 
 import numpy as np
@@ -47,20 +47,6 @@ def assert_bits_equal(got, want) -> None:
 def jax_tree_to_np(tree):
     import jax
     return jax.tree.map(np.asarray, tree)
-
-
-@pytest.fixture(scope="module")
-def one_thread():
-    """Torch's CPU ops on one thread for the module's tests (a module uses
-    it with ``pytestmark = pytest.mark.usefixtures("one_thread")``).  The
-    suite runs several pytest-xdist workers on the machine's cores; torch's
-    intra-op pool on every core in each of them oversubscribes the CPU,
-    and under that load a smoke model's backward ran about ten times
-    slower than on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

@@ -22,7 +22,6 @@ import pytest
 import torch
 
 from _torch_bridge import jax_tree_to_np, to_torch
-from _torch_bridge import one_thread  # noqa: F401 (the module's fixture)
 from repro.configs import base as jbase
 from repro.dist.sharding import local_ctx
 from repro.models import attention as jattn
@@ -42,7 +41,6 @@ from repro_torch.serve.engine import (BatchedServer, ServeConfig,
 from repro_torch.serve.scheduler import Scheduler
 
 RTOL = ATOL = 2e-5
-pytestmark = pytest.mark.usefixtures("one_thread")
 
 NAME = "whisper-tiny"
 B, S = 2, 12

@@ -38,7 +38,6 @@ import pytest
 import torch
 
 from _torch_bridge import assert_bits_equal, jax_tree_to_np
-from _torch_bridge import one_thread  # noqa: F401 (the module's fixture)
 from repro.configs import base as jbase
 from repro.models import attention as jattn
 from repro.models import transformer as jtf
@@ -52,8 +51,6 @@ from repro_torch.models import transformer as tf
 from repro_torch.optim import adamw, compression
 from repro_torch.train import state as tstate
 from repro_torch.train import step as tstep
-
-pytestmark = pytest.mark.usefixtures("one_thread")
 
 RTOL = ATOL = 2e-5
 

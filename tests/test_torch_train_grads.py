@@ -26,7 +26,6 @@ import pytest
 import torch
 
 from _torch_bridge import jax_tree_to_np
-from _torch_bridge import one_thread  # noqa: F401 (the module's fixture)
 from repro import vx as jvx
 from repro.configs import base as jbase
 from repro.models import transformer as jtf
@@ -36,8 +35,6 @@ from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import transformer as tf
 from repro_torch.train import state as tstate
 from repro_torch.train import step as tstep
-
-pytestmark = pytest.mark.usefixtures("one_thread")
 
 RTOL = ATOL = 2e-5
 GRAD_ARCHS = ("qwen3-0.6b", "whisper-tiny", "jamba-1.5-large-398b",
