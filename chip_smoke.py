@@ -7,7 +7,14 @@ from ``src/repro_torch/csrc`` into ``build/`` (one nvcc per source, all
 started together) and exits non-zero, with no result line, when there is
 no card or no port beside it.
 
-Phases, in order (any failure raises and exits non-zero):
+Phases, in order (any failure raises and exits non-zero).  The CLI runs
+of phases 7-12 and 15c and phase 16's ranks are processes of their own:
+they start after phase 10, the CLIs three at a time, and run beside
+phases 11-14 of this process (``Background``); then their lines print,
+the CLIs' in phase order and phase 16's, and phase 15 runs alone.  Every
+line of phases 11-14, of the CLIs and of phase 16 starts with ``[beside
+the background]``: its times were taken on a card and host shared with
+the background, not alone:
 
 1. the card's ``name, power.limit`` (nvidia-smi), the torch version, and
    the kernels' build time;
@@ -270,8 +277,8 @@ Phases, in order (any failure raises and exits non-zero):
    B6 and B2 / B7 bit for bit at its shapes first, streams equal, the
    fused split of its attention layer once per decode step (B1, B6,
    none); (d) the CLI for xlstm-125m at full width, jamba with
-   ``--smoke``, and xlstm with ``--smoke --replicas 3 --chaos 0``: exit 0,
-   every request finished (terminal, for the chaos run).
+   ``--smoke``, and xlstm with ``--smoke --replicas 3 --chaos 0``:
+   exit 0, every request finished (terminal, for the chaos run).
 
 13. the encoder-decoder through the dense path: (a) whisper-tiny uncut (4
    + 4 layers, d_model 384, 36 479 232 parameters, predicted from the
@@ -345,13 +352,47 @@ Phases, in order (any failure raises and exits non-zero):
    checkpoint every 3 steps and its resume from step 6, whose final
    losses agree within 1e-5 relative; (d) ``core/rcvrf`` on the card
    against the CPU bit for bit over every (block, byte, count) of the
-   reference test's spec.  ``launcher_phase(dev, card)`` runs it alone.
+   reference test's spec.  ``launcher_phase(dev, card)`` runs (a), (b)
+   and (d) alone, ``cli_cell(card)`` (c).
+16. sharded serving, as 4 ranks of one ``gloo`` group spawned with
+   ``torch.multiprocessing``, every rank on ``cuda:0`` (one card; NCCL
+   refuses two ranks on one GPU), so every collective time is ``gloo``
+   through host memory on one card: (16.0) which collectives take CUDA
+   tensors, and a 64 MiB ``all_reduce``; (a) the sharded ``vx`` verbs on
+   meshes (4,) and (2, 2) under ``kernel``, ``kernel_dynamic`` and
+   ``ref``, bit for bit against the same verb run unsharded in one
+   process: the segment pair on the KV stack sharded on its sequence
+   (B1 / B2, B6 / B7 on each rank's block), the lane-sharded strided
+   gather / scatter at n = 4096, vl 512 over the reference's (stride,
+   offset) list scaled by 64 from its n = 64 (B3 / B5, B8 / B9), the
+   page gather of phase 4's pool sharded on
+   its page axis in bf16 and int8 with scales (full, partial, unallocated
+   tables), each timed (CUDA events); (b) qwen3-0.6b's paged decode with
+   the pool placed as a ``DTensor`` on (4,) (32 of 128 pages a rank):
+   phase 4's prompts prefilled replicated, 16 greedy ``paged_decode_step``
+   s with ``pool_shard`` under ``kernel`` and ``ref``, logits and streams
+   bit for bit against rank 0's replicated step; (c) long-context decode
+   (``long_500k``, 524 288 -> 32 768 positions, B 1, len 16384, seeded
+   noise) on (2, 2) through ``jit_decode_step(long_context=True)``,
+   weights placed by ``serve_param_shardings``: 8 greedy steps fused and
+   per-access in bf16 (bit for bit; no collective of a cache-sized
+   operand; fused B1 1 a step against 84) with the greedy stream of rank
+   0's one-process step (the bf16 logit gap printed beside ``max(0.08,
+   0.03 * |logits|max)``, and beside how far one ulp of one weight moves
+   rank 0's step-0 bf16 logits), then 4 fused steps in float32 compute,
+   within the reference's rtol = atol = 3e-3 of rank 0's one-process step
+   with equal streams; (d) qwen3-moe-30b-a3b's MoE layer expert-parallel
+   on (2, 2) against rank 0's one-process layer, within 1e-2 *
+   max(1, |y|max), after every rank found no unit dropped at its
+   ``capacity_slack``.  Each rank's
+   launches of the sharded runs join the kernels' line.
+   ``sharded_phase(card_line())`` runs it alone.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
 ``scatter_many`` call, phases 11's and 12's scheduler runs, phase 13's
-whisper calls and phase 15a's data-path calls under the same policies; the strided path's for
+whisper calls, phase 15a's data-path calls and phase 16's ranks under the same policies; the strided path's (and phase 16's) for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -2200,6 +2241,104 @@ def run_cli(card: str, flags=(), base=CLI_ARGS) -> dict:
     return {"lines": lines, "wall_s": wall}
 
 
+#: Subprocess CLI runs at a time beside phases 11-14 (:class:`Background`).
+CLI_WORKERS = 3
+#: The head of every line printed while the background runs or of it: the
+#: times on such a line were taken on a card and host shared with it.
+CONTENDED = "[beside the background] "
+
+
+class _Tagged:
+    """A stdout that starts each line with ``tag``."""
+
+    def __init__(self, out, tag: str):
+        self.out, self.tag, self.fresh = out, tag, True
+
+    def write(self, text: str) -> int:
+        for piece in text.splitlines(keepends=True):
+            if self.fresh:
+                self.out.write(self.tag)
+            self.out.write(piece)
+            self.fresh = piece.endswith("\n")
+        return len(text)
+
+    def flush(self) -> None:
+        self.out.flush()
+
+    def __getattr__(self, name):
+        return getattr(self.out, name)
+
+
+class Background:
+    """What this script runs in processes of its own: the CLI runs of
+    phases 7-12 and 15c (queued through :func:`cli_runs`) and phase 16's
+    spawn of ranks.  :meth:`start` (after phase 10) starts the spawn and
+    the queued CLIs, ``CLI_WORKERS`` at a time; a CLI queued later starts
+    when a worker frees.  They run beside phases 11-14 of this process,
+    sharing the card and the host's cores with them.  :meth:`join` waits
+    for every run, prints each CLI's report in the order queued, then
+    phase 16's lines.  From :meth:`start` to the end of :meth:`join` every
+    line printed starts with :data:`CONTENDED`."""
+
+    def __init__(self):
+        self.jobs: list = []          # [report, fn, args, future]
+        self.pool = None
+
+    def queue(self, report, fn, *args) -> None:
+        future = None if self.pool is None else self.pool.submit(fn, *args)
+        self.jobs.append([report, fn, args, future])
+
+    def start(self) -> None:
+        from concurrent.futures import ThreadPoolExecutor
+        self.t0 = time.perf_counter()
+        self.spawner = ThreadPoolExecutor(1)
+        self.spawned = self.spawner.submit(timed_spawn16)
+        self.pool = ThreadPoolExecutor(CLI_WORKERS)
+        for job in self.jobs:
+            job[3] = self.pool.submit(job[1], *job[2])
+        sys.stdout.flush()
+        self.stdout, sys.stdout = sys.stdout, _Tagged(sys.stdout, CONTENDED)
+
+    def join(self, card: str) -> dict:
+        """Phase 16's launches, summed over its ranks."""
+        results = [job[3].result() for job in self.jobs]
+        spawned = self.spawned.result()
+        print(f"background: {len(self.jobs)} CLI runs in subprocesses, "
+              f"{CLI_WORKERS} at a time, and phase 16's {RANKS16} ranks, "
+              f"beside phases 11-14 on {card}: joined "
+              f"{time.perf_counter() - self.t0:.1f} s after they started "
+              f"(every CLI's wall time below is taken so)")
+        for job, r in zip(self.jobs, results):
+            job[0](r)
+        self.pool.shutdown()
+        self.spawner.shutdown()
+        try:
+            return sharded_phase(card, spawned)
+        finally:
+            sys.stdout.flush()
+            sys.stdout = self.stdout
+
+
+#: The script's :class:`Background` while ``main`` runs; None when a phase
+#: runs alone (its CLIs then run at once, side by side).
+BACKGROUND: Background | None = None
+
+
+def cli_runs(*jobs) -> None:
+    """Each job ``(report, fn, *args)``: ``fn(*args)`` runs a CLI in a
+    subprocess, ``report(result)`` checks and prints it.  Queued on
+    :data:`BACKGROUND` when there is one; else run now, side by side."""
+    if BACKGROUND is not None:
+        for report, fn, *args in jobs:
+            BACKGROUND.queue(report, fn, *args)
+        return
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = [pool.submit(fn, *args) for _, fn, *args in jobs]
+    for (report, *_), f in zip(jobs, futures):
+        report(f.result())
+
+
 def dense_phase(dev, cfg, card: str, slots: int, page_size: int) -> None:
     """Phase 7: dense serving under ``kernel``, ``ref``,
     ``kernel_dynamic``, ``kernel_dynamic``, ``ref``, ``kernel`` (streams
@@ -2264,10 +2403,12 @@ def dense_phase(dev, cfg, card: str, slots: int, page_size: int) -> None:
                              f"{diffs}")
     del params
     torch.cuda.empty_cache()
-    cli = run_cli(card)
-    tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
-    print(f"serve CLI ({' '.join(CLI_ARGS)}): exit 0, every request "
-          f"finished, {cli['wall_s']:.1f} s of wall time: {tail}")
+
+    def report(cli):
+        tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+        print(f"serve CLI ({' '.join(CLI_ARGS)}): exit 0, every request "
+              f"finished, {cli['wall_s']:.1f} s of wall time: {tail}")
+    cli_runs((report, run_cli, card))
 
 
 # ---------------------------------------------------------------------------
@@ -2449,15 +2590,17 @@ def quant_prefix_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
                                  f"hits, {on['forks']} forks")
     del params
     torch.cuda.empty_cache()
-    cli = run_cli(card, QUANT_CLI_FLAGS)
-    tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
-    pline = [ln for ln in cli["lines"] if ln.startswith("prefix cache:")]
-    print(f"serve CLI ({' '.join(CLI_ARGS + QUANT_CLI_FLAGS)}): exit 0, "
-          f"every request finished, {cli['wall_s']:.1f} s of wall time: "
-          f"{tail}; {pline[0] if pline else 'no prefix line'}")
-    if not pline:
-        raise AssertionError("serve CLI with --prefix-cache printed no "
-                             "prefix cache line")
+
+    def report(cli):
+        tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+        pline = [ln for ln in cli["lines"] if ln.startswith("prefix cache:")]
+        print(f"serve CLI ({' '.join(CLI_ARGS + QUANT_CLI_FLAGS)}): exit 0, "
+              f"every request finished, {cli['wall_s']:.1f} s of wall time: "
+              f"{tail}; {pline[0] if pline else 'no prefix line'}")
+        if not pline:
+            raise AssertionError("serve CLI with --prefix-cache printed no "
+                                 "prefix cache line")
+    cli_runs((report, run_cli, card, QUANT_CLI_FLAGS))
     # B1 on the quantized step's operand: the float32 dequantized stack
     g = torch.Generator(device=dev)
     g.manual_seed(SEED + 10)
@@ -3013,14 +3156,16 @@ def chaos_fleet_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
     del params
     torch.cuda.empty_cache()
 
-    for flags in FAULT_CLI:
-        cli = run_fault_cli(card, flags)
-        tail = [ln for ln in cli["lines"]
-                if ln.startswith(("chaos seed", "fleet chaos seed",
-                                  "fleet:"))]
-        print(f"serve CLI (--arch qwen3-0.6b {' '.join(flags)}): exit 0, "
-              f"every request terminal, {cli['wall_s']:.1f} s of wall time: "
-              f"{tail[0] if tail else ''}")
+    def report(flags):
+        def fn(cli):
+            tail = [ln for ln in cli["lines"]
+                    if ln.startswith(("chaos seed", "fleet chaos seed",
+                                      "fleet:"))]
+            print(f"serve CLI (--arch qwen3-0.6b {' '.join(flags)}): exit "
+                  f"0, every request terminal, {cli['wall_s']:.1f} s of "
+                  f"wall time: {tail[0] if tail else ''}")
+        return fn
+    cli_runs(*[(report(f), run_fault_cli, card, f) for f in FAULT_CLI])
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3511,23 +3656,27 @@ def speculative_phase(dev, cfg, card: str, prompts, gen: int, slots: int,
     scatter_many_phase(dev, cfg, slots, max_len, timing, launches)
 
     # (e) the CLI: --speculate 4 --stats, and CI's speculative fleet chaos
-    cli = run_cli(card, SPEC_CLI_FLAGS)
-    line = [ln for ln in cli["lines"] if ln.startswith("speculative:")]
-    if not line:
-        raise AssertionError("serve CLI --speculate 4: no speculative line")
-    tok = [ln for ln in cli["lines"] if "tok/s on " in ln]
-    print(f"serve CLI ({' '.join(CLI_ARGS + SPEC_CLI_FLAGS)}): exit 0, every "
-          f"request finished, {cli['wall_s']:.1f} s of wall time: {tok[0]}; "
-          f"{line[0]}")
-    cli = run_fault_cli(card, SPEC_FAULT_CLI)
-    line = [ln for ln in cli["lines"] if ln.startswith(("speculative:",
-                                                        "fleet chaos seed"))]
-    if len(line) != 2:
-        raise AssertionError("serve CLI speculative fleet chaos: no "
-                             "speculative or chaos line")
-    print(f"serve CLI (--arch qwen3-0.6b {' '.join(SPEC_FAULT_CLI)}): exit 0, "
-          f"every request terminal, {cli['wall_s']:.1f} s of wall time: "
-          f"{line[0]}; {line[1]}")
+    def report_spec(cli):
+        line = [ln for ln in cli["lines"] if ln.startswith("speculative:")]
+        if not line:
+            raise AssertionError("serve CLI --speculate 4: no speculative "
+                                 "line")
+        tok = [ln for ln in cli["lines"] if "tok/s on " in ln]
+        print(f"serve CLI ({' '.join(CLI_ARGS + SPEC_CLI_FLAGS)}): exit 0, "
+              f"every request finished, {cli['wall_s']:.1f} s of wall time: "
+              f"{tok[0]}; {line[0]}")
+
+    def report_fault(cli):
+        line = [ln for ln in cli["lines"]
+                if ln.startswith(("speculative:", "fleet chaos seed"))]
+        if len(line) != 2:
+            raise AssertionError("serve CLI speculative fleet chaos: no "
+                                 "speculative or chaos line")
+        print(f"serve CLI (--arch qwen3-0.6b {' '.join(SPEC_FAULT_CLI)}): "
+              f"exit 0, every request terminal, {cli['wall_s']:.1f} s of "
+              f"wall time: {line[0]}; {line[1]}")
+    cli_runs((report_spec, run_cli, card, SPEC_CLI_FLAGS),
+             (report_fault, run_fault_cli, card, SPEC_FAULT_CLI))
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -3928,12 +4077,15 @@ def family_phase(dev, card: str, slots: int, max_len: int,
     torch.cuda.empty_cache()
 
     # (d) the CLI with --smoke for the configs with no full-width run
-    for name in SMOKE_CLI:
-        base = ("--arch", name) + SMOKE_CLI_ARGS
-        cli = run_cli(card, base=base)
-        tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
-        print(f"phase 11d serve CLI ({' '.join(base)}): exit 0, every "
-              f"request finished, {cli['wall_s']:.1f} s of wall time: {tail}")
+    def report(base):
+        def fn(cli):
+            tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+            print(f"phase 11d serve CLI ({' '.join(base)}): exit 0, every "
+                  f"request finished, {cli['wall_s']:.1f} s of wall time: "
+                  f"{tail}")
+        return fn
+    bases = [("--arch", name) + SMOKE_CLI_ARGS for name in SMOKE_CLI]
+    cli_runs(*[(report(base), run_cli, card, (), base) for base in bases])
     print(f"phase 11: {time.perf_counter() - t_phase:.1f} s; launches under "
           f"kernel / kernel_dynamic {launches}")
     return launches
@@ -4261,18 +4413,25 @@ def recurrent_phase(dev, card: str, slots: int, max_len: int,
     gc.collect()
     torch.cuda.empty_cache()
 
-    for base in RECURRENT_CLI:
-        cli = run_cli(card, base=base)
-        tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
-        pages = [ln for ln in cli["lines"] if ln.startswith("pages:")][0]
-        print(f"phase 12d serve CLI ({' '.join(base)}): exit 0, every "
-              f"request finished, {cli['wall_s']:.1f} s of wall time: "
-              f"{pages} | {tail}")
-    cli = run_fault_cli(card, RECURRENT_FAULT_CLI, arch="xlstm-125m")
-    done = [ln for ln in cli["lines"] if ln.startswith("every request")][0]
-    print(f"phase 12d serve CLI (--arch xlstm-125m "
-          f"{' '.join(RECURRENT_FAULT_CLI)}): exit 0, {cli['wall_s']:.1f} s "
-          f"of wall time: {done}")
+    def report(base):
+        def fn(cli):
+            tail = [ln for ln in cli["lines"] if "tok/s on " in ln][0]
+            pages = [ln for ln in cli["lines"] if ln.startswith("pages:")][0]
+            print(f"phase 12d serve CLI ({' '.join(base)}): exit 0, every "
+                  f"request finished, {cli['wall_s']:.1f} s of wall time: "
+                  f"{pages} | {tail}")
+        return fn
+
+    def report_fault(cli):
+        done = [ln for ln in cli["lines"]
+                if ln.startswith("every request")][0]
+        print(f"phase 12d serve CLI (--arch xlstm-125m "
+              f"{' '.join(RECURRENT_FAULT_CLI)}): exit 0, "
+              f"{cli['wall_s']:.1f} s of wall time: {done}")
+    cli_runs(*[(report(base), run_cli, card, (), base)
+               for base in RECURRENT_CLI],
+             (report_fault, run_fault_cli, card, RECURRENT_FAULT_CLI,
+              "xlstm-125m"))
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s; launches under "
           f"kernel / kernel_dynamic {launches}")
     return launches
@@ -5101,38 +5260,10 @@ def parse_train(r: dict) -> tuple:
     return steps, final, resumed
 
 
-def cli_cell(card: str) -> None:
-    """15c: the training CLI in subprocesses: (i) qwen3-0.6b at full width
-    under ``ref``, the batch cut to 4 x 512 tokens; (ii) the same under the
-    card's default policy refuses at the kernels' gradient guard; (iii) a
-    mesh is refused naming item 9h; (iv) at smoke size, a run and its
-    resume from the step-6 checkpoint end at the same loss."""
+def resume_pair() -> tuple:
+    """15c (iv): the smoke run A with checkpoints, then B resumed from A's
+    step-6 checkpoint; their parsed runs."""
     import shutil
-    label = "phase 15c train CLI"
-    r = train_cli(TRAIN_CLI)
-    steps, final, _ = parse_train(r)
-    tokens = 4 * 512
-    print(f"{label} ({' '.join(TRAIN_CLI)}; train_4k's global batch 256 x "
-          f"4096 cut to 4 x 512 tokens) under REPRO_TORCH_VX_IMPL=ref on "
-          f"{card}: exit 0 in {r['wall_s']:.1f} s; " + "; ".join(
-              f"step {s}: loss {v[0]} {v[1]} ms ({tokens / v[1] * 1e3:.1f} "
-              f"tokens/s)" for s, v in sorted(steps.items()))
-          + f"; final loss {final}")
-    r = train_cli(TRAIN_CLI[:2] + ("--steps", "1") + TRAIN_CLI[4:],
-                  impl=None, ok=False)
-    if GUARD_TEXT not in r["stderr"] or "RuntimeError" not in r["stderr"]:
-        raise AssertionError(f"{label}: the default policy's refusal: "
-                             f"{r['stderr'][-2000:]}")
-    print(f"{label}: without REPRO_TORCH_VX_IMPL (the card's default policy "
-          f"kernel) exit {r['rc']} with the kernels' gradient guard: "
-          f"{r['stderr'].strip().splitlines()[-1][:120]}...")
-    r = train_cli(TRAIN_CLI[:2] + ("--steps", "1", "--mesh", "single-pod"),
-                  ok=False)
-    if "9h" not in r["stderr"] or "NotImplementedError" not in r["stderr"]:
-        raise AssertionError(f"{label}: the mesh refusal: "
-                             f"{r['stderr'][-2000:]}")
-    print(f"{label}: --mesh single-pod exit {r['rc']}: "
-          f"{r['stderr'].strip().splitlines()[-1]}")
     a_dir, b_dir = ROOT / "build" / "phase15_cli_a", ROOT / "build" / \
         "phase15_cli_b"
     for d in (a_dir, b_dir):
@@ -5144,15 +5275,64 @@ def cli_cell(card: str) -> None:
                                             "--resume")))
     for d in (a_dir, b_dir):
         shutil.rmtree(d, ignore_errors=True)
-    gap = abs(b[1] - a[1]) / abs(a[1])
-    if b[2] != 6 or gap > 1e-5:
-        raise AssertionError(f"{label}: resume {b[2]}, final losses {a[1]} "
-                             f"/ {b[1]}, A's losses {a[0]}")
-    losses = ", ".join(f"step {k} {v[0]}" for k, v in sorted(a[0].items()))
-    print(f"{label} resume ({' '.join(RESUME_CLI)}) on {card}: run A "
-          f"losses {losses}, final {a[1]}; run B resumed from step "
-          f"{b[2]} of A's checkpoints to {b[1]} (relative gap {gap:.3e}, "
-          f"bound 1e-5)")
+    return a, b
+
+
+def cli_cell(card: str) -> None:
+    """15c: the training CLI in subprocesses (:func:`cli_runs`): (i)
+    qwen3-0.6b at full width under ``ref``, the batch cut to 4 x 512
+    tokens; (ii) the same under the card's default policy refuses at the
+    kernels' gradient guard; (iii) a mesh is refused naming item 9h; (iv)
+    at smoke size, a run and its resume from the step-6 checkpoint end at
+    the same loss."""
+    label = "phase 15c train CLI"
+
+    def report_train(r):
+        steps, final, _ = parse_train(r)
+        tokens = 4 * 512
+        print(f"{label} ({' '.join(TRAIN_CLI)}; train_4k's global batch 256 "
+              f"x 4096 cut to 4 x 512 tokens) under REPRO_TORCH_VX_IMPL=ref "
+              f"on {card}: exit 0 in {r['wall_s']:.1f} s; " + "; ".join(
+                  f"step {s}: loss {v[0]} {v[1]} ms "
+                  f"({tokens / v[1] * 1e3:.1f} tokens/s)"
+                  for s, v in sorted(steps.items()))
+              + f"; final loss {final}")
+
+    def report_guard(r):
+        if GUARD_TEXT not in r["stderr"] or "RuntimeError" not in r["stderr"]:
+            raise AssertionError(f"{label}: the default policy's refusal: "
+                                 f"{r['stderr'][-2000:]}")
+        print(f"{label}: without REPRO_TORCH_VX_IMPL (the card's default "
+              f"policy kernel) exit {r['rc']} with the kernels' gradient "
+              f"guard: {r['stderr'].strip().splitlines()[-1][:120]}...")
+
+    def report_mesh(r):
+        if "9h" not in r["stderr"] or "NotImplementedError" not in r["stderr"]:
+            raise AssertionError(f"{label}: the mesh refusal: "
+                                 f"{r['stderr'][-2000:]}")
+        print(f"{label}: --mesh single-pod exit {r['rc']}: "
+              f"{r['stderr'].strip().splitlines()[-1]}")
+
+    def report_resume(pair):
+        a, b = pair
+        gap = abs(b[1] - a[1]) / abs(a[1])
+        if b[2] != 6 or gap > 1e-5:
+            raise AssertionError(f"{label}: resume {b[2]}, final losses "
+                                 f"{a[1]} / {b[1]}, A's losses {a[0]}")
+        losses = ", ".join(f"step {k} {v[0]}" for k, v in sorted(a[0].items()))
+        print(f"{label} resume ({' '.join(RESUME_CLI)}) on {card}: run A "
+              f"losses {losses}, final {a[1]}; run B resumed from step "
+              f"{b[2]} of A's checkpoints to {b[1]} (relative gap {gap:.3e}, "
+              f"bound 1e-5)")
+
+    cli_runs(
+        (report_train, train_cli, TRAIN_CLI),
+        (report_guard, train_cli,
+         TRAIN_CLI[:2] + ("--steps", "1") + TRAIN_CLI[4:], None, False),
+        (report_mesh, train_cli,
+         TRAIN_CLI[:2] + ("--steps", "1", "--mesh", "single-pod"), "ref",
+         False),
+        (report_resume, resume_pair))
 
 
 def rcvrf_cell(dev, card: str) -> None:
@@ -5207,8 +5387,10 @@ def rcvrf_cell(dev, card: str) -> None:
 
 
 def launcher_phase(dev, card: str) -> dict:
-    """Phase 15: 15a-15d.  Returns 15a's launches of B1 / B2 under
-    ``kernel`` and B6 / B7 under ``kernel_dynamic``."""
+    """Phase 15: 15a, 15b and 15d (15c, the CLI runs, is
+    :func:`cli_cell`, which ``main`` queues on the background before phase
+    11).  Returns 15a's launches of B1 / B2 under ``kernel`` and B6 / B7
+    under ``kernel_dynamic``."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     launches = data_cell(dev, card)
@@ -5216,12 +5398,694 @@ def launcher_phase(dev, card: str) -> dict:
     t0 = time.perf_counter()
     checkpoint_cell(dev, card)
     print(f"phase 15b: {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    cli_cell(card)
-    print(f"phase 15c: {time.perf_counter() - t0:.1f} s")
     rcvrf_cell(dev, card)
     print(f"phase 15: {time.perf_counter() - t_phase:.1f} s; launches on the "
           f"data path {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: sharded serving, 4 ranks of one gloo group on the one card
+# ---------------------------------------------------------------------------
+
+RANKS16 = 4
+LONG_SEQ, LONG_LEN = 32768, 16384      # long_500k's 524 288 tokens, cut
+#: The reference's (stride, offset) list (tests/_dist_checks.py:283-284),
+#: its n = 64 and vl = 8 scaled by 64 to the card's n = 4096, vl = 512, so
+#: each access spans several ranks' lanes.
+REF_STRIDED = tuple((s, 64 * o) for s, o in (
+    (1, 0), (2, 3), (3, 1), (5, 2), (7, 1), (-1, 63), (-2, 50), (-4, 40)))
+STRIDED16_N, STRIDED16_VL = 4096, 512
+# 16c's greedy steps in bf16 (fused and per-access) and its float32 arm:
+# each sharded step gathers the weights through gloo on the host
+LONG_STEPS16, F32_STEPS16 = 8, 4
+PHASE16_POLICIES = ("kernel", "kernel_dynamic", "ref")
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def rank16(rank: int, world: int, port: int, out_dir: str):
+    """One rank of phase 16's spawn: joins the ``gloo`` group over
+    localhost on ``cuda:0`` (every rank shares the one card), runs
+    :func:`sharded16` and writes its result as JSON for the parent."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=600))
+    try:
+        result = sharded16(rank)
+        torch.cuda.synchronize()
+        with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def timed_spawn16() -> tuple:
+    """(:func:`spawn16`'s results, its wall seconds)."""
+    t0 = time.perf_counter()
+    return spawn16(), time.perf_counter() - t0
+
+
+def spawn16() -> list:
+    """:func:`rank16` on ``RANKS16`` spawned ranks; their results in rank
+    order.
+    A rank that fails fails the spawn (and the smoke): the others are
+    terminated."""
+    import tempfile
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        mp.spawn(rank16, args=(RANKS16, _free_port(), d),
+                 nprocs=RANKS16, join=True)
+        return [json.loads((Path(d) / f"rank{r}.json").read_text())
+                for r in range(RANKS16)]
+
+
+def probe16(rank: int) -> dict:
+    """16.0: which collectives take CUDA tensors under gloo here, and the
+    time of a 64 MiB bf16 ``all_reduce`` (CUDA events around it)."""
+    import torch
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    dev = torch.device("cuda")
+    x = torch.full((8 * world,), float(rank + 1), device=dev)
+    ops = {
+        "all_reduce f32": lambda: dist.all_reduce(x.clone()),
+        "all_reduce bf16": lambda: dist.all_reduce(
+            x.to(torch.bfloat16)),
+        "all_reduce int64 MAX": lambda: dist.all_reduce(
+            x.to(torch.int64), op=dist.ReduceOp.MAX),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world * world, device=dev), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(8, device=dev), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty_like(x), x),
+    }
+    out = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            dist.barrier()
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:100]}"
+    big = torch.ones((32 << 20,), dtype=torch.bfloat16, device=dev)
+    dist.barrier()
+    ms = time_ms(lambda: dist.all_reduce(big), 5)
+    return {"ops": out, "all_reduce_64MiB_ms": ms}
+
+
+def _launches16() -> dict:
+    from repro_torch.kernels import segment, strided
+    return {f.__name__: f.launches for f in segment.KERNELS
+            + segment.DYNAMIC + strided.KERNELS + strided.DYNAMIC}
+
+
+def _delta(before: dict) -> dict:
+    now = _launches16()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, n in more.items():
+        total[k] = total.get(k, 0) + n
+
+
+def _check_block(name: str, got, want, dim: int, shard) -> None:
+    """``got`` (a DTensor sharded on ``dim`` over ``shard``) holds this
+    rank's block of ``want`` bit for bit."""
+    local = got.to_local()
+    n = local.shape[dim]
+    if not same_bits(local, want.narrow(dim, shard.index() * n, n)):
+        raise AssertionError(f"{name}: the sharded result's block differs "
+                             f"from the one-process verb's")
+
+
+def vx16(dev, rank: int) -> dict:
+    """16a: the sharded vx verbs against the same verb run unsharded in
+    this process, bit for bit, on meshes (4,) and (2, 2), under each
+    policy."""
+    import torch
+    from repro_torch import vx
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P, Sharding, make_mesh
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    kv = torch.randn((28, 4, 512, 8, 256), generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    win = torch.randn((512, 4096), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    vals = torch.randn((512, STRIDED16_VL), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    pool = torch.randn((28, 128, 16, 8, 256), generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    qpool = torch.randint(-127, 128, pool.shape, generator=g, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand((28, 128, 8), generator=g, device=dev) + 0.01
+    perm = torch.randperm(128, generator=g, device=dev).to(torch.int32)
+    table = torch.full((4, 32), -1, dtype=torch.int32, device=dev)
+    table[0] = perm[:32]                                   # full
+    table[1, :10] = perm[32:42]                            # partial
+    table[3] = perm[64:96]                                 # slot 2 unset
+    seg, pg = vx.Segment(n=256, fields=2), vx.Paged(page_size=16, pages=32,
+                                                     trail=2)
+    out = {"ms": {}, "launches": {}}
+    total = {}
+    for mshape, axes in (((4,), ("s",)), ((2, 2), ("a", "b"))):
+        mesh = make_mesh(mshape, axes)
+        seq = vx.Shard(axes=axes, axis=-3, mesh=mesh)
+        lane = vx.Shard(axes=axes, axis=-1, mesh=mesh)
+        pages = vx.Shard(axes=axes, axis=-4, mesh=mesh)
+        kv_d = sharding.place(kv, Sharding(mesh, P(None, None, axes)))
+        win_d = sharding.place(win, Sharding(mesh, P(None, axes)))
+        pool_d = sharding.place(pool, Sharding(mesh, P(None, axes)))
+        qpool_d = sharding.place(qpool, Sharding(mesh, P(None, axes)))
+        scl_d = sharding.place(scales, Sharding(mesh, P(None, axes)))
+        tag = str(mshape)
+        for impl in PHASE16_POLICIES:
+            want_k, want_v = vx.transpose(seg, kv, policy=impl)
+            before = _launches16()
+            k_d, v_d = vx.transpose(seg, kv_d, policy=impl, shard=seq)
+            back = vx.transpose(seg, [k_d, v_d], policy=impl, shard=seq)
+            _add(total, _delta(before))
+            _check_block(f"{tag} {impl} deinterleave k", k_d, want_k, 2, seq)
+            _check_block(f"{tag} {impl} deinterleave v", v_d, want_v, 2, seq)
+            _check_block(f"{tag} {impl} interleave", back, kv, 2, seq)
+            for s, o in REF_STRIDED:
+                spec = vx.Strided(n=STRIDED16_N, stride=s, offset=o,
+                                  vl=STRIDED16_VL)
+                want_g = vx.gather(spec, win, policy=impl)
+                want_s = vx.scatter(spec, win, vals, policy=impl)
+                before = _launches16()
+                got_g = vx.gather(spec, win_d, policy=impl, shard=lane)
+                got_s = vx.scatter(spec, win_d, vals, policy=impl,
+                                   shard=lane)
+                _add(total, _delta(before))
+                if not same_bits(got_g, want_g):
+                    raise AssertionError(f"{tag} {impl} gather {s, o}")
+                _check_block(f"{tag} {impl} scatter {s, o}", got_s, want_s,
+                             1, lane)
+            for name, fn in (
+                    ("deinterleave", lambda: vx.transpose(
+                        seg, kv_d, policy=impl, shard=seq)),
+                    ("interleave", lambda: vx.transpose(
+                        seg, [k_d, v_d], policy=impl, shard=seq)),
+                    ("gather s=3", lambda: vx.gather(
+                        vx.Strided(n=STRIDED16_N, stride=3, offset=64,
+                                   vl=STRIDED16_VL), win_d,
+                        policy=impl, shard=lane)),
+                    ("scatter s=3", lambda: vx.scatter(
+                        vx.Strided(n=STRIDED16_N, stride=3, offset=64,
+                                   vl=STRIDED16_VL), win_d,
+                        vals, policy=impl, shard=lane))):
+                out["ms"][f"{tag} {impl} {name}"] = time_ms(fn, 5)
+            # the page gathers are torch ops under every policy: all
+            # three on (4,), ref on (2, 2)
+            if mshape != (4,) and impl != "ref":
+                continue
+            for qname, args, local_args in (
+                    ("bf16", (pool,), (pool_d,)),
+                    ("int8", (qpool,), (qpool_d,))):
+                kw = {"scales": scales} if qname == "int8" else {}
+                kwd = {"scales": scl_d} if qname == "int8" else {}
+                want = vx.gather(pg, *args, table=table, policy=impl, **kw)
+                got = vx.gather(pg, *local_args, table=table, policy=impl,
+                                shard=pages, **kwd)
+                if not same_bits(got, want):
+                    raise AssertionError(f"{tag} {impl} page gather {qname}")
+                if impl == "ref" and mshape == (4,):
+                    out["ms"][f"{tag} page gather {qname}"] = time_ms(
+                        lambda: vx.gather(pg, *local_args, table=table,
+                                          shard=pages, **kwd), 1)
+                    out["ms"][f"{tag} page gather {qname} one process"] = \
+                        time_ms(lambda: vx.gather(pg, *args, table=table,
+                                                  **kw), 2)
+    out["launches"] = total
+    out["pool_bytes"] = [sharding.local_nbytes(pool),
+                         sharding.local_nbytes(pool_d)]
+    return out
+
+
+def _clone_cache(cache: dict) -> dict:
+    return {k: ({b: v.clone() for b, v in x.items()} if k == "blocks"
+                else x.clone()) for k, x in cache.items()}
+
+
+def paged16(dev, rank: int, params, cfg) -> dict:
+    """16b: qwen3-0.6b's paged decode with the pool sharded on (4,):
+    phase 4's prompts prefilled replicated, the pool placed as a DTensor
+    (each rank keeps 32 of the 128 pages), 16 greedy steps with
+    ``pool_shard``; rank 0 also runs the replicated step on a copy, and
+    the logits and streams must be equal bit for bit."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P, ShardCtx, Sharding, make_mesh
+    from repro_torch.models import decode as dec
+    slots, max_len, page_size, steps = 4, 512, 16, 16
+    prompts = phase4_prompts(cfg.vocab, slots)
+    mesh = make_mesh((RANKS16,), ("s",))
+    ctx = ShardCtx(mesh=mesh, data_axes=(), model_axis=None,
+                   seq_axes=("s",))
+    pool_shard = ctx.vx_pool_shard(-4)
+    out = {"launches": {}}
+    for impl in ("kernel", "ref"):
+        c = dataclasses.replace(cfg, kernel_impl=impl)
+        cache = dec.init_paged_cache(c, slots, max_len, page_size,
+                                     torch.bfloat16, device=dev)
+        for s, p in enumerate(prompts):
+            cache = dec.paged_prefill_chunk(
+                params, cache, torch.tensor(p[:-1], device=dev), c, slot=s,
+                count=len(p) - 1)
+        tok0 = torch.tensor([p[-1] for p in prompts], dtype=torch.int32,
+                            device=dev)
+        want = []
+        if rank == 0:
+            rep, tok = _clone_cache(cache), tok0
+            for _ in range(steps):
+                logits, rep = dec.paged_decode_step(params, rep, tok, c)
+                want.append(logits)
+                tok = torch.argmax(logits.float(), -1).to(torch.int32)
+            del rep
+        where = Sharding(mesh, P(None, ("s",)))
+        placed = {**cache, "blocks": {k: sharding.place(v, where)
+                                      for k, v in cache["blocks"].items()}}
+        whole = sharding.local_nbytes(cache["blocks"])
+        del cache
+        torch.cuda.empty_cache()
+        tok, ms, before = tok0, [], _launches16()
+        for t in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, placed = dec.paged_decode_step(params, placed, tok, c,
+                                                   pool_shard=pool_shard)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if rank == 0 and not same_bits(logits, want[t]):
+                raise AssertionError(f"16b {impl}: step {t}'s logits differ "
+                                     f"from the replicated step's")
+            tok = torch.argmax(logits.float(), -1).to(torch.int32)
+        _add(out["launches"], _delta(before))
+        out[impl] = {"ms": ms, "pool_bytes": [
+            whole, sharding.local_nbytes(placed["blocks"])]}
+        del placed
+        torch.cuda.empty_cache()
+    return out
+
+
+def _noise_layers(dev, cfg, block):
+    """Seeded noise for long-context cache leaf (28, 1, LONG_SEQ, 8, 256),
+    made a layer at a time on the card; ``block`` (index, count) keeps
+    one sequence block of each layer, None the whole."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    shape = (1, LONG_SEQ, cfg.n_kv_heads, 2 * cfg.hd)
+    layers = []
+    for _ in range(cfg.n_superblocks):
+        lay = torch.randn(shape, generator=g, device=dev,
+                          dtype=torch.bfloat16)
+        if block is not None:
+            n = LONG_SEQ // block[1]
+            lay = lay[:, block[0] * n:(block[0] + 1) * n].clone()
+        layers.append(lay)
+    return torch.stack(layers)
+
+
+def _long_oracle(dev, cfg, params, tok0, steps: int) -> tuple:
+    """The one-process unsharded long-context step (rank 0): logits
+    (float32 copies) and the greedy stream over ``steps`` steps; returns
+    them with the cache leaf's bytes."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.serve.engine import ServeConfig, jit_decode_step
+    blocks = {"pos0": _noise_layers(dev, cfg, None)}
+    cache = {"len": torch.tensor(LONG_LEN, dtype=torch.int32, device=dev),
+             "blocks": blocks}
+    step = jit_decode_step(cfg, None, ServeConfig(max_len=LONG_SEQ,
+                                                  long_context=True),
+                           device=dev)
+    logits_all, toks, tok = [], [], tok0
+    for _ in range(steps):
+        logits, cache = step(params, cache, tok)
+        tok = torch.argmax(logits.float(), -1).to(torch.int32)
+        logits_all.append(logits.float())
+        toks.append(int(tok[0]))
+    nbytes = sharding.local_nbytes(blocks)
+    del cache, blocks
+    torch.cuda.empty_cache()
+    return logits_all, toks, nbytes
+
+
+def _long_sharded(dev, cfg, ctx, placed, tok0, steps: int,
+                  fuse: bool) -> dict:
+    """``steps`` greedy long-context steps on this rank's sequence block
+    of the seeded cache, with the step's collectives, B1 launches, ms and
+    peak memory."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P
+    from repro_torch.serve.engine import ServeConfig, jit_decode_step
+    shard = ctx.vx_seq_shard(-3)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    local = _noise_layers(dev, cfg, (shard.index(), shard.nshards))
+    full_shape = (cfg.n_superblocks, 1, LONG_SEQ, cfg.n_kv_heads,
+                  2 * cfg.hd)
+    cache = {"len": torch.tensor(LONG_LEN, dtype=torch.int32, device=dev),
+             "blocks": {"pos0": sharding.from_local(
+                 local, ctx.mesh, P(None, None, shard.axes), full_shape)}}
+    del local
+    step = jit_decode_step(cfg, ctx, ServeConfig(
+        max_len=LONG_SEQ, long_context=True, step_fusion=fuse), device=dev)
+    tok, logits_all, toks, ms, b1 = tok0, [], [], [], []
+    sharding.LOG.reset()
+    before = _launches16()
+    for _ in range(steps):
+        n0 = _launches16()["deinterleave"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = step(placed, cache, tok)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        b1.append(_launches16()["deinterleave"] - n0)
+        tok = torch.argmax(logits.float(), -1).to(torch.int32)
+        logits_all.append(logits.float())
+        toks.append(int(tok[0]))
+    leaf_like = {(1, LONG_SEQ // d, cfg.n_kv_heads, w)
+                 for d in (1, shard.nshards) for w in (cfg.hd, 2 * cfg.hd)}
+    leaf_like |= {(cfg.n_superblocks,) + s for s in leaf_like}
+    shapes = sharding.LOG.shapes()
+    out = {"logits": logits_all, "tokens": toks, "ms": ms, "b1": b1,
+           "launches": _delta(before),
+           "collectives": sharding.LOG.calls,
+           "collective_bytes": sharding.LOG.bytes,
+           "collective_s": sharding.LOG.seconds,
+           "largest": max(math.prod(sh) for sh in shapes),
+           "cache_sized": [list(sh) for sh in shapes if sh in leaf_like],
+           "peak": torch.cuda.max_memory_allocated(),
+           "local_cache_bytes": sharding.local_nbytes(cache["blocks"])}
+    del cache
+    return out
+
+
+def _gap(logits, want) -> tuple:
+    """(largest |logit gap|, its bound max(0.08, 0.03 |want|max))."""
+    gap = max(float((a - b).abs().max()) for a, b in zip(logits, want))
+    mx = max(float(b.abs().max()) for b in want)
+    return gap, max(0.08, 0.03 * mx)
+
+
+def longctx16(dev, rank: int, held: dict, cfg) -> dict:
+    """16c: the sequence-sharded long-context decode of qwen3-0.6b at full
+    width on (2, 2), B = 1, 32 768 cache positions (long_500k cut), 8
+    greedy steps fused and per-access in bf16, then fused in float32
+    compute; rank 0 runs the one-process unsharded step first in each
+    compute dtype.  ``held["params"]`` (the whole bf16 weights) is dropped
+    once placed, so a rank keeps only its blocks."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import serve_param_shardings
+    steps = LONG_STEPS16
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")),
+                   long_context=True)
+    tok0 = torch.tensor([SEED + 11], dtype=torch.int32, device=dev)
+    out = {"launches": {}}
+    params = held.pop("params")
+    if rank == 0:
+        want, want_tok, out["leaf_bytes"] = _long_oracle(dev, cfg, params,
+                                                         tok0, steps)
+        # how far one ulp of one weight moves step 0's bf16 logits, beside
+        # the sharded step's bf16 gap there
+        ln1 = params["blocks"]["pos0"]["ln1"].clone()
+        ln1.view(torch.int16)[0, 0] += 1
+        nudged = {**params, "blocks": {**params["blocks"], "pos0": {
+            **params["blocks"]["pos0"], "ln1": ln1}}}
+        out["ulp_gap"] = _gap(_long_oracle(dev, cfg, nudged, tok0, 1)[0],
+                              want[:1])[0]
+        del nudged, ln1
+    placed = sharding.place_tree(params, serve_param_shardings(params, cfg,
+                                                               ctx))
+    out["weight_bytes"] = [sharding.local_nbytes(params),
+                           sharding.local_nbytes(placed)]
+    del params
+    runs = {fuse: _long_sharded(dev, cfg, ctx, placed, tok0, steps, fuse)
+            for fuse in (True, False)}
+    del placed
+    fused, per = runs[True], runs[False]
+    for t in range(steps):
+        if not same_bits(fused["logits"][t], per["logits"][t]):
+            raise AssertionError(f"16c: fused and per-access logits differ "
+                                 f"at step {t}")
+    for r in (fused, per):
+        _add(out["launches"], r["launches"])
+        if r["cache_sized"]:
+            raise AssertionError(f"16c: a collective on a cache-sized "
+                                 f"operand: {r['cache_sized']}")
+    if 2 * sum(fused["b1"]) > sum(per["b1"]) or min(fused["b1"]) < 1:
+        raise AssertionError(f"16c: the launch gate failed: fused B1 "
+                             f"{fused['b1']}, per-access {per['b1']}")
+    # float32 compute: the same cache, gated at the reference's tolerance
+    # (tests/_dist_checks.py:212-214); half the steps, its weights' gathers
+    # moving twice the bytes
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.cuda.empty_cache()
+    params32 = init_params(cfg32, SEED, device=dev)
+    if rank == 0:
+        want32, want32_tok, _ = _long_oracle(dev, cfg32, params32, tok0,
+                                             F32_STEPS16)
+    placed32 = sharding.place_tree(params32, serve_param_shardings(
+        params32, cfg32, ctx))
+    del params32
+    f32 = _long_sharded(dev, cfg32, ctx, placed32, tok0, F32_STEPS16, True)
+    del placed32
+    _add(out["launches"], f32["launches"])
+    if rank == 0:
+        out["gap"], out["tol"] = _gap(fused["logits"], want)
+        out["gap0"] = _gap(fused["logits"][:1], want[:1])[0]
+        if fused["tokens"] != want_tok:
+            raise AssertionError(f"16c bf16: sharded stream {fused['tokens']}"
+                                 f" vs one process {want_tok}")
+        out["gap32"] = _gap(f32["logits"], want32)[0]
+        # the reference's assert_allclose(rtol=3e-3, atol=3e-3), elementwise
+        out["excess32"] = max(float(((a - b).abs() - 3e-3 * (1 + b.abs()))
+                                    .max()) for a, b in zip(f32["logits"],
+                                                            want32))
+        if out["excess32"] > 0 or f32["tokens"] != want32_tok:
+            raise AssertionError(
+                f"16c float32: sharded vs one process: gap {out['gap32']} "
+                f"beyond rtol = atol = 3e-3 by {out['excess32']}, streams "
+                f"{f32['tokens']} vs {want32_tok}")
+    for r in (fused, per, f32):
+        del r["logits"]
+    out["fused"], out["per"], out["f32"] = fused, per, f32
+    return out
+
+
+def moe16(dev, rank: int) -> dict:
+    """16d: qwen3-moe-30b-a3b's MoE layer at its published widths on
+    (2, 2) ("data", "model"), 64 experts per model shard, x (4, 512,
+    2048) bf16; rank 0 runs the one-process layer."""
+    import torch
+    from repro_torch.configs.qwen3_moe_30b import config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P, ShardCtx, Sharding
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import moe
+    cfg = config()
+    spec = cfg.moe
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    params = moe.init_moe(cfg.d_model, spec, g, torch.bfloat16, dev)
+    x = torch.randn((4, 512, cfg.d_model), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    mesh = make_test_mesh((2, 2), ("data", "model"))
+    ctx = ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+    out = {}
+    if rank == 0:
+        want, want_aux = moe.moe_layer(params, x, spec, None)
+        out["one_ms"] = time_ms(lambda: moe.moe_layer(params, x, spec,
+                                                      None), 3)
+    placed = {k: v if k == "router" else sharding.place(
+        v, Sharding(mesh, P("model"))) for k, v in params.items()}
+    out["expert_bytes"] = [sharding.local_nbytes(params),
+                           sharding.local_nbytes(placed)]
+    y, aux = moe.moe_layer(placed, x, spec, ctx)
+    out["ms"] = time_ms(lambda: moe.moe_layer(placed, x, spec, ctx), 3)
+    # this rank's units and the shard's capacity: the drops
+    m_sz = ctx.model_size
+    my = sharding.axis_index(mesh, "model")
+    xl = sharding.local_block(x, mesh, P(("data",))).reshape(-1,
+                                                             cfg.d_model)
+    probs = torch.softmax((xl @ params["router"].to(xl.dtype)).float(), -1)
+    topi = moe._top_k(probs, spec.top_k)[1]
+    e_loc = spec.n_experts // m_sz
+    mine = int(((topi >= my * e_loc) & (topi < (my + 1) * e_loc)).sum())
+    cap = moe._capacity(xl.shape[0], spec.top_k, m_sz, spec.capacity_slack)
+    out["units"], out["cap"], out["dropped"] = mine, cap, max(0, mine - cap)
+    out["slack"] = spec.capacity_slack
+    most = int(sharding.pmax(torch.tensor([float(out["dropped"])],
+                                          device=dev),
+                             mesh, ("data", "model"))[0])
+    if most:
+        raise AssertionError(f"16d: a shard dropped {most} units at "
+                             f"capacity_slack {spec.capacity_slack}; the "
+                             f"one-process layer drops none")
+    full = sharding.full_tensor(y)
+    if rank == 0:
+        err = float((full.float() - want.float()).abs().max())
+        mx = float(want.float().abs().max())
+        out.update(err=err, max=mx, aux=float(aux), want_aux=float(want_aux))
+        if err > 1e-2 * max(1.0, mx) or \
+                abs(float(aux) - float(want_aux)) > 0.1 * abs(
+                    float(want_aux)):
+            raise AssertionError(f"16d: y error {err} (|y|max {mx}), aux "
+                                 f"{float(aux)} vs {float(want_aux)}")
+    return out
+
+
+def sharded16(rank: int) -> dict:
+    """16a-16d on one rank (the same program on every rank)."""
+    import torch
+    from repro_torch.configs.qwen3_0_6b import config
+    from repro_torch.models.transformer import cast_params, init_params
+    dev = torch.device("cuda")
+    res = {"probe": probe16(rank)}
+    t0 = time.perf_counter()
+    res["16a"] = vx16(dev, rank)
+    res["16a"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    cfg = config()
+    params = cast_params(init_params(cfg, SEED, device=dev), cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["16b"] = paged16(dev, rank, params, cfg)
+    res["16b"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    held = {"params": params}
+    del params
+    res["16c"] = longctx16(dev, rank, held, cfg)
+    res["16c"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["16d"] = moe16(dev, rank)
+    res["16d"]["s"] = time.perf_counter() - t0
+    return res
+
+
+def sharded_phase(card: str, spawned=None) -> dict:
+    """Phase 16: 16.0-16d in one spawn of 4 ranks, or the lines of
+    ``spawned`` (:func:`timed_spawn16`'s, run beside phases 11-14).
+    Returns the launches of every rank's sharded runs, summed."""
+    res, seconds = spawned or timed_spawn16()
+    where = (f"{RANKS16} ranks of one gloo group on cuda:0 of {card}; every "
+             f"collective is gloo through host memory on one card (no NCCL, "
+             f"no NVLink)" + (", beside phases 11-14 and the CLI runs"
+                              if spawned else ""))
+    probe = [r["probe"] for r in res]
+    print(f"phase 16.0 collectives on CUDA tensors under gloo ({where}): "
+          f"{probe[0]['ops']}; all_reduce of 64 MiB bf16 "
+          f"{statistics.median(p['all_reduce_64MiB_ms'] for p in probe):.3f}"
+          f" ms (median over ranks); the port's path uses all_reduce (psum, "
+          f"pmax), all_gather_into_tensor (the weights' superblock "
+          f"gathers) and reduce_scatter_tensor (MoE's psum_scatter)")
+    r0 = res[0]
+    a = r0["16a"]
+    print(f"phase 16a sharded vx verbs ({where}): deinterleave / "
+          f"interleave of (28, 4, 512, 8, 256) bf16 sharded on the sequence "
+          f"(-3), strided gather / scatter of (512, {STRIDED16_N}) bf16 "
+          f"lane-sharded over the reference's {len(REF_STRIDED)} (stride, "
+          f"offset) pairs scaled by 64 (vl {STRIDED16_VL}), and the "
+          f"page gather of (28, 128, 16, 8, 256) bf16 and int8 pools (full, "
+          f"partial, unallocated tables) sharded on the page axis, on meshes "
+          f"(4,) and (2, 2) under {', '.join(PHASE16_POLICIES)}: bit for bit "
+          f"against the same verb run unsharded in one process on every "
+          f"rank; pool bytes a rank holds {a['pool_bytes'][1]} of "
+          f"{a['pool_bytes'][0]}; launches per rank "
+          f"{[r['16a']['launches'] for r in res]} ({a['s']:.1f} s)")
+    for key in a["ms"]:
+        print(f"phase 16a time {key}: "
+              f"{[round(r['16a']['ms'][key], 4) for r in res]} ms per rank "
+              f"(CUDA events; the four ranks share the card)")
+    b = r0["16b"]
+    for impl in ("kernel", "ref"):
+        ms = [statistics.median(r["16b"][impl]["ms"]) for r in res]
+        print(f"phase 16b qwen3-0.6b paged decode, pool sharded on (4,) "
+              f"[{impl}] ({where}): phase 4's prompts prefilled replicated, "
+              f"16 greedy steps with pool_shard: logits and streams equal "
+              f"to the replicated step's in one process bit for bit; pool "
+              f"bytes a rank holds {b[impl]['pool_bytes'][1]} of "
+              f"{b[impl]['pool_bytes'][0]}; median ms per step per rank "
+              f"{[round(m, 3) for m in ms]}")
+    print(f"phase 16b launches per rank {[r['16b']['launches'] for r in res]}"
+          f" ({b['s']:.1f} s)")
+    c = r0["16c"]
+    for tag in ("fused", "per"):
+        print(f"phase 16c qwen3-0.6b long-context decode [{tag}] on (2, 2) "
+              f"({where}): B 1, {LONG_SEQ} positions (long_500k's 524288 "
+              f"cut), len {LONG_LEN}, {LONG_STEPS16} greedy steps; median ms "
+              f"per step "
+              f"per rank {[round(statistics.median(r['16c'][tag]['ms']), 3) for r in res]}"
+              f"; B1 launches per step {c[tag]['b1']}; collectives per rank "
+              f"{[r['16c'][tag]['collectives'] for r in res]} "
+              f"({c[tag]['collective_bytes']} B, "
+              f"{c[tag]['collective_s']:.3f} s of host time on rank 0), the "
+              f"largest {c[tag]['largest']} elements, none cache-sized; "
+              f"peak memory per rank "
+              f"{[r['16c'][tag]['peak'] for r in res]} B; KV cache per rank "
+              f"{c[tag]['local_cache_bytes']} B of {c['leaf_bytes']} B")
+    f32 = c["f32"]
+    print(f"phase 16c float32 compute [fused], {F32_STEPS16} greedy steps: "
+          f"median ms per step per rank "
+          f"{[round(statistics.median(r['16c']['f32']['ms']), 3) for r in res]}"
+          f"; collectives per rank "
+          f"{[r['16c']['f32']['collectives'] for r in res]}; peak memory "
+          f"per rank {[r['16c']['f32']['peak'] for r in res]} B")
+    print(f"phase 16c fused == per-access bit for bit over {LONG_STEPS16} "
+          f"steps; "
+          f"sharded vs the one-process unsharded step: float32 compute, "
+          f"largest logit gap {c['gap32']:.3e} within rtol = atol = 3e-3 "
+          f"(the reference's; largest |gap| - 3e-3 (1 + |logit|) "
+          f"{c['excess32']:.3e}), streams equal {f32['tokens']}; bf16 "
+          f"compute, greedy streams equal over {LONG_STEPS16} steps, "
+          f"largest logit gap {c['gap']:.6f} (step 0: {c['gap0']:.6f}) "
+          f"beside max(0.08, 0.03 * |logits|max) = {c['tol']:.6f} (not "
+          f"gated); one ulp of one ln1 entry moves the one-process step-0 "
+          f"logits by {c['ulp_gap']:.6f}; "
+          f"weights a rank holds "
+          f"{c['weight_bytes'][1]} of {c['weight_bytes'][0]} B "
+          f"(serve_param_shardings, model axis 2, gathered a layer at a "
+          f"time); launches per rank {[r['16c']['launches'] for r in res]} "
+          f"({c['s']:.1f} s)")
+    d = r0["16d"]
+    print(f"phase 16d qwen3-moe-30b-a3b MoE layer, d 2048, 128 experts "
+          f"top-8, d_ff 768, x (4, 512, 2048) bf16 on (2, 2) (data, model) "
+          f"({where}): max |y - one process| {d['err']:.6f} within the "
+          f"bf16 tolerance 1e-2 * max(1, |y|max) (|y|max {d['max']:.4f}); "
+          f"aux {d['aux']:.6f}"
+          f" vs {d['want_aux']:.6f} (rtol 0.1); units / capacity / dropped "
+          f"per rank {[(r['16d']['units'], r['16d']['cap'], r['16d']['dropped']) for r in res]}"
+          f" (capacity_slack {d['slack']}: no rank dropped a unit, checked "
+          f"before the comparison); "
+          f"expert bytes a rank holds {d['expert_bytes'][1]} of "
+          f"{d['expert_bytes'][0]}; ms per call per rank "
+          f"{[round(r['16d']['ms'], 3) for r in res]} against "
+          f"{d['one_ms']:.3f} in one process ({d['s']:.1f} s)")
+    launches = {}
+    for r in res:
+        for part in ("16a", "16b", "16c"):
+            _add(launches, r[part]["launches"])
+    print(f"phase 16: {seconds:.1f} s; launches of the sharded runs, all "
+          f"ranks {launches}")
     return launches
 
 
@@ -5411,6 +6275,8 @@ def main() -> int:
           f"kernel_dynamic ({time.perf_counter() - t0:.1f} s)")
 
     ipk = indexed_phase(dev, kv_shape, timing)
+    global BACKGROUND
+    BACKGROUND = Background()
     dense_phase(dev, cfg, card, slots, page_size)
     quant_prefix_phase(dev, cfg, card, prompts, gen, slots, max_len,
                        page_size, timing)
@@ -5421,6 +6287,8 @@ def main() -> int:
     launches.update({k: dr["launches"][k] for k in dynamic})
     speculative_phase(dev, cfg, card, prompts, gen, slots, max_len,
                       page_size, timing, launches)
+    cli_cell(card)
+    BACKGROUND.start()
     for k, n in family_phase(dev, card, slots, max_len, page_size,
                              gen).items():
         launches[k] += n
@@ -5429,11 +6297,14 @@ def main() -> int:
         launches[k] += n
     for k, n in encdec_train_phase(dev, card).items():
         launches[k] += n
+    sharded = BACKGROUND.join(card)
     for k, n in launcher_phase(dev, card).items():
         launches[k] += n
     launches.update({k: pk["launches"][k] for k in splan})
     launches.update({k: pd["launches"][k] for k in sdyn})
     launches.update(ipk)
+    for k, n in sharded.items():
+        launches[k] += n
     kernels = []
     for name in REPLACES:
         t = timing[name]

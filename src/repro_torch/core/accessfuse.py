@@ -11,7 +11,12 @@ Port of ``repro``'s ``core/accessfuse.py``:
   or B6 under ``kernel_dynamic``); a group of ``gather_strided`` requests
   with different ``(stride, offset)`` is one launch of the fused strided
   gather (kernel B4), or under ``kernel_dynamic`` one dynamic gather (B8)
-  per request, as the reference's ``pallas_dynamic`` loops.
+  per request, as the reference's ``pallas_dynamic`` loops.  A
+  deinterleave or interleave may carry a ``vx.Shard`` placement: its
+  group key includes the layout, so a sharded group never merges with a
+  replicated one, and it runs shard-locally (each rank splits its block
+  of a sequence-sharded cache; ``DTensor`` operands stack block by
+  block).
 * The runtime-stride plan bank (:func:`bank_gather_strided`,
   :func:`bank_scatter_strided`): compiled plans for strides +-1..8 (the
   §3.2.2 Reverser for the negative half), the dynamic-count network for
@@ -133,19 +138,23 @@ class StepScheduler:
         return platform_impl(self.policy.for_elems(total_elems).impl,
                              self.policy, device)
 
-    def deinterleave(self, aos: torch.Tensor, fields: int) -> Handle:
+    def deinterleave(self, aos: torch.Tensor, fields: int,
+                     shard=None) -> Handle:
+        from repro_torch.vx.program import layout_of
         h = Handle()
         key = ("deint", fields, tuple(aos.shape), str(aos.dtype),
-               str(aos.device))
-        self._reqs.append(_Req(key, aos, h))
+               str(aos.device), layout_of(shard))
+        self._reqs.append(_Req(key, (aos, shard), h))
         return h
 
-    def interleave(self, parts: Sequence[torch.Tensor]) -> Handle:
+    def interleave(self, parts: Sequence[torch.Tensor],
+                   shard=None) -> Handle:
+        from repro_torch.vx.program import layout_of
         parts = list(parts)
         h = Handle()
         key = ("int", len(parts), tuple(parts[0].shape),
-               str(parts[0].dtype), str(parts[0].device))
-        self._reqs.append(_Req(key, parts, h))
+               str(parts[0].dtype), str(parts[0].device), layout_of(shard))
+        self._reqs.append(_Req(key, (parts, shard), h))
         return h
 
     def gather_strided(self, window: torch.Tensor, stride: int, offset: int,
@@ -164,41 +173,47 @@ class StepScheduler:
             self._run_group(key, reqs)
         self._reqs = []
 
-    def _fused(self, op: str, specs: list, impl: str):
+    def _fused(self, op: str, specs: list, impl: str, shard=None):
         """lower each access -> fuse the programs -> ONE executor."""
         from repro_torch.vx import lower as vxlower
         from repro_torch.vx import program as vxprogram
-        progs = [vxlower.lower(op, s, impl) for s in specs]
+        progs = [vxlower.lower(op, s, impl, shard) for s in specs]
         prog = progs[0] if len(progs) == 1 else vxprogram.fuse(progs)
-        return vxlower.executor(prog, tuple(specs))
+        return vxlower.executor(prog, tuple(specs), shard)
 
     def _run_group(self, key: tuple, reqs: list[_Req]) -> None:
         from repro_torch import vx
+        from repro_torch.dist import sharding
         kind = key[0]
         if kind == "deint":
             fields = key[1]
-            stack = (reqs[0].payload if len(reqs) == 1
-                     else torch.stack([r.payload for r in reqs]))
+            shard = reqs[0].payload[1]
+            stack = (reqs[0].payload[0] if len(reqs) == 1
+                     else sharding.stack([r.payload[0] for r in reqs]))
             impl = self._impl_for(stack.numel(), stack.device)
             spec = vx.Segment(n=stack.shape[-1],
                               fields=fields).bind(stack.dtype)
-            outs = self._fused("seg.deint", [spec] * len(reqs), impl)(stack)
+            outs = self._fused("seg.deint", [spec] * len(reqs), impl,
+                               shard)(stack)
             for a, r in enumerate(reqs):
                 r.handle.value = (list(outs) if len(reqs) == 1
-                                  else [o[a] for o in outs])
+                                  else [sharding.select(o, a) for o in outs])
         elif kind == "int":
             nf = key[1]
+            shard = reqs[0].payload[1]
             if len(reqs) == 1:
-                parts = list(reqs[0].payload)
+                parts = list(reqs[0].payload[0])
             else:
-                parts = [torch.stack([r.payload[f] for r in reqs])
+                parts = [sharding.stack([r.payload[0][f] for r in reqs])
                          for f in range(nf)]
             impl = self._impl_for(parts[0].numel() * nf, parts[0].device)
             spec = vx.Segment(n=nf * parts[0].shape[-1],
                               fields=nf).bind(parts[0].dtype)
-            out = self._fused("seg.int", [spec] * len(reqs), impl)(parts)
+            out = self._fused("seg.int", [spec] * len(reqs), impl,
+                              shard)(parts)
             for a, r in enumerate(reqs):
-                r.handle.value = out if len(reqs) == 1 else out[a]
+                r.handle.value = (out if len(reqs) == 1
+                                  else sharding.select(out, a))
         elif kind == "gather":
             vl = key[3]
             n = key[1][-1]
@@ -216,24 +231,28 @@ class StepScheduler:
 
 def fuse_deinterleave(arrays: Sequence[torch.Tensor], fields: int, *,
                       impl: str | None = None, platform_policy: bool = True,
-                      policy: "vxpolicy.Policy | None" = None
-                      ) -> list[list[torch.Tensor]]:
-    """One fused segment load for a whole step's same-shape AoS arrays."""
+                      policy: "vxpolicy.Policy | None" = None,
+                      shard=None) -> list[list[torch.Tensor]]:
+    """One fused segment load for a whole step's same-shape AoS arrays.
+
+    ``shard`` (a ``vx.Shard`` on an outer axis) runs the merged
+    transaction shard-locally: a sequence-sharded cache splits in place,
+    block by block, and is never gathered."""
     sched = StepScheduler(impl=impl, platform_policy=platform_policy,
                           policy=policy)
-    hs = [sched.deinterleave(a, fields) for a in arrays]
+    hs = [sched.deinterleave(a, fields, shard=shard) for a in arrays]
     sched.flush()
     return [h.value for h in hs]
 
 
 def fuse_split_kv(kvs: Sequence[torch.Tensor], *, impl: str | None = None,
                   platform_policy: bool = True,
-                  policy: "vxpolicy.Policy | None" = None):
+                  policy: "vxpolicy.Policy | None" = None, shard=None):
     """All layers' (…, 2d) KV-cache splits in one launch (FIELD=2)."""
     return [tuple(pair) for pair in
             fuse_deinterleave(kvs, 2, impl=impl,
                               platform_policy=platform_policy,
-                              policy=policy)]
+                              policy=policy, shard=shard)]
 
 
 def fuse_interleave(groups: Sequence[Sequence[torch.Tensor]], *,

@@ -1,5 +1,7 @@
-"""The port's device rule: ``cuda`` unless the caller asks for the CPU, and
-one device (a mesh waits for the port's dist slice)."""
+"""The port's device rule: ``cuda`` unless the caller asks for the CPU.
+A mesh serves the sharded decode steps (``dist``); what still refuses one
+(training, ``forward`` and the batch-sharded serve steps) calls
+:func:`refuse_mesh`."""
 from __future__ import annotations
 
 import torch
@@ -19,9 +21,9 @@ def resolve(device=None) -> torch.device:
 
 
 def refuse_mesh(ctx) -> None:
-    """Raise for a sharding context with a mesh: the port runs on one
-    device until its dist slice."""
+    """Raise for a sharding context with a mesh where the port still runs
+    on one device: training, ``forward`` and the batch-sharded steps."""
     if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError("sharded execution waits for the port's "
-                                  "dist slice (ROADMAP.md queue A, item "
-                                  "9h)")
+        raise NotImplementedError("this sharded path waits for the training "
+                                  "half of the port's dist slice "
+                                  "(ROADMAP.md queue A, item 9h)")

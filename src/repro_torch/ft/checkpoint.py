@@ -18,7 +18,7 @@ checkpoint.  A bfloat16 leaf is written as the reference writes it (a
 2-byte void array, ``bfloat16`` in the manifest), and its restore raises
 :class:`CheckpointError` in both packages.  ``restore`` places each leaf
 on its template leaf's device, in the dtype it was saved in.  Sharded
-placement waits for ``dist`` (item 9h).
+placement waits for the training half of ``dist`` (item 9h).
 """
 from __future__ import annotations
 

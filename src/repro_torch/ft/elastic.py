@@ -4,7 +4,7 @@ Port of ``repro``'s ``ft/elastic.py``.  Checkpoints store logical
 (unsharded) arrays, so restoring onto a new mesh is: rebuild the
 placement for the new mesh, then place each leaf with it.  On one device
 there is no placement to rebuild (:func:`reshard_template` returns
-``None``); a context with a mesh waits for ``dist`` (item 9h).  The data
+``None``); a context with a mesh waits for the training half of ``dist`` (item 9h).  The data
 pipeline's state (two ints) is host-count independent.
 """
 from __future__ import annotations

@@ -5,8 +5,8 @@ Port of ``repro``'s ``kernels/kv_interleaved.py``: ``interleave_kv``,
 ``append_paged_token`` over float and quantized pools, and the dense-cache
 ``append_token``.  Layout: ``cache[..., t, 2*d]`` holds ``[k0, v0, k1, v1,
 ...]`` per token — K and V of a token are one contiguous beat, and the
-attention-time split is a FIELD=2 segment load.  ``shard=`` waits for
-the port's dist slice.
+attention-time split is a FIELD=2 segment load.  ``shard=`` (a ``vx.Shard``)
+runs the split or the paged gather shard-locally (vx/lower.py).
 """
 from __future__ import annotations
 
@@ -31,17 +31,21 @@ def split_kv(kv: torch.Tensor, *, policy=None):
     return k, v
 
 
-def split_kv_step(kvs: list[torch.Tensor], *, policy=None):
+def split_kv_step(kvs: list[torch.Tensor], *, policy=None, shard=None):
     """Whole-step KV split: EVERY layer's (…, 2d) cache in one fused FIELD=2
     segment load — one kernel launch per decode step instead of one per
-    layer (core/accessfuse.py groups same-shape caches)."""
+    layer (core/accessfuse.py groups same-shape caches).  ``shard`` (a
+    ``vx.Shard`` on the sequence axis, -3) splits each rank's block of a
+    sequence-sharded cache (one launch per rank) and returns the halves
+    placed like the cache."""
     from repro_torch.core import accessfuse
-    return accessfuse.fuse_split_kv(kvs, policy=vx.resolve(policy))
+    return accessfuse.fuse_split_kv(kvs, policy=vx.resolve(policy),
+                                    shard=shard)
 
 
 def gather_paged_kv(pools: list[torch.Tensor], table: torch.Tensor,
                     page_size: int, *, policy=None, fused: bool = True,
-                    scales=None) -> list[torch.Tensor]:
+                    scales=None, shard=None) -> list[torch.Tensor]:
     """Whole-step paged KV read: every layer's ``(NS, P, page_size, K, 2d)``
     pool gathered through ONE shared page table.  ``fused=True`` stacks
     the pools and runs one page-granular gather.  Returns the gathered
@@ -50,14 +54,17 @@ def gather_paged_kv(pools: list[torch.Tensor], table: torch.Tensor,
     QUANTIZED pools (int8 / fp8) pass their per-page ``(NS, P, K)`` scale
     tensors as ``scales=`` (one per pool, stacked like the pools): the
     dequant rides the same one gather, and the sequences come back in
-    float32, the scales' dtype."""
+    float32, the scales' dtype.  ``shard`` (a ``vx.Shard`` on the page
+    axis, -4) gathers each rank's owned pages and merges them (pools
+    placed as ``DTensor`` s, or plain pools each rank slices)."""
     spec = vx.Paged(page_size=page_size, pages=table.shape[-1], trail=2)
     if fused:
         return vx.gather_many(spec, pools, table=table, scales=scales,
-                              policy=policy)
+                              policy=policy, shard=shard)
     if scales is None:
         scales = [None] * len(pools)
-    return [vx.gather(spec, p, table=table, scales=s, policy=policy)
+    return [vx.gather(spec, p, table=table, scales=s, policy=policy,
+                      shard=shard)
             for p, s in zip(pools, scales)]
 
 

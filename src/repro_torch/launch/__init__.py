@@ -1,3 +1,4 @@
-"""Command-line entry points (port of ``repro.launch``): the serving CLI
-and the training CLI on one device.  The multi-pod dry-run and the
-production mesh launcher wait for later slices (items 9h, 9k, 9l)."""
+"""Command-line entry points and meshes (port of ``repro.launch``): the
+serving CLI, the training CLI on one device and the production meshes
+(``launch/mesh.py``).  The training CLI's mesh arms and the multi-pod
+dry-run wait for later slices (items 9h's training half, 9k and 9l)."""

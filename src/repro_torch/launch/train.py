@@ -23,7 +23,8 @@ refuses an operand requiring grad, and the CLI exits with that
 ``RuntimeError``, as the reference's training does under ``pallas`` on
 its TPU.  Train with ``REPRO_TORCH_VX_IMPL=ref`` (the reference:
 ``REPRO_VX_IMPL=ref``).  ``--mesh single-pod`` / ``multi-pod`` wait for
-the port's dist slice (item 9h) and raise ``NotImplementedError``.
+the training half of the port's dist slice (item 9h) and raise
+``NotImplementedError``.
 
 ``--device`` defaults to CUDA and follows the port's rule: without a GPU
 the CLI raises unless ``--device cpu`` is given.  The printed step time

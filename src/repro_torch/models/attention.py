@@ -11,8 +11,9 @@ in plain jnp (no Pallas kernel), so the port uses ``torch.matmul`` and
 the reference's ``_flash_bwd`` (its ``custom_vjp``) as a
 ``torch.autograd.Function``: it recomputes each score tile from the saved
 ``q``, ``k``, ``v``, ``out`` and log-sum-exp and accumulates ``dq``,
-``dk`` and ``dv`` in float32.  Sharding constraints wait for ``dist``
-(item 9h).
+``dk`` and ``dv`` in float32.  ``decode_attention`` also runs over a
+sequence-sharded cache (``shard=``) as a distributed softmax; the
+forward's sharding constraints wait for the training half of item 9h.
 
 EARTH integration: the fused KV projection emits each head's K/V
 interleaved along features — one contiguous beat per token, written to
@@ -258,16 +259,26 @@ def _softmax_pv(s: torch.Tensor, v: torch.Tensor, eq: str) -> torch.Tensor:
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len, *,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None, shard=None) -> torch.Tensor:
     """Single-token decode. q: (B, H, D); caches: (B, S, K, D).  Masks
-    positions >= cache_len (a scalar or (B, 1)) and outside the window."""
+    positions >= cache_len (a scalar or (B, 1)) and outside the window.
+
+    ``shard`` (a ``vx.Shard`` on the caches' sequence axis, -3) takes
+    caches sharded over its mesh axes (``DTensor`` s so placed, or plain
+    full caches each rank slices): each rank scores its block at its
+    global positions, and the softmax merges across ranks, the max with
+    one ``pmax``, the sum and the weighted values with one ``psum`` of
+    both.
+    A rank whose positions are all masked adds ``exp(NEG_INF - m) = 0``.
+    Every rank returns the whole result."""
     B, H, D = q.shape
+    k_cache, v_cache, base = _seq_blocks(k_cache, v_cache, shard)
     S, K = k_cache.shape[1], k_cache.shape[2]
     G = H // K
     qt = q.reshape(B, K, G, D)
     s = torch.einsum("bkgd,bskd->bkgs", qt.float(),
                      k_cache.to(q.dtype).float()) * D ** -0.5
-    pos = torch.arange(S, device=q.device)
+    pos = torch.arange(S, device=q.device) + base
     cache_len = torch.as_tensor(cache_len, device=q.device)
     mask = pos[None, :] < cache_len
     if window is not None:
@@ -275,8 +286,36 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mask = mask[:, None, None, :] if mask.ndim == 2 \
         else mask[None, None, None, :]
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    out = _softmax_pv(s, v_cache.to(q.dtype), "bkgs,bskd->bkgd")
+    if shard is None:
+        out = _softmax_pv(s, v_cache.to(q.dtype), "bkgs,bskd->bkgd")
+    else:
+        from repro_torch.dist import sharding
+        mesh, axes = shard.mesh, shard.axes
+        m = sharding.pmax(torch.amax(s, dim=-1, keepdim=True), mesh, axes)
+        p = torch.exp(s - m)
+        # the partial sums and the unnormalized values in one psum; the
+        # division by the whole sum after it
+        lo = sharding.psum(torch.cat(
+            [torch.sum(p, dim=-1, keepdim=True),
+             torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(q.dtype).float())],
+            dim=-1), mesh, axes)
+        out = lo[..., 1:] / torch.clamp(lo[..., :1], min=1e-30)
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def _seq_blocks(k_cache, v_cache, shard):
+    """The rank's blocks of caches sharded on their sequence axis, and the
+    global position of the blocks' first slot (0 unsharded)."""
+    if shard is None:
+        return k_cache, v_cache, 0
+    from repro_torch.dist import sharding
+    if shard.axis != -3:
+        raise ValueError(f"decode attention shards the cache's sequence "
+                         f"axis: Shard.axis must be -3, got {shard.axis}")
+    spec = sharding.P(None, shard.axes)
+    k = sharding.local_block(k_cache, shard.mesh, spec)
+    v = sharding.local_block(v_cache, shard.mesh, spec)
+    return k, v, shard.index() * k.shape[1]
 
 
 def chunk_attention(q: torch.Tensor, k_cache: torch.Tensor,

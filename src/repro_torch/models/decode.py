@@ -46,8 +46,19 @@ is rebuilt.
 
 An encoder config (whisper) takes the dense step only: :func:`decode_step`
 dispatches to ``models/encdec.decode_step``, and the paged steps raise the
-reference's ``NotImplementedError``.  Waiting for later slices: the
-sequence-sharded dense step (``kv_shard``, with ``dist``, item 9h).
+reference's ``NotImplementedError``.
+
+Sharded serving (one SPMD program over the ranks of a ``DeviceMesh``):
+:func:`decode_step` takes ``kv_shard``, a ``vx.Shard`` on the cache's
+sequence axis (long-context serving), and :func:`paged_decode_step` /
+:func:`paged_verify_step` take ``pool_shard``, a ``vx.Shard`` on the
+pools' page axis.  Each rank keeps its block of a sharded leaf (a
+``DTensor``); the fused split and the page gathers run on the blocks
+(vx/lower.py), a beat is written only by the rank that owns its position
+or page, and attention over a sequence-sharded cache is a distributed
+softmax (``attention.decode_attention``).  Weights placed as ``DTensor``
+s are gathered a layer at a time, when the layer runs
+(``transformer.superblock``).
 """
 from __future__ import annotations
 
@@ -59,6 +70,7 @@ import torch
 from repro_torch import vx
 from repro_torch.core import quant
 from repro_torch.device import resolve as resolve_device
+from repro_torch.dist import sharding
 from repro_torch.kernels import kv_interleaved
 from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
@@ -179,6 +191,73 @@ def cache_from_prefill(cfg: ModelConfig, cache_states, seq_len: int,
             "blocks": blocks}
 
 
+def _whole(params: dict) -> dict:
+    """``params`` with every leaf outside ``blocks`` gathered whole (the
+    embedding, the final norm, the head); blocks stay placed and gather a
+    layer at a time (``transformer.superblock``)."""
+    return {k: v if k == "blocks" else sharding.tree_map(
+        sharding.full_tensor, v) for k, v in params.items()}
+
+
+def _owner_write(buf: torch.Tensor, at: torch.Tensor,
+                 beat: torch.Tensor) -> None:
+    """``buf[:, at] = beat`` where ``0 <= at < buf.shape[1]`` (this rank
+    owns the position), else nothing; ``at`` a 0-dim tensor, no host
+    sync: a rank that does not own it writes its own values back."""
+    n = buf.shape[1]
+    idx = at.clamp(0, n - 1).reshape(1).long()
+    own = (at >= 0) & (at < n)
+    buf.index_copy_(1, idx, torch.where(own, beat.to(buf.dtype),
+                                        buf.index_select(1, idx)))
+
+
+def _dense_attn(p, h, x, blocks, pre_split, i: int, sbi: int, pos,
+                positions, cfg: ModelConfig, pol, beat_pol, fuse: bool,
+                shard):
+    """One attention position of :func:`decode_step`: project, append the
+    beat at ``pos % Sc`` (on a sequence-sharded leaf, ``shard`` set: only
+    on the rank whose block holds the slot), split, attend; returns the
+    new residual stream."""
+    B = x.shape[0]
+    q, k, v, kv = attention.qkv_project(
+        p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+        positions, cfg.rope_theta, policy=beat_pol)
+    if shard is not None:
+        lay = sharding.select(blocks[f"pos{i}"], sbi)     # (B, Sc, K, 2D)
+        kvc, base, _ = sharding.owned_block(lay, 1)
+        sc = lay.shape[1]
+        at = torch.remainder(pos, sc) - base
+        _owner_write(kvc, at, kv)
+        if fuse:
+            k_all, v_all = (sharding.select(t, sbi)
+                            for t in pre_split[f"pos{i}"])
+            _owner_write(sharding.owned_block(k_all, 1)[0], at, k)
+            _owner_write(sharding.owned_block(v_all, 1)[0], at, v)
+        else:
+            k_all, v_all = vx.transpose(
+                vx.Segment(n=lay.shape[-1], fields=2), lay, policy=pol,
+                shard=shard)
+    else:
+        kvc = blocks[f"pos{i}"][sbi]                       # (B, Sc, K, 2D)
+        sc = kvc.shape[1]
+        slot = torch.remainder(pos, sc).reshape(1).long()
+        kvc.index_copy_(1, slot, kv.to(kvc.dtype))
+        if fuse:
+            # the pre-split arrays are this step's own (under ``ref`` a
+            # view of the cache, where the beat wrote the same bits)
+            k_all, v_all = (t[sbi] for t in pre_split[f"pos{i}"])
+            k_all.index_copy_(1, slot, k.to(kvc.dtype))
+            v_all.index_copy_(1, slot, v.to(kvc.dtype))
+        else:
+            k_all, v_all = vx.transpose(
+                vx.Segment(n=kvc.shape[-1], fields=2), kvc, policy=pol)
+    eff_len = torch.clamp(pos + 1, max=sc)
+    out = attention.decode_attention(q[:, 0], k_all, v_all, eff_len,
+                                     window=None, shard=shard)
+    return x + (out.reshape(B, cfg.n_heads * cfg.hd)
+                @ p["attn"]["wo"]).to(x.dtype)
+
+
 def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
                 ctx=None, *, fuse: bool | None = None, kv_shard=None):
     """token: (B,) int.  Returns (logits (B, V), updated cache).
@@ -193,29 +272,55 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     policy's fusion threshold.  ``fuse=False`` splits each layer's
     post-append cache on its own (the equivalence oracle).  The KV leaves
     and the recurrent states are updated in place; ``len`` is rebuilt.
-    ``kv_shard`` (the sequence-sharded cache) waits for the port's dist
-    slice.  An encoder config runs :func:`models.encdec.decode_step` (its
-    cache carries ``enc_kv``)."""
+
+    ``kv_shard`` (a ``vx.Shard`` with ``axis=-3``, the cache sequence
+    axis) marks the KV leaves as sequence-sharded: a leaf whose sequence
+    extent the shard divides is placed on the mesh (a ``DTensor`` placed
+    so is kept; a plain one is sliced, and the returned cache holds the
+    ``DTensor``), the fused split runs on each rank's block (one launch
+    per rank), the token's k and v are written only by the rank whose
+    block holds its slot, and attention is the distributed softmax.  The
+    per-access arm splits each layer's block the same way, so the two
+    arms agree bit for bit on one placement.  Leaves the shard does not
+    divide stay replicated and split locally.  An encoder config runs
+    :func:`models.encdec.decode_step` (its cache carries ``enc_kv``)."""
     check_supported(cfg)
-    if kv_shard is not None:
-        raise NotImplementedError("the sequence-sharded dense step waits "
-                                  "for the port's dist slice (ROADMAP.md "
-                                  "queue A, item 9h)")
     params = cast_params(params, cfg)
     if cfg.encoder is not None:
         from repro_torch.models import encdec
         return encdec.decode_step(params, cache, token, cfg, ctx)
+    params = _whole(params)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
     B = token.shape[0]
     pos = cache["len"]
     x = layers.embed(token, params["embed"]).to(cfg.cdtype)
     attn_pos = [i for i, k in enumerate(cfg.block_pattern) if k == "attn"]
+    blocks = cache["blocks"]
+    if kv_shard is not None and kv_shard.axis != -3:
+        raise ValueError(f"kv_shard shards the cache's sequence axis: "
+                         f"Shard.axis must be -3, got {kv_shard.axis}")
+    sharded = [i for i in attn_pos if kv_shard is not None
+               and kv_shard.divides(blocks[f"pos{i}"].shape[-3])]
+    if sharded:
+        blocks = dict(blocks)
+        where = sharding.Sharding(kv_shard.mesh, sharding.P(
+            None, None, kv_shard.axes))
+        for i in sharded:
+            blocks[f"pos{i}"] = sharding.place(blocks[f"pos{i}"], where)
     pre_split: dict[str, Any] = {}
     if fuse and attn_pos:
-        splits = kv_interleaved.split_kv_step(
-            [cache["blocks"][f"pos{i}"] for i in attn_pos], policy=pol)
-        pre_split = {f"pos{i}": splits[a] for a, i in enumerate(attn_pos)}
+        # one fused split for the sharded leaves (shard-locally) and one
+        # for the replicated ones
+        local = [i for i in attn_pos if i not in sharded]
+        splits = {}
+        for group, shard in ((sharded, kv_shard), (local, None)):
+            if group:
+                outs = kv_interleaved.split_kv_step(
+                    [blocks[f"pos{i}"] for i in group], policy=pol,
+                    shard=shard)
+                splits.update(zip(group, outs))
+        pre_split = {f"pos{i}": splits[i] for i in attn_pos}
     beat_pol = (pol.for_elems(B * cfg.n_kv_heads * 2 * cfg.hd)
                 if fuse else pol)
     ffn_pol = pol.for_elems(B * 2 * cfg.d_ff) if fuse else pol
@@ -227,35 +332,15 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
             if kind != "attn":
-                leaf = cache["blocks"][f"pos{i}"]
+                leaf = blocks[f"pos{i}"]
                 y, st = _recurrent_step(p, h, _sb_state(leaf, sbi), cfg,
                                         kind)
                 x = x + y
                 _set_state(leaf, sbi, st)
             else:
-                q, k, v, kv = attention.qkv_project(
-                    p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads,
-                    cfg.hd, positions, cfg.rope_theta, policy=beat_pol)
-                kvc = cache["blocks"][f"pos{i}"][sbi]      # (B, Sc, K, 2D)
-                sc = kvc.shape[1]
-                slot = torch.remainder(pos, sc).reshape(1).long()
-                kvc.index_copy_(1, slot, kv.to(kvc.dtype))
-                if fuse:
-                    # the pre-split arrays are this step's own (under
-                    # ``ref`` a view of the cache, where the beat wrote the
-                    # same bits)
-                    k_all, v_all = (t[sbi] for t in pre_split[f"pos{i}"])
-                    k_all.index_copy_(1, slot, k.to(kvc.dtype))
-                    v_all.index_copy_(1, slot, v.to(kvc.dtype))
-                else:
-                    k_all, v_all = vx.transpose(
-                        vx.Segment(n=kvc.shape[-1], fields=2), kvc,
-                        policy=pol)
-                eff_len = torch.clamp(pos + 1, max=sc)
-                out = attention.decode_attention(q[:, 0], k_all, v_all,
-                                                 eff_len, window=None)
-                x = x + (out.reshape(B, cfg.n_heads * cfg.hd)
-                         @ p["attn"]["wo"]).to(x.dtype)
+                x = _dense_attn(p, h, x, blocks, pre_split, i, sbi, pos,
+                                positions, cfg, pol, beat_pol, fuse,
+                                kv_shard if i in sharded else None)
             if cfg.pos_has_ffn(i):
                 x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, i,
                                    policy=ffn_pol)
@@ -264,7 +349,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = layers.unembed(x, head.to(cfg.cdtype))
-    return logits, {"len": pos + 1, "blocks": cache["blocks"]}
+    return logits, {"len": pos + 1, "blocks": blocks}
 
 
 def pages_per_seq(max_len: int, page_size: int) -> int:
@@ -347,8 +432,9 @@ def _reset_scales(cache: dict, attn_pos, ids: torch.Tensor,
     hit.index_put_((torch.where(on, ids, 0).to(torch.int64),), on.to(I32),
                    accumulate=True)
     for i in attn_pos:
-        cache["blocks"][f"scl{i}"].masked_fill_((hit > 0)[None, :, None],
-                                                0.0)
+        # a scale DTensor sharded on its page axis resets its own block
+        scl, base, n = sharding.owned_block(cache["blocks"][f"scl{i}"], 1)
+        scl.masked_fill_((hit[base:base + n] > 0)[None, :, None], 0.0)
 
 
 def _add_refs(ref: torch.Tensor, ids: torch.Tensor,
@@ -815,6 +901,14 @@ def paged_truncate(cfg: ModelConfig, cache: dict, new_pos) -> dict:
             "blocks": cache["blocks"]}
 
 
+def _layer_pool(cache: dict, i: int, sbi: int, quantized: bool):
+    """Layer ``sbi``'s pool ``(P, ps, K, 2D)`` at position ``i`` and its
+    scales (None unquantized); a pool placed on a mesh stays placed."""
+    blocks = cache["blocks"]
+    return (sharding.select(blocks[f"pos{i}"], sbi),
+            sharding.select(blocks[f"scl{i}"], sbi) if quantized else None)
+
+
 def _insert_beats(pre: torch.Tensor, beats: torch.Tensor,
                   at: torch.Tensor) -> torch.Tensor:
     """``pre.at[b, at[b, j]].set(beats[b, j], mode="drop")`` out of place:
@@ -830,7 +924,7 @@ def _insert_beats(pre: torch.Tensor, beats: torch.Tensor,
 
 def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
                       cfg: ModelConfig, ctx=None, *, n_draft, active=None,
-                      fuse: bool | None = None):
+                      fuse: bool | None = None, pool_shard=None):
     """Speculative K-token verify over the paged cache.
 
     ``tokens`` is ``(B, K)`` int: column 0 is each slot's CURRENT token,
@@ -859,7 +953,7 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
     back on the free stack.  Recurrent blocks advance token by token with
     every intermediate state kept; the state after ``commit`` tokens is
     selected afterwards (a K-way where), so rejected tokens never reach
-    the carry.
+    the carry.  ``pool_shard`` as for :func:`paged_decode_step`.
     """
     check_supported(cfg)
     _refuse_encoder(cfg)
@@ -913,7 +1007,8 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
         gathered = kv_interleaved.gather_paged_kv(
             [cache["blocks"][f"pos{i}"] for i in attn_pos], table, ps,
             policy=pol, scales=([cache["blocks"][f"scl{i}"]
-                                 for i in attn_pos] if quantized else None))
+                                 for i in attn_pos] if quantized else None),
+            shard=pool_shard)
         splits = kv_interleaved.split_kv_step(gathered, policy=pol)
         pre_split = {f"pos{i}": splits[a] for a, i in enumerate(attn_pos)}
     beat_pol = (pol.for_elems(B * K * cfg.n_kv_heads * 2 * cfg.hd)
@@ -939,15 +1034,14 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
                 q, k, v, kv = attention.qkv_project(
                     p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, tpos,
                     cfg.rope_theta, policy=beat_pol)
-                pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
-                scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
+                pool, scl = _layer_pool(cache, i, sbi, quantized)
                 if fuse:
                     k_pre, v_pre = (t[sbi] for t in pre_split[f"pos{i}"])
                 else:
                     # the per-access arm reads this layer's PRE-append pages
                     # before its scatter writes the pool in place
                     full = vx.gather(spec, pool, table=table, scales=scl,
-                                     policy=pol)
+                                     policy=pol, shard=pool_shard)
                     k_pre, v_pre = vx.transpose(
                         vx.Segment(n=full.shape[-1], fields=2), full,
                         policy=pol)
@@ -1013,7 +1107,7 @@ def paged_verify_step(params, cache: dict, tokens: torch.Tensor,
 
 def paged_decode_step(params, cache: dict, token: torch.Tensor,
                       cfg: ModelConfig, ctx=None, *, active=None,
-                      fuse: bool | None = None):
+                      fuse: bool | None = None, pool_shard=None):
     """One decode step over the paged cache.  token: (B,) int with B =
     slots.  Returns (logits (B, V), updated cache).
 
@@ -1031,7 +1125,15 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
     and the beat is quantized only for the next step's read.  The
     per-access arm gathers each layer's pages before its scatter writes
     the pool in place.  Recurrent positions step every slot's state and
-    keep the old state (and add nothing to ``x``) where a slot is idle."""
+    keep the old state (and add nothing to ``x``) where a slot is idle.
+
+    ``pool_shard`` (a ``vx.Shard`` on the pools' page axis, ``axis=-4``)
+    runs every page gather shard-locally: each rank gathers the pages of
+    its block and one psum merges them.  The pools may be plain (every
+    rank holds them whole and appends replicated, the reference's case)
+    or ``DTensor`` s sharded on the page axis (each rank holds ``1/R`` of
+    the pages, scales alike, and a beat is appended only by the rank that
+    owns its page)."""
     _refuse_encoder(cfg)
     params = cast_params(params, cfg)
     fuse = cfg.step_fusion if fuse is None else fuse
@@ -1079,7 +1181,8 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
         gathered = kv_interleaved.gather_paged_kv(
             [cache["blocks"][f"pos{i}"] for i in attn_pos], table, ps,
             policy=pol, scales=([cache["blocks"][f"scl{i}"]
-                                 for i in attn_pos] if quantized else None))
+                                 for i in attn_pos] if quantized else None),
+            shard=pool_shard)
         splits = kv_interleaved.split_kv_step(gathered, policy=pol)
         pre_split = {f"pos{i}": splits[a] for a, i in enumerate(attn_pos)}
     beat_pol = (pol.for_elems(B * cfg.n_kv_heads * 2 * cfg.hd)
@@ -1102,14 +1205,13 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
                 q, k, v, kv = attention.qkv_project(
                     p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads,
                     cfg.hd, pos[:, None], cfg.rope_theta, policy=beat_pol)
-                pool = cache["blocks"][f"pos{i}"][sbi]     # (P, ps, K, 2D)
-                scl = cache["blocks"][f"scl{i}"][sbi] if quantized else None
+                pool, scl = _layer_pool(cache, i, sbi, quantized)
                 if quantized and not fuse:
                     # the per-access quantized arm reads the PRE-append pages
                     # (as the fused gather does) and inserts the fresh float
                     # beat below
                     full = vx.gather(spec, pool, table=table, scales=scl,
-                                     policy=pol)
+                                     policy=pol, shard=pool_shard)
                     pre = vx.transpose(vx.Segment(n=full.shape[-1], fields=2),
                                        full, policy=pol)
                 vx.scatter(spec, pool, kv[:, 0], table=table, pos=write_pos,
@@ -1121,7 +1223,8 @@ def paged_decode_step(params, cache: dict, token: torch.Tensor,
                     k_all = torch.where(ins, k.to(k_pre.dtype), k_pre)
                     v_all = torch.where(ins, v.to(v_pre.dtype), v_pre)
                 else:
-                    full = vx.gather(spec, pool, table=table, policy=pol)
+                    full = vx.gather(spec, pool, table=table, policy=pol,
+                                     shard=pool_shard)
                     k_all, v_all = vx.transpose(
                         vx.Segment(n=full.shape[-1], fields=2), full,
                         policy=pol)

@@ -1,4 +1,4 @@
-"""Mixture-of-Experts with EARTH-compaction dispatch, on one device.
+"""Mixture-of-Experts with expert parallelism and EARTH-compaction dispatch.
 
 Port of ``repro``'s ``models/moe.py``.  Each MoE FFN:
 
@@ -20,10 +20,16 @@ sorted order, rounding in ``x.dtype`` after each add: the serial
 scatter-add of the reference's ``y.at[tok].add(contrib)``, without the
 atomics of ``index_add_`` on CUDA, so a run gives the same bits every time.
 
-Only the one-device path is ported: :func:`moe_layer` refuses a mesh;
-expert parallelism (the ``shard_map`` body over a model axis, its
-``psum`` / ``psum_scatter`` and the aux mean over data axes) waits for
-the port's dist slice (ROADMAP.md queue A, item 9h).
+Expert parallelism: under a ``ShardCtx`` with a mesh, :func:`moe_layer`
+runs the body on each rank's blocks (``dist.sharding.shard_map``): the
+tokens of its data shard and the experts of its model shard (the rank
+holding experts ``[my * E/m, (my + 1) * E/m)``, ``my`` its index on the
+model axis).  Each rank routes its tokens over all experts, keeps the
+units of its own experts (capacity per shard: a shard may drop units the
+one-device run keeps), and the partial outputs sum over the model axis:
+a ``psum_scatter`` over the sequence when the model axis divides it (the
+result sharded on it), else a ``psum``.  The aux loss is a per-data-shard
+estimate averaged with ``pmean`` over the data axes.
 """
 from __future__ import annotations
 
@@ -34,7 +40,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import vx
-from repro_torch.device import refuse_mesh
 from repro_torch.models import layers
 
 
@@ -149,14 +154,13 @@ class Dispatch(NamedTuple):
 
 
 def route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec,
-          n_shards: int = 1) -> Dispatch:
+          n_shards: int = 1, my: int = 0) -> Dispatch:
     """Top-k routing, the load-balance + z losses, unit selection and the
-    EARTH compaction of ``moe_ffn_local`` (this device holds the first
-    ``E / n_shards`` experts)."""
+    EARTH compaction of ``moe_ffn_local`` (this device holds experts
+    ``[my * E / n_shards, (my + 1) * E / n_shards)``)."""
     T = x.shape[0]
     E, k = spec.n_experts, spec.top_k
     e_loc = E // n_shards
-    my = 0
 
     logits = (x @ router.to(x.dtype)).float()                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -184,16 +188,24 @@ def route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec,
 
 
 def moe_ffn_local(router, wg, wu, wo, x: torch.Tensor, spec: MoESpec, *,
-                  n_shards: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+                  model_axis: str | None = None, data_axes: tuple = (),
+                  n_shards: int = 1,
+                  axes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-device MoE body. x: (T, d). Returns (y (T, d), aux loss scalar).
 
-    The serve and forward paths call it with one shard.  With ``n_shards >
-    1`` this device holds the first ``E / n_shards`` experts (``wg``,
-    ``wu``, ``wo`` hold only those) and the capacity shrinks, as in the
-    reference outside ``shard_map``: the parity tests use it to reach
-    dropped units."""
+    ``wg``, ``wu``, ``wo`` hold this device's ``E / n_shards`` experts and
+    the capacity is per shard.  Inside :func:`moe_layer`'s ``shard_map``,
+    ``axes`` (a ``dist.sharding.Axes``) gives the device's index on
+    ``model_axis`` (which experts it holds) and averages the aux over
+    ``data_axes``; the partial ``y`` is summed by the caller.  Outside it
+    (``axes`` None) the device holds the first experts: the parity tests
+    use that to reach dropped units."""
     T = x.shape[0]
-    r = route(x, router, spec, n_shards)
+    my = axes.index(model_axis) if axes is not None and model_axis else 0
+    r = route(x, router, spec, n_shards, my)
+    aux = r.aux
+    if axes is not None and data_axes:
+        aux = axes.pmean(aux, data_axes)
     pidx = r.packed.long()
     tok = pidx // spec.top_k
     xe = x[tok] * r.pv[:, None].to(x.dtype)                      # (cap, d)
@@ -203,14 +215,49 @@ def moe_ffn_local(router, wg, wu, wo, x: torch.Tensor, spec: MoESpec, *,
     w_packed = r.weight[pidx] * r.pv.to(r.weight.dtype)
     contrib = (ye.float() * w_packed[r.order][:, None]).to(x.dtype)
     y = _combine(contrib, tok[r.order], r.pv[r.order], T, spec.top_k)
-    return y, r.aux
+    return y, aux
 
 
 def moe_layer(params, x: torch.Tensor, spec: MoESpec,
               ctx) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d); one device (a mesh waits for the dist slice)."""
-    refuse_mesh(ctx)
+    """x: (B, S, d). ctx: a ``dist.sharding.ShardCtx`` or None (one
+    device).
+
+    With a mesh, the experts shard over the model axis and the batch over
+    the data axes (operands placed so as ``DTensor`` s, or plain full
+    tensors each rank slices).  The model-axis reduction of the partial
+    outputs is a ``psum_scatter`` over the sequence dim when the model
+    axis divides it (the result a ``DTensor`` sharded on the batch over
+    the data axes and on the sequence over the model axis), else a
+    ``psum``; a result sharded on nothing is the plain tensor every rank
+    holds."""
     B, S, d = x.shape
-    y, aux = moe_ffn_local(params["router"], params["wg"], params["wu"],
-                           params["wo"], x.reshape(B * S, d), spec)
-    return y.reshape(B, S, d), aux
+    m_ax = ctx.model_axis if ctx is not None else None
+    m_sz = ctx.model_size if ctx is not None else 1
+    seq_scatter = m_ax is not None and S % m_sz == 0 and S >= m_sz
+    data_axes = ctx.data_axes if ctx is not None else ()
+
+    def body(axes, router, wg, wu, wo, xl):
+        Tl = xl.shape[0] * xl.shape[1]
+        y, aux = moe_ffn_local(router, wg, wu, wo, xl.reshape(Tl, d), spec,
+                               model_axis=m_ax, data_axes=data_axes,
+                               n_shards=m_sz, axes=axes)
+        y = y.reshape(xl.shape)
+        if axes is not None and m_ax is not None:
+            y = (axes.psum_scatter(y, m_ax, 1) if seq_scatter
+                 else axes.psum(y, m_ax))
+        return y, aux
+
+    operands = (params["router"], params["wg"], params["wu"], params["wo"],
+                x)
+    if ctx is None or ctx.mesh is None:
+        return body(None, *operands)
+
+    from repro_torch.dist.sharding import P, shard_map
+    ba = data_axes if data_axes else None
+    sm = shard_map(body, mesh=ctx.mesh,
+                   in_specs=(P(), P(m_ax), P(m_ax), P(m_ax),
+                             P(ba, None, None)),
+                   out_specs=(P(ba, m_ax if seq_scatter else None, None),
+                              P()))
+    return sm(*operands)

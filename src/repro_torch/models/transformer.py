@@ -28,8 +28,10 @@ superblocks like the KV beats).  ``cfg.remat`` maps to
 ``"full"`` and ``"dots"`` around each superblock (``"dots"``, the
 reference's matmul-saving policy, recomputes everything as ``"full"``
 does), any remat around each position of a multi-position superblock,
-and every :func:`chunked_xent` chunk.  Sharding constraints wait for
-``dist`` (item 9h).
+and every :func:`chunked_xent` chunk.  :func:`superblock` gathers
+weights placed on a mesh a layer at a time (the sharded decode steps);
+``forward`` under a mesh and its sharding constraints wait for the
+training half of item 9h.
 """
 from __future__ import annotations
 
@@ -256,8 +258,13 @@ def tree_map(fn, tree, *rest):
 
 
 def superblock(params_blocks: dict, sbi: int) -> dict:
-    """Superblock ``sbi``'s parameters: views into the stacked leaves."""
-    return tree_map(lambda a: a[sbi], params_blocks)
+    """Superblock ``sbi``'s parameters: views into the stacked leaves.
+    Leaves placed on a mesh (``DTensor`` s, the sharded serve step's
+    weights) are gathered whole here, a superblock at a time, when it
+    runs."""
+    from repro_torch.dist import sharding
+    return sharding.full_tree(tree_map(lambda a: sharding.select(a, sbi),
+                                       params_blocks))
 
 
 # ---------------------------------------------------------------------------
@@ -271,12 +278,15 @@ def cast_params(params, cfg: ModelConfig, ctx=None):
     if cfg.cdtype == cfg.pdtype:
         return params
 
+    from repro_torch.dist import sharding
+
     def walk(t, path):
         if isinstance(t, dict):
             return {k: walk(v, f"{path}/{k}") for k, v in t.items()}
         if t.is_floating_point() and t.dtype != cfg.cdtype \
                 and not path.endswith("router"):
-            return t.to(cfg.cdtype)
+            # a DTensor leaf casts its block
+            return sharding.map_local(lambda a: a.to(cfg.cdtype), t)
         return t
 
     return walk(params, "")

@@ -7,7 +7,7 @@ and ``step`` are updated in place (the reference donates them to its
 jit'd step), so a step holds one copy of the state and one leaf's
 temporaries.  The arithmetic is float32 in the reference's operation
 order, so the same gradients give the same state bit for bit.  ZeRO-1
-sharding of the moments waits for ``dist`` (item 9h).
+sharding of the moments waits for the training half of ``dist`` (item 9h).
 """
 from __future__ import annotations
 

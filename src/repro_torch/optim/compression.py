@@ -12,7 +12,7 @@ convergent):
 
 On one device the compressors and their error state run in the train
 step's microbatch loop (``train/step.py``); the all-reduce they would wrap
-waits for ``dist`` (item 9h).
+waits for the training half of ``dist`` (item 9h).
 """
 from __future__ import annotations
 

@@ -4,8 +4,10 @@ steps, the fixed-slot server and ``make_fleet``), the replica fleet, the
 chaos harness and speculative decode (the scheduler's ``speculate``) —
 port of ``repro.serve``, for every decoder of the arch registry; the
 engine's dense steps also serve the whisper encoder-decoder (the paged
-scheduler refuses it, as the reference's does).  Sharded serving waits for
-``dist`` (item 9h)."""
+scheduler refuses it, as the reference's does).  Sharded serving
+(``dist``): the long-context dense step on a mesh (``jit_decode_step``
+with ``ServeConfig.long_context``) and the paged steps over a pool
+sharded on its page axis (``pool_shard``)."""
 from repro_torch.serve.chaos import (ChaosConfig, ChaosReport,  # noqa: F401
                                      FaultPlan, FleetChaosConfig,
                                      FleetChaosReport, FleetFaultPlan,

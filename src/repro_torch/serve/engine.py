@@ -1,15 +1,20 @@
 """Serving engine: the dense prefill and decode steps, and the fixed-slot
 server wrapper over the paged scheduler.
 
-Port of ``repro``'s ``serve/engine.py`` on one device: :class:`ServeConfig`,
+Port of ``repro``'s ``serve/engine.py``: :class:`ServeConfig`,
 :func:`jit_decode_step` and :func:`jit_prefill` (the reference's names, so
 a reader finds the counterpart; they return EAGER callables — no
 ``torch.compile``, no donation: the dense cache leaves are updated in
 place) and :class:`BatchedServer` over
 :class:`repro_torch.serve.scheduler.Scheduler`.  :func:`cache_specs` and
-:func:`serve_param_shardings` return ``None`` without a mesh, as the
-reference does; a mesh, and ``ServeConfig.long_context``, wait for the
-port's dist slice.  :func:`make_fleet` puts N scheduler replicas behind the
+:func:`serve_param_shardings` are the reference's placement rules
+(``None`` without a mesh).  With a mesh, :func:`jit_decode_step` serves
+long-context decode (``ServeConfig.long_context``): the cache sequence
+axis sharded over the context's sequence axes, the weights placed by
+:func:`serve_param_shardings` and gathered a layer at a time; the
+batch-sharded step (a mesh without ``long_context``) and
+:func:`jit_prefill` under a mesh wait for the training half of item 9h.
+:func:`make_fleet` puts N scheduler replicas behind the
 fleet router (``serve/fleet.py``).  An encoder config (whisper) takes
 the dense steps: :func:`jit_prefill` runs its forward (the batch carries
 ``audio_frames``), and :func:`jit_decode_step` runs
@@ -25,6 +30,8 @@ import torch
 
 from repro_torch import vx
 from repro_torch.device import refuse_mesh, resolve as resolve_device
+from repro_torch.dist import sharding
+from repro_torch.dist.sharding import P
 from repro_torch.models import decode as dec
 from repro_torch.models.transformer import (ModelConfig, check_supported,
                                             forward)
@@ -42,15 +49,62 @@ class ServeConfig:
 
 
 def cache_specs(cfg: ModelConfig, ctx, scfg: ServeConfig, cache_template):
-    """The cache's placement: ``None`` (one device) without a mesh."""
-    refuse_mesh(ctx)
-    return None
+    """Tree of P for the cache (the reference's rules); ``None`` without a
+    mesh.
+
+    * long-context (B=1): each ``(NS, B, S, K, 2D)`` KV leaf shards its
+      sequence over every sequence axis when they divide it, else
+      replicates;
+    * otherwise: batch over the data axes, the KV heads over the model
+      axis when it divides them, else the sequence over it;
+    * ``len`` replicates; a recurrent state ``(NS, B, inner...)`` puts
+      the batch over the data axes and its first inner dim the model
+      axis divides over it."""
+    if ctx is None or ctx.mesh is None:
+        return None
+
+    batch_axes = ctx.data_axes if ctx.data_axes else None
+
+    def spec_for(path: str, leaf) -> P:
+        if path.endswith("len"):
+            return P()
+        if scfg.long_context and leaf.ndim == 5:
+            # (NS, B, S, K, 2D): B=1 — shard the sequence over every axis
+            axes = ctx.seq_axes or (ctx.data_axes
+                                    + ((ctx.model_axis,)
+                                       if ctx.model_axis else ()))
+            if axes and leaf.shape[2] % sharding.axes_size(ctx.mesh,
+                                                           axes) == 0:
+                return P(None, None, axes)
+            return P()
+        if leaf.ndim == 5:  # (NS, B, S, K, 2D)
+            k, s = leaf.shape[3], leaf.shape[2]
+            if ctx.model_axis and k % ctx.model_size == 0:
+                return P(None, batch_axes, None, ctx.model_axis)
+            if ctx.model_axis and s % ctx.model_size == 0:
+                return P(None, batch_axes, ctx.model_axis)  # seq-sharded
+            return P(None, batch_axes)
+        # (NS, B, inner...) recurrent state
+        parts = [None, batch_axes] + [None] * (leaf.ndim - 2)
+        if ctx.model_axis:
+            for i in range(2, leaf.ndim):
+                if leaf.shape[i] % ctx.model_size == 0 and \
+                        leaf.shape[i] >= ctx.model_size:
+                    parts[i] = ctx.model_axis
+                    break
+        return P(*parts)
+
+    return sharding.tree_paths(cache_template, spec_for)
 
 
 def serve_param_shardings(params_template, cfg: ModelConfig, ctx):
-    """The weights' placement: ``None`` (one device) without a mesh."""
-    refuse_mesh(ctx)
-    return None
+    """The weights' placement, a tree of ``dist.sharding.Sharding`` (the
+    reference's ``tree_param_specs`` rules on ``ctx``'s mesh); ``None``
+    without a mesh."""
+    if ctx is None or ctx.mesh is None:
+        return None
+    return sharding.spec_tree_shardings(
+        sharding.tree_param_specs(params_template, ctx), ctx)
 
 
 def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
@@ -59,25 +113,56 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     """``serve_step(params, cache, token) -> (logits, cache)``: one dense
     decode step (:func:`repro_torch.models.decode.decode_step`, fused per
     ``scfg.step_fusion``), eager.  ``token`` is moved to ``device`` (the
-    port's rule: cuda unless the caller asks for the CPU).  The templates
-    keep the reference's signature; on one device nothing reads them."""
-    refuse_mesh(ctx)
-    refuse_mesh(param_ctx)
-    if scfg.long_context:
-        raise NotImplementedError("long-context (sequence-sharded) serving "
-                                  "waits for the port's dist slice")
+    port's rule: cuda unless the caller asks for the CPU).
+
+    With a mesh and ``scfg.long_context`` each rank runs the step (one
+    SPMD program): the params are placed as :func:`serve_param_shardings`
+    says on ``param_ctx or ctx`` (the templates', else the first call's
+    tree) and gathered a layer at a time as the layer runs, the KV leaves
+    as :func:`cache_specs` says, and the step runs with ``kv_shard =
+    ctx.vx_seq_shard(-3)``.  A leaf already placed so is taken as it is;
+    place the weights once (``dist.sharding.place_tree``) to keep only
+    their blocks resident.  The logits come back whole on every rank.
+    The port's recurrent step runs on replicated state, so recurrent
+    state leaves stay replicated.  Without a mesh the templates are
+    unused."""
+    meshed = ctx is not None and ctx.mesh is not None
+    if meshed and (not scfg.long_context or cfg.encoder is not None):
+        refuse_mesh(ctx)
     check_supported(cfg)
     device = resolve_device(device)
     # one-time host compile of the FIELD=2 segment plans the fused KV
     # split consults (nothing under impl="ref")
     vx.warm(2 * cfg.hd, strided=False, fields=(2,), policy=cfg.vx_policy)
     fuse = scfg.step_fusion
+    kv_shard = (ctx.vx_seq_shard(-3)
+                if ctx is not None and scfg.long_context else None)
+    placed = {}
+
+    def placements(params, cache):
+        if not placed:
+            placed["params"] = serve_param_shardings(
+                params_template if params_template is not None else params,
+                cfg, param_ctx or ctx)
+            cspecs = cache_specs(cfg, ctx, scfg, cache_template
+                                 if cache_template is not None else cache)
+            # the recurrent step runs on replicated state
+            cspecs["blocks"] = {
+                k: v if isinstance(v, P) else sharding.map_specs(
+                    lambda _: P(), v)
+                for k, v in cspecs["blocks"].items()}
+            placed["cache"] = sharding.spec_tree_shardings(cspecs, ctx)
+        return placed["params"], placed["cache"]
 
     @torch.no_grad()
     def serve_step(params, cache, token):
+        if meshed:
+            psh, csh = placements(params, cache)
+            params = sharding.place_tree(params, psh)
+            cache = sharding.place_tree(cache, csh)
         # an encoder config dispatches to encdec.decode_step in there
         return dec.decode_step(params, cache, token.to(device), cfg, ctx,
-                               fuse=fuse)
+                               fuse=fuse, kv_shard=kv_shard)
 
     return serve_step
 

@@ -15,7 +15,7 @@ no backward, and under ``kernel`` / ``kernel_dynamic`` every ``vx`` verb
 that would reach one refuses an operand that requires grad, as the
 reference cannot differentiate its Pallas path either.  Shardings
 (``full_state_shardings``, ``batch_shardings``) are ``None`` without a
-mesh; a mesh waits for ``dist`` (item 9h).
+mesh; a mesh waits for the training half of ``dist`` (item 9h).
 """
 from __future__ import annotations
 

@@ -34,10 +34,16 @@ One spec type per access, a few verbs, one policy::
     with vx.use("kernel"):       # CUDA kernels for CUDA tensors
         ...
 
+    sh = vx.Shard(axes=("s",), axis=-1, mesh=mesh)         # DeviceMesh
+    out = vx.gather(spec, window, shard=sh)                # shard-local
+
 The port covers ``Strided`` (static and runtime ``BANK`` strides),
 ``Segment``, ``Indexed``, ``Compact`` and ``Paged`` specs (float and
-quantized pools) and every verb of the reference; its sharded lowering
-waits for a later slice (ROADMAP.md, queue A).
+quantized pools) and every verb of the reference.  ``shard=`` lowers the
+strided gather / scatter, the segment transposition and the paged gather
+shard-locally on each rank's block (vx/lower.py): an operand is a
+``DTensor`` placed as the shard says, or a plain full tensor that each
+rank slices.
 
 The reference's deprecated shims, ``repro.kernels.ops`` and
 ``repro.core.drom`` (impl-string wrappers that only warn and delegate to
@@ -54,7 +60,7 @@ from repro_torch.vx.cache import PLANS, PlanCache
 from repro_torch.vx.policy import (BANK_FIELDS, BANK_STRIDES, IMPLS,
                                    MIN_FUSED_ELEMS, Policy, current, resolve,
                                    use)
-from repro_torch.vx.program import Program, Txn
+from repro_torch.vx.program import Program, Shard, Txn
 from repro_torch.vx.spec import (BANK, AccessSpec, Compact, Indexed, Paged,
                                  Segment, Strided)
 
@@ -63,6 +69,6 @@ __all__ = [
     "BANK", "gather", "scatter", "transpose", "compact", "gather_many",
     "scatter_many", "warm",
     "Policy", "use", "current", "resolve",
-    "PLANS", "PlanCache", "Program", "Txn", "program", "lower",
+    "PLANS", "PlanCache", "Shard", "Program", "Txn", "program", "lower",
     "MIN_FUSED_ELEMS", "BANK_STRIDES", "BANK_FIELDS", "IMPLS",
 ]

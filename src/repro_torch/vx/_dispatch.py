@@ -4,8 +4,9 @@ pipeline (port of ``repro``'s ``vx/_dispatch.py``).
 The port has ``transpose`` (Segment), ``gather`` / ``scatter`` (Strided,
 Indexed, Paged over float and quantized pools, and the Compact
 expansion), ``compact`` (Compact), ``gather_many`` (Strided, Paged and
-Segment), ``scatter_many`` (Segment) and ``warm``.  ``shard=`` waits for
-the distribution slice.
+Segment), ``scatter_many`` (Segment) and ``warm``.  ``shard=`` (a
+``vx.Shard``) lowers the access shard-locally (vx/lower.py); an op without
+a sharded lowering raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -15,9 +16,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import shiftplan
+from repro_torch.dist import sharding as _sharding
 from repro_torch.vx import lower as _lower
 from repro_torch.vx import program as _program
 from repro_torch.vx.policy import Policy, resolve
+from repro_torch.vx.program import Shard
 from repro_torch.vx.spec import (AccessSpec, Compact, Indexed, Paged,
                                  Segment, Strided, _dtype_str)
 
@@ -74,7 +77,8 @@ def _bind_scales(spec: Paged, scales):
 
 def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
            valid=None, table=None, scales=None,
-           policy: Policy | str | None = None) -> torch.Tensor:
+           policy: Policy | str | None = None,
+           shard: Shard | None = None) -> torch.Tensor:
     """Dense read through the access described by ``spec``.
 
     * :class:`Strided` — ``(..., n) -> (..., vl)``.  A ``stride=vx.BANK``
@@ -92,26 +96,36 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
     * :class:`Paged` — page-table gather over a ``(*lead, P, ps, *trail)``
       pool: ``table=`` is the runtime ``(*batch, pages)`` int32 page table
       (entries ``< 0`` read as zeros); returns ``(*lead, *batch,
-      pages*ps, *trail)``.  A QUANTIZED pool passes its per-page scale
-      tensor as ``scales=`` and gets the dequantized float sequences back
-      from the same one gather.
+      pages*ps, *trail)``.  ``shard=`` (on the pool's page axis,
+      ``Shard.axis == -(trail+2)``) gathers shard-locally from the owned
+      page block and psum-merges.  A QUANTIZED pool passes its per-page
+      scale tensor as ``scales=`` and gets the dequantized float sequences
+      back from the same one gather.
+
+    For a Strided spec ``shard=`` marks ``buf``'s lane axis as sharded:
+    each rank runs its offset-rebased sub-access and the disjoint lanes
+    merge with one psum (a replicated result).
     """
     pol = resolve(policy)
     if isinstance(spec, Strided):
         spec = spec.bind(buf.dtype)
         static = _static_strided(spec, stride)
         if static is not None:
-            return _lower.run("gather.plan", static, pol.impl, buf)
-        return _lower.run("bank.gather", spec, pol.impl, buf, stride)
+            return _lower.run("gather.plan", static, pol.impl, buf,
+                              shard=shard)
+        return _lower.run("bank.gather", spec, pol.impl, buf, stride,
+                          shard=shard)
     if isinstance(spec, Indexed):
         spec = spec.bind(buf.dtype)
         static = _fold_routing(spec, shift, valid)
         if static is not None:
-            return _lower.run("idx.gather", static, pol.impl, buf)
+            return _lower.run("idx.gather", static, pol.impl, buf,
+                              shard=shard)
         if shift is None or valid is None:
             raise ValueError("Indexed gather needs shift= and valid= "
                              "(or a spec with routing=)")
-        return _lower.run("idx.gather", spec, pol.impl, buf, shift, valid)
+        return _lower.run("idx.gather", spec, pol.impl, buf, shift, valid,
+                          shard=shard)
     if not isinstance(spec, Paged):
         raise TypeError(f"gather does not accept {type(spec).__name__} "
                         f"specs in this slice")
@@ -119,23 +133,31 @@ def gather(spec: AccessSpec, buf: torch.Tensor, *, stride=None, shift=None,
         raise ValueError("Paged gather needs the page table as table=")
     spec = _bind_scales(spec.bind(buf.dtype), scales)
     if spec.quantized:
-        return _lower.run("paged.gather", spec, pol.impl, buf, scales, table)
-    return _lower.run("paged.gather", spec, pol.impl, buf, table)
+        return _lower.run("paged.gather", spec, pol.impl, buf, scales, table,
+                          shard=shard)
+    return _lower.run("paged.gather", spec, pol.impl, buf, table,
+                      shard=shard)
 
 
 def scatter(spec: AccessSpec, buf: torch.Tensor | None,
             values: torch.Tensor, *, stride=None, shift=None, valid=None,
             table=None, pos=None, scales=None,
-            policy: Policy | str | None = None):
+            policy: Policy | str | None = None,
+            shard: Shard | None = None):
     """Write/merge through the access described by ``spec``.
 
     * :class:`Strided` — merge dense ``values`` into the strided lanes of
       ``buf`` (read-modify-write, out of place); returns the new window.
-      ``stride=`` as for :func:`gather`.
+      ``stride=`` as for :func:`gather`.  With ``shard=`` (the lane axis)
+      each rank merges only its own lanes and the window stays sharded
+      (a ``DTensor``); nothing is sent.
     * :class:`Paged` — the decode append: one ``(*batch, *trail)`` beat
       per table row into pool ``buf`` at per-row position ``pos=`` through
       ``table=`` (rows with ``pos < 0`` or an unallocated page are
-      dropped).  Updates the pool in place and returns it.  A QUANTIZED
+      dropped).  Updates the pool in place and returns it.  A pool
+      ``DTensor`` sharded on its page axis takes each beat only on the
+      rank that owns its page (no ``shard=``: the placement is the
+      pool's own).  A QUANTIZED
       pool passes ``scales=`` (updated in place too) and gets ``(pool,
       scales)`` back: the beat quantizes on write and the page scale only
       widens (see vx/lower.py).
@@ -152,17 +174,18 @@ def scatter(spec: AccessSpec, buf: torch.Tensor | None,
         spec = spec.bind(buf.dtype)
         static = _static_strided(spec, stride)
         if static is not None:
-            return _lower.run("scatter.plan", static, pol.impl, buf, values)
+            return _lower.run("scatter.plan", static, pol.impl, buf, values,
+                              shard=shard)
         return _lower.run("bank.scatter", spec, pol.impl, buf, values,
-                          stride)
+                          stride, shard=shard)
     if isinstance(spec, Indexed):
         if shift is None or valid is None:
             raise ValueError("Indexed scatter needs shift= and valid=")
         return _lower.run("idx.scatter", spec.bind(values.dtype), pol.impl,
-                          values, shift, valid)
+                          values, shift, valid, shard=shard)
     if isinstance(spec, Compact):
         return _lower.run("compact.expand", spec.bind(values.dtype),
-                          pol.impl, values, buf)
+                          pol.impl, values, buf, shard=shard)
     if not isinstance(spec, Paged):
         raise TypeError(f"scatter does not accept {type(spec).__name__} "
                         f"specs in this slice")
@@ -171,15 +194,19 @@ def scatter(spec: AccessSpec, buf: torch.Tensor | None,
     spec = _bind_scales(spec.bind(buf.dtype), scales)
     if spec.quantized:
         return _lower.run("paged.scatter", spec, pol.impl, buf, scales,
-                          values, table, pos)
+                          values, table, pos, shard=shard)
     return _lower.run("paged.scatter", spec, pol.impl, buf, values, table,
-                      pos)
+                      pos, shard=shard)
 
 
-def transpose(spec: Segment, x, *, policy: Policy | str | None = None):
+def transpose(spec: Segment, x, *, policy: Policy | str | None = None,
+              shard: Shard | None = None):
     """Segment transposition, direction inferred from the operand: one AoS
     array ``(..., n)`` -> ``fields`` SoA arrays (deinterleave), or a
-    sequence of ``fields`` SoA arrays -> one AoS array (interleave)."""
+    sequence of ``fields`` SoA arrays -> one AoS array (interleave).
+    ``shard=`` (an OUTER axis, ``Shard.axis <= -2``) runs the lane
+    permutation on each rank's block; the result is placed like the
+    operand."""
     if not isinstance(spec, Segment):
         raise TypeError(f"transpose needs a Segment spec, got "
                         f"{type(spec).__name__}")
@@ -190,11 +217,12 @@ def transpose(spec: Segment, x, *, policy: Policy | str | None = None):
             raise ValueError(f"expected {spec.fields} fields, "
                              f"got {len(parts)}")
         return _lower.run("seg.int", spec.bind(parts[0].dtype), pol.impl,
-                          parts)
+                          parts, shard=shard)
     if x.shape[-1] != spec.n:
         raise ValueError(f"AoS beat has {x.shape[-1]} lanes, spec.n is "
                          f"{spec.n}")
-    return _lower.run("seg.deint", spec.bind(x.dtype), pol.impl, x)
+    return _lower.run("seg.deint", spec.bind(x.dtype), pol.impl, x,
+                      shard=shard)
 
 
 def compact(spec: Compact, mask: torch.Tensor,
@@ -219,7 +247,8 @@ def compact(spec: Compact, mask: torch.Tensor,
 
 
 def gather_many(specs, bufs, *, table=None, scales=None,
-                policy: Policy | str | None = None):
+                policy: Policy | str | None = None,
+                shard: Shard | None = None):
     """Whole-step batched gather — ONE program for the whole group.
 
     * ``specs`` a sequence of :class:`Strided` sharing ``(n, vl)`` with
@@ -230,15 +259,18 @@ def gather_many(specs, bufs, *, table=None, scales=None,
     * ``specs`` a single :class:`Paged`, ``bufs`` same-shape pools sharing
       one ``table=``: all pools stack and gather in one program.  Quantized
       pools pass their per-page scale tensors as ``scales=`` (stacked the
-      same way); the dequant rides the same program.  Returns one
-      gathered array per pool.
+      same way); the dequant rides the same program.  ``shard=`` on the
+      page axis.  Returns one gathered array per pool.
     * ``specs`` a single :class:`Segment`, ``bufs`` same-shape AoS arrays:
-      the step-fused segment load (one kernel launch).  Returns one field
-      list per input array.
+      the step-fused segment load (one kernel launch; ``shard=`` on an
+      outer axis: the stacked group transposes shard-locally).  Returns
+      one field list per input array.
+
+    Operands placed as ``DTensor`` s stack block by block.
     """
     pol = resolve(policy)
     if not isinstance(specs, (Paged, Segment)):
-        return _gather_many_strided(list(specs), bufs, pol)
+        return _gather_many_strided(list(specs), bufs, pol, shard)
     bufs = list(bufs)
     if isinstance(specs, Paged):
         if table is None:
@@ -246,28 +278,30 @@ def gather_many(specs, bufs, *, table=None, scales=None,
         scl = None if scales is None else list(scales)
         spec = _bind_scales(specs.bind(bufs[0].dtype),
                             None if scl is None else scl[0])
-        prog = _program.fuse([_lower.lower("paged.gather", spec,
-                                           pol.impl)] * len(bufs))
-        stacked = bufs[0] if len(bufs) == 1 else torch.stack(bufs)
-        exe = _lower.executor(prog, (spec,) * len(bufs))
+        prog = _program.fuse([_lower.lower("paged.gather", spec, pol.impl,
+                                           shard)] * len(bufs))
+        stacked = bufs[0] if len(bufs) == 1 else _sharding.stack(bufs)
+        exe = _lower.executor(prog, (spec,) * len(bufs), shard)
         if scl is None:
             out = exe(stacked, table)
         else:
-            out = exe(stacked, scl[0] if len(scl) == 1 else torch.stack(scl),
+            out = exe(stacked,
+                      scl[0] if len(scl) == 1 else _sharding.stack(scl),
                       table)
         return [out] if len(bufs) == 1 else list(out.unbind(0))
     spec = specs.bind(bufs[0].dtype)
-    prog = _program.fuse([_lower.lower("seg.deint", spec,
-                                       pol.impl)] * len(bufs))
-    stacked = bufs[0] if len(bufs) == 1 else torch.stack(bufs)
-    outs = _lower.executor(prog, (spec,) * len(bufs))(stacked)
+    prog = _program.fuse([_lower.lower("seg.deint", spec, pol.impl,
+                                       shard)] * len(bufs))
+    stacked = bufs[0] if len(bufs) == 1 else _sharding.stack(bufs)
+    outs = _lower.executor(prog, (spec,) * len(bufs), shard)(stacked)
     if len(bufs) == 1:
         return [list(outs)]
-    return [[o[a] for o in outs] for a in range(len(bufs))]
+    return [[_sharding.select(o, a) for o in outs] for a in range(len(bufs))]
 
 
 def scatter_many(spec: Segment, groups, *,
-                 policy: Policy | str | None = None) -> list[torch.Tensor]:
+                 policy: Policy | str | None = None,
+                 shard: Shard | None = None) -> list[torch.Tensor]:
     """Step-fused segment store: same-shape SoA groups (each a sequence of
     ``spec.fields`` arrays ``(..., m)``) in ONE interleave (one B2 launch
     under ``kernel``, one B7 under ``kernel_dynamic``).  Returns one AoS
@@ -277,28 +311,30 @@ def scatter_many(spec: Segment, groups, *,
     pol = resolve(policy)
     groups = [list(g) for g in groups]
     spec = spec.bind(groups[0][0].dtype)
-    prog = _program.fuse([_lower.lower("seg.int", spec,
-                                       pol.impl)] * len(groups))
-    fn = _lower.executor(prog, (spec,) * len(groups))
+    prog = _program.fuse([_lower.lower("seg.int", spec, pol.impl,
+                                       shard)] * len(groups))
+    fn = _lower.executor(prog, (spec,) * len(groups), shard)
     if len(groups) == 1:
         return [fn(groups[0])]
-    stacked = [torch.stack([g[f] for g in groups])
+    stacked = [_sharding.stack([g[f] for g in groups])
                for f in range(spec.fields)]
-    return list(fn(stacked).unbind(0))
+    out = fn(stacked)
+    return [_sharding.select(out, a) for a in range(len(groups))]
 
 
-def _gather_many_strided(specs: list, bufs, pol: Policy) -> torch.Tensor:
+def _gather_many_strided(specs: list, bufs, pol: Policy,
+                         shard: Shard | None) -> torch.Tensor:
     if not specs or not all(isinstance(s, Strided) for s in specs):
         raise TypeError("gather_many needs Strided specs, one Paged or one "
                         "Segment spec")
     if len({s.vl for s in specs}) != 1 or len({s.n for s in specs}) != 1:
         raise ValueError("fused gather needs one shared (n, vl)")
     windows = bufs if isinstance(bufs, torch.Tensor) else \
-        torch.stack(list(bufs))
+        _sharding.stack(list(bufs))
     specs = tuple(s.bind(windows.dtype) for s in specs)
-    prog = _program.fuse([_lower.lower("gather.plan", s, pol.impl)
+    prog = _program.fuse([_lower.lower("gather.plan", s, pol.impl, shard)
                           for s in specs])
-    return _lower.executor(prog, specs)(windows)
+    return _lower.executor(prog, specs, shard)(windows)
 
 
 def warm(n: int, *, offset: int = 0, vl: int | None = None,

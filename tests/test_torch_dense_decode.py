@@ -196,11 +196,46 @@ def test_decode_step_ring_buffer_matches_reference():
 
 
 def test_decode_step_refuses_what_waits():
+    """``kv_shard`` no longer waits (the sequence-sharded step, item 9h's
+    serving half; 8 ranks in tests/test_torch_dist.py): on a one-rank
+    mesh the fused and per-access steps agree bit for bit and track the
+    unsharded step within the file's tolerance (the distributed softmax
+    divides after its merge), and return their KV leaves placed, equal to
+    the unsharded cache; a shard on another axis than the cache's
+    sequence is refused."""
+    from _torch_dist_run import one_rank_group
+    from repro_torch import vx
+    from repro_torch.dist import sharding
     _, _, cfg, params = _smoke()
-    cache = dec.init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="dist"):
-        dec.decode_step(params, cache, torch.zeros(1, dtype=torch.int32),
-                        cfg, kv_shard=object())
+    with one_rank_group():
+        mesh = sharding.make_mesh((1,), ("s",), device="cpu")
+        shard = vx.Shard(axes=("s",), axis=-3, mesh=mesh)
+        caches = {k: dec.init_cache(cfg, 1, 8, device="cpu")
+                  for k in ("plain", True, False)}
+        tok = torch.tensor([3], dtype=torch.int32)
+        for _ in range(3):
+            want, caches["plain"] = dec.decode_step(params, caches["plain"],
+                                                    tok, cfg)
+            got = {}
+            for fuse in (True, False):
+                got[fuse], caches[fuse] = dec.decode_step(
+                    params, caches[fuse], tok, cfg, fuse=fuse,
+                    kv_shard=shard)
+            assert_bits_equal(got[True], got[False])
+            np.testing.assert_allclose(got[True].numpy(), want.numpy(),
+                                       rtol=RTOL, atol=ATOL)
+            tok = want.argmax(-1).to(torch.int32)
+        for fuse in (True, False):
+            for k, leaf in caches[fuse]["blocks"].items():
+                assert sharding.is_dtensor(leaf)
+                np.testing.assert_allclose(
+                    sharding.full_tensor(leaf).numpy(),
+                    caches["plain"]["blocks"][k].numpy(), rtol=RTOL,
+                    atol=ATOL)
+        with pytest.raises(ValueError, match="sequence axis"):
+            dec.decode_step(params, dec.init_cache(cfg, 1, 8, device="cpu"),
+                            tok, cfg, kv_shard=vx.Shard(axes=("s",), axis=-1,
+                                                        mesh=mesh))
 
 
 # ---------------------------------------------------------------------------

@@ -154,24 +154,51 @@ def test_jit_prefill_and_decode_step_match_reference(fuse):
 
 
 def test_engine_refuses_what_waits():
-    cfg, _ = _port()
+    """A mesh without ``long_context`` (the batch-sharded step) and
+    ``jit_prefill`` under a mesh still wait for item 9h's training half;
+    the placement rules and the long-context step do not (a one-rank
+    mesh here, 8 ranks in tests/test_torch_dist.py)."""
+    from _torch_dist_run import one_rank_group
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx
+    cfg, params = _port()
     mesh = types.SimpleNamespace(mesh=object())
     no_mesh = types.SimpleNamespace(mesh=None)
     scfg = engine.ServeConfig(max_len=16)
+    long = dataclasses.replace(scfg, long_context=True)
     assert scfg.cache_dtype == "bfloat16" and scfg.step_fusion
     assert engine.cache_specs(cfg, None, scfg, {}) is None
     assert engine.cache_specs(cfg, no_mesh, scfg, {}) is None
     assert engine.serve_param_shardings({}, cfg, no_mesh) is None
-    for call in (lambda: engine.cache_specs(cfg, mesh, scfg, {}),
-                 lambda: engine.serve_param_shardings({}, cfg, mesh),
-                 lambda: engine.jit_prefill(cfg, mesh, device="cpu"),
+    for call in (lambda: engine.jit_prefill(cfg, mesh, device="cpu"),
                  lambda: engine.jit_decode_step(cfg, mesh, scfg,
-                                                device="cpu"),
-                 lambda: engine.jit_decode_step(
-                     cfg, None, dataclasses.replace(scfg, long_context=True),
-                     device="cpu")):
+                                                device="cpu")):
         with pytest.raises(NotImplementedError, match="dist"):
             call()
+    # long_context without a mesh is the plain step
+    tok = torch.tensor([5, 7], dtype=torch.int32)
+    want, _ = engine.jit_decode_step(cfg, None, scfg, device="cpu")(
+        params, dec.init_cache(cfg, 2, 16, device="cpu"), tok)
+    got, _ = engine.jit_decode_step(cfg, None, long, device="cpu")(
+        params, dec.init_cache(cfg, 2, 16, device="cpu"), tok)
+    assert torch.equal(got, want)
+    with one_rank_group():
+        ctx = make_ctx(sharding.make_mesh((1, 1), ("data", "model"),
+                                          device="cpu"), long_context=True)
+        cache = dec.init_cache(cfg, 1, 16, device="cpu")
+        specs = engine.cache_specs(cfg, ctx, long, cache)
+        assert specs["len"] == () and specs["blocks"]["pos0"] == \
+            (None, None, ("data", "model"))
+        psh = engine.serve_param_shardings(params, cfg, ctx)
+        assert psh["embed"].spec == ("model", None)
+        step = engine.jit_decode_step(cfg, ctx, long, device="cpu")
+        got, cache = step(params, cache, tok[:1])
+        want, _ = engine.jit_decode_step(cfg, None, scfg, device="cpu")(
+            params, dec.init_cache(cfg, 1, 16, device="cpu"), tok[:1])
+        # the distributed softmax divides after its merge
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL)
+        assert sharding.is_dtensor(cache["blocks"]["pos0"])
     # make_fleet(replicas=1) is one BatchedServer's scheduler behind a
     # router: the same streams
     cfg, params = _port()

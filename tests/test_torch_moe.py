@@ -18,8 +18,8 @@ dropped), under both dispatches:
 The deterministic combine equals the reference's serial
 ``zeros.at[tok].add(contrib)`` bit for bit in bfloat16 and float32, dropped
 rows included; ``_top_k`` takes equal values lower index first, as
-``lax.top_k``; ``_capacity`` equals the reference's; the sharded path is
-refused.
+``lax.top_k``; ``_capacity`` equals the reference's; a one-rank mesh gives
+the one-device bits.
 """
 import functools
 
@@ -164,11 +164,22 @@ def test_capacity_matches_reference():
 
 
 def test_sharded_moe_is_refused():
+    """Expert parallelism no longer waits (item 9h's serving half; 8 ranks
+    in tests/test_torch_dist.py): on a one-rank ("data", "model") mesh the
+    layer gives the one-device layer's bits, and a mesh-less context is
+    the one-device layer."""
+    from _torch_dist_run import one_rank_group
+    from repro_torch.dist.sharding import (ShardCtx, full_tensor, local_ctx,
+                                           make_mesh)
     params, x = _port_inputs()
     spec = _spec(moe, "one-shard", "earth")
-
-    class Ctx:
-        mesh = object()
-
-    with pytest.raises(NotImplementedError, match="dist"):
-        moe.moe_layer(params, x[None], spec, Ctx())
+    want, want_aux = moe.moe_layer(params, x[None], spec, None)
+    got, aux = moe.moe_layer(params, x[None], spec, local_ctx())
+    assert_bits_equal(got, want)
+    with one_rank_group():
+        mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+        ctx = ShardCtx(mesh=mesh, data_axes=("data",), model_axis="model")
+        got, aux = moe.moe_layer(params, x[None], spec, ctx)
+        got = full_tensor(got)        # placed on (data, model): a DTensor
+    assert_bits_equal(got, want)
+    assert_bits_equal(aux, want_aux)

@@ -393,10 +393,10 @@ def test_verify_fuses_page_gathers_ref(monkeypatch):
     seen = []
     real = lower.executor
 
-    def counting(program, specs):
+    def counting(program, specs, shard=None):
         if program.txn.op == "paged.gather":
             seen.append(program.txn.width)
-        return real(program, specs)
+        return real(program, specs, shard)
     monkeypatch.setattr(lower, "executor", counting)
     toks = torch.tensor([[3, 5, 7, 9], [11, 2, 4, 6]], dtype=torch.int32)
     nd = torch.full((2,), 4, dtype=torch.int32)
