@@ -7,14 +7,15 @@ from ``src/repro_torch/csrc`` into ``build/`` (one nvcc per source, all
 started together) and exits non-zero, with no result line, when there is
 no card or no port beside it.
 
-Phases, in order (any failure raises and exits non-zero).  The CLI runs
-of phases 7-12 and 15c and phase 16's ranks are processes of their own:
-they start after phase 10, the CLIs three at a time, and run beside
-phases 11-14 of this process (``Background``); then their lines print,
-the CLIs' in phase order and phase 16's, and phase 15 runs alone.  Every
-line of phases 11-14, of the CLIs and of phase 16 starts with ``[beside
-the background]``: its times were taken on a card and host shared with
-the background, not alone:
+Phases, in order (any failure raises and exits non-zero).  The ranks of
+phases 16 and 17 and the CLI runs of phases 7-12 and 15c are processes
+of their own (``Background``): the ranks start after phase 6 and run
+beside phases 7-14 of this process, the CLIs start after phase 10, three
+at a time, beside phases 11-14; then their lines print, the CLIs' in
+phase order, then phase 16's and 17's, and phase 15 runs alone.  Every
+line of phases 7-14, of the CLIs and of phases 16-17 starts with
+``[beside the background]``: its times were taken on a card and host
+shared with the background, not alone:
 
 1. the card's ``name, power.limit`` (nvidia-smi), the torch version, and
    the kernels' build time;
@@ -348,7 +349,8 @@ the background, not alone:
    (6 steps of 4 x 512 tokens; finite losses, ms per step and tokens/s
    from its lines), its refusal under the default ``kernel`` policy (exit
    non-zero with the kernels' gradient guard), ``--mesh single-pod``
-   (exit non-zero naming item 9h), and at smoke size a 9-step run with a
+   (exit non-zero: a world of one process cannot hold the (16, 16) mesh,
+   ``make_mesh``'s ``ValueError``), and at smoke size a 9-step run with a
    checkpoint every 3 steps and its resume from step 6, whose final
    losses agree within 1e-5 relative; (d) ``core/rcvrf`` on the card
    against the CPU bit for bit over every (block, byte, count) of the
@@ -387,12 +389,38 @@ the background, not alone:
    ``capacity_slack``.  Each rank's
    launches of the sharded runs join the kernels' line.
    ``sharded_phase(card_line())`` runs it alone.
+17. sharded training, in phase 16's spawn (the same 4 ranks on
+   ``cuda:0`` under ``gloo``): (17.0) GPipe's hand-off on CUDA tensors,
+   ``dist.sharding.ppermute``'s ``all_to_all_single`` with one peer's
+   split (point-to-point sends abort here, ``tools/gloo_p2p_probe.py``),
+   checked and a 32 MiB one timed; (a)
+   qwen3-0.6b ZeRO-1 training at full width and depth on (2, 2) = (data,
+   model), 4 x 512 seeded tokens (15c's cut of ``train_4k``), ``ref``:
+   2 bf16-compute steps gated as the reference's
+   ``check_sharded_train_step`` gates its own, with each step's ms,
+   collectives, bytes and host seconds, a rank's param and moment bytes
+   and its peak memory; then one float32-compute step against rank 0's
+   one-process step on the same state and batch (loss rtol 1e-4, grad
+   norm rtol 1e-3, every param within 2 lr, at most 1e-3 of them beyond
+   0.1 lr); (b) GPipe on (2, 1, 2) = (pod, data, model), 2 stages, 2
+   microbatches, loss and backward: the loss within the reference's
+   rtol 2e-3 of rank 0's one-process ``loss_fn``, every rank's stage
+   gradient finite and nonzero; (c) 17a's params saved from (2, 2) and
+   restored onto (1, 4), bit for bit; (d) the batch-sharded decode on
+   (2, 2): ``jit_prefill`` under the mesh, 4 greedy batch-sharded
+   ``jit_decode_step`` s under ``kernel`` and ``ref`` (bit for bit; one
+   B1 launch a step on every rank under ``kernel``, on its cache block),
+   B1 on a rank's block against its plain version, the streams against
+   rank 0's one-process steps.  17d's launches under ``kernel`` (its
+   prefill's too) join the kernels' line.  ``training_phase(card_line())``
+   runs it alone.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
 ``scatter_many`` call, phases 11's and 12's scheduler runs, phase 13's
-whisper calls, phase 15a's data-path calls and phase 16's ranks under the same policies; the strided path's (and phase 16's) for
+whisper calls, phase 15a's data-path calls, phase 16's ranks and phase
+17d's under the same policies; the strided path's (and phase 16's) for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -2271,14 +2299,15 @@ class _Tagged:
 
 class Background:
     """What this script runs in processes of its own: the CLI runs of
-    phases 7-12 and 15c (queued through :func:`cli_runs`) and phase 16's
-    spawn of ranks.  :meth:`start` (after phase 10) starts the spawn and
-    the queued CLIs, ``CLI_WORKERS`` at a time; a CLI queued later starts
-    when a worker frees.  They run beside phases 11-14 of this process,
-    sharing the card and the host's cores with them.  :meth:`join` waits
-    for every run, prints each CLI's report in the order queued, then
-    phase 16's lines.  From :meth:`start` to the end of :meth:`join` every
-    line printed starts with :data:`CONTENDED`."""
+    phases 7-12 and 15c (queued through :func:`cli_runs`) and the spawn of
+    ranks of phases 16 and 17.  :meth:`start_spawn` (after phase 6)
+    starts the spawn, beside phases 7-14; :meth:`start` (after phase 10)
+    the queued CLIs, ``CLI_WORKERS`` at a time, beside phases 11-14; a
+    CLI queued later starts when a worker frees.  They share the card and
+    the host's cores with this process.  :meth:`join` waits for every
+    run, prints each CLI's report in the order queued, then phase 16's
+    and 17's lines.  From :meth:`start_spawn` to the end of :meth:`join`
+    every line printed starts with :data:`CONTENDED`."""
 
     def __init__(self):
         self.jobs: list = []          # [report, fn, args, future]
@@ -2288,26 +2317,37 @@ class Background:
         future = None if self.pool is None else self.pool.submit(fn, *args)
         self.jobs.append([report, fn, args, future])
 
-    def start(self) -> None:
+    def start_spawn(self) -> None:
+        """Start the ranks of phases 16 and 17 (after phase 6, so that
+        they run beside phases 7-14); every line from here on is
+        tagged."""
         from concurrent.futures import ThreadPoolExecutor
         self.t0 = time.perf_counter()
         self.spawner = ThreadPoolExecutor(1)
         self.spawned = self.spawner.submit(timed_spawn16)
-        self.pool = ThreadPoolExecutor(CLI_WORKERS)
-        for job in self.jobs:
-            job[3] = self.pool.submit(job[1], *job[2])
         sys.stdout.flush()
         self.stdout, sys.stdout = sys.stdout, _Tagged(sys.stdout, CONTENDED)
 
+    def start(self) -> None:
+        """Start the queued CLIs (after phase 10)."""
+        from concurrent.futures import ThreadPoolExecutor
+        self.t_cli = time.perf_counter()
+        self.pool = ThreadPoolExecutor(CLI_WORKERS)
+        for job in self.jobs:
+            job[3] = self.pool.submit(job[1], *job[2])
+
     def join(self, card: str) -> dict:
-        """Phase 16's launches, summed over its ranks."""
+        """Phases 16's and 17's launches, summed over their ranks."""
         results = [job[3].result() for job in self.jobs]
         spawned = self.spawned.result()
-        print(f"background: {len(self.jobs)} CLI runs in subprocesses, "
-              f"{CLI_WORKERS} at a time, and phase 16's {RANKS16} ranks, "
-              f"beside phases 11-14 on {card}: joined "
-              f"{time.perf_counter() - self.t0:.1f} s after they started "
-              f"(every CLI's wall time below is taken so)")
+        now = time.perf_counter()
+        print(f"background: phases 16-17's {RANKS16} ranks (started after "
+              f"phase 6, beside phases 7-14) and {len(self.jobs)} CLI runs "
+              f"in subprocesses, {CLI_WORKERS} at a time (started after "
+              f"phase 10, beside phases 11-14) on {card}: joined "
+              f"{now - self.t0:.1f} s after the ranks started and "
+              f"{now - self.t_cli:.1f} s after the CLIs (every CLI's wall "
+              f"time below is taken so)")
         for job, r in zip(self.jobs, results):
             job[0](r)
         self.pool.shutdown()
@@ -5282,7 +5322,8 @@ def cli_cell(card: str) -> None:
     """15c: the training CLI in subprocesses (:func:`cli_runs`): (i)
     qwen3-0.6b at full width under ``ref``, the batch cut to 4 x 512
     tokens; (ii) the same under the card's default policy refuses at the
-    kernels' gradient guard; (iii) a mesh is refused naming item 9h; (iv)
+    kernels' gradient guard; (iii) ``--mesh single-pod`` in a world of one
+    process raises the production mesh's ``ValueError``; (iv)
     at smoke size, a run and its resume from the step-6 checkpoint end at
     the same loss."""
     label = "phase 15c train CLI"
@@ -5307,7 +5348,8 @@ def cli_cell(card: str) -> None:
               f"guard: {r['stderr'].strip().splitlines()[-1][:120]}...")
 
     def report_mesh(r):
-        if "9h" not in r["stderr"] or "NotImplementedError" not in r["stderr"]:
+        if "needs 256 ranks, the process group has 1" not in r["stderr"] \
+                or "ValueError" not in r["stderr"]:
             raise AssertionError(f"{label}: the mesh refusal: "
                                  f"{r['stderr'][-2000:]}")
         print(f"{label}: --mesh single-pod exit {r['rc']}: "
@@ -5429,10 +5471,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def rank16(rank: int, world: int, port: int, out_dir: str):
-    """One rank of phase 16's spawn: joins the ``gloo`` group over
-    localhost on ``cuda:0`` (every rank shares the one card), runs
-    :func:`sharded16` and writes its result as JSON for the parent."""
+def rank16(rank: int, world: int, port: int, out_dir: str, run) -> None:
+    """One rank of a spawn on ``cuda:0``: joins the ``gloo`` group over
+    localhost (every rank shares the one card), runs ``run(rank)``
+    (:func:`phases16_17` or :func:`timed17`) and writes its result as
+    JSON for the parent."""
     import datetime
     import torch
     import torch.distributed as dist
@@ -5441,7 +5484,7 @@ def rank16(rank: int, world: int, port: int, out_dir: str):
         "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
         world_size=world, timeout=datetime.timedelta(seconds=600))
     try:
-        result = sharded16(rank)
+        result = run(rank)
         torch.cuda.synchronize()
         with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
             json.dump(result, f)
@@ -5449,21 +5492,38 @@ def rank16(rank: int, world: int, port: int, out_dir: str):
         dist.destroy_process_group()
 
 
-def timed_spawn16() -> tuple:
-    """(:func:`spawn16`'s results, its wall seconds)."""
+def timed17(rank: int) -> dict:
+    """:func:`sharded17` with its wall seconds."""
     t0 = time.perf_counter()
-    return spawn16(), time.perf_counter() - t0
+    result = sharded17(rank)
+    result["s"] = time.perf_counter() - t0
+    return result
 
 
-def spawn16() -> list:
-    """:func:`rank16` on ``RANKS16`` spawned ranks; their results in rank
-    order.
+def phases16_17(rank: int) -> dict:
+    """Phases 16 and 17 on one rank: :func:`sharded16`, then phase 17
+    under ``"17"``."""
+    result = sharded16(rank)
+    result["17"] = timed17(rank)
+    return result
+
+
+def timed_spawn16() -> tuple:
+    """(:func:`spawn16`'s results for phases 16 and 17, its wall
+    seconds)."""
+    t0 = time.perf_counter()
+    return spawn16(phases16_17), time.perf_counter() - t0
+
+
+def spawn16(run) -> list:
+    """:func:`rank16` running ``run`` on ``RANKS16`` spawned ranks; their
+    results in rank order.
     A rank that fails fails the spawn (and the smoke): the others are
     terminated."""
     import tempfile
     import torch.multiprocessing as mp
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
-        mp.spawn(rank16, args=(RANKS16, _free_port(), d),
+        mp.spawn(rank16, args=(RANKS16, _free_port(), d, run),
                  nprocs=RANKS16, join=True)
         return [json.loads((Path(d) / f"rank{r}.json").read_text())
                 for r in range(RANKS16)]
@@ -5953,6 +6013,500 @@ def moe16(dev, rank: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: sharded training (in phase 16's spawn)
+# ---------------------------------------------------------------------------
+
+#: 15c's cut of train_4k (global batch 256 x 4096 tokens): 4 x 512.
+TRAIN17_BATCH, TRAIN17_SEQ = 4, 512
+#: The float32 arm's depth (qwen3-0.6b has 28 layers).
+F32_LAYERS17 = 28
+#: The batch-sharded decode: prompt tokens, greedy steps, cache length.
+SERVE17_PROMPT, SERVE17_STEPS, SERVE17_MAX_LEN = 64, 4, 512
+
+
+def probe17(rank: int) -> dict:
+    """17.0: GPipe's hand-off on CUDA tensors under gloo:
+    ``dist.sharding.ppermute`` (``all_to_all_single`` with every split
+    empty but one peer's; ``gloo`` refuses point-to-point sends of CUDA
+    tensors here, ``tools/gloo_p2p_probe.py``), checked and a 32 MiB one
+    timed."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import make_mesh
+    world = dist.get_world_size()
+    dev = torch.device("cuda")
+    x = torch.full((1024,), float(rank + 1), device=dev)
+    src = (rank - 1) % world
+    mesh = make_mesh((world,), ("pod",))
+    got = sharding.ppermute(x, mesh, "pod", 1)
+    torch.cuda.synchronize()
+    if float(got[0]) != src + 1:
+        raise AssertionError(f"17.0: ppermute gave {float(got[0])} on rank "
+                             f"{rank}, want {src + 1}")
+    big = torch.ones((16 << 20,), dtype=torch.bfloat16, device=dev)
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        sharding.ppermute(big, mesh, "pod", 1)
+    torch.cuda.synchronize()
+    return {"ppermute_32MiB_ms": (time.perf_counter() - t0) / 3 * 1e3}
+
+
+def _collectives17() -> dict:
+    from repro_torch.dist import sharding
+    log = sharding.LOG
+    ops: dict = {}
+    for (op, shape, _), n in log.counts.items():
+        ops[op] = ops.get(op, 0) + n
+    return {"calls": log.calls, "bytes": log.bytes, "s": log.seconds,
+            "ops": ops}
+
+
+def _step17(step, state, batch) -> tuple:
+    """One train step: (state, metrics as floats, host ms, collectives)."""
+    import torch
+    from repro_torch.dist import sharding
+    sharding.LOG.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return state, {k: float(v) for k, v in m.items()}, ms, _collectives17()
+
+
+def train17(dev, rank: int) -> dict:
+    """17a: ZeRO-1 sharded training of qwen3-0.6b at full width and depth
+    on (2, 2) = (data, model), 4 x 512 seeded tokens (15c's cut), under
+    ``ref`` (training differentiates no kernel): 2 bf16-compute steps
+    gated as the reference's ``check_sharded_train_step`` gates its own
+    (finite losses, the second below the first + 0.5, ``wq`` a DTensor
+    of which a rank holds 1/2); then a float32-compute step against rank
+    0's one-process step on the same state and batch.  Returns the bf16
+    state's params for 17c."""
+    import torch
+    from repro_torch.configs.base import train_batch
+    from repro_torch.configs.qwen3_0_6b import config
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import state as tstate
+    from repro_torch.train import step as tstep
+    cfg = dataclasses.replace(config(), kernel_impl="ref")
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")))
+    batch = train_batch(cfg, TRAIN17_SEQ, TRAIN17_BATCH, specs=False,
+                        generator=torch.Generator(dev).manual_seed(SEED + 17),
+                        device=dev)
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED, device=dev)
+    whole = sharding.local_nbytes(params)
+    state = tstate.init_placed_state(params, ctx)
+    del params
+    torch.cuda.empty_cache()
+    out["param_bytes"] = [whole, sharding.local_nbytes(state["params"])]
+    out["moment_bytes"] = [2 * whole, sharding.local_nbytes(
+        {"m": state["opt"]["m"], "v": state["opt"]["v"]})]
+    step = tstep.make_train_step(cfg, tstep.TrainConfig(), ctx)
+    out["bf16"] = []
+    for _ in range(2):
+        state, m, ms, coll = _step17(step, state, batch)
+        out["bf16"].append({"loss": m["loss"], "grad_norm": m["grad_norm"],
+                            "ms": ms, "collectives": coll})
+    l1, l2 = (s["loss"] for s in out["bf16"])
+    wq = state["params"]["blocks"]["pos0"]["attn"]["wq"]
+    if not (math.isfinite(l1) and math.isfinite(l2) and l2 < l1 + 0.5) or \
+            not sharding.is_dtensor(wq) or \
+            2 * wq.to_local().shape[-1] != wq.shape[-1]:
+        raise AssertionError(f"17a bf16: losses {l1}, {l2}; wq "
+                             f"{type(wq).__name__}")
+    out["peak"] = torch.cuda.max_memory_allocated()
+    placed = state["params"]
+    del state, step
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                n_layers=F32_LAYERS17)
+    params = init_params(cfg32, SEED, device=dev)
+    if rank == 0:
+        one = tstate.init_train_state(sharding.tree_map(torch.clone, params))
+        one, want, ms1, _ = _step17(tstep.make_train_step(
+            cfg32, tstep.TrainConfig(), None), one, batch)
+        out["f32_one_ms"] = ms1
+    state = tstate.init_placed_state(params, ctx)
+    del params
+    torch.cuda.empty_cache()
+    state, m, ms, coll = _step17(tstep.make_train_step(
+        cfg32, tstep.TrainConfig(), ctx), state, batch)
+    out["f32"] = {"loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms,
+                  "collectives": coll, "lr": m["lr"]}
+    # AdamW moves a weight by about lr * sign(g): a gradient entry near 0
+    # whose sign the summation order flips moves it by up to 2 lr; past
+    # 0.1 lr is such a flip (1e-3 lr is the params' float32 ulp here)
+    gap, far, ulp, n = 0.0, 0, 0, 0
+    for path, leaf in sharding._leaves_with_path(state["params"]):
+        whole_leaf = sharding.full_tensor(leaf)
+        if rank == 0:
+            ref = one["params"]
+            for k in path:
+                ref = ref[k]
+            d = (whole_leaf - ref).abs()
+            gap = max(gap, float(d.max()))
+            far += int((d > 0.1 * m["lr"]).sum())
+            ulp += int((d > 1e-3 * m["lr"]).sum())
+            n += d.numel()
+        del whole_leaf
+    if rank == 0:
+        out["f32"].update(want=want, gap=gap, far=far / n, ulp=ulp / n)
+        bad = (abs(m["loss"] - want["loss"]) > 1e-4 * abs(want["loss"])
+               or abs(m["grad_norm"] - want["grad_norm"])
+               > 1e-3 * want["grad_norm"]
+               or gap > 2 * m["lr"] or far > 1e-3 * n)
+        del one
+        if bad:
+            raise AssertionError(f"17a float32: sharded {m} vs one process "
+                                 f"{want}; params gap {gap} (lr "
+                                 f"{m['lr']}), {far} of {n} beyond "
+                                 f"0.1 lr")
+    del state
+    torch.cuda.empty_cache()
+    return out, placed
+
+
+def pipeline17(dev, rank: int) -> dict:
+    """17b: GPipe over the pod axis of (2, 1, 2) = (pod, data, model):
+    qwen3-0.6b at full width and depth in two stages of 14 superblocks,
+    2 microbatches of 17a's batch, bf16 compute; the loss within the
+    reference's rtol 2e-3 of rank 0's one-process ``loss_fn``, the
+    gradients through the hand-offs finite and nonzero on every rank,
+    their global norm (the stages' shares added) beside the one-process
+    one."""
+    import torch
+    from repro_torch.configs.base import train_batch
+    from repro_torch.configs.qwen3_0_6b import config
+    from repro_torch.dist import sharding
+    from repro_torch.dist.pipeline_par import (PipelineConfig,
+                                               pipeline_loss_fn,
+                                               reduce_stage_grads)
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.train import step as tstep
+    cfg = dataclasses.replace(config(), kernel_impl="ref")
+    ctx = make_ctx(make_mesh((2, 1, 2), ("pod", "data", "model")))
+    pcfg = PipelineConfig(axis="pod", n_microbatches=2)
+    batch = train_batch(cfg, TRAIN17_SEQ, TRAIN17_BATCH, specs=False,
+                        generator=torch.Generator(dev).manual_seed(SEED + 17),
+                        device=dev)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, SEED, device=dev)
+    out = {}
+    if rank == 0:
+        loss1, _, g1 = tstep._loss_and_grads(params, batch, cfg, None)
+        out["one"] = {"loss": float(loss1), "gnorm": float(global_norm(g1))}
+        del g1
+        torch.cuda.empty_cache()
+    sharding.LOG.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = tstep._grads_of(
+        lambda p: pipeline_loss_fn(p, batch, cfg, ctx, pcfg), params)
+    torch.cuda.synchronize()
+    out["ms"] = (time.perf_counter() - t0) * 1e3
+    out["collectives"] = _collectives17()
+    share = float(global_norm(grads))
+    whole = reduce_stage_grads(grads, ctx, pcfg)
+    del grads
+    out.update(loss=float(loss), share=share,
+               gnorm=float(global_norm(whole)))
+    del whole, params
+    torch.cuda.empty_cache()
+    if not (math.isfinite(share) and share > 0
+            and math.isfinite(out["gnorm"])):
+        raise AssertionError(f"17b: rank {rank}'s stage gradient norm "
+                             f"{share}, whole {out['gnorm']}")
+    if rank == 0 and abs(out["loss"] - out["one"]["loss"]) > \
+            2e-3 * abs(out["one"]["loss"]):
+        raise AssertionError(f"17b: pipelined loss {out['loss']} vs one "
+                             f"process {out['one']['loss']} (rtol 2e-3)")
+    return out
+
+
+def elastic17(dev, rank: int, placed) -> dict:
+    """17c: 17a's trained params (placed on (2, 2), model axis 2) saved
+    (their logical arrays, written by rank 0 under ``build/``) and
+    restored onto (1, 4) (model axis 4) with ``restore_elastic``: every
+    leaf bit for bit, ``wq`` a rank's quarter."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.ft import elastic
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_ctx
+    d = ROOT / "build" / "ckpt17"
+    if rank == 0 and d.exists():
+        shutil.rmtree(d)
+    dist.barrier()
+    mgr = CheckpointManager(str(d))
+    t0 = time.perf_counter()
+    mgr.save(1, placed, blocking=True)
+    dist.barrier()
+    out = {"save_s": time.perf_counter() - t0}
+    ctx4 = make_ctx(make_mesh((1, 4), ("data", "model")))
+    t0 = time.perf_counter()
+    restored, _ = elastic.restore_elastic(mgr, placed, ctx4)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    out["disk_bytes"] = sum(f.stat().st_size for f in d.rglob("*")
+                            if f.is_file())
+    n = 0
+    for (path, a), (_, b) in zip(sharding._leaves_with_path(placed),
+                                 sharding._leaves_with_path(restored)):
+        if not same_bits(sharding.full_tensor(a), sharding.full_tensor(b)):
+            raise AssertionError(f"17c: leaf {'/'.join(path)} differs "
+                                 f"after the restore onto (1, 4)")
+        n += 1
+    wq = restored["blocks"]["pos0"]["attn"]["wq"]
+    if 4 * wq.to_local().shape[-1] != wq.shape[-1]:
+        raise AssertionError(f"17c: wq's block {tuple(wq.to_local().shape)}"
+                             f" of {tuple(wq.shape)} on model axis 4")
+    out.update(leaves=n, bytes=[sharding.local_nbytes(placed),
+                                sharding.local_nbytes(restored)])
+    del restored
+    dist.barrier()
+    if rank == 0:
+        shutil.rmtree(d)
+    return out
+
+
+def serve17(dev, rank: int) -> dict:
+    """17d: the batch-sharded decode of qwen3-0.6b at full width on (2, 2)
+    = (data, model): ``jit_prefill`` under the mesh (each rank 2 of the
+    4 seeded 64-token prompts), then 4 greedy batch-sharded
+    ``jit_decode_step`` s (a rank's KV heads 4 of 8, attended
+    head-parallel) under ``kernel`` and, from the same cache, ``ref``:
+    logits bit for bit, one B1 launch a step on every rank under
+    ``kernel`` (its cache block, the fused split), none under ``ref``;
+    B1 on a rank's cache block against its plain version bit for bit;
+    streams equal to rank 0's one-process dense steps."""
+    import torch
+    from repro_torch.configs.qwen3_0_6b import config
+    from repro_torch.dist import sharding
+    from repro_torch.kernels import segment
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.models.transformer import cast_params, init_params
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill, serve_param_shardings)
+    cfg = dataclasses.replace(config(), kernel_impl="kernel")
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")))
+    g = torch.Generator(dev).manual_seed(SEED + 19)
+    toks = torch.randint(0, cfg.vocab, (4, SERVE17_PROMPT), generator=g,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.empty_cache()
+    params = cast_params(init_params(cfg, SEED, device=dev), cfg)
+    out = {"launches": {}}
+    scfg = ServeConfig(max_len=SERVE17_MAX_LEN)
+    if rank == 0:
+        logits, states = jit_prefill(cfg, None, device=dev)(
+            params, {"tokens": toks})
+        cache = dec.cache_from_prefill(cfg, states, SERVE17_PROMPT,
+                                       SERVE17_MAX_LEN, torch.bfloat16)
+        step = jit_decode_step(cfg, None, scfg, device=dev)
+        tok, want = torch.argmax(logits[:, -1].float(), -1).int(), []
+        for _ in range(SERVE17_STEPS):
+            logits, cache = step(params, cache, tok)
+            want.append(logits.float())
+            tok = torch.argmax(logits.float(), -1).int()
+        del cache, states
+    placed = sharding.place_tree(params, serve_param_shardings(params, cfg,
+                                                               ctx))
+    del params
+    torch.cuda.empty_cache()
+    before = _launches16()
+    logits, states = jit_prefill(cfg, ctx, device=dev)(placed,
+                                                       {"tokens": toks})
+    _add(out["launches"], _delta(before))
+    whole = {k: sharding.full_tensor(v) for k, v in states.items()}
+    del states
+    cache0 = dec.cache_from_prefill(cfg, whole, SERVE17_PROMPT,
+                                    SERVE17_MAX_LEN, torch.bfloat16)
+    del whole
+    tok0 = torch.argmax(sharding.full_tensor(logits)[:, -1].float(),
+                        -1).int()
+    runs = {}
+    for impl in ("kernel", "ref"):
+        c = dataclasses.replace(cfg, kernel_impl=impl)
+        cache = {"len": cache0["len"].clone(), "blocks": {
+            k: v.clone() for k, v in cache0["blocks"].items()}}
+        step = jit_decode_step(c, ctx, scfg, device=dev)
+        tok, logs, ms, b1 = tok0, [], [], []
+        sharding.LOG.reset()
+        before = _launches16()
+        for _ in range(SERVE17_STEPS):
+            n0 = _launches16()["deinterleave"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(placed, cache, tok)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            b1.append(_launches16()["deinterleave"] - n0)
+            lg = sharding.full_tensor(lg)
+            logs.append(lg)
+            tok = torch.argmax(lg.float(), -1).int()
+        delta = _delta(before)
+        if impl == "kernel":
+            _add(out["launches"], delta)
+        runs[impl] = {"logits": logs, "ms": ms, "b1": b1,
+                      "collectives": _collectives17(),
+                      "spec": str(sharding.spec_of(cache["blocks"]["pos0"])),
+                      "cache": cache}
+    k, r = runs["kernel"], runs["ref"]
+    for t in range(SERVE17_STEPS):
+        if not same_bits(k["logits"][t], r["logits"][t]):
+            raise AssertionError(f"17d: kernel and ref logits differ at "
+                                 f"step {t}")
+    if k["b1"] != [1] * SERVE17_STEPS or any(r["b1"]):
+        raise AssertionError(f"17d: B1 launches per step kernel {k['b1']}, "
+                             f"ref {r['b1']}")
+    block = k["cache"]["blocks"]["pos0"].to_local()
+    got = segment.deinterleave(block, 2)
+    want_b1 = segment.deinterleave_plain(block, 2)
+    if not all(same_bits(a, b) for a, b in zip(got, want_b1)):
+        raise AssertionError("17d: B1 on a rank's cache block != plain")
+    out["block"] = list(block.shape)
+    out["cache_bytes"] = [sharding.local_nbytes(cache0["blocks"]),
+                          sharding.local_nbytes(k["cache"]["blocks"])]
+    if rank == 0:
+        toks_k = [[int(x) for x in torch.argmax(lg.float(), -1)]
+                  for lg in k["logits"]]
+        toks_1 = [[int(x) for x in torch.argmax(lg, -1)] for lg in want]
+        out["gap"], out["tol"] = _gap(k["logits"], want)
+        if toks_k != toks_1:
+            raise AssertionError(f"17d: batch-sharded stream {toks_k} vs "
+                                 f"one process {toks_1}")
+    for impl, run in runs.items():
+        out[impl] = {"ms": run["ms"], "b1": run["b1"], "spec": run["spec"],
+                     "collectives": run["collectives"]}
+    del runs, k, r, cache0, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded17(rank: int) -> dict:
+    """17.0-17d on one rank (the same program on every rank)."""
+    import torch
+    dev = torch.device("cuda")
+    res = {"probe": probe17(rank)}
+    t0 = time.perf_counter()
+    res["17a"], placed = train17(dev, rank)
+    res["17a"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["17c"] = elastic17(dev, rank, placed)
+    res["17c"]["s"] = time.perf_counter() - t0
+    del placed
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res["17b"] = pipeline17(dev, rank)
+    res["17b"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["17d"] = serve17(dev, rank)
+    res["17d"]["s"] = time.perf_counter() - t0
+    return res
+
+
+def _coll_text(c: dict) -> str:
+    return (f"{c['calls']} collectives ({', '.join(f'{k} {v}' for k, v in sorted(c['ops'].items()))}), "
+            f"{c['bytes']} B, {c['s']:.3f} s of host time")
+
+
+def train_phase_lines(res: list, where: str) -> dict:
+    """Phase 17's lines from every rank's :func:`sharded17` result; its
+    launches summed over the ranks."""
+    r0 = res[0]
+    p = r0["probe"]
+    print(f"phase 17.0 GPipe's hand-off on CUDA tensors under gloo "
+          f"({where}): all_to_all_single with one peer's split (dist."
+          f"sharding.ppermute; point-to-point sends refused, "
+          f"tools/gloo_p2p_probe.py): the peer's data, 32 MiB bf16 "
+          f"{statistics.median(r['probe']['ppermute_32MiB_ms'] for r in res):.3f}"
+          f" ms (median over ranks, host clock)")
+    a = r0["17a"]
+    for i, s in enumerate(a["bf16"]):
+        print(f"phase 17a qwen3-0.6b ZeRO-1 train step {i} [bf16 compute, "
+              f"ref] on (2, 2) (data, model) ({where}): {TRAIN17_BATCH} x "
+              f"{TRAIN17_SEQ} tokens, full width and depth; loss "
+              f"{s['loss']:.6f}, grad norm {s['grad_norm']:.6f}; ms per rank "
+              f"{[round(r['17a']['bf16'][i]['ms'], 1) for r in res]} (host "
+              f"clock, synchronized); rank 0: {_coll_text(s['collectives'])}")
+    print(f"phase 17a gates (the reference's): losses finite, "
+          f"{a['bf16'][1]['loss']:.6f} < {a['bf16'][0]['loss']:.6f} + 0.5, "
+          f"wq a DTensor a rank holds 1/2 of; a rank's params "
+          f"{a['param_bytes'][1]} of {a['param_bytes'][0]} B, its AdamW "
+          f"moments (ZeRO-1) {a['moment_bytes'][1]} of "
+          f"{a['moment_bytes'][0]} B; peak memory per rank "
+          f"{[r['17a']['peak'] for r in res]} B (activations replicated "
+          f"over the model axis)")
+    f = a["f32"]
+    print(f"phase 17a float32 compute, {F32_LAYERS17} of 28 layers, one "
+          f"step against rank 0's one-process step on the same state and "
+          f"batch: loss {f['loss']:.7f} vs {f['want']['loss']:.7f} (rtol "
+          f"1e-4), grad norm {f['grad_norm']:.6f} vs "
+          f"{f['want']['grad_norm']:.6f} (rtol 1e-3), params largest gap "
+          f"{f['gap']:.3e} (bound 2 lr = {2 * f['lr']:.3e}), "
+          f"{f['far']:.2e} of entries beyond 0.1 lr (bound 1e-3; beyond "
+          f"1e-3 lr, the params' ulp: {f['ulp']:.2e}); ms "
+          f"per rank {[round(r['17a']['f32']['ms'], 1) for r in res]} "
+          f"against {a['f32_one_ms']:.1f} in one process; rank 0: "
+          f"{_coll_text(f['collectives'])} ({a['s']:.1f} s)")
+    b = r0["17b"]
+    print(f"phase 17b GPipe qwen3-0.6b on (2, 1, 2) (pod, data, model) "
+          f"({where}): 2 stages x 14 superblocks, 2 microbatches of "
+          f"{TRAIN17_BATCH // 2} x {TRAIN17_SEQ}, bf16 compute, loss and "
+          f"backward: loss {b['loss']:.6f} vs one process "
+          f"{b['one']['loss']:.6f} (rtol 2e-3); gradient norm, the stages' "
+          f"shares added, {b['gnorm']:.6f} vs one process "
+          f"{b['one']['gnorm']:.6f}; a rank's stage share "
+          f"{[round(r['17b']['share'], 4) for r in res]} (finite, nonzero); "
+          f"ms per rank {[round(r['17b']['ms'], 1) for r in res]}; rank 0: "
+          f"{_coll_text(b['collectives'])} ({b['s']:.1f} s)")
+    c = r0["17c"]
+    print(f"phase 17c elastic restore ({where}): 17a's params on (2, 2) "
+          f"saved ({c['disk_bytes']} B on disk, {c['save_s']:.2f} s with "
+          f"the gathers) and restored onto (1, 4) in {c['restore_s']:.2f} "
+          f"s: {c['leaves']} leaves bit for bit, wq a rank's quarter; a "
+          f"rank's bytes {c['bytes'][0]} on (2, 2), {c['bytes'][1]} on "
+          f"(1, 4) ({c['s']:.1f} s)")
+    d = r0["17d"]
+    for impl in ("kernel", "ref"):
+        print(f"phase 17d qwen3-0.6b batch-sharded decode [{impl}] on (2, 2) "
+              f"({where}): 4 x {SERVE17_PROMPT} prompt tokens prefilled "
+              f"under the mesh, {SERVE17_STEPS} greedy steps, cache "
+              f"{d[impl]['spec']}; B1 launches per step {d[impl]['b1']}; "
+              f"median ms per step per rank "
+              f"{[round(statistics.median(r['17d'][impl]['ms']), 1) for r in res]}; "
+              f"rank 0: {_coll_text(d[impl]['collectives'])}")
+    print(f"phase 17d kernel == ref bit for bit over {SERVE17_STEPS} steps; "
+          f"B1 on a rank's cache block {d['block']} == plain bit for bit; "
+          f"greedy streams equal to rank 0's one-process dense steps, "
+          f"largest bf16 logit gap {d['gap']:.6f} beside max(0.08, 0.03 * "
+          f"|logits|max) = {d['tol']:.6f} (not gated); KV cache a rank "
+          f"holds {d['cache_bytes'][1]} of {d['cache_bytes'][0]} B; "
+          f"launches per rank {[r['17d']['launches'] for r in res]} "
+          f"({d['s']:.1f} s)")
+    launches: dict = {}
+    for r in res:
+        _add(launches, r["17d"]["launches"])
+    return launches
+
+
 def sharded16(rank: int) -> dict:
     """16a-16d on one rank (the same program on every rank)."""
     import torch
@@ -5983,13 +6537,14 @@ def sharded16(rank: int) -> dict:
 
 
 def sharded_phase(card: str, spawned=None) -> dict:
-    """Phase 16: 16.0-16d in one spawn of 4 ranks, or the lines of
-    ``spawned`` (:func:`timed_spawn16`'s, run beside phases 11-14).
-    Returns the launches of every rank's sharded runs, summed."""
+    """Phases 16 and 17: 16.0-16d and 17.0-17d in one spawn of 4 ranks,
+    or the lines of ``spawned`` (:func:`timed_spawn16`'s, run beside
+    phases 7-14).  Returns the launches of every rank's sharded runs,
+    summed."""
     res, seconds = spawned or timed_spawn16()
     where = (f"{RANKS16} ranks of one gloo group on cuda:0 of {card}; every "
              f"collective is gloo through host memory on one card (no NCCL, "
-             f"no NVLink)" + (", beside phases 11-14 and the CLI runs"
+             f"no NVLink)" + (", beside phases 7-14 and the CLI runs"
                               if spawned else ""))
     probe = [r["probe"] for r in res]
     print(f"phase 16.0 collectives on CUDA tensors under gloo ({where}): "
@@ -5997,7 +6552,8 @@ def sharded_phase(card: str, spawned=None) -> dict:
           f"{statistics.median(p['all_reduce_64MiB_ms'] for p in probe):.3f}"
           f" ms (median over ranks); the port's path uses all_reduce (psum, "
           f"pmax), all_gather_into_tensor (the weights' superblock "
-          f"gathers) and reduce_scatter_tensor (MoE's psum_scatter)")
+          f"gathers) and reduce_scatter_tensor (MoE's psum_scatter, "
+          f"phase 17's ZeRO-1 gradient reduce)")
     r0 = res[0]
     a = r0["16a"]
     print(f"phase 16a sharded vx verbs ({where}): deinterleave / "
@@ -6084,8 +6640,25 @@ def sharded_phase(card: str, spawned=None) -> dict:
     for r in res:
         for part in ("16a", "16b", "16c"):
             _add(launches, r[part]["launches"])
-    print(f"phase 16: {seconds:.1f} s; launches of the sharded runs, all "
-          f"ranks {launches}")
+    print(f"phase 16: {seconds - r0['17']['s']:.1f} s; launches of the "
+          f"sharded runs, all ranks {launches}")
+    more = train_phase_lines([r["17"] for r in res], where)
+    print(f"phase 17: {r0['17']['s']:.1f} s; launches of the batch-sharded "
+          f"prefill and kernel decode, all ranks {more}")
+    _add(launches, more)
+    return launches
+
+
+def training_phase(card: str) -> dict:
+    """Phase 17 alone: :func:`timed17` on ``RANKS16`` spawned ranks, its
+    lines.  Returns the launches of its batch-sharded runs, summed."""
+    res = spawn16(timed17)
+    where = (f"{RANKS16} ranks of one gloo group on cuda:0 of {card}; every "
+             f"collective is gloo through host memory on one card (no NCCL, "
+             f"no NVLink), phase 17 alone")
+    launches = train_phase_lines(res, where)
+    print(f"phase 17: {res[0]['s']:.1f} s; launches of the batch-sharded "
+          f"prefill and kernel decode, all ranks {launches}")
     return launches
 
 
@@ -6277,6 +6850,7 @@ def main() -> int:
     ipk = indexed_phase(dev, kv_shape, timing)
     global BACKGROUND
     BACKGROUND = Background()
+    BACKGROUND.start_spawn()
     dense_phase(dev, cfg, card, slots, page_size)
     quant_prefix_phase(dev, cfg, card, prompts, gen, slots, max_len,
                        page_size, timing)

@@ -1,7 +1,7 @@
 """The port's device rule: ``cuda`` unless the caller asks for the CPU.
-A mesh serves the sharded decode steps (``dist``); what still refuses one
-(training, ``forward`` and the batch-sharded serve steps) calls
-:func:`refuse_mesh`."""
+A mesh serves the sharded decode and prefill steps, the mesh forward and
+loss and the sharded train step (``dist``); what still refuses one calls
+:func:`refuse_mesh` with the ROADMAP item it waits for."""
 from __future__ import annotations
 
 import torch
@@ -20,10 +20,11 @@ def resolve(device=None) -> torch.device:
     return torch.device(device)
 
 
-def refuse_mesh(ctx) -> None:
-    """Raise for a sharding context with a mesh where the port still runs
-    on one device: training, ``forward`` and the batch-sharded steps."""
-    if ctx is not None and getattr(ctx, "mesh", None) is not None:
-        raise NotImplementedError("this sharded path waits for the training "
-                                  "half of the port's dist slice "
-                                  "(ROADMAP.md queue A, item 9h)")
+def refuse_mesh(ctx, item: str) -> None:
+    """Raise for a sharding context with a mesh on a path that still runs
+    on one device (the encoder-decoder's decode step), naming the ROADMAP
+    item it waits for."""
+    from repro_torch.dist.sharding import meshed
+    if meshed(ctx):
+        raise NotImplementedError(f"this sharded path waits for ROADMAP.md "
+                                  f"queue A, item {item}")

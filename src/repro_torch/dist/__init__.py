@@ -3,10 +3,12 @@ the spec rules, placement on a ``DeviceMesh`` and the collectives.
 
 Modules
 -------
-sharding : ShardCtx + P rules for params / activations / state, placement
-           of ``DTensor`` blocks, ``shard_map`` and ``make_mesh``.
-
-GPipe pipeline parallelism (``pipeline_par``) waits for the training half
-of item 9h (ROADMAP.md queue A).
+sharding     : ShardCtx + P rules for params / activations / state,
+               placement of ``DTensor`` blocks, ``shard_map``,
+               ``make_mesh``, the collectives and their differentiable
+               forms (the weight gather, the loss's ``psum``,
+               ``ppermute``) for the mesh forward and the train step.
+pipeline_par : GPipe pipeline parallelism over one mesh axis (the
+               multi-pod "pod" axis).
 """
 from repro_torch.dist import sharding  # noqa: F401

@@ -206,37 +206,19 @@ def from_local(local: torch.Tensor, mesh, spec: P, shape=None):
 
 
 def full_tree(tree):
-    """``tree`` with every leaf whole (:func:`full_tensor`), the
-    ``DTensor`` leaves sharded on one dim over the same mesh axes gathered
-    together: their blocks packed into one buffer per (mesh, axes, dtype),
-    one :func:`all_gather` each (a superblock's weights in one
-    collective)."""
-    flat = [x for _, x in _leaves_with_path(tree)]
-    out = list(flat)
-    groups: dict = {}
-    for i, x in enumerate(flat):
-        if not is_dtensor(x):
-            continue
-        dims = [(d, e) for d, e in enumerate(_norm(spec_of(x), x.ndim))
-                if _names(e)]
-        if len(dims) != 1:
-            out[i] = full_tensor(x)
-            continue
-        (d, e), = dims
-        groups.setdefault((x.device_mesh, _names(e), x.dtype), []).append(
-            (i, x.to_local().movedim(d, 0), d))
-    for (mesh, axes, _), items in groups.items():
-        n = axes_size(mesh, axes)
-        buf = torch.cat([blk.reshape(-1) for _, blk, _ in items])
-        got = all_gather(buf, mesh, axes, 0).view(n, -1)
-        off = 0
-        for i, blk, d in items:
-            part = got[:, off:off + blk.numel()]
-            off += blk.numel()
-            out[i] = part.reshape((n * blk.shape[0],)
-                                  + tuple(blk.shape[1:])).movedim(0, d)
-    it = iter(out)
-    return tree_map(lambda _: next(it), tree)
+    """``tree`` with every leaf whole: the ``DTensor`` leaves gathered
+    (:func:`gather_tree` of their blocks, one collective per mesh axes
+    and dtype for the leaves sharded on one dim: a superblock's weights
+    in one), plain leaves as they are.  Differentiable: see
+    :func:`gather_tree`."""
+    leaves = [x for _, x in _leaves_with_path(tree)]
+    meshes = {x.device_mesh for x in leaves if is_dtensor(x)}
+    if not meshes:
+        return tree
+    if len(meshes) > 1:
+        raise ValueError("full_tree needs the leaves on one mesh")
+    local, specs = split_tree(tree)
+    return gather_tree(local, specs, meshes.pop())
 
 
 def full_tensor(x) -> torch.Tensor:
@@ -306,6 +288,12 @@ def replicated(x) -> torch.Tensor:
                              f"wants it replicated")
         return x.to_local()
     return x
+
+
+def block_of(x):
+    """This rank's block: a ``DTensor``'s local tensor, a plain tensor as
+    it is."""
+    return x.to_local() if is_dtensor(x) else x
 
 
 def owned_block(x, dim: int):
@@ -462,6 +450,190 @@ def psum_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return x
 
 
+# ---------------------------------------------------------------------------
+# Differentiable collectives (the mesh forward, the loss and the pipeline)
+# ---------------------------------------------------------------------------
+
+def split_tree(tree):
+    """``(local, specs)``: each ``DTensor`` leaf's block (one
+    ``to_local``, differentiable: the gradient of the block comes back as
+    the ``DTensor`` leaf's, placed alike) and its :class:`P`; a plain
+    leaf as it is, with ``P()``."""
+    return (tree_map(block_of, tree),
+            tree_map(lambda x: spec_of(x) if is_dtensor(x) else P(), tree))
+
+
+def _zip_leaves(tree, specs) -> list:
+    out: list = []
+    tree_map(lambda x, s: out.append((x, s)), tree, specs)
+    return out
+
+
+def _gather_blocks(mesh, axes: tuple, dims: tuple, blocks) -> list:
+    """The whole tensors of ``blocks`` (block ``i`` sharded on dim
+    ``dims[i]`` over ``axes``), packed into one buffer: one
+    :func:`all_gather`.  Each comes back contiguous, as a weight placed
+    whole is: a matmul then reads the layout the one-device program
+    reads, and sums in its order."""
+    n = axes_size(mesh, axes)
+    moved = [b.movedim(d, 0) for b, d in zip(blocks, dims)]
+    buf = torch.cat([m.reshape(-1) for m in moved])
+    got = all_gather(buf, mesh, axes, 0).view(n, -1)
+    out, off = [], 0
+    for m, d in zip(moved, dims):
+        part = got[:, off:off + m.numel()]
+        off += m.numel()
+        out.append(part.reshape((n * m.shape[0],) + tuple(m.shape[1:]))
+                   .movedim(0, d).contiguous())
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`_gather_blocks` with its transpose.  The ranks an axis
+    gathers over see one cotangent of the whole tensor (they compute the
+    same activations from it), so each takes its owned slice: summing the
+    slices would count a model-axis replica once per rank.  Over the axes
+    of ``reduce`` the ranks hold partial cotangents (each its own batch
+    block), which a ``psum`` adds first."""
+
+    @staticmethod
+    def forward(fctx, mesh, axes, dims, reduce, *blocks):
+        fctx.mesh, fctx.axes, fctx.dims, fctx.reduce = mesh, axes, dims, \
+            reduce
+        fctx.sizes = [b.shape[d] for b, d in zip(blocks, dims)]
+        fctx.set_materialize_grads(False)
+        return tuple(_gather_blocks(mesh, axes, dims, blocks))
+
+    @staticmethod
+    def backward(fctx, *grads):
+        mesh = fctx.mesh
+        if fctx.reduce:
+            live = [i for i, g in enumerate(grads) if g is not None]
+            if live:
+                flat = psum(torch.cat([grads[i].reshape(-1) for i in live]),
+                            mesh, fctx.reduce)
+                grads, off = list(grads), 0
+                for i in live:
+                    n = grads[i].numel()
+                    grads[i] = flat[off:off + n].view(grads[i].shape)
+                    off += n
+        idx = axis_index(mesh, fctx.axes)
+        out = [None if g is None else
+               g.narrow(d, idx * n, n).clone(
+                   memory_format=torch.contiguous_format)
+               for g, d, n in zip(grads, fctx.dims, fctx.sizes)]
+        return (None, None, None, None) + tuple(out)
+
+
+def _gather(mesh, axes: tuple, dims: tuple, reduce, blocks) -> list:
+    reduce = tuple(a for a in _names(reduce) if a in axes)
+    if torch.is_grad_enabled() and any(b.requires_grad for b in blocks):
+        return list(_Gather.apply(mesh, axes, dims, reduce, *blocks))
+    return _gather_blocks(mesh, axes, dims, blocks)
+
+
+def gather_tree(local, specs, mesh, *, reduce=()):
+    """The whole value of each leaf of ``local`` (this rank's blocks,
+    placed on ``mesh`` as the matching :class:`P` of ``specs`` says): the
+    leaves sharded on one dim, over the same axes and of one dtype, in one
+    :func:`all_gather`; a leaf sharded on several dims one gather per dim;
+    a leaf its spec shards on nothing as it is.
+
+    Differentiable: the cotangent of a whole leaf comes back to the block
+    as this rank's owned slice of it (:class:`_Gather`); over the axes of
+    ``reduce`` (the data axes, for a spec that shards a weight over them)
+    the partial cotangents are summed first.  A weight that no spec
+    shards over the data axes is reduced over them by the train step."""
+    pairs = _zip_leaves(local, specs)
+    out = [x for x, _ in pairs]
+    groups: dict = {}
+    for i, (x, spec) in enumerate(pairs):
+        dims = [(d, e) for d, e in enumerate(_norm(spec, x.ndim))
+                if _names(e)]
+        if len(dims) == 1:
+            (d, e), = dims
+            groups.setdefault((_names(e), x.dtype), []).append((i, d))
+            continue
+        for d, e in dims:
+            out[i] = _gather(mesh, _names(e), (d,), reduce, [out[i]])[0]
+    for (axes, _), items in groups.items():
+        got = _gather(mesh, axes, tuple(d for _, d in items), reduce,
+                      [out[i] for i, _ in items])
+        for (i, _), y in zip(items, got):
+            out[i] = y
+    it = iter(out)
+    return tree_map(lambda _: next(it), local)
+
+
+class _GlobalSum(torch.autograd.Function):
+    """:func:`psum` whose transpose hands each rank the cotangent as it
+    is: every rank holds the same total, and each rank's partial enters
+    it once."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes):
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None, None
+
+
+def global_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum over the ranks of ``axes`` of per-rank partials (a loss's
+    numerator over the data axes), differentiable (:class:`_GlobalSum`):
+    a rank's gradient is then its own partial's, which the train step
+    sums over the data axes once."""
+    if not _names(axes):
+        return x
+    return _GlobalSum.apply(x, mesh, axes)
+
+
+def _ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
+    """Rank ``i`` of ``axis`` receives rank ``i - shift``'s ``x`` and sends
+    its own to ``i + shift`` (cyclic): one ``all_to_all_single`` over the
+    axis's group, every split empty but the one peer's."""
+    n = axis_size(mesh, axis)
+    x = x.contiguous()
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    i = mesh.get_local_rank(axis)
+    ins, outs = [0] * n, [0] * n
+    ins[(i + shift) % n] = x.numel()
+    outs[(i - shift) % n] = x.numel()
+    out = torch.empty_like(x)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out.view(-1), x.view(-1), outs, ins,
+                           group=mesh.get_group(axis))
+    LOG.add("ppermute", x, time.perf_counter() - t0)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    """``lax.ppermute`` by ``shift`` along one axis; its transpose is the
+    inverse permutation (by ``-shift``)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axis, shift):
+        fctx.mesh, fctx.axis, fctx.shift = mesh, axis, shift
+        return _ppermute(x, mesh, axis, shift)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _ppermute(g, fctx.mesh, fctx.axis, -fctx.shift), None, None, \
+            None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, shift: int = 1
+             ) -> torch.Tensor:
+    """Send ``x`` ``shift`` ranks on along mesh ``axis`` (cyclic) and
+    receive from ``shift`` ranks back; differentiable
+    (:class:`_PPermute`)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PPermute.apply(x, mesh, axis, shift)
+    return _ppermute(x, mesh, axis, shift)
+
+
 class Axes:
     """What a :func:`shard_map` body gets to talk to its mesh: the shard
     index and the reductions over named axes (``lax.axis_index``,
@@ -598,6 +770,26 @@ class ShardCtx:
         :meth:`vx_seq_shard`; -4 is the page axis of an ``(NS, P,
         page_size, K, 2D)`` pool leaf."""
         return self.vx_seq_shard(axis)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankLocal(ShardCtx):
+    """The context the mesh forward hands its layers: every operand is
+    this rank's own (the whole weights, its block of the batch), so the
+    layers run as on one device (no mesh).  ``shards`` keeps the mesh's
+    model-axis size for the MoE layer, which evaluates the
+    expert-parallel function's model shards one after another on the
+    whole expert banks (each shard's capacity, as on the mesh)."""
+    shards: int = 1
+
+    @property
+    def model_size(self) -> int:
+        return self.shards
+
+
+def meshed(ctx) -> bool:
+    """Whether ``ctx`` (a ``ShardCtx``, or None) carries a mesh."""
+    return ctx is not None and getattr(ctx, "mesh", None) is not None
 
 
 def local_ctx() -> ShardCtx:

@@ -1,6 +1,6 @@
 """Fault tolerance (port of ``repro.ft``): atomic async checkpointing,
-elastic restore (one device; a mesh waits for item 9h), the straggler
-policy and the serving step watchdog."""
+elastic restore onto any mesh or none (each rank keeps its block of the
+logical arrays), the straggler policy and the serving step watchdog."""
 from repro_torch.ft.checkpoint import (CheckpointError,  # noqa: F401
                                        CheckpointManager)
 from repro_torch.ft.elastic import restore_elastic  # noqa: F401

@@ -17,8 +17,17 @@ background write of storage the next step overwrites would tear the
 checkpoint.  A bfloat16 leaf is written as the reference writes it (a
 2-byte void array, ``bfloat16`` in the manifest), and its restore raises
 :class:`CheckpointError` in both packages.  ``restore`` places each leaf
-on its template leaf's device, in the dtype it was saved in.  Sharded
-placement waits for the training half of ``dist`` (item 9h).
+on its template leaf's device, in the dtype it was saved in.
+
+Sharded trees (a mesh's train state: ``DTensor`` leaves) are saved as
+their logical arrays, so either package restores them onto any mesh or
+none: ``save`` gathers every ``DTensor`` leaf whole (a collective: every
+rank of the mesh calls it) and only global rank 0 writes; call
+``torch.distributed.barrier()`` after a blocking save before another
+rank reads the step.  ``restore(shardings=...)`` (a tree of
+``dist.sharding.Sharding`` mirroring the template, ``ft/elastic.py``)
+reads the logical arrays on every rank and keeps each rank's block of
+each leaf, placed by ``from_local``.
 """
 from __future__ import annotations
 
@@ -26,13 +35,12 @@ import json
 import os
 import shutil
 import threading
-import types
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.device import refuse_mesh
+from repro_torch.dist import sharding
 
 
 class CheckpointError(RuntimeError):
@@ -91,11 +99,21 @@ class CheckpointManager:
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree: Any, *, extra: dict | None = None,
              blocking: bool = False) -> None:
-        """Snapshot to host memory synchronously, write asynchronously."""
+        """Snapshot to host memory synchronously, write asynchronously.
+        ``DTensor`` leaves are gathered whole first, and a tree holding
+        any is written by global rank 0 only."""
         arrays, dtypes = {}, {}
+        placed = False
         for keys, leaf in _leaves_with_paths(tree):
             p = _path(keys)
+            if sharding.is_dtensor(leaf):
+                placed = True
+                leaf = sharding.full_tensor(leaf)
             arrays[p], dtypes[p] = _host_copy(leaf)
+        if placed:
+            import torch.distributed as dist
+            if dist.get_rank() != 0:
+                return
         self.wait()
         self._thread = threading.Thread(
             target=self._write, args=(step, arrays, dtypes, extra or {}),
@@ -187,9 +205,10 @@ class CheckpointManager:
     def restore(self, template: Any, *, step: int | None = None,
                 shardings: Any = None) -> tuple[Any, dict]:
         """Restore into the structure of ``template``, each leaf on its
-        template leaf's device.  ``shardings`` (the elastic path's
-        per-leaf placement) waits for ``dist``: anything but ``None`` is
-        refused.
+        template leaf's device; with ``shardings`` (a tree of
+        ``dist.sharding.Sharding`` mirroring ``template``: the elastic
+        path) each leaf is read whole and this rank's block kept, placed
+        as its sharding says, on the mesh's device.
 
         ``step=None`` restores the newest INTACT step: a torn latest dir
         (crash mid-write that survived the atomic-rename discipline, a
@@ -198,7 +217,13 @@ class CheckpointManager:
         :class:`CheckpointError` — falling back silently from a step the
         caller named would be wrong."""
         if shardings is not None:
-            refuse_mesh(types.SimpleNamespace(mesh=shardings))
+            where_of = dict(_leaves_with_paths(shardings))
+            for keys, _ in _leaves_with_paths(template):
+                where = where_of.get(keys)
+                if not isinstance(where, sharding.Sharding):
+                    raise TypeError(f"restore: the sharding of leaf "
+                                    f"{_path(keys)} is {where!r}, not a "
+                                    f"dist.sharding.Sharding")
         if step is not None:
             manifest, data = self._read_step(step)
         else:
@@ -219,7 +244,14 @@ class CheckpointManager:
         restored = {}
         try:
             for keys, leaf in _leaves_with_paths(template):
-                restored[keys] = _place(data[_path(keys)], leaf)
+                arr = data[_path(keys)]
+                if shardings is None:
+                    restored[keys] = _place(arr, leaf)
+                    continue
+                where = where_of[keys]
+                dev = torch.device(where.mesh.device_type)
+                restored[keys] = sharding.place(
+                    torch.from_numpy(arr).to(dev), where)
         except Exception as e:  # noqa: BLE001 — truncated member payload
             raise CheckpointError(
                 f"checkpoint step {manifest.get('step', '?')} is torn or "

@@ -1,4 +1,4 @@
 """Command-line entry points and meshes (port of ``repro.launch``): the
-serving CLI, the training CLI on one device and the production meshes
-(``launch/mesh.py``).  The training CLI's mesh arms and the multi-pod
-dry-run wait for later slices (items 9h's training half, 9k and 9l)."""
+serving CLI, the training CLI (one device, or the production meshes
+through ``--mesh``) and the production meshes (``launch/mesh.py``).  The
+multi-pod dry-run waits for a later slice (item 9l)."""

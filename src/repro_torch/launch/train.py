@@ -22,9 +22,18 @@ is ``kernel``: there the first step's forward reaches a ``vx`` verb that
 refuses an operand requiring grad, and the CLI exits with that
 ``RuntimeError``, as the reference's training does under ``pallas`` on
 its TPU.  Train with ``REPRO_TORCH_VX_IMPL=ref`` (the reference:
-``REPRO_VX_IMPL=ref``).  ``--mesh single-pod`` / ``multi-pod`` wait for
-the training half of the port's dist slice (item 9h) and raise
-``NotImplementedError``.
+``REPRO_VX_IMPL=ref``).
+
+``--mesh single-pod`` / ``multi-pod`` train on the production mesh,
+``(16, 16)`` = (data, model) or ``(2, 16, 16)`` = (pod, data, model)
+(``launch/mesh.py``), with the sharded step (ZeRO-1 moments) of
+``train/step.py``: one process per rank, launched by ``torchrun`` (the
+process group comes from its environment, ``init_method="env://"``:
+``gloo`` on the CPU, ``nccl`` on GPUs; without that environment the
+process is a world of one).  A world of any other size than 256 / 512
+raises ``make_mesh``'s ``ValueError``: the mesh is never shrunk.  Every
+rank makes the whole batch and trains on its block; rank 0 prints and
+writes the checkpoints, which hold the logical arrays.
 
 ``--device`` defaults to CUDA and follows the port's rule: without a GPU
 the CLI raises unless ``--device cpu`` is given.  The printed step time
@@ -33,19 +42,21 @@ is the host clock around a step that ends with a device synchronize.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import get_arch
 from repro_torch.data.pipeline import DataConfig, SyntheticAoSPipeline
-from repro_torch.device import refuse_mesh, resolve as resolve_device
+from repro_torch.device import resolve as resolve_device
 from repro_torch.ft.checkpoint import CheckpointManager
 from repro_torch.ft.straggler import StragglerPolicy
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.optim.compression import CompressionConfig
-from repro_torch.train.step import (TrainConfig, init_full_state,
-                                    jit_train_step)
+from repro_torch.train.step import (TrainConfig, full_state_shardings,
+                                    init_full_state, jit_train_step)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -68,7 +79,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--mesh", default="none",
                     choices=["none", "single-pod", "multi-pod"],
-                    help="production meshes wait for the port's dist slice")
+                    help="train on a production mesh (256 / 512 ranks)")
     return ap
 
 
@@ -77,14 +88,43 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _process_group(device: torch.device) -> bool:
+    """Join ``torchrun``'s process group (its environment), else make a
+    world of one.  True when this call created it."""
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return True
+
+
 def main(argv=None) -> None:
     args = parser().parse_args(argv)
 
     arch = get_arch(args.arch)
     cfg = arch.smoke if args.smoke else arch.model
-    ctx = None if args.mesh == "none" else argparse.Namespace(mesh=args.mesh)
-    refuse_mesh(ctx)
     device = resolve_device(args.device)
+    if args.mesh == "none":
+        train(args, cfg, device, None)
+        return
+    from repro_torch.launch.mesh import make_ctx, make_production_mesh
+    owned = _process_group(device)
+    try:
+        ctx = make_ctx(make_production_mesh(
+            multi_pod=args.mesh == "multi-pod", device=device))
+        train(args, cfg, device, ctx)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def train(args, cfg, device: torch.device, ctx) -> None:
+    """The loop: on one device (``ctx`` None) or on ``ctx``'s mesh."""
+    lead = ctx is None or dist.get_rank() == 0
 
     tcfg = TrainConfig(
         optimizer=AdamWConfig(lr=args.lr, total_steps=args.steps,
@@ -102,10 +142,12 @@ def main(argv=None) -> None:
     state = init_full_state(cfg, tcfg, 0, device)
     start_step = 0
     if mgr and args.resume and mgr.latest_step() is not None:
-        state, extra = mgr.restore(state)
+        state, extra = mgr.restore(
+            state, shardings=full_state_shardings(state, ctx, tcfg))
         pipe.load_state_dict(extra["pipeline"])
         start_step = extra["step"]
-        print(f"resumed from step {start_step}")
+        if lead:
+            print(f"resumed from step {start_step}")
 
     batch0 = pipe.next_batch()
     step_fn = jit_train_step(cfg, tcfg, ctx, state, batch0)
@@ -119,7 +161,7 @@ def main(argv=None) -> None:
         _sync(device)
         dt = time.time() - t0
         straggler.record_step({0: dt})
-        if step % 5 == 0 or step == args.steps - 1:
+        if lead and (step % 5 == 0 or step == args.steps - 1):
             print(f"step {step:5d} loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"lr={float(metrics['lr']):.2e} {dt*1e3:.0f}ms "
@@ -133,7 +175,8 @@ def main(argv=None) -> None:
         mgr.save(args.steps, state,
                  extra={"step": args.steps, "pipeline": pipe.state_dict()},
                  blocking=True)
-    print("done; final loss", float(metrics["loss"]))
+    if lead:
+        print("done; final loss", float(metrics["loss"]))
 
 
 if __name__ == "__main__":

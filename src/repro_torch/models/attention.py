@@ -12,8 +12,9 @@ the reference's ``_flash_bwd`` (its ``custom_vjp``) as a
 ``torch.autograd.Function``: it recomputes each score tile from the saved
 ``q``, ``k``, ``v``, ``out`` and log-sum-exp and accumulates ``dq``,
 ``dk`` and ``dv`` in float32.  ``decode_attention`` also runs over a
-sequence-sharded cache (``shard=``) as a distributed softmax; the
-forward's sharding constraints wait for the training half of item 9h.
+sequence-sharded cache (``shard=``) as a distributed softmax;
+``flash_attention`` under a mesh attends each rank's batch block (the
+reference's sharding constraints are placement hints).
 
 EARTH integration: the fused KV projection emits each head's K/V
 interleaved along features — one contiguous beat per token, written to
@@ -26,7 +27,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import vx
-from repro_torch.device import refuse_mesh
 from repro_torch.models import layers
 
 NEG_INF = -1e30
@@ -105,8 +105,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     chunk it can see: the tiles after it are wholly masked and add exactly
     nothing (their ``p`` is 0 and their correction 1).  The backward saves
     only ``(q, k, v, out, lse)`` and recomputes one score tile at a time.
-    A ``ctx`` with a mesh waits for ``dist``."""
-    refuse_mesh(ctx)
+
+    Under a ``ctx`` with a mesh (the reference's placement hints, which
+    change no value) rows are independent: plain operands are attended as
+    given, and ``DTensor`` operands placed on the batch over the data
+    axes are attended block by block, the output placed alike."""
+    from repro_torch.dist import sharding
+    if sharding.meshed(ctx) and sharding.is_dtensor(q):
+        spec = sharding.P(*ctx.batch_spec())
+        out = flash_attention(
+            *(sharding.local_block(t, ctx.mesh, spec) for t in (q, k, v)),
+            causal=causal, window=window, q_offset=q_offset,
+            q_chunk=q_chunk, kv_chunk=kv_chunk)
+        return sharding.from_local(out, ctx.mesh, spec)
     Sq0, Sk0 = q.shape[1], k.shape[1]
     q_chunk = min(q_chunk, Sq0)
     kv_chunk = min(kv_chunk, Sk0)

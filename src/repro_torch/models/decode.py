@@ -211,17 +211,30 @@ def _owner_write(buf: torch.Tensor, at: torch.Tensor,
                                         buf.index_select(1, idx)))
 
 
+def _head_block(t: torch.Tensor, heads, n: int) -> torch.Tensor:
+    """This rank's block of ``n`` heads (dim 2 of ``(B, S, n, D)``)."""
+    if heads is None:
+        return t
+    m = n // heads.nshards
+    return t[:, :, heads.index() * m:(heads.index() + 1) * m]
+
+
 def _dense_attn(p, h, x, blocks, pre_split, i: int, sbi: int, pos,
                 positions, cfg: ModelConfig, pol, beat_pol, fuse: bool,
-                shard):
+                shard, heads=None):
     """One attention position of :func:`decode_step`: project, append the
     beat at ``pos % Sc`` (on a sequence-sharded leaf, ``shard`` set: only
     on the rank whose block holds the slot), split, attend; returns the
-    new residual stream."""
+    new residual stream.  ``heads`` (a ``vx.Shard`` on the KV-head axis
+    of the cache leaves, which then hold this rank's heads): the rank
+    appends and attends with its block of the KV heads and their query
+    heads, and the heads' outputs are gathered before ``wo``."""
     B = x.shape[0]
     q, k, v, kv = attention.qkv_project(
         p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
         positions, cfg.rope_theta, policy=beat_pol)
+    q = _head_block(q, heads, cfg.n_heads)
+    k, v, kv = (_head_block(t, heads, cfg.n_kv_heads) for t in (k, v, kv))
     if shard is not None:
         lay = sharding.select(blocks[f"pos{i}"], sbi)     # (B, Sc, K, 2D)
         kvc, base, _ = sharding.owned_block(lay, 1)
@@ -254,12 +267,15 @@ def _dense_attn(p, h, x, blocks, pre_split, i: int, sbi: int, pos,
     eff_len = torch.clamp(pos + 1, max=sc)
     out = attention.decode_attention(q[:, 0], k_all, v_all, eff_len,
                                      window=None, shard=shard)
+    if heads is not None:
+        out = sharding.all_gather(out, heads.mesh, heads.axes, 1)
     return x + (out.reshape(B, cfg.n_heads * cfg.hd)
                 @ p["attn"]["wo"]).to(x.dtype)
 
 
 def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
-                ctx=None, *, fuse: bool | None = None, kv_shard=None):
+                ctx=None, *, fuse: bool | None = None, kv_shard=None,
+                head_shard=None):
     """token: (B,) int.  Returns (logits (B, V), updated cache).
 
     ``fuse`` (default ``cfg.step_fusion``) is whole-step access fusion:
@@ -282,7 +298,12 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     block holds its slot, and attention is the distributed softmax.  The
     per-access arm splits each layer's block the same way, so the two
     arms agree bit for bit on one placement.  Leaves the shard does not
-    divide stay replicated and split locally.  An encoder config runs
+    divide stay replicated and split locally.  ``head_shard`` (a
+    ``vx.Shard`` with ``axis=-2``, the caches' KV-head axis) marks the
+    KV leaves as this rank's block of the heads (plain tensors): the step
+    projects every head, keeps its block of the beat and of the query
+    heads, splits and attends locally and gathers the heads' outputs
+    (the batch-sharded serve step's model axis).  An encoder config runs
     :func:`models.encdec.decode_step` (its cache carries ``enc_kv``)."""
     check_supported(cfg)
     params = cast_params(params, cfg)
@@ -340,7 +361,8 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
             else:
                 x = _dense_attn(p, h, x, blocks, pre_split, i, sbi, pos,
                                 positions, cfg, pol, beat_pol, fuse,
-                                kv_shard if i in sharded else None)
+                                kv_shard if i in sharded else None,
+                                head_shard)
             if cfg.pos_has_ffn(i):
                 x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, i,
                                    policy=ffn_pol)

@@ -30,6 +30,15 @@ one-device run keeps), and the partial outputs sum over the model axis:
 a ``psum_scatter`` over the sequence when the model axis divides it (the
 result sharded on it), else a ``psum``.  The aux loss is a per-data-shard
 estimate averaged with ``pmean`` over the data axes.
+
+The mesh forward (``models/transformer.forward`` / ``loss_fn`` under a
+mesh, the sharded train step) hands its layers a
+``dist.sharding.RankLocal`` context: the expert banks arrive gathered
+whole, and :func:`moe_layer` evaluates the same expert-parallel function
+on the rank's batch block, its model shards one after another (each with
+its own capacity), summed in shard order.  Expert parallelism under
+autograd, the banks resident per rank and the tokens exchanged, is
+ROADMAP queue A item 9h-ep.
 """
 from __future__ import annotations
 
@@ -189,7 +198,7 @@ def route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec,
 
 def moe_ffn_local(router, wg, wu, wo, x: torch.Tensor, spec: MoESpec, *,
                   model_axis: str | None = None, data_axes: tuple = (),
-                  n_shards: int = 1,
+                  n_shards: int = 1, shard: int = 0,
                   axes=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-device MoE body. x: (T, d). Returns (y (T, d), aux loss scalar).
 
@@ -198,10 +207,12 @@ def moe_ffn_local(router, wg, wu, wo, x: torch.Tensor, spec: MoESpec, *,
     ``axes`` (a ``dist.sharding.Axes``) gives the device's index on
     ``model_axis`` (which experts it holds) and averages the aux over
     ``data_axes``; the partial ``y`` is summed by the caller.  Outside it
-    (``axes`` None) the device holds the first experts: the parity tests
-    use that to reach dropped units."""
+    (``axes`` None) the device holds the experts of model shard
+    ``shard`` (the first by default: the parity tests use that to reach
+    dropped units)."""
     T = x.shape[0]
-    my = axes.index(model_axis) if axes is not None and model_axis else 0
+    my = axes.index(model_axis) if axes is not None and model_axis \
+        else shard
     r = route(x, router, spec, n_shards, my)
     aux = r.aux
     if axes is not None and data_axes:
@@ -250,6 +261,19 @@ def moe_layer(params, x: torch.Tensor, spec: MoESpec,
 
     operands = (params["router"], params["wg"], params["wu"], params["wo"],
                 x)
+    if (ctx is None or ctx.mesh is None) and m_sz > 1:
+        # the mesh forward's rank-local layers (``sharding.RankLocal``):
+        # the expert-parallel function of the rank's batch block, its
+        # model shards one after another on the whole expert banks
+        e_loc = spec.n_experts // m_sz
+        y = aux = None
+        for j in range(m_sz):
+            yj, aux = moe_ffn_local(
+                params["router"], *(params[k][j * e_loc:(j + 1) * e_loc]
+                                    for k in ("wg", "wu", "wo")),
+                x.reshape(B * S, d), spec, n_shards=m_sz, shard=j)
+            y = yj if y is None else y + yj
+        return y.reshape(B, S, d), aux
     if ctx is None or ctx.mesh is None:
         return body(None, *operands)
 

@@ -30,19 +30,37 @@ reference's matmul-saving policy, recomputes everything as ``"full"``
 does), any remat around each position of a multi-position superblock,
 and every :func:`chunked_xent` chunk.  :func:`superblock` gathers
 weights placed on a mesh a layer at a time (the sharded decode steps);
-``forward`` under a mesh and its sharding constraints wait for the
-training half of item 9h.
+Under a ``ShardCtx`` with a mesh, :func:`forward`, :func:`loss_fn` and
+:func:`chunked_xent` run one SPMD program on every rank: each rank takes
+its block of the batch over the data axes (a ``DTensor`` so placed, or a
+plain full batch it slices), gathers the weights whole
+(``dist.sharding.gather_tree``: the embedding, norm and head once, a
+superblock's weights inside its checkpoint, so the backward gathers them
+again) and runs the one-device layers on them
+(``dist.sharding.RankLocal``).  The reference's sharding constraints are
+placement hints and change no value.  Activations stay replicated over
+the model axis (every rank of one data block computes the same ones; the
+reference's Megatron-SP sequence sharding of the residual stream is a
+memory choice the port does not make).  The loss is the global
+``psum(num) / max(psum(den), 1)`` over the data axes.  Gradients
+(``loss.backward()``) reach each rank's own block of a ``DTensor`` leaf:
+the transpose of the weight gather takes the owned slice (model-axis
+replicas are not summed), and the transpose of the loss's ``psum`` hands
+each rank its partial's cotangent, so a rank's gradient is its data
+block's share, which ``train/step.py`` sums over the data axes.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.device import refuse_mesh, resolve as resolve_device
+from repro_torch.device import resolve as resolve_device
+from repro_torch.dist.sharding import meshed
 from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
 from repro_torch.models.moe import MoESpec, init_moe, moe_layer
@@ -434,11 +452,25 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
     the final states of the recurrent ones, stacked over superblocks
     (whisper: ``{"pos0", "enc_out"}``); ``mode="hidden"`` returns the
     final-normed hidden states in place of logits.  Differentiable: the
-    flash attention carries the reference's backward."""
+    flash attention carries the reference's backward.
+
+    Under a mesh every output is placed on the batch over the data axes
+    (a ``DTensor``: this rank's block; the cache states' batch is their
+    dim 1), and ``aux`` is the mean over the data axes of each block's
+    aux (the reference's per-data-shard estimate)."""
     check_supported(cfg)
-    refuse_mesh(ctx)
     if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
+    if meshed(ctx):
+        from repro_torch.dist import sharding
+        local, specs = sharding.split_tree(params)
+        out, aux, states, _ = _rank_forward(local, specs, batch, cfg, ctx,
+                                            mode)
+        return (_place_batch(out, ctx, 0), aux,
+                {k: sharding.tree_map(
+                    lambda a, k=k: _place_batch(a, ctx,
+                                                0 if k == "enc_out" else 1),
+                    v) for k, v in states.items()})
     params = cast_params(params, cfg)
     if cfg.encoder is not None:
         from repro_torch.models import encdec
@@ -472,6 +504,94 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
 
 
 # ---------------------------------------------------------------------------
+# The mesh forward: one SPMD program, each rank on its batch block
+# ---------------------------------------------------------------------------
+
+def _batch_block(x, ctx):
+    """This rank's block of a batch operand over the data axes (a
+    ``DTensor`` so placed, or a plain full tensor it slices)."""
+    from repro_torch.dist import sharding
+    return sharding.local_block(x, ctx.mesh, ctx.batch_spec())
+
+
+def _place_batch(x, ctx, dim: int):
+    """A rank's block of an output placed on its batch (dim ``dim``) over
+    the data axes."""
+    from repro_torch.dist import sharding
+    spec = sharding.P(*([None] * dim), *ctx.batch_spec())
+    return sharding.from_local(x, ctx.mesh, spec)
+
+
+def _rank_superblock(sb_local, x, *, specs, ctx, rl, cfg, positions, mode):
+    """Gather superblock weights whole and apply them (run inside the
+    superblock's checkpoint: the backward gathers them again)."""
+    from repro_torch.dist import sharding
+    sb_p = sharding.gather_tree(sb_local, specs, ctx.mesh,
+                                reduce=ctx.data_axes)
+    return superblock_apply(sb_p, x, cfg, rl, positions, mode=mode)
+
+
+def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
+    """:func:`forward` on this rank: ``local`` holds the rank's blocks of
+    the params (``specs`` their placement), ``batch`` the global batch or
+    its placed blocks.  Returns the rank's (logits or hidden, aux over
+    the data axes, cache states, the gathered top-level weights) as
+    plain tensors."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P
+    mesh, reduce = ctx.mesh, ctx.data_axes
+    rl = sharding.RankLocal(mesh=None, shards=ctx.model_size)
+    batch = {k: _batch_block(v, ctx) for k, v in batch.items()}
+    local = cast_params(local, cfg)
+    if cfg.encoder is not None:
+        from repro_torch.models import encdec
+        whole = sharding.gather_tree(local, specs, mesh, reduce=reduce)
+        return encdec.forward(whole, batch, cfg, rl, mode=mode) + (whole,)
+    top = [k for k in local if k != "blocks"]
+    whole = sharding.gather_tree({k: local[k] for k in top},
+                                 {k: specs[k] for k in top}, mesh,
+                                 reduce=reduce)
+    x = _embed_inputs(whole, batch, cfg, rl)
+    B, S = batch["tokens"].shape
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
+    sb_specs = sharding.tree_map(lambda a, sp: P(*sp[1:]), local["blocks"],
+                                 specs["blocks"])
+    fn = functools.partial(_rank_superblock, specs=sb_specs, ctx=ctx, rl=rl,
+                           cfg=cfg, positions=positions, mode=mode)
+    states = []
+    for sbi in range(cfg.n_superblocks):
+        sb_local = tree_map(lambda a: a[sbi], local["blocks"])
+        if remat:
+            x, aux_d, upd = checkpoint(fn, sb_local, x, use_reentrant=False)
+        else:
+            x, aux_d, upd = fn(sb_local, x)
+        aux = aux + aux_d
+        states.append(upd)
+    if any(cfg.moe_pattern) and reduce:
+        aux = sharding.global_sum(aux, mesh, reduce) / ctx.data_size
+    cache_states = _stack(states) if mode == "prefill" else {}
+    if mode == "prefill":
+        x = x[:, -1:]
+    x = layers.rms_norm(x, whole["final_norm"], cfg.norm_eps)
+    if mode == "hidden":
+        return x, aux, cache_states, whole
+    head = whole["embed"] if cfg.tie_embeddings else whole["lm_head"]
+    return layers.unembed(x, head.to(cfg.cdtype)), aux, cache_states, whole
+
+
+def _whole(t, ctx):
+    """A weight whole under a mesh: a ``DTensor`` gathered
+    (differentiable), a plain tensor as it is."""
+    from repro_torch.dist import sharding
+    if not sharding.is_dtensor(t):
+        return t
+    return sharding.gather_tree(t.to_local(), sharding.spec_of(t), ctx.mesh,
+                                reduce=ctx.data_axes)
+
+
+# ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
 
@@ -497,8 +617,34 @@ def chunked_xent(x, head, labels, w, ctx=None, *,
     chunk's ``(B, chunk, V)`` logits are alive at a time, each chunk under
     a checkpoint while gradients are on (recomputed in the backward).  The
     chunk falls back to ``S`` when it does not divide ``S`` or covers it.
-    Returns ``sum(w * (lse - ll)) / max(sum(w), 1)``."""
-    refuse_mesh(ctx)
+    Returns ``sum(w * (lse - ll)) / max(sum(w), 1)``.
+
+    Under a mesh ``x``, ``labels`` and ``w`` are the batch (placed on it
+    over the data axes, or whole: each rank takes its block), ``head``
+    whole or a ``DTensor`` (gathered), and the sums run over the whole
+    batch: ``psum(num) / max(psum(den), 1)`` over the data axes, the same
+    number on every rank (not a mean of the blocks' losses)."""
+    if meshed(ctx):
+        return _global_xent(_batch_block(x, ctx), _whole(head, ctx),
+                            _batch_block(labels, ctx), _batch_block(w, ctx),
+                            ctx, chunk)
+    num, den = _xent_terms(x, head, labels, w, chunk)
+    return num / torch.clamp(den, min=1.0)
+
+
+def _global_xent(x, head, labels, w, ctx, chunk: int = 512):
+    """The rank's blocks' sums, added over the data axes: every rank
+    returns the whole batch's loss."""
+    from repro_torch.dist import sharding
+    num, den = _xent_terms(x, head, labels, w, chunk)
+    num = sharding.global_sum(num, ctx.mesh, ctx.data_axes)
+    den = sharding.psum(den.detach(), ctx.mesh, ctx.data_axes)
+    return num / torch.clamp(den, min=1.0)
+
+
+def _xent_terms(x, head, labels, w, chunk: int):
+    """``(sum(w * (lse - ll)), sum(w))`` over the chunks of
+    :func:`chunked_xent`."""
     S = x.shape[1]
     if S % chunk or S <= chunk:
         chunk = S
@@ -511,12 +657,17 @@ def chunked_xent(x, head, labels, w, ctx=None, *,
         n, d = (checkpoint(_xent_chunk, *args, use_reentrant=False)
                 if remat else _xent_chunk(*args))
         num, den = num + n, den + d
-    return num / torch.clamp(den, min=1.0)
+    return num, den
 
 
 def loss_fn(params, batch, cfg: ModelConfig, ctx=None):
     """Next-token cross entropy; batch: tokens, labels, optional
-    loss_weight (ones by default).  Returns (loss + aux, {"loss", "aux"})."""
+    loss_weight (ones by default).  Returns (loss + aux, {"loss", "aux"}).
+    Under a mesh the loss is the whole batch's (:func:`chunked_xent`),
+    the same number on every rank."""
+    if meshed(ctx):
+        from repro_torch.dist import sharding
+        return rank_loss(*sharding.split_tree(params), batch, cfg, ctx)
     x, aux, _ = forward(params, batch, cfg, ctx, mode="hidden")
     labels = batch["labels"]
     w = batch.get("loss_weight")
@@ -525,4 +676,19 @@ def loss_fn(params, batch, cfg: ModelConfig, ctx=None):
                        device=labels.device)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     loss = chunked_xent(x, head.to(cfg.cdtype), labels, w, ctx)
+    return loss + aux, {"loss": loss, "aux": aux}
+
+
+def rank_loss(local, specs, batch, cfg: ModelConfig, ctx):
+    """:func:`loss_fn` under a mesh on this rank's blocks of the params
+    (``local``, placed as ``specs`` says): the train step differentiates
+    it with respect to ``local``."""
+    x, aux, _, whole = _rank_forward(local, specs, batch, cfg, ctx,
+                                     "hidden")
+    labels = _batch_block(batch["labels"], ctx)
+    w = batch.get("loss_weight")
+    w = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+         if w is None else _batch_block(w, ctx))
+    head = whole["embed"] if cfg.tie_embeddings else whole["lm_head"]
+    loss = _global_xent(x, head.to(cfg.cdtype), labels, w, ctx)
     return loss + aux, {"loss": loss, "aux": aux}

@@ -6,8 +6,11 @@ float32 tensors mirroring the params (``m``, ``v``) plus an int32
 and ``step`` are updated in place (the reference donates them to its
 jit'd step), so a step holds one copy of the state and one leaf's
 temporaries.  The arithmetic is float32 in the reference's operation
-order, so the same gradients give the same state bit for bit.  ZeRO-1
-sharding of the moments waits for the training half of ``dist`` (item 9h).
+order, so the same gradients give the same state bit for bit.  Under a
+mesh the train step hands :func:`apply_updates` each rank's ZeRO-1 block
+of the params, gradients and moments, and the global norm it reduced
+over the mesh (``gnorm``): the update is elementwise, so a block's update
+is the block of the whole update.
 """
 from __future__ import annotations
 
@@ -96,12 +99,16 @@ def _paths(tree, prefix: str = "") -> Any:
 
 
 @torch.no_grad()
-def apply_updates(params: Any, grads: Any, opt: dict, cfg: AdamWConfig
+def apply_updates(params: Any, grads: Any, opt: dict, cfg: AdamWConfig,
+                  *, gnorm: torch.Tensor | None = None
                   ) -> tuple[Any, dict, dict]:
     """Returns (params, opt_state, metrics): ``params`` and ``opt`` are
     updated in place and returned; ``grads`` are read only.  The clip
-    scale applies per leaf as the update reads it."""
-    gnorm = global_norm(grads)
+    scale applies per leaf as the update reads it.  ``gnorm`` (the
+    gradients' global norm when they are blocks of sharded tensors)
+    defaults to :func:`global_norm` of ``grads``."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                         max=1.0)
     step = opt["step"].add_(1)

@@ -8,12 +8,18 @@ a reader finds the counterpart; they return EAGER callables — no
 place) and :class:`BatchedServer` over
 :class:`repro_torch.serve.scheduler.Scheduler`.  :func:`cache_specs` and
 :func:`serve_param_shardings` are the reference's placement rules
-(``None`` without a mesh).  With a mesh, :func:`jit_decode_step` serves
-long-context decode (``ServeConfig.long_context``): the cache sequence
-axis sharded over the context's sequence axes, the weights placed by
-:func:`serve_param_shardings` and gathered a layer at a time; the
-batch-sharded step (a mesh without ``long_context``) and
-:func:`jit_prefill` under a mesh wait for the training half of item 9h.
+(``None`` without a mesh).  With a mesh every step is one SPMD program
+on each rank, the weights placed by :func:`serve_param_shardings` and
+gathered a layer at a time: :func:`jit_decode_step` serves long-context
+decode (``ServeConfig.long_context``: the cache sequence axis sharded
+over the context's sequence axes) or, without ``long_context``, the
+batch-sharded step (each rank its block of the batch over the data axes,
+the KV leaves per :func:`cache_specs`: its block of the KV heads over
+the model axis, attended head-parallel, or of the sequence, attended by
+the distributed softmax); :func:`jit_prefill` runs the mesh forward
+(``models/transformer.forward``: each rank its batch block).
+``BatchedServer`` with a mesh runs the paged scheduler on every rank,
+unsharded, as the reference's does (its scheduler takes no mesh).
 :func:`make_fleet` puts N scheduler replicas behind the
 fleet router (``serve/fleet.py``).  An encoder config (whisper) takes
 the dense steps: :func:`jit_prefill` runs its forward (the batch carries
@@ -124,11 +130,22 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     place the weights once (``dist.sharding.place_tree``) to keep only
     their blocks resident.  The logits come back whole on every rank.
     The port's recurrent step runs on replicated state, so recurrent
-    state leaves stay replicated.  Without a mesh the templates are
-    unused."""
-    meshed = ctx is not None and ctx.mesh is not None
-    if meshed and (not scfg.long_context or cfg.encoder is not None):
-        refuse_mesh(ctx)
+    state leaves stay replicated.
+
+    With a mesh and without ``scfg.long_context`` (the batch-sharded
+    step) each rank steps its block of the batch over the data axes: the
+    token and the cache leaves (``cache_specs``; a recurrent state's
+    batch only, replicated over the model axis) are its blocks, the
+    logits come back placed on the batch.  KV leaves whose heads the
+    model axis splits are attended head-parallel (each rank its heads,
+    the heads' outputs gathered), those whose sequence it splits by the
+    distributed softmax over the model axis.  The fused split then runs
+    on the rank's block: one B1 launch per step under ``kernel``.  An
+    encoder config is refused with a mesh (ROADMAP queue A item
+    9h-encdec).  Without a mesh the templates are unused."""
+    meshed = sharding.meshed(ctx)
+    if meshed and cfg.encoder is not None:
+        refuse_mesh(ctx, "9h-encdec")
     check_supported(cfg)
     device = resolve_device(device)
     # one-time host compile of the FIELD=2 segment plans the fused KV
@@ -146,10 +163,13 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
                 cfg, param_ctx or ctx)
             cspecs = cache_specs(cfg, ctx, scfg, cache_template
                                  if cache_template is not None else cache)
-            # the recurrent step runs on replicated state
+            # the recurrent step runs on whole state: replicated (long
+            # context), or the rank's batch block
+            state_spec = P() if scfg.long_context else P(
+                None, *ctx.batch_spec())
             cspecs["blocks"] = {
                 k: v if isinstance(v, P) else sharding.map_specs(
-                    lambda _: P(), v)
+                    lambda _: state_spec, v)
                 for k, v in cspecs["blocks"].items()}
             placed["cache"] = sharding.spec_tree_shardings(cspecs, ctx)
         return placed["params"], placed["cache"]
@@ -160,11 +180,58 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
             psh, csh = placements(params, cache)
             params = sharding.place_tree(params, psh)
             cache = sharding.place_tree(cache, csh)
+            if not scfg.long_context:
+                return _batch_sharded_step(params, cache, token.to(device),
+                                           cfg, ctx, fuse)
         # an encoder config dispatches to encdec.decode_step in there
         return dec.decode_step(params, cache, token.to(device), cfg, ctx,
                                fuse=fuse, kv_shard=kv_shard)
 
     return serve_step
+
+
+def _batch_sharded_step(params, cache: dict, token, cfg: ModelConfig, ctx,
+                        fuse: bool):
+    """One decode step on this rank's block of the batch (the cache placed
+    per :func:`cache_specs`); returns the logits placed on the batch and
+    the cache, its leaves updated in place."""
+    from repro_torch.dist.sharding import RankLocal, block_of, spec_of
+    mesh, m_ax = ctx.mesh, ctx.model_axis
+    kv_shard = head_shard = None
+    blocks = {}
+    for k, leaf in cache["blocks"].items():
+        if not isinstance(leaf, torch.Tensor) or leaf.ndim != 5:
+            blocks[k] = sharding.tree_map(block_of, leaf)
+            continue
+        local = block_of(leaf)
+        spec = sharding._norm(spec_of(leaf), 5) \
+            if sharding.is_dtensor(leaf) else (None,) * 5
+        if m_ax is not None and spec[3] == m_ax:
+            head_shard = vx.Shard(axes=(m_ax,), axis=-2, mesh=mesh)
+        elif m_ax is not None and spec[2] == m_ax:
+            sub = _model_submesh(mesh, m_ax)
+            kv_shard = vx.Shard(axes=(m_ax,), axis=-3, mesh=sub)
+            local = sharding.from_local(local, sub, P(None, None, m_ax))
+        blocks[k] = local
+    tok = sharding.local_block(token, mesh, ctx.batch_spec())
+    logits, new = dec.decode_step(
+        params, {"len": cache["len"], "blocks": blocks}, tok, cfg,
+        RankLocal(mesh=None, shards=ctx.model_size), fuse=fuse,
+        kv_shard=kv_shard, head_shard=head_shard)
+    return (sharding.from_local(logits, mesh, ctx.batch_spec()),
+            {"len": new["len"], "blocks": cache["blocks"]})
+
+
+_SUBMESHES: dict = {}
+
+
+def _model_submesh(mesh, axis: str):
+    """The 1-D mesh of this rank's model-axis group (the ranks of its
+    data block), one per mesh."""
+    key = (mesh, axis)
+    if key not in _SUBMESHES:
+        _SUBMESHES[key] = mesh[axis]
+    return _SUBMESHES[key]
 
 
 def jit_prefill(cfg: ModelConfig, ctx, params_template=None,
@@ -173,16 +240,29 @@ def jit_prefill(cfg: ModelConfig, ctx, params_template=None,
     :func:`repro_torch.models.transformer.forward` in ``prefill`` mode,
     eager.  The batch's tensors (``tokens``, and ``audio_frames`` or
     ``patch_embeds`` where the config takes them) are moved to
-    ``device``."""
-    refuse_mesh(ctx)
-    refuse_mesh(param_ctx)
+    ``device``.
+
+    With a mesh the params are placed as :func:`serve_param_shardings`
+    says on ``param_ctx or ctx`` (the template's, else the first call's
+    tree; a leaf already so placed is taken as it is) and the mesh
+    forward runs: each rank prefills its block of the batch over the
+    data axes, and the logits and cache states come back placed on their
+    batch."""
     check_supported(cfg)
     device = resolve_device(device)
+    meshed = sharding.meshed(ctx)
+    placed = {}
 
     @torch.no_grad()
     def prefill(params, batch):
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
+        if meshed:
+            if not placed:
+                placed["params"] = serve_param_shardings(
+                    params_template if params_template is not None
+                    else params, cfg, param_ctx or ctx)
+            params = sharding.place_tree(params, placed["params"])
         logits, _, cache_states = forward(params, batch, cfg, ctx,
                                           mode="prefill")
         return logits, cache_states
@@ -198,7 +278,10 @@ class BatchedServer:
     temperature / top-k sampling).  The single-token ``add_request(int)``
     / ``step()`` / ``finish()`` surface is the reference's; ``cache`` is
     presented in the legacy ``{"len", "blocks"}`` shape with ``len`` = the
-    furthest active position.  ``device`` follows the port's rule."""
+    furthest active position.  ``device`` follows the port's rule.
+    With ``ctx`` on a mesh every rank runs this same scheduler, unsharded:
+    the reference's ``BatchedServer`` keeps its ``ctx`` and hands its
+    scheduler none."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int, max_len: int,
                  ctx=None, cache_dtype=torch.float32, fuse_step: bool = True,
@@ -206,7 +289,6 @@ class BatchedServer:
                  temperature: float = 0.0, top_k: int | None = None,
                  seed: int = 0, device=None, **lifecycle_kw):
         from repro_torch.serve.scheduler import Scheduler
-        refuse_mesh(ctx)
         self.cfg, self.params = cfg, params
         self.slots, self.max_len, self.ctx = slots, max_len, ctx
         # lifecycle_kw passes the runtime knobs through unchanged

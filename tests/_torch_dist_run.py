@@ -1,5 +1,8 @@
-"""The port's side of the reference's distributed serving checks
-(``tests/_dist_checks.py``), run as ranks of one ``gloo`` process group.
+"""The port's side of the reference's distributed checks
+(``tests/_dist_checks.py``: the serving checks of
+``tests/test_torch_dist.py`` and the training checks of
+``tests/test_torch_dist_train.py``), run as ranks of one ``gloo`` process
+group.
 
     PYTHONPATH=src:tests python tests/_torch_dist_run.py <check>[,<check>...] \\
         <in.npz> <out.npz>
@@ -357,6 +360,417 @@ def check_moe_ep_equivalence(inp: dict) -> dict:
     return {"y": full_tensor(y).numpy(), "aux": aux.numpy()}
 
 
+# ---------------------------------------------------------------------------
+# Training checks (tests/test_torch_dist_train.py): the mesh forward and
+# loss, the sharded train step (ZeRO-1), elastic restore, GPipe, and the
+# batch-sharded serve paths
+# ---------------------------------------------------------------------------
+
+def _tree_from(inp: dict, prefix: str) -> dict:
+    """The nested dict of the ``<prefix>/a/b`` keys of ``inp``."""
+    tree: dict = {}
+    for key, val in inp.items():
+        if key.startswith(prefix + "/"):
+            node = tree
+            *path, leaf = key[len(prefix) + 1:].split("/")
+            for k in path:
+                node = node.setdefault(k, {})
+            node[leaf] = val
+    return tree
+
+
+def _put(out: dict, prefix: str, tree) -> None:
+    """Write every leaf of ``tree`` whole (gathered) under ``prefix``."""
+    from repro_torch.dist import sharding
+    for path, leaf in sharding._leaves_with_path(tree):
+        out[prefix + "/" + "/".join(path)] = _np(leaf)
+
+
+def _train_inputs(inp: dict, **replace):
+    """The reference's smoke qwen3 weights and its seeded batch, as the
+    port's (float32 params, the ``ref`` policy: training differentiates
+    no kernel)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import params_from_jax
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke,
+                              **{"kernel_impl": "ref", **replace})
+    params = params_from_jax(_tree_from(inp, "params"), cfg, device="cpu")
+    batch = {k: _t(v) for k, v in _tree_from(inp, "batch").items()}
+    return cfg, params, batch
+
+
+def _clone_tree(tree):
+    from repro_torch.dist import sharding
+    return sharding.tree_map(torch.clone, tree)
+
+
+def _dtensor_leaves(params, shardings):
+    """``params`` placed, every leaf (a ``DTensor`` block or a plain
+    tensor) a fresh leaf that requires grad."""
+    from repro_torch.dist import sharding
+
+    def leaf(x, where):
+        x = sharding.place(x, where)
+        if sharding.is_dtensor(x):
+            return sharding.from_local(x.to_local().detach(), x.device_mesh,
+                                       sharding.spec_of(x),
+                                       x.shape).requires_grad_()
+        return x.detach().requires_grad_()
+
+    return sharding.tree_map(leaf, params, shardings)
+
+
+def _reduced_grads(leaves, ctx) -> dict:
+    """Each leaf's gradient summed over the data axes its placement does
+    not name (the weight gather's transpose summed over those it does),
+    whole."""
+    from repro_torch.dist import sharding
+
+    def one(x):
+        g = x.grad
+        if not sharding.is_dtensor(g):
+            return sharding.psum(g, ctx.mesh, ctx.data_axes)
+        spec = sharding.spec_of(g)
+        named = {a for e in spec for a in sharding._names(e)}
+        rest = tuple(a for a in ctx.data_axes if a not in named)
+        return sharding.from_local(
+            sharding.psum(g.to_local(), ctx.mesh, rest), ctx.mesh, spec,
+            g.shape)
+
+    return sharding.tree_map(one, leaves)
+
+
+def check_mesh_forward(inp: dict) -> dict:
+    """``forward`` (train / hidden / prefill), ``loss_fn`` and
+    ``chunked_xent`` on (2, 4) with the weights placed by the parameter
+    rules and the batch whole or placed; ``flash_attention`` on
+    batch-placed ``DTensor`` s."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P, Sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import attention, transformer
+    from repro_torch.serve.engine import serve_param_shardings
+    cfg, params, batch = _train_inputs(inp)
+    mesh = make_test_mesh((2, 4), ("data", "model"), device="cpu")
+    ctx = make_ctx(mesh)
+    placed = sharding.place_tree(params,
+                                 serve_param_shardings(params, cfg, ctx))
+    on_batch = {k: sharding.place(v, Sharding(mesh, P(("data",))))
+                for k, v in batch.items()}
+    out = {}
+    for mode in ("train", "hidden", "prefill"):
+        y, aux, states = transformer.forward(placed, batch, cfg, ctx,
+                                             mode=mode)
+        out[f"{mode}/y"] = _np(y)
+        out[f"{mode}/spec"] = np.asarray(str(sharding.spec_of(y)))
+        if mode == "prefill":
+            _put(out, "prefill/states", states)
+    out["train/placed_batch_y"] = _np(
+        transformer.forward(placed, on_batch, cfg, ctx)[0])
+    loss, m = transformer.loss_fn(placed, batch, cfg, ctx)
+    out["loss"] = loss.numpy()
+    x = transformer.forward(placed, batch, cfg, ctx, mode="hidden")[0]
+    out["xent"] = transformer.chunked_xent(
+        x, placed["embed"], batch["labels"], batch["loss_weight"], ctx,
+        chunk=16).numpy()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((4, 24, 2, 8), generator=g) for _ in range(3))
+    qd, kd, vd = (sharding.place(t, Sharding(mesh, P(("data",))))
+                  for t in (q, k, v))
+    fa = attention.flash_attention(qd, kd, vd, q_chunk=8, kv_chunk=8,
+                                   ctx=ctx)
+    out["flash/spec"] = np.asarray(str(sharding.spec_of(fa)))
+    out["flash"] = _np(fa)
+    out["flash/whole"] = attention.flash_attention(
+        q, k, v, q_chunk=8, kv_chunk=8).numpy()
+    for name in ("q", "k", "v"):
+        out[f"flash/in/{name}"] = {"q": q, "k": k, "v": v}[name].numpy()
+    return out
+
+
+#: Families whose mesh loss goes through the generic weight gather (the
+#: encoder-decoder, the recurrent stacks) or the MoE layer's rank-local
+#: expert-parallel function.
+FAMILIES = ("whisper-tiny", "jamba-1.5-large-398b", "xlstm-125m",
+            "qwen3-moe-30b-a3b")
+
+
+def check_family_losses(inp: dict) -> dict:
+    """For each family's smoke config (the reference's weights and seeded
+    batch, ``ref``): the mesh loss on (2, 4) and its gradients (reduced
+    over the data axes, whole) beside the one-process port's; three
+    greedy batch-sharded decode steps beside the one-process steps (the
+    decoder-only families); for MoE, the rank-local expert-parallel
+    layer against the expert-parallel ``moe_layer`` on the same batch."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import RankLocal
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.train import state as tstate
+    from repro_torch.train.step import _loss_and_grads
+    ctx = make_ctx(make_test_mesh((2, 4), ("data", "model"), device="cpu"))
+    out = {}
+    for name in FAMILIES:
+        cfg = dataclasses.replace(get_arch(name).smoke, kernel_impl="ref")
+        params = transformer.params_from_jax(
+            _tree_from(inp, f"{name}/params"), cfg, device="cpu")
+        batch = {k: _t(v) for k, v in
+                 _tree_from(inp, f"{name}/batch").items()}
+        loss, m, grads = _loss_and_grads(params, batch, cfg, None)
+        out[f"{name}/one/loss"] = m["loss"].numpy()
+        out[f"{name}/one/aux"] = m["aux"].numpy()
+        _put(out, f"{name}/one/grads", grads)
+        psh = tstate.state_shardings({"params": params, "opt": {}}, ctx)
+        leaves = _dtensor_leaves(params, psh["params"])
+        with torch.enable_grad():
+            loss, m = transformer.loss_fn(leaves, batch, cfg, ctx)
+            loss.backward()
+        out[f"{name}/mesh/loss"] = m["loss"].detach().numpy()
+        out[f"{name}/mesh/aux"] = m["aux"].detach().numpy()
+        _put(out, f"{name}/mesh/grads", _reduced_grads(leaves, ctx))
+        if cfg.encoder is None:
+            # three greedy batch-sharded decode steps (recurrent states:
+            # each rank its batch block, updated in place)
+            from repro_torch.models import decode as dec
+            from repro_torch.serve import engine
+            scfg = engine.ServeConfig(max_len=16)
+            for tag, c in (("one", None), ("mesh", ctx)):
+                step = engine.jit_decode_step(cfg, c, scfg, device="cpu")
+                cache = dec.init_cache(cfg, 4, 16, device="cpu")
+                tok = batch["tokens"][:, 0]
+                logits = []
+                for _ in range(3):
+                    lg, cache = step(params, cache, tok)
+                    lg = sharding.full_tensor(lg)
+                    logits.append(lg.numpy())
+                    tok = torch.argmax(lg, -1).to(torch.int32)
+                out[f"{name}/serve/{tag}"] = np.stack(logits)
+        if any(cfg.moe_pattern):
+            pos = f"pos{list(cfg.moe_pattern).index(True)}"
+            pm = sharding.tree_map(lambda a: a[0],
+                                   params["blocks"][pos]["moe"])
+            x = torch.randn((4, 16, cfg.d_model),
+                            generator=torch.Generator().manual_seed(1))
+            y_ep, aux_ep = moe.moe_layer(pm, x, cfg.moe, ctx)
+            y_rl, aux_rl = moe.moe_layer(
+                pm, sharding.local_block(x, ctx.mesh, ctx.batch_spec()),
+                cfg.moe, RankLocal(mesh=None, shards=ctx.model_size))
+            aux_rl = sharding.pmean(aux_rl, ctx.mesh, ctx.data_axes)
+            out[f"{name}/ep/y"] = _np(y_ep)
+            out[f"{name}/ep/aux"] = aux_ep.numpy()
+            out[f"{name}/rank_local/y"] = _np(sharding.from_local(
+                y_rl, ctx.mesh, ctx.batch_spec()))
+            out[f"{name}/rank_local/aux"] = aux_rl.numpy()
+    return out
+
+
+def check_sharded_train_step(inp: dict) -> dict:
+    """The reference's ``check_sharded_train_step`` on (2, 4): a float32
+    arm (the loss, the gradients reduced over the data axes, two steps'
+    state and metrics, placements and a rank's bytes), the reference's
+    bf16 arm, and compression with microbatches against the one-process
+    port."""
+    import dataclasses
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               init_error_state)
+    from repro_torch.train import state as tstate
+    from repro_torch.train import step as tstep
+    cfg, params, batch = _train_inputs(inp)
+    mesh = make_test_mesh((2, 4), ("data", "model"), device="cpu")
+    ctx = make_ctx(mesh)
+    out = {}
+    psh = tstate.state_shardings({"params": params, "opt": {}}, ctx)
+    leaves = _dtensor_leaves(params, psh["params"])
+    with torch.enable_grad():
+        loss, _ = transformer.loss_fn(leaves, batch, cfg, ctx)
+        loss.backward()
+    out["f32/loss"] = loss.detach().numpy()
+    _put(out, "f32/grads", _reduced_grads(leaves, ctx))
+    wq = leaves["blocks"]["pos0"]["attn"]["wq"]
+    out["f32/wq_grad_local"] = np.asarray(wq.grad.to_local().shape)
+    # weights also split over the data axis (fsdp): the gather's
+    # transpose sums the data blocks' shares before taking the slice
+    fctx = make_ctx(mesh, fsdp=True)
+    fsh = tstate.state_shardings({"params": params, "opt": {}}, fctx,
+                                 zero1=False)
+    leaves = _dtensor_leaves(params, fsh["params"])
+    with torch.enable_grad():
+        loss, _ = transformer.loss_fn(leaves, batch, cfg, fctx)
+        loss.backward()
+    out["fsdp/loss"] = loss.detach().numpy()
+    _put(out, "fsdp/grads", _reduced_grads(leaves, fctx))
+    wq = leaves["blocks"]["pos0"]["attn"]["wq"]
+    out["fsdp/wq_spec"] = np.asarray(str(sharding.spec_of(wq)))
+
+    state = tstate.init_train_state(_clone_tree(params))
+    step = tstep.make_train_step(cfg, tstep.TrainConfig(), ctx)
+    for i in range(2):
+        state, m = step(state, batch)
+        for k in ("loss", "grad_norm", "lr"):
+            out[f"f32/step{i}/{k}"] = m[k].numpy()
+    _put(out, "f32/state/params", state["params"])
+    _put(out, "f32/state/m", state["opt"]["m"])
+    _put(out, "f32/state/v", state["opt"]["v"])
+    wq = state["params"]["blocks"]["pos0"]["attn"]["wq"]
+    mq = state["opt"]["m"]["blocks"]["pos0"]["attn"]["wq"]
+    out["f32/wq"] = np.asarray([sharding.is_dtensor(wq)]
+                               + list(wq.to_local().shape) + list(wq.shape))
+    out["f32/m_spec"] = np.asarray(str(sharding.spec_of(mq)))
+    out["f32/m_local"] = np.asarray(mq.to_local().shape)
+    out["f32/bytes"] = np.asarray(
+        [sharding.local_nbytes(params), sharding.local_nbytes(
+            state["params"]), sharding.local_nbytes(state["opt"]["m"])])
+
+    cfgb = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    state = tstate.init_train_state(_clone_tree(params))
+    step = tstep.make_train_step(cfgb, tstep.TrainConfig(), ctx)
+    state, m1 = step(state, batch)
+    state, m2 = step(state, batch)
+    out["bf16/losses"] = np.asarray([float(m1["loss"]), float(m2["loss"])])
+    wq = state["params"]["blocks"]["pos0"]["attn"]["wq"]
+    out["bf16/wq"] = np.asarray([sharding.is_dtensor(wq)]
+                                + list(wq.to_local().shape) + list(wq.shape))
+
+    for kind in ("int8", "topk"):
+        tcfg = tstep.TrainConfig(microbatches=2,
+                                 compression=CompressionConfig(kind=kind))
+        states = []
+        for c in (None, ctx):
+            st = tstate.init_train_state(_clone_tree(params))
+            st["grad_error"] = init_error_state(st["params"])
+            run = tstep.make_train_step(cfg, tcfg, c)
+            for i in range(2):
+                st, m = run(st, batch)
+                for k in ("loss", "grad_norm", "compression_error"):
+                    out[f"{kind}/{'one' if c is None else 'mesh'}/"
+                        f"step{i}/{k}"] = m[k].numpy()
+            states.append(st)
+        for tag, st in zip(("one", "mesh"), states):
+            _put(out, f"{kind}/{tag}/state", {
+                "params": st["params"], "m": st["opt"]["m"],
+                "v": st["opt"]["v"], "err": st["grad_error"]})
+    return out
+
+
+def check_elastic_reshard(inp: dict) -> dict:
+    """The reference's ``check_elastic_reshard``: a tree placed on (2, 4)
+    saved and restored onto (4, 2); a reference-written checkpoint
+    restored into a sharded port template."""
+    from repro_torch.dist import sharding
+    from repro_torch.ft import elastic
+    from repro_torch.ft.checkpoint import CheckpointManager
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    tree = sharding.tree_map(_t, _tree_from(inp, "tree"))
+    ctx = make_ctx(make_test_mesh((2, 4), ("data", "model"), device="cpu"))
+    ctx2 = make_ctx(make_test_mesh((4, 2), ("data", "model"), device="cpu"))
+    src = sharding.place_tree(tree, elastic.reshard_template(tree, ctx))
+    mgr = CheckpointManager(str(inp["port_dir"]))
+    mgr.save(1, src, extra={"from": "(2, 4)"}, blocking=True)
+    dist.barrier()
+    restored, extra = elastic.restore_elastic(mgr, src, ctx2)
+    out = {"extra": np.asarray(extra["from"])}
+    _put(out, "restored", restored)
+    wq = restored["blocks"]["pos0"]["attn"]["wq"]
+    out["wq"] = np.asarray([sharding.axis_size(wq.device_mesh, "model")]
+                           + list(wq.to_local().shape))
+    out["wq_spec"] = np.asarray(str(sharding.spec_of(wq)))
+    ref = CheckpointManager(str(inp["ref_dir"]))
+    got, _ = elastic.restore_elastic(ref, src, ctx)
+    _put(out, "from_ref", got)
+    out["from_ref_placed"] = np.asarray(sharding.is_dtensor(
+        got["blocks"]["pos0"]["attn"]["wq"]))
+    return out
+
+
+def check_pipeline_equivalence(inp: dict) -> dict:
+    """The reference's ``check_pipeline_equivalence``: GPipe over the pod
+    axis of (2, 2, 2), two microbatches; the loss, and the gradients
+    (each rank's stage share, added over the stages)."""
+    from repro_torch.dist.pipeline_par import (PipelineConfig,
+                                               pipeline_loss_fn,
+                                               reduce_stage_grads)
+    from repro_torch.dist.sharding import make_mesh
+    from repro_torch.launch.mesh import make_ctx
+    from repro_torch.train.step import _grads_of
+    cfg, params, batch = _train_inputs(inp)
+    ctx = make_ctx(make_mesh((2, 2, 2), ("pod", "data", "model"),
+                             device="cpu"))
+    pcfg = PipelineConfig(axis="pod", n_microbatches=2)
+    loss, metrics, grads = _grads_of(
+        lambda p: pipeline_loss_fn(p, batch, cfg, ctx, pcfg), params)
+    out = {"loss": loss.numpy(), "xent": metrics["loss"].numpy()}
+    _put(out, "stage_grads", grads)
+    _put(out, "grads", reduce_stage_grads(grads, ctx, pcfg))
+    return out
+
+
+def check_batch_sharded_serve(inp: dict) -> dict:
+    """``jit_prefill``, the batch-sharded ``jit_decode_step`` (greedy
+    steps) and ``BatchedServer`` with a mesh, on (2, 4) (KV sequence over
+    the model axis) and (4, 2) (KV heads over it), under ``ref`` and
+    ``kernel``; the kernel wrappers' calls per decode step (the fused
+    split pinned to its kernel lowering, as the card's full-width step
+    takes it: the smoke cache is below the fusion threshold)."""
+    from repro_torch.core import accessfuse
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.serve import engine
+    out = {}
+    tokens = _t(inp["tokens"])
+    prompts = [list(map(int, r)) for r in inp["prompts"]]
+    gen = int(inp["gen"])
+    for impl in IMPLS:
+        cfg, params, _ = _train_inputs(inp, kernel_impl=impl)
+        for shape in ((2, 4), (4, 2)):
+            tag = f"{impl}/{shape[0]}x{shape[1]}"
+            ctx = make_ctx(make_test_mesh(shape, ("data", "model"),
+                                          device="cpu"))
+            logits, states = engine.jit_prefill(cfg, ctx, device="cpu")(
+                params, {"tokens": tokens})
+            out[f"{tag}/prefill"] = _np(logits)
+            cache = dec.cache_from_prefill(
+                cfg, sharding.tree_map(sharding.full_tensor, states),
+                tokens.shape[1], int(inp["max_len"]))
+            step = engine.jit_decode_step(
+                cfg, ctx, engine.ServeConfig(max_len=int(inp["max_len"])),
+                device="cpu")
+            tok = torch.argmax(sharding.full_tensor(logits)[:, -1], -1).to(
+                torch.int32)
+            steps, calls = [], []
+            for _ in range(gen):
+                _reset_calls()
+                with accessfuse.pinned_kernel_lowering():
+                    lg, cache = step(params, cache, tok)
+                c = _kernel_calls()
+                calls.append([c["deinterleave"], sum(c.values())])
+                lg = sharding.full_tensor(lg)
+                steps.append(lg.numpy())
+                tok = torch.argmax(lg, -1).to(torch.int32)
+            out[f"{tag}/steps"] = np.stack(steps)
+            out[f"{tag}/calls"] = _per_rank(
+                [x for pair in calls for x in pair], ctx.mesh)
+            out[f"{tag}/kv_spec"] = np.asarray(str(sharding.spec_of(
+                cache["blocks"]["pos0"])))
+            srv = engine.BatchedServer(cfg, params, slots=len(prompts),
+                                       max_len=int(inp["max_len"]),
+                                       ctx=ctx, device="cpu")
+            reqs = [srv.submit(p, max_new_tokens=gen) for p in prompts]
+            for _ in range(200):
+                srv.tick()
+                if srv.scheduler.drained():
+                    break
+            out[f"{tag}/streams"] = _per_rank(
+                [t for r in reqs for t in r.tokens], ctx.mesh)
+    return out
+
+
 CHECKS = {
     "sharded_vx_property": check_sharded_vx_property,
     "paged_pool_shard": check_paged_pool_shard,
@@ -365,11 +779,21 @@ CHECKS = {
     "longctx_fused_decode": check_longctx_fused_decode,
     "longctx_launch_gate": check_longctx_launch_gate,
     "moe_ep_equivalence": check_moe_ep_equivalence,
+    "mesh_forward": check_mesh_forward,
+    "sharded_train_step": check_sharded_train_step,
+    "elastic_reshard": check_elastic_reshard,
+    "pipeline_equivalence": check_pipeline_equivalence,
+    "batch_sharded_serve": check_batch_sharded_serve,
+    "family_losses": check_family_losses,
 }
 
 
 def _rank(rank: int, world: int, port: int, names: list, inp_path: str,
           out_path: str) -> None:
+    import warnings
+    # newer torch names all_gather_into_tensor / reduce_scatter_tensor
+    # deprecated; the card's torch has only these
+    warnings.filterwarnings("ignore", category=FutureWarning)
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=world)

@@ -348,11 +348,21 @@ def test_restore_elastic_without_a_mesh(tmp_path):
 
 
 def test_mesh_is_refused_naming_the_dist_slice(tmp_path):
+    """A mesh is no longer refused: on a one-rank mesh the elastic
+    restore places each leaf by the parameter rules, bit for bit (8
+    ranks: tests/test_torch_dist_train.py); a shardings tree whose leaves
+    are not ``Sharding`` s is refused."""
+    from _torch_dist_run import one_rank_group
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx
     mgr = CheckpointManager(str(tmp_path))
     tree = _tree()
     mgr.save(1, tree, blocking=True)
-    with pytest.raises(NotImplementedError, match="9h"):
-        elastic.restore_elastic(mgr, tree,
-                                types.SimpleNamespace(mesh="a mesh"))
-    with pytest.raises(NotImplementedError, match="9h"):
+    with one_rank_group():
+        ctx = make_ctx(sharding.make_mesh((1, 1), ("data", "model"),
+                                          device="cpu"))
+        restored, _ = elastic.restore_elastic(mgr, _zeros(tree), ctx)
+        assert sharding.spec_of(restored["params"]["w"]) == ("model", None)
+        _assert_tree_bits(tree_map(sharding.full_tensor, restored), tree)
+    with pytest.raises(TypeError, match="Sharding"):
         mgr.restore(tree, shardings=tree_map(lambda t: "replicated", tree))

@@ -11,8 +11,14 @@ this process (``dist/sharding.py``, ``launch/mesh.py``,
   only ``mesh.shape[axis]`` and ``mesh.axis_names``, so a stand-in with
   those serves them; the port's ``DeviceMesh`` es are built on torch's
   one-process fake group, destroyed once they exist.
+- ``train_state_specs`` (ZeRO-1 on and off), ``state_shardings``,
+  ``full_state_shardings`` (the error state placed as the moments) and
+  ``batch_shardings``: entry for entry equal to the reference's, for all
+  ten archs' full-width templates on the same four meshes (the
+  reference's ``NamedSharding`` s built on ``AbstractMesh`` es).
 - ``make_ctx``'s roles and ``vx_seq_shard`` / ``vx_pool_shard``; the
-  production mesh refuses a world of another size.
+  production mesh refuses a world of another size, and so do the
+  training CLI's ``--mesh`` arms.
 - ``Shard``'s validation and plan keys (``tests/test_vx_api.py`` and
   ``tests/test_paged.py``), on one-rank meshes of a one-rank ``gloo``
   group.
@@ -153,6 +159,59 @@ def test_cache_specs_match_reference(meshes, arch):
             assert got == want, (shape, long_context)
 
 
+def _abstract_ctx(shape):
+    from jax.sharding import AbstractMesh
+    return jmesh.make_ctx(AbstractMesh(shape, MESHES[shape]))
+
+
+def _ref_specs(shardings) -> list:
+    return sorted(_flat_ref(jax.tree.map(
+        lambda s: s.spec, shardings,
+        is_leaf=lambda x: isinstance(x, jax.sharding.NamedSharding))))
+
+
+def _port_specs(shardings) -> list:
+    return sorted(_flat_port(sharding.map_specs(lambda s: s.spec,
+                                                shardings)))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_train_state_placement_matches_reference(meshes, arch):
+    from repro.configs.base import train_batch as jtrain_batch
+    from repro.train import state as jstate
+    from repro.train import step as jstep
+    from repro_torch.train import state as tstate
+    from repro_torch.train import step as tstep
+    shapes = _param_shapes(arch)
+    template = _meta(shapes)
+    bshapes = jtrain_batch(jget_arch(arch).model, 4096, 256)
+    btemplate = _meta(bshapes)
+    n_zero1 = 0
+    for shape in MESHES:
+        jctx, tctx = _abstract_ctx(shape), tmesh.make_ctx(meshes[shape])
+        for zero1 in (True, False):
+            want = sorted(_flat_ref(jstate.train_state_specs(
+                {"params": shapes}, jctx, zero1=zero1)))
+            got = sorted(_flat_port(tstate.train_state_specs(
+                {"params": template}, tctx, zero1=zero1)))
+            assert got == want, (shape, zero1)
+            assert _port_specs(tstate.state_shardings(
+                {"params": template}, tctx, zero1=zero1)) == want
+            want = _ref_specs(jstep.full_state_shardings(
+                {"params": shapes, "opt": {}, "grad_error": shapes}, jctx,
+                jstep.TrainConfig(zero1=zero1)))
+            got = _port_specs(tstep.full_state_shardings(
+                {"params": template, "opt": {}, "grad_error": template},
+                tctx, tstep.TrainConfig(zero1=zero1)))
+            assert got == want, (shape, zero1)
+            if zero1:
+                n_zero1 += sum("data" in str(s) for p, s in got
+                               if p.startswith("opt/m/"))
+        assert _port_specs(tstep.batch_shardings(btemplate, tctx)) == \
+            _ref_specs(jstep.batch_shardings(bshapes, jctx)), shape
+    assert n_zero1 > 0
+
+
 def test_add_data_sharding_matches_reference(meshes):
     for shape in MESHES:
         jctx, tctx = _ctxs(meshes, shape)
@@ -196,6 +255,14 @@ def test_meshes_need_their_world():
             tmesh.make_production_mesh(device="cpu")
         with pytest.raises(ValueError, match=r"512 ranks.*has 8"):
             tmesh.make_production_mesh(multi_pod=True, device="cpu")
+        # the training CLI's mesh arms build the production mesh on the
+        # caller's process group: a world of 8 is refused, never shrunk
+        from repro_torch.launch import train
+        for arm, n in (("single-pod", 256), ("multi-pod", 512)):
+            with pytest.raises(ValueError, match=rf"{n} ranks.*has 8"):
+                train.main(["--arch", "qwen3-0.6b", "--smoke", "--device",
+                            "cpu", "--steps", "1", "--mesh", arm])
+        assert dist.is_initialized()
         mesh = tmesh.make_test_mesh(device="cpu")
         assert tuple(mesh.shape) == (2, 4)
         assert mesh.mesh_dim_names == ("data", "model")

@@ -154,10 +154,10 @@ def test_jit_prefill_and_decode_step_match_reference(fuse):
 
 
 def test_engine_refuses_what_waits():
-    """A mesh without ``long_context`` (the batch-sharded step) and
-    ``jit_prefill`` under a mesh still wait for item 9h's training half;
-    the placement rules and the long-context step do not (a one-rank
-    mesh here, 8 ranks in tests/test_torch_dist.py)."""
+    """Only the encoder-decoder's decode step still refuses a mesh; the
+    placement rules, the long-context step, the batch-sharded step and
+    ``jit_prefill`` under a mesh run (a one-rank mesh here, 8 ranks in
+    tests/test_torch_dist.py and tests/test_torch_dist_train.py)."""
     from _torch_dist_run import one_rank_group
     from repro_torch.dist import sharding
     from repro_torch.launch.mesh import make_ctx
@@ -170,11 +170,12 @@ def test_engine_refuses_what_waits():
     assert engine.cache_specs(cfg, None, scfg, {}) is None
     assert engine.cache_specs(cfg, no_mesh, scfg, {}) is None
     assert engine.serve_param_shardings({}, cfg, no_mesh) is None
-    for call in (lambda: engine.jit_prefill(cfg, mesh, device="cpu"),
-                 lambda: engine.jit_decode_step(cfg, mesh, scfg,
-                                                device="cpu")):
-        with pytest.raises(NotImplementedError, match="dist"):
-            call()
+    # the encoder-decoder's decode step is what still refuses a mesh,
+    # naming its ROADMAP item; the batch-sharded step and jit_prefill
+    # run on the one-rank mesh below
+    from repro_torch.configs.whisper_tiny import smoke_config
+    with pytest.raises(NotImplementedError, match="9h-encdec"):
+        engine.jit_decode_step(smoke_config(), mesh, scfg, device="cpu")
     # long_context without a mesh is the plain step
     tok = torch.tensor([5, 7], dtype=torch.int32)
     want, _ = engine.jit_decode_step(cfg, None, scfg, device="cpu")(
@@ -198,6 +199,19 @@ def test_engine_refuses_what_waits():
         # the distributed softmax divides after its merge
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
                                    atol=ATOL)
+        # the batch-sharded step and the mesh prefill: the one-device
+        # results, placed on the batch
+        bctx = make_ctx(ctx.mesh)
+        got, _ = engine.jit_decode_step(cfg, bctx, scfg, device="cpu")(
+            params, dec.init_cache(cfg, 2, 16, device="cpu"), tok)
+        want, _ = engine.jit_decode_step(cfg, None, scfg, device="cpu")(
+            params, dec.init_cache(cfg, 2, 16, device="cpu"), tok)
+        assert torch.equal(sharding.full_tensor(got), want)
+        pb = {"tokens": torch.tensor([[5, 7, 9], [1, 2, 3]],
+                                     dtype=torch.int32)}
+        got = engine.jit_prefill(cfg, bctx, device="cpu")(params, pb)
+        want = engine.jit_prefill(cfg, None, device="cpu")(params, pb)
+        assert torch.equal(sharding.full_tensor(got[0]), want[0])
         assert sharding.is_dtensor(cache["blocks"]["pos0"])
     # make_fleet(replicas=1) is one BatchedServer's scheduler behind a
     # router: the same streams

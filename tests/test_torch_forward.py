@@ -86,11 +86,15 @@ def test_flash_attention_bf16_matches_reference(name):
 
 
 def test_flash_attention_refuses_a_mesh():
+    """A mesh is no longer refused: its placement hints change no value,
+    so plain operands are attended as given (``DTensor`` operands on 8
+    ranks: tests/test_torch_dist_train.py)."""
     class Ctx:
         mesh = object()
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="dist"):
-        attention.flash_attention(q, q, q, ctx=Ctx())
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((2, 8, 2, 8), generator=g) for _ in range(3))
+    assert torch.equal(attention.flash_attention(q, k, v, ctx=Ctx()),
+                       attention.flash_attention(q, k, v))
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +211,19 @@ def test_forward_refuses_what_waits():
     with pytest.raises(ValueError, match="mode"):
         forward(params, batch, cfg, mode="decode")
 
-    class Ctx:
-        mesh = object()
-    with pytest.raises(NotImplementedError, match="dist"):
-        forward(params, batch, cfg, Ctx())
+    # a mesh runs the mesh forward: on a one-rank mesh, the one-device
+    # logits bit for bit, placed on the batch (8 ranks:
+    # tests/test_torch_dist_train.py)
+    from _torch_dist_run import one_rank_group
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx
+    with one_rank_group():
+        ctx = make_ctx(sharding.make_mesh((1, 1), ("data", "model"),
+                                          device="cpu"))
+        got = forward(params, batch, cfg, ctx)[0]
+        assert sharding.spec_of(got)[0] == "data"
+        assert torch.equal(sharding.full_tensor(got),
+                           forward(params, batch, cfg)[0])
     # whisper runs the forward now (tests/test_torch_encdec.py); its paged
     # prefill raises the reference's own text
     from repro.models import decode as jdec

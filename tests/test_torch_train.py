@@ -476,13 +476,29 @@ def test_state_placement_is_none_without_a_mesh():
     assert tstep.full_state_shardings(state, None, tt) is None
     assert tstep.batch_shardings({}, None) is None
 
-    class Ctx:
-        mesh = object()
-    for fn in (lambda: tstate.state_shardings(state, Ctx()),
-               lambda: tstep.full_state_shardings(state, Ctx(), tt),
-               lambda: tstep.make_train_step(cfg, tt, Ctx())):
-        with pytest.raises(NotImplementedError, match="9h"):
-            fn()
+    # a mesh is no longer refused: on a one-rank (1, 1) mesh the state
+    # is placed (the error state as the moments) and a step is the
+    # one-device step up to the order of the global norm's sum (8 ranks:
+    # tests/test_torch_dist_train.py)
+    from _torch_dist_run import one_rank_group
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx
+    cfg = dataclasses.replace(cfg, kernel_impl="ref")
+    batch = base.train_batch(cfg, 16, 2, specs=False, device="cpu")
+    with one_rank_group():
+        ctx = make_ctx(sharding.make_mesh((1, 1), ("data", "model"),
+                                          device="cpu"))
+        sh = tstep.full_state_shardings(state, ctx, tt)
+        assert sh["grad_error"] == sh["opt"]["m"]
+        assert tstate.state_shardings(state, ctx)["opt"]["step"].spec == ()
+        one, _ = tstep.make_train_step(cfg, tt, None)(
+            tf.tree_map(torch.clone, state), batch)
+        got, _ = tstep.make_train_step(cfg, tt, ctx)(state, batch)
+        assert sharding.is_dtensor(got["params"]["embed"])
+        for a, b in zip(jax.tree.leaves(tf.tree_map(_np, one)),
+                        jax.tree.leaves(tf.tree_map(
+                            lambda x: _np(sharding.full_tensor(x)), got))):
+            np.testing.assert_allclose(b, a, rtol=1e-6, atol=1e-7)
 
 
 # ---------------------------------------------------------------------------

@@ -79,10 +79,16 @@ def test_train_cli_learns_checkpoints_and_resumes_exactly(tmp_path):
 
 
 def test_mesh_is_refused_naming_the_dist_slice(monkeypatch):
-    monkeypatch.setattr(sys, "argv", ["train"] + SMOKE
-                        + ["--steps", "1", "--mesh", "single-pod"])
-    with pytest.raises(NotImplementedError, match="9h"):
-        train.main()
+    """``--mesh`` builds the production mesh, which a world of another
+    size than 256 / 512 refuses with ``make_mesh``'s ``ValueError`` (never
+    a shrunk mesh); here the process is a world of one."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    for mesh, n in (("single-pod", 256), ("multi-pod", 512)):
+        monkeypatch.setattr(sys, "argv", ["train"] + SMOKE
+                            + ["--steps", "1", "--mesh", mesh])
+        with pytest.raises(ValueError, match=f"needs {n} ranks, the "
+                                             f"process group has 1"):
+            train.main()
 
 
 def test_kernel_policy_refuses_to_train(monkeypatch, capsys):
