@@ -411,16 +411,36 @@ shared with the background, not alone:
    ``jit_decode_step`` s under ``kernel`` and ``ref`` (bit for bit; one
    B1 launch a step on every rank under ``kernel``, on its cache block),
    B1 on a rank's block against its plain version, the streams against
-   rank 0's one-process steps.  17d's launches under ``kernel`` (its
-   prefill's too) join the kernels' line.  ``training_phase(card_line())``
-   runs it alone.
+   rank 0's one-process steps; (f) whisper-tiny's batch-sharded decode,
+   uncut, 4 seeded frame stubs and prompts of 32: 8 greedy steps on
+   (2, 2) (head-parallel) and (1, 4) (the ring's and ``enc_kv``'s
+   sequence split, the distributed softmax) under ``kernel`` and ``ref``
+   (bit for bit; B1 and B2 once per layer a step on every rank under
+   ``kernel``), streams equal to rank 0's one-process steps, a
+   float32-compute arm within the reference's rtol = atol = 3e-3;
+   (e) last, once the main process has left the card (its
+   ``Background.join``): qwen3-moe-30b-a3b expert-parallel ZeRO-1
+   training at published widths, 1 of 48 layers, 4 x 256 tokens, on
+   (2, 2): a rank's banks resident (half their bytes, no collective of a
+   bank's shape), one bf16 step, then one float32 step against rank 0's
+   one-process step with its MoE layers as ``expert_parallel_plain``
+   computes them (17a's tolerances).  17d's and 17f's launches under
+   ``kernel`` (17d's prefill's too) join the kernels' line.
+   ``training_phase(card_line())`` runs it alone.
+18. the roofline (``repro_torch.roofline``, ``hw.H100_SXM``): phase 14a's
+   one-process train step and 17a's mesh step each run once more under
+   ``bundle_from_trace`` (FLOPs, bytes, collective bytes), printed over
+   the card's peaks beside the measured step and 6ND; and one
+   ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
+   train_4k`` subprocess (first in the background's CLI queue), which
+   must exit 0.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
 ``scatter_many`` call, phases 11's and 12's scheduler runs, phase 13's
 whisper calls, phase 15a's data-path calls, phase 16's ranks and phase
-17d's under the same policies; the strided path's (and phase 16's) for
+17d's and 17f's under the same policies; the strided path's (and phase 16's) for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -2321,8 +2341,14 @@ class Background:
         """Start the ranks of phases 16 and 17 (after phase 6, so that
         they run beside phases 7-14); every line from here on is
         tagged."""
+        import os
+        import tempfile
         from concurrent.futures import ThreadPoolExecutor
         self.t0 = time.perf_counter()
+        # 17e waits for this file: the main process writes it when its
+        # card work before the join is done (main_idle)
+        self.idle = Path(tempfile.mkdtemp(dir=ROOT / "build")) / "idle"
+        os.environ[IDLE_ENV] = str(self.idle)
         self.spawner = ThreadPoolExecutor(1)
         self.spawned = self.spawner.submit(timed_spawn16)
         sys.stdout.flush()
@@ -2336,8 +2362,15 @@ class Background:
         for job in self.jobs:
             job[3] = self.pool.submit(job[1], *job[2])
 
+    def main_idle(self) -> None:
+        """Tell the ranks the main process has left the card (17e)."""
+        self.idle.write_text("idle")
+
     def join(self, card: str) -> dict:
         """Phases 16's and 17's launches, summed over their ranks."""
+        import os
+        import shutil
+        self.main_idle()
         results = [job[3].result() for job in self.jobs]
         spawned = self.spawned.result()
         now = time.perf_counter()
@@ -2352,6 +2385,8 @@ class Background:
             job[0](r)
         self.pool.shutdown()
         self.spawner.shutdown()
+        os.environ.pop(IDLE_ENV, None)
+        shutil.rmtree(self.idle.parent, ignore_errors=True)
         try:
             return sharded_phase(card, spawned)
         finally:
@@ -4858,6 +4893,20 @@ def qwen3_train_cell(dev, card: str) -> None:
         with update_peaks() as peaks:
             r = train_steps(label, card, cfg, state, batch, tcfg,
                             TRAIN_STEPS)
+        if kind == "none":
+            # 18: one more step under bundle_from_trace, against the
+            # measured steps' median
+            from repro_torch.roofline.analysis import bundle_from_trace
+            from repro_torch.train.step import make_train_step
+            _, b = bundle_from_trace(make_train_step(cfg, tcfg), r["state"],
+                                     batch)
+            torch.cuda.synchronize()
+            roofline_lines(f"phase 14a qwen3-0.6b train step [bf16 compute, "
+                           f"one process, {TRAIN_MICRO} microbatches]",
+                           {"flops": b.flops, "bytes": b.bytes_accessed,
+                            "coll_bytes": b.coll_bytes},
+                           statistics.median(x[3] for x in r["rows"]),
+                           batch["tokens"].numel(), "qwen3-0.6b")
         del state, r["state"]
         gc.collect()
         top = max(max(p) for p in peaks)
@@ -6117,6 +6166,13 @@ def train17(dev, rank: int) -> dict:
         state, m, ms, coll = _step17(step, state, batch)
         out["bf16"].append({"loss": m["loss"], "grad_norm": m["grad_norm"],
                             "ms": ms, "collectives": coll})
+    # 18: a third bf16 step under bundle_from_trace (its FLOPs, bytes and
+    # collective bytes; the step's time is the two measured ones')
+    from repro_torch.roofline.analysis import bundle_from_trace
+    torch.cuda.synchronize()
+    (state, _), b = bundle_from_trace(step, state, batch)
+    out["trace"] = {"flops": b.flops, "bytes": b.bytes_accessed,
+                    "coll_bytes": b.coll_bytes}
     l1, l2 = (s["loss"] for s in out["bf16"])
     wq = state["params"]["blocks"]["pos0"]["attn"]["wq"]
     if not (math.isfinite(l1) and math.isfinite(l2) and l2 < l1 + 0.5) or \
@@ -6400,8 +6456,296 @@ def serve17(dev, rank: int) -> dict:
     return out
 
 
+#: 17e's cut of qwen3-moe-30b-a3b (48 layers at published widths) and of
+#: train_4k's batch: what fits on the card the 4 ranks share.
+MOE17_LAYERS, MOE17_BATCH, MOE17_SEQ = 1, 4, 256
+#: 17f: whisper-tiny's batch-sharded decode: meshes and the arm each takes
+#: (6 heads split over a model axis of 2, not of 4: the sequence then),
+#: greedy steps, float32 steps.
+WHISPER17_MESHES = (((2, 2), "heads"), ((1, 4), "sequence"))
+WHISPER17_STEPS, WHISPER17_F32_STEPS = 8, 4
+#: The file (named in this environment variable) that tells the ranks the
+#: main process's card work is done: 17e waits for it (:class:`Background`).
+IDLE_ENV = "CHIP_SMOKE_MAIN_IDLE"
+
+
+def _wait_main_idle(timeout: float = 900.0) -> float:
+    """Seconds spent waiting for the main process to leave the card (the
+    file ``IDLE_ENV`` names), 0 when no main process runs beside."""
+    import os
+    path = os.environ.get(IDLE_ENV)
+    if not path:
+        return 0.0
+    t0 = time.perf_counter()
+    while not Path(path).exists():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"17e: the main process did not leave the "
+                                 f"card within {timeout:.0f} s")
+        time.sleep(1.0)
+    return time.perf_counter() - t0
+
+
+def _host_flush() -> int:
+    """Returns this process's cached pinned host bytes (``gloo`` stages
+    every CUDA collective through pinned blocks, cached per power-of-two
+    size), then gives the cached ones back to the system."""
+    import torch
+    stats = torch.cuda.memory.host_memory_stats()
+    held = next((v for k, v in stats.items()
+                 if k.startswith("allocated_bytes") and k.endswith("current")),
+                -1)
+    flush = (getattr(getattr(torch, "accelerator", None), "empty_host_cache",
+                     None) or getattr(torch._C, "_host_emptyCache", None))
+    if flush is not None:
+        flush()
+    return held
+
+
+def _max_rss() -> int:
+    """This process's peak resident host memory, bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _bank_bytes(params) -> tuple:
+    """(whole, this rank's) bytes of the MoE expert banks of a placed
+    params tree."""
+    from repro_torch.dist import sharding
+    whole = held = 0
+    for path, leaf in sharding._leaves_with_path(params):
+        if sharding.is_expert_bank("/".join(path), leaf.ndim, 1):
+            whole += leaf.numel() * leaf.element_size()
+            held += sharding.local_nbytes(leaf)
+    return whole, held
+
+
+def moe17(dev, rank: int) -> dict:
+    """17e: expert-parallel ZeRO-1 training of qwen3-moe-30b-a3b at its
+    published widths (d 2048, 128 experts top-8, d_ff 768, vocab 151936),
+    ``MOE17_LAYERS`` of 48 layers, on (2, 2) = (data, model) under
+    ``ref``: a rank keeps its 64 experts of each bank resident (never
+    gathered).  Waits for the main process to leave the card.  Rank 0
+    first runs the one-process float32 step with the MoE layers as
+    ``models/moe.expert_parallel_plain`` (2, 2) computes them (the
+    function the mesh computes) and keeps its result on the host; then
+    one bf16-compute step and one float32-compute step on the mesh, each
+    from the same seeded state, the float32 one against rank 0's with
+    17a's tolerances."""
+    from unittest import mock
+    import torch
+    from repro_torch.configs.base import train_batch
+    from repro_torch.configs.qwen3_moe_30b import config
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train import state as tstate
+    from repro_torch.train import step as tstep
+    out = {"waited_s": _wait_main_idle(), "pinned": [_host_flush()],
+           "rss": [_max_rss()]}
+    cfg = dataclasses.replace(config(), kernel_impl="ref",
+                              n_layers=MOE17_LAYERS)
+    ctx = make_test_mesh((2, 2), ("data", "model"))
+    ctx = make_ctx(ctx)
+    batch = train_batch(cfg, MOE17_SEQ, MOE17_BATCH, specs=False,
+                        generator=torch.Generator(dev).manual_seed(SEED + 23),
+                        device=dev)
+    banks = set()
+    E, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff
+    for e in (E, E // 2):
+        for sh in ((e, d, f), (e, f, d)):
+            banks |= {sh, (cfg.n_superblocks,) + sh}
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.cuda.empty_cache()
+    if rank == 0:
+        one = tstate.init_train_state(init_params(cfg32, SEED, device=dev))
+        plain = (lambda p, x, spec, c:
+                 moe.expert_parallel_plain(p, x, spec, 2, 2))
+        with mock.patch.object(transformer, "moe_layer", plain):
+            one, want, ms1, _ = _step17(tstep.make_train_step(
+                cfg32, tstep.TrainConfig(), None), one, batch)
+        out["one_ms"] = ms1
+        want_params = {"/".join(p): x for p, x in
+                       sharding._leaves_with_path(one["params"])}
+        del one
+        torch.cuda.empty_cache()
+    for tag, c in (("bf16", cfg), ("f32", cfg32)):
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(c, SEED, device=dev)
+        state = tstate.init_placed_state(params, ctx)
+        del params
+        torch.cuda.empty_cache()
+        state, m, ms, coll = _step17(tstep.make_train_step(
+            c, tstep.TrainConfig(), ctx), state, batch)
+        seen = sorted(str(s) for s in sharding.LOG.shapes() & banks)
+        whole, held = _bank_bytes(state["params"])
+        r = {"loss": m["loss"], "grad_norm": m["grad_norm"], "lr": m["lr"],
+             "aux": m.get("aux", float("nan")), "ms": ms,
+             "collectives": coll, "banks_in_log": seen,
+             "bank_bytes": [whole, held],
+             "params_bytes": sharding.local_nbytes(state["params"]),
+             "peak": torch.cuda.max_memory_allocated()}
+        if seen or 2 * held != whole or not (
+                math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])):
+            raise AssertionError(f"17e [{tag}]: loss {m['loss']}, grad norm "
+                                 f"{m['grad_norm']}; expert-bank shapes in "
+                                 f"the collectives {seen}; bank bytes held "
+                                 f"{held} of {whole}")
+        if tag == "f32":
+            gap, far, n = 0.0, 0, 0
+            for path, leaf in sharding._leaves_with_path(state["params"]):
+                whole_leaf = sharding.full_tensor(leaf)
+                if rank == 0:
+                    dd = (whole_leaf - want_params["/".join(path)]).abs()
+                    gap = max(gap, float(dd.max()))
+                    far += int((dd > 0.1 * m["lr"]).sum())
+                    n += dd.numel()
+                del whole_leaf
+            if rank == 0:
+                r.update(want=want, gap=gap, far=far / n)
+                if (abs(m["loss"] - want["loss"]) > 1e-4 * abs(want["loss"])
+                        or abs(m["grad_norm"] - want["grad_norm"])
+                        > 1e-3 * want["grad_norm"]
+                        or gap > 2 * m["lr"] or far > 1e-3 * n):
+                    raise AssertionError(
+                        f"17e float32: mesh {m} vs one process {want}; "
+                        f"params gap {gap} (lr {m['lr']}), {far} of {n} "
+                        f"beyond 0.1 lr")
+        out[tag] = r
+        del state
+        torch.cuda.empty_cache()
+        out["pinned"].append(_host_flush())
+        out["rss"].append(_max_rss())
+    return out
+
+
+def whisper17(dev, rank: int) -> dict:
+    """17f: whisper-tiny uncut (bf16 compute), 4 seeded frame stubs and
+    prompts of 32 prefilled in one process on every rank, then
+    ``WHISPER17_STEPS`` greedy batch-sharded ``jit_decode_step`` s on
+    (2, 2) (6 heads over the model axis: head-parallel self- and
+    cross-attention) and on (1, 4) (the ring's and ``enc_kv``'s
+    sequence over it: the distributed softmax), under ``kernel`` and
+    ``ref`` from the same cache: logits bit for bit, (B1, B2) launches a
+    step on each rank (``qkv_project``'s split and re-pack of its batch
+    block under ``kernel``; none under ``ref``), streams equal to rank
+    0's one-process steps; a float32-compute arm of
+    ``WHISPER17_F32_STEPS`` steps per mesh against rank 0's one-process
+    float32 steps at the reference's rtol = atol = 3e-3."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import cast_params, init_params
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill)
+    base = dataclasses.replace(get_arch("whisper-tiny").model,
+                               kernel_impl="ref")
+    rng = np.random.default_rng(SEED + 21)
+    Bw, S, F = WHISPER_BATCH, WHISPER_PROMPT, base.encoder.context
+    tokens = torch.from_numpy(rng.integers(0, base.vocab, (Bw, S)).astype(
+        np.int32)).to(dev)
+    frames = torch.from_numpy(rng.normal(size=(Bw, F, base.d_model)).astype(
+        np.float32)).to(dev)
+    scfg = ServeConfig(max_len=WHISPER_MAX_LEN)
+    master = init_params(base, SEED, device=dev)
+    out = {"launches": {}, "meshes": {}}
+
+    def cache0(cfg, params, dtype):
+        with torch.no_grad():
+            logits, states = jit_prefill(cfg, None, device=dev)(
+                params, {"tokens": tokens, "audio_frames": frames})
+            cache = dec.cache_from_prefill(cfg, states, S, WHISPER_MAX_LEN,
+                                           dtype)
+            cache["enc_kv"] = encdec.precompute_enc_kv(
+                params, frames, cfg).to(dtype)
+        return cache, torch.argmax(logits[:, -1].float(), -1).int()
+
+    def steps(cfg, ctx, params, cache, tok, n):
+        cache = sharding.tree_map(torch.clone, cache)
+        step = jit_decode_step(cfg, ctx, scfg, device=dev)
+        logs, ms, pairs = [], [], []
+        sharding.LOG.reset()
+        for _ in range(n):
+            before = _launches16()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = step(params, cache, tok)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            dl = _delta(before)
+            pairs.append([dl["deinterleave"], dl["interleave"]])
+            lg = sharding.full_tensor(lg).float()
+            logs.append(lg)
+            tok = torch.argmax(lg, -1).int()
+        specs = [str(sharding.spec_of(leaf)) if sharding.is_dtensor(leaf)
+                 else "whole" for leaf in (cache["blocks"]["pos0"],
+                                           cache["enc_kv"])]
+        return {"logits": logs, "ms": ms, "pairs": pairs, "specs": specs,
+                "collectives": _collectives17(),
+                "stream": [[int(t) for t in torch.argmax(x, -1)]
+                           for x in logs]}
+
+    for tag, compute in (("bf16", "bfloat16"), ("f32", "float32")):
+        cfg = dataclasses.replace(base, compute_dtype=compute)
+        params = cast_params(master, cfg)
+        dtype = torch.bfloat16 if tag == "bf16" else torch.float32
+        cache, tok0 = cache0(cfg, params, dtype)
+        n = WHISPER17_STEPS if tag == "bf16" else WHISPER17_F32_STEPS
+        one = steps(cfg, None, params, cache, tok0, n) if rank == 0 else None
+        for shape, arm in WHISPER17_MESHES:
+            ctx = make_ctx(make_test_mesh(shape, ("data", "model")))
+            key = f"{shape[0]}x{shape[1]}"
+            runs = {impl: steps(dataclasses.replace(cfg, kernel_impl=impl),
+                                ctx, params, cache, tok0, n)
+                    for impl in (("kernel", "ref") if tag == "bf16"
+                                 else ("ref",))}
+            r = runs["ref"]
+            row = out["meshes"].setdefault(key, {"arm": arm})
+            if tag == "bf16":
+                k = runs["kernel"]
+                if not all(same_bits(a, b) for a, b in zip(k["logits"],
+                                                           r["logits"])):
+                    raise AssertionError(f"17f {key}: kernel and ref logits "
+                                         f"differ")
+                if any(p != [base.n_layers] * 2 for p in k["pairs"]) or \
+                        any(p != [0, 0] for p in r["pairs"]):
+                    raise AssertionError(f"17f {key}: (B1, B2) launches per "
+                                         f"step kernel {k['pairs']}, ref "
+                                         f"{r['pairs']}")
+                _add(out["launches"], {"deinterleave": sum(
+                    p[0] for p in k["pairs"]), "interleave": sum(
+                    p[1] for p in k["pairs"])})
+                row.update(kernel_ms=k["ms"], ref_ms=r["ms"],
+                           pairs=k["pairs"][0], specs=r["specs"],
+                           collectives=k["collectives"])
+                if rank == 0 and r["stream"] != one["stream"]:
+                    raise AssertionError(f"17f {key}: batch-sharded stream "
+                                         f"{r['stream']} vs one process "
+                                         f"{one['stream']}")
+            elif rank == 0:
+                gap = max(float((a - b).abs().max())
+                          for a, b in zip(r["logits"], one["logits"]))
+                excess = max(float(((a - b).abs() - 3e-3 * (1 + b.abs()))
+                                   .max())
+                             for a, b in zip(r["logits"], one["logits"]))
+                row.update(gap32=gap, excess32=excess,
+                           f32_stream=r["stream"] == one["stream"])
+                if excess > 0:
+                    raise AssertionError(f"17f {key} float32: logit gap "
+                                         f"{gap} beyond rtol = atol = 3e-3")
+        del params, cache
+    del master
+    torch.cuda.empty_cache()
+    return out
+
+
 def sharded17(rank: int) -> dict:
-    """17.0-17d on one rank (the same program on every rank)."""
+    """17.0-17f on one rank (the same program on every rank): 17f before
+    17e, which waits for the main process to leave the card."""
     import torch
     dev = torch.device("cuda")
     res = {"probe": probe17(rank)}
@@ -6419,6 +6763,12 @@ def sharded17(rank: int) -> dict:
     t0 = time.perf_counter()
     res["17d"] = serve17(dev, rank)
     res["17d"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["17f"] = whisper17(dev, rank)
+    res["17f"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["17e"] = moe17(dev, rank)
+    res["17e"]["s"] = time.perf_counter() - t0
     return res
 
 
@@ -6501,10 +6851,124 @@ def train_phase_lines(res: list, where: str) -> dict:
           f"holds {d['cache_bytes'][1]} of {d['cache_bytes'][0]} B; "
           f"launches per rank {[r['17d']['launches'] for r in res]} "
           f"({d['s']:.1f} s)")
+    f = r0["17f"]
+    for key, row in f["meshes"].items():
+        print(f"phase 17f whisper-tiny batch-sharded decode on {key} "
+              f"({row['arm']}) ({where}): 4 x {WHISPER_PROMPT} prompt tokens "
+              f"and 4 x 1500 frame stubs prefilled in one process, "
+              f"{WHISPER17_STEPS} greedy steps, ring / enc_kv "
+              f"{row['specs'][0]} / {row['specs'][1]}; kernel == ref bit for "
+              f"bit, (B1, B2) launches per step and rank {row['pairs']} "
+              f"under kernel, none under ref; streams equal to rank 0's "
+              f"one-process steps; median ms per step per rank kernel "
+              f"{[round(statistics.median(r['17f']['meshes'][key]['kernel_ms']), 1) for r in res]}"
+              f", ref "
+              f"{[round(statistics.median(r['17f']['meshes'][key]['ref_ms']), 1) for r in res]}"
+              f"; rank 0 (kernel): {_coll_text(row['collectives'])}; float32 "
+              f"compute, {WHISPER17_F32_STEPS} steps: largest logit gap "
+              f"{row['gap32']:.3e} within rtol = atol = 3e-3 (largest |gap| "
+              f"- 3e-3 (1 + |logit|) {row['excess32']:.3e}), streams equal "
+              f"{row['f32_stream']}")
+    print(f"phase 17f launches per rank {[r['17f']['launches'] for r in res]}"
+          f" ({f['s']:.1f} s)")
+    e = r0["17e"]
+    for tag in ("bf16", "f32"):
+        x = e[tag]
+        vs = (f"; against rank 0's one process (expert_parallel_plain (2, "
+              f"2)): loss {x['want']['loss']:.7f} (rtol 1e-4), grad norm "
+              f"{x['want']['grad_norm']:.6f} (rtol 1e-3), params largest gap "
+              f"{x['gap']:.3e} (bound 2 lr = {2 * x['lr']:.3e}), "
+              f"{x['far']:.2e} of entries beyond 0.1 lr (bound 1e-3); one "
+              f"process {e['one_ms']:.1f} ms" if tag == "f32" else "")
+        print(f"phase 17e qwen3-moe-30b-a3b expert-parallel ZeRO-1 train step "
+              f"[{tag} compute, ref] on (2, 2) (data, model) ({where}, after "
+              f"the main process left the card: waited {e['waited_s']:.1f} "
+              f"s): published widths (d 2048, 128 experts top-8, d_ff 768, "
+              f"vocab 151936), {MOE17_LAYERS} of 48 layers, {MOE17_BATCH} x "
+              f"{MOE17_SEQ} tokens; loss {x['loss']:.7f}, grad norm "
+              f"{x['grad_norm']:.6f}{vs}; expert-bank bytes a rank holds "
+              f"{x['bank_bytes'][1]} of {x['bank_bytes'][0]} (resident, no "
+              f"collective or packed gather of a bank's shape), params "
+              f"{x['params_bytes']} B; peak memory per rank "
+              f"{[r['17e'][tag]['peak'] for r in res]} B; ms per rank "
+              f"{[round(r['17e'][tag]['ms'], 1) for r in res]}; rank 0: "
+              f"{_coll_text(x['collectives'])}")
+    print(f"phase 17e: {e['s']:.1f} s; pinned host bytes each rank's gloo "
+          f"cache held at its start, after the bf16 step, after the float32 "
+          f"step (each then given back) "
+          f"{[r['17e']['pinned'] for r in res]}; peak resident host bytes "
+          f"per rank {[r['17e']['rss'][-1] for r in res]}")
+    t = a["trace"]
+    ms = statistics.median(s["ms"] for s in a["bf16"])
+    roofline_lines("17a qwen3-0.6b ZeRO-1 train step [bf16 compute] on (2, "
+                   "2), rank 0", t, ms, TRAIN17_BATCH * TRAIN17_SEQ,
+                   "qwen3-0.6b", ranks=len(res))
     launches: dict = {}
     for r in res:
         _add(launches, r["17d"]["launches"])
+        _add(launches, r["17f"]["launches"])
     return launches
+
+
+DRYRUN_ARGS = ("--arch", "qwen3-0.6b", "--shape", "train_4k")
+
+
+def run_dryrun() -> dict:
+    """Phase 18: the port's multi-pod dry run of one cell in a subprocess
+    (torch's fake process group at world 256, fake tensors; CPU only)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun",
+                          *DRYRUN_ARGS, "--out", str(ROOT / "build" /
+                                                     "dryrun18")],
+                         cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=900)
+    return {"rc": out.returncode, "wall_s": time.perf_counter() - t0,
+            "lines": out.stdout.splitlines(), "err": out.stderr[-3000:]}
+
+
+def report_dryrun(r: dict) -> None:
+    ok = [ln for ln in r["lines"] if ln.startswith("[ok]")]
+    print(f"phase 18 dry run (python -m repro_torch.launch.dryrun "
+          f"{' '.join(DRYRUN_ARGS)}, a subprocess on the host's CPU, fake "
+          f"tensors on a fake world of 256): exit {r['rc']} in "
+          f"{r['wall_s']:.1f} s; {ok[0] if ok else r['lines'][-3:]}")
+    if r["rc"] != 0 or len(ok) != 1:
+        raise AssertionError(f"phase 18 dry run exited {r['rc']}:\n"
+                             f"{chr(10).join(r['lines'][-20:])}\n{r['err']}")
+
+
+def roofline_lines(what: str, trace: dict, ms: float, tokens: int,
+                   arch: str, ranks: int = 1) -> None:
+    """Phase 18: a measured step against its roofline on this card:
+    ``bundle_from_trace``'s FLOPs, bytes and collective bytes of one
+    traced step (per rank) over the H100's peaks (``hw.H100_SXM``), the
+    analytic 6ND over the same peak, and the largest term as a share of
+    the measured ``ms``.  ``ranks`` processes share the one card: the
+    card's compute is their sum."""
+    from repro_torch import hw
+    from repro_torch.configs.base import get_arch
+    from repro_torch.roofline.analysis import model_flops
+    chip = hw.H100_SXM
+    mf = model_flops(get_arch(arch).model, tokens=tokens, kind="train")
+    terms = {"compute": ranks * trace["flops"] / chip.peak_bf16_flops,
+             "memory": ranks * trace["bytes"] / chip.hbm_bandwidth,
+             "collective": trace["coll_bytes"] / chip.ici_link_bandwidth}
+    top = max(terms, key=terms.get)
+    print(f"phase 18 roofline {what} on {card_line()}: model_flops (6ND, N "
+          f"active params, D {tokens} tokens) {mf:.4e} = {mf / chip.peak_bf16_flops * 1e3:.3f}"
+          f" ms at the {chip.peak_bf16_flops:.3e} FLOP/s bf16 peak; traced "
+          f"per rank {trace['flops']:.4e} FLOPs, {trace['bytes']:.4e} B "
+          f"accessed, {trace['coll_bytes']:.4e} B of collectives; the "
+          f"card's terms ({ranks} rank(s) on it) compute "
+          f"{terms['compute'] * 1e3:.3f} ms, memory {terms['memory'] * 1e3:.3f}"
+          f" ms, collective {terms['collective'] * 1e3:.3f} ms (one NVLink "
+          f"link's {chip.ici_link_bandwidth:.3e} B/s; these ranks' "
+          f"collectives are gloo through host memory); measured "
+          f"{ms:.1f} ms: the roofline ({top}) is "
+          f"{terms[top] * 1e3 / ms:.4f} of it, 6ND "
+          f"{mf / chip.peak_bf16_flops * 1e3 / ms:.4f}")
 
 
 def sharded16(rank: int) -> dict:
@@ -6851,6 +7315,8 @@ def main() -> int:
     global BACKGROUND
     BACKGROUND = Background()
     BACKGROUND.start_spawn()
+    # first in the CLI queue: the longest subprocess (18)
+    cli_runs((report_dryrun, run_dryrun))
     dense_phase(dev, cfg, card, slots, page_size)
     quant_prefix_phase(dev, cfg, card, prompts, gen, slots, max_len,
                        page_size, timing)

@@ -200,16 +200,21 @@ def from_local(local: torch.Tensor, mesh, spec: P, shape=None):
         for dim, entry in enumerate(spec):
             shape[dim] *= axes_size(mesh, entry)
     shape = torch.Size(shape)
-    stride = torch.empty(shape, device="meta").stride()
+    stride = [1] * len(shape)                   # contiguous, row-major
+    for i in range(len(shape) - 2, -1, -1):
+        stride[i] = stride[i + 1] * max(shape[i + 1], 1)
     return DTensor.from_local(local, mesh, placements(mesh, spec),
-                              run_check=False, shape=shape, stride=stride)
+                              run_check=False, shape=shape,
+                              stride=tuple(stride))
 
 
-def full_tree(tree):
+def full_tree(tree, *, experts=None):
     """``tree`` with every leaf whole: the ``DTensor`` leaves gathered
     (:func:`gather_tree` of their blocks, one collective per mesh axes
     and dtype for the leaves sharded on one dim: a superblock's weights
-    in one), plain leaves as they are.  Differentiable: see
+    in one), plain leaves as they are.  With ``experts`` (a model axis
+    name) the expert banks keep their block over it
+    (:func:`resident_expert_specs`).  Differentiable: see
     :func:`gather_tree`."""
     leaves = [x for _, x in _leaves_with_path(tree)]
     meshes = {x.device_mesh for x in leaves if is_dtensor(x)}
@@ -218,7 +223,36 @@ def full_tree(tree):
     if len(meshes) > 1:
         raise ValueError("full_tree needs the leaves on one mesh")
     local, specs = split_tree(tree)
+    if experts is not None:
+        specs = resident_expert_specs(local, specs, experts)
     return gather_tree(local, specs, meshes.pop())
+
+
+def is_expert_bank(path: str, ndim: int, start: int = 0) -> bool:
+    """Whether the leaf at ``path`` is a MoE expert bank (``moe/wg``,
+    ``wu`` or ``wo``, the expert dim at ``start``), as the parameter rules
+    read it."""
+    return ("moe" in path and path.rsplit("/", 1)[-1] in ("wg", "wu", "wo")
+            and ndim - start >= 3)
+
+
+def resident_expert_specs(local, specs, model_axis: str):
+    """``specs`` (the :class:`P` of each leaf of ``local``) with
+    ``model_axis`` taken off the leading dim of every expert bank:
+    gathered by these specs, a bank stays this rank's block of experts
+    over the model axis, whole on its other dims (the expert-parallel
+    layer's operand)."""
+    pairs = iter(_zip_leaves(local, specs))
+
+    def one(path, leaf):
+        _, spec = next(pairs)
+        if not is_expert_bank(path, leaf.ndim) or not spec or \
+                model_axis not in _names(spec[0]):
+            return spec
+        rest = tuple(a for a in _names(spec[0]) if a != model_axis)
+        return P(rest if rest else None, *spec[1:])
+
+    return tree_paths(local, one)
 
 
 def full_tensor(x) -> torch.Tensor:
@@ -360,7 +394,12 @@ def tree_paths(tree, fn):
 
 class CollectiveLog:
     """Per-process record of the port's collectives: ``calls``, ``bytes``
-    and host ``seconds`` in all, and ``counts[(op, shape, dtype)]``."""
+    and host ``seconds`` in all, ``counts[(op, shape, dtype)]`` (a
+    ``psum_scatter`` by its input, the others by their result) and
+    ``results`` (every one by its result).  A packed
+    weight gather (:func:`gather_tree`) is one ``all_gather`` of a flat
+    buffer; ``leaves[(shape, dtype)]`` counts the whole tensors such
+    gathers rebuilt."""
 
     def __init__(self):
         self.reset()
@@ -370,15 +409,26 @@ class CollectiveLog:
         self.bytes = 0
         self.seconds = 0.0
         self.counts: collections.Counter = collections.Counter()
+        self.results: collections.Counter = collections.Counter()
+        self.leaves: collections.Counter = collections.Counter()
 
-    def add(self, op: str, x: torch.Tensor, seconds: float) -> None:
+    def add(self, op: str, x: torch.Tensor, seconds: float,
+            result: torch.Tensor | None = None) -> None:
+        """Record one collective on ``x``; ``results`` counts it by its
+        result (``result``, else ``x``), as an HLO line names it (the
+        roofline's collective bytes)."""
         self.calls += 1
         self.bytes += x.numel() * x.element_size()
         self.seconds += seconds
         self.counts[(op, tuple(x.shape), str(x.dtype))] += 1
+        out = x if result is None else result
+        self.results[(op, tuple(out.shape), str(out.dtype))] += 1
 
     def shapes(self) -> set:
-        return {shape for _, shape, _ in self.counts}
+        """The shapes of the collectives and of the leaves a packed gather
+        rebuilt."""
+        return ({shape for _, shape, _ in self.counts}
+                | {shape for shape, _ in self.leaves})
 
 
 LOG = CollectiveLog()
@@ -445,7 +495,7 @@ def psum_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
         out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
         t0 = time.perf_counter()
         dist.reduce_scatter_tensor(out, src, group=mesh.get_group(a))
-        LOG.add("psum_scatter", src, time.perf_counter() - t0)
+        LOG.add("psum_scatter", src, time.perf_counter() - t0, out)
         x = out.movedim(0, dim)
     return x
 
@@ -485,6 +535,7 @@ def _gather_blocks(mesh, axes: tuple, dims: tuple, blocks) -> list:
         off += m.numel()
         out.append(part.reshape((n * m.shape[0],) + tuple(m.shape[1:]))
                    .movedim(0, d).contiguous())
+        LOG.leaves[(tuple(out[-1].shape), str(out[-1].dtype))] += 1
     return out
 
 
@@ -581,12 +632,40 @@ class _GlobalSum(torch.autograd.Function):
 
 def global_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The sum over the ranks of ``axes`` of per-rank partials (a loss's
-    numerator over the data axes), differentiable (:class:`_GlobalSum`):
-    a rank's gradient is then its own partial's, which the train step
-    sums over the data axes once."""
+    numerator over the data axes, the expert-parallel layer's output over
+    the model axis), differentiable (:class:`_GlobalSum`): a rank's
+    gradient is then its own partial's (Megatron's "``psum`` forward,
+    identity backward")."""
     if not _names(axes):
         return x
-    return _GlobalSum.apply(x, mesh, axes)
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GlobalSum.apply(x, mesh, axes)
+    return psum(x, mesh, axes)
+
+
+class _SumGrads(torch.autograd.Function):
+    """The identity whose transpose is a :func:`psum`: the ranks of
+    ``axes`` hold the same ``x`` and each feeds it to its own part of a
+    sum (its experts), so the cotangent of ``x`` is the sum of theirs."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes):
+        fctx.mesh, fctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return psum(g, fctx.mesh, fctx.axes), None, None
+
+
+def sum_grads(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` as it is, its cotangent summed over the ranks of ``axes``
+    (:class:`_SumGrads`; Megatron's "identity forward, ``psum``
+    backward"): the entry of a path each rank of ``axes`` evaluates in
+    part, left through :func:`global_sum`."""
+    if _names(axes) and torch.is_grad_enabled() and x.requires_grad:
+        return _SumGrads.apply(x, mesh, axes)
+    return x
 
 
 def _ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
@@ -776,15 +855,21 @@ class ShardCtx:
 class RankLocal(ShardCtx):
     """The context the mesh forward hands its layers: every operand is
     this rank's own (the whole weights, its block of the batch), so the
-    layers run as on one device (no mesh).  ``shards`` keeps the mesh's
-    model-axis size for the MoE layer, which evaluates the
-    expert-parallel function's model shards one after another on the
-    whole expert banks (each shard's capacity, as on the mesh)."""
-    shards: int = 1
+    layers run as on one device (no mesh).  The MoE layer is the one
+    exception: ``experts`` is the mesh's context, and the layer's expert
+    banks are this rank's block of experts over its model axis (resident,
+    never gathered), which it runs expert-parallel (``models/moe.py``)."""
+    experts: Any = None
 
-    @property
-    def model_size(self) -> int:
-        return self.shards
+
+def resident_axis(ctx):
+    """The model axis whose blocks of the expert banks stay resident under
+    ``ctx`` (a :class:`RankLocal` whose mesh context has a model axis of
+    more than one rank: the MoE layer runs expert-parallel), else None."""
+    experts = getattr(ctx, "experts", None)
+    if experts is None or experts.model_size <= 1:
+        return None
+    return experts.model_axis
 
 
 def meshed(ctx) -> bool:

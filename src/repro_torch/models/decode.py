@@ -304,12 +304,14 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     projects every head, keeps its block of the beat and of the query
     heads, splits and attends locally and gathers the heads' outputs
     (the batch-sharded serve step's model axis).  An encoder config runs
-    :func:`models.encdec.decode_step` (its cache carries ``enc_kv``)."""
+    :func:`models.encdec.decode_step` (its cache carries ``enc_kv``),
+    which takes both shards alike."""
     check_supported(cfg)
     params = cast_params(params, cfg)
     if cfg.encoder is not None:
         from repro_torch.models import encdec
-        return encdec.decode_step(params, cache, token, cfg, ctx)
+        return encdec.decode_step(params, cache, token, cfg, ctx,
+                                  kv_shard=kv_shard, head_shard=head_shard)
     params = _whole(params)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
@@ -348,7 +350,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
     positions = pos.expand(B, 1)
 
     for sbi in range(cfg.n_superblocks):
-        sb_p = superblock(params["blocks"], sbi)
+        sb_p = superblock(params["blocks"], sbi, ctx)
         for i, kind in enumerate(cfg.block_pattern):
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)

@@ -203,51 +203,105 @@ def precompute_enc_kv(params, frames: torch.Tensor, cfg,
         B, F, cfg.n_kv_heads, 2 * cfg.hd) for li in range(wkv.shape[0])])
 
 
-def decode_step(params, cache: dict, token: torch.Tensor, cfg, ctx=None):
+def _seq_sharded(leaf, shard):
+    """``leaf`` (an ``(NS, B, S, K, 2D)`` cache leaf) placed on its
+    sequence axis over ``shard``'s axes when ``shard`` divides it (a
+    ``DTensor`` placed so is kept), else None (it stays replicated)."""
+    from repro_torch.dist import sharding
+    if shard is None or not shard.divides(leaf.shape[-3]):
+        return None
+    return sharding.place(leaf, sharding.Sharding(
+        shard.mesh, sharding.P(None, None, shard.axes)))
+
+
+def _attend(q, leaf, li: int, n: int, shard, heads):
+    """Decode attention of ``q`` (B, H or this rank's heads, D) over layer
+    ``li`` of ``leaf`` (the ring or ``enc_kv``), its first ``n`` positions:
+    split with ``policy="ref"`` (a sequence-sharded leaf on each rank's
+    block, attended by the distributed softmax over ``shard``), the
+    heads' outputs gathered over ``heads``' axes.  Returns (B, H, D)."""
+    from repro_torch.dist import sharding
+    lay = sharding.select(leaf, li) if shard is not None else leaf[li]
+    k_all, v_all = vx.transpose(vx.Segment(n=lay.shape[-1], fields=2), lay,
+                                policy="ref", shard=shard)
+    out = attention.decode_attention(q, k_all, v_all, n, shard=shard)
+    if heads is not None:
+        out = sharding.all_gather(out, heads.mesh, heads.axes, 1)
+    return out
+
+
+def decode_step(params, cache: dict, token: torch.Tensor, cfg, ctx=None, *,
+                kv_shard=None, head_shard=None):
     """token: (B,) int.  Returns (logits (B, V), updated cache).  The
     token's beat is written into the self-attention ring at ``len % Sc``
     in place; the ring and ``enc_kv`` are split with ``policy="ref"`` (as
     in the reference), so only ``qkv_project``'s split and re-pack reach
-    ``cfg.vx_policy``."""
+    ``cfg.vx_policy``.
+
+    On a mesh (one SPMD program, as :func:`models.decode.decode_step`
+    runs it): weights placed as ``DTensor`` s are gathered a layer at a
+    time.  ``kv_shard`` (a ``vx.Shard`` on the caches' sequence axis,
+    -3) places the ring and ``enc_kv`` each on its sequence when the
+    shard divides it (else it stays replicated): the token's beat is
+    written by the rank whose block holds its slot, and self- and
+    cross-attention are the distributed softmax.  ``head_shard`` (a
+    ``vx.Shard`` on the KV-head axis, -2) marks both leaves as this
+    rank's block of the heads: the rank keeps its block of the beat and
+    of the query heads, attends locally and gathers the heads' outputs
+    before ``wo``."""
+    from repro_torch.dist import sharding
+    from repro_torch.models.decode import _head_block, _owner_write
     from repro_torch.models.transformer import (_ffn_apply, cast_params,
                                                 superblock)
     params = cast_params(params, cfg)
+    top = {k: sharding.full_tensor(params[k])
+           for k in ("embed", "final_norm", "lm_head") if k in params}
     B = token.shape[0]
     pos = cache["len"]
-    x = layers.embed(token, params["embed"]).to(cfg.cdtype)
+    x = layers.embed(token, top["embed"]).to(cfg.cdtype)
     x = x + _sinusoid(pos[None], cfg.d_model).to(cfg.cdtype)[0]
     positions = pos.expand(B, 1)
-    ring = cache["blocks"]["pos0"]
+    if kv_shard is not None and kv_shard.axis != -3:
+        raise ValueError(f"kv_shard shards the cache's sequence axis: "
+                         f"Shard.axis must be -3, got {kv_shard.axis}")
+    ring, enc_kv = cache["blocks"]["pos0"], cache["enc_kv"]
+    placed = _seq_sharded(ring, kv_shard)
+    ring_shard = None if placed is None else kv_shard
+    ring = ring if placed is None else placed
+    placed = _seq_sharded(enc_kv, kv_shard)
+    enc_shard = None if placed is None else kv_shard
+    enc_kv = enc_kv if placed is None else placed
+    sc = ring.shape[2]
+    H, K = cfg.n_heads, cfg.n_kv_heads
     for li in range(cfg.n_superblocks):
-        p = superblock(params["blocks"], li)["pos0"]
-        cross_p = superblock(params["cross"], li)
+        p = superblock(params["blocks"], li, ctx)["pos0"]
+        cross_p = superblock(params["cross"], li, ctx)
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, _, _, kv = attention.qkv_project(p["attn"], h[:, None],
-                                            cfg.n_heads, cfg.n_kv_heads,
+        q, _, _, kv = attention.qkv_project(p["attn"], h[:, None], H, K,
                                             cfg.hd, positions,
                                             cfg.rope_theta,
                                             policy=cfg.vx_policy)
-        kvc = ring[li]                                   # (B, Sc, K, 2D)
-        sc = kvc.shape[1]
-        slot = torch.remainder(pos, sc).reshape(1).long()
-        kvc.index_copy_(1, slot, kv.to(kvc.dtype))
-        k_all, v_all = vx.transpose(vx.Segment(n=kvc.shape[-1], fields=2),
-                                    kvc, policy="ref")
-        out = attention.decode_attention(q[:, 0], k_all, v_all,
-                                         torch.clamp(pos + 1, max=sc))
+        q = _head_block(q, head_shard, H)
+        kv = _head_block(kv, head_shard, K)
+        if ring_shard is not None:
+            kvc, base, _ = sharding.owned_block(sharding.select(ring, li), 1)
+            _owner_write(kvc, torch.remainder(pos, sc) - base, kv)
+        else:
+            slot = torch.remainder(pos, sc).reshape(1).long()
+            ring[li].index_copy_(1, slot, kv.to(ring.dtype))
+        out = _attend(q[:, 0], ring, li, torch.clamp(pos + 1, max=sc),
+                      ring_shard, head_shard)
         x = x + (out.reshape(B, -1) @ p["attn"]["wo"]).to(x.dtype)
         # cross attention against the cached encoder K/V
-        enc_kv = cache["enc_kv"][li]
-        ek, ev = vx.transpose(vx.Segment(n=enc_kv.shape[-1], fields=2),
-                              enc_kv, policy="ref")
         hx = layers.rms_norm(x, cross_p["ln"], cfg.norm_eps)
-        qx = (hx @ cross_p["xattn"]["wq"]).reshape(B, cfg.n_heads, cfg.hd)
-        xo = attention.decode_attention(qx, ek, ev, ek.shape[1])
+        qx = _head_block((hx @ cross_p["xattn"]["wq"]).reshape(
+            B, 1, H, cfg.hd), head_shard, H)[:, 0]
+        xo = _attend(qx, enc_kv, li, enc_kv.shape[2], enc_shard, head_shard)
         x = x + (xo.reshape(B, -1) @ cross_p["xattn"]["wo"]).to(x.dtype)
         x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, 0)
         x = x2[:, 0]
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    x = layers.rms_norm(x, top["final_norm"], cfg.norm_eps)
+    head = top["embed"] if cfg.tie_embeddings else top["lm_head"]
     logits = layers.unembed(x, head.to(cfg.cdtype))
     return logits, {"len": pos + 1, "blocks": {"pos0": ring},
-                    "enc_kv": cache["enc_kv"]}
+                    "enc_kv": enc_kv}

@@ -32,13 +32,21 @@ result sharded on it), else a ``psum``.  The aux loss is a per-data-shard
 estimate averaged with ``pmean`` over the data axes.
 
 The mesh forward (``models/transformer.forward`` / ``loss_fn`` under a
-mesh, the sharded train step) hands its layers a
-``dist.sharding.RankLocal`` context: the expert banks arrive gathered
-whole, and :func:`moe_layer` evaluates the same expert-parallel function
-on the rank's batch block, its model shards one after another (each with
-its own capacity), summed in shard order.  Expert parallelism under
-autograd, the banks resident per rank and the tokens exchanged, is
-ROADMAP queue A item 9h-ep.
+mesh, the sharded train step, the batch-sharded serve step) hands its
+layers a ``dist.sharding.RankLocal`` context whose ``experts`` is the
+mesh's: the layer's expert banks arrive as the rank's resident block of
+experts (never gathered) and the activations replicated over the model
+axis, and :func:`moe_layer` runs the same expert-parallel body on the
+rank's batch block under autograd.  The routing (and so the aux loss) is
+computed alike on every rank of a model group; the tokens and the
+routing weights enter the rank's experts through
+``dist.sharding.sum_grads`` (identity forward, ``psum`` backward) and
+the partial outputs leave through ``dist.sharding.global_sum`` (``psum``
+forward, identity backward), so the cotangents that reach ``x`` and the
+router through the experts are summed over the model axis, the aux's is
+counted once and each bank's stays on its owner.
+:func:`expert_parallel_plain` is the one-process oracle of that function
+(each data block alone, the model shards one after another).
 """
 from __future__ import annotations
 
@@ -115,6 +123,12 @@ def _grouped_ffn(xs: torch.Tensor, wg, wu, wo,
     """``ragged_dot`` x3 with the SwiGLU between: rows of group ``e`` (a
     contiguous run of ``gs[e]`` rows) go through expert ``e``'s weights;
     rows past the groups stay zero.  Products in ``xs.dtype``."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(gs):
+        # a traced step on fake tensors (launch/dryrun.py): the run
+        # lengths are data it does not have; each product is counted as
+        # ragged_dot computes it, over the whole capacity buffer
+        return (F.silu(xs @ wg[0]) * (xs @ wu[0])) @ wo[0]
     ye = xs.new_zeros((xs.shape[0], wo.shape[-1]))
     start = 0
     for e, n in enumerate(gs.tolist()):         # the one host sync
@@ -210,29 +224,99 @@ def moe_ffn_local(router, wg, wu, wo, x: torch.Tensor, spec: MoESpec, *,
     (``axes`` None) the device holds the experts of model shard
     ``shard`` (the first by default: the parity tests use that to reach
     dropped units)."""
-    T = x.shape[0]
     my = axes.index(model_axis) if axes is not None and model_axis \
         else shard
     r = route(x, router, spec, n_shards, my)
     aux = r.aux
     if axes is not None and data_axes:
         aux = axes.pmean(aux, data_axes)
+    return _experts(x, r.weight, r, wg, wu, wo, spec), aux
+
+
+def _experts(x: torch.Tensor, weight: torch.Tensor, r: Dispatch, wg, wu,
+             wo, spec: MoESpec) -> torch.Tensor:
+    """The partial output (T, d) of the experts ``wg`` / ``wu`` / ``wo``
+    over the units ``r`` compacted for them, each weighted by
+    ``weight``."""
     pidx = r.packed.long()
     tok = pidx // spec.top_k
     xe = x[tok] * r.pv[:, None].to(x.dtype)                      # (cap, d)
     ye = _grouped_ffn(xe[r.order], wg, wu, wo, r.gs)             # (cap, d)
 
     # ---- unsort + weighted combine ----
-    w_packed = r.weight[pidx] * r.pv.to(r.weight.dtype)
+    w_packed = weight[pidx] * r.pv.to(weight.dtype)
     contrib = (ye.float() * w_packed[r.order][:, None]).to(x.dtype)
-    y = _combine(contrib, tok[r.order], r.pv[r.order], T, spec.top_k)
-    return y, aux
+    return _combine(contrib, tok[r.order], r.pv[r.order], x.shape[0],
+                    spec.top_k)
+
+
+def _rank_experts(params, x: torch.Tensor, spec: MoESpec,
+                  ctx) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel body on this rank's batch block ``x`` (B, S, d),
+    replicated over the model axis of ``ctx`` (the mesh's ``ShardCtx``),
+    under autograd.  ``params``' banks are the rank's block of experts
+    (a whole bank is sliced to it).  Routes the block's tokens over all
+    experts (the aux the block's estimate), runs the units of its own
+    experts (capacity per shard) and sums the partial outputs over the
+    model axis with a ``psum`` (the activations are replicated there, so
+    the reference's ``psum_scatter`` over the sequence would only split
+    what every rank holds)."""
+    from repro_torch.dist import sharding
+    B, S, d = x.shape
+    mesh, m_ax, m = ctx.mesh, ctx.model_axis, ctx.model_size
+    my = sharding.axis_index(mesh, m_ax)
+    e_loc = spec.n_experts // m
+    if spec.n_experts % m:
+        raise ValueError(f"{spec.n_experts} experts do not split over a "
+                         f"model axis of {m}")
+    banks = []
+    for k in ("wg", "wu", "wo"):
+        w = params[k]
+        if w.shape[0] == spec.n_experts and m > 1:
+            # a bank held whole: its gradient is every rank's block
+            w = sharding.sum_grads(w, mesh, m_ax)[my * e_loc:
+                                                  (my + 1) * e_loc]
+        elif w.shape[0] != e_loc:
+            raise ValueError(f"expert bank {k} holds {w.shape[0]} experts; "
+                             f"a rank of a model axis of {m} holds {e_loc}")
+        banks.append(w)
+    xt = x.reshape(B * S, d)
+    r = route(xt, params["router"], spec, m, my)
+    y = _experts(sharding.sum_grads(xt, mesh, m_ax),
+                 sharding.sum_grads(r.weight, mesh, m_ax), r, *banks, spec)
+    return sharding.global_sum(y, mesh, m_ax).reshape(B, S, d), r.aux
+
+
+def expert_parallel_plain(params, x: torch.Tensor, spec: MoESpec, data: int,
+                          model: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The function :func:`moe_layer` computes on a (``data``, ``model``)
+    mesh, in one process: each of the ``data`` blocks of the batch routed
+    alone, each model shard's experts through :func:`moe_ffn_local` (its
+    own capacity), the shards' outputs summed in shard order and the
+    blocks' aux estimates averaged.  With ``(1, 1)`` it is the one-device
+    layer.  The oracle of the mesh tests and ``chip_smoke.py`` (no JAX
+    there)."""
+    B, S, d = x.shape
+    e = spec.n_experts // model
+    ys, aux = [], 0.0
+    for xl in x.reshape(data, B // data * S, d):
+        y = None
+        for j in range(model):
+            yj, aux_j = moe_ffn_local(
+                params["router"], *(params[k][j * e:(j + 1) * e]
+                                    for k in ("wg", "wu", "wo")),
+                xl, spec, n_shards=model, shard=j)
+            y = yj if y is None else y + yj
+        ys.append(y)
+        aux = aux + aux_j
+    return torch.stack(ys).reshape(B, S, d), aux / data
 
 
 def moe_layer(params, x: torch.Tensor, spec: MoESpec,
               ctx) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d). ctx: a ``dist.sharding.ShardCtx`` or None (one
-    device).
+    device), or the mesh forward's ``dist.sharding.RankLocal``
+    (:func:`_rank_experts`).
 
     With a mesh, the experts shard over the model axis and the batch over
     the data axes (operands placed so as ``DTensor`` s, or plain full
@@ -242,6 +326,9 @@ def moe_layer(params, x: torch.Tensor, spec: MoESpec,
     the data axes and on the sequence over the model axis), else a
     ``psum``; a result sharded on nothing is the plain tensor every rank
     holds."""
+    from repro_torch.dist.sharding import resident_axis
+    if resident_axis(ctx) is not None:
+        return _rank_experts(params, x, spec, ctx.experts)
     B, S, d = x.shape
     m_ax = ctx.model_axis if ctx is not None else None
     m_sz = ctx.model_size if ctx is not None else 1
@@ -261,19 +348,6 @@ def moe_layer(params, x: torch.Tensor, spec: MoESpec,
 
     operands = (params["router"], params["wg"], params["wu"], params["wo"],
                 x)
-    if (ctx is None or ctx.mesh is None) and m_sz > 1:
-        # the mesh forward's rank-local layers (``sharding.RankLocal``):
-        # the expert-parallel function of the rank's batch block, its
-        # model shards one after another on the whole expert banks
-        e_loc = spec.n_experts // m_sz
-        y = aux = None
-        for j in range(m_sz):
-            yj, aux = moe_ffn_local(
-                params["router"], *(params[k][j * e_loc:(j + 1) * e_loc]
-                                    for k in ("wg", "wu", "wo")),
-                x.reshape(B * S, d), spec, n_shards=m_sz, shard=j)
-            y = yj if y is None else y + yj
-        return y.reshape(B, S, d), aux
     if ctx is None or ctx.mesh is None:
         return body(None, *operands)
 

@@ -37,9 +37,11 @@ plain full batch it slices), gathers the weights whole
 (``dist.sharding.gather_tree``: the embedding, norm and head once, a
 superblock's weights inside its checkpoint, so the backward gathers them
 again) and runs the one-device layers on them
-(``dist.sharding.RankLocal``).  The reference's sharding constraints are
-placement hints and change no value.  Activations stay replicated over
-the model axis (every rank of one data block computes the same ones; the
+(``dist.sharding.RankLocal``).  The MoE expert banks are not gathered:
+each rank keeps its block of experts over the model axis, and the MoE
+layer runs expert-parallel (models/moe.py).  The reference's sharding
+constraints are placement hints and change no value.  Activations stay
+replicated over the model axis (every rank of one data block computes the same ones; the
 reference's Megatron-SP sequence sharding of the residual stream is a
 memory choice the port does not make).  The loss is the global
 ``psum(num) / max(psum(den), 1)`` over the data axes.  Gradients
@@ -275,14 +277,16 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def superblock(params_blocks: dict, sbi: int) -> dict:
+def superblock(params_blocks: dict, sbi: int, ctx=None) -> dict:
     """Superblock ``sbi``'s parameters: views into the stacked leaves.
     Leaves placed on a mesh (``DTensor`` s, the sharded serve step's
     weights) are gathered whole here, a superblock at a time, when it
-    runs."""
+    runs; under the mesh forward's ``RankLocal`` context the expert banks
+    stay the rank's resident block (``dist.sharding.resident_axis``)."""
     from repro_torch.dist import sharding
     return sharding.full_tree(tree_map(lambda a: sharding.select(a, sbi),
-                                       params_blocks))
+                                       params_blocks),
+                              experts=sharding.resident_axis(ctx))
 
 
 # ---------------------------------------------------------------------------
@@ -523,7 +527,8 @@ def _place_batch(x, ctx, dim: int):
 
 
 def _rank_superblock(sb_local, x, *, specs, ctx, rl, cfg, positions, mode):
-    """Gather superblock weights whole and apply them (run inside the
+    """Gather superblock weights whole, the expert banks excepted (each
+    rank keeps its block of experts), and apply them (run inside the
     superblock's checkpoint: the backward gathers them again)."""
     from repro_torch.dist import sharding
     sb_p = sharding.gather_tree(sb_local, specs, ctx.mesh,
@@ -540,7 +545,7 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import P
     mesh, reduce = ctx.mesh, ctx.data_axes
-    rl = sharding.RankLocal(mesh=None, shards=ctx.model_size)
+    rl = sharding.RankLocal(mesh=None, experts=ctx)
     batch = {k: _batch_block(v, ctx) for k, v in batch.items()}
     local = cast_params(local, cfg)
     if cfg.encoder is not None:
@@ -558,6 +563,10 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
     remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
     sb_specs = sharding.tree_map(lambda a, sp: P(*sp[1:]), local["blocks"],
                                  specs["blocks"])
+    if sharding.resident_axis(rl) is not None:
+        sb_specs = sharding.resident_expert_specs(
+            tree_map(lambda a: a[0], local["blocks"]), sb_specs,
+            ctx.model_axis)
     fn = functools.partial(_rank_superblock, specs=sb_specs, ctx=ctx, rl=rl,
                            cfg=cfg, positions=positions, mode=mode)
     states = []

@@ -25,8 +25,9 @@ fleet router (``serve/fleet.py``).  An encoder config (whisper) takes
 the dense steps: :func:`jit_prefill` runs its forward (the batch carries
 ``audio_frames``), and :func:`jit_decode_step` runs
 ``models/encdec.decode_step`` over a cache whose ``enc_kv`` the caller
-filled with ``encdec.precompute_enc_kv``; ``BatchedServer`` refuses it,
-as the paged scheduler does.  Serving runs under ``torch.no_grad()``.
+filled with ``encdec.precompute_enc_kv``, with or without a mesh;
+``BatchedServer`` refuses it, as the paged scheduler does.  Serving runs
+under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ import dataclasses
 import torch
 
 from repro_torch import vx
-from repro_torch.device import refuse_mesh, resolve as resolve_device
+from repro_torch.device import resolve as resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P
 from repro_torch.models import decode as dec
@@ -140,12 +141,18 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     model axis splits are attended head-parallel (each rank its heads,
     the heads' outputs gathered), those whose sequence it splits by the
     distributed softmax over the model axis.  The fused split then runs
-    on the rank's block: one B1 launch per step under ``kernel``.  An
-    encoder config is refused with a mesh (ROADMAP queue A item
-    9h-encdec).  Without a mesh the templates are unused."""
+    on the rank's block: one B1 launch per step under ``kernel``.  A MoE
+    layer keeps each rank's block of experts resident and runs
+    expert-parallel on the rank's batch block (``models/moe.py``).
+
+    An encoder config (whisper) runs ``models/encdec.decode_step`` the
+    same ways: its self-attention ring and ``enc_kv`` are placed alike by
+    :func:`cache_specs` (long-context: each on its sequence over every
+    axis that divides it; batch-sharded: the batch, then the heads or
+    the sequence over the model axis), ``qkv_project``'s split and
+    re-pack on the rank's block.  Without a mesh the templates are
+    unused."""
     meshed = sharding.meshed(ctx)
-    if meshed and cfg.encoder is not None:
-        refuse_mesh(ctx, "9h-encdec")
     check_supported(cfg)
     device = resolve_device(device)
     # one-time host compile of the FIELD=2 segment plans the fused KV
@@ -197,29 +204,36 @@ def _batch_sharded_step(params, cache: dict, token, cfg: ModelConfig, ctx,
     the cache, its leaves updated in place."""
     from repro_torch.dist.sharding import RankLocal, block_of, spec_of
     mesh, m_ax = ctx.mesh, ctx.model_axis
-    kv_shard = head_shard = None
-    blocks = {}
-    for k, leaf in cache["blocks"].items():
-        if not isinstance(leaf, torch.Tensor) or leaf.ndim != 5:
-            blocks[k] = sharding.tree_map(block_of, leaf)
-            continue
+    shards = {}
+
+    def rank_block(leaf):
+        """A KV leaf's block: head-parallel, a DTensor on the model
+        axis's submesh (sequence-split) or plain (batch only)."""
         local = block_of(leaf)
         spec = sharding._norm(spec_of(leaf), 5) \
             if sharding.is_dtensor(leaf) else (None,) * 5
         if m_ax is not None and spec[3] == m_ax:
-            head_shard = vx.Shard(axes=(m_ax,), axis=-2, mesh=mesh)
+            shards["head"] = vx.Shard(axes=(m_ax,), axis=-2, mesh=mesh)
         elif m_ax is not None and spec[2] == m_ax:
             sub = _model_submesh(mesh, m_ax)
-            kv_shard = vx.Shard(axes=(m_ax,), axis=-3, mesh=sub)
+            shards["kv"] = vx.Shard(axes=(m_ax,), axis=-3, mesh=sub)
             local = sharding.from_local(local, sub, P(None, None, m_ax))
-        blocks[k] = local
+        return local
+
+    blocks = {k: rank_block(leaf) if isinstance(leaf, torch.Tensor)
+              and leaf.ndim == 5 else sharding.tree_map(block_of, leaf)
+              for k, leaf in cache["blocks"].items()}
+    local = {"len": cache["len"], "blocks": blocks}
+    if "enc_kv" in cache:
+        local["enc_kv"] = rank_block(cache["enc_kv"])
     tok = sharding.local_block(token, mesh, ctx.batch_spec())
     logits, new = dec.decode_step(
-        params, {"len": cache["len"], "blocks": blocks}, tok, cfg,
-        RankLocal(mesh=None, shards=ctx.model_size), fuse=fuse,
-        kv_shard=kv_shard, head_shard=head_shard)
-    return (sharding.from_local(logits, mesh, ctx.batch_spec()),
-            {"len": new["len"], "blocks": cache["blocks"]})
+        params, local, tok, cfg, RankLocal(mesh=None, experts=ctx),
+        fuse=fuse, kv_shard=shards.get("kv"), head_shard=shards.get("head"))
+    out = {"len": new["len"], "blocks": cache["blocks"]}
+    if "enc_kv" in cache:
+        out["enc_kv"] = cache["enc_kv"]
+    return sharding.from_local(logits, mesh, ctx.batch_spec()), out
 
 
 _SUBMESHES: dict = {}
@@ -227,11 +241,13 @@ _SUBMESHES: dict = {}
 
 def _model_submesh(mesh, axis: str):
     """The 1-D mesh of this rank's model-axis group (the ranks of its
-    data block), one per mesh."""
+    data block), one per mesh object (a mesh equal to an earlier one but
+    built on a newer process group gets its own)."""
     key = (mesh, axis)
-    if key not in _SUBMESHES:
-        _SUBMESHES[key] = mesh[axis]
-    return _SUBMESHES[key]
+    hit = _SUBMESHES.get(key)
+    if hit is None or hit[0] is not mesh:
+        hit = _SUBMESHES[key] = (mesh, mesh[axis])
+    return hit[1]
 
 
 def jit_prefill(cfg: ModelConfig, ctx, params_template=None,

@@ -496,13 +496,31 @@ FAMILIES = ("whisper-tiny", "jamba-1.5-large-398b", "xlstm-125m",
             "qwen3-moe-30b-a3b")
 
 
+def _bank_shapes(cfg, model: int) -> set:
+    """The shapes of a MoE config's expert banks: whole, stacked over the
+    superblocks, and a model-axis rank's block."""
+    if cfg.moe is None:
+        return set()
+    E, d, f, ns = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff, \
+        cfg.n_superblocks
+    out = set()
+    for e in (E, E // model):
+        for sh in ((e, d, f), (e, f, d)):
+            out |= {sh, (ns,) + sh}
+    return out
+
+
 def check_family_losses(inp: dict) -> dict:
     """For each family's smoke config (the reference's weights and seeded
     batch, ``ref``): the mesh loss on (2, 4) and its gradients (reduced
     over the data axes, whole) beside the one-process port's; three
-    greedy batch-sharded decode steps beside the one-process steps (the
-    decoder-only families); for MoE, the rank-local expert-parallel
-    layer against the expert-parallel ``moe_layer`` on the same batch."""
+    greedy batch-sharded decode steps beside the one-process steps; for
+    MoE, the expert-parallel layer on the
+    rank's resident banks (the mesh forward's) against the expert-parallel
+    ``moe_layer`` and the one-process ``expert_parallel_plain`` on the
+    same batch, the expert-bank shapes among the mesh loss's collectives
+    (``LOG``), the bank bytes a rank holds and the mesh loss's gradients
+    on params not placed (each bank whole on every rank)."""
     import dataclasses
     from repro_torch.configs import get_arch
     from repro_torch.dist import sharding
@@ -525,29 +543,41 @@ def check_family_losses(inp: dict) -> dict:
         _put(out, f"{name}/one/grads", grads)
         psh = tstate.state_shardings({"params": params, "opt": {}}, ctx)
         leaves = _dtensor_leaves(params, psh["params"])
+        sharding.LOG.reset()
         with torch.enable_grad():
             loss, m = transformer.loss_fn(leaves, batch, cfg, ctx)
             loss.backward()
+        banks = _bank_shapes(cfg, ctx.model_size)
+        out[f"{name}/mesh/banks_in_log"] = np.asarray(sorted(
+            str(sh) for sh in sharding.LOG.shapes() & banks) or [""])
         out[f"{name}/mesh/loss"] = m["loss"].detach().numpy()
         out[f"{name}/mesh/aux"] = m["aux"].detach().numpy()
         _put(out, f"{name}/mesh/grads", _reduced_grads(leaves, ctx))
-        if cfg.encoder is None:
-            # three greedy batch-sharded decode steps (recurrent states:
-            # each rank its batch block, updated in place)
-            from repro_torch.models import decode as dec
-            from repro_torch.serve import engine
-            scfg = engine.ServeConfig(max_len=16)
-            for tag, c in (("one", None), ("mesh", ctx)):
-                step = engine.jit_decode_step(cfg, c, scfg, device="cpu")
+        # three greedy batch-sharded decode steps (recurrent states: each
+        # rank its batch block, updated in place; MoE: each rank its
+        # resident experts; whisper: its enc_kv from the batch's frames)
+        from repro_torch.models import decode as dec
+        from repro_torch.models import encdec
+        from repro_torch.serve import engine
+        scfg = engine.ServeConfig(max_len=16)
+        for tag, c in (("one", None), ("mesh", ctx)):
+            step = engine.jit_decode_step(cfg, c, scfg, device="cpu")
+            if cfg.encoder is None:
                 cache = dec.init_cache(cfg, 4, 16, device="cpu")
-                tok = batch["tokens"][:, 0]
-                logits = []
-                for _ in range(3):
-                    lg, cache = step(params, cache, tok)
-                    lg = sharding.full_tensor(lg)
-                    logits.append(lg.numpy())
-                    tok = torch.argmax(lg, -1).to(torch.int32)
-                out[f"{name}/serve/{tag}"] = np.stack(logits)
+            else:
+                cache = encdec.init_cache(cfg, 4, 16, device="cpu")
+                cache["enc_kv"] = encdec.precompute_enc_kv(
+                    params, batch["audio_frames"], cfg)
+            tok = batch["tokens"][:, 0]
+            logits, toks = [], []
+            for _ in range(3):
+                lg, cache = step(params, cache, tok)
+                lg = sharding.full_tensor(lg)
+                logits.append(lg.numpy())
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                toks.append(tok.numpy())
+            out[f"{name}/serve/{tag}"] = np.stack(logits)
+            out[f"{name}/serve/{tag}/tokens"] = np.stack(toks)
         if any(cfg.moe_pattern):
             pos = f"pos{list(cfg.moe_pattern).index(True)}"
             pm = sharding.tree_map(lambda a: a[0],
@@ -555,15 +585,132 @@ def check_family_losses(inp: dict) -> dict:
             x = torch.randn((4, 16, cfg.d_model),
                             generator=torch.Generator().manual_seed(1))
             y_ep, aux_ep = moe.moe_layer(pm, x, cfg.moe, ctx)
+            # the mesh forward's layer: the rank's block of experts
+            mine = {k: v if k == "router" else sharding.local_block(
+                v, ctx.mesh, sharding.P("model")) for k, v in pm.items()}
             y_rl, aux_rl = moe.moe_layer(
-                pm, sharding.local_block(x, ctx.mesh, ctx.batch_spec()),
-                cfg.moe, RankLocal(mesh=None, shards=ctx.model_size))
+                mine, sharding.local_block(x, ctx.mesh, ctx.batch_spec()),
+                cfg.moe, RankLocal(mesh=None, experts=ctx))
             aux_rl = sharding.pmean(aux_rl, ctx.mesh, ctx.data_axes)
+            y_pl, aux_pl = moe.expert_parallel_plain(pm, x, cfg.moe, 2, 4)
             out[f"{name}/ep/y"] = _np(y_ep)
             out[f"{name}/ep/aux"] = aux_ep.numpy()
             out[f"{name}/rank_local/y"] = _np(sharding.from_local(
                 y_rl, ctx.mesh, ctx.batch_spec()))
             out[f"{name}/rank_local/aux"] = aux_rl.numpy()
+            out[f"{name}/plain/y"] = y_pl.numpy()
+            out[f"{name}/plain/aux"] = aux_pl.numpy()
+            # params not placed (every rank holds each bank whole): the
+            # layer slices the rank's block, its gradient summed over the
+            # model axis
+            whole = sharding.tree_map(
+                lambda p: p.detach().clone().requires_grad_(), params)
+            with torch.enable_grad():
+                transformer.loss_fn(whole, batch, cfg, ctx)[0].backward()
+            _put(out, f"{name}/mesh_whole/grads", _reduced_grads(whole, ctx))
+            whole = held = 0
+            for path, leaf in sharding._leaves_with_path(leaves):
+                if sharding.is_expert_bank("/".join(path), leaf.ndim, 1):
+                    whole += leaf.numel() * leaf.element_size()
+                    held += sharding.local_nbytes(leaf)
+            out[f"{name}/bank_bytes"] = np.asarray(
+                _per_rank([whole, held], ctx.mesh))
+    return out
+
+
+#: whisper's mesh decode: (mesh, the arm its KV leaves take) on 8 ranks.
+ENCDEC_MESHES = (((2, 4), "heads"), ((1, 8), "sequence"))
+
+
+def _encdec_steps(step, params, cache: dict, tok, gen: int) -> tuple:
+    """``gen`` greedy steps: (logits (gen, B, V) whole, tokens (gen, B),
+    each step's (B1, B2) wrapper calls, the last cache)."""
+    from repro_torch.core import accessfuse
+    from repro_torch.dist import sharding
+    logits, toks, calls = [], [], []
+    for _ in range(gen):
+        _reset_calls()
+        with accessfuse.pinned_kernel_lowering():
+            lg, cache = step(params, cache, tok)
+        c = _kernel_calls()
+        calls.append([c["deinterleave"], c["interleave"]])
+        lg = sharding.full_tensor(lg)
+        logits.append(lg.numpy())
+        tok = torch.argmax(lg, -1).to(torch.int32)
+        toks.append(tok.numpy())
+    return np.stack(logits), np.stack(toks), calls, cache
+
+
+def check_encdec_mesh_decode(inp: dict) -> dict:
+    """whisper-tiny-smoke's decode step under a mesh (the reference's
+    weights and ``enc_kv``, greedy steps from seeded tokens): batch-sharded
+    on (2, 4) (the KV heads over the model axis, head-parallel) and on
+    (1, 8) (4 heads do not split 8 ways: the ring's and ``enc_kv``'s
+    sequence over it, the distributed softmax) under ``ref`` and
+    ``kernel``, with the (B1, B2) calls a rank makes a step; each rank's
+    head-parallel logits against the one-process step on its batch block,
+    bit for bit; long-context (B 1) on (2, 4), both leaves on their
+    sequence over both axes."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import encdec, transformer
+    from repro_torch.serve import engine
+    gen, max_len = int(inp["gen"]), int(inp["max_len"])
+    tok0 = _t(inp["tokens"])
+    out = {}
+
+    def fresh(cfg, rows):
+        cache = encdec.init_cache(cfg, rows.stop - rows.start, max_len,
+                                  torch.float32, device="cpu")
+        cache["enc_kv"] = _t(inp["enc_kv"])[:, rows].clone()
+        return cache
+
+    scfg = engine.ServeConfig(max_len=max_len)
+    for impl in IMPLS:
+        cfg = dataclasses.replace(get_arch("whisper-tiny").smoke,
+                                  kernel_impl=impl)
+        params = transformer.params_from_jax(_tree_from(inp, "params"), cfg,
+                                             device="cpu")
+        B = tok0.shape[0]
+        one = engine.jit_decode_step(cfg, None, scfg, device="cpu")
+        out[f"{impl}/one/logits"], out[f"{impl}/one/tokens"], _, _ = \
+            _encdec_steps(one, params, fresh(cfg, slice(0, B)), tok0, gen)
+        for shape, arm in ENCDEC_MESHES:
+            tag = f"{impl}/{shape[0]}x{shape[1]}"
+            ctx = make_ctx(make_test_mesh(shape, ("data", "model"),
+                                          device="cpu"))
+            step = engine.jit_decode_step(cfg, ctx, scfg, device="cpu")
+            lg, tk, calls, cache = _encdec_steps(
+                step, params, fresh(cfg, slice(0, B)), tok0, gen)
+            out[f"{tag}/logits"], out[f"{tag}/tokens"] = lg, tk
+            out[f"{tag}/calls"] = _per_rank(
+                [x for pair in calls for x in pair], ctx.mesh)
+            for k, leaf in (("ring", cache["blocks"]["pos0"]),
+                            ("enc_kv", cache["enc_kv"])):
+                out[f"{tag}/{k}_spec"] = np.asarray(str(sharding.spec_of(
+                    leaf)))
+            if arm == "heads":
+                # the one-process step on this rank's batch block
+                n = B // ctx.data_size
+                r = sharding.axis_index(ctx.mesh, ctx.data_axes)
+                rows = slice(r * n, (r + 1) * n)
+                mine, _, _, _ = _encdec_steps(
+                    one, params, fresh(cfg, rows), tok0[rows], gen)
+                same = bool(np.array_equal(lg[:, rows], mine))
+                out[f"{tag}/bitwise"] = _per_rank([int(same)], ctx.mesh)
+        ctx = make_ctx(make_test_mesh((2, 4), ("data", "model"),
+                                      device="cpu"), long_context=True)
+        long = dataclasses.replace(scfg, long_context=True)
+        step = engine.jit_decode_step(cfg, ctx, long, device="cpu")
+        lg, tk, _, cache = _encdec_steps(step, params, fresh(cfg, slice(0, 1)),
+                                         tok0[:1], gen)
+        out[f"{impl}/long/logits"], out[f"{impl}/long/tokens"] = lg, tk
+        for k, leaf in (("ring", cache["blocks"]["pos0"]),
+                        ("enc_kv", cache["enc_kv"])):
+            out[f"{impl}/long/{k}_spec"] = np.asarray(
+                str(sharding.spec_of(leaf)))
     return out
 
 
@@ -785,6 +932,7 @@ CHECKS = {
     "pipeline_equivalence": check_pipeline_equivalence,
     "batch_sharded_serve": check_batch_sharded_serve,
     "family_losses": check_family_losses,
+    "encdec_mesh_decode": check_encdec_mesh_decode,
 }
 
 

@@ -51,10 +51,12 @@ from repro.models import attention as jattn
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CHECKS = ("mesh_forward", "sharded_train_step", "elastic_reshard",
-          "pipeline_equivalence", "batch_sharded_serve", "family_losses")
+          "pipeline_equivalence", "batch_sharded_serve", "family_losses",
+          "encdec_mesh_decode")
 IMPLS = ("ref", "kernel")
 LR = 3e-4                      # AdamWConfig's default
 MAX_LEN, GEN = 512, 5     # a rank's cache block clears MIN_FUSED_ELEMS
+ENC_MAX_LEN, ENC_GEN = 16, 4   # whisper's ring and greedy steps
 
 
 # ---------------------------------------------------------------------------
@@ -253,6 +255,48 @@ def _family_want(arch):
             **_flat(grads, "grads")}
 
 
+@functools.lru_cache(maxsize=None)
+def _encdec():
+    """whisper-tiny-smoke (the reference's weights, key 0): ``enc_kv``
+    precomputed from seeded frames, then the reference's one-device
+    ``jit_decode_step`` (``encdec.decode_step``) for ``ENC_GEN`` greedy
+    steps from seeded tokens, on the batch of 4 and on its first row
+    alone (the long-context cell's B 1)."""
+    from repro.configs import get_arch
+    from repro.dist.sharding import local_ctx
+    from repro.models import encdec as jenc
+    from repro.models.transformer import init_params
+    from repro.serve import engine as jengine
+    cfg = dataclasses.replace(get_arch("whisper-tiny").smoke,
+                              kernel_impl="ref")
+    params = init_params(cfg, jax.random.key(0))
+    rng = np.random.default_rng(3)
+    frames = rng.standard_normal((4, cfg.encoder.context, cfg.d_model)
+                                 ).astype(np.float32)
+    tok0 = rng.integers(0, cfg.vocab, (4,)).astype(np.int32)
+    enc_kv = np.asarray(jenc.precompute_enc_kv(params, jnp.asarray(frames),
+                                               cfg, None))
+    want = {}
+    for tag, rows in (("batch", slice(0, 4)), ("long", slice(0, 1))):
+        cache = jenc.init_cache(cfg, rows.stop, ENC_MAX_LEN, jnp.float32)
+        cache["enc_kv"] = jnp.asarray(enc_kv[:, rows])   # donated
+        step = jengine.jit_decode_step(
+            cfg, local_ctx(), jengine.ServeConfig(max_len=ENC_MAX_LEN),
+            params, cache)
+        tok, logits, toks = jnp.asarray(tok0[rows]), [], []
+        for _ in range(ENC_GEN):
+            lg, cache = step(params, cache, tok)
+            logits.append(np.asarray(lg))
+            tok = jnp.argmax(lg, -1).astype(jnp.int32)
+            toks.append(np.asarray(tok))
+        want[f"{tag}/logits"] = np.stack(logits)
+        want[f"{tag}/tokens"] = np.stack(toks)
+    inp = {**_flat(params, "params"), "enc_kv": enc_kv,
+           "tokens": tok0, "gen": np.asarray(ENC_GEN),
+           "max_len": np.asarray(ENC_MAX_LEN)}
+    return inp, want
+
+
 # ---------------------------------------------------------------------------
 # The port side: one spawn of 8 ranks for every check
 # ---------------------------------------------------------------------------
@@ -270,7 +314,8 @@ def port(tmp_path_factory):
                         k: v for arch in FAMILIES for k, v in {
                             **_flat(_family(arch)[1], f"{arch}/params"),
                             **_flat(_family(arch)[2], f"{arch}/batch"),
-                        }.items()})):
+                        }.items()}),
+                    ("encdec_mesh_decode", _encdec()[0])):
         inp.update({f"{name}/{k}": v for k, v in i.items()})
     np.savez(d / "in.npz", **inp)
     env = dict(os.environ)
@@ -535,18 +580,24 @@ def test_batch_sharded_serve(port, impl, mesh):
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_family_mesh_loss_matches_one_process(port, arch):
     """The encoder-decoder and the recurrent stacks (the generic weight
-    gather) and MoE (the rank-local expert-parallel function) under the
-    mesh loss on (2, 4), on the reference's weights and batch: the cross
-    entropy, the aux and every gradient leaf against the reference's
-    one-device ``jax.value_and_grad`` of ``loss_fn``.  For MoE that
-    reference takes its layer as the (2, 4) mesh's expert-parallel
-    program computes it (:func:`_expert_parallel_oracle`: each data block
-    routed alone, the aux the blocks' mean), so the router and the expert
-    banks are held too; a model-axis double count of any leaf would be
-    4x.  The dense families' gradients also against the one-process
-    port's at the file's tolerance, and three batch-sharded decode steps
-    against the one-process steps; MoE's rank-local layer equals the
-    expert-parallel ``moe_layer`` (PR 30's, held against the reference).
+    gather) and MoE (expert-parallel on each rank's resident experts)
+    under the mesh loss on (2, 4), on the reference's weights and batch:
+    the cross entropy, the aux and every gradient leaf against the
+    reference's one-device ``jax.value_and_grad`` of ``loss_fn``.  For
+    MoE that reference takes its layer as the (2, 4) mesh's
+    expert-parallel program computes it (:func:`_expert_parallel_oracle`:
+    each data block routed alone, the aux the blocks' mean), so the
+    router and the expert banks are held too; a model-axis double count
+    of any leaf (the cotangents summed over the model axis once too
+    often, or the aux's counted per rank) would be 4x.  The dense
+    families' gradients also against the one-process port's at the
+    file's tolerance, and, for every family (whisper's ``enc_kv`` from
+    its batch's frames), three batch-sharded decode steps against the
+    one-process steps, streams equal.  MoE's expert-parallel layer on the
+    rank's resident banks equals the shard-mapped ``moe_layer`` and
+    the one-process ``expert_parallel_plain``, and with the params not
+    placed (each bank whole on every rank, the layer slicing its block)
+    the mesh loss gives the placed params' gradients.
 
     Against the reference the port's one-device gradients are held at
     2e-5 of each leaf's largest entry (tests/test_torch_train_grads.py),
@@ -558,12 +609,9 @@ def test_family_mesh_loss_matches_one_process(port, arch):
     for k in ("loss", "aux"):
         np.testing.assert_allclose(float(got[f"{arch}/mesh/{k}"]), want[k],
                                    rtol=tol, atol=tol, err_msg=k)
-    if f"{arch}/serve/one" in got:
-        # the batch-sharded decode steps (recurrent states: each rank its
-        # batch block, updated in place); whisper's step refuses a mesh
-        _close(got[f"{arch}/serve/mesh"], got[f"{arch}/serve/one"])
-    else:
-        assert arch == "whisper-tiny"
+    _close(got[f"{arch}/serve/mesh"], got[f"{arch}/serve/one"])
+    np.testing.assert_array_equal(got[f"{arch}/serve/mesh/tokens"],
+                                  got[f"{arch}/serve/one/tokens"])
     keys = [k for k in want if k.startswith("grads/")]
     assert keys
     assert sorted(keys) == sorted(k.split("/", 2)[2] for k in got
@@ -576,7 +624,95 @@ def test_family_mesh_loss_matches_one_process(port, arch):
             _close(a, got[f"{arch}/one/{k}"], rel_atol=1e-5, err_msg=k)
     if moe:
         assert want["aux"] > 0
-        _close(got[f"{arch}/rank_local/y"], got[f"{arch}/ep/y"])
-        _close(got[f"{arch}/rank_local/aux"], got[f"{arch}/ep/aux"])
+        for k in keys:      # the banks whole on every rank, not placed
+            _close(got[f"{arch}/mesh_whole/{k}"], got[f"{arch}/mesh/{k}"],
+                   rel_atol=1e-5, err_msg=k)
+        for arm in ("rank_local", "plain"):
+            _close(got[f"{arch}/{arm}/y"], got[f"{arch}/ep/y"], err_msg=arm)
+            _close(got[f"{arch}/{arm}/aux"], got[f"{arch}/ep/aux"],
+                   err_msg=arm)
     else:
         assert float(got[f"{arch}/mesh/aux"]) == 0.0
+
+
+def test_mesh_loss_gathers_no_expert_bank(port):
+    """Expert parallelism keeps the banks resident: during the MoE
+    families' mesh loss (forward, remat and backward) a rank's
+    ``dist.sharding.LOG`` holds no collective, and no whole tensor a
+    packed gather rebuilt, of an expert bank's shape (whole, stacked or a
+    rank's block); the dense families' logs are checked alike."""
+    got = _out(port, "family_losses")
+    for arch in FAMILIES:
+        assert got[f"{arch}/mesh/banks_in_log"].tolist() == [""], arch
+
+
+def test_rank_holds_its_share_of_expert_banks(port):
+    """Placed by the parameter rules on (2, 4), every rank holds exactly
+    1/4 (the model axis) of the MoE families' expert bank bytes."""
+    got = _out(port, "family_losses")
+    for arch in ("jamba-1.5-large-398b", "qwen3-moe-30b-a3b"):
+        rows = got[f"{arch}/bank_bytes"]
+        assert rows.shape == (8, 2)
+        whole, held = rows[:, 0], rows[:, 1]
+        assert (whole > 0).all() and (held * 4 == whole).all(), rows
+
+
+# ---------------------------------------------------------------------------
+# whisper's decode step on a mesh
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("mesh", ("2x4", "1x8"))
+def test_encdec_mesh_decode_matches_reference(port, impl, mesh):
+    """whisper-tiny-smoke's batch-sharded ``jit_decode_step``: its 4 heads
+    split over the model axis of (2, 4) (self- and cross-attention
+    head-parallel), and on (1, 8), where 8 does not divide them, the
+    ring's and ``enc_kv``'s sequence over it (the distributed softmax).
+    The logits against the reference's one-device ``encdec.decode_step``
+    on the same weights and ``enc_kv``, the greedy streams equal; under
+    ``kernel`` every rank's step makes one B1 and one B2 call per layer
+    (``qkv_project``'s split and re-pack on its batch block), none under
+    ``ref``, and the logits equal ``ref``'s bit for bit."""
+    got = _out(port, "encdec_mesh_decode")
+    _, want = _encdec()
+    tag = f"{impl}/{mesh}"
+    _close(got[f"{tag}/logits"], want["batch/logits"])
+    np.testing.assert_array_equal(got[f"{tag}/tokens"], want["batch/tokens"])
+    np.testing.assert_array_equal(got[f"{tag}/logits"],
+                                  got[f"ref/{mesh}/logits"])
+    spec = ("P(None, 'data', None, 'model', None)" if mesh == "2x4"
+            else "P(None, 'data', 'model', None, None)")
+    for k in ("ring", "enc_kv"):
+        assert str(got[f"{tag}/{k}_spec"]) == spec, (k, got[f"{tag}/{k}_spec"])
+    calls = got[f"{tag}/calls"].reshape(8, ENC_GEN, 2)
+    n = 2 if impl == "kernel" else 0      # the smoke decoder's 2 layers
+    assert (calls == n).all(), calls
+
+
+def test_encdec_head_parallel_is_bitwise(port):
+    """Head-parallel attention changes no bit: each rank's logits on
+    (2, 4) equal the port's one-process step on its own batch block, bit
+    for bit, under both policies."""
+    got = _out(port, "encdec_mesh_decode")
+    for impl in IMPLS:
+        assert (got[f"{impl}/2x4/bitwise"] == 1).all(), impl
+
+
+def test_encdec_long_context_decode_matches_reference(port):
+    """Long-context (B 1) on (2, 4): the ring and ``enc_kv`` each on its
+    sequence over both axes (``cache_specs``' long-context rule), the
+    beat written by the rank that owns its slot, self- and
+    cross-attention the distributed softmax; the logits against the
+    reference's one-device steps, the stream equal, ``kernel`` equal to
+    ``ref`` bit for bit."""
+    got = _out(port, "encdec_mesh_decode")
+    _, want = _encdec()
+    for impl in IMPLS:
+        _close(got[f"{impl}/long/logits"], want["long/logits"])
+        np.testing.assert_array_equal(got[f"{impl}/long/tokens"],
+                                      want["long/tokens"])
+        for k in ("ring", "enc_kv"):
+            assert str(got[f"{impl}/long/{k}_spec"]) == \
+                "P(None, None, ('data', 'model'), None, None)", k
+    np.testing.assert_array_equal(got["kernel/long/logits"],
+                                  got["ref/long/logits"])

@@ -154,15 +154,16 @@ def test_jit_prefill_and_decode_step_match_reference(fuse):
 
 
 def test_engine_refuses_what_waits():
-    """Only the encoder-decoder's decode step still refuses a mesh; the
-    placement rules, the long-context step, the batch-sharded step and
-    ``jit_prefill`` under a mesh run (a one-rank mesh here, 8 ranks in
-    tests/test_torch_dist.py and tests/test_torch_dist_train.py)."""
+    """No engine step refuses a mesh any more: the placement rules, the
+    long-context step, the batch-sharded step, ``jit_prefill`` and the
+    encoder-decoder's decode step (batch-sharded and long-context, equal
+    to its one-device step bit for bit) run under a one-rank mesh here
+    (8 ranks in tests/test_torch_dist.py and
+    tests/test_torch_dist_train.py)."""
     from _torch_dist_run import one_rank_group
     from repro_torch.dist import sharding
     from repro_torch.launch.mesh import make_ctx
     cfg, params = _port()
-    mesh = types.SimpleNamespace(mesh=object())
     no_mesh = types.SimpleNamespace(mesh=None)
     scfg = engine.ServeConfig(max_len=16)
     long = dataclasses.replace(scfg, long_context=True)
@@ -170,12 +171,17 @@ def test_engine_refuses_what_waits():
     assert engine.cache_specs(cfg, None, scfg, {}) is None
     assert engine.cache_specs(cfg, no_mesh, scfg, {}) is None
     assert engine.serve_param_shardings({}, cfg, no_mesh) is None
-    # the encoder-decoder's decode step is what still refuses a mesh,
-    # naming its ROADMAP item; the batch-sharded step and jit_prefill
-    # run on the one-rank mesh below
     from repro_torch.configs.whisper_tiny import smoke_config
-    with pytest.raises(NotImplementedError, match="9h-encdec"):
-        engine.jit_decode_step(smoke_config(), mesh, scfg, device="cpu")
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import init_params
+    wcfg = smoke_config()
+    wparams = init_params(wcfg, 0, device="cpu")
+
+    def whisper_cache(batch):
+        cache = encdec.init_cache(wcfg, batch, 16, device="cpu")
+        cache["enc_kv"] = torch.randn(
+            cache["enc_kv"].shape, generator=torch.Generator().manual_seed(0))
+        return cache
     # long_context without a mesh is the plain step
     tok = torch.tensor([5, 7], dtype=torch.int32)
     want, _ = engine.jit_decode_step(cfg, None, scfg, device="cpu")(
@@ -213,6 +219,18 @@ def test_engine_refuses_what_waits():
         want = engine.jit_prefill(cfg, None, device="cpu")(params, pb)
         assert torch.equal(sharding.full_tensor(got[0]), want[0])
         assert sharding.is_dtensor(cache["blocks"]["pos0"])
+        # whisper's decode step under the mesh: its one-device logits
+        want, _ = engine.jit_decode_step(wcfg, None, scfg, device="cpu")(
+            wparams, whisper_cache(2), tok)
+        got, _ = engine.jit_decode_step(wcfg, bctx, scfg, device="cpu")(
+            wparams, whisper_cache(2), tok)
+        assert torch.equal(sharding.full_tensor(got), want)
+        want, _ = engine.jit_decode_step(wcfg, None, scfg, device="cpu")(
+            wparams, whisper_cache(1), tok[:1])
+        got, _ = engine.jit_decode_step(wcfg, ctx, long, device="cpu")(
+            wparams, whisper_cache(1), tok[:1])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=RTOL,
+                                   atol=ATOL)
     # make_fleet(replicas=1) is one BatchedServer's scheduler behind a
     # router: the same streams
     cfg, params = _port()
