@@ -388,7 +388,11 @@ shared with the background, not alone:
    max(1, |y|max), after every rank found no unit dropped at its
    ``capacity_slack``.  Each rank's
    launches of the sharded runs join the kernels' line.
-   ``sharded_phase(card_line())`` runs it alone.
+   ``sharded_phase(card_line())`` runs it alone.  The decoders' layers
+   run tensor-parallel on each rank's model-axis blocks: 16c, 17a, 17d
+   and 17e fail if a collective or a packed gather moves a model-axis
+   weight (whole or a rank's block), and print their collectives, bytes
+   and host seconds beside the earlier gathers' figures.
 17. sharded training, in phase 16's spawn (the same 4 ranks on
    ``cuda:0`` under ``gloo``): (17.0) GPipe's hand-off on CUDA tensors,
    ``dist.sharding.ppermute``'s ``all_to_all_single`` with one peer's
@@ -411,7 +415,9 @@ shared with the background, not alone:
    ``jit_decode_step`` s under ``kernel`` and ``ref`` (bit for bit; one
    B1 launch a step on every rank under ``kernel``, on its cache block),
    B1 on a rank's block against its plain version, the streams against
-   rank 0's one-process steps; (f) whisper-tiny's batch-sharded decode,
+   rank 0's one-process steps (a bf16 flip on a near-tie printed with its
+   margin and gap, the streams then gated by a float32 arm of prefill
+   and steps); (f) whisper-tiny's batch-sharded decode,
    uncut, 4 seeded frame stubs and prompts of 32: 8 greedy steps on
    (2, 2) (head-parallel) and (1, 4) (the ring's and ``enc_kv``'s
    sequence split, the distributed softmax) under ``kernel`` and ``ref``
@@ -433,7 +439,8 @@ shared with the background, not alone:
    the card's peaks beside the measured step and 6ND; and one
    ``python -m repro_torch.launch.dryrun --arch qwen3-0.6b --shape
    train_4k`` subprocess (first in the background's CLI queue), which
-   must exit 0.
+   must exit 0 and trace at most 5.7e13 FLOPs a rank (1/8 of the count
+   before tensor parallelism).
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
@@ -5889,6 +5896,7 @@ def _long_sharded(dev, cfg, ctx, placed, tok0, steps: int,
         tok = torch.argmax(logits.float(), -1).to(torch.int32)
         logits_all.append(logits.float())
         toks.append(int(tok[0]))
+    _tp_gate("16c", _model_weight_shapes(placed))
     leaf_like = {(1, LONG_SEQ // d, cfg.n_kv_heads, w)
                  for d in (1, shard.nshards) for w in (cfg.hd, 2 * cfg.hd)}
     leaf_like |= {(cfg.n_superblocks,) + s for s in leaf_like}
@@ -5983,8 +5991,14 @@ def longctx16(dev, rank: int, held: dict, cfg) -> dict:
         out["gap"], out["tol"] = _gap(fused["logits"], want)
         out["gap0"] = _gap(fused["logits"][:1], want[:1])[0]
         if fused["tokens"] != want_tok:
-            raise AssertionError(f"16c bf16: sharded stream {fused['tokens']}"
-                                 f" vs one process {want_tok}")
+            t = next(i for i, (a, b) in enumerate(zip(fused["tokens"],
+                                                      want_tok)) if a != b)
+            top = torch.topk(want[t][0], 2).values
+            raise AssertionError(
+                f"16c bf16: sharded stream {fused['tokens']} vs one process "
+                f"{want_tok}; first flip at step {t}: the one process's "
+                f"top-2 margin {float(top[0] - top[1]):.6f}, the logit gap "
+                f"there {_gap(fused['logits'][t:t + 1], want[t:t + 1])[0]}")
         out["gap32"] = _gap(f32["logits"], want32)[0]
         # the reference's assert_allclose(rtol=3e-3, atol=3e-3), elementwise
         out["excess32"] = max(float(((a - b).abs() - 3e-3 * (1 + b.abs()))
@@ -6104,6 +6118,40 @@ def probe17(rank: int) -> dict:
     return {"ppermute_32MiB_ms": (time.perf_counter() - t0) / 3 * 1e3}
 
 
+def _model_weight_shapes(params) -> set:
+    """The shapes a gather of a model-axis weight would move: each
+    ``DTensor`` leaf placed on the model axis, whole and a rank's block,
+    a superblock's leaf without its stacked dim (a gather moves a
+    superblock at a time)."""
+    from repro_torch.dist import sharding
+    out = set()
+    for path, leaf in sharding._leaves_with_path(params):
+        if not sharding.is_dtensor(leaf):
+            continue
+        spec = sharding._norm(sharding.spec_of(leaf), leaf.ndim)
+        dims = [d for d, e in enumerate(spec)
+                if "model" in sharding._names(e)]
+        if not dims:
+            continue
+        blk = list(leaf.shape)
+        blk[dims[0]] //= sharding.axis_size(leaf.device_mesh, "model")
+        for sh in (tuple(leaf.shape), tuple(blk)):
+            out.add(sh[1:] if path[0] == "blocks" else sh)
+    return out
+
+
+def _tp_gate(tag: str, weights: set) -> None:
+    """Tensor parallelism moves activations only: no collective since
+    ``LOG`` was reset has a model-axis weight's shape (``weights``), and
+    no packed gather rebuilt a weight."""
+    from repro_torch.dist import sharding
+    hit = sorted(str(s) for s in sharding.LOG.shapes() & weights)
+    if hit or sharding.LOG.leaves:
+        raise AssertionError(f"{tag}: a model-axis weight gathered: shapes "
+                             f"{hit}, packed gathers "
+                             f"{dict(sharding.LOG.leaves)}")
+
+
 def _collectives17() -> dict:
     from repro_torch.dist import sharding
     log = sharding.LOG
@@ -6161,9 +6209,11 @@ def train17(dev, rank: int) -> dict:
     out["moment_bytes"] = [2 * whole, sharding.local_nbytes(
         {"m": state["opt"]["m"], "v": state["opt"]["v"]})]
     step = tstep.make_train_step(cfg, tstep.TrainConfig(), ctx)
+    weights = _model_weight_shapes(state["params"])
     out["bf16"] = []
     for _ in range(2):
         state, m, ms, coll = _step17(step, state, batch)
+        _tp_gate("17a", weights)
         out["bf16"].append({"loss": m["loss"], "grad_norm": m["grad_norm"],
                             "ms": ms, "collectives": coll})
     # 18: a third bf16 step under bundle_from_trace (its FLOPs, bytes and
@@ -6198,6 +6248,7 @@ def train17(dev, rank: int) -> dict:
     torch.cuda.empty_cache()
     state, m, ms, coll = _step17(tstep.make_train_step(
         cfg32, tstep.TrainConfig(), ctx), state, batch)
+    _tp_gate("17a float32", _model_weight_shapes(state["params"]))
     out["f32"] = {"loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms,
                   "collectives": coll, "lr": m["lr"]}
     # AdamW moves a weight by about lr * sign(g): a gradient entry near 0
@@ -6342,6 +6393,77 @@ def elastic17(dev, rank: int, placed) -> dict:
     return out
 
 
+def _greedy17(dev, cfg, ctx, params, toks) -> tuple:
+    """``jit_prefill`` of ``toks`` and ``SERVE17_STEPS`` greedy
+    ``jit_decode_step`` s on ``ctx`` (None: one process), the cache in
+    the compute dtype: (each step's logits, whole, float32; the streams)."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.models import decode as dec
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill)
+    logits, states = jit_prefill(cfg, ctx, device=dev)(params,
+                                                       {"tokens": toks})
+    whole = {k: sharding.full_tensor(v) for k, v in states.items()}
+    del states
+    cache = dec.cache_from_prefill(cfg, whole, SERVE17_PROMPT,
+                                   SERVE17_MAX_LEN, cfg.cdtype)
+    step = jit_decode_step(cfg, ctx, ServeConfig(max_len=SERVE17_MAX_LEN),
+                           device=dev)
+    tok = torch.argmax(sharding.full_tensor(logits)[:, -1].float(), -1).int()
+    logs, streams = [], []
+    for _ in range(SERVE17_STEPS):
+        lg, cache = step(params, cache, tok)
+        lg = sharding.full_tensor(lg).float()
+        logs.append(lg)
+        tok = torch.argmax(lg, -1).int()
+        streams.append([int(x) for x in tok])
+    return logs, streams
+
+
+def serve17_f32(dev, rank: int) -> dict:
+    """17d's float32 arm (tensor parallelism sums bf16 parts in the mesh
+    prefill, so a bf16 greedy stream may flip on a near-tie): the same
+    prompts and steps in float32 compute under ``kernel``, the mesh's
+    streams gated equal to rank 0's one-process streams, the logit gap
+    beside the reference's rtol = atol = 3e-3."""
+    import torch
+    from repro_torch.configs.qwen3_0_6b import config
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import serve_param_shardings
+    cfg = dataclasses.replace(config(), kernel_impl="kernel",
+                              compute_dtype="float32")
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")))
+    g = torch.Generator(dev).manual_seed(SEED + 19)
+    toks = torch.randint(0, cfg.vocab, (4, SERVE17_PROMPT), generator=g,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, SEED, device=dev)
+    out = {}
+    if rank == 0:
+        want, want_streams = _greedy17(dev, cfg, None, params, toks)
+    placed = sharding.place_tree(params, serve_param_shardings(params, cfg,
+                                                               ctx))
+    del params
+    torch.cuda.empty_cache()
+    got, streams = _greedy17(dev, cfg, ctx, placed, toks)
+    if rank == 0:
+        out["gap32"] = _gap(got, want)[0]
+        out["excess32"] = max(float(((a - b).abs() - 3e-3 * (1 + b.abs()))
+                                    .max()) for a, b in zip(got, want))
+        out["streams_equal"] = streams == want_streams
+        if streams != want_streams or out["excess32"] > 0:
+            raise AssertionError(f"17d float32: batch-sharded streams "
+                                 f"{streams} vs one process {want_streams}; "
+                                 f"logit gap {out['gap32']} beyond rtol = "
+                                 f"atol = 3e-3 by {out['excess32']}")
+    del placed
+    torch.cuda.empty_cache()
+    return out
+
+
 def serve17(dev, rank: int) -> dict:
     """17d: the batch-sharded decode of qwen3-0.6b at full width on (2, 2)
     = (data, model): ``jit_prefill`` under the mesh (each rank 2 of the
@@ -6351,7 +6473,10 @@ def serve17(dev, rank: int) -> dict:
     logits bit for bit, one B1 launch a step on every rank under
     ``kernel`` (its cache block, the fused split), none under ``ref``;
     B1 on a rank's cache block against its plain version bit for bit;
-    streams equal to rank 0's one-process dense steps."""
+    streams equal to rank 0's one-process dense steps, or a flip on a
+    near-tie (the one process's top-2 margin within the bf16 tolerance;
+    the tensor-parallel prefill sums bf16 parts), whose streams
+    :func:`serve17_f32` then gates in float32."""
     import torch
     from repro_torch.configs.qwen3_0_6b import config
     from repro_torch.dist import sharding
@@ -6387,8 +6512,11 @@ def serve17(dev, rank: int) -> dict:
     del params
     torch.cuda.empty_cache()
     before = _launches16()
+    sharding.LOG.reset()
     logits, states = jit_prefill(cfg, ctx, device=dev)(placed,
                                                        {"tokens": toks})
+    _tp_gate("17d prefill", _model_weight_shapes(placed))
+    out["prefill_collectives"] = _collectives17()
     _add(out["launches"], _delta(before))
     whole = {k: sharding.full_tensor(v) for k, v in states.items()}
     del states
@@ -6417,6 +6545,7 @@ def serve17(dev, rank: int) -> dict:
             lg = sharding.full_tensor(lg)
             logs.append(lg)
             tok = torch.argmax(lg.float(), -1).int()
+        _tp_gate(f"17d [{impl}]", _model_weight_shapes(placed))
         delta = _delta(before)
         if impl == "kernel":
             _add(out["launches"], delta)
@@ -6445,9 +6574,23 @@ def serve17(dev, rank: int) -> dict:
                   for lg in k["logits"]]
         toks_1 = [[int(x) for x in torch.argmax(lg, -1)] for lg in want]
         out["gap"], out["tol"] = _gap(k["logits"], want)
+        out["flip"] = None
         if toks_k != toks_1:
-            raise AssertionError(f"17d: batch-sharded stream {toks_k} vs "
-                                 f"one process {toks_1}")
+            # tensor parallelism's prefill sums bf16 parts: a flip on a
+            # near-tie (the one process's top-2 margin within the bf16
+            # tolerance) moves the streams' gate to the float32 arm
+            t, b = next((t, b) for t in range(SERVE17_STEPS)
+                        for b in range(len(toks_1[t]))
+                        if toks_k[t][b] != toks_1[t][b])
+            top = torch.topk(want[t][b].float(), 2).values
+            margin = float(top[0] - top[1])
+            out["flip"] = {"step": t, "row": b, "margin": margin,
+                           "gap": float((k["logits"][t][b].float()
+                                         - want[t][b].float()).abs().max())}
+            if margin > out["tol"]:
+                raise AssertionError(f"17d: batch-sharded stream {toks_k} "
+                                     f"vs one process {toks_1}: the flip "
+                                     f"{out['flip']} is no near-tie")
     for impl, run in runs.items():
         out[impl] = {"ms": run["ms"], "b1": run["b1"], "spec": run["spec"],
                      "collectives": run["collectives"]}
@@ -6577,6 +6720,7 @@ def moe17(dev, rank: int) -> dict:
         torch.cuda.empty_cache()
         state, m, ms, coll = _step17(tstep.make_train_step(
             c, tstep.TrainConfig(), ctx), state, batch)
+        _tp_gate(f"17e [{tag}]", _model_weight_shapes(state["params"]))
         seen = sorted(str(s) for s in sharding.LOG.shapes() & banks)
         whole, held = _bank_bytes(state["params"])
         r = {"loss": m["loss"], "grad_norm": m["grad_norm"], "lr": m["lr"],
@@ -6762,6 +6906,7 @@ def sharded17(rank: int) -> dict:
     res["17b"]["s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["17d"] = serve17(dev, rank)
+    res["17d"]["f32"] = serve17_f32(dev, rank)
     res["17d"]["s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["17f"] = whisper17(dev, rank)
@@ -6795,15 +6940,19 @@ def train_phase_lines(res: list, where: str) -> dict:
               f"{TRAIN17_SEQ} tokens, full width and depth; loss "
               f"{s['loss']:.6f}, grad norm {s['grad_norm']:.6f}; ms per rank "
               f"{[round(r['17a']['bf16'][i]['ms'], 1) for r in res]} (host "
-              f"clock, synchronized); rank 0: {_coll_text(s['collectives'])}")
+              f"clock, synchronized); rank 0: {_coll_text(s['collectives'])}"
+              f" (before tensor parallelism, the weights gathered whole: "
+              f"4.46e9 B in 70; below it: "
+              f"{s['collectives']['bytes'] < 4.46e9}); no model-axis weight "
+              f"gathered (tensor parallel)")
     print(f"phase 17a gates (the reference's): losses finite, "
           f"{a['bf16'][1]['loss']:.6f} < {a['bf16'][0]['loss']:.6f} + 0.5, "
           f"wq a DTensor a rank holds 1/2 of; a rank's params "
           f"{a['param_bytes'][1]} of {a['param_bytes'][0]} B, its AdamW "
           f"moments (ZeRO-1) {a['moment_bytes'][1]} of "
           f"{a['moment_bytes'][0]} B; peak memory per rank "
-          f"{[r['17a']['peak'] for r in res]} B (activations replicated "
-          f"over the model axis)")
+          f"{[r['17a']['peak'] for r in res]} B (tensor parallel: the "
+          f"residual stream sequence-sharded over the model axis)")
     f = a["f32"]
     print(f"phase 17a float32 compute, {F32_LAYERS17} of 28 layers, one "
           f"step against rank 0's one-process step on the same state and "
@@ -6842,10 +6991,28 @@ def train_phase_lines(res: list, where: str) -> dict:
               f"{d[impl]['spec']}; B1 launches per step {d[impl]['b1']}; "
               f"median ms per step per rank "
               f"{[round(statistics.median(r['17d'][impl]['ms']), 1) for r in res]}; "
-              f"rank 0: {_coll_text(d[impl]['collectives'])}")
+              f"rank 0, {SERVE17_STEPS} steps: "
+              f"{_coll_text(d[impl]['collectives'])}; no model-axis weight "
+              f"gathered")
+    print(f"phase 17d the mesh prefill, rank 0: "
+          f"{_coll_text(d['prefill_collectives'])}; no model-axis weight "
+          f"gathered")
+    flip = ("greedy streams equal to rank 0's one-process dense steps"
+            if d["flip"] is None else
+            f"a bf16 greedy stream flips on a near-tie at step "
+            f"{d['flip']['step']}, row {d['flip']['row']} (the one "
+            f"process's top-2 margin {d['flip']['margin']:.6f} within the "
+            f"bf16 tolerance, the logit gap there {d['flip']['gap']:.6f}): "
+            f"the streams are gated in float32")
+    f32 = d["f32"]
+    print(f"phase 17d float32 compute [kernel], prefill and "
+          f"{SERVE17_STEPS} steps: streams equal to rank 0's one process "
+          f"{f32['streams_equal']}, largest logit gap {f32['gap32']:.3e} "
+          f"within rtol = atol = 3e-3 (largest |gap| - 3e-3 (1 + |logit|) "
+          f"{f32['excess32']:.3e})")
     print(f"phase 17d kernel == ref bit for bit over {SERVE17_STEPS} steps; "
           f"B1 on a rank's cache block {d['block']} == plain bit for bit; "
-          f"greedy streams equal to rank 0's one-process dense steps, "
+          f"{flip}, "
           f"largest bf16 logit gap {d['gap']:.6f} beside max(0.08, 0.03 * "
           f"|logits|max) = {d['tol']:.6f} (not gated); KV cache a rank "
           f"holds {d['cache_bytes'][1]} of {d['cache_bytes'][0]} B; "
@@ -6892,7 +7059,8 @@ def train_phase_lines(res: list, where: str) -> dict:
               f"{x['params_bytes']} B; peak memory per rank "
               f"{[r['17e'][tag]['peak'] for r in res]} B; ms per rank "
               f"{[round(r['17e'][tag]['ms'], 1) for r in res]}; rank 0: "
-              f"{_coll_text(x['collectives'])}")
+              f"{_coll_text(x['collectives'])}; no model-axis weight "
+              f"gathered")
     print(f"phase 17e: {e['s']:.1f} s; pinned host bytes each rank's gloo "
           f"cache held at its start, after the bf16 step, after the float32 "
           f"step (each then given back) "
@@ -6928,14 +7096,31 @@ def run_dryrun() -> dict:
             "lines": out.stdout.splitlines(), "err": out.stderr[-3000:]}
 
 
+#: The dry run's count for its cell before tensor parallelism (weights
+#: gathered whole, every rank of a model group computing its data
+#: block's whole forward), and the bound on it now: 1/8 of it (1/16 the
+#: ideal).
+DRYRUN_FLOPS_WHOLE, DRYRUN_FLOPS_BOUND = 4.57e14, 5.7e13
+
+
 def report_dryrun(r: dict) -> None:
+    import json
     ok = [ln for ln in r["lines"] if ln.startswith("[ok]")]
+    flops = None
+    art = ROOT / "build" / "dryrun18" / "qwen3-0.6b__train_4k__16_16.json"
+    if art.exists():
+        flops = json.loads(art.read_text())["raw"]["flops_per_dev"]
     print(f"phase 18 dry run (python -m repro_torch.launch.dryrun "
           f"{' '.join(DRYRUN_ARGS)}, a subprocess on the host's CPU, fake "
           f"tensors on a fake world of 256): exit {r['rc']} in "
-          f"{r['wall_s']:.1f} s; {ok[0] if ok else r['lines'][-3:]}")
-    if r["rc"] != 0 or len(ok) != 1:
-        raise AssertionError(f"phase 18 dry run exited {r['rc']}:\n"
+          f"{r['wall_s']:.1f} s; {ok[0] if ok else r['lines'][-3:]}; traced "
+          f"FLOPs a rank {flops} (weights gathered whole: "
+          f"{DRYRUN_FLOPS_WHOLE:.3e}; bound "
+          f"{DRYRUN_FLOPS_BOUND:.2e})")
+    if r["rc"] != 0 or len(ok) != 1 or flops is None or \
+            flops > DRYRUN_FLOPS_BOUND:
+        raise AssertionError(f"phase 18 dry run exited {r['rc']}, FLOPs a "
+                             f"rank {flops}:\n"
                              f"{chr(10).join(r['lines'][-20:])}\n{r['err']}")
 
 
@@ -7056,10 +7241,13 @@ def sharded_phase(card: str, spawned=None) -> dict:
               f"per step "
               f"per rank {[round(statistics.median(r['16c'][tag]['ms']), 3) for r in res]}"
               f"; B1 launches per step {c[tag]['b1']}; collectives per rank "
-              f"{[r['16c'][tag]['collectives'] for r in res]} "
-              f"({c[tag]['collective_bytes']} B, "
-              f"{c[tag]['collective_s']:.3f} s of host time on rank 0), the "
-              f"largest {c[tag]['largest']} elements, none cache-sized; "
+              f"{[r['16c'][tag]['collectives'] for r in res]} over "
+              f"{LONG_STEPS16} steps ({c[tag]['collective_bytes']} B, "
+              f"{c[tag]['collective_s']:.3f} s of host time on rank 0; "
+              f"before tensor parallelism, the weights gathered whole: 85 "
+              f"a step), the "
+              f"largest {c[tag]['largest']} elements, none cache-sized, no "
+              f"model-axis weight gathered; "
               f"peak memory per rank "
               f"{[r['16c'][tag]['peak'] for r in res]} B; KV cache per rank "
               f"{c[tag]['local_cache_bytes']} B of {c['leaf_bytes']} B")

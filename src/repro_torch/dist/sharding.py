@@ -17,8 +17,10 @@ Port of ``repro``'s ``dist/sharding.py`` onto ``torch.distributed``:
 Axis roles
 ----------
 * ``data_axes``  : batch dimension of activations; gradient all-reduce.
-* ``model_axis`` : tensor parallelism (expert parallelism, vocab-sharded
-                   weights).
+* ``model_axis`` : tensor parallelism (Megatron column / row splits, the
+                   residual stream sequence-sharded between layers,
+                   expert parallelism, the vocab-sharded embedding, head
+                   and cross entropy; ``models/transformer.py``).
 * ``seq_axes``   : long-context serving only (B=1): KV sequence dim sharded.
 
 Spec derivation is rule-based on the leaf's path and shape (not stored per
@@ -47,6 +49,16 @@ is ``gloo`` (NCCL refuses two ranks on one GPU), which stages a CUDA
 tensor through host memory; ``chip_smoke.py`` phase 16.0 probes which
 collectives take CUDA tensors there.  :data:`LOG` counts each collective
 by operation, shape and dtype, with its bytes and its host seconds.
+
+Under autograd: :func:`gather_tree` (a weight gather; its transpose the
+owned slice, or a ``psum_scatter`` over the axes whose cotangents are
+partial), :func:`global_sum` (``psum`` forward, identity backward),
+:func:`sum_grads` (identity forward, ``psum`` backward), and for tensor
+parallelism, where each rank's cotangent is its share:
+:func:`gather_seq` (``all_gather`` / ``psum_scatter``),
+:func:`scatter_seq` (``psum_scatter`` / ``all_gather``), :func:`all_sum`
+(``psum`` / ``psum``) and :func:`share` (identity / division by the
+axis's size), with the layers' :func:`tp_enter` and :func:`tp_leave`.
 """
 from __future__ import annotations
 
@@ -208,13 +220,11 @@ def from_local(local: torch.Tensor, mesh, spec: P, shape=None):
                               stride=tuple(stride))
 
 
-def full_tree(tree, *, experts=None):
+def full_tree(tree):
     """``tree`` with every leaf whole: the ``DTensor`` leaves gathered
     (:func:`gather_tree` of their blocks, one collective per mesh axes
     and dtype for the leaves sharded on one dim: a superblock's weights
-    in one), plain leaves as they are.  With ``experts`` (a model axis
-    name) the expert banks keep their block over it
-    (:func:`resident_expert_specs`).  Differentiable: see
+    in one), plain leaves as they are.  Differentiable: see
     :func:`gather_tree`."""
     leaves = [x for _, x in _leaves_with_path(tree)]
     meshes = {x.device_mesh for x in leaves if is_dtensor(x)}
@@ -223,8 +233,6 @@ def full_tree(tree, *, experts=None):
     if len(meshes) > 1:
         raise ValueError("full_tree needs the leaves on one mesh")
     local, specs = split_tree(tree)
-    if experts is not None:
-        specs = resident_expert_specs(local, specs, experts)
     return gather_tree(local, specs, meshes.pop())
 
 
@@ -234,25 +242,6 @@ def is_expert_bank(path: str, ndim: int, start: int = 0) -> bool:
     read it."""
     return ("moe" in path and path.rsplit("/", 1)[-1] in ("wg", "wu", "wo")
             and ndim - start >= 3)
-
-
-def resident_expert_specs(local, specs, model_axis: str):
-    """``specs`` (the :class:`P` of each leaf of ``local``) with
-    ``model_axis`` taken off the leading dim of every expert bank:
-    gathered by these specs, a bank stays this rank's block of experts
-    over the model axis, whole on its other dims (the expert-parallel
-    layer's operand)."""
-    pairs = iter(_zip_leaves(local, specs))
-
-    def one(path, leaf):
-        _, spec = next(pairs)
-        if not is_expert_bank(path, leaf.ndim) or not spec or \
-                model_axis not in _names(spec[0]):
-            return spec
-        rest = tuple(a for a in _names(spec[0]) if a != model_axis)
-        return P(rest if rest else None, *spec[1:])
-
-    return tree_paths(local, one)
 
 
 def full_tensor(x) -> torch.Tensor:
@@ -558,6 +547,9 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def backward(fctx, *grads):
         mesh = fctx.mesh
+        if fctx.reduce and set(fctx.reduce) == set(fctx.axes):
+            return (None, None, None, None) + _scatter_blocks(
+                mesh, fctx.axes, fctx.dims, fctx.sizes, grads)
         if fctx.reduce:
             live = [i for i, g in enumerate(grads) if g is not None]
             if live:
@@ -576,6 +568,29 @@ class _Gather(torch.autograd.Function):
         return (None, None, None, None) + tuple(out)
 
 
+def _scatter_blocks(mesh, axes: tuple, dims: tuple, sizes, grads) -> tuple:
+    """The transpose of :func:`_gather_blocks` where every rank of
+    ``axes`` holds a partial cotangent of the whole tensors: one
+    :func:`psum_scatter` of them packed, each rank keeping its blocks."""
+    n = axes_size(mesh, axes)
+    live = [i for i, g in enumerate(grads) if g is not None]
+    out: list = [None] * len(grads)
+    if not live:
+        return tuple(out)
+    rows = torch.cat([grads[i].movedim(dims[i], 0).reshape(n, -1)
+                      for i in live], dim=1)
+    got = psum_scatter(rows, mesh, axes, 0)[0]
+    off = 0
+    for i in live:
+        moved = list(grads[i].movedim(dims[i], 0).shape)
+        moved[0] = sizes[i]
+        k = math.prod(moved)
+        out[i] = got[off:off + k].reshape(moved).movedim(0, dims[i]) \
+            .contiguous()
+        off += k
+    return tuple(out)
+
+
 def _gather(mesh, axes: tuple, dims: tuple, reduce, blocks) -> list:
     reduce = tuple(a for a in _names(reduce) if a in axes)
     if torch.is_grad_enabled() and any(b.requires_grad for b in blocks):
@@ -592,9 +607,12 @@ def gather_tree(local, specs, mesh, *, reduce=()):
 
     Differentiable: the cotangent of a whole leaf comes back to the block
     as this rank's owned slice of it (:class:`_Gather`); over the axes of
-    ``reduce`` (the data axes, for a spec that shards a weight over them)
-    the partial cotangents are summed first.  A weight that no spec
-    shards over the data axes is reduced over them by the train step."""
+    ``reduce`` (the data axes, for a spec that shards a weight over them;
+    the model axis too under tensor parallelism, where each rank's
+    cotangent is its share) the partial cotangents are summed first, one
+    ``psum_scatter`` where ``reduce`` covers every gathered axis.  A
+    weight that no spec shards over the data axes is reduced over them by
+    the train step."""
     pairs = _zip_leaves(local, specs)
     out = [x for x, _ in pairs]
     groups: dict = {}
@@ -666,6 +684,119 @@ def sum_grads(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     if _names(axes) and torch.is_grad_enabled() and x.requires_grad:
         return _SumGrads.apply(x, mesh, axes)
     return x
+
+
+# -- tensor parallelism over the model axis ---------------------------------
+#
+# Under tensor parallelism every rank's cotangent is its SHARE: the
+# gradient of a value the ranks of the model axis hold alike is the sum
+# of theirs, that of a rank's own block (of the sequence, the heads, the
+# vocab, a weight) its own.  Each collective below then transposes to
+# its linear transpose, whether the sequence divides the axis or not.
+
+class _AllGatherDim(torch.autograd.Function):
+    """:func:`all_gather` along ``dim``; transpose :func:`psum_scatter`."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes, dim):
+        fctx.mesh, fctx.axes, fctx.dim = mesh, axes, dim
+        return all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return psum_scatter(g, fctx.mesh, fctx.axes, fctx.dim), None, None, \
+            None
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    """:func:`psum_scatter` along ``dim``; transpose :func:`all_gather`."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes, dim):
+        fctx.mesh, fctx.axes, fctx.dim = mesh, axes, dim
+        return psum_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_gather(g, fctx.mesh, fctx.axes, fctx.dim), None, None, \
+            None
+
+
+class _AllSum(torch.autograd.Function):
+    """:func:`psum` whose transpose is a :func:`psum`."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axes):
+        fctx.mesh, fctx.axes = mesh, axes
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return psum(g, fctx.mesh, fctx.axes), None, None
+
+
+class _Share(torch.autograd.Function):
+    """The identity whose transpose divides by the axes' size."""
+
+    @staticmethod
+    def forward(fctx, x, n):
+        fctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.n, None
+
+
+def _live(mesh, axes) -> bool:
+    return axes_size(mesh, axes) > 1
+
+
+def _grad(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def gather_seq(x: torch.Tensor, mesh, axes, dim: int = 1) -> torch.Tensor:
+    """The ranks' blocks of ``x`` along ``dim`` (the sequence) gathered
+    (``all_gather``); its cotangent reduce-scattered back to the blocks
+    (Megatron-SP's entry into a tensor-parallel layer)."""
+    if not _live(mesh, axes):
+        return x
+    if _grad(x):
+        return _AllGatherDim.apply(x, mesh, axes, dim)
+    return all_gather(x, mesh, axes, dim)
+
+
+def scatter_seq(x: torch.Tensor, mesh, axes, dim: int = 1) -> torch.Tensor:
+    """The sum of the ranks' partial ``x``, of which each keeps its block
+    along ``dim`` (``reduce_scatter``); its cotangent gathered
+    (Megatron-SP's exit from a tensor-parallel layer)."""
+    if not _live(mesh, axes):
+        return x
+    if _grad(x):
+        return _ReduceScatterDim.apply(x, mesh, axes, dim)
+    return psum_scatter(x, mesh, axes, dim)
+
+
+def all_sum(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of the ranks' partial ``x`` (``all_reduce``), its cotangent
+    summed alike: the exit of a tensor-parallel layer whose sequence the
+    axis does not split, and the vocab-parallel loss's sums."""
+    if not _live(mesh, axes):
+        return x
+    if _grad(x):
+        return _AllSum.apply(x, mesh, axes)
+    return psum(x, mesh, axes)
+
+
+def share(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` as it is, its cotangent divided by the size of ``axes``: a
+    value every rank of ``axes`` computes alike (the loss), whose
+    gradient the ranks' shares add up to once."""
+    n = axes_size(mesh, axes)
+    if n == 1 or not _grad(x):
+        return x
+    return _Share.apply(x, n)
 
 
 def _ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
@@ -854,12 +985,59 @@ class ShardCtx:
 @dataclasses.dataclass(frozen=True)
 class RankLocal(ShardCtx):
     """The context the mesh forward hands its layers: every operand is
-    this rank's own (the whole weights, its block of the batch), so the
-    layers run as on one device (no mesh).  The MoE layer is the one
-    exception: ``experts`` is the mesh's context, and the layer's expert
-    banks are this rank's block of experts over its model axis (resident,
-    never gathered), which it runs expert-parallel (``models/moe.py``)."""
+    this rank's own (its block of the batch, whole weights), so the
+    layers run as on one device (no mesh), but for two things.
+    ``experts`` is the mesh's context: the layer's expert banks are this
+    rank's block of experts over its model axis (resident, never
+    gathered), which it runs expert-parallel (``models/moe.py``).  ``tp``
+    is the mesh's context under tensor parallelism: a layer whose
+    weights arrive as this rank's model-axis blocks (``wq`` / ``wi``
+    columns, ``wo`` / ``wkv`` / router rows, the vocab rows of the
+    embedding and head) computes its part and leaves through
+    :func:`scatter_seq` (``seq``: the residual stream is this rank's
+    block of the sequence) or :func:`all_sum`; a layer whose weights
+    arrive whole runs on the whole sequence and keeps its block."""
     experts: Any = None
+    tp: Any = None
+    seq: bool = False
+
+    @property
+    def tp_axis(self):
+        return self.tp.model_axis if self.tp is not None else None
+
+    @property
+    def tp_size(self) -> int:
+        return self.tp.model_size if self.tp is not None else 1
+
+    @property
+    def tp_index(self) -> int:
+        return axis_index(self.tp.mesh, self.tp.model_axis) \
+            if self.tp is not None else 0
+
+
+def tp_enter(x: torch.Tensor, rl) -> torch.Tensor:
+    """A tensor-parallel layer's operand from the residual stream: the
+    whole sequence (:func:`gather_seq` of the rank's block), or ``x``."""
+    if not rl.seq:
+        return x
+    return gather_seq(x, rl.tp.mesh, rl.tp_axis, 1)
+
+
+def tp_leave(y: torch.Tensor, rl, partial: bool = True) -> torch.Tensor:
+    """A layer's output back into the residual stream: a ``partial`` sum
+    (each rank its part) summed and, with ``seq``, scattered to the
+    rank's block of the sequence; a whole output (every rank the same)
+    cut to that block."""
+    if not partial:
+        if not rl.seq:
+            return y
+        n = y.shape[1] // rl.tp_size
+        return y.narrow(1, rl.tp_index * n, n)
+    if rl.seq:
+        return scatter_seq(y, rl.tp.mesh, rl.tp_axis, 1)
+    # summed in float32, rounded once to y's dtype (as one matmul's
+    # accumulator is): the decode steps' exits
+    return all_sum(y.float(), rl.tp.mesh, rl.tp_axis).to(y.dtype)
 
 
 def resident_axis(ctx):

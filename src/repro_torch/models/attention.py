@@ -74,6 +74,64 @@ def qkv_project(params, x: torch.Tensor, n_heads: int, n_kv: int,
     return q, k, v, kv
 
 
+def qkv_project_tp(params, x: torch.Tensor, n_heads: int, n_kv: int,
+                   head_dim: int, positions: torch.Tensor, rope_theta: float,
+                   rl, *, policy=None, all_heads: bool = False):
+    """:func:`qkv_project` on this rank's tensor-parallel blocks (``rl`` a
+    ``RankLocal`` with ``tp``, of ``m`` ranks, this one ``r``): ``wq``
+    its block of columns, ``wkv`` its block of rows (or whole).
+
+    The rank's query heads are its columns of ``wq`` where ``m`` divides
+    the heads and they attend one block of KV heads (``m`` divides the KV
+    heads) or one KV head (they lie in one GQA group); else, or with
+    ``all_heads``, every head, the columns gathered.  The kv beat is
+    whole: on a row block of ``wkv`` the rank's slice of ``x``'s features
+    makes a partial beat, summed over the model axis before the split
+    (for one position in float32, rounded once to ``x``'s dtype after the
+    sum, as the one-device product rounds).  Returns ``q`` (B, S, Hq, D),
+    the ``k`` / ``v`` its query heads attend, and the post-RoPE beat of
+    the KV heads it keeps (its block where ``m`` divides them and its
+    query heads are its own, else every KV head)."""
+    from repro_torch.dist import sharding
+    mesh, axis, m, r = rl.tp.mesh, rl.tp_axis, rl.tp_size, rl.tp_index
+    B, S, d = x.shape
+    g = n_heads // n_kv
+    own = not all_heads and n_heads % m == 0 and (
+        n_kv % m == 0 or g % (n_heads // m) == 0)
+    q = x @ params["wq"]
+    if not own:
+        q = sharding.gather_seq(q, mesh, axis, -1)
+    q = q.reshape(B, S, q.shape[-1] // head_dim, head_dim)
+    wkv = params["wkv"]
+    if wkv.shape[0] != d:
+        n = wkv.shape[0]
+        xr = x[..., r * n:(r + 1) * n]
+        if S == 1:   # one position: the parts in float32, rounded once
+            kv = sharding.all_sum(xr.float() @ wkv.float(), mesh,
+                                  axis).to(x.dtype)
+        else:
+            kv = sharding.all_sum(xr @ wkv, mesh, axis)
+    else:
+        kv = x @ wkv
+    kv = kv.reshape(B, S, n_kv, 2 * head_dim)
+    if own and n_kv % m == 0:
+        kv = kv[:, :, r * (n_kv // m):(r + 1) * (n_kv // m)]
+    k, v = vx.transpose(vx.Segment(n=kv.shape[-1], fields=2), kv,
+                        policy=policy)
+    if params.get("q_norm") is not None:
+        q = layers.rms_norm(q, params["q_norm"])
+        k = layers.rms_norm(k, params["k_norm"])
+    q = layers.rope(q, positions, rope_theta)
+    k = layers.rope(k, positions, rope_theta)
+    kv = vx.transpose(vx.Segment(n=kv.shape[-1], fields=2),
+                      [k.contiguous(), v.contiguous()],
+                      policy=policy)              # re-pack post-RoPE beat
+    if own and n_kv % m:
+        j = r * (n_heads // m) // g           # the one GQA group's head
+        k, v = k[:, :, j:j + 1], v[:, :, j:j + 1]
+    return q, k, v, kv
+
+
 def _flash_body(q, k, *, q_pos, kv_pos, causal, window, scale, kv_len):
     """One (Q-chunk x KV-chunk) score tile. q: (B,K,G,Qc,D); k: (B,Kc,K,D).
     Masking is an ADDITIVE (Qc, Kc) float32 bias, as in the reference."""

@@ -78,7 +78,7 @@ from repro_torch.models.ssm import init_mamba_cache, mamba_decode_step
 from repro_torch.models.transformer import (ModelConfig, _ffn_apply,
                                             _mixer_params, cast_params,
                                             check_supported, superblock,
-                                            tree_map)
+                                            tp_specs, tree_map)
 from repro_torch.models.xlstm import (init_mlstm_state, init_slstm_state,
                                       mlstm_decode_step, slstm_decode_step)
 
@@ -191,12 +191,42 @@ def cache_from_prefill(cfg: ModelConfig, cache_states, seq_len: int,
             "blocks": blocks}
 
 
-def _whole(params: dict) -> dict:
+def _whole(params: dict, ctx=None) -> dict:
     """``params`` with every leaf outside ``blocks`` gathered whole (the
-    embedding, the final norm, the head); blocks stay placed and gather a
-    layer at a time (``transformer.superblock``)."""
-    return {k: v if k == "blocks" else sharding.tree_map(
-        sharding.full_tensor, v) for k, v in params.items()}
+    embedding, the final norm, the head), under tensor parallelism
+    (``ctx.tp``) the embedding's and head's vocab blocks kept
+    (``transformer.tp_specs``); blocks stay placed and gather a layer at
+    a time (``transformer.superblock``)."""
+    tp = getattr(ctx, "tp", None)
+    top = {k: v for k, v in params.items() if k != "blocks"}
+    if tp is None:
+        top = {k: sharding.tree_map(sharding.full_tensor, v)
+               for k, v in top.items()}
+    else:
+        local, specs = sharding.split_tree(top)
+        top = sharding.gather_tree(local, tp_specs(local, specs,
+                                                   tp.model_axis), tp.mesh)
+    return {**top, "blocks": params["blocks"]}
+
+
+def _tp_logits(x, head, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """The logits (B, V): under tensor parallelism from this rank's vocab
+    block of the head, gathered over the model axis."""
+    logits = layers.unembed(x, head.to(cfg.cdtype))
+    if head.shape[0] != cfg.vocab:
+        logits = sharding.all_gather(logits, ctx.tp.mesh, ctx.tp_axis, -1)
+    return logits
+
+
+def _tp_embed(token, params, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """The embedded tokens: under tensor parallelism from this rank's
+    vocab block, a partial summed over the model axis."""
+    table = params["embed"]
+    if table.shape[0] == cfg.vocab:
+        return layers.embed(token, table).to(cfg.cdtype)
+    x = layers.embed_block(token, table,
+                           ctx.tp_index * table.shape[0]).to(cfg.cdtype)
+    return sharding.tp_leave(x, ctx)
 
 
 def _owner_write(buf: torch.Tensor, at: torch.Tensor,
@@ -221,20 +251,34 @@ def _head_block(t: torch.Tensor, heads, n: int) -> torch.Tensor:
 
 def _dense_attn(p, h, x, blocks, pre_split, i: int, sbi: int, pos,
                 positions, cfg: ModelConfig, pol, beat_pol, fuse: bool,
-                shard, heads=None):
+                shard, heads=None, rl=None):
     """One attention position of :func:`decode_step`: project, append the
     beat at ``pos % Sc`` (on a sequence-sharded leaf, ``shard`` set: only
     on the rank whose block holds the slot), split, attend; returns the
     new residual stream.  ``heads`` (a ``vx.Shard`` on the KV-head axis
     of the cache leaves, which then hold this rank's heads): the rank
     appends and attends with its block of the KV heads and their query
-    heads, and the heads' outputs are gathered before ``wo``."""
+    heads, and the heads' outputs are gathered before ``wo``.  Under
+    tensor parallelism (``rl.tp``, the layer's weights this rank's
+    blocks) q, k and v come from ``attention.qkv_project_tp``: with
+    ``heads`` the rank's own query and KV heads, else every head (the
+    query columns gathered, the beat summed); the output leaves through
+    the rank's ``wo`` rows, summed over the model axis."""
     B = x.shape[0]
-    q, k, v, kv = attention.qkv_project(
-        p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-        positions, cfg.rope_theta, policy=beat_pol)
-    q = _head_block(q, heads, cfg.n_heads)
-    k, v, kv = (_head_block(t, heads, cfg.n_kv_heads) for t in (k, v, kv))
+    tp = getattr(rl, "tp", None) is not None and \
+        p["attn"]["wo"].shape[0] != cfg.n_heads * cfg.hd
+    if tp:
+        q, k, v, kv = attention.qkv_project_tp(
+            p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            positions, cfg.rope_theta, rl, policy=beat_pol,
+            all_heads=heads is None)
+    else:
+        q, k, v, kv = attention.qkv_project(
+            p["attn"], h[:, None], cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+            positions, cfg.rope_theta, policy=beat_pol)
+        q = _head_block(q, heads, cfg.n_heads)
+        k, v, kv = (_head_block(t, heads, cfg.n_kv_heads)
+                    for t in (k, v, kv))
     if shard is not None:
         lay = sharding.select(blocks[f"pos{i}"], sbi)     # (B, Sc, K, 2D)
         kvc, base, _ = sharding.owned_block(lay, 1)
@@ -267,6 +311,13 @@ def _dense_attn(p, h, x, blocks, pre_split, i: int, sbi: int, pos,
     eff_len = torch.clamp(pos + 1, max=sc)
     out = attention.decode_attention(q[:, 0], k_all, v_all, eff_len,
                                      window=None, shard=shard)
+    if tp:
+        o, wo = out.reshape(B, -1), p["attn"]["wo"]
+        if o.shape[-1] != wo.shape[0]:      # every head: this rank's rows
+            n = wo.shape[0]
+            o = o[:, rl.tp_index * n:(rl.tp_index + 1) * n]
+        # the parts in float32, rounded once after the sum
+        return x + sharding.tp_leave(o.float() @ wo.float(), rl).to(x.dtype)
     if heads is not None:
         out = sharding.all_gather(out, heads.mesh, heads.axes, 1)
     return x + (out.reshape(B, cfg.n_heads * cfg.hd)
@@ -312,12 +363,12 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
         from repro_torch.models import encdec
         return encdec.decode_step(params, cache, token, cfg, ctx,
                                   kv_shard=kv_shard, head_shard=head_shard)
-    params = _whole(params)
+    params = _whole(params, ctx)
     fuse = cfg.step_fusion if fuse is None else fuse
     pol = cfg.vx_policy
     B = token.shape[0]
     pos = cache["len"]
-    x = layers.embed(token, params["embed"]).to(cfg.cdtype)
+    x = _tp_embed(token, params, cfg, ctx)
     attn_pos = [i for i, k in enumerate(cfg.block_pattern) if k == "attn"]
     blocks = cache["blocks"]
     if kv_shard is not None and kv_shard.axis != -3:
@@ -364,7 +415,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
                 x = _dense_attn(p, h, x, blocks, pre_split, i, sbi, pos,
                                 positions, cfg, pol, beat_pol, fuse,
                                 kv_shard if i in sharded else None,
-                                head_shard)
+                                head_shard, ctx)
             if cfg.pos_has_ffn(i):
                 x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, i,
                                    policy=ffn_pol)
@@ -372,8 +423,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
 
     x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = layers.unembed(x, head.to(cfg.cdtype))
-    return logits, {"len": pos + 1, "blocks": blocks}
+    return _tp_logits(x, head, cfg, ctx), {"len": pos + 1, "blocks": blocks}
 
 
 def pages_per_seq(max_len: int, page_size: int) -> int:

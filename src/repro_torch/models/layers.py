@@ -6,6 +6,15 @@ Port of ``repro``'s ``models/layers.py``: ``rms_norm`` and
 ``unembed``, ``glu_ffn`` (fused and unfused), the GELU ``mlp_ffn`` and the
 seeded ``init_glu`` / ``init_mlp`` (the reference's shapes and scales,
 drawn from a ``torch.Generator``).
+
+Tensor parallelism (``models/transformer.py``) hands these layers a
+rank's blocks as they are: ``glu_ffn`` / ``mlp_ffn`` on a block of ``wi``
+(or ``wg`` / ``wu``) columns and the matching ``wo`` rows compute their
+part of the output (the fused ``wi`` interleaves gate and up column by
+column, so a block of an even count of columns holds whole pairs and its
+FIELD=2 split runs on the block), ``unembed`` on a block of vocab rows
+that block of the logits; :func:`embed_block` looks up a block of the
+vocab.
 """
 from __future__ import annotations
 
@@ -54,17 +63,37 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
 
 
+def embed_block(tokens: torch.Tensor, table: torch.Tensor,
+                base: int) -> torch.Tensor:
+    """The lookup on a block of the vocab: ``table`` holds rows ``[base,
+    base + n)``; a token outside them looks up zeros (a partial of the
+    whole lookup, which a sum over the blocks completes exactly)."""
+    idx = tokens.long() - base
+    hit = (idx >= 0) & (idx < table.shape[0])
+    return torch.where(hit[..., None], table[idx.clamp(0, table.shape[0] - 1)],
+                       0)
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
-    """Logits = x @ table^T (tied or untied head)."""
+    """Logits = x @ table^T (tied or untied head); on a block of the
+    vocab's rows, that block of the logits."""
     return x @ table.transpose(0, 1)
 
 
+def _out(h: torch.Tensor, wo: torch.Tensor, out_dtype) -> torch.Tensor:
+    if out_dtype is None:
+        return h @ wo
+    return h.to(out_dtype) @ wo.to(out_dtype)
+
+
 def glu_ffn(params, x: torch.Tensor, *, fused: bool = False,
-            policy=None) -> torch.Tensor:
+            policy=None, out_dtype=None) -> torch.Tensor:
     """SwiGLU. params: {'wi': (d, 2f) or {'wg','wu'}: (d, f), 'wo': (f, d)}.
 
     The fused path emits gate/up interleaved along the feature dim from a
-    single matmul and splits them with the FIELD=2 segment load."""
+    single matmul and splits them with the FIELD=2 segment load.
+    ``out_dtype`` computes the ``wo`` product in that dtype (a partial
+    sum's part, left unrounded)."""
     if fused:
         gu = x @ params["wi"]               # (..., 2f) interleaved AoS
         gate, up = vx.transpose(vx.Segment(n=gu.shape[-1], fields=2), gu,
@@ -72,13 +101,14 @@ def glu_ffn(params, x: torch.Tensor, *, fused: bool = False,
     else:
         gate = x @ params["wg"]
         up = x @ params["wu"]
-    return (F.silu(gate) * up) @ params["wo"]
+    return _out(F.silu(gate) * up, params["wo"], out_dtype)
 
 
-def mlp_ffn(params, x: torch.Tensor) -> torch.Tensor:
+def mlp_ffn(params, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """2-matmul GELU MLP (GPT-BigCode / whisper style); the tanh form, as
     the reference's ``jax.nn.gelu(approximate=True)``."""
-    return F.gelu(x @ params["wi"], approximate="tanh") @ params["wo"]
+    return _out(F.gelu(x @ params["wi"], approximate="tanh"), params["wo"],
+                out_dtype)
 
 
 def init_glu(d: int, f: int, g: torch.Generator, *, fused: bool, dtype,

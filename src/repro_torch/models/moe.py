@@ -32,19 +32,21 @@ result sharded on it), else a ``psum``.  The aux loss is a per-data-shard
 estimate averaged with ``pmean`` over the data axes.
 
 The mesh forward (``models/transformer.forward`` / ``loss_fn`` under a
-mesh, the sharded train step, the batch-sharded serve step) hands its
-layers a ``dist.sharding.RankLocal`` context whose ``experts`` is the
-mesh's: the layer's expert banks arrive as the rank's resident block of
-experts (never gathered) and the activations replicated over the model
-axis, and :func:`moe_layer` runs the same expert-parallel body on the
-rank's batch block under autograd.  The routing (and so the aux loss) is
-computed alike on every rank of a model group; the tokens and the
-routing weights enter the rank's experts through
-``dist.sharding.sum_grads`` (identity forward, ``psum`` backward) and
-the partial outputs leave through ``dist.sharding.global_sum`` (``psum``
-forward, identity backward), so the cotangents that reach ``x`` and the
-router through the experts are summed over the model axis, the aux's is
-counted once and each bank's stays on its owner.
+mesh, the sharded train step, the sharded serve steps) hands its layers
+a ``dist.sharding.RankLocal`` context whose ``experts`` is the mesh's:
+the layer's expert banks arrive as the rank's resident block of experts
+(never gathered), and :func:`moe_layer` runs the same expert-parallel
+body on the rank's block under autograd (:func:`_rank_experts`).  Under
+tensor parallelism the residual stream is the rank's block of the
+sequence: the tokens enter through ``dist.sharding.gather_seq`` (every
+rank of a model group then routes the data block's tokens alike), the
+router's row block makes a partial of the logits summed over the model
+axis, and the partial outputs leave through ``scatter_seq`` (the
+reference's ``psum_scatter`` over the sequence) or, where the model axis
+does not divide the sequence, ``all_sum``.  Every rank's cotangent is
+its share (``dist/sharding.py``), so the aux's and the routing weights'
+cotangents reach the tokens and the router once, summed by the entry's
+transpose and the train step, and each bank's stays on its owner.
 :func:`expert_parallel_plain` is the one-process oracle of that function
 (each data block alone, the model shards one after another).
 """
@@ -177,15 +179,17 @@ class Dispatch(NamedTuple):
 
 
 def route(x: torch.Tensor, router: torch.Tensor, spec: MoESpec,
-          n_shards: int = 1, my: int = 0) -> Dispatch:
+          n_shards: int = 1, my: int = 0, logits=None) -> Dispatch:
     """Top-k routing, the load-balance + z losses, unit selection and the
     EARTH compaction of ``moe_ffn_local`` (this device holds experts
-    ``[my * E / n_shards, (my + 1) * E / n_shards)``)."""
+    ``[my * E / n_shards, (my + 1) * E / n_shards)``).  ``logits`` (T, E)
+    float32, when given, are the router's product of ``x``."""
     T = x.shape[0]
     E, k = spec.n_experts, spec.top_k
     e_loc = E // n_shards
 
-    logits = (x @ router.to(x.dtype)).float()                    # (T, E)
+    if logits is None:
+        logits = (x @ router.to(x.dtype)).float()                # (T, E)
     probs = torch.softmax(logits, dim=-1)
     topw, topi = _top_k(probs, k)                                 # (T, k)
     topw = topw / torch.sum(topw, dim=-1, keepdim=True)
@@ -251,18 +255,25 @@ def _experts(x: torch.Tensor, weight: torch.Tensor, r: Dispatch, wg, wu,
 
 
 def _rank_experts(params, x: torch.Tensor, spec: MoESpec,
-                  ctx) -> tuple[torch.Tensor, torch.Tensor]:
-    """The expert-parallel body on this rank's batch block ``x`` (B, S, d),
-    replicated over the model axis of ``ctx`` (the mesh's ``ShardCtx``),
-    under autograd.  ``params``' banks are the rank's block of experts
-    (a whole bank is sliced to it).  Routes the block's tokens over all
-    experts (the aux the block's estimate), runs the units of its own
-    experts (capacity per shard) and sums the partial outputs over the
-    model axis with a ``psum`` (the activations are replicated there, so
-    the reference's ``psum_scatter`` over the sequence would only split
-    what every rank holds)."""
+                  rl) -> tuple[torch.Tensor, torch.Tensor]:
+    """The expert-parallel body on this rank's block ``x`` of the batch
+    (and, with ``rl.seq``, of the sequence) under autograd; ``rl`` is the
+    mesh forward's ``RankLocal`` (``rl.experts`` the mesh's context).
+    ``params``' banks are the rank's block of experts (a whole bank is
+    sliced to it); the router is whole or its block of rows (its product
+    a partial sum over the model axis).  The tokens enter whole
+    (``sharding.gather_seq`` of the sequence blocks); each rank routes
+    them over all experts (the aux the block's estimate), runs the units
+    of its own experts (capacity per shard), and the partial outputs
+    leave through ``sharding.scatter_seq`` over the sequence (the
+    reference's ``psum_scatter``), or ``all_sum`` where the model axis
+    does not split it.  Each rank's cotangent is its share
+    (``dist/sharding.py``): the routing that every rank computes alike
+    passes its share of the aux's and of the routing weights' cotangents
+    back to the tokens and the router, which the entry and the train
+    step sum."""
     from repro_torch.dist import sharding
-    B, S, d = x.shape
+    ctx = rl.experts
     mesh, m_ax, m = ctx.mesh, ctx.model_axis, ctx.model_size
     my = sharding.axis_index(mesh, m_ax)
     e_loc = spec.n_experts // m
@@ -273,18 +284,27 @@ def _rank_experts(params, x: torch.Tensor, spec: MoESpec,
     for k in ("wg", "wu", "wo"):
         w = params[k]
         if w.shape[0] == spec.n_experts and m > 1:
-            # a bank held whole: its gradient is every rank's block
-            w = sharding.sum_grads(w, mesh, m_ax)[my * e_loc:
-                                                  (my + 1) * e_loc]
+            w = w[my * e_loc:(my + 1) * e_loc]     # a bank held whole
         elif w.shape[0] != e_loc:
             raise ValueError(f"expert bank {k} holds {w.shape[0]} experts; "
                              f"a rank of a model axis of {m} holds {e_loc}")
         banks.append(w)
+    seq = getattr(rl, "seq", False)
+    if seq:
+        x = sharding.gather_seq(x, mesh, m_ax, 1)
+    B, S, d = x.shape
     xt = x.reshape(B * S, d)
-    r = route(xt, params["router"], spec, m, my)
-    y = _experts(sharding.sum_grads(xt, mesh, m_ax),
-                 sharding.sum_grads(r.weight, mesh, m_ax), r, *banks, spec)
-    return sharding.global_sum(y, mesh, m_ax).reshape(B, S, d), r.aux
+    router, logits = params["router"], None
+    if router.shape[0] != d:                       # its block of rows
+        n = router.shape[0]
+        logits = sharding.all_sum(
+            (xt[:, my * n:(my + 1) * n] @ router.to(xt.dtype)).float(),
+            mesh, m_ax)
+    r = route(xt, router, spec, m, my, logits)
+    y = _experts(xt, r.weight, r, *banks, spec).reshape(B, S, d)
+    if seq:
+        return sharding.scatter_seq(y, mesh, m_ax, 1), r.aux
+    return sharding.all_sum(y.float(), mesh, m_ax).to(y.dtype), r.aux
 
 
 def expert_parallel_plain(params, x: torch.Tensor, spec: MoESpec, data: int,
@@ -328,7 +348,7 @@ def moe_layer(params, x: torch.Tensor, spec: MoESpec,
     holds."""
     from repro_torch.dist.sharding import resident_axis
     if resident_axis(ctx) is not None:
-        return _rank_experts(params, x, spec, ctx.experts)
+        return _rank_experts(params, x, spec, ctx)
     B, S, d = x.shape
     m_ax = ctx.model_axis if ctx is not None else None
     m_sz = ctx.model_size if ctx is not None else 1

@@ -29,27 +29,46 @@ superblocks like the KV beats).  ``cfg.remat`` maps to
 reference's matmul-saving policy, recomputes everything as ``"full"``
 does), any remat around each position of a multi-position superblock,
 and every :func:`chunked_xent` chunk.  :func:`superblock` gathers
-weights placed on a mesh a layer at a time (the sharded decode steps);
+weights placed on a mesh a layer at a time (the sharded decode steps).
+
 Under a ``ShardCtx`` with a mesh, :func:`forward`, :func:`loss_fn` and
 :func:`chunked_xent` run one SPMD program on every rank: each rank takes
 its block of the batch over the data axes (a ``DTensor`` so placed, or a
-plain full batch it slices), gathers the weights whole
-(``dist.sharding.gather_tree``: the embedding, norm and head once, a
-superblock's weights inside its checkpoint, so the backward gathers them
-again) and runs the one-device layers on them
-(``dist.sharding.RankLocal``).  The MoE expert banks are not gathered:
-each rank keeps its block of experts over the model axis, and the MoE
-layer runs expert-parallel (models/moe.py).  The reference's sharding
-constraints are placement hints and change no value.  Activations stay
-replicated over the model axis (every rank of one data block computes the same ones; the
-reference's Megatron-SP sequence sharding of the residual stream is a
-memory choice the port does not make).  The loss is the global
-``psum(num) / max(psum(den), 1)`` over the data axes.  Gradients
-(``loss.backward()``) reach each rank's own block of a ``DTensor`` leaf:
-the transpose of the weight gather takes the owned slice (model-axis
-replicas are not summed), and the transpose of the loss's ``psum`` hands
-each rank its partial's cotangent, so a rank's gradient is its data
-block's share, which ``train/step.py`` sums over the data axes.
+plain full batch it slices) and runs the layers on a
+``dist.sharding.RankLocal`` context (:func:`rank_ctx`).  The MoE expert
+banks are never gathered: each rank keeps its block of experts over the
+model axis, and the MoE layer runs expert-parallel (models/moe.py).
+
+Tensor parallelism (a decoder on a model axis of more than one rank,
+:func:`tp_on`): each rank keeps the model-axis blocks the reference's
+rules placed (:func:`tp_specs`; gathered over the data axes only, where
+FSDP splits them) and computes Megatron's split of each layer: ``wq``
+and the FFN's ``wi`` (``wg`` / ``wu``) column-parallel, ``wo`` and
+``wkv`` row-parallel (the partial beat summed before its split), the
+attention head-parallel on the rank's query heads (with their GQA
+groups' KV heads; every head, the query columns gathered, where the
+axis does not divide the heads), the embedding on its vocab rows, the
+head's logits and the cross entropy vocab-parallel (``lse = m +
+log(psum(sum(exp(logits - m))))``, ``m`` the ``pmax`` of the detached
+logits, the label's logit a ``psum`` of the one-hot sum; no
+whole-vocab gather).  Where the model axis divides the sequence the
+residual stream is the rank's block of it between the layers (the
+reference's Megatron-SP): a layer enters through
+``sharding.gather_seq`` and leaves through ``scatter_seq``; else every
+rank holds the whole stream and a layer leaves through ``all_sum``.  A
+layer whose weights the rules did not place as its split needs (an odd
+count of ``wi`` columns a rank, which would split a (gate, up) pair; a
+recurrent mixer) takes them whole and runs on the whole sequence,
+keeping its block of the output.  Every rank's cotangent is its share
+(``dist/sharding.py``): a block's gradient is whole for the block, a
+replicated leaf's is partial and the train step sums it over the model
+axis, and :func:`rank_loss` passes each rank its share of the loss
+(``sharding.share``).  Whisper's encoder-decoder gathers its weights
+whole, its activations replicated over the model axis (every rank of a
+data block computes the same ones; the gather's transpose takes the
+owned slice).  The loss is the global ``psum(num) / max(psum(den), 1)``
+over the data axes; a rank's gradient is its data block's share, which
+``train/step.py`` sums over the data axes.
 """
 from __future__ import annotations
 
@@ -280,13 +299,110 @@ def tree_map(fn, tree, *rest):
 def superblock(params_blocks: dict, sbi: int, ctx=None) -> dict:
     """Superblock ``sbi``'s parameters: views into the stacked leaves.
     Leaves placed on a mesh (``DTensor`` s, the sharded serve step's
-    weights) are gathered whole here, a superblock at a time, when it
-    runs; under the mesh forward's ``RankLocal`` context the expert banks
-    stay the rank's resident block (``dist.sharding.resident_axis``)."""
+    weights) are gathered here, a superblock at a time, when it runs:
+    under a tensor-parallel ``RankLocal`` (``ctx.tp``) the leaves its
+    layers take as blocks (the expert banks among them) stay this rank's
+    model-axis blocks (:func:`tp_specs`), every other leaf whole."""
     from repro_torch.dist import sharding
-    return sharding.full_tree(tree_map(lambda a: sharding.select(a, sbi),
-                                       params_blocks),
-                              experts=sharding.resident_axis(ctx))
+    sb = tree_map(lambda a: sharding.select(a, sbi), params_blocks)
+    tp = getattr(ctx, "tp", None)
+    if tp is not None:
+        local, specs = sharding.split_tree(sb)
+        return sharding.gather_tree(local, tp_specs(local, specs,
+                                                    tp.model_axis), tp.mesh)
+    return sharding.full_tree(sb)
+
+
+def _model_dim(x, spec, axis):
+    from repro_torch.dist import sharding
+    for d, e in enumerate(sharding._norm(spec, x.ndim)):
+        if axis in sharding._names(e):
+            return d
+    return None
+
+
+def tp_specs(tree, specs, axis: str):
+    """``specs`` (each leaf's :class:`P`) with ``axis`` taken off the
+    leaves the tensor-parallel layers take as this rank's blocks, so that
+    gathered by them those leaves keep their model-axis block (and are
+    gathered over the data axes only) and every other leaf comes whole.
+    A layer takes its weights as blocks where the parameter rules placed
+    them as its split needs, else all of them whole:
+
+    * attention: ``wq`` on its columns, ``wo`` on its rows, ``wkv`` on
+      its rows or unsplit;
+    * the SwiGLU: ``wi`` on its columns with an even count of them (whole
+      (gate, up) pairs of the interleaved beat) or ``wg`` / ``wu`` on
+      theirs, ``wo`` on its rows; the GELU MLP: ``wi`` columns, ``wo``
+      rows;
+    * MoE: the banks on their expert dim, the router on its rows;
+    * the embedding and the untied head on their vocab rows.
+
+    ``tree`` holds one superblock's leaves (no stacked dim) or the
+    top-level leaves."""
+    from repro_torch.dist import sharding
+    pairs = {"/".join(p): xs for (p, _), xs in zip(
+        sharding._leaves_with_path(tree), sharding._zip_leaves(tree, specs))}
+
+    def md(path):
+        return _model_dim(*pairs[path], axis) if path in pairs else None
+
+    keep = set()
+    for path in pairs:
+        head, _, leaf = path.rpartition("/")
+        pre = head + "/" if head else ""
+        kind = head.rpartition("/")[2]
+        if kind == "attn" and leaf == "wq":
+            if md(path) == 1 and md(pre + "wo") == 0 and \
+                    md(pre + "wkv") in (0, None):
+                keep |= {path, pre + "wo"} | (
+                    {pre + "wkv"} if md(pre + "wkv") == 0 else set())
+        elif kind in ("ffn", "mlp") and leaf == "wo" and md(path) == 0:
+            cols = [pre + k for k in ("wi", "wg", "wu") if pre + k in pairs]
+            fused = kind == "ffn" and cols == [pre + "wi"]
+            if cols and all(md(c) == 1 for c in cols) and not (
+                    fused and pairs[cols[0]][0].shape[1] % 2):
+                keep |= {path, *cols}
+        elif kind == "moe" and md(path) == 0 and (
+                leaf == "router" or sharding.is_expert_bank(path,
+                                                            pairs[path][0]
+                                                            .ndim)):
+            keep.add(path)
+        elif not head and leaf in ("embed", "lm_head") and md(path) == 0:
+            keep.add(path)
+
+    def one(path, leaf):
+        spec = pairs[path][1]
+        if path not in keep:
+            return spec
+        rest = [tuple(a for a in sharding._names(e) if a != axis)
+                for e in sharding._norm(spec, leaf.ndim)]
+        return sharding.P(*[r if r else None for r in rest])
+
+    return sharding.tree_paths(tree, one)
+
+
+def tp_on(cfg, ctx) -> bool:
+    """Whether the mesh forward and the sharded decode steps run
+    tensor-parallel under ``ctx``: a model axis of more than one rank,
+    and a decoder-only config (whisper's encoder-decoder gathers its
+    weights whole)."""
+    from repro_torch.dist.sharding import meshed
+    return meshed(ctx) and ctx.model_size > 1 and cfg.encoder is None
+
+
+def rank_ctx(ctx, cfg, seq_len: int):
+    """The ``RankLocal`` the mesh forward and the sharded decode steps hand
+    their layers: ``experts`` always the mesh's context; under tensor
+    parallelism (:func:`tp_on`) ``tp`` too, and ``seq`` where the model
+    axis divides the sequence (the residual stream then sequence-sharded
+    between the layers, Megatron-SP)."""
+    from repro_torch.dist.sharding import RankLocal
+    if not tp_on(cfg, ctx):
+        return RankLocal(mesh=None, experts=ctx)
+    m = ctx.model_size
+    return RankLocal(mesh=None, experts=ctx, tp=ctx,
+                     seq=seq_len % m == 0 and seq_len >= m)
 
 
 # ---------------------------------------------------------------------------
@@ -314,21 +430,41 @@ def cast_params(params, cfg: ModelConfig, ctx=None):
     return walk(params, "")
 
 
+def _tp(ctx):
+    return getattr(ctx, "tp", None) is not None
+
+
 def _ffn_apply(p, x, cfg: ModelConfig, ctx, i: int, *, policy=None):
     """``policy`` overrides cfg.vx_policy for the GLU field split (the step
-    scheduler keeps single-token splits on the plain path)."""
+    scheduler keeps single-token splits on the plain path).  Under a
+    tensor-parallel ``RankLocal`` the FFN runs on the whole sequence
+    (``sharding.tp_enter``): on its blocks of ``wi`` (or ``wg`` / ``wu``)
+    columns and ``wo`` rows it computes a partial sum, which leaves
+    through ``sharding.tp_leave``; on whole weights the whole output,
+    of which it keeps its block."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not cfg.pos_has_ffn(i):
         return x, aux
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     if cfg.moe_pattern[i]:
         y, aux = moe_layer(p["moe"], h, cfg.moe, ctx)
-    elif cfg.mlp == "swiglu":
-        y = layers.glu_ffn(p["ffn"], h, fused=cfg.fused_glu,
+        return x + y, aux
+    w = p["ffn"] if cfg.mlp == "swiglu" else p["mlp"]
+    partial = _tp(ctx) and w["wo"].shape[0] != cfg.d_ff
+    # a single position's part of the sum (the decode steps) in float32:
+    # the sum then rounds once, as the one-device product does
+    od = torch.float32 if partial and h.shape[1] == 1 else None
+    if _tp(ctx):
+        from repro_torch.dist.sharding import tp_enter, tp_leave
+        h = tp_enter(h, ctx)
+    if cfg.mlp == "swiglu":
+        y = layers.glu_ffn(w, h, fused=cfg.fused_glu,
                            policy=policy if policy is not None
-                           else cfg.vx_policy)
+                           else cfg.vx_policy, out_dtype=od)
     else:
-        y = layers.mlp_ffn(p["mlp"], h)
+        y = layers.mlp_ffn(w, h, out_dtype=od)
+    if _tp(ctx):
+        y = tp_leave(y, ctx, partial=partial).to(x.dtype)
     return x + y, aux
 
 
@@ -343,6 +479,8 @@ def _attn_apply(p, x, cfg: ModelConfig, ctx, i: int, positions,
     reference's arm does (whisper's decoder runs models/encdec.py's own
     layer)."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    if _tp(ctx):
+        return _tp_attn(p, h, x, cfg, ctx, i, positions, mode)
     q, k, v, kv = attention.qkv_project(
         p["attn"], h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions,
         cfg.rope_theta, policy=cfg.vx_policy)
@@ -358,6 +496,43 @@ def _attn_apply(p, x, cfg: ModelConfig, ctx, i: int, positions,
             x, p["ln_cross"], cfg.norm_eps), ck, cv, cfg.n_heads,
             cfg.n_kv_heads, cfg.hd, ctx=ctx)
     return x, (kv if mode == "prefill" else None)
+
+
+def _tp_attn(p, h, x, cfg: ModelConfig, rl, i: int, positions, mode: str):
+    """:func:`_attn_apply` under a tensor-parallel ``RankLocal``: the
+    whole sequence of ``h`` attended on this rank's heads
+    (``attention.qkv_project_tp`` on its ``wq`` columns and ``wkv``
+    rows), its ``wo`` rows a partial sum leaving through
+    ``sharding.tp_leave``; on whole weights every head, of whose output
+    the rank keeps its block.  A prefill's beats come back with every KV
+    head."""
+    from repro_torch.dist import sharding
+    a = p["attn"]
+    h = sharding.tp_enter(h, rl)
+    B, S = h.shape[:2]
+    block = a["wo"].shape[0] != cfg.n_heads * cfg.hd
+    if block:
+        q, k, v, kv = attention.qkv_project_tp(
+            a, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions,
+            cfg.rope_theta, rl, policy=cfg.vx_policy)
+    else:
+        q, k, v, kv = attention.qkv_project(
+            a, h, cfg.n_heads, cfg.n_kv_heads, cfg.hd, positions,
+            cfg.rope_theta, policy=cfg.vx_policy)
+    out = attention.flash_attention(q, k, v, causal=True,
+                                    window=cfg.window_pattern[i],
+                                    q_chunk=min(512, S),
+                                    kv_chunk=min(512, S))
+    o = out.reshape(B, S, -1)
+    if block and o.shape[-1] != a["wo"].shape[0]:
+        n = a["wo"].shape[0]               # every head: this rank's rows
+        o = o[..., rl.tp_index * n:(rl.tp_index + 1) * n]
+    x = x + sharding.tp_leave(o @ a["wo"], rl, partial=block)
+    if mode != "prefill":
+        return x, None
+    if kv.shape[2] != cfg.n_kv_heads:
+        kv = sharding.all_gather(kv, rl.tp.mesh, rl.tp_axis, 2)
+    return x, kv
 
 
 def superblock_apply(sb_p, x, cfg: ModelConfig, ctx, positions, *,
@@ -416,8 +591,15 @@ def _position_apply(p, x, positions, *, cfg: ModelConfig, ctx, i: int,
         update = _ring_trim(kv, cfg.window_pattern[i]) if mode == "prefill" \
             else None
     elif kind in RECURRENT:
-        y, state = _recurrent_forward(
-            p, layers.rms_norm(x, p["ln1"], cfg.norm_eps), cfg, kind)
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        if _tp(ctx):
+            # the whole sequence through the whole weights; the rank
+            # keeps its block of the output
+            from repro_torch.dist.sharding import tp_enter, tp_leave
+            y, state = _recurrent_forward(p, tp_enter(h, ctx), cfg, kind)
+            y = tp_leave(y, ctx, partial=False)
+        else:
+            y, state = _recurrent_forward(p, h, cfg, kind)
         x = x + y
         update = state if mode == "prefill" else None
     else:
@@ -437,11 +619,27 @@ def _ring_trim(kv: torch.Tensor, window: int | None) -> torch.Tensor:
 
 
 def _embed_inputs(params, batch, cfg: ModelConfig, ctx) -> torch.Tensor:
-    x = layers.embed(batch["tokens"], params["embed"]).to(cfg.cdtype)
+    """The embedded tokens (and the VLM stub's patches).  Under a
+    tensor-parallel ``RankLocal`` the residual stream's block: from this
+    rank's vocab rows of the table a partial sum (each token's row on
+    the rank that holds it, zeros elsewhere) leaving through
+    ``sharding.tp_leave``, or the whole lookup cut to the block."""
+    table = params["embed"]
+    block = _tp(ctx) and table.shape[0] != cfg.vocab
+    if block:
+        x = layers.embed_block(batch["tokens"], table,
+                               ctx.tp_index * table.shape[0])
+    else:
+        x = layers.embed(batch["tokens"], table)
+    x = x.to(cfg.cdtype)
     if cfg.vlm_patches and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(cfg.cdtype)
         x = x.clone()
-        x[:, :pe.shape[1]] = pe
+        # a partial sum: the patches counted on one rank
+        x[:, :pe.shape[1]] = pe if not block or ctx.tp_index == 0 else 0
+    if _tp(ctx):
+        from repro_torch.dist.sharding import tp_leave
+        x = tp_leave(x, ctx, partial=block)
     return x
 
 
@@ -468,8 +666,8 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
     if meshed(ctx):
         from repro_torch.dist import sharding
         local, specs = sharding.split_tree(params)
-        out, aux, states, _ = _rank_forward(local, specs, batch, cfg, ctx,
-                                            mode)
+        out, aux, states, _, _ = _rank_forward(local, specs, batch, cfg,
+                                               ctx, mode)
         return (_place_batch(out, ctx, 0), aux,
                 {k: sharding.tree_map(
                     lambda a, k=k: _place_batch(a, ctx,
@@ -527,46 +725,57 @@ def _place_batch(x, ctx, dim: int):
 
 
 def _rank_superblock(sb_local, x, *, specs, ctx, rl, cfg, positions, mode):
-    """Gather superblock weights whole, the expert banks excepted (each
-    rank keeps its block of experts), and apply them (run inside the
-    superblock's checkpoint: the backward gathers them again)."""
+    """Gather a superblock's weights by ``specs`` (under tensor
+    parallelism :func:`tp_specs`: the layers' blocks kept) and apply
+    them (run inside the superblock's checkpoint: the backward gathers
+    them again)."""
     from repro_torch.dist import sharding
     sb_p = sharding.gather_tree(sb_local, specs, ctx.mesh,
-                                reduce=ctx.data_axes)
+                                reduce=_reduce_axes(ctx, rl))
     return superblock_apply(sb_p, x, cfg, rl, positions, mode=mode)
+
+
+def _reduce_axes(ctx, rl) -> tuple:
+    """The axes over which a rank's cotangent of a gathered weight is a
+    partial: the data axes; under tensor parallelism the model axis too
+    (each rank's cotangent is its share)."""
+    return ctx.data_axes + ((ctx.model_axis,) if rl.tp is not None else ())
 
 
 def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
     """:func:`forward` on this rank: ``local`` holds the rank's blocks of
     the params (``specs`` their placement), ``batch`` the global batch or
     its placed blocks.  Returns the rank's (logits or hidden, aux over
-    the data axes, cache states, the gathered top-level weights) as
-    plain tensors."""
+    the data axes, cache states, the gathered top-level weights, its
+    ``RankLocal``) as plain tensors; the logits and hidden states whole
+    (every position, every vocab entry)."""
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import P
     mesh, reduce = ctx.mesh, ctx.data_axes
-    rl = sharding.RankLocal(mesh=None, experts=ctx)
     batch = {k: _batch_block(v, ctx) for k, v in batch.items()}
     local = cast_params(local, cfg)
+    B, S = batch["tokens"].shape
+    rl = rank_ctx(ctx, cfg, S)
     if cfg.encoder is not None:
         from repro_torch.models import encdec
         whole = sharding.gather_tree(local, specs, mesh, reduce=reduce)
-        return encdec.forward(whole, batch, cfg, rl, mode=mode) + (whole,)
-    top = [k for k in local if k != "blocks"]
-    whole = sharding.gather_tree({k: local[k] for k in top},
-                                 {k: specs[k] for k in top}, mesh,
-                                 reduce=reduce)
+        return encdec.forward(whole, batch, cfg, rl, mode=mode) + (whole,
+                                                                    rl)
+    top = {k: local[k] for k in local if k != "blocks"}
+    top_specs = {k: specs[k] for k in top}
+    if rl.tp is not None:
+        top_specs = tp_specs(top, top_specs, ctx.model_axis)
+    whole = sharding.gather_tree(top, top_specs, mesh,
+                                 reduce=_reduce_axes(ctx, rl))
     x = _embed_inputs(whole, batch, cfg, rl)
-    B, S = batch["tokens"].shape
     positions = torch.arange(S, device=x.device).expand(B, S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat in ("full", "dots") and torch.is_grad_enabled()
     sb_specs = sharding.tree_map(lambda a, sp: P(*sp[1:]), local["blocks"],
                                  specs["blocks"])
-    if sharding.resident_axis(rl) is not None:
-        sb_specs = sharding.resident_expert_specs(
-            tree_map(lambda a: a[0], local["blocks"]), sb_specs,
-            ctx.model_axis)
+    if rl.tp is not None:
+        sb_specs = tp_specs(tree_map(lambda a: a[0], local["blocks"]),
+                            sb_specs, ctx.model_axis)
     fn = functools.partial(_rank_superblock, specs=sb_specs, ctx=ctx, rl=rl,
                            cfg=cfg, positions=positions, mode=mode)
     states = []
@@ -582,12 +791,18 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
         aux = sharding.global_sum(aux, mesh, reduce) / ctx.data_size
     cache_states = _stack(states) if mode == "prefill" else {}
     if mode == "prefill":
-        x = x[:, -1:]
-    x = layers.rms_norm(x, whole["final_norm"], cfg.norm_eps)
+        x = sharding.tp_enter(x, rl)[:, -1:]
+        x = layers.rms_norm(x, whole["final_norm"], cfg.norm_eps)
+    else:
+        x = sharding.tp_enter(layers.rms_norm(x, whole["final_norm"],
+                                              cfg.norm_eps), rl)
     if mode == "hidden":
-        return x, aux, cache_states, whole
+        return x, aux, cache_states, whole, rl
     head = whole["embed"] if cfg.tie_embeddings else whole["lm_head"]
-    return layers.unembed(x, head.to(cfg.cdtype)), aux, cache_states, whole
+    logits = layers.unembed(x, head.to(cfg.cdtype))
+    if head.shape[0] != cfg.vocab:              # this rank's vocab block
+        logits = sharding.gather_seq(logits, mesh, ctx.model_axis, -1)
+    return logits, aux, cache_states, whole, rl
 
 
 def _whole(t, ctx):
@@ -615,9 +830,32 @@ def label_logprob_terms(logits: torch.Tensor, labels: torch.Tensor):
     return lse, ll
 
 
-def _xent_chunk(x, head, labels, w):
-    lse, ll = label_logprob_terms(layers.unembed(x, head), labels)
+def _xent_chunk(x, head, labels, w, rl=None):
+    """A chunk's sums; with ``rl`` ``head`` is this rank's vocab block."""
+    logits = layers.unembed(x, head)
+    lse, ll = (label_logprob_terms(logits, labels) if rl is None
+               else _vocab_parallel_terms(logits, labels, rl))
     return torch.sum((lse - ll) * w), torch.sum(w)
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor, rl):
+    """:func:`label_logprob_terms` on this rank's vocab block of the
+    logits (rows ``[i n, (i + 1) n)`` of the vocab): ``lse = m + log(
+    psum(sum(exp(logits - m))))`` with ``m`` the ``pmax`` of the detached
+    logits, ``ll`` the ``psum`` of the one-hot sum over the block; each in
+    float32, no whole-vocab gather."""
+    from repro_torch.dist import sharding
+    mesh, axis = rl.tp.mesh, rl.tp_axis
+    logits = logits.float()
+    n = logits.shape[-1]
+    m = sharding.pmax(torch.amax(logits.detach(), dim=-1), mesh, axis)
+    s = torch.sum(torch.exp(logits - m[..., None]), dim=-1)
+    lse = m + torch.log(sharding.all_sum(s, mesh, axis))
+    onehot = (labels - rl.tp_index * n)[..., None] == torch.arange(
+        n, dtype=labels.dtype, device=logits.device)
+    ll = sharding.all_sum(torch.sum(torch.where(onehot, logits, 0.0),
+                                    dim=-1), mesh, axis)
+    return lse, ll
 
 
 def chunked_xent(x, head, labels, w, ctx=None, *,
@@ -641,17 +879,18 @@ def chunked_xent(x, head, labels, w, ctx=None, *,
     return num / torch.clamp(den, min=1.0)
 
 
-def _global_xent(x, head, labels, w, ctx, chunk: int = 512):
+def _global_xent(x, head, labels, w, ctx, chunk: int = 512, rl=None):
     """The rank's blocks' sums, added over the data axes: every rank
-    returns the whole batch's loss."""
+    returns the whole batch's loss.  With ``rl`` ``head`` is this rank's
+    vocab block (:func:`_vocab_parallel_terms`)."""
     from repro_torch.dist import sharding
-    num, den = _xent_terms(x, head, labels, w, chunk)
+    num, den = _xent_terms(x, head, labels, w, chunk, rl)
     num = sharding.global_sum(num, ctx.mesh, ctx.data_axes)
     den = sharding.psum(den.detach(), ctx.mesh, ctx.data_axes)
     return num / torch.clamp(den, min=1.0)
 
 
-def _xent_terms(x, head, labels, w, chunk: int):
+def _xent_terms(x, head, labels, w, chunk: int, rl=None):
     """``(sum(w * (lse - ll)), sum(w))`` over the chunks of
     :func:`chunked_xent`."""
     S = x.shape[1]
@@ -662,7 +901,7 @@ def _xent_terms(x, head, labels, w, chunk: int):
     den = torch.zeros((), dtype=torch.float32, device=x.device)
     for lo in range(0, S, chunk):
         args = (x[:, lo:lo + chunk], head, labels[:, lo:lo + chunk],
-                w[:, lo:lo + chunk])
+                w[:, lo:lo + chunk], rl)
         n, d = (checkpoint(_xent_chunk, *args, use_reentrant=False)
                 if remat else _xent_chunk(*args))
         num, den = num + n, den + d
@@ -692,12 +931,19 @@ def rank_loss(local, specs, batch, cfg: ModelConfig, ctx):
     """:func:`loss_fn` under a mesh on this rank's blocks of the params
     (``local``, placed as ``specs`` says): the train step differentiates
     it with respect to ``local``."""
-    x, aux, _, whole = _rank_forward(local, specs, batch, cfg, ctx,
-                                     "hidden")
+    from repro_torch.dist import sharding
+    x, aux, _, whole, rl = _rank_forward(local, specs, batch, cfg, ctx,
+                                         "hidden")
     labels = _batch_block(batch["labels"], ctx)
     w = batch.get("loss_weight")
     w = (torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
          if w is None else _batch_block(w, ctx))
     head = whole["embed"] if cfg.tie_embeddings else whole["lm_head"]
-    loss = _global_xent(x, head.to(cfg.cdtype), labels, w, ctx)
-    return loss + aux, {"loss": loss, "aux": aux}
+    loss = _global_xent(x, head.to(cfg.cdtype), labels, w, ctx,
+                        rl=rl if head.shape[0] != cfg.vocab else None)
+    total = loss + aux
+    if rl.tp is not None:
+        # every rank of the model axis holds the same loss: each
+        # differentiates its share of it
+        total = sharding.share(total, ctx.mesh, ctx.model_axis)
+    return total, {"loss": loss, "aux": aux}

@@ -41,7 +41,7 @@ from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P
 from repro_torch.models import decode as dec
 from repro_torch.models.transformer import (ModelConfig, check_supported,
-                                            forward)
+                                            forward, rank_ctx, tp_on)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,9 +190,11 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
             if not scfg.long_context:
                 return _batch_sharded_step(params, cache, token.to(device),
                                            cfg, ctx, fuse)
-        # an encoder config dispatches to encdec.decode_step in there
-        return dec.decode_step(params, cache, token.to(device), cfg, ctx,
-                               fuse=fuse, kv_shard=kv_shard)
+        # an encoder config dispatches to encdec.decode_step in there;
+        # a decoder's layers run tensor-parallel on the mesh
+        step_ctx = rank_ctx(ctx, cfg, 1) if tp_on(cfg, ctx) else ctx
+        return dec.decode_step(params, cache, token.to(device), cfg,
+                               step_ctx, fuse=fuse, kv_shard=kv_shard)
 
     return serve_step
 
@@ -202,7 +204,7 @@ def _batch_sharded_step(params, cache: dict, token, cfg: ModelConfig, ctx,
     """One decode step on this rank's block of the batch (the cache placed
     per :func:`cache_specs`); returns the logits placed on the batch and
     the cache, its leaves updated in place."""
-    from repro_torch.dist.sharding import RankLocal, block_of, spec_of
+    from repro_torch.dist.sharding import block_of, spec_of
     mesh, m_ax = ctx.mesh, ctx.model_axis
     shards = {}
 
@@ -228,7 +230,7 @@ def _batch_sharded_step(params, cache: dict, token, cfg: ModelConfig, ctx,
         local["enc_kv"] = rank_block(cache["enc_kv"])
     tok = sharding.local_block(token, mesh, ctx.batch_spec())
     logits, new = dec.decode_step(
-        params, local, tok, cfg, RankLocal(mesh=None, experts=ctx),
+        params, local, tok, cfg, rank_ctx(ctx, cfg, 1),
         fuse=fuse, kv_shard=shards.get("kv"), head_shard=shards.get("head"))
     out = {"len": new["len"], "blocks": cache["blocks"]}
     if "enc_kv" in cache:

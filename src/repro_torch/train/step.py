@@ -18,11 +18,20 @@ taken as it is), and then:
 
 1. runs the mesh loss (``transformer.rank_loss``) on its blocks of the
    params and its block of the whole batch, whose gradient is this data
-   block's share of each weight's block (no model-axis replica counted
-   twice: the weight gather's transpose takes the owned slice);
-2. reduces the gradients over the data axes: a ``reduce_scatter`` to the
-   rank's ZeRO-1 block where the moments' spec splits the leaf over them,
-   else an ``all_reduce`` (leaves bucketed, one collective per bucket);
+   block's share of each weight's block.  Under tensor parallelism
+   (``transformer.tp_on``) it is also this rank's share over the model
+   axis: a model-axis block's gradient is whole for the block (only its
+   owner uses it; a weight gathered whole has its cotangents summed by
+   the gather's transpose), a replicated leaf's (norm gains, qk norms,
+   a recurrent mixer's unsplit weights) is partial (each rank computed
+   on its block of the sequence, or its share of the same values);
+   without it (whisper) the weight gather's transpose takes the owned
+   slice and no model-axis replica counts twice;
+2. sums the replicated leaves' gradients over the model axis under
+   tensor parallelism, then reduces the gradients over the data axes: a
+   ``reduce_scatter`` to the rank's ZeRO-1 block where the moments' spec
+   splits the leaf over them, else an ``all_reduce`` (leaves bucketed,
+   one collective per bucket);
 3. compresses the blocks (error feedback on its block of the error
    state), clips by the global norm (each leaf's squares summed over the
    axes that shard its block, a replicated leaf counted once) and runs
@@ -47,7 +56,8 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.dist import sharding
-from repro_torch.models.transformer import ModelConfig, loss_fn, rank_loss
+from repro_torch.models.transformer import (ModelConfig, loss_fn, rank_loss,
+                                            tp_on)
 from repro_torch.optim.adamw import AdamWConfig, _map, _sqrt, apply_updates
 from repro_torch.optim.compression import (CompressionConfig,
                                            compress_with_feedback,
@@ -151,13 +161,17 @@ def _zero1_dim(pspec, mspec, ndim: int):
     return None, ()
 
 
-def _leaf_plan(x, pspec, mspec, ctx) -> tuple:
-    """``(zero1 dim, its axes, data axes left to psum)`` for one leaf: its
-    gradient is partial over the data axes its spec does not name."""
+def _leaf_plan(x, pspec, mspec, ctx, tp: bool = False) -> tuple:
+    """``(zero1 dim, its axes, data axes left to psum, model axis to psum
+    first)`` for one leaf: its gradient is partial over the data axes its
+    spec does not name and, under tensor parallelism (``tp``), over the
+    model axis when its spec does not name that (a replicated leaf: each
+    rank's gradient is its share; a model-axis block's is whole)."""
     named = {a for e in pspec for a in sharding._names(e)}
     missing = tuple(a for a in ctx.data_axes if a not in named)
     zd, zaxes = _zero1_dim(pspec, mspec, x.ndim)
-    return zd, zaxes, tuple(a for a in missing if a not in zaxes)
+    model = (ctx.model_axis,) if tp and ctx.model_axis not in named else ()
+    return zd, zaxes, tuple(a for a in missing if a not in zaxes), model
 
 
 def _buckets(items: list) -> list:
@@ -187,16 +201,38 @@ def _unrows(rows: torch.Tensor, like_shape, dim: int) -> torch.Tensor:
     return rows.reshape(moved).movedim(0, dim)
 
 
+def _psum_buckets(grads: dict, keys: dict, mesh) -> dict:
+    """``grads`` with the leaves of ``keys`` (key -> axes) summed over
+    their axes: bucketed ``all_reduce`` s."""
+    out = dict(grads)
+    left: dict = {}
+    for key, axes in keys.items():
+        if axes:
+            left.setdefault(axes, []).append((key, grads[key]))
+    for axes, items in left.items():
+        for bucket in _buckets(items):
+            flat = sharding.psum(torch.cat([g.reshape(-1)
+                                            for _, g in bucket]),
+                                 mesh, axes)
+            off = 0
+            for key, g in bucket:
+                out[key] = flat[off:off + g.numel()].view(g.shape)
+                off += g.numel()
+    return out
+
+
 @torch.no_grad()
 def _reduce_grads(grads: dict, plans: dict, ctx) -> dict:
-    """The gradients summed over the data axes, each the rank's ZeRO-1
-    block where the leaf has one: bucketed ``reduce_scatter`` s, then
-    bucketed ``all_reduce`` s of what stays partial."""
+    """The gradients summed over the model axis where the plan says
+    (bucketed ``all_reduce`` s), then over the data axes, each the rank's
+    ZeRO-1 block where the leaf has one: bucketed ``reduce_scatter`` s,
+    then bucketed ``all_reduce`` s of what stays partial."""
     mesh = ctx.mesh
+    grads = _psum_buckets(grads, {k: p[3] for k, p in plans.items()}, mesh)
     out = dict(grads)
     scatter: dict = {}
     for key, g in grads.items():
-        zd, zaxes, _ = plans[key]
+        zd, zaxes = plans[key][:2]
         if zd is not None:
             n = sharding.axes_size(mesh, zaxes)
             scatter.setdefault(zaxes, []).append((key, _rows(g, zd, n)))
@@ -211,25 +247,12 @@ def _reduce_grads(grads: dict, plans: dict, ctx) -> dict:
                 shape[zd] //= r.shape[0]
                 out[key] = _unrows(got[:, off:off + r.shape[1]], shape, zd)
                 off += r.shape[1]
-    left: dict = {}
-    for key, g in out.items():
-        if plans[key][2]:
-            left.setdefault(plans[key][2], []).append((key, g))
-    for axes, items in left.items():
-        for bucket in _buckets(items):
-            flat = sharding.psum(torch.cat([g.reshape(-1)
-                                            for _, g in bucket]),
-                                 mesh, axes)
-            off = 0
-            for key, g in bucket:
-                out[key] = flat[off:off + g.numel()].view(g.shape)
-                off += g.numel()
-    return out
+    return _psum_buckets(out, {k: p[2] for k, p in plans.items()}, mesh)
 
 
 def _zero1_block(x: torch.Tensor, plan, mesh) -> torch.Tensor:
     """The rank's ZeRO-1 block of a param block (a view)."""
-    zd, zaxes, _ = plan
+    zd, zaxes = plan[:2]
     if zd is None:
         return x
     n = x.shape[zd] // sharding.axes_size(mesh, zaxes)
@@ -242,7 +265,7 @@ def _rebuild(params: dict, plans: dict, mesh) -> None:
     ``all_gather`` s over the data axes, copied in place."""
     groups: dict = {}
     for key, p in params.items():
-        zd, zaxes, _ = plans[key]
+        zd, zaxes = plans[key][:2]
         if zd is not None:
             blk = _zero1_block(p, plans[key], mesh)
             groups.setdefault((zaxes, p.dtype), []).append(
@@ -268,6 +291,7 @@ def _by_path(tree) -> dict:
 def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, ctx) -> Callable:
     mesh = ctx.mesh
     held: dict = {}
+    tp = tp_on(cfg, ctx)
 
     def train_step(state: dict, batch: dict) -> tuple[dict, dict]:
         if not held:
@@ -287,7 +311,7 @@ def _mesh_train_step(cfg: ModelConfig, tcfg: TrainConfig, ctx) -> Callable:
 
         flat_p = _by_path(local)
         wp, wm = _by_path(sh["params"]), _by_path(sh["opt"]["m"])
-        plans = {k: _leaf_plan(x, wp[k].spec, wm[k].spec, ctx)
+        plans = {k: _leaf_plan(x, wp[k].spec, wm[k].spec, ctx, tp)
                  for k, x in flat_p.items()}
         gz = _reduce_grads(_by_path(grads), plans, ctx)
         del grads

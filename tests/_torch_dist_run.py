@@ -421,19 +421,22 @@ def _dtensor_leaves(params, shardings):
     return sharding.tree_map(leaf, params, shardings)
 
 
-def _reduced_grads(leaves, ctx) -> dict:
+def _reduced_grads(leaves, ctx, tp: bool = True) -> dict:
     """Each leaf's gradient summed over the data axes its placement does
-    not name (the weight gather's transpose summed over those it does),
-    whole."""
+    not name (the weight gather's transpose summed over those it does)
+    and, under tensor parallelism (``tp``: a decoder's mesh loss), over
+    the model axis when it does not name that (a replicated leaf's
+    gradient is each rank's share), whole."""
     from repro_torch.dist import sharding
+    axes = ctx.data_axes + ((ctx.model_axis,) if tp else ())
 
     def one(x):
         g = x.grad
         if not sharding.is_dtensor(g):
-            return sharding.psum(g, ctx.mesh, ctx.data_axes)
+            return sharding.psum(g, ctx.mesh, axes)
         spec = sharding.spec_of(g)
         named = {a for e in spec for a in sharding._names(e)}
-        rest = tuple(a for a in ctx.data_axes if a not in named)
+        rest = tuple(a for a in axes if a not in named)
         return sharding.from_local(
             sharding.psum(g.to_local(), ctx.mesh, rest), ctx.mesh, spec,
             g.shape)
@@ -552,7 +555,8 @@ def check_family_losses(inp: dict) -> dict:
             str(sh) for sh in sharding.LOG.shapes() & banks) or [""])
         out[f"{name}/mesh/loss"] = m["loss"].detach().numpy()
         out[f"{name}/mesh/aux"] = m["aux"].detach().numpy()
-        _put(out, f"{name}/mesh/grads", _reduced_grads(leaves, ctx))
+        _put(out, f"{name}/mesh/grads",
+             _reduced_grads(leaves, ctx, cfg.encoder is None))
         # three greedy batch-sharded decode steps (recurrent states: each
         # rank its batch block, updated in place; MoE: each rank its
         # resident experts; whisper: its enc_kv from the batch's frames)
@@ -607,7 +611,8 @@ def check_family_losses(inp: dict) -> dict:
                 lambda p: p.detach().clone().requires_grad_(), params)
             with torch.enable_grad():
                 transformer.loss_fn(whole, batch, cfg, ctx)[0].backward()
-            _put(out, f"{name}/mesh_whole/grads", _reduced_grads(whole, ctx))
+            _put(out, f"{name}/mesh_whole/grads",
+                 _reduced_grads(whole, ctx))
             whole = held = 0
             for path, leaf in sharding._leaves_with_path(leaves):
                 if sharding.is_expert_bank("/".join(path), leaf.ndim, 1):
@@ -615,6 +620,127 @@ def check_family_losses(inp: dict) -> dict:
                     held += sharding.local_nbytes(leaf)
             out[f"{name}/bank_bytes"] = np.asarray(
                 _per_rank([whole, held], ctx.mesh))
+    return out
+
+
+#: The tensor-parallel checks: (arch, mesh) on 8 ranks.  On (2, 4) the
+#: smoke configs' 2 KV heads do not split 4 ways (every rank keeps both),
+#: and starcoder2-smoke's 6 heads do not either (every rank attends every
+#: head, the query columns gathered; its GELU MLP).
+TP_CASES = (("qwen3-0.6b", (2, 4)), ("qwen3-0.6b", (4, 2)),
+            ("qwen3-moe-30b-a3b", (2, 4)), ("qwen3-moe-30b-a3b", (4, 2)),
+            ("starcoder2-3b", (2, 4)))
+#: The replicated leaves whose gradient the train step sums over the
+#: model axis (the mutation check's).
+NORMS = ("ln1", "ln2", "attn/q_norm", "attn/k_norm", "final_norm")
+
+
+def _weight_shapes(params, psh, model: int) -> set:
+    """The shapes of the leaves the parameter rules place on the model
+    axis, whole and a model-axis rank's block, as a gather moves them: a
+    superblock's leaf without its stacked dim (the mesh forward gathers a
+    superblock at a time; the stacked shape of smoke qwen3's ``ffn/wo``
+    block, (2, 64, 128), is also the gathered residual stream's)."""
+    from repro_torch.dist import sharding
+    out = set()
+    for (path, leaf), where in zip(sharding._leaves_with_path(params),
+                                   sharding._sharding_leaves(psh)):
+        spec = sharding._norm(where.spec, leaf.ndim)
+        dims = [d for d, e in enumerate(spec) if "model" in
+                sharding._names(e)]
+        if not dims:
+            continue
+        blk = list(leaf.shape)
+        blk[dims[0]] //= model
+        for sh in (tuple(leaf.shape), tuple(blk)):
+            out.add(sh[1:] if path[0] == "blocks" else sh)
+    return out
+
+
+def check_tp_losses(inp: dict) -> dict:
+    """Tensor parallelism under the mesh loss: for each ``TP_CASES``
+    config and mesh (the reference's smoke weights and seeded batch,
+    ``ref``), the loss, aux and every gradient leaf (reduced as the train
+    step reduces them, whole), and the shapes of model-sharded weights
+    among the collectives and packed gathers of its forward and backward
+    (``LOG``).  On qwen3-0.6b (2, 4) also the train step's own gradient
+    reduction (``train/step._reduce_grads``) of the replicated leaves
+    with and without its model-axis sum (the mutation check), and a
+    config whose ``wi`` block would split a (gate, up) pair (d_ff 65 on a
+    model axis of 2: ``wi`` and ``wo`` gathered whole, the FFN replicated)
+    against the one-process port."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import transformer
+    from repro_torch.train import state as tstate
+    from repro_torch.train import step as tstep
+    out = {}
+    for arch, shape in TP_CASES:
+        tag = f"{arch}/{shape[0]}x{shape[1]}"
+        cfg = dataclasses.replace(get_arch(arch).smoke, kernel_impl="ref")
+        params = transformer.params_from_jax(
+            _tree_from(inp, f"{arch}/params"), cfg, device="cpu")
+        batch = {k: _t(v) for k, v in _tree_from(inp, f"{arch}/batch")
+                 .items()}
+        ctx = make_ctx(make_test_mesh(shape, ("data", "model"),
+                                      device="cpu"))
+        state = tstate.init_train_state(_clone_tree(params))
+        sh = tstep.full_state_shardings(state, ctx, tstep.TrainConfig())
+        leaves = _dtensor_leaves(params, sh["params"])
+        sharding.LOG.reset()
+        with torch.enable_grad():
+            loss, m = transformer.loss_fn(leaves, batch, cfg, ctx)
+            loss.backward()
+        seen = sharding.LOG.shapes() & _weight_shapes(params, sh["params"],
+                                                       ctx.model_size)
+        out[f"{tag}/weights_in_log"] = np.asarray(
+            sorted(str(x) for x in seen) or [""])
+        out[f"{tag}/leaves_gathered"] = np.asarray(len(sharding.LOG.leaves))
+        out[f"{tag}/loss"] = m["loss"].detach().numpy()
+        out[f"{tag}/aux"] = m["aux"].detach().numpy()
+        _put(out, f"{tag}/grads", _reduced_grads(leaves, ctx))
+        if tag != "qwen3-0.6b/2x4":
+            continue
+        # the train step's own reduction, with and without the model-axis
+        # sum of the replicated leaves' gradients
+        from repro_torch.train.step import _by_path
+        wp, wm = _by_path(sh["params"]), _by_path(sh["opt"]["m"])
+        grads = {k: sharding.block_of(x.grad)
+                 for k, x in _by_path(leaves).items()}
+        plans = {k: tstep._leaf_plan(g, wp[k].spec, wm[k].spec, ctx, True)
+                 for k, g in grads.items()}
+        for arm, use in (("step", plans), ("mutated", {
+                k: p[:3] + ((),) for k, p in plans.items()})):
+            red = tstep._reduce_grads(grads, use, ctx)
+            for k, g in red.items():
+                if k.endswith(NORMS):
+                    zd, zaxes = use[k][:2]
+                    if zd is not None:
+                        g = sharding.all_gather(g, ctx.mesh, zaxes, zd)
+                    out[f"{tag}/{arm}/grads/{k}"] = g.numpy()
+    # a wi block that would split a (gate, up) pair: gathered whole
+    cfg = dataclasses.replace(get_arch("qwen3-0.6b").smoke, kernel_impl="ref",
+                              d_ff=65)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    batch = {k: _t(v) for k, v in _tree_from(inp, "qwen3-0.6b/batch")
+             .items()}
+    _, m1, g1 = tstep._loss_and_grads(params, batch, cfg, None)
+    ctx = make_ctx(make_test_mesh((4, 2), ("data", "model"), device="cpu"))
+    psh = tstate.state_shardings({"params": params, "opt": {}}, ctx)
+    leaves = _dtensor_leaves(params, psh["params"])
+    sharding.LOG.reset()
+    with torch.enable_grad():
+        loss, m = transformer.loss_fn(leaves, batch, cfg, ctx)
+        loss.backward()
+    out["odd/wi_spec"] = np.asarray(str(sharding.spec_of(
+        leaves["blocks"]["pos0"]["ffn"]["wi"])))
+    out["odd/gathered"] = np.asarray(sorted(
+        str(shape) for shape, _ in sharding.LOG.leaves))
+    out["odd/loss"] = np.asarray([float(m["loss"]), float(m1["loss"])])
+    _put(out, "odd/mesh", _reduced_grads(leaves, ctx))
+    _put(out, "odd/one", g1)
     return out
 
 
@@ -933,6 +1059,7 @@ CHECKS = {
     "batch_sharded_serve": check_batch_sharded_serve,
     "family_losses": check_family_losses,
     "encdec_mesh_decode": check_encdec_mesh_decode,
+    "tp_losses": check_tp_losses,
 }
 
 

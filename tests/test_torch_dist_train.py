@@ -1,8 +1,9 @@
 """The reference's distributed TRAINING checks (``tests/_dist_checks.py``:
 ``check_sharded_train_step``, ``check_pipeline_equivalence``,
-``check_elastic_reshard``) and the mesh forward and batch-sharded serve
-paths that reuse them, held against the port run as 8 ``gloo`` ranks on
-the CPU.
+``check_elastic_reshard``), the mesh forward and batch-sharded serve
+paths that reuse them, and tensor parallelism over the model axis
+(``tp_losses``), held against the port run as 8 ``gloo`` ranks on the
+CPU.
 
 The reference side runs here, in this process, on one device (its
 one-device ``loss_fn``, ``jax.grad``, ``jit_train_step``, ``forward``,
@@ -46,17 +47,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from _torch_dist_run import FAMILIES
+from _torch_dist_run import FAMILIES, NORMS, TP_CASES
 from repro.models import attention as jattn
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 CHECKS = ("mesh_forward", "sharded_train_step", "elastic_reshard",
           "pipeline_equivalence", "batch_sharded_serve", "family_losses",
-          "encdec_mesh_decode")
+          "encdec_mesh_decode", "tp_losses")
 IMPLS = ("ref", "kernel")
 LR = 3e-4                      # AdamWConfig's default
 MAX_LEN, GEN = 512, 5     # a rank's cache block clears MIN_FUSED_ELEMS
 ENC_MAX_LEN, ENC_GEN = 16, 4   # whisper's ring and greedy steps
+MOE = "qwen3-moe-30b-a3b"
 
 
 # ---------------------------------------------------------------------------
@@ -237,15 +239,16 @@ def _expert_parallel_oracle(data: int, model: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _family_want(arch):
+def _family_want(arch, mesh=(2, 4)):
     """The reference's one-device loss, aux and ``jax.value_and_grad`` of
     ``loss_fn`` on :func:`_family`'s inputs; for MoE with its layer the
-    (2, 4) mesh's expert-parallel function (:func:`_expert_parallel_oracle`),
+    ``mesh``'s expert-parallel function (:func:`_expert_parallel_oracle`),
     which the mesh loss must compute."""
     from unittest import mock
     from repro.models import transformer as jtf
     cfg, params, batch = _family(arch)
-    patch = (mock.patch.object(jtf, "moe_layer", _expert_parallel_oracle(2, 4))
+    patch = (mock.patch.object(jtf, "moe_layer",
+                               _expert_parallel_oracle(*mesh))
              if any(cfg.moe_pattern) else contextlib.nullcontext())
     with patch:
         (loss, m), grads = jax.jit(jax.value_and_grad(
@@ -315,7 +318,15 @@ def port(tmp_path_factory):
                             **_flat(_family(arch)[1], f"{arch}/params"),
                             **_flat(_family(arch)[2], f"{arch}/batch"),
                         }.items()}),
-                    ("encdec_mesh_decode", _encdec()[0])):
+                    ("encdec_mesh_decode", _encdec()[0]),
+                    ("tp_losses", {
+                        **{f"qwen3-0.6b/{k}": v
+                           for k, v in _train()[0].items()},
+                        **{k: v for arch in (MOE, "starcoder2-3b")
+                           for k, v in {
+                               **_flat(_family(arch)[1], f"{arch}/params"),
+                               **_flat(_family(arch)[2], f"{arch}/batch"),
+                           }.items()}})):
         inp.update({f"{name}/{k}": v for k, v in i.items()})
     np.savez(d / "in.npz", **inp)
     env = dict(os.environ)
@@ -716,3 +727,93 @@ def test_encdec_long_context_decode_matches_reference(port):
                 "P(None, None, ('data', 'model'), None, None)", k
     np.testing.assert_array_equal(got["kernel/long/logits"],
                                   got["ref/long/logits"])
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis
+# ---------------------------------------------------------------------------
+
+def _tp_want(arch, shape):
+    """The function the mesh loss must compute: the reference's
+    one-device loss and gradients (``jax.value_and_grad``), for the MoE
+    config with its layer as the mesh's expert-parallel function."""
+    if arch == "qwen3-0.6b":
+        return _train()[1]
+    return _family_want(arch, shape if arch == MOE else (2, 4))
+
+
+@pytest.mark.parametrize("arch,shape", TP_CASES)
+def test_tp_mesh_loss_matches_reference(port, arch, shape):
+    """The mesh loss under tensor parallelism (Megatron column / row
+    blocks, the sequence-sharded residual, the vocab-sharded embedding,
+    head and cross entropy; on (2, 4) the 2 KV heads replicated on each
+    rank), its gradients reduced as the train step reduces them: the
+    loss, the aux and every gradient leaf against the reference's, at the
+    float32 bounds (loss rtol 1e-5, gradients rtol 1e-5 and atol 1e-5 of
+    the leaf's largest entry).  A replicated leaf's shares summed over
+    the model axis too often or a block's summed at all would be 2-4x."""
+    got = _out(port, "tp_losses")
+    want = _tp_want(arch, shape)
+    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    _close(got[f"{tag}/loss"], want["loss"])
+    if arch == MOE:
+        _close(got[f"{tag}/aux"], want["aux"])
+        assert want["aux"] > 0
+    keys = [k for k in want if k.startswith("grads/")]
+    assert keys
+    assert sorted(keys) == sorted(k.split("/", 2)[2] for k in got
+                                  if k.startswith(f"{tag}/grads/"))
+    for k in keys:
+        _close(got[f"{tag}/{k}"], want[k], rel_atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("arch,shape", TP_CASES)
+def test_tp_gathers_no_model_sharded_weight(port, arch, shape):
+    """No collective of the mesh loss's forward or backward (remat
+    included), and no whole tensor a packed gather rebuilt, has the shape
+    of a weight the rules place on the model axis, whole or a rank's
+    block: each rank keeps its blocks, and only activations move."""
+    got = _out(port, "tp_losses")
+    tag = f"{arch}/{shape[0]}x{shape[1]}"
+    assert got[f"{tag}/weights_in_log"].tolist() == [""], \
+        got[f"{tag}/weights_in_log"]
+    assert int(got[f"{tag}/leaves_gathered"]) == 0
+
+
+def test_tp_mutation_drops_norm_gradients(port):
+    """The train step's gradient reduction (``_reduce_grads``) on
+    qwen3-0.6b (2, 4): with its model-axis sum of the replicated leaves'
+    gradients the norm gains' gradients equal the reference's; with that
+    sum removed (each rank left with its share) every one of them is
+    off by more than a tenth."""
+    got = _out(port, "tp_losses")
+    _, want = _train()
+    keys = [k for k in want if k.startswith("grads/")
+            and k.endswith(NORMS)]
+    assert len(keys) == 5
+    for k in keys:
+        name = k.split("/", 1)[1]
+        _close(got[f"qwen3-0.6b/2x4/step/grads/{name}"], want[k],
+               rel_atol=1e-5, err_msg=k)
+        bad = got[f"qwen3-0.6b/2x4/mutated/grads/{name}"]
+        rel = np.abs(bad - want[k]).max() / np.abs(want[k]).max()
+        assert rel > 0.1, (k, rel)
+
+
+def test_tp_odd_glu_block_gathers_its_leaf(port):
+    """d_ff 65 on a model axis of 2: a block of ``wi``'s 130 interleaved
+    columns would split a (gate, up) pair, so the layer takes ``wi`` (and
+    ``wo``, whose 65 rows do not split) whole, gathered, and runs on the
+    whole sequence; the loss and every gradient leaf equal the
+    one-process port's at the float32 bounds."""
+    got = _out(port, "tp_losses")
+    assert str(got["odd/wi_spec"]) == "P(None, None, 'model')"
+    gathered = got["odd/gathered"].tolist()
+    assert "(128, 130)" in gathered and "(65, 128)" in gathered, gathered
+    mesh_loss, one_loss = got["odd/loss"]
+    _close(mesh_loss, one_loss)
+    keys = [k.split("/", 2)[2] for k in got if k.startswith("odd/one/")]
+    assert keys
+    for k in keys:
+        _close(got[f"odd/mesh/{k}"], got[f"odd/one/{k}"], rel_atol=1e-5,
+               err_msg=k)
