@@ -423,7 +423,21 @@ shared with the background, not alone:
    sequence split, the distributed softmax) under ``kernel`` and ``ref``
    (bit for bit; B1 and B2 once per layer a step on every rank under
    ``kernel``), streams equal to rank 0's one-process steps, a
-   float32-compute arm within the reference's rtol = atol = 3e-3;
+   float32-compute arm within the reference's rtol = atol = 3e-3, then
+   its tensor-parallel mesh loss on (2, 2) in float32 against rank 0's
+   one process (rtol 1e-4, no model-axis weight gathered); (g) (a)
+   jamba's Mamba position alone at its published widths on (1, 4) and
+   (2, 2), channel-parallel: the float32 output and every gradient leaf
+   of ``sum(y * probe)`` within 1e-4 of rank 0's one-process layer's
+   largest entries, a prefill and 4 decode steps on the rank's state
+   block likewise, a rank's 1/m of the weight and state bytes, no
+   collective of a Mamba weight's shape, the bf16 gap printed, and bf16
+   decode steps timed with the row-parallel products as one GEMM with a
+   float32 output and with their operands copied to float32; (b)
+   xlstm-125m uncut on (2, 2): the float32 mesh loss within rtol 2e-3 of
+   one process, 8 batch-sharded greedy steps on the rank's batch block
+   of the state (placed as ``step_specs`` says, 1/2 of the bytes a
+   rank), float32 streams equal to one process, bf16 streams printed;
    (e) last, once the main process has left the card (its
    ``Background.join``): qwen3-moe-30b-a3b expert-parallel ZeRO-1
    training at published widths, 1 of 48 layers, 4 x 256 tokens, on
@@ -5515,8 +5529,10 @@ REF_STRIDED = tuple((s, 64 * o) for s, o in (
     (1, 0), (2, 3), (3, 1), (5, 2), (7, 1), (-1, 63), (-2, 50), (-4, 40)))
 STRIDED16_N, STRIDED16_VL = 4096, 512
 # 16c's greedy steps in bf16 (fused and per-access) and its float32 arm:
-# each sharded step gathers the weights through gloo on the host
-LONG_STEPS16, F32_STEPS16 = 8, 4
+# each sharded step moves its collectives through gloo on the host (4
+# bf16 steps, cut from 8 to make room for 17g; the first four keep every
+# gate)
+LONG_STEPS16, F32_STEPS16 = 4, 4
 PHASE16_POLICIES = ("kernel", "kernel_dynamic", "ref")
 
 
@@ -6775,7 +6791,11 @@ def whisper17(dev, rank: int) -> dict:
     block under ``kernel``; none under ``ref``), streams equal to rank
     0's one-process steps; a float32-compute arm of
     ``WHISPER17_F32_STEPS`` steps per mesh against rank 0's one-process
-    float32 steps at the reference's rtol = atol = 3e-3."""
+    float32 steps at the reference's rtol = atol = 3e-3.  Last the mesh
+    loss on (2, 2), tensor-parallel (the encoder and decoder layers on
+    each rank's blocks, no model-axis weight gathered), in float32 on
+    ``WHISPER_TRAIN_BATCH`` x ``WHISPER_TRAIN_SEQ`` tokens and their
+    frames against rank 0's one-process loss (rtol 1e-4)."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_arch
@@ -6783,9 +6803,11 @@ def whisper17(dev, rank: int) -> dict:
     from repro_torch.launch.mesh import make_ctx, make_test_mesh
     from repro_torch.models import decode as dec
     from repro_torch.models import encdec
+    from repro_torch.configs.base import train_batch
+    from repro_torch.models import transformer
     from repro_torch.models.transformer import cast_params, init_params
     from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
-                                          jit_prefill)
+                                          jit_prefill, serve_param_shardings)
     base = dataclasses.replace(get_arch("whisper-tiny").model,
                                kernel_impl="ref")
     rng = np.random.default_rng(SEED + 21)
@@ -6882,14 +6904,412 @@ def whisper17(dev, rank: int) -> dict:
                     raise AssertionError(f"17f {key} float32: logit gap "
                                          f"{gap} beyond rtol = atol = 3e-3")
         del params, cache
-    del master
+    # the mesh loss, tensor-parallel, in float32 against one process
+    cfg32 = dataclasses.replace(base, compute_dtype="float32")
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")))
+    batch = train_batch(cfg32, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_BATCH,
+                        specs=False,
+                        generator=torch.Generator(dev).manual_seed(SEED + 26),
+                        device=dev)
+    placed = sharding.place_tree(master, serve_param_shardings(master, cfg32,
+                                                               ctx))
+    with torch.no_grad():
+        if rank == 0:
+            out["one_loss"] = float(transformer.loss_fn(
+                master, batch, cfg32, None)[1]["loss"])
+        sharding.LOG.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["loss"] = float(transformer.loss_fn(placed, batch, cfg32,
+                                                ctx)[1]["loss"])
+        torch.cuda.synchronize()
+        out["loss_ms"] = (time.perf_counter() - t0) * 1e3
+    out["loss_collectives"] = _collectives17()
+    _tp_gate("17f mesh loss", _model_weight_shapes(placed))
+    if rank == 0 and not abs(out["loss"] - out["one_loss"]) <= \
+            1e-4 * abs(out["one_loss"]):
+        raise AssertionError(f"17f: float32 mesh loss {out['loss']} vs one "
+                             f"process {out['one_loss']} beyond rtol 1e-4")
+    del master, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+#: 17g: (a) jamba's Mamba position alone at its published widths, x
+#: (MAMBA_BATCH, MAMBA_SEQ, d) as in phase 12b, on these meshes, then a
+#: prefill and this many decode steps; (b) xlstm-125m uncut on (2, 2):
+#: its mesh loss's batch and sequence, the prompt and the greedy steps.
+MAMBA17_MESHES = ((1, 4), (2, 2))
+MAMBA17_STEPS = 4
+XLSTM17_BATCH, XLSTM17_SEQ, XLSTM17_PROMPT, XLSTM17_STEPS = 4, 128, 16, 8
+#: 17g (a)'s float32 bound: the mesh layer's output and each gradient
+#: leaf within this fraction of the one-process layer's largest entry.
+MAMBA17_TOL = 1e-4
+
+
+def _rel_gap(a, b) -> float:
+    """Largest |a - b| over the largest |b|, in float32."""
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def mamba17(dev, rank: int) -> dict:
+    """17g (a): jamba's Mamba position (ln1 and the Mamba block; its FFN
+    left out) alone at its published widths (d 8192, ed 16384, N 16, W 4,
+    rank 512), seeded float32 weights placed by the parameter rules (all
+    six matrices on ``ed``), x (MAMBA_BATCH, MAMBA_SEQ, d): on each of
+    ``MAMBA17_MESHES`` the channel-parallel layer (the residual stream
+    sequence-sharded) forward and backward of ``sum(y * probe)``, its
+    float32 output and every gradient leaf (summed over the data axis and,
+    a replicated leaf's, the model axis) against rank 0's one-process
+    layer within ``MAMBA17_TOL`` of the largest entry; a prefill and
+    ``MAMBA17_STEPS`` decode steps (``decode._recurrent_position``) on the
+    rank's state block, placed as ``cache_specs`` places it, against the
+    one process; a rank's weight and state bytes (1/m of the placed
+    leaves'); no collective of a Mamba weight's shape; the bf16 forward's
+    gap to the one-process bf16 forward printed."""
+    import torch
+    from repro_torch.configs.base import get_arch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P, RankLocal
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.models import layers, transformer
+    from repro_torch.models.ssm import MambaCache
+    full = get_arch("jamba-1.5-large-398b").model
+    cfg = dataclasses.replace(full, n_layers=1, block_pattern=("mamba",),
+                              window_pattern=(None,), moe_pattern=(False,),
+                              mlp="none", d_ff=0, kernel_impl="ref",
+                              compute_dtype="float32")
+    B, S, d = MAMBA_BATCH, MAMBA_SEQ, full.d_model
+    g = torch.Generator(dev).manual_seed(SEED + 24)
+    p32 = transformer._init_pos(cfg, 0, g, dev)
+    x = torch.randn((B, S + MAMBA17_STEPS, d), generator=g, device=dev)
+    probe = torch.randn((B, S, d), generator=g, device=dev)
+    flat = {"/".join(k): v for k, v in sharding._leaves_with_path(p32)}
+
+    def apply(p, xs, rl, mode, c=cfg):
+        return transformer._position_apply(p, xs, None, cfg=c, ctx=rl, i=0,
+                                           kind="mamba", mode=mode)
+
+    def steps(p, state_leaf, rows, rl, c=cfg, ms=None):
+        ys = []
+        for t in range(MAMBA17_STEPS):
+            xt = x[rows, S + t].to(torch.float32 if c is cfg
+                                   else torch.bfloat16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h = layers.rms_norm(xt, p["ln1"], c.norm_eps)
+            ys.append(xt + dec._recurrent_position(p, h, state_leaf, 0, c,
+                                                   "mamba", rl))
+            torch.cuda.synchronize()
+            if ms is not None:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        return torch.stack(ys)
+
+    out = {"meshes": {}}
+    torch.cuda.empty_cache()
+    if rank == 0:
+        w = sharding.tree_map(lambda t: t.detach().clone().requires_grad_(),
+                              p32)
+        with torch.enable_grad():
+            y, _, _ = apply(w, x[:, :S], None, "train")
+            (y.float() * probe).sum().backward()
+        want = {"y": y.detach(), "grads": {
+            "/".join(k): t.grad for k, t in sharding._leaves_with_path(w)}}
+        del w, y
+        with torch.no_grad():
+            _, _, st = apply(p32, x[:, :S], None, "prefill")
+            leaf = MambaCache(conv=st.conv[None].clone(), h=st.h[None].clone())
+            want["steps"] = steps(p32, leaf, slice(0, B), None)
+            want["state"] = leaf
+            pb = sharding.tree_map(lambda t: t.to(torch.bfloat16), p32)
+            cb = dataclasses.replace(cfg, compute_dtype="bfloat16")
+            want["y16"] = apply(pb, x[:, :S].to(torch.bfloat16), None,
+                                "train", cb)[0]
+            del pb
+        torch.cuda.empty_cache()
+    for shape in MAMBA17_MESHES:
+        ctx = make_ctx(make_test_mesh(shape, ("data", "model")))
+        mesh, m = ctx.mesh, ctx.model_size
+        specs = {k: sharding.param_spec(k, tuple(v.shape), ctx)
+                 for k, v in flat.items()}
+        local = {k: sharding.local_block(v, mesh, specs[k]).detach().clone()
+                 for k, v in flat.items()}
+        p = {"ln1": local["ln1"], "mamba": {
+            k.split("/")[1]: v for k, v in local.items() if "/" in k}}
+        rl = RankLocal(mesh=None, experts=ctx, tp=ctx, seq=S % m == 0)
+        xs = P("data", "model" if rl.seq else None)
+        xb = sharding.local_block(x[:, :S], mesh, xs)
+        pr = sharding.local_block(probe, mesh, xs)
+        held = [sum(local[k].numel() * local[k].element_size()
+                    for k in local if sharding.is_sharded(specs[k])),
+                sum(flat[k].numel() * flat[k].element_size()
+                    for k in flat if sharding.is_sharded(specs[k]))]
+        weights = set()
+        for k, v in flat.items():
+            if sharding.is_sharded(specs[k]):
+                weights |= {tuple(v.shape), tuple(local[k].shape)}
+        for t in (p["ln1"], *p["mamba"].values()):
+            t.requires_grad_()
+        sharding.LOG.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            y, _, _ = apply(p, xb, rl, "train")
+            sharding.global_sum((y.float() * pr).sum(), mesh,
+                                ("data", "model")).backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        coll = _collectives17()
+        _tp_gate(f"17g (a) {shape}", weights)
+        grads = {}
+        for k, v in flat.items():
+            gl = (p["ln1"] if k == "ln1" else p["mamba"][k.split("/")[1]]
+                  ).grad
+            placed = sharding.is_sharded(specs[k])
+            gl = sharding.psum(gl, mesh, ("data",) if placed
+                               else ("data", "model"))
+            grads[k] = sharding.full_tensor(sharding.from_local(
+                gl, mesh, specs[k], v.shape))
+        yw = sharding.full_tensor(sharding.from_local(y.detach(), mesh, xs,
+                                                      (B, S, d)))
+        with torch.no_grad():
+            # bf16: the layer's forward alone
+            pb = sharding.tree_map(lambda t: t.detach().to(torch.bfloat16),
+                                   p)
+            cb = dataclasses.replace(cfg, compute_dtype="bfloat16")
+            y16 = sharding.full_tensor(sharding.from_local(
+                apply(pb, xb.to(torch.bfloat16), rl, "train", cb)[0], mesh,
+                xs, (B, S, d)))
+            del pb
+            # prefill, then decode steps on the state block as cache_specs
+            # places it
+            _, _, st = apply(p, xb, rl, "prefill")
+            leaf = MambaCache(
+                conv=sharding.from_local(st.conv[None].clone(), mesh,
+                                         P(None, "data", None, "model")),
+                h=sharding.from_local(st.h[None].clone(), mesh,
+                                      P(None, "data", "model")))
+            state_bytes = [sharding.local_nbytes(leaf),
+                           sum(t.numel() * t.element_size() for t in leaf)]
+            n = B // shape[0]
+            r = sharding.axis_index(mesh, "data")
+            rows = slice(r * n, (r + 1) * n)
+            sharding.LOG.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ys = steps(p, leaf, rows, RankLocal(mesh=None, experts=ctx,
+                                               tp=ctx))
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / MAMBA17_STEPS
+            step_coll = _collectives17()
+            _tp_gate(f"17g (a) {shape} decode", weights)
+            ys = sharding.all_gather(ys, mesh, "data", 1)
+            state = [sharding.full_tensor(t) for t in leaf]
+            wide = mamba17_wide(p, xb, rows, rl, cfg, apply, steps)
+        row = {"ms": ms, "collectives": coll, "step_ms": step_ms,
+               "step_collectives": step_coll, "weight_bytes": held,
+               "state_bytes": state_bytes, "wide": wide}
+        if held[0] * m != held[1] or \
+                state_bytes[0] * m * shape[0] != state_bytes[1]:
+            raise AssertionError(f"17g (a) {shape}: a rank holds "
+                                 f"{held[0]} of {held[1]} weight bytes, "
+                                 f"{state_bytes[0]} of {state_bytes[1]} "
+                                 f"state bytes")
+        if rank == 0:
+            row["y_gap"] = _rel_gap(yw, want["y"])
+            row["grad_gap"] = max((_rel_gap(grads[k], want["grads"][k]), k)
+                                  for k in grads)
+            row["step_gap"] = _rel_gap(ys, want["steps"])
+            row["state_gap"] = max(_rel_gap(a, b) for a, b in
+                                   zip(state, want["state"]))
+            row["bf16_gap"] = _rel_gap(y16, want["y16"])
+            worst = max(row["y_gap"], row["grad_gap"][0], row["step_gap"],
+                        row["state_gap"])
+            if not worst <= MAMBA17_TOL:
+                raise AssertionError(f"17g (a) {shape}: float32 gaps {row}"
+                                     f" beyond {MAMBA17_TOL}")
+        out["meshes"][f"{shape[0]}x{shape[1]}"] = row
+        del p, local, y, grads, yw, y16, leaf, st
+        torch.cuda.empty_cache()
+    if rank == 0:
+        del want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _copy_wide(a, w):
+    """A row-parallel product's operands copied to float32 before the
+    product: what ``sharding.wide_matmul`` does for bf16 where torch has
+    no ``out_dtype`` GEMM."""
+    return a.float() @ w.float()
+
+
+def mamba17_wide(p, xb, rows, rl, cfg, apply, steps) -> dict:
+    """17g (a)'s bf16 decode with and without the weight copies: a bf16
+    prefill of the rank's block, then ``MAMBA17_STEPS`` steps each way
+    from its state, twice, in the order gemm, copy, gemm, copy (gemm:
+    ``sharding.wide_matmul`` as it runs, one GEMM with a float32 output;
+    copy: ``_copy_wide`` in its place); the host ms of each step of the
+    second run of each way, the largest gap of their outputs, and the
+    device ms of ``out_proj``'s product alone at the step's shapes each
+    way and as a plain bf16 GEMM (``time_ms``, 50 calls)."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P, RankLocal
+    from repro_torch.models.ssm import MambaCache
+    mesh = rl.tp.mesh
+    pb = sharding.tree_map(lambda t: t.detach().to(torch.bfloat16), p)
+    cb = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    _, _, st = apply(pb, xb.to(torch.bfloat16), rl, "prefill", cb)
+    step_rl = RankLocal(mesh=None, experts=rl.experts, tp=rl.tp)
+    gemm = sharding.wide_matmul
+    out = {"out_dtype": sharding._mm_out_dtype(), "ms": {}, "ys": {}}
+    try:
+        for way in ("gemm", "copy", "gemm", "copy"):
+            sharding.wide_matmul = gemm if way == "gemm" else _copy_wide
+            leaf = MambaCache(
+                conv=sharding.from_local(st.conv[None].clone(), mesh,
+                                         P(None, "data", None, "model")),
+                h=sharding.from_local(st.h[None].clone(), mesh,
+                                      P(None, "data", "model")))
+            ms = []
+            out["ys"][way] = steps(pb, leaf, rows, step_rl, cb, ms)
+            out["ms"][way] = ms
+    finally:
+        sharding.wide_matmul = gemm
+    out["gap"] = float((out["ys"]["gemm"].float()
+                        - out["ys"]["copy"].float()).abs().max())
+    del out["ys"]
+    w = pb["mamba"]["out_proj"]
+    y = torch.randn((xb.shape[0], w.shape[0]), device=w.device,
+                    dtype=torch.bfloat16)
+    out["product_ms"] = {"gemm": time_ms(lambda: gemm(y, w), 50),
+                         "copy": time_ms(lambda: _copy_wide(y, w), 50),
+                         "bf16": time_ms(lambda: y @ w, 50)}
+    out["product_shape"] = [list(y.shape), list(w.shape)]
+    return out
+
+
+def xlstm17(dev, rank: int) -> dict:
+    """17g (b): xlstm-125m uncut on (2, 2), the embedding and head
+    vocab-parallel, the mLSTM and sLSTM cells on whole weights (gathered a
+    superblock at a time: a one-ulp change of the mLSTM's output, which
+    row-parallel sums make, moves xlstm's gradients by 1e-4 of their
+    largest entries): the float32 mesh loss on
+    ``XLSTM17_BATCH`` x ``XLSTM17_SEQ`` seeded tokens against rank 0's
+    one-process loss (rtol 2e-3, the xlstm family's tolerance), then a
+    prompt of ``XLSTM17_PROMPT`` prefilled in one process on every rank
+    and ``XLSTM17_STEPS`` batch-sharded greedy steps on the rank's state
+    blocks: the float32 streams gated equal to rank 0's one-process
+    steps, the bf16 streams printed (seeded xlstm is chaotic in bf16,
+    ROADMAP C); the cache placed as ``step_specs`` says (the cells step
+    whole state: each rank its batch block, whole over the model axis)
+    and a rank's state bytes."""
+    import torch
+    from repro_torch.configs.base import get_arch, train_batch
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
+                                          jit_prefill, serve_param_shardings,
+                                          step_specs)
+    cfg = dataclasses.replace(get_arch("xlstm-125m").model,
+                              kernel_impl="ref")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")))
+    params = transformer.init_params(cfg, SEED, device=dev)
+    placed = sharding.place_tree(params, serve_param_shardings(params, cfg,
+                                                               ctx))
+    batch = train_batch(cfg, XLSTM17_SEQ, XLSTM17_BATCH, specs=False,
+                        generator=torch.Generator(dev).manual_seed(SEED + 25),
+                        device=dev)
+    out = {}
+    with torch.no_grad():
+        if rank == 0:
+            out["one_loss"] = float(transformer.loss_fn(
+                params, batch, cfg32, None)[1]["loss"])
+        sharding.LOG.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out["loss"] = float(transformer.loss_fn(placed, batch, cfg32,
+                                                ctx)[1]["loss"])
+        torch.cuda.synchronize()
+        out["loss_ms"] = (time.perf_counter() - t0) * 1e3
+        out["loss_collectives"] = _collectives17()
+        if rank == 0 and not abs(out["loss"] - out["one_loss"]) <= \
+                2e-3 * abs(out["one_loss"]):
+            raise AssertionError(f"17g (b): mesh loss {out['loss']} vs one "
+                                 f"process {out['one_loss']} beyond rtol "
+                                 f"2e-3")
+        prompt = batch["tokens"][:, :XLSTM17_PROMPT]
+        max_len = XLSTM17_PROMPT + XLSTM17_STEPS
+        scfg = ServeConfig(max_len=max_len)
+        for tag, c, dt in (("f32", cfg32, torch.float32),
+                           ("bf16", cfg, torch.bfloat16)):
+            logits, states = jit_prefill(c, None, device=dev)(
+                params, {"tokens": prompt})
+            cache0 = dec.cache_from_prefill(c, states, XLSTM17_PROMPT,
+                                            max_len, dt)
+            tok0 = torch.argmax(logits[:, -1].float(), -1).int()
+            runs = {}
+            for key, cc in (("one", None), ("mesh", ctx)):
+                if key == "one" and rank != 0:
+                    continue
+                cache = sharding.tree_map(torch.clone, cache0)
+                step = jit_decode_step(c, cc, scfg, device=dev)
+                tok, stream, ms = tok0, [], []
+                sharding.LOG.reset()
+                for _ in range(XLSTM17_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    lg, cache = step(params if cc is None else placed,
+                                     cache, tok)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    tok = torch.argmax(sharding.full_tensor(lg).float(),
+                                       -1).int()
+                    stream.append([int(t) for t in tok])
+                runs[key] = {"stream": stream, "ms": ms,
+                             "collectives": _collectives17()}
+                if cc is not None:
+                    ok = []
+                    sharding.tree_map(lambda a, sp: ok.append(
+                        sharding._norm(sharding.spec_of(a)
+                                       if sharding.is_dtensor(a)
+                                       else sharding.P(), a.ndim)
+                        == sharding._norm(sp, a.ndim)), cache,
+                        step_specs(c, ctx, scfg, cache))
+                    state = [x for k, v in cache["blocks"].items()
+                             for x in sharding._leaves_with_path(v)]
+                    runs[key]["placed_ok"] = all(ok)
+                    runs[key]["state_bytes"] = [
+                        sum(sharding.local_nbytes(t) for _, t in state),
+                        sum(t.numel() * t.element_size() for _, t in state)]
+                    if not all(ok) or 2 * runs[key]["state_bytes"][0] != \
+                            runs[key]["state_bytes"][1]:
+                        raise AssertionError(f"17g (b) {tag}: cache placed "
+                                             f"as step_specs {all(ok)}, a "
+                                             f"rank's state bytes "
+                                             f"{runs[key]['state_bytes']}")
+            if rank == 0:
+                runs["equal"] = runs["one"]["stream"] == runs["mesh"]["stream"]
+                if tag == "f32" and not runs["equal"]:
+                    raise AssertionError(
+                        f"17g (b) float32: batch-sharded stream "
+                        f"{runs['mesh']['stream']} vs one process "
+                        f"{runs['one']['stream']}")
+            out[tag] = runs
+    del params, placed
     torch.cuda.empty_cache()
     return out
 
 
 def sharded17(rank: int) -> dict:
-    """17.0-17f on one rank (the same program on every rank): 17f before
-    17e, which waits for the main process to leave the card."""
+    """17.0-17g on one rank (the same program on every rank): 17f and 17g
+    before 17e, which waits for the main process to leave the card."""
     import torch
     dev = torch.device("cuda")
     res = {"probe": probe17(rank)}
@@ -6911,6 +7331,9 @@ def sharded17(rank: int) -> dict:
     t0 = time.perf_counter()
     res["17f"] = whisper17(dev, rank)
     res["17f"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["17g"] = {"a": mamba17(dev, rank), "b": xlstm17(dev, rank)}
+    res["17g"]["s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res["17e"] = moe17(dev, rank)
     res["17e"]["s"] = time.perf_counter() - t0
@@ -7036,8 +7459,77 @@ def train_phase_lines(res: list, where: str) -> dict:
               f"{row['gap32']:.3e} within rtol = atol = 3e-3 (largest |gap| "
               f"- 3e-3 (1 + |logit|) {row['excess32']:.3e}), streams equal "
               f"{row['f32_stream']}")
+    print(f"phase 17f mesh loss, tensor-parallel, float32 compute, on (2, "
+          f"2) ({where}): {WHISPER_TRAIN_BATCH} x {WHISPER_TRAIN_SEQ} tokens "
+          f"and their 1500-frame stubs; loss {f['loss']:.7f} vs rank 0's one "
+          f"process {f['one_loss']:.7f} (rtol 1e-4); ms per rank "
+          f"{[round(r['17f']['loss_ms'], 1) for r in res]}; rank 0: "
+          f"{_coll_text(f['loss_collectives'])}; no model-axis weight "
+          f"gathered")
     print(f"phase 17f launches per rank {[r['17f']['launches'] for r in res]}"
           f" ({f['s']:.1f} s)")
+    g = r0["17g"]
+    for key, row in g["a"]["meshes"].items():
+        print(f"phase 17g (a) jamba Mamba position at published widths (d "
+              f"8192, ed 16384, N 16, W 4, rank 512) on {key} (data, model) "
+              f"({where}): x ({MAMBA_BATCH}, {MAMBA_SEQ}, 8192), "
+              f"channel-parallel on ed, float32; forward and backward of "
+              f"sum(y * probe): output gap {row['y_gap']:.3e}, largest "
+              f"gradient gap {row['grad_gap'][0]:.3e} ({row['grad_gap'][1]})"
+              f" over the one-process layer's largest entry (bound "
+              f"{MAMBA17_TOL}); ms per rank "
+              f"{[round(r['17g']['a']['meshes'][key]['ms'], 1) for r in res]}"
+              f"; rank 0: {_coll_text(row['collectives'])}; bf16 forward's "
+              f"gap to the one-process bf16 forward {row['bf16_gap']:.3e} "
+              f"(not gated)")
+        print(f"phase 17g (a) {key}: prefill, then {MAMBA17_STEPS} decode "
+              f"steps on the rank's state block (conv / h on ed, as "
+              f"cache_specs places them): outputs gap {row['step_gap']:.3e},"
+              f" final state gap {row['state_gap']:.3e} (bound "
+              f"{MAMBA17_TOL}); ms per step per rank "
+              f"{[round(r['17g']['a']['meshes'][key]['step_ms'], 1) for r in res]}"
+              f"; rank 0 over the steps: "
+              f"{_coll_text(row['step_collectives'])}; a rank holds "
+              f"{row['weight_bytes'][0]} of {row['weight_bytes'][1]} B of "
+              f"the placed weights, {row['state_bytes'][0]} of "
+              f"{row['state_bytes'][1]} B of state; no collective of a "
+              f"Mamba weight's shape")
+        wd = row["wide"]
+        print(f"phase 17g (a) {key} bf16 decode, the row-parallel products "
+              f"one GEMM with a float32 output (torch.mm out_dtype: "
+              f"{wd['out_dtype']}) vs their operands copied to float32: ms "
+              f"per step, rank 0, gemm {[round(t, 2) for t in wd['ms']['gemm']]}"
+              f", copy {[round(t, 2) for t in wd['ms']['copy']]}; outputs' "
+              f"largest gap {wd['gap']:.3e}; out_proj's product alone "
+              f"{wd['product_shape']} device ms gemm "
+              f"{wd['product_ms']['gemm']:.4f}, copy "
+              f"{wd['product_ms']['copy']:.4f}, plain bf16 "
+              f"{wd['product_ms']['bf16']:.4f}")
+    b = g["b"]
+    print(f"phase 17g (b) xlstm-125m uncut on (2, 2) (data, model) "
+          f"({where}), the xLSTM cells on whole weights (gathered a "
+          f"superblock at a time), the embedding and head vocab-parallel: "
+          f"float32 mesh loss on {XLSTM17_BATCH} x "
+          f"{XLSTM17_SEQ} tokens {b['loss']:.7f} vs rank 0's one process "
+          f"{b['one_loss']:.7f} (rtol 2e-3); ms per rank "
+          f"{[round(r['17g']['b']['loss_ms'], 1) for r in res]}; rank 0: "
+          f"{_coll_text(b['loss_collectives'])}")
+    for tag in ("f32", "bf16"):
+        x = b[tag]
+        print(f"phase 17g (b) [{tag} compute] prompt {XLSTM17_PROMPT} "
+              f"prefilled in one process, {XLSTM17_STEPS} batch-sharded "
+              f"greedy steps on the rank's state blocks (placed as "
+              f"step_specs says, its batch block: {x['mesh']['placed_ok']}; "
+              f"a rank holds "
+              f"{x['mesh']['state_bytes'][0]} of "
+              f"{x['mesh']['state_bytes'][1]} B of state): streams equal to "
+              f"rank 0's one process {x['equal']}"
+              f"{' (gated)' if tag == 'f32' else ' (printed, not gated)'}; "
+              f"median ms per step per rank "
+              f"{[round(statistics.median(r['17g']['b'][tag]['mesh']['ms']), 1) for r in res]}"
+              f" (one process {statistics.median(x['one']['ms']):.1f}); rank "
+              f"0 over the steps: {_coll_text(x['mesh']['collectives'])}")
+    print(f"phase 17g: {g['s']:.1f} s")
     e = r0["17e"]
     for tag in ("bf16", "f32"):
         x = e[tag]

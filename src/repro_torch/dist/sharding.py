@@ -64,6 +64,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import math
 import time
 from typing import Any, Sequence
@@ -1038,6 +1039,39 @@ def tp_leave(y: torch.Tensor, rl, partial: bool = True) -> torch.Tensor:
     # summed in float32, rounded once to y's dtype (as one matmul's
     # accumulator is): the decode steps' exits
     return all_sum(y.float(), rl.tp.mesh, rl.tp_axis).to(y.dtype)
+
+
+def wide_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` (``w`` 2-D) in the type a single position's partial
+    products are computed in before their sum is rounded once to ``a``'s
+    dtype: float32 for bf16 / fp16, float64 for float32 (a float32 part
+    carries its own accumulation's rounding, as large as the one-device
+    product's).  On the card a bf16 / fp16 product is one GEMM that
+    accumulates into a float32 output (``torch.mm``'s ``out_dtype``),
+    the weight read as it is; elsewhere both operands are widened
+    first."""
+    if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) and \
+            w.dtype == a.dtype and _mm_out_dtype():
+        return torch.mm(a.reshape(-1, a.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(*a.shape[:-1], -1)
+    t = torch.float64 if a.dtype == torch.float32 else torch.float32
+    return a.to(t) @ w.to(t)
+
+
+@functools.lru_cache(maxsize=None)
+def _mm_out_dtype() -> bool:
+    """Whether this torch has ``torch.mm``'s ``out_dtype`` overload."""
+    return "dtype" in torch.ops.aten.mm.overloads()
+
+
+def tp_block(x: torch.Tensor, rl, dim: int = 0) -> torch.Tensor:
+    """This rank's block along ``dim`` of a value every rank of the model
+    axis holds whole (a replicated vector cut to the rank's channels): a
+    view, whose gradient is zero outside the block, so the train step's
+    model-axis sum of a replicated leaf's gradient rebuilds the whole
+    one."""
+    n = x.shape[dim] // rl.tp_size
+    return x.narrow(dim, rl.tp_index * n, n)
 
 
 def resident_axis(ctx):

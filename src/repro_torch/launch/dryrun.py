@@ -15,7 +15,7 @@ for each cell this driver, in one process:
      ``prefill_batch`` / ``decode_inputs(specs=True)``, and places the
      state or params and the cache as the real launchers would (each
      rank's blocks: ``train/step.full_state_shardings``,
-     ``serve/engine.serve_param_shardings`` and ``cache_specs``);
+     ``serve/engine.serve_param_shardings`` and ``step_specs``);
   3. runs the port's REAL step eagerly on them
      (``train/step.make_train_step(ctx)``, ``serve/engine.jit_prefill``,
      ``jit_decode_step``), under ``roofline.bundle_from_trace`` and a
@@ -206,7 +206,8 @@ def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
     from repro_torch.dist import sharding
     from repro_torch.roofline.analysis import bundle_from_trace
     from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
-                                          jit_prefill, serve_param_shardings)
+                                          jit_prefill, serve_param_shardings,
+                                          step_specs)
     from repro_torch.train.step import (TrainConfig, full_state_shardings,
                                         init_full_state, make_train_step)
     data = ctx.data_size
@@ -240,7 +241,7 @@ def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
         scfg = ServeConfig(max_len=shape.seq_len,
                            long_context=shape.name == "long_500k")
         cache = sharding.place_tree(cache, sharding.spec_tree_shardings(
-            _cache_placement(cfg, ctx, scfg, cache), ctx))
+            step_specs(cfg, ctx, scfg, cache), ctx))
         batch_axes = 1 if scfg.long_context else data
         args = (sharding.local_nbytes(params) + sharding.local_nbytes(cache)
                 + sharding.local_nbytes(token) // batch_axes)
@@ -258,22 +259,6 @@ def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
                      sharding.is_dtensor(t) and id(t.to_local()) in held))
     temp = max(live.peak - output, 0)
     return args, output, temp, bundle, seconds
-
-
-def _cache_placement(cfg, ctx, scfg, cache):
-    """The cache's specs as ``jit_decode_step`` places them
-    (``cache_specs``; recurrent states replicated under long context,
-    else on the rank's batch block)."""
-    from repro_torch.dist import sharding
-    from repro_torch.dist.sharding import P
-    from repro_torch.serve.engine import cache_specs
-    specs = cache_specs(cfg, ctx, scfg, cache)
-    state_spec = P() if scfg.long_context else P(None, *ctx.batch_spec())
-    specs["blocks"] = {
-        k: v if isinstance(v, P) else sharding.map_specs(
-            lambda _: state_spec, v)
-        for k, v in specs["blocks"].items()}
-    return specs
 
 
 def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,

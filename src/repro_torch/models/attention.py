@@ -14,7 +14,12 @@ the reference's ``_flash_bwd`` (its ``custom_vjp``) as a
 ``dk`` and ``dv`` in float32.  ``decode_attention`` also runs over a
 sequence-sharded cache (``shard=``) as a distributed softmax;
 ``flash_attention`` under a mesh attends each rank's batch block (the
-reference's sharding constraints are placement hints).
+reference's sharding constraints are placement hints).  Under tensor
+parallelism :func:`qkv_project_tp` runs on a rank's blocks (``wq``
+columns, ``wkv`` rows, ``wo`` rows; its pieces :func:`tp_own`,
+:func:`tp_q`, :func:`tp_beat` and :func:`tp_rows` also serve whisper's
+encoder) and :func:`cross_attention_tp` on its column blocks of the
+cross-attention tree.
 
 EARTH integration: the fused KV projection emits each head's K/V
 interleaved along features — one contiguous beat per token, written to
@@ -74,34 +79,39 @@ def qkv_project(params, x: torch.Tensor, n_heads: int, n_kv: int,
     return q, k, v, kv
 
 
-def qkv_project_tp(params, x: torch.Tensor, n_heads: int, n_kv: int,
-                   head_dim: int, positions: torch.Tensor, rope_theta: float,
-                   rl, *, policy=None, all_heads: bool = False):
-    """:func:`qkv_project` on this rank's tensor-parallel blocks (``rl`` a
-    ``RankLocal`` with ``tp``, of ``m`` ranks, this one ``r``): ``wq``
-    its block of columns, ``wkv`` its block of rows (or whole).
+def tp_own(n_heads: int, n_kv: int, rl, all_heads: bool = False) -> bool:
+    """Whether this rank's query heads are its own block of them (``m``,
+    the model axis's size, divides the heads, and they attend one block
+    of KV heads or one KV head), else every head (the query columns
+    gathered)."""
+    m, g = rl.tp_size, n_heads // n_kv
+    return not all_heads and n_heads % m == 0 and (
+        n_kv % m == 0 or g % (n_heads // m) == 0)
 
-    The rank's query heads are its columns of ``wq`` where ``m`` divides
-    the heads and they attend one block of KV heads (``m`` divides the KV
-    heads) or one KV head (they lie in one GQA group); else, or with
-    ``all_heads``, every head, the columns gathered.  The kv beat is
-    whole: on a row block of ``wkv`` the rank's slice of ``x``'s features
-    makes a partial beat, summed over the model axis before the split
-    (for one position in float32, rounded once to ``x``'s dtype after the
-    sum, as the one-device product rounds).  Returns ``q`` (B, S, Hq, D),
-    the ``k`` / ``v`` its query heads attend, and the post-RoPE beat of
-    the KV heads it keeps (its block where ``m`` divides them and its
-    query heads are its own, else every KV head)."""
+
+def tp_q(params, x: torch.Tensor, head_dim: int, rl,
+         own: bool) -> torch.Tensor:
+    """``q`` (B, S, Hq, D) from this rank's ``wq`` columns: its own heads,
+    or every head (the columns gathered over the model axis)."""
+    from repro_torch.dist import sharding
+    B, S = x.shape[:2]
+    q = x @ params["wq"]
+    if not own:
+        q = sharding.gather_seq(q, rl.tp.mesh, rl.tp_axis, -1)
+    return q.reshape(B, S, q.shape[-1] // head_dim, head_dim)
+
+
+def tp_beat(params, x: torch.Tensor, n_kv: int, head_dim: int, rl,
+            own: bool) -> torch.Tensor:
+    """The kv beat (B, S, K', 2D) of ``x``: on a row block of ``wkv`` the
+    rank's slice of ``x``'s features makes a partial beat, summed over
+    the model axis before any split (for one position in float32,
+    rounded once to ``x``'s dtype, as the one-device product rounds);
+    cut to the rank's block of KV heads where its query heads are its
+    own and ``m`` divides the KV heads, else every KV head."""
     from repro_torch.dist import sharding
     mesh, axis, m, r = rl.tp.mesh, rl.tp_axis, rl.tp_size, rl.tp_index
     B, S, d = x.shape
-    g = n_heads // n_kv
-    own = not all_heads and n_heads % m == 0 and (
-        n_kv % m == 0 or g % (n_heads // m) == 0)
-    q = x @ params["wq"]
-    if not own:
-        q = sharding.gather_seq(q, mesh, axis, -1)
-    q = q.reshape(B, S, q.shape[-1] // head_dim, head_dim)
     wkv = params["wkv"]
     if wkv.shape[0] != d:
         n = wkv.shape[0]
@@ -116,6 +126,38 @@ def qkv_project_tp(params, x: torch.Tensor, n_heads: int, n_kv: int,
     kv = kv.reshape(B, S, n_kv, 2 * head_dim)
     if own and n_kv % m == 0:
         kv = kv[:, :, r * (n_kv // m):(r + 1) * (n_kv // m)]
+    return kv
+
+
+def _group_head(k, v, n_heads: int, n_kv: int, rl, own: bool):
+    """Where the rank's own query heads lie in one GQA group of KV heads
+    the axis does not split: that one KV head's k and v."""
+    if own and n_kv % rl.tp_size:
+        j = rl.tp_index * (n_heads // rl.tp_size) // (n_heads // n_kv)
+        return k[:, :, j:j + 1], v[:, :, j:j + 1]
+    return k, v
+
+
+def qkv_project_tp(params, x: torch.Tensor, n_heads: int, n_kv: int,
+                   head_dim: int, positions: torch.Tensor, rope_theta: float,
+                   rl, *, policy=None, all_heads: bool = False):
+    """:func:`qkv_project` on this rank's tensor-parallel blocks (``rl`` a
+    ``RankLocal`` with ``tp``, of ``m`` ranks, this one ``r``): ``wq``
+    its block of columns, ``wkv`` its block of rows (or whole).
+
+    The rank's query heads are its columns of ``wq`` where ``m`` divides
+    the heads and they attend one block of KV heads (``m`` divides the KV
+    heads) or one KV head (they lie in one GQA group); else, or with
+    ``all_heads``, every head, the columns gathered (:func:`tp_own`,
+    :func:`tp_q`).  The kv beat is whole: on a row block of ``wkv`` a
+    partial beat summed before the split (:func:`tp_beat`).  Returns
+    ``q`` (B, S, Hq, D), the ``k`` / ``v`` its query heads attend, and
+    the post-RoPE beat of the KV heads it keeps (its block where ``m``
+    divides them and its query heads are its own, else every KV
+    head)."""
+    own = tp_own(n_heads, n_kv, rl, all_heads)
+    q = tp_q(params, x, head_dim, rl, own)
+    kv = tp_beat(params, x, n_kv, head_dim, rl, own)
     k, v = vx.transpose(vx.Segment(n=kv.shape[-1], fields=2), kv,
                         policy=policy)
     if params.get("q_norm") is not None:
@@ -126,10 +168,17 @@ def qkv_project_tp(params, x: torch.Tensor, n_heads: int, n_kv: int,
     kv = vx.transpose(vx.Segment(n=kv.shape[-1], fields=2),
                       [k.contiguous(), v.contiguous()],
                       policy=policy)              # re-pack post-RoPE beat
-    if own and n_kv % m:
-        j = r * (n_heads // m) // g           # the one GQA group's head
-        k, v = k[:, :, j:j + 1], v[:, :, j:j + 1]
+    k, v = _group_head(k, v, n_heads, n_kv, rl, own)
     return q, k, v, kv
+
+
+def tp_rows(o: torch.Tensor, wo: torch.Tensor, rl) -> torch.Tensor:
+    """The heads' output ``o`` (..., Hq D) cut to the rows of this rank's
+    block of ``wo`` where the rank attended every head."""
+    n = wo.shape[0]
+    if o.shape[-1] == n:
+        return o
+    return o[..., rl.tp_index * n:(rl.tp_index + 1) * n]
 
 
 def _flash_body(q, k, *, q_pos, kv_pos, causal, window, scale, kv_len):
@@ -427,6 +476,48 @@ def cross_attention(params, x: torch.Tensor, enc_k: torch.Tensor,
                           q_chunk=min(512, S),
                           kv_chunk=min(512, enc_k.shape[1]), ctx=ctx)
     return out.reshape(B, S, n_heads * head_dim) @ params["wo"]
+
+
+def cross_attention_tp(params, x: torch.Tensor, enc_out: torch.Tensor,
+                       n_heads: int, n_kv: int, head_dim: int, rl, *,
+                       policy=None) -> tuple:
+    """:func:`cross_attention` on this rank's blocks of the
+    cross-attention tree over the whole encoder output ``enc_out``:
+    ``wq`` on its columns, ``wkv`` on its columns (whole KV heads' beats
+    where the model axis divides the KV heads), its rows (a partial beat
+    summed before the split, :func:`tp_beat`) or whole, ``wo`` on its
+    columns or its rows, as the reference's rules place whisper's stacked
+    cross leaves.  Where the axis divides the heads and the KV heads the
+    rank attends its own heads, else every head (the query columns and a
+    column block's beats gathered); the FIELD=2 split runs under
+    ``policy``.  Returns ``(y, partial)``: on ``wo``'s rows the rank's
+    partial sum (``partial`` True), on its columns the whole output (the
+    heads' outputs gathered, the rank's output features gathered in
+    turn)."""
+    from repro_torch.dist import sharding
+    mesh, axis, m = rl.tp.mesh, rl.tp_axis, rl.tp_size
+    own = tp_own(n_heads, n_kv, rl) and n_kv % m == 0
+    q = tp_q(params, x, head_dim, rl, own)
+    B, S = x.shape[:2]
+    F = enc_out.shape[1]
+    wkv, wo = params["wkv"], params["wo"]
+    if wkv.shape[1] != n_kv * 2 * head_dim:
+        kv = enc_out @ wkv                    # its column block of beats
+        if not own:
+            kv = sharding.gather_seq(kv, mesh, axis, -1)
+        kv = kv.reshape(B, F, -1, 2 * head_dim)
+    else:
+        kv = tp_beat(params, enc_out, n_kv, head_dim, rl, own)
+    k, v = vx.transpose(vx.Segment(n=kv.shape[-1], fields=2), kv,
+                        policy=policy)
+    out = flash_attention(q, k, v, causal=False, window=None,
+                          q_chunk=min(512, S), kv_chunk=min(512, F))
+    o = out.reshape(B, S, -1)
+    if wo.shape[0] != n_heads * head_dim:
+        return tp_rows(o, wo, rl) @ wo, True
+    if own:
+        o = sharding.gather_seq(o, mesh, axis, -1)
+    return sharding.gather_seq(o @ wo, mesh, axis, -1), False
 
 
 def init_cross_attention(d_model: int, n_heads: int, n_kv: int,

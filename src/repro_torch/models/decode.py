@@ -58,7 +58,11 @@ pools' page axis.  Each rank keeps its block of a sharded leaf (a
 or page, and attention over a sequence-sharded cache is a distributed
 softmax (``attention.decode_attention``).  Weights placed as ``DTensor``
 s are gathered a layer at a time, when the layer runs
-(``transformer.superblock``).
+(``transformer.superblock``); under tensor parallelism a recurrent
+state ``DTensor`` placed as ``serve/engine.step_specs`` says is stepped
+on the rank's block of Mamba's channels or, the xLSTM cells', whole
+over the model axis (a state placed otherwise is gathered for the step
+and cut back).
 """
 from __future__ import annotations
 
@@ -75,9 +79,10 @@ from repro_torch.kernels import kv_interleaved
 from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
 from repro_torch.models.ssm import init_mamba_cache, mamba_decode_step
-from repro_torch.models.transformer import (ModelConfig, _ffn_apply,
-                                            _mixer_params, cast_params,
-                                            check_supported, superblock,
+from repro_torch.models.transformer import (STATE_BLOCK_DIMS, ModelConfig,
+                                            _ffn_apply, _mixer_params,
+                                            cast_params, check_supported,
+                                            recurrent_blocks, superblock,
                                             tp_specs, tree_map)
 from repro_torch.models.xlstm import (init_mlstm_state, init_slstm_state,
                                       mlstm_decode_step, slstm_decode_step)
@@ -104,14 +109,87 @@ def _stacked_init(cfg: ModelConfig, kind: str, batch: int, dtype, device):
 
 
 def _recurrent_step(p, h: torch.Tensor, state, cfg: ModelConfig,
-                    kind: str):
-    """(y, state) of one token through a recurrent position's block."""
+                    kind: str, tp=None):
+    """(y, state) of one token through a recurrent position's block; with
+    ``tp`` (Mamba's weights this rank's blocks) the rank's partial ``y``
+    and its block of the state."""
     pm = _mixer_params(p, cfg, kind)
     if kind == "mamba":
-        return mamba_decode_step(pm, h, state, cfg.mamba)
+        return mamba_decode_step(pm, h, state, cfg.mamba, tp)
     if kind == "mlstm":
         return mlstm_decode_step(pm, h, state, cfg.xlstm)
     return slstm_decode_step(pm, h, state, cfg.xlstm)
+
+
+def _placed(x, rl):
+    """``(local, spec, model, other)`` of a superblock's state field: its
+    block and spec, the dims after the batch (dim 0, whose placement is
+    the rank's block of the batch) the model axis shards, and those other
+    axes shard; a plain tensor is whole."""
+    if not sharding.is_dtensor(x):
+        return x, (None,) * x.ndim, [], []
+    spec = sharding._norm(sharding.spec_of(x), x.ndim)
+    axis = getattr(rl, "tp_axis", None)
+    model = [d for d in range(1, x.ndim) if axis and spec[d] == axis]
+    other = [d for d in range(1, x.ndim)
+             if spec[d] is not None and d not in model]
+    return x.to_local(), spec, model, other
+
+
+def _state_in(x, need, rl):
+    """One field of a superblock's recurrent state, placed as
+    ``serve/engine.step_specs`` says (a ``DTensor``: the batch dim the
+    rank's block, the dims after it as placed; or a plain tensor every
+    rank holds whole), in the layout its mixer takes: whole after the batch
+    (``need`` None), or this rank's block along dim ``need`` over the
+    model axis (a block the placement already holds there as it is, else
+    gathered and cut)."""
+    local, spec, model, other = _placed(x, rl)
+    if need is not None and model == [need] and not other:
+        return local
+    for d in model + other:
+        local = sharding.all_gather(local, x.device_mesh, spec[d], d)
+    return local if need is None else sharding.tp_block(local, rl, need)
+
+
+def _state_out(x, new, need, rl) -> None:
+    """Write ``new`` (the mixer's layout, as :func:`_state_in` gave it)
+    back into the field ``x`` as it is placed, in place (cast to its
+    dtype)."""
+    local, spec, model, other = _placed(x, rl)
+    if need is not None and model == [need] and not other:
+        local.copy_(new)
+        return
+    if need is not None:
+        new = sharding.all_gather(new, rl.tp.mesh, rl.tp_axis, need)
+    if model or other:
+        new = sharding.local_block(new, x.device_mesh,
+                                   sharding.P(None, *spec[1:]))
+    local.copy_(new)
+
+
+def _recurrent_position(p, h, leaf, sbi: int, cfg: ModelConfig, kind: str,
+                        rl) -> torch.Tensor:
+    """One token through superblock ``sbi``'s recurrent position, its
+    state ``leaf`` updated in place; returns the block's output.  Under
+    tensor parallelism with the weights this rank's blocks (Mamba's) the
+    mixer runs on the rank's block of the state (:func:`_state_in` /
+    :func:`_state_out` cut it from and write it back to its placement)
+    and its partial output is summed over the model axis and rounded
+    once; on whole weights (the xLSTM cells') the state is whole."""
+    block = getattr(rl, "tp", None) is not None and \
+        recurrent_blocks(p, cfg, kind)
+    dims = STATE_BLOCK_DIMS[kind] if block else None
+    fields = tree_map(lambda a: sharding.select(a, sbi), leaf)
+    needs = dims if dims is not None else (None,) * len(fields)
+    st = type(fields)(*(_state_in(x, n, rl)
+                        for x, n in zip(fields, needs)))
+    y, st = _recurrent_step(p, h, st, cfg, kind, rl if block else None)
+    for x, new, n in zip(fields, st, needs):
+        _state_out(x, new, n, rl)
+    if block:
+        y = sharding.tp_leave(y, rl).to(h.dtype)
+    return y
 
 
 def _keep_active(new, old, active: torch.Tensor):
@@ -312,10 +390,8 @@ def _dense_attn(p, h, x, blocks, pre_split, i: int, sbi: int, pos,
     out = attention.decode_attention(q[:, 0], k_all, v_all, eff_len,
                                      window=None, shard=shard)
     if tp:
-        o, wo = out.reshape(B, -1), p["attn"]["wo"]
-        if o.shape[-1] != wo.shape[0]:      # every head: this rank's rows
-            n = wo.shape[0]
-            o = o[:, rl.tp_index * n:(rl.tp_index + 1) * n]
+        wo = p["attn"]["wo"]
+        o = attention.tp_rows(out.reshape(B, -1), wo, rl)
         # the parts in float32, rounded once after the sum
         return x + sharding.tp_leave(o.float() @ wo.float(), rl).to(x.dtype)
     if heads is not None:
@@ -406,11 +482,8 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg: ModelConfig,
             p = sb_p[f"pos{i}"]
             h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
             if kind != "attn":
-                leaf = blocks[f"pos{i}"]
-                y, st = _recurrent_step(p, h, _sb_state(leaf, sbi), cfg,
-                                        kind)
-                x = x + y
-                _set_state(leaf, sbi, st)
+                x = x + _recurrent_position(p, h, blocks[f"pos{i}"], sbi,
+                                            cfg, kind, ctx)
             else:
                 x = _dense_attn(p, h, x, blocks, pre_split, i, sbi, pos,
                                 positions, cfg, pol, beat_pol, fuse,

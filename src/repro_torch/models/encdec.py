@@ -22,6 +22,8 @@ decoder step does.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -74,14 +76,29 @@ def init_cross_stack(cfg, g: torch.Generator, device) -> dict:
 
 
 def encode(params, frames: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
-    """frames: (B, F, d) stub embeddings -> encoder output (B, F, d)."""
-    from repro_torch.models.transformer import superblock
+    """frames: (B, F, d) stub embeddings -> encoder output (B, F, d).
+    Under a tensor-parallel ``RankLocal`` the layers run on this rank's
+    blocks (:func:`_encoder_attn_tp`, the Megatron GELU MLP), the
+    residual stream the rank's block of the frames where the model axis
+    divides their count, and the output comes back whole (gathered once,
+    for the decoder's cross K/V)."""
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import _ffn_apply, _tp, superblock
     B, F, _ = frames.shape
     x = frames.to(cfg.cdtype) + _sinusoid(
         torch.arange(F, device=frames.device), cfg.d_model).to(cfg.cdtype)
+    tp = _tp(ctx)
+    if tp:
+        m = ctx.tp_size
+        ctx = dataclasses.replace(ctx, seq=F % m == 0 and F >= m)
+        x = sharding.tp_leave(x, ctx, partial=False)
     for li in range(cfg.encoder.n_layers):
         blk = superblock(params["encoder"]["blocks"], li)
         h = layers.rms_norm(x, blk["ln1"], cfg.norm_eps)
+        if tp:
+            x = x + _encoder_attn_tp(blk["attn"], h, cfg, ctx)
+            x, _ = _ffn_apply(blk, x, cfg, ctx, 0)
+            continue
         q = (h @ blk["attn"]["wq"]).reshape(B, F, cfg.n_heads, cfg.hd)
         kv = (h @ blk["attn"]["wkv"]).reshape(B, F, cfg.n_kv_heads,
                                               2 * cfg.hd)
@@ -93,7 +110,42 @@ def encode(params, frames: torch.Tensor, cfg, ctx=None) -> torch.Tensor:
         x = x + out.reshape(B, F, -1) @ blk["attn"]["wo"]
         h2 = layers.rms_norm(x, blk["ln2"], cfg.norm_eps)
         x = x + layers.mlp_ffn(blk["mlp"], h2)
-    return layers.rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+    x = layers.rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+    return sharding.tp_enter(x, ctx) if tp else x
+
+
+def _encoder_attn_tp(a, h, cfg, rl) -> torch.Tensor:
+    """An encoder layer's non-causal self-attention under a
+    tensor-parallel ``RankLocal``, back in the residual stream's layout:
+    on this rank's blocks (``wq`` columns, ``wkv`` rows or whole, ``wo``
+    rows) the rank's heads (every head, the query columns gathered, where
+    the axis does not divide them), the beat's FIELD=2 split on the
+    rank's block under ``cfg.vx_policy``, and ``wo``'s partial sum; on
+    whole weights every head, of whose output the rank keeps its
+    block."""
+    from repro_torch.dist import sharding
+    h = sharding.tp_enter(h, rl)
+    B, F = h.shape[:2]
+    block = a["wo"].shape[0] != cfg.n_heads * cfg.hd
+    if block:
+        own = attention.tp_own(cfg.n_heads, cfg.n_kv_heads, rl)
+        q = attention.tp_q(a, h, cfg.hd, rl, own)
+        kv = attention.tp_beat(a, h, cfg.n_kv_heads, cfg.hd, rl, own)
+    else:
+        q = (h @ a["wq"]).reshape(B, F, cfg.n_heads, cfg.hd)
+        kv = (h @ a["wkv"]).reshape(B, F, cfg.n_kv_heads, 2 * cfg.hd)
+    k, v = vx.transpose(vx.Segment(n=kv.shape[-1], fields=2), kv,
+                        policy=cfg.vx_policy)
+    if block:
+        k, v = attention._group_head(k, v, cfg.n_heads, cfg.n_kv_heads, rl,
+                                     own)
+    out = attention.flash_attention(q, k, v, causal=False, window=None,
+                                    q_chunk=min(512, F),
+                                    kv_chunk=min(512, F))
+    o = out.reshape(B, F, -1)
+    if block:
+        o = attention.tp_rows(o, a["wo"], rl)
+    return sharding.tp_leave(o @ a["wo"], rl, partial=block)
 
 
 def _decoder_self_and_cross(sb_p, cross_p, x, cfg, ctx, positions, enc_kv,
@@ -121,12 +173,73 @@ def _decoder_self_and_cross(sb_p, cross_p, x, cfg, ctx, positions, enc_kv,
     return x, (kv if mode == "prefill" else None)
 
 
+def _decoder_layer_tp(sb_p, cross_p, x, enc_out, positions, cfg, rl,
+                      mode: str):
+    """One decoder layer under a tensor-parallel ``RankLocal`` (``x`` the
+    residual stream's layout, ``enc_out`` whole): the self-attention
+    (``transformer._tp_attn``), the cross-attention on the rank's column
+    blocks (``attention.cross_attention_tp``, its norm on the rank's
+    features, gathered; on whole weights every head), of whose whole
+    output the rank keeps its block, and the MLP
+    (``transformer._ffn_apply``)."""
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import _ffn_apply, _tp_attn
+    p = sb_p["pos0"]
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    x, kv = _tp_attn(p, h, x, cfg, rl, 0, positions, mode)
+    xa, ln = cross_p["xattn"], cross_p["ln"]
+    xs = sharding.tp_enter(x, rl)
+    if ln.shape[0] != cfg.d_model:      # the rank's features, gathered
+        hx = sharding.gather_seq(layers.rms_norm_block(
+            xs, ln, rl.tp_index, cfg.norm_eps), rl.tp.mesh, rl.tp_axis, -1)
+    else:
+        hx = layers.rms_norm(xs, ln, cfg.norm_eps)
+    if xa["wq"].shape[1] != cfg.n_heads * cfg.hd:
+        y, partial = attention.cross_attention_tp(
+            xa, hx, enc_out, cfg.n_heads, cfg.n_kv_heads, cfg.hd, rl,
+            policy=cfg.vx_policy)
+    else:
+        ck, cv = attention.encoder_kv(xa, enc_out, cfg.n_kv_heads, cfg.hd,
+                                      policy=cfg.vx_policy)
+        y = attention.cross_attention(xa, hx, ck, cv, cfg.n_heads,
+                                      cfg.n_kv_heads, cfg.hd)
+        partial = False
+    x = x + sharding.tp_leave(y, rl, partial=partial)
+    x, _ = _ffn_apply(p, x, cfg, rl, 0)
+    return x, kv
+
+
 def _decoder_layer(sb_p, cross_p, x, enc_out, positions, *, cfg, ctx,
                    mode: str):
+    from repro_torch.models.transformer import _tp
+    if _tp(ctx):
+        return _decoder_layer_tp(sb_p, cross_p, x, enc_out, positions, cfg,
+                                 ctx, mode)
     ck, cv = attention.encoder_kv(cross_p["xattn"], enc_out, cfg.n_kv_heads,
                                   cfg.hd, policy=cfg.vx_policy)
     return _decoder_self_and_cross(sb_p, cross_p, x, cfg, ctx, positions,
                                    (ck, cv), mode)
+
+
+def _embed_tp(params, tokens, cfg, rl) -> torch.Tensor:
+    """The embedded tokens plus the sinusoid under a tensor-parallel
+    ``RankLocal``, in the residual stream's layout: from this rank's
+    vocab rows a partial sum (the sinusoid counted on the first rank),
+    or the whole lookup cut to the rank's block."""
+    from repro_torch.dist import sharding
+    table = params["embed"]
+    S = tokens.shape[1]
+    pos = _sinusoid(torch.arange(S, device=tokens.device),
+                    cfg.d_model).to(cfg.cdtype)
+    block = table.shape[0] != cfg.vocab
+    if not block:
+        x = layers.embed(tokens, table).to(cfg.cdtype) + pos
+    else:
+        x = layers.embed_block(tokens, table,
+                               rl.tp_index * table.shape[0]).to(cfg.cdtype)
+        if rl.tp_index == 0:
+            x = x + pos
+    return sharding.tp_leave(x, rl, partial=block)
 
 
 def forward(params, batch, cfg, ctx=None, *, mode: str = "train"):
@@ -134,14 +247,27 @@ def forward(params, batch, cfg, ctx=None, *, mode: str = "train"):
     aux, cache_states); ``params`` already in the compute dtype
     (``transformer.forward`` casts before it dispatches here).  Prefill
     returns the last position's logits and ``{"pos0": (NS, B, S, K, 2D),
-    "enc_out": (B, F, d)}``; ``hidden`` the final-normed hidden states."""
-    from repro_torch.models.transformer import superblock
+    "enc_out": (B, F, d)}``; ``hidden`` the final-normed hidden states.
+
+    Under a tensor-parallel ``RankLocal`` (the mesh forward; ``params``
+    the rank's blocks as ``transformer.tp_specs`` keeps them) the encoder
+    (:func:`encode`) and every decoder layer run on the rank's blocks,
+    the residual stream the rank's block of the sequence where the model
+    axis divides it, the embedding and the head on their vocab rows; the
+    hidden states come back whole, the logits gathered over the vocab,
+    the prefill's beats with every KV head."""
+    from repro_torch.dist import sharding
+    from repro_torch.models.transformer import _tp, superblock
     tokens = batch["tokens"]
     B, S = tokens.shape
+    tp = _tp(ctx)
     enc_out = encode(params, batch["audio_frames"], cfg, ctx)
-    x = layers.embed(tokens, params["embed"]).to(cfg.cdtype)
-    x = x + _sinusoid(torch.arange(S, device=x.device),
-                      cfg.d_model).to(cfg.cdtype)
+    if tp:
+        x = _embed_tp(params, tokens, cfg, ctx)
+    else:
+        x = layers.embed(tokens, params["embed"]).to(cfg.cdtype)
+        x = x + _sinusoid(torch.arange(S, device=x.device),
+                          cfg.d_model).to(cfg.cdtype)
     positions = torch.arange(S, device=x.device).expand(B, S)
     remat = cfg.remat != "none" and torch.is_grad_enabled()
     kv_list = []
@@ -157,8 +283,14 @@ def forward(params, batch, cfg, ctx=None, *, mode: str = "train"):
                                    cfg=cfg, ctx=ctx, mode=mode)
         kv_list.append(kv)
     if mode == "prefill":
+        if tp:
+            x = sharding.tp_enter(x, ctx)
         x = x[:, -1:]  # serving prefill only needs next-token logits
-    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    else:
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if tp:
+            x = sharding.tp_enter(x, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     cache_states = ({"pos0": torch.stack(kv_list), "enc_out": enc_out}
                     if mode == "prefill" else {})
@@ -166,6 +298,8 @@ def forward(params, batch, cfg, ctx=None, *, mode: str = "train"):
         return x, aux, cache_states
     head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     logits = layers.unembed(x, head.to(cfg.cdtype))
+    if head.shape[0] != cfg.vocab:              # this rank's vocab block
+        logits = sharding.gather_seq(logits, ctx.tp.mesh, ctx.tp_axis, -1)
     return logits, aux, cache_states
 
 
@@ -248,7 +382,12 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg, ctx=None, *,
     ``vx.Shard`` on the KV-head axis, -2) marks both leaves as this
     rank's block of the heads: the rank keeps its block of the beat and
     of the query heads, attends locally and gathers the heads' outputs
-    before ``wo``."""
+    before ``wo``.  The step takes each layer's weights whole (gathered
+    a layer at a time; ``ctx``'s tensor parallelism is not used): with
+    them the head-parallel step computes each rank's logits bit for bit
+    as the one-process step computes its batch block, where row blocks
+    of ``wo`` would add the heads' parts over the model axis in another
+    order."""
     from repro_torch.dist import sharding
     from repro_torch.models.decode import _head_block, _owner_write
     from repro_torch.models.transformer import (_ffn_apply, cast_params,
@@ -274,8 +413,8 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg, ctx=None, *,
     sc = ring.shape[2]
     H, K = cfg.n_heads, cfg.n_kv_heads
     for li in range(cfg.n_superblocks):
-        p = superblock(params["blocks"], li, ctx)["pos0"]
-        cross_p = superblock(params["cross"], li, ctx)
+        p = superblock(params["blocks"], li)["pos0"]
+        cross_p = superblock(params["cross"], li)
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         q, _, _, kv = attention.qkv_project(p["attn"], h[:, None], H, K,
                                             cfg.hd, positions,
@@ -298,7 +437,7 @@ def decode_step(params, cache: dict, token: torch.Tensor, cfg, ctx=None, *,
             B, 1, H, cfg.hd), head_shard, H)[:, 0]
         xo = _attend(qx, enc_kv, li, enc_kv.shape[2], enc_shard, head_shard)
         x = x + (xo.reshape(B, -1) @ cross_p["xattn"]["wo"]).to(x.dtype)
-        x2, _ = _ffn_apply(p, x[:, None], cfg, ctx, 0)
+        x2, _ = _ffn_apply(p, x[:, None], cfg, None, 0)
         x = x2[:, 0]
     x = layers.rms_norm(x, top["final_norm"], cfg.norm_eps)
     head = top["embed"] if cfg.tie_embeddings else top["lm_head"]

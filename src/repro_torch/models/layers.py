@@ -32,6 +32,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
 
 
+def rms_norm_block(x: torch.Tensor, scale: torch.Tensor, index: int,
+                   eps: float = 1e-6) -> torch.Tensor:
+    """Block ``index`` of :func:`rms_norm`'s output features, ``scale``
+    that block's gains (``x`` whole): the same elementwise arithmetic on
+    the block's features."""
+    dtype = x.dtype
+    x = x.float()
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    n = scale.shape[0]
+    xb = x[..., index * n:(index + 1) * n]
+    return ((xb * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     dtype = x.dtype

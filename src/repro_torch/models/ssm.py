@@ -13,6 +13,25 @@ the reference's per-step arithmetic (``dt`` and the state in float32).  The
 recurrence is torch ops; no kernel is involved, as in the reference.
 
 Decode carries ``(conv window, h)`` in the cache: O(1) per token.
+
+Tensor parallelism (``tp``, a ``dist.sharding.RankLocal`` with ``tp``):
+the reference shards ``ed`` over the model axis, and so does the port.
+:func:`mamba_forward` and :func:`mamba_decode_step` then take this rank's
+blocks of the six matrices on ``ed`` (``in_proj`` ``(d, 2 ed/m)`` in its
+matmul shape, ``conv_w``, ``x_proj``'s rows, ``dt_proj``'s columns,
+``A_log``'s rows, ``out_proj``'s rows) and cut the replicated vectors
+``conv_b``, ``dt_bias`` and ``D`` to the block.  The conv and the scan
+run on the rank's ``ed/m`` channels; ``x_proj``'s partial product is
+summed over the model axis once, in float32 and rounded once, so that
+``dt_in``, ``B`` and ``C`` come whole; the output is ``out_proj``'s
+partial sum, which the caller sums (``sharding.tp_leave``).  A single
+position's partial products (the decode step's) are computed by
+``sharding.wide_matmul``: float32 for bf16 (on the card one GEMM with a
+float32 output, the weight block read as it is), float64 for float32,
+whose parts would otherwise each carry a float32 accumulation's
+rounding.  The state
+is the rank's block: ``conv`` ``(B, W-1, ed/m)``, ``h`` ``(B, ed/m,
+N)``.
 """
 from __future__ import annotations
 
@@ -21,6 +40,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist import sharding
 from repro_torch.models import layers
 
 
@@ -92,13 +112,31 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return out + b
 
 
-def _ssm_inputs(params, x: torch.Tensor, spec: MambaSpec):
+def _vectors(params, tp) -> tuple:
+    """``conv_b``, ``dt_bias`` and ``D``: under ``tp`` this rank's block
+    of each."""
+    vs = tuple(params[k] for k in ("conv_b", "dt_bias", "D"))
+    if tp is None:
+        return vs
+    return tuple(sharding.tp_block(v, tp) for v in vs)
+
+
+def _ssm_inputs(params, x: torch.Tensor, spec: MambaSpec, dt_bias,
+                tp=None):
     """Common projections.  x: (B,S,ed) post-conv.  Returns dt (B,S,ed)
-    float32, B and C (B,S,N) in x's dtype."""
+    float32, B and C (B,S,N) in x's dtype.  Under ``tp`` x holds this
+    rank's channels: ``x_proj``'s partial product is summed over the
+    model axis in float32 (a single position's by
+    ``sharding.wide_matmul``) and rounded once to x's dtype."""
     N, r = spec.state_dim, spec.rank
-    proj = x @ params["x_proj"]
+    if tp is None:
+        proj = x @ params["x_proj"]
+    else:
+        part = sharding.wide_matmul(x, params["x_proj"]) \
+            if x.shape[1] == 1 else x.float() @ params["x_proj"].float()
+        proj = sharding.all_sum(part, tp.tp.mesh, tp.tp_axis).to(x.dtype)
     dt_in, Bmat, Cmat = torch.split(proj, [r, N, N], dim=-1)
-    dt = softplus(dt_in @ params["dt_proj"] + params["dt_bias"].float())
+    dt = softplus(dt_in @ params["dt_proj"] + dt_bias.float())
     return dt, Bmat, Cmat
 
 
@@ -124,18 +162,22 @@ class MambaCache(NamedTuple):
 
 
 def mamba_forward(params, x: torch.Tensor, spec: MambaSpec, *,
-                  chunk: int = 128) -> tuple[torch.Tensor, MambaCache]:
+                  chunk: int = 128, tp=None) -> tuple[torch.Tensor,
+                                                      MambaCache]:
     """Full block forward (train / prefill).  x: (B,S,d) -> ((B,S,d),
-    cache): the final conv window and SSM state."""
+    cache): the final conv window and SSM state.  Under ``tp`` (the
+    params this rank's blocks on ``ed``) the output is this rank's
+    partial sum and the cache its block of the channels."""
     xz = x @ params["in_proj"]
     xin, z = torch.chunk(xz, 2, dim=-1)
-    xc = F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"]))
-    dt, Bm, Cm = _ssm_inputs(params, xc, spec)
+    conv_b, dt_bias, D = _vectors(params, tp)
+    xc = F.silu(_causal_conv(xin, params["conv_w"], conv_b))
+    dt, Bm, Cm = _ssm_inputs(params, xc, spec, dt_bias, tp)
     A = -torch.exp(params["A_log"].float())
-    h0 = torch.zeros((x.shape[0], spec.ed, spec.state_dim),
+    h0 = torch.zeros((x.shape[0], xin.shape[-1], spec.state_dim),
                      dtype=torch.float32, device=x.device)
     y, hf = selective_scan(dt.float(), Bm.float(), Cm.float(), xc.float(),
-                           A, params["D"].float(), h0, chunk=chunk)
+                           A, D.float(), h0, chunk=chunk)
     out = (y.to(x.dtype) * F.silu(z)) @ params["out_proj"]
     W, S = spec.conv_width, x.shape[1]
     conv = (xin[:, S - (W - 1):] if S >= W - 1
@@ -153,23 +195,30 @@ def init_mamba_cache(batch: int, spec: MambaSpec, dtype,
 
 
 def mamba_decode_step(params, x_t: torch.Tensor, cache: MambaCache,
-                      spec: MambaSpec) -> tuple[torch.Tensor, MambaCache]:
-    """One-token step.  x_t: (B, d).  O(1) state update."""
+                      spec: MambaSpec, tp=None) -> tuple[torch.Tensor,
+                                                         MambaCache]:
+    """One-token step.  x_t: (B, d).  O(1) state update.  Under ``tp``
+    the cache is this rank's block of the channels and the output its
+    partial sum, wider than x's dtype (``sharding.wide_matmul``)."""
     xz = x_t @ params["in_proj"]
     xin, z = torch.chunk(xz, 2, dim=-1)                        # (B, ed)
+    conv_b, dt_bias, D = _vectors(params, tp)
     # jnp.concatenate / einsum promote a narrower cache window
     window = torch.cat([cache.conv, xin[:, None]], dim=1)      # (B,W,ed)
     wt = torch.promote_types(window.dtype, params["conv_w"].dtype)
     xc = torch.einsum("bwe,we->be", window.to(wt),
-                      params["conv_w"].to(wt)) + params["conv_b"]
+                      params["conv_w"].to(wt)) + conv_b
     xc = F.silu(xc)
-    dt, Bm, Cm = _ssm_inputs(params, xc[:, None], spec)
+    dt, Bm, Cm = _ssm_inputs(params, xc[:, None], spec, dt_bias, tp)
     dt, Bm, Cm = dt[:, 0], Bm[:, 0], Cm[:, 0]
     A = -torch.exp(params["A_log"].float())
     da = torch.exp(dt.float()[..., None] * A)
     h = da * cache.h + (dt * xc).float()[..., None] \
         * Bm.float()[:, None, :]
     y = torch.einsum("ben,bn->be", h, Cm.float())
-    y = (y + xc.float() * params["D"]).to(x_t.dtype)
-    out = (y * F.silu(z)) @ params["out_proj"]
+    y = (y + xc.float() * D).to(x_t.dtype)
+    if tp is not None:
+        out = sharding.wide_matmul(y * F.silu(z), params["out_proj"])
+    else:
+        out = (y * F.silu(z)) @ params["out_proj"]
     return out, MambaCache(conv=window[:, 1:], h=h)

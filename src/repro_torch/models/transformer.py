@@ -39,10 +39,10 @@ plain full batch it slices) and runs the layers on a
 banks are never gathered: each rank keeps its block of experts over the
 model axis, and the MoE layer runs expert-parallel (models/moe.py).
 
-Tensor parallelism (a decoder on a model axis of more than one rank,
-:func:`tp_on`): each rank keeps the model-axis blocks the reference's
-rules placed (:func:`tp_specs`; gathered over the data axes only, where
-FSDP splits them) and computes Megatron's split of each layer: ``wq``
+Tensor parallelism (a model axis of more than one rank, :func:`tp_on`):
+each rank keeps the model-axis blocks the reference's rules placed
+(:func:`tp_specs`; gathered over the data axes only, where FSDP splits
+them) and computes Megatron's split of each layer: ``wq``
 and the FFN's ``wi`` (``wg`` / ``wu``) column-parallel, ``wo`` and
 ``wkv`` row-parallel (the partial beat summed before its split), the
 attention head-parallel on the rank's query heads (with their GQA
@@ -57,18 +57,22 @@ reference's Megatron-SP): a layer enters through
 ``sharding.gather_seq`` and leaves through ``scatter_seq``; else every
 rank holds the whole stream and a layer leaves through ``all_sum``.  A
 layer whose weights the rules did not place as its split needs (an odd
-count of ``wi`` columns a rank, which would split a (gate, up) pair; a
-recurrent mixer) takes them whole and runs on the whole sequence,
-keeping its block of the output.  Every rank's cotangent is its share
-(``dist/sharding.py``): a block's gradient is whole for the block, a
-replicated leaf's is partial and the train step sums it over the model
-axis, and :func:`rank_loss` passes each rank its share of the loss
-(``sharding.share``).  Whisper's encoder-decoder gathers its weights
-whole, its activations replicated over the model axis (every rank of a
-data block computes the same ones; the gather's transpose takes the
-owned slice).  The loss is the global ``psum(num) / max(psum(den), 1)``
-over the data axes; a rank's gradient is its data block's share, which
-``train/step.py`` sums over the data axes.
+count of ``wi`` columns a rank, which would split a (gate, up) pair; an
+xLSTM cell) takes them whole and runs on the whole sequence, keeping its
+block of the output.  Mamba runs channel-parallel on its ``ed`` blocks
+(models/ssm.py), its state the rank's block of the channels.  Whisper's
+encoder (head-parallel, the frames sequence-sharded where the axis
+divides them, its output gathered once) and decoder (the self-attention
+and MLP as above, the cross-attention on its column blocks) run on the
+rank's blocks too (models/encdec.py).  Every rank's cotangent is its
+share (``dist/sharding.py``): a block's gradient is whole for the block,
+a replicated leaf's is partial and the train step sums it over the model
+axis (a replicated vector a layer cuts to its block,
+``sharding.tp_block``, has a zero gradient outside it), and
+:func:`rank_loss` passes each rank its share of the loss
+(``sharding.share``).  The loss is the global ``psum(num) /
+max(psum(den), 1)`` over the data axes; a rank's gradient is its data
+block's share, which ``train/step.py`` sums over the data axes.
 """
 from __future__ import annotations
 
@@ -85,11 +89,16 @@ from repro_torch.dist.sharding import meshed
 from repro_torch.kernels._common import tree_leaves
 from repro_torch.models import attention, layers
 from repro_torch.models.moe import MoESpec, init_moe, moe_layer
-from repro_torch.models.ssm import MambaSpec, init_mamba, mamba_forward
+from repro_torch.models.ssm import (MambaCache, MambaSpec, init_mamba,
+                                    mamba_forward)
 from repro_torch.models.xlstm import (XLSTMSpec, init_mlstm, init_slstm,
                                       mlstm_forward, slstm_forward)
 
 RECURRENT = ("mamba", "mlstm", "slstm")
+#: The dim of each field of a superblock's ``(B, ...)`` recurrent state
+#: that a block-wise mixer (:func:`recurrent_blocks`) holds as this
+#: rank's block over the model axis: Mamba's channels.
+STATE_BLOCK_DIMS = {"mamba": MambaCache(conv=2, h=1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,10 +345,24 @@ def tp_specs(tree, specs, axis: str):
       theirs, ``wo`` on its rows; the GELU MLP: ``wi`` columns, ``wo``
       rows;
     * MoE: the banks on their expert dim, the router on its rows;
+    * Mamba: ``in_proj``, ``conv_w``, ``dt_proj`` and ``A_log`` on
+      ``ed``, ``x_proj`` and ``out_proj`` on their ``ed`` rows
+      (channel-parallel; models/ssm.py);
+    * whisper's cross-attention ``xattn``: ``wq`` on its columns,
+      ``wkv`` on its columns, rows or unsplit, ``wo`` on its columns or
+      rows, and its norm gain ``ln`` on its features (the rules read the
+      stacked cross tree as unstacked);
     * the embedding and the untied head on their vocab rows.
 
-    ``tree`` holds one superblock's leaves (no stacked dim) or the
-    top-level leaves."""
+    The xLSTM cells keep their weights whole.  The sLSTM's rules put
+    ``r`` on its gate columns, which split each head's four gates across
+    ranks, and its FFN's (gate, up) halves on column blocks that do not
+    pair.  The mLSTM could run head-parallel on its blocks, but its
+    row-parallel ``wi`` / ``wf`` / ``down`` sums change its output by an
+    ulp, which xlstm amplifies (a one-ulp change moves xlstm-smoke's
+    gradients by 1.8e-4 of their largest entries), and the mesh loss is
+    held within 1e-5 of the one-process port's.  ``tree`` holds one
+    superblock's leaves (no stacked dim) or the top-level leaves."""
     from repro_torch.dist import sharding
     pairs = {"/".join(p): xs for (p, _), xs in zip(
         sharding._leaves_with_path(tree), sharding._zip_leaves(tree, specs))}
@@ -352,7 +375,19 @@ def tp_specs(tree, specs, axis: str):
         head, _, leaf = path.rpartition("/")
         pre = head + "/" if head else ""
         kind = head.rpartition("/")[2]
-        if kind == "attn" and leaf == "wq":
+        if kind == "xattn" and leaf == "wq":
+            # the reference's rules read the stacked cross tree as
+            # unstacked: wq on its columns, wkv and wo on their columns
+            # or rows, the norm gain on its features
+            if md(path) == 1 and md(pre + "wkv") in (0, 1, None) and \
+                    md(pre + "wo") in (0, 1):
+                keep |= {path, pre + "wo"} | (
+                    {pre + "wkv"} if md(pre + "wkv") is not None else set())
+                ln = head.rpartition("/")[0]
+                ln = (ln + "/" if ln else "") + "ln"
+                if md(ln) == 0:
+                    keep.add(ln)
+        elif kind == "attn" and leaf == "wq":
             if md(path) == 1 and md(pre + "wo") == 0 and \
                     md(pre + "wkv") in (0, None):
                 keep |= {path, pre + "wo"} | (
@@ -368,6 +403,11 @@ def tp_specs(tree, specs, axis: str):
                                                             pairs[path][0]
                                                             .ndim)):
             keep.add(path)
+        elif kind == "mamba" and leaf == "out_proj":
+            want = {"in_proj": 2, "conv_w": 1, "x_proj": 0, "dt_proj": 1,
+                    "A_log": 0, "out_proj": 0}
+            if all(md(pre + k) == d for k, d in want.items()):
+                keep |= {pre + k for k in want}
         elif not head and leaf in ("embed", "lm_head") and md(path) == 0:
             keep.add(path)
 
@@ -384,11 +424,11 @@ def tp_specs(tree, specs, axis: str):
 
 def tp_on(cfg, ctx) -> bool:
     """Whether the mesh forward and the sharded decode steps run
-    tensor-parallel under ``ctx``: a model axis of more than one rank,
-    and a decoder-only config (whisper's encoder-decoder gathers its
-    weights whole)."""
+    tensor-parallel under ``ctx``: a model axis of more than one rank
+    (every family; whisper's decode step takes its weights whole,
+    models/encdec.py)."""
     from repro_torch.dist.sharding import meshed
-    return meshed(ctx) and ctx.model_size > 1 and cfg.encoder is None
+    return meshed(ctx) and ctx.model_size > 1
 
 
 def rank_ctx(ctx, cfg, seq_len: int):
@@ -524,9 +564,8 @@ def _tp_attn(p, h, x, cfg: ModelConfig, rl, i: int, positions, mode: str):
                                     q_chunk=min(512, S),
                                     kv_chunk=min(512, S))
     o = out.reshape(B, S, -1)
-    if block and o.shape[-1] != a["wo"].shape[0]:
-        n = a["wo"].shape[0]               # every head: this rank's rows
-        o = o[..., rl.tp_index * n:(rl.tp_index + 1) * n]
+    if block:
+        o = attention.tp_rows(o, a["wo"], rl)
     x = x + sharding.tp_leave(o @ a["wo"], rl, partial=block)
     if mode != "prefill":
         return x, None
@@ -561,10 +600,12 @@ def superblock_apply(sb_p, x, cfg: ModelConfig, ctx, positions, *,
 
 def _mixer_params(p, cfg: ModelConfig, kind: str) -> dict:
     """A recurrent position's block parameters with the fused input
-    projection back in its ``(d, 2 * inner)`` matmul shape."""
+    projection back in its ``(d, 2 * inner)`` matmul shape (a rank's
+    Mamba block ``(d, 2, ed / m)`` as ``(d, 2 * ed / m)``: its x and z
+    channels side by side)."""
     if kind == "mamba":
         pm = dict(p["mamba"])
-        pm["in_proj"] = pm["in_proj"].reshape(cfg.d_model, 2 * cfg.mamba.ed)
+        pm["in_proj"] = pm["in_proj"].reshape(cfg.d_model, -1)
         return pm
     if kind == "mlstm":
         px = dict(p["xl"])
@@ -573,11 +614,21 @@ def _mixer_params(p, cfg: ModelConfig, kind: str) -> dict:
     return p["slstm"]
 
 
-def _recurrent_forward(p, h, cfg: ModelConfig, kind: str):
-    """(y, final state) of a recurrent block over ``h`` (B, S, d)."""
+def recurrent_blocks(p, cfg: ModelConfig, kind: str) -> bool:
+    """Whether a recurrent position's weights are this rank's model-axis
+    blocks (:func:`tp_specs` kept them): Mamba channel-parallel; the
+    xLSTM cells never."""
+    return kind == "mamba" and \
+        p["mamba"]["out_proj"].shape[0] != cfg.mamba.ed
+
+
+def _recurrent_forward(p, h, cfg: ModelConfig, kind: str, tp=None):
+    """(y, final state) of a recurrent block over ``h`` (B, S, d); with
+    ``tp`` (Mamba's weights this rank's blocks) the rank's partial ``y``
+    and its block of the state."""
     pm = _mixer_params(p, cfg, kind)
     if kind == "mamba":
-        return mamba_forward(pm, h, cfg.mamba, chunk=cfg.ssm_chunk)
+        return mamba_forward(pm, h, cfg.mamba, chunk=cfg.ssm_chunk, tp=tp)
     if kind == "mlstm":
         return mlstm_forward(pm, h, cfg.xlstm)
     return slstm_forward(pm, h, cfg.xlstm)
@@ -593,11 +644,14 @@ def _position_apply(p, x, positions, *, cfg: ModelConfig, ctx, i: int,
     elif kind in RECURRENT:
         h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
         if _tp(ctx):
-            # the whole sequence through the whole weights; the rank
-            # keeps its block of the output
+            # the whole sequence through the rank's blocks (a partial
+            # sum), or through whole weights (the rank keeps its block
+            # of the output)
             from repro_torch.dist.sharding import tp_enter, tp_leave
-            y, state = _recurrent_forward(p, tp_enter(h, ctx), cfg, kind)
-            y = tp_leave(y, ctx, partial=False)
+            block = recurrent_blocks(p, cfg, kind)
+            y, state = _recurrent_forward(p, tp_enter(h, ctx), cfg, kind,
+                                          ctx if block else None)
+            y = tp_leave(y, ctx, partial=block)
         else:
             y, state = _recurrent_forward(p, h, cfg, kind)
         x = x + y
@@ -669,10 +723,7 @@ def forward(params, batch, cfg: ModelConfig, ctx=None, *,
         out, aux, states, _, _ = _rank_forward(local, specs, batch, cfg,
                                                ctx, mode)
         return (_place_batch(out, ctx, 0), aux,
-                {k: sharding.tree_map(
-                    lambda a, k=k: _place_batch(a, ctx,
-                                                0 if k == "enc_out" else 1),
-                    v) for k, v in states.items()})
+                _place_states(states, cfg, ctx))
     params = cast_params(params, cfg)
     if cfg.encoder is not None:
         from repro_torch.models import encdec
@@ -758,7 +809,10 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
     rl = rank_ctx(ctx, cfg, S)
     if cfg.encoder is not None:
         from repro_torch.models import encdec
-        whole = sharding.gather_tree(local, specs, mesh, reduce=reduce)
+        if rl.tp is not None:
+            specs = _encdec_tp_specs(local, specs, ctx)
+        whole = sharding.gather_tree(local, specs, mesh,
+                                     reduce=_reduce_axes(ctx, rl))
         return encdec.forward(whole, batch, cfg, rl, mode=mode) + (whole,
                                                                     rl)
     top = {k: local[k] for k in local if k != "blocks"}
@@ -803,6 +857,64 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
     if head.shape[0] != cfg.vocab:              # this rank's vocab block
         logits = sharding.gather_seq(logits, mesh, ctx.model_axis, -1)
     return logits, aux, cache_states, whole, rl
+
+
+def _stacked_tp_specs(local, specs, ctx):
+    """:func:`tp_specs` of a subtree stacked over its leading dim (the
+    superblocks, the encoder's layers, the cross stack), read a layer at
+    a time; a leaf no layer keeps keeps its spec."""
+    from repro_torch.dist import sharding
+    from repro_torch.dist.sharding import P
+    per = sharding.tree_map(lambda a, sp: P(*sp[1:]), local, specs)
+    one = tp_specs(tree_map(lambda a: a[0], local), per, ctx.model_axis)
+    return sharding.tree_map(
+        lambda a, sp, p1, p2: sp if p1 == p2 else P(None, *p2), local,
+        specs, per, one)
+
+
+def _encdec_tp_specs(local, specs, ctx):
+    """The encoder-decoder's specs with the tensor-parallel layers'
+    blocks kept (:func:`tp_specs`): the embedding's vocab rows, and in
+    the encoder's layers, the decoder's and its cross-attention the
+    attention's and the MLP's blocks."""
+    top = [k for k in ("embed", "final_norm", "lm_head") if k in local]
+    out = dict(specs)
+    out.update(tp_specs({k: local[k] for k in top},
+                        {k: specs[k] for k in top}, ctx.model_axis))
+    for k in ("blocks", "cross"):
+        out[k] = _stacked_tp_specs(local[k], specs[k], ctx)
+    out["encoder"] = dict(specs["encoder"], blocks=_stacked_tp_specs(
+        local["encoder"]["blocks"], specs["encoder"]["blocks"], ctx))
+    return out
+
+
+def _place_states(states: dict, cfg: ModelConfig, ctx) -> dict:
+    """A mesh prefill's cache states placed: on their batch over the data
+    axes (dim 1 of a stacked ``(NS, B, ...)`` leaf, dim 0 of
+    ``enc_out``), and a recurrent state a block-wise mixer returned
+    (this rank's block of Mamba's channels) also on that dim over the
+    model axis: the recurrent states as the decode step keeps them
+    (``serve/engine.step_specs``)."""
+    from repro_torch.dist import sharding
+    out = {}
+    for key, v in states.items():
+        if key == "enc_out":
+            out[key] = _place_batch(v, ctx, 0)
+            continue
+        kind = cfg.block_pattern[int(key[3:])]
+        dims = STATE_BLOCK_DIMS.get(kind)
+        if dims is None or v[0].shape[dims[0] + 1] == cfg.mamba.ed:
+            out[key] = sharding.tree_map(lambda a: _place_batch(a, ctx, 1),
+                                         v)
+            continue
+
+        def one(a, d):
+            parts = [None, *ctx.batch_spec()] + [None] * (a.ndim - 2)
+            parts[d + 1] = ctx.model_axis
+            return sharding.from_local(a, ctx.mesh, sharding.P(*parts))
+
+        out[key] = type(v)(*(one(a, d) for a, d in zip(v, dims)))
+    return out
 
 
 def _whole(t, ctx):

@@ -17,7 +17,8 @@ batch-sharded step (each rank its block of the batch over the data axes,
 the KV leaves per :func:`cache_specs`: its block of the KV heads over
 the model axis, attended head-parallel, or of the sequence, attended by
 the distributed softmax); :func:`jit_prefill` runs the mesh forward
-(``models/transformer.forward``: each rank its batch block).
+(``models/transformer.forward``: each rank its batch block, the
+recurrent states returned placed as :func:`step_specs` says).
 ``BatchedServer`` with a mesh runs the paged scheduler on every rank,
 unsharded, as the reference's does (its scheduler takes no mesh).
 :func:`make_fleet` puts N scheduler replicas behind the
@@ -40,8 +41,9 @@ from repro_torch.device import resolve as resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P
 from repro_torch.models import decode as dec
-from repro_torch.models.transformer import (ModelConfig, check_supported,
-                                            forward, rank_ctx, tp_on)
+from repro_torch.models.transformer import (STATE_BLOCK_DIMS, ModelConfig,
+                                            check_supported, forward,
+                                            rank_ctx, tp_on)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +106,28 @@ def cache_specs(cfg: ModelConfig, ctx, scfg: ServeConfig, cache_template):
     return sharding.tree_paths(cache_template, spec_for)
 
 
+def step_specs(cfg: ModelConfig, ctx, scfg: ServeConfig, cache_template):
+    """The placement a mesh decode step keeps its cache in (``None``
+    without a mesh): :func:`cache_specs`, except that a recurrent state
+    whose mixer steps it whole (the xLSTM cells, whose weights stay whole
+    under tensor parallelism) stays whole over the model axis.  Placed as
+    the reference places it, such a state would be gathered before every
+    step and cut back after it, buying only its memory; Mamba steps the
+    rank's block of its channels (``transformer.STATE_BLOCK_DIMS``), as
+    :func:`cache_specs` places it."""
+    specs = cache_specs(cfg, ctx, scfg, cache_template)
+    if specs is None or not ctx.model_axis:
+        return specs
+
+    def whole(sp):
+        return P(*(None if a == ctx.model_axis else a for a in sp))
+
+    return {**specs, "blocks": {
+        k: sharding.map_specs(whole, v)
+        if cfg.block_pattern[int(k[3:])] not in ("attn", *STATE_BLOCK_DIMS)
+        else v for k, v in specs["blocks"].items()}}
+
+
 def serve_param_shardings(params_template, cfg: ModelConfig, ctx):
     """The weights' placement, a tree of ``dist.sharding.Sharding`` (the
     reference's ``tree_param_specs`` rules on ``ctx``'s mesh); ``None``
@@ -130,14 +154,16 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     ctx.vx_seq_shard(-3)``.  A leaf already placed so is taken as it is;
     place the weights once (``dist.sharding.place_tree``) to keep only
     their blocks resident.  The logits come back whole on every rank.
-    The port's recurrent step runs on replicated state, so recurrent
-    state leaves stay replicated.
+    Recurrent state leaves are placed as :func:`step_specs` says: Mamba's
+    as :func:`cache_specs` says (its channels over the model axis; it
+    steps the rank's block, channel-parallel), the xLSTM cells' on their
+    batch only (they step whole state on whole weights).
 
     With a mesh and without ``scfg.long_context`` (the batch-sharded
     step) each rank steps its block of the batch over the data axes: the
-    token and the cache leaves (``cache_specs``; a recurrent state's
-    batch only, replicated over the model axis) are its blocks, the
-    logits come back placed on the batch.  KV leaves whose heads the
+    token and the cache leaves (:func:`step_specs`, the recurrent states
+    among them) are its blocks, the logits come back placed on the
+    batch.  KV leaves whose heads the
     model axis splits are attended head-parallel (each rank its heads,
     the heads' outputs gathered), those whose sequence it splits by the
     distributed softmax over the model axis.  The fused split then runs
@@ -150,8 +176,8 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     :func:`cache_specs` (long-context: each on its sequence over every
     axis that divides it; batch-sharded: the batch, then the heads or
     the sequence over the model axis), ``qkv_project``'s split and
-    re-pack on the rank's block.  Without a mesh the templates are
-    unused."""
+    re-pack on the rank's block, its weights gathered a layer at a time.
+    Without a mesh the templates are unused."""
     meshed = sharding.meshed(ctx)
     check_supported(cfg)
     device = resolve_device(device)
@@ -168,17 +194,9 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
             placed["params"] = serve_param_shardings(
                 params_template if params_template is not None else params,
                 cfg, param_ctx or ctx)
-            cspecs = cache_specs(cfg, ctx, scfg, cache_template
-                                 if cache_template is not None else cache)
-            # the recurrent step runs on whole state: replicated (long
-            # context), or the rank's batch block
-            state_spec = P() if scfg.long_context else P(
-                None, *ctx.batch_spec())
-            cspecs["blocks"] = {
-                k: v if isinstance(v, P) else sharding.map_specs(
-                    lambda _: state_spec, v)
-                for k, v in cspecs["blocks"].items()}
-            placed["cache"] = sharding.spec_tree_shardings(cspecs, ctx)
+            placed["cache"] = sharding.spec_tree_shardings(step_specs(
+                cfg, ctx, scfg, cache_template if cache_template is not None
+                else cache), ctx)
         return placed["params"], placed["cache"]
 
     @torch.no_grad()
@@ -222,8 +240,10 @@ def _batch_sharded_step(params, cache: dict, token, cfg: ModelConfig, ctx,
             local = sharding.from_local(local, sub, P(None, None, m_ax))
         return local
 
+    # a recurrent state goes as it is placed: the step reads its batch
+    # dim as the rank's block (models/decode._state_in)
     blocks = {k: rank_block(leaf) if isinstance(leaf, torch.Tensor)
-              and leaf.ndim == 5 else sharding.tree_map(block_of, leaf)
+              and leaf.ndim == 5 else leaf
               for k, leaf in cache["blocks"].items()}
     local = {"len": cache["len"], "blocks": blocks}
     if "enc_kv" in cache:
@@ -265,7 +285,8 @@ def jit_prefill(cfg: ModelConfig, ctx, params_template=None,
     tree; a leaf already so placed is taken as it is) and the mesh
     forward runs: each rank prefills its block of the batch over the
     data axes, and the logits and cache states come back placed on their
-    batch."""
+    batch, the recurrent states as :func:`step_specs` places them (the
+    model layer places them: ``transformer._place_states``)."""
     check_supported(cfg)
     device = resolve_device(device)
     meshed = sharding.meshed(ctx)

@@ -513,11 +513,75 @@ def _bank_shapes(cfg, model: int) -> set:
     return out
 
 
+#: Long-context greedy steps of the recurrent stacks.
+LONG_GEN = 4
+
+
+#: The prompt of the mesh prefill the recurrent stacks decode from.
+PREFILL_LEN = 8
+
+
+def _prefill_then_decode(out, name, cfg, params, batch, ctx) -> None:
+    """``jit_prefill`` of the batch's first ``PREFILL_LEN`` tokens on one
+    process and on ``ctx``'s mesh, then three greedy ``jit_decode_step``
+    steps from each prefill's cache (the mesh's recurrent states as the
+    prefill placed them, its KV gathered): the logits, the states
+    (gathered), whether the mesh's states are placed as ``step_specs``
+    says, and the greedy tokens."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.models import decode as dec
+    from repro_torch.serve import engine
+    scfg = engine.ServeConfig(max_len=16)
+    prompt = {"tokens": batch["tokens"][:, :PREFILL_LEN]}
+    for tag, c in (("one", None), ("mesh", ctx)):
+        logits, states = engine.jit_prefill(cfg, c, device="cpu")(params,
+                                                                   prompt)
+        rec = {k: v for k, v in states.items()
+               if cfg.block_pattern[int(k[3:])] != "attn"}
+        if c is not None:
+            out[f"{name}/prefill/placed_ok"] = np.asarray(_placed_as(
+                rec, engine.step_specs(cfg, ctx, scfg,
+                                       {"blocks": rec})["blocks"]))
+        out[f"{name}/prefill/{tag}/logits"] = _np(logits)
+        _put(out, f"{name}/prefill/{tag}/states", rec)
+        cache = dec.cache_from_prefill(cfg, {
+            k: v if k in rec else sharding.full_tensor(v)
+            for k, v in states.items()}, PREFILL_LEN, 16)
+        step = engine.jit_decode_step(cfg, c, scfg, device="cpu")
+        tok = torch.argmax(sharding.full_tensor(logits)[:, -1], -1).to(
+            torch.int32)
+        toks = []
+        for _ in range(3):
+            lg, cache = step(params, cache, tok)
+            tok = torch.argmax(sharding.full_tensor(lg), -1).to(torch.int32)
+            toks.append(tok.numpy())
+        out[f"{name}/prefill/{tag}/tokens"] = np.stack(toks)
+
+
+def _placed_as(tree, specs) -> bool:
+    """Whether every leaf of ``tree`` is placed as the matching spec of
+    ``specs`` says (a plain leaf: a spec that shards nothing)."""
+    from repro_torch.dist import sharding
+    ok = []
+    sharding.tree_map(lambda a, sp: ok.append(sharding._norm(
+        sharding.spec_of(a) if sharding.is_dtensor(a) else sharding.P(),
+        a.ndim) == sharding._norm(sp, a.ndim)), tree, specs)
+    return all(ok)
+
+
 def check_family_losses(inp: dict) -> dict:
     """For each family's smoke config (the reference's weights and seeded
     batch, ``ref``): the mesh loss on (2, 4) and its gradients (reduced
-    over the data axes, whole) beside the one-process port's; three
-    greedy batch-sharded decode steps beside the one-process steps; for
+    over the data axes and, the layers tensor-parallel, the model axis,
+    whole) beside the one-process port's; three greedy batch-sharded
+    decode steps beside the one-process steps, with the cache's placement
+    against ``step_specs`` and ``cache_specs`` and the recurrent state
+    bytes a rank holds; for the recurrent stacks ``LONG_GEN``
+    long-context (B 1) steps, and the mesh ``jit_prefill`` of
+    ``PREFILL_LEN`` tokens (its states' placement, the logits and states
+    gathered) and three greedy batch-sharded steps from its cache beside
+    the one-process prefill and steps; for
     MoE, the expert-parallel layer on the
     rank's resident banks (the mesh forward's) against the expert-parallel
     ``moe_layer`` and the one-process ``expert_parallel_plain`` on the
@@ -555,8 +619,7 @@ def check_family_losses(inp: dict) -> dict:
             str(sh) for sh in sharding.LOG.shapes() & banks) or [""])
         out[f"{name}/mesh/loss"] = m["loss"].detach().numpy()
         out[f"{name}/mesh/aux"] = m["aux"].detach().numpy()
-        _put(out, f"{name}/mesh/grads",
-             _reduced_grads(leaves, ctx, cfg.encoder is None))
+        _put(out, f"{name}/mesh/grads", _reduced_grads(leaves, ctx))
         # three greedy batch-sharded decode steps (recurrent states: each
         # rank its batch block, updated in place; MoE: each rank its
         # resident experts; whisper: its enc_kv from the batch's frames)
@@ -582,6 +645,36 @@ def check_family_losses(inp: dict) -> dict:
                 toks.append(tok.numpy())
             out[f"{name}/serve/{tag}"] = np.stack(logits)
             out[f"{name}/serve/{tag}/tokens"] = np.stack(toks)
+        if cfg.encoder is None:
+            # the mesh step's cache as it placed it: step_specs (Mamba's
+            # state a rank's block of its channels, as cache_specs says;
+            # the xLSTM cells' whole over the model axis)
+            out[f"{name}/serve/placed_ok"] = np.asarray(
+                _placed_as(cache, engine.step_specs(cfg, ctx, scfg, cache)))
+            out[f"{name}/serve/as_cache_specs"] = np.asarray(
+                _placed_as(cache, engine.cache_specs(cfg, ctx, scfg, cache)))
+            out[f"{name}/serve/state_paths"], out[
+                f"{name}/serve/state_bytes"] = _mixer_bytes(cache["blocks"],
+                                                            ctx.mesh)
+        if cfg.mamba is not None or cfg.xlstm is not None:
+            # long-context (B 1) steps from an empty cache
+            lctx = make_ctx(ctx.mesh, long_context=True)
+            long = engine.ServeConfig(max_len=16, long_context=True)
+            step = engine.jit_decode_step(cfg, lctx, long, device="cpu")
+            cache = dec.init_cache(cfg, 1, 16, device="cpu")
+            tok = batch["tokens"][:1, 0]
+            logits, toks = [], []
+            for _ in range(LONG_GEN):
+                lg, cache = step(params, cache, tok)
+                lg = sharding.full_tensor(lg)
+                logits.append(lg.numpy())
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                toks.append(tok.numpy())
+            out[f"{name}/long"] = np.stack(logits)
+            out[f"{name}/long/tokens"] = np.stack(toks)
+            out[f"{name}/long/placed_ok"] = np.asarray(
+                _placed_as(cache, engine.step_specs(cfg, lctx, long, cache)))
+            _prefill_then_decode(out, name, cfg, params, batch, ctx)
         if any(cfg.moe_pattern):
             pos = f"pos{list(cfg.moe_pattern).index(True)}"
             pm = sharding.tree_map(lambda a: a[0],
@@ -629,18 +722,37 @@ def check_family_losses(inp: dict) -> dict:
 #: head, the query columns gathered; its GELU MLP).
 TP_CASES = (("qwen3-0.6b", (2, 4)), ("qwen3-0.6b", (4, 2)),
             ("qwen3-moe-30b-a3b", (2, 4)), ("qwen3-moe-30b-a3b", (4, 2)),
-            ("starcoder2-3b", (2, 4)))
+            ("starcoder2-3b", (2, 4)),
+            ("jamba-1.5-large-398b", (2, 4)), ("jamba-1.5-large-398b", (4, 2)),
+            ("xlstm-125m", (2, 4)),
+            ("whisper-tiny", (2, 4)), ("whisper-tiny", (4, 2)))
 #: The replicated leaves whose gradient the train step sums over the
-#: model axis (the mutation check's).
+#: model axis (the mutation check's): qwen3's norm gains and the vectors
+#: jamba's Mamba layers cut to a rank's channels.
 NORMS = ("ln1", "ln2", "attn/q_norm", "attn/k_norm", "final_norm")
+CUT = ("mamba/conv_b", "mamba/dt_bias", "mamba/D")
+MUTATIONS = {"qwen3-0.6b/2x4": NORMS, "jamba-1.5-large-398b/2x4": CUT}
+#: The xLSTM cells' subtrees: their layers take the leaves the rules
+#: place on the model axis whole, gathered.
+XLSTM = ("/xl/", "/slstm/")
 
 
-def _weight_shapes(params, psh, model: int) -> set:
+def _stacked(path) -> bool:
+    """Whether the leaf at ``path`` is stacked over layers: the
+    superblocks, whisper's encoder layers and its cross stack."""
+    return path[0] in ("blocks", "cross") or tuple(path[:2]) == (
+        "encoder", "blocks")
+
+
+def _weight_shapes(params, psh, model: int, only=None) -> set:
     """The shapes of the leaves the parameter rules place on the model
-    axis, whole and a model-axis rank's block, as a gather moves them: a
-    superblock's leaf without its stacked dim (the mesh forward gathers a
+    axis (those whose path ends with one of ``only``, if given), whole and
+    a model-axis rank's block, as a gather moves them: a stacked leaf a
+    layer's, without its stacked dim (the mesh forward gathers a
     superblock at a time; the stacked shape of smoke qwen3's ``ffn/wo``
-    block, (2, 64, 128), is also the gathered residual stream's)."""
+    block, (2, 64, 128), is also the gathered residual stream's, and a
+    stacked shape of whisper-smoke's, (2, 64, 128), its encoder's summed
+    beat's on a batch block of 2)."""
     from repro_torch.dist import sharding
     out = set()
     for (path, leaf), where in zip(sharding._leaves_with_path(params),
@@ -648,13 +760,44 @@ def _weight_shapes(params, psh, model: int) -> set:
         spec = sharding._norm(where.spec, leaf.ndim)
         dims = [d for d, e in enumerate(spec) if "model" in
                 sharding._names(e)]
-        if not dims:
+        if not dims or (only and not "/".join(path).endswith(only)):
             continue
         blk = list(leaf.shape)
         blk[dims[0]] //= model
         for sh in (tuple(leaf.shape), tuple(blk)):
-            out.add(sh[1:] if path[0] == "blocks" else sh)
+            out.add(sh[1:] if _stacked(path) else sh)
     return out
+
+
+#: The mixers whose weights a rank holds as its model-axis blocks:
+#: Mamba's channels.
+MIXERS = ("/mamba/",)
+
+
+def _mixer_bytes(tree, mesh) -> tuple:
+    """``(paths, per-rank rows)`` for the leaves of ``tree`` placed on the
+    model axis under a block-wise mixer (:data:`MIXERS`), and the placed
+    leaves of a recurrent state (a NamedTuple field, ``.``-named,
+    whether or not the model axis places it): per rank and leaf
+    its whole bytes, this rank's bytes and the number of blocks its
+    spec cuts it into (the data axes' size, where it names them, times
+    the model axis's)."""
+    from repro_torch.dist import sharding
+    paths, rows = [], []
+    for path, leaf in sharding._leaves_with_path(tree):
+        key = "/" + "/".join(path) + "/"
+        if not sharding.is_dtensor(leaf) or not (
+                any(m in key for m in MIXERS) or "/." in key):
+            continue
+        names = {a for e in sharding.spec_of(leaf)
+                 for a in sharding._names(e)}
+        if "model" not in names and "/." not in key:
+            continue
+        paths.append("/".join(path))
+        rows += [leaf.numel() * leaf.element_size(),
+                 sharding.local_nbytes(leaf),
+                 sharding.axes_size(leaf.device_mesh, tuple(names))]
+    return np.asarray(paths or [""]), _per_rank(rows, mesh)
 
 
 def check_tp_losses(inp: dict) -> dict:
@@ -663,9 +806,13 @@ def check_tp_losses(inp: dict) -> dict:
     ``ref``), the loss, aux and every gradient leaf (reduced as the train
     step reduces them, whole), and the shapes of model-sharded weights
     among the collectives and packed gathers of its forward and backward
-    (``LOG``).  On qwen3-0.6b (2, 4) also the train step's own gradient
-    reduction (``train/step._reduce_grads``) of the replicated leaves
-    with and without its model-axis sum (the mutation check), and a
+    (``LOG``), with the whole shapes of the xLSTM cells' placed leaves;
+    for jamba the bytes of the Mamba leaves placed on the model axis a
+    rank holds (:func:`_mixer_bytes`).  On qwen3-0.6b
+    and jamba (2, 4) also the train step's own gradient reduction
+    (``train/step._reduce_grads``) of the replicated leaves (the norm
+    gains; the vectors a Mamba layer cuts to a rank's channels) with and
+    without its model-axis sum (the mutation check), and a
     config whose ``wi`` block would split a (gate, up) pair (d_ff 65 on a
     model axis of 2: ``wi`` and ``wo`` gathered whole, the FFN replicated)
     against the one-process port."""
@@ -698,10 +845,21 @@ def check_tp_losses(inp: dict) -> dict:
         out[f"{tag}/weights_in_log"] = np.asarray(
             sorted(str(x) for x in seen) or [""])
         out[f"{tag}/leaves_gathered"] = np.asarray(len(sharding.LOG.leaves))
+        # the whole shapes (a superblock's) of the xLSTM cells' placed
+        # leaves
+        out[f"{tag}/xlstm_whole"] = np.asarray(sorted({
+            str(tuple(leaf.shape[1:])) for (path, leaf), where in zip(
+                sharding._leaves_with_path(params),
+                sharding._sharding_leaves(sh["params"]))
+            if any(c in "/" + "/".join(path) + "/" for c in XLSTM)
+            and sharding.is_sharded(where.spec)}) or [""])
         out[f"{tag}/loss"] = m["loss"].detach().numpy()
         out[f"{tag}/aux"] = m["aux"].detach().numpy()
         _put(out, f"{tag}/grads", _reduced_grads(leaves, ctx))
-        if tag != "qwen3-0.6b/2x4":
+        if cfg.mamba is not None:
+            out[f"{tag}/mixer_paths"], out[f"{tag}/mixer_bytes"] = \
+                _mixer_bytes(leaves, ctx.mesh)
+        if tag not in MUTATIONS:
             continue
         # the train step's own reduction, with and without the model-axis
         # sum of the replicated leaves' gradients
@@ -715,7 +873,7 @@ def check_tp_losses(inp: dict) -> dict:
                 k: p[:3] + ((),) for k, p in plans.items()})):
             red = tstep._reduce_grads(grads, use, ctx)
             for k, g in red.items():
-                if k.endswith(NORMS):
+                if k.endswith(MUTATIONS[tag]):
                     zd, zaxes = use[k][:2]
                     if zd is not None:
                         g = sharding.all_gather(g, ctx.mesh, zaxes, zd)
