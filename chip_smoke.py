@@ -8,8 +8,8 @@ started together) and exits non-zero, with no result line, when there is
 no card or no port beside it.
 
 Phases, in order (any failure raises and exits non-zero).  The ranks of
-phases 16 and 17 and the CLI runs of phases 7-12 and 15c are processes
-of their own (``Background``): the ranks start after phase 6 and run
+phases 16 and 17 and the CLI runs of phases 7-12, 15c and 19 are
+processes of their own (``Background``): the ranks start after phase 6 and run
 beside phases 7-14 of this process, the CLIs start after phase 10, three
 at a time, beside phases 11-14; then their lines print, the CLIs' in
 phase order, then phase 16's and 17's, and phase 15 runs alone.  Every
@@ -434,10 +434,19 @@ shared with the background, not alone:
    collective of a Mamba weight's shape, the bf16 gap printed, and bf16
    decode steps timed with the row-parallel products as one GEMM with a
    float32 output and with their operands copied to float32; (b)
-   xlstm-125m uncut on (2, 2): the float32 mesh loss within rtol 2e-3 of
-   one process, 8 batch-sharded greedy steps on the rank's batch block
-   of the state (placed as ``step_specs`` says, 1/2 of the bytes a
-   rank), float32 streams equal to one process, bf16 streams printed;
+   xlstm-125m uncut on (2, 2), the mLSTM head-parallel and the sLSTM
+   channel-parallel on the rank's weight blocks (1/2 of the cells'
+   placed bytes, no collective of a model-axis weight's shape): the
+   float32 mesh loss on 4 x 128 tokens within 2e-3 of rank 0's one
+   process, its loss and every gradient leaf on 4 x 8 within 2e-3 (over
+   more tokens xlstm amplifies the row-parallel sums' ulps past any
+   bound), the float64 partition arm (4 x 32 tokens, loss and every
+   gradient leaf) within 1e-9,
+   8 batch-sharded greedy steps on the rank's block of the state (placed
+   as ``cache_specs`` says, 1/4 of the bytes a rank: its batch and its
+   heads or channels), float32 logits within 2e-3 and streams equal to
+   one process, bf16 streams printed, each step's collectives and bytes
+   beside PR 34's;
    (e) last, once the main process has left the card (its
    ``Background.join``): qwen3-moe-30b-a3b expert-parallel ZeRO-1
    training at published widths, 1 of 48 layers, 4 x 256 tokens, on
@@ -455,13 +464,24 @@ shared with the background, not alone:
    train_4k`` subprocess (first in the background's CLI queue), which
    must exit 0 and trace at most 5.7e13 FLOPs a rank (1/8 of the count
    before tensor parallelism).
+19. the twins of ``examples/*.py`` (``examples_torch/``), each in a
+   subprocess on the card under a driver that prints every kernel
+   wrapper's launches, queued on the background beside phases 11-14:
+   ``quickstart`` (its kernel deinterleave and AoS unpack lines; B1, B2,
+   B3 and B5 launched, no other kernel), ``moe_dispatch_demo``
+   (``conflict-free routing: True``, ``vx.compact agrees: True``; no
+   kernel), ``serve_batch`` (pages after finish all free, as before the
+   requests; B1 and B2) and ``train_100m --steps 100`` (finite losses,
+   its step-100 checkpoint restored bit for bit, the LEARNING / check
+   setup verdict printed; no kernel); their launches join the kernels'
+   line.
 
 The line before the last is the kernels' JSON record, fourteen kernels
 (launches: the serve runs' for B1/B2 under ``kernel`` and B6/B7 under
 ``kernel_dynamic``, joined by phase 10's speculative scheduler runs and
 ``scatter_many`` call, phases 11's and 12's scheduler runs, phase 13's
 whisper calls, phase 15a's data-path calls, phase 16's ranks and phase
-17d's and 17f's under the same policies; the strided path's (and phase 16's) for
+17d's and 17f's under the same policies, phase 19's twins; the strided path's (and phase 16's) for
 B3/B4/B5 under ``kernel`` and B8/B9 under ``kernel_dynamic``, the
 indexed path's under ``kernel`` for B10-B14; phases 7 and 8 print their
 own launches per prefill and per decode step); the last line is
@@ -5388,6 +5408,153 @@ def resume_pair() -> tuple:
     return a, b
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the examples' twins
+# ---------------------------------------------------------------------------
+
+#: Phase 19's runs of ``examples_torch/*.py``: (name, arguments).  The
+#: first three run whole; ``train_100m`` runs 100 of its 300 default steps
+#: (its first checkpoint, written at step 100, is restored and held
+#: against the live state bit for bit), at its own batch 8 x 256.
+TWINS = (("quickstart", ()), ("moe_dispatch_demo", ()),
+         ("serve_batch", ()),
+         ("train_100m", ("--steps", "100", "--ckpt",
+                         str(ROOT / "build" / "twin_100m_ckpt"))))
+#: The kernels each twin must launch (at least once; every other wrapper
+#: never): quickstart's ``vx.transpose(Segment)`` and ``unpack_records``
+#: (B1), ``pack_records`` (B2), ``vx.gather`` / ``vx.scatter`` on a
+#: static ``Strided`` spec (B3, B5); serve_batch's decode steps' fused
+#: split (B1) and its prefill's beat packs (B2).  The MoE demo's
+#: ``vx.compact`` on a mask and ``gather_network`` run torch ops, and the
+#: training twin's fused input path and ``ref`` step launch nothing.
+TWIN_KERNELS = {"quickstart": ("deinterleave", "interleave",
+                               "gather_strided", "scatter_strided"),
+                "moe_dispatch_demo": (), "serve_batch": ("deinterleave",
+                                                         "interleave"),
+                "train_100m": ()}
+#: Whether train_100m's LEARNING verdict is gated: it would be if the
+#: reference's ``examples/train_100m.py --steps 100`` printed LEARNING on
+#: the CPU, but that script exits before its first step
+#: (``jit_train_step(cfg, tcfg, None, ...)`` reads ``None.mesh``), so it
+#: prints no verdict, and the twin's is printed, not gated.
+TWIN_LEARNING_GATED = False
+#: The runs' launches per wrapper, summed by their reports; ``main`` adds
+#: them to the kernels' line.
+TWIN_LAUNCHES: dict = {}
+TWIN_DRIVER = """
+import json, runpy, sys
+from repro_torch.kernels import (moe_compact, segment, shift_gather,
+                                 shift_scatter, strided)
+sys.argv = sys.argv[1:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+ws = (segment.KERNELS + segment.DYNAMIC + strided.KERNELS + strided.DYNAMIC
+      + moe_compact.KERNELS + shift_gather.KERNELS + shift_scatter.KERNELS)
+print("launches " + json.dumps({f.__name__: f.launches for f in ws}))
+"""
+
+
+def run_twin(name: str, args) -> dict:
+    """Phase 19: ``examples_torch/<name>.py`` in a subprocess on the card
+    (its default device), under a driver that prints every kernel
+    wrapper's launches when the script returns."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", TWIN_DRIVER,
+                          str(ROOT / "examples_torch" / f"{name}.py"),
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    return {"name": name, "args": list(args), "rc": out.returncode,
+            "wall_s": time.perf_counter() - t0,
+            "lines": out.stdout.splitlines(), "err": out.stderr[-3000:]}
+
+
+def _twin_gates(r: dict, card: str) -> tuple:
+    """``(what it printed of its gates, launches)`` of a twin's run; raises
+    on a failed gate."""
+    import re
+    name, lines = r["name"], r["lines"]
+    text = "\n".join(lines)
+    fail = []
+    launches = {}
+    if r["rc"] != 0 or not lines or not lines[-1].startswith("launches "):
+        raise AssertionError(f"phase 19 {name} exited {r['rc']}:\n"
+                             f"{text[-3000:]}\n{r['err']}")
+    launches = json.loads(lines[-1][len("launches "):])
+    mine = TWIN_KERNELS[name]
+    if any(launches[k] <= 0 for k in mine) or \
+            any(n != 0 for k, n in launches.items() if k not in mine):
+        fail.append(f"launches {launches}, want {mine} and no other")
+    seen = []
+    if name == "quickstart":
+        want = ("kernel deinterleave ok: [0. 2. 4. 6.]",
+                "unpacked tokens: [5 6 7 8] labels: [6 7 8 9]")
+        seen = [w for w in want if w in text]
+        if len(seen) != len(want):
+            fail.append(f"missing {set(want) - set(seen)}")
+    elif name == "moe_dispatch_demo":
+        want = ("conflict-free routing: True", "vx.compact agrees: True")
+        seen = [w for w in want if w in lines]
+        if len(seen) != len(want):
+            fail.append(f"missing {set(want) - set(seen)}")
+    elif name == "serve_batch":
+        peak = re.search(r"pages in use at peak load: (\d+) of (\d+)", text)
+        after = re.search(r"pages after finish: (\d+) in use, (\d+) free",
+                          text)
+        slots = re.findall(r"^  slot \d+: \[", text, re.M)
+        thru = [ln for ln in lines if ln.startswith("throughput:")]
+        ok = bool(peak and after) and int(peak.group(1)) > 0 and \
+            int(after.group(1)) == 0 and after.group(2) == peak.group(2) \
+            and len(slots) == 3 and len(thru) == 1 and \
+            card.split(",")[0].strip() in thru[0]
+        seen = [peak.group(0) if peak else None,
+                after.group(0) if after else None]
+        if not ok:
+            fail.append("pages after finish must equal pages before (all "
+                        "free), three slots, the card named")
+    else:
+        losses = [float(x) for x in re.findall(r" loss=(\S+) ", text)]
+        verdict = re.search(r"^loss (\S+) -> (\S+) \((.*)\)$", text, re.M)
+        restored = "checkpoint step 100 restored bit for bit: True" in text
+        ok = len(losses) == 5 and all(math.isfinite(x) for x in losses) \
+            and verdict is not None and restored and all(
+                math.isfinite(float(x)) for x in verdict.groups()[:2])
+        if TWIN_LEARNING_GATED and verdict and verdict.group(3) != "LEARNING":
+            ok = False
+        seen = [verdict.group(0) if verdict else None,
+                "checkpoint step 100 restored bit for bit: True"
+                if restored else None]
+        if not ok:
+            fail.append("finite losses, a verdict and the step-100 "
+                        "checkpoint restored bit for bit")
+    if fail:
+        raise AssertionError(f"phase 19 {name}: {'; '.join(fail)}:\n"
+                             f"{text[-3000:]}")
+    return seen, launches
+
+
+def report_twin(card: str):
+    """Phase 19's report of one twin's run: its gates, lines and
+    launches (added to :data:`TWIN_LAUNCHES`)."""
+    def report(r: dict) -> None:
+        seen, launches = _twin_gates(r, card)
+        _add(TWIN_LAUNCHES, launches)
+        print(f"phase 19 {r['name']} (python examples_torch/{r['name']}.py "
+              f"{' '.join(r['args'])}, a subprocess on {card}): exit 0 in "
+              f"{r['wall_s']:.1f} s; gates {seen}; launches "
+              f"{ {k: n for k, n in launches.items() if n} }")
+        for ln in r["lines"][:-1]:
+            print(f"phase 19 {r['name']} | {ln}")
+    return report
+
+
+def twins_phase(card: str) -> None:
+    """Phase 19: the four twins of ``examples/*.py`` in subprocesses on the
+    card (queued on the background beside phases 11-14)."""
+    cli_runs(*[(report_twin(card), run_twin, name, args)
+               for name, args in TWINS])
+
+
 def cli_cell(card: str) -> None:
     """15c: the training CLI in subprocesses (:func:`cli_runs`): (i)
     qwen3-0.6b at full width under ``ref``, the batch cut to 4 x 512
@@ -6942,6 +7109,17 @@ def whisper17(dev, rank: int) -> dict:
 MAMBA17_MESHES = ((1, 4), (2, 2))
 MAMBA17_STEPS = 4
 XLSTM17_BATCH, XLSTM17_SEQ, XLSTM17_PROMPT, XLSTM17_STEPS = 4, 128, 16, 8
+#: 17g (b)'s bounds: float32 (the xlstm family's 2e-3 of each leaf's
+#: largest entry, as the CPU tests hold it) and the float64 arm's (1e-9,
+#: stated before its first run).  The float32 gradients are held on the
+#: batch's first ``XLSTM17_GRAD_SEQ`` tokens: over more tokens xlstm's
+#: stack amplifies the row-parallel sums' ulps past any bound (on the
+#: card, full width: 1.2e-3 over 8 tokens, 1.07 over 128), so over all
+#: ``XLSTM17_SEQ`` only the loss is held.  The float64 arm runs on the
+#: first ``XLSTM17_F64_SEQ``.  PR 34's float32 decode step beside them.
+XLSTM17_TOL, XLSTM17_F64_BOUND = 2e-3, 1e-9
+XLSTM17_GRAD_SEQ, XLSTM17_F64_SEQ = 8, 32
+XLSTM17_PR34_STEP = (5, 516e6)
 #: 17g (a)'s float32 bound: the mesh layer's output and each gradient
 #: leaf within this fraction of the one-process layer's largest entry.
 MAMBA17_TOL = 1e-4
@@ -7194,39 +7372,58 @@ def mamba17_wide(p, xb, rows, rl, cfg, apply, steps) -> dict:
 
 def xlstm17(dev, rank: int) -> dict:
     """17g (b): xlstm-125m uncut on (2, 2), the embedding and head
-    vocab-parallel, the mLSTM and sLSTM cells on whole weights (gathered a
-    superblock at a time: a one-ulp change of the mLSTM's output, which
-    row-parallel sums make, moves xlstm's gradients by 1e-4 of their
-    largest entries): the float32 mesh loss on
-    ``XLSTM17_BATCH`` x ``XLSTM17_SEQ`` seeded tokens against rank 0's
-    one-process loss (rtol 2e-3, the xlstm family's tolerance), then a
-    prompt of ``XLSTM17_PROMPT`` prefilled in one process on every rank
-    and ``XLSTM17_STEPS`` batch-sharded greedy steps on the rank's state
-    blocks: the float32 streams gated equal to rank 0's one-process
-    steps, the bf16 streams printed (seeded xlstm is chaotic in bf16,
-    ROADMAP C); the cache placed as ``step_specs`` says (the cells step
-    whole state: each rank its batch block, whole over the model axis)
-    and a rank's state bytes."""
+    vocab-parallel, the mLSTM head-parallel and the sLSTM channel-parallel
+    on the rank's blocks of their weights (models/xlstm.py): the float32
+    mesh loss on ``XLSTM17_BATCH`` x ``XLSTM17_SEQ`` seeded tokens
+    against rank 0's one-process port (``XLSTM17_TOL``, the xlstm
+    family's tolerance: a row-parallel sum changes the cells' output by
+    an ulp, which xlstm's stack amplifies), the loss and
+    every gradient leaf on the first ``XLSTM17_GRAD_SEQ`` tokens at
+    ``XLSTM17_TOL`` of its largest entry, and loss and gradients in
+    float64 on the first ``XLSTM17_F64_SEQ`` tokens at
+    ``XLSTM17_F64_BOUND`` (the partition held where ulps cannot reach;
+    the card has no JAX); then a prompt of
+    ``XLSTM17_PROMPT`` prefilled in one process on every rank and
+    ``XLSTM17_STEPS`` batch-sharded greedy steps on the rank's state
+    blocks: the float32 logits gated at ``XLSTM17_TOL`` and the streams
+    equal to rank 0's one-process steps, the bf16 streams printed
+    (seeded xlstm is chaotic in bf16, ROADMAP C); the cache placed as
+    ``cache_specs`` says; a rank's cell-weight and state bytes; no
+    collective of a model-axis weight's shape."""
     import torch
     from repro_torch.configs.base import get_arch, train_batch
     from repro_torch.dist import sharding
     from repro_torch.launch.mesh import make_ctx, make_test_mesh
     from repro_torch.models import decode as dec
     from repro_torch.models import transformer
-    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
-                                          jit_prefill, serve_param_shardings,
-                                          step_specs)
+    from repro_torch.roofline.analysis import bundle_from_trace
+    from repro_torch.serve.engine import (ServeConfig, cache_specs,
+                                          jit_decode_step, jit_prefill,
+                                          serve_param_shardings)
     cfg = dataclasses.replace(get_arch("xlstm-125m").model,
                               kernel_impl="ref")
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64",
+                                compute_dtype="float64")
     ctx = make_ctx(make_test_mesh((2, 2), ("data", "model")))
     params = transformer.init_params(cfg, SEED, device=dev)
-    placed = sharding.place_tree(params, serve_param_shardings(params, cfg,
-                                                               ctx))
+    where = serve_param_shardings(params, cfg, ctx)
+    placed = sharding.place_tree(params, where)
+    weights = _model_weight_shapes(placed)
+    cells = [leaf for path, leaf in sharding._leaves_with_path(placed)
+             if path[-2:-1] in (("xl",), ("slstm",))
+             and sharding.is_dtensor(leaf)
+             and "model" in sharding.spec_of(leaf)]
+    out = {"weight_bytes": [sum(sharding.local_nbytes(t) for t in cells),
+                            sum(t.numel() * t.element_size()
+                                for t in cells)],
+           "cell_leaves": len(cells)}
+    if 2 * out["weight_bytes"][0] != out["weight_bytes"][1]:
+        raise AssertionError(f"17g (b): a rank holds {out['weight_bytes']} "
+                             f"B of the cells' placed weights, not 1/2")
     batch = train_batch(cfg, XLSTM17_SEQ, XLSTM17_BATCH, specs=False,
                         generator=torch.Generator(dev).manual_seed(SEED + 25),
                         device=dev)
-    out = {}
     with torch.no_grad():
         if rank == 0:
             out["one_loss"] = float(transformer.loss_fn(
@@ -7239,11 +7436,24 @@ def xlstm17(dev, rank: int) -> dict:
         torch.cuda.synchronize()
         out["loss_ms"] = (time.perf_counter() - t0) * 1e3
         out["loss_collectives"] = _collectives17()
-        if rank == 0 and not abs(out["loss"] - out["one_loss"]) <= \
-                2e-3 * abs(out["one_loss"]):
-            raise AssertionError(f"17g (b): mesh loss {out['loss']} vs one "
-                                 f"process {out['one_loss']} beyond rtol "
-                                 f"2e-3")
+        _tp_gate("17g (b) loss", weights)
+    if rank == 0 and not abs(out["loss"] - out["one_loss"]) <= \
+            XLSTM17_TOL * abs(out["one_loss"]):
+        raise AssertionError(f"17g (b): mesh loss {out['loss']} vs one "
+                             f"process {out['one_loss']} beyond rtol "
+                             f"{XLSTM17_TOL}")
+    for key, n, c, bound in (
+            ("grads32", XLSTM17_GRAD_SEQ, cfg32, XLSTM17_TOL),
+            ("grads64", XLSTM17_F64_SEQ, cfg64, XLSTM17_F64_BOUND)):
+        p = params if c is cfg32 else sharding.tree_map(
+            lambda t: t.double(), params)
+        pl = placed if c is cfg32 else sharding.place_tree(p, where)
+        out[key] = _mesh_grads17(
+            f"17g (b) {key}", p, pl, {k: v[:, :n] for k, v in batch.items()},
+            c, ctx, rank, _model_weight_shapes(pl), bound)
+        del p, pl
+    torch.cuda.empty_cache()
+    with torch.no_grad():
         prompt = batch["tokens"][:, :XLSTM17_PROMPT]
         max_len = XLSTM17_PROMPT + XLSTM17_STEPS
         scfg = ServeConfig(max_len=max_len)
@@ -7260,7 +7470,7 @@ def xlstm17(dev, rank: int) -> dict:
                     continue
                 cache = sharding.tree_map(torch.clone, cache0)
                 step = jit_decode_step(c, cc, scfg, device=dev)
-                tok, stream, ms = tok0, [], []
+                tok, stream, ms, lgs = tok0, [], [], []
                 sharding.LOG.reset()
                 for _ in range(XLSTM17_STEPS):
                     torch.cuda.synchronize()
@@ -7269,40 +7479,122 @@ def xlstm17(dev, rank: int) -> dict:
                                      cache, tok)
                     torch.cuda.synchronize()
                     ms.append((time.perf_counter() - t0) * 1e3)
-                    tok = torch.argmax(sharding.full_tensor(lg).float(),
-                                       -1).int()
+                    lg = sharding.full_tensor(lg).float()
+                    lgs.append(lg)
+                    tok = torch.argmax(lg, -1).int()
                     stream.append([int(t) for t in tok])
-                runs[key] = {"stream": stream, "ms": ms,
+                runs[key] = {"stream": stream, "ms": ms, "logits": lgs,
                              "collectives": _collectives17()}
+                # one more step traced: its FLOPs on this rank
+                runs[key]["flops"] = bundle_from_trace(
+                    step, params if cc is None else placed, cache,
+                    tok)[1].flops
                 if cc is not None:
+                    _tp_gate(f"17g (b) {tag} decode", weights)
                     ok = []
                     sharding.tree_map(lambda a, sp: ok.append(
                         sharding._norm(sharding.spec_of(a)
                                        if sharding.is_dtensor(a)
                                        else sharding.P(), a.ndim)
                         == sharding._norm(sp, a.ndim)), cache,
-                        step_specs(c, ctx, scfg, cache))
+                        cache_specs(c, ctx, scfg, cache))
                     state = [x for k, v in cache["blocks"].items()
                              for x in sharding._leaves_with_path(v)]
                     runs[key]["placed_ok"] = all(ok)
                     runs[key]["state_bytes"] = [
                         sum(sharding.local_nbytes(t) for _, t in state),
                         sum(t.numel() * t.element_size() for _, t in state)]
-                    if not all(ok) or 2 * runs[key]["state_bytes"][0] != \
+                    # the batch over the data axis, the heads or channels
+                    # over the model axis: 1/4 of the whole a rank
+                    if not all(ok) or 4 * runs[key]["state_bytes"][0] != \
                             runs[key]["state_bytes"][1]:
                         raise AssertionError(f"17g (b) {tag}: cache placed "
-                                             f"as step_specs {all(ok)}, a "
+                                             f"as cache_specs {all(ok)}, a "
                                              f"rank's state bytes "
                                              f"{runs[key]['state_bytes']}")
             if rank == 0:
-                runs["equal"] = runs["one"]["stream"] == runs["mesh"]["stream"]
-                if tag == "f32" and not runs["equal"]:
+                one, mesh = runs["one"], runs["mesh"]
+                runs["equal"] = one["stream"] == mesh["stream"]
+                # a rank's step against one process's on its batch block
+                runs["flops_share"] = mesh["flops"] * ctx.data_size / \
+                    one["flops"]
+                runs["gap"] = max(_rel_gap(a, b) for a, b in
+                                  zip(mesh["logits"], one["logits"]))
+                if tag == "f32" and (not runs["equal"]
+                                     or runs["gap"] > XLSTM17_TOL):
                     raise AssertionError(
                         f"17g (b) float32: batch-sharded stream "
-                        f"{runs['mesh']['stream']} vs one process "
-                        f"{runs['one']['stream']}")
+                        f"{mesh['stream']} vs one process {one['stream']}, "
+                        f"logit gap {runs['gap']} (bound {XLSTM17_TOL})")
+            for r in runs.values():
+                if isinstance(r, dict):
+                    r.pop("logits", None)
             out[tag] = runs
     del params, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_grads17(tag: str, params, placed, batch, cfg, ctx, rank: int,
+                  weights: set, bound: float) -> dict:
+    """The mesh loss and its gradients (each leaf summed over the axes its
+    placement does not name, as the train step reduces them, gathered
+    whole) against rank 0's one-process ``loss`` and gradients: the
+    loss's relative gap and each leaf's largest gap over its largest
+    entry gated at ``bound``; the forward and backward's host ms and
+    collectives."""
+    import torch
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer
+    from repro_torch.train.step import _loss_and_grads
+    one = _loss_and_grads(params, batch, cfg, None) if rank == 0 else None
+    leaves = sharding.tree_map(
+        lambda t: sharding.from_local(t.to_local().detach(), t.device_mesh,
+                                      sharding.spec_of(t), t.shape)
+        .requires_grad_() if sharding.is_dtensor(t)
+        else t.detach().requires_grad_(), placed)
+    sharding.LOG.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.enable_grad():
+        loss, m = transformer.loss_fn(leaves, batch, cfg, ctx)
+        loss.backward()
+    torch.cuda.synchronize()
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "collectives": _collectives17(),
+           "loss": float(m["loss"].detach())}
+    _tp_gate(tag, weights)
+    axes = ctx.data_axes + (ctx.model_axis,)
+    gaps = {}
+    for path, x in sharding._leaves_with_path(leaves):
+        g = x.grad
+        if sharding.is_dtensor(g):
+            named = {a for e in sharding.spec_of(g)
+                     for a in sharding._names(e)}
+            g = sharding.full_tensor(sharding.from_local(
+                sharding.psum(g.to_local(), ctx.mesh,
+                              tuple(a for a in axes if a not in named)),
+                ctx.mesh, sharding.spec_of(g), g.shape))
+        else:
+            g = sharding.psum(g, ctx.mesh, axes)
+        if rank == 0:
+            want = dict(sharding._leaves_with_path(one[2]))[path]
+            gaps["/".join(path)] = float(
+                (g.double() - want.double()).abs().max()
+                / want.double().abs().max().clamp_min(1e-300))
+    del leaves
+    if rank == 0:
+        out["one_loss"] = float(one[1]["loss"])
+        out["loss_gap"] = abs(out["loss"] - out["one_loss"]) / abs(
+            out["one_loss"])
+        worst = max(gaps, key=gaps.get)
+        out["grad_gap"], out["grad_worst"] = gaps[worst], worst
+        out["leaves"] = len(gaps)
+        if out["loss_gap"] > bound or out["grad_gap"] > bound:
+            raise AssertionError(f"{tag}: mesh loss {out['loss']} vs one "
+                                 f"process {out['one_loss']}, gradient gap "
+                                 f"{out['grad_gap']} at {worst} (bound "
+                                 f"{bound})")
     torch.cuda.empty_cache()
     return out
 
@@ -7507,28 +7799,54 @@ def train_phase_lines(res: list, where: str) -> dict:
               f"{wd['product_ms']['bf16']:.4f}")
     b = g["b"]
     print(f"phase 17g (b) xlstm-125m uncut on (2, 2) (data, model) "
-          f"({where}), the xLSTM cells on whole weights (gathered a "
-          f"superblock at a time), the embedding and head vocab-parallel: "
-          f"float32 mesh loss on {XLSTM17_BATCH} x "
-          f"{XLSTM17_SEQ} tokens {b['loss']:.7f} vs rank 0's one process "
-          f"{b['one_loss']:.7f} (rtol 2e-3); ms per rank "
+          f"({where}), the mLSTM head-parallel and the sLSTM "
+          f"channel-parallel on the rank's weight blocks (a rank holds "
+          f"{b['weight_bytes'][0]} of {b['weight_bytes'][1]} B of the "
+          f"{b['cell_leaves']} placed cell leaves; no model-axis weight in "
+          f"a collective), the embedding and head vocab-parallel: float32 "
+          f"mesh loss on {XLSTM17_BATCH} x {XLSTM17_SEQ} tokens "
+          f"{b['loss']:.7f} vs rank 0's one process {b['one_loss']:.7f} "
+          f"(rtol {XLSTM17_TOL:g}); ms per rank "
           f"{[round(r['17g']['b']['loss_ms'], 1) for r in res]}; rank 0: "
           f"{_coll_text(b['loss_collectives'])}")
+    for tag, tokens, bound in (
+            ("grads32", XLSTM17_GRAD_SEQ, XLSTM17_TOL),
+            ("grads64", XLSTM17_F64_SEQ, XLSTM17_F64_BOUND)):
+        x = b[tag]
+        print(f"phase 17g (b) xlstm-125m "
+              f"{'float64' if tag == 'grads64' else 'float32'} mesh loss and "
+              f"gradients on {XLSTM17_BATCH} x {tokens} tokens: loss "
+              f"{x['loss']:.10f} vs rank 0's one process "
+              f"{x['one_loss']:.10f} (gap {x['loss_gap']:.3e}), largest "
+              f"gradient gap over its leaf's largest entry "
+              f"{x['grad_gap']:.3e} ({x['grad_worst']}, {x['leaves']} "
+              f"leaves; bound {bound:g}); forward and backward ms per rank "
+              f"{[round(r['17g']['b'][tag]['ms'], 1) for r in res]}; rank 0: "
+              f"{_coll_text(x['collectives'])}")
     for tag in ("f32", "bf16"):
         x = b[tag]
+        c = x["mesh"]["collectives"]
         print(f"phase 17g (b) [{tag} compute] prompt {XLSTM17_PROMPT} "
               f"prefilled in one process, {XLSTM17_STEPS} batch-sharded "
               f"greedy steps on the rank's state blocks (placed as "
-              f"step_specs says, its batch block: {x['mesh']['placed_ok']}; "
-              f"a rank holds "
+              f"cache_specs says: {x['mesh']['placed_ok']}; a rank holds "
               f"{x['mesh']['state_bytes'][0]} of "
               f"{x['mesh']['state_bytes'][1]} B of state): streams equal to "
               f"rank 0's one process {x['equal']}"
-              f"{' (gated)' if tag == 'f32' else ' (printed, not gated)'}; "
+              f"{' (gated)' if tag == 'f32' else ' (printed, not gated)'}, "
+              f"largest logit gap over the largest logit {x['gap']:.3e}"
+              f"{f' (bound {XLSTM17_TOL:g})' if tag == 'f32' else ''}; "
               f"median ms per step per rank "
               f"{[round(statistics.median(r['17g']['b'][tag]['mesh']['ms']), 1) for r in res]}"
               f" (one process {statistics.median(x['one']['ms']):.1f}); rank "
-              f"0 over the steps: {_coll_text(x['mesh']['collectives'])}")
+              f"0 over the steps: {_coll_text(c)}; a step "
+              f"{c['calls'] / XLSTM17_STEPS:g} collectives, "
+              f"{c['bytes'] / XLSTM17_STEPS:.0f} B (PR 34, the cells' "
+              f"weights gathered: {XLSTM17_PR34_STEP[0]}, "
+              f"{XLSTM17_PR34_STEP[1]:.0f} B); one more step's FLOPs on "
+              f"rank 0 {x['mesh']['flops']:.4e}, one process "
+              f"{x['one']['flops']:.4e}: a rank's share of its batch "
+              f"block's {x['flops_share']:.4f}")
     print(f"phase 17g: {g['s']:.1f} s")
     e = r0["17e"]
     for tag in ("bf16", "f32"):
@@ -7997,6 +8315,7 @@ def main() -> int:
     BACKGROUND.start_spawn()
     # first in the CLI queue: the longest subprocess (18)
     cli_runs((report_dryrun, run_dryrun))
+    twins_phase(card)
     dense_phase(dev, cfg, card, slots, page_size)
     quant_prefix_phase(dev, cfg, card, prompts, gen, slots, max_len,
                        page_size, timing)
@@ -8025,6 +8344,10 @@ def main() -> int:
     launches.update(ipk)
     for k, n in sharded.items():
         launches[k] += n
+    for k, n in TWIN_LAUNCHES.items():
+        launches[k] += n
+    print(f"phase 19 launches of the twins, all runs "
+          f"{ {k: n for k, n in TWIN_LAUNCHES.items() if n} }")
     kernels = []
     for name in REPLACES:
         t = timing[name]

@@ -800,6 +800,58 @@ def share(x: torch.Tensor, mesh, axes) -> torch.Tensor:
     return _Share.apply(x, n)
 
 
+def _all_to_all(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Block ``j`` of ``x`` along ``dim`` sent to rank ``j`` of ``axis``;
+    block ``i`` of the result along ``dim`` is what rank ``i`` sent (one
+    ``all_to_all_single`` over the axis's group)."""
+    n = axis_size(mesh, axis)
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty_like(src)
+    t0 = time.perf_counter()
+    dist.all_to_all_single(out, src, group=mesh.get_group(axis))
+    LOG.add("all_to_all", src, time.perf_counter() - t0)
+    return out.movedim(0, dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`all_to_all`; its transpose is the same exchange (each
+    block's cotangent goes back to the rank that sent it)."""
+
+    @staticmethod
+    def forward(fctx, x, mesh, axis, dim):
+        fctx.mesh, fctx.axis, fctx.dim = mesh, axis, dim
+        return _all_to_all(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _all_to_all(g, fctx.mesh, fctx.axis, fctx.dim), None, None, \
+            None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """Exchange blocks over mesh ``axis``: block ``j`` of ``x`` along
+    ``dim`` (its size the axis's) goes to rank ``j``, and block ``i`` of
+    the result comes from rank ``i``; differentiable (:class:`_AllToAll`),
+    its cotangent exchanged back alike."""
+    if not _live(mesh, axis):
+        return x
+    if _grad(x):
+        return _AllToAll.apply(x, mesh, axis, dim)
+    return _all_to_all(x, mesh, axis, dim)
+
+
+def reshard(x: torch.Tensor, mesh, axis: str, src: int, dst: int
+            ) -> torch.Tensor:
+    """This rank's block of a tensor placed along ``src`` over mesh
+    ``axis`` (whole along ``dst``) re-laid to its block along ``dst``
+    (whole along ``src``): one :func:`all_to_all`, each rank sending the
+    others their ``dst`` blocks of its ``src`` block."""
+    m = axis_size(mesh, axis)
+    y = all_to_all(x.unflatten(dst, (m, -1)), mesh, axis, dst)
+    # the source rank's axis next to src, whose blocks it orders
+    return y.movedim(dst, src).flatten(src, src + 1)
+
+
 def _ppermute(x: torch.Tensor, mesh, axis: str, shift: int) -> torch.Tensor:
     """Rank ``i`` of ``axis`` receives rank ``i - shift``'s ``x`` and sends
     its own to ``i + shift`` (cyclic): one ``all_to_all_single`` over the
@@ -1036,17 +1088,18 @@ def tp_leave(y: torch.Tensor, rl, partial: bool = True) -> torch.Tensor:
         return y.narrow(1, rl.tp_index * n, n)
     if rl.seq:
         return scatter_seq(y, rl.tp.mesh, rl.tp_axis, 1)
-    # summed in float32, rounded once to y's dtype (as one matmul's
-    # accumulator is): the decode steps' exits
-    return all_sum(y.float(), rl.tp.mesh, rl.tp_axis).to(y.dtype)
+    # summed in float32 (float64 kept), rounded once to y's dtype (as one
+    # matmul's accumulator is): the decode steps' exits
+    wide = torch.promote_types(y.dtype, torch.float32)
+    return all_sum(y.to(wide), rl.tp.mesh, rl.tp_axis).to(y.dtype)
 
 
 def wide_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` (``w`` 2-D) in the type a single position's partial
     products are computed in before their sum is rounded once to ``a``'s
-    dtype: float32 for bf16 / fp16, float64 for float32 (a float32 part
-    carries its own accumulation's rounding, as large as the one-device
-    product's).  On the card a bf16 / fp16 product is one GEMM that
+    dtype: float32 for bf16 / fp16, float64 for float32 and float64 (a
+    float32 part carries its own accumulation's rounding, as large as the
+    one-device product's).  On the card a bf16 / fp16 product is one GEMM that
     accumulates into a float32 output (``torch.mm``'s ``out_dtype``),
     the weight read as it is; elsewhere both operands are widened
     first."""
@@ -1054,7 +1107,8 @@ def wide_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             w.dtype == a.dtype and _mm_out_dtype():
         return torch.mm(a.reshape(-1, a.shape[-1]), w,
                         out_dtype=torch.float32).reshape(*a.shape[:-1], -1)
-    t = torch.float64 if a.dtype == torch.float32 else torch.float32
+    t = torch.float64 if a.dtype in (torch.float32, torch.float64) \
+        else torch.float32
     return a.to(t) @ w.to(t)
 
 

@@ -15,7 +15,7 @@ for each cell this driver, in one process:
      ``prefill_batch`` / ``decode_inputs(specs=True)``, and places the
      state or params and the cache as the real launchers would (each
      rank's blocks: ``train/step.full_state_shardings``,
-     ``serve/engine.serve_param_shardings`` and ``step_specs``);
+     ``serve/engine.serve_param_shardings`` and ``cache_specs``);
   3. runs the port's REAL step eagerly on them
      (``train/step.make_train_step(ctx)``, ``serve/engine.jit_prefill``,
      ``jit_decode_step``), under ``roofline.bundle_from_trace`` and a
@@ -54,11 +54,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import functools
 import gc
 import json
+import math
 import os
 import time
 import traceback
@@ -143,11 +145,17 @@ def _tensors(tree):
 class LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
     """Tracks the bytes of the tensors the traced step allocates and keeps
     alive (an operator's fresh outputs, freed when the last reference
-    goes): ``peak`` is their most at once, ``live`` what is left."""
+    goes): ``peak`` is their most at once, ``live`` what is left.  With
+    ``threshold`` (bytes) it also counts every such tensor of at least
+    that size by dtype and shape, with the aten ops that made it
+    (:meth:`ranking`)."""
 
-    def __init__(self):
+    def __init__(self, threshold: int | None = None):
         super().__init__()
         self.live = self.peak = 0
+        self.threshold = threshold
+        self.sizes: collections.Counter = collections.Counter()
+        self.ops: dict = collections.defaultdict(set)
 
     def _free(self, n: int) -> None:
         self.live -= n
@@ -162,8 +170,19 @@ class LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
             n = t.numel() * t.element_size()
             self.live += n
             weakref.finalize(t, self._free, n)
+            if self.threshold is not None and n >= self.threshold:
+                key = (t.dtype, tuple(t.shape))
+                self.sizes[key] += 1
+                self.ops[key].add(func.__name__)
         self.peak = max(self.peak, self.live)
         return out
+
+    def ranking(self) -> list:
+        """``(dtype, shape, bytes, count, ops)`` of the tensors at or above
+        the threshold, largest first (then the most made)."""
+        rows = [(dt, sh, math.prod(sh) * dt.itemsize, c, sorted(self.ops[(
+            dt, sh)])) for (dt, sh), c in self.sizes.items()]
+        return sorted(rows, key=lambda r: (-r[2], -r[3], str(r[0]), r[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -197,17 +216,18 @@ def _bf16_params(cfg):
         init_params(cfg, 0, device="cpu"))
 
 
-def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
+def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None, live=None):
     """(arguments' bytes on rank 0, the output's, the temporaries' at the
     peak, the CostBundle, trace seconds) of one step (under the fake
-    mode, the world up); ``pctx`` places a serving cell's weights."""
+    mode, the world up); ``pctx`` places a serving cell's weights,
+    ``live`` is the :class:`LiveBytes` to track them with."""
     from repro_torch.configs.base import (decode_inputs, prefill_batch,
                                           train_batch)
     from repro_torch.dist import sharding
     from repro_torch.roofline.analysis import bundle_from_trace
-    from repro_torch.serve.engine import (ServeConfig, jit_decode_step,
-                                          jit_prefill, serve_param_shardings,
-                                          step_specs)
+    from repro_torch.serve.engine import (ServeConfig, cache_specs,
+                                          jit_decode_step, jit_prefill,
+                                          serve_param_shardings)
     from repro_torch.train.step import (TrainConfig, full_state_shardings,
                                         init_full_state, make_train_step)
     data = ctx.data_size
@@ -241,7 +261,7 @@ def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
         scfg = ServeConfig(max_len=shape.seq_len,
                            long_context=shape.name == "long_500k")
         cache = sharding.place_tree(cache, sharding.spec_tree_shardings(
-            step_specs(cfg, ctx, scfg, cache), ctx))
+            cache_specs(cfg, ctx, scfg, cache), ctx))
         batch_axes = 1 if scfg.long_context else data
         args = (sharding.local_nbytes(params) + sharding.local_nbytes(cache)
                 + sharding.local_nbytes(token) // batch_axes)
@@ -249,7 +269,7 @@ def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
         call = (params, cache, token)
     held = {id(t) for t in _tensors(call)} | {
         id(t.to_local()) for t in _tensors(call) if sharding.is_dtensor(t)}
-    live = LiveBytes()
+    live = live or LiveBytes()
     t0 = time.time()
     with live:
         out, bundle = bundle_from_trace(fn, *call)
@@ -261,26 +281,56 @@ def _trace_cell(cfg, shape, ctx, *, tcfg=None, pctx=None):
     return args, output, temp, bundle, seconds
 
 
-def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
-             cfg_override=None, tcfg=None, probes: bool = True,
-             ctx_override=None) -> dict:
-    """One cell on the fake world already up (``fake_world(256 or 512)``):
-    the artifact's dict."""
+def _cell(arch_name: str, shape_name: str, multi_pod: bool,
+          cfg_override=None, ctx_override=None) -> tuple:
+    """``(cfg, shape, ctx)`` of a cell on the production mesh (the fake
+    world up)."""
     from repro_torch.configs.base import get_arch, shape_by_name
     from repro_torch.launch.mesh import make_ctx, make_production_mesh
-    from repro_torch.roofline.analysis import (CostBundle, model_flops,
-                                               roofline)
-    from repro_torch.train.step import TrainConfig
-    arch = get_arch(arch_name)
-    cfg = dataclasses.replace(cfg_override or arch.model, kernel_impl="ref")
+    cfg = dataclasses.replace(cfg_override or get_arch(arch_name).model,
+                              kernel_impl="ref")
     shape = shape_by_name(shape_name)
     mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
-    chips = 512 if multi_pod else 256
     # FSDP for training when the fp32 master copy would not fit TP-only
     # (> 8B params on a 16-way model axis ~ >2 GiB/device just for params)
     fsdp = shape.kind == "train" and _total_params(cfg) > 8e9
     ctx = ctx_override or make_ctx(
         mesh, long_context=shape.name == "long_500k", fsdp=fsdp)
+    return cfg, shape, ctx
+
+
+def rank_tensors(arch_name: str, shape_name: str, threshold: int, *,
+                 multi_pod: bool = False, cfg_override=None) -> dict:
+    """Rank 0's tensors of one cell's traced step (the fake world already
+    up) at or above ``threshold`` bytes, largest first
+    (:meth:`LiveBytes.ranking`), with the cell's argument, output and
+    temporary bytes; a train cell runs at its ``MB_HINTS`` microbatches
+    (1 without a hint)."""
+    from repro_torch.train.step import TrainConfig
+    cfg, shape, ctx = _cell(arch_name, shape_name, multi_pod, cfg_override)
+    tcfg = (TrainConfig(microbatches=MB_HINTS.get(arch_name, 1))
+            if shape.kind == "train" else None)
+    pctx = _serve_param_ctx(cfg, ctx) if shape.kind != "train" else None
+    live = LiveBytes(threshold)
+    with _fake_mode():
+        args, output, temp, _, _ = _trace_cell(cfg, shape, ctx, tcfg=tcfg,
+                                               pctx=pctx, live=live)
+    gc.collect()
+    return {"arguments": args, "output": output, "temp": temp,
+            "ranking": live.ranking()}
+
+
+def run_cell(arch_name: str, shape_name: str, *, multi_pod: bool,
+             cfg_override=None, tcfg=None, probes: bool = True,
+             ctx_override=None) -> dict:
+    """One cell on the fake world already up (``fake_world(256 or 512)``):
+    the artifact's dict."""
+    from repro_torch.roofline.analysis import (CostBundle, model_flops,
+                                               roofline)
+    from repro_torch.train.step import TrainConfig
+    cfg, shape, ctx = _cell(arch_name, shape_name, multi_pod, cfg_override,
+                            ctx_override)
+    chips = 512 if multi_pod else 256
 
     result = {"arch": arch_name, "shape": shape_name,
               "mesh": "2x16x16" if multi_pod else "16x16", "chips": chips,

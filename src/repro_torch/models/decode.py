@@ -59,10 +59,10 @@ or page, and attention over a sequence-sharded cache is a distributed
 softmax (``attention.decode_attention``).  Weights placed as ``DTensor``
 s are gathered a layer at a time, when the layer runs
 (``transformer.superblock``); under tensor parallelism a recurrent
-state ``DTensor`` placed as ``serve/engine.step_specs`` says is stepped
-on the rank's block of Mamba's channels or, the xLSTM cells', whole
-over the model axis (a state placed otherwise is gathered for the step
-and cut back).
+state ``DTensor`` placed as ``serve/engine.cache_specs`` says is stepped
+on the rank's block of Mamba's channels or of the xLSTM cells' heads (a
+state placed otherwise, as on a mesh whose model axis does not divide the
+heads, is gathered for the step and cut back).
 """
 from __future__ import annotations
 
@@ -82,7 +82,8 @@ from repro_torch.models.ssm import init_mamba_cache, mamba_decode_step
 from repro_torch.models.transformer import (STATE_BLOCK_DIMS, ModelConfig,
                                             _ffn_apply, _mixer_params,
                                             cast_params, check_supported,
-                                            recurrent_blocks, superblock,
+                                            recurrent_blocks,
+                                            recurrent_partial, superblock,
                                             tp_specs, tree_map)
 from repro_torch.models.xlstm import (init_mlstm_state, init_slstm_state,
                                       mlstm_decode_step, slstm_decode_step)
@@ -111,14 +112,14 @@ def _stacked_init(cfg: ModelConfig, kind: str, batch: int, dtype, device):
 def _recurrent_step(p, h: torch.Tensor, state, cfg: ModelConfig,
                     kind: str, tp=None):
     """(y, state) of one token through a recurrent position's block; with
-    ``tp`` (Mamba's weights this rank's blocks) the rank's partial ``y``
-    and its block of the state."""
+    ``tp`` (the weights this rank's blocks) the rank's ``y``
+    (``transformer.recurrent_partial``) and its block of the state."""
     pm = _mixer_params(p, cfg, kind)
     if kind == "mamba":
         return mamba_decode_step(pm, h, state, cfg.mamba, tp)
     if kind == "mlstm":
-        return mlstm_decode_step(pm, h, state, cfg.xlstm)
-    return slstm_decode_step(pm, h, state, cfg.xlstm)
+        return mlstm_decode_step(pm, h, state, cfg.xlstm, tp)
+    return slstm_decode_step(pm, h, state, cfg.xlstm, tp)
 
 
 def _placed(x, rl):
@@ -138,15 +139,20 @@ def _placed(x, rl):
 
 def _state_in(x, need, rl):
     """One field of a superblock's recurrent state, placed as
-    ``serve/engine.step_specs`` says (a ``DTensor``: the batch dim the
+    ``serve/engine.cache_specs`` says (a ``DTensor``: the batch dim the
     rank's block, the dims after it as placed; or a plain tensor every
     rank holds whole), in the layout its mixer takes: whole after the batch
     (``need`` None), or this rank's block along dim ``need`` over the
     model axis (a block the placement already holds there as it is, else
-    gathered and cut)."""
+    gathered and cut; or re-laid by one ``all_to_all``, when the model axis
+    places it on one other dim: the mLSTM's ``C``, which ``cache_specs``
+    places on its first ``dh`` dim)."""
     local, spec, model, other = _placed(x, rl)
     if need is not None and model == [need] and not other:
         return local
+    if need is not None and len(model) == 1 and not other:
+        return sharding.reshard(local, rl.tp.mesh, rl.tp_axis, model[0],
+                                need)
     for d in model + other:
         local = sharding.all_gather(local, x.device_mesh, spec[d], d)
     return local if need is None else sharding.tp_block(local, rl, need)
@@ -160,6 +166,10 @@ def _state_out(x, new, need, rl) -> None:
     if need is not None and model == [need] and not other:
         local.copy_(new)
         return
+    if need is not None and len(model) == 1 and not other:
+        local.copy_(sharding.reshard(new, rl.tp.mesh, rl.tp_axis, need,
+                                     model[0]))
+        return
     if need is not None:
         new = sharding.all_gather(new, rl.tp.mesh, rl.tp_axis, need)
     if model or other:
@@ -172,11 +182,12 @@ def _recurrent_position(p, h, leaf, sbi: int, cfg: ModelConfig, kind: str,
                         rl) -> torch.Tensor:
     """One token through superblock ``sbi``'s recurrent position, its
     state ``leaf`` updated in place; returns the block's output.  Under
-    tensor parallelism with the weights this rank's blocks (Mamba's) the
-    mixer runs on the rank's block of the state (:func:`_state_in` /
+    tensor parallelism with the weights this rank's blocks (Mamba's, the
+    xLSTM cells' where the model axis divides their heads) the mixer runs
+    on the rank's block of the state (:func:`_state_in` /
     :func:`_state_out` cut it from and write it back to its placement)
     and its partial output is summed over the model axis and rounded
-    once; on whole weights (the xLSTM cells') the state is whole."""
+    once; on whole weights the state is whole."""
     block = getattr(rl, "tp", None) is not None and \
         recurrent_blocks(p, cfg, kind)
     dims = STATE_BLOCK_DIMS[kind] if block else None
@@ -187,9 +198,9 @@ def _recurrent_position(p, h, leaf, sbi: int, cfg: ModelConfig, kind: str,
     y, st = _recurrent_step(p, h, st, cfg, kind, rl if block else None)
     for x, new, n in zip(fields, st, needs):
         _state_out(x, new, n, rl)
-    if block:
-        y = sharding.tp_leave(y, rl).to(h.dtype)
-    return y
+    if block and recurrent_partial(p, cfg, kind):
+        y = sharding.tp_leave(y, rl)
+    return y.to(h.dtype)
 
 
 def _keep_active(new, old, active: torch.Tensor):
@@ -282,8 +293,8 @@ def _whole(params: dict, ctx=None) -> dict:
                for k, v in top.items()}
     else:
         local, specs = sharding.split_tree(top)
-        top = sharding.gather_tree(local, tp_specs(local, specs,
-                                                   tp.model_axis), tp.mesh)
+        top = sharding.gather_tree(local, tp_specs(local, specs, tp),
+                                   tp.mesh)
     return {**top, "blocks": params["blocks"]}
 
 

@@ -2,7 +2,8 @@
 with the EARTH interleaved fused projection option.
 
 Port of ``repro``'s ``models/layers.py``: ``rms_norm`` and
-``layer_norm`` (both computed in float32), ``rope``, ``embed``,
+``layer_norm`` (both computed in float32, or float64 for float64
+operands: :func:`wide`), ``rope``, ``embed``,
 ``unembed``, ``glu_ffn`` (fused and unfused), the GELU ``mlp_ffn`` and the
 seeded ``init_glu`` / ``init_mlp`` (the reference's shapes and scales,
 drawn from a ``torch.Generator``).
@@ -24,12 +25,19 @@ import torch.nn.functional as F
 from repro_torch import vx
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the type the reference computes a narrower one in:
+    float32 for bf16 / fp16 / float32, float64 left as it is (a float64
+    run then carries no float32 rounding)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
-    x = x.float()
+    x = wide(x)
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
-    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dtype)
+    return ((x * torch.rsqrt(var + eps)) * scale.to(x.dtype)).to(dtype)
 
 
 def rms_norm_block(x: torch.Tensor, scale: torch.Tensor, index: int,

@@ -91,14 +91,18 @@ from repro_torch.models import attention, layers
 from repro_torch.models.moe import MoESpec, init_moe, moe_layer
 from repro_torch.models.ssm import (MambaCache, MambaSpec, init_mamba,
                                     mamba_forward)
-from repro_torch.models.xlstm import (XLSTMSpec, init_mlstm, init_slstm,
+from repro_torch.models.xlstm import (MLSTMState, SLSTMState, XLSTMSpec,
+                                      ffn_partial, init_mlstm, init_slstm,
                                       mlstm_forward, slstm_forward)
 
 RECURRENT = ("mamba", "mlstm", "slstm")
 #: The dim of each field of a superblock's ``(B, ...)`` recurrent state
 #: that a block-wise mixer (:func:`recurrent_blocks`) holds as this
-#: rank's block over the model axis: Mamba's channels.
-STATE_BLOCK_DIMS = {"mamba": MambaCache(conv=2, h=1)}
+#: rank's block over the model axis: Mamba's channels, the mLSTM's heads,
+#: the sLSTM's channels (head-major: its heads).
+STATE_BLOCK_DIMS = {"mamba": MambaCache(conv=2, h=1),
+                    "mlstm": MLSTMState(C=1, n=1, m=1),
+                    "slstm": SLSTMState(c=1, n=1, m=1, h=1)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -317,8 +321,8 @@ def superblock(params_blocks: dict, sbi: int, ctx=None) -> dict:
     tp = getattr(ctx, "tp", None)
     if tp is not None:
         local, specs = sharding.split_tree(sb)
-        return sharding.gather_tree(local, tp_specs(local, specs,
-                                                    tp.model_axis), tp.mesh)
+        return sharding.gather_tree(local, tp_specs(local, specs, tp),
+                                    tp.mesh)
     return sharding.full_tree(sb)
 
 
@@ -330,13 +334,13 @@ def _model_dim(x, spec, axis):
     return None
 
 
-def tp_specs(tree, specs, axis: str):
-    """``specs`` (each leaf's :class:`P`) with ``axis`` taken off the
-    leaves the tensor-parallel layers take as this rank's blocks, so that
-    gathered by them those leaves keep their model-axis block (and are
-    gathered over the data axes only) and every other leaf comes whole.
-    A layer takes its weights as blocks where the parameter rules placed
-    them as its split needs, else all of them whole:
+def tp_specs(tree, specs, ctx):
+    """``specs`` (each leaf's :class:`P`) with ``ctx``'s model axis taken
+    off the leaves the tensor-parallel layers take as this rank's blocks,
+    so that gathered by them those leaves keep their model-axis block (and
+    are gathered over the data axes only) and every other leaf comes
+    whole.  A layer takes its weights as blocks where the parameter rules
+    placed them as its split needs, else all of them whole:
 
     * attention: ``wq`` on its columns, ``wo`` on its rows, ``wkv`` on
       its rows or unsplit;
@@ -348,27 +352,34 @@ def tp_specs(tree, specs, axis: str):
     * Mamba: ``in_proj``, ``conv_w``, ``dt_proj`` and ``A_log`` on
       ``ed``, ``x_proj`` and ``out_proj`` on their ``ed`` rows
       (channel-parallel; models/ssm.py);
+    * the mLSTM (head-parallel; models/xlstm.py), where the model axis
+      divides its heads: ``up`` on ``m_inner``, ``ogate``, ``wq``,
+      ``wk`` and ``wv`` on their columns, ``wi``, ``wf`` and ``down`` on
+      their rows;
+    * the sLSTM (channel-parallel; models/xlstm.py) with 4 heads, where
+      the model axis divides its 4 gates: ``wx`` and ``r`` on their gate
+      columns, and its FFN's ``ffn_wi`` and ``ffn_wo`` on their rows or
+      columns, as placed;
     * whisper's cross-attention ``xattn``: ``wq`` on its columns,
       ``wkv`` on its columns, rows or unsplit, ``wo`` on its columns or
       rows, and its norm gain ``ln`` on its features (the rules read the
       stacked cross tree as unstacked);
     * the embedding and the untied head on their vocab rows.
 
-    The xLSTM cells keep their weights whole.  The sLSTM's rules put
-    ``r`` on its gate columns, which split each head's four gates across
-    ranks, and its FFN's (gate, up) halves on column blocks that do not
-    pair.  The mLSTM could run head-parallel on its blocks, but its
-    row-parallel ``wi`` / ``wf`` / ``down`` sums change its output by an
-    ulp, which xlstm amplifies (a one-ulp change moves xlstm-smoke's
-    gradients by 1.8e-4 of their largest entries), and the mesh loss is
-    held within 1e-5 of the one-process port's.  ``tree`` holds one
-    superblock's leaves (no stacked dim) or the top-level leaves."""
+    ``tree`` holds one superblock's leaves (no stacked dim) or the
+    top-level leaves, each this rank's block as ``specs`` places it."""
     from repro_torch.dist import sharding
+    axis, m = ctx.model_axis, ctx.model_size
     pairs = {"/".join(p): xs for (p, _), xs in zip(
         sharding._leaves_with_path(tree), sharding._zip_leaves(tree, specs))}
 
     def md(path):
         return _model_dim(*pairs[path], axis) if path in pairs else None
+
+    def whole(path, d):
+        x, spec = pairs[path]
+        return x.shape[d] * sharding.axes_size(
+            ctx.mesh, sharding._names(sharding._norm(spec, x.ndim)[d]))
 
     keep = set()
     for path in pairs:
@@ -408,6 +419,18 @@ def tp_specs(tree, specs, axis: str):
                     "A_log": 0, "out_proj": 0}
             if all(md(pre + k) == d for k, d in want.items()):
                 keep |= {pre + k for k in want}
+        elif kind == "xl" and leaf == "down":
+            want = {"up": 2, "ogate": 1, "wq": 1, "wk": 1, "wv": 1,
+                    "wi": 0, "wf": 0, "down": 0}
+            if all(md(pre + k) == d for k, d in want.items()) and \
+                    whole(pre + "fb", 0) % m == 0:
+                keep |= {pre + k for k in want}
+        elif kind == "slstm" and leaf == "wx":
+            if md(path) == 1 and md(pre + "r") == 2 and 4 % m == 0 and \
+                    whole(pre + "r", 0) == 4:
+                keep |= {path, pre + "r"} | {
+                    pre + k for k in ("ffn_wi", "ffn_wo")
+                    if md(pre + k) is not None}
         elif not head and leaf in ("embed", "lm_head") and md(path) == 0:
             keep.add(path)
 
@@ -609,29 +632,39 @@ def _mixer_params(p, cfg: ModelConfig, kind: str) -> dict:
         return pm
     if kind == "mlstm":
         px = dict(p["xl"])
-        px["up"] = px["up"].reshape(cfg.d_model, 2 * cfg.xlstm.m_inner)
+        px["up"] = px["up"].reshape(cfg.d_model, -1)
         return px
     return p["slstm"]
 
 
 def recurrent_blocks(p, cfg: ModelConfig, kind: str) -> bool:
     """Whether a recurrent position's weights are this rank's model-axis
-    blocks (:func:`tp_specs` kept them): Mamba channel-parallel; the
-    xLSTM cells never."""
-    return kind == "mamba" and \
-        p["mamba"]["out_proj"].shape[0] != cfg.mamba.ed
+    blocks (:func:`tp_specs` kept them): Mamba channel-parallel, the
+    xLSTM cells head-parallel (models/xlstm.py)."""
+    if kind == "mamba":
+        return p["mamba"]["out_proj"].shape[0] != cfg.mamba.ed
+    if kind == "mlstm":
+        return p["xl"]["down"].shape[0] != cfg.xlstm.m_inner
+    return p["slstm"]["wx"].shape[1] != 4 * cfg.d_model
+
+
+def recurrent_partial(p, cfg: ModelConfig, kind: str) -> bool:
+    """Whether a block-wise recurrent position's output is this rank's
+    partial sum: always but for an sLSTM whose ``ffn_wo`` is not a block
+    of its rows."""
+    return kind != "slstm" or ffn_partial(p["slstm"], cfg.xlstm)
 
 
 def _recurrent_forward(p, h, cfg: ModelConfig, kind: str, tp=None):
     """(y, final state) of a recurrent block over ``h`` (B, S, d); with
-    ``tp`` (Mamba's weights this rank's blocks) the rank's partial ``y``
-    and its block of the state."""
+    ``tp`` (the weights this rank's blocks) the rank's ``y``
+    (:func:`recurrent_partial`) and its block of the state."""
     pm = _mixer_params(p, cfg, kind)
     if kind == "mamba":
         return mamba_forward(pm, h, cfg.mamba, chunk=cfg.ssm_chunk, tp=tp)
     if kind == "mlstm":
-        return mlstm_forward(pm, h, cfg.xlstm)
-    return slstm_forward(pm, h, cfg.xlstm)
+        return mlstm_forward(pm, h, cfg.xlstm, tp=tp)
+    return slstm_forward(pm, h, cfg.xlstm, tp=tp)
 
 
 def _position_apply(p, x, positions, *, cfg: ModelConfig, ctx, i: int,
@@ -651,7 +684,8 @@ def _position_apply(p, x, positions, *, cfg: ModelConfig, ctx, i: int,
             block = recurrent_blocks(p, cfg, kind)
             y, state = _recurrent_forward(p, tp_enter(h, ctx), cfg, kind,
                                           ctx if block else None)
-            y = tp_leave(y, ctx, partial=block)
+            y = tp_leave(y, ctx, partial=block and recurrent_partial(
+                p, cfg, kind))
         else:
             y, state = _recurrent_forward(p, h, cfg, kind)
         x = x + y
@@ -818,7 +852,7 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
     top = {k: local[k] for k in local if k != "blocks"}
     top_specs = {k: specs[k] for k in top}
     if rl.tp is not None:
-        top_specs = tp_specs(top, top_specs, ctx.model_axis)
+        top_specs = tp_specs(top, top_specs, ctx)
     whole = sharding.gather_tree(top, top_specs, mesh,
                                  reduce=_reduce_axes(ctx, rl))
     x = _embed_inputs(whole, batch, cfg, rl)
@@ -829,7 +863,7 @@ def _rank_forward(local, specs, batch, cfg: ModelConfig, ctx, mode: str):
                                  specs["blocks"])
     if rl.tp is not None:
         sb_specs = tp_specs(tree_map(lambda a: a[0], local["blocks"]),
-                            sb_specs, ctx.model_axis)
+                            sb_specs, ctx)
     fn = functools.partial(_rank_superblock, specs=sb_specs, ctx=ctx, rl=rl,
                            cfg=cfg, positions=positions, mode=mode)
     states = []
@@ -866,7 +900,7 @@ def _stacked_tp_specs(local, specs, ctx):
     from repro_torch.dist import sharding
     from repro_torch.dist.sharding import P
     per = sharding.tree_map(lambda a, sp: P(*sp[1:]), local, specs)
-    one = tp_specs(tree_map(lambda a: a[0], local), per, ctx.model_axis)
+    one = tp_specs(tree_map(lambda a: a[0], local), per, ctx)
     return sharding.tree_map(
         lambda a, sp, p1, p2: sp if p1 == p2 else P(None, *p2), local,
         specs, per, one)
@@ -880,7 +914,7 @@ def _encdec_tp_specs(local, specs, ctx):
     top = [k for k in ("embed", "final_norm", "lm_head") if k in local]
     out = dict(specs)
     out.update(tp_specs({k: local[k] for k in top},
-                        {k: specs[k] for k in top}, ctx.model_axis))
+                        {k: specs[k] for k in top}, ctx))
     for k in ("blocks", "cross"):
         out[k] = _stacked_tp_specs(local[k], specs[k], ctx)
     out["encoder"] = dict(specs["encoder"], blocks=_stacked_tp_specs(
@@ -891,30 +925,60 @@ def _encdec_tp_specs(local, specs, ctx):
 def _place_states(states: dict, cfg: ModelConfig, ctx) -> dict:
     """A mesh prefill's cache states placed: on their batch over the data
     axes (dim 1 of a stacked ``(NS, B, ...)`` leaf, dim 0 of
-    ``enc_out``), and a recurrent state a block-wise mixer returned
-    (this rank's block of Mamba's channels) also on that dim over the
-    model axis: the recurrent states as the decode step keeps them
-    (``serve/engine.step_specs``)."""
+    ``enc_out``), and a recurrent state also over the model axis, as
+    ``serve/engine.cache_specs`` places it (:func:`cache_model_dim`): the
+    rank's block a block-wise mixer returned (on ``STATE_BLOCK_DIMS``'
+    dim; re-laid by one ``all_to_all`` where the rule picks another, as
+    for the mLSTM's ``C``), or its block cut from the whole state a mixer
+    on whole weights returned."""
     from repro_torch.dist import sharding
     out = {}
     for key, v in states.items():
-        if key == "enc_out":
-            out[key] = _place_batch(v, ctx, 0)
+        kind = "enc" if key == "enc_out" else \
+            cfg.block_pattern[int(key[3:])]
+        if kind not in RECURRENT:
+            out[key] = sharding.tree_map(
+                lambda a: _place_batch(a, ctx, int(kind != "enc")), v)
             continue
-        kind = cfg.block_pattern[int(key[3:])]
-        dims = STATE_BLOCK_DIMS.get(kind)
-        if dims is None or v[0].shape[dims[0] + 1] == cfg.mamba.ed:
-            out[key] = sharding.tree_map(lambda a: _place_batch(a, ctx, 1),
-                                         v)
-            continue
+        dims = STATE_BLOCK_DIMS[kind]
+        whole = {"mamba": lambda: cfg.mamba.ed,
+                 "mlstm": lambda: cfg.xlstm.n_heads,
+                 "slstm": lambda: cfg.d_model}[kind]()
+        block = v[0].shape[dims[0] + 1] != whole
 
         def one(a, d):
+            shape = list(a.shape)
+            if block:
+                shape[d + 1] *= ctx.model_size
+            md = cache_model_dim(shape, ctx)
+            if block and md != d + 1:
+                a = sharding.reshard(a, ctx.mesh, ctx.model_axis, d + 1, md)
+            elif not block and md is not None:
+                a = sharding.local_block(a, ctx.mesh, sharding.P(
+                    *[None] * md, ctx.model_axis))
             parts = [None, *ctx.batch_spec()] + [None] * (a.ndim - 2)
-            parts[d + 1] = ctx.model_axis
+            if md is not None:
+                parts[md] = ctx.model_axis
             return sharding.from_local(a, ctx.mesh, sharding.P(*parts))
 
         out[key] = type(v)(*(one(a, d) for a, d in zip(v, dims)))
     return out
+
+
+def cache_model_dim(shape, ctx):
+    """The dim of a stacked ``(NS, B, ...)`` cache leaf the model axis
+    shards, by the reference's rules (``serve/engine.cache_specs``): a
+    5-D leaf as a KV leaf ``(NS, B, S, K, 2D)``, its dim 3 where the axis
+    divides it, else its dim 2 (the mLSTM's ``C``, ``(NS, B, H, dh, dh)``,
+    falls under this rule: its first ``dh``); any other leaf its first
+    dim after the batch the axis divides; None without a model axis or
+    where none divides."""
+    if not ctx.model_axis:
+        return None
+    m = ctx.model_size
+    dims = (3, 2) if len(shape) == 5 else range(2, len(shape))
+    return next((i for i in dims if shape[i] % m == 0 and shape[i] >= m),
+                None)
 
 
 def _whole(t, ctx):
@@ -932,9 +996,10 @@ def _whole(t, ctx):
 # ---------------------------------------------------------------------------
 
 def label_logprob_terms(logits: torch.Tensor, labels: torch.Tensor):
-    """(lse, ll) in float32, the label's logit taken by a one-hot
-    reduction over the vocab axis (no gather), as the reference does."""
-    logits = logits.float()
+    """(lse, ll) in float32 (float64 logits: float64), the label's logit
+    taken by a one-hot reduction over the vocab axis (no gather), as the
+    reference does."""
+    logits = layers.wide(logits)
     lse = torch.logsumexp(logits, dim=-1)
     onehot = labels[..., None] == torch.arange(
         logits.shape[-1], dtype=labels.dtype, device=logits.device)
@@ -947,6 +1012,7 @@ def _xent_chunk(x, head, labels, w, rl=None):
     logits = layers.unembed(x, head)
     lse, ll = (label_logprob_terms(logits, labels) if rl is None
                else _vocab_parallel_terms(logits, labels, rl))
+    w = w.to(lse.dtype)   # float64 logits: the weights' sum in float64 too
     return torch.sum((lse - ll) * w), torch.sum(w)
 
 
@@ -955,10 +1021,10 @@ def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor, rl):
     logits (rows ``[i n, (i + 1) n)`` of the vocab): ``lse = m + log(
     psum(sum(exp(logits - m))))`` with ``m`` the ``pmax`` of the detached
     logits, ``ll`` the ``psum`` of the one-hot sum over the block; each in
-    float32, no whole-vocab gather."""
+    float32 (float64 logits: float64), no whole-vocab gather."""
     from repro_torch.dist import sharding
     mesh, axis = rl.tp.mesh, rl.tp_axis
-    logits = logits.float()
+    logits = layers.wide(logits)
     n = logits.shape[-1]
     m = sharding.pmax(torch.amax(logits.detach(), dim=-1), mesh, axis)
     s = torch.sum(torch.exp(logits - m[..., None]), dim=-1)

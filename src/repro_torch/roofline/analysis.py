@@ -43,7 +43,7 @@ _WIRE_FACTOR = {"all-reduce": 2.0, "all-gather": 1.0, "reduce-scatter": 1.0,
 #: reference's program lowers them to.
 _KIND = {"psum": "all-reduce", "pmax": "all-reduce",
          "all_gather": "all-gather", "psum_scatter": "reduce-scatter",
-         "ppermute": "collective-permute"}
+         "all_to_all": "all-to-all", "ppermute": "collective-permute"}
 
 
 def _dtype_bytes(dtype: str) -> int:

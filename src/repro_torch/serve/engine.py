@@ -18,7 +18,7 @@ the KV leaves per :func:`cache_specs`: its block of the KV heads over
 the model axis, attended head-parallel, or of the sequence, attended by
 the distributed softmax); :func:`jit_prefill` runs the mesh forward
 (``models/transformer.forward``: each rank its batch block, the
-recurrent states returned placed as :func:`step_specs` says).
+recurrent states returned placed as :func:`cache_specs` says).
 ``BatchedServer`` with a mesh runs the paged scheduler on every rank,
 unsharded, as the reference's does (its scheduler takes no mesh).
 :func:`make_fleet` puts N scheduler replicas behind the
@@ -41,7 +41,7 @@ from repro_torch.device import resolve as resolve_device
 from repro_torch.dist import sharding
 from repro_torch.dist.sharding import P
 from repro_torch.models import decode as dec
-from repro_torch.models.transformer import (STATE_BLOCK_DIMS, ModelConfig,
+from repro_torch.models.transformer import (ModelConfig, cache_model_dim,
                                             check_supported, forward,
                                             rank_ctx, tp_on)
 
@@ -68,7 +68,8 @@ def cache_specs(cfg: ModelConfig, ctx, scfg: ServeConfig, cache_template):
       axis when it divides them, else the sequence over it;
     * ``len`` replicates; a recurrent state ``(NS, B, inner...)`` puts
       the batch over the data axes and its first inner dim the model
-      axis divides over it."""
+      axis divides over it, but a 5-D one (the mLSTM's ``C``), which the
+      rules take for a KV leaf (``transformer.cache_model_dim``)."""
     if ctx is None or ctx.mesh is None:
         return None
 
@@ -86,46 +87,17 @@ def cache_specs(cfg: ModelConfig, ctx, scfg: ServeConfig, cache_template):
                                                            axes) == 0:
                 return P(None, None, axes)
             return P()
-        if leaf.ndim == 5:  # (NS, B, S, K, 2D)
-            k, s = leaf.shape[3], leaf.shape[2]
-            if ctx.model_axis and k % ctx.model_size == 0:
-                return P(None, batch_axes, None, ctx.model_axis)
-            if ctx.model_axis and s % ctx.model_size == 0:
-                return P(None, batch_axes, ctx.model_axis)  # seq-sharded
-            return P(None, batch_axes)
+        md = cache_model_dim(leaf.shape, ctx)
+        if leaf.ndim == 5:  # (NS, B, S, K, 2D): the KV heads, else the seq
+            return P(None, batch_axes, *[None] * (md - 2), ctx.model_axis) \
+                if md is not None else P(None, batch_axes)
         # (NS, B, inner...) recurrent state
         parts = [None, batch_axes] + [None] * (leaf.ndim - 2)
-        if ctx.model_axis:
-            for i in range(2, leaf.ndim):
-                if leaf.shape[i] % ctx.model_size == 0 and \
-                        leaf.shape[i] >= ctx.model_size:
-                    parts[i] = ctx.model_axis
-                    break
+        if md is not None:
+            parts[md] = ctx.model_axis
         return P(*parts)
 
     return sharding.tree_paths(cache_template, spec_for)
-
-
-def step_specs(cfg: ModelConfig, ctx, scfg: ServeConfig, cache_template):
-    """The placement a mesh decode step keeps its cache in (``None``
-    without a mesh): :func:`cache_specs`, except that a recurrent state
-    whose mixer steps it whole (the xLSTM cells, whose weights stay whole
-    under tensor parallelism) stays whole over the model axis.  Placed as
-    the reference places it, such a state would be gathered before every
-    step and cut back after it, buying only its memory; Mamba steps the
-    rank's block of its channels (``transformer.STATE_BLOCK_DIMS``), as
-    :func:`cache_specs` places it."""
-    specs = cache_specs(cfg, ctx, scfg, cache_template)
-    if specs is None or not ctx.model_axis:
-        return specs
-
-    def whole(sp):
-        return P(*(None if a == ctx.model_axis else a for a in sp))
-
-    return {**specs, "blocks": {
-        k: sharding.map_specs(whole, v)
-        if cfg.block_pattern[int(k[3:])] not in ("attn", *STATE_BLOCK_DIMS)
-        else v for k, v in specs["blocks"].items()}}
 
 
 def serve_param_shardings(params_template, cfg: ModelConfig, ctx):
@@ -154,14 +126,13 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
     ctx.vx_seq_shard(-3)``.  A leaf already placed so is taken as it is;
     place the weights once (``dist.sharding.place_tree``) to keep only
     their blocks resident.  The logits come back whole on every rank.
-    Recurrent state leaves are placed as :func:`step_specs` says: Mamba's
-    as :func:`cache_specs` says (its channels over the model axis; it
-    steps the rank's block, channel-parallel), the xLSTM cells' on their
-    batch only (they step whole state on whole weights).
+    Recurrent state leaves are placed as :func:`cache_specs` says too:
+    Mamba's channels and the xLSTM cells' heads over the model axis, each
+    rank stepping its block (channel- and head-parallel).
 
     With a mesh and without ``scfg.long_context`` (the batch-sharded
     step) each rank steps its block of the batch over the data axes: the
-    token and the cache leaves (:func:`step_specs`, the recurrent states
+    token and the cache leaves (:func:`cache_specs`, the recurrent states
     among them) are its blocks, the logits come back placed on the
     batch.  KV leaves whose heads the
     model axis splits are attended head-parallel (each rank its heads,
@@ -194,7 +165,7 @@ def jit_decode_step(cfg: ModelConfig, ctx, scfg: ServeConfig,
             placed["params"] = serve_param_shardings(
                 params_template if params_template is not None else params,
                 cfg, param_ctx or ctx)
-            placed["cache"] = sharding.spec_tree_shardings(step_specs(
+            placed["cache"] = sharding.spec_tree_shardings(cache_specs(
                 cfg, ctx, scfg, cache_template if cache_template is not None
                 else cache), ctx)
         return placed["params"], placed["cache"]
@@ -285,7 +256,7 @@ def jit_prefill(cfg: ModelConfig, ctx, params_template=None,
     tree; a leaf already so placed is taken as it is) and the mesh
     forward runs: each rank prefills its block of the batch over the
     data axes, and the logits and cache states come back placed on their
-    batch, the recurrent states as :func:`step_specs` places them (the
+    batch, the recurrent states as :func:`cache_specs` places them (the
     model layer places them: ``transformer._place_states``)."""
     check_supported(cfg)
     device = resolve_device(device)

@@ -526,7 +526,7 @@ def _prefill_then_decode(out, name, cfg, params, batch, ctx) -> None:
     process and on ``ctx``'s mesh, then three greedy ``jit_decode_step``
     steps from each prefill's cache (the mesh's recurrent states as the
     prefill placed them, its KV gathered): the logits, the states
-    (gathered), whether the mesh's states are placed as ``step_specs``
+    (gathered), whether the mesh's states are placed as ``cache_specs``
     says, and the greedy tokens."""
     import torch
     from repro_torch.dist import sharding
@@ -541,7 +541,7 @@ def _prefill_then_decode(out, name, cfg, params, batch, ctx) -> None:
                if cfg.block_pattern[int(k[3:])] != "attn"}
         if c is not None:
             out[f"{name}/prefill/placed_ok"] = np.asarray(_placed_as(
-                rec, engine.step_specs(cfg, ctx, scfg,
+                rec, engine.cache_specs(cfg, ctx, scfg,
                                        {"blocks": rec})["blocks"]))
         out[f"{name}/prefill/{tag}/logits"] = _np(logits)
         _put(out, f"{name}/prefill/{tag}/states", rec)
@@ -576,8 +576,9 @@ def check_family_losses(inp: dict) -> dict:
     over the data axes and, the layers tensor-parallel, the model axis,
     whole) beside the one-process port's; three greedy batch-sharded
     decode steps beside the one-process steps, with the cache's placement
-    against ``step_specs`` and ``cache_specs`` and the recurrent state
-    bytes a rank holds; for the recurrent stacks ``LONG_GEN``
+    against ``cache_specs`` and the recurrent state bytes a rank holds;
+    xlstm's float64 partition arm (:func:`_xlstm_float64`); for the
+    recurrent stacks ``LONG_GEN``
     long-context (B 1) steps, and the mesh ``jit_prefill`` of
     ``PREFILL_LEN`` tokens (its states' placement, the logits and states
     gathered) and three greedy batch-sharded steps from its cache beside
@@ -646,12 +647,10 @@ def check_family_losses(inp: dict) -> dict:
             out[f"{name}/serve/{tag}"] = np.stack(logits)
             out[f"{name}/serve/{tag}/tokens"] = np.stack(toks)
         if cfg.encoder is None:
-            # the mesh step's cache as it placed it: step_specs (Mamba's
-            # state a rank's block of its channels, as cache_specs says;
-            # the xLSTM cells' whole over the model axis)
+            # the mesh step's cache as it placed it: cache_specs (Mamba's
+            # state a rank's block of its channels, the xLSTM cells' of
+            # their heads and channels)
             out[f"{name}/serve/placed_ok"] = np.asarray(
-                _placed_as(cache, engine.step_specs(cfg, ctx, scfg, cache)))
-            out[f"{name}/serve/as_cache_specs"] = np.asarray(
                 _placed_as(cache, engine.cache_specs(cfg, ctx, scfg, cache)))
             out[f"{name}/serve/state_paths"], out[
                 f"{name}/serve/state_bytes"] = _mixer_bytes(cache["blocks"],
@@ -673,8 +672,10 @@ def check_family_losses(inp: dict) -> dict:
             out[f"{name}/long"] = np.stack(logits)
             out[f"{name}/long/tokens"] = np.stack(toks)
             out[f"{name}/long/placed_ok"] = np.asarray(
-                _placed_as(cache, engine.step_specs(cfg, lctx, long, cache)))
+                _placed_as(cache, engine.cache_specs(cfg, lctx, long, cache)))
             _prefill_then_decode(out, name, cfg, params, batch, ctx)
+        if cfg.xlstm is not None:
+            _xlstm_float64(out, cfg, _tree_from(inp, f"{name}/params"), batch)
         if any(cfg.moe_pattern):
             pos = f"pos{list(cfg.moe_pattern).index(True)}"
             pm = sharding.tree_map(lambda a: a[0],
@@ -716,6 +717,136 @@ def check_family_losses(inp: dict) -> dict:
     return out
 
 
+#: xlstm's float64 partition arm: the meshes of its mesh loss and decode
+#: steps (the mutants run on the first).
+XLSTM64_MESHES = ((2, 4), (4, 2))
+XLSTM64_MUTANTS = ("mlstm_down_twice", "slstm_blocks_swapped")
+
+
+def _grad_gaps(mesh_grads, one_grads) -> tuple:
+    """``(paths, gaps)``: for each gradient leaf ``max |mesh - one| /
+    max |one|`` (float64)."""
+    from repro_torch.dist import sharding
+    paths, gaps = [], []
+    for (path, a), (_, b) in zip(sharding._leaves_with_path(mesh_grads),
+                                 sharding._leaves_with_path(one_grads)):
+        a, b = sharding.full_tensor(a).double(), b.double()
+        paths.append("/".join(path))
+        gaps.append(float((a - b).abs().max()
+                          / b.abs().max().clamp_min(1e-300)))
+    return np.asarray(paths), np.asarray(gaps)
+
+
+@contextlib.contextmanager
+def _xlstm_mutant(name):
+    """A partition fault in the xLSTM cells: ``mlstm_down_twice`` adds
+    the mLSTM's partial output (``down``'s product on the rank's rows) to
+    itself before it leaves, so the model axis sums it twice;
+    ``slstm_blocks_swapped`` swaps the first two ranks' blocks of the
+    sLSTM's ``all_to_all``, so those ranks step on each other's channels'
+    input projections."""
+    from unittest import mock
+    from repro_torch.dist import sharding
+    from repro_torch.models import transformer
+    if name == "mlstm_down_twice":
+        orig = transformer.mlstm_forward
+
+        def mlstm(*a, **kw):
+            y, st = orig(*a, **kw)
+            return (y + y if kw.get("tp") is not None else y), st
+
+        with mock.patch.object(transformer, "mlstm_forward", mlstm):
+            yield
+        return
+    orig = sharding.all_to_all
+
+    def swapped(x, mesh, axis, dim):
+        y = orig(x, mesh, axis, dim)
+        idx = torch.arange(y.shape[dim])
+        idx[:2] = torch.tensor([1, 0])
+        return y.index_select(dim, idx)
+
+    with mock.patch.object(sharding, "all_to_all", swapped):
+        yield
+
+
+def _xlstm_float64(out: dict, cfg, tree: dict, batch: dict) -> None:
+    """xlstm's partition arm in float64: the reference's smoke weights
+    (``tree``) converted to float64, ``param_dtype = compute_dtype =
+    "float64"``.  On each of ``XLSTM64_MESHES`` the mesh loss and its
+    gradients (reduced as the train step reduces them) beside the
+    one-process port's (each leaf's largest gap over its largest entry),
+    the model-axis weight shapes among its collectives, and three greedy
+    batch-sharded decode steps beside the one-process steps; the same
+    mesh loss under each of ``XLSTM64_MUTANTS`` on the first mesh; and a
+    d_model 48 variant (seeded port weights) whose sLSTM FFN splits as
+    xlstm-125m's does (``ffn_wi`` on its columns, ``ffn_wo`` on its
+    rows), its mesh loss and gradients on the first mesh."""
+    import dataclasses
+    from repro_torch.dist import sharding
+    from repro_torch.launch.mesh import make_ctx, make_test_mesh
+    from repro_torch.models import decode as dec
+    from repro_torch.models import transformer
+    from repro_torch.models.xlstm import XLSTMSpec
+    from repro_torch.serve import engine
+    from repro_torch.train import state as tstate
+    from repro_torch.train.step import _loss_and_grads
+    cfg = dataclasses.replace(cfg, param_dtype="float64",
+                              compute_dtype="float64")
+    params = transformer.params_from_jax(sharding.tree_map(
+        lambda a: np.asarray(a, np.float64), tree), cfg, device="cpu")
+    wide = dataclasses.replace(cfg, d_model=48, head_dim=12,
+                               xlstm=XLSTMSpec(d_model=48, n_heads=4))
+    first = "x".join(map(str, XLSTM64_MESHES[0]))
+    arms = [("x".join(map(str, sh)), cfg, params, sh, None)
+            for sh in XLSTM64_MESHES]
+    arms += [(f"{first}/{mut}", cfg, params, XLSTM64_MESHES[0], mut)
+             for mut in XLSTM64_MUTANTS]
+    arms.append(("d48", wide, transformer.init_params(wide, 0, device="cpu"),
+                 XLSTM64_MESHES[0], None))
+    ones = {}
+    for tag, c, p, shape, mut in arms:
+        pre = f"xlstm64/{tag}"
+        if c.d_model not in ones:
+            ones[c.d_model] = _loss_and_grads(p, batch, c, None)
+        _, m1, g1 = ones[c.d_model]
+        ctx = make_ctx(make_test_mesh(shape, ("data", "model"),
+                                      device="cpu"))
+        psh = tstate.state_shardings({"params": p, "opt": {}}, ctx)
+        leaves = _dtensor_leaves(p, psh["params"])
+        sharding.LOG.reset()
+        with contextlib.ExitStack() as stack:
+            if mut is not None:
+                stack.enter_context(_xlstm_mutant(mut))
+            with torch.enable_grad():
+                loss, m = transformer.loss_fn(leaves, batch, c, ctx)
+                loss.backward()
+        seen = sharding.LOG.shapes() & _weight_shapes(p, psh["params"],
+                                                       ctx.model_size)
+        out[f"{pre}/weights_in_log"] = np.asarray(
+            sorted(str(x) for x in seen) or [""])
+        out[f"{pre}/loss"] = np.asarray([float(m["loss"]),
+                                         float(m1["loss"])])
+        out[f"{pre}/paths"], out[f"{pre}/gaps"] = _grad_gaps(
+            _reduced_grads(leaves, ctx), g1)
+        if mut is not None or c is wide:
+            continue
+        scfg = engine.ServeConfig(max_len=16)
+        for arm, cc in (("one", None), ("mesh", ctx)):
+            step = engine.jit_decode_step(c, cc, scfg, device="cpu")
+            cache = dec.init_cache(c, 4, 16, device="cpu")
+            tok = batch["tokens"][:, 0]
+            logits, toks = [], []
+            for _ in range(3):
+                lg, cache = step(p, cache, tok)
+                lg = sharding.full_tensor(lg)
+                logits.append(lg.numpy())
+                tok = torch.argmax(lg, -1).to(torch.int32)
+                toks.append(tok.numpy())
+            out[f"{pre}/serve/{arm}"] = np.stack(logits)
+            out[f"{pre}/serve/{arm}/tokens"] = np.stack(toks)
+
+
 #: The tensor-parallel checks: (arch, mesh) on 8 ranks.  On (2, 4) the
 #: smoke configs' 2 KV heads do not split 4 ways (every rank keeps both),
 #: and starcoder2-smoke's 6 heads do not either (every rank attends every
@@ -724,7 +855,7 @@ TP_CASES = (("qwen3-0.6b", (2, 4)), ("qwen3-0.6b", (4, 2)),
             ("qwen3-moe-30b-a3b", (2, 4)), ("qwen3-moe-30b-a3b", (4, 2)),
             ("starcoder2-3b", (2, 4)),
             ("jamba-1.5-large-398b", (2, 4)), ("jamba-1.5-large-398b", (4, 2)),
-            ("xlstm-125m", (2, 4)),
+            ("xlstm-125m", (2, 4)), ("xlstm-125m", (4, 2)),
             ("whisper-tiny", (2, 4)), ("whisper-tiny", (4, 2)))
 #: The replicated leaves whose gradient the train step sums over the
 #: model axis (the mutation check's): qwen3's norm gains and the vectors
@@ -732,9 +863,6 @@ TP_CASES = (("qwen3-0.6b", (2, 4)), ("qwen3-0.6b", (4, 2)),
 NORMS = ("ln1", "ln2", "attn/q_norm", "attn/k_norm", "final_norm")
 CUT = ("mamba/conv_b", "mamba/dt_bias", "mamba/D")
 MUTATIONS = {"qwen3-0.6b/2x4": NORMS, "jamba-1.5-large-398b/2x4": CUT}
-#: The xLSTM cells' subtrees: their layers take the leaves the rules
-#: place on the model axis whole, gathered.
-XLSTM = ("/xl/", "/slstm/")
 
 
 def _stacked(path) -> bool:
@@ -770,8 +898,8 @@ def _weight_shapes(params, psh, model: int, only=None) -> set:
 
 
 #: The mixers whose weights a rank holds as its model-axis blocks:
-#: Mamba's channels.
-MIXERS = ("/mamba/",)
+#: Mamba's channels, the mLSTM's heads, the sLSTM's channels.
+MIXERS = ("/mamba/", "/xl/", "/slstm/")
 
 
 def _mixer_bytes(tree, mesh) -> tuple:
@@ -806,9 +934,8 @@ def check_tp_losses(inp: dict) -> dict:
     ``ref``), the loss, aux and every gradient leaf (reduced as the train
     step reduces them, whole), and the shapes of model-sharded weights
     among the collectives and packed gathers of its forward and backward
-    (``LOG``), with the whole shapes of the xLSTM cells' placed leaves;
-    for jamba the bytes of the Mamba leaves placed on the model axis a
-    rank holds (:func:`_mixer_bytes`).  On qwen3-0.6b
+    (``LOG``); for jamba and xlstm the bytes of the mixers' leaves placed
+    on the model axis a rank holds (:func:`_mixer_bytes`).  On qwen3-0.6b
     and jamba (2, 4) also the train step's own gradient reduction
     (``train/step._reduce_grads``) of the replicated leaves (the norm
     gains; the vectors a Mamba layer cuts to a rank's channels) with and
@@ -845,18 +972,10 @@ def check_tp_losses(inp: dict) -> dict:
         out[f"{tag}/weights_in_log"] = np.asarray(
             sorted(str(x) for x in seen) or [""])
         out[f"{tag}/leaves_gathered"] = np.asarray(len(sharding.LOG.leaves))
-        # the whole shapes (a superblock's) of the xLSTM cells' placed
-        # leaves
-        out[f"{tag}/xlstm_whole"] = np.asarray(sorted({
-            str(tuple(leaf.shape[1:])) for (path, leaf), where in zip(
-                sharding._leaves_with_path(params),
-                sharding._sharding_leaves(sh["params"]))
-            if any(c in "/" + "/".join(path) + "/" for c in XLSTM)
-            and sharding.is_sharded(where.spec)}) or [""])
         out[f"{tag}/loss"] = m["loss"].detach().numpy()
         out[f"{tag}/aux"] = m["aux"].detach().numpy()
         _put(out, f"{tag}/grads", _reduced_grads(leaves, ctx))
-        if cfg.mamba is not None:
+        if cfg.mamba is not None or cfg.xlstm is not None:
             out[f"{tag}/mixer_paths"], out[f"{tag}/mixer_bytes"] = \
                 _mixer_bytes(leaves, ctx.mesh)
         if tag not in MUTATIONS:
